@@ -1,0 +1,122 @@
+"""Engine configuration (copy of ``llmd_tpu/engine/config.py``, same field names).
+
+Every field of the reference exists so configs carry over unchanged, but this
+slice of the port reads only the fields in :data:`SERVED`.
+:meth:`EngineConfig.check_served` (called at engine construction) raises for
+any other field set away from its default, so no option is silently ignored.
+The defaults of the reference's pipelined dispatch (``pipeline_*``,
+``pack_overlap``) are accepted as they are; the port's step loop is
+synchronous either way (ROADMAP Queue A item 13).
+"""
+
+from __future__ import annotations
+
+from dataclasses import MISSING, dataclass, field, fields
+from typing import Optional
+
+
+@dataclass
+class MeshConfig:
+    """Mesh axis sizes (copy of ``llmd_tpu/parallel/mesh.py::MeshConfig``)."""
+
+    dp: int = 1
+    ep: int = 1
+    tp: int = 1
+    sp: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.dp * self.ep * self.tp * self.sp
+
+
+@dataclass
+class EngineConfig:
+    # Paged KV cache (page_size is the reference's --block-size contract).
+    page_size: int = 16
+    num_pages: int = 512
+    max_model_len: int = 2048
+    # Continuous batching
+    max_batch_size: int = 8  # decode slots
+    prefill_chunk: int = 128  # per-sequence chunked-prefill cap per step
+    # Flat token budget of the unified step (--max-num-batched-tokens); None =
+    # max(prefill_chunk, max_batch_size).
+    max_num_batched_tokens: "int | None" = None
+    enable_prefix_caching: bool = True
+    # Parallelism (one device in this slice)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    dp_ranks: int = 1
+    # Scheduling
+    max_queue: int = 1024
+    # Multi-step decode: N decode iterations per host round trip.
+    decode_steps: int = 1
+    # Pipelined dispatch of the reference (not served: the port's step loop is
+    # synchronous; the defaults are accepted, other values raise).
+    pipeline_decode: bool = True
+    pipeline_depth: int = 2
+    pipeline_prefill_sample: bool = True
+    # KV offload tiers / connectors (later slices)
+    cpu_offload_pages: int = 0
+    offload_staging_blocks: int = 16
+    offload_watermark_pages: int = 8
+    offload_fs_path: "str | None" = None
+    kv_connector: "str | None" = None
+    kv_connector_params: "dict | None" = None
+    # P/D role
+    role: str = "both"
+    # Attention: "auto" = the CUDA kernel on a card, its plain version for CPU
+    # tensors (the only value the port takes).
+    attn_impl: str = "auto"
+    attn_tune_file: "str | None" = None
+    sp_ring_attention: bool = True
+    instrument: bool = False
+    moe_matmul: str = "auto"
+    moe_dispatch: str = "auto"
+    quantize_weights: "str | None" = None
+    kv_cache_dtype: "str | None" = None
+    kv_layout: str = "auto"
+    eplb: Optional[object] = None
+    lora: "object | None" = None
+    spec_mode: str = "off"
+    spec_tokens: int = 4
+    spec_ngram_max: int = 3
+    spec_ngram_min: int = 1
+    structured_mode: str = "auto"
+    pack_overlap: bool = True
+    structured_fused_decode: bool = True
+    structured_table_max_elems: int = 1 << 23
+    spec_structured: bool = True
+    spec_structured_crosscheck: bool = False
+
+    @property
+    def max_pages_per_seq(self) -> int:
+        return (self.max_model_len + self.page_size - 1) // self.page_size
+
+    @property
+    def batched_tokens(self) -> int:
+        if self.max_num_batched_tokens is not None:
+            return max(self.max_num_batched_tokens, self.max_batch_size)
+        return max(self.prefill_chunk, self.max_batch_size)
+
+    def check_served(self) -> None:
+        """Raise ValueError for a field this slice does not read that is set
+        away from its default, or for an attention impl other than 'auto'."""
+        bad = []
+        for f in fields(self):
+            if f.name in SERVED:
+                continue
+            default = f.default_factory() if f.default is MISSING else f.default
+            if getattr(self, f.name) != default:
+                bad.append(f.name)
+        if bad:
+            raise ValueError(f"EngineConfig options {bad} are not served by the "
+                             "port yet (see ROADMAP.md Queue A)")
+        if self.attn_impl != "auto":
+            raise ValueError(f"attn_impl={self.attn_impl!r}: the port has one "
+                             "attention path, 'auto' (the kernel on a card)")
+
+
+# The fields this slice of the port reads; every other one must keep its default.
+SERVED = frozenset({
+    "page_size", "num_pages", "max_model_len", "max_batch_size", "prefill_chunk",
+    "max_num_batched_tokens", "enable_prefix_caching", "decode_steps", "attn_impl",
+})

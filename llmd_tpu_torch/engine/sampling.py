@@ -1,0 +1,48 @@
+"""Batched sampler: greedy / temperature / top-k / top-p (port of
+``llmd_tpu/engine/sampling.py``).
+
+Per-row parameters arrive as tensors so a mixed batch (greedy + sampled rows)
+is one call. Draws come from an explicit ``torch.Generator``; its numbers differ
+from ``jax.random``'s, so sampled streams are held to distributional checks,
+while greedy is bitwise the reference's argmax over float32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def greedy_tokens(logits: torch.Tensor) -> torch.Tensor:
+    """Greedy token per row: argmax over float32 logits (int32)."""
+    return torch.argmax(logits.float(), dim=-1).to(torch.int32)
+
+
+def sample_tokens(
+    logits: torch.Tensor,  # [B, V]
+    generator: torch.Generator,
+    temperature: torch.Tensor,  # [B] (0 = greedy)
+    top_k: torch.Tensor,  # [B] int (0 = disabled)
+    top_p: torch.Tensor,  # [B] (1.0 = disabled)
+    top_k_max: int = 64,
+) -> torch.Tensor:
+    """Sampled token ids [B] (int32), the reference's algorithm: the top
+    ``top_k_max`` candidates once, per-row k masking inside them, top-p over
+    the sorted candidates (keep until the mass is reached, first always kept),
+    then one categorical draw."""
+    logits = logits.float()
+    B, V = logits.shape
+    greedy = torch.argmax(logits, dim=-1)
+    temp = temperature.float().clamp(min=1e-6)[:, None]
+    scaled = logits / temp
+    topv, topi = torch.topk(scaled, min(top_k_max, V), dim=-1)  # sorted, [B, K]
+    K = topv.shape[1]
+    ranks = torch.arange(K, device=logits.device)[None, :]
+    k_eff = torch.where(top_k > 0, top_k.clamp(max=K), K)[:, None]
+    topv = topv.masked_fill(ranks >= k_eff, float("-inf"))
+    probs = torch.softmax(topv, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep = ((cum - probs) < top_p.float()[:, None]) | (ranks == 0)
+    probs = torch.where(keep & (ranks < k_eff), probs, 0.0)
+    choice = torch.multinomial(probs, 1, generator=generator)  # renormalises
+    sampled = torch.gather(topi, 1, choice)[:, 0]
+    return torch.where(temperature <= 0.0, greedy, sampled).to(torch.int32)

@@ -1,0 +1,59 @@
+"""CLI: python -m llmd_tpu_torch.engine.serve --model llama-1b --port 8000 [--cpu]
+
+Serves a registry model with random weights from ``--seed`` on the port's HTTP
+server. Runs on the CUDA card unless ``--cpu`` is given. Flag names follow the
+reference CLI (``llmd_tpu/engine/serve.py``) for the options the port keeps.
+"""
+
+from __future__ import annotations
+
+import argparse
+import threading
+
+
+def main(argv: "list[str] | None" = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default="tiny", help="registry name (MODEL_REGISTRY)")
+    ap.add_argument("--served-model-name", default=None)
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("--block-size", type=int, default=16)
+    ap.add_argument("--num-pages", type=int, default=512)
+    ap.add_argument("--max-model-len", type=int, default=2048)
+    ap.add_argument("--max-batch-size", type=int, default=8)
+    ap.add_argument("--prefill-chunk", type=int, default=128)
+    ap.add_argument("--decode-steps", type=int, default=4)
+    ap.add_argument("--tokenizer", default=None, help="local HF tokenizer dir")
+    ap.add_argument("--seed", type=int, default=0, help="random-weight seed")
+    ap.add_argument("--cpu", action="store_true", help="run on the CPU (dev)")
+    args = ap.parse_args(argv)
+
+    from llmd_tpu_torch.engine.config import EngineConfig
+    from llmd_tpu_torch.engine.server import EngineServer
+    from llmd_tpu_torch.engine.tokenizer import load_tokenizer
+    from llmd_tpu_torch.models import get_model_config
+
+    model_cfg = get_model_config(args.model)
+    engine_cfg = EngineConfig(
+        page_size=args.block_size, num_pages=args.num_pages,
+        max_model_len=args.max_model_len, max_batch_size=args.max_batch_size,
+        prefill_chunk=args.prefill_chunk, decode_steps=args.decode_steps)
+    server = EngineServer(
+        model_cfg, engine_cfg,
+        model_name=args.served_model_name, host=args.host, port=args.port,
+        tokenizer=load_tokenizer(args.tokenizer), seed=args.seed,
+        device="cpu" if args.cpu else None)
+    server.start()
+    print(f"llmd-tpu-torch engine serving {server.model_name} on "
+          f"http://{server.address} (device {server.engine.device}, "
+          f"attention {server.engine.attn_backend})", flush=True)
+    try:
+        threading.Event().wait()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,93 @@
+"""Build the package's CUDA sources with nvcc at first use; load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers), so a
+build is one nvcc call of a few seconds. The shared library lands in
+``csrc/.build/<name>-<hash>.so``, where the hash covers the source and the
+flags: a changed source rebuilds, an unchanged one is reused. Concurrent
+builders race benignly (each writes a temp file, then renames atomically).
+
+A failed build raises :class:`BuildError` carrying nvcc's output — there is no
+silent fallback to a plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / ".build"
+# sm_90a (not sm_90): keeps wgmma/setmaxnreg available to the kernels.
+# -Xptxas -v reports registers, shared memory and spills per kernel.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+)
+
+
+class BuildError(RuntimeError):
+    """nvcc is missing or refused a source."""
+
+
+@dataclass
+class Built:
+    lib: ctypes.CDLL
+    path: Path
+    seconds: float  # build + load wall time in this process (0 build if cached)
+    log: str  # nvcc's output when this process compiled the source, else ""
+
+
+_LOADED: dict[str, Built] = {}
+_LOCK = threading.Lock()
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise BuildError("nvcc not found on PATH or under CUDA_HOME; the CUDA "
+                     "toolkit is needed to build the kernels")
+
+
+def load(name: str) -> Built:
+    """Compile ``csrc/<name>.cu`` if needed and dlopen it (once per process)."""
+    with _LOCK:
+        if name in _LOADED:
+            return _LOADED[name]
+        src = CSRC / f"{name}.cu"
+        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+                                ).hexdigest()[:16]
+        out = BUILD_DIR / f"{name}-{digest}.so"
+        t0 = time.perf_counter()
+        log = ""
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc_path(), *NVCC_FLAGS, str(src), "-o", tmp]
+            try:
+                proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+            except (OSError, subprocess.TimeoutExpired) as e:
+                os.unlink(tmp)
+                raise BuildError(f"nvcc could not run for {src}: {e}") from e
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise BuildError(f"nvcc failed (rc={proc.returncode}) for {src}:\n"
+                                 f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, out)
+            log = proc.stdout + proc.stderr
+        built = Built(ctypes.CDLL(str(out)), out, time.perf_counter() - t0, log)
+        _LOADED[name] = built
+        return built

@@ -1,0 +1,194 @@
+"""Ragged paged attention: the CUDA kernel's wrapper, its plain version, and
+their counters.
+
+Port of ``llmd_tpu/ops/paged_attention.py::paged_attention_tpu`` (K1, the
+Pallas ragged-paged-attention kernel on the TPU). The uniform attention-impl
+signature is kept, so ``forward_core`` swaps implementations freely:
+
+    impl(q, layer_cache, page_tables, positions, seq_slots, kv_lens, *,
+         scale, cu_q_lens, num_seqs) -> [N, H, D]
+
+with q ``[N, H, D]`` and the pool ``[P, page_size, 2*Hk, D]`` at the UNPADDED
+head dim (K of kv head g at plane 2g, V at 2g+1).
+
+* :func:`paged_attention` launches ``csrc/paged_attention.cu`` for CUDA tensors
+  and raises if it cannot; for CPU tensors (the tests) it calls the plain
+  version. There is no fallback from the kernel to the plain version.
+* :func:`paged_attention_ref` is the plain PyTorch version, a port of
+  ``ragged_paged_attention_xla`` (``llmd_tpu/models/transformer.py:428``): the
+  tests' oracle and the kernel's yardstick on the card.
+
+The kernel masks by ``cu_q_lens``/``kv_lens``, the plain version by
+``positions``; the two agree because every sequence's queries are its last
+``q_len`` tokens (the engine packs them so). Rows that attend nothing (padding)
+are zeros from the kernel and a uniform average from the plain version:
+compare valid rows only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 128)
+GROUP_SIZES = (1, 2, 4, 8)  # query heads per kv head with a kernel instance
+
+
+def paged_attention_ref(
+    q: torch.Tensor,  # [N, H, D]
+    layer_cache: torch.Tensor,  # [P, ps, 2*Hk, D]
+    page_tables: torch.Tensor,  # [B, max_pages] (-1 = unmapped)
+    positions: torch.Tensor,  # [N] global positions (-1 = padding row)
+    seq_slots: torch.Tensor,  # [N] owning batch row per token
+    kv_lens: torch.Tensor,  # [B] tokens resident incl. this step's
+    *,
+    scale: float,
+    cu_q_lens: Optional[torch.Tensor] = None,  # unused (uniform signature)
+    num_seqs: Optional[torch.Tensor] = None,  # unused (uniform signature)
+) -> torch.Tensor:
+    """Gather + mask reference: each query gathers its own sequence's pages
+    through the page table, 32 tokens at a time (bounded peak memory), with
+    f32 scores and softmax."""
+    paged_attention_ref.calls += 1
+    N, H, D = q.shape
+    _, ps, HkC, _ = layer_cache.shape
+    Hk = HkC // 2
+    B, maxp = page_tables.shape
+    qpk = H // Hk
+    S = maxp * ps
+    dev = q.device
+    b_all = seq_slots.long().clamp(0, B - 1)
+    pts = page_tables.long()
+    lens = kv_lens.long()
+    pos_all = positions.long()
+    key_pos = torch.arange(S, device=dev)
+    out = torch.empty_like(q)
+    for c0 in range(0, N, 32):
+        qc, posc, bc = q[c0:c0 + 32], pos_all[c0:c0 + 32], b_all[c0:c0 + 32]
+        C = qc.shape[0]
+        pt = pts[bc]  # [C, maxp] owning sequence's pages, in order
+        kv = layer_cache[pt.clamp(min=0)].reshape(C, S, HkC, D)
+        kc, vc = kv[:, :, 0::2], kv[:, :, 1::2]  # [C, S, Hk, D]
+        qg = qc.reshape(C, Hk, qpk, D)
+        s = torch.einsum("nkqd,nskd->nkqs", qg.float(), kc.float()) * scale
+        # key j sits at sequence position j (page tables list pages in order)
+        mask = ((pt[:, key_pos // ps] >= 0)
+                & (key_pos[None, :] <= posc[:, None])
+                & (key_pos[None, :] < lens[bc][:, None])
+                & (posc[:, None] >= 0))  # [C, S]
+        s = s.masked_fill(~mask[:, None, None, :], -1e30)
+        p = torch.softmax(s, dim=-1)
+        # fully masked (padding) rows: uniform garbage; callers ignore them
+        o = torch.einsum("nkqs,nskd->nkqd", p.to(vc.dtype), vc)
+        out[c0:c0 + C] = o.reshape(C, H, D)
+    return out
+
+
+paged_attention_ref.calls = 0
+
+BF16_UNIT = 2.0 ** -8  # unit roundoff of bfloat16 (8 significant bits)
+
+
+def bf16_rounding_units(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """Largest error of a bfloat16 output ``got`` against a float32 reference
+    computed from the same bfloat16 inputs, in units of one rounding of the
+    output: each element is held to ``2^-8·|ref|`` (round to nearest) plus
+    ``2^-14`` of the largest magnitude in its head's row (room for float32
+    summation order). A kernel that accumulates in float32 and rounds once
+    reads at most 1; one that keeps the probabilities or the P·V accumulator
+    in bfloat16 reads far above 1 on the rows' small elements."""
+    ref = ref.float()
+    mag = ref.abs()
+    limit = BF16_UNIT * mag + 2.0 ** -14 * mag.amax(dim=-1, keepdim=True)
+    err = (got.float() - ref).abs()
+    return (err / limit.clamp_min(torch.finfo(torch.float32).tiny)).max().item()
+
+
+@functools.cache
+def _library():
+    """The kernel's C entry point, with every argument type declared (an
+    undeclared pointer would pass as a 32-bit int and be cut)."""
+    from llmd_tpu_torch.native.build import load
+
+    fn = load("paged_attention").lib.llmd_paged_attention
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def build() -> float:
+    """Build (or load the cached build of) the kernel; returns seconds taken."""
+    from llmd_tpu_torch.native.build import load
+
+    _library()
+    return load("paged_attention").seconds
+
+
+def _int32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int32).contiguous()
+
+
+def paged_attention(
+    q: torch.Tensor,
+    layer_cache: torch.Tensor,
+    page_tables: torch.Tensor,
+    positions: torch.Tensor,
+    seq_slots: torch.Tensor,
+    kv_lens: torch.Tensor,
+    *,
+    scale: float,
+    cu_q_lens: Optional[torch.Tensor] = None,
+    num_seqs: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Ragged paged attention: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. Raises for anything the kernel does not take."""
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, layer_cache, page_tables, positions,
+                                   seq_slots, kv_lens, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention: unsupported device {q.device}")
+    if cu_q_lens is None or num_seqs is None:
+        raise ValueError("paged_attention: the kernel needs cu_q_lens and num_seqs")
+    N, H, D = q.shape
+    P, ps, HkC, Dc = layer_cache.shape
+    Hk = HkC // 2
+    B, maxp = page_tables.shape
+    if q.dtype not in _DTYPE_CODE or layer_cache.dtype != q.dtype:
+        raise TypeError(f"paged_attention: q {q.dtype} / pool {layer_cache.dtype}; "
+                        "the kernel takes float32 or bfloat16, both alike")
+    if Dc != D or D not in HEAD_DIMS or HkC % 2 or H % Hk or H // Hk not in GROUP_SIZES:
+        raise ValueError(f"paged_attention: no kernel instance for H={H} Hk={Hk} "
+                         f"D={D} (head dims {HEAD_DIMS}, groups {GROUP_SIZES})")
+    if cu_q_lens.shape[0] != B + 1 or kv_lens.shape[0] != B:
+        raise ValueError(f"paged_attention: cu_q_lens {tuple(cu_q_lens.shape)} / "
+                         f"kv_lens {tuple(kv_lens.shape)} do not match B={B}")
+    if not (q.is_contiguous() and layer_cache.is_contiguous()):
+        raise ValueError("paged_attention: q and the pool must be contiguous")
+    if layer_cache.data_ptr() % 16:
+        raise ValueError("paged_attention: the pool must be 16-byte aligned")
+    tensors = [layer_cache, page_tables, kv_lens, cu_q_lens, num_seqs]
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("paged_attention: all inputs must be on q's device")
+    out = torch.empty_like(q)
+    if N == 0:
+        return out
+    pt, lens, cu, ns = (_int32(page_tables), _int32(kv_lens), _int32(cu_q_lens),
+                        _int32(num_seqs))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _library()(
+            q.data_ptr(), layer_cache.data_ptr(), pt.data_ptr(), lens.data_ptr(),
+            cu.data_ptr(), ns.data_ptr(), out.data_ptr(), N, H, Hk, D, ps, maxp,
+            float(scale), _DTYPE_CODE[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed: cudaError {err}")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0

@@ -1,0 +1,193 @@
+"""Where a decode step's time goes, on the card.
+
+    python -m llmd_tpu_torch.tools.profile_engine [--batches 8,32] [--model llama-1b]
+
+For each batch size: an engine (random bf16 weights from ``--seed``) prefills
+``batch`` prompts of ``--prompt-len`` tokens, then runs decode calls of
+``--decode-steps`` iterations, all through its public ``step()`` and
+``stats``. It reports
+
+- prefill throughput from the engine's own step timer and decode throughput
+  from wall time around calls that end in a device synchronise (no profiler
+  attached),
+- the host time to enqueue one ``forward_core`` (no synchronise inside),
+- from ``torch.profiler`` over a separate window of decode calls: device time
+  by kernel name, host time by op, kernel launches per decode iteration, and
+  the device's busy
+  share of that window's wall time (the profiler's own overhead inflates the
+  window, so busy device ms per iteration is also set against the unprofiled
+  wall per iteration).
+
+Prints one line per batch (``--out PATH`` also writes every row as JSON).
+Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+
+def _kernel_rows(prof) -> list[dict]:
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", 0.0)
+        if dev_us > 0 and "cuda" in str(getattr(e, "device_type", "")).lower():
+            rows.append({"name": e.key[:120], "count": e.count, "device_us": dev_us})
+    return sorted(rows, key=lambda r: -r["device_us"])
+
+
+def _host_rows(prof) -> list[dict]:
+    """Host-side ops and CUDA runtime calls by self CPU time."""
+    rows = [{"name": e.key[:80], "count": e.count, "cpu_us": e.self_cpu_time_total}
+            for e in prof.key_averages() if e.self_cpu_time_total > 0]
+    return sorted(rows, key=lambda r: -r["cpu_us"])
+
+
+def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
+                  calls: int, prof_calls: int, seed: int) -> dict:
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.engine import EngineConfig, LLMEngine
+    from llmd_tpu_torch.models.transformer import forward_core
+
+    ps = 16
+    per_seq = (prompt_len + (calls + prof_calls + 2) * decode_steps + ps) // ps + 1
+    ecfg = EngineConfig(
+        page_size=ps, num_pages=batch * per_seq + 8, max_model_len=4096,
+        max_batch_size=batch, prefill_chunk=min(prompt_len, 2048),
+        max_num_batched_tokens=max(2048, prompt_len), decode_steps=decode_steps)
+    eng = LLMEngine(cfg, ecfg, params=params, seed=seed)
+    rng = np.random.default_rng(seed)
+    budget = (calls + prof_calls + 2) * decode_steps + 1
+    for i in range(batch):
+        eng.add_request(f"r{i}", rng.integers(0, 256, prompt_len).tolist(),
+                        SamplingParams(max_tokens=budget, temperature=0.0))
+    st = eng.stats
+    while st.n_decode_calls == 0:  # the prefill steps, then one warm-up decode call
+        eng.step()
+    prefill_s = st.time_prefill_steps  # every step ends in a host read: device time included
+    sync = torch.cuda.synchronize
+    it0 = st.n_decode_iterations
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        eng.step()
+    sync()
+    wall = time.perf_counter() - t0
+    iters = st.n_decode_iterations - it0
+
+    from torch.profiler import ProfilerActivity, profile
+
+    it1 = st.n_decode_iterations
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        p0 = time.perf_counter()
+        for _ in range(prof_calls):
+            eng.step()
+        sync()
+        prof_wall = time.perf_counter() - p0
+    prof_iters = st.n_decode_iterations - it1
+
+    # host time to enqueue one forward_core at the decode shape (no sync
+    # inside): a batch of one token per sequence over distinct pages of the
+    # engine's pool. Runs last, so the KV it writes touches no measured step.
+    dev = eng.device
+    t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)  # noqa: E731
+    n_pages = -(-(prompt_len + 1) // ps)
+    pts = np.full((batch, ecfg.max_pages_per_seq), -1, np.int32)
+    pts[:, :n_pages] = np.arange(batch * n_pages).reshape(batch, n_pages)
+    args = (t(rng.integers(0, 256, batch)), t(np.full(batch, prompt_len)),
+            t(np.arange(batch)), t(pts), t(np.full(batch, prompt_len + 1)))
+    host = []
+    with torch.no_grad():
+        for _ in range(5):
+            sync()
+            h0 = time.perf_counter()
+            forward_core(cfg, eng.params, eng.cache, *args,
+                         cu_q_lens=t(np.arange(batch + 1)), num_seqs=t([batch]))
+            host.append(time.perf_counter() - h0)
+            sync()
+
+    kernels = _kernel_rows(prof)
+    host_ops = _host_rows(prof)
+    busy_us = sum(r["device_us"] for r in kernels)
+    launches = sum(r["count"] for r in kernels)
+    attn_us = sum(r["device_us"] for r in kernels if "paged_attention" in r["name"])
+    wall_iter_ms = wall / max(iters, 1) * 1e3
+    busy_iter_ms = busy_us / 1e3 / max(prof_iters, 1) if kernels else None
+    return {
+        "batch": batch, "prompt_len": prompt_len, "decode_steps": decode_steps,
+        "prefill_s": prefill_s, "prefill_tok_s": batch * prompt_len / prefill_s,
+        "decode_iterations": iters, "decode_wall_s": wall,
+        "decode_tok_s": batch * iters / wall, "wall_ms_per_iteration": wall_iter_ms,
+        "host_enqueue_ms_per_forward": float(np.median(host)) * 1e3,
+        "profiled_iterations": prof_iters, "profiled_wall_s": prof_wall,
+        "device_busy_ms_per_iteration": busy_iter_ms,
+        "device_busy_share_profiled": (busy_us / 1e6 / prof_wall) if kernels else None,
+        "device_busy_share_vs_unprofiled_wall": (busy_iter_ms / wall_iter_ms)
+        if kernels else None,
+        "kernel_launches_per_iteration": launches / max(prof_iters, 1) if kernels else None,
+        "attention_share_of_device_time": attn_us / busy_us if busy_us else None,
+        "top_kernels": kernels[:12],
+        "top_host_ops": host_ops[:12],
+    }
+
+
+def main(argv: "list[str] | None" = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default="llama-1b")
+    ap.add_argument("--batches", default="8,32")
+    ap.add_argument("--prompt-len", type=int, default=256)
+    ap.add_argument("--decode-steps", type=int, default=4)
+    ap.add_argument("--calls", type=int, default=5)
+    ap.add_argument("--prof-calls", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None, help="also write the rows here (JSON)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_engine: needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.models.transformer import init_params
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    print(smi, flush=True)
+    from llmd_tpu_torch.ops.paged_attention import build
+
+    print(f"kernel build s={build():.3f}", flush=True)  # before anything is timed
+    cfg = get_model_config(args.model)
+    dev = torch.device("cuda", 0)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    # warm-up pass (cuBLAS handles, lazy module loads), not reported
+    profile_batch(cfg, params, 2, 32, args.decode_steps, 1, 1, args.seed)
+    rows = []
+    for b in (int(x) for x in args.batches.split(",")):
+        r = profile_batch(cfg, params, b, args.prompt_len, args.decode_steps,
+                          args.calls, args.prof_calls, args.seed)
+        r["card"] = smi
+        rows.append(r)
+        print(json.dumps({k: v for k, v in r.items()
+                          if k not in ("top_kernels", "top_host_ops")}), flush=True)
+        n = max(r["profiled_iterations"], 1)
+        for k in r["top_kernels"][:6]:
+            print(f"  device {k['device_us'] / n:9.1f} us/iter x{k['count']:5d}  "
+                  f"{k['name']}", flush=True)
+        for k in r["top_host_ops"][:8]:
+            print(f"  host   {k['cpu_us'] / n:9.1f} us/iter x{k['count']:5d}  "
+                  f"{k['name']}", flush=True)
+        torch.cuda.empty_cache()
+    if args.out:
+        out = Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps({"model": args.model, "rows": rows}, indent=1))
+
+
+if __name__ == "__main__":
+    main()

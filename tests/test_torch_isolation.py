@@ -1,0 +1,81 @@
+"""The PyTorch port stands alone: no jax, no llmd_tpu, card by default."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+
+# Blocks the top-level names jax, jaxlib and llmd_tpu EXACTLY (a prefix match
+# would also block llmd_tpu_torch), then imports every module of the port and
+# chip_smoke.py.
+_BLOCKED_IMPORT = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+BLOCKED = {"jax", "jaxlib", "llmd_tpu"}
+
+
+class Blocker(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import: {name}")
+        return None
+
+
+sys.meta_path.insert(0, Blocker())
+try:
+    import llmd_tpu  # noqa: F401
+except ImportError:
+    pass
+else:
+    raise SystemExit("the blocker let llmd_tpu through")
+import llmd_tpu_torch
+
+names = [m.name for m in pkgutil.walk_packages(llmd_tpu_torch.__path__, "llmd_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke  # noqa: F401
+
+leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax_or_reference_package():
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split()[-1]) >= 15  # every module of the port was imported
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|jaxlib|llmd_tpu)\b(?!_)|from\s+(jax|jaxlib|llmd_tpu)\b(?!_))",
+    re.M)
+
+
+def test_source_scan_finds_no_jax_or_reference_imports():
+    files = sorted((REPO / "llmd_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) >= 16
+    hits = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
+            for p in files for m in _FORBIDDEN.finditer(p.read_text())]
+    assert not hits, hits
+    # the pattern itself tells the names apart
+    assert _FORBIDDEN.search("from llmd_tpu.models import x")
+    assert _FORBIDDEN.search("import jax.numpy as jnp")
+    assert not _FORBIDDEN.search("from llmd_tpu_torch.models import x")
+
+
+def test_engine_defaults_to_the_card(monkeypatch):
+    from llmd_tpu_torch.engine import EngineConfig, LLMEngine
+    from llmd_tpu_torch.models import get_model_config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LLMEngine(get_model_config("tiny"), EngineConfig())
+    with pytest.raises(RuntimeError):
+        LLMEngine(get_model_config("tiny"), EngineConfig(), device="cuda")

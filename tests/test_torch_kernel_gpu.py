@@ -1,0 +1,149 @@
+"""The CUDA ragged-paged-attention kernel against its plain PyTorch version, on
+the card. Every test here needs a CUDA device and skips without one.
+
+On a GPU machine (``tests/conftest.py`` imports jax; where jax is not
+installed, ``--noconftest`` skips it):
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernel_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from llmd_tpu_torch.ops.paged_attention import (
+    bf16_rounding_units, paged_attention, paged_attention_ref)
+
+pytestmark = pytest.mark.gpu
+
+# float32: summation order and exp rounding only (max abs). bfloat16: against
+# the plain version in float32 on the same bf16 inputs, element by element in
+# units of one bf16 rounding of the output; float32 accumulation rounded once
+# reads <= 1 (bf16_rounding_units).
+F32_ATOL = 2e-5
+BF16_UNITS = 1.0
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _case(H, Hk, D, ps, q_lens, kv_lens, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    nb = len(q_lens)
+    B = nb + 2  # trailing unused table rows
+    need = [-(-k // ps) for k in kv_lens]
+    maxp = max(need) + 1
+    P = sum(need) + 4
+    perm = rng.permutation(P)
+    pts = np.full((B, maxp), -1, np.int32)
+    o = 0
+    for b in range(nb):
+        pts[b, : need[b]] = perm[o : o + need[b]]
+        o += need[b]
+    N = sum(q_lens) + 3  # trailing padding rows
+    pos = np.full((N,), -1, np.int32)
+    sids = np.zeros((N,), np.int32)
+    cu = np.zeros((B + 1,), np.int32)
+    off = 0
+    for b, (ql, kl) in enumerate(zip(q_lens, kv_lens)):
+        pos[off : off + ql] = np.arange(kl - ql, kl)
+        sids[off : off + ql] = b
+        off += ql
+        cu[b + 1] = off
+    cu[nb + 1 :] = off
+    lens = np.ones((B,), np.int32)
+    lens[:nb] = kv_lens
+    q = torch.from_numpy(rng.standard_normal((N, H, D), np.float32))
+    pool = torch.from_numpy(rng.standard_normal((P, ps, 2 * Hk, D), np.float32))
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    args = (q.to(device, dtype), pool.to(device, dtype), t(pts), t(pos), t(sids), t(lens))
+    kw = dict(scale=D ** -0.5, cu_q_lens=t(cu), num_seqs=t(np.array([nb], np.int32)))
+    return args, kw, off
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("H,Hk,D,ps", [(4, 2, 32, 8), (32, 8, 64, 16), (8, 8, 128, 16),
+                                       (16, 2, 64, 16)])
+def test_kernel_matches_plain(cuda, H, Hk, D, ps, dtype):
+    q_lens = [37, 1, 1, 64, 1]
+    kv_lens = [37, 5, 300, 100, 1]
+    args, kw, valid = _case(H, Hk, D, ps, q_lens, kv_lens, dtype, cuda, seed=H + D)
+    before = paged_attention.launches
+    got = paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    q, pool, *rest = args
+    ref = paged_attention_ref(q.float(), pool.float(), *rest, **kw)[:valid]
+    if dtype == torch.float32:
+        err = (got[:valid] - ref).abs().max().item()
+        assert err <= F32_ATOL, err
+    else:
+        units = bf16_rounding_units(got[:valid], ref)
+        assert units <= BF16_UNITS, units
+    assert torch.count_nonzero(got[valid:]) == 0  # padding rows are zeros
+
+
+def test_engine_greedy_tokens_same_with_kernel(cuda):
+    """The engine on the card (the kernel) emits the same greedy tokens as on
+    the CPU (the plain version), same float32 weights, mixed prefill/decode."""
+    import dataclasses
+
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.engine import EngineConfig, LLMEngine
+    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(get_model_config("tiny64"), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    prompts = [list(range(5, 60)), list(range(100, 110)), list(range(7, 200, 3))]
+    ecfg = dict(page_size=8, num_pages=64, max_model_len=256, max_batch_size=4,
+                prefill_chunk=32, decode_steps=4)
+    sp = SamplingParams(max_tokens=12, temperature=0.0)
+    before = paged_attention.launches
+    on_card = LLMEngine(cfg, EngineConfig(**ecfg), params=params,
+                        device=cuda).generate(prompts, sp)
+    assert paged_attention.launches > before
+    on_cpu = LLMEngine(cfg, EngineConfig(**ecfg), params=params,
+                       device="cpu").generate(prompts, sp)
+    assert on_card == on_cpu
+
+
+def test_forward_on_card_matches_cpu(cuda):
+    """The [B, T] ``forward`` packs its valid rows for the kernel: float32
+    logits on the card (the kernel) match the CPU (the plain version) within
+    1e-4 on valid rows; padding rows are zeros on both."""
+    import dataclasses
+
+    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.models import transformer as tt
+
+    cfg = dataclasses.replace(get_model_config("tiny64"), dtype="float32")
+    params = tt.init_params(cfg, torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(6)
+    toks = torch.from_numpy(rng.integers(0, 288, (3, 9)).astype(np.int32))
+    pos = torch.tensor([list(range(9)), list(range(5)) + [-1] * 4,
+                        list(range(3)) + [-1] * 6], dtype=torch.int32)
+    pts = torch.tensor([[0, 1], [2, -1], [3, -1]], dtype=torch.int32)
+    lens = torch.tensor([9, 5, 3], dtype=torch.int32)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        p = {k: v.to(dev) for k, v in params.items()}
+        before = paged_attention.launches
+        logits, _ = tt.forward(cfg, p, tt.init_cache(cfg, 4, 8, device=dev), toks.to(dev),
+                               pos.to(dev), pts.to(dev), lens.to(dev))
+        assert paged_attention.launches - before == (cfg.num_layers if dev.type == "cuda" else 0)
+        outs.append(logits.cpu())
+    valid = pos >= 0
+    assert (outs[0][valid] - outs[1][valid]).abs().max().item() <= 1e-4
+    assert not outs[0][~valid].any() and not outs[1][~valid].any()
+
+
+def test_kernel_refuses_unsupported_shape(cuda):
+    args, kw, _ = _case(12, 4, 64, 16, [1], [10], torch.float32, cuda, seed=0)
+    with pytest.raises(ValueError):  # 3 query heads per kv head: no instance
+        paged_attention(*args, **kw)
