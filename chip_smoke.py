@@ -3,23 +3,34 @@
 
     python3 chip_smoke.py [--report PATH]
 
-Phases, in order; each prints one line of numbers and any failure ends the run
+Phases, in order; each prints lines of numbers and any failure ends the run
 with a non-zero exit:
 
 1. device   the card's name and power limit (nvidia-smi); TF32 off.
-2. build    nvcc builds every kernel of the main path from ``llmd_tpu_torch/csrc``.
-3. check    each kernel against its plain PyTorch version on the card, at the
-            main path's shapes (llama-1b heads), in float32 and bfloat16 (the
-            bf16 kernel against the plain version in float32 on the same
-            inputs, with two bf16-precision controls it must tell apart).
-4. time     each kernel at the decode shape (CUDA events, median), beside its
-            bound, its plain version and one PyTorch library call.
-5. engine   llama-1b at full width (random bf16 weights from a seed) behind the
-            port's HTTP server: 8 concurrent greedy completions. The kernels'
-            launch counts are zeroed just before and read just after; the
-            plain versions must not have run. Then one mixed unified batch runs
-            through ``forward_core`` twice in float32, with the kernel and with
-            the plain version, and the logits are held together.
+2. build    nvcc builds every kernel source of the main paths from
+            ``llmd_tpu_torch/csrc``, one nvcc per source, all started together
+            (seconds and the ptxas register / shared-memory report).
+3. check    each kernel against its plain PyTorch version on the card, in
+            float32 and bfloat16 (the bf16 kernel against the plain version in
+            float32 on the same inputs, in bf16 rounding units, with controls
+            that keep a bf16 accumulator and must read above the limit):
+            K1 at llama-1b and moe-wide-sim heads; K2 (ragged grouped GEMM) and
+            K4 (grouped GEMM) at moe-wide-sim widths, at decode, prefill and
+            EPLB shapes, with dead rows, zero-row blocks and zero-count groups.
+4. time     each kernel at the main path's shapes (CUDA events, median), beside
+            its bound, its plain version and one PyTorch library call.
+5. engine   behind the port's HTTP server, random bf16 weights from a seed,
+            greedy completions: llama-1b at full width (8 requests), then
+            moe-wide-sim at full width and depth on the sorted dispatch (8
+            requests), the einsum dispatch (4) and the sorted dispatch with EPLB
+            (4). Each run zeroes every launch counter just before and reads it
+            just after: the path's kernels ran once per layer and forward (K1)
+            or twice (K2 / K4), no plain version ran, the sorted path dropped
+            nothing, EPLB re-placed its experts at least twice.
+6. forward  one mixed unified batch through ``forward_core`` in float32, with
+            the kernels and again with the plain versions passed as overrides:
+            llama-1b, and moe-wide-sim on both dispatch paths (logits held
+            together, expert counts equal).
 
 It ends with a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. ``--report PATH`` also writes every phase's details (nvcc's register
@@ -52,13 +63,17 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # plain version run in float32 on the same bf16-rounded inputs, element by
 # element in units of one bf16 rounding of the output
 # (ops.paged_attention.bf16_rounding_units): float32 accumulation rounded once
-# reads <= 1. Two controls must read above the limit (see phase_check).
+# reads <= 1. Two controls must read above the limit (see check_attention).
 F32_ATOL = 2e-5
 BF16_UNITS = 1.0
-# float32 forward through 16 layers, kernel vs plain attention: logits agree
+# float32 forward through every layer, kernels vs plain versions: logits agree
 # to summation order.
 FORWARD_ATOL = 1e-3
+# grouped GEMMs in float32: unit-scale outputs summed over D <= 1024 in another
+# order than the plain version's cuBLAS product.
+GEMM_F32_ATOL = 1e-4
 H, HK, D, PS = 32, 8, 64, 16  # llama-1b attention: heads, kv heads, head dim, page
+MOE = "moe-wide-sim"  # D 1024, 32 experts, top-4, expert FFN 512 (2Fe = 1024)
 
 
 def log(msg: str) -> None:
@@ -71,10 +86,11 @@ def log(msg: str) -> None:
 
 
 def make_attention_case(q_lens, kv_lens, dtype, device, seed, pad_rows=0,
-                        pad_seqs=0):
+                        pad_seqs=0, heads=(H, HK)):
     """Random q and pool, page tables over a shuffled page pool; sequence b's
     queries are its last q_lens[b] tokens. ``pad_rows`` trailing query rows and
     ``pad_seqs`` trailing unused table rows mimic the engine's padded packing."""
+    nh, nk = heads
     rng = np.random.default_rng(seed)
     q_lens, kv_lens = np.asarray(q_lens), np.asarray(kv_lens)
     nb = len(q_lens)
@@ -103,12 +119,12 @@ def make_attention_case(q_lens, kv_lens, dtype, device, seed, pad_rows=0,
     lens = np.ones((B,), np.int32)
     lens[:nb] = kv_lens
     g = torch.Generator(device="cpu").manual_seed(seed)
-    q = torch.randn((N, H, D), generator=g).to(device=device, dtype=dtype)
-    pool = torch.randn((P, PS, 2 * HK, D), generator=g).to(device=device, dtype=dtype)
+    q = torch.randn((N, nh, D), generator=g).to(device=device, dtype=dtype)
+    pool = torch.randn((P, PS, 2 * nk, D), generator=g).to(device=device, dtype=dtype)
     t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
     return dict(q=q, pool=pool, pts=t(pts), pos=t(pos), sids=t(sids),
                 lens=t(lens), cu=t(cu), ns=t(np.array([nb], np.int32)),
-                valid=off, q_lens=q_lens, kv_lens=kv_lens)
+                valid=off, q_lens=q_lens, kv_lens=kv_lens, H=nh, HK=nk)
 
 
 def run_attention(fn, c):
@@ -116,18 +132,18 @@ def run_attention(fn, c):
               scale=D ** -0.5, cu_q_lens=c["cu"], num_seqs=c["ns"])
 
 
-def decode_case(dtype, device, seed=1):
+def decode_case(dtype, device, seed=1, heads=(H, HK)):
     rng = np.random.default_rng(seed)
     kv = rng.integers(128, 1025, 64)
-    return make_attention_case(np.ones(64, int), kv, dtype, device, seed)
+    return make_attention_case(np.ones(64, int), kv, dtype, device, seed, heads=heads)
 
 
-def mixed_case(dtype, device, seed=2):
+def mixed_case(dtype, device, seed=2, heads=(H, HK)):
     rng = np.random.default_rng(seed)
     q_lens = np.concatenate([[128, 128, 128], np.ones(32, int)])
     kv = np.concatenate([[128, 1000, 2048], rng.integers(1, 2049, 32)])
     return make_attention_case(q_lens, kv, dtype, device, seed, pad_rows=16,
-                               pad_seqs=5)
+                               pad_seqs=5, heads=heads)
 
 
 def attention_bound(c, dtype):
@@ -188,6 +204,108 @@ def sdpa_dense(c):
 
 
 # --------------------------------------------------------------------------
+# Grouped-GEMM inputs at moe-wide-sim widths
+# --------------------------------------------------------------------------
+
+
+def moe_widths() -> tuple[int, int, int]:
+    """(hidden D, expert FFN Fe, top-k) of the MoE model."""
+    from llmd_tpu_torch.models import get_model_config
+
+    cfg = get_model_config(MOE)
+    return cfg.hidden_size, cfg.moe_intermediate_size, cfg.moe_top_k
+
+
+def _on(device, dtype, *ts):
+    return [t.to(device=device, dtype=dtype) for t in ts]
+
+
+def ragged_case(T: int, S: int, dtype, device, seed: int, dead_rows: bool = False) -> dict:
+    """K2's inputs as the sorted dispatch builds them on the card: T tokens
+    routed to k distinct of S slots at random, placed by the port's row plan
+    at the kernel's block size, and the weights of a layer's two launches:
+    wi [S, D, 2Fe] (input [nb, bc, D]) and wo [S, Fe, D] (input
+    [nb, bc, Fe]). ``dead_rows`` fills the blocks' padding rows with random
+    values (multiplied all the same) and empties every fifth block
+    (block_rows 0: the kernel writes zeros)."""
+    from llmd_tpu_torch.ops.moe_dispatch import dispatch_stage, pick_block_size
+
+    Dm, Fe, k = moe_widths()
+    rng = np.random.default_rng(seed)
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.from_numpy(np.argsort(rng.random((T, S)), axis=1)[:, :k])
+    bc = pick_block_size(T * k, S, pallas=True)
+    xs, _, _, _, slot, rows = dispatch_stage(
+        torch.randn((T, Dm), generator=g), idx, torch.ones((T, k)),
+        torch.ones((T, 1), dtype=torch.int32), S, bc)
+    nb = slot.shape[0]
+    xb = xs.view(nb, bc, Dm)
+    live_rows = (torch.arange(bc)[None, :] < rows[:, None])[..., None]  # [nb, bc, 1]
+    h = torch.randn((nb, bc, Fe), generator=g)
+    if dead_rows:
+        xb = torch.where(live_rows, xb, torch.randn(xb.shape, generator=g))
+        rows = rows.clone()
+        rows[::5] = 0
+    else:
+        h = h * live_rows
+    wi = torch.randn((S, Dm, 2 * Fe), generator=g) * Dm ** -0.5
+    wo = torch.randn((S, Fe, Dm), generator=g) * Fe ** -0.5
+    xb, h, wi, wo = _on(device, dtype, xb, h, wi, wo)
+    return dict(launches=[("wi", xb, wi), ("wo", h, wo)], slot=slot.to(device),
+                live=rows.to(device), shape=f"T={T} copies={T * k} S={S} bc={bc} nb={nb}")
+
+
+def capacity_case(C: int, S: int, dtype, device, seed: int) -> dict:
+    """K4's inputs as the capacity-einsum dispatch builds them: S slots of C
+    rows, a random kept count per slot (every fourth slot 0: the kernel writes
+    zeros), rows past the count zero."""
+    Dm, Fe, _ = moe_widths()
+    rng = np.random.default_rng(seed)
+    g = torch.Generator().manual_seed(seed)
+    counts = torch.from_numpy(rng.integers(1, C + 1, S).astype(np.int32))
+    counts[::4] = 0
+    live_rows = (torch.arange(C)[None, :] < counts[:, None])[..., None]
+    x = torch.randn((S, C, Dm), generator=g) * live_rows
+    h = torch.randn((S, C, Fe), generator=g) * live_rows
+    wi = torch.randn((S, Dm, 2 * Fe), generator=g) * Dm ** -0.5
+    wo = torch.randn((S, Fe, Dm), generator=g) * Fe ** -0.5
+    x, h, wi, wo = _on(device, dtype, x, h, wi, wo)
+    return dict(launches=[("wi", x, wi), ("wo", h, wo)], slot=torch.arange(S, device=device),
+                live=counts.to(device), shape=f"S={S} C={C}")
+
+
+def gemm_bound(x, w, slot, live, dtype, n_index: int) -> tuple[float, str, dict]:
+    """(bound_ms, bound_by, counts) of one grouped-GEMM launch on this run's
+    inputs: the live groups' activations and the distinct weight slots they
+    hit are read once, every output element is written once, the index arrays
+    read once; flops 2 * live rows * D * F (a live group is multiplied whole)."""
+    elt = torch.finfo(dtype).bits // 8
+    G, R, Dk = x.shape
+    F = w.shape[2]
+    alive = live > 0
+    n_live = int(alive.sum())
+    n_slots = int(torch.unique(slot[alive]).numel())
+    nbytes = (n_live * R * Dk + n_slots * Dk * F + G * R * F) * elt + 4 * n_index * G
+    flops = 2 * n_live * R * Dk * F
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops) * 1e3, by, {"bytes": nbytes, "flops": flops,
+                                           "weight_slots": n_slots, "live_groups": n_live}
+
+
+def gemm_bf16_control(x, w_sel, live):
+    """What a kernel with a bfloat16 accumulator returns: the product summed
+    over D in 32-deep steps (the kernel's step), rounded to bfloat16 after
+    every step. Only for showing that the bf16 check rejects such a kernel."""
+    acc = torch.zeros((x.shape[0], x.shape[1], w_sel.shape[2]), device=x.device,
+                      dtype=torch.bfloat16)
+    for d0 in range(0, x.shape[2], 32):
+        part = torch.bmm(x[:, :, d0:d0 + 32].float(), w_sel[:, d0:d0 + 32].float())
+        acc = (acc.float() + part).to(torch.bfloat16)
+    return acc * (live > 0).to(acc.dtype)[:, None, None]
+
+
+# --------------------------------------------------------------------------
 # Phases
 # --------------------------------------------------------------------------
 
@@ -206,13 +324,30 @@ def phase_device() -> dict:
 
 
 def phase_build() -> dict:
+    """One nvcc per source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from llmd_tpu_torch.native.build import load
+    from llmd_tpu_torch.ops import grouped_gemm as gg
     from llmd_tpu_torch.ops import paged_attention as pa
 
-    seconds = pa.build()
-    built = load("paged_attention")
-    log(f"build: paged_attention.cu seconds={seconds:.3f} lib={built.path.name}")
-    return {"paged_attention": {"seconds": seconds, "nvcc_log": built.log}}
+    builders = {"paged_attention": pa.build, "grouped_gemm": gg.build}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(builders)) as pool:
+        futures = {name: pool.submit(fn) for name, fn in builders.items()}
+        seconds = {name: f.result() for name, f in futures.items()}
+    wall = time.perf_counter() - t0
+    out = {"wall_s": wall}
+    for name in builders:
+        built = load(name)
+        ptxas = [ln.strip() for ln in built.log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        log(f"build: {name}.cu seconds={seconds[name]:.3f} lib={built.path.name}")
+        for ln in ptxas:
+            log(f"build:   {name} ptxas: {ln}")
+        out[name] = {"seconds": seconds[name], "nvcc_log": built.log}
+    log(f"build: wall_s={wall:.3f} (parallel)")
+    return out
 
 
 def bf16_accumulating_control(c):
@@ -220,7 +355,7 @@ def bf16_accumulating_control(c):
     float32 scores and softmax as in the plain version, the normalised P·V sum
     rounded to bfloat16 after every 32-key tile (the kernel's tile). Only for
     showing that the bfloat16 check tells such a kernel from a sound one."""
-    q, pool = c["q"], c["pool"]
+    q, pool, H, HK = c["q"], c["pool"], c["H"], c["HK"]
     pts, pos, sids, lens = c["pts"].long(), c["pos"].long(), c["sids"].long(), c["lens"].long()
     S = pts.shape[1] * PS
     key = torch.arange(S, device=q.device)
@@ -248,19 +383,23 @@ def bf16_accumulating_control(c):
     return torch.cat(outs)
 
 
-def phase_check(device) -> dict:
-    """float32: kernel vs plain version, max abs error. bfloat16: kernel vs the
-    plain version in float32 on the same (upcast) bf16 inputs, in bf16 rounding
-    units; beside it two controls on the same inputs that the check must
-    reject: the plain version in bfloat16 (probabilities cast to bf16 before
-    P·V) and a bfloat16 P·V accumulator."""
+def check_attention(device) -> dict:
+    """K1. float32: kernel vs plain version, max abs error. bfloat16: kernel vs
+    the plain version in float32 on the same (upcast) bf16 inputs, in bf16
+    rounding units; beside it two controls on the same inputs that the check
+    must reject: the plain version in bfloat16 (probabilities cast to bf16
+    before P·V) and a bfloat16 P·V accumulator. llama-1b heads at decode and
+    mixed shapes; moe-wide-sim heads (H 16, Hk 4: four query heads per kv
+    head) at decode."""
     from llmd_tpu_torch.ops.paged_attention import (
         bf16_rounding_units, paged_attention, paged_attention_ref)
 
+    cases = (("decode", decode_case, (H, HK)), ("mixed", mixed_case, (H, HK)),
+             ("moe_heads_decode", decode_case, (16, 4)))
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for label, make in (("decode", decode_case), ("mixed", mixed_case)):
-            c = make(dtype, device)
+        for label, make, heads in cases:
+            c = make(dtype, device, heads=heads)
             got = run_attention(paged_attention, c)
             torch.cuda.synchronize()
             c32 = dict(c, q=c["q"].float(), pool=c["pool"].float())
@@ -293,7 +432,66 @@ def phase_check(device) -> dict:
     return out
 
 
-def phase_time(device) -> dict:
+def check_gemms(device) -> dict:
+    """K2 and K4 against their plain versions at moe-wide-sim widths, both
+    launches of a layer (wi: D 1024 -> 2Fe 1024; wo: Fe 512 -> D 1024).
+    float32: max abs error. bfloat16: in bf16 rounding units against the plain
+    version in float32 on the same bf16 inputs, limit 1; a bf16-accumulating
+    control must read above it. Zero-row blocks and zero-count groups must be
+    exact zeros."""
+    from llmd_tpu_torch.ops.grouped_gemm import (
+        grouped_gemm, grouped_gemm_ref, ragged_grouped_gemm, ragged_grouped_gemm_ref)
+    from llmd_tpu_torch.ops.paged_attention import bf16_rounding_units
+
+    plans = (
+        ("ragged_grouped_gemm", ragged_grouped_gemm, ragged_grouped_gemm_ref, (
+            ("decode", lambda dt: ragged_case(32, 32, dt, device, 11)),
+            ("prefill", lambda dt: ragged_case(2048, 32, dt, device, 12)),
+            ("eplb", lambda dt: ragged_case(32, 64, dt, device, 13)),
+            ("dead_rows", lambda dt: ragged_case(2048, 32, dt, device, 14, dead_rows=True)),
+        )),
+        ("grouped_gemm", grouped_gemm, grouped_gemm_ref, (
+            ("decode", lambda dt: capacity_case(5, 32, dt, device, 21)),
+            ("prefill", lambda dt: capacity_case(320, 32, dt, device, 22)),
+        )),
+    )
+    out: dict = {}
+    for name, kernel, plain, cases in plans:
+        for label, make in cases:
+            for dtype in (torch.float32, torch.bfloat16):
+                c = make(dtype)
+                slot, live = c["slot"], c["live"]
+                index = (slot, live) if name == "ragged_grouped_gemm" else (live,)
+                for which, x, w in c["launches"]:
+                    got = kernel(x, w, *index)
+                    torch.cuda.synchronize()
+                    ref = plain(x.float(), w.float(), *index)
+                    err = (got.float() - ref).abs().max().item()
+                    zeros_ok = torch.count_nonzero(got[live == 0]).item() == 0
+                    key = f"{label}_{which}_{str(dtype).split('.')[-1]}"
+                    row = {"shape": c["shape"], "max_abs_err": err, "zero_groups_exact": zeros_ok}
+                    if dtype == torch.float32:
+                        row["atol"] = GEMM_F32_ATOL
+                        ok = err <= GEMM_F32_ATOL
+                        note = f"atol={GEMM_F32_ATOL:.0e}"
+                    else:
+                        units = bf16_rounding_units(got, ref)
+                        ctl = bf16_rounding_units(
+                            gemm_bf16_control(x, w.index_select(0, slot.long()), live), ref)
+                        row.update(bf16_units=units, limit_units=BF16_UNITS,
+                                   control_acc_bf16_units=ctl)
+                        ok = units <= BF16_UNITS < ctl
+                        note = (f"bf16_units={units:.3f} (limit {BF16_UNITS}) "
+                                f"control acc_bf16={ctl:.1f}")
+                    log(f"check: {name} {key} {c['shape']} max_abs_err={err:.3e} {note} "
+                        f"zero_groups_exact={zeros_ok}")
+                    out.setdefault(name, {})[key] = row
+                    if not (ok and zeros_ok and torch.isfinite(got).all()):
+                        raise AssertionError(f"{name} {key}: the check failed: {row}")
+    return out
+
+
+def time_attention(device) -> dict:
     from llmd_tpu_torch.ops.paged_attention import paged_attention, paged_attention_ref
 
     dtype = torch.bfloat16
@@ -312,6 +510,50 @@ def phase_time(device) -> dict:
     return row
 
 
+def time_gemms(device) -> dict:
+    """K2 and K4 in bf16 at the decode and prefill shapes of moe-wide-sim (the
+    wi launch, D 1024 -> 2Fe 1024; decode T=32 sequences, prefill T=2048
+    tokens), beside the bound, the plain version and one library call:
+    ``torch.bmm`` over the weights gathered per block with ``index_select``
+    (gather included) for K2, ``torch.bmm`` for K4."""
+    from llmd_tpu_torch.ops.grouped_gemm import (
+        grouped_gemm, grouped_gemm_ref, ragged_grouped_gemm, ragged_grouped_gemm_ref)
+
+    dtype = torch.bfloat16
+    cases = (
+        ("ragged_grouped_gemm", "decode", ragged_case(32, 32, dtype, device, 11)),
+        ("ragged_grouped_gemm", "prefill", ragged_case(2048, 32, dtype, device, 12)),
+        ("grouped_gemm", "decode", capacity_case(5, 32, dtype, device, 21)),
+        ("grouped_gemm", "prefill", capacity_case(320, 32, dtype, device, 22)),
+    )
+    out: dict = {}
+    for name, label, c in cases:
+        _, x, w = c["launches"][0]
+        slot, live = c["slot"], c["live"]
+        if name == "ragged_grouped_gemm":
+            slot_l = slot.long()
+            ms = cuda_ms(lambda: ragged_grouped_gemm(x, w, slot, live))
+            plain_ms = cuda_ms(lambda: ragged_grouped_gemm_ref(x, w, slot, live), reps=5, inner=2)
+            library_ms = cuda_ms(lambda: torch.bmm(x, w.index_select(0, slot_l)))
+            lib = "bmm over index_select-gathered weights, gather included"
+            n_index = 2
+        else:
+            ms = cuda_ms(lambda: grouped_gemm(x, w, live))
+            plain_ms = cuda_ms(lambda: grouped_gemm_ref(x, w, live), reps=5, inner=2)
+            library_ms = cuda_ms(lambda: torch.bmm(x, w))
+            lib = "bmm"
+            n_index = 1
+        bound_ms, bound_by, work = gemm_bound(x, w, slot, live, dtype, n_index)
+        row = {"shape": f"{c['shape']} wi bf16", "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+               "library": lib, **work}
+        log(f"time: {name} {label} {row['shape']} ms={ms:.4f} bound_ms={bound_ms:.4f} "
+            f"({bound_by}) plain_ms={plain_ms:.4f} library_ms({lib})={library_ms:.4f} "
+            f"roofline_share={bound_ms / ms:.3f}")
+        out.setdefault(name, {})[label] = row
+    return out
+
+
 def _post(url: str, body: dict, timeout: float = 600.0) -> tuple[int, dict]:
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -324,14 +566,44 @@ def _get(url: str) -> tuple[int, dict]:
         return resp.status, json.loads(resp.read())
 
 
+def counters() -> tuple[dict, dict]:
+    """(kernel wrappers, plain versions) by name, each with its counter's
+    attribute name."""
+    from llmd_tpu_torch.ops import grouped_gemm as gg
+    from llmd_tpu_torch.ops import paged_attention as pa
+
+    kernels = {"paged_attention": (pa.paged_attention, "launches"),
+               "ragged_grouped_gemm": (gg.ragged_grouped_gemm, "launches"),
+               "grouped_gemm": (gg.grouped_gemm, "launches")}
+    plain = {"paged_attention_ref": (pa.paged_attention_ref, "calls"),
+             "ragged_grouped_gemm_ref": (gg.ragged_grouped_gemm_ref, "launches"),
+             "grouped_gemm_ref": (gg.grouped_gemm_ref, "launches")}
+    return kernels, plain
+
+
+def zero_counts() -> None:
+    for group in counters():
+        for fn, attr in group.values():
+            setattr(fn, attr, 0)
+
+
+def read_counts() -> tuple[dict, dict]:
+    return tuple({name: getattr(fn, attr) for name, (fn, attr) in group.items()}
+                 for group in counters())
+
+
 def phase_engine(device, card: str, model: str = "llama-1b", n_requests: int = 8,
                  max_tokens: int = 32, prompt_range=(64, 512), seed: int = 0,
-                 engine_kw: "dict | None" = None) -> dict:
+                 engine_kw: "dict | None" = None,
+                 per_layer: "dict | None" = None, label: str = "") -> dict:
+    """Serve ``n_requests`` greedy completions over HTTP. ``per_layer``: the
+    launches each kernel of this path makes per layer and forward; every
+    kernel's count must equal that times layers × forwards (0 for kernels off
+    the path), and no plain version may run."""
     from llmd_tpu_torch.engine.config import EngineConfig
     from llmd_tpu_torch.engine.engine import EngineStats
     from llmd_tpu_torch.engine.server import EngineServer
     from llmd_tpu_torch.models import get_model_config
-    from llmd_tpu_torch.ops.paged_attention import paged_attention, paged_attention_ref
 
     cfg = get_model_config(model)
     kw = dict(page_size=PS, num_pages=2048, max_model_len=2048, max_batch_size=32,
@@ -355,9 +627,9 @@ def phase_engine(device, card: str, model: str = "llama-1b", n_requests: int = 8
         _post(base + "/v1/completions", {"prompt": "warm up", "max_tokens": 2,
                                          "temperature": 0})
         eng = server.engine
-        eng.stats = EngineStats(attn_backend=eng.attn_backend)
-        paged_attention.launches = 0
-        paged_attention_ref.calls = 0
+        eng.stats = EngineStats(attn_backend=eng.attn_backend, moe_backend=eng.moe_backend,
+                                moe_dispatch=eng.moe_dispatch)
+        zero_counts()
         results: list = [None] * n_requests
 
         def one(i: int) -> None:
@@ -375,7 +647,7 @@ def phase_engine(device, card: str, model: str = "llama-1b", n_requests: int = 8
         for t in threads:
             t.join(timeout=900)
         wall = time.perf_counter() - t1
-        launches, ref_calls = paged_attention.launches, paged_attention_ref.calls
+        launches, plain_calls = read_counts()
         st = eng.stats
     finally:
         server.stop()
@@ -387,41 +659,59 @@ def phase_engine(device, card: str, model: str = "llama-1b", n_requests: int = 8
         raise AssertionError(f"engine: failed requests {bad[:3]}")
     completion = sum(r[1]["usage"]["completion_tokens"] for r in results)
     prompt_toks = sum(r[1]["usage"]["prompt_tokens"] for r in results)
-    expect = cfg.num_layers * (st.n_unified_steps + st.n_decode_iterations)
+    per_layer = per_layer if per_layer is not None else {"paged_attention": 1}
+    forwards = st.n_unified_steps + st.n_decode_iterations
+    expect = {name: per_layer.get(name, 0) * cfg.num_layers * forwards for name in launches}
     row = {
-        "card": card, "model": model, "requests": n_requests, "setup_s": setup_s,
+        "card": card, "model": model, "label": label, "requests": n_requests,
+        "setup_s": setup_s,
         "wall_s": wall, "prompt_tokens": prompt_toks, "completion_tokens": completion,
         "output_tok_s": completion / wall,
         "prefill_tok_s": st.total_prefill_tokens / max(st.time_prefill_steps, 1e-9),
         "decode_tok_s": st.decode_tokens_fused / max(st.time_decode_steps, 1e-9),
         "unified_steps": st.n_unified_steps, "decode_calls": st.n_decode_calls,
         "decode_iterations": st.n_decode_iterations,
-        "paged_attention_launches": launches, "paged_attention_ref_calls": ref_calls,
-        "launches_per_decode_call": cfg.num_layers * max(1, kw["decode_steps"]),
-        "engine_config": kw,
+        "launches": launches, "expected_launches": expect, "plain_calls": plain_calls,
+        "moe_dispatch": st.moe_dispatch, "moe_backend": st.moe_backend,
+        "moe_dropped_tokens": st.moe_dropped_tokens, "eplb_rebalances": st.eplb_rebalances,
+        "engine_config": {k: repr(v) if k == "eplb" else v for k, v in kw.items()},
     }
-    log(f"engine: {model} on {card}: {n_requests} requests wall_s={wall:.3f} "
+    log(f"engine: {model} {label} on {card}: {n_requests} requests wall_s={wall:.3f} "
         f"prefill_tok_s={row['prefill_tok_s']:.1f} decode_tok_s={row['decode_tok_s']:.1f} "
         f"output_tok_s={row['output_tok_s']:.1f} unified_steps={st.n_unified_steps} "
-        f"decode_calls={st.n_decode_calls} launches={launches} ref_calls={ref_calls}")
-    if device.type == "cuda" and not (launches > 0 and ref_calls == 0):
-        raise AssertionError(f"engine: kernel launches {launches}, plain calls "
-                             f"{ref_calls}: the main path did not run the kernel")
-    if device.type == "cuda" and launches != expect:
-        raise AssertionError(f"engine: {launches} launches, expected {expect} "
-                             "(one per layer per forward)")
+        f"decode_calls={st.n_decode_calls} decode_iterations={st.n_decode_iterations}")
+    log(f"engine:   launches={launches} plain_calls={plain_calls} "
+        f"moe_dispatch={st.moe_dispatch!r} moe_dropped_tokens={st.moe_dropped_tokens} "
+        f"eplb_rebalances={st.eplb_rebalances}")
+    if device.type == "cuda":
+        missing = [n for n, v in per_layer.items() if v and launches[n] == 0]
+        if missing or any(plain_calls.values()):
+            raise AssertionError(f"engine {label}: kernels {missing} never launched or "
+                                 f"plain versions ran {plain_calls}: the path did not "
+                                 "run its kernels")
+        if launches != expect:
+            raise AssertionError(f"engine {label}: launches {launches}, expected {expect} "
+                                 f"({per_layer} per layer per forward)")
     return row
 
 
-def phase_forward_check(device, model: str = "llama-1b", seed: int = 0) -> dict:
+def phase_forward_check(device, model: str = "llama-1b", seed: int = 0,
+                        moe_dispatch: str = "sorted") -> dict:
     """One mixed unified batch (two decode rows over resident KV, a fresh
     prefill chunk, a second chunk of a longer prompt) through forward_core in
-    float32, once with the kernel's wrapper and once with the plain version."""
+    float32, once with the kernels' wrappers and once with the plain versions
+    passed as overrides (attention, and for a MoE model the expert GEMMs of
+    the ``moe_dispatch`` path). Logits are held together; the expert counts
+    (routing decisions) must be equal."""
     import dataclasses
+    import functools
 
     from llmd_tpu_torch.models import get_model_config
     from llmd_tpu_torch.models.transformer import (
-        forward_core, init_cache, init_params, unembed)
+        SORTED_DISPATCH, forward_core, init_cache, init_params, unembed)
+    from llmd_tpu_torch.ops.grouped_gemm import (
+        grouped_gemm, grouped_gemm_ref, ragged_grouped_gemm_ref)
+    from llmd_tpu_torch.ops.moe_dispatch import sorted_moe_local
     from llmd_tpu_torch.ops.paged_attention import paged_attention, paged_attention_ref
 
     cfg = dataclasses.replace(get_model_config(model), dtype="float32")
@@ -460,27 +750,50 @@ def phase_forward_check(device, model: str = "llama-1b", seed: int = 0) -> dict:
     e_tok = rng.integers(0, cfg.vocab_size, 128).tolist()
     mixed = [(0, seqs[0][300:301], 300), (1, seqs[1][90:91], 90),
              (3, e_tok, 0), (2, seqs[2][200:201], 200)]
-    out = {}
-    for name, impl in (("kernel", paged_attention), ("plain", paged_attention_ref)):
+    einsum = moe_dispatch == "einsum"
+    impls = {
+        "kernel": dict(attn_impl=paged_attention,
+                       moe_dispatch_impl=None if einsum else SORTED_DISPATCH,
+                       moe_matmul_impl=grouped_gemm),
+        "plain": dict(attn_impl=paged_attention_ref,
+                      moe_dispatch_impl=None if einsum else functools.partial(
+                          sorted_moe_local, gemm=ragged_grouped_gemm_ref),
+                      moe_matmul_impl=grouped_gemm_ref),
+    }
+    out, counts, runs = {}, {}, {}
+    for name, kw in impls.items():
         cache = init_cache(cfg, P, PS, device=device)
-        logits = []
+        logits, cnt = [], 0
+        zero_counts()
         for rows in (first, mixed):
             toks, pos, sids, pts, lens, cu, ns, cu_np = batch(rows)
-            hidden, cache = forward_core(cfg, params, cache, toks, pos, sids, pts,
-                                         lens, cu_q_lens=cu, num_seqs=ns,
-                                         attn_impl=impl)
+            hidden, cache, cnt_i, _ = forward_core(cfg, params, cache, toks, pos, sids,
+                                                   pts, lens, cu_q_lens=cu, num_seqs=ns,
+                                                   **kw)
+            cnt = cnt + cnt_i
             last = torch.from_numpy(cu_np[1:] - 1).to(device)
             logits.append(unembed(cfg, params, hidden[last]))
-        out[name] = torch.cat(logits)
+        runs[name] = read_counts()
+        out[name], counts[name] = torch.cat(logits), cnt
     diff = (out["kernel"] - out["plain"]).abs().max().item()
     agree = (out["kernel"].argmax(-1) == out["plain"].argmax(-1)).float().mean().item()
     finite = bool(torch.isfinite(out["kernel"]).all())
-    log(f"forward: {model} float32 mixed batch rows={out['kernel'].shape[0]} "
-        f"logits_max_abs_diff={diff:.3e} atol={FORWARD_ATOL:.0e} argmax_agree={agree:.3f}")
-    if not (finite and diff <= FORWARD_ATOL and agree == 1.0):
-        raise AssertionError(f"forward: kernel vs plain logits diff {diff}, "
-                             f"argmax agreement {agree}, finite {finite}")
-    return {"logits_max_abs_diff": diff, "argmax_agree": agree, "atol": FORWARD_ATOL}
+    same_counts = bool(torch.equal(counts["kernel"], counts["plain"]))
+    path = f" {moe_dispatch}" if cfg.is_moe else ""
+    log(f"forward: {model}{path} float32 mixed batch rows={out['kernel'].shape[0]} "
+        f"logits_max_abs_diff={diff:.3e} atol={FORWARD_ATOL:.0e} argmax_agree={agree:.3f} "
+        f"expert_counts_equal={same_counts} kernel_run={runs['kernel'][0]} "
+        f"plain_run={runs['plain'][1]}")
+    if not (finite and diff <= FORWARD_ATOL and agree == 1.0 and same_counts):
+        raise AssertionError(f"forward: kernel vs plain logits diff {diff}, argmax "
+                             f"agreement {agree}, finite {finite}, expert counts "
+                             f"equal {same_counts}")
+    if device.type == "cuda" and (any(runs["kernel"][1].values())
+                                  or any(runs["plain"][0].values())):
+        raise AssertionError(f"forward: the runs mixed kernels and plain versions: {runs}")
+    return {"logits_max_abs_diff": diff, "argmax_agree": agree, "atol": FORWARD_ATOL,
+            "expert_counts_equal": same_counts,
+            "expert_counts": counts["kernel"].tolist()}
 
 
 def main(argv: "list[str] | None" = None) -> int:
@@ -497,24 +810,60 @@ def main(argv: "list[str] | None" = None) -> int:
     report["device"] = dev = phase_device()
     card = dev["nvidia_smi"].splitlines()[0] if dev["nvidia_smi"] else dev["kind"]
     report["build"] = phase_build()
-    report["check"] = phase_check(device)
-    report["time"] = tm = phase_time(device)
-    report["engine"] = eng = phase_engine(device, card)
-    report["forward"] = phase_forward_check(device)
+    report["check"] = {"paged_attention": check_attention(device), **check_gemms(device)}
+    report["time"] = tm = {"paged_attention": time_attention(device), **time_gemms(device)}
+    from llmd_tpu_torch.parallel.eplb import EPLBConfig
+
+    moe = dict(model=MOE)
+    report["engine"] = eng = {
+        "llama-1b": phase_engine(device, card, label="dense"),
+        "moe_sorted": phase_engine(device, card, **moe, label="sorted",
+                                   engine_kw={"moe_dispatch": "sorted"},
+                                   per_layer={"paged_attention": 1, "ragged_grouped_gemm": 2}),
+        "moe_einsum": phase_engine(device, card, **moe, n_requests=4, label="einsum",
+                                   engine_kw={"moe_dispatch": "einsum"},
+                                   per_layer={"paged_attention": 1, "grouped_gemm": 2}),
+        "moe_eplb": phase_engine(device, card, **moe, n_requests=4, label="sorted+eplb",
+                                 engine_kw={"moe_dispatch": "sorted", "eplb": EPLBConfig(
+                                     window_size=8, step_interval=2,
+                                     num_redundant_experts=32)},
+                                 per_layer={"paged_attention": 1, "ragged_grouped_gemm": 2}),
+    }
+    if eng["moe_sorted"]["moe_dropped_tokens"] != 0:
+        raise AssertionError("engine: the sorted dispatch dropped routed copies")
+    if eng["moe_eplb"]["eplb_rebalances"] < 2:
+        raise AssertionError(f"engine: EPLB re-placed its experts "
+                             f"{eng['moe_eplb']['eplb_rebalances']} times, expected >= 2")
+    report["forward"] = {
+        "llama-1b": phase_forward_check(device),
+        "moe_sorted": phase_forward_check(device, MOE, moe_dispatch="sorted"),
+        "moe_einsum": phase_forward_check(device, MOE, moe_dispatch="einsum"),
+    }
     if args.report:
         out = Path(args.report)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(report, indent=1))
-    bf16_err = max(v["max_abs_err"] for k, v in report["check"].items()
-                   if k.endswith("bfloat16"))
-    kernels = {"kernels": [{
-        "name": "paged_attention", "route": "cuda",
-        "source": "llmd_tpu_torch/csrc/paged_attention.cu",
-        "replaces": "llmd_tpu/ops/paged_attention.py:106",
-        "launches": eng["paged_attention_launches"], "max_abs_err": bf16_err,
-        "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
-        "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
-    }]}
+
+    def bf16_err(rows: dict) -> float:
+        return max(v["max_abs_err"] for k, v in rows.items() if k.endswith("bfloat16"))
+
+    def entry(name, source, replaces, launches, t):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": bf16_err(report["check"][name]),
+                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+
+    gemm_src = "llmd_tpu_torch/csrc/grouped_gemm.cu"
+    kernels = {"kernels": [
+        entry("paged_attention", "llmd_tpu_torch/csrc/paged_attention.cu",
+              "llmd_tpu/ops/paged_attention.py:106",
+              eng["llama-1b"]["launches"]["paged_attention"], tm["paged_attention"]),
+        entry("ragged_grouped_gemm", gemm_src, "llmd_tpu/ops/grouped_gemm.py:98",
+              eng["moe_sorted"]["launches"]["ragged_grouped_gemm"],
+              tm["ragged_grouped_gemm"]["decode"]),
+        entry("grouped_gemm", gemm_src, "llmd_tpu/ops/grouped_gemm.py:43",
+              eng["moe_einsum"]["launches"]["grouped_gemm"], tm["grouped_gemm"]["decode"]),
+    ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
                                              "count": dev["count"]}}), flush=True)

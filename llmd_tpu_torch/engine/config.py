@@ -14,6 +14,8 @@ from __future__ import annotations
 from dataclasses import MISSING, dataclass, field, fields
 from typing import Optional
 
+from llmd_tpu_torch.parallel.eplb import EPLBConfig
+
 
 @dataclass
 class MeshConfig:
@@ -69,12 +71,16 @@ class EngineConfig:
     attn_tune_file: "str | None" = None
     sp_ring_attention: bool = True
     instrument: bool = False
+    # MoE expert GEMMs: "auto" = the CUDA kernels on a card, their plain
+    # versions for CPU tensors (the only value the port takes).
     moe_matmul: str = "auto"
+    # MoE token dispatch: auto (= sorted) | sorted (drop-free, K2) | einsum
+    # (capacity einsum, K4).
     moe_dispatch: str = "auto"
     quantize_weights: "str | None" = None
     kv_cache_dtype: "str | None" = None
     kv_layout: str = "auto"
-    eplb: Optional[object] = None
+    eplb: Optional[EPLBConfig] = None
     lora: "object | None" = None
     spec_mode: str = "off"
     spec_tokens: int = 4
@@ -99,7 +105,8 @@ class EngineConfig:
 
     def check_served(self) -> None:
         """Raise ValueError for a field this slice does not read that is set
-        away from its default, or for an attention impl other than 'auto'."""
+        away from its default, or for a value of a read field the port does
+        not take."""
         bad = []
         for f in fields(self):
             if f.name in SERVED:
@@ -113,10 +120,20 @@ class EngineConfig:
         if self.attn_impl != "auto":
             raise ValueError(f"attn_impl={self.attn_impl!r}: the port has one "
                              "attention path, 'auto' (the kernel on a card)")
+        if self.moe_matmul != "auto":
+            raise ValueError(f"moe_matmul={self.moe_matmul!r}: the port has one "
+                             "expert-GEMM path, 'auto' (the kernels on a card)")
+        if self.moe_dispatch not in ("auto", "sorted", "einsum"):
+            raise ValueError(f"moe_dispatch must be auto|sorted|einsum, got "
+                             f"{self.moe_dispatch!r}")
+        if self.eplb is not None and not isinstance(self.eplb, EPLBConfig):
+            raise ValueError("eplb takes llmd_tpu_torch.parallel.eplb.EPLBConfig, "
+                             f"got {type(self.eplb).__name__}")
 
 
 # The fields this slice of the port reads; every other one must keep its default.
 SERVED = frozenset({
     "page_size", "num_pages", "max_model_len", "max_batch_size", "prefill_chunk",
     "max_num_batched_tokens", "enable_prefix_caching", "decode_steps", "attn_impl",
+    "moe_matmul", "moe_dispatch", "eplb",
 })

@@ -18,13 +18,19 @@ Two step programs, routed inline by ``step()``:
 
 Also carried over: admission with prefix-cache reuse (chained block hashes),
 chunked prefill across sequences, preemption by recompute when pages run out,
-and the tight-pool degrade of a multi-step decode to one unified step.
+the tight-pool degrade of a multi-step decode to one unified step, and for MoE
+models the dispatch choice (``_select_moe_dispatch``), the dropped-copy count
+and EPLB (redundant expert slots re-placed every ``step_interval`` steps that
+routed tokens, from a sliding window of expert loads).
 
 The loop is synchronous: every step ends with one host read of its sampled
-tokens. The reference's pipelined chain, pack overlap, deferred prefill sample
+tokens (and, for MoE, of the step's dropped count and expert loads in the same
+copy). The reference's pipelined chain, pack overlap, deferred prefill sample
 and CUDA-graph replay are later work (ROADMAP). Batches are packed without
 padding rows: a unified step carries exactly its real tokens, a decode call
-exactly its active sequences.
+exactly its active sequences. The capacity-einsum MoE path is told where each
+row sits in the reference's padded batch (``forward_core(moe_rows=...)``), so
+its capacity, and with it its drops, follow the reference's.
 
 Entry point device: a CUDA card unless the caller passes ``device="cpu"``.
 """
@@ -46,12 +52,14 @@ from llmd_tpu_torch.engine.kv_manager import PageAllocator, Sequence
 from llmd_tpu_torch.engine.sampling import greedy_tokens, sample_tokens
 from llmd_tpu_torch.models.config import ModelConfig
 from llmd_tpu_torch.models.transformer import (
+    SORTED_DISPATCH,
     check_supported,
     forward_core,
     init_cache,
     init_params,
     unembed,
 )
+from llmd_tpu_torch.parallel.eplb import ExpertLoadTracker, rebalance
 
 
 def resolve_device(device: "torch.device | str | None" = None) -> torch.device:
@@ -91,6 +99,10 @@ class EngineStats:
     decode_tokens_fused: int = 0
     total_preemptions: int = 0
     attn_backend: str = ""  # kernel provenance
+    moe_backend: str = ""  # expert-GEMM provenance
+    moe_dispatch: str = ""  # "sorted" | "einsum" | "n/a (dense model)"
+    moe_dropped_tokens: int = 0  # routed copies dropped past capacity (einsum)
+    eplb_rebalances: int = 0  # expert-placement recomputes
     # wall time inside each program; every step ends in a host read of its
     # sampled tokens, so these include the device time
     time_prefill_steps: float = 0.0
@@ -140,6 +152,100 @@ class LLMEngine:
         self.attn_backend = ("cuda_paged_attention" if self.device.type == "cuda"
                              else "torch_reference (cpu tensors)")
         self.stats.attn_backend = self.attn_backend
+        self._moe_dispatch_impl = self._select_moe_dispatch()
+        self.stats.moe_backend = self.moe_backend
+        self.stats.moe_dispatch = self.moe_dispatch
+        self._eplb = None
+        if engine_cfg.eplb is not None and model_cfg.is_moe:
+            self._init_eplb()
+
+    def _select_moe_dispatch(self) -> Optional[Callable]:
+        """The MoE token dispatch (reference ``_select_moe_dispatch``, one
+        device, no environment override): ``auto`` and ``sorted`` give the
+        drop-free sorted path (expert GEMMs through K2), ``einsum`` the
+        capacity path (K4). Returns the dispatch_impl, None for einsum."""
+        if not self.model_cfg.is_moe:
+            self.moe_dispatch = self.moe_backend = "n/a (dense model)"
+            return None
+        self.moe_dispatch = "einsum" if self.cfg.moe_dispatch == "einsum" else "sorted"
+        if self.device.type != "cuda":
+            self.moe_backend = "torch_reference (cpu tensors)"
+        else:
+            self.moe_backend = ("cuda_ragged_grouped_gemm" if self.moe_dispatch == "sorted"
+                                else "cuda_grouped_gemm")
+        return SORTED_DISPATCH if self.moe_dispatch == "sorted" else None
+
+    # ----------------------------------------------------------------- EPLB
+    # Physical slot weights and replica tables live beside the logical params
+    # and are re-gathered every step_interval steps that routed tokens.
+    def _init_eplb(self) -> None:
+        e = self.cfg.eplb
+        E, L = self.model_cfg.moe_num_experts, self.model_cfg.num_layers
+        self._eplb = e
+        self._eplb_slots = E + e.num_redundant_experts  # one EP rank
+        self._eplb_tracker = ExpertLoadTracker(L, E, e.window_size)
+        self._eplb_steps = 0
+        self._eplb_active = False  # set when a forward actually routed tokens
+        self._eplb_rebalance()
+
+    def _eplb_rebalance(self) -> None:
+        """Recompute the placement from the windowed loads and gather the
+        physical slot weights on the device (``index_select``)."""
+        s2e, slots, counts = rebalance(self._eplb_tracker.loads(), self._eplb_slots, 1)
+        L, S = s2e.shape
+        E = self.model_cfg.moe_num_experts
+        rows = self._tensor((np.arange(L)[:, None] * E + s2e).reshape(-1).astype(np.int64))
+        phys = {}
+        for name in ("moe_wi", "moe_wo"):
+            w = self.params[name]  # [L, E, ...]
+            phys[name] = w.reshape(L * E, *w.shape[2:]).index_select(0, rows).view(
+                L, S, *w.shape[2:])
+        self._eplb_params = {**phys, "eplb_replica_slots": self._tensor(slots),
+                             "eplb_replica_counts": self._tensor(counts)}
+        self.stats.eplb_rebalances += 1
+
+    def _run_params(self) -> dict[str, torch.Tensor]:
+        """Params seen by the forward: base weights, plus the physical expert
+        weights and replica tables under EPLB."""
+        if self._eplb is None:
+            return self.params
+        return {**self.params, **self._eplb_params}
+
+    def _eplb_tick(self) -> None:
+        # count only steps that routed tokens
+        if not self._eplb_active:
+            return
+        self._eplb_active = False
+        self._eplb_steps += 1
+        if self._eplb_steps % self._eplb.step_interval == 0:
+            self._eplb_rebalance()
+
+    def _forward(self, *args, moe_rows, **kw):
+        return forward_core(self.model_cfg, self._run_params(), self.cache, *args,
+                            moe_dispatch_impl=self._moe_dispatch_impl,
+                            moe_rows=moe_rows, **kw)
+
+    def _read_back(self, tokens: Optional[torch.Tensor], cnt: torch.Tensor,
+                   drop: torch.Tensor) -> np.ndarray:
+        """The step's one host read: its tokens and, for a MoE model, its
+        dropped-copy count and (under EPLB) its expert loads, in one copy.
+        Records the MoE numbers; returns the tokens as int64."""
+        parts = [tokens.reshape(-1).long()] if tokens is not None else []
+        moe = self.model_cfg.is_moe
+        if moe:
+            parts.append(drop.reshape(1).long())
+            if self._eplb is not None:
+                parts.append(cnt.reshape(-1).long())
+        if not parts:
+            return np.zeros((0,), np.int64)
+        host = torch.cat(parts).cpu().numpy()
+        n = 0 if tokens is None else tokens.numel()
+        if moe:
+            self.stats.moe_dropped_tokens += int(host[n])
+            if self._eplb is not None:
+                self._eplb_tracker.record(host[n + 1:].reshape(cnt.shape))
+                self._eplb_active = True
+        return host[:n]
 
     # ------------------------------------------------------------ requests
     def add_request(self, request_id: str, token_ids: list[int],
@@ -294,6 +400,8 @@ class LLMEngine:
                 self._step_unified()
             else:
                 self._step_decode()
+        if self._eplb is not None:
+            self._eplb_tick()
         st = self.stats
         st.num_waiting = len(self.waiting)
         st.num_running = sum(1 for s in self.running if s is not None)
@@ -374,11 +482,13 @@ class LLMEngine:
             off += n
             cu[i + 1] = off
 
-        hidden, self.cache = forward_core(
-            self.model_cfg, self.params, self.cache, self._tensor(toks),
-            self._tensor(pos), self._tensor(sids), self._tensor(pts),
+        # the reference runs its unified program on batched_tokens rows, real
+        # rows first: row i of this batch is its row i
+        hidden, self.cache, cnt, drop = self._forward(
+            self._tensor(toks), self._tensor(pos), self._tensor(sids), self._tensor(pts),
             self._tensor(lens), cu_q_lens=self._tensor(cu),
-            num_seqs=self._tensor(np.array([nb], np.int32)))
+            num_seqs=self._tensor(np.array([nb], np.int32)),
+            moe_rows=(torch.arange(N, device=self.device), self.cfg.batched_tokens))
 
         sample_rows: list[tuple[int, Sequence]] = []  # (plan row, seq)
         for i, (s, n, is_decode) in enumerate(plan):
@@ -393,12 +503,14 @@ class LLMEngine:
                 self.stats.total_prefill_tokens += n
                 if len(s.token_ids) == s.prompt_len and s.num_computed == s.prompt_len:
                     sample_rows.append((i, s))  # prompt complete: first token
+        sampled = None
         if sample_rows:
             last = self._tensor(cu[[i + 1 for i, _ in sample_rows]] - 1)
             logits = unembed(self.model_cfg, self.params, hidden[last.long()])
-            sampled = self._sample(logits, [s for _, s in sample_rows]).tolist()
-            for (_, s), tok in zip(sample_rows, sampled):
-                self._apply_token(s, tok)
+            sampled = self._sample(logits, [s for _, s in sample_rows])
+        sampled = self._read_back(sampled, cnt, drop).tolist()
+        for (_, s), tok in zip(sample_rows, sampled):
+            self._apply_token(s, tok)
         self.stats.time_prefill_steps += time.perf_counter() - t0
         self.stats.n_unified_steps += 1
 
@@ -453,11 +565,15 @@ class LLMEngine:
         slots_d = torch.arange(nb, dtype=torch.int32, device=self.device)
         cu_d = torch.arange(nb + 1, dtype=torch.int32, device=self.device)
         ns_d = torch.tensor([nb], dtype=torch.int32, device=self.device)
-        out = []
+        # the reference's decode batch has a row per slot, in slot order
+        moe_rows = (self._tensor(np.array([s.slot for s in active], np.int64)),
+                    self.cfg.max_batch_size)
+        out, cnt, drop = [], 0, 0
         for i in range(n_iter):
-            hidden, self.cache = forward_core(
-                self.model_cfg, self.params, self.cache, tok_d, pos_d, slots_d,
-                pts_d, lens_d, cu_q_lens=cu_d, num_seqs=ns_d)
+            hidden, self.cache, cnt_i, drop_i = self._forward(
+                tok_d, pos_d, slots_d, pts_d, lens_d, cu_q_lens=cu_d, num_seqs=ns_d,
+                moe_rows=moe_rows)
+            cnt, drop = cnt + cnt_i, drop + drop_i
             nxt = self._sample(unembed(self.model_cfg, self.params, hidden), active)
             act = i < steps_d  # rows freeze once their budget is spent
             nxt = torch.where(act, nxt, 0)
@@ -465,7 +581,8 @@ class LLMEngine:
             lens_d = torch.where(act, lens_d + 1, lens_d)
             out.append(nxt)
             tok_d = nxt
-        toks_out = torch.stack(out).cpu().numpy()  # [n_iter, nb] (host sync)
+        # [n_iter, nb] (the host sync)
+        toks_out = self._read_back(torch.stack(out), cnt, drop).reshape(n_iter, nb)
 
         for j, s in enumerate(active):
             kept: list[int] = []

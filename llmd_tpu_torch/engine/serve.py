@@ -1,4 +1,5 @@
 """CLI: python -m llmd_tpu_torch.engine.serve --model llama-1b --port 8000 [--cpu]
+         [--moe-dispatch auto|sorted|einsum]
 
 Serves a registry model with random weights from ``--seed`` on the port's HTTP
 server. Runs on the CUDA card unless ``--cpu`` is given. Flag names follow the
@@ -23,6 +24,10 @@ def main(argv: "list[str] | None" = None) -> None:
     ap.add_argument("--max-batch-size", type=int, default=8)
     ap.add_argument("--prefill-chunk", type=int, default=128)
     ap.add_argument("--decode-steps", type=int, default=4)
+    ap.add_argument("--moe-dispatch", default="auto", choices=("auto", "sorted", "einsum"),
+                    help="MoE token dispatch (EngineConfig.moe_dispatch): auto = "
+                         "sorted (drop-free, ragged grouped GEMM), einsum = the "
+                         "capacity einsum (per-expert grouped GEMM)")
     ap.add_argument("--tokenizer", default=None, help="local HF tokenizer dir")
     ap.add_argument("--seed", type=int, default=0, help="random-weight seed")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU (dev)")
@@ -37,7 +42,8 @@ def main(argv: "list[str] | None" = None) -> None:
     engine_cfg = EngineConfig(
         page_size=args.block_size, num_pages=args.num_pages,
         max_model_len=args.max_model_len, max_batch_size=args.max_batch_size,
-        prefill_chunk=args.prefill_chunk, decode_steps=args.decode_steps)
+        prefill_chunk=args.prefill_chunk, decode_steps=args.decode_steps,
+        moe_dispatch=args.moe_dispatch)
     server = EngineServer(
         model_cfg, engine_cfg,
         model_name=args.served_model_name, host=args.host, port=args.port,
@@ -46,7 +52,8 @@ def main(argv: "list[str] | None" = None) -> None:
     server.start()
     print(f"llmd-tpu-torch engine serving {server.model_name} on "
           f"http://{server.address} (device {server.engine.device}, "
-          f"attention {server.engine.attn_backend})", flush=True)
+          f"attention {server.engine.attn_backend}, MoE {server.engine.moe_dispatch} "
+          f"{server.engine.moe_backend})", flush=True)
     try:
         threading.Event().wait()
     except KeyboardInterrupt:

@@ -1,11 +1,12 @@
-"""Dense GQA decoder over a paged KV cache (the GQA half of
+"""GQA decoder over a paged KV cache, dense or MoE (the GQA half of
 ``llmd_tpu/models/transformer.py``), in PyTorch.
 
 Layout and semantics follow the reference so parity tests compare like with
 like:
 
 - Parameters are a dict of stacked tensors with the reference's names and
-  shapes (``wq [L, D, H, Dh]``, ``wi [L, D, 2F]`` fused gate+up, ...).
+  shapes (``wq [L, D, H, Dh]``, ``wi [L, D, 2F]`` fused gate+up, MoE
+  ``router [L, D, E]``, ``moe_wi [L, E, D, 2Fe]``, ...).
 - The KV cache is ONE flat pool ``[L*P, page_size, 2*Hk, Dh]`` with the layer
   folded into the page dimension (layer ``l``'s page ``p`` at row ``l*P + p``)
   and K/V interleaved per head (K at plane 2h, V at 2h+1). Unlike the
@@ -16,13 +17,14 @@ like:
   loop — the counterpart of the reference's ``lax.scan`` — and writes K/V
   into the pool IN PLACE (the reference's donated-buffer update).
 - Attention is the kernel's wrapper ``ops/paged_attention.paged_attention``
-  (the CUDA kernel for CUDA tensors, its plain version for CPU tensors). Any
-  impl with the same uniform signature can be passed instead; only the
-  kernel-vs-plain checks do.
+  and the MoE expert GEMMs are the kernels' wrappers of
+  ``ops/grouped_gemm`` (the CUDA kernels for CUDA tensors, their plain
+  versions for CPU tensors). Any impl with the same signature can be passed
+  instead; only the kernel-vs-plain checks do.
 
-Serves dense GQA configs only: MoE, MLA, vision towers, qk-norm/bias
-checkpoints, LoRA and int8 weights raise ``NotImplementedError`` naming the
-ROADMAP Queue A item that brings them.
+Serves dense and MoE GQA configs. MLA, vision towers, qk-norm/bias
+checkpoints, LoRA and int8 weights (int8 expert banks included) raise
+``NotImplementedError`` naming the ROADMAP Queue A item that brings them.
 """
 
 from __future__ import annotations
@@ -34,16 +36,16 @@ import torch
 import torch.nn.functional as F
 
 from llmd_tpu_torch.models.config import ModelConfig
+from llmd_tpu_torch.ops.grouped_gemm import grouped_gemm
+from llmd_tpu_torch.ops.moe_dispatch import make_sorted_dispatch
 from llmd_tpu_torch.ops.paged_attention import paged_attention
 
-DENSE_KEYS = ("embed", "final_norm", "attn_norm", "mlp_norm", "wq", "wk", "wv",
-              "wo", "wi", "wo_mlp")
+# the default MoE dispatch: token-sorted, drop-free, expert GEMMs through K2
+SORTED_DISPATCH = make_sorted_dispatch()
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for architectures this slice of the port does not serve."""
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE is ROADMAP Queue A item 8")
     if cfg.is_mla:
         raise NotImplementedError(f"{cfg.name}: MLA is ROADMAP Queue A item 9")
     if cfg.mm_tokens > 0 or cfg.has_vision:
@@ -62,9 +64,17 @@ def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
         "attn_norm": (L, D), "mlp_norm": (L, D),
         "wq": (L, D, H, Dh), "wk": (L, D, Hk, Dh), "wv": (L, D, Hk, Dh),
         "wo": (L, H, Dh, D),
-        "wi": (L, D, 2 * Fi),  # fused gate+up (SwiGLU)
-        "wo_mlp": (L, Fi, D),
     }
+    if cfg.is_moe:
+        E, Fe = cfg.moe_num_experts, cfg.moe_intermediate_size or Fi
+        shapes |= {"router": (L, D, E), "moe_wi": (L, E, D, 2 * Fe),
+                   "moe_wo": (L, E, Fe, D)}
+        if cfg.moe_num_shared_experts:
+            Fs = Fi * cfg.moe_num_shared_experts
+            shapes |= {"shared_wi": (L, D, 2 * Fs), "shared_wo": (L, Fs, D)}
+    else:
+        shapes |= {"wi": (L, D, 2 * Fi),  # fused gate+up (SwiGLU)
+                   "wo_mlp": (L, Fi, D)}
     if not cfg.tie_embeddings:
         shapes["unembed"] = (D, cfg.vocab_size)
     return shapes
@@ -80,8 +90,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     device = torch.device(device) if device is not None else gen_dev
     shapes = param_shapes(cfg)
     D, H, Dh, Fi = cfg.hidden_size, cfg.num_heads, cfg.head_dim, cfg.intermediate_size
+    Fe = cfg.moe_intermediate_size or Fi
+    Fs = Fi * cfg.moe_num_shared_experts
     scales = {"embed": 0.02, "wq": D ** -0.5, "wk": D ** -0.5, "wv": D ** -0.5,
               "wo": (H * Dh) ** -0.5, "wi": D ** -0.5, "wo_mlp": Fi ** -0.5,
+              "router": D ** -0.5, "moe_wi": D ** -0.5, "moe_wo": Fe ** -0.5,
+              "shared_wi": D ** -0.5, "shared_wo": max(Fs, 1) ** -0.5,
               "unembed": D ** -0.5}
     params: dict[str, torch.Tensor] = {}
     for name, shape in shapes.items():
@@ -107,7 +121,7 @@ def params_from_numpy(cfg: ModelConfig, np_params: dict,
     extra = sorted(set(np_params) - set(shapes))
     if extra:
         raise NotImplementedError(
-            f"params {extra} are not served by the dense slice "
+            f"params {extra} are not served by the port "
             "(int8 weights are ROADMAP Queue A item 6)")
     out: dict[str, torch.Tensor] = {}
     for name, shape in shapes.items():
@@ -157,6 +171,113 @@ def swiglu(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """Fused gate/up MLP: ``wi [D, 2F]`` holds gate then up."""
     gate, up = (x @ wi).chunk(2, dim=-1)
     return (F.silu(gate) * up) @ wo
+
+
+def moe_block(
+    cfg: ModelConfig,
+    x: torch.Tensor,  # [T, D]
+    router: torch.Tensor,  # [D, E]
+    wi: torch.Tensor,  # [S, D, 2Fe] (S = E, or the EPLB physical slots)
+    wo: torch.Tensor,  # [S, Fe, D]
+    eplb: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+    matmul_impl: Callable = grouped_gemm,
+    token_mask: Optional[torch.Tensor] = None,  # [T] bool
+    dispatch_impl: Optional[Callable] = SORTED_DISPATCH,
+    rows: Optional[tuple[torch.Tensor, int]] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Top-k routed MoE (port of the reference's ``moe_block``).
+
+    Routing stays here for both paths, so both see the same decisions: f32
+    router logits, softmax, top-k, renormalised with ``+1e-9``; masked tokens
+    (``token_mask`` False) neither count nor consume capacity.
+
+    ``eplb = (replica_slots [E, R], replica_counts [E])``: ``wi``/``wo`` hold
+    the physical slot weights and copy j of token t goes to replica
+    ``(t + j) % replica_counts`` of its expert.
+
+    ``dispatch_impl(x, idx, topw, valid, wi, wo) -> y`` is the token-sorted
+    drop-free path (``ops/moe_dispatch``, the default). ``None`` selects the
+    capacity-einsum path: ``C = max(1, int(t·k/S·moe_capacity_factor))`` slots
+    per expert, copies past C dropped, expert GEMMs through
+    ``matmul_impl(xe [S, C, D], w, slot_counts [S])`` (K4's wrapper).
+
+    ``rows = (row_ids [T] int64, size)`` places the T rows in the reference's
+    static batch of ``size`` rows (the reference pads its unified batch to the
+    token budget, real rows first, and its decode batch to every slot, row =
+    slot). The replica choice uses ``row_ids`` for ``t``; the einsum path runs
+    on the padded batch (its C, cumsum order and DBO halves depend on it), so
+    its drops equal the reference's. Default: ``arange(T)``, size T.
+
+    ``cfg.moe_dbo`` runs two half batches (split at half the static size).
+    Returns (y [T, D], logical expert counts [E] int32, dropped copies int32
+    scalar; 0 on the sorted path)."""
+    T, D = x.shape
+    E, k = cfg.moe_num_experts, cfg.moe_top_k
+    dev = x.device
+    weights = torch.softmax(x.float() @ router.float(), dim=-1)
+    topw, topi = torch.topk(weights, k, dim=-1)  # [T, k]
+    topw = topw / (topw.sum(dim=-1, keepdim=True) + 1e-9)
+    valid = (token_mask.to(torch.int32)[:, None] if token_mask is not None
+             else torch.ones((T, 1), dtype=torch.int32, device=dev))
+    counts = torch.zeros((E,), dtype=torch.int32, device=dev).scatter_add_(
+        0, topi.reshape(-1), valid.expand(T, k).reshape(-1))
+    row_ids, size = rows if rows is not None else (torch.arange(T, device=dev), T)
+
+    if eplb is not None:
+        replica_slots, replica_counts = eplb
+        S = wi.shape[0]
+        rc = replica_counts.long()[topi]  # [T, k]
+        choice = (row_ids.long()[:, None] + torch.arange(k, device=dev)[None, :]) % rc
+        idx = replica_slots.long()[topi, choice]  # [T, k] physical slot ids
+    else:
+        S, idx = E, topi
+
+    def halves(fn, *args):
+        """``fn`` on the whole batch, or on its two DBO halves."""
+        t = args[0].shape[0]
+        if cfg.moe_dbo and t % 2 == 0 and t >= 2:
+            h = t // 2
+            (ya, ka), (yb, kb) = fn(*(a[:h] for a in args)), fn(*(a[h:] for a in args))
+            return torch.cat([ya, yb]), ka + kb
+        return fn(*args)
+
+    if dispatch_impl is not None:
+        def sorted_half(x, idx, topw, valid):
+            return dispatch_impl(x, idx, topw, valid, wi, wo), 0
+
+        y, _ = halves(sorted_half, x, idx, topw, valid)
+        return y, counts, torch.zeros((), dtype=torch.int32, device=dev)
+
+    def einsum_half(x, idx, topw, valid):
+        t = x.shape[0]
+        C = max(1, int(t * k / S * cfg.moe_capacity_factor))
+        onehot = F.one_hot(idx, S).to(torch.int32) * valid[..., None]  # [t, k, S]
+        flat = onehot.reshape(t * k, S)
+        pos_in_expert = (torch.cumsum(flat, 0) - flat).reshape(t, k, S)
+        pos = pos_in_expert.gather(2, idx[..., None])[..., 0]  # [t, k] own slot
+        keep = (pos < C) & (valid > 0)  # [t, k]
+        # kept copy -> row slot*C + pos of the [S*C] expert buffer; the rest
+        # -> the dump row S*C (sliced off)
+        dst = torch.where(keep, idx * C + pos, S * C).reshape(-1)
+        tok = torch.arange(t * k, device=dev) // k
+        xe = x.new_zeros((S * C + 1, D)).index_copy_(0, dst, x[tok])[: S * C]
+        slot_counts = (onehot * keep[..., None]).sum(dim=(0, 1)).to(torch.int32)
+        gate, up = matmul_impl(xe.view(S, C, D), wi, slot_counts).chunk(2, dim=-1)
+        ye = matmul_impl(F.silu(gate) * up, wo, slot_counts).reshape(S * C, D)
+        g = torch.cat([ye, ye.new_zeros((1, D))])[dst].float()
+        wt = (topw.to(x.dtype) * keep).float().reshape(-1, 1)
+        y = (g * wt).view(t, k, D).sum(dim=1).to(x.dtype)
+        return y, keep.sum().to(torch.int32)
+
+    if size != T:  # scatter into the reference's static batch; the rest masked
+        def pad(a):
+            return a.new_zeros((size, *a.shape[1:])).index_copy_(0, row_ids.long(), a)
+
+        y, kept = halves(einsum_half, pad(x), pad(idx), pad(topw), pad(valid))
+        y = y[row_ids.long()]
+    else:
+        y, kept = halves(einsum_half, x, idx, topw, valid)
+    return y, counts, counts.sum().to(torch.int32) - kept
 
 
 # ---------------------------------------------------------------------------
@@ -209,12 +330,22 @@ def forward_core(
     cu_q_lens: Optional[torch.Tensor] = None,  # [B+1] (kernel path)
     num_seqs: Optional[torch.Tensor] = None,  # [1] (kernel path)
     attn_impl: Callable = paged_attention,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    moe_dispatch_impl: Optional[Callable] = SORTED_DISPATCH,
+    moe_matmul_impl: Callable = grouped_gemm,
+    moe_rows: Optional[tuple[torch.Tensor, int]] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run a flat mixed batch through the model, writing K/V into the pool.
 
-    Returns (hidden [N, D] final-normed, cache). Callers unembed only the rows
-    they need. The padding-row filter for the KV write costs one host sync per
-    call (``nonzero``), shared by all layers."""
+    MoE layers route through ``moe_block``: the sorted dispatch by default,
+    the capacity einsum with ``moe_dispatch_impl=None``; ``moe_rows`` places
+    the rows in the reference's static batch (see ``moe_block``). Physical
+    EPLB slot weights arrive in ``params`` under the logical names, with
+    ``eplb_replica_slots``/``eplb_replica_counts`` beside them.
+
+    Returns (hidden [N, D] final-normed, cache, expert_counts [L, E] int32
+    ([L, 0] for a dense model), dropped copies int32 scalar). Callers unembed
+    only the rows they need. The padding-row filter for the KV write costs
+    one host sync per call (``nonzero``), shared by all layers."""
     check_supported(cfg)
     N = tokens.shape[0]
     Ptot, ps, HkC, Dh = cache.shape
@@ -233,6 +364,8 @@ def forward_core(
     flat = cache.view(Ptot * ps, HkC, Dh)
     cos, sin = rope_tables(positions, Dh, cfg.rope_theta)
     scale = Dh ** -0.5
+    eplb = params.get("eplb_replica_slots"), params.get("eplb_replica_counts")
+    counts, dropped = [], []
 
     for l in range(L):
         h = rms_norm(x, params["attn_norm"][l], cfg.rms_eps)
@@ -248,8 +381,26 @@ def forward_core(
                          cu_q_lens=cu_q_lens, num_seqs=num_seqs, scale=scale)
         x = x + attn.reshape(N, H * Dh) @ params["wo"][l].reshape(H * Dh, D)
         h = rms_norm(x, params["mlp_norm"][l], cfg.rms_eps)
-        x = x + swiglu(h, params["wi"][l], params["wo_mlp"][l])
-    return rms_norm(x, params["final_norm"], cfg.rms_eps), cache
+        if cfg.is_moe:
+            y, cnt, drop = moe_block(
+                cfg, h, params["router"][l], params["moe_wi"][l], params["moe_wo"][l],
+                eplb=(eplb[0][l], eplb[1][l]) if eplb[0] is not None else None,
+                matmul_impl=moe_matmul_impl, token_mask=valid,
+                dispatch_impl=moe_dispatch_impl, rows=moe_rows)
+            if cfg.moe_num_shared_experts:
+                y = y + swiglu(h, params["shared_wi"][l], params["shared_wo"][l])
+            counts.append(cnt)
+            dropped.append(drop)
+        else:
+            y = swiglu(h, params["wi"][l], params["wo_mlp"][l])
+        x = x + y
+    if counts:
+        expert_counts, n_dropped = torch.stack(counts), torch.stack(dropped).sum()
+    else:
+        expert_counts = torch.zeros((L, 0), dtype=torch.int32, device=x.device)
+        n_dropped = torch.zeros((), dtype=torch.int32, device=x.device)
+    return (rms_norm(x, params["final_norm"], cfg.rms_eps), cache, expert_counts,
+            n_dropped.to(torch.int32))
 
 
 def unembed(cfg: ModelConfig, params: dict[str, torch.Tensor],
@@ -282,7 +433,7 @@ def forward(
     cu = torch.zeros((B + 1,), dtype=torch.int32, device=dev)
     cu[1:] = valid.sum(1).cumsum(0)
     seq_slots = torch.arange(B, dtype=torch.int32, device=dev).repeat_interleave(T)[rows]
-    packed, cache = forward_core(
+    packed, cache, _, _ = forward_core(
         cfg, params, cache, tokens.reshape(-1)[rows], positions.reshape(-1)[rows],
         seq_slots, page_tables, kv_lens, cu_q_lens=cu,
         num_seqs=torch.tensor([B], dtype=torch.int32, device=dev))

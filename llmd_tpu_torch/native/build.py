@@ -46,7 +46,8 @@ class Built:
 
 
 _LOADED: dict[str, Built] = {}
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()  # guards _LOCKS
+_LOCKS: dict[str, threading.Lock] = {}  # one per source: builds run in parallel
 
 
 def nvcc_path() -> str:
@@ -62,8 +63,11 @@ def nvcc_path() -> str:
 
 
 def load(name: str) -> Built:
-    """Compile ``csrc/<name>.cu`` if needed and dlopen it (once per process)."""
+    """Compile ``csrc/<name>.cu`` if needed and dlopen it (once per process).
+    Different sources build concurrently when loaded from several threads."""
     with _LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _LOADED:
             return _LOADED[name]
         src = CSRC / f"{name}.cu"

@@ -1,0 +1,142 @@
+"""Token-sorted, drop-free MoE dispatch on one device (the single-device half of
+``llmd_tpu/ops/moe_dispatch.py``).
+
+* Sort the flat ``(token, k)`` copies by physical slot id (EPLB's replica
+  choice already happened in ``moe_block``, so the sort key is the placement).
+* Scatter the activations into a block-aligned buffer whose per-slot segments
+  start at multiples of the GEMM block size ``bc``: static shapes,
+  data-dependent fill, no drops, no host read.
+* Run the expert MLP as two block-ragged grouped GEMMs (K2,
+  ``ops/grouped_gemm.ragged_grouped_gemm``: the CUDA kernel on the card, its
+  plain version for CPU tensors), ``silu(gate) * up`` between them in the
+  activation dtype.
+* Combine by the inverse permutation, weighted by the router probabilities.
+  A token's k copies are contiguous, so the combine adds them in order of k
+  without atomics (a deterministic sum on the card).
+
+The reference's ``mode="drop"`` scatters have no torch counterpart: sentinel
+copies write to one dump row past the buffer, which is then sliced off. The
+expert-parallel all-to-all body (``ep > 1``) is ROADMAP Queue A item 11.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+from llmd_tpu_torch.ops.grouped_gemm import ragged_grouped_gemm
+
+
+def pick_block_size(tokens_k: int, slots: int, pallas: bool) -> int:
+    """GEMM block rows: about one slot's expected share, power of two.
+
+    The padded buffer is ``Tk + S*bc`` rows, so small ``bc`` keeps the
+    drop-free layout near-dense at decode shapes (Tk ~ S) while prefill
+    (Tk >> S) gets larger blocks. ``pallas`` (the kernel flag; set on the
+    card) keeps at least 8 rows, so the block plans equal the reference's.
+    """
+    bc = 1
+    while bc * slots < tokens_k and bc < 128:
+        bc *= 2
+    return max(8, bc) if pallas else bc
+
+
+def _row_plan(slot: torch.Tensor, S: int, bc: int):
+    """Static-shape placement of N routed copies into a block-aligned buffer.
+    ``slot`` is [N] int in [0, S]; S is the padding sentinel.
+
+    Returns (row [N], block_slot [nb], block_rows [nb], Tp), all int32 but Tp:
+    ``row[i]`` is copy i's row in the padded buffer (== Tp for sentinels, the
+    dump row); block b holds rows of expert slot ``block_slot[b]``, with
+    ``block_rows[b]`` of them real.
+    """
+    N = slot.shape[0]
+    dev = slot.device
+    slot = slot.long()
+    ss, order = torch.sort(slot, stable=True)
+    cnt = torch.bincount(slot, minlength=S + 1)[:S]
+    cnt_pad = (cnt + bc - 1) // bc * bc
+    starts = torch.cumsum(cnt, 0) - cnt  # raw sorted-order starts
+    starts_pad = torch.cumsum(cnt_pad, 0) - cnt_pad  # block-aligned starts
+    Tp = ((N + bc - 1) // bc + S) * bc  # worst-case padding, static
+    sc = ss.clamp(max=S - 1)
+    pos_in_slot = torch.arange(N, device=dev) - starts[sc]
+    row_sorted = torch.where(ss < S, starts_pad[sc] + pos_in_slot,
+                             torch.full_like(ss, Tp))
+    row = torch.empty_like(row_sorted).scatter_(0, order, row_sorted)
+    nb = Tp // bc
+    bstart = torch.arange(nb, device=dev) * bc
+    # segments are bc-aligned, so each block belongs to exactly one slot:
+    # the last one whose padded start is <= the block start
+    block_slot = (torch.searchsorted(starts_pad, bstart, right=True) - 1).clamp(0, S - 1)
+    block_rows = (starts_pad[block_slot] + cnt[block_slot] - bstart).clamp(0, bc)
+    return (row.to(torch.int32), block_slot.to(torch.int32),
+            block_rows.to(torch.int32), Tp)
+
+
+def dispatch_stage(x, idx, topw, valid, S: int, bc: int):
+    """Sort + scatter: flat (token, k) copies into the block buffer.
+
+    Returns (xs [Tp, D], row [T*k], tok [T*k], wf [T*k], block_slot [nb],
+    block_rows [nb])."""
+    T, D = x.shape
+    k = idx.shape[1]
+    slot = torch.where(valid > 0, idx.long(), S).reshape(T * k)
+    row, block_slot, block_rows, Tp = _row_plan(slot, S, bc)
+    tok = torch.arange(T * k, device=x.device) // k
+    xs = x.new_zeros((Tp + 1, D))  # + the dump row for sentinel copies
+    xs.index_copy_(0, row.long(), x[tok])
+    wf = torch.where(slot < S, topw.reshape(T * k), 0).to(x.dtype)
+    return xs[:Tp], row, tok, wf, block_slot, block_rows
+
+
+def experts_stage(xs, block_slot, block_rows, wi, wo, *,
+                  gemm: Callable = ragged_grouped_gemm):
+    """Per-block expert MLP on the sorted buffer: [Tp, D] -> [Tp, D]. Two K2
+    launches (wi, then wo); ``silu(gate) * up`` in the activation dtype."""
+    Tp, D = xs.shape
+    bc = Tp // block_slot.shape[0]
+    gate_up = gemm(xs.reshape(-1, bc, D), wi, block_slot, block_rows)
+    gate, up = gate_up.chunk(2, dim=-1)
+    ye = gemm(F.silu(gate) * up, wo, block_slot, block_rows)
+    return ye.reshape(Tp, D)
+
+
+def combine_stage(ye, row, tok, wf, T: int):
+    """Inverse permutation + router-prob weighting back to [T, D]. The k
+    copies of a token are contiguous (``tok = arange(T*k) // k``): they are
+    added in order of k in the activation dtype, as the reference's
+    scatter-add adds them."""
+    Tp, D = ye.shape
+    g = (ye[row.long().clamp(max=Tp - 1)] * wf[:, None]).view(T, -1, D)
+    y = g[:, 0]
+    for j in range(1, g.shape[1]):
+        y = y + g[:, j]
+    return y
+
+
+def sorted_moe_local(x, idx, topw, valid, wi, wo, *, bc: Optional[int] = None,
+                     gemm: Callable = ragged_grouped_gemm):
+    """Single-device token-sorted MoE: gather/scatter only, no collective.
+    On the card the block size keeps the kernel's minimum of 8 rows. ``gemm``
+    is K2's wrapper; the card-side kernel-vs-plain checks pass its plain
+    version."""
+    T, D = x.shape
+    S = wi.shape[0]
+    if bc is None:
+        bc = pick_block_size(T * idx.shape[1], S, pallas=x.is_cuda)
+    xs, row, tok, wf, block_slot, block_rows = dispatch_stage(x, idx, topw, valid, S, bc)
+    ye = experts_stage(xs, block_slot, block_rows, wi, wo, gemm=gemm)
+    return combine_stage(ye, row, tok, wf, T)
+
+
+def make_sorted_dispatch(mesh=None) -> Callable:
+    """The ``moe_block`` dispatch_impl ``impl(x, idx, topw, valid, wi, wo) ->
+    y``: routing, top-k and the EPLB replica choice happened upstream (shared
+    with the einsum path). One device only."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "expert-parallel dispatch over a mesh is ROADMAP Queue A item 11")
+    return sorted_moe_local

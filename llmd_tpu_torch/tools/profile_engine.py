@@ -1,6 +1,11 @@
 """Where a decode step's time goes, on the card.
 
     python -m llmd_tpu_torch.tools.profile_engine [--batches 8,32] [--model llama-1b]
+        [--moe-dispatch auto|sorted|einsum]
+
+``--model`` takes any served registry model, dense (``llama-1b``) or MoE
+(``moe-wide-sim``; its expert GEMMs are K2 on the sorted dispatch, K4 on the
+einsum one).
 
 For each batch size: an engine (random bf16 weights from ``--seed``) prefills
 ``batch`` prompts of ``--prompt-len`` tokens, then runs decode calls of
@@ -16,7 +21,8 @@ For each batch size: an engine (random bf16 weights from ``--seed``) prefills
   the device's busy
   share of that window's wall time (the profiler's own overhead inflates the
   window, so busy device ms per iteration is also set against the unprofiled
-  wall per iteration).
+  wall per iteration), and the shares of device time of K1 (paged attention)
+  and of the grouped GEMMs (K2/K4).
 
 Prints one line per batch (``--out PATH`` also writes every row as JSON).
 Needs a CUDA device.
@@ -51,7 +57,7 @@ def _host_rows(prof) -> list[dict]:
 
 
 def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
-                  calls: int, prof_calls: int, seed: int) -> dict:
+                  calls: int, prof_calls: int, seed: int, moe_dispatch: str = "auto") -> dict:
     from llmd_tpu_torch.core.request import SamplingParams
     from llmd_tpu_torch.engine import EngineConfig, LLMEngine
     from llmd_tpu_torch.models.transformer import forward_core
@@ -61,7 +67,8 @@ def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
     ecfg = EngineConfig(
         page_size=ps, num_pages=batch * per_seq + 8, max_model_len=4096,
         max_batch_size=batch, prefill_chunk=min(prompt_len, 2048),
-        max_num_batched_tokens=max(2048, prompt_len), decode_steps=decode_steps)
+        max_num_batched_tokens=max(2048, prompt_len), decode_steps=decode_steps,
+        moe_dispatch=moe_dispatch)
     eng = LLMEngine(cfg, ecfg, params=params, seed=seed)
     rng = np.random.default_rng(seed)
     budget = (calls + prof_calls + 2) * decode_steps + 1
@@ -117,6 +124,7 @@ def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
     busy_us = sum(r["device_us"] for r in kernels)
     launches = sum(r["count"] for r in kernels)
     attn_us = sum(r["device_us"] for r in kernels if "paged_attention" in r["name"])
+    gemm_us = sum(r["device_us"] for r in kernels if "grouped_gemm" in r["name"])
     wall_iter_ms = wall / max(iters, 1) * 1e3
     busy_iter_ms = busy_us / 1e3 / max(prof_iters, 1) if kernels else None
     return {
@@ -132,6 +140,8 @@ def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
         if kernels else None,
         "kernel_launches_per_iteration": launches / max(prof_iters, 1) if kernels else None,
         "attention_share_of_device_time": attn_us / busy_us if busy_us else None,
+        "grouped_gemm_share_of_device_time": gemm_us / busy_us if busy_us else None,
+        "moe_dispatch": eng.stats.moe_dispatch,
         "top_kernels": kernels[:12],
         "top_host_ops": host_ops[:12],
     }
@@ -146,6 +156,7 @@ def main(argv: "list[str] | None" = None) -> None:
     ap.add_argument("--calls", type=int, default=5)
     ap.add_argument("--prof-calls", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--moe-dispatch", default="auto", choices=("auto", "sorted", "einsum"))
     ap.add_argument("--out", default=None, help="also write the rows here (JSON)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -159,18 +170,19 @@ def main(argv: "list[str] | None" = None) -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip()
     print(smi, flush=True)
-    from llmd_tpu_torch.ops.paged_attention import build
+    from llmd_tpu_torch.ops import grouped_gemm, paged_attention
 
-    print(f"kernel build s={build():.3f}", flush=True)  # before anything is timed
+    for mod in (paged_attention, grouped_gemm):  # before anything is timed
+        print(f"kernel build {mod.__name__} s={mod.build():.3f}", flush=True)
     cfg = get_model_config(args.model)
     dev = torch.device("cuda", 0)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
     # warm-up pass (cuBLAS handles, lazy module loads), not reported
-    profile_batch(cfg, params, 2, 32, args.decode_steps, 1, 1, args.seed)
+    profile_batch(cfg, params, 2, 32, args.decode_steps, 1, 1, args.seed, args.moe_dispatch)
     rows = []
     for b in (int(x) for x in args.batches.split(",")):
         r = profile_batch(cfg, params, b, args.prompt_len, args.decode_steps,
-                          args.calls, args.prof_calls, args.seed)
+                          args.calls, args.prof_calls, args.seed, args.moe_dispatch)
         r["card"] = smi
         rows.append(r)
         print(json.dumps({k: v for k, v in r.items()
@@ -186,7 +198,8 @@ def main(argv: "list[str] | None" = None) -> None:
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
-        out.write_text(json.dumps({"model": args.model, "rows": rows}, indent=1))
+        out.write_text(json.dumps({"model": args.model, "moe_dispatch": args.moe_dispatch,
+                                   "rows": rows}, indent=1))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
-"""The CUDA ragged-paged-attention kernel against its plain PyTorch version, on
-the card. Every test here needs a CUDA device and skips without one.
+"""The CUDA kernels against their plain PyTorch versions, on the card: ragged
+paged attention (K1) and the MoE grouped GEMMs (K2 ragged, K4 per-expert).
+Every test here needs a CUDA device and skips without one.
 
 On a GPU machine (``tests/conftest.py`` imports jax; where jax is not
 installed, ``--noconftest`` skips it):
@@ -11,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from llmd_tpu_torch.ops.grouped_gemm import (
+    grouped_gemm, grouped_gemm_ref, ragged_grouped_gemm, ragged_grouped_gemm_ref)
 from llmd_tpu_torch.ops.paged_attention import (
     bf16_rounding_units, paged_attention, paged_attention_ref)
 
@@ -22,6 +25,9 @@ pytestmark = pytest.mark.gpu
 # reads <= 1 (bf16_rounding_units).
 F32_ATOL = 2e-5
 BF16_UNITS = 1.0
+# grouped GEMMs in float32: unit-scale outputs summed over D <= 1024 in
+# another order than cuBLAS's: max abs <= GEMM_F32_ATOL.
+GEMM_F32_ATOL = 1e-4
 
 
 @pytest.fixture
@@ -147,3 +153,91 @@ def test_kernel_refuses_unsupported_shape(cuda):
     args, kw, _ = _case(12, 4, 64, 16, [1], [10], torch.float32, cuda, seed=0)
     with pytest.raises(ValueError):  # 3 query heads per kv head: no instance
         paged_attention(*args, **kw)
+
+
+def _gemm_operands(groups, rows, D, F, S, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((groups, rows, D), np.float32))
+    w = torch.from_numpy(rng.standard_normal((S, D, F), np.float32) * D ** -0.5)
+    return x.to(device, dtype), w.to(device, dtype), rng
+
+
+def _hold(got, ref, dtype):
+    if dtype == torch.float32:
+        err = (got - ref).abs().max().item()
+        assert err <= GEMM_F32_ATOL, err
+    else:
+        units = bf16_rounding_units(got, ref)
+        assert units <= BF16_UNITS, units
+
+
+# (nb, bc, D, F, S): the decode and prefill blocks of moe-wide-sim (wi and wo
+# widths), ragged widths (F = 200, D = 100), one-row and 130-row blocks
+RGG_SHAPES = [(48, 8, 1024, 1024, 32), (96, 128, 512, 1024, 64), (7, 1, 64, 200, 4),
+              (5, 37, 100, 200, 3), (3, 130, 128, 64, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("nb,bc,D,F,S", RGG_SHAPES)
+def test_ragged_grouped_gemm_matches_plain(cuda, nb, bc, D, F, S, dtype):
+    """Random slots, random dead rows (multiplied like live ones), and
+    zero-row blocks (exact zeros)."""
+    x, w, rng = _gemm_operands(nb, bc, D, F, S, dtype, cuda, seed=nb + D)
+    slot = torch.from_numpy(rng.integers(0, S, nb).astype(np.int32)).to(cuda)
+    rows_np = rng.integers(0, bc + 1, nb).astype(np.int32)
+    rows_np[::3] = 0
+    rows = torch.from_numpy(rows_np).to(cuda)
+    before = ragged_grouped_gemm.launches
+    got = ragged_grouped_gemm(x, w, slot, rows)
+    torch.cuda.synchronize()
+    assert ragged_grouped_gemm.launches == before + 1
+    ref = ragged_grouped_gemm_ref(x.float(), w.float(), slot, rows)
+    _hold(got, ref, dtype)
+    assert torch.count_nonzero(got[rows == 0]) == 0
+
+
+# (G, C, D, F): moe-wide-sim capacity shapes at decode (C 5) and prefill
+# (C 320), ragged widths, one-row groups
+GG_SHAPES = [(32, 5, 1024, 1024), (32, 320, 512, 1024), (6, 1, 64, 200), (4, 37, 100, 200)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("G,C,D,F", GG_SHAPES)
+def test_grouped_gemm_matches_plain(cuda, G, C, D, F, dtype):
+    x, w, rng = _gemm_operands(G, C, D, F, G, dtype, cuda, seed=G + C)
+    counts_np = rng.integers(0, C + 1, G).astype(np.int32)
+    counts_np[::4] = 0
+    counts = torch.from_numpy(counts_np).to(cuda)
+    before = grouped_gemm.launches
+    got = grouped_gemm(x, w, counts)
+    torch.cuda.synchronize()
+    assert grouped_gemm.launches == before + 1
+    _hold(got, grouped_gemm_ref(x.float(), w.float(), counts), dtype)
+    assert torch.count_nonzero(got[counts == 0]) == 0
+
+
+@pytest.mark.parametrize("dispatch", ["sorted", "einsum"])
+def test_moe_engine_greedy_tokens_same_with_kernels(cuda, dispatch):
+    """tiny-moe in float32: the engine on the card (K1 and K2 or K4) emits the
+    same greedy tokens as on the CPU (the plain versions), same weights."""
+    import dataclasses
+
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.engine import EngineConfig, LLMEngine
+    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(get_model_config("tiny-moe"), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    prompts = [list(range(5, 60)), list(range(100, 110)), list(range(7, 200, 3))]
+    ecfg = dict(page_size=8, num_pages=64, max_model_len=256, max_batch_size=4,
+                prefill_chunk=32, decode_steps=4, moe_dispatch=dispatch)
+    sp = SamplingParams(max_tokens=12, temperature=0.0)
+    kernel = ragged_grouped_gemm if dispatch == "sorted" else grouped_gemm
+    before = kernel.launches
+    eng = LLMEngine(cfg, EngineConfig(**ecfg), params=params, device=cuda)
+    on_card = eng.generate(prompts, sp)
+    assert kernel.launches > before
+    cpu = LLMEngine(cfg, EngineConfig(**ecfg), params=params, device="cpu")
+    assert cpu.generate(prompts, sp) == on_card
+    assert cpu.stats.moe_dropped_tokens == eng.stats.moe_dropped_tokens

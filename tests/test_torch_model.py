@@ -35,6 +35,13 @@ def test_registry_matches_reference_field_for_field():
 @pytest.mark.parametrize("name", ["tiny-moe", "tiny-mla", "tiny-vl"])
 def test_unserved_architectures_raise(name):
     cfg = get_model_config(name)
+    if name == "tiny-moe":
+        # MoE is served since the MoE slice; its int8 expert banks are not
+        params = {k: np.zeros(v, np.float32) for k, v in tt.param_shapes(cfg).items()}
+        params["moe_wi_q"] = np.zeros(params.pop("moe_wi").shape, np.int8)
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 6"):
+            tt.params_from_numpy(cfg, params)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
         tt.init_params(cfg, torch.Generator().manual_seed(0))
 
@@ -205,8 +212,10 @@ def test_forward_core_logits_match_reference(name):
                                        jnp.asarray(sids), jnp.asarray(pts),
                                        jnp.asarray(lens))
         t = torch.from_numpy
-        ht, tc = tt.forward_core(tcfg, tp, tc, t(toks), t(pos), t(sids), t(pts), t(lens),
-                                 cu_q_lens=t(cu), num_seqs=t(np.array([len(q_lens)], np.int32)))
+        ht, tc, cnt, drop = tt.forward_core(
+            tcfg, tp, tc, t(toks), t(pos), t(sids), t(pts), t(lens), cu_q_lens=t(cu),
+            num_seqs=t(np.array([len(q_lens)], np.int32)))
+        assert cnt.shape == (tcfg.num_layers, 0) and int(drop) == 0  # dense model
         lj = _np(jt.unembed(jcfg, jp, hj))
         lt = tt.unembed(tcfg, tp, ht).numpy()
         assert np.abs(lj - lt).max() <= 1e-4
