@@ -16,21 +16,28 @@ with a non-zero exit:
             that keep a bf16 accumulator and must read above the limit):
             K1 at llama-1b and moe-wide-sim heads; K2 (ragged grouped GEMM) and
             K4 (grouped GEMM) at moe-wide-sim widths, at decode, prefill and
-            EPLB shapes, with dead rows, zero-row blocks and zero-count groups.
+            EPLB shapes, with dead rows, zero-row blocks and zero-count groups;
+            K1 on moe-wide-mla's single-plane latent pool at a mixed shape and
+            K3 (MLA latent decode) at its decode shape, idle rows included.
 4. time     each kernel at the main path's shapes (CUDA events, median), beside
             its bound, its plain version and one PyTorch library call.
 5. engine   behind the port's HTTP server, random bf16 weights from a seed,
             greedy completions: llama-1b at full width (8 requests), then
             moe-wide-sim at full width and depth on the sorted dispatch (8
             requests), the einsum dispatch (4) and the sorted dispatch with EPLB
-            (4). Each run zeroes every launch counter just before and reads it
-            just after: the path's kernels ran once per layer and forward (K1)
-            or twice (K2 / K4), no plain version ran, the sorted path dropped
-            nothing, EPLB re-placed its experts at least twice.
+            (4), then moe-wide-mla at full width and depth on the sorted
+            dispatch (8 requests). Each run zeroes every launch counter just
+            before and reads it just after: each kernel of the path ran its
+            count per layer of the forwards of its program (K1 once per layer
+            of every forward, or of the unified ones only on MLA, where the
+            decode program runs K3; K2 / K4 twice per layer of every forward),
+            no plain version ran, the sorted path dropped nothing, EPLB
+            re-placed its experts at least twice.
 6. forward  one mixed unified batch through ``forward_core`` in float32, with
             the kernels and again with the plain versions passed as overrides:
-            llama-1b, and moe-wide-sim on both dispatch paths (logits held
-            together, expert counts equal).
+            llama-1b, moe-wide-sim on both dispatch paths, and moe-wide-mla
+            with a decode batch after it (K3) (logits held together, expert
+            counts equal).
 
 It ends with a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. ``--report PATH`` also writes every phase's details (nvcc's register
@@ -74,6 +81,10 @@ FORWARD_ATOL = 1e-3
 GEMM_F32_ATOL = 1e-4
 H, HK, D, PS = 32, 8, 64, 16  # llama-1b attention: heads, kv heads, head dim, page
 MOE = "moe-wide-sim"  # D 1024, 32 experts, top-4, expert FFN 512 (2Fe = 1024)
+# moe-wide-mla's absorbed attention: 16 heads over one latent plane of width
+# rank 128 + rope 32, scale (nope 32 + rope 32)^-0.5
+MLA = "moe-wide-mla"
+MLA_H, MLA_W, MLA_SCALE = 16, 160, 64 ** -0.5
 
 
 def log(msg: str) -> None:
@@ -86,11 +97,13 @@ def log(msg: str) -> None:
 
 
 def make_attention_case(q_lens, kv_lens, dtype, device, seed, pad_rows=0,
-                        pad_seqs=0, heads=(H, HK)):
+                        pad_seqs=0, heads=(H, HK), latent=False):
     """Random q and pool, page tables over a shuffled page pool; sequence b's
     queries are its last q_lens[b] tokens. ``pad_rows`` trailing query rows and
-    ``pad_seqs`` trailing unused table rows mimic the engine's padded packing."""
-    nh, nk = heads
+    ``pad_seqs`` trailing unused table rows mimic the engine's padded packing.
+    ``latent``: moe-wide-mla's single-plane latent pool and heads instead."""
+    nh, nk = (MLA_H, 1) if latent else heads
+    width, planes = (MLA_W, 1) if latent else (D, 2 * nk)
     rng = np.random.default_rng(seed)
     q_lens, kv_lens = np.asarray(q_lens), np.asarray(kv_lens)
     nb = len(q_lens)
@@ -119,44 +132,49 @@ def make_attention_case(q_lens, kv_lens, dtype, device, seed, pad_rows=0,
     lens = np.ones((B,), np.int32)
     lens[:nb] = kv_lens
     g = torch.Generator(device="cpu").manual_seed(seed)
-    q = torch.randn((N, nh, D), generator=g).to(device=device, dtype=dtype)
-    pool = torch.randn((P, PS, 2 * nk, D), generator=g).to(device=device, dtype=dtype)
+    q = torch.randn((N, nh, width), generator=g).to(device=device, dtype=dtype)
+    pool = torch.randn((P, PS, planes, width), generator=g).to(device=device, dtype=dtype)
     t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
     return dict(q=q, pool=pool, pts=t(pts), pos=t(pos), sids=t(sids),
                 lens=t(lens), cu=t(cu), ns=t(np.array([nb], np.int32)),
-                valid=off, q_lens=q_lens, kv_lens=kv_lens, H=nh, HK=nk)
+                valid=off, q_lens=q_lens, kv_lens=kv_lens, H=nh, HK=nk,
+                W=width, planes=planes, scale=MLA_SCALE if latent else D ** -0.5)
 
 
 def run_attention(fn, c):
     return fn(c["q"], c["pool"], c["pts"], c["pos"], c["sids"], c["lens"],
-              scale=D ** -0.5, cu_q_lens=c["cu"], num_seqs=c["ns"])
+              scale=c["scale"], cu_q_lens=c["cu"], num_seqs=c["ns"])
 
 
-def decode_case(dtype, device, seed=1, heads=(H, HK)):
+def decode_case(dtype, device, seed=1, heads=(H, HK), latent=False):
     rng = np.random.default_rng(seed)
     kv = rng.integers(128, 1025, 64)
-    return make_attention_case(np.ones(64, int), kv, dtype, device, seed, heads=heads)
+    return make_attention_case(np.ones(64, int), kv, dtype, device, seed, heads=heads,
+                               latent=latent)
 
 
-def mixed_case(dtype, device, seed=2, heads=(H, HK)):
+def mixed_case(dtype, device, seed=2, heads=(H, HK), latent=False):
+    """Three 128-token chunks (a fresh prompt, continuations at 1000 and
+    2048), 32 decode rows, padding rows and unused table rows."""
     rng = np.random.default_rng(seed)
     q_lens = np.concatenate([[128, 128, 128], np.ones(32, int)])
     kv = np.concatenate([[128, 1000, 2048], rng.integers(1, 2049, 32)])
     return make_attention_case(q_lens, kv, dtype, device, seed, pad_rows=16,
-                               pad_seqs=5, heads=heads)
+                               pad_seqs=5, heads=heads, latent=latent)
 
 
 def attention_bound(c, dtype):
     """(bound_ms, bound_by): each input byte read once, each output byte
-    written once, KV only where this run's masks let it be read; flops of
-    QK^T and PV over the keys each query attends."""
+    written once, KV only where this run's masks let it be read (one latent
+    row per key on a single-plane pool); flops of QK^T and PV over the keys
+    each query attends."""
     elt = torch.finfo(dtype).bits // 8
-    q_lens, kv_lens = c["q_lens"], c["kv_lens"]
-    kv_bytes = int(kv_lens.sum()) * 2 * HK * D * elt
-    qo_bytes = 2 * int(q_lens.sum()) * H * D * elt
+    q_lens, kv_lens, nh, W = c["q_lens"], c["kv_lens"], c["H"], c["W"]
+    kv_bytes = int(kv_lens.sum()) * c["planes"] * W * elt
+    qo_bytes = 2 * int(q_lens.sum()) * nh * W * elt
     idx_bytes = 4 * (int((-(-kv_lens // PS)).sum()) + 2 * len(kv_lens) + 2)
     keys = sum(int(kl - ql + i + 1) for ql, kl in zip(q_lens, kv_lens) for i in range(ql))
-    flops = 4 * H * D * keys
+    flops = 4 * nh * W * keys
     t_bytes = (kv_bytes + qo_bytes + idx_bytes) / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -201,6 +219,82 @@ def sdpa_dense(c):
         k = k.repeat_interleave(H // HK, dim=1)
         v = v.repeat_interleave(H // HK, dim=1)
         return lambda: sdpa(q, k, v, attn_mask=mask)
+
+
+def sdpa_latent(c):
+    """The same latent attention as one ``scaled_dot_product_attention`` call
+    (a yardstick only; the port never calls it): the latent rows gathered
+    dense per sequence, K = V broadcast to the heads, queries packed per
+    sequence with a causal, length-limited mask. Gather and packing are
+    timed with the call. Rows with no key (padding, idle) attend key 0 so
+    the call stays finite."""
+    pool, pts, q = c["pool"], c["pts"].long(), c["q"]
+    B, S, W = pts.shape[0], pts.shape[1] * PS, c["W"]
+    cu = c["cu"].long()
+    q_lens = cu[1:] - cu[:-1]
+    qmax = int(q_lens.max())
+    j = torch.arange(qmax, device=q.device)
+    rows = (cu[:-1, None] + j[None, :]).clamp(max=q.shape[0] - 1)  # [B, Qmax]
+    live = j[None, :] < q_lens[:, None]
+    qpos = torch.where(live, c["pos"].long()[rows], -1)
+    key = torch.arange(S, device=q.device)
+    mask = (key[None, None, :] <= qpos[..., None]) & (key < c["lens"].long()[:, None, None])
+    mask[..., 0] |= ~mask.any(-1)
+    mask = mask[:, None]  # [B, 1, Qmax, S]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def call():
+        kv = pool[pts.clamp(min=0)].reshape(B, 1, S, W).expand(B, c["H"], S, W)
+        qq = q[rows].transpose(1, 2)  # [B, H, Qmax, W]
+        return sdpa(qq, kv, kv, attn_mask=mask, scale=c["scale"])
+
+    return call
+
+
+def latent_decode_case(dtype, device, seed=3):
+    """K3 at moe-wide-mla's decode shape: 64 sequences of 128-1024 resident
+    latent rows from the seed plus two idle rows (kv_len 0), one query row
+    each, pages shuffled, -1 past each sequence."""
+    rng = np.random.default_rng(seed)
+    kv = np.concatenate([rng.integers(128, 1025, 64), [0, 0]]).astype(np.int32)
+    B = len(kv)
+    need = -(-kv // PS)
+    maxp = int(need.max())
+    P = int(need.sum()) + 8
+    perm = rng.permutation(P)
+    pts = np.full((B, maxp), -1, np.int32)
+    o = 0
+    for b in range(B):
+        pts[b, : need[b]] = perm[o : o + need[b]]
+        o += need[b]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((B, MLA_H, MLA_W), generator=g).to(device=device, dtype=dtype)
+    pool = torch.randn((P, PS, 1, MLA_W), generator=g).to(device=device, dtype=dtype)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    cu = np.arange(B + 1, dtype=np.int32)
+    return dict(q=q, pool=pool, pts=t(pts), lens=t(kv), kv_lens=kv, q_lens=np.ones(B, int),
+                pos=t(np.maximum(kv - 1, 0)), cu=t(cu), H=MLA_H, W=MLA_W, scale=MLA_SCALE)
+
+
+def run_latent_decode(decode, c):
+    from llmd_tpu_torch.ops.mla_decode import mla_paged_attention_latent
+
+    return mla_paged_attention_latent(c["q"], c["pool"], c["pts"], None, None, c["lens"],
+                                      scale=c["scale"], decode=decode)
+
+
+def latent_decode_bound(c, dtype):
+    """(bound_ms, bound_by) of K3: each resident latent row read once (one
+    row serves every head), q, page-table entries, kv_lens read once, out
+    written once; flops 4*H*W per key."""
+    elt = torch.finfo(dtype).bits // 8
+    kv = c["kv_lens"]
+    B = len(kv)
+    nbytes = (int(kv.sum()) * MLA_W * elt + 2 * B * MLA_H * MLA_W * elt
+              + 4 * (int((-(-kv // PS)).sum()) + B))
+    flops = 4 * MLA_H * MLA_W * int(kv.sum())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 # --------------------------------------------------------------------------
@@ -329,9 +423,11 @@ def phase_build() -> dict:
 
     from llmd_tpu_torch.native.build import load
     from llmd_tpu_torch.ops import grouped_gemm as gg
+    from llmd_tpu_torch.ops import mla_decode as md
     from llmd_tpu_torch.ops import paged_attention as pa
 
-    builders = {"paged_attention": pa.build, "grouped_gemm": gg.build}
+    builders = {"paged_attention": pa.build, "grouped_gemm": gg.build,
+                "mla_decode": md.build}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builders)) as pool:
         futures = {name: pool.submit(fn) for name, fn in builders.items()}
@@ -354,8 +450,9 @@ def bf16_accumulating_control(c):
     """What a kernel with a bfloat16 P·V accumulator returns on the valid rows:
     float32 scores and softmax as in the plain version, the normalised P·V sum
     rounded to bfloat16 after every 32-key tile (the kernel's tile). Only for
-    showing that the bfloat16 check tells such a kernel from a sound one."""
-    q, pool, H, HK = c["q"], c["pool"], c["H"], c["HK"]
+    showing that the bfloat16 check tells such a kernel from a sound one. A
+    single-plane pool's row is both K and V."""
+    q, pool, H, HK, W = c["q"], c["pool"], c["H"], c["HK"], c["W"]
     pts, pos, sids, lens = c["pts"].long(), c["pos"].long(), c["sids"].long(), c["lens"].long()
     S = pts.shape[1] * PS
     key = torch.arange(S, device=q.device)
@@ -364,42 +461,68 @@ def bf16_accumulating_control(c):
         b = sids[c0:min(c0 + 32, c["valid"])]
         n = b.shape[0]
         pt = pts[b]
-        kv = pool[pt.clamp(min=0)].reshape(n, S, 2 * HK, D).float()
-        s = torch.einsum("nkqd,nskd->nkqs", q[c0:c0 + n].float().reshape(n, HK, H // HK, D),
-                         kv[:, :, 0::2]) * D ** -0.5
+        kv = pool[pt.clamp(min=0)].reshape(n, S, c["planes"], W).float()
+        kc, vc = (kv, kv) if c["planes"] == 1 else (kv[:, :, 0::2], kv[:, :, 1::2])
+        s = torch.einsum("nkqd,nskd->nkqs", q[c0:c0 + n].float().reshape(n, HK, H // HK, W),
+                         kc) * c["scale"]
         mask = ((pt[:, key // PS] >= 0) & (key[None] <= pos[c0:c0 + n, None])
                 & (key[None] < lens[b][:, None]))
         p = torch.softmax(s.masked_fill(~mask[:, None, None], -1e30), dim=-1)
         T = -(-S // 32)
         pad = T * 32 - S  # zero keys fill the last tile
-        vt = torch.nn.functional.pad(kv[:, :, 1::2], (0, 0, 0, 0, 0, pad))
+        vt = torch.nn.functional.pad(vc, (0, 0, 0, 0, 0, pad))
         part = torch.einsum("nkqtj,ntjkd->nkqtd",
                             torch.nn.functional.pad(p, (0, pad)).reshape(n, HK, H // HK, T, 32),
-                            vt.reshape(n, T, 32, HK, D))
+                            vt.reshape(n, T, 32, HK, W))
         acc = torch.zeros_like(part[:, :, :, 0], dtype=torch.bfloat16)
         for t in range(T):
             acc = (acc.float() + part[:, :, :, t]).to(torch.bfloat16)
-        outs.append(acc.reshape(n, H, D))
+        outs.append(acc.reshape(n, H, W))
     return torch.cat(outs)
 
 
-def check_attention(device) -> dict:
+def latent_decode_controls(c, q_scaled):
+    """Two outputs K3's bfloat16 check must reject, from float32 scores and
+    softmax of the pre-scaled q: the probabilities cast to bfloat16 before
+    P·V, and P·V accumulated in bfloat16, rounded after every 16-key tile
+    (the kernel's tile at 16 heads). Valid (non-idle) rows only."""
+    pts, kv_lens = c["pts"].long().clamp(min=0), c["lens"].long()
+    B, S = pts.shape[0], pts.shape[1] * PS
+    rows = c["pool"][pts].reshape(B, S, MLA_W).float()
+    s = torch.einsum("bhd,bsd->bhs", q_scaled, rows)
+    mask = torch.arange(S, device=rows.device)[None, :] < kv_lens[:, None]
+    p = torch.softmax(s.masked_fill(~mask[:, None], float("-inf")), dim=-1)
+    live = kv_lens > 0
+    p_bf16 = torch.einsum("bhs,bsd->bhd", p.bfloat16().float(), rows)
+    T = S // 16
+    part = torch.einsum("bhtj,btjd->bhtd", p.reshape(B, MLA_H, T, 16),
+                        rows.reshape(B, T, 16, MLA_W))
+    acc = torch.zeros_like(part[:, :, 0], dtype=torch.bfloat16)
+    for t in range(T):
+        acc = (acc.float() + part[:, :, t]).to(torch.bfloat16)
+    return p_bf16[live], acc[live]
+
+
+def check_attention(device, latent: bool = False) -> dict:
     """K1. float32: kernel vs plain version, max abs error. bfloat16: kernel vs
     the plain version in float32 on the same (upcast) bf16 inputs, in bf16
     rounding units; beside it two controls on the same inputs that the check
     must reject: the plain version in bfloat16 (probabilities cast to bf16
     before P·V) and a bfloat16 P·V accumulator. llama-1b heads at decode and
     mixed shapes; moe-wide-sim heads (H 16, Hk 4: four query heads per kv
-    head) at decode."""
+    head) at decode. ``latent``: K1's single-plane instance on moe-wide-mla's
+    latent pool (16 heads, width 160) at the mixed shape."""
     from llmd_tpu_torch.ops.paged_attention import (
         bf16_rounding_units, paged_attention, paged_attention_ref)
 
-    cases = (("decode", decode_case, (H, HK)), ("mixed", mixed_case, (H, HK)),
-             ("moe_heads_decode", decode_case, (16, 4)))
+    name = "paged_attention_latent" if latent else "paged_attention"
+    cases = ((("mixed", mixed_case, None),) if latent else
+             (("decode", decode_case, (H, HK)), ("mixed", mixed_case, (H, HK)),
+              ("moe_heads_decode", decode_case, (16, 4))))
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         for label, make, heads in cases:
-            c = make(dtype, device, heads=heads)
+            c = make(dtype, device, heads=heads, latent=latent)
             got = run_attention(paged_attention, c)
             torch.cuda.synchronize()
             c32 = dict(c, q=c["q"].float(), pool=c["pool"].float())
@@ -413,7 +536,7 @@ def check_attention(device) -> dict:
             if dtype == torch.float32:
                 row["atol"] = F32_ATOL
                 ok = err <= F32_ATOL
-                log(f"check: paged_attention {key} tokens={row['tokens']} "
+                log(f"check: {name} {key} tokens={row['tokens']} "
                     f"max_abs_err={err:.3e} atol={F32_ATOL:.0e} pad_rows_max={pad:.1e}")
             else:
                 units = bf16_rounding_units(got[:v], ref[:v])
@@ -422,13 +545,61 @@ def check_attention(device) -> dict:
                 row.update(bf16_units=units, limit_units=BF16_UNITS,
                            control_p_bf16_units=ctl_p, control_acc_bf16_units=ctl_acc)
                 ok = units <= BF16_UNITS < min(ctl_p, ctl_acc)
-                log(f"check: paged_attention {key} tokens={row['tokens']} "
+                log(f"check: {name} {key} tokens={row['tokens']} "
                     f"max_abs_err={err:.3e} bf16_units={units:.3f} (limit {BF16_UNITS}) "
                     f"controls: p_bf16={ctl_p:.1f} acc_bf16={ctl_acc:.1f} "
                     f"pad_rows_max={pad:.1e}")
             out[key] = row
             if not (ok and pad == 0.0 and torch.isfinite(got).all()):
-                raise AssertionError(f"paged_attention {key}: the check failed: {row}")
+                raise AssertionError(f"{name} {key}: the check failed: {row}")
+    return out
+
+
+def check_mla_decode(device) -> dict:
+    """K3 at moe-wide-mla's decode shape. The kernel pre-scales q and rounds
+    it to its type as the reference does, so the float32 oracle is the plain
+    version on that rounded q at scale 1. float32: max abs error. bfloat16:
+    rounding units on the live rows, limit 1, with two controls above it
+    (probabilities in bf16; a bf16 P·V accumulator per 16-key tile). Idle rows
+    (kv_len 0) must be exact zeros."""
+    from llmd_tpu_torch.ops.mla_decode import mla_decode, mla_decode_ref
+    from llmd_tpu_torch.ops.paged_attention import bf16_rounding_units
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        c = latent_decode_case(dtype, device)
+        got = run_latent_decode(mla_decode, c)
+        torch.cuda.synchronize()
+        q_scaled = (c["q"].float() * c["scale"]).to(dtype).float()
+        ref = mla_decode_ref(q_scaled, c["pool"].float(), c["pts"].clamp(min=0), c["lens"],
+                             scale=1.0)
+        torch.cuda.synchronize()
+        live = c["lens"] > 0
+        err = (got.float() - ref).abs().max().item()
+        idle_exact = torch.count_nonzero(got[~live]).item() == 0
+        key = f"decode_{str(dtype).split('.')[-1]}"
+        row = {"max_abs_err": err, "idle_rows_exact_zero": idle_exact,
+               "sequences": int(live.sum()), "idle": int((~live).sum()),
+               "kv_tokens": int(c["kv_lens"].sum())}
+        if dtype == torch.float32:
+            row["atol"] = F32_ATOL
+            ok = err <= F32_ATOL
+            note = f"atol={F32_ATOL:.0e}"
+        else:
+            units = bf16_rounding_units(got[live], ref[live])
+            ctl_p, ctl_acc = (bf16_rounding_units(x, ref[live])
+                              for x in latent_decode_controls(c, q_scaled))
+            row.update(bf16_units=units, limit_units=BF16_UNITS,
+                       control_p_bf16_units=ctl_p, control_acc_bf16_units=ctl_acc)
+            ok = units <= BF16_UNITS < min(ctl_p, ctl_acc)
+            note = (f"bf16_units={units:.3f} (limit {BF16_UNITS}) controls: "
+                    f"p_bf16={ctl_p:.1f} acc_bf16={ctl_acc:.1f}")
+        log(f"check: mla_decode {key} B={row['sequences']}+{row['idle']} idle "
+            f"kv_tokens={row['kv_tokens']} max_abs_err={err:.3e} {note} "
+            f"idle_rows_exact_zero={idle_exact}")
+        out[key] = row
+        if not (ok and idle_exact and torch.isfinite(got).all()):
+            raise AssertionError(f"mla_decode {key}: the check failed: {row}")
     return out
 
 
@@ -491,20 +662,53 @@ def check_gemms(device) -> dict:
     return out
 
 
-def time_attention(device) -> dict:
+def time_attention(device, latent: bool = False) -> dict:
+    """K1 in bf16 beside its bound, its plain version and the library call:
+    llama-1b heads at decode (SDPA over K/V gathered dense), or with
+    ``latent`` the single-plane instance at moe-wide-mla's mixed shape (SDPA
+    over the latent gathered dense per sequence, K = V broadcast to the 16
+    heads, queries packed per sequence under a causal mask)."""
     from llmd_tpu_torch.ops.paged_attention import paged_attention, paged_attention_ref
 
     dtype = torch.bfloat16
-    c = decode_case(dtype, device)
+    if latent:
+        c = mixed_case(dtype, device, latent=True)
+        name, library, shape = "paged_attention_latent", sdpa_latent(c), (
+            "mixed 3x128-token chunks (kv 128/1000/2048) + 32 decode rows bf16 "
+            "(H16, one latent plane W160, ps16)")
+    else:
+        c = decode_case(dtype, device)
+        name, library, shape = "paged_attention", sdpa_dense(c), (
+            "decode B=64 q_len=1 kv_len 128-1024 bf16 (H32 Hk8 D64 ps16)")
     ms = cuda_ms(lambda: run_attention(paged_attention, c))
     plain_ms = cuda_ms(lambda: run_attention(paged_attention_ref, c), reps=5, inner=2)
-    library_ms = cuda_ms(sdpa_dense(c))
+    library_ms = cuda_ms(library)
     bound_ms, bound_by = attention_bound(c, dtype)
-    row = {"shape": "decode B=64 q_len=1 kv_len 128-1024 bf16 (H32 Hk8 D64 ps16)",
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+    row = {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": library_ms,
-           "kv_tokens": int(c["kv_lens"].sum())}
-    log(f"time: paged_attention decode bf16 ms={ms:.4f} bound_ms={bound_ms:.4f} "
+           "kv_tokens": int(c["kv_lens"].sum()), "query_tokens": int(c["q_lens"].sum())}
+    log(f"time: {name} {shape.split(' bf16')[0]} bf16 ms={ms:.4f} bound_ms={bound_ms:.4f} "
+        f"({bound_by}) plain_ms={plain_ms:.4f} library_ms(sdpa dense)={library_ms:.4f} "
+        f"roofline_share={bound_ms / ms:.3f}")
+    return row
+
+
+def time_mla_decode(device) -> dict:
+    """K3 in bf16 at moe-wide-mla's decode shape beside its bytes bound, its
+    plain version and SDPA over the latent gathered dense (K = V broadcast to
+    the 16 heads, gather included)."""
+    from llmd_tpu_torch.ops.mla_decode import mla_decode, mla_decode_ref
+
+    dtype = torch.bfloat16
+    c = latent_decode_case(dtype, device)
+    ms = cuda_ms(lambda: run_latent_decode(mla_decode, c))
+    plain_ms = cuda_ms(lambda: run_latent_decode(mla_decode_ref, c), reps=5, inner=2)
+    library_ms = cuda_ms(sdpa_latent(c))
+    bound_ms, bound_by = latent_decode_bound(c, dtype)
+    row = {"shape": "decode B=64+2 idle kv_len 128-1024 bf16 (H16, latent W160, ps16)",
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms, "kv_tokens": int(c["kv_lens"].sum())}
+    log(f"time: mla_decode decode B=64+2 idle bf16 ms={ms:.4f} bound_ms={bound_ms:.4f} "
         f"({bound_by}) plain_ms={plain_ms:.4f} library_ms(sdpa dense)={library_ms:.4f} "
         f"roofline_share={bound_ms / ms:.3f}")
     return row
@@ -570,12 +774,15 @@ def counters() -> tuple[dict, dict]:
     """(kernel wrappers, plain versions) by name, each with its counter's
     attribute name."""
     from llmd_tpu_torch.ops import grouped_gemm as gg
+    from llmd_tpu_torch.ops import mla_decode as md
     from llmd_tpu_torch.ops import paged_attention as pa
 
     kernels = {"paged_attention": (pa.paged_attention, "launches"),
+               "mla_decode": (md.mla_decode, "launches"),
                "ragged_grouped_gemm": (gg.ragged_grouped_gemm, "launches"),
                "grouped_gemm": (gg.grouped_gemm, "launches")}
     plain = {"paged_attention_ref": (pa.paged_attention_ref, "calls"),
+             "mla_decode_ref": (md.mla_decode_ref, "calls"),
              "ragged_grouped_gemm_ref": (gg.ragged_grouped_gemm_ref, "launches"),
              "grouped_gemm_ref": (gg.grouped_gemm_ref, "launches")}
     return kernels, plain
@@ -596,10 +803,11 @@ def phase_engine(device, card: str, model: str = "llama-1b", n_requests: int = 8
                  max_tokens: int = 32, prompt_range=(64, 512), seed: int = 0,
                  engine_kw: "dict | None" = None,
                  per_layer: "dict | None" = None, label: str = "") -> dict:
-    """Serve ``n_requests`` greedy completions over HTTP. ``per_layer``: the
-    launches each kernel of this path makes per layer and forward; every
-    kernel's count must equal that times layers × forwards (0 for kernels off
-    the path), and no plain version may run."""
+    """Serve ``n_requests`` greedy completions over HTTP. ``per_layer``: for
+    each kernel of this path, (launches per layer and forward, the program
+    whose forwards launch it: "all", "unified" or "decode"); every kernel's
+    count must equal that times layers × that program's forwards (0 for
+    kernels off the path), and no plain version may run."""
     from llmd_tpu_torch.engine.config import EngineConfig
     from llmd_tpu_torch.engine.engine import EngineStats
     from llmd_tpu_torch.engine.server import EngineServer
@@ -659,9 +867,13 @@ def phase_engine(device, card: str, model: str = "llama-1b", n_requests: int = 8
         raise AssertionError(f"engine: failed requests {bad[:3]}")
     completion = sum(r[1]["usage"]["completion_tokens"] for r in results)
     prompt_toks = sum(r[1]["usage"]["prompt_tokens"] for r in results)
-    per_layer = per_layer if per_layer is not None else {"paged_attention": 1}
-    forwards = st.n_unified_steps + st.n_decode_iterations
-    expect = {name: per_layer.get(name, 0) * cfg.num_layers * forwards for name in launches}
+    per_layer = per_layer if per_layer is not None else {"paged_attention": (1, "all")}
+    forwards = {"unified": st.n_unified_steps, "decode": st.n_decode_iterations,
+                "all": st.n_unified_steps + st.n_decode_iterations}
+    expect = {}
+    for name in launches:
+        n, program = per_layer.get(name, (0, "all"))
+        expect[name] = n * cfg.num_layers * forwards[program]
     row = {
         "card": card, "model": model, "label": label, "requests": n_requests,
         "setup_s": setup_s,
@@ -672,6 +884,7 @@ def phase_engine(device, card: str, model: str = "llama-1b", n_requests: int = 8
         "unified_steps": st.n_unified_steps, "decode_calls": st.n_decode_calls,
         "decode_iterations": st.n_decode_iterations,
         "launches": launches, "expected_launches": expect, "plain_calls": plain_calls,
+        "attn_backend": st.attn_backend,
         "moe_dispatch": st.moe_dispatch, "moe_backend": st.moe_backend,
         "moe_dropped_tokens": st.moe_dropped_tokens, "eplb_rebalances": st.eplb_rebalances,
         "engine_config": {k: repr(v) if k == "eplb" else v for k, v in kw.items()},
@@ -681,10 +894,10 @@ def phase_engine(device, card: str, model: str = "llama-1b", n_requests: int = 8
         f"output_tok_s={row['output_tok_s']:.1f} unified_steps={st.n_unified_steps} "
         f"decode_calls={st.n_decode_calls} decode_iterations={st.n_decode_iterations}")
     log(f"engine:   launches={launches} plain_calls={plain_calls} "
-        f"moe_dispatch={st.moe_dispatch!r} moe_dropped_tokens={st.moe_dropped_tokens} "
-        f"eplb_rebalances={st.eplb_rebalances}")
+        f"attn_backend={st.attn_backend!r} moe_dispatch={st.moe_dispatch!r} "
+        f"moe_dropped_tokens={st.moe_dropped_tokens} eplb_rebalances={st.eplb_rebalances}")
     if device.type == "cuda":
-        missing = [n for n, v in per_layer.items() if v and launches[n] == 0]
+        missing = [n for n, (v, _) in per_layer.items() if v and launches[n] == 0]
         if missing or any(plain_calls.values()):
             raise AssertionError(f"engine {label}: kernels {missing} never launched or "
                                  f"plain versions ran {plain_calls}: the path did not "
@@ -701,8 +914,11 @@ def phase_forward_check(device, model: str = "llama-1b", seed: int = 0,
     prefill chunk, a second chunk of a longer prompt) through forward_core in
     float32, once with the kernels' wrappers and once with the plain versions
     passed as overrides (attention, and for a MoE model the expert GEMMs of
-    the ``moe_dispatch`` path). Logits are held together; the expert counts
-    (routing decisions) must be equal."""
+    the ``moe_dispatch`` path). An MLA model then runs a decode batch (one
+    new token for each of the four sequences) through the decode program's
+    attention, K3's adapter, or the same adapter over K3's plain version.
+    Logits are held together; the expert counts (routing decisions) must be
+    equal."""
     import dataclasses
     import functools
 
@@ -711,6 +927,7 @@ def phase_forward_check(device, model: str = "llama-1b", seed: int = 0,
         SORTED_DISPATCH, forward_core, init_cache, init_params, unembed)
     from llmd_tpu_torch.ops.grouped_gemm import (
         grouped_gemm, grouped_gemm_ref, ragged_grouped_gemm_ref)
+    from llmd_tpu_torch.ops.mla_decode import mla_decode_ref, mla_paged_attention_latent
     from llmd_tpu_torch.ops.moe_dispatch import sorted_moe_local
     from llmd_tpu_torch.ops.paged_attention import paged_attention, paged_attention_ref
 
@@ -750,12 +967,20 @@ def phase_forward_check(device, model: str = "llama-1b", seed: int = 0,
     e_tok = rng.integers(0, cfg.vocab_size, 128).tolist()
     mixed = [(0, seqs[0][300:301], 300), (1, seqs[1][90:91], 90),
              (3, e_tok, 0), (2, seqs[2][200:201], 200)]
+    nxt = rng.integers(0, cfg.vocab_size, 4).tolist()
+    decode = [(0, nxt[:1], 301), (1, nxt[1:2], 91), (3, nxt[2:3], 128), (2, nxt[3:], 201)]
+    steps = [(first, "unified"), (mixed, "unified")]
+    if cfg.is_mla:
+        steps.append((decode, "decode"))
     einsum = moe_dispatch == "einsum"
     impls = {
-        "kernel": dict(attn_impl=paged_attention,
+        "kernel": dict(attn_impl={"unified": paged_attention,
+                                  "decode": mla_paged_attention_latent},
                        moe_dispatch_impl=None if einsum else SORTED_DISPATCH,
                        moe_matmul_impl=grouped_gemm),
-        "plain": dict(attn_impl=paged_attention_ref,
+        "plain": dict(attn_impl={"unified": paged_attention_ref,
+                                 "decode": functools.partial(mla_paged_attention_latent,
+                                                             decode=mla_decode_ref)},
                       moe_dispatch_impl=None if einsum else functools.partial(
                           sorted_moe_local, gemm=ragged_grouped_gemm_ref),
                       moe_matmul_impl=grouped_gemm_ref),
@@ -765,11 +990,11 @@ def phase_forward_check(device, model: str = "llama-1b", seed: int = 0,
         cache = init_cache(cfg, P, PS, device=device)
         logits, cnt = [], 0
         zero_counts()
-        for rows in (first, mixed):
+        for rows, program in steps:
             toks, pos, sids, pts, lens, cu, ns, cu_np = batch(rows)
-            hidden, cache, cnt_i, _ = forward_core(cfg, params, cache, toks, pos, sids,
-                                                   pts, lens, cu_q_lens=cu, num_seqs=ns,
-                                                   **kw)
+            hidden, cache, cnt_i, _ = forward_core(
+                cfg, params, cache, toks, pos, sids, pts, lens, cu_q_lens=cu, num_seqs=ns,
+                **{**kw, "attn_impl": kw["attn_impl"][program]})
             cnt = cnt + cnt_i
             last = torch.from_numpy(cu_np[1:] - 1).to(device)
             logits.append(unembed(cfg, params, hidden[last]))
@@ -780,7 +1005,8 @@ def phase_forward_check(device, model: str = "llama-1b", seed: int = 0,
     finite = bool(torch.isfinite(out["kernel"]).all())
     same_counts = bool(torch.equal(counts["kernel"], counts["plain"]))
     path = f" {moe_dispatch}" if cfg.is_moe else ""
-    log(f"forward: {model}{path} float32 mixed batch rows={out['kernel'].shape[0]} "
+    what = "mixed + decode batches" if cfg.is_mla else "mixed batch"
+    log(f"forward: {model}{path} float32 {what} rows={out['kernel'].shape[0]} "
         f"logits_max_abs_diff={diff:.3e} atol={FORWARD_ATOL:.0e} argmax_agree={agree:.3f} "
         f"expert_counts_equal={same_counts} kernel_run={runs['kernel'][0]} "
         f"plain_run={runs['plain'][1]}")
@@ -791,6 +1017,11 @@ def phase_forward_check(device, model: str = "llama-1b", seed: int = 0,
     if device.type == "cuda" and (any(runs["kernel"][1].values())
                                   or any(runs["plain"][0].values())):
         raise AssertionError(f"forward: the runs mixed kernels and plain versions: {runs}")
+    if device.type == "cuda" and cfg.is_mla and (
+            runs["kernel"][0]["mla_decode"] != cfg.num_layers
+            or runs["kernel"][0]["paged_attention"] != 2 * cfg.num_layers):
+        raise AssertionError(f"forward: K3 / K1 launches {runs['kernel'][0]}, expected "
+                             f"{cfg.num_layers} / {2 * cfg.num_layers}")
     return {"logits_max_abs_diff": diff, "argmax_agree": agree, "atol": FORWARD_ATOL,
             "expert_counts_equal": same_counts,
             "expert_counts": counts["kernel"].tolist()}
@@ -810,27 +1041,37 @@ def main(argv: "list[str] | None" = None) -> int:
     report["device"] = dev = phase_device()
     card = dev["nvidia_smi"].splitlines()[0] if dev["nvidia_smi"] else dev["kind"]
     report["build"] = phase_build()
-    report["check"] = {"paged_attention": check_attention(device), **check_gemms(device)}
-    report["time"] = tm = {"paged_attention": time_attention(device), **time_gemms(device)}
+    report["check"] = {"paged_attention": check_attention(device), **check_gemms(device),
+                       "paged_attention_latent": check_attention(device, latent=True),
+                       "mla_decode": check_mla_decode(device)}
+    report["time"] = tm = {"paged_attention": time_attention(device), **time_gemms(device),
+                           "paged_attention_latent": time_attention(device, latent=True),
+                           "mla_decode": time_mla_decode(device)}
     from llmd_tpu_torch.parallel.eplb import EPLBConfig
 
     moe = dict(model=MOE)
+    k1, k2 = {"paged_attention": (1, "all")}, {"ragged_grouped_gemm": (2, "all")}
     report["engine"] = eng = {
         "llama-1b": phase_engine(device, card, label="dense"),
         "moe_sorted": phase_engine(device, card, **moe, label="sorted",
-                                   engine_kw={"moe_dispatch": "sorted"},
-                                   per_layer={"paged_attention": 1, "ragged_grouped_gemm": 2}),
+                                   engine_kw={"moe_dispatch": "sorted"}, per_layer=k1 | k2),
         "moe_einsum": phase_engine(device, card, **moe, n_requests=4, label="einsum",
                                    engine_kw={"moe_dispatch": "einsum"},
-                                   per_layer={"paged_attention": 1, "grouped_gemm": 2}),
+                                   per_layer=k1 | {"grouped_gemm": (2, "all")}),
         "moe_eplb": phase_engine(device, card, **moe, n_requests=4, label="sorted+eplb",
                                  engine_kw={"moe_dispatch": "sorted", "eplb": EPLBConfig(
                                      window_size=8, step_interval=2,
                                      num_redundant_experts=32)},
-                                 per_layer={"paged_attention": 1, "ragged_grouped_gemm": 2}),
+                                 per_layer=k1 | k2),
+        # MLA: K1's latent instance in the unified program, K3 in the decode one
+        "mla_sorted": phase_engine(device, card, model=MLA, label="mla sorted",
+                                   engine_kw={"moe_dispatch": "sorted"},
+                                   per_layer={"paged_attention": (1, "unified"),
+                                              "mla_decode": (1, "decode"), **k2}),
     }
-    if eng["moe_sorted"]["moe_dropped_tokens"] != 0:
-        raise AssertionError("engine: the sorted dispatch dropped routed copies")
+    for run in ("moe_sorted", "mla_sorted"):
+        if eng[run]["moe_dropped_tokens"] != 0:
+            raise AssertionError(f"engine {run}: the sorted dispatch dropped routed copies")
     if eng["moe_eplb"]["eplb_rebalances"] < 2:
         raise AssertionError(f"engine: EPLB re-placed its experts "
                              f"{eng['moe_eplb']['eplb_rebalances']} times, expected >= 2")
@@ -838,6 +1079,7 @@ def main(argv: "list[str] | None" = None) -> int:
         "llama-1b": phase_forward_check(device),
         "moe_sorted": phase_forward_check(device, MOE, moe_dispatch="sorted"),
         "moe_einsum": phase_forward_check(device, MOE, moe_dispatch="einsum"),
+        "mla_sorted": phase_forward_check(device, MLA, moe_dispatch="sorted"),
     }
     if args.report:
         out = Path(args.report)
@@ -854,10 +1096,17 @@ def main(argv: "list[str] | None" = None) -> int:
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
 
     gemm_src = "llmd_tpu_torch/csrc/grouped_gemm.cu"
+    attn_src = "llmd_tpu_torch/csrc/paged_attention.cu"
     kernels = {"kernels": [
-        entry("paged_attention", "llmd_tpu_torch/csrc/paged_attention.cu",
-              "llmd_tpu/ops/paged_attention.py:106",
+        entry("paged_attention", attn_src, "llmd_tpu/ops/paged_attention.py:106",
               eng["llama-1b"]["launches"]["paged_attention"], tm["paged_attention"]),
+        # the unified program's absorbed MLA attention, XLA in the reference
+        entry("paged_attention_latent", attn_src, "llmd_tpu/models/transformer.py:428",
+              eng["mla_sorted"]["launches"]["paged_attention"],
+              tm["paged_attention_latent"]),
+        entry("mla_decode", "llmd_tpu_torch/csrc/mla_decode.cu",
+              "llmd_tpu/ops/mla_decode.py:110", eng["mla_sorted"]["launches"]["mla_decode"],
+              tm["mla_decode"]),
         entry("ragged_grouped_gemm", gemm_src, "llmd_tpu/ops/grouped_gemm.py:98",
               eng["moe_sorted"]["launches"]["ragged_grouped_gemm"],
               tm["ragged_grouped_gemm"]["decode"]),

@@ -11,28 +11,37 @@
 //     sits at position kv_len - q_len + i and attends keys 0 .. kv_len-q_len+i
 //     (causal).
 //   * pool [P, ps, 2*Hk, D]: K of kv head g at plane 2g, V at plane 2g+1.
+//     Single-plane mode (MLA's latent pool [P, ps, 1, D], absorbed attention):
+//     every head attends over the same row, which is both K and V; this is the
+//     card-side form of the reference's unified MLA attention
+//     (`llmd_tpu/models/transformer.py::ragged_paged_attention_xla` with one
+//     plane), at the unpadded latent width D = rank + rope (160, 80).
 //     page_tables [B, max_pages] lists a sequence's pages in order (layer offset
 //     already applied by the caller); -1 entries are never read.
 //   * Softmax runs online in f32 with sm_scale; inputs are f32 or bf16.
 //
 // Design (simple and correct first):
-//   * One block per (query token n, kv head g), 4 warps. The block serves all
-//     qpk = H/Hk query heads of kv head g, so every K/V row it reads is used
-//     qpk times.
+//   * One block per (query token n, head group g), 4 warps. A GQA block serves
+//     the qpk = H/Hk query heads of kv head g, so every K/V row it reads is used
+//     qpk times. A single-plane block serves QPK of the H heads (8 at D 160, 4
+//     at D 80: QPK x D floats of accumulator per lane stay in registers and
+//     the static shared arrays under 48 KB); the H/QPK blocks of a token read
+//     the same latent rows, the later ones mostly from L2.
 //   * Warps take 32-key tiles in turn. In a tile, lane j scores key j against
 //     all qpk heads (its K row read with 16-byte loads; q pre-scaled in shared
 //     memory, read by broadcast). One warp max per head updates the running
 //     max; each lane keeps a partial softmax denominator. For P.V, the tile's
-//     probabilities are broadcast key by key and each lane accumulates D/32
-//     output dims, reading each V row as one coalesced warp load.
+//     probabilities are broadcast key by key and lane j accumulates output
+//     dims j, j+32, ... (ceil(D/32) of them, the last ones masked when 32 does
+//     not divide D), reading each V row as one coalesced warp load.
 //   * Each warp's (m, l, acc) meet in shared memory at the end; o = acc / l.
 //
 // Bound on the card: decode reads sum_b kv_len_b * 2*Hk*D*sizeof(T) bytes of KV
-// per layer (plus q, page tables and out), and does 4*H*D flops per key — far
-// below the ~295 flop/byte ridge of an H100, so the kernel is bound by device
-// memory bandwidth. Later work: query tiling for prefill chunks (each query
-// token re-reads its sequence's KV here), wgmma/TMA, split-KV for long
-// contexts at small batch.
+// per layer (1*D for the latent pool; plus q, page tables and out), and does
+// 4*H*D flops per key — far below the ~295 flop/byte ridge of an H100, so the
+// kernel is bound by device memory bandwidth. Later work: query tiling for
+// prefill chunks (each query token re-reads its sequence's KV here), wgmma/TMA,
+// split-KV for long contexts at small batch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,16 +103,16 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pool,
                        const int* __restrict__ kv_lens,
                        const int* __restrict__ cu_q_lens,
                        const int* __restrict__ num_seqs_ptr, T* __restrict__ out,
-                       int num_heads, int num_kv_heads, int page_size,
+                       int num_heads, int num_planes, int page_size,
                        int max_pages, float scale) {
-  constexpr int EPL = D / 32;  // output dims owned by each lane
+  constexpr int EPL = (D + 31) / 32;  // output dims owned by each lane: lane + 32*e
   __shared__ float q_s[QPK * D];
   __shared__ float m_s[kWarps][QPK];
   __shared__ float l_s[kWarps][QPK];
   __shared__ float acc_s[kWarps][QPK][D];
 
   const int n = blockIdx.x;  // query token
-  const int g = blockIdx.y;  // kv head
+  const int g = blockIdx.y;  // kv head, or head group of a single-plane pool
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -137,9 +146,10 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pool,
   __syncthreads();
 
   const int* pt = page_tables + (size_t)b * max_pages;
-  const size_t row = (size_t)2 * num_kv_heads * D;  // elements per token slot
-  const size_t k_off = (size_t)(2 * g) * D;
-  const size_t v_off = k_off + D + (size_t)lane * EPL;
+  const bool single_plane = num_planes == 1;  // the latent row is K and V
+  const size_t row = (size_t)num_planes * D;  // elements per token slot
+  const size_t k_off = single_plane ? 0 : (size_t)(2 * g) * D;
+  const size_t v_off = (single_plane ? 0 : k_off + D) + lane;
 
   float m[QPK], l[QPK], acc[QPK][EPL];
 #pragma unroll
@@ -194,7 +204,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pool,
       const T* v_row = pool + (size_t)sj * row + v_off;
 #pragma unroll
       for (int e = 0; e < EPL; ++e) {
-        const float v = to_float(v_row[e]);
+        if (D % 32 != 0 && lane + 32 * e >= D) break;
+        const float v = to_float(v_row[32 * e]);
 #pragma unroll
         for (int h = 0; h < QPK; ++h) acc[h][e] = fmaf(pj[h], v, acc[h][e]);
       }
@@ -211,7 +222,10 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pool,
       l_s[warp][h] = sum;
     }
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) acc_s[warp][h][lane * EPL + e] = acc[h][e];
+    for (int e = 0; e < EPL; ++e) {
+      if (D % 32 != 0 && lane + 32 * e >= D) break;
+      acc_s[warp][h][lane + 32 * e] = acc[h][e];
+    }
   }
   __syncthreads();
 
@@ -238,12 +252,12 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pool,
 template <typename T, int D, int QPK>
 cudaError_t launch(const void* q, const void* pool, const int* page_tables,
                    const int* kv_lens, const int* cu_q_lens, const int* num_seqs,
-                   void* out, int num_tokens, int num_heads, int num_kv_heads,
+                   void* out, int num_tokens, int num_heads, int num_planes,
                    int page_size, int max_pages, float scale, cudaStream_t stream) {
-  const dim3 grid(num_tokens, num_kv_heads);
+  const dim3 grid(num_tokens, num_heads / QPK);
   paged_attention_kernel<T, D, QPK><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(pool), page_tables, kv_lens,
-      cu_q_lens, num_seqs, static_cast<T*>(out), num_heads, num_kv_heads,
+      cu_q_lens, num_seqs, static_cast<T*>(out), num_heads, num_planes,
       page_size, max_pages, scale);
   return cudaGetLastError();
 }
@@ -252,14 +266,14 @@ template <typename T, int D>
 cudaError_t dispatch_qpk(int qpk, const void* q, const void* pool,
                          const int* page_tables, const int* kv_lens,
                          const int* cu_q_lens, const int* num_seqs, void* out,
-                         int num_tokens, int num_heads, int num_kv_heads,
+                         int num_tokens, int num_heads, int num_planes,
                          int page_size, int max_pages, float scale,
                          cudaStream_t stream) {
 #define LLMD_QPK(QPK)                                                          \
   case QPK:                                                                    \
     return launch<T, D, QPK>(q, pool, page_tables, kv_lens, cu_q_lens,         \
-                             num_seqs, out, num_tokens, num_heads,             \
-                             num_kv_heads, page_size, max_pages, scale, stream);
+                             num_seqs, out, num_tokens, num_heads, num_planes, \
+                             page_size, max_pages, scale, stream);
   switch (qpk) {
     LLMD_QPK(1)
     LLMD_QPK(2)
@@ -272,18 +286,27 @@ cudaError_t dispatch_qpk(int qpk, const void* q, const void* pool,
 }
 
 template <typename T>
-cudaError_t dispatch_d(int head_dim, int qpk, const void* q, const void* pool,
-                       const int* page_tables, const int* kv_lens,
-                       const int* cu_q_lens, const int* num_seqs, void* out,
-                       int num_tokens, int num_heads, int num_kv_heads,
-                       int page_size, int max_pages, float scale,
-                       cudaStream_t stream) {
+cudaError_t dispatch(int num_planes, int qpk, int head_dim, const void* q,
+                     const void* pool, const int* page_tables, const int* kv_lens,
+                     const int* cu_q_lens, const int* num_seqs, void* out,
+                     int num_tokens, int num_heads, int page_size, int max_pages,
+                     float scale, cudaStream_t stream) {
+  if (num_planes == 1) {  // single-plane latent pool: (width, heads per block)
+    if (head_dim == 160 && qpk == 8)
+      return launch<T, 160, 8>(q, pool, page_tables, kv_lens, cu_q_lens, num_seqs,
+                               out, num_tokens, num_heads, 1, page_size,
+                               max_pages, scale, stream);
+    if (head_dim == 80 && qpk == 4)
+      return launch<T, 80, 4>(q, pool, page_tables, kv_lens, cu_q_lens, num_seqs,
+                              out, num_tokens, num_heads, 1, page_size,
+                              max_pages, scale, stream);
+    return cudaErrorInvalidValue;
+  }
 #define LLMD_D(D)                                                              \
   case D:                                                                      \
     return dispatch_qpk<T, D>(qpk, q, pool, page_tables, kv_lens, cu_q_lens,   \
                               num_seqs, out, num_tokens, num_heads,            \
-                              num_kv_heads, page_size, max_pages, scale,       \
-                              stream);
+                              num_planes, page_size, max_pages, scale, stream);
   switch (head_dim) {
     LLMD_D(32)
     LLMD_D(64)
@@ -296,26 +319,31 @@ cudaError_t dispatch_d(int head_dim, int qpk, const void* q, const void* pool,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for a head dim / group size without an instance).
+// num_planes: 2*Hk for a K/V pool, 1 for the single-plane latent pool.
+// heads_per_block: H/Hk for a K/V pool; for a latent pool, the query heads one
+// block serves (8 at width 160, 4 at width 80). dtype: 0 = float32, 1 =
+// bfloat16. Returns the cudaError_t of the launch (cudaErrorInvalidValue for a
+// shape without an instance).
 extern "C" int llmd_paged_attention(const void* q, const void* pool,
                                     const int* page_tables, const int* kv_lens,
                                     const int* cu_q_lens, const int* num_seqs,
                                     void* out, int num_tokens, int num_heads,
-                                    int num_kv_heads, int head_dim, int page_size,
-                                    int max_pages, float scale, int dtype,
-                                    void* stream) {
+                                    int num_planes, int heads_per_block,
+                                    int head_dim, int page_size, int max_pages,
+                                    float scale, int dtype, void* stream) {
   if (num_tokens <= 0) return 0;
-  if (num_kv_heads <= 0 || num_heads % num_kv_heads != 0) return cudaErrorInvalidValue;
-  const int qpk = num_heads / num_kv_heads;
+  if (heads_per_block <= 0 || num_heads % heads_per_block != 0) return cudaErrorInvalidValue;
+  if (num_planes != 1 && (num_planes % 2 != 0 || num_planes / 2 * heads_per_block != num_heads))
+    return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_d<float>(head_dim, qpk, q, pool, page_tables, kv_lens, cu_q_lens,
-                             num_seqs, out, num_tokens, num_heads, num_kv_heads,
-                             page_size, max_pages, scale, s);
+    return dispatch<float>(num_planes, heads_per_block, head_dim, q, pool, page_tables,
+                           kv_lens, cu_q_lens, num_seqs, out, num_tokens, num_heads,
+                           page_size, max_pages, scale, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(head_dim, qpk, q, pool, page_tables, kv_lens,
-                                     cu_q_lens, num_seqs, out, num_tokens, num_heads,
-                                     num_kv_heads, page_size, max_pages, scale, s);
+    return dispatch<__nv_bfloat16>(num_planes, heads_per_block, head_dim, q, pool,
+                                   page_tables, kv_lens, cu_q_lens, num_seqs, out,
+                                   num_tokens, num_heads, page_size, max_pages,
+                                   scale, s);
   return cudaErrorInvalidValue;
 }

@@ -16,6 +16,11 @@ Two step programs, routed inline by ``step()``:
   row can use are never launched). Tokens past a stop token are dropped
   when the results are applied.
 
+Attention: the unified program runs K1's wrapper (``paged_attention``), the
+decode program what ``programs.select_decode_attn_impl`` picks: K1 again for
+GQA models, the latent decode kernel K3 for MLA models (whose pool is the
+single-plane latent pool, which K1 also serves for the unified program).
+
 Also carried over: admission with prefix-cache reuse (chained block hashes),
 chunked prefill across sequences, preemption by recompute when pages run out,
 the tight-pool degrade of a multi-step decode to one unified step, and for MoE
@@ -49,6 +54,7 @@ from llmd_tpu_torch.core.kv_events import KVEvent, block_keys_for_tokens
 from llmd_tpu_torch.core.request import SamplingParams
 from llmd_tpu_torch.engine.config import EngineConfig
 from llmd_tpu_torch.engine.kv_manager import PageAllocator, Sequence
+from llmd_tpu_torch.engine.programs import select_decode_attn_impl
 from llmd_tpu_torch.engine.sampling import greedy_tokens, sample_tokens
 from llmd_tpu_torch.models.config import ModelConfig
 from llmd_tpu_torch.models.transformer import (
@@ -59,6 +65,7 @@ from llmd_tpu_torch.models.transformer import (
     init_params,
     unembed,
 )
+from llmd_tpu_torch.ops.paged_attention import paged_attention
 from llmd_tpu_torch.parallel.eplb import ExpertLoadTracker, rebalance
 
 
@@ -147,10 +154,19 @@ class LLMEngine:
         self.cache = init_cache(model_cfg, engine_cfg.num_pages, engine_cfg.page_size,
                                 device=self.device)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
-        # attention is the kernel's wrapper: the CUDA kernel on the card, its
-        # plain version for CPU tensors
-        self.attn_backend = ("cuda_paged_attention" if self.device.type == "cuda"
-                             else "torch_reference (cpu tensors)")
+        # attention of each program is a kernel's wrapper: the CUDA kernel on
+        # the card, its plain version for CPU tensors
+        self._attn = {"unified": paged_attention}
+        self._attn["decode"] = select_decode_attn_impl(self, self._attn["unified"])
+        on_card = self.device.type == "cuda"
+        if model_cfg.is_mla:
+            self.attn_backend = ("cuda_paged_attention_latent+cuda_mla_latent_decode"
+                                 if on_card else
+                                 "torch_reference_latent+torch_mla_latent_decode "
+                                 "(cpu tensors)")
+        else:
+            self.attn_backend = ("cuda_paged_attention" if on_card
+                                 else "torch_reference (cpu tensors)")
         self.stats.attn_backend = self.attn_backend
         self._moe_dispatch_impl = self._select_moe_dispatch()
         self.stats.moe_backend = self.moe_backend
@@ -220,8 +236,9 @@ class LLMEngine:
         if self._eplb_steps % self._eplb.step_interval == 0:
             self._eplb_rebalance()
 
-    def _forward(self, *args, moe_rows, **kw):
+    def _forward(self, program: str, *args, moe_rows, **kw):
         return forward_core(self.model_cfg, self._run_params(), self.cache, *args,
+                            attn_impl=self._attn[program],
                             moe_dispatch_impl=self._moe_dispatch_impl,
                             moe_rows=moe_rows, **kw)
 
@@ -485,8 +502,8 @@ class LLMEngine:
         # the reference runs its unified program on batched_tokens rows, real
         # rows first: row i of this batch is its row i
         hidden, self.cache, cnt, drop = self._forward(
-            self._tensor(toks), self._tensor(pos), self._tensor(sids), self._tensor(pts),
-            self._tensor(lens), cu_q_lens=self._tensor(cu),
+            "unified", self._tensor(toks), self._tensor(pos), self._tensor(sids),
+            self._tensor(pts), self._tensor(lens), cu_q_lens=self._tensor(cu),
             num_seqs=self._tensor(np.array([nb], np.int32)),
             moe_rows=(torch.arange(N, device=self.device), self.cfg.batched_tokens))
 
@@ -571,8 +588,8 @@ class LLMEngine:
         out, cnt, drop = [], 0, 0
         for i in range(n_iter):
             hidden, self.cache, cnt_i, drop_i = self._forward(
-                tok_d, pos_d, slots_d, pts_d, lens_d, cu_q_lens=cu_d, num_seqs=ns_d,
-                moe_rows=moe_rows)
+                "decode", tok_d, pos_d, slots_d, pts_d, lens_d, cu_q_lens=cu_d,
+                num_seqs=ns_d, moe_rows=moe_rows)
             cnt, drop = cnt + cnt_i, drop + drop_i
             nxt = self._sample(unembed(self.model_cfg, self.params, hidden), active)
             act = i < steps_d  # rows freeze once their budget is spent

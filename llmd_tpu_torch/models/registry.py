@@ -1,6 +1,6 @@
 """Named model configs (copy of ``llmd_tpu/models/registry.py``, same names and
-shapes). The port serves the dense GQA entries; the others raise
-``NotImplementedError`` at model construction until their slice lands."""
+shapes). The port serves the dense, MoE and MLA entries; the vision entry
+raises ``NotImplementedError`` at model construction until its slice lands."""
 
 from __future__ import annotations
 

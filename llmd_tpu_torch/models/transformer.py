@@ -1,4 +1,4 @@
-"""GQA decoder over a paged KV cache, dense or MoE (the GQA half of
+"""Decoder over a paged KV cache, GQA or absorbed MLA, dense or MoE (port of
 ``llmd_tpu/models/transformer.py``), in PyTorch.
 
 Layout and semantics follow the reference so parity tests compare like with
@@ -9,22 +9,28 @@ like:
   ``router [L, D, E]``, ``moe_wi [L, E, D, 2Fe]``, ...).
 - The KV cache is ONE flat pool ``[L*P, page_size, 2*Hk, Dh]`` with the layer
   folded into the page dimension (layer ``l``'s page ``p`` at row ``l*P + p``)
-  and K/V interleaved per head (K at plane 2h, V at 2h+1). Unlike the
-  reference, the head dim is NOT padded to 128 lanes: that padding is a TPU
+  and K/V interleaved per head (K at plane 2h, V at 2h+1). An MLA model's
+  pool has one plane, ``[L*P, page_size, 1, r + dr]``: the shared latent row
+  ``[c_kv ; k_rope]`` that absorbed attention reads as both K and V. Unlike
+  the reference, the width is NOT padded to 128 lanes: that padding is a TPU
   tile rule, and the packed layout that wins it back has no use here.
 - ``forward_core`` runs a flat mixed batch (prefill chunks + decode tokens,
   described by ``cu_q_lens``/``num_seqs``) through the layers in a Python
   loop — the counterpart of the reference's ``lax.scan`` — and writes K/V
   into the pool IN PLACE (the reference's donated-buffer update).
 - Attention is the kernel's wrapper ``ops/paged_attention.paged_attention``
-  and the MoE expert GEMMs are the kernels' wrappers of
+  (GQA, and MLA's single-plane latent pool in the unified program; the
+  engine's decode program passes ``ops/mla_decode.mla_paged_attention_latent``
+  for MLA) and the MoE expert GEMMs are the kernels' wrappers of
   ``ops/grouped_gemm`` (the CUDA kernels for CUDA tensors, their plain
   versions for CPU tensors). Any impl with the same signature can be passed
   instead; only the kernel-vs-plain checks do.
 
-Serves dense and MoE GQA configs. MLA, vision towers, qk-norm/bias
+Serves dense and MoE configs, GQA or MLA. Vision towers, qk-norm/bias
 checkpoints, LoRA and int8 weights (int8 expert banks included) raise
-``NotImplementedError`` naming the ROADMAP Queue A item that brings them.
+``NotImplementedError`` naming the ROADMAP Queue A item that brings them;
+LoRA on MLA raises as in the reference (the absorbed path has no adapter
+hook).
 """
 
 from __future__ import annotations
@@ -44,10 +50,15 @@ from llmd_tpu_torch.ops.paged_attention import paged_attention
 SORTED_DISPATCH = make_sorted_dispatch()
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for architectures this slice of the port does not serve."""
-    if cfg.is_mla:
-        raise NotImplementedError(f"{cfg.name}: MLA is ROADMAP Queue A item 9")
+def check_supported(cfg: ModelConfig, lora: bool = False) -> None:
+    """Raise for architectures the port does not serve (``lora``: the params
+    carry LoRA adapters)."""
+    if lora and cfg.is_mla:
+        raise NotImplementedError(
+            f"{cfg.name}: LoRA adapters are unsupported on MLA models (no adapter "
+            "hook in the absorbed path)")
+    if lora:
+        raise NotImplementedError("LoRA params are ROADMAP Queue A item 12")
     if cfg.mm_tokens > 0 or cfg.has_vision:
         raise NotImplementedError(f"{cfg.name}: vision is ROADMAP Queue A item 12")
     if cfg.qk_norm or cfg.attn_bias:
@@ -62,9 +73,17 @@ def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     shapes = {
         "embed": (cfg.vocab_size, D), "final_norm": (D,),
         "attn_norm": (L, D), "mlp_norm": (L, D),
-        "wq": (L, D, H, Dh), "wk": (L, D, Hk, Dh), "wv": (L, D, Hk, Dh),
-        "wo": (L, H, Dh, D),
     }
+    if cfg.is_mla:  # no wk/wv: the pool stores the shared latent once per token
+        r, dr = cfg.mla_kv_lora_rank, cfg.mla_rope_dim
+        dn, dv = cfg.mla_qk_nope_dim, cfg.mla_v_head_dim
+        shapes |= {"mla_wq": (L, D, H, dn + dr), "mla_wdkv": (L, D, r),
+                   "mla_wkr": (L, D, dr), "mla_kv_norm": (L, r),
+                   "mla_wuk": (L, H, dn, r), "mla_wuv": (L, H, r, dv),
+                   "wo": (L, H, dv, D)}
+    else:
+        shapes |= {"wq": (L, D, H, Dh), "wk": (L, D, Hk, Dh), "wv": (L, D, Hk, Dh),
+                   "wo": (L, H, Dh, D)}
     if cfg.is_moe:
         E, Fe = cfg.moe_num_experts, cfg.moe_intermediate_size or Fi
         shapes |= {"router": (L, D, E), "moe_wi": (L, E, D, 2 * Fe),
@@ -97,9 +116,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
               "router": D ** -0.5, "moe_wi": D ** -0.5, "moe_wo": Fe ** -0.5,
               "shared_wi": D ** -0.5, "shared_wo": max(Fs, 1) ** -0.5,
               "unembed": D ** -0.5}
+    if cfg.is_mla:
+        scales |= {"mla_wq": D ** -0.5, "mla_wdkv": D ** -0.5, "mla_wkr": D ** -0.5,
+                   "mla_wuk": cfg.mla_qk_nope_dim ** -0.5,
+                   "mla_wuv": cfg.mla_kv_lora_rank ** -0.5,
+                   "wo": (H * cfg.mla_v_head_dim) ** -0.5}
     params: dict[str, torch.Tensor] = {}
     for name, shape in shapes.items():
-        if name.endswith("norm"):
+        if name.endswith("norm"):  # attn/mlp/final norms and mla_kv_norm: ones
             params[name] = torch.ones(shape, dtype=dt, device=device)
             continue
         w = torch.randn(shape, generator=generator, device=gen_dev,
@@ -114,9 +138,7 @@ def params_from_numpy(cfg: ModelConfig, np_params: dict,
     layout) as this package's tensors. bf16 arrays come out of JAX as
     ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` rejects: every array
     goes through float32, then to the config's dtype."""
-    check_supported(cfg)
-    if any(k.startswith("lora_") for k in np_params):
-        raise NotImplementedError("LoRA params are ROADMAP Queue A item 12")
+    check_supported(cfg, lora=any(k.startswith("lora_") for k in np_params))
     shapes = param_shapes(cfg)
     extra = sorted(set(np_params) - set(shapes))
     if extra:
@@ -289,17 +311,22 @@ def init_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                dtype: Optional[torch.dtype] = None,
                device: "torch.device | str | None" = None) -> torch.Tensor:
     """[L*P, page_size, 2*Hk, Dh] flat pool: layer l's page p at row l*P + p;
-    K at plane 2h, V at 2h+1; unpadded head dim."""
+    K at plane 2h, V at 2h+1; unpadded head dim. MLA: one plane of the
+    unpadded latent width, [L*P, page_size, 1, r + dr]."""
+    planes = 1 if cfg.is_mla else 2 * cfg.num_kv_heads
     return torch.zeros(
-        (cfg.num_layers * num_pages, page_size, 2 * cfg.num_kv_heads, cfg.head_dim),
+        (cfg.num_layers * num_pages, page_size, planes, cfg.kv_cache_head_dim),
         dtype=dtype if dtype is not None else cfg.torch_dtype, device=device)
 
 
 def _write_rows(flat_cache: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 slots: torch.Tensor) -> None:
     n, hk, d = k.shape
-    kv = torch.stack([k, v], dim=2).reshape(n, 2 * hk, d).to(flat_cache.dtype)
-    flat_cache.index_copy_(0, slots.long(), kv)
+    if flat_cache.shape[1] == 1:  # single-plane MLA pool: k IS the latent row; v unused
+        kv = k
+    else:
+        kv = torch.stack([k, v], dim=2).reshape(n, 2 * hk, d)
+    flat_cache.index_copy_(0, slots.long(), kv.to(flat_cache.dtype))
 
 
 def write_kv(flat_cache: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -307,7 +334,9 @@ def write_kv(flat_cache: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Write new tokens' K/V into flat cache slots, in place.
 
     flat_cache: [S, 2*Hk, D] (the pool viewed as token slots); k/v: [N, Hk, D];
-    slots: [N] global slot ids. Slot -1 marks padding and is dropped."""
+    slots: [N] global slot ids. Slot -1 marks padding and is dropped. A
+    single-plane pool [S, 1, D] takes k [N, 1, D] (the latent row) and
+    ignores v."""
     keep = (slots >= 0).nonzero().squeeze(1)
     _write_rows(flat_cache, k[keep], v[keep], slots[keep])
     return flat_cache
@@ -321,7 +350,7 @@ def write_kv(flat_cache: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def forward_core(
     cfg: ModelConfig,
     params: dict[str, torch.Tensor],
-    cache: torch.Tensor,  # [L*P, ps, 2*Hk, Dh] flat layer-folded pool (updated in place)
+    cache: torch.Tensor,  # [L*P, ps, 2*Hk, Dh] / MLA [L*P, ps, 1, r+dr] (updated in place)
     tokens: torch.Tensor,  # [N] flat mixed batch
     positions: torch.Tensor,  # [N] (-1 pad)
     seq_slots: torch.Tensor,  # [N] owning batch row (page lookup / masks)
@@ -362,24 +391,47 @@ def forward_core(
     rows = valid.nonzero().squeeze(1)
     row_slots = (safe_page * ps + pos0 % ps)[rows]
     flat = cache.view(Ptot * ps, HkC, Dh)
-    cos, sin = rope_tables(positions, Dh, cfg.rope_theta)
-    scale = Dh ** -0.5
+    if cfg.is_mla:
+        # absorbed MLA: MQA over the latent row [c ; k_rope]; RoPE turns only
+        # the dr rope dims, so its tables are built at dr, not head_dim
+        r, dr, dn = cfg.mla_kv_lora_rank, cfg.mla_rope_dim, cfg.mla_qk_nope_dim
+        Dv = cfg.mla_v_head_dim
+        cos, sin = rope_tables(positions, dr, cfg.rope_theta)
+        scale = (dn + dr) ** -0.5
+    else:
+        Dv = Dh
+        cos, sin = rope_tables(positions, Dh, cfg.rope_theta)
+        scale = Dh ** -0.5
     eplb = params.get("eplb_replica_slots"), params.get("eplb_replica_counts")
     counts, dropped = [], []
 
     for l in range(L):
         h = rms_norm(x, params["attn_norm"][l], cfg.rms_eps)
-        q = (h @ params["wq"][l].reshape(D, H * Dh)).view(N, H, Dh)
-        k = (h @ params["wk"][l].reshape(D, Hk * Dh)).view(N, Hk, Dh)
-        v = (h @ params["wv"][l].reshape(D, Hk * Dh)).view(N, Hk, Dh)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        if cfg.is_mla:
+            # scores: q_nope·(W_UK c) + q_rope·k_rope == (W_UK^T q_nope)·c +
+            # q_rope·k_rope; the values are the latents, re-expanded per head
+            # through W_UV after the weighted sum (the reference's :619-643)
+            q = (h @ params["mla_wq"][l].reshape(D, -1)).view(N, H, dn + dr)
+            q_rope = apply_rope(q[..., dn:], cos, sin)
+            c = rms_norm(h @ params["mla_wdkv"][l], params["mla_kv_norm"][l], cfg.rms_eps)
+            kr = apply_rope((h @ params["mla_wkr"][l])[:, None, :], cos, sin)[:, 0]
+            q_lat = torch.einsum("nhk,hkr->nhr", q[..., :dn], params["mla_wuk"][l])
+            q = torch.cat([q_lat, q_rope], dim=-1)  # [N, H, r + dr]
+            k = v = torch.cat([c, kr], dim=-1)[:, None, :]  # [N, 1, r + dr]
+        else:
+            q = (h @ params["wq"][l].reshape(D, H * Dh)).view(N, H, Dh)
+            k = (h @ params["wk"][l].reshape(D, Hk * Dh)).view(N, Hk, Dh)
+            v = (h @ params["wv"][l].reshape(D, Hk * Dh)).view(N, Hk, Dh)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
         # this layer's slice of the pool: slots/pages shifted by the layer offset
         _write_rows(flat, k[rows], v[rows], row_slots + l * (P * ps))
         pt_l = torch.where(page_tables >= 0, page_tables + l * P, -1)
         attn = attn_impl(q, cache, pt_l, positions, seq_slots, kv_lens,
                          cu_q_lens=cu_q_lens, num_seqs=num_seqs, scale=scale)
-        x = x + attn.reshape(N, H * Dh) @ params["wo"][l].reshape(H * Dh, D)
+        if cfg.is_mla:  # the latent-weighted sum [..., :r] re-expands through W_UV
+            attn = torch.einsum("nhr,hrv->nhv", attn[..., :r], params["mla_wuv"][l])
+        x = x + attn.reshape(N, H * Dv) @ params["wo"][l].reshape(H * Dv, D)
         h = rms_norm(x, params["mlp_norm"][l], cfg.rms_eps)
         if cfg.is_moe:
             y, cnt, drop = moe_block(

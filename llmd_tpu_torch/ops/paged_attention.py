@@ -9,7 +9,10 @@ signature is kept, so ``forward_core`` swaps implementations freely:
          scale, cu_q_lens, num_seqs) -> [N, H, D]
 
 with q ``[N, H, D]`` and the pool ``[P, page_size, 2*Hk, D]`` at the UNPADDED
-head dim (K of kv head g at plane 2g, V at 2g+1).
+head dim (K of kv head g at plane 2g, V at 2g+1). A pool of ONE plane,
+``[P, page_size, 1, D]``, is MLA's latent pool: every head attends over the
+same row, which is both K and V (absorbed MLA runs as MQA at the latent width
+``D = r + dr``; the reference's ``ragged_paged_attention_xla`` reads it so).
 
 * :func:`paged_attention` launches ``csrc/paged_attention.cu`` for CUDA tensors
   and raises if it cannot; for CPU tensors (the tests) it calls the plain
@@ -36,6 +39,10 @@ import torch
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
 GROUP_SIZES = (1, 2, 4, 8)  # query heads per kv head with a kernel instance
+# single-plane (MLA latent) instances: latent width -> query heads per block;
+# a block serves that many heads of the one plane, the grid covers H with
+# H / heads-per-block blocks per token. 160: moe-wide-mla; 80: tiny-mla.
+LATENT_HEADS_PER_BLOCK = {160: 8, 80: 4}
 
 
 def paged_attention_ref(
@@ -56,7 +63,8 @@ def paged_attention_ref(
     paged_attention_ref.calls += 1
     N, H, D = q.shape
     _, ps, HkC, _ = layer_cache.shape
-    Hk = HkC // 2
+    single_plane = HkC == 1  # MLA latent pool: the row is K and V, Hk = 1
+    Hk = 1 if single_plane else HkC // 2
     B, maxp = page_tables.shape
     qpk = H // Hk
     S = maxp * ps
@@ -72,7 +80,10 @@ def paged_attention_ref(
         C = qc.shape[0]
         pt = pts[bc]  # [C, maxp] owning sequence's pages, in order
         kv = layer_cache[pt.clamp(min=0)].reshape(C, S, HkC, D)
-        kc, vc = kv[:, :, 0::2], kv[:, :, 1::2]  # [C, S, Hk, D]
+        if single_plane:
+            kc = vc = kv  # [C, S, 1, D] shared latent
+        else:
+            kc, vc = kv[:, :, 0::2], kv[:, :, 1::2]  # [C, S, Hk, D]
         qg = qc.reshape(C, Hk, qpk, D)
         s = torch.einsum("nkqd,nskd->nkqs", qg.float(), kc.float()) * scale
         # key j sits at sequence position j (page tables list pages in order)
@@ -115,7 +126,7 @@ def _library():
     from llmd_tpu_torch.native.build import load
 
     fn = load("paged_attention").lib.llmd_paged_attention
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -156,14 +167,23 @@ def paged_attention(
         raise ValueError("paged_attention: the kernel needs cu_q_lens and num_seqs")
     N, H, D = q.shape
     P, ps, HkC, Dc = layer_cache.shape
-    Hk = HkC // 2
     B, maxp = page_tables.shape
     if q.dtype not in _DTYPE_CODE or layer_cache.dtype != q.dtype:
         raise TypeError(f"paged_attention: q {q.dtype} / pool {layer_cache.dtype}; "
                         "the kernel takes float32 or bfloat16, both alike")
-    if Dc != D or D not in HEAD_DIMS or HkC % 2 or H % Hk or H // Hk not in GROUP_SIZES:
-        raise ValueError(f"paged_attention: no kernel instance for H={H} Hk={Hk} "
-                         f"D={D} (head dims {HEAD_DIMS}, groups {GROUP_SIZES})")
+    if HkC == 1:  # single-plane latent pool: H heads in blocks of `group`
+        group = LATENT_HEADS_PER_BLOCK.get(D, 0)
+        ok = Dc == D and group > 0 and H % group == 0
+    else:
+        Hk = HkC // 2
+        group = H // Hk if Hk and H % Hk == 0 else 0
+        ok = Dc == D and D in HEAD_DIMS and HkC % 2 == 0 and group in GROUP_SIZES
+    if not ok:
+        raise ValueError(
+            f"paged_attention: no kernel instance for H={H} planes={HkC} D={D} "
+            f"(K/V pools: head dims {HEAD_DIMS}, groups {GROUP_SIZES}; latent pools: "
+            f"widths {sorted(LATENT_HEADS_PER_BLOCK)} with H a multiple of "
+            f"{LATENT_HEADS_PER_BLOCK})")
     if cu_q_lens.shape[0] != B + 1 or kv_lens.shape[0] != B:
         raise ValueError(f"paged_attention: cu_q_lens {tuple(cu_q_lens.shape)} / "
                          f"kv_lens {tuple(kv_lens.shape)} do not match B={B}")
@@ -183,8 +203,8 @@ def paged_attention(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _library()(
             q.data_ptr(), layer_cache.data_ptr(), pt.data_ptr(), lens.data_ptr(),
-            cu.data_ptr(), ns.data_ptr(), out.data_ptr(), N, H, Hk, D, ps, maxp,
-            float(scale), _DTYPE_CODE[q.dtype], stream)
+            cu.data_ptr(), ns.data_ptr(), out.data_ptr(), N, H, HkC, group, D, ps,
+            maxp, float(scale), _DTYPE_CODE[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: cudaError {err}")
     paged_attention.launches += 1

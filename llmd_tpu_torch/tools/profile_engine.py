@@ -3,9 +3,10 @@
     python -m llmd_tpu_torch.tools.profile_engine [--batches 8,32] [--model llama-1b]
         [--moe-dispatch auto|sorted|einsum]
 
-``--model`` takes any served registry model, dense (``llama-1b``) or MoE
+``--model`` takes any served registry model, dense (``llama-1b``), MoE
 (``moe-wide-sim``; its expert GEMMs are K2 on the sorted dispatch, K4 on the
-einsum one).
+einsum one) or MLA (``moe-wide-mla``: K1's latent instance in the unified
+program, the latent decode kernel K3 in the decode program).
 
 For each batch size: an engine (random bf16 weights from ``--seed``) prefills
 ``batch`` prompts of ``--prompt-len`` tokens, then runs decode calls of
@@ -21,8 +22,8 @@ For each batch size: an engine (random bf16 weights from ``--seed``) prefills
   the device's busy
   share of that window's wall time (the profiler's own overhead inflates the
   window, so busy device ms per iteration is also set against the unprofiled
-  wall per iteration), and the shares of device time of K1 (paged attention)
-  and of the grouped GEMMs (K2/K4).
+  wall per iteration), and the shares of device time of K1 (paged attention),
+  of K3 (MLA latent decode) and of the grouped GEMMs (K2/K4).
 
 Prints one line per batch (``--out PATH`` also writes every row as JSON).
 Needs a CUDA device.
@@ -115,7 +116,8 @@ def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
             sync()
             h0 = time.perf_counter()
             forward_core(cfg, eng.params, eng.cache, *args,
-                         cu_q_lens=t(np.arange(batch + 1)), num_seqs=t([batch]))
+                         cu_q_lens=t(np.arange(batch + 1)), num_seqs=t([batch]),
+                         attn_impl=eng._attn["decode"])
             host.append(time.perf_counter() - h0)
             sync()
 
@@ -124,6 +126,7 @@ def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
     busy_us = sum(r["device_us"] for r in kernels)
     launches = sum(r["count"] for r in kernels)
     attn_us = sum(r["device_us"] for r in kernels if "paged_attention" in r["name"])
+    mla_us = sum(r["device_us"] for r in kernels if "mla_decode" in r["name"])
     gemm_us = sum(r["device_us"] for r in kernels if "grouped_gemm" in r["name"])
     wall_iter_ms = wall / max(iters, 1) * 1e3
     busy_iter_ms = busy_us / 1e3 / max(prof_iters, 1) if kernels else None
@@ -140,6 +143,7 @@ def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
         if kernels else None,
         "kernel_launches_per_iteration": launches / max(prof_iters, 1) if kernels else None,
         "attention_share_of_device_time": attn_us / busy_us if busy_us else None,
+        "mla_decode_share_of_device_time": mla_us / busy_us if busy_us else None,
         "grouped_gemm_share_of_device_time": gemm_us / busy_us if busy_us else None,
         "moe_dispatch": eng.stats.moe_dispatch,
         "top_kernels": kernels[:12],
@@ -170,9 +174,9 @@ def main(argv: "list[str] | None" = None) -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip()
     print(smi, flush=True)
-    from llmd_tpu_torch.ops import grouped_gemm, paged_attention
+    from llmd_tpu_torch.ops import grouped_gemm, mla_decode, paged_attention
 
-    for mod in (paged_attention, grouped_gemm):  # before anything is timed
+    for mod in (paged_attention, grouped_gemm, mla_decode):  # before anything is timed
         print(f"kernel build {mod.__name__} s={mod.build():.3f}", flush=True)
     cfg = get_model_config(args.model)
     dev = torch.device("cuda", 0)

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: ragged
-paged attention (K1) and the MoE grouped GEMMs (K2 ragged, K4 per-expert).
+paged attention (K1, on K/V pools and on MLA's single-plane latent pool), the
+MoE grouped GEMMs (K2 ragged, K4 per-expert) and MLA's latent decode (K3).
 Every test here needs a CUDA device and skips without one.
 
 On a GPU machine (``tests/conftest.py`` imports jax; where jax is not
@@ -14,6 +15,8 @@ import torch
 
 from llmd_tpu_torch.ops.grouped_gemm import (
     grouped_gemm, grouped_gemm_ref, ragged_grouped_gemm, ragged_grouped_gemm_ref)
+from llmd_tpu_torch.ops.mla_decode import (
+    mla_decode, mla_decode_ref, mla_paged_attention_latent)
 from llmd_tpu_torch.ops.paged_attention import (
     bf16_rounding_units, paged_attention, paged_attention_ref)
 
@@ -38,7 +41,7 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _case(H, Hk, D, ps, q_lens, kv_lens, dtype, device, seed):
+def _case(H, Hk, D, ps, q_lens, kv_lens, dtype, device, seed, planes=None):
     rng = np.random.default_rng(seed)
     nb = len(q_lens)
     B = nb + 2  # trailing unused table rows
@@ -65,7 +68,7 @@ def _case(H, Hk, D, ps, q_lens, kv_lens, dtype, device, seed):
     lens = np.ones((B,), np.int32)
     lens[:nb] = kv_lens
     q = torch.from_numpy(rng.standard_normal((N, H, D), np.float32))
-    pool = torch.from_numpy(rng.standard_normal((P, ps, 2 * Hk, D), np.float32))
+    pool = torch.from_numpy(rng.standard_normal((P, ps, planes or 2 * Hk, D), np.float32))
     t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
     args = (q.to(device, dtype), pool.to(device, dtype), t(pts), t(pos), t(sids), t(lens))
     kw = dict(scale=D ** -0.5, cu_q_lens=t(cu), num_seqs=t(np.array([nb], np.int32)))
@@ -241,3 +244,116 @@ def test_moe_engine_greedy_tokens_same_with_kernels(cuda, dispatch):
     cpu = LLMEngine(cfg, EngineConfig(**ecfg), params=params, device="cpu")
     assert cpu.generate(prompts, sp) == on_card
     assert cpu.stats.moe_dropped_tokens == eng.stats.moe_dropped_tokens
+
+
+# ------------------------------------------------------------------- MLA
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("H,W,ps", [(16, 160, 16), (4, 80, 8)])  # moe-wide-mla, tiny-mla
+def test_latent_kernel_matches_plain(cuda, H, W, ps, dtype):
+    """K1 on the single-plane latent pool: decode rows, a fresh prefill chunk
+    and continuation chunks at the latent width, against the plain version
+    reading the one plane as K and V."""
+    q_lens = [37, 1, 1, 64, 1, 20]
+    kv_lens = [37, 5, 300, 100, 1, 140]
+    args, kw, valid = _case(H, 1, W, ps, q_lens, kv_lens, dtype, cuda, seed=W, planes=1)
+    kw["scale"] = 0.125
+    before = paged_attention.launches
+    got = paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    q, pool, *rest = args
+    ref = paged_attention_ref(q.float(), pool.float(), *rest, **kw)[:valid]
+    if dtype == torch.float32:
+        err = (got[:valid] - ref).abs().max().item()
+        assert err <= F32_ATOL, err
+    else:
+        units = bf16_rounding_units(got[:valid], ref)
+        assert units <= BF16_UNITS, units
+    assert torch.count_nonzero(got[valid:]) == 0  # padding rows are zeros
+
+
+def _latent_decode_case(B, H, W, ps, dtype, device, seed):
+    """B one-token queries; kv_len 0 (idle) on every fifth row, the rest 1 to
+    700 from the seed; pages shuffled, -1 past each sequence."""
+    rng = np.random.default_rng(seed)
+    kv = rng.integers(1, 701, B).astype(np.int32)
+    kv[::5] = 0
+    need = -(-kv // ps)
+    maxp = int(need.max()) + 1
+    P = int(need.sum()) + 3
+    perm = rng.permutation(P)
+    pts = np.full((B, maxp), -1, np.int32)
+    o = 0
+    for b in range(B):
+        pts[b, : need[b]] = perm[o : o + need[b]]
+        o += need[b]
+    q = torch.from_numpy(rng.standard_normal((B, H, W), np.float32)).to(device, dtype)
+    pool = torch.from_numpy(rng.standard_normal((P, ps, 1, W), np.float32)).to(device, dtype)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return q, pool, t(pts), t(kv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,W,ps", [(64, 16, 160, 16), (7, 16, 160, 16), (9, 4, 80, 8)])
+def test_mla_decode_kernel_matches_plain(cuda, B, H, W, ps, dtype):
+    """K3 against its plain version. The kernel pre-scales q and rounds it to
+    its dtype, as the reference does; the float32 oracle takes that rounded
+    q at scale 1. Idle rows (kv_len 0) are exact zeros."""
+    q, pool, pts, kv = _latent_decode_case(B, H, W, ps, dtype, cuda, seed=B + W)
+    scale = 0.125
+    before = mla_decode.launches
+    got = mla_paged_attention_latent(q, pool, pts, None, None, kv, scale=scale)
+    torch.cuda.synchronize()
+    assert mla_decode.launches == before + 1
+    q_scaled = (q.float() * scale).to(dtype).float()
+    ref = mla_decode_ref(q_scaled, pool.float(), pts.clamp(min=0), kv, scale=1.0)
+    if dtype == torch.float32:
+        err = (got - ref).abs().max().item()
+        assert err <= F32_ATOL, err
+    else:
+        units = bf16_rounding_units(got, ref)
+        assert units <= BF16_UNITS, units
+    assert torch.count_nonzero(got[kv == 0]) == 0
+
+
+def test_mla_kernels_refuse_unsupported_shapes(cuda):
+    q, pool, pts, kv = _latent_decode_case(4, 8, 160, 16, torch.float32, cuda, seed=0)
+    with pytest.raises(ValueError):  # 8 heads at width 160: no K3 instance
+        mla_decode(q, pool, pts.clamp(min=0), kv, scale=0.1)
+    args, kw, _ = _case(16, 1, 96, 16, [1], [10], torch.float32, cuda, seed=0, planes=1)
+    with pytest.raises(ValueError):  # latent width 96: no K1 latent instance
+        paged_attention(*args, **kw)
+
+
+def test_mla_engine_greedy_tokens_same_with_kernels(cuda):
+    """tiny-mla in float32 on the card: the engine through K1-latent and K3
+    emits the same greedy tokens as the same engine with the plain versions
+    passed in their place, same weights, mixed prefill/decode."""
+    import dataclasses
+    import functools
+
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.engine import EngineConfig, LLMEngine
+    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(get_model_config("tiny-mla"), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    prompts = [list(range(5, 60)), list(range(100, 110)), list(range(7, 200, 3))]
+    ecfg = dict(page_size=8, num_pages=64, max_model_len=256, max_batch_size=4,
+                prefill_chunk=32, decode_steps=4)
+    sp = SamplingParams(max_tokens=12, temperature=0.0)
+    k1, k3 = paged_attention.launches, mla_decode.launches
+    on_card = LLMEngine(cfg, EngineConfig(**ecfg), params=params, device=cuda)
+    assert on_card.attn_backend == "cuda_paged_attention_latent+cuda_mla_latent_decode"
+    kernels = on_card.generate(prompts, sp)
+    assert paged_attention.launches > k1 and mla_decode.launches > k3
+    plain = LLMEngine(cfg, EngineConfig(**ecfg), params=params, device=cuda)
+    plain._attn = {"unified": paged_attention_ref,
+                   "decode": functools.partial(mla_paged_attention_latent,
+                                               decode=mla_decode_ref)}
+    k1, k3 = paged_attention.launches, mla_decode.launches
+    assert plain.generate(prompts, sp) == kernels
+    assert (paged_attention.launches, mla_decode.launches) == (k1, k3)

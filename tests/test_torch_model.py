@@ -35,10 +35,12 @@ def test_registry_matches_reference_field_for_field():
 @pytest.mark.parametrize("name", ["tiny-moe", "tiny-mla", "tiny-vl"])
 def test_unserved_architectures_raise(name):
     cfg = get_model_config(name)
-    if name == "tiny-moe":
-        # MoE is served since the MoE slice; its int8 expert banks are not
+    if name in ("tiny-moe", "tiny-mla"):
+        # MoE and MLA are served since their slices; int8 weights are not
+        # (int8 expert banks, the int8 attention output projection)
         params = {k: np.zeros(v, np.float32) for k, v in tt.param_shapes(cfg).items()}
-        params["moe_wi_q"] = np.zeros(params.pop("moe_wi").shape, np.int8)
+        key = "moe_wi" if name == "tiny-moe" else "wo"
+        params[key + "_q"] = np.zeros(params.pop(key).shape, np.int8)
         with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 6"):
             tt.params_from_numpy(cfg, params)
         return
