@@ -9,7 +9,10 @@ with a non-zero exit:
 1. device   the card's name and power limit (nvidia-smi); TF32 off.
 2. build    nvcc builds every kernel source of the main paths from
             ``llmd_tpu_torch/csrc``, one nvcc per source, all started together
-            (seconds and the ptxas register / shared-memory report).
+            (seconds and the ptxas register / shared-memory report);
+            ``cuobjdump -sass`` of the grouped-GEMM library must show every
+            bf16 (wgmma-instance) kernel on the tensor cores (HGMMA) fed by
+            asynchronous copies (UTMALDG, TMA; or LDGSTS, cp.async).
 3. check    each kernel against its plain PyTorch version on the card, in
             float32 and bfloat16 (the bf16 kernel against the plain version in
             float32 on the same inputs, in bf16 rounding units, with controls
@@ -19,8 +22,11 @@ with a non-zero exit:
             EPLB shapes, with dead rows, zero-row blocks and zero-count groups;
             K1 on moe-wide-mla's single-plane latent pool at a mixed shape and
             K3 (MLA latent decode) at its decode shape, idle rows included.
-4. time     each kernel at the main path's shapes (CUDA events, median), beside
-            its bound, its plain version and one PyTorch library call.
+4. time     each kernel at the main path's shapes (CUDA events, median, the
+            card held by a spin kernel while the host enqueues the calls),
+            beside its bound, its plain version and one PyTorch library call;
+            K2 and K4 for both launches of a layer (wi, wo) at decode and
+            prefill.
 5. engine   behind the port's HTTP server, random bf16 weights from a seed,
             greedy completions: llama-1b at full width (8 requests), then
             moe-wide-sim at full width and depth on the sorted dispatch (8
@@ -30,14 +36,15 @@ with a non-zero exit:
             before and reads it just after: each kernel of the path ran its
             count per layer of the forwards of its program (K1 once per layer
             of every forward, or of the unified ones only on MLA, where the
-            decode program runs K3; K2 / K4 twice per layer of every forward),
-            no plain version ran, the sorted path dropped nothing, EPLB
-            re-placed its experts at least twice.
+            decode program runs K3; K2 / K4 twice per layer of every forward,
+            every launch on the bf16 wgmma instance), no plain version ran,
+            the sorted path dropped nothing, EPLB re-placed its experts at
+            least twice.
 6. forward  one mixed unified batch through ``forward_core`` in float32, with
             the kernels and again with the plain versions passed as overrides:
             llama-1b, moe-wide-sim on both dispatch paths, and moe-wide-mla
             with a decode batch after it (K3) (logits held together, expert
-            counts equal).
+            counts equal; K2 / K4 on their float32 simt instance).
 
 It ends with a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. ``--report PATH`` also writes every phase's details (nvcc's register
@@ -49,6 +56,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -79,6 +88,9 @@ FORWARD_ATOL = 1e-3
 # grouped GEMMs in float32: unit-scale outputs summed over D <= 1024 in another
 # order than the plain version's cuBLAS product.
 GEMM_F32_ATOL = 1e-4
+# cycles of the spin kernel queued before each timed run (~1 ms on an H100):
+# longer than the host takes to enqueue the run, so the events time the card
+HOLD_CYCLES = 2_000_000
 H, HK, D, PS = 32, 8, 64, 16  # llama-1b attention: heads, kv heads, head dim, page
 MOE = "moe-wide-sim"  # D 1024, 32 experts, top-4, expert FFN 512 (2Fe = 1024)
 # moe-wide-mla's absorbed attention: 16 heads over one latent plane of width
@@ -181,7 +193,10 @@ def attention_bound(c, dtype):
 
 
 def cuda_ms(fn, reps=25, inner=10):
-    """Median per-call device time over ``reps`` runs of ``inner`` calls."""
+    """Median per-call device time over ``reps`` runs of ``inner`` calls. A
+    spin kernel queued before each run holds the card while the host enqueues
+    the run, so a call whose host side is slower than its kernel is timed by
+    its kernels, not by the host."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -189,6 +204,7 @@ def cuda_ms(fn, reps=25, inner=10):
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES)
         start.record()
         for _ in range(inner):
             fn()
@@ -443,7 +459,40 @@ def phase_build() -> dict:
             log(f"build:   {name} ptxas: {ln}")
         out[name] = {"seconds": seconds[name], "nvcc_log": built.log}
     log(f"build: wall_s={wall:.3f} (parallel)")
+    out["grouped_gemm_sass"] = sass_check(load("grouped_gemm").path)
     return out
+
+
+def sass_check(lib: Path) -> dict:
+    """Per kernel function of the grouped-GEMM library, the count of tensor-
+    core (HGMMA) and asynchronous-copy (UTMALDG: TMA; LDGSTS: cp.async) SASS
+    instructions. Fails unless every bf16 wgmma-instance kernel has both."""
+    from llmd_tpu_torch.native.build import nvcc_path
+
+    tool = shutil.which("cuobjdump") or str(Path(nvcc_path()).parent / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    ops = ("HGMMA", "UTMALDG", "LDGSTS")
+    funcs: dict = {}
+    name = None
+    for ln in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            name = m.group(1)
+            funcs[name] = dict.fromkeys(ops, 0)
+        elif name is not None:
+            for op in ops:
+                funcs[name][op] += op in ln
+    wgmma = {n: v for n, v in funcs.items() if "wgmma" in n}
+    for n, v in funcs.items():
+        log(f"build:   grouped_gemm sass: {n[:70]} " + " ".join(f"{k}={c}" for k, c in v.items()))
+    if not wgmma or not all(v["HGMMA"] and (v["UTMALDG"] or v["LDGSTS"])
+                            for v in wgmma.values()):
+        raise AssertionError(f"build: the bf16 grouped-GEMM kernels lack HGMMA or an "
+                             f"asynchronous copy: {wgmma}")
+    log(f"build: grouped_gemm sass: {len(wgmma)} wgmma kernels, each with HGMMA and "
+        "UTMALDG/LDGSTS")
+    return funcs
 
 
 def bf16_accumulating_control(c):
@@ -715,13 +764,15 @@ def time_mla_decode(device) -> dict:
 
 
 def time_gemms(device) -> dict:
-    """K2 and K4 in bf16 at the decode and prefill shapes of moe-wide-sim (the
-    wi launch, D 1024 -> 2Fe 1024; decode T=32 sequences, prefill T=2048
-    tokens), beside the bound, the plain version and one library call:
-    ``torch.bmm`` over the weights gathered per block with ``index_select``
-    (gather included) for K2, ``torch.bmm`` for K4."""
+    """K2 and K4 in bf16 at the decode and prefill shapes of moe-wide-sim
+    (decode T=32 sequences, prefill T=2048 tokens), both launches of a layer
+    (wi, D 1024 -> 2Fe 1024: keys ``decode`` / ``prefill``; wo, Fe 512 -> D
+    1024: ``decode_wo`` / ``prefill_wo``), beside the bound, the plain version
+    and one library call: ``torch.bmm`` over the weights gathered per block
+    with ``index_select`` (gather included) for K2, ``torch.bmm`` for K4."""
     from llmd_tpu_torch.ops.grouped_gemm import (
-        grouped_gemm, grouped_gemm_ref, ragged_grouped_gemm, ragged_grouped_gemm_ref)
+        _instance, grouped_gemm, grouped_gemm_ref, ragged_grouped_gemm,
+        ragged_grouped_gemm_ref)
 
     dtype = torch.bfloat16
     cases = (
@@ -732,29 +783,33 @@ def time_gemms(device) -> dict:
     )
     out: dict = {}
     for name, label, c in cases:
-        _, x, w = c["launches"][0]
         slot, live = c["slot"], c["live"]
-        if name == "ragged_grouped_gemm":
-            slot_l = slot.long()
-            ms = cuda_ms(lambda: ragged_grouped_gemm(x, w, slot, live))
-            plain_ms = cuda_ms(lambda: ragged_grouped_gemm_ref(x, w, slot, live), reps=5, inner=2)
-            library_ms = cuda_ms(lambda: torch.bmm(x, w.index_select(0, slot_l)))
-            lib = "bmm over index_select-gathered weights, gather included"
-            n_index = 2
-        else:
-            ms = cuda_ms(lambda: grouped_gemm(x, w, live))
-            plain_ms = cuda_ms(lambda: grouped_gemm_ref(x, w, live), reps=5, inner=2)
-            library_ms = cuda_ms(lambda: torch.bmm(x, w))
-            lib = "bmm"
-            n_index = 1
-        bound_ms, bound_by, work = gemm_bound(x, w, slot, live, dtype, n_index)
-        row = {"shape": f"{c['shape']} wi bf16", "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-               "library": lib, **work}
-        log(f"time: {name} {label} {row['shape']} ms={ms:.4f} bound_ms={bound_ms:.4f} "
-            f"({bound_by}) plain_ms={plain_ms:.4f} library_ms({lib})={library_ms:.4f} "
-            f"roofline_share={bound_ms / ms:.3f}")
-        out.setdefault(name, {})[label] = row
+        for which, x, w in c["launches"]:
+            if name == "ragged_grouped_gemm":
+                slot_l = slot.long()
+                ms = cuda_ms(lambda: ragged_grouped_gemm(x, w, slot, live))
+                plain_ms = cuda_ms(lambda: ragged_grouped_gemm_ref(x, w, slot, live),
+                                   reps=5, inner=2)
+                library_ms = cuda_ms(lambda: torch.bmm(x, w.index_select(0, slot_l)))
+                lib = "bmm over index_select-gathered weights, gather included"
+                n_index = 2
+            else:
+                ms = cuda_ms(lambda: grouped_gemm(x, w, live))
+                plain_ms = cuda_ms(lambda: grouped_gemm_ref(x, w, live), reps=5, inner=2)
+                library_ms = cuda_ms(lambda: torch.bmm(x, w))
+                lib = "bmm"
+                n_index = 1
+            bound_ms, bound_by, work = gemm_bound(x, w, slot, live, dtype, n_index)
+            instance = _instance(dtype, x.shape[2], w.shape[2])
+            row = {"shape": f"{c['shape']} {which} D={x.shape[2]} F={w.shape[2]} bf16",
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": library_ms, "library": lib,
+                   "instance": instance, **work}
+            log(f"time: {name} {label} {row['shape']} instance={instance} ms={ms:.4f} "
+                f"bound_ms={bound_ms:.4f} ({bound_by}) plain_ms={plain_ms:.4f} "
+                f"library_ms({lib})={library_ms:.4f} roofline_share={bound_ms / ms:.3f}")
+            key = label if which == "wi" else f"{label}_{which}"
+            out.setdefault(name, {})[key] = row
     return out
 
 
@@ -788,10 +843,22 @@ def counters() -> tuple[dict, dict]:
     return kernels, plain
 
 
+def instance_counts() -> dict:
+    """Launches of K2 and K4 per kernel instance (``"wgmma"``, ``"simt"``)."""
+    from llmd_tpu_torch.ops import grouped_gemm as gg
+
+    return {"ragged_grouped_gemm": dict(gg.ragged_grouped_gemm.launches_by_instance),
+            "grouped_gemm": dict(gg.grouped_gemm.launches_by_instance)}
+
+
 def zero_counts() -> None:
+    from llmd_tpu_torch.ops import grouped_gemm as gg
+
     for group in counters():
         for fn, attr in group.values():
             setattr(fn, attr, 0)
+    for fn in (gg.ragged_grouped_gemm, gg.grouped_gemm):
+        fn.launches_by_instance = dict.fromkeys(fn.launches_by_instance, 0)
 
 
 def read_counts() -> tuple[dict, dict]:
@@ -856,6 +923,7 @@ def phase_engine(device, card: str, model: str = "llama-1b", n_requests: int = 8
             t.join(timeout=900)
         wall = time.perf_counter() - t1
         launches, plain_calls = read_counts()
+        by_instance = instance_counts()
         st = eng.stats
     finally:
         server.stop()
@@ -884,7 +952,7 @@ def phase_engine(device, card: str, model: str = "llama-1b", n_requests: int = 8
         "unified_steps": st.n_unified_steps, "decode_calls": st.n_decode_calls,
         "decode_iterations": st.n_decode_iterations,
         "launches": launches, "expected_launches": expect, "plain_calls": plain_calls,
-        "attn_backend": st.attn_backend,
+        "gemm_launches_by_instance": by_instance, "attn_backend": st.attn_backend,
         "moe_dispatch": st.moe_dispatch, "moe_backend": st.moe_backend,
         "moe_dropped_tokens": st.moe_dropped_tokens, "eplb_rebalances": st.eplb_rebalances,
         "engine_config": {k: repr(v) if k == "eplb" else v for k, v in kw.items()},
@@ -894,6 +962,7 @@ def phase_engine(device, card: str, model: str = "llama-1b", n_requests: int = 8
         f"output_tok_s={row['output_tok_s']:.1f} unified_steps={st.n_unified_steps} "
         f"decode_calls={st.n_decode_calls} decode_iterations={st.n_decode_iterations}")
     log(f"engine:   launches={launches} plain_calls={plain_calls} "
+        f"gemm_launches_by_instance={by_instance} "
         f"attn_backend={st.attn_backend!r} moe_dispatch={st.moe_dispatch!r} "
         f"moe_dropped_tokens={st.moe_dropped_tokens} eplb_rebalances={st.eplb_rebalances}")
     if device.type == "cuda":
@@ -905,6 +974,11 @@ def phase_engine(device, card: str, model: str = "llama-1b", n_requests: int = 8
         if launches != expect:
             raise AssertionError(f"engine {label}: launches {launches}, expected {expect} "
                                  f"({per_layer} per layer per forward)")
+        # the served weights are bf16: every grouped GEMM on the tensor cores
+        off = {n: c for n, c in by_instance.items() if c != {"wgmma": launches[n], "simt": 0}}
+        if off:
+            raise AssertionError(f"engine {label}: grouped-GEMM launches {launches} not all "
+                                 f"on the wgmma instance: {off}")
     return row
 
 
@@ -999,6 +1073,8 @@ def phase_forward_check(device, model: str = "llama-1b", seed: int = 0,
             last = torch.from_numpy(cu_np[1:] - 1).to(device)
             logits.append(unembed(cfg, params, hidden[last]))
         runs[name] = read_counts()
+        if name == "kernel":
+            by_instance = instance_counts()
         out[name], counts[name] = torch.cat(logits), cnt
     diff = (out["kernel"] - out["plain"]).abs().max().item()
     agree = (out["kernel"].argmax(-1) == out["plain"].argmax(-1)).float().mean().item()
@@ -1017,6 +1093,9 @@ def phase_forward_check(device, model: str = "llama-1b", seed: int = 0,
     if device.type == "cuda" and (any(runs["kernel"][1].values())
                                   or any(runs["plain"][0].values())):
         raise AssertionError(f"forward: the runs mixed kernels and plain versions: {runs}")
+    if device.type == "cuda" and any(c["wgmma"] for c in by_instance.values()):
+        raise AssertionError(f"forward: float32 grouped GEMMs reached the bf16 wgmma "
+                             f"instance: {by_instance}")
     if device.type == "cuda" and cfg.is_mla and (
             runs["kernel"][0]["mla_decode"] != cfg.num_layers
             or runs["kernel"][0]["paged_attention"] != 2 * cfg.num_layers):
@@ -1089,11 +1168,15 @@ def main(argv: "list[str] | None" = None) -> int:
     def bf16_err(rows: dict) -> float:
         return max(v["max_abs_err"] for k, v in rows.items() if k.endswith("bfloat16"))
 
-    def entry(name, source, replaces, launches, t):
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": bf16_err(report["check"][name]),
-                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+    def entry(name, source, replaces, launches, t, prefill=None):
+        e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": launches, "max_abs_err": bf16_err(report["check"][name]),
+             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+             "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        if prefill is not None:  # grouped GEMMs: ms etc. at decode, these at prefill (wi)
+            e.update(prefill_ms=prefill["ms"], prefill_bound_ms=prefill["bound_ms"],
+                     prefill_library_ms=prefill["library_ms"], instance=t["instance"])
+        return e
 
     gemm_src = "llmd_tpu_torch/csrc/grouped_gemm.cu"
     attn_src = "llmd_tpu_torch/csrc/paged_attention.cu"
@@ -1109,9 +1192,10 @@ def main(argv: "list[str] | None" = None) -> int:
               tm["mla_decode"]),
         entry("ragged_grouped_gemm", gemm_src, "llmd_tpu/ops/grouped_gemm.py:98",
               eng["moe_sorted"]["launches"]["ragged_grouped_gemm"],
-              tm["ragged_grouped_gemm"]["decode"]),
+              tm["ragged_grouped_gemm"]["decode"], tm["ragged_grouped_gemm"]["prefill"]),
         entry("grouped_gemm", gemm_src, "llmd_tpu/ops/grouped_gemm.py:43",
-              eng["moe_einsum"]["launches"]["grouped_gemm"], tm["grouped_gemm"]["decode"]),
+              eng["moe_einsum"]["launches"]["grouped_gemm"], tm["grouped_gemm"]["decode"],
+              tm["grouped_gemm"]["prefill"]),
     ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],

@@ -15,6 +15,12 @@ Both accumulate in float32 and return ``x.dtype``. For CUDA tensors the
 wrapper launches ``csrc/grouped_gemm.cu`` or raises; for CPU tensors it calls
 the plain version. There is no fallback from the kernel to the plain version.
 Each wrapper and each plain version counts its runs in ``.launches``.
+
+The source has two instances, chosen by :func:`_instance` from the dtype and
+the widths alone: ``"wgmma"`` (bfloat16 with D and F multiples of 8: tensor
+cores fed by TMA copies through a ring of shared-memory stages) and
+``"simt"`` (float32, and bfloat16 at other widths: CUDA-core FMAs). Each
+wrapper also counts its launches per instance in ``.launches_by_instance``.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import functools
 import torch
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_INSTANCE_CODE = {"simt": 0, "wgmma": 1}
 
 
 def ragged_grouped_gemm_ref(x: torch.Tensor, w: torch.Tensor,
@@ -61,10 +68,10 @@ def _library():
 
     lib = load("grouped_gemm").lib
     rgg = lib.llmd_ragged_grouped_gemm
-    rgg.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    rgg.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     rgg.restype = ctypes.c_int
     gg = lib.llmd_grouped_gemm
-    gg.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    gg.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     gg.restype = ctypes.c_int
     return rgg, gg
 
@@ -75,6 +82,16 @@ def build() -> float:
 
     _library()
     return load("grouped_gemm").seconds
+
+
+def _instance(dtype: torch.dtype, D: int, F: int) -> str:
+    """The kernel instance for these operands: ``"wgmma"`` for bfloat16 with
+    D and F multiples of 8 (the TMA copies move 16-byte rows), ``"simt"``
+    otherwise (float32 stays off the tensor cores, which would take it in
+    TF32)."""
+    if dtype == torch.bfloat16 and D > 0 and D % 8 == 0 and F % 8 == 0:
+        return "wgmma"
+    return "simt"
 
 
 def _check(name: str, x: torch.Tensor, w: torch.Tensor, *index: torch.Tensor) -> None:
@@ -90,20 +107,28 @@ def _check(name: str, x: torch.Tensor, w: torch.Tensor, *index: torch.Tensor) ->
         raise ValueError(f"{name}: all inputs must be on x's device")
 
 
-def _launch(fn, name: str, x: torch.Tensor, w: torch.Tensor,
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (a view at an odd offset is
+    copied): the wgmma instance's TMA copies need both."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(fn, name: str, instance: str, x: torch.Tensor, w: torch.Tensor,
             index: list[torch.Tensor], dims: tuple[int, ...]) -> torch.Tensor:
     out = torch.empty((x.shape[0], x.shape[1], w.shape[2]), dtype=x.dtype,
                       device=x.device)
     if out.numel() == 0:
         return out
-    xc, wc = x.contiguous(), w.contiguous()
+    xc, wc = _aligned(x), _aligned(w)
     idx = [t.to(torch.int32).contiguous() for t in index]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(xc.data_ptr(), wc.data_ptr(), *(t.data_ptr() for t in idx),
-                 out.data_ptr(), *dims, _DTYPE_CODE[x.dtype], stream)
+                 out.data_ptr(), *dims, _DTYPE_CODE[x.dtype], _INSTANCE_CODE[instance],
+                 stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"{name} kernel ({instance}) launch failed: cudaError {err}")
     return out
 
 
@@ -119,13 +144,17 @@ def ragged_grouped_gemm(x: torch.Tensor, w: torch.Tensor, block_slot: torch.Tens
         raise ValueError(f"ragged_grouped_gemm: unsupported device {x.device}")
     _check("ragged_grouped_gemm", x, w, block_slot, block_rows)
     nb, bc, D = x.shape
-    out = _launch(_library()[0], "ragged_grouped_gemm", x, w,
-                  [block_slot, block_rows], (nb, bc, D, w.shape[2]))
+    S, _, F = w.shape
+    instance = _instance(x.dtype, D, F)
+    out = _launch(_library()[0], "ragged_grouped_gemm", instance, x, w,
+                  [block_slot, block_rows], (nb, bc, D, F, S))
     ragged_grouped_gemm.launches += 1
+    ragged_grouped_gemm.launches_by_instance[instance] += 1
     return out
 
 
 ragged_grouped_gemm.launches = 0
+ragged_grouped_gemm.launches_by_instance = {"wgmma": 0, "simt": 0}
 
 
 def grouped_gemm(x: torch.Tensor, w: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
@@ -139,12 +168,16 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, counts: torch.Tensor) -> torc
     if w.shape[0] != x.shape[0]:
         raise ValueError(f"grouped_gemm: {x.shape[0]} groups but {w.shape[0]} weights")
     G, C, D = x.shape
-    out = _launch(_library()[1], "grouped_gemm", x, w, [counts], (G, C, D, w.shape[2]))
+    F = w.shape[2]
+    instance = _instance(x.dtype, D, F)
+    out = _launch(_library()[1], "grouped_gemm", instance, x, w, [counts], (G, C, D, F))
     grouped_gemm.launches += 1
+    grouped_gemm.launches_by_instance[instance] += 1
     return out
 
 
 grouped_gemm.launches = 0
+grouped_gemm.launches_by_instance = {"wgmma": 0, "simt": 0}
 
 
 def make_moe_matmul():

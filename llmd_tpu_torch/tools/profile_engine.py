@@ -23,7 +23,12 @@ For each batch size: an engine (random bf16 weights from ``--seed``) prefills
   share of that window's wall time (the profiler's own overhead inflates the
   window, so busy device ms per iteration is also set against the unprofiled
   wall per iteration), and the shares of device time of K1 (paged attention),
-  of K3 (MLA latent decode) and of the grouped GEMMs (K2/K4).
+  of K3 (MLA latent decode) and of the grouped GEMMs (K2/K4),
+- on MoE models, the host time of one K2 launch (no synchronise inside) at
+  this batch's decode shape: layer 0's ``wi`` bank and a random top-k routing
+  of ``batch`` tokens, median over runs of 100 calls; the wrapper's call, and
+  the library's C entry point alone for each kernel instance (the wgmma one
+  encodes two tensor maps per launch, the simt one none).
 
 Prints one line per batch (``--out PATH`` also writes every row as JSON).
 Needs a CUDA device.
@@ -55,6 +60,52 @@ def _host_rows(prof) -> list[dict]:
     rows = [{"name": e.key[:80], "count": e.count, "cpu_us": e.self_cpu_time_total}
             for e in prof.key_averages() if e.self_cpu_time_total > 0]
     return sorted(rows, key=lambda r: -r["cpu_us"])
+
+
+def k2_host_us(cfg, params, batch: int, seed: int) -> dict:
+    """Host microseconds per K2 launch at the decode shape of ``batch``
+    tokens: ``k2_host_us_per_launch`` (the wrapper), ``k2_c_call_us_wgmma``
+    and ``k2_c_call_us_simt`` (the C entry point); empty on a dense model."""
+    if not cfg.is_moe:
+        return {}
+    from llmd_tpu_torch.ops.grouped_gemm import _library, ragged_grouped_gemm
+    from llmd_tpu_torch.ops.moe_dispatch import dispatch_stage, pick_block_size
+
+    wi = params["moe_wi"][0]
+    S, D, F = wi.shape
+    k, dev = cfg.moe_top_k, wi.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.argsort(torch.rand((batch, S), generator=g, device=dev), dim=1)[:, :k]
+    x = torch.randn((batch, D), generator=g, device=dev).to(wi.dtype)
+    bc = pick_block_size(batch * k, S, pallas=True)
+    xs, _, _, _, slot, rows = dispatch_stage(
+        x, idx, torch.ones((batch, k), device=dev),
+        torch.ones((batch, 1), dtype=torch.int32, device=dev), S, bc)
+    xb = xs.view(-1, bc, D)
+    nb = xb.shape[0]
+    out = torch.empty((nb, bc, F), dtype=wi.dtype, device=dev)
+    c_fn = _library()[0]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def c_call(instance: int):
+        args = (xb.data_ptr(), wi.data_ptr(), slot.data_ptr(), rows.data_ptr(),
+                out.data_ptr(), nb, bc, D, F, S, 1, instance, stream)
+        return lambda: c_fn(*args)
+
+    def host_us(fn) -> float:
+        runs = []
+        for i in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                fn()
+            if i:  # the first run warms up
+                runs.append((time.perf_counter() - t0) / 100)
+        torch.cuda.synchronize()
+        return float(np.median(runs)) * 1e6
+
+    return {"k2_host_us_per_launch": host_us(lambda: ragged_grouped_gemm(xb, wi, slot, rows)),
+            "k2_c_call_us_wgmma": host_us(c_call(1)), "k2_c_call_us_simt": host_us(c_call(0))}
 
 
 def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
@@ -145,6 +196,7 @@ def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
         "attention_share_of_device_time": attn_us / busy_us if busy_us else None,
         "mla_decode_share_of_device_time": mla_us / busy_us if busy_us else None,
         "grouped_gemm_share_of_device_time": gemm_us / busy_us if busy_us else None,
+        **k2_host_us(cfg, eng.params, batch, seed),
         "moe_dispatch": eng.stats.moe_dispatch,
         "top_kernels": kernels[:12],
         "top_host_ops": host_ops[:12],

@@ -175,9 +175,16 @@ def _hold(got, ref, dtype):
 
 
 # (nb, bc, D, F, S): the decode and prefill blocks of moe-wide-sim (wi and wo
-# widths), ragged widths (F = 200, D = 100), one-row and 130-row blocks
+# widths), ragged widths (F = 200, D = 100: the simt instance in bf16 too),
+# one-row and 130-row blocks; rows 64 and 65 (either side of the wgmma
+# instance's m64 / 128-row tiles), D 136 (not a multiple of its 64-deep step),
+# F = 200 at D = 8 and 16 (below one column tile and one depth step), every
+# block on one slot (S 1), and runs of consecutive blocks on one slot (12
+# blocks over 2 slots: slots 1 0 0 1 0 0 1 0 0 0 0 1 from the seed)
 RGG_SHAPES = [(48, 8, 1024, 1024, 32), (96, 128, 512, 1024, 64), (7, 1, 64, 200, 4),
-              (5, 37, 100, 200, 3), (3, 130, 128, 64, 2)]
+              (5, 37, 100, 200, 3), (3, 130, 128, 64, 2), (4, 64, 256, 192, 3),
+              (3, 65, 136, 128, 2), (7, 8, 8, 200, 4), (5, 16, 16, 200, 3),
+              (9, 32, 512, 256, 1), (12, 8, 1024, 1024, 2)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -200,8 +207,11 @@ def test_ragged_grouped_gemm_matches_plain(cuda, nb, bc, D, F, S, dtype):
 
 
 # (G, C, D, F): moe-wide-sim capacity shapes at decode (C 5) and prefill
-# (C 320), ragged widths, one-row groups
-GG_SHAPES = [(32, 5, 1024, 1024), (32, 320, 512, 1024), (6, 1, 64, 200), (4, 37, 100, 200)]
+# (C 320), ragged widths, one-row groups; C 64, 65 and 130 (across the wgmma
+# instance's row tiles), F = 200 at D = 8 and 16
+GG_SHAPES = [(32, 5, 1024, 1024), (32, 320, 512, 1024), (6, 1, 64, 200), (4, 37, 100, 200),
+             (4, 64, 256, 192), (3, 65, 136, 128), (2, 130, 128, 64), (6, 5, 8, 200),
+             (3, 16, 16, 200)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -217,6 +227,30 @@ def test_grouped_gemm_matches_plain(cuda, G, C, D, F, dtype):
     assert grouped_gemm.launches == before + 1
     _hold(got, grouped_gemm_ref(x.float(), w.float(), counts), dtype)
     assert torch.count_nonzero(got[counts == 0]) == 0
+
+
+def test_grouped_gemm_instance_counts(cuda):
+    """At moe-wide-sim widths bf16 launches only the wgmma instance and f32
+    only the simt one, on both wrappers; a bf16 input at an odd offset (not
+    16-byte aligned) is copied, not refused."""
+    for dtype, inst in ((torch.bfloat16, "wgmma"), (torch.float32, "simt")):
+        x, w, rng = _gemm_operands(6, 8, 1024, 1024, 4, dtype, cuda, seed=3)
+        slot = torch.from_numpy(rng.integers(0, 4, 6).astype(np.int32)).to(cuda)
+        live = torch.full((6,), 8, dtype=torch.int32, device=cuda)
+        rgg, gg = (dict(f.launches_by_instance) for f in (ragged_grouped_gemm, grouped_gemm))
+        got = ragged_grouped_gemm(x, w, slot, live)
+        got4 = grouped_gemm(x[:4], w, live[:4])
+        torch.cuda.synchronize()
+        for f, before in ((ragged_grouped_gemm, rgg), (grouped_gemm, gg)):
+            assert f.launches_by_instance == {**before, inst: before[inst] + 1}
+        _hold(got, ragged_grouped_gemm_ref(x.float(), w.float(), slot, live), dtype)
+        _hold(got4, grouped_gemm_ref(x[:4].float(), w.float(), live[:4]), dtype)
+    wb = w.to(torch.bfloat16)
+    odd = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=cuda)[1:].view(x.shape)
+    odd.copy_(x)
+    assert odd.data_ptr() % 16 != 0
+    _hold(ragged_grouped_gemm(odd, wb, slot, live),
+          ragged_grouped_gemm_ref(odd.float(), wb.float(), slot, live), torch.bfloat16)
 
 
 @pytest.mark.parametrize("dispatch", ["sorted", "einsum"])
