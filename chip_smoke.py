@@ -10,14 +10,20 @@ with a non-zero exit:
 2. build    nvcc builds every kernel source of the main paths from
             ``llmd_tpu_torch/csrc``, one nvcc per source, all started together
             (seconds and the ptxas register / shared-memory report);
-            ``cuobjdump -sass`` of the grouped-GEMM library must show every
-            bf16 (wgmma-instance) kernel on the tensor cores (HGMMA) fed by
-            asynchronous copies (UTMALDG, TMA; or LDGSTS, cp.async).
+            ``cuobjdump -sass`` must show every bf16 grouped-GEMM kernel
+            (wgmma instance) and every bf16 K1 kernel (mma instance) on the
+            tensor cores (HGMMA; HMMA for K1) fed by asynchronous copies
+            (UTMALDG, TMA; LDGSTS, cp.async; UBLKCP), and ptxas must report
+            no spill in K1's mma instance.
 3. check    each kernel against its plain PyTorch version on the card, in
             float32 and bfloat16 (the bf16 kernel against the plain version in
             float32 on the same inputs, in bf16 rounding units, with controls
             that keep a bf16 accumulator and must read above the limit):
-            K1 at llama-1b and moe-wide-sim heads; K2 (ragged grouped GEMM) and
+            K1 at llama-1b and moe-wide-sim heads (bf16 on the mma instance,
+            f32 on the simt one; decode, mixed, a long context at small batch
+            whose many KV splits include empty ones, a 512-token chunk at kv
+            2048, a chunk of one query tile plus one token, kv lengths at
+            exact split and page multiples); K2 (ragged grouped GEMM) and
             K4 (grouped GEMM) at moe-wide-sim widths, at decode, prefill and
             EPLB shapes, with dead rows, zero-row blocks and zero-count groups;
             K1 on moe-wide-mla's single-plane latent pool at a mixed shape and
@@ -25,8 +31,9 @@ with a non-zero exit:
 4. time     each kernel at the main path's shapes (CUDA events, median, the
             card held by a spin kernel while the host enqueues the calls),
             beside its bound, its plain version and one PyTorch library call;
-            K2 and K4 for both launches of a layer (wi, wo) at decode and
-            prefill.
+            K1 at decode B=64, decode B=8 at kv 3072-5120 and the mixed shape,
+            each beside its simt instance on the same inputs; K2 and K4 for
+            both launches of a layer (wi, wo) at decode and prefill.
 5. engine   behind the port's HTTP server, random bf16 weights from a seed,
             greedy completions: llama-1b at full width (8 requests), then
             moe-wide-sim at full width and depth on the sorted dispatch (8
@@ -37,14 +44,15 @@ with a non-zero exit:
             count per layer of the forwards of its program (K1 once per layer
             of every forward, or of the unified ones only on MLA, where the
             decode program runs K3; K2 / K4 twice per layer of every forward,
-            every launch on the bf16 wgmma instance), no plain version ran,
+            every launch on the bf16 wgmma instance; K1 on its mma instance,
+            or on MLA's latent pool its simt one), no plain version ran,
             the sorted path dropped nothing, EPLB re-placed its experts at
             least twice.
 6. forward  one mixed unified batch through ``forward_core`` in float32, with
             the kernels and again with the plain versions passed as overrides:
             llama-1b, moe-wide-sim on both dispatch paths, and moe-wide-mla
             with a decode batch after it (K3) (logits held together, expert
-            counts equal; K2 / K4 on their float32 simt instance).
+            counts equal; K1, K2 / K4 on their float32 simt instances).
 
 It ends with a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. ``--report PATH`` also writes every phase's details (nvcc's register
@@ -55,6 +63,7 @@ no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import shutil
@@ -175,6 +184,27 @@ def mixed_case(dtype, device, seed=2, heads=(H, HK), latent=False):
                                pad_seqs=5, heads=heads, latent=latent)
 
 
+def long_decode_case(dtype, device, seed=4, kv=None):
+    """Decode at small batch over long contexts (one query row each): B=8 at
+    kv 3072-5120 from the seed (~67 MB of bf16 K/V, more than the 50 MB L2),
+    or the given kv lengths."""
+    rng = np.random.default_rng(seed)
+    kv = rng.integers(3072, 5121, 8) if kv is None else np.asarray(kv)
+    return make_attention_case(np.ones(len(kv), int), kv, dtype, device, seed, pad_rows=3,
+                               pad_seqs=2)
+
+
+def chunk_case(dtype, device, chunk, chunk_kv, seed, heads=(H, HK)):
+    """One prefill chunk of ``chunk`` tokens at kv ``chunk_kv`` beside 8
+    decode rows (kv 1-2048 from the seed), padding rows and unused table
+    rows."""
+    rng = np.random.default_rng(seed)
+    q_lens = np.concatenate([[chunk], np.ones(8, int)])
+    kv = np.concatenate([[chunk_kv], rng.integers(1, 2049, 8)])
+    return make_attention_case(q_lens, kv, dtype, device, seed, pad_rows=5, pad_seqs=2,
+                               heads=heads)
+
+
 def attention_bound(c, dtype):
     """(bound_ms, bound_by): each input byte read once, each output byte
     written once, KV only where this run's masks let it be read (one latent
@@ -220,7 +250,7 @@ def sdpa_dense(c):
     pool, pts, kv_lens = c["pool"], c["pts"].long(), c["kv_lens"]
     B = len(kv_lens)
     S = pts.shape[1] * PS
-    kv = pool[pts.clamp(min=0)].reshape(B, S, 2 * HK, D)
+    kv = pool[pts[:B].clamp(min=0)].reshape(B, S, 2 * HK, D)
     k = kv[:, :, 0::2].transpose(1, 2).contiguous()  # [B, Hk, S, D]
     v = kv[:, :, 1::2].transpose(1, 2).contiguous()
     q = c["q"][: B].reshape(B, H, 1, D)
@@ -235,6 +265,38 @@ def sdpa_dense(c):
         k = k.repeat_interleave(H // HK, dim=1)
         v = v.repeat_interleave(H // HK, dim=1)
         return lambda: sdpa(q, k, v, attn_mask=mask)
+
+
+def sdpa_packed(c):
+    """The same mixed GQA attention as one ``scaled_dot_product_attention``
+    call (a yardstick only; the port never calls it): K/V gathered dense per
+    sequence [B, Hk, S, D], queries packed per sequence [B, H, Qmax, D] under
+    a causal, length-limited mask, all in set-up; the call alone is timed.
+    Rows with no key (padding, unused table rows) attend key 0 so the call
+    stays finite."""
+    pool, pts, q, nh, nk = c["pool"], c["pts"].long(), c["q"], c["H"], c["HK"]
+    B, S, W = pts.shape[0], pts.shape[1] * PS, c["W"]
+    cu = c["cu"].long()
+    q_lens = cu[1:] - cu[:-1]
+    j = torch.arange(int(q_lens.max()), device=q.device)
+    rows = (cu[:-1, None] + j[None, :]).clamp(max=q.shape[0] - 1)  # [B, Qmax]
+    qpos = torch.where(j[None, :] < q_lens[:, None], c["pos"].long()[rows], -1)
+    key = torch.arange(S, device=q.device)
+    mask = (key[None, None, :] <= qpos[..., None]) & (key < c["lens"].long()[:, None, None])
+    mask[..., 0] |= ~mask.any(-1)
+    mask = mask[:, None]  # [B, 1, Qmax, S]
+    kv = pool[pts.clamp(min=0)].reshape(B, S, 2 * nk, W)
+    k = kv[:, :, 0::2].transpose(1, 2).contiguous()  # [B, Hk, S, D]
+    v = kv[:, :, 1::2].transpose(1, 2).contiguous()
+    qq = q[rows].transpose(1, 2).contiguous()  # [B, H, Qmax, D]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    try:
+        sdpa(qq, k, v, attn_mask=mask, scale=c["scale"], enable_gqa=True)
+        return lambda: sdpa(qq, k, v, attn_mask=mask, scale=c["scale"], enable_gqa=True)
+    except TypeError:  # torch without enable_gqa: expand heads in set-up
+        k = k.repeat_interleave(nh // nk, dim=1)
+        v = v.repeat_interleave(nh // nk, dim=1)
+        return lambda: sdpa(qq, k, v, attn_mask=mask, scale=c["scale"])
 
 
 def sdpa_latent(c):
@@ -459,20 +521,28 @@ def phase_build() -> dict:
             log(f"build:   {name} ptxas: {ln}")
         out[name] = {"seconds": seconds[name], "nvcc_log": built.log}
     log(f"build: wall_s={wall:.3f} (parallel)")
-    out["grouped_gemm_sass"] = sass_check(load("grouped_gemm").path)
+    out["grouped_gemm_sass"] = sass_check("grouped_gemm", "wgmma", ("HGMMA",))
+    out["paged_attention_sass"] = sass_check("paged_attention", "paged_attention_mma",
+                                             ("HMMA", "HGMMA"))
+    out["paged_attention_mma_ptxas"] = ptxas_check(load("paged_attention").log,
+                                                   "paged_attention_mma")
     return out
 
 
-def sass_check(lib: Path) -> dict:
-    """Per kernel function of the grouped-GEMM library, the count of tensor-
-    core (HGMMA) and asynchronous-copy (UTMALDG: TMA; LDGSTS: cp.async) SASS
-    instructions. Fails unless every bf16 wgmma-instance kernel has both."""
-    from llmd_tpu_torch.native.build import nvcc_path
+ASYNC_COPIES = ("UTMALDG", "LDGSTS", "UBLKCP")  # TMA, cp.async, bulk copy
+
+
+def sass_check(lib: str, marker: str, tensor_ops: tuple) -> dict:
+    """Per kernel function of ``csrc/<lib>.cu``'s library, the count of
+    tensor-core (``tensor_ops``) and asynchronous-copy SASS instructions.
+    Fails unless every kernel whose name holds ``marker`` (the bf16 instance)
+    has both."""
+    from llmd_tpu_torch.native.build import load, nvcc_path
 
     tool = shutil.which("cuobjdump") or str(Path(nvcc_path()).parent / "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
-                          timeout=300, check=True).stdout
-    ops = ("HGMMA", "UTMALDG", "LDGSTS")
+    sass = subprocess.run([tool, "-sass", str(load(lib).path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    ops = tensor_ops + ASYNC_COPIES
     funcs: dict = {}
     name = None
     for ln in sass.splitlines():
@@ -482,17 +552,45 @@ def sass_check(lib: Path) -> dict:
             funcs[name] = dict.fromkeys(ops, 0)
         elif name is not None:
             for op in ops:
-                funcs[name][op] += op in ln
-    wgmma = {n: v for n, v in funcs.items() if "wgmma" in n}
+                funcs[name][op] += re.search(rf"\b{op}\b", ln) is not None
+    tc = {n: v for n, v in funcs.items() if marker in n}
     for n, v in funcs.items():
-        log(f"build:   grouped_gemm sass: {n[:70]} " + " ".join(f"{k}={c}" for k, c in v.items()))
-    if not wgmma or not all(v["HGMMA"] and (v["UTMALDG"] or v["LDGSTS"])
-                            for v in wgmma.values()):
-        raise AssertionError(f"build: the bf16 grouped-GEMM kernels lack HGMMA or an "
-                             f"asynchronous copy: {wgmma}")
-    log(f"build: grouped_gemm sass: {len(wgmma)} wgmma kernels, each with HGMMA and "
-        "UTMALDG/LDGSTS")
+        log(f"build:   {lib} sass: {n[:70]} " + " ".join(f"{k}={c}" for k, c in v.items()))
+    if not tc or not all(any(v[op] for op in tensor_ops) and any(v[op] for op in ASYNC_COPIES)
+                         for v in tc.values()):
+        raise AssertionError(f"build: the bf16 {lib} kernels lack {'/'.join(tensor_ops)} "
+                             f"or an asynchronous copy: {tc}")
+    log(f"build: {lib} sass: {len(tc)} {marker} kernels, each with "
+        f"{'/'.join(tensor_ops)} and {'/'.join(ASYNC_COPIES)}")
     return funcs
+
+
+def ptxas_check(nvcc_log: str, marker: str) -> dict:
+    """Registers and spill bytes of every kernel whose name holds ``marker``,
+    from nvcc's ``-Xptxas -v`` report (empty when the library came from the
+    build cache); fails on any spill."""
+    out: dict = {}
+    name = None
+    for ln in nvcc_log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
+        if m:
+            name = m.group(1)
+        if name is None or marker not in name:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out.setdefault(name, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    for n, v in out.items():
+        args = re.search(r"ILi(\d+)ELi(\d+)E", n)  # template arguments <D, QPK>
+        log(f"build:   {marker} ptxas: {'D=%s qpk=%s' % args.groups() if args else n} "
+            f"registers={v.get('registers')} spill_bytes={v.get('spill_bytes')}")
+    spills = {n: v for n, v in out.items() if v.get("spill_bytes")}
+    if spills:
+        raise AssertionError(f"build: ptxas spills in the {marker} kernels: {spills}")
+    return out
 
 
 def bf16_accumulating_control(c):
@@ -557,23 +655,43 @@ def check_attention(device, latent: bool = False) -> dict:
     the plain version in float32 on the same (upcast) bf16 inputs, in bf16
     rounding units; beside it two controls on the same inputs that the check
     must reject: the plain version in bfloat16 (probabilities cast to bf16
-    before P·V) and a bfloat16 P·V accumulator. llama-1b heads at decode and
-    mixed shapes; moe-wide-sim heads (H 16, Hk 4: four query heads per kv
-    head) at decode. ``latent``: K1's single-plane instance on moe-wide-mla's
-    latent pool (16 heads, width 160) at the mixed shape."""
+    before P·V) and a bfloat16 P·V accumulator. llama-1b heads at decode, at
+    the mixed shape, at decode over long contexts at B=4 (kv 3000-8192: many
+    KV splits, some empty), with a 512-token chunk at kv 2048 and with a chunk
+    of one query tile plus one token (17 tokens) beside decode rows, and at kv
+    lengths that are exact multiples of the split and page lengths;
+    moe-wide-sim heads (H 16, Hk 4: four query heads per kv head) at decode.
+    Each call must land on its instance: bf16 on mma, float32 on simt.
+    ``latent``: K1's single-plane instance (simt) on moe-wide-mla's latent
+    pool (16 heads, width 160) at the mixed shape."""
+    from llmd_tpu_torch.ops import paged_attention as pa
     from llmd_tpu_torch.ops.paged_attention import (
         bf16_rounding_units, paged_attention, paged_attention_ref)
 
     name = "paged_attention_latent" if latent else "paged_attention"
-    cases = ((("mixed", mixed_case, None),) if latent else
-             (("decode", decode_case, (H, HK)), ("mixed", mixed_case, (H, HK)),
-              ("moe_heads_decode", decode_case, (16, 4))))
+    tq = pa.MMA_ROWS // (H // HK)
+    cases = ((("mixed", lambda dt: mixed_case(dt, device, latent=True)),) if latent else (
+        ("decode", lambda dt: decode_case(dt, device)),
+        ("mixed", lambda dt: mixed_case(dt, device)),
+        ("moe_heads_decode", lambda dt: decode_case(dt, device, heads=(16, 4))),
+        ("long_context_b4", lambda dt: long_decode_case(dt, device, 6,
+                                                        kv=[3000, 4711, 6150, 8192])),
+        ("chunk512_kv2048", lambda dt: chunk_case(dt, device, 512, 2048, 7)),
+        ("chunk_tq_plus_1", lambda dt: chunk_case(dt, device, tq + 1, 900, 8)),
+        # with 6 one-token rows over a 4096-key table the plan splits the keys
+        # into 8 x 512: kv at whole pages, stages and splits
+        ("exact_multiples", lambda dt: long_decode_case(dt, device, 9,
+                                                        kv=[16, 64, 512, 1024, 2048, 4096])),
+    ))
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for label, make, heads in cases:
-            c = make(dtype, device, heads=heads, latent=latent)
+        want = "mma" if dtype == torch.bfloat16 and not latent else "simt"
+        for label, make in cases:
+            c = make(dtype)
+            before = dict(paged_attention.launches_by_instance)
             got = run_attention(paged_attention, c)
             torch.cuda.synchronize()
+            instance = {k: v - before[k] for k, v in paged_attention.launches_by_instance.items()}
             c32 = dict(c, q=c["q"].float(), pool=c["pool"].float())
             ref = run_attention(paged_attention_ref, c32)
             torch.cuda.synchronize()
@@ -581,7 +699,12 @@ def check_attention(device, latent: bool = False) -> dict:
             err = (got[:v].float() - ref[:v]).abs().max().item()
             pad = got[v:].float().abs().max().item() if got.shape[0] > v else 0.0
             key = f"{label}_{str(dtype).split('.')[-1]}"
-            row = {"max_abs_err": err, "pad_rows_max": pad, "tokens": int(c["q"].shape[0])}
+            row = {"max_abs_err": err, "pad_rows_max": pad, "tokens": int(c["q"].shape[0]),
+                   "kv_tokens": int(c["kv_lens"].sum()), "instance": want}
+            if want == "mma":
+                plan = pa._plan(c["q"].shape[0], c["pts"].shape[0], c["pts"].shape[1], PS,
+                                c["H"] // c["HK"], c["HK"], pa._num_sms(0))
+                row["plan"] = dataclasses.asdict(plan)
             if dtype == torch.float32:
                 row["atol"] = F32_ATOL
                 ok = err <= F32_ATOL
@@ -598,9 +721,19 @@ def check_attention(device, latent: bool = False) -> dict:
                     f"max_abs_err={err:.3e} bf16_units={units:.3f} (limit {BF16_UNITS}) "
                     f"controls: p_bf16={ctl_p:.1f} acc_bf16={ctl_acc:.1f} "
                     f"pad_rows_max={pad:.1e}")
+            if want == "mma":
+                log(f"check:   {name} {key} plan: {row['plan']}")
             out[key] = row
+            if instance[want] != 1 or sum(instance.values()) != 1:
+                raise AssertionError(f"{name} {key}: launched {instance}, expected one on "
+                                     f"the {want} instance")
             if not (ok and pad == 0.0 and torch.isfinite(got).all()):
                 raise AssertionError(f"{name} {key}: the check failed: {row}")
+    if not latent:  # the exact-multiples case: kv at whole pages, stages and splits
+        plan = out["exact_multiples_bfloat16"]["plan"]
+        if plan["splits"] < 2 or any(k % PS or (k >= plan["split_keys"] and k % plan["split_keys"])
+                                     for k in (16, 64, 512, 1024, 2048, 4096)):
+            raise AssertionError(f"{name}: exact_multiples is not at split multiples: {plan}")
     return out
 
 
@@ -712,34 +845,58 @@ def check_gemms(device) -> dict:
 
 
 def time_attention(device, latent: bool = False) -> dict:
-    """K1 in bf16 beside its bound, its plain version and the library call:
-    llama-1b heads at decode (SDPA over K/V gathered dense), or with
-    ``latent`` the single-plane instance at moe-wide-mla's mixed shape (SDPA
-    over the latent gathered dense per sequence, K = V broadcast to the 16
-    heads, queries packed per sequence under a causal mask)."""
-    from llmd_tpu_torch.ops.paged_attention import paged_attention, paged_attention_ref
+    """K1 in bf16 beside its bound, its plain version and the library call.
+    llama-1b heads on the mma instance, each shape also timed on the simt
+    instance on the same inputs (the kernel before the mma instance):
+    ``decode`` B=64 (SDPA over K/V gathered dense), ``decode_b8`` (B=8 at kv
+    3072-5120, more K/V than L2 holds) and ``mixed`` (SDPA over K/V gathered
+    dense per sequence, queries packed per sequence under a causal mask).
+    With ``latent``, the single-plane instance at moe-wide-mla's mixed shape
+    (SDPA over the latent gathered dense per sequence, K = V broadcast to the
+    16 heads, queries packed per sequence under a causal mask)."""
+    from llmd_tpu_torch.ops import paged_attention as pa
 
     dtype = torch.bfloat16
     if latent:
         c = mixed_case(dtype, device, latent=True)
-        name, library, shape = "paged_attention_latent", sdpa_latent(c), (
+        shapes = {"mixed": (c, sdpa_latent(c), (
             "mixed 3x128-token chunks (kv 128/1000/2048) + 32 decode rows bf16 "
-            "(H16, one latent plane W160, ps16)")
+            "(H16, one latent plane W160, ps16)"))}
     else:
-        c = decode_case(dtype, device)
-        name, library, shape = "paged_attention", sdpa_dense(c), (
-            "decode B=64 q_len=1 kv_len 128-1024 bf16 (H32 Hk8 D64 ps16)")
-    ms = cuda_ms(lambda: run_attention(paged_attention, c))
-    plain_ms = cuda_ms(lambda: run_attention(paged_attention_ref, c), reps=5, inner=2)
-    library_ms = cuda_ms(library)
-    bound_ms, bound_by = attention_bound(c, dtype)
-    row = {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "library_ms": library_ms,
-           "kv_tokens": int(c["kv_lens"].sum()), "query_tokens": int(c["q_lens"].sum())}
-    log(f"time: {name} {shape.split(' bf16')[0]} bf16 ms={ms:.4f} bound_ms={bound_ms:.4f} "
-        f"({bound_by}) plain_ms={plain_ms:.4f} library_ms(sdpa dense)={library_ms:.4f} "
-        f"roofline_share={bound_ms / ms:.3f}")
-    return row
+        cases = {"decode": (decode_case(dtype, device), sdpa_dense,
+                            "decode B=64 q_len=1 kv_len 128-1024 bf16 (H32 Hk8 D64 ps16)"),
+                 "decode_b8": (long_decode_case(dtype, device), sdpa_dense,
+                               "decode B=8 q_len=1 kv_len 3072-5120 bf16 (H32 Hk8 D64 ps16)"),
+                 "mixed": (mixed_case(dtype, device), sdpa_packed,
+                           "mixed 3x128-token chunks (kv 128/1000/2048) + 32 decode rows "
+                           "bf16 (H32 Hk8 D64 ps16)")}
+        shapes = {k: (c, lib(c), shape) for k, (c, lib, shape) in cases.items()}
+    name = "paged_attention_latent" if latent else "paged_attention"
+    out = {}
+    for label, (c, library, shape) in shapes.items():
+        group = pa._check(c["q"], c["pool"], c["pts"], c["lens"], c["cu"], c["ns"])
+        instance = pa._instance(dtype, c["planes"], c["W"], group)
+        ms = cuda_ms(lambda: run_attention(pa.paged_attention, c))
+        plain_ms = cuda_ms(lambda: run_attention(pa.paged_attention_ref, c), reps=5, inner=2)
+        library_ms = cuda_ms(library)
+        bound_ms, bound_by = attention_bound(c, dtype)
+        row = {"shape": shape, "instance": instance, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+               "kv_tokens": int(c["kv_lens"].sum()), "query_tokens": int(c["q_lens"].sum())}
+        extra = ""
+        if instance == "mma":
+            row["simt_ms"] = cuda_ms(lambda: pa._launch(
+                c["q"], c["pool"], c["pts"], c["lens"], c["cu"], c["ns"], c["scale"], group,
+                "simt"))
+            row["plan"] = dataclasses.asdict(pa._plan(
+                c["q"].shape[0], c["pts"].shape[0], c["pts"].shape[1], PS, group, c["HK"],
+                pa._num_sms(0)))
+            extra = f" simt_ms={row['simt_ms']:.4f} splits={row['plan']['splits']}"
+        log(f"time: {name} {label} {shape.split(' bf16')[0]} bf16 instance={instance} "
+            f"ms={ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) plain_ms={plain_ms:.4f} "
+            f"library_ms(sdpa)={library_ms:.4f}{extra} roofline_share={bound_ms / ms:.3f}")
+        out[label] = row
+    return out
 
 
 def time_mla_decode(device) -> dict:
@@ -843,21 +1000,26 @@ def counters() -> tuple[dict, dict]:
     return kernels, plain
 
 
-def instance_counts() -> dict:
-    """Launches of K2 and K4 per kernel instance (``"wgmma"``, ``"simt"``)."""
+def instanced() -> dict:
+    """The wrappers that count their launches per kernel instance: K1 (``"mma"``,
+    ``"simt"``), K2 and K4 (``"wgmma"``, ``"simt"``)."""
     from llmd_tpu_torch.ops import grouped_gemm as gg
+    from llmd_tpu_torch.ops import paged_attention as pa
 
-    return {"ragged_grouped_gemm": dict(gg.ragged_grouped_gemm.launches_by_instance),
-            "grouped_gemm": dict(gg.grouped_gemm.launches_by_instance)}
+    return {"paged_attention": pa.paged_attention,
+            "ragged_grouped_gemm": gg.ragged_grouped_gemm, "grouped_gemm": gg.grouped_gemm}
+
+
+def instance_counts() -> dict:
+    """Launches of K1, K2 and K4 per kernel instance."""
+    return {name: dict(fn.launches_by_instance) for name, fn in instanced().items()}
 
 
 def zero_counts() -> None:
-    from llmd_tpu_torch.ops import grouped_gemm as gg
-
     for group in counters():
         for fn, attr in group.values():
             setattr(fn, attr, 0)
-    for fn in (gg.ragged_grouped_gemm, gg.grouped_gemm):
+    for fn in instanced().values():
         fn.launches_by_instance = dict.fromkeys(fn.launches_by_instance, 0)
 
 
@@ -869,12 +1031,15 @@ def read_counts() -> tuple[dict, dict]:
 def phase_engine(device, card: str, model: str = "llama-1b", n_requests: int = 8,
                  max_tokens: int = 32, prompt_range=(64, 512), seed: int = 0,
                  engine_kw: "dict | None" = None,
-                 per_layer: "dict | None" = None, label: str = "") -> dict:
+                 per_layer: "dict | None" = None, label: str = "",
+                 k1_instance: str = "mma") -> dict:
     """Serve ``n_requests`` greedy completions over HTTP. ``per_layer``: for
     each kernel of this path, (launches per layer and forward, the program
     whose forwards launch it: "all", "unified" or "decode"); every kernel's
     count must equal that times layers × that program's forwards (0 for
-    kernels off the path), and no plain version may run."""
+    kernels off the path), and no plain version may run. The served weights
+    are bf16: every K2 / K4 launch must be on the wgmma instance and every K1
+    launch on ``k1_instance`` (mma; simt on MLA's latent pool)."""
     from llmd_tpu_torch.engine.config import EngineConfig
     from llmd_tpu_torch.engine.engine import EngineStats
     from llmd_tpu_torch.engine.server import EngineServer
@@ -952,7 +1117,7 @@ def phase_engine(device, card: str, model: str = "llama-1b", n_requests: int = 8
         "unified_steps": st.n_unified_steps, "decode_calls": st.n_decode_calls,
         "decode_iterations": st.n_decode_iterations,
         "launches": launches, "expected_launches": expect, "plain_calls": plain_calls,
-        "gemm_launches_by_instance": by_instance, "attn_backend": st.attn_backend,
+        "launches_by_instance": by_instance, "attn_backend": st.attn_backend,
         "moe_dispatch": st.moe_dispatch, "moe_backend": st.moe_backend,
         "moe_dropped_tokens": st.moe_dropped_tokens, "eplb_rebalances": st.eplb_rebalances,
         "engine_config": {k: repr(v) if k == "eplb" else v for k, v in kw.items()},
@@ -962,7 +1127,7 @@ def phase_engine(device, card: str, model: str = "llama-1b", n_requests: int = 8
         f"output_tok_s={row['output_tok_s']:.1f} unified_steps={st.n_unified_steps} "
         f"decode_calls={st.n_decode_calls} decode_iterations={st.n_decode_iterations}")
     log(f"engine:   launches={launches} plain_calls={plain_calls} "
-        f"gemm_launches_by_instance={by_instance} "
+        f"launches_by_instance={by_instance} "
         f"attn_backend={st.attn_backend!r} moe_dispatch={st.moe_dispatch!r} "
         f"moe_dropped_tokens={st.moe_dropped_tokens} eplb_rebalances={st.eplb_rebalances}")
     if device.type == "cuda":
@@ -974,11 +1139,14 @@ def phase_engine(device, card: str, model: str = "llama-1b", n_requests: int = 8
         if launches != expect:
             raise AssertionError(f"engine {label}: launches {launches}, expected {expect} "
                                  f"({per_layer} per layer per forward)")
-        # the served weights are bf16: every grouped GEMM on the tensor cores
-        off = {n: c for n, c in by_instance.items() if c != {"wgmma": launches[n], "simt": 0}}
+        # the served weights are bf16: every K1 / K2 / K4 launch on its bf16 instance
+        want = {"paged_attention": k1_instance, "ragged_grouped_gemm": "wgmma",
+                "grouped_gemm": "wgmma"}
+        off = {n: c for n, c in by_instance.items()
+               if c != {k: (launches[n] if k == want[n] else 0) for k in c}}
         if off:
-            raise AssertionError(f"engine {label}: grouped-GEMM launches {launches} not all "
-                                 f"on the wgmma instance: {off}")
+            raise AssertionError(f"engine {label}: launches {launches} not all on the "
+                                 f"instances {want}: {off}")
     return row
 
 
@@ -1093,9 +1261,10 @@ def phase_forward_check(device, model: str = "llama-1b", seed: int = 0,
     if device.type == "cuda" and (any(runs["kernel"][1].values())
                                   or any(runs["plain"][0].values())):
         raise AssertionError(f"forward: the runs mixed kernels and plain versions: {runs}")
-    if device.type == "cuda" and any(c["wgmma"] for c in by_instance.values()):
-        raise AssertionError(f"forward: float32 grouped GEMMs reached the bf16 wgmma "
-                             f"instance: {by_instance}")
+    if device.type == "cuda" and (by_instance["paged_attention"]["mma"] or any(
+            by_instance[n]["wgmma"] for n in ("ragged_grouped_gemm", "grouped_gemm"))):
+        raise AssertionError(f"forward: float32 kernels reached a bf16 instance: "
+                             f"{by_instance}")
     if device.type == "cuda" and cfg.is_mla and (
             runs["kernel"][0]["mla_decode"] != cfg.num_layers
             or runs["kernel"][0]["paged_attention"] != 2 * cfg.num_layers):
@@ -1146,7 +1315,8 @@ def main(argv: "list[str] | None" = None) -> int:
         "mla_sorted": phase_engine(device, card, model=MLA, label="mla sorted",
                                    engine_kw={"moe_dispatch": "sorted"},
                                    per_layer={"paged_attention": (1, "unified"),
-                                              "mla_decode": (1, "decode"), **k2}),
+                                              "mla_decode": (1, "decode"), **k2},
+                                   k1_instance="simt"),
     }
     for run in ("moe_sorted", "mla_sorted"):
         if eng[run]["moe_dropped_tokens"] != 0:
@@ -1178,15 +1348,25 @@ def main(argv: "list[str] | None" = None) -> int:
                      prefill_library_ms=prefill["library_ms"], instance=t["instance"])
         return e
 
+    k1 = tm["paged_attention"]  # ms etc. at decode B=64; these at decode B=8 and mixed
+    k1_more = {"instance": k1["decode"]["instance"], "simt_ms": k1["decode"]["simt_ms"],
+               "decode_b8_ms": k1["decode_b8"]["ms"],
+               "decode_b8_bound_ms": k1["decode_b8"]["bound_ms"],
+               "decode_b8_library_ms": k1["decode_b8"]["library_ms"],
+               "decode_b8_simt_ms": k1["decode_b8"]["simt_ms"],
+               "mixed_ms": k1["mixed"]["ms"], "mixed_bound_ms": k1["mixed"]["bound_ms"],
+               "mixed_library_ms": k1["mixed"]["library_ms"],
+               "mixed_simt_ms": k1["mixed"]["simt_ms"]}
+
     gemm_src = "llmd_tpu_torch/csrc/grouped_gemm.cu"
     attn_src = "llmd_tpu_torch/csrc/paged_attention.cu"
     kernels = {"kernels": [
         entry("paged_attention", attn_src, "llmd_tpu/ops/paged_attention.py:106",
-              eng["llama-1b"]["launches"]["paged_attention"], tm["paged_attention"]),
+              eng["llama-1b"]["launches"]["paged_attention"], k1["decode"]) | k1_more,
         # the unified program's absorbed MLA attention, XLA in the reference
         entry("paged_attention_latent", attn_src, "llmd_tpu/models/transformer.py:428",
               eng["mla_sorted"]["launches"]["paged_attention"],
-              tm["paged_attention_latent"]),
+              tm["paged_attention_latent"]["mixed"]),
         entry("mla_decode", "llmd_tpu_torch/csrc/mla_decode.cu",
               "llmd_tpu/ops/mla_decode.py:110", eng["mla_sorted"]["launches"]["mla_decode"],
               tm["mla_decode"]),

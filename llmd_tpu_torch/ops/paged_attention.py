@@ -17,6 +17,14 @@ same row, which is both K and V (absorbed MLA runs as MQA at the latent width
 * :func:`paged_attention` launches ``csrc/paged_attention.cu`` for CUDA tensors
   and raises if it cannot; for CPU tensors (the tests) it calls the plain
   version. There is no fallback from the kernel to the plain version.
+  The source has two instances, chosen by :func:`_instance` from the dtype
+  and the pool's shape alone: ``"mma"`` (bfloat16 K/V pools: tensor cores,
+  K/V tiles staged through shared memory by asynchronous copies, query
+  tiles of :data:`MMA_ROWS` rows and KV splits laid out by :func:`_plan`)
+  and ``"simt"`` (float32, and MLA's single-plane latent pool: CUDA-core
+  FMAs, one block per query token). ``paged_attention.launches`` counts the
+  wrapper's launches (one per layer), ``.launches_by_instance`` them per
+  instance.
 * :func:`paged_attention_ref` is the plain PyTorch version, a port of
   ``ragged_paged_attention_xla`` (``llmd_tpu/models/transformer.py:428``): the
   tests' oracle and the kernel's yardstick on the card.
@@ -31,12 +39,15 @@ compare valid rows only.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import math
 from typing import Optional
 
 import torch
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_INSTANCE_CODE = {"simt": 0, "mma": 1}
 HEAD_DIMS = (32, 64, 128)
 GROUP_SIZES = (1, 2, 4, 8)  # query heads per kv head with a kernel instance
 # single-plane (MLA latent) instances: latent width -> query heads per block;
@@ -126,8 +137,8 @@ def _library():
     from llmd_tpu_torch.native.build import load
 
     fn = load("paged_attention").lib.llmd_paged_attention
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float]
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -140,29 +151,80 @@ def build() -> float:
     return load("paged_attention").seconds
 
 
-def _int32(t: torch.Tensor) -> torch.Tensor:
-    return t.to(torch.int32).contiguous()
+# The mma instance's work decomposition (csrc/paged_attention.cu): a work item
+# is (query tile, kv head, KV split); a tile holds MMA_ROWS // qpk tokens of
+# one sequence x the qpk query heads of its kv head, token-major.
+MMA_ROWS = 64
+STAGE_KEYS = 64  # keys per shared-memory stage; a split is a whole number of them
+MIN_SPLIT_KEYS = 512  # a split shorter than this costs more in partials than it gains
+ITEMS_PER_SM = 4  # below this many work items per SM, the keys are split
+MAX_SPLITS = 16  # the kernel's split merge holds this many in registers
 
 
-def paged_attention(
-    q: torch.Tensor,
-    layer_cache: torch.Tensor,
-    page_tables: torch.Tensor,
-    positions: torch.Tensor,
-    seq_slots: torch.Tensor,
-    kv_lens: torch.Tensor,
-    *,
-    scale: float,
-    cu_q_lens: Optional[torch.Tensor] = None,
-    num_seqs: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Ragged paged attention: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. Raises for anything the kernel does not take."""
-    if q.device.type == "cpu":
-        return paged_attention_ref(q, layer_cache, page_tables, positions,
-                                   seq_slots, kv_lens, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_attention: unsupported device {q.device}")
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The mma instance's grid: ``kv_heads`` x ``slots`` query-tile slots x
+    ``splits``, the heads fastest. Sequence b's tiles of ``tq`` tokens sit at
+    slots ``b + cu_q_lens[b] // tq`` onwards (the kernel finds them there);
+    split s covers keys ``[s * split_keys, (s + 1) * split_keys)``."""
+
+    tq: int
+    slots: int
+    kv_heads: int
+    splits: int
+    split_keys: int
+
+    @property
+    def grid(self) -> tuple[int, int, int]:
+        return (self.kv_heads, self.slots, self.splits)
+
+
+def _plan(num_tokens: int, num_seqs: int, max_pages: int, page_size: int, qpk: int,
+          kv_heads: int, num_sms: int = 132) -> Plan:
+    """The mma instance's grid and KV splits, from what the host knows
+    without reading a device tensor: the token count, the page-table rows,
+    the table width, the page size and the heads. The keys are split only
+    when the tiles alone give fewer than ``ITEMS_PER_SM`` work items per SM,
+    into at most ``MAX_SPLITS`` chunks of at least ``MIN_SPLIT_KEYS`` keys, a
+    whole number of stages and pages; with one split, it covers the whole
+    table."""
+    tq = MMA_ROWS // qpk
+    slots = -(-num_tokens // tq) + num_seqs
+    max_keys = max_pages * page_size
+    items = slots * kv_heads
+    splits = 1
+    if 0 < items < ITEMS_PER_SM * num_sms:
+        splits = min(-(-ITEMS_PER_SM * num_sms // items), max_keys // MIN_SPLIT_KEYS,
+                     MAX_SPLITS)
+    if splits <= 1:
+        return Plan(tq, slots, kv_heads, 1, max_keys)
+    step = math.lcm(STAGE_KEYS, page_size)
+    split_keys = -(-max_keys // splits)
+    split_keys = -(-split_keys // step) * step
+    return Plan(tq, slots, kv_heads, -(-max_keys // split_keys), split_keys)
+
+
+@functools.cache
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _instance(dtype: torch.dtype, planes: int, head_dim: int, qpk: int) -> str:
+    """The kernel instance for these inputs: ``"mma"`` for a bfloat16 K/V
+    pool (planes 2*Hk) at a head dim of ``HEAD_DIMS`` and a group of
+    ``GROUP_SIZES``; ``"simt"`` otherwise (float32 stays off the tensor
+    cores, which would take it in TF32; MLA's single-plane latent pool)."""
+    if (dtype == torch.bfloat16 and planes != 1 and head_dim in HEAD_DIMS
+            and qpk in GROUP_SIZES):
+        return "mma"
+    return "simt"
+
+
+def _check(q: torch.Tensor, layer_cache: torch.Tensor, page_tables: torch.Tensor,
+           kv_lens: torch.Tensor, cu_q_lens: Optional[torch.Tensor],
+           num_seqs: Optional[torch.Tensor]) -> int:
+    """Raise for anything the kernel does not take; return the query heads
+    one block serves (H/Hk for a K/V pool)."""
     if cu_q_lens is None or num_seqs is None:
         raise ValueError("paged_attention: the kernel needs cu_q_lens and num_seqs")
     N, H, D = q.shape
@@ -189,26 +251,77 @@ def paged_attention(
                          f"kv_lens {tuple(kv_lens.shape)} do not match B={B}")
     if not (q.is_contiguous() and layer_cache.is_contiguous()):
         raise ValueError("paged_attention: q and the pool must be contiguous")
-    if layer_cache.data_ptr() % 16:
-        raise ValueError("paged_attention: the pool must be 16-byte aligned")
-    tensors = [layer_cache, page_tables, kv_lens, cu_q_lens, num_seqs]
-    if any(t.device != q.device for t in tensors):
+    if q.data_ptr() % 16 or layer_cache.data_ptr() % 16:
+        raise ValueError("paged_attention: q and the pool must be 16-byte aligned")
+    if any(t.device != q.device for t in (layer_cache, page_tables, kv_lens, cu_q_lens,
+                                          num_seqs)):
         raise ValueError("paged_attention: all inputs must be on q's device")
+    return group
+
+
+def _int32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int32).contiguous()
+
+
+def _launch(q: torch.Tensor, layer_cache: torch.Tensor, page_tables: torch.Tensor,
+            kv_lens: torch.Tensor, cu_q_lens: torch.Tensor, num_seqs: torch.Tensor,
+            scale: float, group: int, instance: str) -> torch.Tensor:
+    """One launch of ``instance`` on checked inputs (counts nothing)."""
+    N, H, D = q.shape
+    _, ps, HkC, _ = layer_cache.shape
+    B, maxp = page_tables.shape
     out = torch.empty_like(q)
     if N == 0:
         return out
+    plan, scratch = Plan(0, 0, 0, 0, 0), None
+    if instance == "mma":
+        plan = _plan(N, B, maxp, ps, group, HkC // 2, _num_sms(q.device.index or 0))
+        if plan.splits > 1:  # partial (o, m, l) of every split, merged by the kernel
+            scratch = torch.empty(plan.splits * N * H * (D + 2), dtype=torch.float32,
+                                  device=q.device)
     pt, lens, cu, ns = (_int32(page_tables), _int32(kv_lens), _int32(cu_q_lens),
                         _int32(num_seqs))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _library()(
             q.data_ptr(), layer_cache.data_ptr(), pt.data_ptr(), lens.data_ptr(),
-            cu.data_ptr(), ns.data_ptr(), out.data_ptr(), N, H, HkC, group, D, ps,
-            maxp, float(scale), _DTYPE_CODE[q.dtype], stream)
+            cu.data_ptr(), ns.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), N, H, HkC, group, D, ps,
+            maxp, float(scale), _DTYPE_CODE[q.dtype], _INSTANCE_CODE[instance], plan.tq,
+            plan.slots, plan.splits, plan.split_keys, stream)
     if err != 0:
-        raise RuntimeError(f"paged_attention kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"paged_attention kernel ({instance}) launch failed: "
+                           f"cudaError {err}")
+    return out
+
+
+def paged_attention(
+    q: torch.Tensor,
+    layer_cache: torch.Tensor,
+    page_tables: torch.Tensor,
+    positions: torch.Tensor,
+    seq_slots: torch.Tensor,
+    kv_lens: torch.Tensor,
+    *,
+    scale: float,
+    cu_q_lens: Optional[torch.Tensor] = None,
+    num_seqs: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Ragged paged attention: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. Raises for anything the kernel does not take."""
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, layer_cache, page_tables, positions,
+                                   seq_slots, kv_lens, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention: unsupported device {q.device}")
+    group = _check(q, layer_cache, page_tables, kv_lens, cu_q_lens, num_seqs)
+    instance = _instance(q.dtype, layer_cache.shape[2], q.shape[2], group)
+    out = _launch(q, layer_cache, page_tables, kv_lens, cu_q_lens, num_seqs, scale,
+                  group, instance)
     paged_attention.launches += 1
+    paged_attention.launches_by_instance[instance] += 1
     return out
 
 
 paged_attention.launches = 0
+paged_attention.launches_by_instance = {"mma": 0, "simt": 0}

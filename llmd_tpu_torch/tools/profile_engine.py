@@ -28,7 +28,12 @@ For each batch size: an engine (random bf16 weights from ``--seed``) prefills
   this batch's decode shape: layer 0's ``wi`` bank and a random top-k routing
   of ``batch`` tokens, median over runs of 100 calls; the wrapper's call, and
   the library's C entry point alone for each kernel instance (the wgmma one
-  encodes two tensor maps per launch, the simt one none).
+  encodes two tensor maps per launch, the simt one none),
+- on GQA models, the host time of one K1 launch the same way, at this
+  batch's decode shape over the engine's pool (``batch`` one-token rows of
+  ``prompt_len + 1`` keys, the engine's table width): the wrapper's call,
+  and the C entry point alone with the same arguments (the instance the
+  wrapper picks, its split plan and scratch made once outside the loop).
 
 Prints one line per batch (``--out PATH`` also writes every row as JSON).
 Needs a CUDA device.
@@ -62,6 +67,63 @@ def _host_rows(prof) -> list[dict]:
     return sorted(rows, key=lambda r: -r["cpu_us"])
 
 
+def _host_us(fn) -> float:
+    """Median host microseconds per call of ``fn`` over 5 runs of 100 calls
+    (after one warm-up run); no synchronise inside a run."""
+    runs = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fn()
+        if i:  # the first run warms up
+            runs.append((time.perf_counter() - t0) / 100)
+    torch.cuda.synchronize()
+    return float(np.median(runs)) * 1e6
+
+
+def k1_host_us(eng, batch: int, prompt_len: int, seed: int) -> dict:
+    """Host microseconds per K1 launch at the decode shape of ``batch``
+    sequences: ``k1_host_us_per_launch`` (the wrapper) and
+    ``k1_c_call_us`` (the C entry point alone); empty on an MLA model, whose
+    decode program runs K3."""
+    cfg = eng.model_cfg
+    if cfg.is_mla:
+        return {}
+    from llmd_tpu_torch.ops import paged_attention as pa
+
+    pool, dev = eng.cache, eng.cache.device
+    ps, planes, D = pool.shape[1], pool.shape[2], pool.shape[3]
+    maxp = eng.cfg.max_pages_per_seq
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((batch, cfg.num_heads, D), generator=g, device=dev).to(pool.dtype)
+    n_pages = -(-(prompt_len + 1) // ps)
+    pts = torch.full((batch, maxp), -1, dtype=torch.int32, device=dev)
+    pts[:, :n_pages] = torch.arange(batch * n_pages, dtype=torch.int32,
+                                    device=dev).view(batch, n_pages)
+    lens = torch.full((batch,), prompt_len + 1, dtype=torch.int32, device=dev)
+    pos, rows = lens - 1, torch.arange(batch, dtype=torch.int32, device=dev)
+    cu = torch.arange(batch + 1, dtype=torch.int32, device=dev)
+    ns = torch.tensor([batch], dtype=torch.int32, device=dev)
+    scale = D ** -0.5
+    group = pa._check(q, pool, pts, lens, cu, ns)
+    instance = pa._instance(q.dtype, planes, D, group)
+    plan = pa._plan(batch, batch, maxp, ps, group, planes // 2, pa._num_sms(dev.index or 0))
+    scratch = torch.empty(plan.splits * batch * cfg.num_heads * (D + 2), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty_like(q)
+    c_fn = pa._library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (q.data_ptr(), pool.data_ptr(), pts.data_ptr(), lens.data_ptr(), cu.data_ptr(),
+            ns.data_ptr(), out.data_ptr(), scratch.data_ptr(), batch, cfg.num_heads, planes,
+            group, D, ps, maxp, scale, pa._DTYPE_CODE[q.dtype], pa._INSTANCE_CODE[instance],
+            plan.tq, plan.slots, plan.splits, plan.split_keys, stream)
+    return {"k1_instance": instance, "k1_splits": plan.splits,
+            "k1_host_us_per_launch": _host_us(lambda: pa.paged_attention(
+                q, pool, pts, pos, rows, lens, scale=scale, cu_q_lens=cu, num_seqs=ns)),
+            "k1_c_call_us": _host_us(lambda: c_fn(*args))}
+
+
 def k2_host_us(cfg, params, batch: int, seed: int) -> dict:
     """Host microseconds per K2 launch at the decode shape of ``batch``
     tokens: ``k2_host_us_per_launch`` (the wrapper), ``k2_c_call_us_wgmma``
@@ -92,20 +154,8 @@ def k2_host_us(cfg, params, batch: int, seed: int) -> dict:
                 out.data_ptr(), nb, bc, D, F, S, 1, instance, stream)
         return lambda: c_fn(*args)
 
-    def host_us(fn) -> float:
-        runs = []
-        for i in range(6):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(100):
-                fn()
-            if i:  # the first run warms up
-                runs.append((time.perf_counter() - t0) / 100)
-        torch.cuda.synchronize()
-        return float(np.median(runs)) * 1e6
-
-    return {"k2_host_us_per_launch": host_us(lambda: ragged_grouped_gemm(xb, wi, slot, rows)),
-            "k2_c_call_us_wgmma": host_us(c_call(1)), "k2_c_call_us_simt": host_us(c_call(0))}
+    return {"k2_host_us_per_launch": _host_us(lambda: ragged_grouped_gemm(xb, wi, slot, rows)),
+            "k2_c_call_us_wgmma": _host_us(c_call(1)), "k2_c_call_us_simt": _host_us(c_call(0))}
 
 
 def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
@@ -196,6 +246,7 @@ def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
         "attention_share_of_device_time": attn_us / busy_us if busy_us else None,
         "mla_decode_share_of_device_time": mla_us / busy_us if busy_us else None,
         "grouped_gemm_share_of_device_time": gemm_us / busy_us if busy_us else None,
+        **k1_host_us(eng, batch, prompt_len, seed),
         **k2_host_us(cfg, eng.params, batch, seed),
         "moe_dispatch": eng.stats.moe_dispatch,
         "top_kernels": kernels[:12],

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from llmd_tpu_torch.ops import paged_attention as pa
 from llmd_tpu_torch.ops.grouped_gemm import (
     grouped_gemm, grouped_gemm_ref, ragged_grouped_gemm, ragged_grouped_gemm_ref)
 from llmd_tpu_torch.ops.mla_decode import (
@@ -41,12 +42,12 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _case(H, Hk, D, ps, q_lens, kv_lens, dtype, device, seed, planes=None):
+def _case(H, Hk, D, ps, q_lens, kv_lens, dtype, device, seed, planes=None, max_pages=None):
     rng = np.random.default_rng(seed)
     nb = len(q_lens)
     B = nb + 2  # trailing unused table rows
     need = [-(-k // ps) for k in kv_lens]
-    maxp = max(need) + 1
+    maxp = max(need) + 1 if max_pages is None else max_pages
     P = sum(need) + 4
     perm = rng.permutation(P)
     pts = np.full((B, maxp), -1, np.int32)
@@ -75,13 +76,29 @@ def _case(H, Hk, D, ps, q_lens, kv_lens, dtype, device, seed, planes=None):
     return args, kw, off
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("H,Hk,D,ps", [(4, 2, 32, 8), (32, 8, 64, 16), (8, 8, 128, 16),
-                                       (16, 2, 64, 16)])
-def test_kernel_matches_plain(cuda, H, Hk, D, ps, dtype):
-    q_lens = [37, 1, 1, 64, 1]
-    kv_lens = [37, 5, 300, 100, 1]
-    args, kw, valid = _case(H, Hk, D, ps, q_lens, kv_lens, dtype, cuda, seed=H + D)
+MIXED = ([37, 1, 1, 64, 1], [37, 5, 300, 100, 1])  # chunks, decode rows, kv 1-300
+# (H, Hk, D, ps, q_lens, kv_lens). bf16 runs the mma instance (query tiles of
+# TQ = 64 / qpk tokens, KV splits from _plan), f32 the simt one.
+K1_SHAPES = [
+    (4, 2, 32, 8, *MIXED), (32, 8, 64, 16, *MIXED), (8, 8, 128, 16, *MIXED),
+    (16, 2, 64, 16, *MIXED),
+    # qpk 1, 2, 4, 8 at D 64 and 128, and D 32
+    (8, 8, 64, 16, *MIXED), (16, 8, 64, 16, *MIXED), (64, 8, 64, 16, *MIXED),
+    (16, 8, 128, 16, *MIXED), (32, 8, 128, 16, *MIXED), (64, 8, 128, 16, *MIXED),
+    (8, 8, 32, 16, *MIXED), (16, 2, 32, 16, *MIXED),
+    # one sequence at kv 4096: many KV splits
+    (32, 8, 64, 16, [1], [4096]),
+    # a chunk of TQ + 1 tokens (TQ 16 at qpk 4; 65 at qpk 1) beside decode rows
+    (32, 8, 64, 16, [17, 1, 1], [17, 600, 33]),
+    (8, 8, 128, 16, [65, 1], [300, 2000]),
+    # a 512-token chunk at kv 2048 beside decode rows
+    (32, 8, 64, 16, [512, 1, 1, 1], [2048, 100, 1500, 7]),
+]
+
+
+def _check_k1(cuda, H, Hk, D, ps, q_lens, kv_lens, dtype, **kw_case):
+    args, kw, valid = _case(H, Hk, D, ps, q_lens, kv_lens, dtype, cuda,
+                            seed=H + D + len(q_lens), **kw_case)
     before = paged_attention.launches
     got = paged_attention(*args, **kw)
     torch.cuda.synchronize()
@@ -95,6 +112,49 @@ def test_kernel_matches_plain(cuda, H, Hk, D, ps, dtype):
         units = bf16_rounding_units(got[:valid], ref)
         assert units <= BF16_UNITS, units
     assert torch.count_nonzero(got[valid:]) == 0  # padding rows are zeros
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("H,Hk,D,ps,q_lens,kv_lens", K1_SHAPES)
+def test_kernel_matches_plain(cuda, H, Hk, D, ps, q_lens, kv_lens, dtype):
+    _check_k1(cuda, H, Hk, D, ps, q_lens, kv_lens, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_kernel_matches_plain_at_split_multiples(cuda, dtype):
+    """kv lengths at whole pages, whole 64-key stages and whole KV splits:
+    six one-token rows over a 256-page table, split as the card's plan says."""
+    plan = pa._plan(6 + 3, 6 + 2, 256, 16, 4, 8, pa._num_sms(cuda.index or 0))
+    L = plan.split_keys
+    assert plan.splits > 1 and L % 64 == 0
+    kv = [16, 64, L, 2 * L, (4096 // L) * L, 4096]
+    _check_k1(cuda, 32, 8, 64, 16, [1] * 6, kv, dtype, max_pages=256)
+
+
+def test_paged_attention_instance_counts(cuda):
+    """bf16 K/V pools launch the mma instance, float32 and MLA's latent pool
+    the simt one; each launch counts once in ``launches`` and once in its
+    instance."""
+    cases = ((torch.bfloat16, "mma", {}), (torch.float32, "simt", {}),
+             (torch.bfloat16, "simt", {"planes": 1}))
+    for dtype, inst, extra in cases:
+        H, Hk, D = (16, 1, 160) if extra else (32, 8, 64)
+        args, kw, _ = _case(H, Hk, D, 16, [3, 1], [40, 200], dtype, cuda, seed=5, **extra)
+        before = dict(paged_attention.launches_by_instance)
+        n = paged_attention.launches
+        paged_attention(*args, **kw)
+        torch.cuda.synchronize()
+        assert paged_attention.launches == n + 1
+        assert paged_attention.launches_by_instance == {**before, inst: before[inst] + 1}
+
+
+def test_kernel_refuses_misaligned_q(cuda):
+    args, kw, _ = _case(32, 8, 64, 16, [1], [10], torch.bfloat16, cuda, seed=0)
+    q = args[0]
+    odd = torch.empty(q.numel() + 8, dtype=q.dtype, device=cuda)[1:1 + q.numel()].view(q.shape)
+    odd.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        paged_attention(odd, *args[1:], **kw)
 
 
 def test_engine_greedy_tokens_same_with_kernel(cuda):
