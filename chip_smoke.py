@@ -11,10 +11,10 @@ with a non-zero exit:
             ``llmd_tpu_torch/csrc``, one nvcc per source, all started together
             (seconds and the ptxas register / shared-memory report);
             ``cuobjdump -sass`` must show every bf16 grouped-GEMM kernel
-            (wgmma instance) and every bf16 K1 kernel (mma instance) on the
-            tensor cores (HGMMA; HMMA for K1) fed by asynchronous copies
-            (UTMALDG, TMA; LDGSTS, cp.async; UBLKCP), and ptxas must report
-            no spill in K1's mma instance.
+            (wgmma instance) and every bf16 K1 and K3 kernel (mma instances)
+            on the tensor cores (HGMMA; HMMA for K1 and K3) fed by
+            asynchronous copies (UTMALDG, TMA; LDGSTS, cp.async; UBLKCP), and
+            ptxas must report no spill in K1's and K3's mma instances.
 3. check    each kernel against its plain PyTorch version on the card, in
             float32 and bfloat16 (the bf16 kernel against the plain version in
             float32 on the same inputs, in bf16 rounding units, with controls
@@ -26,14 +26,21 @@ with a non-zero exit:
             exact split and page multiples); K2 (ragged grouped GEMM) and
             K4 (grouped GEMM) at moe-wide-sim widths, at decode, prefill and
             EPLB shapes, with dead rows, zero-row blocks and zero-count groups;
-            K1 on moe-wide-mla's single-plane latent pool at a mixed shape and
-            K3 (MLA latent decode) at its decode shape, idle rows included.
+            K1 on moe-wide-mla's single-plane latent pool (bf16 on the mma
+            instance) at the mixed shape, at decode, with a 512-token chunk,
+            a chunk of one tile plus one token and split-multiple kv; K3 (MLA
+            latent decode; bf16 on its mma instance) at its decode shape with
+            idle rows, at B=4 over long contexts, at split-multiple kv and at
+            B=1 over kv 1 and 17.
 4. time     each kernel at the main path's shapes (CUDA events, median, the
             card held by a spin kernel while the host enqueues the calls),
             beside its bound, its plain version and one PyTorch library call;
             K1 at decode B=64, decode B=8 at kv 3072-5120 and the mixed shape,
-            each beside its simt instance on the same inputs; K2 and K4 for
-            both launches of a layer (wi, wo) at decode and prefill.
+            and K1 on the latent pool at the mixed shape, each beside its simt
+            instance on the same inputs; K3 at decode B=64+2 and at decode B=8
+            over kv 3072-5120 beside its simt instance, with the split kernel
+            and its merge timed apart; K2 and K4 for both launches of a layer
+            (wi, wo) at decode and prefill.
 5. engine   behind the port's HTTP server, random bf16 weights from a seed,
             greedy completions: llama-1b at full width (8 requests), then
             moe-wide-sim at full width and depth on the sorted dispatch (8
@@ -44,15 +51,15 @@ with a non-zero exit:
             count per layer of the forwards of its program (K1 once per layer
             of every forward, or of the unified ones only on MLA, where the
             decode program runs K3; K2 / K4 twice per layer of every forward,
-            every launch on the bf16 wgmma instance; K1 on its mma instance,
-            or on MLA's latent pool its simt one), no plain version ran,
+            every launch on the bf16 wgmma instance; K1 and K3 on their mma
+            instances), no plain version ran,
             the sorted path dropped nothing, EPLB re-placed its experts at
             least twice.
 6. forward  one mixed unified batch through ``forward_core`` in float32, with
             the kernels and again with the plain versions passed as overrides:
             llama-1b, moe-wide-sim on both dispatch paths, and moe-wide-mla
             with a decode batch after it (K3) (logits held together, expert
-            counts equal; K1, K2 / K4 on their float32 simt instances).
+            counts equal; K1, K3, K2 / K4 on their float32 simt instances).
 
 It ends with a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. ``--report PATH`` also writes every phase's details (nvcc's register
@@ -184,17 +191,17 @@ def mixed_case(dtype, device, seed=2, heads=(H, HK), latent=False):
                                pad_seqs=5, heads=heads, latent=latent)
 
 
-def long_decode_case(dtype, device, seed=4, kv=None):
+def long_decode_case(dtype, device, seed=4, kv=None, latent=False):
     """Decode at small batch over long contexts (one query row each): B=8 at
     kv 3072-5120 from the seed (~67 MB of bf16 K/V, more than the 50 MB L2),
     or the given kv lengths."""
     rng = np.random.default_rng(seed)
     kv = rng.integers(3072, 5121, 8) if kv is None else np.asarray(kv)
     return make_attention_case(np.ones(len(kv), int), kv, dtype, device, seed, pad_rows=3,
-                               pad_seqs=2)
+                               pad_seqs=2, latent=latent)
 
 
-def chunk_case(dtype, device, chunk, chunk_kv, seed, heads=(H, HK)):
+def chunk_case(dtype, device, chunk, chunk_kv, seed, heads=(H, HK), latent=False):
     """One prefill chunk of ``chunk`` tokens at kv ``chunk_kv`` beside 8
     decode rows (kv 1-2048 from the seed), padding rows and unused table
     rows."""
@@ -202,7 +209,7 @@ def chunk_case(dtype, device, chunk, chunk_kv, seed, heads=(H, HK)):
     q_lens = np.concatenate([[chunk], np.ones(8, int)])
     kv = np.concatenate([[chunk_kv], rng.integers(1, 2049, 8)])
     return make_attention_case(q_lens, kv, dtype, device, seed, pad_rows=5, pad_seqs=2,
-                               heads=heads)
+                               heads=heads, latent=latent)
 
 
 def attention_bound(c, dtype):
@@ -329,15 +336,16 @@ def sdpa_latent(c):
     return call
 
 
-def latent_decode_case(dtype, device, seed=3):
+def latent_decode_case(dtype, device, seed=3, kv=None):
     """K3 at moe-wide-mla's decode shape: 64 sequences of 128-1024 resident
-    latent rows from the seed plus two idle rows (kv_len 0), one query row
-    each, pages shuffled, -1 past each sequence."""
+    latent rows from the seed plus two idle rows (kv_len 0), or the given kv
+    lengths; one query row each, pages shuffled, -1 past each sequence."""
     rng = np.random.default_rng(seed)
-    kv = np.concatenate([rng.integers(128, 1025, 64), [0, 0]]).astype(np.int32)
+    kv = (np.concatenate([rng.integers(128, 1025, 64), [0, 0]]) if kv is None
+          else np.asarray(kv)).astype(np.int32)
     B = len(kv)
     need = -(-kv // PS)
-    maxp = int(need.max())
+    maxp = max(int(need.max()), 1)
     P = int(need.sum()) + 8
     perm = rng.permutation(P)
     pts = np.full((B, maxp), -1, np.int32)
@@ -522,10 +530,9 @@ def phase_build() -> dict:
         out[name] = {"seconds": seconds[name], "nvcc_log": built.log}
     log(f"build: wall_s={wall:.3f} (parallel)")
     out["grouped_gemm_sass"] = sass_check("grouped_gemm", "wgmma", ("HGMMA",))
-    out["paged_attention_sass"] = sass_check("paged_attention", "paged_attention_mma",
-                                             ("HMMA", "HGMMA"))
-    out["paged_attention_mma_ptxas"] = ptxas_check(load("paged_attention").log,
-                                                   "paged_attention_mma")
+    for lib in ("paged_attention", "mla_decode"):  # K1's and K3's mma instances
+        out[f"{lib}_sass"] = sass_check(lib, f"{lib}_mma", ("HMMA", "HGMMA"))
+        out[f"{lib}_mma_ptxas"] = ptxas_check(load(lib).log, f"{lib}_mma")
     return out
 
 
@@ -584,8 +591,9 @@ def ptxas_check(nvcc_log: str, marker: str) -> dict:
         if m:
             out.setdefault(name, {})["registers"] = int(m.group(1))
     for n, v in out.items():
-        args = re.search(r"ILi(\d+)ELi(\d+)E", n)  # template arguments <D, QPK>
-        log(f"build:   {marker} ptxas: {'D=%s qpk=%s' % args.groups() if args else n} "
+        # template arguments: <D, QPK, planes> for K1, <D, H> for K3
+        args = re.findall(r"Li(\d+)E", n)
+        log(f"build:   {marker} ptxas: <{', '.join(args) if args else n}> "
             f"registers={v.get('registers')} spill_bytes={v.get('spill_bytes')}")
     spills = {n: v for n, v in out.items() if v.get("spill_bytes")}
     if spills:
@@ -632,7 +640,8 @@ def latent_decode_controls(c, q_scaled):
     """Two outputs K3's bfloat16 check must reject, from float32 scores and
     softmax of the pre-scaled q: the probabilities cast to bfloat16 before
     P·V, and P·V accumulated in bfloat16, rounded after every 16-key tile
-    (the kernel's tile at 16 heads). Valid (non-idle) rows only."""
+    (the simt instance's tile at 16 heads; a model of an unsound kernel, not
+    of the mma instance's 64-key stages). Valid (non-idle) rows only."""
     pts, kv_lens = c["pts"].long().clamp(min=0), c["lens"].long()
     B, S = pts.shape[0], pts.shape[1] * PS
     rows = c["pool"][pts].reshape(B, S, MLA_W).float()
@@ -662,15 +671,25 @@ def check_attention(device, latent: bool = False) -> dict:
     lengths that are exact multiples of the split and page lengths;
     moe-wide-sim heads (H 16, Hk 4: four query heads per kv head) at decode.
     Each call must land on its instance: bf16 on mma, float32 on simt.
-    ``latent``: K1's single-plane instance (simt) on moe-wide-mla's latent
-    pool (16 heads, width 160) at the mixed shape."""
+    ``latent``: K1's single-plane mode on moe-wide-mla's latent pool (16
+    heads, width 160; the mma instance's tiles are 4 tokens x 16 heads) at
+    the mixed shape, at decode, with a 512-token chunk at kv 2048, with a
+    chunk of one tile plus one token (5 tokens) and at kv lengths that are
+    exact multiples of the split and page lengths."""
     from llmd_tpu_torch.ops import paged_attention as pa
     from llmd_tpu_torch.ops.paged_attention import (
         bf16_rounding_units, paged_attention, paged_attention_ref)
 
     name = "paged_attention_latent" if latent else "paged_attention"
-    tq = pa.MMA_ROWS // (H // HK)
-    cases = ((("mixed", lambda dt: mixed_case(dt, device, latent=True)),) if latent else (
+    tq = pa.MMA_ROWS // (MLA_H if latent else H // HK)
+    cases = ((
+        ("mixed", lambda dt: mixed_case(dt, device, latent=True)),
+        ("decode", lambda dt: decode_case(dt, device, latent=True)),
+        ("chunk512_kv2048", lambda dt: chunk_case(dt, device, 512, 2048, 7, latent=True)),
+        ("chunk_tq_plus_1", lambda dt: chunk_case(dt, device, tq + 1, 900, 8, latent=True)),
+        ("exact_multiples", lambda dt: long_decode_case(
+            dt, device, 9, kv=[16, 64, 512, 1024, 2048, 4096], latent=True)),
+    ) if latent else (
         ("decode", lambda dt: decode_case(dt, device)),
         ("mixed", lambda dt: mixed_case(dt, device)),
         ("moe_heads_decode", lambda dt: decode_case(dt, device, heads=(16, 4))),
@@ -685,7 +704,7 @@ def check_attention(device, latent: bool = False) -> dict:
     ))
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
-        want = "mma" if dtype == torch.bfloat16 and not latent else "simt"
+        want = "mma" if dtype == torch.bfloat16 else "simt"
         for label, make in cases:
             c = make(dtype)
             before = dict(paged_attention.launches_by_instance)
@@ -729,59 +748,91 @@ def check_attention(device, latent: bool = False) -> dict:
                                      f"the {want} instance")
             if not (ok and pad == 0.0 and torch.isfinite(got).all()):
                 raise AssertionError(f"{name} {key}: the check failed: {row}")
-    if not latent:  # the exact-multiples case: kv at whole pages, stages and splits
-        plan = out["exact_multiples_bfloat16"]["plan"]
-        if plan["splits"] < 2 or any(k % PS or (k >= plan["split_keys"] and k % plan["split_keys"])
-                                     for k in (16, 64, 512, 1024, 2048, 4096)):
-            raise AssertionError(f"{name}: exact_multiples is not at split multiples: {plan}")
+    # the exact-multiples case: kv at whole pages, stages and splits
+    plan = out["exact_multiples_bfloat16"]["plan"]
+    if plan["splits"] < 2 or any(k % PS or (k >= plan["split_keys"] and k % plan["split_keys"])
+                                 for k in (16, 64, 512, 1024, 2048, 4096)):
+        raise AssertionError(f"{name}: exact_multiples is not at split multiples: {plan}")
     return out
 
 
 def check_mla_decode(device) -> dict:
-    """K3 at moe-wide-mla's decode shape. The kernel pre-scales q and rounds
-    it to its type as the reference does, so the float32 oracle is the plain
-    version on that rounded q at scale 1. float32: max abs error. bfloat16:
-    rounding units on the live rows, limit 1, with two controls above it
-    (probabilities in bf16; a bf16 P·V accumulator per 16-key tile). Idle rows
-    (kv_len 0) must be exact zeros."""
+    """K3, each case in float32 (simt instance) and bfloat16 (mma): at
+    moe-wide-mla's decode shape (B 64 + 2 idle), at B=4 over kv 3000-8192
+    (16 KV splits, the short sequences' later ones empty) plus an idle row,
+    at kv lengths that are exact multiples of the page, the 64-key stage and
+    the split, and at B=1 over kv 1 and over kv 17. The kernel pre-scales q
+    and rounds it to its type as the reference does, so the float32 oracle is
+    the plain version on that rounded q at scale 1. float32: max abs error.
+    bfloat16: rounding units on the live rows, limit 1, with two controls
+    above it (probabilities in bf16; a bf16 P·V accumulator per 16-key
+    tile); at kv 1 the one key's weight is exactly 1, no rounding can show,
+    and the output must be the latent row itself (error exactly 0). Idle rows
+    (kv_len 0) must be exact zeros. Each call must land on its instance."""
+    from llmd_tpu_torch.ops import mla_decode as md
     from llmd_tpu_torch.ops.mla_decode import mla_decode, mla_decode_ref
     from llmd_tpu_torch.ops.paged_attention import bf16_rounding_units
 
+    multiples = [16, 64, 256, 512, 1024, 2048, 4096, 0]
+    cases = (("decode", 3, None), ("long_context_b4", 6, [3000, 4711, 6150, 8192, 0]),
+             ("exact_multiples", 9, multiples), ("b1_kv1", 10, [1]), ("b1_kv17", 11, [17]))
     out = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        c = latent_decode_case(dtype, device)
-        got = run_latent_decode(mla_decode, c)
-        torch.cuda.synchronize()
-        q_scaled = (c["q"].float() * c["scale"]).to(dtype).float()
-        ref = mla_decode_ref(q_scaled, c["pool"].float(), c["pts"].clamp(min=0), c["lens"],
-                             scale=1.0)
-        torch.cuda.synchronize()
-        live = c["lens"] > 0
-        err = (got.float() - ref).abs().max().item()
-        idle_exact = torch.count_nonzero(got[~live]).item() == 0
-        key = f"decode_{str(dtype).split('.')[-1]}"
-        row = {"max_abs_err": err, "idle_rows_exact_zero": idle_exact,
-               "sequences": int(live.sum()), "idle": int((~live).sum()),
-               "kv_tokens": int(c["kv_lens"].sum())}
-        if dtype == torch.float32:
-            row["atol"] = F32_ATOL
-            ok = err <= F32_ATOL
-            note = f"atol={F32_ATOL:.0e}"
-        else:
-            units = bf16_rounding_units(got[live], ref[live])
-            ctl_p, ctl_acc = (bf16_rounding_units(x, ref[live])
-                              for x in latent_decode_controls(c, q_scaled))
-            row.update(bf16_units=units, limit_units=BF16_UNITS,
-                       control_p_bf16_units=ctl_p, control_acc_bf16_units=ctl_acc)
-            ok = units <= BF16_UNITS < min(ctl_p, ctl_acc)
-            note = (f"bf16_units={units:.3f} (limit {BF16_UNITS}) controls: "
-                    f"p_bf16={ctl_p:.1f} acc_bf16={ctl_acc:.1f}")
-        log(f"check: mla_decode {key} B={row['sequences']}+{row['idle']} idle "
-            f"kv_tokens={row['kv_tokens']} max_abs_err={err:.3e} {note} "
-            f"idle_rows_exact_zero={idle_exact}")
-        out[key] = row
-        if not (ok and idle_exact and torch.isfinite(got).all()):
-            raise AssertionError(f"mla_decode {key}: the check failed: {row}")
+    for label, seed, kv in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            want = "mma" if dtype == torch.bfloat16 else "simt"
+            c = latent_decode_case(dtype, device, seed, kv)
+            before = dict(mla_decode.launches_by_instance)
+            got = run_latent_decode(mla_decode, c)
+            torch.cuda.synchronize()
+            instance = {k: v - before[k] for k, v in mla_decode.launches_by_instance.items()}
+            q_scaled = (c["q"].float() * c["scale"]).to(dtype).float()
+            ref = mla_decode_ref(q_scaled, c["pool"].float(), c["pts"].clamp(min=0),
+                                 c["lens"], scale=1.0)
+            torch.cuda.synchronize()
+            live = c["lens"] > 0
+            err = (got.float() - ref).abs().max().item()
+            idle_exact = torch.count_nonzero(got[~live]).item() == 0
+            key = f"{label}_{str(dtype).split('.')[-1]}"
+            plan = md._plan(len(c["kv_lens"]), c["pts"].shape[1], PS, md._num_sms(0))
+            row = {"max_abs_err": err, "idle_rows_exact_zero": idle_exact,
+                   "sequences": int(live.sum()), "idle": int((~live).sum()),
+                   "kv_tokens": int(c["kv_lens"].sum()), "instance": want,
+                   "plan": dataclasses.asdict(plan)}
+            if dtype == torch.float32:
+                row["atol"] = F32_ATOL
+                ok = err <= F32_ATOL
+                note = f"atol={F32_ATOL:.0e}"
+            elif int(c["kv_lens"].max()) <= 1:  # one key: the row itself, exactly
+                row.update(exact=err == 0.0)
+                ok = err == 0.0
+                note = "one key: output must equal the latent row (error 0)"
+            else:
+                units = bf16_rounding_units(got[live], ref[live])
+                ctl_p, ctl_acc = (bf16_rounding_units(x, ref[live])
+                                  for x in latent_decode_controls(c, q_scaled))
+                row.update(bf16_units=units, limit_units=BF16_UNITS,
+                           control_p_bf16_units=ctl_p, control_acc_bf16_units=ctl_acc)
+                ok = units <= BF16_UNITS < min(ctl_p, ctl_acc)
+                note = (f"bf16_units={units:.3f} (limit {BF16_UNITS}) controls: "
+                        f"p_bf16={ctl_p:.1f} acc_bf16={ctl_acc:.1f}")
+            log(f"check: mla_decode {key} B={row['sequences']}+{row['idle']} idle "
+                f"kv_tokens={row['kv_tokens']} max_abs_err={err:.3e} {note} "
+                f"idle_rows_exact_zero={idle_exact} instance={want} splits={plan.splits}")
+            out[key] = row
+            if instance[want] != 1 or sum(instance.values()) != 1:
+                raise AssertionError(f"mla_decode {key}: launched {instance}, expected one on "
+                                     f"the {want} instance")
+            if not (ok and idle_exact and torch.isfinite(got).all()):
+                raise AssertionError(f"mla_decode {key}: the check failed: {row}")
+    # kv at whole pages, stages and splits, and many splits with empty ones
+    plan = out["exact_multiples_bfloat16"]["plan"]
+    if plan["splits"] < 2 or any(k % PS or k % 64 or (k >= plan["split_keys"]
+                                                     and k % plan["split_keys"])
+                                 for k in multiples[2:]):
+        raise AssertionError(f"mla_decode: exact_multiples is not at split multiples: {plan}")
+    if out["long_context_b4_bfloat16"]["plan"]["splits"] < 8:
+        raise AssertionError(f"mla_decode: long_context_b4 has too few splits: "
+                             f"{out['long_context_b4_bfloat16']['plan']}")
     return out
 
 
@@ -899,25 +950,69 @@ def time_attention(device, latent: bool = False) -> dict:
     return out
 
 
+def device_ms_by_kernel(fn, calls: int = 20) -> dict:
+    """Device milliseconds per call of ``fn`` by kernel name, from
+    ``torch.profiler`` over ``calls`` calls (after a warm-up): a wrapper that
+    launches two kernels (a split-KV kernel and its merge) shows each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if us > 0 and "cuda" in str(getattr(e, "device_type", "")).lower():
+            name = re.search(r"(\w+)\s*[<(]", e.key.replace("(anonymous namespace)::", ""))
+            out[name.group(1) if name else e.key[:60]] = us / 1e3 / calls
+    return out
+
+
 def time_mla_decode(device) -> dict:
-    """K3 in bf16 at moe-wide-mla's decode shape beside its bytes bound, its
-    plain version and SDPA over the latent gathered dense (K = V broadcast to
-    the 16 heads, gather included)."""
-    from llmd_tpu_torch.ops.mla_decode import mla_decode, mla_decode_ref
+    """K3 in bf16 on the mma instance beside its bytes bound, its plain
+    version, its simt instance on the same inputs and SDPA over the latent
+    gathered dense (K = V broadcast to the 16 heads, gather included): at
+    moe-wide-mla's decode shape (``decode``: B=64 + 2 idle, kv 128-1024) and
+    at small batch over long contexts (``decode_b8``: B=8 at kv 3072-5120,
+    where the keys are split 16 ways). The split kernel and its merge are
+    also timed apart (torch.profiler, device time per call)."""
+    from llmd_tpu_torch.ops import mla_decode as md
 
     dtype = torch.bfloat16
-    c = latent_decode_case(dtype, device)
-    ms = cuda_ms(lambda: run_latent_decode(mla_decode, c))
-    plain_ms = cuda_ms(lambda: run_latent_decode(mla_decode_ref, c), reps=5, inner=2)
-    library_ms = cuda_ms(sdpa_latent(c))
-    bound_ms, bound_by = latent_decode_bound(c, dtype)
-    row = {"shape": "decode B=64+2 idle kv_len 128-1024 bf16 (H16, latent W160, ps16)",
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": library_ms, "kv_tokens": int(c["kv_lens"].sum())}
-    log(f"time: mla_decode decode B=64+2 idle bf16 ms={ms:.4f} bound_ms={bound_ms:.4f} "
-        f"({bound_by}) plain_ms={plain_ms:.4f} library_ms(sdpa dense)={library_ms:.4f} "
-        f"roofline_share={bound_ms / ms:.3f}")
-    return row
+    rng = np.random.default_rng(4)
+    shapes = {
+        "decode": (latent_decode_case(dtype, device),
+                   "decode B=64+2 idle kv_len 128-1024 bf16 (H16, latent W160, ps16)"),
+        "decode_b8": (latent_decode_case(dtype, device, 4, rng.integers(3072, 5121, 8)),
+                      "decode B=8 kv_len 3072-5120 bf16 (H16, latent W160, ps16)"),
+    }
+    out = {}
+    for label, (c, shape) in shapes.items():
+        pts = c["pts"].clamp(min=0)
+        instance = md._instance(dtype, MLA_H, MLA_W)
+        plan = md._plan(len(c["kv_lens"]), pts.shape[1], PS, md._num_sms(0))
+        ms = cuda_ms(lambda: run_latent_decode(md.mla_decode, c))
+        simt_ms = cuda_ms(lambda: md._launch(c["q"], c["pool"], pts, c["lens"], c["scale"],
+                                              "simt"))
+        plain_ms = cuda_ms(lambda: run_latent_decode(md.mla_decode_ref, c), reps=5, inner=2)
+        library_ms = cuda_ms(sdpa_latent(c))
+        bound_ms, bound_by = latent_decode_bound(c, dtype)
+        parts = device_ms_by_kernel(lambda: run_latent_decode(md.mla_decode, c))
+        row = {"shape": shape, "instance": instance, "ms": ms, "simt_ms": simt_ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": library_ms, "kv_tokens": int(c["kv_lens"].sum()),
+               "plan": dataclasses.asdict(plan), "device_ms_by_kernel": parts}
+        log(f"time: mla_decode {label} {shape.split(' bf16')[0]} bf16 instance={instance} "
+            f"ms={ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) plain_ms={plain_ms:.4f} "
+            f"library_ms(sdpa dense)={library_ms:.4f} simt_ms={simt_ms:.4f} "
+            f"splits={plan.splits} roofline_share={bound_ms / ms:.3f}")
+        log(f"time:   mla_decode {label} profiler device ms per call: "
+            + " ".join(f"{k}={v:.4f}" for k, v in parts.items()))
+        out[label] = row
+    return out
 
 
 def time_gemms(device) -> dict:
@@ -1001,17 +1096,18 @@ def counters() -> tuple[dict, dict]:
 
 
 def instanced() -> dict:
-    """The wrappers that count their launches per kernel instance: K1 (``"mma"``,
-    ``"simt"``), K2 and K4 (``"wgmma"``, ``"simt"``)."""
+    """The wrappers that count their launches per kernel instance: K1 and K3
+    (``"mma"``, ``"simt"``), K2 and K4 (``"wgmma"``, ``"simt"``)."""
     from llmd_tpu_torch.ops import grouped_gemm as gg
+    from llmd_tpu_torch.ops import mla_decode as md
     from llmd_tpu_torch.ops import paged_attention as pa
 
-    return {"paged_attention": pa.paged_attention,
+    return {"paged_attention": pa.paged_attention, "mla_decode": md.mla_decode,
             "ragged_grouped_gemm": gg.ragged_grouped_gemm, "grouped_gemm": gg.grouped_gemm}
 
 
 def instance_counts() -> dict:
-    """Launches of K1, K2 and K4 per kernel instance."""
+    """Launches of K1, K3, K2 and K4 per kernel instance."""
     return {name: dict(fn.launches_by_instance) for name, fn in instanced().items()}
 
 
@@ -1031,15 +1127,14 @@ def read_counts() -> tuple[dict, dict]:
 def phase_engine(device, card: str, model: str = "llama-1b", n_requests: int = 8,
                  max_tokens: int = 32, prompt_range=(64, 512), seed: int = 0,
                  engine_kw: "dict | None" = None,
-                 per_layer: "dict | None" = None, label: str = "",
-                 k1_instance: str = "mma") -> dict:
+                 per_layer: "dict | None" = None, label: str = "") -> dict:
     """Serve ``n_requests`` greedy completions over HTTP. ``per_layer``: for
     each kernel of this path, (launches per layer and forward, the program
     whose forwards launch it: "all", "unified" or "decode"); every kernel's
     count must equal that times layers × that program's forwards (0 for
     kernels off the path), and no plain version may run. The served weights
     are bf16: every K2 / K4 launch must be on the wgmma instance and every K1
-    launch on ``k1_instance`` (mma; simt on MLA's latent pool)."""
+    and K3 launch on the mma instance."""
     from llmd_tpu_torch.engine.config import EngineConfig
     from llmd_tpu_torch.engine.engine import EngineStats
     from llmd_tpu_torch.engine.server import EngineServer
@@ -1139,8 +1234,8 @@ def phase_engine(device, card: str, model: str = "llama-1b", n_requests: int = 8
         if launches != expect:
             raise AssertionError(f"engine {label}: launches {launches}, expected {expect} "
                                  f"({per_layer} per layer per forward)")
-        # the served weights are bf16: every K1 / K2 / K4 launch on its bf16 instance
-        want = {"paged_attention": k1_instance, "ragged_grouped_gemm": "wgmma",
+        # the served weights are bf16: every K1 / K3 / K2 / K4 launch on its bf16 instance
+        want = {"paged_attention": "mma", "mla_decode": "mma", "ragged_grouped_gemm": "wgmma",
                 "grouped_gemm": "wgmma"}
         off = {n: c for n, c in by_instance.items()
                if c != {k: (launches[n] if k == want[n] else 0) for k in c}}
@@ -1261,7 +1356,8 @@ def phase_forward_check(device, model: str = "llama-1b", seed: int = 0,
     if device.type == "cuda" and (any(runs["kernel"][1].values())
                                   or any(runs["plain"][0].values())):
         raise AssertionError(f"forward: the runs mixed kernels and plain versions: {runs}")
-    if device.type == "cuda" and (by_instance["paged_attention"]["mma"] or any(
+    if device.type == "cuda" and (any(by_instance[n]["mma"] for n in (
+            "paged_attention", "mla_decode")) or any(
             by_instance[n]["wgmma"] for n in ("ragged_grouped_gemm", "grouped_gemm"))):
         raise AssertionError(f"forward: float32 kernels reached a bf16 instance: "
                              f"{by_instance}")
@@ -1315,8 +1411,7 @@ def main(argv: "list[str] | None" = None) -> int:
         "mla_sorted": phase_engine(device, card, model=MLA, label="mla sorted",
                                    engine_kw={"moe_dispatch": "sorted"},
                                    per_layer={"paged_attention": (1, "unified"),
-                                              "mla_decode": (1, "decode"), **k2},
-                                   k1_instance="simt"),
+                                              "mla_decode": (1, "decode"), **k2}),
     }
     for run in ("moe_sorted", "mla_sorted"):
         if eng[run]["moe_dropped_tokens"] != 0:
@@ -1358,6 +1453,13 @@ def main(argv: "list[str] | None" = None) -> int:
                "mixed_library_ms": k1["mixed"]["library_ms"],
                "mixed_simt_ms": k1["mixed"]["simt_ms"]}
 
+    lat, k3 = tm["paged_attention_latent"]["mixed"], tm["mla_decode"]
+    k3_more = {"instance": k3["decode"]["instance"], "simt_ms": k3["decode"]["simt_ms"],
+               "decode_b8_ms": k3["decode_b8"]["ms"],
+               "decode_b8_bound_ms": k3["decode_b8"]["bound_ms"],
+               "decode_b8_library_ms": k3["decode_b8"]["library_ms"],
+               "decode_b8_simt_ms": k3["decode_b8"]["simt_ms"]}
+
     gemm_src = "llmd_tpu_torch/csrc/grouped_gemm.cu"
     attn_src = "llmd_tpu_torch/csrc/paged_attention.cu"
     kernels = {"kernels": [
@@ -1365,11 +1467,11 @@ def main(argv: "list[str] | None" = None) -> int:
               eng["llama-1b"]["launches"]["paged_attention"], k1["decode"]) | k1_more,
         # the unified program's absorbed MLA attention, XLA in the reference
         entry("paged_attention_latent", attn_src, "llmd_tpu/models/transformer.py:428",
-              eng["mla_sorted"]["launches"]["paged_attention"],
-              tm["paged_attention_latent"]["mixed"]),
+              eng["mla_sorted"]["launches"]["paged_attention"], lat)
+        | {"instance": lat["instance"], "simt_ms": lat["simt_ms"]},
         entry("mla_decode", "llmd_tpu_torch/csrc/mla_decode.cu",
               "llmd_tpu/ops/mla_decode.py:110", eng["mla_sorted"]["launches"]["mla_decode"],
-              tm["mla_decode"]),
+              k3["decode"]) | k3_more,
         entry("ragged_grouped_gemm", gemm_src, "llmd_tpu/ops/grouped_gemm.py:98",
               eng["moe_sorted"]["launches"]["ragged_grouped_gemm"],
               tm["ragged_grouped_gemm"]["decode"], tm["ragged_grouped_gemm"]["prefill"]),

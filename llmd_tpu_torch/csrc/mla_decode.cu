@@ -19,35 +19,75 @@
 // 4*H*D flops per key; at H 16 and D 160 that is 32 flops per bf16 byte, far
 // below the ~295 flop/byte ridge of an H100, so it is bound by device memory.
 //
-// Design (simple and correct first), for what K3 computes: all heads share
-// one latent row, so each row is brought on chip ONCE and used by every head.
-//   * One block per sequence, 256 threads. Keys go in tiles of KEYS = 256/H
-//     (16 at H 16, 64 at H 4), gathered through the page table row by row
-//     (any page size), 16-byte loads, converted to f32 into shared memory with
-//     a padded row stride (D+1: conflict-free column reads). The next tile's
-//     loads are issued into registers before the current tile is scored, so
-//     their latency hides behind the arithmetic.
-//   * Scores: thread (h, t) takes the dot of head h's pre-scaled query with
+// Two instances; the wrapper picks one (`ops/mla_decode._instance`) and passes
+// it in.
+//
+// * mma (bfloat16 at (H, D) = (16, 160), moe-wide-mla's; at tiny-mla's (4, 80)
+//   the same template spills, and simt serves it). The work item is
+//   (sequence b, KV split s); the grid is splits x B, sized on the host from B,
+//   the table width and the page size alone (`ops/mla_decode._plan`, no read
+//   of kv_lens): the keys are split when the batch alone would not fill the
+//   card (decode at small batch, long contexts).
+//   - The latent through shared memory: 64-key stages (a key's D elements,
+//     padded by 16 bytes: 336 bytes at D 160, an odd multiple of 16, so the 8
+//     rows of an ldmatrix hit 8 bank groups) in a ring of 3 stages filled by
+//     16-byte `cp.async` copies, so each latent row comes on chip once. The
+//     next stage's pool slots come from the page table into a small
+//     shared-memory ring a stage ahead, so a stage's copies never wait on a
+//     page-table load. Keys at or past kv_len, and past the split, are
+//     zero-filled and never read.
+//   - Tensor cores, `mma.sync.m16n8k16` (bf16 in, f32 accumulators), keys on M
+//     ("swap AB"): S^T = L . Q^T has the H heads of the one query row on N
+//     (two n8 fragments at H 16; D/16 k16 steps), and O^T += L^T . P^T reads
+//     the SAME stage with ldmatrix.trans (D/16 m16 fragments): the row is K
+//     and V. q sits in registers for the whole item, scaled and rounded to
+//     bf16 as the reference does, so the reference's q is the mma operand.
+//   - P = bf16(P) + bf16(P - bf16(P)), two mmas into one f32 accumulator (P
+//     rounded once reads one rounding unit off the f32 plain version).
+//   - The 4 warps take the 4 16-key sub-tiles of each stage and merge their
+//     (m, l, o) in shared memory at the end.
+//   - With more than one split, each item writes its partial (m, l, o/l) in
+//     f32 to scratch allocated by the wrapper, and a second kernel launched
+//     from the same entry point merges them. A split that holds no key of its
+//     sequence marks its partials empty (m = -inf) and exits before it loads
+//     anything, so an idle row (kv_len 0) has every split empty and the merge
+//     writes exact zeros.
+//   The ring, the copies, the fragments' helpers and the merge are
+//   mma_attention.cuh's, shared with paged_attention.cu.
+// * simt (float32, which the tensor cores would take in TF32, and (4, 80)): one block per
+//   sequence, 256 threads. Keys go in tiles of KEYS = 256/H (16 at H 16, 64 at
+//   H 4), gathered through the page table row by row (any page size), 16-byte
+//   loads, converted to f32 into shared memory with a padded row stride (D+1:
+//   conflict-free column reads). The next tile's loads are issued into
+//   registers before the current tile is scored, so their latency hides
+//   behind the arithmetic.
+//   - Scores: thread (h, t) takes the dot of head h's pre-scaled query with
 //     key t (H x KEYS = 256 dots a tile).
-//   * Online softmax: one warp per head updates (m, l) from the tile's scores
+//   - Online softmax: one warp per head updates (m, l) from the tile's scores
 //     and leaves the probabilities and the rescale factor in shared memory.
-//   * P.V: the 256/H threads of head h own the output dims j, j + 256/H, ...
+//   - P.V: the 256/H threads of head h own the output dims j, j + 256/H, ...
 //     and accumulate p[h][t] * row[t][d] in registers.
-//   * o = acc / l, or exact zeros when l is 0 (kv_len 0).
-// Later work: split-KV across blocks for small batches (one block per sequence
-// fills 64 of 132 SMs at B 64), cp.async/TMA double buffering, wgmma for the
-// score and P.V products.
+//   - o = acc / l, or exact zeros when l is 0 (kv_len 0).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_attention.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+using namespace llmd_attn;
+
+constexpr int kSimt = 0;
+constexpr int kMma = 1;
+constexpr int kThreads = 256;  // simt instance
 constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
+
+// ---------------------------------------------------------------------------
+// simt instance
+// ---------------------------------------------------------------------------
 
 template <typename T>
 __device__ __forceinline__ float to_float(T x);
@@ -224,9 +264,9 @@ mla_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool,
 }
 
 template <typename T, int D, int H>
-cudaError_t launch(const void* q, const void* pool, const int* page_tables,
-                   const int* kv_lens, void* out, int batch, int page_size,
-                   int max_pages, float scale, cudaStream_t stream) {
+cudaError_t launch_simt(const void* q, const void* pool, const int* page_tables,
+                        const int* kv_lens, void* out, int batch, int page_size,
+                        int max_pages, float scale, cudaStream_t stream) {
   mla_decode_kernel<T, D, H><<<batch, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(pool), page_tables, kv_lens,
       static_cast<T*>(out), page_size, max_pages, scale);
@@ -234,33 +274,358 @@ cudaError_t launch(const void* q, const void* pool, const int* page_tables,
 }
 
 template <typename T>
-cudaError_t dispatch(int num_heads, int latent_dim, const void* q, const void* pool,
-                     const int* page_tables, const int* kv_lens, void* out, int batch,
-                     int page_size, int max_pages, float scale, cudaStream_t stream) {
+cudaError_t dispatch_simt(int num_heads, int latent_dim, const void* q, const void* pool,
+                          const int* page_tables, const int* kv_lens, void* out, int batch,
+                          int page_size, int max_pages, float scale, cudaStream_t stream) {
   if (num_heads == 16 && latent_dim == 160)  // moe-wide-mla
-    return launch<T, 160, 16>(q, pool, page_tables, kv_lens, out, batch, page_size,
-                              max_pages, scale, stream);
+    return launch_simt<T, 160, 16>(q, pool, page_tables, kv_lens, out, batch, page_size,
+                                   max_pages, scale, stream);
   if (num_heads == 4 && latent_dim == 80)  // tiny-mla
-    return launch<T, 80, 4>(q, pool, page_tables, kv_lens, out, batch, page_size,
-                            max_pages, scale, stream);
+    return launch_simt<T, 80, 4>(q, pool, page_tables, kv_lens, out, batch, page_size,
+                                 max_pages, scale, stream);
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// mma instance
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaThreads = 128;  // 4 warps: one 16-key sub-tile of each stage apiece
+constexpr int kMmaWarps = kMmaThreads / 32;
+
+template <int D>
+using LatentCfg = StageCfg<D, 1, kMmaThreads>;
+
+template <int D, int H>
+__global__ void __launch_bounds__(kMmaThreads)
+mla_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ pool,
+                      const int* __restrict__ page_tables, const int* __restrict__ kv_lens,
+                      __nv_bfloat16* __restrict__ out, float* __restrict__ part_o,
+                      float2* __restrict__ part_ml, int batch, int page_size, int max_pages,
+                      float scale, int n_splits, int split_keys) {
+  using C = LatentCfg<D>;
+  constexpr int NF = H / 8;  // n8 fragments of heads
+  static_assert(H % 8 == 0 && H <= 16, "the heads fill one or two n8 fragments");
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem);
+  int* slot_tab = reinterpret_cast<int*>(smem + C::kStageBytes);  // [kSlotTables][64]
+
+  const int sp = blockIdx.x;  // KV split: a sequence's splits run side by side
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gid = lane >> 2;  // fragment row group
+  const int tig = lane & 3;   // thread in group
+
+  const int kv_len = min(__ldg(kv_lens + b), max_pages * page_size);
+  const int k_lo = sp * split_keys;
+  const int k_hi = min(k_lo + split_keys, kv_len);
+  if (k_lo >= k_hi) {  // no key of this split: load nothing
+    if (n_splits > 1) {  // its partials say so; the merge skips them
+      for (int h = tid; h < H; h += kMmaThreads)
+        part_ml[((size_t)sp * batch + b) * H + h] = make_float2(-INFINITY, 0.f);
+    } else {  // kv_len 0: exact zeros
+      for (int i = tid * 8; i < H * D; i += kMmaThreads * 8)
+        *reinterpret_cast<uint4*>(out + (size_t)b * H * D + i) = make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
+
+  // Q^T as the B operand: lane holds head f*8 + gid at dims ks*16 + tig*2 (+1)
+  // and + 8, scaled and rounded to bf16 as the reference pre-scales q.
+  uint32_t qf[NF][C::kSteps][2];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    const unsigned* qr =
+        reinterpret_cast<const unsigned*>(q + ((size_t)b * H + f * 8 + gid) * D + tig * 2);
+#pragma unroll
+    for (int ks = 0; ks < C::kSteps; ++ks)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const unsigned u = __ldg(qr + (ks * 16 + half * 8) / 2);
+        const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&u);
+        qf[f][ks][half] =
+            bits(__floats2bfloat162_rn(__low2float(x) * scale, __high2float(x) * scale));
+      }
+  }
+
+  float acc[C::kSteps][NF][4];  // O^T: d on M (m16 tile mt), heads on N
+  float m[NF][2], l[NF][2];     // running max (log2 domain) and lane-partial sum per head
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      m[f][j] = -INFINITY;
+      l[f][j] = 0.f;
+    }
+#pragma unroll
+    for (int mt = 0; mt < C::kSteps; ++mt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mt][f][c] = 0.f;
+  }
+
+  const int* pt = page_tables + (size_t)b * max_pages;
+  const int n_st = (k_hi - k_lo + kStageKeys - 1) / kStageKeys;
+  // slot tables of the first kStages stages, one round trip to the page table
+  for (int i = tid; i < C::kStages * kStageKeys; i += kMmaThreads)
+    slot_tab[i] = key_slot(pt, k_lo + i, k_hi, page_size);
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < C::kStages - 1; ++s) {
+    if (s < n_st)
+      load_stage<D, 1, kMmaThreads>(stages + s * C::kStageElems, slot_tab + s * kStageKeys,
+                                    pool, D, 0);
+    cp_async_commit();
+  }
+
+  // ldmatrix row addresses (elements into a 16-key sub-tile). L, A of S^T:
+  // matrices (keys 0-7, d 0-7), (keys 8-15, d 0-7), (keys 0-7, d 8-15), (keys
+  // 8-15, d 8-15). L^T (the same rows transposed on load), A of O^T: (d 0-7,
+  // keys 0-7), (d 8-15, keys 0-7), (d 0-7, keys 8-15), (d 8-15, keys 8-15).
+  const int mi = lane >> 3, mr = lane & 7;
+  const int k_ld = (mr + (mi & 1) * 8) * C::kRow + (mi >> 1) * 8;
+  const int v_ld = (mr + (mi >> 1) * 8) * C::kRow + (mi & 1) * 8;
+
+  for (int it = 0; it < n_st; ++it) {
+    cp_async_wait<C::kStages - 2>();  // stage it has landed (this thread's copies) ...
+    __syncthreads();                  // ... everyone's, and stage it-1 is consumed
+    {
+      const int s = it + C::kStages - 1;
+      if (s < n_st)
+        load_stage<D, 1, kMmaThreads>(stages + (s % C::kStages) * C::kStageElems,
+                                      slot_tab + (s % C::kSlotTables) * kStageKeys, pool, D,
+                                      0);
+      cp_async_commit();
+    }
+    // the slot of key tid of stage it + kStages: stored after this stage's
+    // compute, so the page-table load lands under it
+    const int next_key = k_lo + (it + C::kStages) * kStageKeys + tid;
+    const int fetched = tid < kStageKeys ? key_slot(pt, next_key, k_hi, page_size) : -1;
+
+    const uint32_t sub_addr =
+        smem_u32(stages + (it % C::kStages) * C::kStageElems) + warp * 16 * C::kRow * 2;
+    const int* fl = slot_tab + (it % C::kSlotTables) * kStageKeys + warp * 16;  // -1: no key
+    float s[NF][4];
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[f][c] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < C::kSteps; ++ks) {
+      uint32_t a[4];
+      ldsm_x4(a, sub_addr + (k_ld + ks * 16) * 2);
+#pragma unroll
+      for (int f = 0; f < NF; ++f) mma_bf16(s[f], a, qf[f][ks][0], qf[f][ks][1]);
+    }
+    // S^T fragment: s[f][j] is key gid, s[f][j + 2] key gid + 8, of head f*8 + tig*2 + j.
+    const bool ok0 = fl[gid] >= 0;
+    const bool ok1 = fl[gid + 8] >= 0;
+    uint32_t ph[NF][2], pl[NF][2];  // P^T as the B operand: keys 0-7, keys 8-15
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      float p[4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float x0 = ok0 ? s[f][j] * kLog2e : -INFINITY;
+        const float x1 = ok1 ? s[f][j + 2] * kLog2e : -INFINITY;
+        float mx = fmaxf(x0, x1);
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 4));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 16));
+        const float m_new = fmaxf(m[f][j], mx);
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;  // no key yet: all terms 0
+        const float corr = exp2f(m[f][j] - m_use);
+        p[j] = exp2f(x0 - m_use);
+        p[j + 2] = exp2f(x1 - m_use);
+        l[f][j] = l[f][j] * corr + p[j] + p[j + 2];
+        m[f][j] = m_new;
+#pragma unroll
+        for (int mt = 0; mt < C::kSteps; ++mt) {
+          acc[mt][f][j] *= corr;
+          acc[mt][f][j + 2] *= corr;
+        }
+      }
+      uint32_t hi01, lo01, hi23, lo23;
+      split_bf16(p[0], p[1], hi01, lo01);  // key gid, heads tig*2, tig*2+1
+      split_bf16(p[2], p[3], hi23, lo23);  // key gid + 8
+      ph[f][0] = trans8x8(hi01);
+      ph[f][1] = trans8x8(hi23);
+      pl[f][0] = trans8x8(lo01);
+      pl[f][1] = trans8x8(lo23);
+    }
+#pragma unroll
+    for (int mt = 0; mt < C::kSteps; ++mt) {
+      uint32_t a[4];
+      ldsm_x4_trans(a, sub_addr + (v_ld + mt * 16) * 2);
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        mma_bf16(acc[mt][f], a, ph[f][0], ph[f][1]);
+        mma_bf16(acc[mt][f], a, pl[f][0], pl[f][1]);
+      }
+    }
+    if (tid < kStageKeys)
+      slot_tab[((it + C::kStages) % C::kSlotTables) * kStageKeys + tid] = fetched;
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the stages are free: the warps' (o, m, l) go there
+
+  float* sm_o = reinterpret_cast<float*>(smem);  // [warp][H heads][D]
+  float* sm_m = sm_o + kMmaWarps * H * D;        // [warp][H heads]
+  float* sm_l = sm_m + kMmaWarps * H;
+#pragma unroll
+  for (int f = 0; f < NF; ++f)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float sum = l[f][j];
+      sum += __shfl_xor_sync(kFull, sum, 4);
+      sum += __shfl_xor_sync(kFull, sum, 8);
+      sum += __shfl_xor_sync(kFull, sum, 16);
+      if (gid == 0) {
+        sm_m[warp * H + f * 8 + tig * 2 + j] = m[f][j];
+        sm_l[warp * H + f * 8 + tig * 2 + j] = sum;
+      }
+    }
+#pragma unroll
+  for (int mt = 0; mt < C::kSteps; ++mt)
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        sm_o[(warp * H + f * 8 + tig * 2 + (c & 1)) * D + mt * 16 + gid + (c >> 1) * 8] =
+            acc[mt][f][c];
+  __syncthreads();
+
+  for (int i = tid; i < H * (D / 8); i += kMmaThreads) {
+    const int r = i / (D / 8);  // head
+    const int d0 = (i % (D / 8)) * 8;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kMmaWarps; ++w) mx = fmaxf(mx, sm_m[w * H + r]);
+    float den = 0.f, o[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[e] = 0.f;
+#pragma unroll
+    for (int w = 0; w < kMmaWarps; ++w) {
+      if (sm_m[w * H + r] == -INFINITY) continue;  // this warp saw no key
+      const float c = exp2f(sm_m[w * H + r] - mx);
+      den += sm_l[w * H + r] * c;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) o[e] += sm_o[(w * H + r) * D + d0 + e] * c;
+    }
+    const float inv = den > 0.f ? 1.f / den : 0.f;
+    if (n_splits == 1) {
+      uint4 v;
+      v.x = bits(__floats2bfloat162_rn(o[0] * inv, o[1] * inv));
+      v.y = bits(__floats2bfloat162_rn(o[2] * inv, o[3] * inv));
+      v.z = bits(__floats2bfloat162_rn(o[4] * inv, o[5] * inv));
+      v.w = bits(__floats2bfloat162_rn(o[6] * inv, o[7] * inv));
+      *reinterpret_cast<uint4*>(out + ((size_t)b * H + r) * D + d0) = v;
+    } else {
+      const size_t pn = ((size_t)sp * batch + b) * H + r;  // (split, sequence, head)
+      float4* po = reinterpret_cast<float4*>(part_o + pn * D + d0);
+      po[0] = make_float4(o[0] * inv, o[1] * inv, o[2] * inv, o[3] * inv);
+      po[1] = make_float4(o[4] * inv, o[5] * inv, o[6] * inv, o[7] * inv);
+      if (d0 == 0) part_ml[pn] = make_float2(den > 0.f ? mx : -INFINITY, den);
+    }
+  }
+}
+
+// The merge of the KV splits, one thread per 4 elements of a sequence's
+// [H, D]: every split of every row was written (m = -inf where it held no
+// key), so all the partials are loaded at once; a row no split saw (kv_len
+// 0) is exact zeros.
+constexpr int kMergeThreads = 256;
+
+__global__ void __launch_bounds__(kMergeThreads)
+mla_decode_split_combine(const float* __restrict__ part_o, const float2* __restrict__ part_ml,
+                         __nv_bfloat16* __restrict__ out, int batch, int num_heads,
+                         int latent_dim, int n_splits) {
+  const int b = blockIdx.x;
+  const int c4 = latent_dim / 4;
+  const int i = blockIdx.y * kMergeThreads + threadIdx.x;  // float4 chunk of the sequence
+  if (i >= num_heads * c4) return;
+  const size_t pn = (size_t)b * num_heads + i / c4;  // (sequence, head) of split 0
+  const size_t stride = (size_t)batch * num_heads;   // between splits
+  reinterpret_cast<uint2*>(out)[pn * c4 + i % c4] =
+      to_bf16x4(merge_splits(part_o, part_ml, pn, stride, c4, i % c4, n_splits));
+}
+
+struct MmaArgs {
+  const void* q;
+  const void* pool;
+  const int* page_tables;
+  const int* kv_lens;
+  void* out;
+  float* scratch;
+  int batch, page_size, max_pages;
+  float scale;
+  int n_splits, split_keys;
+  cudaStream_t stream;
+};
+
+template <int D, int H>
+cudaError_t launch_mma(const MmaArgs& a) {
+  using C = LatentCfg<D>;
+  const auto kernel = mla_decode_mma_kernel<D, H>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (attr != cudaSuccess) return attr;
+  const size_t parts = (size_t)a.n_splits * a.batch * H;
+  float* part_o = a.scratch;
+  float2* part_ml = reinterpret_cast<float2*>(a.scratch + parts * D);
+  kernel<<<dim3(a.n_splits, a.batch), kMmaThreads, C::kSmem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.pool),
+      a.page_tables, a.kv_lens, static_cast<__nv_bfloat16*>(a.out), part_o, part_ml, a.batch,
+      a.page_size, a.max_pages, a.scale, a.n_splits, a.split_keys);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.n_splits == 1) return err;
+  const dim3 merge_grid(a.batch, (H * D / 4 + kMergeThreads - 1) / kMergeThreads);
+  mla_decode_split_combine<<<merge_grid, kMergeThreads, 0, a.stream>>>(
+      part_o, part_ml, static_cast<__nv_bfloat16*>(a.out), a.batch, H, D, a.n_splits);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+cudaError_t dispatch_mma(int num_heads, int latent_dim, const MmaArgs& a) {
+  // the splits cover the table; more than one: whole stages, and partials
+  if (a.batch > 65535 || a.n_splits <= 0 || a.n_splits > kMaxSplits ||
+      (long long)a.n_splits * a.split_keys < (long long)a.max_pages * a.page_size ||
+      (a.n_splits > 1 && (a.scratch == nullptr || a.split_keys % kStageKeys != 0)) ||
+      !aligned16(a.q) || !aligned16(a.pool) || !aligned16(a.out))
+    return cudaErrorInvalidValue;
+  if (num_heads == 16 && latent_dim == 160) return launch_mma<160, 16>(a);  // moe-wide-mla
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for a (heads, latent width) without an instance).
+// dtype: 0 = float32, 1 = bfloat16. instance: 0 = simt, 1 = mma (bf16; then
+// n_splits KV splits of split_keys keys each, a multiple of 64 covering
+// max_pages * page_size, and with n_splits > 1 scratch holds n_splits * batch
+// * num_heads * (latent_dim + 2) floats). Returns the cudaError_t of the
+// launches (cudaErrorInvalidValue for a shape without an instance).
 extern "C" int llmd_mla_decode(const void* q, const void* pool, const int* page_tables,
-                               const int* kv_lens, void* out, int batch, int num_heads,
-                               int latent_dim, int page_size, int max_pages, float scale,
-                               int dtype, void* stream) {
+                               const int* kv_lens, void* out, void* scratch, int batch,
+                               int num_heads, int latent_dim, int page_size, int max_pages,
+                               float scale, int dtype, int instance, int n_splits,
+                               int split_keys, void* stream) {
   if (batch <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (instance == kMma) {
+    if (dtype != 1) return cudaErrorInvalidValue;
+    const MmaArgs a{q, pool, page_tables, kv_lens, out, static_cast<float*>(scratch), batch,
+                    page_size, max_pages, scale, n_splits, split_keys, s};
+    return dispatch_mma(num_heads, latent_dim, a);
+  }
+  if (instance != kSimt) return cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch<float>(num_heads, latent_dim, q, pool, page_tables, kv_lens, out,
-                           batch, page_size, max_pages, scale, s);
+    return dispatch_simt<float>(num_heads, latent_dim, q, pool, page_tables, kv_lens, out,
+                                batch, page_size, max_pages, scale, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(num_heads, latent_dim, q, pool, page_tables, kv_lens,
-                                   out, batch, page_size, max_pages, scale, s);
+    return dispatch_simt<__nv_bfloat16>(num_heads, latent_dim, q, pool, page_tables, kv_lens,
+                                        out, batch, page_size, max_pages, scale, s);
   return cudaErrorInvalidValue;
 }

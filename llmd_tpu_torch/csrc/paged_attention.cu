@@ -31,7 +31,10 @@
 // Two instances; the wrapper picks one (`ops/paged_attention._instance`) and
 // passes it in.
 //
-// * mma (bfloat16 K/V pools, D in {32, 64, 128}, qpk in {1, 2, 4, 8}). The
+// * mma (bfloat16: K/V pools at D in {32, 64, 128}, qpk in {1, 2, 4, 8}; the
+//   single-plane latent pool at width 160 with 16 heads, all in one tile, qpk
+//   = H; at width 80, tiny-mla's, the same template spills and simt serves
+//   it). The
 //   work item is (query tile, kv head g, KV split): a tile is up to TQ = 64/qpk
 //   consecutive tokens of one sequence, and its rows are those tokens x the qpk
 //   query heads of g, token-major (at most 64 rows), so each K/V row read from
@@ -45,7 +48,9 @@
 //   search) and a slot between two sequences' tiles exits.
 //   - K/V through shared memory: 64-key stages (the key's K row then its V
 //     row, 2*D contiguous elements of the pool, padded by 16 bytes so that
-//     ldmatrix reads no two rows from one bank group) in a ring of 3 stages
+//     ldmatrix reads no two rows from one bank group; on one plane the
+//     latent row alone, D elements + 16 bytes, brought on chip once and read
+//     as K by ldmatrix and as V by ldmatrix.trans) in a ring of 3 stages
 //     filled with `cp.async` 16-byte copies, so the copies of the next two
 //     stages run while the current one is computed (3 stages, not 4: at D 64
 //     four 53 KB blocks share an SM, and decode B=64's grid runs in one wave). The keys' pool slots come from
@@ -58,6 +63,9 @@
 //     instead of a padded m16. Operands come from shared memory through
 //     `ldmatrix` (`.trans` for V); q sits in registers for the whole item. The
 //     scale multiplies the f32 scores (q is bf16, the products are exact).
+//     On the latent pool a tile is 4 tokens x 16 heads (64 rows), so a
+//     128-token chunk reads its latent 32 times, not once per token and head
+//     group as the simt instance does.
 //     `mma.sync` and not `wgmma`: the instance is bound by memory, not by the
 //     tensor cores; wgmma's 64-row M and warpgroup-wide operands would pad a
 //     decode tile 8x and need a key layout TMA could only gather page by page,
@@ -81,7 +89,9 @@
 //     so the merge loads every split's partials at once, with no search for
 //     the row's sequence; it skips the empty ones, so (-inf) - (-inf) never
 //     occurs. At most 16 splits (the merge keeps them in registers).
-// * simt (float32, and MLA's single-plane latent pool): one block per (query
+//   The ring, the copies, the fragments' helpers and the merge live in
+//   mma_attention.cuh, shared with mla_decode.cu's mma instance.
+// * simt (float32, and bf16 latent pools at width 80): one block per (query
 //   token n, head group g), 4 warps. A GQA block serves the qpk = H/Hk query
 //   heads of kv head g, so every K/V row it reads is used qpk times. A
 //   single-plane block serves QPK of the H heads (8 at D 160, 4 at D 80: QPK x
@@ -103,14 +113,17 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_attention.cuh"
+
 namespace {
+
+using namespace llmd_attn;
 
 constexpr int kSimt = 0;
 constexpr int kMma = 1;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 32;  // keys per warp tile: one per lane
-constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T>
 __device__ __forceinline__ float to_float(T x);
@@ -314,95 +327,10 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pool,
 // mma instance
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaRows = 64;    // query rows of a work item: TQ tokens x qpk heads
-constexpr int kMaxSplits = 16;  // KV splits the merge holds in registers
-constexpr int kStageKeys = 64;  // keys per shared-memory stage: four 16-key sub-tiles
-constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMmaRows = 64;  // query rows of a work item: TQ tokens x qpk heads
 
-template <int D>
-struct MmaCfg {
-  static constexpr int kRow = 2 * D + 8;  // smem elements per key: K, V, 16-byte pad
-  static constexpr int kChunks = D / 4;   // 16-byte copies per key (K and V: 4*D bytes)
-  static constexpr int kPer = kStageKeys * kChunks / kThreads;  // a thread's copies per stage
-  static constexpr int kKeyStep = kThreads / kChunks;  // keys between a thread's copies
-  static constexpr int kSteps = D / 16;   // k16 steps of Q.K^T, m16 tiles of V^T
-  static constexpr int kStages = 3;  // two stages in flight under the third's compute
-  static constexpr int kStageElems = kStageKeys * kRow;
-  static constexpr int kStageBytes = kStages * kStageElems * 2;
-  // a stage's pool slots are fetched one iteration before its copies are
-  // issued and read until it is computed: kStages + 1 tables
-  static constexpr int kSlotTables = kStages + 1;
-  static constexpr int kSmem = kStageBytes + kSlotTables * kStageKeys * 4;
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  static_assert(kThreads % kChunks == 0, "a thread copies one 16-byte column of its keys");
-  // the epilogue's (o, m, l) of 4 warps x 16 rows reuse the stages
-  static_assert(4 * 16 * (D + 2) * 4 <= kStageBytes, "epilogue does not fit");
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; with bytes == 0 the destination is zero-filled
-// and nothing is read.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// d += a . b on the tensor cores: a 16x16 (row), b 16x8 (col), bf16; d f32.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The transpose of an 8x8 bf16 block held in fragment layout (thread
-// 4*r + c holds row r, columns 2c and 2c+1).
-__device__ __forceinline__ uint32_t trans8x8(uint32_t x) {
-  uint32_t y;
-  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;" : "=r"(y) : "r"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// (a, b) as two bf16 pairs: hi = bf16(a, b) and lo = bf16 of what hi leaves
-// out, so hi + lo holds a and b to ~16 significant bits.
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(a - __low2float(h), b - __high2float(h)));
-}
+template <int D, int KV>
+using MmaCfg = StageCfg<D, KV, kThreads>;
 
 // The last b in [0, count) for which pred(b, v[b]) holds, where pred holds on
 // a prefix of [0, count) that includes 0. One warp-wide round trip per 128
@@ -431,36 +359,7 @@ __device__ __forceinline__ int last_true(const int* __restrict__ v, int count, P
   return found;
 }
 
-// The pool slot of a key (page * page_size + key % page_size), or -1 past
-// k_end or on an unmapped page.
-__device__ __forceinline__ int key_slot(const int* __restrict__ pt, int key, int k_end,
-                                        int page_size) {
-  if (key >= k_end) return -1;
-  const int page = __ldg(pt + key / page_size);
-  return page >= 0 ? page * page_size + key % page_size : -1;
-}
-
-// One 64-key stage of head g: key j's K row then V row into smem row j
-// (slots[j] from the stage's slot table), zero-filled where the slot is -1.
-// Thread tid copies 16-byte column tid % kChunks of keys tid / kChunks +
-// i * kKeyStep.
-template <int D>
-__device__ __forceinline__ void load_stage(__nv_bfloat16* st, const int* slots,
-                                           const __nv_bfloat16* __restrict__ pool, size_t row,
-                                           size_t kv_off) {
-  using C = MmaCfg<D>;
-  const int chunk = threadIdx.x % C::kChunks;
-  const uint32_t base = smem_u32(st) + chunk * 16;
-#pragma unroll
-  for (int i = 0; i < C::kPer; ++i) {
-    const int j = threadIdx.x / C::kChunks + i * C::kKeyStep;
-    const int slot = slots[j];
-    const __nv_bfloat16* src = slot >= 0 ? pool + (size_t)slot * row + kv_off + chunk * 8 : pool;
-    cp_async16(base + j * C::kRow * 2, src, slot >= 0 ? 16 : 0);
-  }
-}
-
-template <int D, int QPK>
+template <int D, int QPK, int KV>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ pool,
@@ -470,13 +369,13 @@ paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            float2* __restrict__ part_ml, int num_tokens, int num_heads,
                            int num_planes, int page_size, int max_pages, float scale_log2,
                            int n_slots, int n_splits, int split_keys) {
-  using C = MmaCfg<D>;
+  using C = MmaCfg<D, KV>;
   constexpr int TQ = kMmaRows / QPK;  // tokens of a query tile
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem);
   int* slot_tab = reinterpret_cast<int*>(smem + C::kStageBytes);  // [kSlotTables][64]
 
-  const int g = blockIdx.x;  // kv head: a tile's heads run side by side
+  const int g = blockIdx.x;  // kv head: a tile's heads run side by side (0 on one plane)
   const int slot = blockIdx.y;
   const int sp = blockIdx.z;  // KV split
   const int tid = threadIdx.x;
@@ -565,7 +464,7 @@ paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int* pt = page_tables + (size_t)b * max_pages;
   const size_t row = (size_t)num_planes * D;
-  const size_t kv_off = (size_t)(2 * g) * D;
+  const size_t kv_off = KV == 2 ? (size_t)(2 * g) * D : 0;  // one plane: the latent row
   const int n_st = k_hi > k_lo ? (k_hi - k_lo + kStageKeys - 1) / kStageKeys : 0;
   // slot tables of the first kStages stages, one round trip to the page table
   for (int i = tid; i < C::kStages * kStageKeys; i += kThreads)
@@ -574,17 +473,19 @@ paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int s = 0; s < C::kStages - 1; ++s) {
     if (s < n_st)
-      load_stage<D>(stages + s * C::kStageElems, slot_tab + s * kStageKeys, pool, row, kv_off);
+      load_stage<D, KV, kThreads>(stages + s * C::kStageElems, slot_tab + s * kStageKeys, pool,
+                                  row, kv_off);
     cp_async_commit();
   }
 
   // ldmatrix row addresses (elements into a 16-key sub-tile). K, A of S^T:
   // matrices (keys 0-7, d 0-7), (keys 8-15, d 0-7), (keys 0-7, d 8-15), (keys
   // 8-15, d 8-15). V^T (transposed on load), A of O^T: (d 0-7, keys 0-7),
-  // (d 8-15, keys 0-7), (d 0-7, keys 8-15), (d 8-15, keys 8-15).
+  // (d 8-15, keys 0-7), (d 0-7, keys 8-15), (d 8-15, keys 8-15). On one
+  // plane V is K: both read the same smem row.
   const int mi = lane >> 3, mr = lane & 7;
   const int k_ld = (mr + (mi & 1) * 8) * C::kRow + (mi >> 1) * 8;
-  const int v_ld = (mr + (mi >> 1) * 8) * C::kRow + D + (mi & 1) * 8;
+  const int v_ld = (mr + (mi >> 1) * 8) * C::kRow + C::kVOff + (mi & 1) * 8;
 
   for (int it = 0; it < n_st; ++it) {
     cp_async_wait<C::kStages - 2>();  // stage it has landed (this thread's copies) ...
@@ -592,8 +493,9 @@ paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     {
       const int s = it + C::kStages - 1;
       if (s < n_st)
-        load_stage<D>(stages + (s % C::kStages) * C::kStageElems,
-                      slot_tab + (s % C::kSlotTables) * kStageKeys, pool, row, kv_off);
+        load_stage<D, KV, kThreads>(stages + (s % C::kStages) * C::kStageElems,
+                                    slot_tab + (s % C::kSlotTables) * kStageKeys, pool, row,
+                                    kv_off);
       cp_async_commit();
     }
     // the slot of key tid of stage it + kStages: stored after this stage's
@@ -765,39 +667,10 @@ paged_attention_split_combine(const float* __restrict__ part_o,
   if (i >= num_heads * c4) return;
   const size_t pn = (size_t)n * num_heads + i / c4;     // (token, head) of split 0
   const size_t stride = (size_t)num_tokens * num_heads;  // between splits
-  float2 ml[kMaxSplits];
-  float4 v[kMaxSplits];
-#pragma unroll
-  for (int s = 0; s < kMaxSplits; ++s) {
-    if (s < n_splits) {
-      ml[s] = part_ml[s * stride + pn];
-      v[s] = reinterpret_cast<const float4*>(part_o)[(s * stride + pn) * c4 + i % c4];
-    }
-  }
+  const float4 v = merge_splits(part_o, part_ml, pn, stride, c4, i % c4, n_splits);
   const int ns = __ldg(num_seqs_ptr);
   const bool pad = ns <= 0 || n >= __ldg(cu_q_lens + ns);
-  float mx = -INFINITY;
-#pragma unroll
-  for (int s = 0; s < kMaxSplits; ++s)
-    if (s < n_splits) mx = fmaxf(mx, ml[s].x);
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  float den = 0.f;
-#pragma unroll
-  for (int s = 0; s < kMaxSplits; ++s) {
-    if (s >= n_splits || ml[s].x == -INFINITY) continue;
-    const float w = ml[s].y * exp2f(ml[s].x - mx);
-    den += w;
-    acc.x += w * v[s].x;
-    acc.y += w * v[s].y;
-    acc.z += w * v[s].z;
-    acc.w += w * v[s].w;
-  }
-  const float inv = den > 0.f ? 1.f / den : 0.f;
-  uint2 o = make_uint2(0u, 0u);
-  if (!pad) {
-    o.x = bits(__floats2bfloat162_rn(acc.x * inv, acc.y * inv));
-    o.y = bits(__floats2bfloat162_rn(acc.z * inv, acc.w * inv));
-  }
+  const uint2 o = pad ? make_uint2(0u, 0u) : to_bf16x4(v);
   reinterpret_cast<uint2*>(out)[pn * c4 + i % c4] = o;
 }
 
@@ -856,10 +729,10 @@ cudaError_t dispatch_simt(int qpk, int head_dim, const Args& a) {
   }
 }
 
-template <int D, int QPK>
+template <int D, int QPK, int KV = 2>
 cudaError_t launch_mma(const Args& a) {
-  using C = MmaCfg<D>;
-  const auto kernel = paged_attention_mma_kernel<D, QPK>;
+  using C = MmaCfg<D, KV>;
+  const auto kernel = paged_attention_mma_kernel<D, QPK, KV>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (attr != cudaSuccess) return attr;
@@ -896,12 +769,14 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 cudaError_t dispatch_mma(int qpk, int head_dim, int tq, const Args& a) {
   // the splits cover every key; more than one: whole stages, and partials
-  if (a.num_planes == 1 || tq * qpk != kMmaRows || a.n_slots <= 0 || a.n_slots > 65535 ||
+  if (tq * qpk != kMmaRows || a.n_slots <= 0 || a.n_slots > 65535 ||
       a.n_splits <= 0 || a.n_splits > kMaxSplits ||
       (long long)a.n_splits * a.split_keys < (long long)a.max_pages * a.page_size ||
       (a.n_splits > 1 && (a.scratch == nullptr || a.split_keys % kStageKeys != 0)) ||
       !aligned16(a.q) || !aligned16(a.pool) || !aligned16(a.out))
     return cudaErrorInvalidValue;
+  if (a.num_planes == 1)  // latent pool: all 16 heads of moe-wide-mla's plane in a tile
+    return head_dim == 160 && qpk == 16 ? launch_mma<160, 16, 1>(a) : cudaErrorInvalidValue;
   switch (head_dim) {
     case 32: return dispatch_mma_qpk<32>(qpk, a);
     case 64: return dispatch_mma_qpk<64>(qpk, a);
@@ -914,9 +789,10 @@ cudaError_t dispatch_mma(int qpk, int head_dim, int tq, const Args& a) {
 
 // num_planes: 2*Hk for a K/V pool, 1 for the single-plane latent pool.
 // heads_per_block: H/Hk for a K/V pool; for a latent pool, the query heads one
-// block serves (8 at width 160, 4 at width 80). dtype: 0 = float32, 1 =
-// bfloat16. instance: 0 = simt, 1 = mma (bf16 K/V pools; then tq = 64 /
-// heads_per_block tokens per query tile, n_slots tile slots, n_splits KV
+// block serves (simt: 8 at width 160, 4 at width 80; mma: all 16 at width
+// 160). dtype: 0 = float32, 1 = bfloat16. instance: 0 = simt,
+// 1 = mma (bf16; then tq = 64 / heads_per_block tokens per query tile,
+// n_slots tile slots, n_splits KV
 // splits of split_keys keys each, a multiple of 64, and with n_splits > 1
 // scratch holds n_splits * num_tokens * num_heads * (head_dim + 2) floats).
 // Returns the cudaError_t of the launches (cudaErrorInvalidValue for a shape

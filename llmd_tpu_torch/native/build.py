@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers), so a
 build is one nvcc call of a few seconds. The shared library lands in
-``csrc/.build/<name>-<hash>.so``, where the hash covers the source and the
-flags: a changed source rebuilds, an unchanged one is reused. Concurrent
+``csrc/.build/<name>-<hash>.so``, where the hash covers the source, every
+header of ``csrc/`` (``*.cuh``, which the sources include) and the flags: a
+changed source or header rebuilds, an unchanged one is reused. Concurrent
 builders race benignly (each writes a temp file, then renames atomically).
 
 A failed build raises :class:`BuildError` carrying nvcc's output — there is no
@@ -62,6 +63,16 @@ def nvcc_path() -> str:
                      "toolkit is needed to build the kernels")
 
 
+def digest(src: Path) -> str:
+    """The build's cache key: ``src``, every header beside it (by name and
+    bytes, in name order) and the nvcc flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def load(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` if needed and dlopen it (once per process).
     Different sources build concurrently when loaded from several threads."""
@@ -71,9 +82,7 @@ def load(name: str) -> Built:
         if name in _LOADED:
             return _LOADED[name]
         src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-        out = BUILD_DIR / f"{name}-{digest}.so"
+        out = BUILD_DIR / f"{name}-{digest(src)}.so"
         t0 = time.perf_counter()
         log = ""
         if not out.exists():

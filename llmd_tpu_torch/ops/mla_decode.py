@@ -6,7 +6,13 @@ kernel on the TPU), with the reference's names:
 
 * :func:`mla_decode` launches ``csrc/mla_decode.cu`` for CUDA tensors and
   raises if it cannot; for CPU tensors it calls the plain version. There is
-  no fallback from the kernel to the plain version.
+  no fallback from the kernel to the plain version. The source has two
+  instances, chosen by :func:`_instance` from the dtype and the shape alone:
+  ``"mma"`` (bfloat16 at :data:`MMA_SHAPES`: tensor cores, the latent staged through shared memory
+  by asynchronous copies and read as K and as V, work items of (sequence, KV
+  split) laid out by :func:`_plan`) and ``"simt"`` (float32, and tiny-mla's
+  shape: CUDA-core FMAs, one block per sequence). ``mla_decode.launches`` counts the wrapper's
+  launches (one per layer), ``.launches_by_instance`` them per instance.
 * :func:`mla_decode_ref` is the plain PyTorch version: the tests' oracle and
   the kernel's yardstick on the card.
 * :func:`mla_paged_attention_latent` is the uniform attention-impl adapter
@@ -24,14 +30,21 @@ scores, softmax and the weighted sum run in float32. The pool is unpadded
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional
 
 import torch
 
+from llmd_tpu_torch.ops.paged_attention import _num_sms, split_keys
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# (heads, latent width) with a kernel instance: moe-wide-mla, tiny-mla
+_INSTANCE_CODE = {"simt": 0, "mma": 1}
+# (heads, latent width) with a kernel instance: moe-wide-mla, tiny-mla (simt,
+# both dtypes); the mma instance's (bfloat16): moe-wide-mla's (at tiny-mla's
+# width 80 the template spills, so simt serves it in bfloat16 too)
 SHAPES = ((16, 160), (4, 80))
+MMA_SHAPES = ((16, 160),)
 
 
 def mla_decode_ref(
@@ -80,8 +93,8 @@ def _library():
     from llmd_tpu_torch.native.build import load
 
     fn = load("mla_decode").lib.llmd_mla_decode
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                   + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -92,6 +105,96 @@ def build() -> float:
 
     _library()
     return load("mla_decode").seconds
+
+
+# The mma instance's work decomposition (csrc/mla_decode.cu): a work item is
+# (sequence, KV split), the splits laid out as K1's (a whole number of 64-key
+# stages and pages, at most 16, csrc/mma_attention.cuh). A latent key is 320
+# bytes at width 160 (K1 reads 256 per kv head), and a split's partials are
+# 16 heads x (160 + 2) floats, 10 KB written and read again by the merge: at
+# 128 keys (40 KB of latent) a quarter of the split's own bytes. A work item
+# is short (a decode row has one fragment pair of heads), so the latency of
+# its prologue and first stages, not those bytes, sets its time: on an H100,
+# decode B=64+2 over a 1008-key table took 0.0231 ms at 256 keys a split
+# (3 splits), 0.0188 ms at 128 (6 splits) and 0.0237 ms at 64 (8 splits of
+# 128: 528 items, two waves at two blocks an SM); B=8 over 5072 keys 0.019
+# ms at all three (16 splits).
+MIN_SPLIT_KEYS = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The mma instance's grid: ``splits`` x B items, the splits fastest;
+    split s covers keys ``[s * split_keys, (s + 1) * split_keys)``."""
+
+    splits: int
+    split_keys: int
+
+
+def _plan(batch: int, max_pages: int, page_size: int, num_sms: int = 132) -> Plan:
+    """The mma instance's KV splits (``paged_attention.split_keys`` at
+    ``MIN_SPLIT_KEYS``), from what the host knows without reading a device
+    tensor: the batch, the table width and the page size."""
+    return Plan(*split_keys(batch, max_pages * page_size, page_size, MIN_SPLIT_KEYS,
+                            num_sms))
+
+
+def _instance(dtype: torch.dtype, heads: int, width: int) -> str:
+    """The kernel instance for these inputs: ``"mma"`` for bfloat16 at a
+    (heads, width) of ``MMA_SHAPES``; ``"simt"`` otherwise (float32 stays off
+    the tensor cores, which would take it in TF32)."""
+    return "mma" if dtype == torch.bfloat16 and (heads, width) in MMA_SHAPES else "simt"
+
+
+def _check(q: torch.Tensor, layer_cache: torch.Tensor, page_tables: torch.Tensor,
+           kv_lens: torch.Tensor) -> None:
+    """Raise for anything the kernel does not take."""
+    B, H, D = q.shape
+    P, ps, planes, Dc = layer_cache.shape
+    if q.dtype not in _DTYPE_CODE or layer_cache.dtype != q.dtype:
+        raise TypeError(f"mla_decode: q {q.dtype} / pool {layer_cache.dtype}; "
+                        "the kernel takes float32 or bfloat16, both alike")
+    if planes != 1 or Dc != D or (H, D) not in SHAPES:
+        raise ValueError(f"mla_decode: no kernel instance for H={H} D={D} "
+                         f"planes={planes} ((heads, width) in {SHAPES}, one plane)")
+    if page_tables.shape[0] != B or kv_lens.shape != (B,):
+        raise ValueError(f"mla_decode: page_tables {tuple(page_tables.shape)} / kv_lens "
+                         f"{tuple(kv_lens.shape)} do not match B={B}")
+    if not (q.is_contiguous() and layer_cache.is_contiguous()):
+        raise ValueError("mla_decode: q and the pool must be contiguous")
+    if q.data_ptr() % 16 or layer_cache.data_ptr() % 16:
+        raise ValueError("mla_decode: q and the pool must be 16-byte aligned")
+    if any(t.device != q.device for t in (layer_cache, page_tables, kv_lens)):
+        raise ValueError("mla_decode: all inputs must be on q's device")
+
+
+def _launch(q: torch.Tensor, layer_cache: torch.Tensor, page_tables: torch.Tensor,
+            kv_lens: torch.Tensor, scale: float, instance: str) -> torch.Tensor:
+    """One launch of ``instance`` on checked inputs (counts nothing)."""
+    B, H, D = q.shape
+    ps = layer_cache.shape[1]
+    maxp = page_tables.shape[1]
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    plan, scratch = Plan(1, maxp * ps), None
+    if instance == "mma":
+        plan = _plan(B, maxp, ps, _num_sms(q.device.index or 0))
+        if plan.splits > 1:  # partial (o, m, l) of every split, merged by the kernel
+            scratch = torch.empty(plan.splits * B * H * (D + 2), dtype=torch.float32,
+                                  device=q.device)
+    pt = page_tables.to(torch.int32).contiguous()
+    lens = kv_lens.to(torch.int32).contiguous()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _library()(q.data_ptr(), layer_cache.data_ptr(), pt.data_ptr(),
+                         lens.data_ptr(), out.data_ptr(),
+                         None if scratch is None else scratch.data_ptr(), B, H, D, ps, maxp,
+                         float(scale), _DTYPE_CODE[q.dtype], _INSTANCE_CODE[instance],
+                         plan.splits, plan.split_keys, stream)
+    if err != 0:
+        raise RuntimeError(f"mla_decode kernel ({instance}) launch failed: cudaError {err}")
+    return out
 
 
 def mla_decode(
@@ -110,40 +213,16 @@ def mla_decode(
         return mla_decode_ref(q, layer_cache, page_tables, kv_lens, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"mla_decode: unsupported device {q.device}")
-    B, H, D = q.shape
-    P, ps, planes, Dc = layer_cache.shape
-    if q.dtype not in _DTYPE_CODE or layer_cache.dtype != q.dtype:
-        raise TypeError(f"mla_decode: q {q.dtype} / pool {layer_cache.dtype}; "
-                        "the kernel takes float32 or bfloat16, both alike")
-    if planes != 1 or Dc != D or (H, D) not in SHAPES:
-        raise ValueError(f"mla_decode: no kernel instance for H={H} D={D} "
-                         f"planes={planes} ((heads, width) in {SHAPES}, one plane)")
-    if page_tables.shape[0] != B or kv_lens.shape != (B,):
-        raise ValueError(f"mla_decode: page_tables {tuple(page_tables.shape)} / kv_lens "
-                         f"{tuple(kv_lens.shape)} do not match B={B}")
-    if not (q.is_contiguous() and layer_cache.is_contiguous()):
-        raise ValueError("mla_decode: q and the pool must be contiguous")
-    if layer_cache.data_ptr() % 16:
-        raise ValueError("mla_decode: the pool must be 16-byte aligned")
-    if any(t.device != q.device for t in (layer_cache, page_tables, kv_lens)):
-        raise ValueError("mla_decode: all inputs must be on q's device")
-    out = torch.empty_like(q)
-    if B == 0:
-        return out
-    pt = page_tables.to(torch.int32).contiguous()
-    lens = kv_lens.to(torch.int32).contiguous()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _library()(q.data_ptr(), layer_cache.data_ptr(), pt.data_ptr(),
-                         lens.data_ptr(), out.data_ptr(), B, H, D, ps,
-                         page_tables.shape[1], float(scale), _DTYPE_CODE[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"mla_decode kernel launch failed: cudaError {err}")
+    _check(q, layer_cache, page_tables, kv_lens)
+    instance = _instance(q.dtype, q.shape[1], q.shape[2])
+    out = _launch(q, layer_cache, page_tables, kv_lens, scale, instance)
     mla_decode.launches += 1
+    mla_decode.launches_by_instance[instance] += 1
     return out
 
 
 mla_decode.launches = 0
+mla_decode.launches_by_instance = {"mma": 0, "simt": 0}
 
 
 def mla_paged_attention_latent(

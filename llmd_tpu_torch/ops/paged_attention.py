@@ -18,10 +18,11 @@ same row, which is both K and V (absorbed MLA runs as MQA at the latent width
   and raises if it cannot; for CPU tensors (the tests) it calls the plain
   version. There is no fallback from the kernel to the plain version.
   The source has two instances, chosen by :func:`_instance` from the dtype
-  and the pool's shape alone: ``"mma"`` (bfloat16 K/V pools: tensor cores,
-  K/V tiles staged through shared memory by asynchronous copies, query
-  tiles of :data:`MMA_ROWS` rows and KV splits laid out by :func:`_plan`)
-  and ``"simt"`` (float32, and MLA's single-plane latent pool: CUDA-core
+  and the pool's shape alone: ``"mma"`` (bfloat16 K/V pools, and MLA's
+  single-plane latent pool at the widths of :data:`LATENT_MMA_HEADS`: tensor
+  cores, K/V tiles staged through shared memory by asynchronous copies, a
+  latent tile read as K and as V, query tiles of :data:`MMA_ROWS` rows and
+  KV splits laid out by :func:`_plan`) and ``"simt"`` (float32: CUDA-core
   FMAs, one block per query token). ``paged_attention.launches`` counts the
   wrapper's launches (one per layer), ``.launches_by_instance`` them per
   instance.
@@ -50,10 +51,14 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INSTANCE_CODE = {"simt": 0, "mma": 1}
 HEAD_DIMS = (32, 64, 128)
 GROUP_SIZES = (1, 2, 4, 8)  # query heads per kv head with a kernel instance
-# single-plane (MLA latent) instances: latent width -> query heads per block;
-# a block serves that many heads of the one plane, the grid covers H with
-# H / heads-per-block blocks per token. 160: moe-wide-mla; 80: tiny-mla.
+# single-plane (MLA latent) pools. simt: latent width -> query heads per
+# block; a block serves that many heads of the one plane, the grid covers H
+# with H / heads-per-block blocks per token (160: moe-wide-mla; 80:
+# tiny-mla). mma: latent width -> the heads it takes, all in one query tile
+# (qpk = H over one "kv head"); at tiny-mla's width 80 the template spills,
+# so simt serves it in bfloat16 too.
 LATENT_HEADS_PER_BLOCK = {160: 8, 80: 4}
+LATENT_MMA_HEADS = {160: 16}
 
 
 def paged_attention_ref(
@@ -179,29 +184,36 @@ class Plan:
         return (self.kv_heads, self.slots, self.splits)
 
 
-def _plan(num_tokens: int, num_seqs: int, max_pages: int, page_size: int, qpk: int,
-          kv_heads: int, num_sms: int = 132) -> Plan:
-    """The mma instance's grid and KV splits, from what the host knows
-    without reading a device tensor: the token count, the page-table rows,
-    the table width, the page size and the heads. The keys are split only
-    when the tiles alone give fewer than ``ITEMS_PER_SM`` work items per SM,
-    into at most ``MAX_SPLITS`` chunks of at least ``MIN_SPLIT_KEYS`` keys, a
-    whole number of stages and pages; with one split, it covers the whole
-    table."""
-    tq = MMA_ROWS // qpk
-    slots = -(-num_tokens // tq) + num_seqs
-    max_keys = max_pages * page_size
-    items = slots * kv_heads
+def split_keys(items: int, max_keys: int, page_size: int, min_split_keys: int,
+               num_sms: int) -> tuple[int, int]:
+    """(splits, keys per split) of a table of ``max_keys`` keys for ``items``
+    work items, shared by the attention kernels' plans: the keys are split
+    only when the items alone give fewer than ``ITEMS_PER_SM`` per SM, into
+    at most ``MAX_SPLITS`` chunks of at least ``min_split_keys`` keys, a whole
+    number of stages and pages; with one split, it covers the whole table."""
     splits = 1
     if 0 < items < ITEMS_PER_SM * num_sms:
-        splits = min(-(-ITEMS_PER_SM * num_sms // items), max_keys // MIN_SPLIT_KEYS,
+        splits = min(-(-ITEMS_PER_SM * num_sms // items), max_keys // min_split_keys,
                      MAX_SPLITS)
     if splits <= 1:
-        return Plan(tq, slots, kv_heads, 1, max_keys)
+        return 1, max_keys
     step = math.lcm(STAGE_KEYS, page_size)
-    split_keys = -(-max_keys // splits)
-    split_keys = -(-split_keys // step) * step
-    return Plan(tq, slots, kv_heads, -(-max_keys // split_keys), split_keys)
+    per = -(-max_keys // splits)
+    per = -(-per // step) * step
+    return -(-max_keys // per), per
+
+
+def _plan(num_tokens: int, num_seqs: int, max_pages: int, page_size: int, qpk: int,
+          kv_heads: int, num_sms: int = 132) -> Plan:
+    """The mma instance's grid and KV splits (:func:`split_keys`, at
+    ``MIN_SPLIT_KEYS``), from what the host knows without reading a device
+    tensor: the token count, the page-table rows, the table width, the page
+    size and the heads."""
+    tq = MMA_ROWS // qpk
+    slots = -(-num_tokens // tq) + num_seqs
+    splits, per = split_keys(slots * kv_heads, max_pages * page_size, page_size,
+                             MIN_SPLIT_KEYS, num_sms)
+    return Plan(tq, slots, kv_heads, splits, per)
 
 
 @functools.cache
@@ -210,13 +222,17 @@ def _num_sms(index: int) -> int:
 
 
 def _instance(dtype: torch.dtype, planes: int, head_dim: int, qpk: int) -> str:
-    """The kernel instance for these inputs: ``"mma"`` for a bfloat16 K/V
-    pool (planes 2*Hk) at a head dim of ``HEAD_DIMS`` and a group of
-    ``GROUP_SIZES``; ``"simt"`` otherwise (float32 stays off the tensor
-    cores, which would take it in TF32; MLA's single-plane latent pool)."""
-    if (dtype == torch.bfloat16 and planes != 1 and head_dim in HEAD_DIMS
-            and qpk in GROUP_SIZES):
-        return "mma"
+    """The kernel instance for these inputs (``qpk``: query heads per kv
+    head, all H on a single-plane pool): ``"mma"`` for bfloat16 on a K/V pool
+    (planes 2*Hk) at a head dim of ``HEAD_DIMS`` and a group of
+    ``GROUP_SIZES``, or on a latent pool (one plane) at a width and head
+    count of ``LATENT_MMA_HEADS``; ``"simt"`` otherwise (float32 stays off
+    the tensor cores, which would take it in TF32)."""
+    if dtype == torch.bfloat16:
+        if planes == 1:
+            return "mma" if LATENT_MMA_HEADS.get(head_dim) == qpk else "simt"
+        if head_dim in HEAD_DIMS and qpk in GROUP_SIZES:
+            return "mma"
     return "simt"
 
 
@@ -224,7 +240,7 @@ def _check(q: torch.Tensor, layer_cache: torch.Tensor, page_tables: torch.Tensor
            kv_lens: torch.Tensor, cu_q_lens: Optional[torch.Tensor],
            num_seqs: Optional[torch.Tensor]) -> int:
     """Raise for anything the kernel does not take; return the query heads
-    one block serves (H/Hk for a K/V pool)."""
+    per kv head (H/Hk for a K/V pool, H for a single-plane pool)."""
     if cu_q_lens is None or num_seqs is None:
         raise ValueError("paged_attention: the kernel needs cu_q_lens and num_seqs")
     N, H, D = q.shape
@@ -233,9 +249,10 @@ def _check(q: torch.Tensor, layer_cache: torch.Tensor, page_tables: torch.Tensor
     if q.dtype not in _DTYPE_CODE or layer_cache.dtype != q.dtype:
         raise TypeError(f"paged_attention: q {q.dtype} / pool {layer_cache.dtype}; "
                         "the kernel takes float32 or bfloat16, both alike")
-    if HkC == 1:  # single-plane latent pool: H heads in blocks of `group`
-        group = LATENT_HEADS_PER_BLOCK.get(D, 0)
-        ok = Dc == D and group > 0 and H % group == 0
+    if HkC == 1:  # single-plane latent pool: simt serves H in blocks of `per`
+        per = LATENT_HEADS_PER_BLOCK.get(D, 0)
+        group = H
+        ok = Dc == D and per > 0 and H % per == 0
     else:
         Hk = HkC // 2
         group = H // Hk if Hk and H % Hk == 0 else 0
@@ -266,7 +283,8 @@ def _int32(t: torch.Tensor) -> torch.Tensor:
 def _launch(q: torch.Tensor, layer_cache: torch.Tensor, page_tables: torch.Tensor,
             kv_lens: torch.Tensor, cu_q_lens: torch.Tensor, num_seqs: torch.Tensor,
             scale: float, group: int, instance: str) -> torch.Tensor:
-    """One launch of ``instance`` on checked inputs (counts nothing)."""
+    """One launch of ``instance`` on checked inputs (``group``: query heads
+    per kv head, as :func:`_check` returns it); counts nothing."""
     N, H, D = q.shape
     _, ps, HkC, _ = layer_cache.shape
     B, maxp = page_tables.shape
@@ -274,8 +292,9 @@ def _launch(q: torch.Tensor, layer_cache: torch.Tensor, page_tables: torch.Tenso
     if N == 0:
         return out
     plan, scratch = Plan(0, 0, 0, 0, 0), None
+    per_block = LATENT_HEADS_PER_BLOCK[D] if HkC == 1 and instance == "simt" else group
     if instance == "mma":
-        plan = _plan(N, B, maxp, ps, group, HkC // 2, _num_sms(q.device.index or 0))
+        plan = _plan(N, B, maxp, ps, group, max(HkC // 2, 1), _num_sms(q.device.index or 0))
         if plan.splits > 1:  # partial (o, m, l) of every split, merged by the kernel
             scratch = torch.empty(plan.splits * N * H * (D + 2), dtype=torch.float32,
                                   device=q.device)
@@ -286,7 +305,7 @@ def _launch(q: torch.Tensor, layer_cache: torch.Tensor, page_tables: torch.Tenso
         err = _library()(
             q.data_ptr(), layer_cache.data_ptr(), pt.data_ptr(), lens.data_ptr(),
             cu.data_ptr(), ns.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), N, H, HkC, group, D, ps,
+            None if scratch is None else scratch.data_ptr(), N, H, HkC, per_block, D, ps,
             maxp, float(scale), _DTYPE_CODE[q.dtype], _INSTANCE_CODE[instance], plan.tq,
             plan.slots, plan.splits, plan.split_keys, stream)
     if err != 0:

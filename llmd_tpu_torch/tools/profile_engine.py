@@ -23,7 +23,8 @@ For each batch size: an engine (random bf16 weights from ``--seed``) prefills
   share of that window's wall time (the profiler's own overhead inflates the
   window, so busy device ms per iteration is also set against the unprofiled
   wall per iteration), and the shares of device time of K1 (paged attention),
-  of K3 (MLA latent decode) and of the grouped GEMMs (K2/K4),
+  of K3 (MLA latent decode) and of the grouped GEMMs (K2/K4), and the device
+  time of the KV-split merges (K1's and K3's second kernel) per iteration,
 - on MoE models, the host time of one K2 launch (no synchronise inside) at
   this batch's decode shape: layer 0's ``wi`` bank and a random top-k routing
   of ``batch`` tokens, median over runs of 100 calls; the wrapper's call, and
@@ -33,7 +34,8 @@ For each batch size: an engine (random bf16 weights from ``--seed``) prefills
   batch's decode shape over the engine's pool (``batch`` one-token rows of
   ``prompt_len + 1`` keys, the engine's table width): the wrapper's call,
   and the C entry point alone with the same arguments (the instance the
-  wrapper picks, its split plan and scratch made once outside the loop).
+  wrapper picks, its split plan and scratch made once outside the loop);
+  on MLA models the same for one K3 launch (the decode program's kernel).
 
 Prints one line per batch (``--out PATH`` also writes every row as JSON).
 Needs a CUDA device.
@@ -122,6 +124,45 @@ def k1_host_us(eng, batch: int, prompt_len: int, seed: int) -> dict:
             "k1_host_us_per_launch": _host_us(lambda: pa.paged_attention(
                 q, pool, pts, pos, rows, lens, scale=scale, cu_q_lens=cu, num_seqs=ns)),
             "k1_c_call_us": _host_us(lambda: c_fn(*args))}
+
+
+def k3_host_us(eng, batch: int, prompt_len: int, seed: int) -> dict:
+    """Host microseconds per K3 launch at the decode shape of ``batch``
+    sequences over the engine's latent pool: ``k3_host_us_per_launch`` (the
+    wrapper, through the decode program's adapter) and ``k3_c_call_us`` (the
+    C entry point alone with the same arguments); empty on a GQA model."""
+    cfg = eng.model_cfg
+    if not cfg.is_mla:
+        return {}
+    from llmd_tpu_torch.ops import mla_decode as md
+
+    pool, dev = eng.cache, eng.cache.device
+    ps, D = pool.shape[1], pool.shape[3]
+    maxp = eng.cfg.max_pages_per_seq
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((batch, cfg.num_heads, D), generator=g, device=dev).to(pool.dtype)
+    n_pages = -(-(prompt_len + 1) // ps)
+    pts = torch.full((batch, maxp), -1, dtype=torch.int32, device=dev)
+    pts[:, :n_pages] = torch.arange(batch * n_pages, dtype=torch.int32,
+                                    device=dev).view(batch, n_pages)
+    lens = torch.full((batch,), prompt_len + 1, dtype=torch.int32, device=dev)
+    scale = 0.1
+    instance = md._instance(q.dtype, cfg.num_heads, D)
+    plan = md._plan(batch, maxp, ps, md._num_sms(dev.index or 0))
+    scratch = torch.empty(plan.splits * batch * cfg.num_heads * (D + 2), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty_like(q)
+    pt0 = pts.clamp(min=0)
+    c_fn = md._library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (q.data_ptr(), pool.data_ptr(), pt0.data_ptr(), lens.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), batch, cfg.num_heads, D, ps, maxp, scale,
+            md._DTYPE_CODE[q.dtype], md._INSTANCE_CODE[instance], plan.splits,
+            plan.split_keys, stream)
+    return {"k3_instance": instance, "k3_splits": plan.splits,
+            "k3_host_us_per_launch": _host_us(lambda: md.mla_paged_attention_latent(
+                q, pool, pts, None, None, lens, scale=scale)),
+            "k3_c_call_us": _host_us(lambda: c_fn(*args))}
 
 
 def k2_host_us(cfg, params, batch: int, seed: int) -> dict:
@@ -228,6 +269,7 @@ def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
     launches = sum(r["count"] for r in kernels)
     attn_us = sum(r["device_us"] for r in kernels if "paged_attention" in r["name"])
     mla_us = sum(r["device_us"] for r in kernels if "mla_decode" in r["name"])
+    merge_us = sum(r["device_us"] for r in kernels if "split_combine" in r["name"])
     gemm_us = sum(r["device_us"] for r in kernels if "grouped_gemm" in r["name"])
     wall_iter_ms = wall / max(iters, 1) * 1e3
     busy_iter_ms = busy_us / 1e3 / max(prof_iters, 1) if kernels else None
@@ -245,8 +287,10 @@ def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
         "kernel_launches_per_iteration": launches / max(prof_iters, 1) if kernels else None,
         "attention_share_of_device_time": attn_us / busy_us if busy_us else None,
         "mla_decode_share_of_device_time": mla_us / busy_us if busy_us else None,
+        "split_merge_device_us_per_iteration": merge_us / max(prof_iters, 1),
         "grouped_gemm_share_of_device_time": gemm_us / busy_us if busy_us else None,
         **k1_host_us(eng, batch, prompt_len, seed),
+        **k3_host_us(eng, batch, prompt_len, seed),
         **k2_host_us(cfg, eng.params, batch, seed),
         "moe_dispatch": eng.stats.moe_dispatch,
         "top_kernels": kernels[:12],

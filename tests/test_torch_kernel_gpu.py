@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: ragged
 paged attention (K1, on K/V pools and on MLA's single-plane latent pool), the
 MoE grouped GEMMs (K2 ragged, K4 per-expert) and MLA's latent decode (K3).
+bfloat16 runs each attention kernel's mma instance, float32 its simt one; the
+instance counts say which ran.
 Every test here needs a CUDA device and skips without one.
 
 On a GPU machine (``tests/conftest.py`` imports jax; where jax is not
@@ -132,13 +134,15 @@ def test_kernel_matches_plain_at_split_multiples(cuda, dtype):
 
 
 def test_paged_attention_instance_counts(cuda):
-    """bf16 K/V pools launch the mma instance, float32 and MLA's latent pool
-    the simt one; each launch counts once in ``launches`` and once in its
-    instance."""
-    cases = ((torch.bfloat16, "mma", {}), (torch.float32, "simt", {}),
-             (torch.bfloat16, "simt", {"planes": 1}))
-    for dtype, inst, extra in cases:
-        H, Hk, D = (16, 1, 160) if extra else (32, 8, 64)
+    """bf16 K/V pools and moe-wide-mla's bf16 latent pool (16 heads at width
+    160) launch the mma instance; float32, and tiny-mla's latent pool (4
+    heads at width 80) in bf16, the simt one; each launch counts once in
+    ``launches`` and once in its instance."""
+    cases = ((torch.bfloat16, "mma", {}, (32, 8, 64)), (torch.float32, "simt", {}, (32, 8, 64)),
+             (torch.bfloat16, "mma", {"planes": 1}, (16, 1, 160)),
+             (torch.float32, "simt", {"planes": 1}, (16, 1, 160)),
+             (torch.bfloat16, "simt", {"planes": 1}, (4, 1, 80)))
+    for dtype, inst, extra, (H, Hk, D) in cases:
         args, kw, _ = _case(H, Hk, D, 16, [3, 1], [40, 200], dtype, cuda, seed=5, **extra)
         before = dict(paged_attention.launches_by_instance)
         n = paged_attention.launches
@@ -410,6 +414,140 @@ def test_mla_decode_kernel_matches_plain(cuda, B, H, W, ps, dtype):
         units = bf16_rounding_units(got, ref)
         assert units <= BF16_UNITS, units
     assert torch.count_nonzero(got[kv == 0]) == 0
+
+
+def _k3_case(H, W, ps, kv, dtype, device, seed):
+    """One query row per sequence at the given kv lengths (0: idle), pages
+    shuffled, table entries past each sequence clamped to page 0 as the
+    adapter passes them."""
+    rng = np.random.default_rng(seed)
+    kv = np.asarray(kv, np.int32)
+    need = -(-kv // ps)
+    maxp = max(int(need.max()), 1) + 1
+    P = int(need.sum()) + 3
+    perm = rng.permutation(P)
+    pts = np.zeros((len(kv), maxp), np.int32)
+    o = 0
+    for b in range(len(kv)):
+        pts[b, : need[b]] = perm[o : o + need[b]]
+        o += need[b]
+    q = torch.from_numpy(rng.standard_normal((len(kv), H, W), np.float32)).to(device, dtype)
+    pool = torch.from_numpy(rng.standard_normal((P, ps, 1, W), np.float32)).to(device, dtype)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return q, pool, t(pts), t(kv)
+
+
+def _check_k3(cuda, H, W, ps, kv, dtype, seed):
+    """K3 on its instance (bf16 at moe-wide-mla's shape: mma; f32 and
+    tiny-mla's shape: simt) against the plain version on the kernel's
+    rounded q at scale 1; idle rows exact zeros."""
+    from llmd_tpu_torch.ops import mla_decode as md
+
+    q, pool, pts, lens = _k3_case(H, W, ps, kv, dtype, cuda, seed)
+    scale = 0.125
+    want = md._instance(dtype, H, W)
+    assert want == ("mma" if dtype == torch.bfloat16 and W == 160 else "simt")
+    before = dict(mla_decode.launches_by_instance)
+    got = mla_paged_attention_latent(q, pool, pts, None, None, lens, scale=scale)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in mla_decode.launches_by_instance.items()} == {
+        k: int(k == want) for k in before}
+    q_scaled = (q.float() * scale).to(dtype).float()
+    ref = mla_decode_ref(q_scaled, pool.float(), pts, lens, scale=1.0)
+    live = lens > 0
+    if dtype == torch.float32:
+        err = (got[live] - ref[live]).abs().max().item()
+        assert err <= F32_ATOL, err
+    else:
+        units = bf16_rounding_units(got[live], ref[live])
+        assert units <= BF16_UNITS, units
+    assert torch.count_nonzero(got[~live]) == 0
+
+
+# (H, W, ps, kv): B 1 at kv 1 / 16 / 17 / 4096 (16 splits), B 8 with an idle
+# row, tiny-mla's heads (simt in both dtypes)
+K3_CASES = [
+    (16, 160, 16, [1]), (16, 160, 16, [16]), (16, 160, 16, [17]), (16, 160, 16, [4096]),
+    (16, 160, 16, [4096, 1, 17, 16, 0, 2048, 3000, 600]),
+    (4, 80, 8, [1, 17, 4096, 0, 16, 999, 256, 5]),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("H,W,ps,kv", K3_CASES)
+def test_mla_decode_kernel_cases(cuda, H, W, ps, kv, dtype):
+    _check_k3(cuda, H, W, ps, kv, dtype, seed=len(kv) + W)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mla_decode_kernel_b64_with_idle_rows(cuda, dtype):
+    rng = np.random.default_rng(64)
+    kv = np.concatenate([rng.integers(1, 1025, 64), [0, 0]])
+    _check_k3(cuda, 16, 160, 16, kv, dtype, seed=64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mla_decode_kernel_at_split_multiples(cuda, dtype):
+    """kv at whole pages, 64-key stages and whole KV splits, as the card's
+    plan splits a 4096-key table over 7 sequences."""
+    from llmd_tpu_torch.ops import mla_decode as md
+
+    plan = md._plan(8, 4096 // 16 + 1, 16, md._num_sms(cuda.index or 0))
+    L = plan.split_keys
+    assert plan.splits > 1 and L % 64 == 0
+    _check_k3(cuda, 16, 160, 16, [16, 64, L, 2 * L, (4096 // L) * L, 4096, 3 * L, 0], dtype,
+              seed=L)
+
+
+def _check_k1_latent(cuda, H, W, ps, q_lens, kv_lens, dtype, seed, max_pages=None):
+    args, kw, valid = _case(H, 1, W, ps, q_lens, kv_lens, dtype, cuda, seed=seed, planes=1,
+                            max_pages=max_pages)
+    kw["scale"] = 0.125
+    want = pa._instance(dtype, 1, W, H)
+    assert want == ("mma" if dtype == torch.bfloat16 and W == 160 else "simt")
+    before = dict(paged_attention.launches_by_instance)
+    got = paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in paged_attention.launches_by_instance.items()} == {
+        k: int(k == want) for k in before}
+    q, pool, *rest = args
+    ref = paged_attention_ref(q.float(), pool.float(), *rest, **kw)[:valid]
+    if dtype == torch.float32:
+        err = (got[:valid] - ref).abs().max().item()
+        assert err <= F32_ATOL, err
+    else:
+        units = bf16_rounding_units(got[:valid], ref)
+        assert units <= BF16_UNITS, units
+    assert torch.count_nonzero(got[valid:]) == 0  # padding rows are zeros
+
+
+_DECODE_KV = list(np.random.default_rng(5).integers(128, 1025, 64))
+# (H, W, ps, q_lens, kv_lens): decode rows; a chunk of TQ + 1 tokens (TQ 4 at
+# 16 heads, 16 at 4) beside decode rows; a 512-token chunk at kv 2048
+K1_LATENT_CASES = [
+    (16, 160, 16, [1] * 64, _DECODE_KV),
+    (16, 160, 16, [5, 1, 1], [900, 33, 1]),
+    (16, 160, 16, [512, 1, 1, 1], [2048, 100, 1500, 7]),
+    (4, 80, 8, [17, 1, 1], [17, 600, 33]),
+    (4, 80, 8, [512, 1], [2048, 300]),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("H,W,ps,q_lens,kv_lens", K1_LATENT_CASES)
+def test_latent_kernel_cases(cuda, H, W, ps, q_lens, kv_lens, dtype):
+    _check_k1_latent(cuda, H, W, ps, q_lens, kv_lens, dtype, seed=sum(q_lens) + W)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_latent_kernel_at_split_multiples(cuda, dtype):
+    """Six one-token rows over a 256-page latent table, kv at whole pages,
+    stages and the splits of the card's plan (tiles of 4 tokens x 16 heads)."""
+    plan = pa._plan(6 + 3, 6 + 2, 256, 16, 16, 1, pa._num_sms(cuda.index or 0))
+    L = plan.split_keys
+    assert plan.splits > 1 and L % 64 == 0
+    _check_k1_latent(cuda, 16, 160, 16, [1] * 6, [16, 64, L, 2 * L, (4096 // L) * L, 4096],
+                     dtype, seed=L, max_pages=256)
 
 
 def test_mla_kernels_refuse_unsupported_shapes(cuda):

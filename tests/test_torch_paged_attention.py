@@ -63,10 +63,12 @@ def _row_limits(cu, kv_lens, num_seqs, max_keys):
     (torch.bfloat16, 16, 128, 8, "mma"),
     (torch.bfloat16, 16, 128, 1, "mma"),
     (torch.float32, 16, 64, 4, "simt"),    # float32 stays off the tensor cores
-    (torch.bfloat16, 1, 160, 8, "simt"),   # moe-wide-mla's latent pool
-    (torch.bfloat16, 1, 80, 4, "simt"),    # tiny-mla's
+    (torch.bfloat16, 1, 160, 8, "simt"),   # 8 heads on a latent pool: no mma instance
+    (torch.bfloat16, 1, 80, 4, "simt"),    # tiny-mla's (the mma template spills at 80)
     (torch.bfloat16, 16, 96, 4, "simt"),   # no mma instance (and no kernel at all)
     (torch.bfloat16, 16, 64, 3, "simt"),
+    (torch.bfloat16, 1, 160, 16, "mma"),   # moe-wide-mla's latent pool
+    (torch.float32, 1, 160, 16, "simt"),
 ])
 def test_instance(dtype, planes, D, qpk, want):
     assert pa._instance(dtype, planes, D, qpk) == want
