@@ -42,7 +42,9 @@ with a non-zero exit:
             and its merge timed apart; K2 and K4 for both launches of a layer
             (wi, wo) at decode and prefill.
 5. engine   behind the port's HTTP server, random bf16 weights from a seed,
-            greedy completions: llama-1b at full width (8 requests), then
+            greedy completions through the engine's defaults (the decode
+            program captured into a CUDA graph and replayed, the reference's
+            pipelined dispatch): llama-1b at full width (8 requests), then
             moe-wide-sim at full width and depth on the sorted dispatch (8
             requests), the einsum dispatch (4) and the sorted dispatch with EPLB
             (4), then moe-wide-mla at full width and depth on the sorted
@@ -54,8 +56,22 @@ with a non-zero exit:
             every launch on the bf16 wgmma instance; K1 and K3 on their mma
             instances), no plain version ran,
             the sorted path dropped nothing, EPLB re-placed its experts at
-            least twice.
-6. forward  one mixed unified batch through ``forward_core`` in float32, with
+            least twice. A replayed graph counts its captured launches once
+            per replay, so these checks hold unchanged.
+6. graph    for each of those five runs, two engines of the same seed
+            through ``generate``: the decode program replayed from its graph
+            and the same program run eagerly (``decode_graph=False``). Greedy
+            tokens, every kernel's launch count, the dropped copies and the
+            EPLB rebalances must be equal, no plain version may run, and the
+            graph engine captures once and replays once a call. Then
+            ``tools/profile_engine.profile_batch`` profiles batch 8 in both
+            modes; in each profiled window the K1/K3/K2/K4 launches that the
+            wrappers' counters credit (a replay credits its capture's) must
+            equal the launches of those kernels that the profiler saw on the
+            device. Prints captures, replays, capture seconds, decode tok/s
+            replayed and eager, host launch calls and device kernels per
+            decode iteration and the device's busy share.
+7. forward  one mixed unified batch through ``forward_core`` in float32, with
             the kernels and again with the plain versions passed as overrides:
             llama-1b, moe-wide-sim on both dispatch paths, and moe-wide-mla
             with a decode batch after it (K3) (logits held together, expert
@@ -1245,6 +1261,116 @@ def phase_engine(device, card: str, model: str = "llama-1b", n_requests: int = 8
     return row
 
 
+def phase_graph(device, card: str, model: str = "llama-1b", n_requests: int = 8,
+                max_tokens: int = 32, seed: int = 0, engine_kw: "dict | None" = None,
+                label: str = "") -> dict:
+    """The decode program replayed from its CUDA graph against the same
+    program run eagerly on the card: two engines of the same seed (same
+    weights), the reference's pipelined dispatch on, the same greedy prompts
+    through ``generate``. Tokens must be identical, and so must every
+    kernel's launch count (the graph's: its captured launches times its
+    replays) and, on MoE, the dropped copies and EPLB rebalances; no plain
+    version may run. Then ``profile_engine`` profiles a batch of 8 in both
+    modes: host launch calls and device kernels per decode iteration, and
+    the K1/K3/K2/K4 launches that the wrappers' counters credit in the
+    profiled window (under replay: the capture's launches once a replay)
+    held against the launches of those kernels that the profiler saw run on
+    the device."""
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.engine import EngineConfig, LLMEngine
+    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.models.transformer import init_params
+    from llmd_tpu_torch.tools.profile_engine import profile_batch
+
+    cfg = get_model_config(model)
+    kw = dict(page_size=PS, num_pages=2048, max_model_len=2048, max_batch_size=32,
+              prefill_chunk=512, max_num_batched_tokens=2048, decode_steps=4)
+    kw.update(engine_kw or {})
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(64, 513, n_requests)]
+    sp = SamplingParams(max_tokens=max_tokens, temperature=0.0)
+    runs = {}
+    for mode in ("graph", "eager"):
+        eng = LLMEngine(cfg, EngineConfig(**kw), seed=seed, device=device,
+                        decode_graph=mode == "graph")
+        eng.generate([[1, 2, 3]], SamplingParams(max_tokens=2 * kw["decode_steps"] + 2,
+                                                 temperature=0.0))  # capture / warm up
+        st0 = dataclasses.replace(eng.stats)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, sp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain_calls = read_counts()
+        st = eng.stats
+        runs[mode] = {
+            "tokens": out, "launches": launches, "plain_calls": plain_calls,
+            "launches_by_instance": instance_counts(), "wall_s": wall,
+            "decode_tok_s": (st.decode_tokens_fused - st0.decode_tokens_fused)
+            / max(st.time_decode_steps - st0.time_decode_steps, 1e-9),
+            "decode_calls": st.n_decode_calls - st0.n_decode_calls,
+            "chained_calls": st.n_chained_dispatches - st0.n_chained_dispatches,
+            "replays": st.decode_graph_replays - st0.decode_graph_replays,
+            "captures": st.decode_graph_captures, "capture_s": st.decode_graph_capture_s,
+            "moe_dropped_tokens": st.moe_dropped_tokens - st0.moe_dropped_tokens,
+            "eplb_rebalances": st.eplb_rebalances - st0.eplb_rebalances,
+        }
+        del eng
+        torch.cuda.empty_cache()
+    g, e = runs["graph"], runs["eager"]
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(seed), device)
+    prof = {mode: profile_batch(cfg, params, 8, 256, kw["decode_steps"], 5, 3, seed,
+                                kw.get("moe_dispatch", "auto"), decode_graph=mode == "graph")
+            for mode in ("graph", "eager")}
+    del params
+    torch.cuda.empty_cache()
+    same = {"tokens": g["tokens"] == e["tokens"], "launches": g["launches"] == e["launches"],
+            "launches_by_instance": g["launches_by_instance"] == e["launches_by_instance"],
+            "moe_dropped_tokens": g["moe_dropped_tokens"] == e["moe_dropped_tokens"],
+            "eplb_rebalances": g["eplb_rebalances"] == e["eplb_rebalances"]}
+    row = {"card": card, "model": model, "label": label, "requests": n_requests,
+           "same": same, "engine_config": {k: repr(v) for k, v in kw.items()},
+           **{f"{m}_{k}": v for m, r in runs.items() for k, v in r.items() if k != "tokens"},
+           **{f"profile_{m}": {k: v for k, v in r.items() if k not in (
+               "top_kernels", "top_host_ops")} for m, r in prof.items()}}
+    log(f"graph: {model} {label} on {card}: captures={g['captures']} "
+        f"capture_s={g['capture_s']:.3f} replays={g['replays']} "
+        f"decode_calls={g['decode_calls']} chained={g['chained_calls']} same={same} "
+        f"plain_calls={g['plain_calls']}/{e['plain_calls']}")
+    log(f"graph:   {model} {label} on {card}: decode_tok_s replayed={g['decode_tok_s']:.1f} "
+        f"eager={e['decode_tok_s']:.1f}; "
+        f"batch 8 profile: host_launch_calls/iter replayed="
+        f"{prof['graph']['host_launch_calls_per_iteration']:.2f} eager="
+        f"{prof['eager']['host_launch_calls_per_iteration']:.2f} "
+        f"({prof['graph']['host_launch_calls']} / {prof['eager']['host_launch_calls']}), "
+        f"device_kernels/iter replayed={prof['graph']['device_kernels_per_iteration']} "
+        f"eager={prof['eager']['device_kernels_per_iteration']}, device_busy_share "
+        f"replayed={prof['graph']['device_busy_share_profiled']} "
+        f"eager={prof['eager']['device_busy_share_profiled']}, decode_tok_s replayed="
+        f"{prof['graph']['decode_tok_s']:.1f} eager={prof['eager']['decode_tok_s']:.1f}")
+    if not all(same.values()) or any(g["plain_calls"].values()) or any(
+            e["plain_calls"].values()):
+        raise AssertionError(f"graph {model} {label}: replayed and eager runs differ "
+                             f"({same}) or plain versions ran ({g['plain_calls']}, "
+                             f"{e['plain_calls']})")
+    for mode, r in prof.items():
+        counted, seen = r["kernel_launches_counted"], r["kernel_launches_on_device"]
+        log(f"graph:   {model} {label} {mode} profile window: replays="
+            f"{r['profiled_graph_replays']} launches counted={counted} on device={seen}")
+        if counted != seen or not any(seen.values()) or (
+                (r["profiled_graph_replays"] > 0) != (mode == "graph")):
+            raise AssertionError(f"graph {model} {label} {mode}: the counters credit "
+                                 f"{counted} launches, the device ran {seen} "
+                                 f"({r['profiled_graph_replays']} replays)")
+    if g["captures"] != 1 or g["replays"] != g["decode_calls"] or e["replays"] or e["captures"]:
+        raise AssertionError(f"graph {model} {label}: {g['captures']} captures and "
+                             f"{g['replays']} replays for {g['decode_calls']} calls "
+                             f"(eager: {e['captures']} / {e['replays']})")
+    return row
+
+
 def phase_forward_check(device, model: str = "llama-1b", seed: int = 0,
                         moe_dispatch: str = "sorted") -> dict:
     """One mixed unified batch (two decode rows over resident KV, a fresh
@@ -1413,6 +1539,21 @@ def main(argv: "list[str] | None" = None) -> int:
                                    per_layer={"paged_attention": (1, "unified"),
                                               "mla_decode": (1, "decode"), **k2}),
     }
+    eplb_kw = {"moe_dispatch": "sorted", "eplb": EPLBConfig(
+        window_size=8, step_interval=2, num_redundant_experts=32)}
+    report["graph"] = {
+        "llama-1b": phase_graph(device, card, label="dense"),
+        "moe_sorted": phase_graph(device, card, **moe, label="sorted",
+                                  engine_kw={"moe_dispatch": "sorted"}),
+        "moe_einsum": phase_graph(device, card, **moe, n_requests=4, label="einsum",
+                                  engine_kw={"moe_dispatch": "einsum"}),
+        "moe_eplb": phase_graph(device, card, **moe, n_requests=4, label="sorted+eplb",
+                                engine_kw=eplb_kw),
+        "mla_sorted": phase_graph(device, card, model=MLA, label="mla sorted",
+                                  engine_kw={"moe_dispatch": "sorted"}),
+    }
+    if report["graph"]["moe_eplb"]["graph_eplb_rebalances"] < 2:
+        raise AssertionError("graph: EPLB re-placed its experts fewer than twice")
     for run in ("moe_sorted", "mla_sorted"):
         if eng[run]["moe_dropped_tokens"] != 0:
             raise AssertionError(f"engine {run}: the sorted dispatch dropped routed copies")

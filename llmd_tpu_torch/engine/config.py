@@ -4,9 +4,9 @@ Every field of the reference exists so configs carry over unchanged, but this
 slice of the port reads only the fields in :data:`SERVED`.
 :meth:`EngineConfig.check_served` (called at engine construction) raises for
 any other field set away from its default, so no option is silently ignored.
-The defaults of the reference's pipelined dispatch (``pipeline_*``,
-``pack_overlap``) are accepted as they are; the port's step loop is
-synchronous either way (ROADMAP Queue A item 13).
+The reference's pipelined dispatch (``pipeline_decode``, ``pipeline_depth``,
+``pack_overlap``, ``pipeline_prefill_sample``) is served, with the
+reference's defaults (on, depth 2) and every value it takes.
 """
 
 from __future__ import annotations
@@ -51,10 +51,14 @@ class EngineConfig:
     max_queue: int = 1024
     # Multi-step decode: N decode iterations per host round trip.
     decode_steps: int = 1
-    # Pipelined dispatch of the reference (not served: the port's step loop is
-    # synchronous; the defaults are accepted, other values raise).
+    # Pipelined decode dispatch: launch call N+1 chained on call N's
+    # device-resident outputs and read N's tokens while N+1 runs, with up to
+    # pipeline_depth calls in flight (costs up to depth*decode_steps
+    # speculative tokens per sequence at a stop token).
     pipeline_decode: bool = True
     pipeline_depth: int = 2
+    # Defer reading a pure-prefill step's sampled first tokens to the next
+    # step (steps with decode rows apply theirs at once).
     pipeline_prefill_sample: bool = True
     # KV offload tiers / connectors (later slices)
     cpu_offload_pages: int = 0
@@ -87,6 +91,8 @@ class EngineConfig:
     spec_ngram_max: int = 3
     spec_ngram_min: int = 1
     structured_mode: str = "auto"
+    # A chained decode call keeps the device's tokens, positions and kv
+    # lengths and uploads only steps_left (and page tables that grew).
     pack_overlap: bool = True
     structured_fused_decode: bool = True
     structured_table_max_elems: int = 1 << 23
@@ -135,5 +141,6 @@ class EngineConfig:
 SERVED = frozenset({
     "page_size", "num_pages", "max_model_len", "max_batch_size", "prefill_chunk",
     "max_num_batched_tokens", "enable_prefix_caching", "decode_steps", "attn_impl",
-    "moe_matmul", "moe_dispatch", "eplb",
+    "moe_matmul", "moe_dispatch", "eplb", "pipeline_decode", "pipeline_depth",
+    "pack_overlap", "pipeline_prefill_sample",
 })

@@ -1,0 +1,128 @@
+"""The engine's decode program: ``k`` decode iterations over a static batch of
+one row per slot (port of ``_decode_multi``, ``llmd_tpu/engine/engine.py:612``).
+
+The batch has ``B = max_batch_size`` rows in slot order, whatever the number
+of live sequences. An idle slot carries position -1, kv length 1, an empty
+page table and a budget of 0: its K/V writes go to the pool's dump row and
+no one reads its outputs. Each iteration runs ``forward_core`` → ``unembed``
+→ ``sample_tokens`` and feeds the sampled tokens back; a row whose budget
+(``steps_left``) is spent freezes (token 0, position and kv length held), so
+a call may run past the end of a sequence, as the pipelined dispatch needs.
+
+The program reads no device value on the host, so on the card it is
+captured once into a CUDA graph (``engine/cuda_graph.py``) and replayed once
+per call; on the CPU (the tests) it runs eagerly. It holds its inputs in
+:class:`DecodeBuffers`, allocated once: the host fills them for a call, and
+:func:`run_chained` writes the call's last tokens, positions and kv lengths
+back into them, so a chained call starts where the previous one ended.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from llmd_tpu_torch.engine.sampling import sample_tokens
+from llmd_tpu_torch.models.config import ModelConfig
+from llmd_tpu_torch.models.transformer import forward_core, unembed
+
+# per-row inputs the host packs, with their dtypes and idle-slot values
+PACKED = {"tokens": (torch.int32, 0), "positions": (torch.int32, -1),
+          "page_tables": (torch.int32, -1), "kv_lens": (torch.int32, 1),
+          "steps_left": (torch.int32, 0), "temperature": (torch.float32, 0.0),
+          "top_k": (torch.int32, 0), "top_p": (torch.float32, 1.0)}
+
+
+@dataclasses.dataclass
+class DecodeBuffers:
+    """The decode program's static inputs, one row per slot: what the host
+    packs (:data:`PACKED`) and the batch layout (every row a sequence of one
+    query token)."""
+
+    tokens: torch.Tensor  # [B] int32
+    positions: torch.Tensor  # [B] int32 (-1 idle)
+    page_tables: torch.Tensor  # [B, max_pages] int32 (-1 unmapped)
+    kv_lens: torch.Tensor  # [B] int32 (1 idle)
+    steps_left: torch.Tensor  # [B] int32 budget of this call (0 idle)
+    temperature: torch.Tensor  # [B] float32
+    top_k: torch.Tensor  # [B] int32
+    top_p: torch.Tensor  # [B] float32
+    seq_slots: torch.Tensor  # [B] arange
+    cu_q_lens: torch.Tensor  # [B + 1] arange
+    num_seqs: torch.Tensor  # [1] = B
+
+    @classmethod
+    def allocate(cls, batch: int, max_pages: int, device: torch.device) -> "DecodeBuffers":
+        bufs = {name: torch.full((batch, max_pages) if name == "page_tables" else (batch,),
+                                 idle, dtype=dt, device=device)
+                for name, (dt, idle) in PACKED.items()}
+        return cls(**bufs, seq_slots=torch.arange(batch, dtype=torch.int32, device=device),
+                   cu_q_lens=torch.arange(batch + 1, dtype=torch.int32, device=device),
+                   num_seqs=torch.full((1,), batch, dtype=torch.int32, device=device))
+
+    def idle(self) -> None:
+        """Every slot idle (nothing written to a real pool row)."""
+        for name, (_, idle) in PACKED.items():
+            getattr(self, name).fill_(idle)
+
+
+@dataclasses.dataclass
+class DecodeOutputs:
+    toks_out: torch.Tensor  # [k, B] int32 sampled tokens (0 where frozen)
+    last_toks: torch.Tensor  # [B] the chain point: tokens,
+    pos_out: torch.Tensor  # [B] positions
+    lens_out: torch.Tensor  # [B] and kv lengths after the call
+    counts: torch.Tensor  # [L, E] int32 expert counts summed over k ([L, 0] dense)
+    drops: torch.Tensor  # int32 scalar: dropped routed copies summed over k
+
+
+def decode_program(cfg: ModelConfig, params: dict[str, torch.Tensor], cache: torch.Tensor,
+                   buf: DecodeBuffers, k: int, generator: torch.Generator, *,
+                   attn_impl: Callable, moe_dispatch_impl: Optional[Callable]
+                   ) -> DecodeOutputs:
+    """``k`` decode iterations of the static batch (the reference's
+    ``_decode_multi``): each samples every row with its own temperature /
+    top-k / top-p (temperature 0 is the exact argmax) and advances the rows
+    with budget left. The budget is counted down on the device, so no
+    iteration index is needed. K/V go into ``cache`` in place. ``buf`` is
+    read, not written."""
+    toks, pos, lens, steps = buf.tokens, buf.positions, buf.kv_lens, buf.steps_left
+    out, counts, drops = [], None, None
+    for _ in range(k):
+        hidden, cache, cnt, drop = forward_core(
+            cfg, params, cache, toks, pos, buf.seq_slots, buf.page_tables, lens,
+            cu_q_lens=buf.cu_q_lens, num_seqs=buf.num_seqs, attn_impl=attn_impl,
+            moe_dispatch_impl=moe_dispatch_impl)
+        counts = cnt if counts is None else counts + cnt
+        drops = drop if drops is None else drops + drop
+        nxt = sample_tokens(unembed(cfg, params, hidden), generator, buf.temperature,
+                            buf.top_k, buf.top_p)
+        act = steps > 0  # rows freeze once their budget is spent
+        nxt = torch.where(act, nxt, 0)
+        pos = torch.where(act, pos + 1, pos)
+        lens = torch.where(act, lens + 1, lens)
+        steps = steps - act.to(steps.dtype)
+        out.append(nxt)
+        toks = nxt
+    return DecodeOutputs(torch.stack(out), toks, pos, lens, counts, drops.to(torch.int32))
+
+
+def run_chained(program: Callable[[], DecodeOutputs], buf: DecodeBuffers,
+                drops: bool, counts: bool) -> torch.Tensor:
+    """One call of ``program`` that leaves its chain point in ``buf`` (the
+    next call's tokens, positions and kv lengths) and returns what the host
+    reads of it, as one int32 vector: ``toks_out`` [k*B], then the dropped
+    copies [1] if ``drops`` (a MoE model) and the expert counts [L*E] if
+    ``counts`` (EPLB). This is the function the engine captures."""
+    o = program()
+    buf.tokens.copy_(o.last_toks)
+    buf.positions.copy_(o.pos_out)
+    buf.kv_lens.copy_(o.lens_out)
+    parts = [o.toks_out.reshape(-1)]
+    if drops:
+        parts.append(o.drops.reshape(1))
+    if counts:
+        parts.append(o.counts.reshape(-1).to(torch.int32))
+    return torch.cat(parts)

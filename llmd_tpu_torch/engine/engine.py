@@ -8,13 +8,15 @@ Two step programs, routed inline by ``step()``:
   ``max_num_batched_tokens`` budget; only each sequence's last row is
   unembedded, and sequences whose prompt completes sample their first token.
   Runs while any sequence is prefilling.
-- ``decode`` (reference ``_step_decode`` / ``_decode_multi``): up to
-  ``decode_steps`` decode iterations per host round trip, sampled tokens fed
-  back on the device. Each row carries a ``steps_left`` budget (max_tokens /
-  max_model_len) and freezes once it is spent; the call runs only as many
-  iterations as the largest budget (the host knows every budget, so steps no
-  row can use are never launched). Tokens past a stop token are dropped
-  when the results are applied.
+- ``decode`` (reference ``_step_decode`` / ``_decode_multi``): the decode
+  program (``engine/decode_program.py``), ``decode_steps`` iterations over a
+  static batch of one row per slot, sampled tokens fed back on the device.
+  Each row carries a ``steps_left`` budget (max_tokens / max_model_len) and
+  freezes once it is spent; idle slots ride along at position -1. On the
+  card the program is captured once into a CUDA graph at the first decode
+  call (``engine/cuda_graph.py``) and replayed once per call; the
+  constructor's ``decode_graph=False`` runs the same program eagerly (on the
+  CPU it always runs eagerly).
 
 Attention: the unified program runs K1's wrapper (``paged_attention``), the
 decode program what ``programs.select_decode_attn_impl`` picks: K1 again for
@@ -26,22 +28,33 @@ chunked prefill across sequences, preemption by recompute when pages run out,
 the tight-pool degrade of a multi-step decode to one unified step, and for MoE
 models the dispatch choice (``_select_moe_dispatch``), the dropped-copy count
 and EPLB (redundant expert slots re-placed every ``step_interval`` steps that
-routed tokens, from a sliding window of expert loads).
+routed tokens, from a sliding window of expert loads, gathered in place into
+buffers allocated once, so a captured graph reads the new placement).
 
-The loop is synchronous: every step ends with one host read of its sampled
-tokens (and, for MoE, of the step's dropped count and expert loads in the same
-copy). The reference's pipelined chain, pack overlap, deferred prefill sample
-and CUDA-graph replay are later work (ROADMAP). Batches are packed without
-padding rows: a unified step carries exactly its real tokens, a decode call
-exactly its active sequences. The capacity-einsum MoE path is told where each
-row sits in the reference's padded batch (``forward_core(moe_rows=...)``), so
-its capacity, and with it its drops, follow the reference's.
+The reference's pipelined dispatch (``_step_decode``, ``_decode_dispatch``,
+``_decode_process``): with ``pipeline_decode`` the host launches call N+1
+chained on call N's device-resident tokens, positions and kv lengths and
+reads N's tokens while N+1 runs, up to ``pipeline_depth`` calls in flight,
+while the batch's membership is unchanged (any change flushes first). With
+``pack_overlap`` a chained call uploads only ``steps_left``, and the page
+tables when a row grew a page, from pinned host buffers rotated over
+``pipeline_depth + 1`` sets. Each call's tokens (and MoE drops and expert
+counts) come back by one non-blocking copy into a pinned ring slot and a CUDA
+event, which ``_decode_process`` waits on. With ``pipeline_prefill_sample`` a
+unified step without decode rows defers reading its sampled first tokens to
+the next step the same way. A MoE model's unified step still reads its
+dropped copies and expert loads back at once, as the reference does. The
+unified program packs exactly its real tokens; the capacity-einsum MoE path
+is told where each row sits in the reference's padded batch
+(``forward_core(moe_rows=...)``), so its capacity, and with it its drops,
+follow the reference's.
 
 Entry point device: a CUDA card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -53,6 +66,9 @@ import torch
 from llmd_tpu_torch.core.kv_events import KVEvent, block_keys_for_tokens
 from llmd_tpu_torch.core.request import SamplingParams
 from llmd_tpu_torch.engine.config import EngineConfig
+from llmd_tpu_torch.engine.cuda_graph import CapturedProgram
+from llmd_tpu_torch.engine.decode_program import (
+    PACKED, DecodeBuffers, decode_program, run_chained)
 from llmd_tpu_torch.engine.kv_manager import PageAllocator, Sequence
 from llmd_tpu_torch.engine.programs import select_decode_attn_impl
 from llmd_tpu_torch.engine.sampling import greedy_tokens, sample_tokens
@@ -110,13 +126,22 @@ class EngineStats:
     moe_dispatch: str = ""  # "sorted" | "einsum" | "n/a (dense model)"
     moe_dropped_tokens: int = 0  # routed copies dropped past capacity (einsum)
     eplb_rebalances: int = 0  # expert-placement recomputes
-    # wall time inside each program; every step ends in a host read of its
-    # sampled tokens, so these include the device time
+    # wall time of each program as the host sees it: a unified step's (its
+    # deferred sample, if any, lands in the next step's); a decode call's
+    # dispatch (pack, uploads, launch) plus its processing (waiting for its
+    # results, applying them)
     time_prefill_steps: float = 0.0
     time_decode_steps: float = 0.0
+    time_host_pack: float = 0.0  # full packs of decode calls (chain starts)
+    time_pack_overlap: float = 0.0  # chained packs, while earlier calls run
     n_unified_steps: int = 0
-    n_decode_calls: int = 0
-    n_decode_iterations: int = 0  # forward passes run by decode calls
+    n_decode_calls: int = 0  # decode calls processed
+    n_decode_dispatches: int = 0  # decode calls launched (== calls at quiesce)
+    n_chained_dispatches: int = 0  # of those, chained on an in-flight call
+    n_decode_iterations: int = 0  # forward passes run by decode calls (k each)
+    decode_graph_captures: int = 0
+    decode_graph_replays: int = 0
+    decode_graph_capture_s: float = 0.0
 
 
 class LLMEngine:
@@ -130,7 +155,11 @@ class LLMEngine:
         event_sink: Optional[Callable[[list[KVEvent]], None]] = None,
         seed: int = 0,
         device: "torch.device | str | None" = None,
+        decode_graph: bool = True,
     ) -> None:
+        """``decode_graph``: on a CUDA device, capture the decode program into
+        a CUDA graph and replay it (default); False runs the same program
+        eagerly, for comparison. A CPU engine always runs it eagerly."""
         self.device = resolve_device(device)
         check_supported(model_cfg)
         engine_cfg.check_served()
@@ -174,6 +203,16 @@ class LLMEngine:
         self._eplb = None
         if engine_cfg.eplb is not None and model_cfg.is_moe:
             self._init_eplb()
+        # the pipelined dispatch: in-flight decode calls and the deferred
+        # prefill sample; all copies are ordered on the engine's stream
+        self._stream = torch.cuda.current_stream(self.device) if on_card else None
+        self._pending_decode: list[dict] = []
+        self._pending_sample: Optional[dict] = None
+        self._decode_graph = decode_graph and on_card
+        self._decode_fn: Optional[Callable[[], torch.Tensor]] = None  # built at first use
+        self._decode_bufs: Optional[DecodeBuffers] = None
+        self._pack_bufs: list[dict[str, torch.Tensor]] = []
+        self._result_ring: list[torch.Tensor] = []
 
     def _select_moe_dispatch(self) -> Optional[Callable]:
         """The MoE token dispatch (reference ``_select_moe_dispatch``, one
@@ -198,26 +237,44 @@ class LLMEngine:
         e = self.cfg.eplb
         E, L = self.model_cfg.moe_num_experts, self.model_cfg.num_layers
         self._eplb = e
-        self._eplb_slots = E + e.num_redundant_experts  # one EP rank
+        S = self._eplb_slots = E + e.num_redundant_experts  # one EP rank
         self._eplb_tracker = ExpertLoadTracker(L, E, e.window_size)
         self._eplb_steps = 0
         self._eplb_active = False  # set when a forward actually routed tokens
+        # the physical slot weights and replica tables, allocated once and
+        # re-gathered in place: a captured graph keeps reading these buffers.
+        # The replica dim is padded to its most (one expert owning every
+        # redundant slot), as the reference pads it (no new shapes).
+        p, dev = self.params, self.device
+        self._eplb_rmax = S - E + 1
+        self._eplb_params = {
+            name: torch.empty((L, S, *p[name].shape[2:]), dtype=p[name].dtype, device=dev)
+            for name in ("moe_wi", "moe_wo")}
+        self._eplb_params["eplb_replica_slots"] = torch.zeros(
+            (L, E, self._eplb_rmax), dtype=torch.int32, device=dev)
+        self._eplb_params["eplb_replica_counts"] = torch.zeros(
+            (L, E), dtype=torch.int32, device=dev)
         self._eplb_rebalance()
 
     def _eplb_rebalance(self) -> None:
         """Recompute the placement from the windowed loads and gather the
-        physical slot weights on the device (``index_select``)."""
+        physical slot weights on the device, in place (``index_select`` into
+        the slot buffers). Calls already launched read the old placement
+        first: the gather is ordered after them on the engine's stream."""
         s2e, slots, counts = rebalance(self._eplb_tracker.loads(), self._eplb_slots, 1)
         L, S = s2e.shape
         E = self.model_cfg.moe_num_experts
+        if slots.shape[2] < self._eplb_rmax:  # pad with the first replica (any is safe)
+            pad = np.repeat(slots[:, :, :1], self._eplb_rmax - slots.shape[2], axis=2)
+            slots = np.concatenate([slots, pad], axis=2)
         rows = self._tensor((np.arange(L)[:, None] * E + s2e).reshape(-1).astype(np.int64))
-        phys = {}
+        ep = self._eplb_params
         for name in ("moe_wi", "moe_wo"):
             w = self.params[name]  # [L, E, ...]
-            phys[name] = w.reshape(L * E, *w.shape[2:]).index_select(0, rows).view(
-                L, S, *w.shape[2:])
-        self._eplb_params = {**phys, "eplb_replica_slots": self._tensor(slots),
-                             "eplb_replica_counts": self._tensor(counts)}
+            torch.index_select(w.reshape(L * E, *w.shape[2:]), 0, rows,
+                               out=ep[name].view(L * S, *w.shape[2:]))
+        ep["eplb_replica_slots"].copy_(self._tensor(slots.astype(np.int32)))
+        ep["eplb_replica_counts"].copy_(self._tensor(counts.astype(np.int32)))
         self.stats.eplb_rebalances += 1
 
     def _run_params(self) -> dict[str, torch.Tensor]:
@@ -242,27 +299,20 @@ class LLMEngine:
                             moe_dispatch_impl=self._moe_dispatch_impl,
                             moe_rows=moe_rows, **kw)
 
-    def _read_back(self, tokens: Optional[torch.Tensor], cnt: torch.Tensor,
-                   drop: torch.Tensor) -> np.ndarray:
-        """The step's one host read: its tokens and, for a MoE model, its
-        dropped-copy count and (under EPLB) its expert loads, in one copy.
-        Records the MoE numbers; returns the tokens as int64."""
-        parts = [tokens.reshape(-1).long()] if tokens is not None else []
-        moe = self.model_cfg.is_moe
-        if moe:
-            parts.append(drop.reshape(1).long())
-            if self._eplb is not None:
-                parts.append(cnt.reshape(-1).long())
-        if not parts:
-            return np.zeros((0,), np.int64)
-        host = torch.cat(parts).cpu().numpy()
-        n = 0 if tokens is None else tokens.numel()
-        if moe:
-            self.stats.moe_dropped_tokens += int(host[n])
-            if self._eplb is not None:
-                self._eplb_tracker.record(host[n + 1:].reshape(cnt.shape))
-                self._eplb_active = True
-        return host[:n]
+    def _read_back(self, cnt: torch.Tensor, drop: torch.Tensor) -> None:
+        """A MoE unified step's host read, as the reference's: its dropped
+        copies and (under EPLB) its expert loads, in one copy."""
+        parts = [drop.reshape(1).long()]
+        if self._eplb is not None:
+            parts.append(cnt.reshape(-1).long())
+        self._record_moe(torch.cat(parts).cpu().numpy(), cnt.shape)
+
+    def _record_moe(self, host: np.ndarray, cnt_shape) -> None:
+        """Record ``host`` = [dropped copies, expert loads (EPLB only)...]."""
+        self.stats.moe_dropped_tokens += int(host[0])
+        if self._eplb is not None:
+            self._eplb_tracker.record(host[1:].reshape(cnt_shape))
+            self._eplb_active = True
 
     # ------------------------------------------------------------ requests
     def add_request(self, request_id: str, token_ids: list[int],
@@ -299,7 +349,8 @@ class LLMEngine:
         self._free_seq(seq)
 
     def has_work(self) -> bool:
-        return bool(self.waiting) or any(s is not None for s in self.running)
+        return (bool(self.waiting) or any(s is not None for s in self.running)
+                or bool(self._pending_decode))
 
     # ------------------------------------------------------- scheduling core
     def _free_seq(self, seq: Sequence) -> None:
@@ -373,7 +424,10 @@ class LLMEngine:
     def _preempt_one(self, exclude: Optional[Sequence] = None) -> bool:
         """Evict the most recently arrived running seq back to waiting
         (recompute semantics). ``exclude`` is the seq being scheduled:
-        evicting it would only reset it to token zero."""
+        evicting it would only reset it to token zero. A deferred prefill
+        sample lands first: its sequence is idle and holds pages, and evicting
+        it would drop its token."""
+        self._flush_pending_sample()
         victims = [s for s in self.running if s is not None and s is not exclude]
         if not victims:
             return False
@@ -409,24 +463,51 @@ class LLMEngine:
     # --------------------------------------------------------------- stepping
     def step(self) -> list[EngineOutput]:
         """One engine iteration: admit, then the unified program while any
-        sequence is prefilling, the decode program otherwise."""
+        sequence is prefilling (after the decode calls in flight land), the
+        decode program otherwise (after a deferred prefill sample lands)."""
         self._outputs = []
         self._try_admit()
-        with torch.no_grad():
+        with torch.no_grad(), self._on_stream():
             if self._prefilling_seqs():
+                self._flush_pending_decode()
                 self._step_unified()
             else:
+                self._flush_pending_sample()
                 self._step_decode()
-        if self._eplb is not None:
-            self._eplb_tick()
+            if self._eplb is not None:
+                self._eplb_tick()  # a rebalance is ordered after the calls in flight
         st = self.stats
         st.num_waiting = len(self.waiting)
         st.num_running = sum(1 for s in self.running if s is not None)
         st.kv_utilization = self.alloc.num_active / max(1, self.cfg.num_pages)
         return self._outputs
 
+    def _on_stream(self):
+        """The engine's stream, whichever thread steps it."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+        """``a`` on the device; on the card through pinned memory and a
+        non-blocking copy, so the host never waits for the stream."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cpu":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _to_host(self, t: torch.Tensor, host: Optional[torch.Tensor] = None):
+        """Start the copy of ``t`` to the host: (host tensor, event to wait on
+        before reading it; None on the CPU). ``host``: the pinned buffer to
+        copy into (default a new one)."""
+        if self.device.type == "cpu":
+            return (t.clone() if host is None else host.copy_(t)), None
+        if host is None:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(self._stream)
+        return host, ev
 
     def _sample(self, logits: torch.Tensor, seqs: list[Sequence]) -> torch.Tensor:
         """Tokens for ``logits`` rows (one per seq in order), int32 on device."""
@@ -478,6 +559,9 @@ class LLMEngine:
             budget -= n
         plan = [(s, n, d) for (s, n, d) in plan if s.slot >= 0]
         if not plan:
+            # nothing schedulable: a deferred sample may be why (its rows hold
+            # slots and pages until applied), so land it
+            self._flush_pending_sample()
             return
 
         nb = len(plan)
@@ -506,30 +590,64 @@ class LLMEngine:
             self._tensor(pts), self._tensor(lens), cu_q_lens=self._tensor(cu),
             num_seqs=self._tensor(np.array([nb], np.int32)),
             moe_rows=(torch.arange(N, device=self.device), self.cfg.batched_tokens))
+        if self.model_cfg.is_moe:
+            self._read_back(cnt, drop)
 
         sample_rows: list[tuple[int, Sequence]] = []  # (plan row, seq)
+        has_decode_rows = False
         for i, (s, n, is_decode) in enumerate(plan):
             if is_decode:
                 s.num_computed = len(s.token_ids)
                 s.maybe_commit_blocks(self.alloc)
                 self.stats.total_decode_tokens += 1
                 sample_rows.append((i, s))
+                has_decode_rows = True
             else:
                 s.num_computed += n
                 s.maybe_commit_blocks(self.alloc)
                 self.stats.total_prefill_tokens += n
                 if len(s.token_ids) == s.prompt_len and s.num_computed == s.prompt_len:
                     sample_rows.append((i, s))  # prompt complete: first token
-        sampled = None
+        # Pipelined sample read (reference :1894-1910): launch this step's
+        # sampling, apply the PREVIOUS step's deferred sample while the device
+        # runs, and defer this one; its rows are neither prefilling nor
+        # decode-ready until applied. Steps with decode rows apply at once.
+        rec = None
         if sample_rows:
             last = self._tensor(cu[[i + 1 for i, _ in sample_rows]] - 1)
             logits = unembed(self.model_cfg, self.params, hidden[last.long()])
-            sampled = self._sample(logits, [s for _, s in sample_rows])
-        sampled = self._read_back(sampled, cnt, drop).tolist()
-        for (_, s), tok in zip(sample_rows, sampled):
-            self._apply_token(s, tok)
+            rec = self._sample_dispatch(sample_rows, logits)
+        prev, self._pending_sample = self._pending_sample, None
+        if prev is not None:
+            self._sample_apply(prev)
+        if rec is not None:
+            if self.cfg.pipeline_prefill_sample and not has_decode_rows:
+                self._pending_sample = rec
+            else:
+                self._sample_apply(rec)
         self.stats.time_prefill_steps += time.perf_counter() - t0
         self.stats.n_unified_steps += 1
+
+    def _sample_dispatch(self, rows: list[tuple[int, Sequence]],
+                         logits: torch.Tensor) -> dict:
+        """Sample ``logits`` (one row per entry of ``rows``) on the device and
+        start the copy of the tokens to the host; no wait here."""
+        host, event = self._to_host(self._sample(logits, [s for _, s in rows]))
+        return {"host": host, "event": event, "rows": [(s, s.slot) for _, s in rows]}
+
+    def _flush_pending_sample(self) -> None:
+        rec, self._pending_sample = self._pending_sample, None
+        if rec is not None:
+            self._sample_apply(rec)
+
+    def _sample_apply(self, rec: dict) -> None:
+        """Wait for one dispatched sample's tokens and apply them."""
+        if rec["event"] is not None:
+            rec["event"].synchronize()
+        for (s, slot), tok in zip(rec["rows"], rec["host"].tolist()):
+            if s.finished or s.slot != slot or self.running[slot] is not s:
+                continue  # aborted / preempted while the sample was in flight
+            self._apply_token(s, tok)
 
     def _apply_token(self, s: Sequence, tok: int) -> None:
         s.token_ids.append(tok)
@@ -541,70 +659,221 @@ class LLMEngine:
             finish_reason=reason, num_cached_prompt_tokens=s.num_cached_prompt,
             prompt_len=s.prompt_len))
 
+    # ------------------------------------------------------------- decode
     def _step_decode(self) -> None:
-        """Fused multi-step decode: up to ``decode_steps`` iterations, tokens
-        fed back on the device, one host read at the end."""
+        """Fused multi-step decode with the pipelined dispatch (reference
+        ``_step_decode``): with ``pipeline_decode`` call N+1 is launched
+        chained on call N's device-resident outputs and N's tokens are read
+        while N+1 runs, while the batch's membership is unchanged; any change
+        flushes the calls in flight first."""
         t0 = time.perf_counter()
         active = self._decode_ready()
         if not active:
+            self._flush_pending_decode()
             return
         k = max(1, self.cfg.decode_steps)
-        # k iterations write KV for positions len-1 .. len+k-2 → len+k-1 slots.
-        # If the pool can't cover that horizon, degrade to a single unified
+        q = self._pending_decode
+        off = sum(rec["k"] for rec in q)
+        # The host knows every row's hard budget (max_tokens / max_model_len):
+        # when the calls in flight already cover it for every row, one more
+        # call could only compute frozen rows. Drain the oldest call instead.
+        # (A stop token before the budget still speculates: that is the
+        # pipeline's purpose.)
+        if q:
+            horizon = max(
+                min(s.max_tokens - (len(s.token_ids) + off - s.prompt_len),
+                    self.cfg.max_model_len - (len(s.token_ids) + off))
+                for s in active)
+            if horizon <= 0:
+                self._decode_process(q.pop(0))
+                return
+        # k iterations write KV for positions len+off-1 .. len+off+k-2. If the
+        # pool can't cover that horizon, flush and degrade to a single unified
         # step (decode rows only) rather than preempting.
-        ok = all(self._ensure_pages(s, min(len(s.token_ids) + k - 1,
+        ok = all(self._ensure_pages(s, min(len(s.token_ids) + off + k - 1,
                                             self.cfg.max_model_len))
                  for s in active if s.slot >= 0)
         if not ok:
+            self._flush_pending_decode()
             self._step_unified()
             return
         active = [s for s in active if s.slot >= 0]
         if not active:
             return
+        if q:
+            same = ({(s.request_id, s.slot) for s in active}
+                    == {(s.request_id, slot) for s, slot in q[-1]["rows"]})
+            if same and self.cfg.pipeline_decode:
+                q.append(self._decode_dispatch(active, k, chain=q[-1], wall_start=t0,
+                                               off=off))
+                # up to pipeline_depth calls in flight: the one queued behind
+                # the running call keeps the device busy while the finished
+                # call's tokens cross to the host
+                if len(q) > max(1, self.cfg.pipeline_depth):
+                    self._decode_process(q.pop(0))
+                return
+            self._flush_pending_decode()
+            q = self._pending_decode
+            active = [s for s in self._decode_ready() if s.slot >= 0]
+            if not active:
+                return
+        rec = self._decode_dispatch(active, k, chain=None, wall_start=t0)
+        if self.cfg.pipeline_decode:
+            q.append(rec)
+        else:
+            self._decode_process(rec)
 
-        nb = len(active)
-        toks = np.zeros((nb,), np.int32)
-        pos = np.zeros((nb,), np.int32)
-        pts = np.full((nb, self.cfg.max_pages_per_seq), -1, np.int32)
-        lens = np.ones((nb,), np.int32)
-        steps_left = np.zeros((nb,), np.int32)
-        for j, s in enumerate(active):
-            n_tok = len(s.token_ids)
-            toks[j] = s.token_ids[-1]
-            pos[j] = n_tok - 1
-            pts[j, : len(s.pages)] = s.pages
-            lens[j] = n_tok
-            steps_left[j] = max(0, min(s.max_tokens - (n_tok - s.prompt_len),
-                                       self.cfg.max_model_len - n_tok, k))
-        n_iter = max(1, int(steps_left.max()))
-        tok_d, pos_d, lens_d = self._tensor(toks), self._tensor(pos), self._tensor(lens)
-        pts_d, steps_d = self._tensor(pts), self._tensor(steps_left)
-        slots_d = torch.arange(nb, dtype=torch.int32, device=self.device)
-        cu_d = torch.arange(nb + 1, dtype=torch.int32, device=self.device)
-        ns_d = torch.tensor([nb], dtype=torch.int32, device=self.device)
-        # the reference's decode batch has a row per slot, in slot order
-        moe_rows = (self._tensor(np.array([s.slot for s in active], np.int64)),
-                    self.cfg.max_batch_size)
-        out, cnt, drop = [], 0, 0
-        for i in range(n_iter):
-            hidden, self.cache, cnt_i, drop_i = self._forward(
-                "decode", tok_d, pos_d, slots_d, pts_d, lens_d, cu_q_lens=cu_d,
-                num_seqs=ns_d, moe_rows=moe_rows)
-            cnt, drop = cnt + cnt_i, drop + drop_i
-            nxt = self._sample(unembed(self.model_cfg, self.params, hidden), active)
-            act = i < steps_d  # rows freeze once their budget is spent
-            nxt = torch.where(act, nxt, 0)
-            pos_d = torch.where(act, pos_d + 1, pos_d)
-            lens_d = torch.where(act, lens_d + 1, lens_d)
-            out.append(nxt)
-            tok_d = nxt
-        # [n_iter, nb] (the host sync)
-        toks_out = self._read_back(torch.stack(out), cnt, drop).reshape(n_iter, nb)
+    def _flush_pending_decode(self) -> None:
+        q, self._pending_decode = self._pending_decode, []
+        for rec in q:
+            self._decode_process(rec)
 
-        for j, s in enumerate(active):
+    def _pack_buf(self) -> dict[str, torch.Tensor]:
+        """The host buffer set of the next dispatch (pinned on the card), one
+        of ``pipeline_depth + 1`` sets taken in turn by dispatch count. A set
+        is refilled only after the dispatch that uploaded from it has been
+        processed: at most ``pipeline_depth`` calls are in flight when a call
+        is packed, and processing a call waits for its event, recorded after
+        its uploads, replay and readback on the engine's stream."""
+        if not self._pack_bufs:
+            B, maxp = self.cfg.max_batch_size, self.cfg.max_pages_per_seq
+            pin = self.device.type == "cuda"
+            self._pack_bufs = [
+                {name: torch.empty((B, maxp) if name == "page_tables" else (B,),
+                                   dtype=dt, pin_memory=pin)
+                 for name, (dt, _) in PACKED.items()}
+                for _ in range(max(1, self.cfg.pipeline_depth) + 1)]
+        return self._pack_bufs[self.stats.n_decode_dispatches % len(self._pack_bufs)]
+
+    def _result_slot(self) -> torch.Tensor:
+        """The host buffer that the next dispatch's results are copied into
+        (pinned on the card), one of ``pipeline_depth + 1`` taken in turn,
+        reused only after the call that filled it was processed."""
+        if not self._result_ring:
+            k, B = max(1, self.cfg.decode_steps), self.cfg.max_batch_size
+            n = k * B + (1 if self.model_cfg.is_moe else 0)
+            if self._eplb is not None:
+                n += self.model_cfg.num_layers * self.model_cfg.moe_num_experts
+            self._result_ring = [
+                torch.empty((n,), dtype=torch.int32, pin_memory=self.device.type == "cuda")
+                for _ in range(max(1, self.cfg.pipeline_depth) + 1)]
+        return self._result_ring[self.stats.n_decode_dispatches % len(self._result_ring)]
+
+    def _decode_program(self) -> Callable[[], torch.Tensor]:
+        """The decode program over the engine's static buffers (made at the
+        first decode call): captured into a CUDA graph on the card unless
+        ``decode_graph=False``, eager otherwise."""
+        if self._decode_fn is None:
+            cfg = self.model_cfg
+            buf = self._decode_bufs = DecodeBuffers.allocate(
+                self.cfg.max_batch_size, self.cfg.max_pages_per_seq, self.device)
+            k = max(1, self.cfg.decode_steps)
+
+            def program():
+                return run_chained(lambda: decode_program(
+                    cfg, self._run_params(), self.cache, buf, k, self._gen,
+                    attn_impl=self._attn["decode"],
+                    moe_dispatch_impl=self._moe_dispatch_impl), buf, drops=cfg.is_moe,
+                    counts=self._eplb is not None)
+
+            if self._decode_graph:
+                buf.idle()  # the warm-up runs write only the pool's dump row
+                graph = CapturedProgram(program, self.device, self._gen)
+                graph.capture()
+                self.stats.decode_graph_captures += 1
+                self.stats.decode_graph_capture_s += graph.seconds
+                self._decode_fn = graph
+            else:
+                self._decode_fn = program
+        return self._decode_fn
+
+    def _decode_dispatch(self, active: list[Sequence], k: int, chain: Optional[dict],
+                         wall_start: float, off: int = 0) -> dict:
+        """Pack host state (plus the ``off`` tokens of the calls in flight) and
+        launch one decode call chained on ``chain``; returns the in-flight
+        record, whose results are not read here.
+
+        Two pack regimes (reference ``_decode_dispatch``): a chain start (or
+        ``pack_overlap`` off) packs every input from the host (a chained one
+        keeps the device's tokens); a chained call with ``pack_overlap``
+        keeps the device's tokens, positions and kv lengths and uploads only
+        ``steps_left``, and the page tables when a row grew a page."""
+        program = self._decode_program()
+        buf = self._decode_bufs
+        host_t = self._pack_buf()
+        host = {name: t.numpy() for name, t in host_t.items()}  # views of the same memory
+        fast = chain is not None and self.cfg.pack_overlap
+        steps = host["steps_left"]
+        steps.fill(0)
+        if fast:
+            uploads = ["steps_left"]
+            sig = chain["pages_sig"]
+            for s in active:
+                eff_len = len(s.token_ids) + off  # host view + in-flight tokens
+                steps[s.slot] = max(0, min(s.max_tokens - (eff_len - s.prompt_len),
+                                           self.cfg.max_model_len - eff_len, k))
+            pages_sig = tuple(len(s.pages) for s in active)
+            if pages_sig != sig:
+                uploads.append("page_tables")
+                host["page_tables"].fill(-1)
+                for s in active:
+                    host["page_tables"][s.slot, : len(s.pages)] = s.pages
+        else:
+            uploads = [n for n in PACKED if chain is None or n != "tokens"]
+            for name in PACKED:
+                if name != "steps_left":
+                    host[name].fill(PACKED[name][1])
+            for s in active:
+                i = s.slot
+                eff_len = len(s.token_ids) + off
+                host["tokens"][i] = s.token_ids[-1]  # a chained call keeps the device's
+                host["positions"][i] = eff_len - 1
+                host["page_tables"][i, : len(s.pages)] = s.pages
+                host["kv_lens"][i] = eff_len
+                sp = s.sampling
+                host["temperature"][i] = sp.temperature
+                host["top_k"][i] = sp.top_k
+                host["top_p"][i] = sp.top_p
+                steps[i] = max(0, min(s.max_tokens - (eff_len - s.prompt_len),
+                                      self.cfg.max_model_len - eff_len, k))
+            pages_sig = tuple(len(s.pages) for s in active)
+        t1 = time.perf_counter()
+        st = self.stats
+        if fast:  # the device is still running the chain: this pack is hidden
+            st.time_pack_overlap += t1 - wall_start
+        else:
+            st.time_host_pack += t1 - wall_start
+        for name in uploads:
+            getattr(buf, name).copy_(host_t[name], non_blocking=True)
+        readback = program()
+        result, event = self._to_host(readback, self._result_slot())
+        st.time_decode_steps += time.perf_counter() - wall_start
+        st.n_decode_dispatches += 1
+        st.n_decode_iterations += k
+        if chain is not None:
+            st.n_chained_dispatches += 1
+        if self._decode_graph:
+            st.decode_graph_replays += 1
+        return {"rows": [(s, s.slot) for s in active], "k": k, "host": result,
+                "event": event, "pages_sig": pages_sig}
+
+    def _decode_process(self, rec: dict) -> None:
+        """Wait for one in-flight decode call's results and apply them."""
+        t1 = time.perf_counter()
+        if rec["event"] is not None:
+            rec["event"].synchronize()
+        k, B = rec["k"], self.cfg.max_batch_size
+        host = rec["host"].numpy().copy()
+        toks_out = host[: k * B].reshape(k, B)
+        if self.model_cfg.is_moe:
+            self._record_moe(host[k * B:], (self.model_cfg.num_layers,
+                                            self.model_cfg.moe_num_experts))
+        for s, slot in rec["rows"]:
+            if s.finished or s.slot != slot or self.running[slot] is not s:
+                continue  # aborted / preempted / replaced while in flight
             kept: list[int] = []
             finished, reason = False, None
-            for t in toks_out[: steps_left[j], j].tolist():
+            for t in toks_out[:, slot].tolist():
                 kept.append(t)
                 s.token_ids.append(t)
                 finished, reason = self._check_finish(s, t)
@@ -621,10 +890,8 @@ class LLMEngine:
                 request_id=s.request_id, new_token_ids=kept, finished=finished,
                 finish_reason=reason, num_cached_prompt_tokens=s.num_cached_prompt,
                 prompt_len=s.prompt_len))
-        st = self.stats
-        st.time_decode_steps += time.perf_counter() - t0
-        st.n_decode_calls += 1
-        st.n_decode_iterations += n_iter
+        self.stats.time_decode_steps += time.perf_counter() - t1
+        self.stats.n_decode_calls += 1
 
     def _retire(self, seq: Sequence, reason: Optional[str]) -> None:
         """Free slot + pages, drop from the live map."""
@@ -656,4 +923,10 @@ class LLMEngine:
         while self.has_work():
             for out in self.step():
                 done[out.request_id].extend(out.new_token_ids)
+        # every launched decode call was processed: a gap would mean an
+        # in-flight record was dropped with its tokens
+        assert (self.stats.n_decode_dispatches == self.stats.n_decode_calls
+                and not self._pending_decode), (
+            f"decode pipeline leak: dispatched {self.stats.n_decode_dispatches}, "
+            f"processed {self.stats.n_decode_calls}, pending {len(self._pending_decode)}")
         return done

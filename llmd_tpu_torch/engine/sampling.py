@@ -28,7 +28,11 @@ def sample_tokens(
     """Sampled token ids [B] (int32), the reference's algorithm: the top
     ``top_k_max`` candidates once, per-row k masking inside them, top-p over
     the sorted candidates (keep until the mass is reached, first always kept),
-    then one categorical draw."""
+    then one categorical draw. The draw is the exponential race: the argmax
+    of ``p / E`` with E ~ Exp(1) per candidate picks candidate i with
+    probability p_i / sum(p), as ``torch.multinomial`` draws one sample, but
+    without multinomial's host read of its input check, so a CUDA graph
+    captures it (with ``generator`` registered, each replay draws anew)."""
     logits = logits.float()
     B, V = logits.shape
     greedy = torch.argmax(logits, dim=-1)
@@ -43,6 +47,8 @@ def sample_tokens(
     cum = torch.cumsum(probs, dim=-1)
     keep = ((cum - probs) < top_p.float()[:, None]) | (ranks == 0)
     probs = torch.where(keep & (ranks < k_eff), probs, 0.0)
-    choice = torch.multinomial(probs, 1, generator=generator)  # renormalises
+    race = torch.empty_like(probs).exponential_(generator=generator)
+    # a zero-probability candidate never wins, even against a draw of 0
+    choice = torch.argmax(torch.where(probs > 0, probs / race, -1.0), dim=-1, keepdim=True)
     sampled = torch.gather(topi, 1, choice)[:, 0]
     return torch.where(temperature <= 0.0, greedy, sampled).to(torch.int32)

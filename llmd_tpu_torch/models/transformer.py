@@ -310,12 +310,18 @@ def moe_block(
 def init_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                dtype: Optional[torch.dtype] = None,
                device: "torch.device | str | None" = None) -> torch.Tensor:
-    """[L*P, page_size, 2*Hk, Dh] flat pool: layer l's page p at row l*P + p;
-    K at plane 2h, V at 2h+1; unpadded head dim. MLA: one plane of the
-    unpadded latent width, [L*P, page_size, 1, r + dr]."""
+    """[L*P + 1, page_size, 2*Hk, Dh] flat pool: layer l's page p at row
+    l*P + p; K at plane 2h, V at 2h+1; unpadded head dim. MLA: one plane of
+    the unpadded latent width, [L*P + 1, page_size, 1, r + dr].
+
+    The last page, L*P, is the dump page: no page table reaches it, and the
+    K/V writes of padding rows (position -1) land in its last row, the dump
+    row (:func:`write_kv`, :func:`forward_core`). So a write needs no host
+    read to find its real rows (the reference drops them with
+    ``mode="drop"``)."""
     planes = 1 if cfg.is_mla else 2 * cfg.num_kv_heads
     return torch.zeros(
-        (cfg.num_layers * num_pages, page_size, planes, cfg.kv_cache_head_dim),
+        (cfg.num_layers * num_pages + 1, page_size, planes, cfg.kv_cache_head_dim),
         dtype=dtype if dtype is not None else cfg.torch_dtype, device=device)
 
 
@@ -333,12 +339,12 @@ def write_kv(flat_cache: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              slots: torch.Tensor) -> torch.Tensor:
     """Write new tokens' K/V into flat cache slots, in place.
 
-    flat_cache: [S, 2*Hk, D] (the pool viewed as token slots); k/v: [N, Hk, D];
-    slots: [N] global slot ids. Slot -1 marks padding and is dropped. A
-    single-plane pool [S, 1, D] takes k [N, 1, D] (the latent row) and
-    ignores v."""
-    keep = (slots >= 0).nonzero().squeeze(1)
-    _write_rows(flat_cache, k[keep], v[keep], slots[keep])
+    flat_cache: [S, 2*Hk, D], the pool viewed as token slots, its last row
+    S - 1 the dump row (:func:`init_cache`); k/v: [N, Hk, D]; slots: [N]
+    global slot ids. Slot -1 marks padding and is written to the dump row,
+    with no host read. A single-plane pool [S, 1, D] takes k [N, 1, D] (the
+    latent row) and ignores v."""
+    _write_rows(flat_cache, k, v, torch.where(slots >= 0, slots, flat_cache.shape[0] - 1))
     return flat_cache
 
 
@@ -350,7 +356,7 @@ def write_kv(flat_cache: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def forward_core(
     cfg: ModelConfig,
     params: dict[str, torch.Tensor],
-    cache: torch.Tensor,  # [L*P, ps, 2*Hk, Dh] / MLA [L*P, ps, 1, r+dr] (updated in place)
+    cache: torch.Tensor,  # [L*P+1, ps, 2*Hk, Dh] / MLA [L*P+1, ps, 1, r+dr] (updated in place)
     tokens: torch.Tensor,  # [N] flat mixed batch
     positions: torch.Tensor,  # [N] (-1 pad)
     seq_slots: torch.Tensor,  # [N] owning batch row (page lookup / masks)
@@ -373,24 +379,31 @@ def forward_core(
 
     Returns (hidden [N, D] final-normed, cache, expert_counts [L, E] int32
     ([L, 0] for a dense model), dropped copies int32 scalar). Callers unembed
-    only the rows they need. The padding-row filter for the KV write costs
-    one host sync per call (``nonzero``), shared by all layers."""
+    only the rows they need. Padding rows write their K/V to the pool's dump
+    row (:func:`init_cache`): no host read anywhere, so the decode program
+    that runs it can be captured into a CUDA graph."""
     check_supported(cfg)
     N = tokens.shape[0]
     Ptot, ps, HkC, Dh = cache.shape
     L, D, H, Hk = cfg.num_layers, cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads
-    P = Ptot // L  # pages per layer
+    if (Ptot - 1) % L:
+        raise ValueError(f"forward_core: a pool of {Ptot} pages is not L*P pages and the "
+                         "dump page: allocate it with init_cache")
+    P = (Ptot - 1) // L  # pages per layer
     B = page_tables.shape[0]
     x = params["embed"][tokens.long()].to(cfg.torch_dtype)  # [N, D]
 
-    # global slot ids of the new tokens: page_table[seq, pos // ps] * ps + pos % ps
+    # global slot ids of the new tokens, layer l's at page_table[seq, pos //
+    # ps] * ps + pos % ps + l*P*ps; padding rows (position -1) at the dump
+    # row, the last of the dump page
     valid = positions >= 0
     b = seq_slots.long().clamp(0, B - 1)
     pos0 = torch.where(valid, positions, 0).long()
     safe_page = torch.where(page_tables >= 0, page_tables, 0).long()[b, pos0 // ps]
-    rows = valid.nonzero().squeeze(1)
-    row_slots = (safe_page * ps + pos0 % ps)[rows]
     flat = cache.view(Ptot * ps, HkC, Dh)
+    layer_base = torch.arange(L, device=x.device)[:, None] * (P * ps)
+    dst = torch.where(valid[None, :], (safe_page * ps + pos0 % ps)[None, :] + layer_base,
+                      Ptot * ps - 1)  # [L, N]
     if cfg.is_mla:
         # absorbed MLA: MQA over the latent row [c ; k_rope]; RoPE turns only
         # the dr rope dims, so its tables are built at dr, not head_dim
@@ -425,7 +438,7 @@ def forward_core(
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
         # this layer's slice of the pool: slots/pages shifted by the layer offset
-        _write_rows(flat, k[rows], v[rows], row_slots + l * (P * ps))
+        _write_rows(flat, k, v, dst[l])
         pt_l = torch.where(page_tables >= 0, page_tables + l * P, -1)
         attn = attn_impl(q, cache, pt_l, positions, seq_slots, kv_lens,
                          cu_q_lens=cu_q_lens, num_seqs=num_seqs, scale=scale)
@@ -475,22 +488,24 @@ def forward(
     """[B, T]-shaped convenience wrapper over ``forward_core``.
 
     Row b's valid tokens (position >= 0) must be its newest ones, in order,
-    ending at ``kv_lens[b] - 1``: they are packed flat with ``cu_q_lens`` as the
-    kernel takes them (one host sync to find them). Padding rows come back as
-    zero hidden states. Returns (logits [B, T, vocab], cache[, hidden])."""
+    ending at ``kv_lens[b] - 1``. They are packed flat with ``cu_q_lens`` as the
+    kernel takes them by a stable sort on the device (valid tokens first, in
+    row order; the padding after ``cu_q_lens[B]``), with no host read. Padding
+    rows come back as zero hidden states. Returns (logits [B, T, vocab],
+    cache[, hidden])."""
     B, T = tokens.shape
     dev = tokens.device
-    valid = positions >= 0
-    rows = valid.reshape(-1).nonzero().squeeze(1)
+    valid = (positions >= 0).reshape(-1)
+    order = torch.argsort((~valid).to(torch.int8), stable=True)
     cu = torch.zeros((B + 1,), dtype=torch.int32, device=dev)
-    cu[1:] = valid.sum(1).cumsum(0)
-    seq_slots = torch.arange(B, dtype=torch.int32, device=dev).repeat_interleave(T)[rows]
+    cu[1:] = valid.view(B, T).sum(1).cumsum(0)
+    seq_slots = torch.arange(B, dtype=torch.int32, device=dev).repeat_interleave(T)
     packed, cache, _, _ = forward_core(
-        cfg, params, cache, tokens.reshape(-1)[rows], positions.reshape(-1)[rows],
-        seq_slots, page_tables, kv_lens, cu_q_lens=cu,
-        num_seqs=torch.tensor([B], dtype=torch.int32, device=dev))
-    hidden = packed.new_zeros((B * T, packed.shape[-1]))
-    hidden[rows] = packed
+        cfg, params, cache, tokens.reshape(-1)[order], positions.reshape(-1)[order],
+        seq_slots[order], page_tables, kv_lens, cu_q_lens=cu,
+        num_seqs=torch.full((1,), B, dtype=torch.int32, device=dev))
+    hidden = torch.where(valid[:, None], packed.new_zeros(packed.shape).index_copy_(
+        0, order, packed), 0)
     logits = unembed(cfg, params, hidden).reshape(B, T, -1)
     if with_hidden:
         return logits, cache, hidden.reshape(B, T, -1)

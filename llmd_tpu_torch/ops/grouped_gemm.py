@@ -21,6 +21,9 @@ the widths alone: ``"wgmma"`` (bfloat16 with D and F multiples of 8: tensor
 cores fed by TMA copies through a ring of shared-memory stages) and
 ``"simt"`` (float32, and bfloat16 at other widths: CUDA-core FMAs). Each
 wrapper also counts its launches per instance in ``.launches_by_instance``.
+A CUDA-graph replay of a program that launches a wrapper adds what the
+capture counted (``engine/cuda_graph.py``), so the counters count device
+launches.
 """
 
 from __future__ import annotations

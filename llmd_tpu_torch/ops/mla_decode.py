@@ -12,7 +12,8 @@ kernel on the TPU), with the reference's names:
   by asynchronous copies and read as K and as V, work items of (sequence, KV
   split) laid out by :func:`_plan`) and ``"simt"`` (float32, and tiny-mla's
   shape: CUDA-core FMAs, one block per sequence). ``mla_decode.launches`` counts the wrapper's
-  launches (one per layer), ``.launches_by_instance`` them per instance.
+  launches (one per layer), ``.launches_by_instance`` them per instance; a
+  CUDA-graph replay adds what its capture counted (``engine/cuda_graph.py``).
 * :func:`mla_decode_ref` is the plain PyTorch version: the tests' oracle and
   the kernel's yardstick on the card.
 * :func:`mla_paged_attention_latent` is the uniform attention-impl adapter

@@ -5,7 +5,7 @@
   choice already happened in ``moe_block``, so the sort key is the placement).
 * Scatter the activations into a block-aligned buffer whose per-slot segments
   start at multiples of the GEMM block size ``bc``: static shapes,
-  data-dependent fill, no drops, no host read.
+  data-dependent fill, no drops, no host read (so a CUDA graph captures it).
 * Run the expert MLP as two block-ragged grouped GEMMs (K2,
   ``ops/grouped_gemm.ragged_grouped_gemm``: the CUDA kernel on the card, its
   plain version for CPU tensors), ``silu(gate) * up`` between them in the
@@ -56,7 +56,10 @@ def _row_plan(slot: torch.Tensor, S: int, bc: int):
     dev = slot.device
     slot = slot.long()
     ss, order = torch.sort(slot, stable=True)
-    cnt = torch.bincount(slot, minlength=S + 1)[:S]
+    # copies per slot; a scatter-add, since bincount reads its input's maximum
+    # back to the host (no capture in a CUDA graph)
+    cnt = torch.zeros((S + 1,), dtype=torch.long, device=dev).scatter_add_(
+        0, slot, torch.ones_like(slot))[:S]
     cnt_pad = (cnt + bc - 1) // bc * bc
     starts = torch.cumsum(cnt, 0) - cnt  # raw sorted-order starts
     starts_pad = torch.cumsum(cnt_pad, 0) - cnt_pad  # block-aligned starts

@@ -25,7 +25,9 @@ same row, which is both K and V (absorbed MLA runs as MQA at the latent width
   KV splits laid out by :func:`_plan`) and ``"simt"`` (float32: CUDA-core
   FMAs, one block per query token). ``paged_attention.launches`` counts the
   wrapper's launches (one per layer), ``.launches_by_instance`` them per
-  instance.
+  instance; a CUDA-graph replay of a program that launches it adds what
+  the capture counted (``engine/cuda_graph.py``), so both count device
+  launches.
 * :func:`paged_attention_ref` is the plain PyTorch version, a port of
   ``ragged_paged_attention_xla`` (``llmd_tpu/models/transformer.py:428``): the
   tests' oracle and the kernel's yardstick on the card.

@@ -8,9 +8,12 @@
 einsum one) or MLA (``moe-wide-mla``: K1's latent instance in the unified
 program, the latent decode kernel K3 in the decode program).
 
-For each batch size: an engine (random bf16 weights from ``--seed``) prefills
-``batch`` prompts of ``--prompt-len`` tokens, then runs decode calls of
-``--decode-steps`` iterations, all through its public ``step()`` and
+For each batch size, in turn for the decode program captured into a CUDA
+graph and replayed (``graph``, the engine's default) and for the same program
+run eagerly (``eager``, ``decode_graph=False``): an engine
+(random bf16 weights from ``--seed``, the reference's pipelined dispatch on)
+prefills ``batch`` prompts of ``--prompt-len`` tokens, then runs decode calls
+of ``--decode-steps`` iterations, all through its public ``step()`` and
 ``stats``. It reports
 
 - prefill throughput from the engine's own step timer and decode throughput
@@ -18,8 +21,12 @@ For each batch size: an engine (random bf16 weights from ``--seed``) prefills
   attached),
 - the host time to enqueue one ``forward_core`` (no synchronise inside),
 - from ``torch.profiler`` over a separate window of decode calls: device time
-  by kernel name, host time by op, kernel launches per decode iteration, and
-  the device's busy
+  by kernel name, host time by op, device kernels per decode iteration
+  (``device_kernels_per_iteration``) beside the host's launch calls per
+  iteration (``host_launch_calls_per_iteration``: the CUDA API calls
+  (``cuda*`` and ``cu*``) that launch a kernel or a graph, by name in
+  ``host_launch_calls``; a graph replay is one call for all its kernels, so
+  the two differ by design), and the device's busy
   share of that window's wall time (the profiler's own overhead inflates the
   window, so busy device ms per iteration is also set against the unprofiled
   wall per iteration), and the shares of device time of K1 (paged attention),
@@ -45,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -60,6 +68,57 @@ def _kernel_rows(prof) -> list[dict]:
         if dev_us > 0 and "cuda" in str(getattr(e, "device_type", "")).lower():
             rows.append({"name": e.key[:120], "count": e.count, "device_us": dev_us})
     return sorted(rows, key=lambda r: -r["device_us"])
+
+
+# host-side CUDA API calls (``cuda*`` and ``cu*``) that launch device work:
+# a kernel, or a whole CUDA graph
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
+
+
+def launch_calls(prof) -> dict[str, int]:
+    """Host launch calls in the profiled window, by CUDA API call."""
+    out: dict[str, int] = {}
+    for e in prof.key_averages():
+        if e.key in LAUNCH_CALLS:
+            out[e.key] = out.get(e.key, 0) + e.count
+    return out
+
+
+# the device kernel that each wrapper instance launches once a call (a split
+# launch adds a merge kernel, which is not one of these)
+KERNEL_OF_INSTANCE = {
+    ("paged_attention", "mma"): "paged_attention_mma_kernel",
+    ("paged_attention", "simt"): "paged_attention_kernel",
+    ("mla_decode", "mma"): "mla_decode_mma_kernel",
+    ("mla_decode", "simt"): "mla_decode_kernel",
+    ("ragged_grouped_gemm", "wgmma"): "grouped_gemm_wgmma_kernel",
+    ("ragged_grouped_gemm", "simt"): "grouped_gemm_simt_kernel",
+    ("grouped_gemm", "wgmma"): "grouped_gemm_wgmma_kernel",
+    ("grouped_gemm", "simt"): "grouped_gemm_simt_kernel",
+}
+
+
+def counted_launches() -> dict[str, int]:
+    """The kernel wrappers' launch counters (K1, K3, K2, K4), summed by the
+    device kernel each instance launches. Under a graph replay these are the
+    launches the capture recorded, credited once per replay."""
+    from llmd_tpu_torch.engine.cuda_graph import launch_counters
+
+    out = dict.fromkeys(KERNEL_OF_INSTANCE.values(), 0)
+    for fn in launch_counters():
+        for inst, n in fn.launches_by_instance.items():
+            out[KERNEL_OF_INSTANCE[fn.__name__, inst]] += n
+    return out
+
+
+def device_launches(kernels: list[dict]) -> dict[str, int]:
+    """The same kernels' launches as the profiler saw them run on the device."""
+    out = {}
+    for name in dict.fromkeys(KERNEL_OF_INSTANCE.values()):
+        pat = re.compile(rf"(?<!\w){name}(?!\w)")
+        out[name] = sum(r["count"] for r in kernels if pat.search(r["name"]))
+    return out
 
 
 def _host_rows(prof) -> list[dict]:
@@ -200,29 +259,36 @@ def k2_host_us(cfg, params, batch: int, seed: int) -> dict:
 
 
 def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
-                  calls: int, prof_calls: int, seed: int, moe_dispatch: str = "auto") -> dict:
+                  calls: int, prof_calls: int, seed: int, moe_dispatch: str = "auto",
+                  decode_graph: bool = True) -> dict:
     from llmd_tpu_torch.core.request import SamplingParams
     from llmd_tpu_torch.engine import EngineConfig, LLMEngine
     from llmd_tpu_torch.models.transformer import forward_core
 
     ps = 16
-    per_seq = (prompt_len + (calls + prof_calls + 2) * decode_steps + ps) // ps + 1
+    # the budget covers the warm-up calls, both windows and the calls that
+    # the pipelined dispatch keeps in flight
+    budget = (calls + prof_calls + 8) * decode_steps + 1
+    per_seq = (prompt_len + budget + ps) // ps + 1
     ecfg = EngineConfig(
         page_size=ps, num_pages=batch * per_seq + 8, max_model_len=4096,
         max_batch_size=batch, prefill_chunk=min(prompt_len, 2048),
         max_num_batched_tokens=max(2048, prompt_len), decode_steps=decode_steps,
         moe_dispatch=moe_dispatch)
-    eng = LLMEngine(cfg, ecfg, params=params, seed=seed)
+    eng = LLMEngine(cfg, ecfg, params=params, seed=seed, decode_graph=decode_graph)
     rng = np.random.default_rng(seed)
-    budget = (calls + prof_calls + 2) * decode_steps + 1
     for i in range(batch):
         eng.add_request(f"r{i}", rng.integers(0, 256, prompt_len).tolist(),
                         SamplingParams(max_tokens=budget, temperature=0.0))
     st = eng.stats
-    while st.n_decode_calls == 0:  # the prefill steps, then one warm-up decode call
+    while st.n_decode_calls == 0:  # the prefill steps, then warm-up decode calls
         eng.step()
-    prefill_s = st.time_prefill_steps  # every step ends in a host read: device time included
+    # the prefill steps' host time; each but the last waits for the one before
+    prefill_s = st.time_prefill_steps
     sync = torch.cuda.synchronize
+    # each window starts on an idle device (the calls in flight finished) and
+    # ends when the calls it launched have: their device time is all inside
+    sync()
     it0 = st.n_decode_iterations
     t0 = time.perf_counter()
     for _ in range(calls):
@@ -233,7 +299,9 @@ def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
 
     from torch.profiler import ProfilerActivity, profile
 
-    it1 = st.n_decode_iterations
+    it1, rp1 = st.n_decode_iterations, st.decode_graph_replays
+    sync()
+    counted0 = counted_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         p0 = time.perf_counter()
         for _ in range(prof_calls):
@@ -241,6 +309,8 @@ def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
         sync()
         prof_wall = time.perf_counter() - p0
     prof_iters = st.n_decode_iterations - it1
+    counted = {k: v - counted0[k] for k, v in counted_launches().items()}
+    prof_replays = st.decode_graph_replays - rp1
 
     # host time to enqueue one forward_core at the decode shape (no sync
     # inside): a batch of one token per sequence over distinct pages of the
@@ -265,6 +335,7 @@ def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
 
     kernels = _kernel_rows(prof)
     host_ops = _host_rows(prof)
+    calls_by_name = launch_calls(prof)
     busy_us = sum(r["device_us"] for r in kernels)
     launches = sum(r["count"] for r in kernels)
     attn_us = sum(r["device_us"] for r in kernels if "paged_attention" in r["name"])
@@ -274,17 +345,26 @@ def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
     wall_iter_ms = wall / max(iters, 1) * 1e3
     busy_iter_ms = busy_us / 1e3 / max(prof_iters, 1) if kernels else None
     return {
+        "mode": "graph" if decode_graph else "eager",
+        "decode_graph_capture_s": st.decode_graph_capture_s,
         "batch": batch, "prompt_len": prompt_len, "decode_steps": decode_steps,
         "prefill_s": prefill_s, "prefill_tok_s": batch * prompt_len / prefill_s,
         "decode_iterations": iters, "decode_wall_s": wall,
         "decode_tok_s": batch * iters / wall, "wall_ms_per_iteration": wall_iter_ms,
         "host_enqueue_ms_per_forward": float(np.median(host)) * 1e3,
         "profiled_iterations": prof_iters, "profiled_wall_s": prof_wall,
+        "profiled_graph_replays": prof_replays,
+        # K1/K3/K2/K4 launches in the profiled window: the wrappers' counters
+        # beside what ran on the device (equal unless a counter is wrong)
+        "kernel_launches_counted": counted,
+        "kernel_launches_on_device": device_launches(kernels),
         "device_busy_ms_per_iteration": busy_iter_ms,
         "device_busy_share_profiled": (busy_us / 1e6 / prof_wall) if kernels else None,
         "device_busy_share_vs_unprofiled_wall": (busy_iter_ms / wall_iter_ms)
         if kernels else None,
-        "kernel_launches_per_iteration": launches / max(prof_iters, 1) if kernels else None,
+        "device_kernels_per_iteration": launches / max(prof_iters, 1) if kernels else None,
+        "host_launch_calls_per_iteration": sum(calls_by_name.values()) / max(prof_iters, 1),
+        "host_launch_calls": calls_by_name,
         "attention_share_of_device_time": attn_us / busy_us if busy_us else None,
         "mla_decode_share_of_device_time": mla_us / busy_us if busy_us else None,
         "split_merge_device_us_per_iteration": merge_us / max(prof_iters, 1),
@@ -329,23 +409,27 @@ def main(argv: "list[str] | None" = None) -> None:
     dev = torch.device("cuda", 0)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
     # warm-up pass (cuBLAS handles, lazy module loads), not reported
-    profile_batch(cfg, params, 2, 32, args.decode_steps, 1, 1, args.seed, args.moe_dispatch)
+    for graph in (True, False):
+        profile_batch(cfg, params, 2, 32, args.decode_steps, 1, 1, args.seed,
+                      args.moe_dispatch, decode_graph=graph)
     rows = []
     for b in (int(x) for x in args.batches.split(",")):
-        r = profile_batch(cfg, params, b, args.prompt_len, args.decode_steps,
-                          args.calls, args.prof_calls, args.seed, args.moe_dispatch)
-        r["card"] = smi
-        rows.append(r)
-        print(json.dumps({k: v for k, v in r.items()
-                          if k not in ("top_kernels", "top_host_ops")}), flush=True)
-        n = max(r["profiled_iterations"], 1)
-        for k in r["top_kernels"][:6]:
-            print(f"  device {k['device_us'] / n:9.1f} us/iter x{k['count']:5d}  "
-                  f"{k['name']}", flush=True)
-        for k in r["top_host_ops"][:8]:
-            print(f"  host   {k['cpu_us'] / n:9.1f} us/iter x{k['count']:5d}  "
-                  f"{k['name']}", flush=True)
-        torch.cuda.empty_cache()
+        for graph in (True, False):
+            r = profile_batch(cfg, params, b, args.prompt_len, args.decode_steps,
+                              args.calls, args.prof_calls, args.seed, args.moe_dispatch,
+                              decode_graph=graph)
+            r["card"] = smi
+            rows.append(r)
+            print(json.dumps({k: v for k, v in r.items()
+                              if k not in ("top_kernels", "top_host_ops")}), flush=True)
+            n = max(r["profiled_iterations"], 1)
+            for k in r["top_kernels"][:6]:
+                print(f"  device {k['device_us'] / n:9.1f} us/iter x{k['count']:5d}  "
+                      f"{k['name']}", flush=True)
+            for k in r["top_host_ops"][:8]:
+                print(f"  host   {k['cpu_us'] / n:9.1f} us/iter x{k['count']:5d}  "
+                      f"{k['name']}", flush=True)
+            torch.cuda.empty_cache()
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -145,9 +145,11 @@ def test_multistep_decode_matches_single_step(make, reference):
     out = multi.generate(prompts, greedy(11))
     assert out == reference(prompts, 11)
     assert out == make(decode_steps=1).generate(prompts, greedy(11))
-    # 11 tokens = 1 from prefill + 10 decoded in calls of <= 4 iterations each
+    # 11 tokens = 1 from prefill + 10 decoded in calls of 4 iterations each
+    # (the decode program always runs decode_steps iterations, as the
+    # reference's scan does; rows freeze once their budget is spent)
     assert multi.stats.n_decode_calls == 3
-    assert multi.stats.n_decode_iterations == 10
+    assert multi.stats.n_decode_iterations == 12
 
 
 def test_multistep_degrades_in_tight_pool(make, reference):
@@ -199,16 +201,22 @@ def test_sampler_draws_only_from_top_k():
                        torch.argmax(logits, -1).to(torch.int32))
 
 
-def test_unserved_options_raise(make):
+def test_unserved_options_raise(make, reference):
     with pytest.raises(ValueError, match="spec_mode"):
         make(spec_mode="ngram")
     with pytest.raises(ValueError, match="kv_cache_dtype"):
         make(kv_cache_dtype="fp8")
     # every field the port does not read raises when set away from its default
     for field, value in (("kv_layout", "packed"), ("max_queue", 1),
-                         ("pipeline_decode", False), ("instrument", True)):
+                         ("instrument", True), ("structured_fused_decode", False)):
         with pytest.raises(ValueError, match=field):
             make(**{field: value})
+    # the pipelined dispatch is served, on and off, and matches the reference
+    prompt = list(range(10, 30))
+    for pipelined in (False, True):
+        eng = make(pipeline_decode=pipelined, pack_overlap=pipelined,
+                   pipeline_prefill_sample=pipelined, decode_steps=2)
+        assert eng.generate([prompt], greedy(5)) == reference([prompt], 5)
     with pytest.raises(ValueError):
         SamplingParams(logit_bias={1: 2.0})
     eng = make()

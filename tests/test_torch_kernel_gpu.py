@@ -589,3 +589,146 @@ def test_mla_engine_greedy_tokens_same_with_kernels(cuda):
     k1, k3 = paged_attention.launches, mla_decode.launches
     assert plain.generate(prompts, sp) == kernels
     assert (paged_attention.launches, mla_decode.launches) == (k1, k3)
+
+
+# ------------------------------------------- the decode program's CUDA graph
+
+
+def _engine(model, cuda, decode_graph=True, **kw):
+    from llmd_tpu_torch.engine import EngineConfig, LLMEngine
+    from llmd_tpu_torch.models import get_model_config
+
+    ecfg = dict(page_size=8, num_pages=96, max_model_len=256, max_batch_size=4,
+                prefill_chunk=32, decode_steps=4) | kw
+    return LLMEngine(get_model_config(model), EngineConfig(**ecfg), seed=0, device=cuda,
+                     decode_graph=decode_graph)
+
+
+def _launches():
+    return {fn.__name__: (fn.launches, dict(fn.launches_by_instance)) for fn in
+            (paged_attention, mla_decode, ragged_grouped_gemm, grouped_gemm)}
+
+
+GRAPH_MODELS = [("tiny", {}), ("tiny-moe", {"moe_dispatch": "sorted"}),
+                ("tiny-moe", {"moe_dispatch": "einsum"}), ("tiny-mla", {})]
+
+
+@pytest.mark.parametrize("model,kw", GRAPH_MODELS,
+                         ids=["tiny", "tiny-moe-sorted", "tiny-moe-einsum", "tiny-mla"])
+def test_decode_graph_matches_eager(cuda, model, kw):
+    """bf16 registry weights: the decode program replayed from its graph
+    gives the greedy tokens and kernel launches of the same program run
+    eagerly, with the pipelined dispatch on; one capture, one replay a call."""
+    from llmd_tpu_torch.core.request import SamplingParams
+
+    prompts = [list(range(5, 60)), list(range(100, 110)), list(range(7, 200, 3))]
+    sp = SamplingParams(max_tokens=13, temperature=0.0)
+    out, counts, stats = {}, {}, {}
+    for graph in (True, False):
+        eng = _engine(model, cuda, decode_graph=graph, **kw)
+        before = _launches()
+        out[graph] = eng.generate(prompts, sp)
+        after = _launches()
+        counts[graph] = {n: (after[n][0] - before[n][0],
+                             {i: after[n][1][i] - before[n][1][i] for i in after[n][1]})
+                         for n in after}
+        stats[graph] = eng.stats
+    assert out[True] == out[False]
+    assert counts[True] == counts[False]
+    g = stats[True]
+    assert g.decode_graph_captures == 1 and g.decode_graph_replays == g.n_decode_calls > 0
+    assert g.n_chained_dispatches > 0
+    assert stats[False].decode_graph_captures == stats[False].decode_graph_replays == 0
+    assert g.moe_dropped_tokens == stats[False].moe_dropped_tokens
+
+
+def test_decode_graph_sampling_draws_fresh_numbers(cuda):
+    """Sampled rows under replay: the generator registered with the graph
+    advances every replay, so the streams are not stuck on one draw and two
+    runs of the same prompts differ."""
+    from llmd_tpu_torch.core.request import SamplingParams
+
+    eng = _engine("tiny", cuda, decode_steps=2)
+    sp = SamplingParams(max_tokens=24, temperature=1.5)
+    prompts = [list(range(5, 30))] * 3
+    a, b = eng.generate(prompts, sp), eng.generate(prompts, sp)
+    assert eng.stats.decode_graph_captures == 1 and eng.stats.decode_graph_replays > 4
+    streams = list(a.values()) + list(b.values())
+    assert all(len(set(s[1:])) > 3 for s in streams)  # decoded tokens vary
+    assert len({tuple(s) for s in streams}) == len(streams)  # runs differ
+
+
+def test_decode_graph_launch_counters(cuda):
+    """After replays, each wrapper's counters hold what the capture counted
+    times the replays (the warm-up and the capture itself count nothing),
+    per instance too."""
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.engine.cuda_graph import launch_counters
+
+    eng = _engine("tiny-moe", cuda, moe_dispatch="sorted")
+    cfg, k = eng.model_cfg, eng.cfg.decode_steps
+    before = _launches()
+    eng.generate([list(range(5, 40)), list(range(50, 70))],
+                 SamplingParams(max_tokens=14, temperature=0.0))
+    after = _launches()
+    graph = eng._decode_fn
+    per = {fn.__name__: c for fn, c in zip(launch_counters(), graph.per_replay)}
+    assert per["paged_attention"][0] == cfg.num_layers * k
+    assert per["ragged_grouped_gemm"][0] == 2 * cfg.num_layers * k
+    assert per["mla_decode"][0] == per["grouped_gemm"][0] == 0
+    replays, unified = eng.stats.decode_graph_replays, eng.stats.n_unified_steps
+    assert replays > 1
+    unified_per = {"paged_attention": cfg.num_layers, "ragged_grouped_gemm": 2 * cfg.num_layers}
+    for name, (n, by) in per.items():
+        got = after[name][0] - before[name][0]
+        assert got == n * replays + unified_per.get(name, 0) * unified, name
+    bf16 = {"paged_attention": "mma", "ragged_grouped_gemm": "wgmma"}
+    for name, inst in bf16.items():
+        assert per[name][1][inst] == per[name][0]
+
+
+def test_decode_graph_reads_eplb_placement_in_place(cuda):
+    """An EPLB rebalance between calls changes what the replayed graph
+    computes: new logical expert weights re-gathered in place into the
+    physical slots (same buffers) change the replayed tokens, to those of
+    the same program run eagerly on the new weights."""
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.engine.decode_program import decode_program, run_chained
+    from llmd_tpu_torch.parallel.eplb import EPLBConfig
+
+    eng = _engine("tiny-moe", cuda, eplb=EPLBConfig(window_size=4, step_interval=2,
+                                                    num_redundant_experts=4))
+    eng.generate([list(range(5, 40))], SamplingParams(max_tokens=10, temperature=0.0))
+    buf, graph = eng._decode_bufs, eng._decode_fn
+    ptrs = {n: t.data_ptr() for n, t in eng._eplb_params.items()}
+
+    def pack():
+        buf.idle()
+        for i in range(4):  # every slot live: 20 tokens on pages 4i, 4i+1, 4i+2
+            buf.tokens[i], buf.positions[i], buf.kv_lens[i] = 11 + i, 19, 20
+            buf.page_tables[i, :3] = torch.arange(4 * i, 4 * i + 3)
+            buf.steps_left[i] = 4
+
+    def eager():
+        pack()
+        return run_chained(lambda: decode_program(
+            eng.model_cfg, eng._run_params(), eng.cache, buf, 4, eng._gen,
+            attn_impl=eng._attn["decode"], moe_dispatch_impl=eng._moe_dispatch_impl),
+            buf, drops=True, counts=True).clone()
+
+    def replayed():
+        pack()
+        return graph().clone()
+
+    old = replayed()
+    assert torch.equal(old, eager())
+    g = torch.Generator(device=cuda).manual_seed(7)
+    for name in ("moe_wi", "moe_wo"):
+        w = eng.params[name]
+        w.copy_(torch.randn(w.shape, generator=g, device=cuda).to(w.dtype) * w.float().std())
+    eng._eplb_rebalance()
+    assert {n: t.data_ptr() for n, t in eng._eplb_params.items()} == ptrs
+    new = replayed()
+    assert torch.equal(new, eager())
+    n_tok = 4 * 4
+    assert not torch.equal(new[:n_tok], old[:n_tok])

@@ -111,14 +111,15 @@ def test_latent_pool_is_one_unpadded_plane():
     for name, width in (("tiny-mla", 80), ("moe-wide-mla", 160)):
         cfg = get_model_config(name)
         pool = tt.init_cache(cfg, 6, 8)
-        assert tuple(pool.shape) == (cfg.num_layers * 6, 8, 1, width)
+        assert tuple(pool.shape) == (cfg.num_layers * 6 + 1, 8, 1, width)  # + dump page
         assert pool.dtype == torch.bfloat16 and not pool.any()
     # the reference's pool is the same plane, lane-padded
     assert jt.init_cache(jax_model_config("tiny-mla"), 6, 8).shape == (12, 8, 1, 128)
 
 
 def test_write_kv_single_plane_matches_reference():
-    """The latent row is written once; v is ignored; slot -1 is dropped."""
+    """The latent row is written once; v is ignored; slot -1 goes to the
+    dump row (the port's pool ends in one, the reference's drops it)."""
     rng = np.random.default_rng(2)
     S, W = 40, 80
     cache = _pad(rng.standard_normal((S, 1, W), np.float32))
@@ -127,8 +128,10 @@ def test_write_kv_single_plane_matches_reference():
     slots = np.array([3, -1, 17, 39, -1, 0], np.int32)
     ref = _np(jt.write_kv(jnp.asarray(cache), jnp.asarray(_pad(k)), jnp.asarray(_pad(v)),
                           jnp.asarray(slots)))
-    got = tt.write_kv(_t(cache[..., :W].copy()), _t(k), _t(v), _t(slots))
-    np.testing.assert_array_equal(got.numpy(), ref[..., :W])
+    pool = np.concatenate([cache[..., :W], np.zeros((1, 1, W), np.float32)])
+    got = tt.write_kv(_t(pool), _t(k), _t(v), _t(slots)).numpy()
+    np.testing.assert_array_equal(got[:S], ref[..., :W])
+    assert any(np.array_equal(got[S], k[i]) for i in (1, 4))  # one padding row's
 
 
 # ------------------------------------------- K1 on the single-plane pool
@@ -284,7 +287,8 @@ def test_forward_core_mla_matches_reference(name, path):
         np.testing.assert_array_equal(lj.argmax(-1), lt.argmax(-1))
         np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
         assert int(dt) == int(dj)
-    np.testing.assert_allclose(tc.numpy(), _np(jc)[..., :tcfg.kv_cache_head_dim], atol=1e-5)
+    np.testing.assert_allclose(tc[:-1].numpy(), _np(jc)[..., :tcfg.kv_cache_head_dim],
+                               atol=1e-5)  # all but the dump page
     assert not _np(jc)[..., tcfg.kv_cache_head_dim:].any()
 
 
@@ -302,7 +306,8 @@ def tiny_mla():
 
     def reference(prompts, max_tokens, **kw):
         """The JAX engine's greedy tokens (XLA attention, prefix caching off,
-        synchronous loop as the port's), one engine per config, memoised."""
+        synchronous loop; greedy tokens do not depend on the pipelined
+        dispatch the port runs by default), one engine per config, memoised."""
         key = tuple(sorted(kw.items()))
         if key not in refs:
             refs[key] = JaxEngine(jcfg, JaxEngineConfig(
@@ -391,7 +396,8 @@ def test_mla_moe_engine_matches_reference(dispatch):
     je = JaxEngine(jcfg, JaxEngineConfig(
         **BASE | kw, attn_impl="reference", enable_prefix_caching=False,
         pipeline_decode=False, pipeline_prefill_sample=False), params=jp)
-    te = LLMEngine(tcfg, EngineConfig(**BASE | kw, enable_prefix_caching=False),
+    te = LLMEngine(tcfg, EngineConfig(**BASE | kw, enable_prefix_caching=False,
+                                      pipeline_decode=False, pipeline_prefill_sample=False),
                    params=tt.params_from_numpy(tcfg, {k: np.asarray(v) for k, v in jp.items()}),
                    device="cpu")
     ro = je.generate(PROMPTS, JaxSamplingParams(max_tokens=9, temperature=0.0))

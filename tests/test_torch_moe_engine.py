@@ -4,9 +4,10 @@ the CPU.
 Both engines serve ``tiny-moe`` in float32 from the same numpy weights (the
 JAX ``init_params``); the reference runs its XLA attention. Greedy tokens must
 be identical, and so must the dropped copies of the capacity-einsum path and
-the number of EPLB rebalances. The reference runs with ``pipeline_decode`` and
-``pipeline_prefill_sample`` off: the port's step loop is synchronous, and on
-the einsum path which tokens share a step decides which copies drop.
+the number of EPLB rebalances. Both engines run with ``pipeline_decode`` and
+``pipeline_prefill_sample`` off here (``tests/test_torch_pipelined_decode.py``
+holds them with both on): on the einsum path which tokens share a step
+decides which copies drop.
 """
 
 import dataclasses
@@ -54,8 +55,9 @@ def _pair(moe_weights, cap=None, eplb=None, **kw):
             **BASE | kw, attn_impl="reference", enable_prefix_caching=False,
             pipeline_decode=False, pipeline_prefill_sample=False,
             eplb=None if eplb is None else JaxEPLBConfig(*eplb)), params=jp)
-        te = LLMEngine(tcfg, EngineConfig(**BASE | kw, eplb=None if eplb is None
-                                          else EPLBConfig(*eplb)),
+        te = LLMEngine(tcfg, EngineConfig(**BASE | kw, pipeline_decode=False,
+                                          pipeline_prefill_sample=False,
+                                          eplb=None if eplb is None else EPLBConfig(*eplb)),
                        params=tt.params_from_numpy(tcfg, npp), device="cpu")
         ro = je.generate(prompts, JaxSamplingParams(max_tokens=max_tokens, temperature=0.0))
         to = te.generate(prompts, SamplingParams(max_tokens=max_tokens, temperature=0.0))
