@@ -76,6 +76,27 @@ with a non-zero exit:
             llama-1b, moe-wide-sim on both dispatch paths, and moe-wide-mla
             with a decode batch after it (K3) (logits held together, expert
             counts equal; K1, K3, K2 / K4 on their float32 simt instances).
+8. int8     int8 weight-only weights (``quantize_weights="int8"``) at registry
+            width through the captured, pipelined engine, replayed and eager:
+            llama-1b (8 requests), moe-wide-sim sorted (8) and einsum (4),
+            moe-wide-mla sorted (8). Tokens and launch counts replayed =
+            eager; K1 (and K3 on MLA) once per layer of its program's
+            forwards, all on mma; no K2 / K4 launch (int8 banks run plain
+            products, as the reference gives them to XLA); no plain version.
+            Then one float32 forward per model of the int8 weights against
+            the dequantized weights ``q * s`` as plain float32 weights
+            (max abs <= FORWARD_ATOL, argmax 100%).
+9. loader   llama-1b's random bf16 params at full width written as an HF
+            checkpoint (``testing/checkpoints``) under the gitignored
+            ``checkpoints/``, loaded by ``models/hf_loader``: every leaf
+            bit-equal, greedy tokens equal to the in-memory params'; the
+            checkpoint is deleted after.
+10. bench   ``llmd_tpu_torch.tools.bench`` at its default (llama-1b, int8, 64
+            requests of ISL 256 / OSL 128, batch 64, ``decode_steps`` 32),
+            then with ``--quantize none``; each JSON line printed on a
+            ``bench:`` line. No capture in the measured window
+            (``recompiles`` 0), K1 once per layer of every forward of the
+            window, all on mma.
 
 It ends with a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. ``--report PATH`` also writes every phase's details (nvcc's register
@@ -1114,12 +1135,9 @@ def counters() -> tuple[dict, dict]:
 def instanced() -> dict:
     """The wrappers that count their launches per kernel instance: K1 and K3
     (``"mma"``, ``"simt"``), K2 and K4 (``"wgmma"``, ``"simt"``)."""
-    from llmd_tpu_torch.ops import grouped_gemm as gg
-    from llmd_tpu_torch.ops import mla_decode as md
-    from llmd_tpu_torch.ops import paged_attention as pa
+    from llmd_tpu_torch.tools.bench import kernel_wrappers
 
-    return {"paged_attention": pa.paged_attention, "mla_decode": md.mla_decode,
-            "ragged_grouped_gemm": gg.ragged_grouped_gemm, "grouped_gemm": gg.grouped_gemm}
+    return kernel_wrappers()
 
 
 def instance_counts() -> dict:
@@ -1261,6 +1279,47 @@ def phase_engine(device, card: str, model: str = "llama-1b", n_requests: int = 8
     return row
 
 
+def _served_run(device, cfg, kw: dict, prompts, max_tokens: int, seed: int,
+                decode_graph: bool) -> dict:
+    """One engine of ``cfg`` (random weights from ``seed``; ``kw`` its
+    EngineConfig) through ``generate`` after a warm-up that captures its
+    decode program (``decode_graph``) or runs it eagerly: greedy tokens,
+    launch counts per kernel and instance, plain calls and the engine's
+    counts over the measured call."""
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.engine import EngineConfig, LLMEngine
+
+    eng = LLMEngine(cfg, EngineConfig(**kw), seed=seed, device=device,
+                    decode_graph=decode_graph)
+    eng.generate([[1, 2, 3]], SamplingParams(max_tokens=2 * kw["decode_steps"] + 2,
+                                             temperature=0.0))  # capture / warm up
+    st0 = dataclasses.replace(eng.stats)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, SamplingParams(max_tokens=max_tokens, temperature=0.0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain_calls = read_counts()
+    st = eng.stats
+    run = {"tokens": out, "launches": launches, "plain_calls": plain_calls,
+           "launches_by_instance": instance_counts(), "wall_s": wall,
+           "decode_tok_s": (st.decode_tokens_fused - st0.decode_tokens_fused)
+           / max(st.time_decode_steps - st0.time_decode_steps, 1e-9),
+           "unified_steps": st.n_unified_steps - st0.n_unified_steps,
+           "decode_iterations": st.n_decode_iterations - st0.n_decode_iterations,
+           "decode_calls": st.n_decode_calls - st0.n_decode_calls,
+           "chained_calls": st.n_chained_dispatches - st0.n_chained_dispatches,
+           "replays": st.decode_graph_replays - st0.decode_graph_replays,
+           "captures": st.decode_graph_captures, "capture_s": st.decode_graph_capture_s,
+           "moe_dropped_tokens": st.moe_dropped_tokens - st0.moe_dropped_tokens,
+           "eplb_rebalances": st.eplb_rebalances - st0.eplb_rebalances,
+           "moe_backend": eng.moe_backend}
+    del eng
+    torch.cuda.empty_cache()
+    return run
+
+
 def phase_graph(device, card: str, model: str = "llama-1b", n_requests: int = 8,
                 max_tokens: int = 32, seed: int = 0, engine_kw: "dict | None" = None,
                 label: str = "") -> dict:
@@ -1276,8 +1335,6 @@ def phase_graph(device, card: str, model: str = "llama-1b", n_requests: int = 8,
     profiled window (under replay: the capture's launches once a replay)
     held against the launches of those kernels that the profiler saw run on
     the device."""
-    from llmd_tpu_torch.core.request import SamplingParams
-    from llmd_tpu_torch.engine import EngineConfig, LLMEngine
     from llmd_tpu_torch.models import get_model_config
     from llmd_tpu_torch.models.transformer import init_params
     from llmd_tpu_torch.tools.profile_engine import profile_batch
@@ -1289,36 +1346,8 @@ def phase_graph(device, card: str, model: str = "llama-1b", n_requests: int = 8,
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
                for n in rng.integers(64, 513, n_requests)]
-    sp = SamplingParams(max_tokens=max_tokens, temperature=0.0)
-    runs = {}
-    for mode in ("graph", "eager"):
-        eng = LLMEngine(cfg, EngineConfig(**kw), seed=seed, device=device,
-                        decode_graph=mode == "graph")
-        eng.generate([[1, 2, 3]], SamplingParams(max_tokens=2 * kw["decode_steps"] + 2,
-                                                 temperature=0.0))  # capture / warm up
-        st0 = dataclasses.replace(eng.stats)
-        zero_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = eng.generate(prompts, sp)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches, plain_calls = read_counts()
-        st = eng.stats
-        runs[mode] = {
-            "tokens": out, "launches": launches, "plain_calls": plain_calls,
-            "launches_by_instance": instance_counts(), "wall_s": wall,
-            "decode_tok_s": (st.decode_tokens_fused - st0.decode_tokens_fused)
-            / max(st.time_decode_steps - st0.time_decode_steps, 1e-9),
-            "decode_calls": st.n_decode_calls - st0.n_decode_calls,
-            "chained_calls": st.n_chained_dispatches - st0.n_chained_dispatches,
-            "replays": st.decode_graph_replays - st0.decode_graph_replays,
-            "captures": st.decode_graph_captures, "capture_s": st.decode_graph_capture_s,
-            "moe_dropped_tokens": st.moe_dropped_tokens - st0.moe_dropped_tokens,
-            "eplb_rebalances": st.eplb_rebalances - st0.eplb_rebalances,
-        }
-        del eng
-        torch.cuda.empty_cache()
+    runs = {mode: _served_run(device, cfg, kw, prompts, max_tokens, seed, mode == "graph")
+            for mode in ("graph", "eager")}
     g, e = runs["graph"], runs["eager"]
     params = init_params(cfg, torch.Generator(device=device).manual_seed(seed), device)
     prof = {mode: profile_batch(cfg, params, 8, 256, kw["decode_steps"], 5, 3, seed,
@@ -1497,6 +1526,193 @@ def phase_forward_check(device, model: str = "llama-1b", seed: int = 0,
             "expert_counts": counts["kernel"].tolist()}
 
 
+def int8_forward_check(device, model: str, moe_dispatch: str = "sorted",
+                       seed: int = 0) -> dict:
+    """One mixed batch (a 300-token prefill and a 128-token one, then a step
+    with a decode row of each beside a fresh 64-token chunk) through
+    ``forward_core`` in float32 on the card, with int8 weights (the plain
+    scaled products) and again with the dequantized weights ``q * s`` as
+    plain float32 weights: logits max abs <= FORWARD_ATOL, argmax 100%."""
+    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.models.quant import dequantize_params, quantize_params
+    from llmd_tpu_torch.models.transformer import (
+        SORTED_DISPATCH, forward_core, init_cache, init_params, unembed)
+
+    cfg = dataclasses.replace(get_model_config(model), dtype="float32")
+    q8 = quantize_params(cfg, init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                                          device))
+    runs = {"int8": (cfg, q8),
+            "dequantized": (dataclasses.replace(cfg, tie_embeddings=False),
+                            dequantize_params(q8, torch.float32))}
+    rng = np.random.default_rng(seed)
+    toks = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (301, 129, 64)]
+    t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)  # noqa: E731
+    steps = [  # (rows of (table row, tokens, start))
+        [(0, toks[0][:300], 0), (1, toks[1][:128], 0)],
+        [(0, toks[0][300:], 300), (1, toks[1][128:], 128), (2, toks[2], 0)]]
+    pts = t(np.arange(3 * 32).reshape(3, 32))
+    logits = {}
+    for name, (c, p) in runs.items():
+        cache, out = init_cache(c, 96, PS, device=device), []
+        for rows in steps:
+            flat = [tok for _, tk, _ in rows for tok in tk]
+            pos = [st + i for _, tk, st in rows for i in range(len(tk))]
+            sids = [j for j, (_, tk, _) in enumerate(rows) for _ in tk]
+            cu = np.cumsum([0] + [len(tk) for _, tk, _ in rows])
+            hidden, cache, _, _ = forward_core(
+                c, p, cache, t(flat), t(pos), t(sids), pts[[b for b, _, _ in rows]],
+                t([st + len(tk) for _, tk, st in rows]), cu_q_lens=t(cu),
+                num_seqs=t([len(rows)]),
+                moe_dispatch_impl=SORTED_DISPATCH if moe_dispatch == "sorted" else None)
+            out.append(unembed(c, p, hidden[t(cu[1:] - 1).long()]))
+        logits[name] = torch.cat(out)
+    diff = (logits["int8"] - logits["dequantized"]).abs().max().item()
+    agree = (logits["int8"].argmax(-1) == logits["dequantized"].argmax(-1)).float().mean().item()
+    finite = bool(torch.isfinite(logits["int8"]).all())
+    del runs, q8
+    torch.cuda.empty_cache()
+    if not (finite and diff <= FORWARD_ATOL and agree == 1.0):
+        raise AssertionError(f"int8 {model} {moe_dispatch}: int8 vs dequantized float32 "
+                             f"logits diff {diff}, argmax agreement {agree}, finite {finite}")
+    return {"logits_max_abs_diff": diff, "argmax_agree": agree, "atol": FORWARD_ATOL}
+
+
+def phase_int8(device, card: str, model: str = "llama-1b", n_requests: int = 8,
+               max_tokens: int = 32, seed: int = 0, engine_kw: "dict | None" = None,
+               label: str = "") -> dict:
+    """int8 weight-only weights at registry width through the captured,
+    pipelined engine, replayed and eager (two engines of the same seed):
+    greedy tokens and launch counts equal; K1 once per layer of every forward
+    (of the unified forwards on MLA) and K3 once per layer of every decode
+    iteration on MLA, all on their mma instances; no K2 / K4 launch (int8
+    banks run plain products) and no plain version. Then the float32
+    forward of the int8 weights against their dequantized plain weights."""
+    from llmd_tpu_torch.models import get_model_config
+
+    cfg = get_model_config(model)
+    kw = dict(page_size=PS, num_pages=2048, max_model_len=2048, max_batch_size=32,
+              prefill_chunk=512, max_num_batched_tokens=2048, decode_steps=4,
+              quantize_weights="int8")
+    kw.update(engine_kw or {})
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(64, 513, n_requests)]
+    runs = {mode: _served_run(device, cfg, kw, prompts, max_tokens, seed, mode == "graph")
+            for mode in ("graph", "eager")}
+    g, e = runs["graph"], runs["eager"]
+    same = {k: g[k] == e[k] for k in ("tokens", "launches", "launches_by_instance",
+                                      "moe_dropped_tokens")}
+    k1_forwards = g["unified_steps"] + (0 if cfg.is_mla else g["decode_iterations"])
+    expect = {"paged_attention": cfg.num_layers * k1_forwards,
+              "mla_decode": cfg.num_layers * g["decode_iterations"] if cfg.is_mla else 0,
+              "ragged_grouped_gemm": 0, "grouped_gemm": 0}
+    by_inst = g["launches_by_instance"]
+    on_mma = all(by_inst[n]["simt"] == 0 for n in ("paged_attention", "mla_decode"))
+    fwd = int8_forward_check(device, model, kw.get("moe_dispatch", "sorted"), seed)
+    row = {"card": card, "model": model, "label": label, "requests": n_requests,
+           "same": same, "launches": g["launches"], "expected_launches": expect,
+           "launches_by_instance": by_inst, "plain_calls": [g["plain_calls"], e["plain_calls"]],
+           "captures": g["captures"], "replays": g["replays"], "moe_backend": g["moe_backend"],
+           "moe_dropped_tokens": g["moe_dropped_tokens"], "forward": fwd}
+    log(f"int8: {model} {label} on {card}: same={same} launches={g['launches']} "
+        f"expected={expect} by_instance={by_inst} captures={g['captures']} "
+        f"replays={g['replays']} moe_backend={g['moe_backend']!r} "
+        f"forward={fwd}")
+    if not all(same.values()) or any(g["plain_calls"].values()) or any(
+            e["plain_calls"].values()):
+        raise AssertionError(f"int8 {model} {label}: replayed and eager runs differ ({same}) "
+                             f"or plain versions ran ({g['plain_calls']}, {e['plain_calls']})")
+    if g["launches"] != expect or not on_mma or g["captures"] != 1:
+        raise AssertionError(f"int8 {model} {label}: launches {g['launches']} "
+                             f"(instances {by_inst}), expected {expect} on mma; "
+                             f"{g['captures']} captures")
+    return row
+
+
+def phase_loader(device, card: str, model: str = "llama-1b", seed: int = 0,
+                 n_requests: int = 4, max_tokens: int = 16) -> dict:
+    """llama-1b's random bf16 params at full width written by the port's HF
+    checkpoint writer (``testing/checkpoints``) under the gitignored
+    ``checkpoints/``, loaded back by ``models/hf_loader`` onto the card:
+    every leaf bit-equal, and the greedy tokens of an engine on the loaded
+    params equal those of one on the in-memory params."""
+    from llmd_tpu_torch.models import get_model_config, resolve_model
+    from llmd_tpu_torch.models.transformer import init_params
+    from llmd_tpu_torch.testing.checkpoints import write_hf_checkpoint
+
+    cfg = get_model_config(model)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(seed), device)
+    out_dir = REPO / "checkpoints" / f"chip-smoke-{model}"
+    t0 = time.perf_counter()
+    write_hf_checkpoint(str(out_dir), cfg, params)
+    write_s = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in out_dir.iterdir())
+    try:
+        t0 = time.perf_counter()
+        lcfg, loaded = resolve_model(str(out_dir))
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out_dir)
+    same_cfg = dataclasses.replace(lcfg, name=cfg.name) == cfg
+    unequal = [k for k in params if not torch.equal(params[k].cpu(), loaded[k])]
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(64, 257, n_requests)]
+    kw = dict(page_size=PS, num_pages=512, max_model_len=1024, max_batch_size=8,
+              prefill_chunk=512, max_num_batched_tokens=2048, decode_steps=4)
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.engine import EngineConfig, LLMEngine
+
+    tokens = {}
+    for name, p in (("in_memory", params), ("loaded", loaded)):
+        eng = LLMEngine(lcfg if name == "loaded" else cfg, EngineConfig(**kw), params=p,
+                        device=device)
+        tokens[name] = eng.generate(prompts, SamplingParams(max_tokens=max_tokens,
+                                                            temperature=0.0))
+        del eng
+    del params, loaded
+    torch.cuda.empty_cache()
+    row = {"card": card, "model": model, "checkpoint_bytes": size, "write_s": write_s,
+           "load_s": load_s, "config_equal": same_cfg, "unequal_leaves": unequal,
+           "tokens_equal": tokens["loaded"] == tokens["in_memory"],
+           "requests": n_requests, "max_tokens": max_tokens}
+    log(f"loader: {model} on {card}: checkpoint {size} bytes written in {write_s:.2f}s, "
+        f"loaded in {load_s:.2f}s; config_equal={same_cfg} unequal_leaves={unequal} "
+        f"tokens_equal={row['tokens_equal']}")
+    if not (same_cfg and not unequal and row["tokens_equal"]):
+        raise AssertionError(f"loader: {row}")
+    return row
+
+
+def phase_bench(device, card: str, argv: list[str]) -> dict:
+    """``llmd_tpu_torch.tools.bench`` in this process with ``argv``: its JSON
+    line, printed on a ``bench:`` line. No capture in the measured window
+    (``recompiles`` 0), K1 once per layer of every forward of the window,
+    all on its mma instance."""
+    import contextlib
+    import io
+
+    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.tools import bench
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    if rc != 0 or not lines:
+        raise AssertionError(f"bench {argv}: rc {rc}, output {buf.getvalue()[-2000:]}")
+    row = json.loads(lines[-1])
+    print("bench: " + lines[-1], flush=True)
+    torch.cuda.empty_cache()
+    cfg = get_model_config("llama-1b")
+    k1 = row["kernel_launches"]["paged_attention"]
+    forwards = row["unified_steps"] + row["decode_iterations"]
+    if row["recompiles"] != 0 or k1["simt"] or k1["mma"] != cfg.num_layers * forwards:
+        raise AssertionError(f"bench {argv}: recompiles {row['recompiles']}, K1 launches "
+                             f"{k1}, expected {cfg.num_layers * forwards} on mma")
+    return row
+
+
 def main(argv: "list[str] | None" = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", default=None, help="write every phase's details here (JSON)")
@@ -1566,6 +1782,18 @@ def main(argv: "list[str] | None" = None) -> int:
         "moe_einsum": phase_forward_check(device, MOE, moe_dispatch="einsum"),
         "mla_sorted": phase_forward_check(device, MLA, moe_dispatch="sorted"),
     }
+    report["int8"] = {
+        "llama-1b": phase_int8(device, card, label="dense"),
+        "moe_sorted": phase_int8(device, card, model=MOE, label="sorted",
+                                 engine_kw={"moe_dispatch": "sorted"}),
+        "moe_einsum": phase_int8(device, card, model=MOE, n_requests=4, label="einsum",
+                                 engine_kw={"moe_dispatch": "einsum"}),
+        "mla_sorted": phase_int8(device, card, model=MLA, label="mla sorted",
+                                 engine_kw={"moe_dispatch": "sorted"}),
+    }
+    report["loader"] = phase_loader(device, card)
+    report["bench"] = {"int8": phase_bench(device, card, []),
+                       "bf16": phase_bench(device, card, ["--quantize", "none"])}
     if args.report:
         out = Path(args.report)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -1605,7 +1833,9 @@ def main(argv: "list[str] | None" = None) -> int:
     attn_src = "llmd_tpu_torch/csrc/paged_attention.cu"
     kernels = {"kernels": [
         entry("paged_attention", attn_src, "llmd_tpu/ops/paged_attention.py:106",
-              eng["llama-1b"]["launches"]["paged_attention"], k1["decode"]) | k1_more,
+              eng["llama-1b"]["launches"]["paged_attention"], k1["decode"]) | k1_more
+        | {f"bench_{q}_launches": report["bench"][q]["kernel_launches"]["paged_attention"]["mma"]
+           for q in ("int8", "bf16")},
         # the unified program's absorbed MLA attention, XLA in the reference
         entry("paged_attention_latent", attn_src, "llmd_tpu/models/transformer.py:428",
               eng["mla_sorted"]["launches"]["paged_attention"], lat)

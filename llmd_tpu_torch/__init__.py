@@ -5,7 +5,9 @@ names so each piece can be found beside its counterpart. It imports torch,
 numpy and the standard library only — never ``jax`` and never ``llmd_tpu`` —
 and keeps its own copy of every pure-Python module it needs.
 
-Slice served so far: a dense GQA decoder (registry ``llama-1b`` at full width,
-``tiny``/``tiny64`` in CI) behind the OpenAI completions route, with ragged
-paged attention as a hand-written CUDA kernel (``csrc/paged_attention.cu``).
+Served so far: dense GQA, MoE and absorbed-MLA decoders (registry ``llama-1b``,
+``moe-wide-sim``, ``moe-wide-mla``; the ``tiny*`` models in CI) and HF Llama /
+Qwen2 / Qwen3 checkpoints, bf16 or int8 weight-only, behind the OpenAI
+completions route, with every TPU kernel of the reference as a hand-written
+CUDA kernel (``csrc/``), and the reference's bench (``tools/bench.py``).
 """

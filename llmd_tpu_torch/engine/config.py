@@ -6,7 +6,9 @@ slice of the port reads only the fields in :data:`SERVED`.
 any other field set away from its default, so no option is silently ignored.
 The reference's pipelined dispatch (``pipeline_decode``, ``pipeline_depth``,
 ``pack_overlap``, ``pipeline_prefill_sample``) is served, with the
-reference's defaults (on, depth 2) and every value it takes.
+reference's defaults (on, depth 2) and every value it takes, and so are
+``instrument`` (wait for the unified program's outputs before stamping its
+device time) and ``quantize_weights`` (``None`` or ``"int8"``).
 """
 
 from __future__ import annotations
@@ -74,6 +76,8 @@ class EngineConfig:
     attn_impl: str = "auto"
     attn_tune_file: "str | None" = None
     sp_ring_attention: bool = True
+    # Wait for each unified step's outputs before stamping its device time
+    # (EngineStats.time_device); off in serving.
     instrument: bool = False
     # MoE expert GEMMs: "auto" = the CUDA kernels on a card, their plain
     # versions for CPU tensors (the only value the port takes).
@@ -81,6 +85,8 @@ class EngineConfig:
     # MoE token dispatch: auto (= sorted) | sorted (drop-free, K2) | einsum
     # (capacity einsum, K4).
     moe_dispatch: str = "auto"
+    # Weight-only quantization: None | "int8" (per-output-channel, at
+    # construction; models/quant.py).
     quantize_weights: "str | None" = None
     kv_cache_dtype: "str | None" = None
     kv_layout: str = "auto"
@@ -123,6 +129,12 @@ class EngineConfig:
         if bad:
             raise ValueError(f"EngineConfig options {bad} are not served by the "
                              "port yet (see ROADMAP.md Queue A)")
+        if self.quantize_weights not in (None, "int8"):
+            raise ValueError(f"unknown quantize_weights={self.quantize_weights!r} "
+                             "(supported: 'int8')")
+        if self.quantize_weights == "int8" and self.moe_matmul not in ("auto", "einsum"):
+            raise ValueError(f"moe_matmul={self.moe_matmul!r} (the grouped GEMM kernels, "
+                             "bf16/f32 only) is incompatible with quantize_weights='int8'")
         if self.attn_impl != "auto":
             raise ValueError(f"attn_impl={self.attn_impl!r}: the port has one "
                              "attention path, 'auto' (the kernel on a card)")
@@ -142,5 +154,5 @@ SERVED = frozenset({
     "page_size", "num_pages", "max_model_len", "max_batch_size", "prefill_chunk",
     "max_num_batched_tokens", "enable_prefix_caching", "decode_steps", "attn_impl",
     "moe_matmul", "moe_dispatch", "eplb", "pipeline_decode", "pipeline_depth",
-    "pack_overlap", "pipeline_prefill_sample",
+    "pack_overlap", "pipeline_prefill_sample", "instrument", "quantize_weights",
 })

@@ -49,6 +49,21 @@ is told where each row sits in the reference's padded batch
 (``forward_core(moe_rows=...)``), so its capacity, and with it its drops,
 follow the reference's.
 
+Accounting, as the reference's: ``EngineStats`` splits each program's wall
+into host pack, device and post-processing (``instrument`` waits for the
+unified program's outputs before stamping its device time; a decode call's
+device time is the wait for its results), each ``Sequence`` keeps its
+``first_token_time``, and the utilization ledger (``obs/costmodel.py``, on
+unless ``LLMD_UTIL_LEDGER=0``) records each dispatch's analytic cost, wall
+and goodput classes. The port's unified program runs exactly its real
+tokens, so its dispatches carry no padding class; the decode program's
+``B x k`` slot-steps do. The ledger's compile count is the decode program's
+CUDA-graph captures.
+
+int8 weight-only (``quantize_weights="int8"``): the params are quantized at
+construction (``models/quant.py``); EPLB regathers int8 banks and their
+scales by the same slot map.
+
 Entry point device: a CUDA card unless the caller passes ``device="cpu"``.
 """
 
@@ -73,6 +88,7 @@ from llmd_tpu_torch.engine.kv_manager import PageAllocator, Sequence
 from llmd_tpu_torch.engine.programs import select_decode_attn_impl
 from llmd_tpu_torch.engine.sampling import greedy_tokens, sample_tokens
 from llmd_tpu_torch.models.config import ModelConfig
+from llmd_tpu_torch.models.quant import quantize_params
 from llmd_tpu_torch.models.transformer import (
     SORTED_DISPATCH,
     check_supported,
@@ -81,6 +97,7 @@ from llmd_tpu_torch.models.transformer import (
     init_params,
     unembed,
 )
+from llmd_tpu_torch.obs.costmodel import UtilLedger, util_ledger_enabled
 from llmd_tpu_torch.ops.paged_attention import paged_attention
 from llmd_tpu_torch.parallel.eplb import ExpertLoadTracker, rebalance
 
@@ -132,8 +149,13 @@ class EngineStats:
     # results, applying them)
     time_prefill_steps: float = 0.0
     time_decode_steps: float = 0.0
-    time_host_pack: float = 0.0  # full packs of decode calls (chain starts)
+    time_host_pack: float = 0.0  # unified packs and full packs of decode calls
     time_pack_overlap: float = 0.0  # chained packs, while earlier calls run
+    # a unified step's forward (waited for under ``instrument``) and a decode
+    # call's wait for its results; the decode share apart
+    time_device: float = 0.0
+    time_device_decode: float = 0.0
+    time_postprocess: float = 0.0  # host output handling after the device
     n_unified_steps: int = 0
     n_decode_calls: int = 0  # decode calls processed
     n_decode_dispatches: int = 0  # decode calls launched (== calls at quiesce)
@@ -176,9 +198,13 @@ class LLMEngine:
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(model_cfg, gen, self.device)
-        else:
-            params = {k: v.to(device=self.device, dtype=model_cfg.torch_dtype)
+        else:  # int8 leaves and their float32 scales keep their dtypes
+            params = {k: v.to(device=self.device) if k.endswith(("_q", "_scale"))
+                      else v.to(device=self.device, dtype=model_cfg.torch_dtype)
                       for k, v in params.items()}
+        if engine_cfg.quantize_weights == "int8" and "unembed_q" not in params:
+            params = quantize_params(model_cfg, params)
+        self.quantization = engine_cfg.quantize_weights
         self.params = params
         self.cache = init_cache(model_cfg, engine_cfg.num_pages, engine_cfg.page_size,
                                 device=self.device)
@@ -213,6 +239,17 @@ class LLMEngine:
         self._decode_bufs: Optional[DecodeBuffers] = None
         self._pack_bufs: list[dict[str, torch.Tensor]] = []
         self._result_ring: list[torch.Tensor] = []
+        self._captures = 0  # the decode program's graph captures, never reset
+        self.util = None
+        if util_ledger_enabled():
+            self.util = UtilLedger(
+                model_cfg, device_kind=torch.cuda.get_device_name(self.device)
+                if on_card else "", quantize_weights=engine_cfg.quantize_weights)
+
+    def compile_counts(self) -> dict[str, int]:
+        """The ledger's compile count per program: the decode program's
+        CUDA-graph captures (the unified program runs eagerly)."""
+        return {"decode": self._captures}
 
     def _select_moe_dispatch(self) -> Optional[Callable]:
         """The MoE token dispatch (reference ``_select_moe_dispatch``, one
@@ -225,6 +262,8 @@ class LLMEngine:
         self.moe_dispatch = "einsum" if self.cfg.moe_dispatch == "einsum" else "sorted"
         if self.device.type != "cuda":
             self.moe_backend = "torch_reference (cpu tensors)"
+        elif "moe_wi_q" in self.params:  # the grouped GEMM kernels are bf16/f32
+            self.moe_backend = "torch_bmm (int8 weights)"
         else:
             self.moe_backend = ("cuda_ragged_grouped_gemm" if self.moe_dispatch == "sorted"
                                 else "cuda_grouped_gemm")
@@ -247,9 +286,12 @@ class LLMEngine:
         # redundant slot), as the reference pads it (no new shapes).
         p, dev = self.params, self.device
         self._eplb_rmax = S - E + 1
+        # int8 banks move with their per-expert scales by the same slot map
+        self._eplb_banks = (("moe_wi_q", "moe_wo_q", "moe_wi_scale", "moe_wo_scale")
+                            if "moe_wi_q" in p else ("moe_wi", "moe_wo"))
         self._eplb_params = {
             name: torch.empty((L, S, *p[name].shape[2:]), dtype=p[name].dtype, device=dev)
-            for name in ("moe_wi", "moe_wo")}
+            for name in self._eplb_banks}
         self._eplb_params["eplb_replica_slots"] = torch.zeros(
             (L, E, self._eplb_rmax), dtype=torch.int32, device=dev)
         self._eplb_params["eplb_replica_counts"] = torch.zeros(
@@ -269,7 +311,7 @@ class LLMEngine:
             slots = np.concatenate([slots, pad], axis=2)
         rows = self._tensor((np.arange(L)[:, None] * E + s2e).reshape(-1).astype(np.int64))
         ep = self._eplb_params
-        for name in ("moe_wi", "moe_wo"):
+        for name in self._eplb_banks:
             w = self.params[name]  # [L, E, ...]
             torch.index_select(w.reshape(L * E, *w.shape[2:]), 0, rows,
                                out=ep[name].view(L * S, *w.shape[2:]))
@@ -583,6 +625,7 @@ class LLMEngine:
             off += n
             cu[i + 1] = off
 
+        t1 = time.perf_counter()
         # the reference runs its unified program on batched_tokens rows, real
         # rows first: row i of this batch is its row i
         hidden, self.cache, cnt, drop = self._forward(
@@ -590,8 +633,22 @@ class LLMEngine:
             self._tensor(pts), self._tensor(lens), cu_q_lens=self._tensor(cu),
             num_seqs=self._tensor(np.array([nb], np.int32)),
             moe_rows=(torch.arange(N, device=self.device), self.cfg.batched_tokens))
+        if self.cfg.instrument and self._stream is not None:
+            self._stream.synchronize()  # the program's outputs, before stamping t2
+        t2 = time.perf_counter()
         if self.model_cfg.is_moe:
             self._read_back(cnt, drop)
+        # goodput classes from the state before this step lands (reference
+        # :1852-1864): a first chunk's cached prefix is saved work, and a
+        # chunk of a sequence that already generated tokens recomputes
+        # preempted work
+        saved = recompute = 0
+        for s, n, is_decode in plan:
+            if not is_decode:
+                if s.num_computed == s.num_cached_prompt and s.num_cached_prompt:
+                    saved += s.num_cached_prompt
+                if len(s.token_ids) > s.prompt_len:
+                    recompute += n
 
         sample_rows: list[tuple[int, Sequence]] = []  # (plan row, seq)
         has_decode_rows = False
@@ -625,8 +682,21 @@ class LLMEngine:
                 self._pending_sample = rec
             else:
                 self._sample_apply(rec)
-        self.stats.time_prefill_steps += time.perf_counter() - t0
-        self.stats.n_unified_steps += 1
+        t3 = time.perf_counter()
+        st = self.stats
+        st.time_host_pack += t1 - t0
+        st.time_device += t2 - t1
+        st.time_postprocess += t3 - t2
+        st.time_prefill_steps += t3 - t0
+        st.n_unified_steps += 1
+        if self.util is not None:
+            # the program computes exactly its N real rows (no padding class);
+            # KV reads ~ one pass over each row's resident KV, writes = N
+            cost = self.util.cost("unified", slot_tokens=N, kv_read_tokens=int(lens.sum()),
+                                  kv_write_tokens=N)
+            self.util.record("unified", cost, t3 - t0, committed=N - recompute,
+                             preempted_recompute=recompute, prefix_saved=saved,
+                             compile_counts=self.compile_counts())
 
     def _sample_dispatch(self, rows: list[tuple[int, Sequence]],
                          logits: torch.Tensor) -> dict:
@@ -644,13 +714,16 @@ class LLMEngine:
         """Wait for one dispatched sample's tokens and apply them."""
         if rec["event"] is not None:
             rec["event"].synchronize()
+        now = time.monotonic()
         for (s, slot), tok in zip(rec["rows"], rec["host"].tolist()):
             if s.finished or s.slot != slot or self.running[slot] is not s:
                 continue  # aborted / preempted while the sample was in flight
-            self._apply_token(s, tok)
+            self._apply_token(s, tok, now)
 
-    def _apply_token(self, s: Sequence, tok: int) -> None:
+    def _apply_token(self, s: Sequence, tok: int, now: float) -> None:
         s.token_ids.append(tok)
+        if s.first_token_time is None:
+            s.first_token_time = now
         finished, reason = self._check_finish(s, tok)
         if finished:
             self._retire(s, reason)
@@ -780,6 +853,7 @@ class LLMEngine:
                 buf.idle()  # the warm-up runs write only the pool's dump row
                 graph = CapturedProgram(program, self.device, self._gen)
                 graph.capture()
+                self._captures += 1
                 self.stats.decode_graph_captures += 1
                 self.stats.decode_graph_capture_s += graph.seconds
                 self._decode_fn = graph
@@ -854,8 +928,17 @@ class LLMEngine:
             st.n_chained_dispatches += 1
         if self._decode_graph:
             st.decode_graph_replays += 1
+        util_cost = None
+        if self.util is not None:
+            # the call computes k iterations over all B slots (idle and frozen
+            # rows too), streaming the weights once an iteration; each live
+            # row reads its resident KV every iteration
+            util_cost = self.util.cost(
+                "decode", slot_tokens=self.cfg.max_batch_size * k, weight_passes=k,
+                kv_read_tokens=k * sum(len(s.token_ids) + off for s in active),
+                kv_write_tokens=int(steps.sum()))
         return {"rows": [(s, s.slot) for s in active], "k": k, "host": result,
-                "event": event, "pages_sig": pages_sig}
+                "event": event, "pages_sig": pages_sig, "util_cost": util_cost}
 
     def _decode_process(self, rec: dict) -> None:
         """Wait for one in-flight decode call's results and apply them."""
@@ -864,10 +947,13 @@ class LLMEngine:
             rec["event"].synchronize()
         k, B = rec["k"], self.cfg.max_batch_size
         host = rec["host"].numpy().copy()
+        t2 = time.perf_counter()
+        now = time.monotonic()
         toks_out = host[: k * B].reshape(k, B)
         if self.model_cfg.is_moe:
             self._record_moe(host[k * B:], (self.model_cfg.num_layers,
                                             self.model_cfg.moe_num_experts))
+        n_tokens = 0
         for s, slot in rec["rows"]:
             if s.finished or s.slot != slot or self.running[slot] is not s:
                 continue  # aborted / preempted / replaced while in flight
@@ -881,17 +967,30 @@ class LLMEngine:
                     break  # tokens past a stop are dropped
             # the newest token's KV is not written yet → computed = len - 1
             s.num_computed = len(s.token_ids) - 1
+            if s.first_token_time is None:
+                s.first_token_time = now
             s.maybe_commit_blocks(self.alloc)
             self.stats.total_decode_tokens += len(kept)
             self.stats.decode_tokens_fused += len(kept)
+            n_tokens += len(kept)
             if finished:
                 self._retire(s, reason)
             self._outputs.append(EngineOutput(
                 request_id=s.request_id, new_token_ids=kept, finished=finished,
                 finish_reason=reason, num_cached_prompt_tokens=s.num_cached_prompt,
                 prompt_len=s.prompt_len))
-        self.stats.time_decode_steps += time.perf_counter() - t1
-        self.stats.n_decode_calls += 1
+        t3 = time.perf_counter()
+        st = self.stats
+        st.time_device += t2 - t1
+        st.time_device_decode += t2 - t1
+        st.time_postprocess += t3 - t2
+        st.time_decode_steps += t3 - t1
+        st.n_decode_calls += 1
+        if rec["util_cost"] is not None:
+            # kept tokens commit; the rest of the B x k slot-steps (idle
+            # slots, steps past a stop or a budget, rows gone in flight) pad
+            self.util.record("decode", rec["util_cost"], t3 - t1, committed=n_tokens,
+                             compile_counts=self.compile_counts())
 
     def _retire(self, seq: Sequence, reason: Optional[str]) -> None:
         """Free slot + pages, drop from the live map."""

@@ -158,6 +158,7 @@ class Sequence:
     finish_reason: Optional[str] = None
     block_hashes: list[int] = field(default_factory=list)  # chained hashes of committed blocks
     arrival_time: float = 0.0
+    first_token_time: Optional[float] = None  # time.monotonic() when its first token landed
 
     @property
     def num_generated(self) -> int:

@@ -1,20 +1,26 @@
 """CLI: python -m llmd_tpu_torch.engine.serve --model llama-1b --port 8000 [--cpu]
-         [--moe-dispatch auto|sorted|einsum]
+         [--moe-dispatch auto|sorted|einsum] [--quantize int8]
 
-Serves a registry model with random weights from ``--seed`` on the port's HTTP
-server. Runs on the CUDA card unless ``--cpu`` is given. Flag names follow the
-reference CLI (``llmd_tpu/engine/serve.py``) for the options the port keeps.
+Serves ``--model`` on the port's HTTP server: a registry name with random
+weights from ``--seed``, or an HF checkpoint directory with its weights
+(``models/hf_loader``) and, unless ``--tokenizer`` says otherwise, the HF
+tokenizer in that directory when it has one. ``--quantize int8`` serves int8
+weight-only weights (quantized at start). Runs on the CUDA card unless
+``--cpu`` is given. Flag names follow the reference CLI
+(``llmd_tpu/engine/serve.py``) for the options the port keeps.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import threading
 
 
 def main(argv: "list[str] | None" = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", default="tiny", help="registry name (MODEL_REGISTRY)")
+    ap.add_argument("--model", default="tiny",
+                    help="registry name (MODEL_REGISTRY) or HF checkpoint directory")
     ap.add_argument("--served-model-name", default=None)
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8000)
@@ -28,6 +34,8 @@ def main(argv: "list[str] | None" = None) -> None:
                     help="MoE token dispatch (EngineConfig.moe_dispatch): auto = "
                          "sorted (drop-free, ragged grouped GEMM), einsum = the "
                          "capacity einsum (per-expert grouped GEMM)")
+    ap.add_argument("--quantize", default=None, choices=("int8",),
+                    help="weight-only quantization (EngineConfig.quantize_weights)")
     ap.add_argument("--tokenizer", default=None, help="local HF tokenizer dir")
     ap.add_argument("--seed", type=int, default=0, help="random-weight seed")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU (dev)")
@@ -36,24 +44,32 @@ def main(argv: "list[str] | None" = None) -> None:
     from llmd_tpu_torch.engine.config import EngineConfig
     from llmd_tpu_torch.engine.server import EngineServer
     from llmd_tpu_torch.engine.tokenizer import load_tokenizer
-    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.models import resolve_model
+    from llmd_tpu_torch.models.hf_loader import is_hf_checkpoint
 
-    model_cfg = get_model_config(args.model)
+    model_cfg, params = resolve_model(args.model)
+    tokenizer = args.tokenizer
+    if tokenizer is None and is_hf_checkpoint(args.model) and any(
+            os.path.isfile(os.path.join(args.model, f))
+            for f in ("tokenizer.json", "tokenizer_config.json")):
+        tokenizer = args.model
     engine_cfg = EngineConfig(
         page_size=args.block_size, num_pages=args.num_pages,
         max_model_len=args.max_model_len, max_batch_size=args.max_batch_size,
         prefill_chunk=args.prefill_chunk, decode_steps=args.decode_steps,
-        moe_dispatch=args.moe_dispatch)
+        moe_dispatch=args.moe_dispatch, quantize_weights=args.quantize)
     server = EngineServer(
         model_cfg, engine_cfg,
         model_name=args.served_model_name, host=args.host, port=args.port,
-        tokenizer=load_tokenizer(args.tokenizer), seed=args.seed,
+        tokenizer=load_tokenizer(tokenizer), params=params, seed=args.seed,
         device="cpu" if args.cpu else None)
     server.start()
     print(f"llmd-tpu-torch engine serving {server.model_name} on "
           f"http://{server.address} (device {server.engine.device}, "
           f"attention {server.engine.attn_backend}, MoE {server.engine.moe_dispatch} "
-          f"{server.engine.moe_backend})", flush=True)
+          f"{server.engine.moe_backend}, weights "
+          f"{'hf:' + args.model if params is not None else 'random'}"
+          f"{', int8' if args.quantize else ''})", flush=True)
     try:
         threading.Event().wait()
     except KeyboardInterrupt:

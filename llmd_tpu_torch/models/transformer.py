@@ -26,11 +26,17 @@ like:
   versions for CPU tensors). Any impl with the same signature can be passed
   instead; only the kernel-vs-plain checks do.
 
-Serves dense and MoE configs, GQA or MLA. Vision towers, qk-norm/bias
-checkpoints, LoRA and int8 weights (int8 expert banks included) raise
+Serves dense and MoE configs, GQA or MLA, with Qwen2's q/k/v(/o) biases
+(``attn_bias``) and Qwen3's per-head q/k RMSNorm (``qk_norm``), and int8
+weight-only params (``<key>_q`` int8 and ``<key>_scale`` float32 leaves from
+``models/quant.quantize_params``): every weight product goes through
+:func:`linear`, the counterpart of the reference's ``_mm``. int8 expert banks
+run plain products with their scales (the sorted dispatch's block-gathered
+experts, or the scaled capacity einsum), never the grouped-GEMM kernels, as
+the reference gives them to XLA. Vision towers and LoRA raise
 ``NotImplementedError`` naming the ROADMAP Queue A item that brings them;
 LoRA on MLA raises as in the reference (the absorbed path has no adapter
-hook).
+hook), and MLA excludes qk-norm and biases as the reference does.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from llmd_tpu_torch.models.config import ModelConfig
+from llmd_tpu_torch.models.quant import CONTRACT_AXES, QUANTIZABLE_LAYER_KEYS
 from llmd_tpu_torch.ops.grouped_gemm import grouped_gemm
 from llmd_tpu_torch.ops.moe_dispatch import make_sorted_dispatch
 from llmd_tpu_torch.ops.paged_attention import paged_attention
@@ -58,15 +65,19 @@ def check_supported(cfg: ModelConfig, lora: bool = False) -> None:
             f"{cfg.name}: LoRA adapters are unsupported on MLA models (no adapter "
             "hook in the absorbed path)")
     if lora:
-        raise NotImplementedError("LoRA params are ROADMAP Queue A item 12")
+        raise NotImplementedError("LoRA params are ROADMAP Queue A item 7")
     if cfg.mm_tokens > 0 or cfg.has_vision:
-        raise NotImplementedError(f"{cfg.name}: vision is ROADMAP Queue A item 12")
-    if cfg.qk_norm or cfg.attn_bias:
-        raise NotImplementedError(
-            f"{cfg.name}: qk_norm/attn_bias checkpoints are ROADMAP Queue A item 6")
+        raise NotImplementedError(f"{cfg.name}: vision is ROADMAP Queue A item 7")
+    if cfg.is_mla and (cfg.qk_norm or cfg.attn_bias):
+        raise NotImplementedError(f"{cfg.name}: MLA excludes qk_norm/attn_bias")
 
 
-def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+def param_shapes(cfg: ModelConfig, quantized: bool = False) -> dict[str, tuple[int, ...]]:
+    """Leaf shapes of the param dict. ``quantized``: the int8 weight-only
+    layout of ``models/quant.quantize_params`` (each quantizable ``<key>``
+    as ``<key>_q`` of the same shape and ``<key>_scale`` over its output
+    axes, and ``unembed_q [D, V]`` / ``unembed_scale [V]`` in place of any
+    ``unembed``)."""
     L, D, H, Hk, Dh = (cfg.num_layers, cfg.hidden_size, cfg.num_heads,
                        cfg.num_kv_heads, cfg.head_dim)
     Fi = cfg.intermediate_size
@@ -94,8 +105,22 @@ def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     else:
         shapes |= {"wi": (L, D, 2 * Fi),  # fused gate+up (SwiGLU)
                    "wo_mlp": (L, Fi, D)}
+    if cfg.qk_norm:
+        shapes |= {"q_norm": (L, Dh), "k_norm": (L, Dh)}
+    if cfg.attn_bias:
+        shapes |= {"bq": (L, H, Dh), "bk": (L, Hk, Dh), "bv": (L, Hk, Dh), "bo": (L, D)}
     if not cfg.tie_embeddings:
         shapes["unembed"] = (D, cfg.vocab_size)
+    if not quantized:
+        return shapes
+    for key in QUANTIZABLE_LAYER_KEYS:
+        if key in shapes:
+            shape = shapes.pop(key)
+            shapes[key + "_q"] = shape
+            shapes[key + "_scale"] = tuple(n for i, n in enumerate(shape)
+                                           if i not in CONTRACT_AXES[key])
+    shapes.pop("unembed", None)
+    shapes |= {"unembed_q": (D, cfg.vocab_size), "unembed_scale": (cfg.vocab_size,)}
     return shapes
 
 
@@ -123,8 +148,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                    "wo": (H * cfg.mla_v_head_dim) ** -0.5}
     params: dict[str, torch.Tensor] = {}
     for name, shape in shapes.items():
-        if name.endswith("norm"):  # attn/mlp/final norms and mla_kv_norm: ones
+        if name.endswith("norm"):  # attn/mlp/final/q/k norms and mla_kv_norm: ones
             params[name] = torch.ones(shape, dtype=dt, device=device)
+            continue
+        if name in ("bq", "bk", "bv", "bo"):  # biases: zeros, as the reference's
+            params[name] = torch.zeros(shape, dtype=dt, device=device)
             continue
         w = torch.randn(shape, generator=generator, device=gen_dev,
                         dtype=torch.float32) * scales[name]
@@ -135,22 +163,26 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 def params_from_numpy(cfg: ModelConfig, np_params: dict,
                       device: "torch.device | str" = "cpu") -> dict[str, torch.Tensor]:
     """The reference's param dict (numpy arrays, ``llmd_tpu`` ``init_params``
-    layout) as this package's tensors. bf16 arrays come out of JAX as
-    ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` rejects: every array
-    goes through float32, then to the config's dtype."""
+    layout, plain or int8 weight-only) as this package's tensors. bf16
+    arrays come out of JAX as ``ml_dtypes.bfloat16``, which
+    ``torch.from_numpy`` rejects: every float array goes through float32,
+    then to the config's dtype. int8 leaves stay int8 and scales float32."""
     check_supported(cfg, lora=any(k.startswith("lora_") for k in np_params))
-    shapes = param_shapes(cfg)
+    shapes = param_shapes(cfg, quantized=any(k.endswith("_q") for k in np_params))
     extra = sorted(set(np_params) - set(shapes))
     if extra:
         raise NotImplementedError(
-            f"params {extra} are not served by the port "
-            "(int8 weights are ROADMAP Queue A item 6)")
+            f"params {extra} are not served by the port (LoRA adapters are "
+            "ROADMAP Queue A item 7)")
     out: dict[str, torch.Tensor] = {}
     for name, shape in shapes.items():
-        a = np.array(np_params[name], dtype=np.float32)  # a writable copy
+        q8 = name.endswith("_q")
+        a = np.array(np_params[name], dtype=np.int8 if q8 else np.float32)  # a writable copy
         if a.shape != shape:
             raise ValueError(f"param {name}: shape {a.shape} != {shape}")
-        out[name] = torch.from_numpy(a).to(device=device, dtype=cfg.torch_dtype)
+        dt = (torch.int8 if q8 else
+              torch.float32 if name.endswith("_scale") else cfg.torch_dtype)
+        out[name] = torch.from_numpy(a).to(device=device, dtype=dt)
     return out
 
 
@@ -195,6 +227,27 @@ def swiglu(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return (F.silu(gate) * up) @ wo
 
 
+def linear(params: dict[str, torch.Tensor], key: str, l: int, x: torch.Tensor) -> torch.Tensor:
+    """``x [N, K]`` times layer ``l``'s weight ``key`` flattened to ``[K, out]``.
+    An int8 weight-only model carries ``<key>_q`` and ``<key>_scale`` instead
+    (``models/quant.py``): the product is the reference's ``_mm``,
+    ``(x @ q.to(x.dtype)) * s.to(x.dtype)``, in that order (the
+    per-output-channel scale commutes out of the dot)."""
+    K = x.shape[-1]
+    w = params.get(key)
+    if w is not None:
+        return x @ w[l].reshape(K, -1)
+    y = x @ params[key + "_q"][l].reshape(K, -1).to(x.dtype)
+    return y * params[key + "_scale"][l].reshape(-1).to(x.dtype)
+
+
+def swiglu_layer(params: dict[str, torch.Tensor], wi: str, wo: str, l: int,
+                 x: torch.Tensor) -> torch.Tensor:
+    """:func:`swiglu` over layer ``l``'s weights ``wi``/``wo``, plain or int8."""
+    gate, up = linear(params, wi, l, x).chunk(2, dim=-1)
+    return linear(params, wo, l, F.silu(gate) * up)
+
+
 def moe_block(
     cfg: ModelConfig,
     x: torch.Tensor,  # [T, D]
@@ -206,6 +259,8 @@ def moe_block(
     token_mask: Optional[torch.Tensor] = None,  # [T] bool
     dispatch_impl: Optional[Callable] = SORTED_DISPATCH,
     rows: Optional[tuple[torch.Tensor, int]] = None,
+    wi_scale: Optional[torch.Tensor] = None,  # [S, 2Fe] float32: wi/wo are int8 banks
+    wo_scale: Optional[torch.Tensor] = None,  # [S, D]
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Top-k routed MoE (port of the reference's ``moe_block``).
 
@@ -217,11 +272,14 @@ def moe_block(
     the physical slot weights and copy j of token t goes to replica
     ``(t + j) % replica_counts`` of its expert.
 
-    ``dispatch_impl(x, idx, topw, valid, wi, wo) -> y`` is the token-sorted
-    drop-free path (``ops/moe_dispatch``, the default). ``None`` selects the
-    capacity-einsum path: ``C = max(1, int(t·k/S·moe_capacity_factor))`` slots
-    per expert, copies past C dropped, expert GEMMs through
-    ``matmul_impl(xe [S, C, D], w, slot_counts [S])`` (K4's wrapper).
+    ``dispatch_impl(x, idx, topw, valid, wi, wo, wi_scale, wo_scale) -> y``
+    is the token-sorted drop-free path (``ops/moe_dispatch``, the default).
+    ``None`` selects the capacity-einsum path: ``C = max(1,
+    int(t·k/S·moe_capacity_factor))`` slots per expert, copies past C
+    dropped, expert GEMMs through ``matmul_impl(xe [S, C, D], w, slot_counts
+    [S])`` (K4's wrapper), or, for int8 banks (``wi_scale``/``wo_scale``
+    given), plain batched products times the per-expert per-output-channel
+    scales (the reference runs int8 banks on XLA, not its kernel).
 
     ``rows = (row_ids [T] int64, size)`` places the T rows in the reference's
     static batch of ``size`` rows (the reference pads its unified batch to the
@@ -265,7 +323,7 @@ def moe_block(
 
     if dispatch_impl is not None:
         def sorted_half(x, idx, topw, valid):
-            return dispatch_impl(x, idx, topw, valid, wi, wo), 0
+            return dispatch_impl(x, idx, topw, valid, wi, wo, wi_scale, wo_scale), 0
 
         y, _ = halves(sorted_half, x, idx, topw, valid)
         return y, counts, torch.zeros((), dtype=torch.int32, device=dev)
@@ -283,9 +341,16 @@ def moe_block(
         dst = torch.where(keep, idx * C + pos, S * C).reshape(-1)
         tok = torch.arange(t * k, device=dev) // k
         xe = x.new_zeros((S * C + 1, D)).index_copy_(0, dst, x[tok])[: S * C]
-        slot_counts = (onehot * keep[..., None]).sum(dim=(0, 1)).to(torch.int32)
-        gate, up = matmul_impl(xe.view(S, C, D), wi, slot_counts).chunk(2, dim=-1)
-        ye = matmul_impl(F.silu(gate) * up, wo, slot_counts).reshape(S * C, D)
+        if wi_scale is None:
+            slot_counts = (onehot * keep[..., None]).sum(dim=(0, 1)).to(torch.int32)
+            gate, up = matmul_impl(xe.view(S, C, D), wi, slot_counts).chunk(2, dim=-1)
+            ye = matmul_impl(F.silu(gate) * up, wo, slot_counts).reshape(S * C, D)
+        else:
+            dt = x.dtype
+            gate_up = torch.bmm(xe.view(S, C, D), wi.to(dt)) * wi_scale[:, None, :].to(dt)
+            gate, up = gate_up.chunk(2, dim=-1)
+            ye = (torch.bmm(F.silu(gate) * up, wo.to(dt))
+                  * wo_scale[:, None, :].to(dt)).reshape(S * C, D)
         g = torch.cat([ye, ye.new_zeros((1, D))])[dst].float()
         wt = (topw.to(x.dtype) * keep).float().reshape(-1, 1)
         y = (g * wt).view(t, k, D).sum(dim=1).to(x.dtype)
@@ -432,9 +497,14 @@ def forward_core(
             q = torch.cat([q_lat, q_rope], dim=-1)  # [N, H, r + dr]
             k = v = torch.cat([c, kr], dim=-1)[:, None, :]  # [N, 1, r + dr]
         else:
-            q = (h @ params["wq"][l].reshape(D, H * Dh)).view(N, H, Dh)
-            k = (h @ params["wk"][l].reshape(D, Hk * Dh)).view(N, Hk, Dh)
-            v = (h @ params["wv"][l].reshape(D, Hk * Dh)).view(N, Hk, Dh)
+            q = linear(params, "wq", l, h).view(N, H, Dh)
+            k = linear(params, "wk", l, h).view(N, Hk, Dh)
+            v = linear(params, "wv", l, h).view(N, Hk, Dh)
+            if cfg.attn_bias:
+                q, k, v = q + params["bq"][l], k + params["bk"][l], v + params["bv"][l]
+            if cfg.qk_norm:  # per-head RMSNorm over head_dim, before RoPE (Qwen3)
+                q = rms_norm(q, params["q_norm"][l], cfg.rms_eps)
+                k = rms_norm(k, params["k_norm"][l], cfg.rms_eps)
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
         # this layer's slice of the pool: slots/pages shifted by the layer offset
@@ -444,20 +514,27 @@ def forward_core(
                          cu_q_lens=cu_q_lens, num_seqs=num_seqs, scale=scale)
         if cfg.is_mla:  # the latent-weighted sum [..., :r] re-expands through W_UV
             attn = torch.einsum("nhr,hrv->nhv", attn[..., :r], params["mla_wuv"][l])
-        x = x + attn.reshape(N, H * Dv) @ params["wo"][l].reshape(H * Dv, D)
+        o = linear(params, "wo", l, attn.reshape(N, H * Dv))
+        if cfg.attn_bias:
+            o = o + params["bo"][l]
+        x = x + o
         h = rms_norm(x, params["mlp_norm"][l], cfg.rms_eps)
         if cfg.is_moe:
+            q8 = "moe_wi_q" in params  # int8 expert banks: plain products, no K2/K4
             y, cnt, drop = moe_block(
-                cfg, h, params["router"][l], params["moe_wi"][l], params["moe_wo"][l],
+                cfg, h, params["router"][l], params["moe_wi_q" if q8 else "moe_wi"][l],
+                params["moe_wo_q" if q8 else "moe_wo"][l],
                 eplb=(eplb[0][l], eplb[1][l]) if eplb[0] is not None else None,
                 matmul_impl=moe_matmul_impl, token_mask=valid,
-                dispatch_impl=moe_dispatch_impl, rows=moe_rows)
+                dispatch_impl=moe_dispatch_impl, rows=moe_rows,
+                wi_scale=params["moe_wi_scale"][l] if q8 else None,
+                wo_scale=params["moe_wo_scale"][l] if q8 else None)
             if cfg.moe_num_shared_experts:
-                y = y + swiglu(h, params["shared_wi"][l], params["shared_wo"][l])
+                y = y + swiglu_layer(params, "shared_wi", "shared_wo", l, h)
             counts.append(cnt)
             dropped.append(drop)
         else:
-            y = swiglu(h, params["wi"][l], params["wo_mlp"][l])
+            y = swiglu_layer(params, "wi", "wo_mlp", l, h)
         x = x + y
     if counts:
         expert_counts, n_dropped = torch.stack(counts), torch.stack(dropped).sum()
@@ -470,7 +547,12 @@ def forward_core(
 
 def unembed(cfg: ModelConfig, params: dict[str, torch.Tensor],
             hidden: torch.Tensor) -> torch.Tensor:
-    """hidden [..., D] → logits [..., vocab] in f32 (a plain product)."""
+    """hidden [..., D] → logits [..., vocab] in f32 (a plain product); on
+    ``unembed_q`` (int8 weight-only) the product times ``unembed_scale``, in
+    f32, as the reference's."""
+    if "unembed_q" in params:
+        logits = torch.matmul(hidden.float(), params["unembed_q"].float())
+        return logits * params["unembed_scale"].float()
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     return torch.matmul(hidden.float(), w.float())
 

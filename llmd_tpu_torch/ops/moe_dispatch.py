@@ -9,7 +9,10 @@
 * Run the expert MLP as two block-ragged grouped GEMMs (K2,
   ``ops/grouped_gemm.ragged_grouped_gemm``: the CUDA kernel on the card, its
   plain version for CPU tensors), ``silu(gate) * up`` between them in the
-  activation dtype.
+  activation dtype. int8 banks (per-slot scales given) run the reference's
+  ``_experts_xla`` instead: batched products over the block-gathered banks,
+  times the block-gathered scales, with the block size of its XLA path (no
+  K2 launch; the reference's kernel is bf16-only too).
 * Combine by the inverse permutation, weighted by the router probabilities.
   A token's k copies are contiguous, so the combine adds them in order of k
   without atomics (a deterministic sum on the card).
@@ -107,6 +110,21 @@ def experts_stage(xs, block_slot, block_rows, wi, wo, *,
     return ye.reshape(Tp, D)
 
 
+def experts_scaled(xs, block_slot, wi, wo, wi_scale, wo_scale):
+    """The int8 expert MLP on the sorted buffer (reference ``_experts_xla``):
+    each block's bank and per-output-channel scales gathered by its slot,
+    ``(x @ q.to(dt)) * s.to(dt)`` for wi and wo. Dead rows are zero and
+    ``silu(0) * 0 == 0``, so no mask is needed."""
+    Tp, D = xs.shape
+    nb = block_slot.shape[0]
+    dt = xs.dtype
+    bs = block_slot.long()
+    gate_up = torch.bmm(xs.view(nb, Tp // nb, D), wi[bs].to(dt)) * wi_scale[bs][:, None, :].to(dt)
+    gate, up = gate_up.chunk(2, dim=-1)
+    ye = torch.bmm(F.silu(gate) * up, wo[bs].to(dt)) * wo_scale[bs][:, None, :].to(dt)
+    return ye.reshape(Tp, D)
+
+
 def combine_stage(ye, row, tok, wf, T: int):
     """Inverse permutation + router-prob weighting back to [T, D]. The k
     copies of a token are contiguous (``tok = arange(T*k) // k``): they are
@@ -120,25 +138,29 @@ def combine_stage(ye, row, tok, wf, T: int):
     return y
 
 
-def sorted_moe_local(x, idx, topw, valid, wi, wo, *, bc: Optional[int] = None,
-                     gemm: Callable = ragged_grouped_gemm):
+def sorted_moe_local(x, idx, topw, valid, wi, wo, wi_scale=None, wo_scale=None, *,
+                     bc: Optional[int] = None, gemm: Callable = ragged_grouped_gemm):
     """Single-device token-sorted MoE: gather/scatter only, no collective.
-    On the card the block size keeps the kernel's minimum of 8 rows. ``gemm``
-    is K2's wrapper; the card-side kernel-vs-plain checks pass its plain
-    version."""
+    On the card the block size of the bf16 path keeps the kernel's minimum of
+    8 rows. ``gemm`` is K2's wrapper; the card-side kernel-vs-plain checks
+    pass its plain version. ``wi_scale``/``wo_scale`` (int8 banks): the
+    scaled plain experts (:func:`experts_scaled`) at the XLA block size."""
     T, D = x.shape
     S = wi.shape[0]
     if bc is None:
-        bc = pick_block_size(T * idx.shape[1], S, pallas=x.is_cuda)
+        bc = pick_block_size(T * idx.shape[1], S, pallas=x.is_cuda and wi_scale is None)
     xs, row, tok, wf, block_slot, block_rows = dispatch_stage(x, idx, topw, valid, S, bc)
-    ye = experts_stage(xs, block_slot, block_rows, wi, wo, gemm=gemm)
+    if wi_scale is None:
+        ye = experts_stage(xs, block_slot, block_rows, wi, wo, gemm=gemm)
+    else:
+        ye = experts_scaled(xs, block_slot, wi, wo, wi_scale, wo_scale)
     return combine_stage(ye, row, tok, wf, T)
 
 
 def make_sorted_dispatch(mesh=None) -> Callable:
-    """The ``moe_block`` dispatch_impl ``impl(x, idx, topw, valid, wi, wo) ->
-    y``: routing, top-k and the EPLB replica choice happened upstream (shared
-    with the einsum path). One device only."""
+    """The ``moe_block`` dispatch_impl ``impl(x, idx, topw, valid, wi, wo,
+    wi_scale, wo_scale) -> y``: routing, top-k and the EPLB replica choice
+    happened upstream (shared with the einsum path). One device only."""
     if mesh is not None:
         raise NotImplementedError(
             "expert-parallel dispatch over a mesh is ROADMAP Queue A item 11")

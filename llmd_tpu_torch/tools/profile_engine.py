@@ -1,12 +1,14 @@
 """Where a decode step's time goes, on the card.
 
     python -m llmd_tpu_torch.tools.profile_engine [--batches 8,32] [--model llama-1b]
-        [--moe-dispatch auto|sorted|einsum]
+        [--moe-dispatch auto|sorted|einsum] [--quantize int8]
 
 ``--model`` takes any served registry model, dense (``llama-1b``), MoE
 (``moe-wide-sim``; its expert GEMMs are K2 on the sorted dispatch, K4 on the
 einsum one) or MLA (``moe-wide-mla``: K1's latent instance in the unified
-program, the latent decode kernel K3 in the decode program).
+program, the latent decode kernel K3 in the decode program). ``--quantize
+int8`` serves int8 weight-only weights (their plain products; no K2/K4 on
+int8 banks).
 
 For each batch size, in turn for the decode program captured into a CUDA
 graph and replayed (``graph``, the engine's default) and for the same program
@@ -228,7 +230,7 @@ def k2_host_us(cfg, params, batch: int, seed: int) -> dict:
     """Host microseconds per K2 launch at the decode shape of ``batch``
     tokens: ``k2_host_us_per_launch`` (the wrapper), ``k2_c_call_us_wgmma``
     and ``k2_c_call_us_simt`` (the C entry point); empty on a dense model."""
-    if not cfg.is_moe:
+    if not cfg.is_moe or "moe_wi" not in params:  # dense, or int8 banks (no K2)
         return {}
     from llmd_tpu_torch.ops.grouped_gemm import _library, ragged_grouped_gemm
     from llmd_tpu_torch.ops.moe_dispatch import dispatch_stage, pick_block_size
@@ -260,7 +262,7 @@ def k2_host_us(cfg, params, batch: int, seed: int) -> dict:
 
 def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
                   calls: int, prof_calls: int, seed: int, moe_dispatch: str = "auto",
-                  decode_graph: bool = True) -> dict:
+                  decode_graph: bool = True, quantize: "str | None" = None) -> dict:
     from llmd_tpu_torch.core.request import SamplingParams
     from llmd_tpu_torch.engine import EngineConfig, LLMEngine
     from llmd_tpu_torch.models.transformer import forward_core
@@ -274,7 +276,7 @@ def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
         page_size=ps, num_pages=batch * per_seq + 8, max_model_len=4096,
         max_batch_size=batch, prefill_chunk=min(prompt_len, 2048),
         max_num_batched_tokens=max(2048, prompt_len), decode_steps=decode_steps,
-        moe_dispatch=moe_dispatch)
+        moe_dispatch=moe_dispatch, quantize_weights=quantize)
     eng = LLMEngine(cfg, ecfg, params=params, seed=seed, decode_graph=decode_graph)
     rng = np.random.default_rng(seed)
     for i in range(batch):
@@ -345,7 +347,7 @@ def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
     wall_iter_ms = wall / max(iters, 1) * 1e3
     busy_iter_ms = busy_us / 1e3 / max(prof_iters, 1) if kernels else None
     return {
-        "mode": "graph" if decode_graph else "eager",
+        "mode": "graph" if decode_graph else "eager", "quantize": quantize,
         "decode_graph_capture_s": st.decode_graph_capture_s,
         "batch": batch, "prompt_len": prompt_len, "decode_steps": decode_steps,
         "prefill_s": prefill_s, "prefill_tok_s": batch * prompt_len / prefill_s,
@@ -388,6 +390,7 @@ def main(argv: "list[str] | None" = None) -> None:
     ap.add_argument("--prof-calls", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--moe-dispatch", default="auto", choices=("auto", "sorted", "einsum"))
+    ap.add_argument("--quantize", default=None, choices=("int8",))
     ap.add_argument("--out", default=None, help="also write the rows here (JSON)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -411,13 +414,13 @@ def main(argv: "list[str] | None" = None) -> None:
     # warm-up pass (cuBLAS handles, lazy module loads), not reported
     for graph in (True, False):
         profile_batch(cfg, params, 2, 32, args.decode_steps, 1, 1, args.seed,
-                      args.moe_dispatch, decode_graph=graph)
+                      args.moe_dispatch, decode_graph=graph, quantize=args.quantize)
     rows = []
     for b in (int(x) for x in args.batches.split(",")):
         for graph in (True, False):
             r = profile_batch(cfg, params, b, args.prompt_len, args.decode_steps,
                               args.calls, args.prof_calls, args.seed, args.moe_dispatch,
-                              decode_graph=graph)
+                              decode_graph=graph, quantize=args.quantize)
             r["card"] = smi
             rows.append(r)
             print(json.dumps({k: v for k, v in r.items()
@@ -434,7 +437,7 @@ def main(argv: "list[str] | None" = None) -> None:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps({"model": args.model, "moe_dispatch": args.moe_dispatch,
-                                   "rows": rows}, indent=1))
+                                   "quantize": args.quantize, "rows": rows}, indent=1))
 
 
 if __name__ == "__main__":

@@ -208,15 +208,23 @@ def test_unserved_options_raise(make, reference):
         make(kv_cache_dtype="fp8")
     # every field the port does not read raises when set away from its default
     for field, value in (("kv_layout", "packed"), ("max_queue", 1),
-                         ("instrument", True), ("structured_fused_decode", False)):
+                         ("structured_fused_decode", False)):
         with pytest.raises(ValueError, match=field):
             make(**{field: value})
-    # the pipelined dispatch is served, on and off, and matches the reference
+    # served away from their defaults, each against the reference: the
+    # pipelined dispatch off, at depth 1 without pack overlap, and
+    # ``instrument`` (the unified program's outputs waited for before its
+    # device time is stamped)
     prompt = list(range(10, 30))
-    for pipelined in (False, True):
-        eng = make(pipeline_decode=pipelined, pack_overlap=pipelined,
-                   pipeline_prefill_sample=pipelined, decode_steps=2)
-        assert eng.generate([prompt], greedy(5)) == reference([prompt], 5)
+    for kw in (dict(pipeline_decode=False, pack_overlap=False,
+                    pipeline_prefill_sample=False),
+               dict(pipeline_depth=1, pack_overlap=False),
+               dict(instrument=True)):
+        eng = make(decode_steps=2, **kw)
+        assert eng.generate([prompt], greedy(5)) == reference([prompt], 5), kw
+        st = eng.stats
+        assert st.time_device > 0 and st.time_postprocess > 0
+        assert st.time_prefill_steps >= st.time_device - st.time_device_decode
     with pytest.raises(ValueError):
         SamplingParams(logit_bias={1: 2.0})
     eng = make()

@@ -619,6 +619,22 @@ def test_decode_graph_matches_eager(cuda, model, kw):
     """bf16 registry weights: the decode program replayed from its graph
     gives the greedy tokens and kernel launches of the same program run
     eagerly, with the pipelined dispatch on; one capture, one replay a call."""
+    _check_graph_matches_eager(cuda, model, kw)
+
+
+@pytest.mark.parametrize("model,kw", GRAPH_MODELS,
+                         ids=["tiny", "tiny-moe-sorted", "tiny-moe-einsum", "tiny-mla"])
+def test_int8_decode_graph_matches_eager(cuda, model, kw):
+    """The same with int8 weight-only weights: replayed = eager tokens and
+    launches, and no grouped-GEMM launch (int8 banks run plain products)."""
+    counts = _check_graph_matches_eager(cuda, model, kw | {"quantize_weights": "int8"})
+    assert counts["ragged_grouped_gemm"][0] == counts["grouped_gemm"][0] == 0
+    assert counts["paged_attention"][0] > 0
+
+
+def _check_graph_matches_eager(cuda, model, kw) -> dict:
+    """Replayed vs eager on one model and config; returns the kernel launches
+    of the replayed run."""
     from llmd_tpu_torch.core.request import SamplingParams
 
     prompts = [list(range(5, 60)), list(range(100, 110)), list(range(7, 200, 3))]
@@ -640,6 +656,7 @@ def test_decode_graph_matches_eager(cuda, model, kw):
     assert g.n_chained_dispatches > 0
     assert stats[False].decode_graph_captures == stats[False].decode_graph_replays == 0
     assert g.moe_dropped_tokens == stats[False].moe_dropped_tokens
+    return counts[True]
 
 
 def test_decode_graph_sampling_draws_fresh_numbers(cuda):

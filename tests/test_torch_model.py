@@ -36,13 +36,18 @@ def test_registry_matches_reference_field_for_field():
 def test_unserved_architectures_raise(name):
     cfg = get_model_config(name)
     if name in ("tiny-moe", "tiny-mla"):
-        # MoE and MLA are served since their slices; int8 weights are not
-        # (int8 expert banks, the int8 attention output projection)
-        params = {k: np.zeros(v, np.float32) for k, v in tt.param_shapes(cfg).items()}
+        # MoE, MLA and int8 weights (int8 expert banks, the int8 attention
+        # output projection) are served since their slices; LoRA adapters
+        # on them are not
+        params = {k: np.zeros(v, np.float32)
+                  for k, v in tt.param_shapes(cfg, quantized=True).items()}
         key = "moe_wi" if name == "tiny-moe" else "wo"
-        params[key + "_q"] = np.zeros(params.pop(key).shape, np.int8)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 6"):
-            tt.params_from_numpy(cfg, params)
+        params[key + "_q"] = params[key + "_q"].astype(np.int8)
+        assert tt.params_from_numpy(cfg, params)[key + "_q"].dtype == torch.int8
+        refusal = "LoRA adapters are unsupported on MLA" if cfg.is_mla else \
+            "ROADMAP Queue A item 7"
+        with pytest.raises(NotImplementedError, match=refusal):
+            tt.params_from_numpy(cfg, {**params, "lora_A_wq": np.zeros(1, np.float32)})
         return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
         tt.init_params(cfg, torch.Generator().manual_seed(0))
@@ -252,7 +257,7 @@ def test_params_from_numpy_takes_bf16_reference_params():
     jcfg, tcfg, jp, tp = _params("tiny", dtype="bfloat16")
     assert all(v.dtype == torch.bfloat16 for v in tp.values())
     np.testing.assert_array_equal(tp["wq"].float().numpy(), _np(jp["wq"]))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         tt.params_from_numpy(tcfg, {**{k: np.asarray(v) for k, v in jp.items()},
                                     "lora_A_wq": np.zeros(1)})
 
