@@ -70,13 +70,25 @@ with a non-zero exit:
             equal the launches of those kernels that the profiler saw on the
             device. Prints captures, replays, capture seconds, decode tok/s
             replayed and eager, host launch calls and device kernels per
-            decode iteration and the device's busy share.
-7. forward  one mixed unified batch through ``forward_core`` in float32, with
+            decode iteration and the device's busy share; replayed on
+            llama-1b, the host makes 3 launch calls a decode call (one graph
+            launch, two RNG-state fills), 0.75 an iteration at
+            ``decode_steps`` 4, with the metric families on.
+7. surface  the serving surface that llm-d's router drives
+            (``phase_surface``): llama-1b at full width behind the port's
+            server with the KV-event publisher; 12 concurrent requests
+            (completions over a shared 512-token prefix, half streamed,
+            chat, repeats), ``/metrics`` read through the port's metrics
+            contract and held to ``EngineStats``, every streamed text held
+            to its non-streamed twin, every prompt's full blocks in the KV
+            events under the router's block keys with no ``seq`` gap,
+            ``/drain`` / ``/health`` / admission codes, K1 all on ``mma``.
+8. forward  one mixed unified batch through ``forward_core`` in float32, with
             the kernels and again with the plain versions passed as overrides:
             llama-1b, moe-wide-sim on both dispatch paths, and moe-wide-mla
             with a decode batch after it (K3) (logits held together, expert
             counts equal; K1, K3, K2 / K4 on their float32 simt instances).
-8. int8     int8 weight-only weights (``quantize_weights="int8"``) at registry
+9. int8     int8 weight-only weights (``quantize_weights="int8"``) at registry
             width through the captured, pipelined engine, replayed and eager:
             llama-1b (8 requests), moe-wide-sim sorted (8) and einsum (4),
             moe-wide-mla sorted (8). Tokens and launch counts replayed =
@@ -86,12 +98,12 @@ with a non-zero exit:
             Then one float32 forward per model of the int8 weights against
             the dequantized weights ``q * s`` as plain float32 weights
             (max abs <= FORWARD_ATOL, argmax 100%).
-9. loader   llama-1b's random bf16 params at full width written as an HF
+10. loader  llama-1b's random bf16 params at full width written as an HF
             checkpoint (``testing/checkpoints``) under the gitignored
             ``checkpoints/``, loaded by ``models/hf_loader``: every leaf
             bit-equal, greedy tokens equal to the in-memory params'; the
             checkpoint is deleted after.
-10. bench   ``llmd_tpu_torch.tools.bench`` at its default (llama-1b, int8, 64
+11. bench   ``llmd_tpu_torch.tools.bench`` at its default (llama-1b, int8, 64
             requests of ISL 256 / OSL 128, batch 64, ``decode_steps`` 32),
             then with ``--quantize none``; each JSON line printed on a
             ``bench:`` line. No capture in the measured window
@@ -116,6 +128,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -1400,6 +1413,281 @@ def phase_graph(device, card: str, model: str = "llama-1b", n_requests: int = 8,
     return row
 
 
+class IdTokenizer:
+    """The surface phase's tokenizer: a prompt's text is its UTF-8 bytes (ids
+    below 256, as the byte tokenizer's), and every id decodes to a character
+    of its own (U+10000 + id), so a text holds its tokens one for one and a
+    joined stream is held to a non-streamed text token for token."""
+
+    bos_id, eos_id = 256, 257
+
+    def __init__(self, vocab_size: int) -> None:
+        self.vocab_size = vocab_size
+
+    def encode(self, text: str, add_bos: bool = False) -> list:
+        return ([self.bos_id] if add_bos else []) + list(text.encode("utf-8"))
+
+    def decode(self, ids) -> str:
+        return "".join(chr(0x10000 + i) for i in ids)
+
+
+def _http(method: str, url: str, body: "dict | None" = None,
+          headers: "dict | None" = None) -> tuple:
+    """(status, headers, body bytes), error statuses included; an SSE body
+    comes back as its ``data:`` payloads, ``[DONE]`` last."""
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(url, data=data, method=method, headers={
+        "Content-Type": "application/json", **(headers or {})})
+    try:
+        resp = urllib.request.urlopen(req, timeout=600)
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+    with resp:
+        if resp.headers.get("Content-Type", "").startswith("text/event-stream"):
+            events = [line[6:].strip() for line in resp if line.startswith(b"data: ")]
+            return resp.status, dict(resp.headers), events
+        return resp.status, dict(resp.headers), resp.read()
+
+
+class _KVSubscriber:
+    """A pyzmq SUB on ``kv@`` in a thread: every batch, decoded, in order."""
+
+    def __init__(self, port: int) -> None:
+        import zmq
+
+        self._ctx = zmq.Context()
+        self._sock = self._ctx.socket(zmq.SUB)
+        self._sock.setsockopt(zmq.SUBSCRIBE, b"kv@")
+        self._sock.connect(f"tcp://127.0.0.1:{port}")
+        self.batches: list = []  # (topic, seq, events)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        time.sleep(0.3)  # slow joiner: the subscription reaches the publisher
+
+    def _run(self) -> None:
+        from llmd_tpu_torch.core.kv_events import decode_event_batch
+
+        while not self._stop.is_set():
+            if self._sock.poll(50):
+                topic, payload = self._sock.recv_multipart()
+                self.batches.append((topic.decode(), *decode_event_batch(payload)))
+
+    def stop(self) -> None:
+        time.sleep(0.2)  # the publisher's last flush (every 10 ms) lands
+        self._stop.set()
+        self._thread.join(timeout=10)
+        self._sock.close(0)
+        self._ctx.term()
+
+
+def phase_surface(device, card: str, model: str = "llama-1b", seed: int = 0) -> dict:
+    """The serving surface that llm-d's router drives, on the card: llama-1b
+    at full width, bf16 weights, the engine phase's settings, the KV-event
+    publisher on a free port.
+
+    A SUB subscribes to ``kv@`` before any request. One request warms the
+    512-token prefix into the cache and the decode graph up; ``/metrics`` is
+    read. Then 12 requests concurrently: 8 completions of that prefix and a
+    64-256-token tail (half streamed), 2 chat requests (one streamed) and 2
+    repeats of earlier prompts (one streamed), 32 greedy tokens each.
+    ``/metrics`` again, through the port's metrics contract: block size and
+    count equal the engine's, both request gauges present, and the deltas of
+    ``prefill_tokens`` and ``decode_tokens`` equal ``EngineStats``'s, that of
+    ``prefix_cached_tokens`` the responses' ``cached_tokens`` (above 0).
+    K1 ran once per layer of every forward, all on ``mma``, no plain version.
+    Each streamed request is then sent alone, streamed and not: the joined
+    stream equals the text (which holds one character a token). The KV
+    events: every prompt's full blocks were stored under
+    ``block_keys_for_tokens(prompt, page_size)``, and ``seq`` has no gap.
+    ``/drain`` gives 200, then ``/health`` and ``/v1/completions`` 503, and
+    ``{"enable": false}`` reopens both."""
+    from llmd_tpu_torch.core.kv_events import BlockStored, block_keys_for_tokens
+    from llmd_tpu_torch.core.metrics_contract import (
+        StdMetric, map_engine_metrics, parse_prometheus)
+    from llmd_tpu_torch.core.request import flatten_messages
+    from llmd_tpu_torch.engine.config import EngineConfig
+    from llmd_tpu_torch.engine.server import EngineServer
+    from llmd_tpu_torch.models import get_model_config
+
+    cfg = get_model_config(model)
+    kw = dict(page_size=PS, num_pages=2048, max_model_len=2048, max_batch_size=32,
+              prefill_chunk=512, max_num_batched_tokens=2048, decode_steps=4)
+    server = EngineServer(cfg, EngineConfig(**kw), host="127.0.0.1", port=0,
+                          kv_events_port=0, tokenizer=IdTokenizer(cfg.vocab_size),
+                          seed=seed, device=device)
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz ", np.uint8)
+
+    def text(n: int) -> str:
+        return bytes(rng.choice(letters, int(n))).decode()
+
+    prefix = text(512)
+    tails = [text(n) for n in rng.integers(64, 257, 9)]
+    greedy = {"max_tokens": 32, "temperature": 0, "ignore_eos": True}
+    chat = [[{"role": "system", "content": prefix}, {"role": "user", "content": tails[8]}],
+            [{"role": "user", "content": tails[0]}]]
+    wave = ([("/v1/completions", {"prompt": prefix + tails[i], "stream": i % 2 == 1})
+             for i in range(8)]
+            + [("/v1/chat/completions", {"messages": chat[0], "stream": False}),
+               ("/v1/chat/completions", {"messages": chat[1], "stream": True}),
+               ("/v1/completions", {"prompt": prefix + tails[0], "stream": False}),
+               ("/v1/completions", {"prompt": prefix + tails[3], "stream": True})])
+    server.start()
+    sub = _KVSubscriber(server.kv_events_port)
+    base = f"http://{server.address}"
+    eng = server.engine
+    try:
+        def scrape() -> tuple:
+            status, _, body = _http("GET", base + "/metrics")
+            assert status == 200, status
+            samples = parse_prometheus(body.decode())
+            return map_engine_metrics("vllm", samples), {
+                n: v for n, labels, v in samples if not labels}
+
+        warm = prefix + text(40)
+        assert _http("POST", base + "/v1/completions", {"prompt": warm, **greedy})[0] == 200
+        std0, flat0 = scrape()
+        st0 = dataclasses.replace(eng.stats)
+        zero_counts()
+        results: list = [None] * len(wave)
+
+        def one(i: int) -> None:
+            path, body = wave[i]
+            try:
+                results[i] = _http("POST", base + path, {**body, **greedy})
+            except Exception as e:  # noqa: BLE001 — reported below as a failed request
+                results[i] = e
+
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(wave))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t1
+        launches, plain_calls = read_counts()
+        by_instance = instance_counts()
+        st = dataclasses.replace(eng.stats)
+        std1, flat1 = scrape()
+        bad = [(i, r) for i, r in enumerate(results)
+               if not (isinstance(r, tuple) and r[0] == 200)]
+        if bad:
+            raise AssertionError(f"surface: failed requests {bad[:3]}")
+
+        def answer(result, stream: bool, is_chat: bool) -> tuple:
+            """(text, usage) of one response."""
+            if not stream:
+                payload = json.loads(result[2])
+                c = payload["choices"][0]
+                return (c["message"]["content"] if is_chat else c["text"]), payload["usage"]
+            events = result[2]
+            assert events[-1] == b"[DONE]", events[-1:]
+            chunks = [json.loads(e) for e in events[:-1]]
+            assert all(c["choices"][0]["finish_reason"] is None for c in chunks[:-1])
+            assert chunks[-1]["choices"][0]["finish_reason"] == "length"
+            return "".join(c["choices"][0]["delta"]["content"] if is_chat
+                           else c["choices"][0]["text"] for c in chunks), chunks[-1]["usage"]
+
+        answers = [answer(r, body["stream"], "messages" in body)
+                   for r, (_, body) in zip(results, wave)]
+        for (txt, usage), (_, body) in zip(answers, wave):
+            if not (len(txt) == usage["completion_tokens"] == greedy["max_tokens"]):
+                raise AssertionError(f"surface: {len(txt)} characters for "
+                                     f"{usage['completion_tokens']} tokens ({body['stream']})")
+        completion = sum(u["completion_tokens"] for _, u in answers)
+        cached = sum(u["cached_tokens"] for _, u in answers)
+        # each streamed request alone, streamed and not (the same batch and
+        # cache state): the joined stream equals the text, token for token
+        twins = []
+        for i, (path, body) in enumerate(wave):
+            if body["stream"]:
+                pair = [answer(_http("POST", base + path, {**body, **greedy, "stream": flag}),
+                               flag, "messages" in body) for flag in (True, False)]
+                twins.append(pair[0] == pair[1])
+        # drain: admission closes, /health says so, {"enable": false} reopens
+        drain = _http("POST", base + "/drain?timeout_s=30")
+        codes = {"drain": drain[0], "drain_status": json.loads(drain[2])["status"],
+                 "health_draining": _http("GET", base + "/health")[0],
+                 "completion_draining": _http("POST", base + "/v1/completions",
+                                              {"prompt": "x", **greedy})[0],
+                 "reopen": _http("POST", base + "/drain", {"enable": False})[0],
+                 "health": _http("GET", base + "/health")[0],
+                 "completion": _http("POST", base + "/v1/completions",
+                                     {"prompt": "x", **greedy})[0]}
+        renders = {}
+        for path, body in [("/v1/completions", {"prompt": warm})] + wave:
+            key = "messages" if "messages" in body else "prompt"
+            want = IdTokenizer(0).encode(flatten_messages(body[key]) if key == "messages"
+                                         else body[key])
+            status, _, got = _http("POST", base + path + "/render", body)
+            renders[json.dumps(body[key])] = want
+            if status != 200 or json.loads(got)["prompt_token_ids"] != want:
+                raise AssertionError(f"surface: render of {path} differs")
+    finally:
+        sub.stop()
+        server.stop()
+    topic = f"kv@{server.address}@{server.model_name}"
+    seqs = [b[1] for b in sub.batches]
+    stored = {h for _, _, evs in sub.batches for e in evs if isinstance(e, BlockStored)
+              for h in e.block_hashes}
+    missing = {p[:40]: n for p, ids in renders.items()
+               if (n := sum(k not in stored for k in block_keys_for_tokens(ids, PS)))}
+    forwards = (st.n_unified_steps - st0.n_unified_steps
+                + st.n_decode_iterations - st0.n_decode_iterations)
+    deltas = {
+        "prefill_tokens": (flat1["llmd_tpu:prefill_tokens_total"]
+                           - flat0["llmd_tpu:prefill_tokens_total"],
+                           st.total_prefill_tokens - st0.total_prefill_tokens),
+        "decode_tokens": (flat1["llmd_tpu:decode_tokens_total"]
+                          - flat0["llmd_tpu:decode_tokens_total"],
+                          st.total_decode_tokens - st0.total_decode_tokens),
+        "prefix_cached_tokens": (flat1["llmd_tpu:engine_prefix_cached_tokens_total"]
+                                 - flat0["llmd_tpu:engine_prefix_cached_tokens_total"],
+                                 cached),
+    }
+    row = {"card": card, "model": model, "requests": len(wave), "wall_s": wall,
+           "completion_tokens": completion, "output_tok_s": completion / wall,
+           "metrics_before": std0, "metrics_after": std1, "deltas": deltas,
+           "launches": launches, "plain_calls": plain_calls,
+           "launches_by_instance": by_instance, "forwards": forwards,
+           "twins_equal": twins, "codes": codes, "kv_batches": len(seqs),
+           "kv_stored_blocks": len(stored), "kv_prompts_missing_blocks": missing,
+           "engine_config": kw}
+    log(f"surface: {model} on {card}: {len(wave)} requests wall_s={wall:.3f} "
+        f"output_tok_s={completion / wall:.1f} completion_tokens={completion} "
+        f"cached_tokens={cached} forwards={forwards}")
+    log(f"surface:   metrics before={std0} after={std1} deltas (metric, engine)={deltas}")
+    log(f"surface:   kv events: {len(seqs)} batches, seq {seqs[:1]}..{seqs[-1:]}, "
+        f"{len(stored)} blocks stored, prompts missing blocks {missing}; "
+        f"streamed = alone non-streamed {twins}; codes {codes}")
+    log(f"surface:   launches={launches} plain_calls={plain_calls} "
+        f"launches_by_instance={by_instance}")
+    for std in (std0, std1):
+        if (std.get(StdMetric.BLOCK_SIZE), std.get(StdMetric.NUM_BLOCKS)) != (
+                PS, kw["num_pages"]) or not {StdMetric.QUEUED_REQUESTS,
+                                             StdMetric.RUNNING_REQUESTS} <= std.keys():
+            raise AssertionError(f"surface: /metrics maps to {std}")
+    if any(m != e for m, e in deltas.values()) or deltas["prefix_cached_tokens"][0] <= 0:
+        raise AssertionError(f"surface: metric deltas {deltas} (metric, engine)")
+    if not all(twins) or len(twins) != 6:
+        raise AssertionError(f"surface: streamed texts differ from non-streamed {twins}")
+    if seqs != list(range(1, len(seqs) + 1)) or missing or not seqs or any(
+            b[0] != topic for b in sub.batches):
+        raise AssertionError(f"surface: KV events seq {seqs}, prompts missing blocks "
+                             f"{missing}, topics {sorted({b[0] for b in sub.batches})}")
+    if codes != {"drain": 200, "drain_status": "drained", "health_draining": 503,
+                 "completion_draining": 503, "reopen": 200, "health": 200,
+                 "completion": 200}:
+        raise AssertionError(f"surface: drain codes {codes}")
+    k1 = by_instance["paged_attention"]
+    if (any(plain_calls.values()) or launches["paged_attention"] != cfg.num_layers * forwards
+            or k1 != {**dict.fromkeys(k1, 0), "mma": launches["paged_attention"]}):
+        raise AssertionError(f"surface: K1 launches {launches} ({k1}) for {forwards} "
+                             f"forwards, plain calls {plain_calls}")
+    return row
+
+
 def phase_forward_check(device, model: str = "llama-1b", seed: int = 0,
                         moe_dispatch: str = "sorted") -> dict:
     """One mixed unified batch (two decode rows over resident KV, a fresh
@@ -1768,6 +2056,14 @@ def main(argv: "list[str] | None" = None) -> int:
         "mla_sorted": phase_graph(device, card, model=MLA, label="mla sorted",
                                   engine_kw={"moe_dispatch": "sorted"}),
     }
+    # the metric families add no launch call to the replayed decode program:
+    # one graph launch and two RNG-state fills a call, as before them
+    dense = report["graph"]["llama-1b"]["profile_graph"]
+    if dense["host_launch_calls_per_iteration"] != 3 / dense["decode_steps"]:
+        raise AssertionError(f"graph: llama-1b replayed makes "
+                             f"{dense['host_launch_calls_per_iteration']} host launch calls "
+                             f"an iteration, expected {3 / dense['decode_steps']}")
+    report["surface"] = surface = phase_surface(device, card)
     if report["graph"]["moe_eplb"]["graph_eplb_rebalances"] < 2:
         raise AssertionError("graph: EPLB re-placed its experts fewer than twice")
     for run in ("moe_sorted", "mla_sorted"):
@@ -1835,7 +2131,8 @@ def main(argv: "list[str] | None" = None) -> int:
         entry("paged_attention", attn_src, "llmd_tpu/ops/paged_attention.py:106",
               eng["llama-1b"]["launches"]["paged_attention"], k1["decode"]) | k1_more
         | {f"bench_{q}_launches": report["bench"][q]["kernel_launches"]["paged_attention"]["mma"]
-           for q in ("int8", "bf16")},
+           for q in ("int8", "bf16")}
+        | {"surface_launches": surface["launches"]["paged_attention"]},
         # the unified program's absorbed MLA attention, XLA in the reference
         entry("paged_attention_latent", attn_src, "llmd_tpu/models/transformer.py:428",
               eng["mla_sorted"]["launches"]["paged_attention"], lat)

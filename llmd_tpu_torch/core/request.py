@@ -1,5 +1,6 @@
 """Sampling parameters (the fields of ``llmd_tpu/core/request.py::SamplingParams``
-that this slice honours).
+that this slice honours), the deadline header and the chat flattening that the
+router and the engine share.
 
 Structured-output, penalty, logprob and multi-sample fields exist with the
 reference's names so callers can pass the same objects, but setting one away
@@ -10,8 +11,14 @@ reference engine, draws come from the engine's own generator.
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
+
+# End-to-end deadline header: seconds of budget left. The router decrements it
+# across its queue wait and forwards the remainder, so the engine sees how much
+# budget the client has left.
+HDR_REQUEST_TIMEOUT = "x-request-timeout"
 
 # field -> the value that means "off"; anything else is refused
 _UNSERVED = {
@@ -54,3 +61,46 @@ class SamplingParams:
 
     def greedy(self) -> bool:
         return self.temperature == 0.0
+
+
+def media_url_of_part(part: Any) -> "tuple[Optional[str], Optional[str]]":
+    """(kind, payload url or data) of a media content part, else (None, None)."""
+    if not isinstance(part, dict):
+        return None, None
+    kind = part.get("type")
+    if kind == "image_url":
+        url = (part.get("image_url") or {}).get("url", "")
+    elif kind in ("input_audio", "video_url", "audio_url"):
+        sub = part.get(kind) or {}
+        url = sub.get("url", "") or sub.get("data", "")
+    else:
+        return None, None
+    return (kind, str(url)) if url else (kind, None)
+
+
+def flatten_messages(messages: Sequence[dict[str, Any]]) -> str:
+    """Canonical chat-to-text flattening (reference ``flatten_messages``).
+
+    The router computes block keys over this rendering, so the engine must
+    use the same one: ``role: content`` lines joined by newlines, text parts
+    joined by spaces, and media parts rendered as ``<kind:hash16>``
+    placeholders (``<kind>`` when the part carries no payload)."""
+    out = []
+    for m in messages:
+        content = m.get("content", "")
+        if isinstance(content, list):
+            pieces = []
+            for part in content:
+                if not isinstance(part, dict):  # a bare string in the parts list
+                    pieces.append(str(part))
+                elif part.get("type") == "text":
+                    pieces.append(part.get("text", ""))
+                else:
+                    kind, url = media_url_of_part(part)
+                    kind = kind or part.get("type", "media")
+                    pieces.append(
+                        f"<{kind}:{hashlib.sha256(url.encode()).hexdigest()[:16]}>"
+                        if url else f"<{kind}>")
+            content = " ".join(pieces)
+        out.append(f"{m.get('role', '')}: {content}")
+    return "\n".join(out)

@@ -64,6 +64,13 @@ int8 weight-only (``quantize_weights="int8"``): the params are quantized at
 construction (``models/quant.py``); EPLB regathers int8 banks and their
 scales by the same slot map.
 
+Metrics: ``self.registry`` holds the reference's engine families
+(``obs/metrics.py``), moved at the reference's sites from numbers the host
+already holds: the decode program's are counted when a call's readback is
+processed, never inside the program, so a graph's warm-up and capture count
+nothing and a replay adds no device work. The server renders the registry at
+``/metrics``.
+
 Entry point device: a CUDA card unless the caller passes ``device="cpu"``.
 """
 
@@ -97,9 +104,11 @@ from llmd_tpu_torch.models.transformer import (
     init_params,
     unembed,
 )
-from llmd_tpu_torch.obs.costmodel import UtilLedger, util_ledger_enabled
+from llmd_tpu_torch.obs.costmodel import (
+    UtilLedger, attach_util_exporter, util_ledger_enabled)
+from llmd_tpu_torch.obs.metrics import Registry, register_engine_metrics
 from llmd_tpu_torch.ops.paged_attention import paged_attention
-from llmd_tpu_torch.parallel.eplb import ExpertLoadTracker, rebalance
+from llmd_tpu_torch.parallel.eplb import ExpertLoadTracker, balance_ratio, rebalance
 
 
 def resolve_device(device: "torch.device | str | None" = None) -> torch.device:
@@ -195,6 +204,11 @@ class LLMEngine:
         self.seqs: dict[str, Sequence] = {}
         self.stats = EngineStats()
         self._outputs: list[EngineOutput] = []
+        # the step loop's metric families; the server renders them at /metrics
+        self.registry = Registry()
+        self.metrics = register_engine_metrics(self.registry)
+        self.metrics.cache_config.labels(
+            block_size=engine_cfg.page_size, num_gpu_blocks=engine_cfg.num_pages).set(1)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(model_cfg, gen, self.device)
@@ -223,6 +237,8 @@ class LLMEngine:
             self.attn_backend = ("cuda_paged_attention" if on_card
                                  else "torch_reference (cpu tensors)")
         self.stats.attn_backend = self.attn_backend
+        # no launch-config tune table yet: the reference's "none"
+        self.metrics.attn_backend_info.labels(backend=self.attn_backend, tune="none").set(1)
         self._moe_dispatch_impl = self._select_moe_dispatch()
         self.stats.moe_backend = self.moe_backend
         self.stats.moe_dispatch = self.moe_dispatch
@@ -245,6 +261,7 @@ class LLMEngine:
             self.util = UtilLedger(
                 model_cfg, device_kind=torch.cuda.get_device_name(self.device)
                 if on_card else "", quantize_weights=engine_cfg.quantize_weights)
+            attach_util_exporter(self.util, self.metrics)
 
     def compile_counts(self) -> dict[str, int]:
         """The ledger's compile count per program: the decode program's
@@ -296,6 +313,7 @@ class LLMEngine:
             (L, E, self._eplb_rmax), dtype=torch.int32, device=dev)
         self._eplb_params["eplb_replica_counts"] = torch.zeros(
             (L, E), dtype=torch.int32, device=dev)
+        self._eplb_s2e = self._eplb_counts = None  # the placement serving runs
         self._eplb_rebalance()
 
     def _eplb_rebalance(self) -> None:
@@ -303,7 +321,17 @@ class LLMEngine:
         physical slot weights on the device, in place (``index_select`` into
         the slot buffers). Calls already launched read the old placement
         first: the gather is ordered after them on the engine's stream."""
-        s2e, slots, counts = rebalance(self._eplb_tracker.loads(), self._eplb_slots, 1)
+        loads = self._eplb_tracker.loads()
+        # expert-load imbalance (max/mean routed tokens per EP rank, mean over
+        # layers) under the outgoing placement and under the new one
+        if self._eplb_s2e is not None:
+            self.metrics.moe_ep_imbalance.labels(when="before").set(float(np.mean([
+                balance_ratio(loads[l], self._eplb_s2e[l], self._eplb_counts[l], 1)
+                for l in range(loads.shape[0])])))
+        s2e, slots, counts = rebalance(loads, self._eplb_slots, 1)
+        self.metrics.moe_ep_imbalance.labels(when="after").set(float(np.mean([
+            balance_ratio(loads[l], s2e[l], counts[l], 1) for l in range(loads.shape[0])])))
+        self._eplb_s2e, self._eplb_counts = s2e, counts
         L, S = s2e.shape
         E = self.model_cfg.moe_num_experts
         if slots.shape[2] < self._eplb_rmax:  # pad with the first replica (any is safe)
@@ -352,6 +380,7 @@ class LLMEngine:
     def _record_moe(self, host: np.ndarray, cnt_shape) -> None:
         """Record ``host`` = [dropped copies, expert loads (EPLB only)...]."""
         self.stats.moe_dropped_tokens += int(host[0])
+        self.metrics.moe_dropped_tokens.labels(path=self.moe_dispatch).inc(int(host[0]))
         if self._eplb is not None:
             self._eplb_tracker.record(host[1:].reshape(cnt_shape))
             self._eplb_active = True
@@ -438,6 +467,11 @@ class LLMEngine:
             seq.block_hashes = keys[: len(hit_pages)]
             seq.num_computed = len(hit_pages) * ps
             seq.num_cached_prompt = seq.num_computed
+            m = self.metrics
+            m.prefix_cached_tokens.inc(seq.num_cached_prompt)
+            m.prefix_prompt_tokens.inc(seq.prompt_len)
+            m.prefix_hit_ratio.set(m.prefix_cached_tokens.value
+                                   / max(1, m.prefix_prompt_tokens.value))
             seq.slot = slot
             self.running[slot] = seq
             self.waiting.popleft()
@@ -447,6 +481,7 @@ class LLMEngine:
         while len(seq.pages) < need:
             pid = self.alloc.allocate()
             if pid is None:
+                self.metrics.kv_exhaustion.inc()
                 return False
             seq.pages.append(pid)
         return True
@@ -482,6 +517,7 @@ class LLMEngine:
         victim.num_cached_prompt = 0
         self.waiting.appendleft(victim)
         self.stats.total_preemptions += 1
+        self.metrics.preemptions.inc()
         return True
 
     def _prefill_target(self, seq: Sequence) -> int:
@@ -522,6 +558,12 @@ class LLMEngine:
         st.num_waiting = len(self.waiting)
         st.num_running = sum(1 for s in self.running if s is not None)
         st.kv_utilization = self.alloc.num_active / max(1, self.cfg.num_pages)
+        m = self.metrics
+        m.requests_waiting.set(st.num_waiting)
+        m.requests_running.set(st.num_running)
+        m.kv_usage.set(st.kv_utilization)
+        m.batch_occupancy.labels(kind="running").observe(st.num_running)
+        m.batch_occupancy.labels(kind="waiting").observe(st.num_waiting)
         return self._outputs
 
     def _on_stream(self):
@@ -626,6 +668,7 @@ class LLMEngine:
             cu[i + 1] = off
 
         t1 = time.perf_counter()
+        self.metrics.program_dispatches.labels(program="unified").inc()
         # the reference runs its unified program on batched_tokens rows, real
         # rows first: row i of this batch is its row i
         hidden, self.cache, cnt, drop = self._forward(
@@ -689,6 +732,13 @@ class LLMEngine:
         st.time_postprocess += t3 - t2
         st.time_prefill_steps += t3 - t0
         st.n_unified_steps += 1
+        n_dec = sum(1 for _, _, d in plan if d)
+        n_pre = N - n_dec
+        if n_dec:
+            self.metrics.decode_tokens.inc(n_dec)
+        if n_pre:
+            self.metrics.prefill_tokens.inc(n_pre)
+        self.metrics.step_duration.labels(phase="unified").observe(t3 - t0)
         if self.util is not None:
             # the program computes exactly its N real rows (no padding class);
             # KV reads ~ one pass over each row's resident KV, writes = N
@@ -703,6 +753,7 @@ class LLMEngine:
         """Sample ``logits`` (one row per entry of ``rows``) on the device and
         start the copy of the tokens to the host; no wait here."""
         host, event = self._to_host(self._sample(logits, [s for _, s in rows]))
+        self.metrics.program_dispatches.labels(program="sample").inc()
         return {"host": host, "event": event, "rows": [(s, s.slot) for _, s in rows]}
 
     def _flush_pending_sample(self) -> None:
@@ -915,8 +966,10 @@ class LLMEngine:
         st = self.stats
         if fast:  # the device is still running the chain: this pack is hidden
             st.time_pack_overlap += t1 - wall_start
+            self.metrics.step_duration.labels(phase="pack_overlap").observe(t1 - wall_start)
         else:
             st.time_host_pack += t1 - wall_start
+            self.metrics.step_duration.labels(phase="pack").observe(t1 - wall_start)
         for name in uploads:
             getattr(buf, name).copy_(host_t[name], non_blocking=True)
         readback = program()
@@ -928,6 +981,9 @@ class LLMEngine:
             st.n_chained_dispatches += 1
         if self._decode_graph:
             st.decode_graph_replays += 1
+        self.metrics.program_dispatches.labels(program="decode").inc()
+        self.metrics.step_duration.labels(phase="decode_dispatch").observe(
+            time.perf_counter() - wall_start)
         util_cost = None
         if self.util is not None:
             # the call computes k iterations over all B slots (idle and frozen
@@ -986,6 +1042,9 @@ class LLMEngine:
         st.time_postprocess += t3 - t2
         st.time_decode_steps += t3 - t1
         st.n_decode_calls += 1
+        if n_tokens:
+            self.metrics.decode_tokens.inc(n_tokens)
+        self.metrics.step_duration.labels(phase="decode_process").observe(t3 - t1)
         if rec["util_cost"] is not None:
             # kept tokens commit; the rest of the B x k slot-steps (idle
             # slots, steps past a stop or a budget, rows gone in flight) pad

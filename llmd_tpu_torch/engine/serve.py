@@ -1,12 +1,14 @@
 """CLI: python -m llmd_tpu_torch.engine.serve --model llama-1b --port 8000 [--cpu]
-         [--moe-dispatch auto|sorted|einsum] [--quantize int8]
+         [--moe-dispatch auto|sorted|einsum] [--quantize int8] [--kv-events-port N]
 
 Serves ``--model`` on the port's HTTP server: a registry name with random
 weights from ``--seed``, or an HF checkpoint directory with its weights
 (``models/hf_loader``) and, unless ``--tokenizer`` says otherwise, the HF
 tokenizer in that directory when it has one. ``--quantize int8`` serves int8
 weight-only weights (quantized at start). Runs on the CUDA card unless
-``--cpu`` is given. Flag names follow the reference CLI
+``--cpu`` is given. ``--kv-events-port`` publishes the engine's KV events
+over ZMQ PUB on that port (0 picks a free one) for a router's KV indexer.
+Flag names follow the reference CLI
 (``llmd_tpu/engine/serve.py``) for the options the port keeps.
 """
 
@@ -24,6 +26,8 @@ def main(argv: "list[str] | None" = None) -> None:
     ap.add_argument("--served-model-name", default=None)
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("--kv-events-port", type=int, default=None,
+                    help="publish KV events (ZMQ PUB) on this port; 0 = a free one")
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=512)
     ap.add_argument("--max-model-len", type=int, default=2048)
@@ -61,15 +65,18 @@ def main(argv: "list[str] | None" = None) -> None:
     server = EngineServer(
         model_cfg, engine_cfg,
         model_name=args.served_model_name, host=args.host, port=args.port,
+        kv_events_port=args.kv_events_port,
         tokenizer=load_tokenizer(tokenizer), params=params, seed=args.seed,
         device="cpu" if args.cpu else None)
     server.start()
+    events = ("" if args.kv_events_port is None
+              else f", KV events on port {server.kv_events_port}")
     print(f"llmd-tpu-torch engine serving {server.model_name} on "
           f"http://{server.address} (device {server.engine.device}, "
           f"attention {server.engine.attn_backend}, MoE {server.engine.moe_dispatch} "
           f"{server.engine.moe_backend}, weights "
           f"{'hf:' + args.model if params is not None else 'random'}"
-          f"{', int8' if args.quantize else ''})", flush=True)
+          f"{', int8' if args.quantize else ''}{events})", flush=True)
     try:
         threading.Event().wait()
     except KeyboardInterrupt:

@@ -20,8 +20,9 @@
   ``(None, None)``, never a guessed peak.
 
 ``LLMD_UTIL_LEDGER=0`` (or ``off``/``false``/empty), read once at engine
-construction, turns the ledger off. The Prometheus exporter
-(``attach_util_exporter``) waits for ``/metrics`` (ROADMAP Queue A item 2).
+construction, turns the ledger off. :func:`attach_util_exporter` binds a
+ledger to the engine's metric families: the goodput and capture counters
+move at :meth:`UtilLedger.record`, and the rate gauges are read at scrape time.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import sys
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 
 def util_ledger_enabled() -> bool:
@@ -211,6 +212,7 @@ class UtilLedger:
         self._events: Dict[str, collections.deque] = {}  # (t, flops, bytes)
         self._compiles_seen: Dict[str, int] = {}
         self._compiles: Dict[str, int] = collections.defaultdict(int)
+        self._metrics = None  # bound by attach_util_exporter
 
     def cost(self, program: str, *, slot_tokens: int, weight_passes: int = 1,
              kv_read_tokens: int = 0, kv_write_tokens: int = 0) -> DispatchCost:
@@ -246,12 +248,34 @@ class UtilLedger:
             ev = self._events.setdefault(program, collections.deque())
             ev.append((t, cost.flops, cost.hbm_bytes))
             self._trim(ev, t)
-            if compile_counts is not None:
-                for prog, n in compile_counts.items():
-                    prev = self._compiles_seen.get(prog, 0)
-                    if n > prev:
-                        self._compiles[prog] += n - prev
-                    self._compiles_seen[prog] = max(prev, n)
+        m = self._metrics
+        if m is not None:
+            for kind, n in (("committed", committed), ("spec_rejected", spec_rejected),
+                            ("padding", padding),
+                            ("preempted_recompute", preempted_recompute),
+                            ("prefix_saved", prefix_saved)):
+                if n:
+                    m.goodput_tokens.labels(program=program, kind=kind).inc(n)
+        if compile_counts is not None:
+            self._note_compiles(program, compile_counts, duration_s)
+
+    def _note_compiles(self, program: str, counts: Dict[str, int],
+                       duration_s: float) -> None:
+        """Fold a capture-count snapshot: a program whose count grew gets the
+        delta; the program whose dispatch just completed also observes its
+        wall into the compile-time histogram (the capture dominated it)."""
+        m = self._metrics
+        with self._lock:
+            for prog, n in counts.items():
+                prev = self._compiles_seen.get(prog, 0)
+                if n > prev:
+                    self._compiles[prog] += n - prev
+                    if m is not None:
+                        m.program_compiles.labels(program=prog).inc(n - prev)
+                        if prog == program:
+                            m.program_compile_seconds.labels(program=prog).observe(
+                                max(0.0, duration_s))
+                self._compiles_seen[prog] = max(prev, n)
 
     def _trim(self, ev: collections.deque, t: float) -> None:
         horizon = t - self.window_s
@@ -326,3 +350,39 @@ class UtilLedger:
         """Captures beyond the first per program (0 in steady state)."""
         with self._lock:
             return sum(max(0, n - 1) for n in self._compiles.values())
+
+    # -- scrape-time callbacks ----------------------------------------------
+
+    def _gauge_samples(self, fn) -> Iterable[Tuple[Dict[str, str], float]]:
+        for p in self.programs():
+            v = fn(p)
+            if v is not None:
+                yield ({"program": p}, v)
+
+    def mfu_samples(self):
+        return self._gauge_samples(self.mfu)
+
+    def mbu_samples(self):
+        return self._gauge_samples(self.mbu)
+
+    def flops_samples(self):
+        return self._gauge_samples(lambda p: self.achieved(p)[0])
+
+    def bytes_samples(self):
+        return self._gauge_samples(lambda p: self.achieved(p)[1])
+
+    def padding_samples(self):
+        return self._gauge_samples(self.padding_efficiency)
+
+
+def attach_util_exporter(ledger: UtilLedger, metrics) -> None:
+    """Bind ``ledger`` to an ``EngineMetrics``: the goodput and capture
+    counters increment at ``record()``; the rate and ratio gauges attach
+    scrape-time callbacks, so their label sets follow the programs as they
+    run."""
+    ledger._metrics = metrics
+    metrics.program_mfu.set_labels_function(ledger.mfu_samples)
+    metrics.program_mbu.set_labels_function(ledger.mbu_samples)
+    metrics.program_flops.set_labels_function(ledger.flops_samples)
+    metrics.program_bytes.set_labels_function(ledger.bytes_samples)
+    metrics.padding_efficiency.set_labels_function(ledger.padding_samples)

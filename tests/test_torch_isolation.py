@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no jax, no llmd_tpu, card by default. Its
-modules and chip_smoke.py import without ``safetensors`` and ``transformers``
-too (the card machine has neither): the port reads safetensors itself, and
-imports the HF tokenizer only when a caller asks for one."""
+modules and chip_smoke.py import without ``safetensors``, ``transformers``,
+``aiohttp`` and ``msgpack`` too: the port reads safetensors itself, imports the
+HF tokenizer only when a caller asks for one, serves HTTP on the standard
+library and writes the KV-event wire by hand."""
 
 import re
 import subprocess
@@ -13,13 +14,14 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 
-# Blocks the top-level names jax, jaxlib, llmd_tpu, safetensors and
-# transformers EXACTLY (a prefix match would also block llmd_tpu_torch), then
+# Blocks the top-level names jax, jaxlib, llmd_tpu, safetensors, transformers,
+# aiohttp and msgpack EXACTLY (a prefix match would also block llmd_tpu_torch), then
 # imports every module of the port and chip_smoke.py.
 _BLOCKED_IMPORT = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = {"jax", "jaxlib", "llmd_tpu", "safetensors", "transformers"}
+BLOCKED = {"jax", "jaxlib", "llmd_tpu", "safetensors", "transformers", "aiohttp",
+           "msgpack"}
 
 
 class Blocker(importlib.abc.MetaPathFinder):
@@ -45,6 +47,11 @@ import chip_smoke  # noqa: F401
 
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
+# the serving surface's modules are among them; pyzmq is imported only when a
+# server publishes KV events
+assert {"llmd_tpu_torch.obs.metrics", "llmd_tpu_torch.core.metrics_contract",
+        "llmd_tpu_torch.engine.kv_publisher", "llmd_tpu_torch.engine.server"} <= set(names)
+assert "zmq" not in sys.modules
 print(len(names))
 """
 
@@ -53,7 +60,7 @@ def test_port_imports_without_jax_or_reference_package():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 24  # every module of the port was imported
+    assert int(proc.stdout.split()[-1]) >= 28  # every module of the port was imported
 
 
 _FORBIDDEN = re.compile(
@@ -63,7 +70,7 @@ _FORBIDDEN = re.compile(
 
 def test_source_scan_finds_no_jax_or_reference_imports():
     files = sorted((REPO / "llmd_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 27
+    assert len(files) >= 31
     hits = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
             for p in files for m in _FORBIDDEN.finditer(p.read_text())]
     assert not hits, hits

@@ -749,3 +749,39 @@ def test_decode_graph_reads_eplb_placement_in_place(cuda):
     assert torch.equal(new, eager())
     n_tok = 4 * 4
     assert not torch.equal(new[:n_tok], old[:n_tok])
+
+
+def test_decode_graph_metrics_count_what_replays_produced(cuda):
+    """The decode program's metric families move on the host when a replayed
+    call's readback is processed: each call adds to ``decode_tokens`` exactly
+    the tokens it produced (the graph's warm-up and capture add nothing), and
+    the replayed engine's counters equal the eager engine's on the same
+    prompts."""
+    from llmd_tpu_torch.core.request import SamplingParams
+
+    prompts = [list(range(5, 60)), list(range(100, 110))]
+    sp = SamplingParams(max_tokens=13, temperature=0.0)
+    counters = {}
+    for graph in (True, False):
+        eng = _engine("tiny", cuda, decode_graph=graph)
+        m, process, calls = eng.metrics, eng._decode_process, []
+
+        def counted(rec, m=m, eng=eng, process=process, calls=calls):
+            before, n_out = m.decode_tokens.value, len(eng._outputs)
+            process(rec)
+            produced = sum(len(o.new_token_ids) for o in eng._outputs[n_out:])
+            calls.append((m.decode_tokens.value - before, produced))
+
+        eng._decode_process = counted
+        eng.generate(prompts, sp)
+        st = eng.stats
+        assert calls and all(delta == produced for delta, produced in calls), calls
+        if graph:
+            assert st.decode_graph_captures == 1 and st.decode_graph_replays == len(calls)
+        assert m.decode_tokens.value == st.total_decode_tokens
+        assert m.prefill_tokens.value == st.total_prefill_tokens
+        assert m.program_dispatches.labels(program="decode").value == st.n_decode_dispatches
+        counters[graph] = {(n, lab): v for n, lab, v in eng.registry.collect()
+                           if n.endswith("_total") and "goodput" not in n
+                           and "compiles" not in n}
+    assert counters[True] == counters[False]

@@ -126,7 +126,36 @@ def test_serve_cli_starts_on_cpu():
 def test_bad_requests_are_400(served):
     base, _, _ = served
     assert _post(base + "/v1/completions", None, raw=b"{not json")[0] == 400
-    assert _post(base + "/v1/completions", {"prompt": "x", "stream": True})[0] == 400
+    # a stream is served, but its request is checked before the stream starts
+    assert _post(base + "/v1/completions", {"prompt": "x", "stream": True, "n": 2})[0] == 400
     assert _post(base + "/v1/completions", {"prompt": "x", "logit_bias": {"1": 3}})[0] == 400
     assert _post(base + "/v1/completions", {"prompt": ""})[0] == 400
-    assert _post(base + "/v1/chat/completions", {"messages": []})[0] == 404
+    assert _post(base + "/v1/chat/completions", {"messages": []})[0] == 400  # empty prompt
+    assert _post(base + "/v1/embeddings", {"input": "x"})[0] == 404  # not served yet
+
+
+def test_stream_disconnect_aborts_the_request(served):
+    """A client that goes away mid-stream: the next write fails, and the
+    request is aborted rather than generated to its end."""
+    import http.client
+    import time
+
+    base, server, _ = served
+    decoded = server.engine.metrics.decode_tokens
+    before = decoded.value
+    host, port = server.address.split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=60)
+    conn.request("POST", "/v1/completions", json.dumps({
+        "prompt": "x", "max_tokens": 240, "temperature": 0, "ignore_eos": True,
+        "stream": True}), {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    assert resp.status == 200
+    assert resp.readline().startswith(b"data: ")  # the first event
+    conn.sock.shutdown(2)
+    conn.close()
+    t0 = time.monotonic()
+    while server.engine.seqs and time.monotonic() - t0 < 30:
+        time.sleep(0.01)
+    assert not server.engine.seqs
+    time.sleep(0.2)  # a decode call in flight lands
+    assert decoded.value - before < 200  # aborted well before its 240 tokens
