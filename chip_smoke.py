@@ -31,13 +31,14 @@ with a non-zero exit:
             a chunk of one tile plus one token and split-multiple kv; K3 (MLA
             latent decode; bf16 on its mma instance) at its decode shape with
             idle rows, at B=4 over long contexts, at split-multiple kv and at
-            B=1 over kv 1 and 17.
+            B=1 over kv 1 and 17. K1 also at the speculative verify batch
+            (64 sequences x 5 query tokens).
 4. time     each kernel at the main path's shapes (CUDA events, median, the
             card held by a spin kernel while the host enqueues the calls),
             beside its bound, its plain version and one PyTorch library call;
-            K1 at decode B=64, decode B=8 at kv 3072-5120 and the mixed shape,
-            and K1 on the latent pool at the mixed shape, each beside its simt
-            instance on the same inputs; K3 at decode B=64+2 and at decode B=8
+            K1 at decode B=64, decode B=8 at kv 3072-5120, the mixed shape and
+            the verify batch (64 x 5 tokens), and K1 on the latent pool at the
+            mixed shape, each beside its simt instance on the same inputs; K3 at decode B=64+2 and at decode B=8
             over kv 3072-5120 beside its simt instance, with the split kernel
             and its merge timed apart; K2 and K4 for both launches of a layer
             (wi, wo) at decode and prefill.
@@ -83,12 +84,28 @@ with a non-zero exit:
             to its non-streamed twin, every prompt's full blocks in the KV
             events under the router's block keys with no ``seq`` gap,
             ``/drain`` / ``/health`` / admission codes, K1 all on ``mma``.
-8. forward  one mixed unified batch through ``forward_core`` in float32, with
+8. spec     speculative decoding (``phase_spec``): llama-1b at full width
+            with and without ``spec_mode="ngram"`` (8 greedy requests of 64
+            tokens on the bench's echo prompts): identical tokens in float32;
+            in bf16 the identical share, the top-2 logit margin at the first
+            divergence, drafted / accepted / rejected, accepted per verify
+            step, K1's launches in the verify program and output tok/s in two
+            turns; then moe-wide-mla at 2 layers in float32, identical too.
+            Every window: each kernel once per layer of its programs'
+            forwards, verify included, on its instance, no plain version.
+9. structured  structured outputs (``phase_structured``): llama-1b behind
+            the server with choice, regex, bounded-schema and logit_bias
+            requests (half streamed, one chat): 100% conformance, 0
+            violations, 400 for a malformed schema and regex; the masked
+            decode program replayed = eager; host launch calls per iteration
+            replayed: masked < 10, unmasked 3 / ``decode_steps``; one
+            json-echo run with speculation (the constrained verify share).
+10. forward one mixed unified batch through ``forward_core`` in float32, with
             the kernels and again with the plain versions passed as overrides:
             llama-1b, moe-wide-sim on both dispatch paths, and moe-wide-mla
             with a decode batch after it (K3) (logits held together, expert
             counts equal; K1, K3, K2 / K4 on their float32 simt instances).
-9. int8     int8 weight-only weights (``quantize_weights="int8"``) at registry
+11. int8    int8 weight-only weights (``quantize_weights="int8"``) at registry
             width through the captured, pipelined engine, replayed and eager:
             llama-1b (8 requests), moe-wide-sim sorted (8) and einsum (4),
             moe-wide-mla sorted (8). Tokens and launch counts replayed =
@@ -98,17 +115,18 @@ with a non-zero exit:
             Then one float32 forward per model of the int8 weights against
             the dequantized weights ``q * s`` as plain float32 weights
             (max abs <= FORWARD_ATOL, argmax 100%).
-10. loader  llama-1b's random bf16 params at full width written as an HF
+12. loader  llama-1b's random bf16 params at full width written as an HF
             checkpoint (``testing/checkpoints``) under the gitignored
             ``checkpoints/``, loaded by ``models/hf_loader``: every leaf
             bit-equal, greedy tokens equal to the in-memory params'; the
             checkpoint is deleted after.
-11. bench   ``llmd_tpu_torch.tools.bench`` at its default (llama-1b, int8, 64
+13. bench   ``llmd_tpu_torch.tools.bench`` at its default (llama-1b, int8, 64
             requests of ISL 256 / OSL 128, batch 64, ``decode_steps`` 32),
-            then with ``--quantize none``; each JSON line printed on a
-            ``bench:`` line. No capture in the measured window
+            then with ``--quantize none``, then bf16 with ``--spec-mode ngram
+            --workload echo`` and with ``--workload json``; each JSON line
+            printed on a ``bench:`` line. No capture in the measured window
             (``recompiles`` 0), K1 once per layer of every forward of the
-            window, all on mma.
+            window (verify steps included), all on mma; no violation.
 
 It ends with a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. ``--report PATH`` also writes every phase's details (nvcc's register
@@ -249,6 +267,14 @@ def long_decode_case(dtype, device, seed=4, kv=None, latent=False):
     kv = rng.integers(3072, 5121, 8) if kv is None else np.asarray(kv)
     return make_attention_case(np.ones(len(kv), int), kv, dtype, device, seed, pad_rows=3,
                                pad_seqs=2, latent=latent)
+
+
+def verify_case(dtype, device, seed=12):
+    """The speculative verify batch: 64 sequences of 5 query tokens (the
+    last token and a 4-token draft) at kv 128-1024, llama-1b heads."""
+    rng = np.random.default_rng(seed)
+    return make_attention_case(np.full(64, 5), rng.integers(128, 1025, 64), dtype, device,
+                               seed)
 
 
 def chunk_case(dtype, device, chunk, chunk_kv, seed, heads=(H, HK), latent=False):
@@ -718,7 +744,8 @@ def check_attention(device, latent: bool = False) -> dict:
     the mixed shape, at decode over long contexts at B=4 (kv 3000-8192: many
     KV splits, some empty), with a 512-token chunk at kv 2048 and with a chunk
     of one query tile plus one token (17 tokens) beside decode rows, and at kv
-    lengths that are exact multiples of the split and page lengths;
+    lengths that are exact multiples of the split and page lengths, and at
+    the speculative verify batch (64 sequences of 5 query tokens);
     moe-wide-sim heads (H 16, Hk 4: four query heads per kv head) at decode.
     Each call must land on its instance: bf16 on mma, float32 on simt.
     ``latent``: K1's single-plane mode on moe-wide-mla's latent pool (16
@@ -742,6 +769,7 @@ def check_attention(device, latent: bool = False) -> dict:
     ) if latent else (
         ("decode", lambda dt: decode_case(dt, device)),
         ("mixed", lambda dt: mixed_case(dt, device)),
+        ("verify", lambda dt: verify_case(dt, device)),
         ("moe_heads_decode", lambda dt: decode_case(dt, device, heads=(16, 4))),
         ("long_context_b4", lambda dt: long_decode_case(dt, device, 6,
                                                         kv=[3000, 4711, 6150, 8192])),
@@ -951,8 +979,9 @@ def time_attention(device, latent: bool = False) -> dict:
     instance on the same inputs (the kernel before the mma instance):
     ``decode`` B=64 (SDPA over K/V gathered dense), ``decode_b8`` (B=8 at kv
     3072-5120, more K/V than L2 holds) and ``mixed`` (SDPA over K/V gathered
-    dense per sequence, queries packed per sequence under a causal mask).
-    With ``latent``, the single-plane instance at moe-wide-mla's mixed shape
+    dense per sequence, queries packed per sequence under a causal mask)
+    and ``verify`` (the speculative verify batch, 64 x 5 query tokens; SDPA
+    as for mixed). With ``latent``, the single-plane instance at moe-wide-mla's mixed shape
     (SDPA over the latent gathered dense per sequence, K = V broadcast to the
     16 heads, queries packed per sequence under a causal mask)."""
     from llmd_tpu_torch.ops import paged_attention as pa
@@ -970,7 +999,9 @@ def time_attention(device, latent: bool = False) -> dict:
                                "decode B=8 q_len=1 kv_len 3072-5120 bf16 (H32 Hk8 D64 ps16)"),
                  "mixed": (mixed_case(dtype, device), sdpa_packed,
                            "mixed 3x128-token chunks (kv 128/1000/2048) + 32 decode rows "
-                           "bf16 (H32 Hk8 D64 ps16)")}
+                           "bf16 (H32 Hk8 D64 ps16)"),
+                 "verify": (verify_case(dtype, device), sdpa_packed,
+                            "verify B=64 q_len=5 kv_len 128-1024 bf16 (H32 Hk8 D64 ps16)")}
         shapes = {k: (c, lib(c), shape) for k, (c, lib, shape) in cases.items()}
     name = "paged_attention_latent" if latent else "paged_attention"
     out = {}
@@ -1688,6 +1719,540 @@ def phase_surface(device, card: str, model: str = "llama-1b", seed: int = 0) -> 
     return row
 
 
+# --------------------------------------------------------------------------
+# Speculative and structured decoding on the card
+# --------------------------------------------------------------------------
+
+SPEC_KW = dict(spec_mode="ngram", spec_tokens=4)
+
+
+def echo_prompts(n: int, salt: int, vocab: int, isl: int = 128) -> list:
+    """The reference bench's echo prompts (``bench.py --workload echo``): a
+    period-3 pattern per request, repeated to ``isl``."""
+    from llmd_tpu_torch.tools.bench import prompts
+
+    return prompts(n, salt, vocab, isl, "echo")
+
+
+def _spec_engine(device, cfg, spec: bool, seed: int = 0, **kw):
+    """An engine of the engine phase's settings (random weights from
+    ``seed``), speculation on or off, warmed up: its decode program is
+    captured and, with speculation, a verify step has run."""
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.engine import EngineConfig, LLMEngine
+
+    ecfg = dict(page_size=PS, num_pages=2048, max_model_len=2048, max_batch_size=32,
+                prefill_chunk=512, max_num_batched_tokens=2048, decode_steps=4)
+    ecfg.update(kw, **(SPEC_KW if spec else {}))
+    eng = LLMEngine(cfg, EngineConfig(**ecfg), seed=seed, device=device)
+    eng.generate(echo_prompts(2, 1, cfg.vocab_size, 64),
+                 SamplingParams(max_tokens=24, temperature=0.0))
+    return eng
+
+
+def _spec_window(eng, prompts, max_tokens: int) -> dict:
+    """One ``generate`` of ``prompts`` with the counters zeroed just before
+    and read just after: tokens, launches, and the engine's counts over it.
+    ``verify_launches``: the launches made inside the engine's verify steps
+    (each kernel's count read before and after every ``_step_spec_verify``,
+    the differences summed), the verify program's share of the window."""
+    from llmd_tpu_torch.core.request import SamplingParams
+
+    st0 = dataclasses.replace(eng.stats)
+    verify_launches = dict.fromkeys(read_counts()[0], 0)
+    step = eng._step_spec_verify
+
+    def counted_step(plan):
+        before = read_counts()[0]
+        step(plan)
+        for name, n in read_counts()[0].items():
+            verify_launches[name] += n - before[name]
+
+    eng._step_spec_verify = counted_step  # the engine calls it through self
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        out = eng.generate(prompts, SamplingParams(max_tokens=max_tokens, temperature=0.0))
+        torch.cuda.synchronize()
+    finally:
+        del eng._step_spec_verify
+    wall = time.perf_counter() - t0
+    launches, plain_calls = read_counts()
+    st = eng.stats
+    d = {k: getattr(st, k) - getattr(st0, k) for k in (
+        "n_unified_steps", "n_decode_iterations", "n_spec_verify_steps", "spec_drafted",
+        "spec_accepted", "spec_rejected", "moe_dropped_tokens")}
+    n_out = sum(len(v) for v in out.values())
+    return {"tokens": out, "launches": launches, "plain_calls": plain_calls,
+            "verify_launches": verify_launches,
+            "launches_by_instance": instance_counts(), "wall_s": wall,
+            "output_tok_s": n_out / wall, **d}
+
+
+def _top2_margin(eng, prompt: list, generated: list) -> float:
+    """The two top logits' margin of the token after ``prompt + generated``,
+    from one unified forward of that sequence (the engine's weights and
+    kernels, a scratch pool): how near a tie the divergence sat."""
+    from llmd_tpu_torch.models.transformer import forward_core, init_cache, unembed
+
+    cfg, dev = eng.model_cfg, eng.device
+    ids = prompt + generated
+    n = len(ids)
+    pages = -(-n // PS)
+    pool = init_cache(cfg, pages + 1, PS, device=dev)
+    t = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)  # noqa: E731
+    with torch.no_grad():
+        hidden, *_ = forward_core(cfg, eng.params, pool, t(ids), t(list(range(n))),
+                                  t([0] * n), t([list(range(pages))]), t([n]),
+                                  cu_q_lens=t([0, n]), num_seqs=t([1]),
+                                  attn_impl=eng._attn["unified"],
+                                  moe_dispatch_impl=eng._moe_dispatch_impl)
+        top = torch.topk(unembed(cfg, eng.params, hidden[-1:]).float()[0], 2).values
+    return float(top[0] - top[1])
+
+
+def _check_spec_launches(label: str, cfg, run: dict, per: dict, instance: str,
+                         spec: bool = True) -> dict:
+    """Each kernel of the path launched its count per layer of its
+    programs' forwards (``per``: kernel -> (launches per layer, programs)),
+    all on ``instance`` (K2 / K4 on wgmma for bf16, simt for float32), no
+    plain version; the launches measured inside the verify steps are each
+    verify kernel's count per layer of the verify forwards."""
+    forwards = {"unified": run["n_unified_steps"], "decode": run["n_decode_iterations"],
+                "verify": run["n_spec_verify_steps"]}
+    expect = {name: n * cfg.num_layers * sum(forwards[p] for p in progs)
+              for name, (n, progs) in per.items()}
+    expect_verify = {name: (n * cfg.num_layers * forwards["verify"] if "verify" in progs else 0)
+                     for name, (n, progs) in per.items()}
+    got = {name: run["launches"][name] for name in run["launches"]}
+    got_verify = {name: run["verify_launches"][name] for name in per}
+    off_path = {n: v for n, v in got.items() if n not in per and v}
+    gemm_instance = "wgmma" if instance == "mma" else "simt"
+    wrong = {n: by for n, by in run["launches_by_instance"].items()
+             if by != {k: (got[n] if k == (gemm_instance if "gemm" in n else instance) else 0)
+                       for k in by}}
+    on_card = torch.cuda.is_available()  # on the CPU the plain versions run
+    if on_card and (any(run["plain_calls"].values()) or off_path or wrong
+                    or (run["n_spec_verify_steps"] > 0) != spec
+                    or any(got[n] != v for n, v in expect.items())
+                    or got_verify != expect_verify):
+        raise AssertionError(f"spec {label}: launches {got} expected {expect}, in verify "
+                             f"steps {got_verify} expected {expect_verify}, off-path "
+                             f"{off_path}, instances {wrong}, plain calls "
+                             f"{run['plain_calls']}, verify steps {run['n_spec_verify_steps']}")
+    return {"expected": expect, "verify_launches": got_verify}
+
+
+def phase_spec(device, card: str, seed: int = 0) -> dict:
+    """Speculative decoding (``spec_mode="ngram"``, ``spec_tokens`` 4) on
+    llama-1b at full width, random weights from the seed, the engine phase's
+    settings: 8 concurrent greedy requests of 64 tokens on the reference
+    bench's echo prompts, through ``generate``, with speculation and without.
+
+    float32: the tokens must be identical (greedy acceptance is exact). bf16:
+    the share of tokens equal to speculation-off's (the verify batch runs
+    K1's mixed tiling and M = NT products where decode runs the decode
+    program, so near-ties can flip), the margin of the two top logits at the
+    first divergence, the spec counts, accepted per verify step, K1's
+    launches in the verify program, and both engines' output tok/s in two
+    turns (off, on, off, on; a turn's prompts are new, so no prefix hit).
+    Then moe-wide-mla at 2 layers in float32 (K1's latent mode in the unified
+    and verify programs, K3 in decode, K2 in every forward): identical tokens
+    too. Every window's launches: each kernel once per layer of its
+    programs' forwards (K2 twice), on its instance, no plain version."""
+    from llmd_tpu_torch.models import get_model_config
+
+    out: dict = {}
+    llama = get_model_config("llama-1b")
+    k1_all = {"paged_attention": (1, ("unified", "decode", "verify"))}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(llama, dtype=dtype)
+        engs = {spec: _spec_engine(device, cfg, spec, seed) for spec in (False, True)}
+        turns = []
+        for salt in ((2,) if dtype == "float32" else (2, 3)):
+            prompts = echo_prompts(8, salt, cfg.vocab_size)
+            turns.append({spec: _spec_window(engs[spec], prompts, 64) for spec in (False, True)})
+        instance = "simt" if dtype == "float32" else "mma"
+        checks = _check_spec_launches(f"llama-1b {dtype}", cfg, turns[0][True], k1_all, instance)
+        _check_spec_launches(f"llama-1b {dtype} off", cfg, turns[0][False], k1_all, instance,
+                             spec=False)
+        off, on = turns[0][False]["tokens"], turns[0][True]["tokens"]
+        pairs = [(a, b) for rid in off for a, b in zip(off[rid], on[rid])]
+        same = sum(a == b for a, b in pairs) / len(pairs)
+        first = next(((rid, i) for rid in sorted(off) for i, (a, b) in
+                      enumerate(zip(off[rid], on[rid])) if a != b), None)
+        margin = None
+        if first is not None:
+            rid, i = first
+            prompt = echo_prompts(8, 2, cfg.vocab_size)[int(rid.split("-")[1])]
+            margin = _top2_margin(engs[False], prompt, off[rid][:i])
+        r = turns[0][True]
+        row = {"identical_share": same, "first_divergence": first, "top2_margin": margin,
+               "verify_steps": r["n_spec_verify_steps"], "spec_drafted": r["spec_drafted"],
+               "spec_accepted": r["spec_accepted"], "spec_rejected": r["spec_rejected"],
+               "accepted_per_verify_step": r["spec_accepted"] / max(1, r["n_spec_verify_steps"]),
+               "output_tok_s_turns": [(t[False]["output_tok_s"], t[True]["output_tok_s"])
+                                      for t in turns],
+               **checks, "launches_on": r["launches"], "launches_off": turns[0][False]["launches"]}
+        log(f"spec: llama-1b {dtype} on {card}: identical_share={same:.4f} "
+            f"first_divergence={first} top2_margin={margin} verify_steps="
+            f"{row['verify_steps']} drafted={row['spec_drafted']} accepted="
+            f"{row['spec_accepted']} rejected={row['spec_rejected']} accepted/verify_step="
+            f"{row['accepted_per_verify_step']:.3f} launches in verify steps="
+            f"{checks['verify_launches']} output_tok_s (off, on) turns="
+            + ", ".join(f"({a:.1f}, {b:.1f})" for a, b in row["output_tok_s_turns"]))
+        out[f"llama-1b_{dtype}"] = row
+        if dtype == "float32" and on != off:
+            raise AssertionError(f"spec: llama-1b float32 tokens differ with speculation "
+                                 f"(first divergence {first})")
+        del engs
+        torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_model_config(MLA), dtype="float32", num_layers=2)
+    runs = {spec: _spec_window(_spec_engine(device, cfg, spec, seed, moe_dispatch="sorted"),
+                               echo_prompts(8, 2, cfg.vocab_size), 64) for spec in (False, True)}
+    torch.cuda.empty_cache()
+    per = {"paged_attention": (1, ("unified", "verify")), "mla_decode": (1, ("decode",)),
+           "ragged_grouped_gemm": (2, ("unified", "decode", "verify"))}
+    checks = _check_spec_launches("moe-wide-mla float32", cfg, runs[True], per, "simt")
+    r = runs[True]
+    out["moe-wide-mla_float32"] = row = {
+        "identical": runs[True]["tokens"] == runs[False]["tokens"],
+        "verify_steps": r["n_spec_verify_steps"], "spec_drafted": r["spec_drafted"],
+        "spec_accepted": r["spec_accepted"], "spec_rejected": r["spec_rejected"],
+        "moe_dropped_tokens": r["moe_dropped_tokens"], **checks, "launches_on": r["launches"]}
+    log(f"spec: moe-wide-mla (2 layers) float32 on {card}: identical={row['identical']} "
+        f"verify_steps={row['verify_steps']} drafted={row['spec_drafted']} accepted="
+        f"{row['spec_accepted']} launches={r['launches']} in verify steps="
+        f"{checks['verify_launches']}")
+    if not row["identical"] or r["moe_dropped_tokens"]:
+        raise AssertionError(f"spec: moe-wide-mla float32 tokens differ with speculation or "
+                             f"the sorted path dropped copies: {row}")
+    return out
+
+
+STRUCT_CHOICES = ["red", "green", "blue"]
+STRUCT_REGEX = r"[a-c]{3}-[0-9]{2}"
+# a bounded schema (enum / boolean / maxLength / maxItems): its automaton is a
+# DAG, so a random model is forced to finish
+STRUCT_SCHEMA = {"type": "object",
+                 "properties": {"name": {"type": "string", "maxLength": 8},
+                                "count": {"enum": [0, 1, 2, 3]}, "ok": {"type": "boolean"},
+                                "tags": {"type": "array", "items": {"enum": ["a", "b"]},
+                                         "maxItems": 2}},
+                 "required": ["name", "count", "ok", "tags"]}
+
+
+def _conforms(kind: str, text: str, only: "str | None" = None) -> bool:
+    """The output of a ``kind`` request keeps to its constraint (``only``:
+    the one letter a bias request may emit)."""
+    from llmd_tpu_torch.structured import validate_instance
+
+    if kind == "choice":
+        return text in STRUCT_CHOICES
+    if kind == "regex":
+        return re.fullmatch(STRUCT_REGEX, text) is not None
+    if kind == "schema":
+        try:
+            return validate_instance(json.loads(text), STRUCT_SCHEMA)
+        except ValueError:
+            return False
+    return bool(text) and set(text) == {only}
+
+
+def _mask_cost(device, vocab: int, max_elems: int, batch: int = 64, seed: int = 0) -> dict:
+    """Device ms of what a masked decode iteration adds to the plain one,
+    at the bench's batch over ``vocab``-wide float32 logits: the plain
+    program's ``sample_tokens``; the masked program's row index, bias-row
+    gather from a ``MaskTables`` buffer, ``sample_tokens_biased`` and
+    next-state gather (as ``decode_program`` runs them), and the gather and
+    biased sample alone. Greedy rows; timed by ``cuda_ms``, eagerly."""
+    from llmd_tpu_torch.engine.decode_program import MaskTables
+    from llmd_tpu_torch.engine.sampling import sample_tokens, sample_tokens_biased
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    tables = MaskTables.allocate(max_elems, vocab, device)
+    tables.bias.normal_(generator=g)
+    tables.next.random_(0, tables.bias.shape[0], generator=g)
+    logits = torch.randn((batch, vocab), generator=g, device=device)
+    base = torch.randint(0, tables.bias.shape[0] // 2, (batch,), generator=g, device=device,
+                         dtype=torch.int32)
+    st = torch.randint(0, 8, (batch,), generator=g, device=device, dtype=torch.int32)
+    act = torch.ones((batch,), dtype=torch.bool, device=device)
+    temp, top_k = torch.zeros((batch,), device=device), torch.zeros((batch,), dtype=torch.int32,
+                                                                    device=device)
+    top_p = torch.ones((batch,), device=device)
+    rows = (base + st).long()
+    bias = tables.bias[rows]
+
+    def masked():
+        r = (base + st).long()
+        nxt = sample_tokens_biased(logits, tables.bias[r], g, temp, top_k, top_p)
+        return torch.where(act, tables.next[r, nxt.long()], st)
+
+    out = {"batch": batch, "vocab": vocab, "table_rows": tables.bias.shape[0],
+           "sample_tokens_ms": cuda_ms(lambda: sample_tokens(logits, g, temp, top_k, top_p)),
+           "masked_step_ms": cuda_ms(masked),
+           "bias_gather_ms": cuda_ms(lambda: tables.bias[rows]),
+           "sample_tokens_biased_ms": cuda_ms(
+               lambda: sample_tokens_biased(logits, bias, g, temp, top_k, top_p))}
+    out["masked_extra_ms"] = out["masked_step_ms"] - out["sample_tokens_ms"]
+    del tables
+    return out
+
+
+def phase_structured(device, card: str, seed: int = 0) -> dict:
+    """Structured outputs on the card: llama-1b at full width, bf16 weights
+    from the seed, the engine phase's settings, behind the port's server
+    (the byte tokenizer). 8 concurrent greedy requests: ``guided_choice``,
+    ``guided_regex``, ``response_format`` ``json_schema`` (bounded), and a
+    ``logit_bias`` of +100 on "a" and "b" that bans (-100) the one of them
+    the same bias alone gives first, two of each, half streamed, one through
+    chat. Every output conforms (the bias rows emit only the other letter)
+    and ``structured_violations`` reads 0 in ``EngineStats`` and on
+    ``/metrics``; a malformed schema and a malformed regex get 400; K1 once
+    per layer of every forward, all on mma. At llama-1b's vocabulary the
+    table gate allows G_pad x S_pad <= 256, so while the 70-state schema
+    shares the batch with four other constraints the batch takes the
+    unified degrade, as in the reference: the line says how many masked
+    chain stagings and unified steps the wave took. Then the masked decode
+    program replayed from its graph against the same program run eagerly
+    (two engines, ``generate`` of constrained requests that fit the gate:
+    choice, regex, a 30-character regex and a bias row): identical tokens and
+    launch counts, one capture of the masked program, a replay a call. Then
+    ``profile_engine.profile_batch`` at batch 8: the masked program replayed
+    (every row under ``[ab]{100}``) makes fewer than 10 host launch calls per
+    iteration (eager beside it), and the unmasked program replayed still
+    makes 3 / ``decode_steps``.
+    Then the device time a masked iteration adds to the sampler at batch 64
+    (``_mask_cost``). Last, one json-echo run with speculation on: the share
+    of verify steps that ran the masked verify program, accepted constrained
+    drafts, no violation."""
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.engine import EngineConfig, LLMEngine
+    from llmd_tpu_torch.engine.server import EngineServer
+    from llmd_tpu_torch.engine.tokenizer import ByteTokenizer
+    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.models.transformer import init_params
+    from llmd_tpu_torch.tools.bench import prompts as bench_prompts, workload_schema
+    from llmd_tpu_torch.tools.profile_engine import profile_batch
+
+    cfg = get_model_config("llama-1b")
+    tok = ByteTokenizer()
+    kw = dict(page_size=PS, num_pages=2048, max_model_len=2048, max_batch_size=32,
+              prefill_chunk=512, max_num_batched_tokens=2048, decode_steps=4)
+    fmt = {"type": "json_schema", "json_schema": {"schema": STRUCT_SCHEMA}}
+    greedy = {"max_tokens": 96, "temperature": 0}
+    server = EngineServer(cfg, EngineConfig(**kw), host="127.0.0.1", port=0, seed=seed,
+                          device=device)
+    server.start()
+    base = f"http://{server.address}"
+    eng = server.engine
+    out: dict = {}
+    try:
+        a, b = tok.encode("ab")
+        probe = json.loads(_http("POST", base + "/v1/completions", {
+            "prompt": "say something", "max_tokens": 4, "temperature": 0,
+            "logit_bias": {str(a): 100, str(b): 100}})[2])["choices"][0]["text"]
+        banned_id = a if probe[:1] == "a" else b
+        only = "b" if banned_id == a else "a"
+        bias = {"logit_bias": {str(a): 100, str(b): 100, str(banned_id): -100},
+                "max_tokens": 24}
+        wave = [("choice", "/v1/completions", {"prompt": "pick a color",
+                                               "guided_choice": STRUCT_CHOICES}),
+                ("choice", "/v1/completions", {"prompt": "pick one", "stream": True,
+                                               "guided_choice": STRUCT_CHOICES}),
+                ("regex", "/v1/completions", {"prompt": "emit a code",
+                                              "guided_regex": STRUCT_REGEX}),
+                ("regex", "/v1/completions", {"prompt": "a code please", "stream": True,
+                                              "guided_regex": STRUCT_REGEX}),
+                ("schema", "/v1/chat/completions", {
+                    "messages": [{"role": "user", "content": "describe it as json"}],
+                    "response_format": fmt}),
+                ("schema", "/v1/completions", {"prompt": "json:", "stream": True,
+                                               "response_format": fmt}),
+                ("bias", "/v1/completions", {"prompt": "say something", **bias}),
+                ("bias", "/v1/completions", {"prompt": "say something", "stream": True,
+                                             **bias})]
+        st0 = dataclasses.replace(eng.stats)
+        masked0 = eng.programs.counters().get("decode_masked", (0, 0))[0]
+        zero_counts()
+        results: list = [None] * len(wave)
+
+        def one(i: int) -> None:
+            _, path, body = wave[i]
+            try:
+                results[i] = _http("POST", base + path, {**greedy, **body})
+            except Exception as e:  # noqa: BLE001 — reported below as a failed request
+                results[i] = e
+
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(wave))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t1
+        launches, plain_calls = read_counts()
+        by_instance = instance_counts()
+        st = dataclasses.replace(eng.stats)
+        masked = eng.programs.counters().get("decode_masked", (0, 0))[0] - masked0
+        texts = []
+        for (kind, path, body), r in zip(wave, results):
+            if not (isinstance(r, tuple) and r[0] == 200):
+                raise AssertionError(f"structured: {kind} failed: {r}")
+            chat = path.endswith("chat/completions")
+            if body.get("stream"):
+                chunks = [json.loads(e) for e in r[2][:-1]]
+                text = "".join(c["choices"][0]["delta"]["content"] if chat
+                               else c["choices"][0]["text"] for c in chunks)
+                pieces = len(chunks)
+            else:
+                c = json.loads(r[2])["choices"][0]
+                text, pieces = (c["message"]["content"] if chat else c["text"]), 1
+            texts.append((kind, bool(body.get("stream")), text, pieces,
+                          _conforms(kind, text, only)))
+        metrics = _http("GET", base + "/metrics")[2].decode()
+        violations_metric = re.search(r"^llmd_tpu:structured_violations_total (\S+)$",
+                                      metrics, re.M)
+        bad_schema = _http("POST", base + "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "x"}], "response_format": {
+                "type": "json_schema", "json_schema": {"schema": {"type": "wat"}}}})[0]
+        bad_regex = _http("POST", base + "/v1/completions", {"prompt": "x",
+                                                             "guided_regex": "(ab"})[0]
+    finally:
+        server.stop()
+    forwards = (st.n_unified_steps - st0.n_unified_steps
+                + st.n_decode_iterations - st0.n_decode_iterations)
+    conform = sum(c for *_, c in texts) / len(texts)
+    out["server"] = {
+        "card": card, "requests": len(wave), "wall_s": wall, "conformance": conform,
+        "texts": texts, "violations": st.structured_violations,
+        "violations_metric": violations_metric and float(violations_metric.group(1)),
+        "bad_schema_status": bad_schema, "bad_regex_status": bad_regex,
+        "launches": launches, "plain_calls": plain_calls, "launches_by_instance": by_instance,
+        "forwards": forwards, "masked_decode_calls": masked,
+        "chain_stages": st.structured_chain_stages - st0.structured_chain_stages,
+        "unified_steps": st.n_unified_steps - st0.n_unified_steps}
+    log(f"structured: llama-1b bf16 on {card}: {len(wave)} requests wall_s={wall:.3f} "
+        f"conformance={conform:.3f} violations={st.structured_violations} (metric "
+        f"{out['server']['violations_metric']}) masked_decode_calls={masked} chain_stages="
+        f"{out['server']['chain_stages']} bad_schema={bad_schema} bad_regex={bad_regex}")
+    log(f"structured:   outputs {[(k, s, t[:48], n) for k, s, t, n, _ in texts]}")
+    log(f"structured:   launches={launches} plain_calls={plain_calls} "
+        f"launches_by_instance={by_instance} forwards={forwards}")
+    k1 = by_instance["paged_attention"]
+    launches_ok = device.type != "cuda" or not (
+        any(plain_calls.values()) or launches["paged_attention"] != cfg.num_layers * forwards
+        or k1 != {**dict.fromkeys(k1, 0), "mma": launches["paged_attention"]})
+    if (conform != 1.0 or st.structured_violations or out["server"]["violations_metric"] != 0
+            or bad_schema != 400 or bad_regex != 400 or not launches_ok
+            or not all(n > 1 for _, s, _, n, _ in texts if s)):
+        raise AssertionError(f"structured: the server run failed its checks: {out['server']}")
+
+    # the masked decode program replayed against the same program run eagerly
+    reqs = [(tok.encode("pick a color"), dict(guided_choice=STRUCT_CHOICES)),
+            (tok.encode("emit a code"), dict(guided_regex=STRUCT_REGEX)),
+            (tok.encode("say something"), dict(logit_bias={banned_id: -100.0})),
+            (tok.encode("bits"), dict(guided_regex=r"[ab]{30}"))]
+    runs = {}
+    for graph in (True, False):
+        e = LLMEngine(cfg, EngineConfig(**kw), seed=seed, device=device, decode_graph=graph,
+                      tokenizer=tok)
+        for i, (p, extra) in enumerate(reqs):
+            e.add_request(f"r{i}", p, SamplingParams(
+                max_tokens=64, temperature=0.0, stop_token_ids=(tok.eos_id,), **extra))
+        zero_counts()
+        got: dict = {}
+        while e.has_work():
+            for o in e.step():
+                got.setdefault(o.request_id, []).extend(o.new_token_ids)
+        runs[graph] = {"tokens": got, "launches": read_counts()[0],
+                       "captures": e.compile_counts(), "replays": e.stats.decode_graph_replays,
+                       "calls": e.stats.n_decode_calls, "chained": e.stats.n_chained_dispatches,
+                       "masked_calls": e.programs.counters().get("decode_masked", (0, 0))[0],
+                       "violations": e.stats.structured_violations}
+        del e
+        torch.cuda.empty_cache()
+    g, e = runs[True], runs[False]
+    out["graph"] = {k: {kk: vv for kk, vv in v.items() if kk != "tokens"} for k, v in
+                    (("replayed", g), ("eager", e))}
+    out["graph"]["same_tokens"] = g["tokens"] == e["tokens"]
+    log(f"structured:   masked chain replayed vs eager: same_tokens={g['tokens'] == e['tokens']} "
+        f"launches same={g['launches'] == e['launches']} captures={g['captures']} "
+        f"replays={g['replays']} calls={g['calls']} chained={g['chained']} masked_calls="
+        f"{g['masked_calls']}")
+    graphed = device.type != "cuda" or (g["captures"]["decode_masked"] == 1
+                                        and g["replays"] == g["calls"])
+    if (g["tokens"] != e["tokens"] or g["launches"] != e["launches"] or not graphed
+            or g["masked_calls"] == 0 or g["chained"] == 0 or g["violations"] or e["violations"]):
+        raise AssertionError(f"structured: masked chain replayed differs from eager: "
+                             f"{out['graph']}")
+
+    # host launch calls per decode iteration, masked and not
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(seed), device)
+    regex = {"guided_regex": "[ab]{100}"}
+    prof = {name: profile_batch(cfg, params, 8, 256, kw["decode_steps"], 5, 3, seed,
+                                decode_graph=graph, sampling=sampling, tokenizer=tok)
+            for name, graph, sampling in (("masked_graph", True, regex),
+                                          ("masked_eager", False, regex),
+                                          ("plain_graph", True, None))}
+    del params
+    torch.cuda.empty_cache()
+    keys = ("host_launch_calls_per_iteration", "device_kernels_per_iteration",
+            "device_busy_share_profiled", "decode_tok_s", "masked_decode_calls",
+            "host_launch_calls")
+    out["profile"] = {n: {k: r[k] for k in keys} for n, r in prof.items()}
+    log("structured:   batch 8 profile: " + "; ".join(
+        f"{n} host_launch_calls/iter={r['host_launch_calls_per_iteration']:.2f} "
+        f"device_kernels/iter={r['device_kernels_per_iteration']} decode_tok_s="
+        f"{r['decode_tok_s']:.1f} masked_calls={r['masked_decode_calls']}"
+        for n, r in prof.items()))
+    mg, pg = prof["masked_graph"], prof["plain_graph"]
+    if (mg["masked_decode_calls"] == 0 or mg["host_launch_calls_per_iteration"] >= 10
+            or pg["host_launch_calls_per_iteration"] != 3 / kw["decode_steps"]
+            or pg["masked_decode_calls"]):
+        raise AssertionError(f"structured: host launch calls per iteration: masked "
+                             f"{mg['host_launch_calls_per_iteration']} (limit 10), plain "
+                             f"{pg['host_launch_calls_per_iteration']} (expected "
+                             f"{3 / kw['decode_steps']})")
+
+    out["mask_cost"] = mc = _mask_cost(device, cfg.vocab_size,
+                                       EngineConfig(**kw).structured_table_max_elems)
+    log(f"structured:   masked sampler cost at batch {mc['batch']} on {card}: "
+        + " ".join(f"{k}={v:.4f}" for k, v in mc.items() if k.endswith("_ms")))
+
+    # speculation on constrained rows: a json-echo run
+    e = LLMEngine(cfg, EngineConfig(**kw, **SPEC_KW), seed=seed, device=device, tokenizer=tok)
+    schema = workload_schema("json-echo", 128)
+    sp = SamplingParams(max_tokens=128, temperature=0.0, ignore_eos=True, response_format={
+        "type": "json_schema", "json_schema": {"schema": schema}})
+    t0 = time.perf_counter()
+    done = e.generate(bench_prompts(8, 2, cfg.vocab_size, 256, "json-echo", tok), sp)
+    wall = time.perf_counter() - t0
+    c = e.programs.counters()
+    st = e.stats
+    n_verify = c["verify"][0] + c["verify_masked"][0]
+    out["json_echo_spec"] = row = {
+        "verify_steps": n_verify, "masked_verify_steps": c["verify_masked"][0],
+        "constrained_verify_share": c["verify_masked"][0] / max(1, n_verify),
+        "spec_drafted_constrained": st.spec_drafted_constrained,
+        "spec_accepted_constrained": st.spec_accepted_constrained,
+        "violations": st.structured_violations, "wall_s": wall,
+        "output_tok_s": sum(len(v) for v in done.values()) / wall}
+    log(f"structured:   json-echo spec on {card}: verify_steps={n_verify} masked="
+        f"{row['masked_verify_steps']} constrained_verify_share="
+        f"{row['constrained_verify_share']:.3f} accepted/drafted constrained="
+        f"{st.spec_accepted_constrained}/{st.spec_drafted_constrained} violations="
+        f"{st.structured_violations} output_tok_s={row['output_tok_s']:.1f}")
+    del e
+    torch.cuda.empty_cache()
+    if row["masked_verify_steps"] == 0 or row["spec_accepted_constrained"] == 0 or row[
+            "violations"]:
+        raise AssertionError(f"structured: json-echo speculation failed its checks: {row}")
+    return out
+
+
 def phase_forward_check(device, model: str = "llama-1b", seed: int = 0,
                         moe_dispatch: str = "sorted") -> dict:
     """One mixed unified batch (two decode rows over resident KV, a fresh
@@ -1975,8 +2540,9 @@ def phase_loader(device, card: str, model: str = "llama-1b", seed: int = 0,
 def phase_bench(device, card: str, argv: list[str]) -> dict:
     """``llmd_tpu_torch.tools.bench`` in this process with ``argv``: its JSON
     line, printed on a ``bench:`` line. No capture in the measured window
-    (``recompiles`` 0), K1 once per layer of every forward of the window,
-    all on its mma instance."""
+    (``recompiles`` 0), K1 once per layer of every forward of the window
+    (verify steps included), all on its mma instance; no structured
+    violation."""
     import contextlib
     import io
 
@@ -1994,8 +2560,9 @@ def phase_bench(device, card: str, argv: list[str]) -> dict:
     torch.cuda.empty_cache()
     cfg = get_model_config("llama-1b")
     k1 = row["kernel_launches"]["paged_attention"]
-    forwards = row["unified_steps"] + row["decode_iterations"]
-    if row["recompiles"] != 0 or k1["simt"] or k1["mma"] != cfg.num_layers * forwards:
+    forwards = row["unified_steps"] + row["decode_iterations"] + row["spec_verify_steps"]
+    if (row["recompiles"] != 0 or k1["simt"] or k1["mma"] != cfg.num_layers * forwards
+            or row["structured_violations"]):
         raise AssertionError(f"bench {argv}: recompiles {row['recompiles']}, K1 launches "
                              f"{k1}, expected {cfg.num_layers * forwards} on mma")
     return row
@@ -2064,6 +2631,8 @@ def main(argv: "list[str] | None" = None) -> int:
                              f"{dense['host_launch_calls_per_iteration']} host launch calls "
                              f"an iteration, expected {3 / dense['decode_steps']}")
     report["surface"] = surface = phase_surface(device, card)
+    report["spec"] = spec = phase_spec(device, card)
+    report["structured"] = phase_structured(device, card)
     if report["graph"]["moe_eplb"]["graph_eplb_rebalances"] < 2:
         raise AssertionError("graph: EPLB re-placed its experts fewer than twice")
     for run in ("moe_sorted", "mla_sorted"):
@@ -2089,7 +2658,11 @@ def main(argv: "list[str] | None" = None) -> int:
     }
     report["loader"] = phase_loader(device, card)
     report["bench"] = {"int8": phase_bench(device, card, []),
-                       "bf16": phase_bench(device, card, ["--quantize", "none"])}
+                       "bf16": phase_bench(device, card, ["--quantize", "none"]),
+                       "bf16_spec_echo": phase_bench(device, card, [
+                           "--quantize", "none", "--spec-mode", "ngram", "--workload", "echo"]),
+                       "bf16_json": phase_bench(device, card, [
+                           "--quantize", "none", "--workload", "json"])}
     if args.report:
         out = Path(args.report)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -2116,7 +2689,11 @@ def main(argv: "list[str] | None" = None) -> int:
                "decode_b8_simt_ms": k1["decode_b8"]["simt_ms"],
                "mixed_ms": k1["mixed"]["ms"], "mixed_bound_ms": k1["mixed"]["bound_ms"],
                "mixed_library_ms": k1["mixed"]["library_ms"],
-               "mixed_simt_ms": k1["mixed"]["simt_ms"]}
+               "mixed_simt_ms": k1["mixed"]["simt_ms"],
+               "verify_ms": k1["verify"]["ms"], "verify_bound_ms": k1["verify"]["bound_ms"],
+               "verify_library_ms": k1["verify"]["library_ms"],
+               "verify_simt_ms": k1["verify"]["simt_ms"],
+               "verify_launches": spec["llama-1b_bfloat16"]["verify_launches"]["paged_attention"]}
 
     lat, k3 = tm["paged_attention_latent"]["mixed"], tm["mla_decode"]
     k3_more = {"instance": k3["decode"]["instance"], "simt_ms": k3["decode"]["simt_ms"],
@@ -2131,7 +2708,7 @@ def main(argv: "list[str] | None" = None) -> int:
         entry("paged_attention", attn_src, "llmd_tpu/ops/paged_attention.py:106",
               eng["llama-1b"]["launches"]["paged_attention"], k1["decode"]) | k1_more
         | {f"bench_{q}_launches": report["bench"][q]["kernel_launches"]["paged_attention"]["mma"]
-           for q in ("int8", "bf16")}
+           for q in ("int8", "bf16", "bf16_spec_echo", "bf16_json")}
         | {"surface_launches": surface["launches"]["paged_attention"]},
         # the unified program's absorbed MLA attention, XLA in the reference
         entry("paged_attention_latent", attn_src, "llmd_tpu/models/transformer.py:428",

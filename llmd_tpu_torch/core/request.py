@@ -1,12 +1,14 @@
-"""Sampling parameters (the fields of ``llmd_tpu/core/request.py::SamplingParams``
-that this slice honours), the deadline header and the chat flattening that the
-router and the engine share.
+"""Sampling parameters (``llmd_tpu/core/request.py::SamplingParams``, every
+field with the reference's name), the deadline header and the chat flattening
+that the router and the engine share.
 
-Structured-output, penalty, logprob and multi-sample fields exist with the
-reference's names so callers can pass the same objects, but setting one away
-from its default raises: their slice has not landed yet. ``stop`` strings are
-applied by the server to the returned text; ``seed`` is accepted and, as in the
-reference engine, draws come from the engine's own generator.
+As in the reference, ``min_p``, ``logprobs``, the penalties and ``n`` are
+accepted and not acted on (one choice per request; the reference's
+``apply_penalties`` has no caller). The structured-output fields
+(``guided_choice``, ``guided_regex``, ``response_format``) and ``logit_bias``
+are served by the engine (``llmd_tpu_torch/structured``). ``stop`` strings are
+applied by the server to the returned text; ``seed`` is accepted and, as in
+the reference engine, draws come from the engine's own generator.
 """
 
 from __future__ import annotations
@@ -19,14 +21,6 @@ from typing import Any, Optional, Sequence
 # across its queue wait and forwards the remainder, so the engine sees how much
 # budget the client has left.
 HDR_REQUEST_TIMEOUT = "x-request-timeout"
-
-# field -> the value that means "off"; anything else is refused
-_UNSERVED = {
-    "min_p": 0.0, "logprobs": None, "presence_penalty": 0.0,
-    "frequency_penalty": 0.0, "repetition_penalty": 1.0, "n": 1,
-    "guided_choice": None, "guided_regex": None, "response_format": None,
-    "logit_bias": None,
-}
 
 
 @dataclass
@@ -47,20 +41,24 @@ class SamplingParams:
     repetition_penalty: float = 1.0
     ignore_eos: bool = False
     n: int = 1
+    # Structured outputs (llmd_tpu_torch/structured): guided_* follow vLLM's
+    # guided decoding surface, response_format the OpenAI one ({"type":
+    # "json_object" | "json_schema", ...}).
     guided_choice: Optional[Sequence[str]] = None
     guided_regex: Optional[str] = None
     response_format: Optional[dict] = None
+    # OpenAI logit_bias: token id -> additive bias in [-100, 100]; -100 bans.
     logit_bias: Optional[dict] = None
-
-    def __post_init__(self) -> None:
-        for name, off in _UNSERVED.items():
-            if getattr(self, name) != off:
-                raise ValueError(f"SamplingParams.{name} is not served by this "
-                                 "port yet (structured, penalty and logprob "
-                                 "sampling are later ROADMAP items)")
 
     def greedy(self) -> bool:
         return self.temperature == 0.0
+
+    def constrained(self) -> bool:
+        """True when decoding needs the biased sampler (grammar or bias)."""
+        return bool(self.guided_choice or self.guided_regex or self.logit_bias
+                    or (isinstance(self.response_format, dict)
+                        and self.response_format.get("type")
+                        in ("json_object", "json_schema")))
 
 
 def media_url_of_part(part: Any) -> "tuple[Optional[str], Optional[str]]":

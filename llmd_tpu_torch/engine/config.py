@@ -8,7 +8,12 @@ The reference's pipelined dispatch (``pipeline_decode``, ``pipeline_depth``,
 ``pack_overlap``, ``pipeline_prefill_sample``) is served, with the
 reference's defaults (on, depth 2) and every value it takes, and so are
 ``instrument`` (wait for the unified program's outputs before stamping its
-device time) and ``quantize_weights`` (``None`` or ``"int8"``).
+device time) and ``quantize_weights`` (``None`` or ``"int8"``). Speculative
+decoding (``spec_mode`` ``off`` | ``ngram``, ``spec_tokens``,
+``spec_ngram_max`` / ``_min``) and structured outputs (``structured_mode``
+``auto`` | ``off``, ``structured_fused_decode``,
+``structured_table_max_elems``, ``spec_structured``,
+``spec_structured_crosscheck``) are served with the reference's validation.
 """
 
 from __future__ import annotations
@@ -92,17 +97,34 @@ class EngineConfig:
     kv_layout: str = "auto"
     eplb: Optional[EPLBConfig] = None
     lora: "object | None" = None
+    # Speculative decoding (engine/spec.py): "off" = plain decode, "ngram" =
+    # prompt-lookup drafts verified through the verify program; greedy
+    # acceptance keeps output identical to "off", and sampled rows
+    # (temperature > 0) fall back to plain decode.
     spec_mode: str = "off"
+    # Max draft tokens proposed (and verified) per sequence per verify step.
     spec_tokens: int = 4
+    # Suffix n-gram match lengths tried by the drafter, longest first.
     spec_ngram_max: int = 3
     spec_ngram_min: int = 1
+    # Structured outputs: "auto" = compile grammars for requests that ask,
+    # "off" = refuse structured requests at admission (ValueError -> 400).
     structured_mode: str = "auto"
     # A chained decode call keeps the device's tokens, positions and kv
     # lengths and uploads only steps_left (and page tables that grew).
     pack_overlap: bool = True
+    # Constrained rows ride the masked decode program (bias gather, biased
+    # sample and FSM step on the device) instead of degrading the batch to
+    # one-token unified steps. A row with a grammar AND a logit_bias, or
+    # tables past structured_table_max_elems (G_pad * S_pad * V elements),
+    # still degrades.
     structured_fused_decode: bool = True
     structured_table_max_elems: int = 1 << 23
+    # Constrained rows draft through the host automaton and verify through
+    # the masked verify program; False: constrained rows never draft.
     spec_structured: bool = True
+    # After every masked verify step, re-derive each constrained row's FSM
+    # state on the host and count disagreements with the device's.
     spec_structured_crosscheck: bool = False
 
     @property
@@ -144,6 +166,12 @@ class EngineConfig:
         if self.moe_dispatch not in ("auto", "sorted", "einsum"):
             raise ValueError(f"moe_dispatch must be auto|sorted|einsum, got "
                              f"{self.moe_dispatch!r}")
+        if self.spec_mode not in ("off", "ngram"):
+            raise ValueError(f"unknown spec_mode={self.spec_mode!r} "
+                             "(supported: 'off', 'ngram')")
+        if self.structured_mode not in ("auto", "off"):
+            raise ValueError(f"unknown structured_mode={self.structured_mode!r} "
+                             "(supported: 'auto', 'off')")
         if self.eplb is not None and not isinstance(self.eplb, EPLBConfig):
             raise ValueError("eplb takes llmd_tpu_torch.parallel.eplb.EPLBConfig, "
                              f"got {type(self.eplb).__name__}")
@@ -155,4 +183,7 @@ SERVED = frozenset({
     "max_num_batched_tokens", "enable_prefix_caching", "decode_steps", "attn_impl",
     "moe_matmul", "moe_dispatch", "eplb", "pipeline_decode", "pipeline_depth",
     "pack_overlap", "pipeline_prefill_sample", "instrument", "quantize_weights",
+    "spec_mode", "spec_tokens", "spec_ngram_max", "spec_ngram_min", "structured_mode",
+    "structured_fused_decode", "structured_table_max_elems", "spec_structured",
+    "spec_structured_crosscheck",
 })

@@ -15,6 +15,17 @@ per call; on the CPU (the tests) it runs eagerly. It holds its inputs in
 :class:`DecodeBuffers`, allocated once: the host fills them for a call, and
 :func:`run_chained` writes the call's last tokens, positions and kv lengths
 back into them, so a chained call starts where the previous one ended.
+
+The masked variant (port of ``_decode_multi_masked``, reference :660) serves
+grammar-constrained and ``logit_bias`` rows: each iteration gathers every
+row's bias at its automaton state from the staged tables
+(:class:`MaskTables`), samples through ``sample_tokens_biased`` and advances
+the state through the transition table for rows with budget left. The state
+joins the chain point (``DecodeBuffers.fsm``), so a chained call starts from
+the previous call's state, as the reference keeps its automaton on the
+device. The tables live in two static buffers indexed by a per-row base
+(``DecodeBuffers.table_rows`` = grammar slot x padded state count), so one
+captured graph serves every table shape.
 """
 
 from __future__ import annotations
@@ -24,7 +35,7 @@ from typing import Callable, Optional
 
 import torch
 
-from llmd_tpu_torch.engine.sampling import sample_tokens
+from llmd_tpu_torch.engine.sampling import sample_tokens, sample_tokens_biased
 from llmd_tpu_torch.models.config import ModelConfig
 from llmd_tpu_torch.models.transformer import forward_core, unembed
 
@@ -52,20 +63,49 @@ class DecodeBuffers:
     seq_slots: torch.Tensor  # [B] arange
     cu_q_lens: torch.Tensor  # [B + 1] arange
     num_seqs: torch.Tensor  # [1] = B
+    # the masked program's: each row's automaton state (the chain point) and
+    # its grammar's first table row (slot x S_pad; 0 = the zero no-op
+    # grammar of unconstrained rows), uploaded at a masked chain's start
+    fsm: torch.Tensor  # [B] int32
+    table_rows: torch.Tensor  # [B] int32
 
     @classmethod
     def allocate(cls, batch: int, max_pages: int, device: torch.device) -> "DecodeBuffers":
         bufs = {name: torch.full((batch, max_pages) if name == "page_tables" else (batch,),
                                  idle, dtype=dt, device=device)
                 for name, (dt, idle) in PACKED.items()}
+        zeros = lambda: torch.zeros((batch,), dtype=torch.int32, device=device)  # noqa: E731
         return cls(**bufs, seq_slots=torch.arange(batch, dtype=torch.int32, device=device),
                    cu_q_lens=torch.arange(batch + 1, dtype=torch.int32, device=device),
-                   num_seqs=torch.full((1,), batch, dtype=torch.int32, device=device))
+                   num_seqs=torch.full((1,), batch, dtype=torch.int32, device=device),
+                   fsm=zeros(), table_rows=zeros())
 
     def idle(self) -> None:
         """Every slot idle (nothing written to a real pool row)."""
         for name, (_, idle) in PACKED.items():
             getattr(self, name).fill_(idle)
+        self.fsm.zero_()
+        self.table_rows.zero_()
+
+
+@dataclasses.dataclass
+class MaskTables:
+    """The staged grammar tables of the masked programs, in two static
+    buffers of ``max_elems // V`` rows of ``V``: ``bias`` (float32, rows as
+    ``TokenGrammar.fill_bias`` writes them) and ``next`` (int32 state
+    transitions). Row ``g * S_pad + s`` holds grammar slot g at state s of a
+    staged ``[G_pad, S_pad, V]`` pair; slot 0 is the zero no-op grammar.
+    ``staged`` is the key of the tables in the buffers."""
+
+    bias: torch.Tensor  # [R, V] float32
+    next: torch.Tensor  # [R, V] int32
+    staged: Optional[tuple] = None
+
+    @classmethod
+    def allocate(cls, max_elems: int, vocab: int, device: torch.device) -> "MaskTables":
+        rows = max(1, max_elems // vocab)
+        return cls(torch.zeros((rows, vocab), dtype=torch.float32, device=device),
+                   torch.zeros((rows, vocab), dtype=torch.int32, device=device))
 
 
 @dataclasses.dataclass
@@ -76,19 +116,24 @@ class DecodeOutputs:
     lens_out: torch.Tensor  # [B] and kv lengths after the call
     counts: torch.Tensor  # [L, E] int32 expert counts summed over k ([L, 0] dense)
     drops: torch.Tensor  # int32 scalar: dropped routed copies summed over k
+    fsm_out: Optional[torch.Tensor] = None  # [B] automaton states (masked program)
 
 
 def decode_program(cfg: ModelConfig, params: dict[str, torch.Tensor], cache: torch.Tensor,
                    buf: DecodeBuffers, k: int, generator: torch.Generator, *,
-                   attn_impl: Callable, moe_dispatch_impl: Optional[Callable]
-                   ) -> DecodeOutputs:
+                   attn_impl: Callable, moe_dispatch_impl: Optional[Callable],
+                   tables: Optional[MaskTables] = None) -> DecodeOutputs:
     """``k`` decode iterations of the static batch (the reference's
     ``_decode_multi``): each samples every row with its own temperature /
     top-k / top-p (temperature 0 is the exact argmax) and advances the rows
     with budget left. The budget is counted down on the device, so no
     iteration index is needed. K/V go into ``cache`` in place. ``buf`` is
-    read, not written."""
+    read, not written. With ``tables`` it is the masked program
+    (``_decode_multi_masked``): each row samples on its logits plus its
+    grammar's bias row at its state, and rows with budget left step their
+    state through the transition table; frozen rows hold theirs."""
     toks, pos, lens, steps = buf.tokens, buf.positions, buf.kv_lens, buf.steps_left
+    st = buf.fsm
     out, counts, drops = [], None, None
     for _ in range(k):
         hidden, cache, cnt, drop = forward_core(
@@ -97,16 +142,23 @@ def decode_program(cfg: ModelConfig, params: dict[str, torch.Tensor], cache: tor
             moe_dispatch_impl=moe_dispatch_impl)
         counts = cnt if counts is None else counts + cnt
         drops = drop if drops is None else drops + drop
-        nxt = sample_tokens(unembed(cfg, params, hidden), generator, buf.temperature,
-                            buf.top_k, buf.top_p)
+        logits = unembed(cfg, params, hidden)
         act = steps > 0  # rows freeze once their budget is spent
+        if tables is None:
+            nxt = sample_tokens(logits, generator, buf.temperature, buf.top_k, buf.top_p)
+        else:
+            rows = (buf.table_rows + st).long()
+            nxt = sample_tokens_biased(logits, tables.bias[rows], generator,
+                                       buf.temperature, buf.top_k, buf.top_p)
+            st = torch.where(act, tables.next[rows, nxt.long()], st)
         nxt = torch.where(act, nxt, 0)
         pos = torch.where(act, pos + 1, pos)
         lens = torch.where(act, lens + 1, lens)
         steps = steps - act.to(steps.dtype)
         out.append(nxt)
         toks = nxt
-    return DecodeOutputs(torch.stack(out), toks, pos, lens, counts, drops.to(torch.int32))
+    return DecodeOutputs(torch.stack(out), toks, pos, lens, counts, drops.to(torch.int32),
+                         st if tables is not None else None)
 
 
 def run_chained(program: Callable[[], DecodeOutputs], buf: DecodeBuffers,
@@ -115,11 +167,14 @@ def run_chained(program: Callable[[], DecodeOutputs], buf: DecodeBuffers,
     next call's tokens, positions and kv lengths) and returns what the host
     reads of it, as one int32 vector: ``toks_out`` [k*B], then the dropped
     copies [1] if ``drops`` (a MoE model) and the expert counts [L*E] if
-    ``counts`` (EPLB). This is the function the engine captures."""
+    ``counts`` (EPLB); the masked program also leaves its automaton states.
+    This is the function the engine captures."""
     o = program()
     buf.tokens.copy_(o.last_toks)
     buf.positions.copy_(o.pos_out)
     buf.kv_lens.copy_(o.lens_out)
+    if o.fsm_out is not None:
+        buf.fsm.copy_(o.fsm_out)
     parts = [o.toks_out.reshape(-1)]
     if drops:
         parts.append(o.drops.reshape(1))

@@ -1,7 +1,9 @@
-"""LLMEngine: continuous batching over the paged PyTorch model (port of the main
-path of ``llmd_tpu/engine/engine.py``).
+"""LLMEngine: continuous batching over the paged PyTorch model (port of
+``llmd_tpu/engine/engine.py``).
 
-Two step programs, routed inline by ``step()``:
+Step programs, held in a ``ProgramRegistry`` (``engine/programs.py``) that
+``step()`` routes through (registration order is priority: ``unified``,
+``verify``, ``decode``; the masked variants are dispatched by them):
 
 - ``unified`` (reference ``_step_unified``): decode rows plus prefill chunks of
   several sequences packed into one flat token batch under the
@@ -17,6 +19,28 @@ Two step programs, routed inline by ``step()``:
   call (``engine/cuda_graph.py``) and replayed once per call; the
   constructor's ``decode_graph=False`` runs the same program eagerly (on the
   CPU it always runs eagerly).
+- ``verify`` / ``verify_masked`` (reference ``_verify`` / ``_verify_masked``,
+  ``engine/verify_program.py``), with ``spec_mode="ngram"``: each
+  decode-ready greedy row's last token and its prompt-lookup draft
+  (``engine/spec.py``) packed as a short chunk; the longest draft prefix that
+  matches the greedy tokens is accepted with one bonus token, and the pages
+  grown for a rejected tail go back to the free list. Sampled rows never
+  draft (temperature fallback); a row whose probe finds nothing is disarmed
+  until fresh tokens land for it (``Sequence.spec_armed``). Eager.
+- ``decode_masked`` (reference ``_decode_multi_masked``): the decode program
+  for batches with grammar-constrained or ``logit_bias`` rows, the bias and
+  the automaton step on the device from tables staged once a chain
+  (``_plan_chain_masks``, ``_mask_tables``), captured lazily as a second
+  graph at its first call. Batches it cannot express (a row with a grammar
+  and a bias, tables past ``structured_table_max_elems``,
+  ``structured_fused_decode`` off) degrade to one-token unified steps, which
+  sample with a host-built bias (``_build_bias``), as in the reference.
+
+Structured outputs (``llmd_tpu_torch/structured``): admission compiles the
+request's grammar through the process-wide cache (a tokenizer is needed);
+each constrained ``Sequence`` carries its automaton cursor, re-synced from its
+tokens, so preemption needs nothing more, and a violation or a truncated
+generation counts in ``structured_violations``.
 
 Attention: the unified program runs K1's wrapper (``paged_attention``), the
 decode program what ``programs.select_decode_attn_impl`` picks: K1 again for
@@ -49,7 +73,8 @@ is told where each row sits in the reference's padded batch
 (``forward_core(moe_rows=...)``), so its capacity, and with it its drops,
 follow the reference's.
 
-Accounting, as the reference's: ``EngineStats`` splits each program's wall
+Accounting, as the reference's: ``EngineStats`` (with the reference's spec
+and structured fields) splits each program's wall
 into host pack, device and post-processing (``instrument`` waits for the
 unified program's outputs before stamping its device time; a decode call's
 device time is the wait for its results), each ``Sequence`` keeps its
@@ -57,8 +82,9 @@ device time is the wait for its results), each ``Sequence`` keeps its
 unless ``LLMD_UTIL_LEDGER=0``) records each dispatch's analytic cost, wall
 and goodput classes. The port's unified program runs exactly its real
 tokens, so its dispatches carry no padding class; the decode program's
-``B x k`` slot-steps do. The ledger's compile count is the decode program's
-CUDA-graph captures.
+``B x k`` slot-steps do. The ledger's compile count is the decode programs'
+CUDA-graph captures; ``programs`` counts each program's dispatches and
+completions, and every drain asserts that they balance.
 
 int8 weight-only (``quantize_weights="int8"``): the params are quantized at
 construction (``models/quant.py``); EPLB regathers int8 banks and their
@@ -78,7 +104,7 @@ from __future__ import annotations
 
 import contextlib
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -90,10 +116,12 @@ from llmd_tpu_torch.core.request import SamplingParams
 from llmd_tpu_torch.engine.config import EngineConfig
 from llmd_tpu_torch.engine.cuda_graph import CapturedProgram
 from llmd_tpu_torch.engine.decode_program import (
-    PACKED, DecodeBuffers, decode_program, run_chained)
+    PACKED, DecodeBuffers, MaskTables, decode_program, run_chained)
 from llmd_tpu_torch.engine.kv_manager import PageAllocator, Sequence
-from llmd_tpu_torch.engine.programs import select_decode_attn_impl
-from llmd_tpu_torch.engine.sampling import greedy_tokens, sample_tokens
+from llmd_tpu_torch.engine.programs import ProgramRegistry, select_decode_attn_impl
+from llmd_tpu_torch.engine.sampling import greedy_tokens, sample_tokens, sample_tokens_biased
+from llmd_tpu_torch.engine.spec import propose_ngram_draft
+from llmd_tpu_torch.engine.verify_program import verify, verify_masked, verify_states
 from llmd_tpu_torch.models.config import ModelConfig
 from llmd_tpu_torch.models.quant import quantize_params
 from llmd_tpu_torch.models.transformer import (
@@ -109,6 +137,8 @@ from llmd_tpu_torch.obs.costmodel import (
 from llmd_tpu_torch.obs.metrics import Registry, register_engine_metrics
 from llmd_tpu_torch.ops.paged_attention import paged_attention
 from llmd_tpu_torch.parallel.eplb import ExpertLoadTracker, balance_ratio, rebalance
+from llmd_tpu_torch.structured import (
+    NEG_BIAS, StructuredState, compile_grammar, parse_logit_bias, structured_spec)
 
 
 def resolve_device(device: "torch.device | str | None" = None) -> torch.device:
@@ -158,6 +188,7 @@ class EngineStats:
     # results, applying them)
     time_prefill_steps: float = 0.0
     time_decode_steps: float = 0.0
+    time_spec_steps: float = 0.0  # wall of speculative verify steps
     time_host_pack: float = 0.0  # unified packs and full packs of decode calls
     time_pack_overlap: float = 0.0  # chained packs, while earlier calls run
     # a unified step's forward (waited for under ``instrument``) and a decode
@@ -170,9 +201,38 @@ class EngineStats:
     n_decode_dispatches: int = 0  # decode calls launched (== calls at quiesce)
     n_chained_dispatches: int = 0  # of those, chained on an in-flight call
     n_decode_iterations: int = 0  # forward passes run by decode calls (k each)
-    decode_graph_captures: int = 0
+    decode_graph_captures: int = 0  # both decode programs' captures
     decode_graph_replays: int = 0
     decode_graph_capture_s: float = 0.0
+    # Speculative decoding (spec_mode="ngram"): prompt-lookup drafts verified
+    # by the verify programs; the constrained share (grammar or logit_bias
+    # rows) apart, and with spec_structured_crosscheck the device / host FSM
+    # state disagreements (must stay 0)
+    spec_drafted: int = 0
+    spec_accepted: int = 0
+    spec_rejected: int = 0
+    n_spec_verify_steps: int = 0
+    spec_drafted_constrained: int = 0
+    spec_accepted_constrained: int = 0
+    spec_fsm_crosscheck_mismatches: int = 0
+    # Structured outputs: constrained requests admitted, host bias builds
+    # of unified steps, tokens outside the grammar (0; a truncated
+    # constrained generation counts 1 at retirement), the host's mask wall
+    # (bias builds and table stagings) and the masked chains' table stagings
+    structured_requests: int = 0
+    structured_mask_builds: int = 0
+    structured_violations: int = 0
+    time_mask_build: float = 0.0
+    structured_chain_stages: int = 0
+
+
+def _constrained(s: Sequence) -> bool:
+    """The row needs the biased sampler: a grammar or a logit_bias."""
+    return s.structured is not None or bool(s.logit_bias)
+
+
+def _pow2(n: int) -> int:
+    return 1 << (n - 1).bit_length()
 
 
 class LLMEngine:
@@ -187,15 +247,20 @@ class LLMEngine:
         seed: int = 0,
         device: "torch.device | str | None" = None,
         decode_graph: bool = True,
+        tokenizer: Optional[object] = None,
     ) -> None:
-        """``decode_graph``: on a CUDA device, capture the decode program into
-        a CUDA graph and replay it (default); False runs the same program
-        eagerly, for comparison. A CPU engine always runs it eagerly."""
+        """``decode_graph``: on a CUDA device, capture the decode programs
+        into CUDA graphs and replay them (default); False runs the same
+        programs eagerly, for comparison. A CPU engine always runs them
+        eagerly. ``tokenizer``: the vocabulary that structured requests'
+        grammars are lifted onto (a structured request without one is
+        refused at ``add_request``)."""
         self.device = resolve_device(device)
         check_supported(model_cfg)
         engine_cfg.check_served()
         self.model_cfg = model_cfg
         self.cfg = engine_cfg
+        self.tokenizer = tokenizer
         self.alloc = PageAllocator(engine_cfg.num_pages, engine_cfg.page_size,
                                    enable_prefix_caching=engine_cfg.enable_prefix_caching,
                                    event_sink=event_sink)
@@ -207,6 +272,17 @@ class LLMEngine:
         # the step loop's metric families; the server renders them at /metrics
         self.registry = Registry()
         self.metrics = register_engine_metrics(self.registry)
+        # the step programs (registration order = routing priority); the
+        # masked variants have no run hook: a routable program dispatches them
+        self.programs = ProgramRegistry(
+            on_dispatch=lambda name: self.metrics.program_dispatches.labels(program=name).inc())
+        reg = self.programs.register
+        reg("unified", eligible=LLMEngine._unified_eligible, run=LLMEngine._run_unified_program)
+        reg("verify", eligible=lambda eng: eng.cfg.spec_mode == "ngram",
+            run=LLMEngine._run_verify_program)
+        reg("verify_masked")
+        reg("decode", eligible=lambda eng: True, run=LLMEngine._run_decode_program)
+        reg("decode_masked")
         self.metrics.cache_config.labels(
             block_size=engine_cfg.page_size, num_gpu_blocks=engine_cfg.num_pages).set(1)
         if params is None:
@@ -251,11 +327,18 @@ class LLMEngine:
         self._pending_decode: list[dict] = []
         self._pending_sample: Optional[dict] = None
         self._decode_graph = decode_graph and on_card
-        self._decode_fn: Optional[Callable[[], torch.Tensor]] = None  # built at first use
+        # the decode programs, plain and masked, each built at its first use
+        self._decode_fn: Optional[Callable[[], torch.Tensor]] = None
+        self._decode_masked_fn: Optional[Callable[[], torch.Tensor]] = None
         self._decode_bufs: Optional[DecodeBuffers] = None
         self._pack_bufs: list[dict[str, torch.Tensor]] = []
         self._result_ring: list[torch.Tensor] = []
-        self._captures = 0  # the decode program's graph captures, never reset
+        # the masked programs' staged tables (allocated at the first masked
+        # call) and an LRU of their host arrays, keyed by the participating
+        # constraints and the padded shape; an entry keeps its grammars alive
+        # so an id-keyed slot is never reused by another grammar
+        self._mask_buffers: Optional[MaskTables] = None
+        self._mask_tab_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
         self.util = None
         if util_ledger_enabled():
             self.util = UtilLedger(
@@ -264,9 +347,9 @@ class LLMEngine:
             attach_util_exporter(self.util, self.metrics)
 
     def compile_counts(self) -> dict[str, int]:
-        """The ledger's compile count per program: the decode program's
-        CUDA-graph captures (the unified program runs eagerly)."""
-        return {"decode": self._captures}
+        """The ledger's compile count per program: CUDA-graph captures (the
+        decode programs'; the unified and verify programs run eagerly)."""
+        return self.programs.compile_counts()
 
     def _select_moe_dispatch(self) -> Optional[Callable]:
         """The MoE token dispatch (reference ``_select_moe_dispatch``, one
@@ -401,9 +484,33 @@ class LLMEngine:
         bad = [t for t in token_ids if not 0 <= t < self.model_cfg.vocab_size]
         if bad:
             raise ValueError(f"token ids out of vocab range: {bad[:4]}")
+        # Structured outputs: compile (or fetch) the token grammar before any
+        # engine state changes, so a malformed spec raises ValueError (the
+        # server's 400) without leaving a queued sequence behind
+        logit_bias = parse_logit_bias(sampling.logit_bias)
+        structured: Optional[StructuredState] = None
+        spec = structured_spec(sampling)
+        if spec is not None:
+            if self.cfg.structured_mode == "off":
+                raise ValueError("structured outputs are disabled (structured_mode='off')")
+            if self.tokenizer is None:
+                raise ValueError("structured request needs a tokenizer-equipped engine "
+                                 "(LLMEngine(..., tokenizer=...))")
+            kind, payload = spec
+            tc0 = time.perf_counter()
+            grammar, cache_hit = compile_grammar(kind, payload, self.tokenizer,
+                                                 self.model_cfg.vocab_size)
+            compile_s = time.perf_counter() - tc0
+            structured = StructuredState(grammar, kind)
+            self.stats.structured_requests += 1
+            m = self.metrics
+            m.structured_requests.labels(kind=kind).inc()
+            (m.structured_cache_hits if cache_hit else m.structured_cache_misses).inc()
+            m.structured_compile_seconds.observe(compile_s)
         seq = Sequence(request_id=request_id, token_ids=list(token_ids),
                        prompt_len=len(token_ids), max_tokens=sampling.max_tokens,
-                       sampling=sampling, arrival_time=time.monotonic())
+                       sampling=sampling, arrival_time=time.monotonic(),
+                       structured=structured, logit_bias=logit_bias)
         self.seqs[request_id] = seq
         self.waiting.append(seq)
 
@@ -540,18 +647,16 @@ class LLMEngine:
 
     # --------------------------------------------------------------- stepping
     def step(self) -> list[EngineOutput]:
-        """One engine iteration: admit, then the unified program while any
-        sequence is prefilling (after the decode calls in flight land), the
-        decode program otherwise (after a deferred prefill sample lands)."""
+        """One engine iteration: admit, then run the first eligible step
+        program of the registry: ``unified`` while any sequence is
+        prefilling or a constrained row needs the unified degrade (after the
+        decode calls in flight land), ``verify`` when ``spec_mode="ngram"``
+        and drafts exist, ``decode`` otherwise (both after a deferred prefill
+        sample lands)."""
         self._outputs = []
         self._try_admit()
         with torch.no_grad(), self._on_stream():
-            if self._prefilling_seqs():
-                self._flush_pending_decode()
-                self._step_unified()
-            else:
-                self._flush_pending_sample()
-                self._step_decode()
+            self.programs.route(self).run(self)
             if self._eplb is not None:
                 self._eplb_tick()  # a rebalance is ordered after the calls in flight
         st = self.stats
@@ -565,6 +670,29 @@ class LLMEngine:
         m.batch_occupancy.labels(kind="running").observe(st.num_running)
         m.batch_occupancy.labels(kind="waiting").observe(st.num_waiting)
         return self._outputs
+
+    # Eligibility predicates and run hooks of the routable programs;
+    # ``route`` calls them unbound (``spec.eligible(engine)``).
+    def _unified_eligible(self) -> bool:
+        """The unified step serves prefill chunks, and is the one-token
+        degrade of constrained rows the masked tables cannot express."""
+        if self._prefilling_seqs():
+            return True
+        return (any(s is not None and _constrained(s) for s in self.running)
+                and self._constrained_needs_unified())
+
+    def _run_unified_program(self) -> None:
+        self._flush_pending_decode()  # it reads the host's token state
+        self._step_unified()
+
+    def _run_verify_program(self) -> None:
+        self._flush_pending_sample()  # first tokens land before a batch is built
+        if not self._spec_try_verify():  # no draft: the decode program instead
+            self._step_decode()
+
+    def _run_decode_program(self) -> None:
+        self._flush_pending_sample()
+        self._step_decode()
 
     def _on_stream(self):
         """The engine's stream, whichever thread steps it."""
@@ -593,13 +721,18 @@ class LLMEngine:
         ev.record(self._stream)
         return host, ev
 
-    def _sample(self, logits: torch.Tensor, seqs: list[Sequence]) -> torch.Tensor:
-        """Tokens for ``logits`` rows (one per seq in order), int32 on device."""
+    def _sample(self, logits: torch.Tensor, seqs: list[Sequence],
+                bias: Optional[np.ndarray] = None) -> torch.Tensor:
+        """Tokens for ``logits`` rows (one per seq in order), int32 on device;
+        ``bias`` [rows, V] is added to the float32 logits first."""
+        bias_t = self._tensor(bias) if bias is not None else None
         if all(s.sampling.temperature <= 0.0 for s in seqs):
-            return greedy_tokens(logits)
+            return greedy_tokens(logits if bias_t is None else logits.float() + bias_t)
         temp = self._tensor(np.array([s.sampling.temperature for s in seqs], np.float32))
         tk = self._tensor(np.array([s.sampling.top_k for s in seqs], np.int64))
         tp = self._tensor(np.array([s.sampling.top_p for s in seqs], np.float32))
+        if bias_t is not None:
+            return sample_tokens_biased(logits, bias_t, self._gen, temp, tk, tp)
         return sample_tokens(logits, self._gen, temp, tk, tp)
 
     def _step_unified(self) -> None:
@@ -668,7 +801,9 @@ class LLMEngine:
             cu[i + 1] = off
 
         t1 = time.perf_counter()
-        self.metrics.program_dispatches.labels(program="unified").inc()
+        # a synchronous program: its outputs are consumed in this step
+        self.programs.record_dispatch("unified")
+        self.programs.record_complete("unified")
         # the reference runs its unified program on batched_tokens rows, real
         # rows first: row i of this batch is its row i
         hidden, self.cache, cnt, drop = self._forward(
@@ -716,7 +851,8 @@ class LLMEngine:
         if sample_rows:
             last = self._tensor(cu[[i + 1 for i, _ in sample_rows]] - 1)
             logits = unembed(self.model_cfg, self.params, hidden[last.long()])
-            rec = self._sample_dispatch(sample_rows, logits)
+            rec = self._sample_dispatch(sample_rows, logits, self._build_bias(
+                [s for _, s in sample_rows], logits.shape[-1]))
         prev, self._pending_sample = self._pending_sample, None
         if prev is not None:
             self._sample_apply(prev)
@@ -748,12 +884,43 @@ class LLMEngine:
                              preempted_recompute=recompute, prefix_saved=saved,
                              compile_counts=self.compile_counts())
 
-    def _sample_dispatch(self, rows: list[tuple[int, Sequence]],
-                         logits: torch.Tensor) -> dict:
-        """Sample ``logits`` (one row per entry of ``rows``) on the device and
-        start the copy of the tokens to the host; no wait here."""
-        host, event = self._to_host(self._sample(logits, [s for _, s in rows]))
-        self.metrics.program_dispatches.labels(program="sample").inc()
+    def _build_bias(self, seqs: list[Sequence], vocab: int) -> Optional[np.ndarray]:
+        """The host-built additive ``[rows, V]`` bias of a sample batch (one
+        row per seq in order): each grammar row's allow-mask at its current
+        automaton state plus any ``logit_bias`` entries. None when no row is
+        constrained, which keeps the unbiased sampler."""
+        if not any(_constrained(s) for s in seqs):
+            return None
+        t0 = time.perf_counter()
+        bias = np.zeros((len(seqs), vocab), np.float32)
+        for i, s in enumerate(seqs):
+            st = s.structured
+            if st is not None:
+                self._count_violations(st.sync(s.token_ids, s.prompt_len))
+                st.grammar.fill_bias(bias[i], st.state)
+                self.stats.structured_mask_builds += 1
+            if s.logit_bias:
+                row = bias[i]
+                for tid, b in s.logit_bias.items():
+                    if 0 <= tid < vocab:  # OpenAI semantics: -100 is an outright ban
+                        row[tid] = NEG_BIAS if b <= -100.0 else row[tid] + b
+        dt = time.perf_counter() - t0
+        self.stats.time_mask_build += dt
+        self.metrics.structured_mask_seconds.observe(dt)
+        return bias
+
+    def _count_violations(self, n: int) -> None:
+        if n:
+            self.stats.structured_violations += n
+            self.metrics.structured_violations.inc(n)
+
+    def _sample_dispatch(self, rows: list[tuple[int, Sequence]], logits: torch.Tensor,
+                         bias: Optional[np.ndarray] = None) -> dict:
+        """Sample ``logits`` (one row per entry of ``rows``; ``bias`` added
+        first) on the device and start the copy of the tokens to the host;
+        no wait here."""
+        host, event = self._to_host(self._sample(logits, [s for _, s in rows], bias))
+        self.programs.record_dispatch("sample")
         return {"host": host, "event": event, "rows": [(s, s.slot) for _, s in rows]}
 
     def _flush_pending_sample(self) -> None:
@@ -765,6 +932,7 @@ class LLMEngine:
         """Wait for one dispatched sample's tokens and apply them."""
         if rec["event"] is not None:
             rec["event"].synchronize()
+        self.programs.record_complete("sample")
         now = time.monotonic()
         for (s, slot), tok in zip(rec["rows"], rec["host"].tolist()):
             if s.finished or s.slot != slot or self.running[slot] is not s:
@@ -773,6 +941,11 @@ class LLMEngine:
 
     def _apply_token(self, s: Sequence, tok: int, now: float) -> None:
         s.token_ids.append(tok)
+        if not s.spec_armed:
+            s.spec_flips += 1
+        s.spec_armed = True  # a fresh token landed: re-probe this row's drafter
+        if s.structured is not None:
+            self._count_violations(s.structured.sync(s.token_ids, s.prompt_len))
         if s.first_token_time is None:
             s.first_token_time = now
         finished, reason = self._check_finish(s, tok)
@@ -782,6 +955,420 @@ class LLMEngine:
             request_id=s.request_id, new_token_ids=[tok], finished=finished,
             finish_reason=reason, num_cached_prompt_tokens=s.num_cached_prompt,
             prompt_len=s.prompt_len))
+
+    # -------------------------------------------------------- speculation
+    def _verify_nt(self) -> int:
+        """The reference's static packed width of the verify programs: every
+        draft is clamped to ``spec_tokens``, so ``max_batch_size *
+        (spec_tokens + 1)`` rows hold the largest plan."""
+        return min(self.cfg.batched_tokens,
+                   self.cfg.max_batch_size * (self.cfg.spec_tokens + 1))
+
+    def _spec_propose(self, s: Sequence, max_draft: int) -> list[int]:
+        """Prompt-lookup draft of one decode-ready sequence, clamped so the
+        verify step can land every accepted token plus the bonus token
+        within max_tokens / max_model_len. A constrained row's draft is cut
+        to its longest constraint-legal prefix."""
+        k = min(self.cfg.spec_tokens, max_draft, s.max_tokens - s.num_generated - 1,
+                self.cfg.max_model_len - len(s.token_ids) - 1)
+        if k <= 0:
+            return []
+        draft = propose_ngram_draft(s.token_ids, k, self.cfg.spec_ngram_max,
+                                    self.cfg.spec_ngram_min)[:k]
+        if draft and _constrained(s):
+            draft = self._spec_filter_draft(s, draft)
+        return draft
+
+    def _spec_filter_draft(self, s: Sequence, draft: list[int]) -> list[int]:
+        """The longest prefix of ``draft`` that ``s``'s constraint allows: a
+        grammar row walks its automaton from the synced state, a logit_bias
+        row cuts at the first banned token. [] when spec_structured is off
+        (constrained rows never draft)."""
+        if not self.cfg.spec_structured:
+            return []
+        stt = s.structured
+        if stt is not None:
+            self._count_violations(stt.sync(s.token_ids, s.prompt_len))
+            return draft[:stt.grammar.legal_prefix_len(stt.state, draft)]
+        for i, t in enumerate(draft):
+            if s.logit_bias.get(t, 0.0) <= -100.0:
+                return draft[:i]
+        return draft
+
+    def _spec_try_verify(self) -> bool:
+        """The decode path's speculation gate; True when a verify step ran
+        in place of this step's decode call. The drafter probes the host's
+        (possibly stale) view first, and only a probe that finds a draft
+        pays for landing the decode calls in flight; drafts are then
+        proposed again on the landed state."""
+        active = self._decode_ready()
+        if not active:
+            return False
+        # constrained rows ride only the masked verify program
+        if any(_constrained(s) for s in active):
+            if not (self.cfg.spec_structured and self._plan_chain_masks(active) is not None):
+                return False
+        # greedy acceptance equals sequential decoding only for greedy rows
+        if any(s.sampling.temperature > 0.0 for s in active):
+            return False
+        probed = False
+        for s in active:
+            if s.spec_armed:
+                if self._spec_propose(s, self.cfg.spec_tokens):
+                    probed = True
+                else:
+                    s.spec_armed = False
+                    s.spec_flips += 1
+        if not probed:
+            return False
+        self._flush_pending_decode()
+        active = [s for s in self._decode_ready() if s.slot >= 0]
+        if not active:
+            return True  # the flush retired or changed the batch: step done
+        # every row gets its plain token; drafts share what is left
+        spare = self._verify_nt() - len(active)
+        plan: list[tuple[Sequence, list[int]]] = []
+        for s in active:
+            if len(plan) >= self.cfg.max_batch_size:
+                break
+            if s.slot < 0:
+                continue  # preempted while packing an earlier row
+            draft = self._spec_propose(s, max(0, spare)) if s.spec_armed else []
+            if draft and not self._ensure_pages(s, len(s.token_ids) + len(draft)):
+                draft = []  # shed the draft before shedding a sequence
+            if not self._ensure_pages(s, len(s.token_ids)):
+                if not self._preempt_one(exclude=s) or s.slot < 0:
+                    self._finish_if_outgrew_pool(s)
+                    continue
+                if not self._ensure_pages(s, len(s.token_ids)):
+                    continue
+            plan.append((s, draft))
+            spare -= len(draft)
+        plan = [(s, d) for s, d in plan if s.slot >= 0]
+        if any(_constrained(s) for s, _ in plan):
+            # a constrained row may have become decode-ready in the flush: a
+            # row the masked verify cannot express never rides the plain one
+            if not (self.cfg.spec_structured
+                    and self._plan_chain_masks([s for s, _ in plan]) is not None):
+                return False
+        if not any(d for _, d in plan):
+            for s, _ in plan:  # no draft on the landed state: disarm until fresh tokens
+                if s.spec_armed:
+                    s.spec_armed = False
+                    s.spec_flips += 1
+            return False
+        self._step_spec_verify(plan)
+        return True
+
+    def _step_spec_verify(self, plan: list[tuple[Sequence, list[int]]]) -> None:
+        """Pack each sequence's last token and draft as one chunk, run the
+        verify program (the masked one when a row is constrained), accept
+        the longest draft prefix matching the greedy tokens plus the bonus
+        token, and release the pages grown for the rejected tail. The host's
+        token state never holds an unverified draft token, so no page of one
+        is ever committed."""
+        t0 = time.perf_counter()
+        nb = len(plan)
+        N = sum(1 + len(d) for _, d in plan)
+        toks = np.zeros((N,), np.int32)
+        pos = np.zeros((N,), np.int32)
+        sids = np.zeros((N,), np.int32)
+        pts = np.full((nb, self.cfg.max_pages_per_seq), -1, np.int32)
+        lens = np.ones((nb,), np.int32)
+        cu = np.zeros((nb + 1,), np.int32)
+        rows: list[tuple[Sequence, list[int], int, int]] = []
+        off = 0
+        for i, (s, draft) in enumerate(plan):
+            start = len(s.token_ids) - 1
+            n = 1 + len(draft)
+            toks[off : off + n] = [s.token_ids[-1]] + draft
+            pos[off : off + n] = np.arange(start, start + n)
+            sids[off : off + n] = i
+            pts[i, : len(s.pages)] = s.pages
+            lens[i] = start + n
+            if draft:
+                s.spec_drafted += len(draft)
+                self.stats.spec_drafted += len(draft)
+                if _constrained(s):
+                    self.stats.spec_drafted_constrained += len(draft)
+                self.metrics.spec_drafted.inc(len(draft))
+            rows.append((s, draft, off, s.slot))
+            off += n
+            cu[i + 1] = off
+        tm = time.perf_counter()
+        # the mask staging's wall lands in time_mask_build, so the pack
+        # split stops at tm
+        mask = self._spec_stage_verify_masks(plan)
+        prog = "verify" if mask is None else "verify_masked"
+        t1 = time.perf_counter()
+        self.programs.record_dispatch(prog)
+        batch = {"tokens": toks, "positions": pos, "seq_slots": sids, "page_tables": pts,
+                 "kv_lens": lens, "cu_q_lens": cu, "num_seqs": np.array([nb], np.int32)}
+        batch = {k: self._tensor(v) for k, v in batch.items()}
+        kw = dict(attn_impl=self._attn["unified"], moe_dispatch_impl=self._moe_dispatch_impl,
+                  moe_rows=(torch.arange(N, device=self.device), self._verify_nt()))
+        if mask is None:
+            greedy, self.cache, cnt, drop = verify(
+                self.model_cfg, self._run_params(), self.cache, batch, **kw)
+            out = greedy
+        else:
+            states = verify_states([(d, f, nx) for (_, d), f, nx in
+                                    zip(plan, mask["fsm0"], mask["next"])])
+            table_rows = np.repeat(mask["table_rows"], [1 + len(d) for _, d in plan])
+            greedy, fsm_next, self.cache, cnt, drop = verify_masked(
+                self.model_cfg, self._run_params(), self.cache, batch, mask["tables"],
+                self._tensor(table_rows), self._tensor(states), **kw)
+            out = torch.cat([greedy, fsm_next])
+        # the designed sync point: acceptance needs the greedy tokens (and
+        # the states after them) on the host
+        host = out.cpu().numpy()
+        g, fsm = host[:N], (host[N:] if mask is not None else None)
+        self.programs.record_complete(prog)
+        t2 = time.perf_counter()
+        if self.model_cfg.is_moe:
+            self._read_back(cnt, drop)
+        now = time.monotonic()
+        rej0 = self.stats.spec_rejected
+        n_tokens = 0
+        st = self.stats
+        for s, draft, row0, slot in rows:
+            if s.finished or s.slot != slot or self.running[slot] is not s:
+                continue  # preempted while packing later rows
+            kept: list[int] = []
+            finished, reason = False, None
+            # row j's greedy token continues chunk position j: accept drafts
+            # while they match it, then the first divergence (the bonus token)
+            for j in range(len(draft) + 1):
+                t = int(g[row0 + j])
+                kept.append(t)
+                s.token_ids.append(t)
+                finished, reason = self._check_finish(s, t)
+                if finished or j >= len(draft) or draft[j] != t:
+                    break
+            accepted = sum(1 for j, t in enumerate(kept) if j < len(draft) and draft[j] == t)
+            rejected = len(draft) - accepted
+            s.num_computed = len(s.token_ids) - 1  # the newest token's KV is not written
+            if s.first_token_time is None:
+                s.first_token_time = now
+            s.maybe_commit_blocks(self.alloc)
+            self._spec_release_tail(s)
+            constrained = _constrained(s)
+            if fsm is not None and s.structured is not None:
+                stt = s.structured
+                dev_state = int(fsm[row0 + len(kept) - 1])
+                if self.cfg.spec_structured_crosscheck:
+                    # re-derive the state on the host and compare; a
+                    # mismatch keeps the host's (and is a bug)
+                    self._count_violations(stt.sync(s.token_ids, s.prompt_len))
+                    if stt.state != dev_state:
+                        st.spec_fsm_crosscheck_mismatches += 1
+                else:
+                    # the state after the last kept token is the automaton's:
+                    # a rejected tail rolled back with the pages
+                    stt.state = dev_state
+                    stt.n_seen = len(s.token_ids) - s.prompt_len
+            s.spec_accepted += accepted
+            if not s.spec_armed:
+                s.spec_flips += 1
+            s.spec_armed = True  # fresh tokens landed for this row: re-probe
+            st.spec_accepted += accepted
+            st.spec_rejected += rejected
+            if constrained:
+                st.spec_accepted_constrained += accepted
+            st.total_decode_tokens += len(kept)
+            n_tokens += len(kept)
+            if accepted:
+                self.metrics.spec_accepted.inc(accepted)
+            if rejected:
+                self.metrics.spec_rejected.inc(rejected)
+            if finished:
+                self._retire(s, reason)
+            self._outputs.append(EngineOutput(
+                request_id=s.request_id, new_token_ids=kept, finished=finished,
+                finish_reason=reason, num_cached_prompt_tokens=s.num_cached_prompt,
+                prompt_len=s.prompt_len))
+        t3 = time.perf_counter()
+        st.time_host_pack += tm - t0
+        st.time_device += t2 - t1
+        st.time_postprocess += t3 - t2
+        st.time_spec_steps += t3 - t0
+        st.n_spec_verify_steps += 1
+        if n_tokens:
+            self.metrics.decode_tokens.inc(n_tokens)
+        self.metrics.step_duration.labels(phase="spec_verify").observe(t3 - t0)
+        if self.util is not None:
+            # the program computes exactly its N packed rows: kept tokens
+            # commit, rejected draft rows are the speculation's waste
+            cost = self.util.cost(prog, slot_tokens=N, kv_read_tokens=int(lens.sum()),
+                                  kv_write_tokens=N)
+            self.util.record(prog, cost, t3 - t0, committed=n_tokens,
+                             spec_rejected=self.stats.spec_rejected - rej0,
+                             compile_counts=self.compile_counts())
+
+    def _spec_release_tail(self, s: Sequence) -> None:
+        """Give back the pages grown for rejected draft tokens: trim the
+        page list to what the accepted length needs. Those pages hold no
+        block hash (commits never cover unverified tokens), so they return
+        to the free list."""
+        ps = self.cfg.page_size
+        need = max((len(s.token_ids) + ps - 1) // ps, len(s.block_hashes))
+        while len(s.pages) > need:
+            self.alloc.release(s.pages.pop())
+
+    # ------------------------------------------------ masked programs' tables
+    def _plan_chain_masks(self, active: list[Sequence]) -> Optional[dict]:
+        """Table slots and the size gate of the masked programs. None when
+        the batch's constrained rows cannot ride them and must degrade to
+        unified steps: ``structured_fused_decode`` off, a row with a grammar
+        AND a logit_bias (two bias sources, one table slot), or padded
+        tables past ``structured_table_max_elems``. Tables are shared by
+        grammar: G is 1 (the zero no-op grammar of unconstrained rows) +
+        distinct grammars + one slot per logit_bias row."""
+        if not self.cfg.structured_fused_decode:
+            return None
+        entries: list[tuple] = []  # table slot - 1 -> ("g", grammar) | ("b", items)
+        rows: list[tuple] = []  # (seq, table slot) of the constrained rows
+        gram_slot: dict[int, int] = {}
+        key_parts: list[tuple] = []
+        smax = 1
+        for s in active:
+            has_g, has_b = s.structured is not None, bool(s.logit_bias)
+            if has_g and has_b:
+                return None
+            if has_g:
+                g = s.structured.grammar
+                gi = gram_slot.get(id(g))
+                if gi is None:
+                    gi = gram_slot[id(g)] = 1 + len(entries)
+                    entries.append(("g", g))
+                    smax = max(smax, g.n_states)
+                rows.append((s, gi))
+                key_parts.append((s.slot, "g", id(g)))
+            elif has_b:
+                items = tuple(sorted(s.logit_bias.items()))
+                gi = 1 + len(entries)
+                entries.append(("b", items))
+                rows.append((s, gi))
+                key_parts.append((s.slot, "b", items))
+        if not rows:
+            return None  # nothing constrained: the plain program serves it
+        G_pad, S_pad = _pow2(1 + len(entries)), _pow2(smax)
+        V = self.model_cfg.vocab_size
+        if G_pad * S_pad * V > self.cfg.structured_table_max_elems:
+            return None
+        return {"entries": entries, "rows": rows, "key": tuple(key_parts),
+                "G_pad": G_pad, "S_pad": S_pad, "V": V}
+
+    def _constrained_needs_unified(self) -> bool:
+        """True when this step's decode-ready constrained rows must take the
+        unified degrade instead of the masked decode program."""
+        active = self._decode_ready()
+        if not any(_constrained(s) for s in active):
+            return False
+        return self._plan_chain_masks(active) is None
+
+    def _mask_tables(self, plan: dict) -> MaskTables:
+        """Stage a mask plan's dense ``[G_pad, S_pad, V]`` bias and next
+        tables into the masked programs' static buffers (allocated at the
+        first masked call); the host arrays are LRU-cached across chains and
+        verify steps, and nothing is uploaded when the buffers already hold
+        this plan's tables."""
+        if self._mask_buffers is None:
+            self._mask_buffers = MaskTables.allocate(self.cfg.structured_table_max_elems,
+                                                     self.model_cfg.vocab_size, self.device)
+        tables = self._mask_buffers
+        key = (plan["key"], plan["G_pad"], plan["S_pad"])
+        if tables.staged is not None and tables.staged[0] == key:
+            return tables
+        hit = self._mask_tab_cache.get(key)
+        if hit is not None:
+            self._mask_tab_cache.move_to_end(key)
+        else:
+            G_pad, S_pad, V = plan["G_pad"], plan["S_pad"], plan["V"]
+            bias = np.zeros((G_pad, S_pad, V), np.float32)
+            nxt = np.zeros((G_pad, S_pad, V), np.int32)
+            pins = []
+            for gi, (kind, payload) in enumerate(plan["entries"], start=1):
+                if kind == "g":
+                    pins.append(payload)
+                    b, nx = payload.dense_tables()
+                    bias[gi, : payload.n_states] = b
+                    nxt[gi, : payload.n_states] = nx
+                else:  # a logit_bias row: its state stays 0 (next stays 0)
+                    row = bias[gi, 0]
+                    for tid, bval in payload:
+                        if 0 <= tid < V:  # OpenAI semantics: -100 is an outright ban
+                            row[tid] = NEG_BIAS if bval <= -100.0 else row[tid] + bval
+            hit = (bias.reshape(G_pad * S_pad, V), nxt.reshape(G_pad * S_pad, V), tuple(pins))
+            self._mask_tab_cache[key] = hit
+            while len(self._mask_tab_cache) > 8:
+                self._mask_tab_cache.popitem(last=False)
+        bias, nxt, pins = hit
+        n = bias.shape[0]
+        for dst, src in ((tables.bias, bias), (tables.next, nxt)):
+            src_t = torch.from_numpy(src)
+            if self.device.type == "cuda":
+                src_t = src_t.pin_memory()
+            dst[:n].copy_(src_t, non_blocking=True)
+        tables.staged = (key, pins)
+        return tables
+
+    def _stage_chain_masks(self, active: list[Sequence]) -> Optional[dict]:
+        """Stage the tables of one masked chain, and each slot's table row
+        and automaton entry state (``table_rows``, ``fsm0`` [B]). The wall
+        lands in time_mask_build: one staging a chain, not a mask a step."""
+        plan = self._plan_chain_masks(active)
+        if plan is None:
+            return None
+        t0 = time.perf_counter()
+        B = self.cfg.max_batch_size
+        tables = self._mask_tables(plan)
+        table_rows = np.zeros((B,), np.int32)
+        fsm0 = np.zeros((B,), np.int32)
+        for s, gi in plan["rows"]:
+            table_rows[s.slot] = gi * plan["S_pad"]
+            if s.structured is not None:  # a logit_bias row stays at state 0
+                self._count_violations(s.structured.sync(s.token_ids, s.prompt_len))
+                fsm0[s.slot] = s.structured.state
+        dt = time.perf_counter() - t0
+        self.stats.time_mask_build += dt
+        self.stats.structured_chain_stages += 1
+        self.metrics.structured_mask_seconds.observe(dt)
+        self.metrics.step_duration.labels(phase="chain_stage").observe(dt)
+        return {"tables": tables, "table_rows": table_rows, "fsm0": fsm0}
+
+    def _spec_stage_verify_masks(self, plan) -> Optional[dict]:
+        """Mask staging of one masked verify step: the same tables as the
+        chain's, and per PACKED ROW (plan order) the table row, the
+        synced entry state and the grammar's host transition table (None
+        for a row without a grammar), from which ``verify_states`` walks the
+        drafts. None when no row of the plan is constrained."""
+        seqs = [s for s, _ in plan]
+        if not any(_constrained(s) for s in seqs):
+            return None
+        mplan = self._plan_chain_masks(seqs)
+        if mplan is None:
+            return None  # _spec_try_verify checks this before dispatch
+        t0 = time.perf_counter()
+        tables = self._mask_tables(mplan)
+        slot_of = {id(s): gi for s, gi in mplan["rows"]}
+        table_rows = np.zeros((len(plan),), np.int32)
+        fsm0 = np.zeros((len(plan),), np.int32)
+        nexts: list[Optional[np.ndarray]] = [None] * len(plan)
+        for i, s in enumerate(seqs):
+            gi = slot_of.get(id(s))
+            if gi is None:
+                continue  # an unconstrained row: the zero no-op grammar
+            table_rows[i] = gi * mplan["S_pad"]
+            stt = s.structured
+            if stt is not None:
+                self._count_violations(stt.sync(s.token_ids, s.prompt_len))
+                fsm0[i] = stt.state
+                nexts[i] = stt.grammar.dense_tables()[1]
+        dt = time.perf_counter() - t0
+        self.stats.time_mask_build += dt
+        self.metrics.structured_mask_seconds.observe(dt)
+        return {"tables": tables, "table_rows": table_rows, "fsm0": fsm0, "next": nexts}
 
     # ------------------------------------------------------------- decode
     def _step_decode(self) -> None:
@@ -823,6 +1410,13 @@ class LLMEngine:
             return
         active = [s for s in active if s.slot >= 0]
         if not active:
+            return
+        if any(_constrained(s) for s in active) and self._plan_chain_masks(active) is None:
+            # a preemption above took the batch out of the masked program's
+            # reach: degrade like the pool-pressure path; a constrained row
+            # never decodes unmasked
+            self._flush_pending_decode()
+            self._step_unified()
             return
         if q:
             same = ({(s.request_id, s.slot) for s in active}
@@ -883,34 +1477,42 @@ class LLMEngine:
                 for _ in range(max(1, self.cfg.pipeline_depth) + 1)]
         return self._result_ring[self.stats.n_decode_dispatches % len(self._result_ring)]
 
-    def _decode_program(self) -> Callable[[], torch.Tensor]:
-        """The decode program over the engine's static buffers (made at the
-        first decode call): captured into a CUDA graph on the card unless
-        ``decode_graph=False``, eager otherwise."""
-        if self._decode_fn is None:
-            cfg = self.model_cfg
-            buf = self._decode_bufs = DecodeBuffers.allocate(
+    def _decode_program(self, masked: bool = False) -> Callable[[], torch.Tensor]:
+        """The decode program (``masked``: its masked variant) over the
+        engine's static buffers, made at its first call: captured into a
+        CUDA graph on the card unless ``decode_graph=False``, eager
+        otherwise. The masked one reads the staged tables."""
+        fn = self._decode_masked_fn if masked else self._decode_fn
+        if fn is not None:
+            return fn
+        cfg = self.model_cfg
+        if self._decode_bufs is None:
+            self._decode_bufs = DecodeBuffers.allocate(
                 self.cfg.max_batch_size, self.cfg.max_pages_per_seq, self.device)
-            k = max(1, self.cfg.decode_steps)
+        buf = self._decode_bufs
+        k = max(1, self.cfg.decode_steps)
+        tables = self._mask_buffers if masked else None
 
-            def program():
-                return run_chained(lambda: decode_program(
-                    cfg, self._run_params(), self.cache, buf, k, self._gen,
-                    attn_impl=self._attn["decode"],
-                    moe_dispatch_impl=self._moe_dispatch_impl), buf, drops=cfg.is_moe,
-                    counts=self._eplb is not None)
+        def program():
+            return run_chained(lambda: decode_program(
+                cfg, self._run_params(), self.cache, buf, k, self._gen,
+                attn_impl=self._attn["decode"],
+                moe_dispatch_impl=self._moe_dispatch_impl, tables=tables), buf,
+                drops=cfg.is_moe, counts=self._eplb is not None)
 
-            if self._decode_graph:
-                buf.idle()  # the warm-up runs write only the pool's dump row
-                graph = CapturedProgram(program, self.device, self._gen)
-                graph.capture()
-                self._captures += 1
-                self.stats.decode_graph_captures += 1
-                self.stats.decode_graph_capture_s += graph.seconds
-                self._decode_fn = graph
-            else:
-                self._decode_fn = program
-        return self._decode_fn
+        fn = program
+        if self._decode_graph:
+            buf.idle()  # the warm-up runs write only the pool's dump row
+            fn = CapturedProgram(program, self.device, self._gen)
+            fn.capture()
+            self.programs.record_capture("decode_masked" if masked else "decode")
+            self.stats.decode_graph_captures += 1
+            self.stats.decode_graph_capture_s += fn.seconds
+        if masked:
+            self._decode_masked_fn = fn
+        else:
+            self._decode_fn = fn
+        return fn
 
     def _decode_dispatch(self, active: list[Sequence], k: int, chain: Optional[dict],
                          wall_start: float, off: int = 0) -> dict:
@@ -922,8 +1524,17 @@ class LLMEngine:
         ``pack_overlap`` off) packs every input from the host (a chained one
         keeps the device's tokens); a chained call with ``pack_overlap``
         keeps the device's tokens, positions and kv lengths and uploads only
-        ``steps_left``, and the page tables when a row grew a page."""
-        program = self._decode_program()
+        ``steps_left``, and the page tables when a row grew a page. A chain
+        with constrained rows runs the masked program: its start stages the
+        tables and uploads each slot's table row and entry state; a chained
+        call keeps the device's states."""
+        if chain is not None:
+            mask = chain["mask"]
+        else:
+            mask = (self._stage_chain_masks(active)
+                    if any(_constrained(s) for s in active) else None)
+        prog = "decode" if mask is None else "decode_masked"
+        program = self._decode_program(masked=mask is not None)
         buf = self._decode_bufs
         host_t = self._pack_buf()
         host = {name: t.numpy() for name, t in host_t.items()}  # views of the same memory
@@ -972,6 +1583,9 @@ class LLMEngine:
             self.metrics.step_duration.labels(phase="pack").observe(t1 - wall_start)
         for name in uploads:
             getattr(buf, name).copy_(host_t[name], non_blocking=True)
+        if chain is None and mask is not None:
+            buf.table_rows.copy_(self._tensor(mask["table_rows"]), non_blocking=True)
+            buf.fsm.copy_(self._tensor(mask["fsm0"]), non_blocking=True)
         readback = program()
         result, event = self._to_host(readback, self._result_slot())
         st.time_decode_steps += time.perf_counter() - wall_start
@@ -981,7 +1595,7 @@ class LLMEngine:
             st.n_chained_dispatches += 1
         if self._decode_graph:
             st.decode_graph_replays += 1
-        self.metrics.program_dispatches.labels(program="decode").inc()
+        self.programs.record_dispatch(prog)
         self.metrics.step_duration.labels(phase="decode_dispatch").observe(
             time.perf_counter() - wall_start)
         util_cost = None
@@ -990,11 +1604,12 @@ class LLMEngine:
             # rows too), streaming the weights once an iteration; each live
             # row reads its resident KV every iteration
             util_cost = self.util.cost(
-                "decode", slot_tokens=self.cfg.max_batch_size * k, weight_passes=k,
+                prog, slot_tokens=self.cfg.max_batch_size * k, weight_passes=k,
                 kv_read_tokens=k * sum(len(s.token_ids) + off for s in active),
                 kv_write_tokens=int(steps.sum()))
         return {"rows": [(s, s.slot) for s in active], "k": k, "host": result,
-                "event": event, "pages_sig": pages_sig, "util_cost": util_cost}
+                "event": event, "pages_sig": pages_sig, "util_cost": util_cost,
+                "prog": prog, "mask": mask}
 
     def _decode_process(self, rec: dict) -> None:
         """Wait for one in-flight decode call's results and apply them."""
@@ -1023,11 +1638,19 @@ class LLMEngine:
                     break  # tokens past a stop are dropped
             # the newest token's KV is not written yet → computed = len - 1
             s.num_computed = len(s.token_ids) - 1
+            if s.structured is not None:
+                # the host automaton follows the landed tokens (the masked
+                # program keeps them inside the grammar: no violation)
+                self._count_violations(s.structured.sync(s.token_ids, s.prompt_len))
             if s.first_token_time is None:
                 s.first_token_time = now
             s.maybe_commit_blocks(self.alloc)
             self.stats.total_decode_tokens += len(kept)
             self.stats.decode_tokens_fused += len(kept)
+            if kept:
+                if not s.spec_armed:
+                    s.spec_flips += 1
+                s.spec_armed = True  # fresh tokens landed: re-probe this row
             n_tokens += len(kept)
             if finished:
                 self._retire(s, reason)
@@ -1042,19 +1665,29 @@ class LLMEngine:
         st.time_postprocess += t3 - t2
         st.time_decode_steps += t3 - t1
         st.n_decode_calls += 1
+        self.programs.record_complete(rec["prog"])
         if n_tokens:
             self.metrics.decode_tokens.inc(n_tokens)
         self.metrics.step_duration.labels(phase="decode_process").observe(t3 - t1)
         if rec["util_cost"] is not None:
             # kept tokens commit; the rest of the B x k slot-steps (idle
             # slots, steps past a stop or a budget, rows gone in flight) pad
-            self.util.record("decode", rec["util_cost"], t3 - t1, committed=n_tokens,
+            self.util.record(rec["prog"], rec["util_cost"], t3 - t1, committed=n_tokens,
                              compile_counts=self.compile_counts())
 
     def _retire(self, seq: Sequence, reason: Optional[str]) -> None:
         """Free slot + pages, drop from the live map."""
         seq.finished = True
         seq.finish_reason = reason
+        if seq.structured is not None:
+            # a constrained generation that ends before its grammar accepts
+            # (max_tokens / max_model_len) does not parse: a violation
+            fresh = seq.structured.sync(seq.token_ids, seq.prompt_len)
+            self._count_violations(fresh + (0 if seq.structured.complete else 1))
+        if seq.spec_drafted > 0:
+            self.metrics.spec_acceptance.labels(
+                constrained="yes" if _constrained(seq) else "no").observe(
+                seq.spec_accepted / seq.spec_drafted)
         if seq.slot >= 0:
             self.running[seq.slot] = None
             seq.slot = -1
@@ -1087,4 +1720,7 @@ class LLMEngine:
                 and not self._pending_decode), (
             f"decode pipeline leak: dispatched {self.stats.n_decode_dispatches}, "
             f"processed {self.stats.n_decode_calls}, pending {len(self._pending_decode)}")
+        # every program's dispatches were read back, the masked ones included
+        assert self.programs.quiesced(), (
+            f"program ledger leak at quiesce: {self.programs.counters()}")
         return done

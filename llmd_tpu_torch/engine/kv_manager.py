@@ -159,6 +159,19 @@ class Sequence:
     block_hashes: list[int] = field(default_factory=list)  # chained hashes of committed blocks
     arrival_time: float = 0.0
     first_token_time: Optional[float] = None  # time.monotonic() when its first token landed
+    # Speculative decoding tallies: drafted / accepted feed the per-request
+    # acceptance-rate summary observed at retirement.
+    spec_drafted: int = 0
+    spec_accepted: int = 0
+    # Per-sequence draft arming: a row whose prompt-lookup probe came up
+    # empty stays disarmed until fresh tokens land for it.
+    spec_armed: bool = True
+    spec_flips: int = 0  # arm/disarm transitions over the sequence's life
+    # Structured outputs: the automaton cursor (StructuredState) of a
+    # grammar-constrained request, re-derived from token_ids (which
+    # preemption keeps), and the static OpenAI logit_bias map.
+    structured: Optional[object] = None
+    logit_bias: Optional[dict] = None
 
     @property
     def num_generated(self) -> int:

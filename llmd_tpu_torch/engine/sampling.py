@@ -5,6 +5,7 @@ Per-row parameters arrive as tensors so a mixed batch (greedy + sampled rows)
 is one call. Draws come from an explicit ``torch.Generator``; its numbers differ
 from ``jax.random``'s, so sampled streams are held to distributional checks,
 while greedy is bitwise the reference's argmax over float32.
+:func:`sample_tokens_biased` adds a grammar or ``logit_bias`` bias first.
 """
 
 from __future__ import annotations
@@ -52,3 +53,38 @@ def sample_tokens(
     choice = torch.argmax(torch.where(probs > 0, probs / race, -1.0), dim=-1, keepdim=True)
     sampled = torch.gather(topi, 1, choice)[:, 0]
     return torch.where(temperature <= 0.0, greedy, sampled).to(torch.int32)
+
+
+def sample_tokens_biased(
+    logits: torch.Tensor,  # [B, V]
+    bias: torch.Tensor,  # [B, V] float32 additive (0 allow / -1e9 ban / logit_bias)
+    generator: torch.Generator,
+    temperature: torch.Tensor,  # [B]
+    top_k: torch.Tensor,  # [B]
+    top_p: torch.Tensor,  # [B]
+    top_k_max: int = 64,
+) -> torch.Tensor:
+    """:func:`sample_tokens` on ``logits.float() + bias``: the grammar-mask
+    and ``logit_bias`` path (reference ``sample_tokens_biased``). The same
+    sampler and the same generator, so an all-zero bias gives bitwise the
+    unbiased tokens (and draws the same random numbers)."""
+    return sample_tokens(logits.float() + bias, generator, temperature, top_k, top_p,
+                         top_k_max)
+
+
+def apply_penalties(
+    logits: torch.Tensor,  # [B, V]
+    output_mask: torch.Tensor,  # [B, V] bool: token appeared in the output
+    presence: torch.Tensor,  # [B]
+    frequency_counts: torch.Tensor,  # [B, V] float
+    frequency: torch.Tensor,  # [B]
+    repetition: torch.Tensor,  # [B] (1.0 = off)
+) -> torch.Tensor:
+    """Presence, frequency and repetition penalties (reference
+    ``apply_penalties``). As in the reference, nothing calls it: the engine
+    accepts the penalty fields and does not act on them."""
+    logits = logits - presence[:, None] * output_mask
+    logits = logits - frequency[:, None] * frequency_counts
+    rep = repetition[:, None]
+    penalized = torch.where(logits > 0, logits / rep, logits * rep)
+    return torch.where(output_mask, penalized, logits)

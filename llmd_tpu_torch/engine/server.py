@@ -24,7 +24,11 @@ engine-loop thread (``AsyncLLMEngine``) steps the engine. Routes:
   ``engine.stats`` first.
 - Admission gate on the generation routes: 503 with ``Retry-After: 1`` while
   draining; 504 when the ``x-request-timeout`` budget is already spent (a
-  malformed value is ignored).
+  malformed value is ignored). A malformed structured body (``guided_choice``,
+  ``guided_regex``, ``response_format``, ``logit_bias``) answers 400 before
+  the request counts (``validate_structured_body``); well-formed ones ride
+  the completion and chat bodies to the engine, which is given the server's
+  tokenizer to lift grammars onto, and stream piece by piece like any other.
 - ``GET /health`` (503 ``draining`` while draining, 503 ``unhealthy`` if the
   engine loop died), ``POST /drain[?timeout_s=30]`` (stop admitting, wait,
   bounded, for the requests in flight: 200 ``drained`` or 504 ``timeout``;
@@ -61,12 +65,15 @@ from llmd_tpu_torch.engine.kv_publisher import KVEventPublisher
 from llmd_tpu_torch.engine.tokenizer import Tokenizer, load_tokenizer
 from llmd_tpu_torch.models.config import ModelConfig
 from llmd_tpu_torch.obs.metrics import Registry, register_engine_server_metrics
+from llmd_tpu_torch.structured import validate_structured_body
 
 GENERATE_ROUTES = {"/v1/completions": False, "/v1/chat/completions": True}  # path -> chat
 RENDER_ROUTES = ("/v1/completions/render", "/v1/chat/completions/render")
 
 
 def sampling_from_body(body: dict) -> SamplingParams:
+    """The reference's parse (``_sampling_from_body``); ``min_p``,
+    ``logprobs``, ``repetition_penalty`` are not read, as there."""
     stop = body.get("stop") or ()
     return SamplingParams(
         max_tokens=int(body.get("max_tokens", 16)),
@@ -80,7 +87,6 @@ def sampling_from_body(body: dict) -> SamplingParams:
         n=int(body.get("n", 1)),
         presence_penalty=float(body.get("presence_penalty", 0.0)),
         frequency_penalty=float(body.get("frequency_penalty", 0.0)),
-        logprobs=body.get("logprobs"),
         guided_choice=body.get("guided_choice"),
         guided_regex=body.get("guided_regex"),
         response_format=body.get("response_format"),
@@ -144,9 +150,12 @@ class EngineServer:
         sink = self.publisher.sink if self.publisher is not None else None
         if engine is None:
             engine = LLMEngine(model_cfg, engine_cfg, params=params, event_sink=sink,
-                               seed=seed, device=device)
-        elif sink is not None:
-            engine.alloc.event_sink = sink
+                               seed=seed, device=device, tokenizer=self.tokenizer)
+        else:
+            if engine.tokenizer is None:  # structured requests lift onto this vocabulary
+                engine.tokenizer = self.tokenizer
+            if sink is not None:
+                engine.alloc.event_sink = sink
         self.engine = engine
         self.async_engine = AsyncLLMEngine(self.engine)
         # frontend-owned families; the engine's live in engine.registry
@@ -279,6 +288,12 @@ class EngineServer:
     def generate(self, body: dict, chat: bool):
         """(status, payload) for a JSON answer, or (200, iterator of SSE
         event dicts) for a stream whose first engine output has arrived."""
+        try:
+            # a malformed structured spec (schema, regex, logit_bias) is a
+            # 400 before the request counts or reaches the engine
+            validate_structured_body(body)
+        except ValueError as e:
+            return 400, {"error": {"message": str(e)}}
         self.server_metrics.requests.inc()
         try:
             token_ids = self.tokenize_body(body)

@@ -3,7 +3,9 @@
     python -m llmd_tpu_torch.tools.bench [--tiny] [--cpu] [--model NAME_OR_DIR]
         [--batch N] [--decode-steps K] [--isl N] [--osl N]
         [--quantize int8|none|default] [--moe-dispatch auto|sorted|einsum]
-        [--chain-depth N] [--pack-overlap on|off]
+        [--chain-depth N] [--pack-overlap on|off] [--spec-mode off|ngram]
+        [--spec-tokens N] [--structured-fused on|off]
+        [--workload uniform|echo|json|json-echo] [--assert-spec-structured]
 
 The reference's headline run: 64 concurrent requests of ISL 256 / OSL 128,
 greedy with ``ignore_eos``, on ``llama-1b`` with int8 weight-only weights
@@ -14,6 +16,16 @@ at the repo root is served when it exists, else random weights from seed 0
 (the JSON says which). ``--tiny`` runs ``tiny``: 8 requests of ISL 64 / OSL
 32. One warm-up ``generate`` of 2 prompts (the decode program's capture
 included), then the measured window. Runs on the CUDA card unless ``--cpu``.
+
+Workloads, as ``bench.py``'s: ``uniform`` (distinct streams), ``echo``
+(periodic prompts, where prompt-lookup drafts pay; pair with ``--spec-mode
+ngram``), ``json`` (every request constrained to a bounded JSON schema:
+the masked decode program end to end; ``--structured-fused off`` takes the
+unified degrade) and ``json-echo`` (a fully forced periodic schema with its
+pattern in the prompt: speculation on constrained rows).
+``--assert-spec-structured`` fails the run unless constrained rows accepted
+drafts with no structured violation. Random weights constrain over the byte
+tokenizer's vocabulary, an HF checkpoint over its own tokenizer.
 
 Prints the card's name and power limit (``nvidia-smi``) and the run's phase
 split on stderr, and ONE JSON line on stdout with ``bench.py``'s keys (every
@@ -43,9 +55,12 @@ key of ``tools/perf_regress.TOLERANCES`` a measured number), computed as
 - provenance: ``device`` (the card's name), ``power_limit_w``, ``weights``
   (``random:<name>`` or ``hf:<dir>``), ``quantize``, backends.
 
-Left out, since the port lacks the features: ``spec_*``, ``structured_*``,
-``mask_build_s``, ``attn_tune_hash``, ``attn_fallback_reason``,
-``kv_layout``, ``layer_unroll``. Flags for what the port does not serve exit
+- speculation and structured outputs under ``bench.py``'s names
+  (``spec_*``, ``structured_*``, ``mask_build_s``, ``spec_steps_s``), and
+  the goodput class ``spec_rejected`` (rejected draft rows of verify steps).
+
+Left out, since the port lacks the features: ``attn_tune_hash``,
+``attn_fallback_reason``, ``kv_layout``, ``layer_unroll``. Flags for what the port does not serve exit
 non-zero naming the ROADMAP item. Unlike ``bench.py`` there is no device
 preflight with its harvest of an old campaign number and no fallback to a
 smaller config: a failure is a non-zero exit.
@@ -79,12 +94,16 @@ REFUSED = {
                            "lane padding the port never adds)"),
     "kv_dtype": (("default", "bf16"), "Queue B item 3 (fp8-e4m3 pools)"),
     "attn_impl": (("auto",), "Queue A item 7 (the reference's pallas/reference modes)"),
-    "spec_mode": (("off",), "Queue A item 4 (speculative and structured programs)"),
-    "spec_tokens": ((None,), "Queue A item 4 (speculative and structured programs)"),
-    "structured_fused": ((None,), "Queue A item 4 (speculative and structured programs)"),
-    "workload": (("uniform",), "Queue A item 4 (speculative and structured programs)"),
-    "assert_spec_structured": ((False,), "Queue A item 4 (speculative and structured "
-                                         "programs)"),
+}
+# json workload: a bounded schema (enum / boolean / maxLength: a DAG grammar),
+# so the mask forces completion; its longest serialization (29 characters)
+# fits the tiny run's OSL 32
+BENCH_SCHEMA = {
+    "type": "object",
+    "properties": {"n": {"type": "string", "maxLength": 4},
+                   "c": {"enum": [0, 1, 2, 3, 4, 5, 6, 7]},
+                   "ok": {"type": "boolean"}},
+    "required": ["n", "c", "ok"],
 }
 
 
@@ -110,11 +129,18 @@ def parse_args(argv: "list[str] | None" = None) -> argparse.Namespace:
     ap.add_argument("--kv-layout", default=None)
     ap.add_argument("--kv-dtype", default="default", choices=["fp8", "bf16", "default"])
     ap.add_argument("--attn-impl", default="auto")
-    ap.add_argument("--spec-mode", default="off")
-    ap.add_argument("--spec-tokens", type=int, default=None)
-    ap.add_argument("--structured-fused", default=None)
-    ap.add_argument("--workload", default="uniform")
-    ap.add_argument("--assert-spec-structured", action="store_true")
+    ap.add_argument("--spec-mode", default="off", choices=["off", "ngram"],
+                    help="ngram: prompt-lookup drafts through the verify program")
+    ap.add_argument("--spec-tokens", type=int, default=None,
+                    help="max draft tokens a sequence a verify step")
+    ap.add_argument("--structured-fused", default="on", choices=["on", "off"],
+                    help="constrained rows on the masked decode program "
+                         "(EngineConfig.structured_fused_decode); off: unified degrade")
+    ap.add_argument("--workload", default="uniform",
+                    choices=["uniform", "echo", "json", "json-echo"])
+    ap.add_argument("--assert-spec-structured", action="store_true",
+                    help="fail unless constrained rows accepted drafts with no "
+                         "structured violation")
     args = ap.parse_args(argv)
     for name, (taken, item) in REFUSED.items():
         value = getattr(args, name)
@@ -140,11 +166,40 @@ def card() -> tuple[Optional[str], Optional[float], str]:
     return name.strip(), watts, line
 
 
-def prompts(n: int, salt: int, vocab: int, isl: int) -> list[list[int]]:
-    """``bench.py``'s uniform prompts: distinct token streams (no prefix-cache
-    shortcut), the salt offsetting each stream."""
+def prompts(n: int, salt: int, vocab: int, isl: int, workload: str = "uniform",
+            tok=None) -> list[list[int]]:
+    """``bench.py``'s prompts: distinct token streams (no prefix-cache
+    shortcut), the salt offsetting each stream. ``echo``: a short pattern
+    per request repeated to ISL, so continuations repeat spans of the
+    context. ``json-echo``: four salted head tokens, then the forced
+    serialization the output will repeat (``[{"s":"on"},...``)."""
+    if workload == "json-echo" and tok is not None:
+        pat = tok.encode('[{"s":"on"},' + '{"s":"on"},' * 3)
+        out = []
+        for i in range(n):
+            head = [(salt * 7919 + i * 131 + j) % (vocab - 2) + 1 for j in range(4)]
+            out.append(head + (pat * (isl // max(1, len(pat)) + 1))[: isl - len(head)])
+        return out
+    if workload in ("echo", "json-echo"):
+        return [[(salt * 7919 + i * 131 + j % 3) % (vocab - 2) + 1 for j in range(isl)]
+                for i in range(n)]
     return [[(salt * 7919 + i * 131 + j) % (vocab - 2) + 1 for j in range(isl)]
             for i in range(n)]
+
+
+def workload_schema(workload: str, osl: int) -> Optional[dict]:
+    """The schema of the json workloads (None otherwise). ``json-echo``: a
+    fixed-count array of single-enum objects, a fully forced periodic
+    string whose element count scales with OSL."""
+    if workload == "json":
+        return BENCH_SCHEMA
+    if workload == "json-echo":
+        n_items = max(1, (osl - 10) // 11)
+        return {"type": "array",
+                "items": {"type": "object", "properties": {"s": {"enum": ["on"]}},
+                          "required": ["s"]},
+                "minItems": n_items, "maxItems": n_items}
+    return None
 
 
 def _pct(xs: list[float], q: float) -> float:
@@ -235,6 +290,10 @@ def main(argv: "list[str] | None" = None) -> int:
     eng_cfg.pack_overlap = args.pack_overlap == "on"
     if args.chain_depth is not None:
         eng_cfg.pipeline_depth = max(1, args.chain_depth)
+    eng_cfg.spec_mode = args.spec_mode
+    if args.spec_tokens is not None:
+        eng_cfg.spec_tokens = args.spec_tokens
+    eng_cfg.structured_fused_decode = args.structured_fused == "on"
 
     # host <-> device round trip: a one-element kernel and a synchronise
     x = torch.zeros((), device=device)
@@ -256,16 +315,26 @@ def main(argv: "list[str] | None" = None) -> int:
     pages_per_seq = (isl + osl + lookahead) // eng_cfg.page_size + 1
     eng_cfg.num_pages = max(eng_cfg.num_pages, n_req * pages_per_seq + 64)
     eng_cfg.max_model_len = max(eng_cfg.max_model_len, isl + osl + lookahead + 1)
+    tok = None
+    if args.workload.startswith("json"):
+        from llmd_tpu_torch.engine.tokenizer import load_tokenizer
+
+        # an HF checkpoint brings its tokenizer; random weights constrain over
+        # the byte tokenizer (the vocabulary the prompts draw from)
+        tok = load_tokenizer(model if params is not None else None)
     t0 = time.monotonic()
-    eng = LLMEngine(cfg, eng_cfg, params=params, device=device)
+    eng = LLMEngine(cfg, eng_cfg, params=params, device=device, tokenizer=tok)
     del params
     print(f"# engine built in {time.monotonic() - t0:.1f}s on {dev_name} "
           f"(NT={eng_cfg.batched_tokens}, k={eng_cfg.decode_steps}); "
           f"attn_backend={eng.attn_backend} moe_backend={eng.moe_backend} "
           f"moe_dispatch={eng.moe_dispatch}", file=sys.stderr)
-    sp = SamplingParams(max_tokens=osl, temperature=0.0, ignore_eos=True)
+    schema = workload_schema(args.workload, osl)
+    sp = SamplingParams(max_tokens=osl, temperature=0.0, ignore_eos=True,
+                        response_format=None if schema is None else {
+                            "type": "json_schema", "json_schema": {"schema": schema}})
     t0 = time.monotonic()
-    eng.generate(prompts(2, 1, cfg.vocab_size, isl), sp)
+    eng.generate(prompts(2, 1, cfg.vocab_size, isl, args.workload, tok), sp)
     print(f"# warm-up {time.monotonic() - t0:.1f}s (decode graph captures "
           f"{eng.stats.decode_graph_captures}, "
           f"{eng.stats.decode_graph_capture_s:.2f}s)", file=sys.stderr)
@@ -281,7 +350,8 @@ def main(argv: "list[str] | None" = None) -> int:
     if on_card:
         torch.cuda.synchronize(device)
     t0 = time.monotonic()
-    out, times = run_window(eng, prompts(n_req, 2, cfg.vocab_size, isl), sp)
+    out, times = run_window(eng, prompts(n_req, 2, cfg.vocab_size, isl, args.workload, tok),
+                            sp)
     wall = time.monotonic() - t0
     launches = {n: dict(fn.launches_by_instance) for n, fn in wrappers.items()}
     out_tokens = sum(len(v) for v in out.values())
@@ -289,6 +359,16 @@ def main(argv: "list[str] | None" = None) -> int:
     tput = out_tokens / wall
 
     st = eng.stats
+    if args.assert_spec_structured:
+        # the masked verify program landed drafts on constrained rows, with
+        # no violation: a silent fallback to plain decode would pass a
+        # throughput check while the path is dead
+        assert st.spec_accepted_constrained > 0, (
+            "no accepted drafts on constrained rows", st.spec_drafted_constrained,
+            st.spec_accepted_constrained)
+        assert st.structured_violations == 0, (
+            "constrained-spec run produced violations", st.structured_violations)
+        assert st.spec_fsm_crosscheck_mismatches == 0, st.spec_fsm_crosscheck_mismatches
     n_params = param_count(cfg)
     peak_tflops, peak_gbs = chip_peaks(dev_name)
     model_gb = n_params * bytes_per_param(cfg, eng_cfg.quantize_weights) / 1e9
@@ -297,7 +377,7 @@ def main(argv: "list[str] | None" = None) -> int:
     decode_tput = st.decode_tokens_fused / max(1e-9, st.time_decode_steps)
     decode_bw_gbs = decode_tput * hbm_gb_per_tok
     mfu = tput * flops_per_token(cfg) / (peak_tflops * 1e12) if peak_tflops else None
-    launch_gap = wall - st.time_prefill_steps - st.time_decode_steps
+    launch_gap = wall - st.time_prefill_steps - st.time_decode_steps - st.time_spec_steps
     dev_ms_per_decode = st.time_device_decode / max(1, st.n_decode_calls) * 1e3
     pack_us_per_call = st.time_host_pack / max(1, st.n_decode_calls + st.n_unified_steps) * 1e6
 
@@ -323,8 +403,20 @@ def main(argv: "list[str] | None" = None) -> int:
     print(f"# {out_tokens} output tokens in {wall:.2f}s (prefill {st.total_prefill_tokens} "
           f"toks, decode {st.total_decode_tokens} toks, preemptions "
           f"{st.total_preemptions})", file=sys.stderr)
+    if st.structured_requests:
+        print(f"# structured: {st.structured_requests} constrained requests, "
+              f"{st.structured_mask_builds} mask builds + {st.structured_chain_stages} "
+              f"chain stages in {st.time_mask_build:.3f}s host, violations "
+              f"{st.structured_violations}", file=sys.stderr)
+    if st.n_spec_verify_steps:
+        print(f"# spec: drafted {st.spec_drafted}, accepted {st.spec_accepted}, rejected "
+              f"{st.spec_rejected} over {st.n_spec_verify_steps} verify steps "
+              f"({st.spec_accepted / st.n_spec_verify_steps:.2f} accepted/verify-step; "
+              f"constrained {st.spec_accepted_constrained}/{st.spec_drafted_constrained} "
+              "accepted/drafted)", file=sys.stderr)
     print(f"# phase split: prefill-steps {st.time_prefill_steps:.3f}s, decode-steps "
-          f"{st.time_decode_steps:.3f}s, launch-gap {launch_gap:.3f}s | host-pack "
+          f"{st.time_decode_steps:.3f}s, spec-steps {st.time_spec_steps:.3f}s, "
+          f"launch-gap {launch_gap:.3f}s | host-pack "
           f"{st.time_host_pack:.3f}s (+{st.time_pack_overlap:.3f}s overlapped, "
           f"{st.n_chained_dispatches} chained), device {st.time_device:.3f}s, post "
           f"{st.time_postprocess:.3f}s ({st.n_unified_steps} unified + "
@@ -368,12 +460,14 @@ def main(argv: "list[str] | None" = None) -> int:
         "wall_s": round(wall, 4),
         "prefill_steps_s": round(st.time_prefill_steps, 4),
         "decode_steps_s": round(st.time_decode_steps, 4),
+        "spec_steps_s": round(st.time_spec_steps, 4),
         "launch_gap_s": round(launch_gap, 4),
         "host_pack_s": round(st.time_host_pack, 4),
         "pack_overlap_s": round(st.time_pack_overlap, 4),
         "chained_dispatches": st.n_chained_dispatches,
-        "serialized_host_s": round(st.time_host_pack, 4),
+        "serialized_host_s": round(st.time_host_pack + st.time_mask_build, 4),
         "pack_overlap": eng_cfg.pack_overlap,
+        "structured_fused": eng_cfg.structured_fused_decode,
         "chain_depth": eng_cfg.pipeline_depth,
         "attn_impl": eng_cfg.attn_impl,
         "device_s": round(st.time_device, 4),
@@ -392,7 +486,23 @@ def main(argv: "list[str] | None" = None) -> int:
         "decode_steps_fused": eng_cfg.decode_steps,
         "isl": isl,
         "osl": osl,
-        "workload": "uniform",
+        "workload": args.workload,
+        "spec_mode": eng_cfg.spec_mode,
+        "spec_tokens": eng_cfg.spec_tokens if eng_cfg.spec_mode != "off" else None,
+        "spec_drafted": st.spec_drafted,
+        "spec_accepted": st.spec_accepted,
+        "spec_rejected": st.spec_rejected,
+        "spec_drafted_constrained": st.spec_drafted_constrained,
+        "spec_accepted_constrained": st.spec_accepted_constrained,
+        "spec_fsm_crosscheck_mismatches": st.spec_fsm_crosscheck_mismatches,
+        "spec_verify_steps": st.n_spec_verify_steps,
+        "spec_accepted_per_verify_step": round(st.spec_accepted / st.n_spec_verify_steps, 3)
+        if st.n_spec_verify_steps else None,
+        "structured_requests": st.structured_requests,
+        "structured_mask_builds": st.structured_mask_builds,
+        "structured_chain_stages": st.structured_chain_stages,
+        "structured_violations": st.structured_violations,
+        "mask_build_s": round(st.time_mask_build, 4),
         "requests": n_req,
         "ttft_mean_ms": ms(sum(ttft) / len(ttft)),
         "ttft_p50_ms": ms(_pct(ttft, 0.5)),

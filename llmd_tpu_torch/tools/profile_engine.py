@@ -262,7 +262,11 @@ def k2_host_us(cfg, params, batch: int, seed: int) -> dict:
 
 def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
                   calls: int, prof_calls: int, seed: int, moe_dispatch: str = "auto",
-                  decode_graph: bool = True, quantize: "str | None" = None) -> dict:
+                  decode_graph: bool = True, quantize: "str | None" = None,
+                  sampling: "dict | None" = None, tokenizer=None) -> dict:
+    """One engine's decode at ``batch`` sequences, replayed or eager.
+    ``sampling``: extra SamplingParams fields of every request (a grammar
+    runs the masked decode program; ``tokenizer`` lifts it)."""
     from llmd_tpu_torch.core.request import SamplingParams
     from llmd_tpu_torch.engine import EngineConfig, LLMEngine
     from llmd_tpu_torch.models.transformer import forward_core
@@ -277,11 +281,12 @@ def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
         max_batch_size=batch, prefill_chunk=min(prompt_len, 2048),
         max_num_batched_tokens=max(2048, prompt_len), decode_steps=decode_steps,
         moe_dispatch=moe_dispatch, quantize_weights=quantize)
-    eng = LLMEngine(cfg, ecfg, params=params, seed=seed, decode_graph=decode_graph)
+    eng = LLMEngine(cfg, ecfg, params=params, seed=seed, decode_graph=decode_graph,
+                    tokenizer=tokenizer)
     rng = np.random.default_rng(seed)
     for i in range(batch):
         eng.add_request(f"r{i}", rng.integers(0, 256, prompt_len).tolist(),
-                        SamplingParams(max_tokens=budget, temperature=0.0))
+                        SamplingParams(max_tokens=budget, temperature=0.0, **(sampling or {})))
     st = eng.stats
     while st.n_decode_calls == 0:  # the prefill steps, then warm-up decode calls
         eng.step()
@@ -348,6 +353,7 @@ def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
     busy_iter_ms = busy_us / 1e3 / max(prof_iters, 1) if kernels else None
     return {
         "mode": "graph" if decode_graph else "eager", "quantize": quantize,
+        "masked_decode_calls": eng.programs.counters().get("decode_masked", (0, 0))[0],
         "decode_graph_capture_s": st.decode_graph_capture_s,
         "batch": batch, "prompt_len": prompt_len, "decode_steps": decode_steps,
         "prefill_s": prefill_s, "prefill_tok_s": batch * prompt_len / prefill_s,

@@ -12,6 +12,12 @@ budget and the port runs exactly its real tokens, so on a partial step the
 two differ; the port's padding here is the decode program's slots past each
 row's budget (4 calls x 8 slots x 8 steps - 248 tokens). Flags for features
 the port does not serve exit non-zero naming their ROADMAP item.
+
+The speculative and structured runs (``--spec-mode ngram --workload echo``,
+``--workload json-echo --assert-spec-structured``, ``--workload json`` with
+the masked program and with its unified degrade) carry exactly the
+reference bench's keys, bar the four the port leaves out; the reference's
+keys do not depend on its flags, so its uniform run gives them.
 """
 
 import json
@@ -26,6 +32,8 @@ import tools.perf_regress as pr
 from llmd_tpu_torch.tools import bench
 
 REPO = Path(__file__).resolve().parent.parent
+# bench.py keys of features the port does not serve (the port bench's docstring)
+LEFT_OUT = {"attn_tune_hash", "attn_fallback_reason", "kv_layout", "layer_unroll"}
 EXACT = ("prefill_tokens", "decode_tokens", "preemptions", "unified_steps", "decode_calls",
          "batch", "isl", "osl", "goodput_committed_tokens", "goodput_prefix_saved_tokens",
          "goodput_preempted_recompute_tokens", "goodput_padding_tokens")
@@ -89,8 +97,6 @@ def test_tiny_cpu_bench_int8(capsys, reference):
 @pytest.mark.parametrize("argv", [
     ["--layer-unroll", "2"], ["--tune-attn"], ["--attn-tune-file", "t.json"],
     ["--kv-layout", "padded"], ["--kv-dtype", "fp8"], ["--attn-impl", "pallas"],
-    ["--spec-mode", "ngram"], ["--spec-tokens", "4"], ["--structured-fused", "off"],
-    ["--workload", "json"], ["--assert-spec-structured"],
 ])
 def test_unserved_flags_exit_nonzero(capsys, argv):
     with pytest.raises(SystemExit) as e:
@@ -98,3 +104,47 @@ def test_unserved_flags_exit_nonzero(capsys, argv):
     assert e.value.code != 0
     err = capsys.readouterr().err
     assert "not served by the port: ROADMAP" in err and argv[0] in err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--spec-mode", "ngram", "--workload", "echo"],
+    ["--spec-mode", "ngram", "--workload", "json-echo", "--assert-spec-structured"],
+    ["--workload", "json"],
+    ["--workload", "json", "--structured-fused", "off"],
+])
+def test_tiny_cpu_bench_spec_and_structured(capsys, reference, argv):
+    """The reference bench's keys for the same flags (its keys do not depend
+    on them), the counters behind them, and the path each workload took."""
+    row = _run(capsys, ["--tiny", "--cpu", *argv])
+    assert set(reference) - set(row) == LEFT_OUT
+    assert row["workload"] == argv[argv.index("--workload") + 1]
+    assert row["decode_tokens"] + row["prefill_tokens"] == reference["decode_tokens"] + 512
+    assert row["structured_violations"] == 0 and row["recompiles"] == 0
+    if "--spec-mode" in argv:
+        assert row["spec_mode"] == "ngram" and row["spec_tokens"] == 4
+        assert row["spec_verify_steps"] > 0 and row["spec_accepted"] > 0
+        assert row["spec_accepted_per_verify_step"] == round(
+            row["spec_accepted"] / row["spec_verify_steps"], 3)
+        assert row["goodput_spec_rejected_tokens"] == row["spec_rejected"]
+        assert row["spec_steps_s"] > 0
+    else:
+        assert row["spec_mode"] == "off" and row["spec_tokens"] is None
+        assert row["spec_verify_steps"] == 0 and row["spec_accepted_per_verify_step"] is None
+    if "json" in row["workload"]:
+        assert row["structured_requests"] == row["requests"]
+        fused = "off" not in argv
+        assert row["structured_fused"] == fused
+        # which path the constrained rows took: masked chains or unified steps
+        assert (row["structured_chain_stages"] > 0) == fused
+        assert (row["structured_mask_builds"] > row["requests"]) == (not fused)
+    if "--assert-spec-structured" in argv:
+        assert row["spec_accepted_constrained"] > 0
+        assert row["spec_fsm_crosscheck_mismatches"] == 0
+
+
+def test_spec_flags_validated(capsys):
+    for argv in (["--spec-mode", "medusa"], ["--workload", "yaml"],
+                 ["--structured-fused", "maybe"]):
+        with pytest.raises(SystemExit) as e:
+            bench.main(["--tiny", "--cpu", *argv])
+        assert e.value.code != 0

@@ -203,12 +203,12 @@ def test_sampler_draws_only_from_top_k():
 
 def test_unserved_options_raise(make, reference):
     with pytest.raises(ValueError, match="spec_mode"):
-        make(spec_mode="ngram")
+        make(spec_mode="medusa")  # the reference's validation: off | ngram
     with pytest.raises(ValueError, match="kv_cache_dtype"):
         make(kv_cache_dtype="fp8")
     # every field the port does not read raises when set away from its default
     for field, value in (("kv_layout", "packed"), ("max_queue", 1),
-                         ("structured_fused_decode", False)):
+                         ("cpu_offload_pages", 4)):
         with pytest.raises(ValueError, match=field):
             make(**{field: value})
     # served away from their defaults, each against the reference: the
@@ -225,9 +225,10 @@ def test_unserved_options_raise(make, reference):
         st = eng.stats
         assert st.time_device > 0 and st.time_postprocess > 0
         assert st.time_prefill_steps >= st.time_device - st.time_device_decode
-    with pytest.raises(ValueError):
-        SamplingParams(logit_bias={1: 2.0})
     eng = make()
+    with pytest.raises(ValueError):  # logit_bias is served; a bias past 100 is refused
+        eng.add_request("bias", prompt, SamplingParams(max_tokens=4, logit_bias={1: 200.0}))
+    assert not eng.has_work()
     with pytest.raises(ValueError):
         eng.add_request("empty", [], greedy(4))
     with pytest.raises(ValueError):

@@ -785,3 +785,53 @@ def test_decode_graph_metrics_count_what_replays_produced(cuda):
                            if n.endswith("_total") and "goodput" not in n
                            and "compiles" not in n}
     assert counters[True] == counters[False]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_kernel_matches_plain_at_verify_shape(cuda, dtype):
+    """K1 at the speculative verify batch: 64 sequences of 5 query tokens
+    (the last token and a 4-token draft) at kv 128-1024, llama-1b heads."""
+    rng = np.random.default_rng(5)
+    kv = rng.integers(128, 1025, 64).tolist()
+    _check_k1(cuda, 32, 8, 64, 16, [5] * 64, kv, dtype)
+
+
+def test_masked_decode_graph_matches_eager(cuda):
+    """The masked decode program replayed from its graph (captured at the
+    first constrained call, beside the plain program's) against the same
+    program run eagerly: the same tokens for a mixed batch (plain, choice,
+    regex, logit_bias rows) over chained calls, one capture per program and
+    a replay a call; an engine that never sees a constrained row captures
+    only the plain program."""
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    z = tok.encode("z")[0]
+    reqs = [(tok.encode("the quick brown fox"), dict(max_tokens=20, ignore_eos=True)),
+            (tok.encode("pick a color"), dict(guided_choice=["red", "green", "blue"])),
+            (tok.encode("emit bits"), dict(guided_regex=r"[ab]{24}")),
+            (tok.encode("say"), dict(max_tokens=9, logit_bias={z: 100}))]
+    out, stats = {}, {}
+    for graph in (True, False):
+        eng = _engine("tiny", cuda, decode_graph=graph, decode_steps=4)
+        eng.tokenizer = tok
+        for i, (p, kw) in enumerate(reqs):
+            eng.add_request(f"r{i}", p, SamplingParams(**{
+                "max_tokens": 40, "temperature": 0.0, "stop_token_ids": (tok.eos_id,), **kw}))
+        got = {}
+        while eng.has_work():
+            for o in eng.step():
+                got.setdefault(o.request_id, []).extend(o.new_token_ids)
+        out[graph], stats[graph] = got, eng.stats
+        assert eng.stats.structured_violations == 0 and eng.programs.quiesced()
+        if graph:
+            counts = eng.compile_counts()
+            assert counts["decode_masked"] == 1 and eng.stats.n_chained_dispatches > 0
+            masked = eng.programs.counters()["decode_masked"][0]
+            assert masked > 0
+    assert out[True] == out[False]
+    assert stats[True].decode_graph_replays == stats[True].n_decode_calls
+    plain = _engine("tiny", cuda, decode_steps=4)
+    plain.generate([list(range(5, 40))], SamplingParams(max_tokens=12, temperature=0.0))
+    assert plain.compile_counts()["decode_masked"] == 0 and plain._mask_buffers is None

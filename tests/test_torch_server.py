@@ -127,8 +127,9 @@ def test_bad_requests_are_400(served):
     base, _, _ = served
     assert _post(base + "/v1/completions", None, raw=b"{not json")[0] == 400
     # a stream is served, but its request is checked before the stream starts
-    assert _post(base + "/v1/completions", {"prompt": "x", "stream": True, "n": 2})[0] == 400
-    assert _post(base + "/v1/completions", {"prompt": "x", "logit_bias": {"1": 3}})[0] == 400
+    assert _post(base + "/v1/completions", {"prompt": "x", "stream": True,
+                                            "guided_regex": "(ab"})[0] == 400
+    assert _post(base + "/v1/completions", {"prompt": "x", "logit_bias": {"1": 300}})[0] == 400
     assert _post(base + "/v1/completions", {"prompt": ""})[0] == 400
     assert _post(base + "/v1/chat/completions", {"messages": []})[0] == 400  # empty prompt
     assert _post(base + "/v1/embeddings", {"input": "x"})[0] == 404  # not served yet

@@ -155,3 +155,84 @@ def test_moe_eplb_imbalance_gauges_match_reference():
     gauges = _samples(te.registry, GAUGES)
     assert {('llmd_tpu:moe_ep_load_imbalance', '{when="before"}'),
             ('llmd_tpu:moe_ep_load_imbalance', '{when="after"}')} <= gauges.keys()
+
+
+SPEC_STRUCTURED = ("llmd_tpu:spec_drafted_tokens_total", "llmd_tpu:spec_accepted_tokens_total",
+                   "llmd_tpu:spec_rejected_tokens_total", "llmd_tpu:spec_acceptance_rate_count",
+                   "llmd_tpu:spec_acceptance_rate_sum", "llmd_tpu:structured_requests_total",
+                   "llmd_tpu:structured_cache_hits_total",
+                   "llmd_tpu:structured_cache_misses_total",
+                   "llmd_tpu:structured_violations_total",
+                   "llmd_tpu:structured_compile_seconds_count",
+                   "llmd_tpu:structured_mask_build_seconds_count")
+
+
+def test_spec_structured_metrics_match_reference():
+    """Speculation and structured outputs on (tiny, ``decode_steps`` 4,
+    ``spec_tokens`` 4): two waves of an unconstrained echo row, a choice, a
+    regex, a logit_bias row and a schema-echo row whose drafts the masked
+    verify program accepts, the second wave repeating a grammar (a cache
+    hit), a grammar-and-bias row (the unified degrade) and a sampled row.
+    Every sample of the spec, structured and engine families equal to the
+    JAX engine's, ``step_duration{phase="spec_verify"}`` and
+    ``{phase="chain_stage"}`` counts included; the process-wide grammar
+    caches start empty on both sides."""
+    import llmd_tpu.structured as ref_structured
+    import llmd_tpu_torch.structured as port_structured
+    from llmd_tpu.engine.tokenizer import ByteTokenizer as JaxByteTokenizer
+    from llmd_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    item = {"type": "object", "properties": {"s": {"enum": ["on"]}}, "required": ["s"]}
+    fmt = {"type": "json_schema", "json_schema": {"schema": {
+        "type": "array", "items": item, "minItems": 4, "maxItems": 4}}}
+    echo = [(7919 + j % 3) % 286 + 1 for j in range(40)]
+    z = tok.encode("z")[0]
+    stop = dict(stop_token_ids=(tok.eos_id,))
+    waves = [[("echo", echo, dict(max_tokens=16)),
+              ("choice", tok.encode("pick"), dict(max_tokens=16, guided_choice=["red", "blue"],
+                                                  **stop)),
+              ("regex", tok.encode("code"), dict(max_tokens=16, guided_regex=r"[ab]{6}", **stop)),
+              ("schema", tok.encode('[{"s":"on"},{"s":"on"},'),
+               dict(max_tokens=48, response_format=fmt, **stop))],
+             [("bias", tok.encode("say"), dict(max_tokens=6, logit_bias={z: 100})),
+              ("choice2", tok.encode("again"), dict(max_tokens=16, guided_choice=["red", "blue"],
+                                                    **stop)),
+              ("both", tok.encode("both"), dict(max_tokens=16, guided_choice=["red", "blue"],
+                                                logit_bias={z: -1.0}, **stop)),
+              ("sampled", echo, dict(max_tokens=8, temperature=0.8))]]
+    kw = dict(page_size=8, num_pages=64, max_model_len=256, max_batch_size=4,
+              prefill_chunk=32, decode_steps=4, spec_mode="ngram", spec_tokens=4)
+    jcfg, tcfg, jp, npp = _weights("tiny")
+    ref_structured.reset_global_cache()
+    port_structured.reset_global_cache()
+    je = JaxEngine(jcfg, JaxEngineConfig(**kw, attn_impl="reference"), params=jp,
+                   tokenizer=JaxByteTokenizer())
+    te = LLMEngine(tcfg, EngineConfig(**kw), params=tt.params_from_numpy(tcfg, npp),
+                   device="cpu", tokenizer=tok)
+    outs = []
+    for eng in (je, te):
+        make = JaxSamplingParams if eng is je else SamplingParams
+        out: dict[str, list[int]] = {}
+        for wave in waves:
+            for rid, prompt, sp in wave:
+                eng.add_request(rid, prompt, make(**{"temperature": 0.0, **sp}))
+            steps = 0
+            while eng.has_work():
+                for o in eng.step():
+                    out.setdefault(o.request_id, []).extend(o.new_token_ids)
+                steps += 1
+                assert steps < 1000, "no forward progress"
+        outs.append({k: v for k, v in out.items() if k != "sampled"})
+    assert outs[0] == outs[1]
+    port = _assert_same_metrics(je, te)
+    families = _samples(te.registry, SPEC_STRUCTURED)
+    assert families == _samples(je.registry, SPEC_STRUCTURED)
+    assert families[("llmd_tpu:spec_accepted_tokens_total", "")] > 0
+    assert families[("llmd_tpu:structured_cache_hits_total", "")] > 0
+    assert families[("llmd_tpu:structured_requests_total", '{kind="json_schema"}')] == 1
+    assert families[("llmd_tpu:spec_acceptance_rate_count", '{constrained="yes"}')] > 0
+    phases = {labels for name, labels in port if name.startswith(
+        "llmd_tpu:engine_step_duration")}
+    assert {'{phase="spec_verify"}', '{phase="chain_stage"}'} <= phases
+    assert te.stats.structured_violations == je.stats.structured_violations
