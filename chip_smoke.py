@@ -127,6 +127,22 @@ with a non-zero exit:
             printed on a ``bench:`` line. No capture in the measured window
             (``recompiles`` 0), K1 once per layer of every forward of the
             window (verify steps included), all on mma; no violation.
+14. fp8     the float8_e4m3 pool (``kv_cache_dtype="fp8"``, ``phase_fp8``):
+            K1 at llama-1b's decode, mixed, verify and long-context shapes,
+            K1's latent mode at the mixed shape and a 512-token chunk, K3 at
+            decode B=64 + 2 idle and B=1 over kv 1 and 17, each checked three
+            ways: the bf16 q over the fp8 pool on ``mma_fp8`` bit-equal to
+            the ``mma`` instance on the pool upcast to bf16; <= 1 bf16
+            rounding unit against the plain version in float32, controls above
+            1; a float32 q on ``simt_fp8`` within F32_ATOL. Each variant timed
+            at the time phase's shapes beside its bf16 twin, in turns, its
+            bound counting 1 byte a K/V element, SDPA over the K/V upcast in
+            set-up as the library call. llama-1b and moe-wide-mla served over
+            an fp8 pool (the engine phase's checks, every K1 / K3 launch on
+            ``mma_fp8``) and replayed = eager; llama-1b in float32 on the
+            kernels (``simt_fp8``) = the plain versions, token for token, and
+            in bf16 the share of tokens the fp8 and bf16 pools give alike (not
+            bounded); the bench with ``--quantize none --kv-dtype fp8``.
 
 It ends with a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. ``--report PATH`` also writes every phase's details (nvcc's register
@@ -288,14 +304,16 @@ def chunk_case(dtype, device, chunk, chunk_kv, seed, heads=(H, HK), latent=False
                                heads=heads, latent=latent)
 
 
-def attention_bound(c, dtype):
+def attention_bound(c, dtype, pool_dtype=None):
     """(bound_ms, bound_by): each input byte read once, each output byte
     written once, KV only where this run's masks let it be read (one latent
-    row per key on a single-plane pool); flops of QK^T and PV over the keys
-    each query attends."""
+    row per key on a single-plane pool; ``pool_dtype``'s bytes a K/V element
+    when the pool is not q's type: 1 for fp8); flops of QK^T and PV over the
+    keys each query attends, at q's type's peak."""
     elt = torch.finfo(dtype).bits // 8
+    kv_elt = torch.finfo(pool_dtype or dtype).bits // 8
     q_lens, kv_lens, nh, W = c["q_lens"], c["kv_lens"], c["H"], c["W"]
-    kv_bytes = int(kv_lens.sum()) * c["planes"] * W * elt
+    kv_bytes = int(kv_lens.sum()) * c["planes"] * W * kv_elt
     qo_bytes = 2 * int(q_lens.sum()) * nh * W * elt
     idx_bytes = 4 * (int((-(-kv_lens // PS)).sum()) + 2 * len(kv_lens) + 2)
     keys = sum(int(kl - ql + i + 1) for ql, kl in zip(q_lens, kv_lens) for i in range(ql))
@@ -445,14 +463,16 @@ def run_latent_decode(decode, c):
                                       scale=c["scale"], decode=decode)
 
 
-def latent_decode_bound(c, dtype):
+def latent_decode_bound(c, dtype, pool_dtype=None):
     """(bound_ms, bound_by) of K3: each resident latent row read once (one
-    row serves every head), q, page-table entries, kv_lens read once, out
-    written once; flops 4*H*W per key."""
+    row serves every head; ``pool_dtype``'s bytes an element when the pool
+    is not q's type), q, page-table entries, kv_lens read once, out written
+    once; flops 4*H*W per key."""
     elt = torch.finfo(dtype).bits // 8
+    kv_elt = torch.finfo(pool_dtype or dtype).bits // 8
     kv = c["kv_lens"]
     B = len(kv)
-    nbytes = (int(kv.sum()) * MLA_W * elt + 2 * B * MLA_H * MLA_W * elt
+    nbytes = (int(kv.sum()) * MLA_W * kv_elt + 2 * B * MLA_H * MLA_W * elt
               + 4 * (int((-(-kv // PS)).sum()) + B))
     flops = 4 * MLA_H * MLA_W * int(kv.sum())
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
@@ -1205,14 +1225,15 @@ def read_counts() -> tuple[dict, dict]:
 def phase_engine(device, card: str, model: str = "llama-1b", n_requests: int = 8,
                  max_tokens: int = 32, prompt_range=(64, 512), seed: int = 0,
                  engine_kw: "dict | None" = None,
-                 per_layer: "dict | None" = None, label: str = "") -> dict:
+                 per_layer: "dict | None" = None, label: str = "",
+                 attn_instance: str = "mma") -> dict:
     """Serve ``n_requests`` greedy completions over HTTP. ``per_layer``: for
     each kernel of this path, (launches per layer and forward, the program
     whose forwards launch it: "all", "unified" or "decode"); every kernel's
     count must equal that times layers × that program's forwards (0 for
     kernels off the path), and no plain version may run. The served weights
     are bf16: every K2 / K4 launch must be on the wgmma instance and every K1
-    and K3 launch on the mma instance."""
+    and K3 launch on ``attn_instance`` (``"mma_fp8"`` over an fp8 pool)."""
     from llmd_tpu_torch.engine.config import EngineConfig
     from llmd_tpu_torch.engine.engine import EngineStats
     from llmd_tpu_torch.engine.server import EngineServer
@@ -1313,8 +1334,8 @@ def phase_engine(device, card: str, model: str = "llama-1b", n_requests: int = 8
             raise AssertionError(f"engine {label}: launches {launches}, expected {expect} "
                                  f"({per_layer} per layer per forward)")
         # the served weights are bf16: every K1 / K3 / K2 / K4 launch on its bf16 instance
-        want = {"paged_attention": "mma", "mla_decode": "mma", "ragged_grouped_gemm": "wgmma",
-                "grouped_gemm": "wgmma"}
+        want = {"paged_attention": attn_instance, "mla_decode": attn_instance,
+                "ragged_grouped_gemm": "wgmma", "grouped_gemm": "wgmma"}
         off = {n: c for n, c in by_instance.items()
                if c != {k: (launches[n] if k == want[n] else 0) for k in c}}
         if off:
@@ -2541,8 +2562,8 @@ def phase_bench(device, card: str, argv: list[str]) -> dict:
     """``llmd_tpu_torch.tools.bench`` in this process with ``argv``: its JSON
     line, printed on a ``bench:`` line. No capture in the measured window
     (``recompiles`` 0), K1 once per layer of every forward of the window
-    (verify steps included), all on its mma instance; no structured
-    violation."""
+    (verify steps included), all on its mma instance (``mma_fp8`` over an
+    fp8 pool); no structured violation."""
     import contextlib
     import io
 
@@ -2561,11 +2582,314 @@ def phase_bench(device, card: str, argv: list[str]) -> dict:
     cfg = get_model_config("llama-1b")
     k1 = row["kernel_launches"]["paged_attention"]
     forwards = row["unified_steps"] + row["decode_iterations"] + row["spec_verify_steps"]
-    if (row["recompiles"] != 0 or k1["simt"] or k1["mma"] != cfg.num_layers * forwards
-            or row["structured_violations"]):
+    inst = "mma_fp8" if row["kv_cache_dtype"] == "fp8" else "mma"
+    if (row["recompiles"] != 0 or sum(k1.values()) != k1[inst]
+            or k1[inst] != cfg.num_layers * forwards or row["structured_violations"]):
         raise AssertionError(f"bench {argv}: recompiles {row['recompiles']}, K1 launches "
-                             f"{k1}, expected {cfg.num_layers * forwards} on mma")
+                             f"{k1}, expected {cfg.num_layers * forwards} on {inst}")
     return row
+
+
+# --------------------------------------------------------------------------
+# fp8 pools (kv_cache_dtype="fp8")
+# --------------------------------------------------------------------------
+
+FP8 = torch.float8_e4m3fn
+
+
+def fp8_pool(pool):
+    """The pool as the engine writes an fp8 pool: clamped to +-448, cast."""
+    return pool.float().clamp(-448.0, 448.0).to(FP8)
+
+
+def _max_abs(t) -> float:
+    return t.float().abs().max().item() if t.numel() else 0.0
+
+
+def _one_launch(fn, want: str, call):
+    """``call()``, which must launch ``fn``'s kernel once, on ``want``."""
+    before = dict(fn.launches_by_instance)
+    out = call()
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in fn.launches_by_instance.items()}
+    if got != {k: int(k == want) for k in got}:
+        raise AssertionError(f"fp8: {fn.__name__} launched {got}, expected one on {want}")
+    return out
+
+
+def fp8_attention_cases(device):
+    """(kernel, label, bf16 case over an fp8 pool) of the fp8 check: K1 at
+    llama-1b's decode, mixed, verify and long-context (B=4, kv 3000-8192)
+    shapes; K1's latent mode at moe-wide-mla's mixed shape and a 512-token
+    chunk at kv 2048; K3 at decode B=64 + 2 idle and at B=1 over kv 1 and 17."""
+    bf = torch.bfloat16
+    k1 = (("decode", decode_case(bf, device)), ("mixed", mixed_case(bf, device)),
+          ("verify", verify_case(bf, device)),
+          ("long_context_b4", long_decode_case(bf, device, 6, kv=[3000, 4711, 6150, 8192])))
+    lat = (("mixed", mixed_case(bf, device, latent=True)),
+           ("chunk512_kv2048", chunk_case(bf, device, 512, 2048, 7, latent=True)))
+    k3 = (("decode", latent_decode_case(bf, device)),
+          ("b1_kv1", latent_decode_case(bf, device, 10, [1])),
+          ("b1_kv17", latent_decode_case(bf, device, 11, [17])))
+    for kernel, cases in (("paged_attention", k1), ("paged_attention_latent", lat),
+                          ("mla_decode", k3)):
+        for label, c in cases:
+            yield kernel, label, dict(c, pool=fp8_pool(c["pool"]))
+
+
+def check_fp8(device) -> dict:
+    """The fp8 variants of K1 (both modes) and K3, each case three ways:
+    the bf16 q over the fp8 pool on ``mma_fp8`` equals the ``mma`` instance on
+    the pool upcast to bf16, bit for bit (the same plan; the variant only
+    converts each stage in shared memory); it reads <= 1 bf16 rounding unit
+    against the plain version in float32 (which upcasts the fp8 pool at
+    use), with the bf16 controls still above 1; a float32 q over the same
+    fp8 pool on ``simt_fp8`` is within F32_ATOL of the plain version. K3 at
+    kv 1 must return the latent row exactly; padding and idle rows are
+    zeros."""
+    from llmd_tpu_torch.ops import mla_decode as md
+    from llmd_tpu_torch.ops import paged_attention as pa
+    from llmd_tpu_torch.ops.paged_attention import bf16_rounding_units
+
+    bf = torch.bfloat16
+    out: dict = {}
+    for kernel, label, c in fp8_attention_cases(device):
+        c16 = dict(c, pool=c["pool"].to(bf))  # the upcast twin
+        c32 = dict(c, q=c["q"].float())
+        if kernel == "mla_decode":
+            fn, run, plain = md.mla_decode, run_latent_decode, md.mla_decode_ref
+            got = _one_launch(fn, "mma_fp8", lambda: run(fn, c))
+            twin = _one_launch(fn, "mma", lambda: run(fn, c16))
+            got32 = _one_launch(fn, "simt_fp8", lambda: run(fn, c32))
+            bit_equal = torch.equal(got, twin)
+            pts = c["pts"].clamp(min=0)
+            q_scaled = (c["q"].float() * c["scale"]).to(bf).float()
+            live = c["lens"] > 0
+            ref = plain(q_scaled, c["pool"], pts, c["lens"], scale=1.0)[live]
+            ref32 = plain(c32["q"] * c["scale"], c["pool"], pts, c["lens"], scale=1.0)[live]
+            pad = max(_max_abs(got[~live]), _max_abs(got32[~live]))
+            got, got32 = got[live], got32[live]
+            if int(c["kv_lens"].max()) <= 1:  # one key: the latent row itself
+                units, ctl = (0.0 if torch.equal(got.float(), ref) else float("inf")), ()
+            else:
+                units = bf16_rounding_units(got, ref)
+                ctl = tuple(bf16_rounding_units(x, ref)
+                            for x in latent_decode_controls(c16, q_scaled))
+        else:
+            fn, plain = pa.paged_attention, pa.paged_attention_ref
+            got = _one_launch(fn, "mma_fp8", lambda: run_attention(fn, c))
+            twin = _one_launch(fn, "mma", lambda: run_attention(fn, c16))
+            got32 = _one_launch(fn, "simt_fp8", lambda: run_attention(fn, c32))
+            v = c["valid"]
+            ref = ref32 = run_attention(plain, c32)[:v]  # upcasts the fp8 pool at use
+            pad = max(_max_abs(got[v:]), _max_abs(got32[v:]))
+            bit_equal = torch.equal(got, twin)
+            got, got32 = got[:v], got32[:v]
+            units = bf16_rounding_units(got, ref)
+            ctl = (bf16_rounding_units(run_attention(plain, c16)[:v], ref),
+                   bf16_rounding_units(bf16_accumulating_control(c16), ref))
+        err32 = (got32 - ref32).abs().max().item()
+        err = (got.float() - ref).abs().max().item()
+        row = {"bit_equal_to_bf16_twin": bit_equal, "bf16_units": units,
+               "limit_units": BF16_UNITS, "controls_bf16_units": list(ctl),
+               "max_abs_err": err, "f32_max_abs_err": err32, "atol": F32_ATOL,
+               "pad_rows_max": pad, "kv_tokens": int(c["kv_lens"].sum())}
+        log(f"check: fp8 {kernel} {label} kv_tokens={row['kv_tokens']} bit_equal_to_bf16_"
+            f"twin={bit_equal} bf16_units={units:.3f} (limit {BF16_UNITS}) controls="
+            f"{[round(x, 1) for x in ctl]} max_abs_err={err:.3e} f32_simt_fp8_max_abs_err="
+            f"{err32:.3e} (atol {F32_ATOL:.0e}) pad_rows_max={pad:.1e}")
+        out.setdefault(kernel, {})[label] = row
+        if not (bit_equal and units <= BF16_UNITS and all(x > BF16_UNITS for x in ctl)
+                and err32 <= F32_ATOL and pad == 0.0 and torch.isfinite(got).all()):
+            raise AssertionError(f"fp8 {kernel} {label}: the check failed: {row}")
+    return out
+
+
+def time_fp8(device) -> dict:
+    """The fp8 variants at the time phase's shapes, each beside its bf16 twin
+    (the ``mma`` instance on the same data upcast to bf16) in turns: K1 at
+    decode B=64, decode B=8 (kv 3072-5120), mixed and verify; K1's latent mode
+    at the mixed shape; K3 at decode B=64 + 2 idle and B=8. The bound counts 1
+    byte a K/V element (``bound_ms``; the bf16 twin's ``bf16_bound_ms``); the
+    library call is SDPA over K/V gathered and upcast to bf16 in set-up; the
+    plain version runs over the fp8 pool (it upcasts at use)."""
+    from llmd_tpu_torch.ops import mla_decode as md
+    from llmd_tpu_torch.ops import paged_attention as pa
+
+    bf = torch.bfloat16
+    rng = np.random.default_rng(4)
+    k1 = {"decode": (decode_case(bf, device), sdpa_dense),
+          "decode_b8": (long_decode_case(bf, device), sdpa_dense),
+          "mixed": (mixed_case(bf, device), sdpa_packed),
+          "verify": (verify_case(bf, device), sdpa_packed)}
+    cases = [("paged_attention", k, c, lib) for k, (c, lib) in k1.items()]
+    cases.append(("paged_attention_latent", "mixed", mixed_case(bf, device, latent=True),
+                  sdpa_latent))
+    cases += [("mla_decode", "decode", latent_decode_case(bf, device), sdpa_latent),
+              ("mla_decode", "decode_b8",
+               latent_decode_case(bf, device, 4, rng.integers(3072, 5121, 8)), sdpa_latent)]
+    out: dict = {}
+    for kernel, label, c, library in cases:
+        c8 = dict(c, pool=fp8_pool(c["pool"]))
+        c16 = dict(c8, pool=c8["pool"].to(bf))
+        if kernel == "mla_decode":
+            call = lambda x: run_latent_decode(md.mla_decode, x)  # noqa: E731
+            plain = lambda: run_latent_decode(md.mla_decode_ref, c8)  # noqa: E731
+            bound, bound16 = (latent_decode_bound(c8, bf, FP8), latent_decode_bound(c8, bf))
+        else:
+            call = lambda x: run_attention(pa.paged_attention, x)  # noqa: E731
+            plain = lambda: run_attention(pa.paged_attention_ref, c8)  # noqa: E731
+            bound, bound16 = attention_bound(c8, bf, FP8), attention_bound(c8, bf)
+        ms, bf16_ms = cuda_ms(lambda: call(c8)), cuda_ms(lambda: call(c16))
+        ms2, bf16_ms2 = cuda_ms(lambda: call(c16)), cuda_ms(lambda: call(c8))
+        plain_ms = cuda_ms(plain, reps=5, inner=2)
+        library_ms = cuda_ms(library(c16))
+        row = {"ms": ms, "ms_turn2": bf16_ms2, "bf16_ms": bf16_ms, "bf16_ms_turn2": ms2,
+               "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+               "bf16_bound_ms": bound16[0], "library_ms": library_ms,
+               "kv_tokens": int(c["kv_lens"].sum()), "query_tokens": int(c["q_lens"].sum())}
+        log(f"time: fp8 {kernel} {label} mma_fp8 ms={ms:.4f}/{bf16_ms2:.4f} bf16 twin (mma) "
+            f"ms={bf16_ms:.4f}/{ms2:.4f} bound_ms={bound[0]:.4f} ({bound[1]}) bf16_bound_ms="
+            f"{bound16[0]:.4f} plain_ms={plain_ms:.4f} library_ms(sdpa, upcast in set-up)="
+            f"{library_ms:.4f} roofline_share={bound[0] / ms:.3f}")
+        out.setdefault(kernel, {})[label] = row
+    return out
+
+
+def phase_fp8_engine(device, card: str, model: str, per_layer: dict, label: str,
+                     engine_kw: "dict | None" = None, seed: int = 0) -> dict:
+    """``model`` at full width over an fp8 pool (``kv_cache_dtype="fp8"``):
+    behind the server through the captured, pipelined engine (the engine
+    phase's checks, every K1 / K3 launch on ``mma_fp8``), then two engines
+    of the seed through ``generate``, replayed and eager: tokens, launches
+    and instances equal, no plain version."""
+    from llmd_tpu_torch.models import get_model_config
+
+    kw = {"kv_cache_dtype": "fp8", **(engine_kw or {})}
+    served = phase_engine(device, card, model=model, label=f"fp8 {label}", engine_kw=kw,
+                          per_layer=per_layer, attn_instance="mma_fp8")
+    cfg = get_model_config(model)
+    ekw = dict(page_size=PS, num_pages=2048, max_model_len=2048, max_batch_size=32,
+               prefill_chunk=512, max_num_batched_tokens=2048, decode_steps=4, **kw)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(64, 513, 8)]
+    runs = {mode: _served_run(device, cfg, ekw, prompts, 32, seed, mode == "graph")
+            for mode in ("graph", "eager")}
+    g, e = runs["graph"], runs["eager"]
+    same = {k: g[k] == e[k] for k in ("tokens", "launches", "launches_by_instance")}
+    log(f"engine: fp8 {model} {label} replayed vs eager on {card}: same={same} "
+        f"launches={g['launches']} by_instance={g['launches_by_instance']} captures="
+        f"{g['captures']} replays={g['replays']}")
+    attn_off = {n: by for n, by in g["launches_by_instance"].items()
+                if n in ("paged_attention", "mla_decode") and sum(by.values()) != by["mma_fp8"]}
+    if (not all(same.values()) or any(g["plain_calls"].values()) or any(e["plain_calls"].values())
+            or attn_off or g["captures"] != 1 or not g["launches"]["paged_attention"]):
+        raise AssertionError(f"fp8 engine {model}: replayed vs eager {same}, plain "
+                             f"{g['plain_calls']} / {e['plain_calls']}, off mma_fp8 {attn_off}, "
+                             f"{g['captures']} captures")
+    return {"served": served, "same": same, "launches": g["launches"],
+            "launches_by_instance": g["launches_by_instance"]}
+
+
+def fp8_identity(device, card: str, seed: int = 0, n_requests: int = 4) -> dict:
+    """llama-1b over an fp8 pool, in float32: the engine on the kernels
+    (``simt_fp8``, decode replayed) against the same engine with its
+    attention swapped for the plain versions (eager): greedy tokens
+    identical. Then in bf16, the share of greedy tokens that the fp8 pool
+    and the bf16 pool give alike (kernels on both); not bounded: a different
+    pool is a different result."""
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.engine import EngineConfig, LLMEngine
+    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.ops.paged_attention import paged_attention_ref
+
+    cfg = get_model_config("llama-1b")
+    kw = dict(page_size=PS, num_pages=1024, max_model_len=2048, max_batch_size=8,
+              prefill_chunk=512, max_num_batched_tokens=2048, decode_steps=4)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(64, 513, n_requests)]
+    sp = SamplingParams(max_tokens=32, temperature=0.0)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    runs = {}
+    for name in ("kernels", "plain"):
+        eng = LLMEngine(cfg32, EngineConfig(**kw, kv_cache_dtype="fp8"), seed=seed,
+                        device=device, decode_graph=name == "kernels")
+        if name == "plain":
+            eng._attn = {"unified": paged_attention_ref, "decode": paged_attention_ref}
+        zero_counts()
+        runs[name] = (eng.generate(prompts, sp), read_counts(), instance_counts())
+        del eng
+        torch.cuda.empty_cache()
+    (tk, (lk, _), ik), (tp, (lp, pp), _) = runs["kernels"], runs["plain"]
+    bf = {}
+    for kv in ("fp8", None):
+        eng = LLMEngine(cfg, EngineConfig(**kw, kv_cache_dtype=kv), seed=seed, device=device)
+        bf[kv] = eng.generate(prompts, sp)
+        del eng
+        torch.cuda.empty_cache()
+    pairs = [(a, b) for r in bf["fp8"] for a, b in zip(bf["fp8"][r], bf[None][r])]
+    share = sum(a == b for a, b in pairs) / len(pairs)
+    row = {"card": card, "f32_tokens_identical": tk == tp, "kernel_launches": lk,
+           "kernel_instances": ik, "plain_run_launches": lp, "plain_run_calls": pp,
+           "bf16_fp8_vs_bf16_pool_identical_share": share, "requests": n_requests}
+    log(f"identity: fp8 llama-1b on {card}: float32 kernels vs plain tokens_identical="
+        f"{tk == tp} (kernel launches {lk['paged_attention']} on {ik['paged_attention']}; "
+        f"plain run: paged_attention_ref calls {pp['paged_attention_ref']}); bf16 fp8 pool vs "
+        f"bf16 pool identical share={share:.4f} (not bounded)")
+    if not (tk == tp and lk["paged_attention"] == ik["paged_attention"]["simt_fp8"] > 0
+            and not any(lp.values()) and pp["paged_attention_ref"] > 0):
+        raise AssertionError(f"fp8 identity: {row}")
+    return row
+
+
+def phase_fp8(device, card: str) -> dict:
+    """The fp8 pool: its kernels checked and timed, llama-1b and moe-wide-mla
+    served over it, the float32 identity, and the bench with ``--kv-dtype
+    fp8``."""
+    k2 = {"ragged_grouped_gemm": (2, "all")}
+    return {
+        "check": check_fp8(device),
+        "time": time_fp8(device),
+        "engine": {
+            "llama-1b": phase_fp8_engine(device, card, "llama-1b",
+                                         {"paged_attention": (1, "all")}, "dense"),
+            "mla_sorted": phase_fp8_engine(
+                device, card, MLA, {"paged_attention": (1, "unified"),
+                                    "mla_decode": (1, "decode"), **k2}, "mla sorted",
+                engine_kw={"moe_dispatch": "sorted"}),
+        },
+        "identity": fp8_identity(device, card),
+        "bench": phase_bench(device, card, ["--quantize", "none", "--kv-dtype", "fp8"]),
+    }
+
+
+def fp8_entry(fp8: dict, name: str, source: str, replaces: str, run: str,
+              first: str) -> dict:
+    """The ``kernels`` line's entry of a kernel's fp8 variant (``name`` +
+    ``_fp8``): launches from the fp8 serving run ``run`` (the engine's count
+    of the kernel, all on ``mma_fp8``), times at shape ``first``, the other
+    timed shapes' numbers as ``<shape>_ms`` / ``_bound_ms`` / ``_library_ms``,
+    the bf16 twin's ``bf16_ms`` beside each."""
+    kernel = "mla_decode" if name == "mla_decode" else "paged_attention"
+    t = fp8["time"][name]
+    e = {"name": f"{name}_fp8", "route": "cuda", "source": source, "replaces": replaces,
+         "variant": "float8_e4m3 pool (kv_cache_dtype='fp8'), instance mma_fp8",
+         "launches": fp8["engine"][run]["served"]["launches"][kernel],
+         "max_abs_err": max(r["max_abs_err"] for r in fp8["check"][name].values()),
+         "ms": t[first]["ms"], "plain_ms": t[first]["plain_ms"],
+         "bound_ms": t[first]["bound_ms"], "bound_by": t[first]["bound_by"],
+         "library_ms": t[first]["library_ms"], "bf16_ms": t[first]["bf16_ms"],
+         "bf16_bound_ms": t[first]["bf16_bound_ms"]}
+    for label, r in t.items():
+        if label != first:
+            e.update({f"{label}_ms": r["ms"], f"{label}_bound_ms": r["bound_ms"],
+                      f"{label}_library_ms": r["library_ms"], f"{label}_bf16_ms": r["bf16_ms"]})
+    if name == "paged_attention":
+        e["bench_bf16_fp8_launches"] = fp8["bench"]["kernel_launches"]["paged_attention"][
+            "mma_fp8"]
+    return e
 
 
 def main(argv: "list[str] | None" = None) -> int:
@@ -2663,6 +2987,7 @@ def main(argv: "list[str] | None" = None) -> int:
                            "--quantize", "none", "--spec-mode", "ngram", "--workload", "echo"]),
                        "bf16_json": phase_bench(device, card, [
                            "--quantize", "none", "--workload", "json"])}
+    report["fp8"] = fp8 = phase_fp8(device, card)
     if args.report:
         out = Path(args.report)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -2723,6 +3048,15 @@ def main(argv: "list[str] | None" = None) -> int:
         entry("grouped_gemm", gemm_src, "llmd_tpu/ops/grouped_gemm.py:43",
               eng["moe_einsum"]["launches"]["grouped_gemm"], tm["grouped_gemm"]["decode"],
               tm["grouped_gemm"]["prefill"]),
+        # the fp8 pool variants (mma_fp8): ms etc. at the first shape, the rest beside
+        *(fp8_entry(fp8, name, src, replaces, run, first)
+          for name, src, replaces, run, first in (
+              ("paged_attention", attn_src, "llmd_tpu/ops/paged_attention.py:106",
+               "llama-1b", "decode"),
+              ("paged_attention_latent", attn_src, "llmd_tpu/models/transformer.py:428",
+               "mla_sorted", "mixed"),
+              ("mla_decode", "llmd_tpu_torch/csrc/mla_decode.cu",
+               "llmd_tpu/ops/mla_decode.py:110", "mla_sorted", "decode"))),
     ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],

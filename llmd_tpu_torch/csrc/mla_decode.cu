@@ -12,12 +12,17 @@
 //     are never touched. A sequence with kv_len 0 gets exact zeros.
 //   * q is scaled by sm_scale and rounded back to its type before the scores,
 //     as the reference pre-scales it; softmax runs online over the keys in f32
-//     and the P.V sum accumulates in f32. Inputs are f32 or bf16.
+//     and the P.V sum accumulates in f32. q and out are f32 or bf16; the pool
+//     is q's type or float8_e4m3 at unit scale beside either (the reference's
+//     adapter upcasts an fp8 latent pool at use, `mla_paged_attention_latent`
+//     :195-199; here the kernel reads the fp8 pages itself, so the layer's
+//     pool is never copied).
 //
 // Bound on the card: the kernel reads each latent row once,
 // sum_b kv_len_b * D * sizeof(T) bytes (plus q, page tables and out), and does
 // 4*H*D flops per key; at H 16 and D 160 that is 32 flops per bf16 byte, far
-// below the ~295 flop/byte ridge of an H100, so it is bound by device memory.
+// below the ~295 flop/byte ridge of an H100, so it is bound by device memory;
+// an fp8 pool halves the latent bytes.
 //
 // Two instances; the wrapper picks one (`ops/mla_decode._instance`) and passes
 // it in.
@@ -52,8 +57,13 @@
 //     sequence marks its partials empty (m = -inf) and exits before it loads
 //     anything, so an idle row (kv_len 0) has every split empty and the merge
 //     writes exact zeros.
-//   The ring, the copies, the fragments' helpers and the merge are
-//   mma_attention.cuh's, shared with paged_attention.cu.
+//   - fp8 pool (KT = __nv_fp8_e4m3): raw e4m3 stages in the ring (10
+//     16-byte copies a latent row at width 160, not 20); each warp converts
+//     its own 16-key sub-tile into one bf16 compute stage of the layout above
+//     before it reads it (a warp barrier, not a block one): the bf16
+//     instance's result on the upcast pool, bit for bit.
+//   The ring, the copies, the conversion, the fragments' helpers and the
+//   merge are mma_attention.cuh's, shared with paged_attention.cu.
 // * simt (float32, which the tensor cores would take in TF32, and (4, 80)): one block per
 //   sequence, 256 threads. Keys go in tiles of KEYS = 256/H (16 at H 16, 64 at
 //   H 4), gathered through the page table row by row (any page size), 16-byte
@@ -68,8 +78,11 @@
 //   - P.V: the 256/H threads of head h own the output dims j, j + 256/H, ...
 //     and accumulate p[h][t] * row[t][d] in registers.
 //   - o = acc / l, or exact zeros when l is 0 (kv_len 0).
+//   An fp8 pool (KT = __nv_fp8_e4m3) loads 16 elements a 16-byte load and
+//   converts them to f32 into the same shared rows.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -96,6 +109,10 @@ __device__ __forceinline__ float to_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+template <>
+__device__ __forceinline__ float to_float<__nv_fp8_e4m3>(__nv_fp8_e4m3 x) {
+  return e4m3x2_to_float2(x.__x).x;  // exact: unit scale
 }
 
 template <typename T>
@@ -131,9 +148,9 @@ __device__ __forceinline__ void load_tile(uint4 (&stage)[LOADS], const T* __rest
   }
 }
 
-template <typename T, int D, int H>
+template <typename T, typename KT, int D, int H>
 __global__ void __launch_bounds__(kThreads)
-mla_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool,
+mla_decode_kernel(const T* __restrict__ q, const KT* __restrict__ pool,
                   const int* __restrict__ page_tables,
                   const int* __restrict__ kv_lens, T* __restrict__ out,
                   int page_size, int max_pages, float scale) {
@@ -141,7 +158,7 @@ mla_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool,
   constexpr int KEYS = kThreads / H;     // keys per tile
   constexpr int TPH = kThreads / H;      // P.V threads per head
   constexpr int EPT = (D + TPH - 1) / TPH;  // output dims per thread
-  constexpr int VEC = 16 / sizeof(T);    // elements per 16-byte load
+  constexpr int VEC = 16 / sizeof(KT);   // pool elements per 16-byte load
   static_assert(D % VEC == 0, "latent width must fill whole 16-byte vectors");
   constexpr int VPR = D / VEC;           // vectors per latent row
   constexpr int LOADS = (KEYS * VPR + kThreads - 1) / kThreads;  // per thread per tile
@@ -181,22 +198,29 @@ mla_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool,
 #pragma unroll
   for (int e = 0; e < EPT; ++e) acc[e] = 0.f;
 
-  if (n_tiles > 0) load_tile<T, D, KEYS, LOADS>(stage, pool, pt, 0, kv_len, page_size);
+  if (n_tiles > 0) load_tile<KT, D, KEYS, LOADS>(stage, pool, pt, 0, kv_len, page_size);
   for (int tile = 0; tile < n_tiles; ++tile) {
     __syncthreads();  // the previous tile's P.V is done with row_s and p_s
 #pragma unroll
     for (int j = 0; j < LOADS; ++j) {
       const int i = tid + j * kThreads;
       if (i < KEYS * VPR) {
-        const T* e = reinterpret_cast<const T*>(&stage[j]);
         float* dst = row_s + (i / VPR) * LD + (i % VPR) * VEC;
+        if constexpr (sizeof(KT) == 1) {  // e4m3: unpacked by shifts, in registers
+          float f[VEC];
+          e4m3x16_to_float(stage[j], f);
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) dst[k] = to_float(e[k]);
+          for (int k = 0; k < VEC; ++k) dst[k] = f[k];
+        } else {
+          const KT* e = reinterpret_cast<const KT*>(&stage[j]);
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) dst[k] = to_float(e[k]);
+        }
       }
     }
     __syncthreads();
     if (tile + 1 < n_tiles)  // in flight during the math below
-      load_tile<T, D, KEYS, LOADS>(stage, pool, pt, tile + 1, kv_len, page_size);
+      load_tile<KT, D, KEYS, LOADS>(stage, pool, pt, tile + 1, kv_len, page_size);
 
     {  // scores: thread (h, t)
       const int h = tid / KEYS;
@@ -263,26 +287,26 @@ mla_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool,
   }
 }
 
-template <typename T, int D, int H>
+template <typename T, typename KT, int D, int H>
 cudaError_t launch_simt(const void* q, const void* pool, const int* page_tables,
                         const int* kv_lens, void* out, int batch, int page_size,
                         int max_pages, float scale, cudaStream_t stream) {
-  mla_decode_kernel<T, D, H><<<batch, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pool), page_tables, kv_lens,
+  mla_decode_kernel<T, KT, D, H><<<batch, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const KT*>(pool), page_tables, kv_lens,
       static_cast<T*>(out), page_size, max_pages, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename KT>
 cudaError_t dispatch_simt(int num_heads, int latent_dim, const void* q, const void* pool,
                           const int* page_tables, const int* kv_lens, void* out, int batch,
                           int page_size, int max_pages, float scale, cudaStream_t stream) {
   if (num_heads == 16 && latent_dim == 160)  // moe-wide-mla
-    return launch_simt<T, 160, 16>(q, pool, page_tables, kv_lens, out, batch, page_size,
-                                   max_pages, scale, stream);
+    return launch_simt<T, KT, 160, 16>(q, pool, page_tables, kv_lens, out, batch, page_size,
+                                       max_pages, scale, stream);
   if (num_heads == 4 && latent_dim == 80)  // tiny-mla
-    return launch_simt<T, 80, 4>(q, pool, page_tables, kv_lens, out, batch, page_size,
-                                 max_pages, scale, stream);
+    return launch_simt<T, KT, 80, 4>(q, pool, page_tables, kv_lens, out, batch, page_size,
+                                     max_pages, scale, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -293,22 +317,22 @@ cudaError_t dispatch_simt(int num_heads, int latent_dim, const void* q, const vo
 constexpr int kMmaThreads = 128;  // 4 warps: one 16-key sub-tile of each stage apiece
 constexpr int kMmaWarps = kMmaThreads / 32;
 
-template <int D>
-using LatentCfg = StageCfg<D, 1, kMmaThreads>;
+template <int D, typename KT>
+using LatentCfg = StageCfg<D, 1, kMmaThreads, KT>;
 
-template <int D, int H>
+template <int D, int H, typename KT>
 __global__ void __launch_bounds__(kMmaThreads)
 mla_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ pool,
+                      const KT* __restrict__ pool,
                       const int* __restrict__ page_tables, const int* __restrict__ kv_lens,
                       __nv_bfloat16* __restrict__ out, float* __restrict__ part_o,
                       float2* __restrict__ part_ml, int batch, int page_size, int max_pages,
                       float scale, int n_splits, int split_keys) {
-  using C = LatentCfg<D>;
+  using C = LatentCfg<D, KT>;
   constexpr int NF = H / 8;  // n8 fragments of heads
   static_assert(H % 8 == 0 && H <= 16, "the heads fill one or two n8 fragments");
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem);
+  static_assert(kMmaWarps * H * (D + 2) * 4 <= C::kStageBytes, "epilogue does not fit");
+  extern __shared__ __align__(16) unsigned char smem[];  // ring (+ compute stage), slot tables
   int* slot_tab = reinterpret_cast<int*>(smem + C::kStageBytes);  // [kSlotTables][64]
 
   const int sp = blockIdx.x;  // KV split: a sequence's splits run side by side
@@ -375,7 +399,7 @@ mla_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int s = 0; s < C::kStages - 1; ++s) {
     if (s < n_st)
-      load_stage<D, 1, kMmaThreads>(stages + s * C::kStageElems, slot_tab + s * kStageKeys,
+      load_stage<D, 1, kMmaThreads>(smem + s * C::kRingStage, slot_tab + s * kStageKeys,
                                     pool, D, 0);
     cp_async_commit();
   }
@@ -394,7 +418,7 @@ mla_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     {
       const int s = it + C::kStages - 1;
       if (s < n_st)
-        load_stage<D, 1, kMmaThreads>(stages + (s % C::kStages) * C::kStageElems,
+        load_stage<D, 1, kMmaThreads>(smem + (s % C::kStages) * C::kRingStage,
                                       slot_tab + (s % C::kSlotTables) * kStageKeys, pool, D,
                                       0);
       cp_async_commit();
@@ -404,8 +428,9 @@ mla_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int next_key = k_lo + (it + C::kStages) * kStageKeys + tid;
     const int fetched = tid < kStageKeys ? key_slot(pt, next_key, k_hi, page_size) : -1;
 
+    // fp8: each warp converts the sub-tile it reads, no block barrier
     const uint32_t sub_addr =
-        smem_u32(stages + (it % C::kStages) * C::kStageElems) + warp * 16 * C::kRow * 2;
+        compute_stage<D, 1, kMmaThreads, KT, 16>(smem, it) + warp * 16 * C::kRow * 2;
     const int* fl = slot_tab + (it % C::kSlotTables) * kStageKeys + warp * 16;  // -1: no key
     float s[NF][4];
 #pragma unroll
@@ -565,10 +590,10 @@ struct MmaArgs {
   cudaStream_t stream;
 };
 
-template <int D, int H>
+template <typename KT, int D, int H>
 cudaError_t launch_mma(const MmaArgs& a) {
-  using C = LatentCfg<D>;
-  const auto kernel = mla_decode_mma_kernel<D, H>;
+  using C = LatentCfg<D, KT>;
+  const auto kernel = mla_decode_mma_kernel<D, H, KT>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (attr != cudaSuccess) return attr;
@@ -576,7 +601,7 @@ cudaError_t launch_mma(const MmaArgs& a) {
   float* part_o = a.scratch;
   float2* part_ml = reinterpret_cast<float2*>(a.scratch + parts * D);
   kernel<<<dim3(a.n_splits, a.batch), kMmaThreads, C::kSmem, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.pool),
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const KT*>(a.pool),
       a.page_tables, a.kv_lens, static_cast<__nv_bfloat16*>(a.out), part_o, part_ml, a.batch,
       a.page_size, a.max_pages, a.scale, a.n_splits, a.split_keys);
   const cudaError_t err = cudaGetLastError();
@@ -589,6 +614,7 @@ cudaError_t launch_mma(const MmaArgs& a) {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+template <typename KT>
 cudaError_t dispatch_mma(int num_heads, int latent_dim, const MmaArgs& a) {
   // the splits cover the table; more than one: whole stages, and partials
   if (a.batch > 65535 || a.n_splits <= 0 || a.n_splits > kMaxSplits ||
@@ -596,13 +622,14 @@ cudaError_t dispatch_mma(int num_heads, int latent_dim, const MmaArgs& a) {
       (a.n_splits > 1 && (a.scratch == nullptr || a.split_keys % kStageKeys != 0)) ||
       !aligned16(a.q) || !aligned16(a.pool) || !aligned16(a.out))
     return cudaErrorInvalidValue;
-  if (num_heads == 16 && latent_dim == 160) return launch_mma<160, 16>(a);  // moe-wide-mla
+  if (num_heads == 16 && latent_dim == 160) return launch_mma<KT, 160, 16>(a);  // moe-wide-mla
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. instance: 0 = simt, 1 = mma (bf16; then
+// dtype (q and out): 0 = float32, 1 = bfloat16. kv_dtype (the pool): dtype's
+// code, or 2 = float8_e4m3 beside either. instance: 0 = simt, 1 = mma (bf16 q; then
 // n_splits KV splits of split_keys keys each, a multiple of 64 covering
 // max_pages * page_size, and with n_splits > 1 scratch holds n_splits * batch
 // * num_heads * (latent_dim + 2) floats). Returns the cudaError_t of the
@@ -610,22 +637,33 @@ cudaError_t dispatch_mma(int num_heads, int latent_dim, const MmaArgs& a) {
 extern "C" int llmd_mla_decode(const void* q, const void* pool, const int* page_tables,
                                const int* kv_lens, void* out, void* scratch, int batch,
                                int num_heads, int latent_dim, int page_size, int max_pages,
-                               float scale, int dtype, int instance, int n_splits,
-                               int split_keys, void* stream) {
+                               float scale, int dtype, int kv_dtype, int instance,
+                               int n_splits, int split_keys, void* stream) {
   if (batch <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (instance == kMma) {
     if (dtype != 1) return cudaErrorInvalidValue;
     const MmaArgs a{q, pool, page_tables, kv_lens, out, static_cast<float*>(scratch), batch,
                     page_size, max_pages, scale, n_splits, split_keys, s};
-    return dispatch_mma(num_heads, latent_dim, a);
+    if (kv_dtype == 1) return dispatch_mma<__nv_bfloat16>(num_heads, latent_dim, a);
+    if (kv_dtype == 2) return dispatch_mma<__nv_fp8_e4m3>(num_heads, latent_dim, a);
+    return cudaErrorInvalidValue;
   }
   if (instance != kSimt) return cudaErrorInvalidValue;
-  if (dtype == 0)
-    return dispatch_simt<float>(num_heads, latent_dim, q, pool, page_tables, kv_lens, out,
-                                batch, page_size, max_pages, scale, s);
-  if (dtype == 1)
-    return dispatch_simt<__nv_bfloat16>(num_heads, latent_dim, q, pool, page_tables, kv_lens,
-                                        out, batch, page_size, max_pages, scale, s);
+  if (dtype == 0 && kv_dtype == 0)
+    return dispatch_simt<float, float>(num_heads, latent_dim, q, pool, page_tables, kv_lens,
+                                       out, batch, page_size, max_pages, scale, s);
+  if (dtype == 1 && kv_dtype == 1)
+    return dispatch_simt<__nv_bfloat16, __nv_bfloat16>(num_heads, latent_dim, q, pool,
+                                                       page_tables, kv_lens, out, batch,
+                                                       page_size, max_pages, scale, s);
+  if (dtype == 0 && kv_dtype == 2)
+    return dispatch_simt<float, __nv_fp8_e4m3>(num_heads, latent_dim, q, pool, page_tables,
+                                               kv_lens, out, batch, page_size, max_pages,
+                                               scale, s);
+  if (dtype == 1 && kv_dtype == 2)
+    return dispatch_simt<__nv_bfloat16, __nv_fp8_e4m3>(num_heads, latent_dim, q, pool,
+                                                       page_tables, kv_lens, out, batch,
+                                                       page_size, max_pages, scale, s);
   return cudaErrorInvalidValue;
 }

@@ -10,10 +10,20 @@
 // pool K and V are the same row, so both products read the same stage.
 // Splits of the keys write partial (m, l, o/l) rows in f32; `merge_splits`
 // folds them back together.
+//
+// A float8_e4m3 pool (unit scale: the engine's kv_cache_dtype="fp8") is
+// copied as it lies in memory, 16 e4m3 bytes a copy, into a ring of raw
+// stages; once a stage lands the block converts it into one bf16 compute
+// stage of the padded layout above (`compute_stage`), which the same
+// ldmatrix / mma path reads. Every e4m3 value, subnormals included, is a bf16
+// value, so the conversion is exact and an fp8 instance computes what the
+// bf16 instance computes on the pool upcast to bf16, bit for bit. The raw
+// ring and the one compute stage take less shared memory than the bf16 ring.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -25,24 +35,34 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kStageKeys = 64;  // keys per shared-memory stage: four 16-key sub-tiles
 constexpr int kMaxSplits = 16;  // KV splits the merge holds in registers
 
-// The stage ring of a pool whose key slot holds KV rows of width D read
-// together (KV 2: a kv head's K row then its V row; KV 1: the latent row,
-// which is both K and V), for a block of kThreads threads.
-template <int D, int KV, int kThreads>
+// The stage ring of a pool of element type KT (bf16, or e4m3 fp8) whose key
+// slot holds KV rows of width D read together (KV 2: a kv head's K row then
+// its V row; KV 1: the latent row, which is both K and V), for a block of
+// kThreads threads. Shared memory holds the ring, then (fp8) the compute
+// stage, then the slot tables.
+template <int D, int KV, int kThreads, typename KT = __nv_bfloat16>
 struct StageCfg {
-  static constexpr int kRow = KV * D + 8;  // smem elements per key, padded by 16 bytes
+  static constexpr bool kFp8 = sizeof(KT) == 1;
+  static constexpr int kRow = KV * D + 8;  // bf16 elements per key of a compute stage (+16 B)
   static constexpr int kVOff = (KV - 1) * D;  // V's column in a key's smem row
-  static constexpr int kChunks = KV * D / 8;  // 16-byte copies per key
+  static constexpr int kPer = 16 / (int)sizeof(KT);  // pool elements per 16-byte copy
+  static constexpr int kChunks = KV * D / kPer;  // 16-byte copies per key
   static constexpr int kCopies = kStageKeys * kChunks;  // a stage's copies
   static constexpr int kSteps = D / 16;  // k16 steps of Q.K^T, m16 tiles of V^T
   static constexpr int kStages = 3;  // two stages in flight under the third's compute
-  static constexpr int kStageElems = kStageKeys * kRow;
-  static constexpr int kStageBytes = kStages * kStageElems * 2;
+  static constexpr int kStageElems = kStageKeys * kRow;  // a compute stage's bf16 elements
+  // bytes per key of a ring stage: bf16, the padded compute row itself; fp8,
+  // the row as it lies in the pool
+  static constexpr int kRingRow = kFp8 ? KV * D : kRow * 2;
+  static constexpr int kRingStage = kStageKeys * kRingRow;
+  static constexpr int kStageBytes = kStages * kRingStage + (kFp8 ? kStageElems * 2 : 0);
   // a stage's pool slots are fetched one iteration before its copies are
   // issued and read until it is computed: kStages + 1 tables
   static constexpr int kSlotTables = kStages + 1;
   static constexpr int kSmem = kStageBytes + kSlotTables * kStageKeys * 4;
+  static_assert(sizeof(KT) == 2 || sizeof(KT) == 1, "bf16 or fp8 pools");
   static_assert(D % 16 == 0, "width must be a multiple of 16");
+  static_assert(KV * D % kPer == 0 && kRingRow % 16 == 0, "rows of whole 16-byte copies");
   static_assert(kCopies % kThreads == 0, "a stage's copies spread evenly over the block");
   // a padded row is an odd number of 16-byte units: the 8 row addresses of
   // an ldmatrix land in 8 distinct bank groups
@@ -127,18 +147,19 @@ __device__ __forceinline__ int key_slot(const int* __restrict__ pt, int key, int
   return page >= 0 ? page * page_size + key % page_size : -1;
 }
 
-// One 64-key stage: key j's KV*D elements of the pool (from row offset
-// kv_off of slot slots[j]) into smem row j, zero-filled where the slot is -1.
-// When kChunks divides the block (K/V rows), thread tid copies 16-byte column
-// tid % kChunks of keys tid / kChunks + i * kThreads / kChunks: one column a
-// thread, its address computed once. Otherwise (a latent row of width 160 is
-// 20 copies) copy c = threadIdx.x + i * kThreads is column c % kChunks of key
-// c / kChunks.
-template <int D, int KV, int kThreads>
-__device__ __forceinline__ void load_stage(__nv_bfloat16* st, const int* slots,
-                                           const __nv_bfloat16* __restrict__ pool, size_t row,
+// One 64-key stage into ring stage `st`: key j's KV*D elements of the pool
+// (from row offset kv_off of slot slots[j]) into ring row j, zero-filled
+// where the slot is -1 (e4m3 byte 0x00 is +0, so an fp8 stage's zeros stay
+// zeros through the conversion). When kChunks divides the block (K/V rows),
+// thread tid copies 16-byte column tid % kChunks of keys tid / kChunks + i *
+// kThreads / kChunks: one column a thread, its address computed once.
+// Otherwise (a bf16 latent row of width 160 is 20 copies, an fp8 one 10) copy
+// c = threadIdx.x + i * kThreads is column c % kChunks of key c / kChunks.
+template <int D, int KV, int kThreads, typename KT>
+__device__ __forceinline__ void load_stage(unsigned char* st, const int* slots,
+                                           const KT* __restrict__ pool, size_t row,
                                            size_t kv_off) {
-  using C = StageCfg<D, KV, kThreads>;
+  using C = StageCfg<D, KV, kThreads, KT>;
   if constexpr (kThreads % C::kChunks == 0) {
     const int chunk = threadIdx.x % C::kChunks;
     const uint32_t base = smem_u32(st) + chunk * 16;
@@ -146,9 +167,8 @@ __device__ __forceinline__ void load_stage(__nv_bfloat16* st, const int* slots,
     for (int i = 0; i < C::kCopies / kThreads; ++i) {
       const int j = threadIdx.x / C::kChunks + i * (kThreads / C::kChunks);
       const int slot = slots[j];
-      const __nv_bfloat16* src =
-          slot >= 0 ? pool + (size_t)slot * row + kv_off + chunk * 8 : pool;
-      cp_async16(base + j * C::kRow * 2, src, slot >= 0 ? 16 : 0);
+      const KT* src = slot >= 0 ? pool + (size_t)slot * row + kv_off + chunk * C::kPer : pool;
+      cp_async16(base + j * C::kRingRow, src, slot >= 0 ? 16 : 0);
     }
   } else {
     const uint32_t base = smem_u32(st);
@@ -158,10 +178,96 @@ __device__ __forceinline__ void load_stage(__nv_bfloat16* st, const int* slots,
       const int j = c / C::kChunks;
       const int chunk = c % C::kChunks;
       const int slot = slots[j];
-      const __nv_bfloat16* src =
-          slot >= 0 ? pool + (size_t)slot * row + kv_off + chunk * 8 : pool;
-      cp_async16(base + (j * C::kRow + chunk * 8) * 2, src, slot >= 0 ? 16 : 0);
+      const KT* src = slot >= 0 ? pool + (size_t)slot * row + kv_off + chunk * C::kPer : pool;
+      cp_async16(base + j * C::kRingRow + chunk * 16, src, slot >= 0 ? 16 : 0);
     }
+  }
+}
+
+// Two e4m3 values (the low 16 bits of `pair`, the low byte first) as
+// floats, exactly: e4m3 -> f16 is one cvt for the pair (sm_89 and later),
+// f16 -> f32 rounds nothing.
+__device__ __forceinline__ float2 e4m3x2_to_float2(uint32_t pair) {
+  uint32_t h2;
+  asm("cvt.rn.f16x2.e4m3x2 %0, %1;" : "=r"(h2) : "h"(static_cast<unsigned short>(pair)));
+  return make_float2(__half2float(__ushort_as_half(h2 & 0xffffu)),
+                     __half2float(__ushort_as_half(h2 >> 16)));
+}
+
+// The same pair as bf16, exactly (e4m3's 3 mantissa bits and its range down
+// to 2^-9 fit bf16).
+__device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(uint32_t pair) {
+  const float2 f = e4m3x2_to_float2(pair);
+  return bits(__floats2bfloat162_rn(f.x, f.y));
+}
+
+// Four e4m3 values (one 32-bit word, the low byte first) as floats.
+__device__ __forceinline__ void e4m3x4_to_float(uint32_t w, float* f) {
+  const float2 lo = e4m3x2_to_float2(w);
+  const float2 hi = e4m3x2_to_float2(w >> 16);
+  f[0] = lo.x;
+  f[1] = lo.y;
+  f[2] = hi.x;
+  f[3] = hi.y;
+}
+
+// The 16 e4m3 values of a 16-byte word, in memory order, as floats (by
+// shifts: no byte of a register is addressed, so the word stays in registers).
+__device__ __forceinline__ void e4m3x16_to_float(const uint4& u, float (&f)[16]) {
+  e4m3x4_to_float(u.x, f);
+  e4m3x4_to_float(u.y, f + 4);
+  e4m3x4_to_float(u.z, f + 8);
+  e4m3x4_to_float(u.w, f + 12);
+}
+
+// Keys [key0, key0 + kKeys) of an fp8 ring stage (KV*D e4m3 bytes a key)
+// converted into the compute stage's padded bf16 rows by kWorkers threads
+// (`worker`: this thread's index among them), 16 values (one 16-byte word
+// in, two out) a thread at a time.
+template <int D, int KV, int kKeys, int kWorkers>
+__device__ __forceinline__ void convert_keys(const unsigned char* raw, __nv_bfloat16* dst,
+                                             int key0, int worker) {
+  using C = StageCfg<D, KV, kWorkers, __nv_fp8_e4m3>;  // the layout; no thread count in it
+  static_assert(kKeys * C::kChunks % kWorkers == 0, "the words spread evenly");
+#pragma unroll
+  for (int i = 0; i < kKeys * C::kChunks / kWorkers; ++i) {
+    const int c = worker + i * kWorkers;
+    const int j = key0 + c / C::kChunks;
+    const int chunk = c % C::kChunks;
+    const uint4 u = *reinterpret_cast<const uint4*>(raw + j * C::kRingRow + chunk * 16);
+    const uint4 lo = make_uint4(e4m3x2_to_bf16x2(u.x), e4m3x2_to_bf16x2(u.x >> 16),
+                                e4m3x2_to_bf16x2(u.y), e4m3x2_to_bf16x2(u.y >> 16));
+    const uint4 hi = make_uint4(e4m3x2_to_bf16x2(u.z), e4m3x2_to_bf16x2(u.z >> 16),
+                                e4m3x2_to_bf16x2(u.w), e4m3x2_to_bf16x2(u.w >> 16));
+    uint4* d = reinterpret_cast<uint4*>(dst + j * C::kRow + chunk * 16);
+    d[0] = lo;
+    d[1] = hi;
+  }
+}
+
+// The bf16 stage that iteration `it` computes, as a shared-memory address:
+// a bf16 pool's ring stage itself; an fp8 pool's ring stage converted into
+// the compute stage. kKeys = 64: the whole block converts the stage and
+// waits for it (every thread of the block must call this); kKeys = 16: each
+// warp converts only the 16-key sub-tile it reads (warp w, keys 16 w on)
+// and waits for its own lanes.
+template <int D, int KV, int kThreads, typename KT, int kKeys = kStageKeys>
+__device__ __forceinline__ uint32_t compute_stage(unsigned char* smem, int it) {
+  using C = StageCfg<D, KV, kThreads, KT>;
+  unsigned char* ring = smem + (it % C::kStages) * C::kRingStage;
+  if constexpr (C::kFp8) {
+    __nv_bfloat16* cs = reinterpret_cast<__nv_bfloat16*>(smem + C::kStages * C::kRingStage);
+    if constexpr (kKeys == kStageKeys) {
+      convert_keys<D, KV, kStageKeys, kThreads>(ring, cs, 0, threadIdx.x);
+      __syncthreads();
+    } else {
+      static_assert(kKeys == 16 && kThreads == 4 * 32, "one 16-key sub-tile a warp");
+      convert_keys<D, KV, 16, 32>(ring, cs, (threadIdx.x >> 5) * 16, threadIdx.x & 31);
+      __syncwarp();
+    }
+    return smem_u32(cs);
+  } else {
+    return smem_u32(ring);
   }
 }
 

@@ -18,7 +18,11 @@
 //     plane), at the unpadded latent width D = rank + rope (160, 80).
 //     page_tables [B, max_pages] lists a sequence's pages in order (layer offset
 //     already applied by the caller); -1 entries are never read.
-//   * Softmax runs online in f32 with sm_scale; inputs are f32 or bf16.
+//   * Softmax runs online in f32 with sm_scale; q and out are f32 or bf16.
+//     The pool is q's type, or float8_e4m3 at unit scales (the reference's
+//     fp8 pool, `paged_attention_tpu`'s k_scale = v_scale = 1.0 branch,
+//     :133-141; the engine's write_kv clamps to +-448 before the cast), which
+//     every instance reads beside a q of either type.
 //
 // Bound on the card: a launch reads each attended key's K and V row once
 // (sum_b kv_len_b * 2*Hk*D*sizeof(T) bytes at decode; 1*D for the latent pool)
@@ -26,7 +30,8 @@
 // decode that is 4*qpk*D flops per 4*D bytes of K/V, about qpk flop/byte, far
 // below the ~295 flop/byte ridge of an H100 in bf16: the kernel is bound by
 // device memory bandwidth, and a long prefill chunk only becomes compute-heavy
-// if each K/V tile is reused across its query rows.
+// if each K/V tile is reused across its query rows. An fp8 pool halves the
+// K/V bytes against bf16 for the same flops.
 //
 // Two instances; the wrapper picks one (`ops/paged_attention._instance`) and
 // passes it in.
@@ -89,8 +94,16 @@
 //     so the merge loads every split's partials at once, with no search for
 //     the row's sequence; it skips the empty ones, so (-inf) - (-inf) never
 //     occurs. At most 16 splits (the merge keeps them in registers).
-//   The ring, the copies, the fragments' helpers and the merge live in
-//   mma_attention.cuh, shared with mla_decode.cu's mma instance.
+//   - fp8 pool (the same instance with KT = __nv_fp8_e4m3): the ring holds
+//     raw e4m3 stages (a 16-byte copy carries 16 elements of a row instead of
+//     8), and once a stage lands the block converts it into one bf16 compute
+//     stage of the layout above (`compute_stage`, one more barrier a stage);
+//     scores, softmax, the P split and the merge are the bf16 instance's, so
+//     it returns the bf16 instance's result on the pool upcast to bf16, bit
+//     for bit, under the same plan. A later design converts in registers.
+//   The ring, the copies, the conversion, the fragments' helpers and the
+//   merge live in mma_attention.cuh, shared with mla_decode.cu's mma
+//   instance.
 // * simt (float32, and bf16 latent pools at width 80): one block per (query
 //   token n, head group g), 4 warps. A GQA block serves the qpk = H/Hk query
 //   heads of kv head g, so every K/V row it reads is used qpk times. A
@@ -106,9 +119,11 @@
 //   last ones masked when 32 does not divide D), reading each V row as one
 //   coalesced warp load. Each warp's (m, l, acc) meet in shared memory at the
 //   end; o = acc / l. float32 stays off the tensor cores, which would take it
-//   in TF32.
+//   in TF32. An fp8 pool (KT = __nv_fp8_e4m3) is read the same way, 16
+//   elements a 16-byte load, each converted to f32 as it is used.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -133,6 +148,10 @@ template <>
 __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+template <>
+__device__ __forceinline__ float to_float<__nv_fp8_e4m3>(__nv_fp8_e4m3 x) {
+  return e4m3x2_to_float2(x.__x).x;  // exact: unit scale
+}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -147,12 +166,13 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 // simt instance
 // ---------------------------------------------------------------------------
 
-// s[h] = dot(q_s[h], k_row) for the qpk heads; k_row read as 16-byte vectors.
-template <typename T, int D, int QPK>
-__device__ __forceinline__ void qk_dot(const T* __restrict__ k_row,
+// s[h] = dot(q_s[h], k_row) for the qpk heads; k_row (pool type KT) read as
+// 16-byte vectors.
+template <typename KT, int D, int QPK>
+__device__ __forceinline__ void qk_dot(const KT* __restrict__ k_row,
                                        const float* __restrict__ q_s,
                                        float (&s)[QPK]) {
-  constexpr int kPer = 16 / sizeof(T);
+  constexpr int kPer = 16 / sizeof(KT);
   static_assert(D % kPer == 0, "head dim must fill whole 16-byte vectors");
   const uint4* vec = reinterpret_cast<const uint4*>(k_row);
 #pragma unroll
@@ -160,19 +180,25 @@ __device__ __forceinline__ void qk_dot(const T* __restrict__ k_row,
 #pragma unroll
   for (int i = 0; i < D / kPer; ++i) {
     const uint4 u = __ldg(vec + i);
-    const T* e = reinterpret_cast<const T*>(&u);
+    float kf[kPer];
+    if constexpr (sizeof(KT) == 1) {  // e4m3: unpacked by shifts, u stays in registers
+      e4m3x16_to_float(u, kf);
+    } else {
+      const KT* e = reinterpret_cast<const KT*>(&u);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) kf[j] = to_float(e[j]);
+    }
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
-      const float kf = to_float(e[j]);
 #pragma unroll
-      for (int h = 0; h < QPK; ++h) s[h] = fmaf(q_s[h * D + i * kPer + j], kf, s[h]);
+      for (int h = 0; h < QPK; ++h) s[h] = fmaf(q_s[h * D + i * kPer + j], kf[j], s[h]);
     }
   }
 }
 
-template <typename T, int D, int QPK>
+template <typename T, typename KT, int D, int QPK>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pool,
+paged_attention_kernel(const T* __restrict__ q, const KT* __restrict__ pool,
                        const int* __restrict__ page_tables,
                        const int* __restrict__ kv_lens,
                        const int* __restrict__ cu_q_lens,
@@ -244,7 +270,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pool,
     }
     float s[QPK];
     if (slot >= 0) {
-      qk_dot<T, D, QPK>(pool + (size_t)slot * row + k_off, q_s, s);
+      qk_dot<KT, D, QPK>(pool + (size_t)slot * row + k_off, q_s, s);
     } else {
 #pragma unroll
       for (int h = 0; h < QPK; ++h) s[h] = -INFINITY;
@@ -275,7 +301,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pool,
 #pragma unroll
       for (int h = 0; h < QPK; ++h) pj[h] = __shfl_sync(kFull, p[h], j);
       if (sj < 0) continue;  // warp-uniform: unmapped or past the limit
-      const T* v_row = pool + (size_t)sj * row + v_off;
+      const KT* v_row = pool + (size_t)sj * row + v_off;
 #pragma unroll
       for (int e = 0; e < EPL; ++e) {
         if (D % 32 != 0 && lane + 32 * e >= D) break;
@@ -329,8 +355,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pool,
 
 constexpr int kMmaRows = 64;  // query rows of a work item: TQ tokens x qpk heads
 
-template <int D, int KV>
-using MmaCfg = StageCfg<D, KV, kThreads>;
+template <int D, int KV, typename KT>
+using MmaCfg = StageCfg<D, KV, kThreads, KT>;
 
 // The last b in [0, count) for which pred(b, v[b]) holds, where pred holds on
 // a prefix of [0, count) that includes 0. One warp-wide round trip per 128
@@ -359,20 +385,19 @@ __device__ __forceinline__ int last_true(const int* __restrict__ v, int count, P
   return found;
 }
 
-template <int D, int QPK, int KV>
+template <int D, int QPK, int KV, typename KT>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ pool,
+                           const KT* __restrict__ pool,
                            const int* __restrict__ page_tables, const int* __restrict__ kv_lens,
                            const int* __restrict__ cu_q_lens, const int* __restrict__ num_seqs_ptr,
                            __nv_bfloat16* __restrict__ out, float* __restrict__ part_o,
                            float2* __restrict__ part_ml, int num_tokens, int num_heads,
                            int num_planes, int page_size, int max_pages, float scale_log2,
                            int n_slots, int n_splits, int split_keys) {
-  using C = MmaCfg<D, KV>;
+  using C = MmaCfg<D, KV, KT>;
   constexpr int TQ = kMmaRows / QPK;  // tokens of a query tile
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem);
+  extern __shared__ __align__(16) unsigned char smem[];  // ring (+ compute stage), slot tables
   int* slot_tab = reinterpret_cast<int*>(smem + C::kStageBytes);  // [kSlotTables][64]
 
   const int g = blockIdx.x;  // kv head: a tile's heads run side by side (0 on one plane)
@@ -473,7 +498,7 @@ paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int s = 0; s < C::kStages - 1; ++s) {
     if (s < n_st)
-      load_stage<D, KV, kThreads>(stages + s * C::kStageElems, slot_tab + s * kStageKeys, pool,
+      load_stage<D, KV, kThreads>(smem + s * C::kRingStage, slot_tab + s * kStageKeys, pool,
                                   row, kv_off);
     cp_async_commit();
   }
@@ -493,7 +518,7 @@ paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     {
       const int s = it + C::kStages - 1;
       if (s < n_st)
-        load_stage<D, KV, kThreads>(stages + (s % C::kStages) * C::kStageElems,
+        load_stage<D, KV, kThreads>(smem + (s % C::kStages) * C::kRingStage,
                                     slot_tab + (s % C::kSlotTables) * kStageKeys, pool, row,
                                     kv_off);
       cp_async_commit();
@@ -502,8 +527,8 @@ paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     // compute, so the page-table load lands under it
     const int next_key = k_lo + (it + C::kStages) * kStageKeys + tid;
     const int fetched = tid < kStageKeys ? key_slot(pt, next_key, k_hi, page_size) : -1;
+    const uint32_t st = compute_stage<D, KV, kThreads, KT>(smem, it);  // fp8: converted here
     if (active) {
-      const uint32_t st = smem_u32(stages + (it % C::kStages) * C::kStageElems);
       const int* fl = slot_tab + (it % C::kSlotTables) * kStageKeys;  // -1: zero-filled key
       for (int sub = kg; sub < kStageKeys / 16; sub += wk) {
         const uint32_t sub_addr = st + sub * 16 * C::kRow * 2;
@@ -693,46 +718,46 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D, int QPK>
+template <typename T, typename KT, int D, int QPK>
 cudaError_t launch_simt(const Args& a) {
   const dim3 grid(a.num_tokens, a.num_heads / QPK);
-  paged_attention_kernel<T, D, QPK><<<grid, kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.pool), a.page_tables, a.kv_lens,
+  paged_attention_kernel<T, KT, D, QPK><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const KT*>(a.pool), a.page_tables, a.kv_lens,
       a.cu_q_lens, a.num_seqs, static_cast<T*>(a.out), a.num_heads, a.num_planes,
       a.page_size, a.max_pages, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, typename KT, int D>
 cudaError_t dispatch_simt_qpk(int qpk, const Args& a) {
   switch (qpk) {
-    case 1: return launch_simt<T, D, 1>(a);
-    case 2: return launch_simt<T, D, 2>(a);
-    case 4: return launch_simt<T, D, 4>(a);
-    case 8: return launch_simt<T, D, 8>(a);
+    case 1: return launch_simt<T, KT, D, 1>(a);
+    case 2: return launch_simt<T, KT, D, 2>(a);
+    case 4: return launch_simt<T, KT, D, 4>(a);
+    case 8: return launch_simt<T, KT, D, 8>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
+template <typename T, typename KT>
 cudaError_t dispatch_simt(int qpk, int head_dim, const Args& a) {
   if (a.num_planes == 1) {  // single-plane latent pool: (width, heads per block)
-    if (head_dim == 160 && qpk == 8) return launch_simt<T, 160, 8>(a);
-    if (head_dim == 80 && qpk == 4) return launch_simt<T, 80, 4>(a);
+    if (head_dim == 160 && qpk == 8) return launch_simt<T, KT, 160, 8>(a);
+    if (head_dim == 80 && qpk == 4) return launch_simt<T, KT, 80, 4>(a);
     return cudaErrorInvalidValue;
   }
   switch (head_dim) {
-    case 32: return dispatch_simt_qpk<T, 32>(qpk, a);
-    case 64: return dispatch_simt_qpk<T, 64>(qpk, a);
-    case 128: return dispatch_simt_qpk<T, 128>(qpk, a);
+    case 32: return dispatch_simt_qpk<T, KT, 32>(qpk, a);
+    case 64: return dispatch_simt_qpk<T, KT, 64>(qpk, a);
+    case 128: return dispatch_simt_qpk<T, KT, 128>(qpk, a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <int D, int QPK, int KV = 2>
+template <typename KT, int D, int QPK, int KV = 2>
 cudaError_t launch_mma(const Args& a) {
-  using C = MmaCfg<D, KV>;
-  const auto kernel = paged_attention_mma_kernel<D, QPK, KV>;
+  using C = MmaCfg<D, KV, KT>;
+  const auto kernel = paged_attention_mma_kernel<D, QPK, KV, KT>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (attr != cudaSuccess) return attr;
@@ -741,7 +766,7 @@ cudaError_t launch_mma(const Args& a) {
   float2* part_ml = reinterpret_cast<float2*>(a.scratch + parts * D);
   const dim3 grid(a.num_heads / QPK, a.n_slots, a.n_splits);
   kernel<<<grid, kThreads, C::kSmem, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.pool),
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const KT*>(a.pool),
       a.page_tables, a.kv_lens, a.cu_q_lens, a.num_seqs, static_cast<__nv_bfloat16*>(a.out),
       part_o, part_ml, a.num_tokens, a.num_heads, a.num_planes, a.page_size, a.max_pages,
       a.scale * kLog2e, a.n_slots, a.n_splits, a.split_keys);
@@ -754,19 +779,20 @@ cudaError_t launch_mma(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int D>
+template <typename KT, int D>
 cudaError_t dispatch_mma_qpk(int qpk, const Args& a) {
   switch (qpk) {
-    case 1: return launch_mma<D, 1>(a);
-    case 2: return launch_mma<D, 2>(a);
-    case 4: return launch_mma<D, 4>(a);
-    case 8: return launch_mma<D, 8>(a);
+    case 1: return launch_mma<KT, D, 1>(a);
+    case 2: return launch_mma<KT, D, 2>(a);
+    case 4: return launch_mma<KT, D, 4>(a);
+    case 8: return launch_mma<KT, D, 8>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+template <typename KT>
 cudaError_t dispatch_mma(int qpk, int head_dim, int tq, const Args& a) {
   // the splits cover every key; more than one: whole stages, and partials
   if (tq * qpk != kMmaRows || a.n_slots <= 0 || a.n_slots > 65535 ||
@@ -776,11 +802,11 @@ cudaError_t dispatch_mma(int qpk, int head_dim, int tq, const Args& a) {
       !aligned16(a.q) || !aligned16(a.pool) || !aligned16(a.out))
     return cudaErrorInvalidValue;
   if (a.num_planes == 1)  // latent pool: all 16 heads of moe-wide-mla's plane in a tile
-    return head_dim == 160 && qpk == 16 ? launch_mma<160, 16, 1>(a) : cudaErrorInvalidValue;
+    return head_dim == 160 && qpk == 16 ? launch_mma<KT, 160, 16, 1>(a) : cudaErrorInvalidValue;
   switch (head_dim) {
-    case 32: return dispatch_mma_qpk<32>(qpk, a);
-    case 64: return dispatch_mma_qpk<64>(qpk, a);
-    case 128: return dispatch_mma_qpk<128>(qpk, a);
+    case 32: return dispatch_mma_qpk<KT, 32>(qpk, a);
+    case 64: return dispatch_mma_qpk<KT, 64>(qpk, a);
+    case 128: return dispatch_mma_qpk<KT, 128>(qpk, a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -790,8 +816,9 @@ cudaError_t dispatch_mma(int qpk, int head_dim, int tq, const Args& a) {
 // num_planes: 2*Hk for a K/V pool, 1 for the single-plane latent pool.
 // heads_per_block: H/Hk for a K/V pool; for a latent pool, the query heads one
 // block serves (simt: 8 at width 160, 4 at width 80; mma: all 16 at width
-// 160). dtype: 0 = float32, 1 = bfloat16. instance: 0 = simt,
-// 1 = mma (bf16; then tq = 64 / heads_per_block tokens per query tile,
+// 160). dtype (q and out): 0 = float32, 1 = bfloat16. kv_dtype (the pool):
+// dtype's code, or 2 = float8_e4m3 beside either. instance: 0 = simt,
+// 1 = mma (bf16 q; then tq = 64 / heads_per_block tokens per query tile,
 // n_slots tile slots, n_splits KV
 // splits of split_keys keys each, a multiple of 64, and with n_splits > 1
 // scratch holds n_splits * num_tokens * num_heads * (head_dim + 2) floats).
@@ -802,7 +829,8 @@ extern "C" int llmd_paged_attention(const void* q, const void* pool, const int* 
                                     const int* num_seqs, void* out, void* scratch,
                                     int num_tokens, int num_heads, int num_planes,
                                     int heads_per_block, int head_dim, int page_size,
-                                    int max_pages, float scale, int dtype, int instance,
+                                    int max_pages, float scale, int dtype, int kv_dtype,
+                                    int instance,
                                     int tq, int n_slots, int n_splits, int split_keys,
                                     void* stream) {
   if (num_tokens <= 0) return 0;
@@ -813,10 +841,19 @@ extern "C" int llmd_paged_attention(const void* q, const void* pool, const int* 
                static_cast<float*>(scratch), num_tokens, num_heads, num_planes, page_size,
                max_pages, scale, n_slots, n_splits, split_keys,
                static_cast<cudaStream_t>(stream)};
-  if (instance == kMma)
-    return dtype == 1 ? dispatch_mma(heads_per_block, head_dim, tq, a) : cudaErrorInvalidValue;
+  if (instance == kMma) {
+    if (dtype != 1) return cudaErrorInvalidValue;
+    if (kv_dtype == 1) return dispatch_mma<__nv_bfloat16>(heads_per_block, head_dim, tq, a);
+    if (kv_dtype == 2) return dispatch_mma<__nv_fp8_e4m3>(heads_per_block, head_dim, tq, a);
+    return cudaErrorInvalidValue;
+  }
   if (instance != kSimt) return cudaErrorInvalidValue;
-  if (dtype == 0) return dispatch_simt<float>(heads_per_block, head_dim, a);
-  if (dtype == 1) return dispatch_simt<__nv_bfloat16>(heads_per_block, head_dim, a);
+  if (dtype == 0 && kv_dtype == 0) return dispatch_simt<float, float>(heads_per_block, head_dim, a);
+  if (dtype == 1 && kv_dtype == 1)
+    return dispatch_simt<__nv_bfloat16, __nv_bfloat16>(heads_per_block, head_dim, a);
+  if (dtype == 0 && kv_dtype == 2)
+    return dispatch_simt<float, __nv_fp8_e4m3>(heads_per_block, head_dim, a);
+  if (dtype == 1 && kv_dtype == 2)
+    return dispatch_simt<__nv_bfloat16, __nv_fp8_e4m3>(heads_per_block, head_dim, a);
   return cudaErrorInvalidValue;
 }

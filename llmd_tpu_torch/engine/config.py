@@ -13,7 +13,9 @@ decoding (``spec_mode`` ``off`` | ``ngram``, ``spec_tokens``,
 ``spec_ngram_max`` / ``_min``) and structured outputs (``structured_mode``
 ``auto`` | ``off``, ``structured_fused_decode``,
 ``structured_table_max_elems``, ``spec_structured``,
-``spec_structured_crosscheck``) are served with the reference's validation.
+``spec_structured_crosscheck``) are served with the reference's validation,
+and so is ``kv_cache_dtype`` (``None``: the model's dtype; ``"fp8"``: a
+``float8_e4m3fn`` pool).
 """
 
 from __future__ import annotations
@@ -93,6 +95,9 @@ class EngineConfig:
     # Weight-only quantization: None | "int8" (per-output-channel, at
     # construction; models/quant.py).
     quantize_weights: "str | None" = None
+    # KV pool dtype: None = the model's; "fp8" stores pages as float8_e4m3fn
+    # (writes clamp to +-448 first), halving decode's KV read stream; the
+    # attention kernels read the fp8 pages themselves.
     kv_cache_dtype: "str | None" = None
     kv_layout: str = "auto"
     eplb: Optional[EPLBConfig] = None
@@ -151,6 +156,9 @@ class EngineConfig:
         if bad:
             raise ValueError(f"EngineConfig options {bad} are not served by the "
                              "port yet (see ROADMAP.md Queue A)")
+        if self.kv_cache_dtype not in (None, "fp8"):
+            raise ValueError(f"unknown kv_cache_dtype={self.kv_cache_dtype!r}"
+                             " (supported: 'fp8')")
         if self.quantize_weights not in (None, "int8"):
             raise ValueError(f"unknown quantize_weights={self.quantize_weights!r} "
                              "(supported: 'int8')")
@@ -183,6 +191,7 @@ SERVED = frozenset({
     "max_num_batched_tokens", "enable_prefix_caching", "decode_steps", "attn_impl",
     "moe_matmul", "moe_dispatch", "eplb", "pipeline_decode", "pipeline_depth",
     "pack_overlap", "pipeline_prefill_sample", "instrument", "quantize_weights",
+    "kv_cache_dtype",
     "spec_mode", "spec_tokens", "spec_ngram_max", "spec_ngram_min", "structured_mode",
     "structured_fused_decode", "structured_table_max_elems", "spec_structured",
     "spec_structured_crosscheck",

@@ -178,6 +178,7 @@ class EngineStats:
     decode_tokens_fused: int = 0
     total_preemptions: int = 0
     attn_backend: str = ""  # kernel provenance
+    kv_cache_dtype: str = ""  # "fp8" | the model dtype's name: pool dtype provenance
     moe_backend: str = ""  # expert-GEMM provenance
     moe_dispatch: str = ""  # "sorted" | "einsum" | "n/a (dense model)"
     moe_dropped_tokens: int = 0  # routed copies dropped past capacity (einsum)
@@ -296,8 +297,12 @@ class LLMEngine:
             params = quantize_params(model_cfg, params)
         self.quantization = engine_cfg.quantize_weights
         self.params = params
+        fp8 = engine_cfg.kv_cache_dtype == "fp8"
         self.cache = init_cache(model_cfg, engine_cfg.num_pages, engine_cfg.page_size,
+                                dtype=torch.float8_e4m3fn if fp8 else None,
                                 device=self.device)
+        self.stats.kv_cache_dtype = ("fp8" if fp8
+                                     else str(model_cfg.torch_dtype).removeprefix("torch."))
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         # attention of each program is a kernel's wrapper: the CUDA kernel on
         # the card, its plain version for CPU tensors
@@ -343,7 +348,8 @@ class LLMEngine:
         if util_ledger_enabled():
             self.util = UtilLedger(
                 model_cfg, device_kind=torch.cuda.get_device_name(self.device)
-                if on_card else "", quantize_weights=engine_cfg.quantize_weights)
+                if on_card else "", quantize_weights=engine_cfg.quantize_weights,
+                kv_cache_dtype=engine_cfg.kv_cache_dtype)
             attach_util_exporter(self.util, self.metrics)
 
     def compile_counts(self) -> dict[str, int]:

@@ -1,11 +1,13 @@
 """CLI: python -m llmd_tpu_torch.engine.serve --model llama-1b --port 8000 [--cpu]
-         [--moe-dispatch auto|sorted|einsum] [--quantize int8] [--kv-events-port N]
+         [--moe-dispatch auto|sorted|einsum] [--quantize int8] [--kv-cache-dtype fp8]
+         [--kv-events-port N]
 
 Serves ``--model`` on the port's HTTP server: a registry name with random
 weights from ``--seed``, or an HF checkpoint directory with its weights
 (``models/hf_loader``) and, unless ``--tokenizer`` says otherwise, the HF
 tokenizer in that directory when it has one. ``--quantize int8`` serves int8
-weight-only weights (quantized at start). Runs on the CUDA card unless
+weight-only weights (quantized at start); ``--kv-cache-dtype fp8`` a
+``float8_e4m3fn`` KV pool. Runs on the CUDA card unless
 ``--cpu`` is given. ``--kv-events-port`` publishes the engine's KV events
 over ZMQ PUB on that port (0 picks a free one) for a router's KV indexer.
 Flag names follow the reference CLI
@@ -40,6 +42,9 @@ def main(argv: "list[str] | None" = None) -> None:
                          "capacity einsum (per-expert grouped GEMM)")
     ap.add_argument("--quantize", default=None, choices=("int8",),
                     help="weight-only quantization (EngineConfig.quantize_weights)")
+    ap.add_argument("--kv-cache-dtype", default=None, choices=("fp8",),
+                    help="fp8 KV pool (EngineConfig.kv_cache_dtype): halves decode's "
+                         "per-step KV read stream")
     ap.add_argument("--tokenizer", default=None, help="local HF tokenizer dir")
     ap.add_argument("--seed", type=int, default=0, help="random-weight seed")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU (dev)")
@@ -61,7 +66,8 @@ def main(argv: "list[str] | None" = None) -> None:
         page_size=args.block_size, num_pages=args.num_pages,
         max_model_len=args.max_model_len, max_batch_size=args.max_batch_size,
         prefill_chunk=args.prefill_chunk, decode_steps=args.decode_steps,
-        moe_dispatch=args.moe_dispatch, quantize_weights=args.quantize)
+        moe_dispatch=args.moe_dispatch, quantize_weights=args.quantize,
+        kv_cache_dtype=args.kv_cache_dtype)
     server = EngineServer(
         model_cfg, engine_cfg,
         model_name=args.served_model_name, host=args.host, port=args.port,
@@ -76,7 +82,8 @@ def main(argv: "list[str] | None" = None) -> None:
           f"attention {server.engine.attn_backend}, MoE {server.engine.moe_dispatch} "
           f"{server.engine.moe_backend}, weights "
           f"{'hf:' + args.model if params is not None else 'random'}"
-          f"{', int8' if args.quantize else ''}{events})", flush=True)
+          f"{', int8' if args.quantize else ''}, KV pool "
+          f"{server.engine.stats.kv_cache_dtype}{events})", flush=True)
     try:
         threading.Event().wait()
     except KeyboardInterrupt:

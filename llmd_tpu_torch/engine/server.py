@@ -13,7 +13,8 @@ engine-loop thread (``AsyncLLMEngine``) steps the engine. Routes:
   SSE, one ``data:`` event per engine output (``text`` or ``delta.content``,
   ``finish_reason`` once finished, ``usage`` with ``cached_tokens`` on the
   last), then ``data: [DONE]``. A client that disconnects mid-stream aborts
-  its request. ``prompt`` may be a string or a list of token ids; ``stop``
+  its request. ``prompt`` is encoded as its text, as the reference does (a
+  list prompt as its ``str``; token ids go in ``prompt_token_ids``); ``stop``
   strings cut the text, streamed or not. The text of a stream is decoded
   incrementally, so its joined pieces equal the non-streamed text.
 - ``POST /v1/completions/render`` and ``/v1/chat/completions/render``:
@@ -267,17 +268,14 @@ class EngineServer:
                                            "inflight": len(self.engine.seqs)}
 
     def tokenize_body(self, body: dict) -> list[int]:
+        """The prompt's token ids, as the reference's ``_tokenize_body``:
+        ``prompt_token_ids`` as given, ``messages`` flattened, otherwise the
+        text of ``prompt`` (a list prompt is encoded as its ``str``)."""
         if body.get("prompt_token_ids"):
             return [int(t) for t in body["prompt_token_ids"]]
         if "messages" in body:
             return self.tokenizer.encode(flatten_messages(body["messages"]))
-        prompt = body.get("prompt", "")
-        if isinstance(prompt, list):
-            if prompt and all(isinstance(t, int) for t in prompt):
-                return list(prompt)
-            raise ValueError("prompt must be a string or a list of token ids "
-                             "(batched prompts are not served)")
-        return self.tokenizer.encode(str(prompt))
+        return self.tokenizer.encode(str(body.get("prompt", "")))
 
     def render(self, body: dict) -> tuple[int, dict]:
         try:

@@ -383,11 +383,22 @@ def init_cache(cfg: ModelConfig, num_pages: int, page_size: int,
     K/V writes of padding rows (position -1) land in its last row, the dump
     row (:func:`write_kv`, :func:`forward_core`). So a write needs no host
     read to find its real rows (the reference drops them with
-    ``mode="drop"``)."""
+    ``mode="drop"``).
+
+    ``dtype`` overrides the model dtype for the pool: ``torch.float8_e4m3fn``
+    halves decode's KV read stream (``EngineConfig.kv_cache_dtype="fp8"``);
+    the attention kernels read fp8 pages and their plain versions upcast
+    at use."""
     planes = 1 if cfg.is_mla else 2 * cfg.num_kv_heads
     return torch.zeros(
         (cfg.num_layers * num_pages + 1, page_size, planes, cfg.kv_cache_head_dim),
         dtype=dtype if dtype is not None else cfg.torch_dtype, device=device)
+
+
+# float8_e4m3fn has no inf: the reference's cast turns values past +-448 into
+# nan, torch's saturates; writes clamp first (as the reference's write_kv),
+# so the stored bytes depend on neither library's overflow.
+_FP8_MAX = 448.0
 
 
 def _write_rows(flat_cache: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -397,7 +408,12 @@ def _write_rows(flat_cache: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kv = k
     else:
         kv = torch.stack([k, v], dim=2).reshape(n, 2 * hk, d)
-    flat_cache.index_copy_(0, slots.long(), kv.to(flat_cache.dtype))
+    if flat_cache.dtype == torch.float8_e4m3fn:
+        # index_copy_ takes no fp8 (on the CPU): the same bytes through uint8 views
+        kv = kv.float().clamp(-_FP8_MAX, _FP8_MAX).to(torch.float8_e4m3fn)
+        flat_cache.view(torch.uint8).index_copy_(0, slots.long(), kv.view(torch.uint8))
+    else:
+        flat_cache.index_copy_(0, slots.long(), kv.to(flat_cache.dtype))
 
 
 def write_kv(flat_cache: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -408,7 +424,8 @@ def write_kv(flat_cache: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     S - 1 the dump row (:func:`init_cache`); k/v: [N, Hk, D]; slots: [N]
     global slot ids. Slot -1 marks padding and is written to the dump row,
     with no host read. A single-plane pool [S, 1, D] takes k [N, 1, D] (the
-    latent row) and ignores v."""
+    latent row) and ignores v. An fp8 pool stores the rows clamped to
+    +-448, then cast to ``float8_e4m3fn`` (unit scale), as the reference."""
     _write_rows(flat_cache, k, v, torch.where(slots >= 0, slots, flat_cache.shape[0] - 1))
     return flat_cache
 

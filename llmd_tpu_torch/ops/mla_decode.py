@@ -11,11 +11,18 @@ kernel on the TPU), with the reference's names:
   ``"mma"`` (bfloat16 at :data:`MMA_SHAPES`: tensor cores, the latent staged through shared memory
   by asynchronous copies and read as K and as V, work items of (sequence, KV
   split) laid out by :func:`_plan`) and ``"simt"`` (float32, and tiny-mla's
-  shape: CUDA-core FMAs, one block per sequence). ``mla_decode.launches`` counts the wrapper's
-  launches (one per layer), ``.launches_by_instance`` them per instance; a
-  CUDA-graph replay adds what its capture counted (``engine/cuda_graph.py``).
+  shape: CUDA-core FMAs, one block per sequence). Each also reads a
+  ``float8_e4m3fn`` latent pool (unit scale) beside a q of either dtype,
+  ``"mma_fp8"`` / ``"simt_fp8"``: the kernel reads the fp8 pages itself
+  (the reference's adapter upcasts the whole layer's pool before its
+  kernel, ``llmd_tpu/ops/mla_decode.py:195-199``, which on the card would
+  write a bf16 copy of the layer on every call). ``mla_decode.launches``
+  counts the wrapper's launches (one per layer), ``.launches_by_instance``
+  them per instance; a CUDA-graph replay adds what its capture counted
+  (``engine/cuda_graph.py``).
 * :func:`mla_decode_ref` is the plain PyTorch version: the tests' oracle and
-  the kernel's yardstick on the card.
+  the kernel's yardstick on the card. It reads the pool in float32, so an
+  fp8 pool is upcast at use.
 * :func:`mla_paged_attention_latent` is the uniform attention-impl adapter
   the engine's decode program takes on MLA models.
 
@@ -37,7 +44,7 @@ from typing import Optional
 
 import torch
 
-from llmd_tpu_torch.ops.paged_attention import _num_sms, split_keys
+from llmd_tpu_torch.ops.paged_attention import _POOL_CODE, FP8, _num_sms, split_keys
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INSTANCE_CODE = {"simt": 0, "mma": 1}
@@ -95,7 +102,7 @@ def _library():
 
     fn = load("mla_decode").lib.llmd_mla_decode
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                   + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -140,11 +147,14 @@ def _plan(batch: int, max_pages: int, page_size: int, num_sms: int = 132) -> Pla
                             num_sms))
 
 
-def _instance(dtype: torch.dtype, heads: int, width: int) -> str:
-    """The kernel instance for these inputs: ``"mma"`` for bfloat16 at a
+def _instance(dtype: torch.dtype, heads: int, width: int,
+              pool_dtype: Optional[torch.dtype] = None) -> str:
+    """The kernel instance for these inputs: ``"mma"`` for a bfloat16 q at a
     (heads, width) of ``MMA_SHAPES``; ``"simt"`` otherwise (float32 stays off
-    the tensor cores, which would take it in TF32)."""
-    return "mma" if dtype == torch.bfloat16 and (heads, width) in MMA_SHAPES else "simt"
+    the tensor cores, which would take it in TF32). On a float8_e4m3fn pool
+    (``pool_dtype``; q's dtype when not given) the same with ``"_fp8"``."""
+    base = "mma" if dtype == torch.bfloat16 and (heads, width) in MMA_SHAPES else "simt"
+    return base + "_fp8" if pool_dtype == FP8 else base
 
 
 def _check(q: torch.Tensor, layer_cache: torch.Tensor, page_tables: torch.Tensor,
@@ -152,9 +162,10 @@ def _check(q: torch.Tensor, layer_cache: torch.Tensor, page_tables: torch.Tensor
     """Raise for anything the kernel does not take."""
     B, H, D = q.shape
     P, ps, planes, Dc = layer_cache.shape
-    if q.dtype not in _DTYPE_CODE or layer_cache.dtype != q.dtype:
+    if q.dtype not in _DTYPE_CODE or layer_cache.dtype not in (q.dtype, FP8):
         raise TypeError(f"mla_decode: q {q.dtype} / pool {layer_cache.dtype}; "
-                        "the kernel takes float32 or bfloat16, both alike")
+                        "the kernel takes a float32 or bfloat16 q over a pool of "
+                        "q's dtype or float8_e4m3fn")
     if planes != 1 or Dc != D or (H, D) not in SHAPES:
         raise ValueError(f"mla_decode: no kernel instance for H={H} D={D} "
                          f"planes={planes} ((heads, width) in {SHAPES}, one plane)")
@@ -171,7 +182,10 @@ def _check(q: torch.Tensor, layer_cache: torch.Tensor, page_tables: torch.Tensor
 
 def _launch(q: torch.Tensor, layer_cache: torch.Tensor, page_tables: torch.Tensor,
             kv_lens: torch.Tensor, scale: float, instance: str) -> torch.Tensor:
-    """One launch of ``instance`` on checked inputs (counts nothing)."""
+    """One launch of ``instance`` (``"mma"`` or ``"simt"``; an ``"_fp8"``
+    suffix is implied by the pool's dtype) on checked inputs (counts
+    nothing)."""
+    instance = instance.removesuffix("_fp8")
     B, H, D = q.shape
     ps = layer_cache.shape[1]
     maxp = page_tables.shape[1]
@@ -191,7 +205,8 @@ def _launch(q: torch.Tensor, layer_cache: torch.Tensor, page_tables: torch.Tenso
         err = _library()(q.data_ptr(), layer_cache.data_ptr(), pt.data_ptr(),
                          lens.data_ptr(), out.data_ptr(),
                          None if scratch is None else scratch.data_ptr(), B, H, D, ps, maxp,
-                         float(scale), _DTYPE_CODE[q.dtype], _INSTANCE_CODE[instance],
+                         float(scale), _DTYPE_CODE[q.dtype], _POOL_CODE[layer_cache.dtype],
+                         _INSTANCE_CODE[instance],
                          plan.splits, plan.split_keys, stream)
     if err != 0:
         raise RuntimeError(f"mla_decode kernel ({instance}) launch failed: cudaError {err}")
@@ -215,7 +230,7 @@ def mla_decode(
     if q.device.type != "cuda":
         raise ValueError(f"mla_decode: unsupported device {q.device}")
     _check(q, layer_cache, page_tables, kv_lens)
-    instance = _instance(q.dtype, q.shape[1], q.shape[2])
+    instance = _instance(q.dtype, q.shape[1], q.shape[2], layer_cache.dtype)
     out = _launch(q, layer_cache, page_tables, kv_lens, scale, instance)
     mla_decode.launches += 1
     mla_decode.launches_by_instance[instance] += 1
@@ -223,7 +238,7 @@ def mla_decode(
 
 
 mla_decode.launches = 0
-mla_decode.launches_by_instance = {"mma": 0, "simt": 0}
+mla_decode.launches_by_instance = {"mma": 0, "simt": 0, "mma_fp8": 0, "simt_fp8": 0}
 
 
 def mla_paged_attention_latent(

@@ -23,14 +23,21 @@ same row, which is both K and V (absorbed MLA runs as MQA at the latent width
   cores, K/V tiles staged through shared memory by asynchronous copies, a
   latent tile read as K and as V, query tiles of :data:`MMA_ROWS` rows and
   KV splits laid out by :func:`_plan`) and ``"simt"`` (float32: CUDA-core
-  FMAs, one block per query token). ``paged_attention.launches`` counts the
-  wrapper's launches (one per layer), ``.launches_by_instance`` them per
+  FMAs, one block per query token). Each instance also reads a
+  ``float8_e4m3fn`` pool (``EngineConfig.kv_cache_dtype="fp8"``, unit
+  scales) beside a q of either dtype: ``"mma_fp8"`` copies the raw fp8 pages
+  and converts each stage to bfloat16 in shared memory, so it computes
+  exactly what ``"mma"`` computes on ``pool.to(torch.bfloat16)``;
+  ``"simt_fp8"`` converts each element as it reads it. They take every shape
+  their bfloat16 / float32 twins take. ``paged_attention.launches`` counts
+  the wrapper's launches (one per layer), ``.launches_by_instance`` them per
   instance; a CUDA-graph replay of a program that launches it adds what
   the capture counted (``engine/cuda_graph.py``), so both count device
   launches.
 * :func:`paged_attention_ref` is the plain PyTorch version, a port of
   ``ragged_paged_attention_xla`` (``llmd_tpu/models/transformer.py:428``): the
-  tests' oracle and the kernel's yardstick on the card.
+  tests' oracle and the kernel's yardstick on the card. An fp8 pool is
+  upcast to q's dtype at use, as there (``:474-477``).
 
 The kernel masks by ``cu_q_lens``/``kv_lens``, the plain version by
 ``positions``; the two agree because every sequence's queries are its last
@@ -50,6 +57,9 @@ from typing import Optional
 import torch
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the pool's dtype: q's, or float8_e4m3fn (unit scales) beside either
+_POOL_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
+FP8 = torch.float8_e4m3fn
 _INSTANCE_CODE = {"simt": 0, "mma": 1}
 HEAD_DIMS = (32, 64, 128)
 GROUP_SIZES = (1, 2, 4, 8)  # query heads per kv head with a kernel instance
@@ -98,6 +108,8 @@ def paged_attention_ref(
         C = qc.shape[0]
         pt = pts[bc]  # [C, maxp] owning sequence's pages, in order
         kv = layer_cache[pt.clamp(min=0)].reshape(C, S, HkC, D)
+        if kv.dtype == FP8:  # fp8 pages upcast at use: p @ v never runs in fp8
+            kv = kv.to(q.dtype)
         if single_plane:
             kc = vc = kv  # [C, S, 1, D] shared latent
         else:
@@ -145,7 +157,7 @@ def _library():
 
     fn = load("paged_attention").lib.llmd_paged_attention
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float]
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -223,19 +235,23 @@ def _num_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _instance(dtype: torch.dtype, planes: int, head_dim: int, qpk: int) -> str:
+def _instance(dtype: torch.dtype, planes: int, head_dim: int, qpk: int,
+              pool_dtype: Optional[torch.dtype] = None) -> str:
     """The kernel instance for these inputs (``qpk``: query heads per kv
-    head, all H on a single-plane pool): ``"mma"`` for bfloat16 on a K/V pool
+    head, all H on a single-plane pool; ``pool_dtype``: the pool's, q's
+    ``dtype`` when not given): ``"mma"`` for a bfloat16 q on a K/V pool
     (planes 2*Hk) at a head dim of ``HEAD_DIMS`` and a group of
     ``GROUP_SIZES``, or on a latent pool (one plane) at a width and head
     count of ``LATENT_MMA_HEADS``; ``"simt"`` otherwise (float32 stays off
-    the tensor cores, which would take it in TF32)."""
+    the tensor cores, which would take it in TF32). On a float8_e4m3fn pool
+    the same choice with ``"_fp8"`` appended."""
+    base = "simt"
     if dtype == torch.bfloat16:
         if planes == 1:
-            return "mma" if LATENT_MMA_HEADS.get(head_dim) == qpk else "simt"
-        if head_dim in HEAD_DIMS and qpk in GROUP_SIZES:
-            return "mma"
-    return "simt"
+            base = "mma" if LATENT_MMA_HEADS.get(head_dim) == qpk else "simt"
+        elif head_dim in HEAD_DIMS and qpk in GROUP_SIZES:
+            base = "mma"
+    return base + "_fp8" if pool_dtype == FP8 else base
 
 
 def _check(q: torch.Tensor, layer_cache: torch.Tensor, page_tables: torch.Tensor,
@@ -248,9 +264,10 @@ def _check(q: torch.Tensor, layer_cache: torch.Tensor, page_tables: torch.Tensor
     N, H, D = q.shape
     P, ps, HkC, Dc = layer_cache.shape
     B, maxp = page_tables.shape
-    if q.dtype not in _DTYPE_CODE or layer_cache.dtype != q.dtype:
+    if q.dtype not in _DTYPE_CODE or layer_cache.dtype not in (q.dtype, FP8):
         raise TypeError(f"paged_attention: q {q.dtype} / pool {layer_cache.dtype}; "
-                        "the kernel takes float32 or bfloat16, both alike")
+                        "the kernel takes a float32 or bfloat16 q over a pool of "
+                        "q's dtype or float8_e4m3fn")
     if HkC == 1:  # single-plane latent pool: simt serves H in blocks of `per`
         per = LATENT_HEADS_PER_BLOCK.get(D, 0)
         group = H
@@ -285,8 +302,10 @@ def _int32(t: torch.Tensor) -> torch.Tensor:
 def _launch(q: torch.Tensor, layer_cache: torch.Tensor, page_tables: torch.Tensor,
             kv_lens: torch.Tensor, cu_q_lens: torch.Tensor, num_seqs: torch.Tensor,
             scale: float, group: int, instance: str) -> torch.Tensor:
-    """One launch of ``instance`` on checked inputs (``group``: query heads
-    per kv head, as :func:`_check` returns it); counts nothing."""
+    """One launch of ``instance`` (``"mma"`` or ``"simt"``; an ``"_fp8"``
+    suffix is implied by the pool's dtype) on checked inputs (``group``:
+    query heads per kv head, as :func:`_check` returns it); counts nothing."""
+    instance = instance.removesuffix("_fp8")
     N, H, D = q.shape
     _, ps, HkC, _ = layer_cache.shape
     B, maxp = page_tables.shape
@@ -308,7 +327,8 @@ def _launch(q: torch.Tensor, layer_cache: torch.Tensor, page_tables: torch.Tenso
             q.data_ptr(), layer_cache.data_ptr(), pt.data_ptr(), lens.data_ptr(),
             cu.data_ptr(), ns.data_ptr(), out.data_ptr(),
             None if scratch is None else scratch.data_ptr(), N, H, HkC, per_block, D, ps,
-            maxp, float(scale), _DTYPE_CODE[q.dtype], _INSTANCE_CODE[instance], plan.tq,
+            maxp, float(scale), _DTYPE_CODE[q.dtype], _POOL_CODE[layer_cache.dtype],
+            _INSTANCE_CODE[instance], plan.tq,
             plan.slots, plan.splits, plan.split_keys, stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel ({instance}) launch failed: "
@@ -336,7 +356,7 @@ def paged_attention(
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     group = _check(q, layer_cache, page_tables, kv_lens, cu_q_lens, num_seqs)
-    instance = _instance(q.dtype, layer_cache.shape[2], q.shape[2], group)
+    instance = _instance(q.dtype, layer_cache.shape[2], q.shape[2], group, layer_cache.dtype)
     out = _launch(q, layer_cache, page_tables, kv_lens, cu_q_lens, num_seqs, scale,
                   group, instance)
     paged_attention.launches += 1
@@ -345,4 +365,4 @@ def paged_attention(
 
 
 paged_attention.launches = 0
-paged_attention.launches_by_instance = {"mma": 0, "simt": 0}
+paged_attention.launches_by_instance = {"mma": 0, "simt": 0, "mma_fp8": 0, "simt_fp8": 0}

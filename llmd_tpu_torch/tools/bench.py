@@ -2,14 +2,16 @@
 
     python -m llmd_tpu_torch.tools.bench [--tiny] [--cpu] [--model NAME_OR_DIR]
         [--batch N] [--decode-steps K] [--isl N] [--osl N]
-        [--quantize int8|none|default] [--moe-dispatch auto|sorted|einsum]
+        [--quantize int8|none|default] [--kv-dtype fp8|bf16|default]
+        [--moe-dispatch auto|sorted|einsum]
         [--chain-depth N] [--pack-overlap on|off] [--spec-mode off|ngram]
         [--spec-tokens N] [--structured-fused on|off]
         [--workload uniform|echo|json|json-echo] [--assert-spec-structured]
 
 The reference's headline run: 64 concurrent requests of ISL 256 / OSL 128,
 greedy with ``ignore_eos``, on ``llama-1b`` with int8 weight-only weights
-(``--quantize none`` for bf16), through the engine's unified chunked prefill
+(``--quantize none`` for bf16; ``--kv-dtype fp8`` for a ``float8_e4m3fn``
+KV pool), through the engine's unified chunked prefill
 and its captured, pipelined multi-step decode. ``--model`` takes a registry
 name or an HF checkpoint directory; with no flag ``checkpoints/llama-1b-hf``
 at the repo root is served when it exists, else random weights from seed 0
@@ -92,7 +94,6 @@ REFUSED = {
                                 "ops/attn_tune.py)"),
     "kv_layout": ((None,), "Queue A item 7 (ops/packed_kv is not ported: it reclaims TPU "
                            "lane padding the port never adds)"),
-    "kv_dtype": (("default", "bf16"), "Queue B item 3 (fp8-e4m3 pools)"),
     "attn_impl": (("auto",), "Queue A item 7 (the reference's pallas/reference modes)"),
 }
 # json workload: a bounded schema (enum / boolean / maxLength: a DAG grammar),
@@ -119,6 +120,9 @@ def parse_args(argv: "list[str] | None" = None) -> argparse.Namespace:
     ap.add_argument("--quantize", default="default", choices=["int8", "none", "default"],
                     help="weight-only quantization; default: int8, off for --tiny")
     ap.add_argument("--moe-dispatch", default="auto", choices=["auto", "sorted", "einsum"])
+    ap.add_argument("--kv-dtype", default="default", choices=["fp8", "bf16", "default"],
+                    help="KV pool dtype (EngineConfig.kv_cache_dtype): fp8 halves "
+                         "decode's per-step KV read stream; default / bf16: the model's")
     ap.add_argument("--chain-depth", type=int, default=None,
                     help="decode calls in flight (EngineConfig.pipeline_depth)")
     ap.add_argument("--pack-overlap", default="on", choices=["on", "off"])
@@ -127,7 +131,6 @@ def parse_args(argv: "list[str] | None" = None) -> argparse.Namespace:
     ap.add_argument("--tune-attn", action="store_true")
     ap.add_argument("--attn-tune-file", default=None)
     ap.add_argument("--kv-layout", default=None)
-    ap.add_argument("--kv-dtype", default="default", choices=["fp8", "bf16", "default"])
     ap.add_argument("--attn-impl", default="auto")
     ap.add_argument("--spec-mode", default="off", choices=["off", "ngram"],
                     help="ngram: prompt-lookup drafts through the verify program")
@@ -286,6 +289,7 @@ def main(argv: "list[str] | None" = None) -> int:
         eng_cfg.quantize_weights = None if tiny else "int8"
     else:
         eng_cfg.quantize_weights = None if args.quantize == "none" else "int8"
+    eng_cfg.kv_cache_dtype = "fp8" if args.kv_dtype == "fp8" else None
     eng_cfg.moe_dispatch = args.moe_dispatch
     eng_cfg.pack_overlap = args.pack_overlap == "on"
     if args.chain_depth is not None:
@@ -341,7 +345,8 @@ def main(argv: "list[str] | None" = None) -> int:
     # fresh counters for the measured window; the ledger's totals are deltas
     # against this snapshot
     eng.stats = EngineStats(attn_backend=eng.attn_backend, moe_backend=eng.moe_backend,
-                            moe_dispatch=eng.moe_dispatch)
+                            moe_dispatch=eng.moe_dispatch,
+                            kv_cache_dtype=eng.stats.kv_cache_dtype)
     base = ((eng.util.totals(), eng.util.compiles(), eng.util.moe_comm_total())
             if eng.util is not None else None)
     wrappers = kernel_wrappers()
@@ -433,7 +438,7 @@ def main(argv: "list[str] | None" = None) -> int:
         "vs_baseline": round(tput / B200_ANCHOR_TOK_S, 4),
         "weights": weights_src,
         "quantize": eng_cfg.quantize_weights,
-        "kv_cache_dtype": "bf16" if cfg.dtype == "bfloat16" else cfg.dtype,
+        "kv_cache_dtype": eng.stats.kv_cache_dtype,
         "attn_backend": eng.attn_backend,
         "moe_backend": eng.moe_backend,
         "moe_dispatch": eng.moe_dispatch,

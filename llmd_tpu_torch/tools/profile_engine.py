@@ -88,12 +88,17 @@ def launch_calls(prof) -> dict[str, int]:
 
 
 # the device kernel that each wrapper instance launches once a call (a split
-# launch adds a merge kernel, which is not one of these)
+# launch adds a merge kernel, which is not one of these); an fp8 pool's
+# variant is the same template over another pool type
 KERNEL_OF_INSTANCE = {
     ("paged_attention", "mma"): "paged_attention_mma_kernel",
     ("paged_attention", "simt"): "paged_attention_kernel",
+    ("paged_attention", "mma_fp8"): "paged_attention_mma_kernel",
+    ("paged_attention", "simt_fp8"): "paged_attention_kernel",
     ("mla_decode", "mma"): "mla_decode_mma_kernel",
     ("mla_decode", "simt"): "mla_decode_kernel",
+    ("mla_decode", "mma_fp8"): "mla_decode_mma_kernel",
+    ("mla_decode", "simt_fp8"): "mla_decode_kernel",
     ("ragged_grouped_gemm", "wgmma"): "grouped_gemm_wgmma_kernel",
     ("ragged_grouped_gemm", "simt"): "grouped_gemm_simt_kernel",
     ("grouped_gemm", "wgmma"): "grouped_gemm_wgmma_kernel",
@@ -159,7 +164,8 @@ def k1_host_us(eng, batch: int, prompt_len: int, seed: int) -> dict:
     ps, planes, D = pool.shape[1], pool.shape[2], pool.shape[3]
     maxp = eng.cfg.max_pages_per_seq
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn((batch, cfg.num_heads, D), generator=g, device=dev).to(pool.dtype)
+    # q in the model's dtype: an fp8 pool's dtype is not q's
+    q = torch.randn((batch, cfg.num_heads, D), generator=g, device=dev).to(cfg.torch_dtype)
     n_pages = -(-(prompt_len + 1) // ps)
     pts = torch.full((batch, maxp), -1, dtype=torch.int32, device=dev)
     pts[:, :n_pages] = torch.arange(batch * n_pages, dtype=torch.int32,
@@ -170,7 +176,7 @@ def k1_host_us(eng, batch: int, prompt_len: int, seed: int) -> dict:
     ns = torch.tensor([batch], dtype=torch.int32, device=dev)
     scale = D ** -0.5
     group = pa._check(q, pool, pts, lens, cu, ns)
-    instance = pa._instance(q.dtype, planes, D, group)
+    instance = pa._instance(q.dtype, planes, D, group, pool.dtype)
     plan = pa._plan(batch, batch, maxp, ps, group, planes // 2, pa._num_sms(dev.index or 0))
     scratch = torch.empty(plan.splits * batch * cfg.num_heads * (D + 2), dtype=torch.float32,
                           device=dev)
@@ -179,7 +185,8 @@ def k1_host_us(eng, batch: int, prompt_len: int, seed: int) -> dict:
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (q.data_ptr(), pool.data_ptr(), pts.data_ptr(), lens.data_ptr(), cu.data_ptr(),
             ns.data_ptr(), out.data_ptr(), scratch.data_ptr(), batch, cfg.num_heads, planes,
-            group, D, ps, maxp, scale, pa._DTYPE_CODE[q.dtype], pa._INSTANCE_CODE[instance],
+            group, D, ps, maxp, scale, pa._DTYPE_CODE[q.dtype], pa._POOL_CODE[pool.dtype],
+            pa._INSTANCE_CODE[instance.removesuffix("_fp8")],
             plan.tq, plan.slots, plan.splits, plan.split_keys, stream)
     return {"k1_instance": instance, "k1_splits": plan.splits,
             "k1_host_us_per_launch": _host_us(lambda: pa.paged_attention(
@@ -201,14 +208,15 @@ def k3_host_us(eng, batch: int, prompt_len: int, seed: int) -> dict:
     ps, D = pool.shape[1], pool.shape[3]
     maxp = eng.cfg.max_pages_per_seq
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn((batch, cfg.num_heads, D), generator=g, device=dev).to(pool.dtype)
+    # q in the model's dtype: an fp8 pool's dtype is not q's
+    q = torch.randn((batch, cfg.num_heads, D), generator=g, device=dev).to(cfg.torch_dtype)
     n_pages = -(-(prompt_len + 1) // ps)
     pts = torch.full((batch, maxp), -1, dtype=torch.int32, device=dev)
     pts[:, :n_pages] = torch.arange(batch * n_pages, dtype=torch.int32,
                                     device=dev).view(batch, n_pages)
     lens = torch.full((batch,), prompt_len + 1, dtype=torch.int32, device=dev)
     scale = 0.1
-    instance = md._instance(q.dtype, cfg.num_heads, D)
+    instance = md._instance(q.dtype, cfg.num_heads, D, pool.dtype)
     plan = md._plan(batch, maxp, ps, md._num_sms(dev.index or 0))
     scratch = torch.empty(plan.splits * batch * cfg.num_heads * (D + 2), dtype=torch.float32,
                           device=dev)
@@ -218,7 +226,8 @@ def k3_host_us(eng, batch: int, prompt_len: int, seed: int) -> dict:
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (q.data_ptr(), pool.data_ptr(), pt0.data_ptr(), lens.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), batch, cfg.num_heads, D, ps, maxp, scale,
-            md._DTYPE_CODE[q.dtype], md._INSTANCE_CODE[instance], plan.splits,
+            md._DTYPE_CODE[q.dtype], md._POOL_CODE[pool.dtype],
+            md._INSTANCE_CODE[instance.removesuffix("_fp8")], plan.splits,
             plan.split_keys, stream)
     return {"k3_instance": instance, "k3_splits": plan.splits,
             "k3_host_us_per_launch": _host_us(lambda: md.mla_paged_attention_latent(

@@ -11,7 +11,8 @@ prompts of 64 tokens = 256): the reference pads a unified step to the
 budget and the port runs exactly its real tokens, so on a partial step the
 two differ; the port's padding here is the decode program's slots past each
 row's budget (4 calls x 8 slots x 8 steps - 248 tokens). Flags for features
-the port does not serve exit non-zero naming their ROADMAP item.
+the port does not serve exit non-zero naming their ROADMAP item; ``--kv-dtype
+fp8`` is served (an fp8 KV pool, the reference's ``kv_cache_dtype="fp8"``).
 
 The speculative and structured runs (``--spec-mode ngram --workload echo``,
 ``--workload json-echo --assert-spec-structured``, ``--workload json`` with
@@ -79,7 +80,8 @@ def test_tiny_cpu_bench_keys_and_counters(capsys, reference):
     assert row["decode_mfu"] is None and row["weights_bw_util"] is None
     assert 0 < row["ttft_p50_ms"] <= row["ttft_p90_ms"] <= row["e2e_p90_ms"]
     assert row["e2e_mean_ms"] <= row["wall_s"] * 1e3
-    assert row["kernel_launches"]["paged_attention"] == {"mma": 0, "simt": 0}  # plain on the CPU
+    assert row["kernel_launches"]["paged_attention"] == {  # plain on the CPU
+        "mma": 0, "simt": 0, "mma_fp8": 0, "simt_fp8": 0}
     # the gate reads the payload: provenance differs from any TPU baseline,
     # so throughput is skipped and the counters compared
     assert pr.extract_payload(row) is row
@@ -96,7 +98,7 @@ def test_tiny_cpu_bench_int8(capsys, reference):
 
 @pytest.mark.parametrize("argv", [
     ["--layer-unroll", "2"], ["--tune-attn"], ["--attn-tune-file", "t.json"],
-    ["--kv-layout", "padded"], ["--kv-dtype", "fp8"], ["--attn-impl", "pallas"],
+    ["--kv-layout", "padded"], ["--attn-impl", "pallas"],
 ])
 def test_unserved_flags_exit_nonzero(capsys, argv):
     with pytest.raises(SystemExit) as e:
@@ -104,6 +106,20 @@ def test_unserved_flags_exit_nonzero(capsys, argv):
     assert e.value.code != 0
     err = capsys.readouterr().err
     assert "not served by the port: ROADMAP" in err and argv[0] in err
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp8", "bf16"])
+def test_tiny_cpu_bench_kv_dtype(capsys, reference, kv_dtype):
+    """``--kv-dtype fp8`` (as ``bench.py``'s: ``kv_cache_dtype="fp8"``) serves
+    the window over a float8_e4m3fn pool and says so; ``bf16`` keeps the
+    model's pool, as the reference's. The counters are the reference's (the
+    pool's dtype moves no token or step)."""
+    row = _run(capsys, ["--tiny", "--cpu", "--kv-dtype", kv_dtype])
+    assert row["kv_cache_dtype"] == ("fp8" if kv_dtype == "fp8" else reference["kv_cache_dtype"])
+    for key in EXACT:
+        assert row[key] == reference[key], key
+    assert row["recompiles"] == 0
+    assert not any(sum(by.values()) for by in row["kernel_launches"].values())  # plain on CPU
 
 
 @pytest.mark.parametrize("argv", [

@@ -204,8 +204,8 @@ def test_sampler_draws_only_from_top_k():
 def test_unserved_options_raise(make, reference):
     with pytest.raises(ValueError, match="spec_mode"):
         make(spec_mode="medusa")  # the reference's validation: off | ngram
-    with pytest.raises(ValueError, match="kv_cache_dtype"):
-        make(kv_cache_dtype="fp8")
+    with pytest.raises(ValueError, match="unknown kv_cache_dtype"):  # the reference's words
+        make(kv_cache_dtype="int4")
     # every field the port does not read raises when set away from its default
     for field, value in (("kv_layout", "packed"), ("max_queue", 1),
                          ("cpu_offload_pages", 4)):

@@ -56,6 +56,12 @@ assert {"llmd_tpu_torch.structured", "llmd_tpu_torch.structured.regex_dfa",
         "llmd_tpu_torch.structured.json_schema", "llmd_tpu_torch.structured.grammar",
         "llmd_tpu_torch.structured.cache", "llmd_tpu_torch.engine.spec",
         "llmd_tpu_torch.engine.verify_program", "llmd_tpu_torch.engine.programs"} <= set(names)
+# and the fp8 pool's: both kernels' wrappers, the write path, the engine, its
+# config and CLI, the bench and the profiler
+assert {"llmd_tpu_torch.ops.paged_attention", "llmd_tpu_torch.ops.mla_decode",
+        "llmd_tpu_torch.models.transformer", "llmd_tpu_torch.engine.config",
+        "llmd_tpu_torch.engine.engine", "llmd_tpu_torch.engine.serve",
+        "llmd_tpu_torch.tools.bench", "llmd_tpu_torch.tools.profile_engine"} <= set(names)
 assert "zmq" not in sys.modules
 print(len(names))
 """

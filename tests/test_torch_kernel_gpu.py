@@ -835,3 +835,180 @@ def test_masked_decode_graph_matches_eager(cuda):
     plain = _engine("tiny", cuda, decode_steps=4)
     plain.generate([list(range(5, 40))], SamplingParams(max_tokens=12, temperature=0.0))
     assert plain.compile_counts()["decode_masked"] == 0 and plain._mask_buffers is None
+
+
+# ------------------------------------------------ fp8 pools (float8_e4m3fn)
+
+
+def _fp8(pool):
+    """The pool as the engine writes an fp8 pool: clamped to +-448, cast."""
+    return pool.float().clamp(-448.0, 448.0).to(torch.float8_e4m3fn)
+
+
+def _count_one(fn, want, call):
+    before = dict(fn.launches_by_instance)
+    out = call()
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in fn.launches_by_instance.items()} == {
+        k: int(k == want) for k in before}
+    return out
+
+
+FP8_K1_CASES = [(32, 8, 64, 16, *MIXED), (8, 8, 128, 16, *MIXED), (16, 2, 32, 16, *MIXED),
+                (32, 8, 64, 16, [1], [4096]), (32, 8, 64, 16, [512, 1, 1, 1],
+                                                [2048, 100, 1500, 7]),
+                (32, 8, 64, 16, [5] * 64, list(np.random.default_rng(5).integers(128, 1025,
+                                                                                64)))]
+
+
+@pytest.mark.parametrize("H,Hk,D,ps,q_lens,kv_lens", FP8_K1_CASES)
+def test_fp8_k1_equals_bf16_instance_on_upcast_pool(cuda, H, Hk, D, ps, q_lens, kv_lens):
+    """K1's mma instance over an fp8 pool converts each stage to bf16 in
+    shared memory and computes as the bf16 instance does: its output equals
+    the bf16 instance's on ``pool.to(torch.bfloat16)`` bit for bit, under the
+    same plan; and it stays within one bf16 rounding unit of the plain
+    version (which upcasts the fp8 pool) in float32."""
+    args, kw, valid = _case(H, Hk, D, ps, q_lens, kv_lens, torch.bfloat16, cuda,
+                            seed=H + D + len(q_lens))
+    q, pool, *rest = args
+    p8 = _fp8(pool)
+    got = _count_one(paged_attention, "mma_fp8", lambda: paged_attention(q, p8, *rest, **kw))
+    twin = _count_one(paged_attention, "mma",
+                      lambda: paged_attention(q, p8.to(torch.bfloat16), *rest, **kw))
+    assert torch.equal(got, twin)
+    ref = paged_attention_ref(q.float(), p8, *rest, **kw)[:valid]
+    assert bf16_rounding_units(got[:valid], ref) <= BF16_UNITS
+
+
+@pytest.mark.parametrize("H,W,ps,q_lens,kv_lens", K1_LATENT_CASES[:3])
+def test_fp8_k1_latent_equals_bf16_instance_on_upcast_pool(cuda, H, W, ps, q_lens, kv_lens):
+    args, kw, valid = _case(H, 1, W, ps, q_lens, kv_lens, torch.bfloat16, cuda,
+                            seed=sum(q_lens) + W, planes=1)
+    kw["scale"] = 0.125
+    q, pool, *rest = args
+    p8 = _fp8(pool)
+    got = _count_one(paged_attention, "mma_fp8", lambda: paged_attention(q, p8, *rest, **kw))
+    twin = paged_attention(q, p8.to(torch.bfloat16), *rest, **kw)
+    assert torch.equal(got, twin)
+    ref = paged_attention_ref(q.float(), p8, *rest, **kw)[:valid]
+    assert bf16_rounding_units(got[:valid], ref) <= BF16_UNITS
+
+
+# (H, Hk, D, planes): K/V pools at each head dim, the latent widths of the
+# simt instance (160 at 8 heads a block, 80 at 4)
+FP8_SIMT = [(32, 8, 64, None), (8, 8, 128, None), (16, 2, 32, None), (16, 1, 160, 1),
+            (4, 1, 80, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("H,Hk,D,planes", FP8_SIMT)
+def test_fp8_k1_simt(cuda, H, Hk, D, planes, dtype):
+    """The simt instance over an fp8 pool converts each element as it reads
+    it: equal bit for bit to the simt instance of q's dtype on the pool
+    upcast to q's dtype; float32 within F32_ATOL of the plain version.
+    bfloat16 q reaches simt_fp8 through the wrapper on tiny-mla's latent
+    pool (width 80); the others are launched directly."""
+    args, kw, valid = _case(H, Hk, D, 16, *MIXED, dtype, cuda, seed=H + D, planes=planes)
+    q, pool, pts, pos, sids, lens = args
+    p8 = _fp8(pool)
+    group = pa._check(q, p8, pts, lens, kw["cu_q_lens"], kw["num_seqs"])
+    launch = lambda p: pa._launch(q, p, pts, lens, kw["cu_q_lens"], kw["num_seqs"],  # noqa: E731
+                                  kw["scale"], group, "simt")
+    got = launch(p8)
+    torch.cuda.synchronize()
+    assert torch.equal(got, launch(p8.to(dtype)))
+    if pa._instance(dtype, p8.shape[2], D, group, p8.dtype) == "simt_fp8":
+        wrapped = _count_one(paged_attention, "simt_fp8",
+                             lambda: paged_attention(q, p8, pts, pos, sids, lens, **kw))
+        assert torch.equal(wrapped, got)
+    ref = paged_attention_ref(q.float(), p8, pts, pos, sids, lens, **kw)[:valid]
+    if dtype == torch.float32:
+        assert (got[:valid] - ref).abs().max().item() <= F32_ATOL
+    else:
+        assert bf16_rounding_units(got[:valid], ref) <= BF16_UNITS
+
+
+@pytest.mark.parametrize("kv", [list(np.random.default_rng(64).integers(1, 1025, 64)) + [0, 0],
+                                [1], [17], [4096, 1, 17, 16, 0, 2048, 3000, 600]],
+                         ids=["b64_idle", "b1_kv1", "b1_kv17", "b8_splits"])
+def test_fp8_k3_equals_bf16_instance_on_upcast_pool(cuda, kv):
+    """K3's mma instance over an fp8 latent pool: bit for bit the bf16
+    instance on the upcast pool; f32 simt over the same fp8 pool equal to the
+    f32 simt on the pool upcast to f32 and within F32_ATOL of the plain
+    version; idle rows exact zeros."""
+    from llmd_tpu_torch.ops import mla_decode as md
+
+    q, pool, pts, lens = _k3_case(16, 160, 16, kv, torch.bfloat16, cuda, seed=len(kv) + 7)
+    p8 = _fp8(pool)
+    scale = 0.125
+    got = _count_one(mla_decode, "mma_fp8",
+                     lambda: mla_paged_attention_latent(q, p8, pts, None, None, lens,
+                                                        scale=scale))
+    twin = mla_paged_attention_latent(q, p8.to(torch.bfloat16), pts, None, None, lens,
+                                      scale=scale)
+    assert torch.equal(got, twin)
+    live = lens > 0
+    q_scaled = (q.float() * scale).to(torch.bfloat16).float()
+    ref = mla_decode_ref(q_scaled, p8, pts, lens, scale=1.0)
+    if int(lens.max()) > 1:
+        assert bf16_rounding_units(got[live], ref[live]) <= BF16_UNITS
+    else:  # one key: the row itself
+        assert torch.equal(got[live].float(), ref[live])
+    assert torch.count_nonzero(got[~live]) == 0
+    q32 = q.float()
+    f32 = _count_one(mla_decode, "simt_fp8",
+                     lambda: mla_paged_attention_latent(q32, p8, pts, None, None, lens,
+                                                        scale=scale))
+    assert torch.equal(f32, md._launch(q32, p8.float(), pts, lens, scale, "simt"))
+    ref32 = mla_decode_ref(q32 * scale, p8, pts, lens, scale=1.0)
+    assert (f32[live] - ref32[live]).abs().max().item() <= F32_ATOL
+
+
+def test_fp8_k3_simt_at_tiny_mla(cuda):
+    """tiny-mla's latent decode (4 heads at width 80) runs simt in bf16 too:
+    over an fp8 pool, bit for bit the bf16 simt on the upcast pool."""
+    q, pool, pts, lens = _k3_case(4, 80, 8, [1, 17, 4096, 0, 16, 999], torch.bfloat16, cuda,
+                                  seed=80)
+    p8 = _fp8(pool)
+    got = _count_one(mla_decode, "simt_fp8",
+                     lambda: mla_paged_attention_latent(q, p8, pts, None, None, lens,
+                                                        scale=0.125))
+    assert torch.equal(got, mla_paged_attention_latent(q, p8.to(torch.bfloat16), pts, None,
+                                                       None, lens, scale=0.125))
+
+
+@pytest.mark.parametrize("model", ["tiny", "tiny-mla"])
+def test_fp8_decode_graph_matches_eager(cuda, model):
+    """An fp8 pool through the captured decode program: replayed = eager
+    tokens and launches, every K1 / K3 launch on an fp8 variant."""
+    counts = _check_graph_matches_eager(cuda, model, {"kv_cache_dtype": "fp8"})
+    for name in ("paged_attention", "mla_decode"):
+        n, by = counts[name]
+        assert by["mma"] == by["simt"] == 0 and by["mma_fp8"] + by["simt_fp8"] == n
+    assert counts["paged_attention"][0] > 0
+
+
+def test_fp8_engine_tokens_same_with_kernels(cuda):
+    """float32 tiny64 over an fp8 pool: the engine on the card (the simt fp8
+    variants) emits the greedy tokens of the engine on the CPU (the plain
+    versions, which upcast the pool at use)."""
+    import dataclasses
+
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.engine import EngineConfig, LLMEngine
+    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(get_model_config("tiny64"), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    prompts = [list(range(5, 60)), list(range(100, 110)), list(range(7, 200, 3))]
+    ecfg = dict(page_size=8, num_pages=64, max_model_len=256, max_batch_size=4,
+                prefill_chunk=32, decode_steps=4, kv_cache_dtype="fp8")
+    sp = SamplingParams(max_tokens=12, temperature=0.0)
+    before = paged_attention.launches_by_instance["simt_fp8"]
+    on_card = LLMEngine(cfg, EngineConfig(**ecfg), params=params,
+                        device=cuda).generate(prompts, sp)
+    assert paged_attention.launches_by_instance["simt_fp8"] > before
+    on_cpu = LLMEngine(cfg, EngineConfig(**ecfg), params=params,
+                       device="cpu").generate(prompts, sp)
+    assert on_card == on_cpu

@@ -15,6 +15,8 @@ reference's lanes (a multiple of 128). Inputs come from numpy seeds and go to
 both sides.
 """
 
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -314,6 +316,59 @@ def test_k3_check_refusals():
         check(lens=c["lens"].to("meta"))
 
 
+@pytest.mark.parametrize("dtype,H,W,want", [
+    (torch.bfloat16, 16, 160, "mma_fp8"),   # moe-wide-mla over an fp8 latent pool
+    (torch.bfloat16, 4, 80, "simt_fp8"),    # tiny-mla
+    (torch.float32, 16, 160, "simt_fp8"),
+])
+def test_instances_on_fp8_latent_pools(dtype, H, W, want):
+    """Both latent kernels over an fp8 pool take their instance's fp8 variant."""
+    assert md._instance(dtype, H, W, torch.float8_e4m3fn) == want
+    assert pa._instance(dtype, 1, W, H, torch.float8_e4m3fn) == want
+
+
+def test_k3_check_takes_fp8_pools_beside_either_q():
+    for H, W in md.SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            c = _k3_inputs(H=H, W=W, dtype=dtype)
+            md._check(c["q"], c["pool"].to(torch.float8_e4m3fn), c["pts"], c["lens"])
+    c = _k3_inputs()
+    p8 = c["pool"].to(torch.float8_e4m3fn)
+    for q, pool in ((c["q"].to(torch.float8_e4m3fn), p8), (c["q"].half(), p8),
+                    (c["q"], c["pool"].to(torch.float8_e5m2))):
+        with pytest.raises(TypeError, match="float8_e4m3fn"):
+            md._check(q, pool, c["pts"], c["lens"])
+    with pytest.raises(ValueError, match="no kernel instance"):  # width 96, fp8 or not
+        d = _k3_inputs(H=16, W=96)
+        md._check(d["q"], d["pool"].to(torch.float8_e4m3fn), d["pts"], d["lens"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_launch_passes_the_pool_dtype_and_the_same_plan(monkeypatch, dtype):
+    """K3's C entry point gets the pool's dtype as its own code (2 for fp8);
+    every other argument but the pool and the outputs is the upcast twin's:
+    one plan for both."""
+    calls = []
+
+    class _Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(md, "_library", lambda: lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(md, "_num_sms", lambda index: 132)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: _Stream())
+    c = _k3_inputs(B=8, dtype=dtype)
+    for pool in (c["pool"], c["pool"].to(torch.float8_e4m3fn)):
+        md._launch(c["q"], pool, c["pts"], c["lens"], 0.1,
+                   md._instance(dtype, 16, 160, pool.dtype))
+    # (q, pool, tables, lens, out, scratch, B, H, D, ps, maxp, scale, dtype,
+    # kv_dtype, instance, splits, split_keys, stream)
+    a, b = calls
+    assert a[12] == b[12] == md._DTYPE_CODE[dtype]
+    assert (a[13], b[13]) == (md._POOL_CODE[dtype], 2)
+    assert a[1] != b[1] and a[:1] + a[2:4] + a[6:13] + a[14:] == b[:1] + b[2:4] + b[6:13] + b[14:]
+
+
 def test_k3_wrapper_refuses_other_devices():
     c = {k: v.to("meta") for k, v in _k3_inputs().items()}
     with pytest.raises(ValueError, match="unsupported device"):
@@ -345,7 +400,7 @@ def test_cpu_calls_leave_the_instance_counts_alone(dtype):
     got = mla_decode(c["q"], c["pool"], c["pts"], c["lens"], scale=0.1)
     assert got.shape == c["q"].shape and got.dtype == dtype
     assert (mla_decode.launches, mla_decode.launches_by_instance) == k3[:2]
-    assert set(k3[1]) == {"mma", "simt"}
+    assert set(k3[1]) == {"mma", "simt", "mma_fp8", "simt_fp8"}
     assert mla_decode_ref.calls == k3[2] + 1
 
     lc = _latent_case(np.random.default_rng(2), 16, 160, 16, [5, 1], [9, 40])

@@ -8,6 +8,8 @@ what it computes from ``_plan`` is mirrored here by ``_items``, line for line
 with ``csrc/paged_attention.cu::paged_attention_mma_kernel``'s prologue.
 """
 
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -72,6 +74,20 @@ def _row_limits(cu, kv_lens, num_seqs, max_keys):
 ])
 def test_instance(dtype, planes, D, qpk, want):
     assert pa._instance(dtype, planes, D, qpk) == want
+
+
+@pytest.mark.parametrize("dtype,planes,D,qpk,want", [
+    (torch.bfloat16, 16, 64, 4, "mma_fp8"),   # llama-1b over an fp8 pool
+    (torch.bfloat16, 16, 128, 1, "mma_fp8"),
+    (torch.bfloat16, 1, 160, 16, "mma_fp8"),  # moe-wide-mla's latent pool
+    (torch.bfloat16, 1, 80, 4, "simt_fp8"),   # tiny-mla's
+    (torch.float32, 16, 64, 4, "simt_fp8"),   # an f32 q stays off the tensor cores
+    (torch.float32, 1, 160, 16, "simt_fp8"),
+])
+def test_instance_on_fp8_pools(dtype, planes, D, qpk, want):
+    """An fp8 pool takes the instance q's dtype takes, as its fp8 variant."""
+    assert pa._instance(dtype, planes, D, qpk, torch.float8_e4m3fn) == want
+    assert pa._instance(dtype, planes, D, qpk, dtype) == want.removesuffix("_fp8")
 
 
 def test_every_registry_gqa_model_takes_mma_in_bf16():
@@ -218,6 +234,56 @@ def test_check_refusals():
         _check(c, lens=c["lens"].to("meta"))
 
 
+def test_check_takes_fp8_pools_beside_either_q():
+    c = _inputs()
+    p8 = c["pool"].to(torch.float8_e4m3fn)
+    assert _check(c, pool=p8) == 4
+    assert _check(c, q=c["q"].bfloat16(), pool=p8) == 4
+    for q, pool in ((c["q"].to(torch.float8_e4m3fn), p8),  # an fp8 q
+                    (c["q"].half(), p8),  # float16 q
+                    (c["q"].bfloat16(), c["pool"]),  # a float32 pool beside a bf16 q
+                    (c["q"], c["pool"].to(torch.float8_e4m3fnuz))):  # another fp8 format
+        with pytest.raises(TypeError, match="float8_e4m3fn"):
+            _check(c, q=q, pool=pool)
+    with pytest.raises(ValueError, match="no kernel instance"):  # head dim 48, fp8 or not
+        d = _inputs(D=48)
+        _check(d, pool=d["pool"].to(torch.float8_e4m3fn))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _check(c, pool=_misaligned(p8))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_launch_passes_the_pool_dtype_and_the_same_plan(monkeypatch, dtype):
+    """The C entry point gets the pool's dtype as its own code (2 for fp8)
+    and otherwise the arguments of the twin launch over a pool of q's dtype:
+    the plan (tiles, slots, splits, split keys) does not depend on the
+    pool's dtype, so an fp8 launch and the upcast twin run one plan."""
+    calls = []
+
+    class _Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(pa, "_library", lambda: lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(pa, "_num_sms", lambda index: 132)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: _Stream())
+    c = _ragged(np.random.default_rng(3), 32, 8, 64, 16, [1] * 8, [4000] * 8)
+    t = torch.from_numpy
+    q, pool = t(c["q"]).to(dtype), t(c["pool"])
+    args = (t(c["pts"]), t(c["lens"]), t(c["cu"]), t(np.array([c["nb"]], np.int32)),
+            c["scale"], 4)
+    for p in (pool.to(dtype), pool.to(torch.float8_e4m3fn)):
+        pa._launch(q, p, *args, "mma" if dtype == torch.bfloat16 else "simt")
+    (a, b) = calls
+    # (q, pool, tables, lens, cu, ns, out, scratch, N, H, planes, group, D, ps,
+    # maxp, scale, dtype, kv_dtype, instance, tq, slots, splits, split_keys, stream)
+    assert a[16] == b[16] == pa._DTYPE_CODE[dtype]  # q's dtype
+    assert (a[17], b[17]) == (pa._POOL_CODE[dtype], 2)  # the pool's
+    assert a[1] != b[1] and a[:1] + a[2:6] + a[8:17] + a[18:] == b[:1] + b[2:6] + b[8:17] + b[18:]
+    if dtype == torch.bfloat16:
+        assert b[18] == pa._INSTANCE_CODE["mma"] and b[21] > 1  # this batch splits its keys
+
+
 def test_wrapper_refuses_other_devices():
     c = _inputs()
     m = {k: (v.to("meta") if isinstance(v, torch.Tensor) else v) for k, v in c.items()}
@@ -237,7 +303,7 @@ def test_cpu_calls_leave_the_instance_counts_alone(dtype):
     assert got.shape == c["q"].shape and got.dtype == dtype
     assert paged_attention.launches == launches
     assert paged_attention.launches_by_instance == by_instance
-    assert set(by_instance) == {"mma", "simt"}
+    assert set(by_instance) == {"mma", "simt", "mma_fp8", "simt_fp8"}
     assert paged_attention_ref.calls == calls + 1
 
 

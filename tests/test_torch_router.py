@@ -211,6 +211,55 @@ def test_server_parity_with_reference():
     assert len(want["kv events"]) > 0
 
 
+LIST_PROMPTS = [[1, 2, 3], ["ab", "c"]]
+
+
+async def _list_prompt_script(base: str) -> list:
+    """Each list-valued prompt through the completions route and ``/render``:
+    (status, prompt tokens, greedy text) for the completion, (status, ids)
+    for the render."""
+    out = []
+    async with aiohttp.ClientSession() as s:
+        for prompt in LIST_PROMPTS:
+            status, payload, _ = await _call(s, "POST", base + "/v1/completions", {
+                "prompt": prompt, "max_tokens": 8, "temperature": 0.0})
+            out.append((status, payload["usage"]["prompt_tokens"],
+                        payload["choices"][0]["text"]))
+            out.append((await _call(s, "POST", base + "/v1/completions/render",
+                                    {"prompt": prompt}))[:2])
+    return out
+
+
+def test_list_prompt_parity_with_reference():
+    """A list-valued ``prompt`` is encoded as its text, as the reference's
+    ``_tokenize_body`` does (``str(body["prompt"])``): ``[1, 2, 3]`` is the
+    text "[1, 2, 3]" (tokens 91 49 44 32 50 44 32 51 93 with the byte
+    tokenizer), ``["ab", "c"]`` answers 200. Both servers give the same
+    status, prompt tokens and greedy text on the completions route and the
+    same ids from ``/render``, which the router's prefix scoring reads."""
+    async def main():
+        jcfg, _, jp, _ = _weights()
+        ref = JaxEngineServer(jcfg, JaxEngineConfig(**KW, attn_impl="reference"),
+                              model_name=MODEL, host="127.0.0.1", port=0, params=jp)
+        await ref.start()
+        try:
+            want = await _list_prompt_script(f"http://{ref.address}")
+        finally:
+            await ref.stop()
+        port = _port_server()
+        port.start()
+        try:
+            got = await _list_prompt_script(f"http://{port.address}")
+        finally:
+            port.stop()
+        return want, got
+
+    want, got = run_async(main())
+    assert got == want
+    assert want[1] == (200, {"prompt_token_ids": [91, 49, 44, 32, 50, 44, 32, 51, 93]})
+    assert want[0][:2] == (200, 9) and want[2][0] == want[3][0] == 200
+
+
 def test_router_drives_port_engines():
     async def main():
         engines = [_port_server(kv_events_port=0) for _ in range(2)]

@@ -82,10 +82,12 @@ def test_greedy_completion_matches_reference(served):
     assert body["choices"][0]["text"] == ByteTokenizer().decode(want)
     assert body["usage"]["prompt_tokens"] == len(PROMPT)
     assert body["usage"]["completion_tokens"] == len(want)
-    # token-id prompt, same request: same text, and the prompt's full pages
-    # now come from the prefix cache
+    # token-id prompt (``prompt_token_ids``: a list ``prompt`` is text, as the
+    # reference reads it), same request: same text, and the prompt's full
+    # pages now come from the prefix cache
     status, again = _post(base + "/v1/completions", {
-        "prompt": ByteTokenizer().encode(PROMPT), "max_tokens": 12, "temperature": 0})
+        "prompt_token_ids": ByteTokenizer().encode(PROMPT), "max_tokens": 12,
+        "temperature": 0})
     assert status == 200
     assert again["choices"][0]["text"] == body["choices"][0]["text"]
     assert again["usage"]["cached_tokens"] == len(PROMPT) // 8 * 8
@@ -118,6 +120,31 @@ def test_serve_cli_starts_on_cpu():
         assert "serving llmd-tpu/tiny on http://" in line, proc.stderr.read()
         addr = line.split("http://")[1].split()[0]
         assert _get(f"http://{addr}/health") == (200, {"status": "ok"})
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+
+
+def test_serve_cli_fp8_pool_on_cpu():
+    """``--kv-cache-dtype fp8`` (the reference CLI's flag) serves over a
+    float8_e4m3fn pool, says so on its first line, and completes."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "llmd_tpu_torch.engine.serve", "--model", "tiny",
+         "--cpu", "--host", "127.0.0.1", "--port", "0", "--num-pages", "32",
+         "--kv-cache-dtype", "fp8"],
+        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert "KV pool fp8" in line, proc.stderr.read()
+        addr = line.split("http://")[1].split()[0]
+        status, body = _post(f"http://{addr}/v1/completions",
+                             {"prompt": "hi", "max_tokens": 4, "temperature": 0})
+        assert status == 200 and body["usage"]["completion_tokens"] == 4
     finally:
         proc.terminate()
         proc.wait(timeout=30)
