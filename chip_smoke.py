@@ -144,6 +144,28 @@ with a non-zero exit:
             in bf16 the share of tokens the fp8 and bf16 pools give alike (not
             bounded); the bench with ``--quantize none --kv-dtype fp8``.
 
+15. kvplane the KV data plane (``phase_kvplane``): two port servers in this
+            process, P and D, the sidecar's two requests driven here over
+            loopback (P: ``do_remote_decode``, ``max_tokens`` 1; D:
+            ``do_remote_prefill`` with P's handle). llama-1b in float32, 8
+            prompts of 256-1024 tokens x 32 greedy tokens, half the exports
+            on the native transport and half on the python one: D's injected
+            page bytes equal P's exports, ``cached_tokens`` = (len - 1) // 16
+            x 16, tokens equal an aggregated engine's, every K1 launch on D
+            on ``simt`` (one per layer of each forward), D's decode replayed
+            from its graph, no plain version; the same in bf16 and over an
+            fp8 pool (``mma`` / ``mma_fp8``; the identical token share
+            reported, not bounded) and on moe-wide-mla at 2 layers in float32
+            (K1's latent mode on P, K3 on D over the injected latent pages).
+            Then the offload tiers: llama-1b float32 over a pool that holds
+            one prompt set, a second set evicting the first to the CPU tier
+            and on to FS, the first set again reloading (not recomputing)
+            with the same tokens, K1 over the reloaded pages. Informational,
+            beside the card: the staged export's D2H and the inject's H2D per
+            512 KiB block against a pinned ``copy_``, a 64-block (32 MiB) pull
+            on each transport against a host memcpy, demote and reload ms per
+            block, TTFT aggregated against disaggregated.
+
 It ends with a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. ``--report PATH`` also writes every phase's details (nvcc's register
 report, per-check errors) as JSON. Without a CUDA device it exits 1 and prints
@@ -1057,12 +1079,16 @@ def device_ms_by_kernel(fn, calls: int = 20) -> dict:
     launches two kernels (a split-KV kernel and its merge) shows each."""
     from torch.profiler import ProfilerActivity, profile
 
+    from llmd_tpu_torch.tools.profile_engine import TRACE_MARGIN_S
+
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_MARGIN_S)  # no record of the calls falls outside the trace
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
     out = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0)
@@ -2892,6 +2918,467 @@ def fp8_entry(fp8: dict, name: str, source: str, replaces: str, run: str,
     return e
 
 
+# --------------------------------------------------------------------------
+# The KV data plane (P/D disaggregation, the offload tiers)
+# --------------------------------------------------------------------------
+
+
+def _pd_servers(device, cfg, kw: dict, seed: int) -> tuple:
+    """A prefill and a decode server of the same weights (``seed``), each
+    with a KV-transfer source on a free port (auto: the native transport),
+    and the id tokenizer (a text holds its tokens one for one)."""
+    from llmd_tpu_torch.engine.config import EngineConfig
+    from llmd_tpu_torch.engine.server import EngineServer
+
+    servers = []
+    for role in ("prefill", "decode"):
+        s = EngineServer(cfg, EngineConfig(**kw, role=role), host="127.0.0.1", port=0,
+                         kv_transfer_port=0, tokenizer=IdTokenizer(cfg.vocab_size),
+                         seed=seed, device=device)
+        s.start()
+        servers.append(s)
+    return tuple(servers)
+
+
+def _resident_pages(server, token_ids: list) -> torch.Tensor:
+    """The pool rows of a prompt's resident complete blocks, block-major, on
+    the host (read under the engine lock)."""
+    from llmd_tpu_torch.core.kv_events import block_keys_for_tokens
+    from llmd_tpu_torch.disagg.transfer import gather_pages
+
+    eng = server.engine
+
+    def read():
+        pids = []
+        for h in block_keys_for_tokens(token_ids, eng.cfg.page_size):
+            if h not in eng.alloc.cached:
+                break
+            pids.append(eng.alloc.cached[h])
+        with eng._on_stream():
+            return gather_pages(eng.cache, pids, eng.cfg.num_pages).cpu()
+
+    return server.async_engine.run_locked(read)
+
+
+def _pd_requests(P, D, prompts: list, max_tokens: int, py_source=None) -> dict:
+    """The sidecar's two requests, driven here: each prompt to P with
+    ``do_remote_decode`` and ``max_tokens`` 1, then (all P requests done,
+    the launch counters zeroed) each prompt to D with ``do_remote_prefill``
+    and P's transfer handle, concurrently. With ``py_source``, the second
+    half of P's exports register there (the python transport) and the first
+    half on P's own source. Returns D's texts, cached tokens, P's and D's
+    launches, and the page bytes of both sides for every prompt."""
+    from llmd_tpu_torch.disagg.transfer import KVTransferClient
+
+    body = {"max_tokens": 1, "temperature": 0, "ignore_eos": True,
+            "kv_transfer_params": {"do_remote_decode": True}}
+    handles = []
+    own = P.transfer_source
+    zero_counts()
+    for i, p in enumerate(prompts):
+        if py_source is not None and i == len(prompts) // 2:
+            P.transfer_source = py_source
+        st, r = _post(f"http://{P.address}/v1/completions", {**body, "prompt_token_ids": p})
+        if st != 200 or r["kv_transfer_params"]["num_blocks"] != len(p) // PS:
+            raise AssertionError(f"kvplane: P's export of prompt {i}: {st} {r}")
+        handles.append(r["kv_transfer_params"])
+    P.transfer_source = own
+    p_launches, p_plain = read_counts()
+    p_inst = instance_counts()
+    # the exports as a puller sees them (a pull does not release; D's notify does)
+    exported = [KVTransferClient().pull(h["remote_host"], h["remote_port"],
+                                        h["remote_request_id"]).blocks for h in handles]
+    st0 = dataclasses.replace(D.engine.stats)
+    zero_counts()
+    results: list = [None] * len(prompts)
+
+    def one(i: int) -> None:
+        results[i] = _post(f"http://{D.address}/v1/completions", {
+            "prompt_token_ids": prompts[i], "max_tokens": max_tokens, "temperature": 0,
+            "ignore_eos": True,
+            "kv_transfer_params": {"do_remote_prefill": True, **handles[i]}})
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    d_launches, d_plain = read_counts()
+    d_inst = instance_counts()
+    st = D.engine.stats
+    sources = [own] + ([py_source] if py_source is not None else [])
+    if any(r is None or r[0] != 200 for r in results):
+        raise AssertionError(f"kvplane: D requests failed: {results}")
+    injected = [_resident_pages(D, p) for p in prompts]
+    return {"texts": [r[1]["choices"][0]["text"] for r in results],
+            "cached": [r[1]["usage"]["cached_tokens"] for r in results],
+            "exported": exported, "injected": injected, "wall_s": wall,
+            "p_launches": p_launches, "p_plain": p_plain,
+            "p_by_instance": p_inst, "d_launches": d_launches, "d_plain": d_plain,
+            "d_by_instance": d_inst,
+            "d_forwards": {"unified": st.n_unified_steps - st0.n_unified_steps,
+                           "decode": st.n_decode_iterations - st0.n_decode_iterations},
+            "d_replays": st.decode_graph_replays - st0.decode_graph_replays,
+            "left_on_p": sum(len(s) for s in sources),
+            "notifies": sum(s.stats["notifies"] for s in sources)}
+
+
+def _aggregated(device, cfg, kw: dict, seed: int, prompts: list, max_tokens: int) -> list:
+    """One engine of the same weights serving the prompts alone: its texts
+    in the id tokenizer's spelling."""
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.engine import EngineConfig, LLMEngine
+
+    eng = LLMEngine(cfg, EngineConfig(**kw), seed=seed, device=device)
+    out = eng.generate(prompts, SamplingParams(max_tokens=max_tokens, temperature=0.0,
+                                               ignore_eos=True))
+    del eng
+    tok = IdTokenizer(cfg.vocab_size)
+    return [tok.decode(out[f"req-{i}"]) for i in range(len(prompts))]
+
+
+def _check_pd(label: str, cfg, run: dict, prompts: list, ps: int, d_kernels: dict,
+              p_kernels: dict, instance: str, device) -> dict:
+    """Page bytes, cached tokens, launches on their instance, no plain run."""
+    same_bytes = all(torch.equal(e.view(torch.uint8), i.view(torch.uint8))
+                     for e, i in zip(run["exported"], run["injected"]))
+    want_cached = [(len(p) - 1) // ps * ps for p in prompts]
+    row = {"pages_equal": same_bytes, "cached_tokens": run["cached"],
+           "expected_cached": want_cached, "left_on_p": run["left_on_p"],
+           "notifies": run["notifies"], "d_launches": run["d_launches"],
+           "p_launches": run["p_launches"], "d_by_instance": run["d_by_instance"],
+           "d_forwards": run["d_forwards"], "d_replays": run["d_replays"],
+           "injected_blocks": sum(int(i.shape[0]) for i in run["injected"])}
+    problems = []
+    if not same_bytes:
+        problems.append("D's injected pages differ from P's exports")
+    if run["cached"] != want_cached:
+        problems.append(f"cached_tokens {run['cached']} != {want_cached}")
+    if run["left_on_p"] or run["notifies"] != len(prompts):
+        problems.append(f"exports left on P {run['left_on_p']}, notifies {run['notifies']}")
+    if device.type == "cuda":
+        fwd = run["d_forwards"]
+        for name, program in d_kernels.items():
+            n = cfg.num_layers * (fwd["unified"] + fwd["decode"] if program == "all"
+                                  else fwd[program])
+            if run["d_launches"][name] != n or n == 0:
+                problems.append(f"D {name} launches {run['d_launches'][name]} != {n}")
+            by = run["d_by_instance"][name]
+            if by.get(instance, 0) != n or sum(by.values()) != n:
+                problems.append(f"D {name} launches {by} not all on {instance}")
+        for name in p_kernels:
+            if run["p_launches"][name] == 0:
+                problems.append(f"P never launched {name}")
+        if any(run["d_plain"].values()) or any(run["p_plain"].values()):
+            problems.append(f"plain versions ran: P {run['p_plain']} D {run['d_plain']}")
+        if run["d_replays"] == 0:
+            problems.append("D's decode never replayed its captured graph")
+    if problems:
+        raise AssertionError(f"kvplane {label}: {problems}")
+    return row
+
+
+def _pd_case(device, card: str, model: str, dtype: str, kv_cache_dtype, n: int,
+             lengths: tuple, max_tokens: int, seed: int, label: str,
+             d_kernels: dict, p_kernels: dict, instance: str, layers=None,
+             both_transports: bool = False, ttft: bool = False) -> dict:
+    """One P/D case: two servers, the prompts through them, the checks, the
+    aggregated control; with ``ttft`` also TTFT aggregated against
+    disaggregated on 1024-token prompts."""
+    from llmd_tpu_torch.disagg.transfer import KVTransferSource
+    from llmd_tpu_torch.models import get_model_config
+
+    over = {"dtype": dtype} | ({"num_layers": layers} if layers else {})
+    cfg = dataclasses.replace(get_model_config(model), **over)
+    kw = dict(page_size=PS, num_pages=1024, max_model_len=2048, max_batch_size=8,
+              prefill_chunk=512, max_num_batched_tokens=2048, decode_steps=4,
+              kv_cache_dtype=kv_cache_dtype)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab_size, int(k)).tolist()
+               for k in rng.integers(lengths[0], lengths[1] + 1, n)]
+    P, D = _pd_servers(device, cfg, kw, seed)
+    py = None
+    row: dict = {"card": card, "model": model, "dtype": dtype, "layers": cfg.num_layers,
+                 "kv_cache_dtype": kv_cache_dtype or dtype, "prompts": n,
+                 "prompt_tokens": [len(p) for p in prompts], "max_tokens": max_tokens,
+                 "transport": "native" if P.transfer_source.native else "python"}
+    try:
+        if both_transports:
+            py = KVTransferSource(host="127.0.0.1", transport="python")
+            py.start()
+            row["transports"] = [row["transport"], "python"]
+        run = _pd_requests(P, D, prompts, max_tokens, py_source=py)
+        row.update(_check_pd(label, cfg, run, prompts, PS, d_kernels, p_kernels,
+                             instance, device))
+        if ttft:
+            row["ttft"] = _ttft(P, D, cfg, seed)
+    finally:
+        if py is not None:
+            py.stop()
+        P.stop()
+        D.stop()
+        del P, D
+        torch.cuda.empty_cache()
+    control = _aggregated(device, cfg, kw, seed, prompts, max_tokens)
+    same = [a == b for a, b in zip(run["texts"], control)]
+    toks = sum(len(t) for t in control)
+    agree = sum(sum(x == y for x, y in zip(a, b)) for a, b in zip(run["texts"], control))
+    row.update(tokens_identical=all(same), identical_token_share=agree / max(1, toks),
+               d_wall_s=run["wall_s"])
+    log(f"kvplane: P/D {label} on {card}: {n} prompts {min(row['prompt_tokens'])}-"
+        f"{max(row['prompt_tokens'])} tokens x {max_tokens}, transport "
+        f"{row.get('transports', row['transport'])}: pages_equal={row['pages_equal']} "
+        f"cached_tokens_ok={row['cached_tokens'] == row['expected_cached']} "
+        f"injected_blocks={row['injected_blocks']} tokens_identical={all(same)} "
+        f"identical_token_share={row['identical_token_share']:.4f}")
+    log(f"kvplane:   D launches={row['d_launches']} by_instance={row['d_by_instance']} "
+        f"forwards={row['d_forwards']} replays={row['d_replays']} "
+        f"P launches={row['p_launches']}")
+    if dtype == "float32" and not all(same):
+        raise AssertionError(f"kvplane {label}: D's greedy tokens differ from the "
+                             f"aggregated engine's ({same})")
+    return row
+
+
+def _ttft(P, D, cfg, seed: int, n: int = 4, isl: int = 1024) -> dict:
+    """TTFT of a fresh 1024-token prompt: aggregated = one max_tokens 1
+    request to P alone; disaggregated = P's export request plus D's pulling
+    request (max_tokens 1), driven back to back as the sidecar drives them."""
+    rng = np.random.default_rng(seed + 99)
+    agg, dis = [], []
+    for i in range(n):
+        a, b = (rng.integers(1, cfg.vocab_size, isl).tolist() for _ in range(2))
+        t0 = time.perf_counter()
+        _post(f"http://{P.address}/v1/completions", {"prompt_token_ids": a, "max_tokens": 1,
+                                                     "temperature": 0, "ignore_eos": True})
+        agg.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        _, r = _post(f"http://{P.address}/v1/completions", {
+            "prompt_token_ids": b, "max_tokens": 1, "temperature": 0, "ignore_eos": True,
+            "kv_transfer_params": {"do_remote_decode": True}})
+        _post(f"http://{D.address}/v1/completions", {
+            "prompt_token_ids": b, "max_tokens": 1, "temperature": 0, "ignore_eos": True,
+            "kv_transfer_params": {"do_remote_prefill": True, **r["kv_transfer_params"]}})
+        dis.append(time.perf_counter() - t0)
+    return {"isl": isl, "aggregated_ms": [x * 1e3 for x in agg],
+            "disaggregated_ms": [x * 1e3 for x in dis],
+            "aggregated_p50_ms": statistics.median(agg) * 1e3,
+            "disaggregated_p50_ms": statistics.median(dis) * 1e3}
+
+
+def _transfer_numbers(device, card: str, reps: int = 5) -> dict:
+    """The data plane's byte movers at llama-1b's bf16 block (16 layers x 16
+    tokens x 16 planes x 64 x 2 B = 512 KiB): the staged export's D2H and the
+    inject's H2D per block beside a plain pinned ``copy_`` of the same bytes,
+    and a 64-block (32 MiB) pull over loopback on each transport beside a
+    host copy of the same bytes. Informational: no bound is enforced."""
+    from llmd_tpu_torch.disagg.transfer import (
+        KVTransferClient, KVTransferSource, drain_staged, insert_blocks, stage_pages)
+
+    L, P, n = 16, 256, 64
+    pool = torch.randn(L * P + 1, PS, 16, 64, device=device, dtype=torch.bfloat16)
+    block = L * PS * 16 * 64 * 2
+    pids = list(range(0, 2 * n, 2))
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+
+    def best(fn) -> float:
+        ts = []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            ts.append(time.perf_counter() - t0)
+        return min(ts)
+
+    staged = best(lambda: drain_staged(stage_pages(pool, pids, P, staging_pages=16)))
+    flat = torch.randn(n * block // 2, device=device, dtype=torch.bfloat16)
+    pinned = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=device.type == "cuda")
+    d2h = best(lambda: pinned.copy_(flat))
+    host_blocks = drain_staged(stage_pages(pool, pids, P))
+    if device.type == "cuda":
+        host_blocks = host_blocks.pin_memory()
+    inject = best(lambda: insert_blocks(pool, [p + 1 for p in pids], host_blocks, P))
+    h2d = best(lambda: flat.copy_(pinned))
+    pulls = {}
+    payload = host_blocks.contiguous()
+    for transport in ("native", "python"):
+        src = KVTransferSource(host="127.0.0.1", transport=transport)
+        src.start()
+        try:
+            src.register("bench", list(range(n)), [[] for _ in range(n)], payload)
+            cli = KVTransferClient()
+            got = cli.pull("127.0.0.1", src.port, "bench")
+            assert torch.equal(got.blocks.view(torch.uint8), payload.view(torch.uint8))
+            pulls[transport] = best(lambda: cli.pull("127.0.0.1", src.port, "bench"))
+        finally:
+            src.stop()
+    src_bytes = bytearray(n * block)
+    memcpy = best(lambda: bytes(src_bytes))
+    gbs = lambda s, b: b / s / 1e9  # noqa: E731
+    row = {"card": card, "block_bytes": block, "blocks": n,
+           "staged_export_ms_per_block": staged / n * 1e3,
+           "staged_export_gb_s": gbs(staged, n * block),
+           "pinned_d2h_copy_gb_s": gbs(d2h, n * block),
+           "inject_ms_per_block": inject / n * 1e3, "inject_gb_s": gbs(inject, n * block),
+           "pinned_h2d_copy_gb_s": gbs(h2d, n * block),
+           "pull_ms": {k: v * 1e3 for k, v in pulls.items()},
+           "pull_mb_s": {k: n * block / v / 1e6 for k, v in pulls.items()},
+           "host_memcpy_ms": memcpy * 1e3, "host_memcpy_mb_s": n * block / memcpy / 1e6}
+    log(f"kvplane: transfer on {card}: block {block} B; staged export D2H "
+        f"{row['staged_export_gb_s']:.3f} GB/s ({row['staged_export_ms_per_block']:.4f} "
+        f"ms/block) vs pinned copy_ {row['pinned_d2h_copy_gb_s']:.3f} GB/s; inject H2D "
+        f"{row['inject_gb_s']:.3f} GB/s ({row['inject_ms_per_block']:.4f} ms/block) vs "
+        f"pinned copy_ {row['pinned_h2d_copy_gb_s']:.3f} GB/s; pull of {n} blocks "
+        f"({n * block} B) native {row['pull_ms']['native']:.3f} ms "
+        f"({row['pull_mb_s']['native']:.1f} MB/s), python {row['pull_ms']['python']:.3f} "
+        f"ms ({row['pull_mb_s']['python']:.1f} MB/s) vs host memcpy "
+        f"{row['host_memcpy_ms']:.3f} ms")
+    del pool, flat, pinned
+    torch.cuda.empty_cache()
+    return row
+
+
+def _offload_case(device, card: str, seed: int = 0, n: int = 4, isl: int = 512,
+                  max_tokens: int = 16, model: str = "llama-1b") -> dict:
+    """llama-1b in float32 over a pool that holds one prompt set: a second
+    set evicts the first to the CPU tier, which demotes to FS (a gitignored
+    directory of the checkout, deleted after). The first set again reloads
+    rather than recomputes, with the first run's tokens, K1 launched over the
+    reloaded pages on its f32 instance, no plain version; demote and reload
+    ms per block."""
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.engine import EngineConfig, LLMEngine
+    from llmd_tpu_torch.models import get_model_config
+
+    cfg = dataclasses.replace(get_model_config(model), dtype="float32")
+    fs_dir = REPO / "checkpoints" / "chip-smoke-kv-fs"
+    shutil.rmtree(fs_dir, ignore_errors=True)
+    blocks_per_set = n * (isl // PS)
+    kw = dict(page_size=PS, num_pages=blocks_per_set + n * 4, max_model_len=2048,
+              max_batch_size=n, prefill_chunk=512, max_num_batched_tokens=2048,
+              decode_steps=4, cpu_offload_pages=blocks_per_set // 2,
+              offload_fs_path=str(fs_dir))
+    rng = np.random.default_rng(seed)
+    first, second = ([rng.integers(1, cfg.vocab_size, isl).tolist() for _ in range(n)]
+                     for _ in range(2))
+    sp = SamplingParams(max_tokens=max_tokens, temperature=0.0, ignore_eos=True)
+    eng = LLMEngine(cfg, EngineConfig(**kw), seed=seed, device=device)
+    timing = {"demote": [0.0, 0], "evict": [0.0, 0], "reload": [0.0, 0]}
+    off = eng.offload
+    demote, evict, load = off.demote_batch, off.on_evict, off.load_into_cache
+
+    def timed_evict(cache, h, pid):
+        t0 = time.perf_counter()
+        evict(cache, h, pid)
+        timing["evict"][0] += time.perf_counter() - t0
+        timing["evict"][1] += 1
+
+    def timed_demote(cache, pairs):
+        t0 = time.perf_counter()
+        demote(cache, pairs)
+        timing["demote"][0] += time.perf_counter() - t0
+        timing["demote"][1] += len(pairs)
+
+    def timed_load(cache, hashes, pids, request_id=None):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = load(cache, hashes, pids, request_id)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        timing["reload"][0] += time.perf_counter() - t0
+        timing["reload"][1] += out[1]
+        return out
+
+    off.demote_batch, off.on_evict, off.load_into_cache = timed_demote, timed_evict, timed_load
+    ptr = eng.cache.data_ptr()
+    try:
+        cold = eng.generate(first, sp)
+        eng.generate(second, sp)
+        st = eng.stats
+        prefill0, loads0 = st.total_prefill_tokens, st.total_offload_loads
+        fwd0 = (st.n_unified_steps, st.n_decode_iterations)
+        zero_counts()
+        again = eng.generate(first, sp)
+        launches, plain = read_counts()
+        by_inst = instance_counts()
+        reprefill = st.total_prefill_tokens - prefill0
+        loads = st.total_offload_loads - loads0
+        forwards = (st.n_unified_steps - fwd0[0]) + (st.n_decode_iterations - fwd0[1])
+        store = off.store
+        row = {"card": card, "model": model, "dtype": "float32", "prompts": n, "isl": isl,
+               "pool_pages": kw["num_pages"], "cpu_blocks": kw["cpu_offload_pages"],
+               "tokens_equal": again == cold, "offload_loads": loads,
+               "reprefill_tokens": reprefill, "saves": store.saves,
+               "demotions": store.demotions, "cpu_loads": store.loads,
+               "k1_launches": launches["paged_attention"],
+               "k1_by_instance": by_inst["paged_attention"], "plain_calls": plain,
+               "demote_ms_per_block": timing["demote"][0] / max(1, timing["demote"][1]) * 1e3,
+               "demoted_blocks": timing["demote"][1],
+               "evict_ms_per_block": timing["evict"][0] / max(1, timing["evict"][1]) * 1e3,
+               "evicted_blocks": timing["evict"][1],
+               "reload_ms_per_block": timing["reload"][0] / max(1, timing["reload"][1]) * 1e3,
+               "reloaded_blocks": timing["reload"][1],
+               "pool_address_unchanged": eng.cache.data_ptr() == ptr}
+    finally:
+        del eng
+        torch.cuda.empty_cache()
+        shutil.rmtree(fs_dir, ignore_errors=True)
+    log(f"kvplane: offload {model} f32 on {card}: {n} x {isl} tokens, pool "
+        f"{row['pool_pages']} pages, CPU {row['cpu_blocks']} blocks + FS: saves "
+        f"{row['saves']} demotions_to_fs {row['demotions']} offload_loads {loads} "
+        f"reprefill_tokens {reprefill} of {n * isl} tokens_equal={row['tokens_equal']} "
+        f"demote {row['demote_ms_per_block']:.4f} ms/block ({row['demoted_blocks']} "
+        f"blocks in batches) evict {row['evict_ms_per_block']:.4f} ms/block "
+        f"({row['evicted_blocks']} one by one) reload {row['reload_ms_per_block']:.4f} ms/block "
+        f"({row['reloaded_blocks']} blocks) K1 {row['k1_by_instance']}")
+    problems = []
+    if not (row["tokens_equal"] and loads > 0 and reprefill < n * isl
+            and row["demotions"] > 0 and row["pool_address_unchanged"]):
+        problems.append("the rerun did not reload from the tiers with the same tokens")
+    if device.type == "cuda":
+        if launches["paged_attention"] != cfg.num_layers * forwards or any(plain.values()):
+            problems.append(f"K1 launches {launches} over {forwards} forwards, plain {plain}")
+        if by_inst["paged_attention"].get("simt", 0) != launches["paged_attention"]:
+            problems.append(f"K1 not all on simt: {by_inst['paged_attention']}")
+    if problems:
+        raise AssertionError(f"kvplane offload: {problems} {row}")
+    return row
+
+
+def phase_kvplane(device, card: str, seed: int = 0, dense: str = "llama-1b",
+                  mla: str = MLA, n_requests: int = 8, max_tokens: int = 32) -> dict:
+    """The KV data plane on the card: P/D between two port servers (the
+    sidecar's two requests driven here, over loopback), llama-1b in float32
+    on both transports, bf16 and an fp8 pool, moe-wide-mla at 2 layers in
+    float32; the offload tiers; the transfer numbers."""
+    k1_all = {"paged_attention": "all"}
+    out = {"pd_f32": _pd_case(
+        device, card, dense, "float32", None, n_requests, (256, 1024), max_tokens, seed,
+        f"{dense} f32", k1_all, ("paged_attention",), "simt", both_transports=True)}
+    out["pd_bf16"] = _pd_case(
+        device, card, dense, "bfloat16", None, 4, (256, 1024), max_tokens, seed + 1,
+        f"{dense} bf16", k1_all, ("paged_attention",), "mma", ttft=True)
+    out["pd_fp8"] = _pd_case(
+        device, card, dense, "bfloat16", "fp8", 4, (256, 1024), max_tokens, seed + 2,
+        f"{dense} bf16 + fp8 pool", k1_all, ("paged_attention",), "mma_fp8")
+    # MLA: P's unified program runs K1's latent mode, D's decode program K3
+    out["pd_mla"] = _pd_case(
+        device, card, mla, "float32", None, 4, (256, 1024), max_tokens, seed + 3,
+        f"{mla} 2 layers f32", {"paged_attention": "unified", "mla_decode": "decode"},
+        ("paged_attention",), "simt", layers=2)
+    out["offload"] = _offload_case(device, card, seed, model=dense)
+    out["transfer"] = _transfer_numbers(device, card)
+    t = out["pd_bf16"]["ttft"]
+    log(f"kvplane: TTFT on {card} ({t['isl']}-token prompts, llama-1b bf16): aggregated "
+        f"p50 {t['aggregated_p50_ms']:.3f} ms, disaggregated p50 "
+        f"{t['disaggregated_p50_ms']:.3f} ms")
+    return out
+
+
 def main(argv: "list[str] | None" = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", default=None, help="write every phase's details here (JSON)")
@@ -2988,6 +3475,7 @@ def main(argv: "list[str] | None" = None) -> int:
                        "bf16_json": phase_bench(device, card, [
                            "--quantize", "none", "--workload", "json"])}
     report["fp8"] = fp8 = phase_fp8(device, card)
+    report["kvplane"] = kv = phase_kvplane(device, card)
     if args.report:
         out = Path(args.report)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -3034,14 +3522,18 @@ def main(argv: "list[str] | None" = None) -> int:
               eng["llama-1b"]["launches"]["paged_attention"], k1["decode"]) | k1_more
         | {f"bench_{q}_launches": report["bench"][q]["kernel_launches"]["paged_attention"]["mma"]
            for q in ("int8", "bf16", "bf16_spec_echo", "bf16_json")}
-        | {"surface_launches": surface["launches"]["paged_attention"]},
+        | {"surface_launches": surface["launches"]["paged_attention"],
+           "kvplane_launches": kv["pd_f32"]["d_launches"]["paged_attention"],
+           "kvplane_offload_launches": kv["offload"]["k1_launches"]},
         # the unified program's absorbed MLA attention, XLA in the reference
         entry("paged_attention_latent", attn_src, "llmd_tpu/models/transformer.py:428",
               eng["mla_sorted"]["launches"]["paged_attention"], lat)
-        | {"instance": lat["instance"], "simt_ms": lat["simt_ms"]},
+        | {"instance": lat["instance"], "simt_ms": lat["simt_ms"],
+           "kvplane_launches": kv["pd_mla"]["p_launches"]["paged_attention"]},
         entry("mla_decode", "llmd_tpu_torch/csrc/mla_decode.cu",
               "llmd_tpu/ops/mla_decode.py:110", eng["mla_sorted"]["launches"]["mla_decode"],
-              k3["decode"]) | k3_more,
+              k3["decode"]) | k3_more
+        | {"kvplane_launches": kv["pd_mla"]["d_launches"]["mla_decode"]},
         entry("ragged_grouped_gemm", gemm_src, "llmd_tpu/ops/grouped_gemm.py:98",
               eng["moe_sorted"]["launches"]["ragged_grouped_gemm"],
               tm["ragged_grouped_gemm"]["decode"], tm["ragged_grouped_gemm"]["prefill"]),

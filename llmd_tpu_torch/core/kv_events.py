@@ -20,7 +20,9 @@ import struct
 from dataclasses import dataclass, field
 from typing import Iterable, Optional, Sequence, Union
 
-MEDIUM_HBM = "gpu"  # tier name kept from the reference for scorer-weight parity
+MEDIUM_HBM = "gpu"  # tier names kept from the reference for scorer-weight parity
+MEDIUM_CPU = "cpu"
+MEDIUM_FS = "fs"
 
 
 @dataclass

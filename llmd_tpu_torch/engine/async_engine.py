@@ -71,6 +71,12 @@ class AsyncLLMEngine:
             if not has_work:
                 time.sleep(self._idle_sleep)
 
+    def run_locked(self, fn):
+        """Run fn() while the step loop is paused: for callers that must touch
+        engine state (KV injection and export) without racing a step."""
+        with self._lock:
+            return fn()
+
     def generate(self, request_id: str, token_ids: list[int],
                  sampling: SamplingParams) -> Iterator[EngineOutput]:
         """Submit a request and yield its outputs until it finishes (blocking)."""

@@ -15,7 +15,12 @@ decoding (``spec_mode`` ``off`` | ``ngram``, ``spec_tokens``,
 ``structured_table_max_elems``, ``spec_structured``,
 ``spec_structured_crosscheck``) are served with the reference's validation,
 and so is ``kv_cache_dtype`` (``None``: the model's dtype; ``"fp8"``: a
-``float8_e4m3fn`` pool).
+``float8_e4m3fn`` pool). The KV data plane's fields are served too: the
+offload tiers (``cpu_offload_pages``, ``offload_staging_blocks``,
+``offload_watermark_pages``, ``offload_fs_path``), the external connector
+(``kv_connector``, ``kv_connector_params``) and ``role`` (``both`` |
+``prefill`` | ``decode``; a tag the engine never reads, as in the
+reference, where only the pool reads it).
 """
 
 from __future__ import annotations
@@ -69,14 +74,16 @@ class EngineConfig:
     # Defer reading a pure-prefill step's sampled first tokens to the next
     # step (steps with decode rows apply theirs at once).
     pipeline_prefill_sample: bool = True
-    # KV offload tiers / connectors (later slices)
+    # KV offload tiers (kv/offload.py): CPU blocks, the reload width, the free
+    # pages the proactive drain keeps, the shared FS tier's directory; and
+    # the out-of-tree connector (kv/connector_api.py) by registered name
     cpu_offload_pages: int = 0
     offload_staging_blocks: int = 16
     offload_watermark_pages: int = 8
     offload_fs_path: "str | None" = None
     kv_connector: "str | None" = None
     kv_connector_params: "dict | None" = None
-    # P/D role
+    # P/D role: both | prefill | decode (read by the pool, not the engine)
     role: str = "both"
     # Attention: "auto" = the CUDA kernel on a card, its plain version for CPU
     # tensors (the only value the port takes).
@@ -180,6 +187,8 @@ class EngineConfig:
         if self.structured_mode not in ("auto", "off"):
             raise ValueError(f"unknown structured_mode={self.structured_mode!r} "
                              "(supported: 'auto', 'off')")
+        if self.role not in ("both", "prefill", "decode"):
+            raise ValueError(f"role must be both|prefill|decode, got {self.role!r}")
         if self.eplb is not None and not isinstance(self.eplb, EPLBConfig):
             raise ValueError("eplb takes llmd_tpu_torch.parallel.eplb.EPLBConfig, "
                              f"got {type(self.eplb).__name__}")
@@ -195,4 +204,6 @@ SERVED = frozenset({
     "spec_mode", "spec_tokens", "spec_ngram_max", "spec_ngram_min", "structured_mode",
     "structured_fused_decode", "structured_table_max_elems", "spec_structured",
     "spec_structured_crosscheck",
+    "cpu_offload_pages", "offload_staging_blocks", "offload_watermark_pages",
+    "offload_fs_path", "kv_connector", "kv_connector_params", "role",
 })

@@ -97,11 +97,24 @@ processed, never inside the program, so a graph's warm-up and capture count
 nothing and a replay adds no device work. The server renders the registry at
 ``/metrics``.
 
+The KV data plane, at the reference's sites: with ``cpu_offload_pages`` or
+``offload_fs_path`` the allocator's evict hook and a proactive drain
+(``_offload_drain``, the oldest LRU pages demoted in one gather a step) feed
+the CPU/FS tiers (``kv/offload.py``); with ``kv_connector`` an external
+engine (``kv/connector_api.py``) is consulted past them and receives each
+retired request's blocks on a one-thread executor; with
+``LLMD_KV_DURABLE_STORE`` set, evicted and demoted blocks are also queued to
+the durable store (``kv/writeback.py``). Admission walks HBM, then CPU/FS
+(``_reload_offloaded``, ``stats.total_offload_loads``), then the connector
+(``_load_from_connector``). Every reload and inject writes the pool in place
+on the engine's stream, so the captured decode programs read the new pages.
+
 Entry point device: a CUDA card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import time
 from collections import OrderedDict, deque
@@ -113,6 +126,7 @@ import torch
 
 from llmd_tpu_torch.core.kv_events import KVEvent, block_keys_for_tokens
 from llmd_tpu_torch.core.request import SamplingParams
+from llmd_tpu_torch.disagg.transfer import drain_staged, gather_pages, stage_pages
 from llmd_tpu_torch.engine.config import EngineConfig
 from llmd_tpu_torch.engine.cuda_graph import CapturedProgram
 from llmd_tpu_torch.engine.decode_program import (
@@ -122,6 +136,11 @@ from llmd_tpu_torch.engine.programs import ProgramRegistry, select_decode_attn_i
 from llmd_tpu_torch.engine.sampling import greedy_tokens, sample_tokens, sample_tokens_biased
 from llmd_tpu_torch.engine.spec import propose_ngram_draft
 from llmd_tpu_torch.engine.verify_program import verify, verify_masked, verify_states
+from llmd_tpu_torch.kv.connector_api import build_kv_connector
+from llmd_tpu_torch.kv.dtypes import to_host
+from llmd_tpu_torch.kv.fs_backend import FSKVBackend
+from llmd_tpu_torch.kv.offload import KVOffloadConnector
+from llmd_tpu_torch.kv.writeback import DurableStoreClient, DurableStoreConfig, WritebackQueue
 from llmd_tpu_torch.models.config import ModelConfig
 from llmd_tpu_torch.models.quant import quantize_params
 from llmd_tpu_torch.models.transformer import (
@@ -177,6 +196,7 @@ class EngineStats:
     # that matches time_decode_steps
     decode_tokens_fused: int = 0
     total_preemptions: int = 0
+    total_offload_loads: int = 0  # blocks pulled back from the CPU/FS tiers
     attn_backend: str = ""  # kernel provenance
     kv_cache_dtype: str = ""  # "fp8" | the model dtype's name: pool dtype provenance
     moe_backend: str = ""  # expert-GEMM provenance
@@ -351,6 +371,49 @@ class LLMEngine:
                 if on_card else "", quantize_weights=engine_cfg.quantize_weights,
                 kv_cache_dtype=engine_cfg.kv_cache_dtype)
             attach_util_exporter(self.util, self.metrics)
+        self._init_kv_plane(event_sink)
+
+    def _init_kv_plane(self, event_sink) -> None:
+        """The offload tiers, the external connector and the durable tier
+        (reference constructor, ``engine/engine.py:266-322``)."""
+        cfg = self.cfg
+        self.offload = None
+        if cfg.cpu_offload_pages > 0 or cfg.offload_fs_path:
+            fs = FSKVBackend(cfg.offload_fs_path) if cfg.offload_fs_path else None
+            self.offload = KVOffloadConnector(
+                cfg.cpu_offload_pages, staging_blocks=cfg.offload_staging_blocks,
+                fs_backend=fs, event_sink=event_sink, pages_per_layer=cfg.num_pages,
+                metrics=self.metrics)
+            self.alloc.evict_hook = lambda h, pid: self.offload.on_evict(self.cache, h, pid)
+            store = self.offload.store
+            self.metrics.offload_saves.set_function(lambda: store.saves)
+            self.metrics.offload_loads.set_function(lambda: store.loads)
+            self.metrics.offload_demotions.set_function(lambda: store.demotions)
+            self.metrics.offload_cpu_blocks.set_function(lambda: len(store))
+        # the out-of-tree connector: an external engine behind the native tiers;
+        # one drain thread streams saves out in retirement order, off the step loop
+        self.kv_connector = None
+        self._connector_pool = None
+        if cfg.kv_connector:
+            self.kv_connector = build_kv_connector(cfg.kv_connector, cfg.kv_connector_params)
+            self._connector_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="kv-connector")
+        # the cluster-durable prefix tier: off unless LLMD_KV_DURABLE_STORE is set
+        self.durable = None
+        self.writeback = None
+        durable_cfg = DurableStoreConfig.from_env()
+        if durable_cfg.enabled:
+            self.durable = DurableStoreClient(durable_cfg)
+            self.writeback = WritebackQueue(self.durable, max_blocks=durable_cfg.queue_blocks)
+            if self.offload is not None:
+                # eviction and demotion tee their host bytes into the queue
+                self.offload.writeback = self.writeback
+            else:
+                def _durable_evict(h: int, pid: int) -> None:
+                    block = gather_pages(self.cache, [pid], self.cfg.num_pages)
+                    self.writeback.offer([h], to_host(block))
+
+                self.alloc.evict_hook = _durable_evict
 
     def compile_counts(self) -> dict[str, int]:
         """The ledger's compile count per program: CUDA-graph captures (the
@@ -555,7 +618,17 @@ class LLMEngine:
             keys = block_keys_for_tokens(seq.token_ids[: seq.prompt_len], ps)
             hit_pages = alloc.match_prefix(keys) if self.cfg.enable_prefix_caching else []
             # never reuse the whole prompt — the last token's logits must be computed
-            hit_pages = hit_pages[: max(0, (seq.prompt_len - 1) // ps)]
+            max_reuse = max(0, (seq.prompt_len - 1) // ps)
+            hit_pages = hit_pages[:max_reuse]
+            # tiered continuation: blocks evicted from HBM may live on in CPU/FS
+            n_offload = 0
+            if self.offload is not None and len(hit_pages) < max_reuse:
+                n_offload = self.offload.match_suffix(keys[len(hit_pages) : max_reuse])
+            # ...and past the native tiers, the out-of-tree connector's engine
+            n_conn = 0
+            if self.kv_connector is not None and len(hit_pages) + n_offload < max_reuse:
+                n_conn = self.kv_connector.get_num_matched_blocks(
+                    keys[len(hit_pages) + n_offload : max_reuse])
             need_new = ((min(seq.prompt_len + 1, self.cfg.max_pages_per_seq * ps)
                          + ps - 1) // ps - len(hit_pages))
             # acquire_cached pulls hit pages out of the evictable LRU, so they
@@ -576,9 +649,15 @@ class LLMEngine:
                 return  # head-of-line blocks; FCFS admission
             for pid in hit_pages:
                 alloc.acquire_cached(pid)
-            seq.pages = list(hit_pages)
-            seq.block_hashes = keys[: len(hit_pages)]
-            seq.num_computed = len(hit_pages) * ps
+            n_hbm = len(hit_pages)
+            off_pages = self._reload_offloaded(seq, keys, n_hbm, n_offload)
+            conn_pages: list[int] = []
+            if n_conn > 0 and len(off_pages) == n_offload:
+                conn_pages = self._load_from_connector(seq, keys, n_hbm + len(off_pages), n_conn)
+            seq.pages = list(hit_pages) + off_pages + conn_pages
+            n_cached = n_hbm + len(off_pages) + len(conn_pages)
+            seq.block_hashes = keys[:n_cached]
+            seq.num_computed = n_cached * ps
             seq.num_cached_prompt = seq.num_computed
             m = self.metrics
             m.prefix_cached_tokens.inc(seq.num_cached_prompt)
@@ -588,6 +667,59 @@ class LLMEngine:
             seq.slot = slot
             self.running[slot] = seq
             self.waiting.popleft()
+
+    def _reload_offloaded(self, seq: Sequence, keys: list[int], n_hbm: int,
+                          n_offload: int) -> list[int]:
+        """Pull CPU/FS-tier blocks back into freshly allocated pages and
+        re-index them (they emit BlockStored gpu again: resident now)."""
+        pids = self._load_blocks(seq, keys, n_hbm, n_offload, lambda hashes, pids: (
+            self.offload.load_into_cache(self.cache, hashes, pids, request_id=seq.request_id)))
+        self.stats.total_offload_loads += len(pids)
+        return pids
+
+    def _load_from_connector(self, seq: Sequence, keys: list[int], start: int,
+                             n_conn: int) -> list[int]:
+        """Pull blocks from the out-of-tree connector's engine into fresh
+        pages and commit them as prefix-cache entries."""
+        return self._load_blocks(seq, keys, start, n_conn, lambda hashes, pids: (
+            self.kv_connector.load_blocks(self.cache, hashes, pids, self.cfg.num_pages)))
+
+    def _load_blocks(self, seq: Sequence, keys: list[int], start: int, n: int,
+                     load: Callable) -> list[int]:
+        """Allocate up to ``n`` pages, have ``load(hashes, pids)`` write the
+        blocks of ``keys[start:]`` into them (in place; it returns the pool and
+        how many it wrote), release the pages of a tail that vanished meanwhile
+        and commit the rest under their keys."""
+        if n <= 0:
+            return []
+        ps = self.cfg.page_size
+        pids: list[int] = []
+        for _ in range(n):
+            pid = self.alloc.allocate()
+            if pid is None:
+                break
+            pids.append(pid)
+        if not pids:
+            return []
+        self.cache, n_loaded = load(keys[start : start + len(pids)], pids)
+        for pid in pids[n_loaded:]:
+            self.alloc.release(pid)
+        pids = pids[:n_loaded]
+        for i, pid in enumerate(pids):
+            bi = start + i
+            chunk = seq.token_ids[bi * ps : (bi + 1) * ps]
+            self.alloc.commit_block(pid, keys[bi], chunk, keys[bi - 1] if bi > 0 else None)
+        return pids
+
+    def _offload_drain(self) -> None:
+        """Keep the plain free list above the watermark by batch-demoting the
+        oldest LRU pages (one gather a step), so evictions rarely hit the
+        per-page on_evict backstop inside allocate()."""
+        need = self.cfg.offload_watermark_pages - len(self.alloc.free)
+        if need <= 0 or not self.alloc.lru:
+            return
+        n = min(need, self.cfg.offload_staging_blocks, len(self.alloc.lru))
+        self.offload.demote_batch(self.cache, self.alloc.demote_lru(n))
 
     def _ensure_pages(self, seq: Sequence, upto_tokens: int) -> bool:
         need = (upto_tokens + self.cfg.page_size - 1) // self.cfg.page_size
@@ -660,8 +792,10 @@ class LLMEngine:
         and drafts exist, ``decode`` otherwise (both after a deferred prefill
         sample lands)."""
         self._outputs = []
-        self._try_admit()
         with torch.no_grad(), self._on_stream():
+            if self.offload is not None:
+                self._offload_drain()
+            self._try_admit()
             self.programs.route(self).run(self)
             if self._eplb is not None:
                 self._eplb_tick()  # a rebalance is ordered after the calls in flight
@@ -1697,8 +1831,35 @@ class LLMEngine:
         if seq.slot >= 0:
             self.running[seq.slot] = None
             seq.slot = -1
+        if self.kv_connector is not None and seq.block_hashes:
+            self._connector_save(seq)
         self._free_seq(seq)
         self.seqs.pop(seq.request_id, None)
+
+    def _connector_save(self, seq: Sequence) -> None:
+        """The connector's save path: stage the committed blocks here (cheap,
+        the P/D export's helper), drain them and hand them to the external
+        engine on the connector thread, off the step loop. A failure never
+        fails serving."""
+        n, ps = len(seq.block_hashes), self.cfg.page_size
+        with self._on_stream():
+            parts = stage_pages(self.cache, seq.pages[:n], self.cfg.num_pages,
+                                self.cfg.offload_staging_blocks)
+        hashes = list(seq.block_hashes)
+        chunks = [seq.token_ids[i * ps : (i + 1) * ps] for i in range(n)]
+        rid, conn = seq.request_id, self.kv_connector
+
+        def _drain() -> None:
+            try:
+                conn.save_blocks(hashes, chunks, drain_staged(parts))
+            except Exception:  # noqa: BLE001 — the external engine is down: serving goes on
+                pass
+            try:
+                conn.request_finished(rid)
+            except Exception:  # noqa: BLE001
+                pass
+
+        self._connector_pool.submit(_drain)
 
     def _check_finish(self, seq: Sequence, tok: int) -> tuple[bool, Optional[str]]:
         sp: SamplingParams = seq.sampling

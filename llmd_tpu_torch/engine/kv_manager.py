@@ -5,10 +5,11 @@ page allocator with content-hash prefix reuse, and per-request state.
 - automatic prefix caching: completed pages are indexed by chained block hash
   (``core/kv_events.hash_block_tokens``) and reused by later requests,
 - LRU eviction of unreferenced cached pages,
-- KV-event emission (BlockStored / BlockRemoved) to an optional sink.
+- KV-event emission (BlockStored / BlockRemoved) to an optional sink,
+- the offload tier's hooks: ``evict_hook`` just before a cached page is
+  recycled, and ``demote_lru`` for the batched drain (``kv/offload.py``).
 
-Offload hooks, LoRA keys and multimodal extra keys of the reference come
-with their slices.
+LoRA keys and multimodal extra keys of the reference come with their slices.
 """
 
 from __future__ import annotations
@@ -47,6 +48,9 @@ class PageAllocator:
         self.enable_prefix_caching = enable_prefix_caching
         self.event_sink = event_sink
         self.medium = medium
+        # Called (block_hash, page_id) just before a cached page is recycled:
+        # the offload connector's HBM -> CPU hook (kv/offload.py).
+        self.evict_hook: Optional[Callable[[int, int], None]] = None
         self.free: deque[int] = deque(range(num_pages))
         self.pages: dict[int, PageInfo] = {}
         # block_hash → page_id for complete blocks still resident (any refcount)
@@ -83,6 +87,8 @@ class PageAllocator:
             pid = self.free.popleft()
         elif self.lru:
             h, pid = self.lru.popitem(last=False)
+            if self.evict_hook is not None:
+                self.evict_hook(h, pid)
             del self.cached[h]
             del self.pages[pid]
             self._emit([BlockRemoved(block_hashes=[h], medium=self.medium)])
@@ -139,6 +145,25 @@ class PageAllocator:
         else:
             del self.pages[page_id]
             self.free.append(page_id)
+
+
+    def demote_lru(self, n: int) -> list[tuple[int, int]]:
+        """Pop the n oldest evictable cached pages onto the free list and return
+        their (block_hash, page_id) pairs: the offload connector's batched
+        drain (one device-to-host gather for the batch instead of one copy a
+        page in ``allocate()``). The evict_hook is NOT called; the caller owns
+        the copy-out, which is safe until the freed pages are reallocated AND
+        rewritten."""
+        pairs: list[tuple[int, int]] = []
+        while self.lru and len(pairs) < n:
+            h, pid = self.lru.popitem(last=False)
+            pairs.append((h, pid))
+            del self.cached[h]
+            del self.pages[pid]
+            self.free.append(pid)
+        if pairs:
+            self._emit([BlockRemoved(block_hashes=[h for h, _ in pairs], medium=self.medium)])
+        return pairs
 
 
 @dataclass

@@ -1,6 +1,7 @@
 """CLI: python -m llmd_tpu_torch.engine.serve --model llama-1b --port 8000 [--cpu]
          [--moe-dispatch auto|sorted|einsum] [--quantize int8] [--kv-cache-dtype fp8]
-         [--kv-events-port N]
+         [--kv-events-port N] [--role both|prefill|decode] [--kv-transfer-port N]
+         [--advertise-host H] [--cpu-offload-pages N] [--offload-fs-path DIR]
 
 Serves ``--model`` on the port's HTTP server: a registry name with random
 weights from ``--seed``, or an HF checkpoint directory with its weights
@@ -10,6 +11,12 @@ weight-only weights (quantized at start); ``--kv-cache-dtype fp8`` a
 ``float8_e4m3fn`` KV pool. Runs on the CUDA card unless
 ``--cpu`` is given. ``--kv-events-port`` publishes the engine's KV events
 over ZMQ PUB on that port (0 picks a free one) for a router's KV indexer.
+``--kv-transfer-port`` opens the P/D KV-transfer side channel (0 picks a free
+one; ``LLMD_TPU_KV_TRANSFER_PORT`` is its default, as in the reference), and
+``--advertise-host`` is the routable host written into ``kv_transfer_params``
+(default ``--host`` unless that is a bind-any address). ``--role`` tags the
+engine for the pool (the engine does not read it). ``--cpu-offload-pages`` and
+``--offload-fs-path`` turn on the CPU and FS offload tiers.
 Flag names follow the reference CLI
 (``llmd_tpu/engine/serve.py``) for the options the port keeps.
 """
@@ -30,6 +37,18 @@ def main(argv: "list[str] | None" = None) -> None:
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--kv-events-port", type=int, default=None,
                     help="publish KV events (ZMQ PUB) on this port; 0 = a free one")
+    _env_kvt = os.environ.get("LLMD_TPU_KV_TRANSFER_PORT")
+    ap.add_argument("--kv-transfer-port", type=int,
+                    default=int(_env_kvt) if _env_kvt else None,
+                    help="bind the P/D KV-transfer side channel here (0 = a free one)")
+    ap.add_argument("--advertise-host", default=None,
+                    help="routable host for kv_transfer_params (defaults to --host "
+                         "unless that is a bind-any address)")
+    ap.add_argument("--role", default="both", choices=("both", "prefill", "decode"))
+    ap.add_argument("--cpu-offload-pages", type=int, default=0,
+                    help="KV blocks of the CPU offload tier")
+    ap.add_argument("--offload-fs-path", default=None,
+                    help="FS tier below the CPU tier (a directory, shareable)")
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=512)
     ap.add_argument("--max-model-len", type=int, default=2048)
@@ -67,16 +86,22 @@ def main(argv: "list[str] | None" = None) -> None:
         max_model_len=args.max_model_len, max_batch_size=args.max_batch_size,
         prefill_chunk=args.prefill_chunk, decode_steps=args.decode_steps,
         moe_dispatch=args.moe_dispatch, quantize_weights=args.quantize,
-        kv_cache_dtype=args.kv_cache_dtype)
+        kv_cache_dtype=args.kv_cache_dtype, role=args.role,
+        cpu_offload_pages=args.cpu_offload_pages, offload_fs_path=args.offload_fs_path)
     server = EngineServer(
         model_cfg, engine_cfg,
         model_name=args.served_model_name, host=args.host, port=args.port,
-        kv_events_port=args.kv_events_port,
+        kv_events_port=args.kv_events_port, kv_transfer_port=args.kv_transfer_port,
         tokenizer=load_tokenizer(tokenizer), params=params, seed=args.seed,
         device="cpu" if args.cpu else None)
+    if args.advertise_host:
+        server.advertise_host = args.advertise_host
     server.start()
     events = ("" if args.kv_events_port is None
               else f", KV events on port {server.kv_events_port}")
+    if server.transfer_source is not None:
+        events += (f", role {args.role}, KV transfer on port {server.kv_transfer_port}"
+                   f" ({'native' if server.transfer_source.native else 'python'})")
     print(f"llmd-tpu-torch engine serving {server.model_name} on "
           f"http://{server.address} (device {server.engine.device}, "
           f"attention {server.engine.attn_backend}, MoE {server.engine.moe_dispatch} "

@@ -39,9 +39,30 @@ With ``kv_events_port`` set, the engine's KV events are published on the
 reference's topic and wire (``engine/kv_publisher.py``); port 0 picks a free
 one, read back from ``kv_events_port`` after ``start()``.
 
+The KV data plane (``disagg/transfer.py``), as the reference's server: with
+``kv_transfer_port`` set (0 = a free one) a ``KVTransferSource`` serves pulls
+of this engine's exports, and the completion and chat bodies take
+``kv_transfer_params``:
+
+- ``do_remote_decode``: once the (non-streamed) request is done, its prompt's
+  resident blocks are staged under the engine lock and registered off it;
+  the answer carries ``kv_transfer_params`` (``remote_request_id``,
+  ``num_blocks``, ``remote_host`` when routable, ``remote_port``);
+- ``do_remote_prefill``: the blocks are pulled, injected under the engine
+  lock before admission and the producer notified (``_pull_remote_kv``); any
+  failure recomputes;
+- ``do_prefix_pull`` (the KV plane): the peer rung, then the durable store
+  (``_pull_prefix_kv``, ``_durable_get``); a failure never fails the request.
+  With ``LLMD_KV_PLANE=precise`` the source also serves peers' prefix pulls.
+
+A pull whose producer was not notified is released when the request ends
+(``_release_pending_pull``). ``/drain`` flushes the engine's durable
+write-back queue within its budget (``_flush_for_drain``). The transfer and
+durable metric families read ``transfer_stats``, the source's counters and
+the queue, as the reference's do.
+
 Not served yet (ROADMAP Queue A): ``/debug/*``, ``/v1/embeddings``,
-``/v1/responses``, ``/v1/conversations``, the LoRA routes and P/D
-``kv_transfer_params``.
+``/v1/responses``, ``/v1/conversations`` and the LoRA routes.
 """
 
 from __future__ import annotations
@@ -59,11 +80,22 @@ from urllib.parse import parse_qs
 
 from llmd_tpu_torch.core.kv_events import kv_topic
 from llmd_tpu_torch.core.request import HDR_REQUEST_TIMEOUT, SamplingParams, flatten_messages
+from llmd_tpu_torch.disagg.transfer import (
+    KVTransferClient,
+    KVTransferParams,
+    KVTransferSource,
+    PulledKV,
+    drain_staged,
+    export_begin,
+    export_finish,
+    inject_into_engine,
+)
 from llmd_tpu_torch.engine.async_engine import AsyncLLMEngine, EngineLoopError
 from llmd_tpu_torch.engine.config import EngineConfig
 from llmd_tpu_torch.engine.engine import LLMEngine
 from llmd_tpu_torch.engine.kv_publisher import KVEventPublisher
 from llmd_tpu_torch.engine.tokenizer import Tokenizer, load_tokenizer
+from llmd_tpu_torch.kvplane import plane_mode, pull_prefix_into, serve_prefix
 from llmd_tpu_torch.models.config import ModelConfig
 from llmd_tpu_torch.obs.metrics import Registry, register_engine_server_metrics
 from llmd_tpu_torch.structured import validate_structured_body
@@ -136,6 +168,7 @@ class EngineServer:
         host: str = "127.0.0.1",
         port: int = 8000,
         kv_events_port: Optional[int] = None,
+        kv_transfer_port: Optional[int] = None,
         tokenizer: Optional[Tokenizer] = None,
         params=None,
         engine: Optional[LLMEngine] = None,
@@ -146,6 +179,17 @@ class EngineServer:
         self.host, self.port = host, port
         self.tokenizer = tokenizer or load_tokenizer()
         self.kv_events_port = kv_events_port
+        self.kv_transfer_port = kv_transfer_port
+        self.advertise_host: Optional[str] = None  # routable host for transfer handles
+        self.transfer_source: Optional[KVTransferSource] = None
+        self.transfer_client: Optional[KVTransferClient] = None
+        self.transfer_stats = {"injected_blocks": 0, "pull_failures": 0,
+                               "prefix_pulls": 0, "prefix_pull_blocks": 0,
+                               "released": 0}  # guarded-by: _transfer_lock
+        # pulls whose peer-side registration may still be live: local rid ->
+        # (host, port, remote rid), released when the request ends
+        self._pending_pulls: dict[str, tuple] = {}  # guarded-by: _transfer_lock
+        self._transfer_lock = threading.Lock()
         self.publisher = (KVEventPublisher(kv_events_port)
                           if kv_events_port is not None else None)
         sink = self.publisher.sink if self.publisher is not None else None
@@ -162,6 +206,7 @@ class EngineServer:
         # frontend-owned families; the engine's live in engine.registry
         self.registry = Registry()
         self.server_metrics = register_engine_server_metrics(self.registry)
+        self._attach_transfer_metrics()
         # POST /drain: admissions stop, in-flight requests finish, /health
         # says draining so the router routes around this engine
         self.draining = False
@@ -173,6 +218,33 @@ class EngineServer:
     @property
     def address(self) -> str:
         return f"{self.host}:{self.port}"
+
+    def _attach_transfer_metrics(self) -> None:
+        """The transfer and durable families read live state at scrape time,
+        at the reference's sites (``transfer_stats``, the source's counters
+        and registrations, the write-back queue and breaker); the flush
+        counter is moved by the queue's ``on_flush`` callback."""
+        sm = self.server_metrics
+        for key in self.transfer_stats:
+            sm.transfer[key].set_function(lambda k=key: self.transfer_stats[k])
+        for key in ("exports", "pulls", "notifies", "expired"):
+            sm.transfer[key].set_function(
+                lambda k=key: self.transfer_source.stats.get(k, 0)
+                if self.transfer_source is not None else 0)
+        sm.transfer_registrations.set_function(
+            lambda: len(self.transfer_source) if self.transfer_source is not None else 0)
+        sm.kv_durable_queue_depth.set_function(
+            lambda: self.engine.writeback.depth() if self.engine.writeback is not None else 0)
+        sm.kv_durable_breaker.set_function(
+            lambda: self.engine.durable.breaker_state()
+            if self.engine.durable is not None else 0.0)
+        wb = self.engine.writeback
+        if wb is not None and wb.on_flush is None:
+            wb.on_flush = lambda outcome, n: sm.kv_durable_flush.labels(outcome=outcome).inc(n)
+
+    def _bump(self, key: str, n: int = 1) -> None:
+        with self._transfer_lock:
+            self.transfer_stats[key] += n
 
     def start(self) -> None:
         """Bind (port 0 picks a free one), start the engine loop, the KV-event
@@ -187,6 +259,16 @@ class EngineServer:
                 self._httpd = None
                 raise
             self.kv_events_port = self.publisher.port
+        if self.kv_transfer_port is not None:
+            self.transfer_source = KVTransferSource(port=self.kv_transfer_port)
+            if plane_mode() == "precise":
+                # serve peers' pull_prefix from the local prefix cache (set
+                # before start(): selects the python transport, which speaks it)
+                self.transfer_source.prefix_provider = (
+                    lambda hashes, rid: serve_prefix(self, hashes, rid))
+            self.transfer_source.start()
+            self.kv_transfer_port = self.transfer_source.port
+            self.transfer_client = KVTransferClient()
         self.async_engine.start()
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         name="http-server", daemon=True)
@@ -208,8 +290,152 @@ class EngineServer:
             self._thread.join(timeout=30)
             self._thread = None
         self.async_engine.stop()
+        if self.engine.writeback is not None:
+            self.engine.writeback.stop()
+        if self.transfer_source is not None:
+            self.transfer_source.stop()
         if self.publisher is not None:
             self.publisher.stop()
+
+    # -- the KV data plane ---------------------------------------------------
+    def _pull_remote_kv(self, ktp: KVTransferParams, token_ids: list[int],
+                        rid: Optional[str] = None) -> int:
+        """Pull and inject the producer's KV; any failure recomputes locally
+        (kv_load_failure_policy=recompute)."""
+        if rid is not None:
+            with self._transfer_lock:
+                self._pending_pulls[rid] = (ktp.remote_host, ktp.remote_port,
+                                            ktp.remote_request_id)
+        try:
+            pulled = self.transfer_client.pull(ktp.remote_host, ktp.remote_port,
+                                               ktp.remote_request_id)
+            if pulled is None:
+                self._bump("pull_failures")
+                return 0
+            n = self.async_engine.run_locked(
+                lambda: inject_into_engine(self.engine, pulled, token_ids))
+            self._bump("injected_blocks", n)
+            # free the producer's export (NIXL-notify semantics)
+            if self.transfer_client.notify(ktp.remote_host, ktp.remote_port,
+                                           ktp.remote_request_id) and rid is not None:
+                with self._transfer_lock:
+                    self._pending_pulls.pop(rid, None)
+            return n
+        except Exception as e:  # noqa: BLE001 — a failed pull recomputes, never fails the request
+            self._bump("pull_failures")
+            if isinstance(e, ValueError) and "block shape" in str(e):
+                # a peer layout or geometry mismatch is a standing config
+                # error: say so once a minute, not only in the counter
+                now = time.monotonic()
+                if now - getattr(self, "_shape_err_ts", 0.0) > 60.0:
+                    self._shape_err_ts = now
+                    print(f"kv-transfer: {e}", file=sys.stderr, flush=True)
+            return 0
+
+    def _pull_prefix_kv(self, rid: str, ktp: KVTransferParams, token_ids: list[int]) -> int:
+        """KV-plane prefix pull ahead of prefill: the peer rung first (when the
+        router stamped one), then the cluster-durable store. A failure falls
+        through to the offload tiers and re-prefill; it never fails the
+        request. Injected blocks become ordinary prefix hits."""
+        self._bump("prefix_pulls")
+        t0 = time.monotonic()
+        tier = ktp.tier or "peer"
+        n, outcome = 0, "miss"
+        if tier == "peer" and ktp.remote_host and self.transfer_client is not None:
+            with self._transfer_lock:
+                self._pending_pulls[rid] = (ktp.remote_host, ktp.remote_port,
+                                            ktp.remote_request_id)
+            n, outcome, released = pull_prefix_into(self, ktp, token_ids)
+            if released:
+                with self._transfer_lock:
+                    self._pending_pulls.pop(rid, None)
+        durable = self.engine.durable
+        if n == 0 and durable is not None and ktp.block_hashes:
+            # the durable rung: the peer died or missed, or the router stamped
+            # the durable tier directly; the cluster store outlives replicas
+            dn, d_outcome = self._durable_get(ktp.block_hashes, token_ids)
+            if dn or tier == "durable":
+                n, outcome = dn, d_outcome
+        self.server_metrics.prefix_pull_seconds.labels(outcome=outcome).observe(
+            time.monotonic() - t0)
+        if n:
+            self._bump("prefix_pull_blocks", n)
+        else:
+            self._bump("pull_failures")
+        return n
+
+    def _durable_get(self, block_hashes, token_ids: list[int]) -> tuple[int, str]:
+        """The durable rung: fetch the verified consecutive prefix from the
+        cluster store and inject it exactly like a peer pull (hash-chain
+        verified against THIS prompt, shape-checked). Returns
+        (blocks injected, the pull's outcome)."""
+        want = [int(h) for h in block_hashes]
+        n, blocks, fetch_outcome = self.engine.durable.get(want)
+        injected = 0
+        if n and blocks is not None:
+            pulled = PulledKV(block_hashes=want[:n], token_chunks=[[] for _ in range(n)],
+                              blocks=blocks)
+            try:
+                injected = self.async_engine.run_locked(
+                    lambda: inject_into_engine(self.engine, pulled, token_ids))
+            except ValueError:
+                # block shape or chain mismatch: never commit suspect bytes
+                injected, fetch_outcome = 0, "corrupt"
+            except Exception:  # noqa: BLE001 — any other inject failure falls down the ladder
+                injected, fetch_outcome = 0, "error"
+            if injected:
+                self._bump("injected_blocks", injected)
+        self.server_metrics.kv_durable_get.labels(outcome=fetch_outcome).inc()
+        if injected:
+            return injected, "hit"
+        if fetch_outcome in ("ok", "miss", "breaker_open"):
+            return 0, "miss"
+        return 0, "error"
+
+    def _flush_for_drain(self, budget_s: float) -> tuple[int, int]:
+        """Final write-back before retirement: stage the resident prefix set
+        under the engine lock, drain its bytes off it, enqueue, then empty
+        the flush queue within the remaining budget (the rest is abandoned)."""
+        from llmd_tpu_torch.kv.writeback import stage_resident_blocks
+
+        t0 = time.monotonic()
+        wb = self.engine.writeback
+        try:
+            hashes, parts = self.async_engine.run_locked(
+                lambda: stage_resident_blocks(self.engine, wb.max_blocks))
+            if hashes:
+                wb.offer(hashes, drain_staged(parts))
+        except Exception:  # noqa: BLE001 — best effort: drain must still retire on time
+            pass
+        return wb.flush_for_drain(max(0.0, budget_s - (time.monotonic() - t0)))
+
+    def _release_pending_pull(self, rid: str) -> None:
+        """Free the peer-side registration of an ended request whose pull was
+        never notified, so a dead puller does not pin the peer's export until
+        its TTL."""
+        with self._transfer_lock:
+            pending = self._pending_pulls.pop(rid, None)
+        if pending is None or self.transfer_client is None:
+            return
+        host, port, remote_rid = pending
+        if self.transfer_client.notify(host, port, remote_rid):
+            self._bump("released")
+
+    def _export(self, rid: str, token_ids: list[int]) -> dict:
+        """``do_remote_decode``: stage the prompt's resident blocks under the
+        engine lock, drain and register them off it; the transfer handle."""
+        out_params, staged = self.async_engine.run_locked(
+            lambda: export_begin(self.engine, rid, token_ids,
+                                 staging_pages=self.engine.cfg.offload_staging_blocks))
+        if staged is not None:
+            export_finish(staged, self.transfer_source)
+        # advertise a routable host, never the bind-any address: the sidecar
+        # falls back to the prefiller's host when it is unset
+        routable = self.advertise_host or self.host
+        if routable not in ("0.0.0.0", "::", ""):
+            out_params.remote_host = routable
+        out_params.remote_port = self.transfer_source.port
+        return out_params.to_dict()
 
     # -- handlers: (status, payload[, headers]) ------------------------------
     def health(self) -> tuple[int, dict]:
@@ -264,6 +490,11 @@ class EngineServer:
         while self.engine.seqs and time.monotonic() - t0 < timeout_s:
             time.sleep(0.02)
         drained = not self.engine.seqs
+        if drained and self.engine.writeback is not None:
+            # write the resident working set back before retirement, within
+            # min(drain budget, the rest of the drain window)
+            self._flush_for_drain(min(self.engine.durable.cfg.drain_budget_s,
+                                      max(0.0, timeout_s - (time.monotonic() - t0))))
         return (200 if drained else 504), {"status": "drained" if drained else "timeout",
                                            "inflight": len(self.engine.seqs)}
 
@@ -303,6 +534,39 @@ class EngineServer:
         rid = f"cmpl-{uuid.uuid4().hex[:16]}"
         head = {"id": rid, "object": "chat.completion" if chat else "text_completion",
                 "created": int(time.time()), "model": body.get("model", self.model_name)}
+        try:
+            ktp = KVTransferParams.from_dict(body.get("kv_transfer_params"))
+        except (ValueError, TypeError, AttributeError) as e:  # malformed body
+            return 400, {"error": {"message": str(e)}}
+        if ktp.do_remote_prefill and self.transfer_client is not None:
+            self._pull_remote_kv(ktp, token_ids, rid)
+        elif (ktp.do_prefix_pull and ktp.block_hashes
+              and (self.transfer_client is not None or self.engine.durable is not None)):
+            # the router found this prefix on a peer or in the durable store
+            self._pull_prefix_kv(rid, ktp, token_ids)
+        stream = bool(body.get("stream"))
+        try:
+            status, result = self._generate(rid, token_ids, sampling, head, chat, stream,
+                                            ktp.do_remote_decode)
+        except BaseException:
+            self._release_pending_pull(rid)
+            raise
+        if not isinstance(result, dict):
+            return status, self._released_after(rid, result)
+        self._release_pending_pull(rid)
+        return status, result
+
+    def _released_after(self, rid: str, events: Iterator[dict]) -> Iterator[dict]:
+        """``events``, then (however the stream ends) the release of the
+        request's pending pull."""
+        try:
+            yield from events
+        finally:
+            events.close()
+            self._release_pending_pull(rid)
+
+    def _generate(self, rid: str, token_ids: list[int], sampling: SamplingParams,
+                  head: dict, chat: bool, stream: bool, export: bool):
         text = TextStream(self.tokenizer, sampling.stop)
         outputs = self.async_engine.generate(rid, token_ids, sampling)
         try:
@@ -311,7 +575,7 @@ class EngineServer:
             return 400, {"error": {"message": str(e)}}
         except EngineLoopError as e:
             return 500, {"error": {"message": str(e)}}
-        if body.get("stream"):
+        if stream:
             return 200, self._sse_events(outputs, first, head, chat, text, len(token_ids))
         out_ids, out = list(first.new_token_ids), first
         try:
@@ -325,9 +589,12 @@ class EngineServer:
         choice = ({"index": 0, "message": {"role": "assistant", "content": content},
                    "finish_reason": reason} if chat else
                   {"index": 0, "text": content, "finish_reason": reason})
-        return 200, {**head, "usage": _usage(len(token_ids), len(out_ids),
-                                              out.num_cached_prompt_tokens),
-                     "choices": [choice]}
+        payload = {**head, "usage": _usage(len(token_ids), len(out_ids),
+                                           out.num_cached_prompt_tokens),
+                   "choices": [choice]}
+        if export and self.transfer_source is not None:
+            payload["kv_transfer_params"] = self._export(rid, token_ids)
+        return 200, payload
 
     def _sse_events(self, outputs: Iterator, out, head: dict, chat: bool, text: TextStream,
                     n_prompt: int) -> Iterator[dict]:

@@ -1,4 +1,8 @@
-"""Build the package's CUDA sources with nvcc at first use; load them with ctypes.
+"""Build the package's native sources at first use; load them with ctypes.
+
+CUDA kernels (``csrc/<name>.cu``) build with nvcc (:func:`load`); the host
+C++ of the KV-transfer data plane (``csrc/<name>.cpp``) builds with g++
+(:func:`load_host`).
 
 Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers), so a
 build is one nvcc call of a few seconds. The shared library lands in
@@ -23,6 +27,7 @@ import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Callable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / ".build"
@@ -34,8 +39,12 @@ NVCC_FLAGS = (
 )
 
 
+# g++ flags of the host libraries: the reference's (llmd_tpu/native/build.py).
+HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread", "-Wall", "-Werror")
+
+
 class BuildError(RuntimeError):
-    """nvcc is missing or refused a source."""
+    """The compiler is missing or refused a source."""
 
 
 @dataclass
@@ -63,41 +72,51 @@ def nvcc_path() -> str:
                      "toolkit is needed to build the kernels")
 
 
-def digest(src: Path) -> str:
+def digest(src: Path, flags: tuple = NVCC_FLAGS) -> str:
     """The build's cache key: ``src``, every header beside it (by name and
-    bytes, in name order) and the nvcc flags."""
+    bytes, in name order) and the compiler flags."""
     h = hashlib.sha256(src.read_bytes())
     for header in sorted(src.parent.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
 
 
 def load(name: str) -> Built:
-    """Compile ``csrc/<name>.cu`` if needed and dlopen it (once per process).
-    Different sources build concurrently when loaded from several threads."""
+    """Compile ``csrc/<name>.cu`` with nvcc if needed and dlopen it (once per
+    process). Different sources build concurrently when loaded from several
+    threads."""
+    return _load(name, CSRC / f"{name}.cu", lambda: nvcc_path(), NVCC_FLAGS)
+
+
+def load_host(name: str) -> Built:
+    """Compile the host library ``csrc/<name>.cpp`` with g++ if needed and
+    dlopen it (once per process); :class:`BuildError` if that fails."""
+    return _load(name, CSRC / f"{name}.cpp", lambda: "g++", HOST_FLAGS)
+
+
+def _load(name: str, src: Path, compiler: Callable[[], str], flags: tuple) -> Built:
     with _LOCK:
         lock = _LOCKS.setdefault(name, threading.Lock())
     with lock:
         if name in _LOADED:
             return _LOADED[name]
-        src = CSRC / f"{name}.cu"
-        out = BUILD_DIR / f"{name}-{digest(src)}.so"
+        out = BUILD_DIR / f"{name}-{digest(src, flags)}.so"
         t0 = time.perf_counter()
         log = ""
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            cmd = [nvcc_path(), *NVCC_FLAGS, str(src), "-o", tmp]
             try:
+                cmd = [compiler(), *flags, str(src), "-o", tmp]
                 proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-            except (OSError, subprocess.TimeoutExpired) as e:
+            except (OSError, subprocess.TimeoutExpired, BuildError) as e:
                 os.unlink(tmp)
-                raise BuildError(f"nvcc could not run for {src}: {e}") from e
+                raise BuildError(f"the compiler could not run for {src}: {e}") from e
             if proc.returncode != 0:
                 os.unlink(tmp)
-                raise BuildError(f"nvcc failed (rc={proc.returncode}) for {src}:\n"
+                raise BuildError(f"{cmd[0]} failed (rc={proc.returncode}) for {src}:\n"
                                  f"{proc.stdout}{proc.stderr}")
             os.replace(tmp, out)
             log = proc.stdout + proc.stderr

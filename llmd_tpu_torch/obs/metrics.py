@@ -7,9 +7,9 @@ The text-exposition contract (``# HELP`` / ``# TYPE`` headers, cumulative
 Prometheus text format) and every engine and engine-server family carry the
 reference's names, types, help strings and label names, so a router or a
 dashboard reads a port engine's ``/metrics`` as it reads a JAX engine's.
-Families of features the port does not serve yet (offload, speculation,
-structured outputs, LoRA, the decision plane) are registered all the same and
-stay at zero, as they do in a reference engine with the feature off. The
+Families of features the port does not serve yet (LoRA, the decision
+plane) are registered all the same and stay at zero, as they do in a
+reference engine with the feature off. The
 router, pool and device families are not copied: no engine registers them.
 
 * Thread-safe: the engine loop mutates families while HTTP threads scrape;
@@ -87,6 +87,7 @@ class _Family:
         self.labelnames = tuple(labelnames)
         self._lock = lock
         self._children: Dict[Tuple[str, ...], object] = {}
+        self._fn: Optional[Callable[[], float]] = None
         self._labels_fn: Optional[
             Callable[[], Iterable[Tuple[Dict[str, object], float]]]] = None
 
@@ -103,6 +104,12 @@ class _Family:
                 child = self._new_child()
                 self._children[key] = child
             return child
+
+    def set_function(self, fn: Callable[[], float]) -> None:
+        """Attach a scrape-time value callback (unlabeled families only)."""
+        if self.labelnames:
+            raise ValueError(f"{self.name}: set_function on labeled family")
+        self._fn = fn
 
     def set_labels_function(
             self,
@@ -135,6 +142,9 @@ class _Family:
     # -- exposition -------------------------------------------------------
     def samples(self) -> Iterable[Tuple[str, str, float]]:
         """Yield (suffix, rendered-labels, value) triples."""
+        if self._fn is not None:
+            yield "", "", float(self._fn())
+            return
         if self._labels_fn is not None:
             for labels, value in self._labels_fn():
                 if set(labels) != set(self.labelnames):
@@ -169,6 +179,8 @@ class Counter(_Family):
 
     @property
     def value(self) -> float:
+        if self._fn is not None:
+            return float(self._fn())
         return self._default().value
 
     def _child_samples(self, key, child):
@@ -202,6 +214,8 @@ class Gauge(_Family):
 
     @property
     def value(self) -> float:
+        if self._fn is not None:
+            return float(self._fn())
         return self._default().value
 
     def _child_samples(self, key, child):

@@ -63,6 +63,11 @@ import numpy as np
 import torch
 
 
+# host seconds that a profiled window's trace runs before its first and after
+# its last call (see ``profile_batch``)
+TRACE_MARGIN_S = 0.05
+
+
 def _kernel_rows(prof) -> list[dict]:
     rows = []
     for e in prof.key_averages():
@@ -318,12 +323,18 @@ def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
     it1, rp1 = st.n_decode_iterations, st.decode_graph_replays
     sync()
     counted0 = counted_launches()
+    # the profiler places device records on the host's clock with an error
+    # of up to a few ms, and drops those that land outside its trace: the
+    # window is held kernel for kernel against the wrappers' counters, so the
+    # trace runs TRACE_MARGIN_S on either side of the profiled calls
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_MARGIN_S)
         p0 = time.perf_counter()
         for _ in range(prof_calls):
             eng.step()
         sync()
         prof_wall = time.perf_counter() - p0
+        time.sleep(TRACE_MARGIN_S)
     prof_iters = st.n_decode_iterations - it1
     counted = {k: v - counted0[k] for k, v in counted_launches().items()}
     prof_replays = st.decode_graph_replays - rp1

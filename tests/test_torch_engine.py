@@ -208,7 +208,7 @@ def test_unserved_options_raise(make, reference):
         make(kv_cache_dtype="int4")
     # every field the port does not read raises when set away from its default
     for field, value in (("kv_layout", "packed"), ("max_queue", 1),
-                         ("cpu_offload_pages", 4)):
+                         ("dp_ranks", 2)):
         with pytest.raises(ValueError, match=field):
             make(**{field: value})
     # served away from their defaults, each against the reference: the

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no jax, no llmd_tpu, card by default. Its
 modules and chip_smoke.py import without ``safetensors``, ``transformers``,
-``aiohttp`` and ``msgpack`` too: the port reads safetensors itself, imports the
+``aiohttp``, ``msgpack`` and ``ml_dtypes`` too: the port reads safetensors itself, imports the
 HF tokenizer only when a caller asks for one, serves HTTP on the standard
 library and writes the KV-event wire by hand."""
 
@@ -15,13 +15,13 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 
 # Blocks the top-level names jax, jaxlib, llmd_tpu, safetensors, transformers,
-# aiohttp and msgpack EXACTLY (a prefix match would also block llmd_tpu_torch), then
+# aiohttp, msgpack and ml_dtypes EXACTLY (a prefix match would also block llmd_tpu_torch), then
 # imports every module of the port and chip_smoke.py.
 _BLOCKED_IMPORT = r"""
 import importlib, importlib.abc, pkgutil, sys
 
 BLOCKED = {"jax", "jaxlib", "llmd_tpu", "safetensors", "transformers", "aiohttp",
-           "msgpack"}
+           "msgpack", "ml_dtypes"}
 
 
 class Blocker(importlib.abc.MetaPathFinder):
@@ -62,6 +62,13 @@ assert {"llmd_tpu_torch.ops.paged_attention", "llmd_tpu_torch.ops.mla_decode",
         "llmd_tpu_torch.models.transformer", "llmd_tpu_torch.engine.config",
         "llmd_tpu_torch.engine.engine", "llmd_tpu_torch.engine.serve",
         "llmd_tpu_torch.tools.bench", "llmd_tpu_torch.tools.profile_engine"} <= set(names)
+# and the KV data plane's: transfer, the offload tiers, the connector seam,
+# the remote store, the durable tier, the dtype names, the engine's KV-plane pulls
+assert {"llmd_tpu_torch.disagg.transfer", "llmd_tpu_torch.kv.dtypes",
+        "llmd_tpu_torch.kv.fs_backend", "llmd_tpu_torch.kv.offload",
+        "llmd_tpu_torch.kv.connector_api", "llmd_tpu_torch.kv.remote_store",
+        "llmd_tpu_torch.kv.writeback", "llmd_tpu_torch.kvplane.pull",
+        "llmd_tpu_torch.native.build"} <= set(names)
 assert "zmq" not in sys.modules
 print(len(names))
 """
@@ -71,23 +78,25 @@ def test_port_imports_without_jax_or_reference_package():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 35  # every module of the port was imported
+    assert int(proc.stdout.split()[-1]) >= 45  # every module of the port was imported
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|jaxlib|llmd_tpu)\b(?!_)|from\s+(jax|jaxlib|llmd_tpu)\b(?!_))",
+    r"^\s*(import\s+(jax|jaxlib|llmd_tpu|ml_dtypes)\b(?!_)"
+    r"|from\s+(jax|jaxlib|llmd_tpu|ml_dtypes)\b(?!_))",
     re.M)
 
 
 def test_source_scan_finds_no_jax_or_reference_imports():
     files = sorted((REPO / "llmd_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 38
+    assert len(files) >= 48
     hits = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
             for p in files for m in _FORBIDDEN.finditer(p.read_text())]
     assert not hits, hits
     # the pattern itself tells the names apart
     assert _FORBIDDEN.search("from llmd_tpu.models import x")
     assert _FORBIDDEN.search("import jax.numpy as jnp")
+    assert _FORBIDDEN.search("    import ml_dtypes  # noqa")
     assert not _FORBIDDEN.search("from llmd_tpu_torch.models import x")
 
 

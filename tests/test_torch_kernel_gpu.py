@@ -1012,3 +1012,99 @@ def test_fp8_engine_tokens_same_with_kernels(cuda):
     on_cpu = LLMEngine(cfg, EngineConfig(**ecfg), params=params,
                        device="cpu").generate(prompts, sp)
     assert on_card == on_cpu
+
+
+# ------------------------------------------- the KV data plane on the card
+
+
+def _kvplane_prompts():
+    return [list(range(5, 60)), list(range(100, 140)), list(range(7, 200, 3))]
+
+
+@pytest.mark.parametrize("model", ["tiny", "tiny-mla"])
+def test_kvplane_inject_under_captured_decode_graph(cuda, model):
+    """Blocks pulled from a prefill engine are injected, in place, into a
+    decode engine whose decode graph was captured before the inject: the
+    pool keeps its address, the injected pages hold the producer's bytes,
+    and the replayed program gives the eager program's tokens and launches
+    over them (K1, and K3 on tiny-mla)."""
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.disagg.transfer import (
+        PulledKV, drain_staged, export_begin, gather_pages, inject_into_engine)
+
+    prompts = _kvplane_prompts()
+    producer = _engine(model, cuda)
+    producer.generate(prompts, SamplingParams(max_tokens=1, temperature=0.0))
+    pulled = []
+    for p in prompts:
+        _, staged = export_begin(producer, "x", p)
+        pulled.append(PulledKV(staged.hashes, staged.chunks, drain_staged(staged.parts)))
+    sp = SamplingParams(max_tokens=12, temperature=0.0)
+    out, counts = {}, {}
+    for graph in (True, False):
+        eng = _engine(model, cuda, decode_graph=graph)
+        eng.generate([list(range(210, 240))], sp)  # captures the decode graph first
+        ptr = eng.cache.data_ptr()
+        for p, pk in zip(prompts, pulled):
+            assert inject_into_engine(eng, pk, p) == len(pk.block_hashes)
+            pids = [eng.alloc.cached[h] for h in pk.block_hashes]
+            got = gather_pages(eng.cache, pids, eng.cfg.num_pages).cpu()
+            assert torch.equal(got.view(torch.uint8), pk.blocks.view(torch.uint8))
+        assert eng.cache.data_ptr() == ptr
+        before = _launches()
+        out[graph] = eng.generate(prompts, sp)
+        after = _launches()
+        counts[graph] = {n: after[n][0] - before[n][0] for n in after}
+        assert eng.stats.decode_graph_captures == (1 if graph else 0)
+    assert out[True] == out[False]
+    assert counts[True] == counts[False] and counts[True]["paged_attention"] > 0
+    if model == "tiny-mla":
+        assert counts[True]["mla_decode"] > 0
+
+
+def test_kvplane_staging_ordered_against_later_page_writes(cuda, monkeypatch):
+    """stage_pages gathers on the current stream and copies on a side stream;
+    a write to the same pages enqueued right after (behind a long kernel, so
+    the host runs far ahead) cannot reach the staged bytes, and the drain
+    waits on the copies' own events, never on the whole device."""
+    from llmd_tpu_torch.disagg.transfer import drain_staged, stage_pages
+
+    P = 64
+    cache = torch.randn(2 * P + 1, 16, 4, 64, device=cuda, dtype=torch.bfloat16)
+    want = cache.clone()
+    big = torch.randn(4096, 4096, device=cuda)
+    for _ in range(8):
+        big = big @ big / 64  # keeps the stream busy while the host enqueues
+    pids = [3, 17, 40, 41, 63]
+    parts = stage_pages(cache, pids, P, staging_pages=2)
+    rows = torch.tensor([l * P + p for l in range(2) for p in pids], device=cuda)
+    cache.index_fill_(0, rows, 0.0)  # a later step rewrites the released pages
+
+    def no_sync(*a, **kw):
+        raise AssertionError("drain_staged must not synchronize the device")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", no_sync)
+    blocks = drain_staged(parts)
+    monkeypatch.undo()
+    assert blocks.device.type == "cpu" and blocks.shape == (5, 2, 16, 4, 64)
+    for i, p in enumerate(pids):
+        for l in range(2):
+            assert torch.equal(blocks[i, l], want[l * P + p].cpu())
+    assert (cache[rows] == 0).all()
+
+
+def test_kvplane_export_survives_engine_steps_on_card(cuda):
+    """An export staged before steps that recycle its pages equals the one
+    taken before them (the reference's test_export_survives_engine_steps)."""
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.disagg.transfer import drain_staged, export_begin
+
+    eng = _engine("tiny", cuda, num_pages=24)
+    prompt = list(range(40, 64))
+    eng.generate([prompt], SamplingParams(max_tokens=2, temperature=0.0, ignore_eos=True))
+    _, truth = export_begin(eng, "a", prompt)
+    truth = drain_staged(truth.parts)
+    _, staged = export_begin(eng, "b", prompt)
+    eng.generate([[(97 + 41 * i + j) % 280 + 1 for j in range(40)] for i in range(8)],
+                 SamplingParams(max_tokens=4, temperature=0.0, ignore_eos=True))
+    assert torch.equal(drain_staged(staged.parts), truth)
