@@ -166,6 +166,28 @@ with a non-zero exit:
             on each transport against a host memcpy, demote and reload ms per
             block, TTFT aggregated against disaggregated.
 
+16. lora    multi-adapter LoRA and the embed program (``phase_lora``):
+            llama-1b at full width under ``LoRAConfig(max_adapters=8, rank=8)``,
+            the serving settings, three adapters drawn from a seeded
+            generator, 8 greedy requests (2 base, 2 per adapter, prompts of
+            64-512 tokens, 32 tokens out). float32: kernels = plain versions
+            in every row (K1 once per layer of every forward, on ``simt``),
+            the base rows = an engine without LoRA, each adapter's rows = a
+            batch of that adapter alone, and each adapter changes a token
+            against the base model; bf16: the decode program replayed = eager
+            with a fourth adapter loaded after the capture (K1 on ``mma``);
+            speculation on = off in float32 on echo prompts under adapters;
+            moe-wide-sim at 4 layers in float32 under adapters, kernels =
+            plain (K2 twice per layer of every forward); behind the server in
+            float32: the load / unload routes and codes, ``/v1/models``, the
+            ``vllm:lora_requests_info`` line, the 404s, ``/v1/embeddings``
+            within 1e-5 of the plain version with K1 once per layer per chunk
+            and the adapter's vector apart from the base one. Informational:
+            bf16 decode tok/s at batch 64, ISL 256 / OSL 128, with 4 adapters
+            against none, ``profile_batch`` at batch 8 with and without LoRA,
+            ``/v1/embeddings`` latency of one 512-token input (``lora:``
+            lines).
+
 It ends with a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. ``--report PATH`` also writes every phase's details (nvcc's register
 report, per-check errors) as JSON. Without a CUDA device it exits 1 and prints
@@ -176,6 +198,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import re
 import shutil
@@ -3379,6 +3402,477 @@ def phase_kvplane(device, card: str, seed: int = 0, dense: str = "llama-1b",
     return out
 
 
+# --------------------------------------------------------------------------
+# Multi-adapter LoRA and the embed program
+# --------------------------------------------------------------------------
+
+LORA_KW = dict(page_size=PS, num_pages=2048, max_model_len=2048, max_batch_size=32,
+               prefill_chunk=512, max_num_batched_tokens=2048, decode_steps=4)
+
+
+def _adapters(device, cfg, n: int, seed: int, first: int = 0) -> dict:
+    """``n`` adapters (rank 8) drawn from a seeded generator on the card, in
+    ``cfg``'s dtype: ``ad-<first>`` ..."""
+    from llmd_tpu_torch.models.lora import LoRAConfig, make_adapter_weights
+
+    return {f"ad-{i}": make_adapter_weights(
+        cfg, LoRAConfig(), torch.Generator(device=device).manual_seed(seed + 100 + i))
+        for i in range(first, first + n)}
+
+
+def _lora_engine(device, cfg, adapters: dict, lora: bool = True, plain: bool = False,
+                 decode_graph: bool = True, seed: int = 0, **kw):
+    """An engine of the serving settings under ``LoRAConfig(max_adapters=8,
+    rank=8)`` (or none) with ``adapters`` loaded, warmed up (its decode
+    program captured unless ``plain`` or ``decode_graph=False``). ``plain``:
+    the attention and, on MoE, the sorted dispatch's expert GEMMs run their
+    plain versions, eagerly."""
+    import functools
+
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.engine import EngineConfig, LLMEngine
+    from llmd_tpu_torch.models.lora import LoRAConfig
+    from llmd_tpu_torch.ops.grouped_gemm import ragged_grouped_gemm_ref
+    from llmd_tpu_torch.ops.moe_dispatch import sorted_moe_local
+    from llmd_tpu_torch.ops.paged_attention import paged_attention_ref
+
+    eng = LLMEngine(cfg, EngineConfig(**(LORA_KW | kw), lora=LoRAConfig() if lora else None),
+                    seed=seed, device=device, decode_graph=decode_graph and not plain)
+    if plain:
+        eng._attn = {"unified": paged_attention_ref, "decode": paged_attention_ref}
+        if cfg.is_moe:
+            eng._moe_dispatch_impl = functools.partial(sorted_moe_local,
+                                                       gemm=ragged_grouped_gemm_ref)
+    for name, w in adapters.items():
+        eng.load_lora_adapter(name, w)
+    eng.generate([[1, 2, 3]], SamplingParams(max_tokens=2 * eng.cfg.decode_steps + 2,
+                                             temperature=0.0))
+    return eng
+
+
+_WINDOWS = itertools.count()
+
+
+def _lora_window(eng, reqs: list, max_tokens: int) -> dict:
+    """``reqs`` = (prompt, adapter or None) through the engine's steps, the
+    counters zeroed just before and read just after: tokens per request (in
+    order), launches, plain calls, instances and the engine's counts."""
+    from llmd_tpu_torch.core.request import SamplingParams
+
+    st0 = dataclasses.replace(eng.stats)
+    sync = torch.cuda.synchronize if eng.device.type == "cuda" else (lambda: None)
+    sync()
+    zero_counts()
+    t0 = time.perf_counter()
+    window = next(_WINDOWS)
+    rids = [f"lora-{window}-{i}" for i in range(len(reqs))]
+    for rid, (prompt, lora) in zip(rids, reqs):
+        eng.add_request(rid, prompt, SamplingParams(max_tokens=max_tokens, temperature=0.0),
+                        lora_id=lora)
+    out: dict = {rid: [] for rid in rids}
+    while eng.has_work():
+        for o in eng.step():
+            out[o.request_id].extend(o.new_token_ids)
+    sync()
+    wall = time.perf_counter() - t0
+    launches, plain_calls = read_counts()
+    st = eng.stats
+    d = {k: getattr(st, k) - getattr(st0, k) for k in (
+        "n_unified_steps", "n_decode_iterations", "n_spec_verify_steps", "n_decode_calls",
+        "decode_graph_replays", "spec_drafted", "spec_accepted", "moe_dropped_tokens",
+        "decode_tokens_fused")}
+    d["time_decode_steps"] = st.time_decode_steps - st0.time_decode_steps
+    return {"tokens": list(out.values()), "launches": launches, "plain_calls": plain_calls,
+            "launches_by_instance": instance_counts(), "wall_s": wall, **d}
+
+
+def _check_lora_launches(label: str, cfg, run: dict, per: dict, instance: str) -> None:
+    """Each kernel of ``per`` (name -> launches per layer and forward)
+    launched that many times per layer of every forward of the window, all
+    on ``instance`` (K2 on ``wgmma`` for bf16, ``simt`` for float32), no
+    plain version, no other kernel. On the card only."""
+    if not torch.cuda.is_available():
+        return
+    forwards = run["n_unified_steps"] + run["n_decode_iterations"] + run["n_spec_verify_steps"]
+    expect = {n: per.get(n, 0) * cfg.num_layers * forwards for n in run["launches"]}
+    gemm_instance = "wgmma" if instance == "mma" else "simt"
+    wrong = {n: by for n, by in run["launches_by_instance"].items()
+             if by != {k: (run["launches"][n] if k == (gemm_instance if "gemm" in n else instance)
+                           else 0) for k in by}}
+    if run["launches"] != expect or any(run["plain_calls"].values()) or wrong:
+        raise AssertionError(f"lora {label}: launches {run['launches']} expected {expect}, "
+                             f"instances {wrong}, plain calls {run['plain_calls']}")
+
+
+def _lora_requests(cfg, names: list, n_per: int, prompt_range, seed: int) -> list:
+    """``n_per`` base requests and ``n_per`` per adapter, random prompts."""
+    rng = np.random.default_rng(seed)
+    loras = [None] * n_per + [n for n in names for _ in range(n_per)]
+    return [(rng.integers(0, cfg.vocab_size, int(rng.integers(prompt_range[0],
+                                                                prompt_range[1] + 1))).tolist(),
+             lora) for lora in loras]
+
+
+def _empty() -> None:
+    """Return the memory of the engines just dropped to the card."""
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def lora_f32_identities(device, card: str, model: str, seed: int, n_per: int,
+                        prompt_range, max_tokens: int) -> dict:
+    """float32 ``model`` at full width and depth: 2 base + 2 per adapter
+    (3 adapters) greedy requests. Kernels = plain versions in every row;
+    the base rows = an engine without LoRA; each adapter's rows = a batch of
+    that adapter alone; each adapter changes at least one token against the
+    base model on its prompts."""
+    from llmd_tpu_torch.models import get_model_config
+
+    cfg = dataclasses.replace(get_model_config(model), dtype="float32")
+    ads = _adapters(device, cfg, 3, seed)
+    reqs = _lora_requests(cfg, list(ads), n_per, prompt_range, seed)
+    eng = _lora_engine(device, cfg, ads, seed=seed)
+    kern = _lora_window(eng, reqs, max_tokens)
+    _check_lora_launches(f"{model} f32 kernels", cfg, kern, {"paged_attention": 1}, "simt")
+    del eng
+    _empty()
+    eng = _lora_engine(device, cfg, ads, plain=True, seed=seed)
+    plain = _lora_window(eng, reqs, max_tokens)
+    del eng
+    _empty()
+    if device.type == "cuda" and (any(plain["launches"].values())
+                                  or not plain["plain_calls"]["paged_attention_ref"]):
+        raise AssertionError(f"lora {model}: the plain run launched kernels {plain}")
+    eng = _lora_engine(device, cfg, {}, lora=False, seed=seed)
+    base = _lora_window(eng, [(p, None) for p, _ in reqs], max_tokens)
+    del eng
+    _empty()
+    eng = _lora_engine(device, cfg, ads, seed=seed)
+    alone = {}
+    for name in ads:
+        idx = [i for i, (_, lora) in enumerate(reqs) if lora == name]
+        r = _lora_window(eng, [reqs[i] for i in idx], max_tokens)
+        alone[name] = dict(zip(idx, r["tokens"]))
+    del eng
+    _empty()
+    toks = kern["tokens"]
+    same_plain = toks == plain["tokens"]
+    base_rows = [i for i, (_, lora) in enumerate(reqs) if lora is None]
+    same_base = all(toks[i] == base["tokens"][i] for i in base_rows)
+    same_alone = all(toks[i] == t for rows in alone.values() for i, t in rows.items())
+    differs = {name: any(toks[i] != base["tokens"][i] for i in rows)
+               for name, rows in alone.items()}
+    row = {"model": model, "requests": len(reqs), "same_kernel_plain": same_plain,
+           "same_base_rows_as_no_lora": same_base, "same_alone": same_alone,
+           "adapter_differs_from_base": differs, "launches": kern["launches"],
+           "unified_steps": kern["n_unified_steps"],
+           "decode_iterations": kern["n_decode_iterations"],
+           "launches_by_instance": kern["launches_by_instance"]}
+    log(f"lora: {model} float32 on {card}: {len(reqs)} requests (2 base + 2 x 3 adapters) "
+        f"kernels=plain {same_plain} base rows=no-LoRA engine {same_base} adapter rows="
+        f"alone {same_alone} adapter differs from base {differs} launches={kern['launches']} "
+        f"(unified {kern['n_unified_steps']} + decode {kern['n_decode_iterations']} forwards)")
+    if not (same_plain and same_base and same_alone and all(differs.values())):
+        raise AssertionError(f"lora {model} float32: {row}")
+    return row
+
+
+def lora_graph_vs_eager(device, card: str, model: str, seed: int, n_per: int,
+                        prompt_range, max_tokens: int) -> dict:
+    """bf16: the decode program replayed from its graph = eager, tokens and
+    launches, with a fourth adapter loaded after the capture (the bank is
+    written in place: the graph reads it)."""
+    from llmd_tpu_torch.models import get_model_config
+
+    cfg = get_model_config(model)
+    ads = _adapters(device, cfg, 3, seed)
+    late = _adapters(device, cfg, 1, seed, first=3)
+    reqs = _lora_requests(cfg, list(ads), n_per, prompt_range, seed + 1)
+    rng = np.random.default_rng(seed + 2)
+    reqs2 = [(rng.integers(0, cfg.vocab_size, 200).tolist(), lora)
+             for lora in ("ad-3", "ad-3", "ad-0", None)]
+    runs = {}
+    for graph in (True, False):
+        eng = _lora_engine(device, cfg, ads, decode_graph=graph, seed=seed)
+        first = _lora_window(eng, reqs, max_tokens)
+        for name, w in late.items():
+            eng.load_lora_adapter(name, w)
+        second = _lora_window(eng, reqs2, max_tokens)
+        runs[graph] = (first, second, eng.stats.decode_graph_captures)
+        del eng
+    _empty()
+    (g1, g2, caps), (e1, e2, _) = runs[True], runs[False]
+    same = (g1["tokens"] == e1["tokens"] and g2["tokens"] == e2["tokens"]
+            and g1["launches"] == e1["launches"] and g2["launches"] == e2["launches"])
+    for label, r in (("bf16 graph", g1), ("bf16 graph, adapter loaded after capture", g2)):
+        _check_lora_launches(f"{model} {label}", cfg, r, {"paged_attention": 1}, "mma")
+    row = {"same": same, "captures": caps, "replays": g1["decode_graph_replays"]
+           + g2["decode_graph_replays"], "decode_calls": g1["n_decode_calls"]
+           + g2["n_decode_calls"], "launches_first": g1["launches"],
+           "launches_after_load": g2["launches"]}
+    log(f"lora: {model} bf16 on {card}: replayed = eager {same} (captures {caps}, replays "
+        f"{row['replays']} for {row['decode_calls']} calls), adapter loaded after the capture "
+        f"served launches={g2['launches']}")
+    if not same or (device.type == "cuda" and (caps != 1
+                                               or row["replays"] != row["decode_calls"])):
+        raise AssertionError(f"lora {model} graph vs eager: {row}")
+    return row
+
+
+def lora_spec(device, card: str, model: str, seed: int, max_tokens: int) -> dict:
+    """Speculation on = off in float32 on the bench's echo prompts, rows on
+    the null adapter and three adapters (the reference's
+    ``tests/test_spec_decode.py:143`` case at full width)."""
+    from llmd_tpu_torch.models import get_model_config
+
+    cfg = dataclasses.replace(get_model_config(model), dtype="float32")
+    ads = _adapters(device, cfg, 3, seed)
+    names = [None, *ads]
+    reqs = [(p, names[i % 4]) for i, p in enumerate(echo_prompts(8, 4, cfg.vocab_size))]
+    runs = {}
+    for spec in (False, True):
+        eng = _lora_engine(device, cfg, ads, seed=seed, **(SPEC_KW if spec else {}))
+        runs[spec] = _lora_window(eng, reqs, max_tokens)
+        del eng
+    _empty()
+    on, off = runs[True], runs[False]
+    for label, r in (("spec on", on), ("spec off", off)):
+        _check_lora_launches(f"{model} f32 {label}", cfg, r, {"paged_attention": 1}, "simt")
+    row = {"identical": on["tokens"] == off["tokens"], "verify_steps": on["n_spec_verify_steps"],
+           "drafted": on["spec_drafted"], "accepted": on["spec_accepted"],
+           "launches_on": on["launches"]}
+    log(f"lora: {model} float32 spec on = off on {card}: {row['identical']} verify_steps="
+        f"{row['verify_steps']} drafted={row['drafted']} accepted={row['accepted']} "
+        f"launches={on['launches']}")
+    if not row["identical"] or on["n_spec_verify_steps"] == 0:
+        raise AssertionError(f"lora {model} spec: {row}")
+    return row
+
+
+def lora_moe(device, card: str, model: str, layers: int, seed: int, n_per: int,
+             prompt_range, max_tokens: int) -> dict:
+    """``model`` (MoE, sorted dispatch) at full width and ``layers`` layers in
+    float32 under adapters: kernels = plain versions token for token; K1
+    once and K2 twice per layer of every forward."""
+    from llmd_tpu_torch.models import get_model_config
+
+    cfg = dataclasses.replace(get_model_config(model), dtype="float32", num_layers=layers)
+    ads = _adapters(device, cfg, 3, seed)
+    reqs = _lora_requests(cfg, list(ads), n_per, prompt_range, seed + 3)
+    runs = {}
+    for plain in (False, True):
+        eng = _lora_engine(device, cfg, ads, plain=plain, seed=seed, moe_dispatch="sorted")
+        runs[plain] = _lora_window(eng, reqs, max_tokens)
+        del eng
+    _empty()
+    k, p = runs[False], runs[True]
+    _check_lora_launches(f"{model} f32", cfg, k,
+                         {"paged_attention": 1, "ragged_grouped_gemm": 2}, "simt")
+    row = {"same_kernel_plain": k["tokens"] == p["tokens"], "launches": k["launches"],
+           "forwards": k["n_unified_steps"] + k["n_decode_iterations"],
+           "moe_dropped_tokens": k["moe_dropped_tokens"]}
+    log(f"lora: {model} ({layers} layers) float32 sorted on {card}: kernels=plain "
+        f"{row['same_kernel_plain']} launches={k['launches']} over {row['forwards']} forwards "
+        f"(K2 {2 * layers} a forward)")
+    if not row["same_kernel_plain"] or k["moe_dropped_tokens"]:
+        raise AssertionError(f"lora {model}: {row}")
+    return row
+
+
+def lora_server(device, card: str, model: str, seed: int, embed_len: int) -> dict:
+    """llama-1b in float32 behind the server under LoRA: the load / unload
+    routes and codes, ``/v1/models``, adapter resolution, 404 for an unknown
+    and an unloaded adapter, the ``vllm:lora_requests_info`` labels, and
+    ``/v1/embeddings``: K1 once per layer per chunk, the unit vector within
+    1e-5 per element of the plain version's (the same engine's embed program
+    over ``paged_attention_ref``), the adapter's vector differs from the
+    base model's."""
+    import tempfile
+
+    from llmd_tpu_torch.engine.config import EngineConfig
+    from llmd_tpu_torch.engine.server import EngineServer
+    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.models.lora import LoRAConfig
+    from llmd_tpu_torch.ops.paged_attention import paged_attention_ref
+
+    cfg = dataclasses.replace(get_model_config(model), dtype="float32")
+    server = EngineServer(cfg, EngineConfig(**LORA_KW, lora=LoRAConfig()), host="127.0.0.1",
+                          port=0, tokenizer=IdTokenizer(cfg.vocab_size), seed=seed,
+                          device=device)
+    name = server.model_name
+    codes: dict = {}
+    w = _adapters(torch.device("cpu"), cfg, 1, seed)["ad-0"]
+    (REPO / "checkpoints").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "checkpoints") as tmp:  # gitignored
+        npz = str(Path(tmp) / "ad.npz")
+        np.savez(npz, **{k: v.float().numpy() for k, v in w.items()})
+        server.start()
+        try:
+            base = f"http://{server.address}"
+
+            def call(name, method, path, body=None):
+                status, _, raw = _http(method, base + path, body)
+                codes[name] = status
+                return json.loads(raw) if raw and raw[:1] in (b"{", b"[") else raw
+
+            call("load", "POST", "/v1/load_lora_adapter", {"lora_name": "sql", "lora_path": npz})
+            call("load_test_double", "POST", "/v1/load_lora_adapter", {"lora_name": "chat"})
+            call("load_bad_name", "POST", "/v1/load_lora_adapter", {"lora_name": "a b\""})
+            call("load_missing_file", "POST", "/v1/load_lora_adapter",
+                 {"lora_name": "x", "lora_path": npz + ".missing"})
+            models = [m["id"] for m in call("models", "GET", "/v1/models")["data"]]
+            gen = {"prompt": "abc" * 40, "max_tokens": 8, "temperature": 0.0}
+            tuned = call("by_model", "POST", "/v1/completions", {**gen, "model": "sql"})
+            plain_text = call("base", "POST", "/v1/completions", gen)
+            call("by_field", "POST", "/v1/completions", {**gen, "lora_adapter": "chat"})
+            call("unknown", "POST", "/v1/completions", {**gen, "lora_adapter": "nope"})
+            _, _, metrics = _http("GET", base + "/metrics")
+            info = [ln for ln in metrics.decode().splitlines()
+                    if ln.startswith("vllm:lora_requests_info")]
+            ids = np.random.default_rng(seed).integers(0, cfg.vocab_size, embed_len).tolist()
+            zero_counts()
+            emb_tuned = call("embed_tuned", "POST", "/v1/embeddings",
+                             {"input": ids, "model": "sql"})["data"][0]["embedding"]
+            k1 = read_counts()[0]["paged_attention"]
+            emb_base = call("embed_base", "POST", "/v1/embeddings",
+                            {"input": [ids]})["data"][0]["embedding"]
+            call("embed_empty", "POST", "/v1/embeddings", {"input": [[]]})
+            call("embed_unknown", "POST", "/v1/embeddings", {"input": ids, "lora_adapter": "x"})
+            eng = server.engine
+
+            def plain_embed():
+                attn = eng._attn
+                eng._attn = {**attn, "unified": paged_attention_ref}
+                try:
+                    return eng.embed(ids, "sql")
+                finally:
+                    eng._attn = attn
+
+            emb_plain = server.async_engine.run_locked(plain_embed)
+            call("unload", "POST", "/v1/unload_lora_adapter", {"lora_name": "sql"})
+            call("unload_again", "POST", "/v1/unload_lora_adapter", {"lora_name": "sql"})
+            call("after_unload", "POST", "/v1/completions", {**gen, "lora_adapter": "sql"})
+        finally:
+            server.stop()
+    del server
+    _empty()
+    chunks = -(-embed_len // LORA_KW["prefill_chunk"])
+    err = float(np.abs(np.asarray(emb_tuned) - np.asarray(emb_plain)).max())
+    differs = float(np.abs(np.asarray(emb_tuned) - np.asarray(emb_base)).max())
+    want = {"load": 200, "load_test_double": 200, "load_bad_name": 400,
+            "load_missing_file": 400, "models": 200, "by_model": 200, "base": 200,
+            "by_field": 200, "unknown": 404, "embed_tuned": 200, "embed_base": 200,
+            "embed_empty": 400, "embed_unknown": 404, "unload": 200, "unload_again": 404,
+            "after_unload": 404}
+    row = {"codes": codes, "models": models, "lora_info": info, "embed_max_abs": err,
+           "embed_vs_base_max_abs": differs, "embed_k1_launches": k1, "embed_chunks": chunks,
+           "tuned_differs": tuned["choices"][0]["text"] != plain_text["choices"][0]["text"]}
+    log(f"lora: {model} float32 server on {card}: codes={codes} models={models} "
+        f"lora_info={info} embeddings kernel vs plain max_abs={err:.3e} (limit 1e-05) "
+        f"adapter vs base max_abs={differs:.3e} K1 launches={k1} for {embed_len} tokens "
+        f"({chunks} chunks x {cfg.num_layers} layers)")
+    ok = (codes == want and models == [name, "chat", "sql"] and err <= 1e-5
+          and differs > 1e-4 and len(info) == 1 and 'max_lora="8"' in info[0])
+    if device.type == "cuda":
+        ok = ok and k1 == chunks * cfg.num_layers
+    if not ok:
+        raise AssertionError(f"lora server: {row}")
+    return row
+
+
+def lora_numbers(device, card: str, model: str, seed: int, batch: int, isl: int, osl: int,
+                 embed_len: int) -> dict:
+    """Informational, bf16: decode tok/s at ``batch`` rows of ISL ``isl`` /
+    OSL ``osl`` (``decode_steps`` 32, the bench's) with 4 adapters spread over
+    the rows against the same engine without LoRA, in turns (none, LoRA,
+    none, LoRA); ``profile_batch`` at batch 8 replayed with and without
+    LoRA (device kernels and host launch calls per decode iteration); the
+    ``/v1/embeddings`` latency of one ``embed_len``-token input."""
+    from llmd_tpu_torch.engine.config import EngineConfig
+    from llmd_tpu_torch.engine.server import EngineServer
+    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.models.lora import LoRAConfig
+    from llmd_tpu_torch.models.transformer import init_params
+    from llmd_tpu_torch.tools.profile_engine import profile_batch
+
+    cfg = get_model_config(model)
+    ads = _adapters(device, cfg, 4, seed)
+    names = list(ads)
+    pages = batch * (-(-(isl + osl) // PS) + 1) + 8
+    kw = dict(max_batch_size=batch, decode_steps=32, num_pages=max(pages, 64))
+    turns = []
+    rng = np.random.default_rng(seed + 5)
+    engines = {lora: _lora_engine(device, cfg, ads if lora else {}, lora=lora, seed=seed, **kw)
+               for lora in (False, True)}
+    for turn in range(2):
+        for lora in (False, True):
+            reqs = [(rng.integers(0, cfg.vocab_size, isl).tolist(),
+                     names[i % len(names)] if lora else None) for i in range(batch)]
+            r = _lora_window(engines[lora], reqs, osl)
+            turns.append((lora, r["decode_tokens_fused"] / max(r["time_decode_steps"], 1e-9)))
+    del engines
+    _empty()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(seed), device)
+    prof = {}
+    if device.type == "cuda":
+        for lora in (0, 4):
+            r = profile_batch(cfg, params, 8, 256, 4, 5, 3, seed, lora=lora)
+            prof[lora] = {k: r[k] for k in ("host_launch_calls_per_iteration",
+                                            "device_kernels_per_iteration", "decode_tok_s")}
+    del params
+    server = EngineServer(cfg, EngineConfig(**LORA_KW, lora=LoRAConfig()), host="127.0.0.1",
+                          port=0, tokenizer=IdTokenizer(cfg.vocab_size), seed=seed,
+                          device=device)
+    server.start()
+    try:
+        ids = rng.integers(0, cfg.vocab_size, embed_len).tolist()
+        url = f"http://{server.address}/v1/embeddings"
+        _http("POST", url, {"input": ids})  # warm-up
+        lat = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            status, _, _ = _http("POST", url, {"input": ids})
+            lat.append((time.perf_counter() - t0) * 1e3)
+            assert status == 200
+    finally:
+        server.stop()
+    del server
+    _empty()
+    none = [t for lora, t in turns if not lora]
+    with_lora = [t for lora, t in turns if lora]
+    row = {"decode_tok_s_turns": turns, "decode_tok_s_no_lora": none,
+           "decode_tok_s_lora": with_lora,
+           "ratio": statistics.median(with_lora) / statistics.median(none),
+           "profile_batch8": prof, "embeddings_ms": lat,
+           "embeddings_p50_ms": statistics.median(lat)}
+    log(f"lora: {model} bf16 on {card}: decode tok/s batch {batch} ISL {isl} OSL {osl} "
+        f"no LoRA {none} with 4 adapters {with_lora} ratio {row['ratio']:.4f}; batch 8 "
+        f"replayed profile {prof}; /v1/embeddings {embed_len} tokens p50 "
+        f"{row['embeddings_p50_ms']:.3f} ms of {lat}")
+    return row
+
+
+def phase_lora(device, card: str, seed: int = 0, dense: str = "llama-1b", moe: str = MOE,
+               moe_layers: int = 4, n_per: int = 2, prompt_range=(64, 512),
+               max_tokens: int = 32, embed_len: int = 700, bench=(64, 256, 128)) -> dict:
+    """Multi-adapter LoRA through every step program and the embed program,
+    on ``dense`` at full width (``LoRAConfig(max_adapters=8, rank=8)``, the
+    serving settings): the float32 identities, replayed = eager with an
+    adapter loaded after the capture, speculation on = off, ``moe`` at
+    ``moe_layers`` layers, the server's routes and ``/v1/embeddings``, and
+    the informational numbers."""
+    out = {"f32": lora_f32_identities(device, card, dense, seed, n_per, prompt_range,
+                                      max_tokens),
+           "graph": lora_graph_vs_eager(device, card, dense, seed, n_per, prompt_range,
+                                        max_tokens),
+           "spec": lora_spec(device, card, dense, seed, 2 * max_tokens),
+           "moe": lora_moe(device, card, moe, moe_layers, seed, n_per, prompt_range,
+                           max_tokens),
+           "server": lora_server(device, card, dense, seed, embed_len)}
+    out["numbers"] = lora_numbers(device, card, dense, seed, *bench, 512)
+    return out
+
+
 def main(argv: "list[str] | None" = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", default=None, help="write every phase's details here (JSON)")
@@ -3476,6 +3970,7 @@ def main(argv: "list[str] | None" = None) -> int:
                            "--quantize", "none", "--workload", "json"])}
     report["fp8"] = fp8 = phase_fp8(device, card)
     report["kvplane"] = kv = phase_kvplane(device, card)
+    report["lora"] = lora = phase_lora(device, card)
     if args.report:
         out = Path(args.report)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -3524,7 +4019,9 @@ def main(argv: "list[str] | None" = None) -> int:
            for q in ("int8", "bf16", "bf16_spec_echo", "bf16_json")}
         | {"surface_launches": surface["launches"]["paged_attention"],
            "kvplane_launches": kv["pd_f32"]["d_launches"]["paged_attention"],
-           "kvplane_offload_launches": kv["offload"]["k1_launches"]},
+           "kvplane_offload_launches": kv["offload"]["k1_launches"],
+           "lora_launches": lora["f32"]["launches"]["paged_attention"],
+           "lora_embed_launches": lora["server"]["embed_k1_launches"]},
         # the unified program's absorbed MLA attention, XLA in the reference
         entry("paged_attention_latent", attn_src, "llmd_tpu/models/transformer.py:428",
               eng["mla_sorted"]["launches"]["paged_attention"], lat)
@@ -3536,7 +4033,8 @@ def main(argv: "list[str] | None" = None) -> int:
         | {"kvplane_launches": kv["pd_mla"]["d_launches"]["mla_decode"]},
         entry("ragged_grouped_gemm", gemm_src, "llmd_tpu/ops/grouped_gemm.py:98",
               eng["moe_sorted"]["launches"]["ragged_grouped_gemm"],
-              tm["ragged_grouped_gemm"]["decode"], tm["ragged_grouped_gemm"]["prefill"]),
+              tm["ragged_grouped_gemm"]["decode"], tm["ragged_grouped_gemm"]["prefill"])
+        | {"lora_launches": lora["moe"]["launches"]["ragged_grouped_gemm"]},
         entry("grouped_gemm", gemm_src, "llmd_tpu/ops/grouped_gemm.py:43",
               eng["moe_einsum"]["launches"]["grouped_gemm"], tm["grouped_gemm"]["decode"],
               tm["grouped_gemm"]["prefill"]),

@@ -77,16 +77,17 @@ class AsyncLLMEngine:
         with self._lock:
             return fn()
 
-    def generate(self, request_id: str, token_ids: list[int],
-                 sampling: SamplingParams) -> Iterator[EngineOutput]:
-        """Submit a request and yield its outputs until it finishes (blocking)."""
+    def generate(self, request_id: str, token_ids: list[int], sampling: SamplingParams,
+                 lora_id: Optional[str] = None) -> Iterator[EngineOutput]:
+        """Submit a request (under adapter ``lora_id``) and yield its outputs
+        until it finishes (blocking)."""
         q: queue.Queue = queue.Queue()
         with self._lock:  # stream registration + admission are atomic
             if self.error is not None:
                 raise self.error
             self._streams[request_id] = q
             try:
-                self.engine.add_request(request_id, token_ids, sampling)
+                self.engine.add_request(request_id, token_ids, sampling, lora_id)
             except ValueError:
                 self._streams.pop(request_id, None)
                 raise

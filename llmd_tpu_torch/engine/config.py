@@ -20,7 +20,8 @@ offload tiers (``cpu_offload_pages``, ``offload_staging_blocks``,
 ``offload_watermark_pages``, ``offload_fs_path``), the external connector
 (``kv_connector``, ``kv_connector_params``) and ``role`` (``both`` |
 ``prefill`` | ``decode``; a tag the engine never reads, as in the
-reference, where only the pool reads it).
+reference, where only the pool reads it). So is ``lora``: ``None`` or a
+``models/lora.LoRAConfig``, multi-adapter LoRA serving on GQA models.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from __future__ import annotations
 from dataclasses import MISSING, dataclass, field, fields
 from typing import Optional
 
+from llmd_tpu_torch.models.lora import LoRAConfig
 from llmd_tpu_torch.parallel.eplb import EPLBConfig
 
 
@@ -189,6 +191,9 @@ class EngineConfig:
                              "(supported: 'auto', 'off')")
         if self.role not in ("both", "prefill", "decode"):
             raise ValueError(f"role must be both|prefill|decode, got {self.role!r}")
+        if self.lora is not None and not isinstance(self.lora, LoRAConfig):
+            raise ValueError("lora takes llmd_tpu_torch.models.lora.LoRAConfig, "
+                             f"got {type(self.lora).__name__}")
         if self.eplb is not None and not isinstance(self.eplb, EPLBConfig):
             raise ValueError("eplb takes llmd_tpu_torch.parallel.eplb.EPLBConfig, "
                              f"got {type(self.eplb).__name__}")
@@ -205,5 +210,5 @@ SERVED = frozenset({
     "structured_fused_decode", "structured_table_max_elems", "spec_structured",
     "spec_structured_crosscheck",
     "cpu_offload_pages", "offload_staging_blocks", "offload_watermark_pages",
-    "offload_fs_path", "kv_connector", "kv_connector_params", "role",
+    "offload_fs_path", "kv_connector", "kv_connector_params", "role", "lora",
 })

@@ -40,10 +40,12 @@ from llmd_tpu_torch.models.config import ModelConfig
 from llmd_tpu_torch.models.transformer import forward_core, unembed
 
 # per-row inputs the host packs, with their dtypes and idle-slot values
+# (``lora``: the row's adapter slot, 0 the null adapter)
 PACKED = {"tokens": (torch.int32, 0), "positions": (torch.int32, -1),
           "page_tables": (torch.int32, -1), "kv_lens": (torch.int32, 1),
           "steps_left": (torch.int32, 0), "temperature": (torch.float32, 0.0),
-          "top_k": (torch.int32, 0), "top_p": (torch.float32, 1.0)}
+          "top_k": (torch.int32, 0), "top_p": (torch.float32, 1.0),
+          "lora": (torch.int32, 0)}
 
 
 @dataclasses.dataclass
@@ -60,6 +62,7 @@ class DecodeBuffers:
     temperature: torch.Tensor  # [B] float32
     top_k: torch.Tensor  # [B] int32
     top_p: torch.Tensor  # [B] float32
+    lora: torch.Tensor  # [B] int32 adapter slot (0 = none)
     seq_slots: torch.Tensor  # [B] arange
     cu_q_lens: torch.Tensor  # [B + 1] arange
     num_seqs: torch.Tensor  # [1] = B
@@ -122,7 +125,8 @@ class DecodeOutputs:
 def decode_program(cfg: ModelConfig, params: dict[str, torch.Tensor], cache: torch.Tensor,
                    buf: DecodeBuffers, k: int, generator: torch.Generator, *,
                    attn_impl: Callable, moe_dispatch_impl: Optional[Callable],
-                   tables: Optional[MaskTables] = None) -> DecodeOutputs:
+                   tables: Optional[MaskTables] = None,
+                   lora_scale: float = 1.0) -> DecodeOutputs:
     """``k`` decode iterations of the static batch (the reference's
     ``_decode_multi``): each samples every row with its own temperature /
     top-k / top-p (temperature 0 is the exact argmax) and advances the rows
@@ -131,7 +135,9 @@ def decode_program(cfg: ModelConfig, params: dict[str, torch.Tensor], cache: tor
     read, not written. With ``tables`` it is the masked program
     (``_decode_multi_masked``): each row samples on its logits plus its
     grammar's bias row at its state, and rows with budget left step their
-    state through the transition table; frozen rows hold theirs."""
+    state through the transition table; frozen rows hold theirs. With the
+    LoRA bank in ``params`` each row runs its adapter slot (``buf.lora``)
+    times ``lora_scale``."""
     toks, pos, lens, steps = buf.tokens, buf.positions, buf.kv_lens, buf.steps_left
     st = buf.fsm
     out, counts, drops = [], None, None
@@ -139,7 +145,8 @@ def decode_program(cfg: ModelConfig, params: dict[str, torch.Tensor], cache: tor
         hidden, cache, cnt, drop = forward_core(
             cfg, params, cache, toks, pos, buf.seq_slots, buf.page_tables, lens,
             cu_q_lens=buf.cu_q_lens, num_seqs=buf.num_seqs, attn_impl=attn_impl,
-            moe_dispatch_impl=moe_dispatch_impl)
+            moe_dispatch_impl=moe_dispatch_impl, lora_indices=buf.lora,
+            lora_scale=lora_scale)
         counts = cnt if counts is None else counts + cnt
         drops = drop if drops is None else drops + drop
         logits = unembed(cfg, params, hidden)

@@ -36,6 +36,23 @@ Step programs, held in a ``ProgramRegistry`` (``engine/programs.py``) that
   ``structured_fused_decode`` off) degrade to one-token unified steps, which
   sample with a host-built bias (``_build_bias``), as in the reference.
 
+- ``embed`` (reference ``_embed``): one sequence's prefill chunk at
+  ``prefill_chunk`` width (padding rows at position -1) through the model,
+  returning the float32 sum of its valid rows' final hidden states; it has no
+  eligibility predicate: ``embed()`` (``/v1/embeddings``) drives it eagerly
+  on the engine's stream, over pages borrowed from the allocator.
+
+Multi-adapter LoRA (``EngineConfig.lora``, ``models/lora.py``; GQA models):
+the adapter bank lives beside the params (``_run_params``) and is written in
+place by ``load_lora_adapter`` / ``unload_lora_adapter`` (zero the slot, then
+copy into it), so the captured decode graphs, which hold its address, read
+the adapters loaded after their capture. Every program takes each token's
+adapter slot: the unified and verify packs per token, the decode programs per
+row (``PACKED["lora"]``), the embed program per chunk. The registry's
+running / waiting counts follow admission, preemption, retirement and abort,
+as the reference's; block hashes chain the adapter's generation-scoped key
+(``_lora_hash_key``: name and a digest of the loaded weights).
+
 Structured outputs (``llmd_tpu_torch/structured``): admission compiles the
 request's grammar through the process-wide cache (a tokenizer is needed);
 each constrained ``Sequence`` carries its automaton cursor, re-synced from its
@@ -142,6 +159,8 @@ from llmd_tpu_torch.kv.fs_backend import FSKVBackend
 from llmd_tpu_torch.kv.offload import KVOffloadConnector
 from llmd_tpu_torch.kv.writeback import DurableStoreClient, DurableStoreConfig, WritebackQueue
 from llmd_tpu_torch.models.config import ModelConfig
+from llmd_tpu_torch.models.lora import (
+    LoRARegistry, adapter_digest, init_lora_params, lora_dims, make_adapter_weights)
 from llmd_tpu_torch.models.quant import quantize_params
 from llmd_tpu_torch.models.transformer import (
     SORTED_DISPATCH,
@@ -304,6 +323,7 @@ class LLMEngine:
         reg("verify_masked")
         reg("decode", eligible=lambda eng: True, run=LLMEngine._run_decode_program)
         reg("decode_masked")
+        reg("embed")
         self.metrics.cache_config.labels(
             block_size=engine_cfg.page_size, num_gpu_blocks=engine_cfg.num_pages).set(1)
         if params is None:
@@ -346,6 +366,7 @@ class LLMEngine:
         self._eplb = None
         if engine_cfg.eplb is not None and model_cfg.is_moe:
             self._init_eplb()
+        self._init_lora()
         # the pipelined dispatch: in-flight decode calls and the deferred
         # prefill sample; all copies are ordered on the engine's stream
         self._stream = torch.cuda.current_stream(self.device) if on_card else None
@@ -501,10 +522,11 @@ class LLMEngine:
 
     def _run_params(self) -> dict[str, torch.Tensor]:
         """Params seen by the forward: base weights, plus the physical expert
-        weights and replica tables under EPLB."""
-        if self._eplb is None:
+        weights and replica tables under EPLB, plus the LoRA adapter bank."""
+        if self._eplb is None and not self._lora_params:
             return self.params
-        return {**self.params, **self._eplb_params}
+        return {**self.params, **(self._eplb_params if self._eplb is not None else {}),
+                **self._lora_params}
 
     def _eplb_tick(self) -> None:
         # count only steps that routed tokens
@@ -519,7 +541,122 @@ class LLMEngine:
         return forward_core(self.model_cfg, self._run_params(), self.cache, *args,
                             attn_impl=self._attn[program],
                             moe_dispatch_impl=self._moe_dispatch_impl,
-                            moe_rows=moe_rows, **kw)
+                            moe_rows=moe_rows, lora_scale=self._lora_scale, **kw)
+
+    # ----------------------------------------------------------------- LoRA
+    # Dynamic adapter serving (reference engine.py:419-446, 1103-1192):
+    # loading writes one slot of the fixed-shape bank in place, so no program
+    # changes and the captured decode graphs read the new weights.
+    def _init_lora(self) -> None:
+        lcfg = self.cfg.lora
+        self.lora_registry: Optional[LoRARegistry] = None
+        self._lora_params: dict[str, torch.Tensor] = {}
+        self._lora_keys: dict[str, str] = {}  # name -> "name@<weights digest>"
+        self._lora_scale = 1.0
+        if lcfg is None:
+            return
+        if self.model_cfg.is_mla:
+            # the absorbed-attention branch applies no adapter delta: serving
+            # would silently answer with the base model under adapter names
+            raise ValueError(
+                "LoRA adapters are not supported on MLA models (the absorbed-attention "
+                "path has no adapter hook); remove EngineConfig.lora or use a GQA model")
+        self.lora_registry = LoRARegistry(lcfg.max_adapters)
+        # a displaced idle adapter's cached KV is invalid once its slot is reused
+        self.lora_registry.on_evict = self._lora_forget
+        self._lora_params = init_lora_params(self.model_cfg, lcfg, self.device)
+        self._lora_scale = lcfg.scale
+
+    def _lora_slot(self, seq: Sequence) -> int:
+        return self.lora_registry.slot_of(seq.lora_id) if self.lora_registry else 0
+
+    def _lora_hash_key(self, name: Optional[str]) -> Optional[str]:
+        """The adapter term of block hashing: generation-scoped under LoRA
+        serving, the plain name otherwise."""
+        if name is None or self.lora_registry is None:
+            return name
+        return self._lora_keys.get(name, name)
+
+    def _lora_forget(self, name: str) -> None:
+        """Retire a name's KV: its cached pages go now; the dropped key keeps
+        the offload tiers' copies from ever matching again."""
+        self._lora_keys.pop(name, None)
+        self.alloc.purge_lora(name)
+
+    def _adapter_tensors(self, weights: dict) -> dict[str, torch.Tensor]:
+        """``weights`` (numpy arrays or tensors, ``lora_A_<t> [L, Din, r]``,
+        ``lora_B_<t> [L, r, Dout]``) checked and cast to the bank's dtype on
+        the device. Raises KeyError for a leaf the bank lacks and ValueError
+        for a shape or dtype it cannot take (a void-typed array, as numpy
+        reads an ``ml_dtypes`` bfloat16 npz, is refused, not guessed at)."""
+        L, r = self.model_cfg.num_layers, self.cfg.lora.rank
+        dims_in, dims_out = lora_dims(self.model_cfg)
+        out = {}
+        for key, w in weights.items():
+            if key not in self._lora_params:
+                raise KeyError(f"unknown LoRA param {key!r}")
+            t = key.rsplit("_", 1)[1]
+            want = (L, dims_in[t], r) if key.startswith("lora_A_") else (L, r, dims_out[t])
+            if not isinstance(w, torch.Tensor):
+                a = np.asarray(w)
+                if a.dtype.kind != "f":
+                    raise ValueError(
+                        f"LoRA param {key!r} has dtype {a.dtype} (a bfloat16 npz reads as "
+                        "void without ml_dtypes): save the adapter as float32 or float16")
+                w = torch.from_numpy(np.array(a))  # a writable copy
+            if tuple(w.shape) != want:
+                raise ValueError(f"LoRA param {key!r}: shape {tuple(w.shape)} != {want}")
+            out[key] = w.to(device=self.device, dtype=self._lora_params[key].dtype)
+        return out
+
+    def _lora_write_slot(self, slot: int, weights: dict[str, torch.Tensor]) -> None:
+        """Zero bank slot ``slot`` and copy ``weights`` into it, in place on
+        the engine's stream (after every call already launched)."""
+        with torch.no_grad(), self._on_stream():
+            for key, bank in self._lora_params.items():
+                view = bank[:, :, slot] if key.startswith("lora_A_") else bank[:, slot]
+                view.zero_()
+                if key in weights:
+                    view.copy_(weights[key])
+
+    def load_lora_adapter(self, name: str, weights: Optional[dict] = None,
+                          seed: Optional[int] = None) -> int:
+        """Install an adapter into a free slot; returns the slot. ``weights``
+        maps ``lora_{A,B}_{target}`` to ``[L, ...]`` arrays (numpy or
+        tensors); None draws a test double from ``seed`` (default: a seed
+        derived from the name, so P/D peers agree on it)."""
+        if self.lora_registry is None:
+            raise RuntimeError("engine built without EngineConfig.lora")
+        if self.lora_registry.has(name):
+            if self.lora_registry.running.get(name) or self.lora_registry.waiting.get(name):
+                # swapping weights under live sequences would mix two checkpoints
+                raise RuntimeError(f"adapter {name!r} has in-flight requests")
+            self._lora_forget(name)  # the old generation's KV must never match again
+        if weights is None:
+            import hashlib
+
+            name_seed = int.from_bytes(hashlib.sha256(name.encode()).digest()[:4], "big")
+            gen = torch.Generator(device=self.device).manual_seed(
+                seed if seed is not None else name_seed)
+            weights = make_adapter_weights(self.model_cfg, self.cfg.lora, gen)
+        tensors = self._adapter_tensors(weights)
+        slot = self.lora_registry.assign(name)
+        self._lora_keys[name] = f"{name}@{adapter_digest(weights)}"
+        self._lora_write_slot(slot, tensors)
+        return slot
+
+    def unload_lora_adapter(self, name: str) -> bool:
+        if self.lora_registry is None:
+            return False
+        if self.lora_registry.running.get(name) or self.lora_registry.waiting.get(name):
+            # freeing the slot mid-generation would switch live rows to the base model
+            raise RuntimeError(f"adapter {name!r} has in-flight requests")
+        slot = self.lora_registry.remove(name)
+        if slot is None:
+            return False
+        self._lora_write_slot(slot, {})  # the null adapter again
+        self._lora_forget(name)
+        return True
 
     def _read_back(self, cnt: torch.Tensor, drop: torch.Tensor) -> None:
         """A MoE unified step's host read, as the reference's: its dropped
@@ -539,7 +676,8 @@ class LLMEngine:
 
     # ------------------------------------------------------------ requests
     def add_request(self, request_id: str, token_ids: list[int],
-                    sampling: Optional[SamplingParams] = None) -> None:
+                    sampling: Optional[SamplingParams] = None,
+                    lora_id: Optional[str] = None) -> None:
         sampling = sampling or SamplingParams()
         if not token_ids:
             raise ValueError("empty prompt")
@@ -553,6 +691,10 @@ class LLMEngine:
         bad = [t for t in token_ids if not 0 <= t < self.model_cfg.vocab_size]
         if bad:
             raise ValueError(f"token ids out of vocab range: {bad[:4]}")
+        if lora_id and self.lora_registry is not None and not self.lora_registry.has(lora_id):
+            # the server's 404: serving base weights under the name would also
+            # poison the prefix cache under it
+            raise ValueError(f"unknown LoRA adapter {lora_id!r}")
         # Structured outputs: compile (or fetch) the token grammar before any
         # engine state changes, so a malformed spec raises ValueError (the
         # server's 400) without leaving a queued sequence behind
@@ -578,10 +720,13 @@ class LLMEngine:
             m.structured_compile_seconds.observe(compile_s)
         seq = Sequence(request_id=request_id, token_ids=list(token_ids),
                        prompt_len=len(token_ids), max_tokens=sampling.max_tokens,
-                       sampling=sampling, arrival_time=time.monotonic(),
+                       sampling=sampling, lora_id=lora_id,
+                       lora_key=self._lora_hash_key(lora_id), arrival_time=time.monotonic(),
                        structured=structured, logit_bias=logit_bias)
         self.seqs[request_id] = seq
         self.waiting.append(seq)
+        if self.lora_registry is not None:
+            self.lora_registry.on_waiting(lora_id)
 
     def abort(self, request_id: str) -> None:
         seq = self.seqs.pop(request_id, None)
@@ -589,6 +734,12 @@ class LLMEngine:
             return
         if seq.slot >= 0:
             self.running[seq.slot] = None
+            if self.lora_registry is not None:
+                self.lora_registry.on_finished(seq.lora_id)
+        elif self.lora_registry is not None and seq.lora_id:
+            # aborted while queued: rewind the waiting count
+            if self.lora_registry.waiting.get(seq.lora_id, 0) > 0:
+                self.lora_registry.waiting[seq.lora_id] -= 1
         try:
             self.waiting.remove(seq)
         except ValueError:
@@ -615,7 +766,7 @@ class LLMEngine:
             seq = self.waiting[0]
             if seq.pages:
                 self._free_seq(seq)  # a waiting seq owns nothing
-            keys = block_keys_for_tokens(seq.token_ids[: seq.prompt_len], ps)
+            keys = block_keys_for_tokens(seq.token_ids[: seq.prompt_len], ps, seq.lora_key)
             hit_pages = alloc.match_prefix(keys) if self.cfg.enable_prefix_caching else []
             # never reuse the whole prompt — the last token's logits must be computed
             max_reuse = max(0, (seq.prompt_len - 1) // ps)
@@ -667,6 +818,8 @@ class LLMEngine:
             seq.slot = slot
             self.running[slot] = seq
             self.waiting.popleft()
+            if self.lora_registry is not None:
+                self.lora_registry.on_running(seq.lora_id)
 
     def _reload_offloaded(self, seq: Sequence, keys: list[int], n_hbm: int,
                           n_offload: int) -> list[int]:
@@ -708,7 +861,8 @@ class LLMEngine:
         for i, pid in enumerate(pids):
             bi = start + i
             chunk = seq.token_ids[bi * ps : (bi + 1) * ps]
-            self.alloc.commit_block(pid, keys[bi], chunk, keys[bi - 1] if bi > 0 else None)
+            self.alloc.commit_block(pid, keys[bi], chunk, keys[bi - 1] if bi > 0 else None,
+                                    seq.lora_key)
         return pids
 
     def _offload_drain(self) -> None:
@@ -756,6 +910,9 @@ class LLMEngine:
         victim = max(victims, key=lambda s: s.arrival_time)
         self.running[victim.slot] = None
         victim.slot = -1
+        if self.lora_registry is not None:  # back to waiting: keep the counts true
+            self.lora_registry.on_finished(victim.lora_id)
+            self.lora_registry.on_waiting(victim.lora_id)
         self._free_seq(victim)
         victim.num_computed = 0
         victim.block_hashes = []
@@ -926,6 +1083,7 @@ class LLMEngine:
         toks = np.zeros((N,), np.int32)
         pos = np.zeros((N,), np.int32)
         sids = np.zeros((N,), np.int32)
+        lora = np.zeros((N,), np.int32)
         pts = np.full((nb, self.cfg.max_pages_per_seq), -1, np.int32)
         lens = np.ones((nb,), np.int32)
         cu = np.zeros((nb + 1,), np.int32)
@@ -935,6 +1093,7 @@ class LLMEngine:
             toks[off : off + n] = s.token_ids[start : start + n]
             pos[off : off + n] = np.arange(start, start + n)
             sids[off : off + n] = i
+            lora[off : off + n] = self._lora_slot(s)
             pts[i, : len(s.pages)] = s.pages
             lens[i] = start + n
             off += n
@@ -950,7 +1109,8 @@ class LLMEngine:
             "unified", self._tensor(toks), self._tensor(pos), self._tensor(sids),
             self._tensor(pts), self._tensor(lens), cu_q_lens=self._tensor(cu),
             num_seqs=self._tensor(np.array([nb], np.int32)),
-            moe_rows=(torch.arange(N, device=self.device), self.cfg.batched_tokens))
+            moe_rows=(torch.arange(N, device=self.device), self.cfg.batched_tokens),
+            lora_indices=self._tensor(lora) if self.lora_registry is not None else None)
         if self.cfg.instrument and self._stream is not None:
             self._stream.synchronize()  # the program's outputs, before stamping t2
         t2 = time.perf_counter()
@@ -1213,6 +1373,7 @@ class LLMEngine:
         toks = np.zeros((N,), np.int32)
         pos = np.zeros((N,), np.int32)
         sids = np.zeros((N,), np.int32)
+        lora = np.zeros((N,), np.int32)
         pts = np.full((nb, self.cfg.max_pages_per_seq), -1, np.int32)
         lens = np.ones((nb,), np.int32)
         cu = np.zeros((nb + 1,), np.int32)
@@ -1224,6 +1385,7 @@ class LLMEngine:
             toks[off : off + n] = [s.token_ids[-1]] + draft
             pos[off : off + n] = np.arange(start, start + n)
             sids[off : off + n] = i
+            lora[off : off + n] = self._lora_slot(s)
             pts[i, : len(s.pages)] = s.pages
             lens[i] = start + n
             if draft:
@@ -1244,9 +1406,12 @@ class LLMEngine:
         self.programs.record_dispatch(prog)
         batch = {"tokens": toks, "positions": pos, "seq_slots": sids, "page_tables": pts,
                  "kv_lens": lens, "cu_q_lens": cu, "num_seqs": np.array([nb], np.int32)}
+        if self.lora_registry is not None:
+            batch["lora"] = lora
         batch = {k: self._tensor(v) for k, v in batch.items()}
         kw = dict(attn_impl=self._attn["unified"], moe_dispatch_impl=self._moe_dispatch_impl,
-                  moe_rows=(torch.arange(N, device=self.device), self._verify_nt()))
+                  moe_rows=(torch.arange(N, device=self.device), self._verify_nt()),
+                  lora_scale=self._lora_scale)
         if mask is None:
             greedy, self.cache, cnt, drop = verify(
                 self.model_cfg, self._run_params(), self.cache, batch, **kw)
@@ -1637,7 +1802,8 @@ class LLMEngine:
             return run_chained(lambda: decode_program(
                 cfg, self._run_params(), self.cache, buf, k, self._gen,
                 attn_impl=self._attn["decode"],
-                moe_dispatch_impl=self._moe_dispatch_impl, tables=tables), buf,
+                moe_dispatch_impl=self._moe_dispatch_impl, tables=tables,
+                lora_scale=self._lora_scale), buf,
                 drops=cfg.is_moe, counts=self._eplb is not None)
 
         fn = program
@@ -1710,6 +1876,7 @@ class LLMEngine:
                 host["temperature"][i] = sp.temperature
                 host["top_k"][i] = sp.top_k
                 host["top_p"][i] = sp.top_p
+                host["lora"][i] = self._lora_slot(s)
                 steps[i] = max(0, min(s.max_tokens - (eff_len - s.prompt_len),
                                       self.cfg.max_model_len - eff_len, k))
             pages_sig = tuple(len(s.pages) for s in active)
@@ -1831,6 +1998,8 @@ class LLMEngine:
         if seq.slot >= 0:
             self.running[seq.slot] = None
             seq.slot = -1
+            if self.lora_registry is not None:
+                self.lora_registry.on_finished(seq.lora_id)
         if self.kv_connector is not None and seq.block_hashes:
             self._connector_save(seq)
         self._free_seq(seq)
@@ -1870,6 +2039,70 @@ class LLMEngine:
         if len(seq.token_ids) >= self.cfg.max_model_len:
             return True, "length"
         return False, None
+
+    # ------------------------------------------------------------ embeddings
+    def embed(self, token_ids: list[int], lora_id: Optional[str] = None) -> list[float]:
+        """The mean-pooled, L2-normalised final hidden state of ``token_ids``
+        (``/v1/embeddings``; reference ``embed``), under adapter ``lora_id``.
+
+        Truncates to ``max_model_len - 1`` tokens and runs the embed program
+        over chunks of ``prefill_chunk`` on pages borrowed from the allocator
+        for the call (released in ``finally``); the chunks' sums accumulate
+        on the host in float64. Eager, on the engine's stream, so a decode
+        call still in flight is ordered before it. The caller serialises
+        against the step loop (the server's ``run_locked``). The reference's
+        ``rank`` argument picks a DP rank's pool; this engine has one."""
+        if not token_ids:
+            raise ValueError("empty input")
+        bad = [t for t in token_ids if not 0 <= t < self.model_cfg.vocab_size]
+        if bad:  # an embedding lookup past the table would fault the card
+            raise ValueError(f"token ids out of vocab range: {bad[:4]}")
+        token_ids = token_ids[: self.cfg.max_model_len - 1]
+        chunk, ps = self.cfg.prefill_chunk, self.cfg.page_size
+        slot = self.lora_registry.slot_of(lora_id) if self.lora_registry is not None else 0
+        acc = np.zeros((self.model_cfg.hidden_size,), np.float64)
+        pages: list[int] = []
+        with torch.no_grad(), self._on_stream():
+            try:
+                for _ in range((len(token_ids) + ps - 1) // ps):
+                    pid = self.alloc.allocate()  # may evict: its copy-out on this stream
+                    if pid is None:
+                        raise RuntimeError("no free KV pages for embedding request")
+                    pages.append(pid)
+                pt = np.full((1, self.cfg.max_pages_per_seq), -1, np.int32)
+                pt[0, : len(pages)] = pages
+                lora = np.full((chunk,), slot, np.int32)
+                for start in range(0, len(token_ids), chunk):
+                    n = min(chunk, len(token_ids) - start)
+                    toks = np.zeros((chunk,), np.int32)
+                    toks[:n] = token_ids[start : start + n]
+                    pos = np.full((chunk,), -1, np.int32)
+                    pos[:n] = np.arange(start, start + n)
+                    h_sum = self._embed_program(toks, pos, pt, start + n, n, lora)
+                    acc += h_sum.cpu().numpy().astype(np.float64)
+            finally:
+                for pid in pages:
+                    self.alloc.release(pid)
+        vec = acc / max(1, len(token_ids))
+        norm = float(np.linalg.norm(vec))
+        return (vec / norm if norm > 0 else vec).astype(float).tolist()
+
+    def _embed_program(self, toks: np.ndarray, pos: np.ndarray, pt: np.ndarray,
+                       kv_len: int, n: int, lora: np.ndarray) -> torch.Tensor:
+        """The embed program (reference ``_embed``): one chunk of one
+        sequence, padding rows at position -1, through ``forward_core``
+        (K1 for its attention); the float32 sum [D] of the valid rows' final
+        hidden states, on the device."""
+        positions = self._tensor(pos)
+        hidden, self.cache, _, _ = self._forward(
+            "unified", self._tensor(toks), positions,
+            torch.zeros((toks.shape[0],), dtype=torch.int32, device=self.device),
+            self._tensor(pt), self._tensor(np.array([kv_len], np.int32)),
+            cu_q_lens=self._tensor(np.array([0, n], np.int32)),
+            num_seqs=self._tensor(np.array([1], np.int32)), moe_rows=None,
+            lora_indices=self._tensor(lora) if self.lora_registry is not None else None)
+        valid = (positions >= 0).to(torch.float32)[:, None]
+        return (hidden.float() * valid).sum(dim=0)
 
     # ------------------------------------------------------------ convenience
     def generate(self, prompts: list[list[int]],

@@ -7,9 +7,12 @@ page allocator with content-hash prefix reuse, and per-request state.
 - LRU eviction of unreferenced cached pages,
 - KV-event emission (BlockStored / BlockRemoved) to an optional sink,
 - the offload tier's hooks: ``evict_hook`` just before a cached page is
-  recycled, and ``demote_lru`` for the batched drain (``kv/offload.py``).
+  recycled, and ``demote_lru`` for the batched drain (``kv/offload.py``),
+- LoRA: a sequence's block hashes chain its adapter's generation-scoped key
+  (``Sequence.lora_key``, else ``lora_id``), each BlockStored event carries
+  it, and ``purge_lora`` drops an unloaded adapter's cached blocks.
 
-LoRA keys and multimodal extra keys of the reference come with their slices.
+The reference's multimodal extra keys come with the vision slice.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from llmd_tpu_torch.core.kv_events import (
 class PageInfo:
     refs: int = 0
     block_hash: Optional[int] = None  # set once the page holds a complete, hashed block
+    lora_id: Optional[str] = None  # the adapter key the block was computed under
 
 
 class PageAllocator:
@@ -109,6 +113,7 @@ class PageAllocator:
         block_hash: int,
         token_ids: list[int],
         parent_hash: Optional[int],
+        lora_id: Optional[str] = None,
     ) -> None:
         """Mark a page as holding a complete block; index + announce it."""
         if not self.enable_prefix_caching:
@@ -122,12 +127,13 @@ class PageAllocator:
             # to the plain free list on release (one page per hash).
             return
         info.block_hash = block_hash
+        info.lora_id = lora_id
         self.cached[block_hash] = page_id
         self._emit([
             BlockStored(
                 block_hashes=[block_hash], parent_block_hash=parent_hash,
                 token_ids=list(token_ids), block_size=self.page_size,
-                medium=self.medium,
+                lora_id=lora_id, medium=self.medium,
             )
         ])
 
@@ -145,7 +151,6 @@ class PageAllocator:
         else:
             del self.pages[page_id]
             self.free.append(page_id)
-
 
     def demote_lru(self, n: int) -> list[tuple[int, int]]:
         """Pop the n oldest evictable cached pages onto the free list and return
@@ -165,6 +170,30 @@ class PageAllocator:
             self._emit([BlockRemoved(block_hashes=[h for h, _ in pairs], medium=self.medium)])
         return pairs
 
+    def purge_lora(self, lora_id: str) -> int:
+        """Drop the cached blocks computed under an adapter (its bare name or
+        any ``name@<digest>`` key), at unload: an evictable page returns to
+        the free list, a page a live sequence holds keeps serving it and is
+        never matched again. Correctness does not depend on this (the hashes
+        chain the generation-scoped key); it frees the pages early."""
+        removed: list[int] = []
+        for h, pid in list(self.cached.items()):
+            info = self.pages.get(pid)
+            if info is None or info.lora_id is None or not (
+                    info.lora_id == lora_id or info.lora_id.startswith(lora_id + "@")):
+                continue
+            del self.cached[h]
+            if h in self.lru:
+                self.lru.pop(h)
+                del self.pages[pid]
+                self.free.append(pid)
+            else:
+                info.block_hash = None
+            removed.append(h)
+        if removed:
+            self._emit([BlockRemoved(block_hashes=removed, medium=self.medium)])
+        return len(removed)
+
 
 @dataclass
 class Sequence:
@@ -175,6 +204,11 @@ class Sequence:
     prompt_len: int
     max_tokens: int
     sampling: "object" = None  # SamplingParams
+    lora_id: Optional[str] = None
+    # the generation-scoped hash key (the engine's ``_lora_hash_key``):
+    # "name@<weights digest>" under LoRA serving, else == lora_id; every block
+    # hash chains it, so KV computed under other weights never matches
+    lora_key: Optional[str] = None
     pages: list[int] = field(default_factory=list)
     num_computed: int = 0  # tokens whose KV is resident
     num_cached_prompt: int = 0  # tokens reused from the prefix cache
@@ -212,7 +246,8 @@ class Sequence:
         while (committed + 1) * ps <= self.num_computed:
             start = committed * ps
             chunk = self.token_ids[start : start + ps]
-            h = hash_block_tokens(self.last_block_hash(), chunk)
-            alloc.commit_block(self.pages[committed], h, chunk, self.last_block_hash())
+            key = self.lora_key if self.lora_key is not None else self.lora_id
+            h = hash_block_tokens(self.last_block_hash(), chunk, key)
+            alloc.commit_block(self.pages[committed], h, chunk, self.last_block_hash(), key)
             self.block_hashes.append(h)
             committed += 1

@@ -2,6 +2,7 @@
          [--moe-dispatch auto|sorted|einsum] [--quantize int8] [--kv-cache-dtype fp8]
          [--kv-events-port N] [--role both|prefill|decode] [--kv-transfer-port N]
          [--advertise-host H] [--cpu-offload-pages N] [--offload-fs-path DIR]
+         [--enable-lora [--max-loras N] [--max-lora-rank R]]
 
 Serves ``--model`` on the port's HTTP server: a registry name with random
 weights from ``--seed``, or an HF checkpoint directory with its weights
@@ -16,7 +17,9 @@ one; ``LLMD_TPU_KV_TRANSFER_PORT`` is its default, as in the reference), and
 ``--advertise-host`` is the routable host written into ``kv_transfer_params``
 (default ``--host`` unless that is a bind-any address). ``--role`` tags the
 engine for the pool (the engine does not read it). ``--cpu-offload-pages`` and
-``--offload-fs-path`` turn on the CPU and FS offload tiers.
+``--offload-fs-path`` turn on the CPU and FS offload tiers. ``--enable-lora``
+serves LoRA adapters (``--max-loras`` slots of rank ``--max-lora-rank``,
+loaded at run time through ``/v1/load_lora_adapter``).
 Flag names follow the reference CLI
 (``llmd_tpu/engine/serve.py``) for the options the port keeps.
 """
@@ -64,6 +67,10 @@ def main(argv: "list[str] | None" = None) -> None:
     ap.add_argument("--kv-cache-dtype", default=None, choices=("fp8",),
                     help="fp8 KV pool (EngineConfig.kv_cache_dtype): halves decode's "
                          "per-step KV read stream")
+    ap.add_argument("--enable-lora", action="store_true",
+                    help="enable dynamic LoRA adapter serving")
+    ap.add_argument("--max-loras", type=int, default=8)
+    ap.add_argument("--max-lora-rank", type=int, default=8)
     ap.add_argument("--tokenizer", default=None, help="local HF tokenizer dir")
     ap.add_argument("--seed", type=int, default=0, help="random-weight seed")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU (dev)")
@@ -74,6 +81,7 @@ def main(argv: "list[str] | None" = None) -> None:
     from llmd_tpu_torch.engine.tokenizer import load_tokenizer
     from llmd_tpu_torch.models import resolve_model
     from llmd_tpu_torch.models.hf_loader import is_hf_checkpoint
+    from llmd_tpu_torch.models.lora import LoRAConfig
 
     model_cfg, params = resolve_model(args.model)
     tokenizer = args.tokenizer
@@ -87,7 +95,9 @@ def main(argv: "list[str] | None" = None) -> None:
         prefill_chunk=args.prefill_chunk, decode_steps=args.decode_steps,
         moe_dispatch=args.moe_dispatch, quantize_weights=args.quantize,
         kv_cache_dtype=args.kv_cache_dtype, role=args.role,
-        cpu_offload_pages=args.cpu_offload_pages, offload_fs_path=args.offload_fs_path)
+        cpu_offload_pages=args.cpu_offload_pages, offload_fs_path=args.offload_fs_path,
+        lora=LoRAConfig(max_adapters=args.max_loras, rank=args.max_lora_rank)
+        if args.enable_lora else None)
     server = EngineServer(
         model_cfg, engine_cfg,
         model_name=args.served_model_name, host=args.host, port=args.port,
@@ -108,7 +118,9 @@ def main(argv: "list[str] | None" = None) -> None:
           f"{server.engine.moe_backend}, weights "
           f"{'hf:' + args.model if params is not None else 'random'}"
           f"{', int8' if args.quantize else ''}, KV pool "
-          f"{server.engine.stats.kv_cache_dtype}{events})", flush=True)
+          f"{server.engine.stats.kv_cache_dtype}{events}"
+          f"{f', LoRA {args.max_loras} x rank {args.max_lora_rank}' if args.enable_lora else ''})",
+          flush=True)
     try:
         threading.Event().wait()
     except KeyboardInterrupt:

@@ -33,7 +33,23 @@ engine-loop thread (``AsyncLLMEngine``) steps the engine. Routes:
 - ``GET /health`` (503 ``draining`` while draining, 503 ``unhealthy`` if the
   engine loop died), ``POST /drain[?timeout_s=30]`` (stop admitting, wait,
   bounded, for the requests in flight: 200 ``drained`` or 504 ``timeout``;
-  body ``{"enable": false}`` reopens admission), ``GET /v1/models``.
+  body ``{"enable": false}`` reopens admission), ``GET /v1/models`` (loaded
+  LoRA adapters listed with their ``parent``).
+- LoRA (an engine built with ``EngineConfig.lora``): a generation or
+  embedding request names its adapter in ``lora_adapter``, or names a loaded
+  adapter as its ``model`` (the canary of an adapter rollout); an unknown
+  adapter, or any adapter while LoRA is off, is a 404. ``POST
+  /v1/load_lora_adapter`` ``{"lora_name", "lora_path"?}`` answers 200 with the
+  slot, 409 when the adapter is busy, 400 otherwise (``lora_path``: an npz of
+  ``lora_{A,B}_{target}`` arrays; one that needs ``ml_dtypes`` to read, such
+  as a bfloat16 npz, is refused with 400); ``POST /v1/unload_lora_adapter``
+  answers 200, 404 for an unknown adapter and 409 when busy.
+  ``vllm:lora_requests_info`` is rebuilt at every scrape.
+- ``POST /v1/embeddings``: ``input`` a string, a list of strings, a token
+  list or a list of token lists; one mean-pooled, L2-normalised vector each
+  (``LLMEngine.embed``, under the engine lock), behind the admission gate;
+  400 on an empty item or a token id outside the vocabulary, 503 when the
+  engine cannot serve it (no free pages).
 
 With ``kv_events_port`` set, the engine's KV events are published on the
 reference's topic and wire (``engine/kv_publisher.py``); port 0 picks a free
@@ -55,20 +71,23 @@ of this engine's exports, and the completion and chat bodies take
   (``_pull_prefix_kv``, ``_durable_get``); a failure never fails the request.
   With ``LLMD_KV_PLANE=precise`` the source also serves peers' prefix pulls.
 
+Each path keys its blocks under the request's adapter.
+
 A pull whose producer was not notified is released when the request ends
 (``_release_pending_pull``). ``/drain`` flushes the engine's durable
 write-back queue within its budget (``_flush_for_drain``). The transfer and
 durable metric families read ``transfer_stats``, the source's counters and
 the queue, as the reference's do.
 
-Not served yet (ROADMAP Queue A): ``/debug/*``, ``/v1/embeddings``,
-``/v1/responses``, ``/v1/conversations`` and the LoRA routes.
+Not served yet (ROADMAP Queue A): ``/debug/*``, ``/v1/responses`` and
+``/v1/conversations``.
 """
 
 from __future__ import annotations
 
 import itertools
 import json
+import re
 import socket
 import sys
 import threading
@@ -77,6 +96,8 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Iterator, Optional
 from urllib.parse import parse_qs
+
+import numpy as np
 
 from llmd_tpu_torch.core.kv_events import kv_topic
 from llmd_tpu_torch.core.request import HDR_REQUEST_TIMEOUT, SamplingParams, flatten_messages
@@ -102,6 +123,7 @@ from llmd_tpu_torch.structured import validate_structured_body
 
 GENERATE_ROUTES = {"/v1/completions": False, "/v1/chat/completions": True}  # path -> chat
 RENDER_ROUTES = ("/v1/completions/render", "/v1/chat/completions/render")
+LORA_ROUTES = {"/v1/load_lora_adapter": "load_lora", "/v1/unload_lora_adapter": "unload_lora"}
 
 
 def sampling_from_body(body: dict) -> SamplingParams:
@@ -299,7 +321,7 @@ class EngineServer:
 
     # -- the KV data plane ---------------------------------------------------
     def _pull_remote_kv(self, ktp: KVTransferParams, token_ids: list[int],
-                        rid: Optional[str] = None) -> int:
+                        rid: Optional[str] = None, lora_id: Optional[str] = None) -> int:
         """Pull and inject the producer's KV; any failure recomputes locally
         (kv_load_failure_policy=recompute)."""
         if rid is not None:
@@ -313,7 +335,7 @@ class EngineServer:
                 self._bump("pull_failures")
                 return 0
             n = self.async_engine.run_locked(
-                lambda: inject_into_engine(self.engine, pulled, token_ids))
+                lambda: inject_into_engine(self.engine, pulled, token_ids, lora_id))
             self._bump("injected_blocks", n)
             # free the producer's export (NIXL-notify semantics)
             if self.transfer_client.notify(ktp.remote_host, ktp.remote_port,
@@ -332,7 +354,8 @@ class EngineServer:
                     print(f"kv-transfer: {e}", file=sys.stderr, flush=True)
             return 0
 
-    def _pull_prefix_kv(self, rid: str, ktp: KVTransferParams, token_ids: list[int]) -> int:
+    def _pull_prefix_kv(self, rid: str, ktp: KVTransferParams, token_ids: list[int],
+                        lora_id: Optional[str] = None) -> int:
         """KV-plane prefix pull ahead of prefill: the peer rung first (when the
         router stamped one), then the cluster-durable store. A failure falls
         through to the offload tiers and re-prefill; it never fails the
@@ -345,7 +368,7 @@ class EngineServer:
             with self._transfer_lock:
                 self._pending_pulls[rid] = (ktp.remote_host, ktp.remote_port,
                                             ktp.remote_request_id)
-            n, outcome, released = pull_prefix_into(self, ktp, token_ids)
+            n, outcome, released = pull_prefix_into(self, ktp, token_ids, lora_id)
             if released:
                 with self._transfer_lock:
                     self._pending_pulls.pop(rid, None)
@@ -353,7 +376,7 @@ class EngineServer:
         if n == 0 and durable is not None and ktp.block_hashes:
             # the durable rung: the peer died or missed, or the router stamped
             # the durable tier directly; the cluster store outlives replicas
-            dn, d_outcome = self._durable_get(ktp.block_hashes, token_ids)
+            dn, d_outcome = self._durable_get(ktp.block_hashes, token_ids, lora_id)
             if dn or tier == "durable":
                 n, outcome = dn, d_outcome
         self.server_metrics.prefix_pull_seconds.labels(outcome=outcome).observe(
@@ -364,7 +387,8 @@ class EngineServer:
             self._bump("pull_failures")
         return n
 
-    def _durable_get(self, block_hashes, token_ids: list[int]) -> tuple[int, str]:
+    def _durable_get(self, block_hashes, token_ids: list[int],
+                     lora_id: Optional[str] = None) -> tuple[int, str]:
         """The durable rung: fetch the verified consecutive prefix from the
         cluster store and inject it exactly like a peer pull (hash-chain
         verified against THIS prompt, shape-checked). Returns
@@ -377,7 +401,7 @@ class EngineServer:
                               blocks=blocks)
             try:
                 injected = self.async_engine.run_locked(
-                    lambda: inject_into_engine(self.engine, pulled, token_ids))
+                    lambda: inject_into_engine(self.engine, pulled, token_ids, lora_id))
             except ValueError:
                 # block shape or chain mismatch: never commit suspect bytes
                 injected, fetch_outcome = 0, "corrupt"
@@ -421,11 +445,11 @@ class EngineServer:
         if self.transfer_client.notify(host, port, remote_rid):
             self._bump("released")
 
-    def _export(self, rid: str, token_ids: list[int]) -> dict:
+    def _export(self, rid: str, token_ids: list[int], lora_id: Optional[str] = None) -> dict:
         """``do_remote_decode``: stage the prompt's resident blocks under the
         engine lock, drain and register them off it; the transfer handle."""
         out_params, staged = self.async_engine.run_locked(
-            lambda: export_begin(self.engine, rid, token_ids,
+            lambda: export_begin(self.engine, rid, token_ids, lora_id,
                                  staging_pages=self.engine.cfg.offload_staging_blocks))
         if staged is not None:
             export_finish(staged, self.transfer_source)
@@ -447,17 +471,115 @@ class EngineServer:
         return 200, {"status": "ok"}
 
     def models(self) -> tuple[int, dict]:
-        return 200, {"object": "list",
-                     "data": [{"id": self.model_name, "object": "model"}]}
+        data = [{"id": self.model_name, "object": "model"}]
+        reg = self.engine.lora_registry
+        if reg is not None:  # adapters list as models, as vLLM's
+            data += [{"id": name, "object": "model", "parent": self.model_name}
+                     for name in sorted(reg.slots)]
+        return 200, {"object": "list", "data": data}
 
     def metrics_text(self) -> str:
         """The engine's families, then the server's; the request gauges
-        mirror ``engine.stats`` at scrape time (no engine lock is taken)."""
+        mirror ``engine.stats`` at scrape time (no engine lock is taken), and
+        the LoRA info gauge is rebuilt from the registry (its labels are the
+        data)."""
         em, st = self.engine.metrics, self.engine.stats
         em.requests_waiting.set(st.num_waiting)
         em.requests_running.set(st.num_running)
         em.kv_usage.set(st.kv_utilization)
+        reg = self.engine.lora_registry
+        if reg is not None:
+            info = reg.metrics_info()
+            em.lora_info.clear()
+            em.lora_info.labels(
+                max_lora=info["max_lora"],
+                running_lora_adapters=info["running_lora_adapters"],
+                waiting_lora_adapters=info["waiting_lora_adapters"]).set(1)
         return self.engine.registry.expose() + self.registry.expose()
+
+    def resolve_lora(self, body: dict) -> tuple[Optional[str], Optional[tuple[int, dict]]]:
+        """(adapter, None), or (None, the 404 answer): ``lora_adapter``, or a
+        loaded adapter named as ``model``; an unknown adapter, or any adapter
+        while LoRA serving is off, is a 404 (serving the base model under its
+        name would mislead the client and poison the prefix cache)."""
+        lora_id = body.get("lora_adapter")
+        reg = self.engine.lora_registry
+        if lora_id is None and reg is not None and reg.has(body.get("model", self.model_name)):
+            lora_id = body.get("model", self.model_name)
+        if lora_id is not None and (reg is None or not reg.has(lora_id)):
+            return None, (404, {"error": {"message": f"unknown LoRA adapter {lora_id!r}"}})
+        return lora_id, None
+
+    def load_lora(self, body: dict) -> tuple[int, dict]:
+        """``POST /v1/load_lora_adapter``: 200 with the slot, 409 when the
+        adapter has requests in flight or every slot is busy, 400 otherwise."""
+        if self.engine.lora_registry is None:
+            return 400, {"error": "LoRA serving disabled (EngineConfig.lora unset)"}
+        name = body.get("lora_name")
+        if name is None:
+            return 400, {"error": "lora_name required"}
+        if not isinstance(name, str) or not re.fullmatch(r"[A-Za-z0-9._/\-]{1,128}", name):
+            # names land in Prometheus label values and hash keys
+            return 400, {"error": "invalid lora_name"}
+        path = body.get("lora_path")
+        try:
+            weights = None
+            if path:  # the filesystem resolver: an npz of lora_{A,B}_{target} arrays
+                with np.load(path) as z:
+                    weights = {k: z[k] for k in z.files}
+            slot = self.async_engine.run_locked(
+                lambda: self.engine.load_lora_adapter(name, weights))
+        except RuntimeError as e:
+            return 409, {"error": str(e)}
+        except Exception as e:  # noqa: BLE001 — any unreadable adapter is the client's 400
+            return 400, {"error": f"cannot load adapter: {e}"}
+        return 200, {"status": "ok", "lora_name": name, "slot": slot}
+
+    def unload_lora(self, body: dict) -> tuple[int, dict]:
+        """``POST /v1/unload_lora_adapter``: 200, 404 for an unknown adapter,
+        409 while it has requests in flight."""
+        if self.engine.lora_registry is None:
+            return 400, {"error": "LoRA serving disabled (EngineConfig.lora unset)"}
+        name = body.get("lora_name")
+        if name is None:
+            return 400, {"error": "lora_name required"}
+        try:
+            ok = self.async_engine.run_locked(lambda: self.engine.unload_lora_adapter(name))
+        except RuntimeError as e:
+            return 409, {"error": str(e)}
+        if not ok:
+            return 404, {"error": f"unknown adapter {name!r}"}
+        return 200, {"status": "ok", "lora_name": name}
+
+    def embeddings(self, body: dict) -> tuple[int, dict]:
+        """``POST /v1/embeddings`` (the reference's ``_embeddings``)."""
+        inp = body.get("input")
+        if inp is None:
+            return 400, {"error": {"message": "input required"}}
+        items = [inp] if isinstance(inp, str) else list(inp)
+        if items and isinstance(items[0], int):  # one pre-tokenized prompt
+            items = [items]
+        model = body.get("model", self.model_name)
+        lora_id, missing = self.resolve_lora(body)
+        if missing is not None:
+            return missing
+        data, total = [], 0
+        for i, item in enumerate(items):
+            ids = item if isinstance(item, list) else self.tokenizer.encode(str(item))
+            if not ids:
+                return 400, {"error": {"message": f"empty input at index {i}"}}
+            total += len(ids)
+            try:
+                vec = self.async_engine.run_locked(
+                    lambda ids=ids: self.engine.embed(ids, lora_id))
+            except (ValueError, TypeError) as e:  # token ids outside the vocabulary
+                return 400, {"error": {"message": str(e)}}
+            except RuntimeError as e:
+                return 503, {"error": {"message": str(e)}}
+            data.append({"object": "embedding", "index": i, "embedding": vec})
+        self.server_metrics.requests.inc()
+        return 200, {"object": "list", "model": model, "data": data,
+                     "usage": {"prompt_tokens": total, "total_tokens": total}}
 
     def admission_block(self, headers) -> Optional[tuple[int, dict, dict]]:
         """Draining: 503, retryable, so the router re-schedules the request on
@@ -534,20 +656,23 @@ class EngineServer:
         rid = f"cmpl-{uuid.uuid4().hex[:16]}"
         head = {"id": rid, "object": "chat.completion" if chat else "text_completion",
                 "created": int(time.time()), "model": body.get("model", self.model_name)}
+        lora_id, missing = self.resolve_lora(body)
+        if missing is not None:
+            return missing
         try:
             ktp = KVTransferParams.from_dict(body.get("kv_transfer_params"))
         except (ValueError, TypeError, AttributeError) as e:  # malformed body
             return 400, {"error": {"message": str(e)}}
         if ktp.do_remote_prefill and self.transfer_client is not None:
-            self._pull_remote_kv(ktp, token_ids, rid)
+            self._pull_remote_kv(ktp, token_ids, rid, lora_id)
         elif (ktp.do_prefix_pull and ktp.block_hashes
               and (self.transfer_client is not None or self.engine.durable is not None)):
             # the router found this prefix on a peer or in the durable store
-            self._pull_prefix_kv(rid, ktp, token_ids)
+            self._pull_prefix_kv(rid, ktp, token_ids, lora_id)
         stream = bool(body.get("stream"))
         try:
             status, result = self._generate(rid, token_ids, sampling, head, chat, stream,
-                                            ktp.do_remote_decode)
+                                            ktp.do_remote_decode, lora_id)
         except BaseException:
             self._release_pending_pull(rid)
             raise
@@ -566,9 +691,10 @@ class EngineServer:
             self._release_pending_pull(rid)
 
     def _generate(self, rid: str, token_ids: list[int], sampling: SamplingParams,
-                  head: dict, chat: bool, stream: bool, export: bool):
+                  head: dict, chat: bool, stream: bool, export: bool,
+                  lora_id: Optional[str] = None):
         text = TextStream(self.tokenizer, sampling.stop)
-        outputs = self.async_engine.generate(rid, token_ids, sampling)
+        outputs = self.async_engine.generate(rid, token_ids, sampling, lora_id)
         try:
             first = next(outputs)  # admission errors surface here, as a 400
         except ValueError as e:
@@ -593,7 +719,7 @@ class EngineServer:
                                            out.num_cached_prompt_tokens),
                    "choices": [choice]}
         if export and self.transfer_source is not None:
-            payload["kv_transfer_params"] = self._export(rid, token_ids)
+            payload["kv_transfer_params"] = self._export(rid, token_ids, lora_id)
         return 200, payload
 
     def _sse_events(self, outputs: Iterator, out, head: dict, chat: bool, text: TextStream,
@@ -734,6 +860,17 @@ def _make_handler(server: EngineServer) -> type:
                 body = self._body()
                 if body is not None:
                     self._send(*server.render(body))
+            elif path == "/v1/embeddings":
+                blocked = server.admission_block(self.headers)
+                body = self._body()
+                if blocked is not None:
+                    self._send(*blocked)
+                elif body is not None:
+                    self._send(*server.embeddings(body))
+            elif path in LORA_ROUTES:
+                body = self._body()
+                if body is not None:
+                    self._send(*getattr(server, LORA_ROUTES[path])(body))
             elif path == "/drain":
                 n = int(self.headers.get("Content-Length") or 0)
                 try:  # an unreadable body counts as empty, as the reference's

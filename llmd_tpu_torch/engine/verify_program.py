@@ -23,7 +23,8 @@ longest prefix that matches these greedy tokens, plus one bonus token.
 
 Both run eagerly (so does the unified program). They pack exactly their real
 rows; the capacity-einsum MoE path is told where they sit in the reference's
-static verify batch (``moe_rows``).
+static verify batch (``moe_rows``). Under LoRA every packed row carries its
+sequence's adapter slot (``batch["lora"]``, the reference's ``lora_tok``).
 """
 
 from __future__ import annotations
@@ -41,20 +42,21 @@ from llmd_tpu_torch.models.transformer import forward_core, unembed
 
 def verify(cfg: ModelConfig, params: dict[str, torch.Tensor], cache: torch.Tensor,
            batch: dict[str, torch.Tensor], *, attn_impl: Callable,
-           moe_dispatch_impl: Optional[Callable], moe_rows
+           moe_dispatch_impl: Optional[Callable], moe_rows, lora_scale: float = 1.0
            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(greedy [N] int32, cache, expert counts, dropped copies) for the
     packed batch ``batch`` (``tokens``, ``positions``, ``seq_slots``,
-    ``page_tables``, ``kv_lens``, ``cu_q_lens``, ``num_seqs``)."""
+    ``page_tables``, ``kv_lens``, ``cu_q_lens``, ``num_seqs``, and under
+    LoRA ``lora``, each row's adapter slot, scaled by ``lora_scale``)."""
     hidden, cache, cnt, drop = _forward(cfg, params, cache, batch, attn_impl,
-                                        moe_dispatch_impl, moe_rows)
+                                        moe_dispatch_impl, moe_rows, lora_scale)
     return greedy_tokens(unembed(cfg, params, hidden)), cache, cnt, drop
 
 
 def verify_masked(cfg: ModelConfig, params: dict[str, torch.Tensor], cache: torch.Tensor,
                   batch: dict[str, torch.Tensor], tables: MaskTables,
                   table_rows: torch.Tensor, states: torch.Tensor, *, attn_impl: Callable,
-                  moe_dispatch_impl: Optional[Callable], moe_rows):
+                  moe_dispatch_impl: Optional[Callable], moe_rows, lora_scale: float = 1.0):
     """:func:`verify` with the grammar bias: row i takes its argmax over
     ``logits + tables.bias[table_rows[i] + states[i]]`` (float32) and its
     next state is ``tables.next[table_rows[i] + states[i], greedy]``.
@@ -64,7 +66,7 @@ def verify_masked(cfg: ModelConfig, params: dict[str, torch.Tensor], cache: torc
     :func:`verify_states`. Returns (greedy [N] int32, next states [N] int32,
     cache, expert counts, dropped copies)."""
     hidden, cache, cnt, drop = _forward(cfg, params, cache, batch, attn_impl,
-                                        moe_dispatch_impl, moe_rows)
+                                        moe_dispatch_impl, moe_rows, lora_scale)
     rows = (table_rows + states).long()
     greedy = torch.argmax(unembed(cfg, params, hidden).float() + tables.bias[rows], dim=-1)
     return (greedy.to(torch.int32), tables.next[rows, greedy], cache, cnt, drop)
@@ -89,9 +91,10 @@ def verify_states(chunks: Sequence[tuple[Sequence[int], int, Optional[np.ndarray
     return np.asarray(out, np.int32)
 
 
-def _forward(cfg, params, cache, batch, attn_impl, moe_dispatch_impl, moe_rows):
+def _forward(cfg, params, cache, batch, attn_impl, moe_dispatch_impl, moe_rows, lora_scale):
     return forward_core(cfg, params, cache, batch["tokens"], batch["positions"],
                         batch["seq_slots"], batch["page_tables"], batch["kv_lens"],
                         cu_q_lens=batch["cu_q_lens"], num_seqs=batch["num_seqs"],
                         attn_impl=attn_impl, moe_dispatch_impl=moe_dispatch_impl,
-                        moe_rows=moe_rows)
+                        moe_rows=moe_rows, lora_indices=batch.get("lora"),
+                        lora_scale=lora_scale)

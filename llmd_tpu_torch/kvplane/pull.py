@@ -52,9 +52,10 @@ def serve_prefix(server, block_hashes: Sequence[int],
     return staged.hashes, staged.chunks, blocks
 
 
-def pull_prefix_into(server, ktp: KVTransferParams,
-                     token_ids: list[int]) -> tuple[int, str, bool]:
-    """Pull the stamped prefix chain from the peer and commit it locally.
+def pull_prefix_into(server, ktp: KVTransferParams, token_ids: list[int],
+                     lora_id: Optional[str] = None) -> tuple[int, str, bool]:
+    """Pull the stamped prefix chain from the peer and commit it locally,
+    verified against this prompt's chain under adapter ``lora_id``.
 
     Returns ``(blocks_injected, outcome, peer_released)`` with outcome one of
     ``hit`` / ``empty`` (peer served but nothing committed) / ``miss`` (peer
@@ -73,7 +74,7 @@ def pull_prefix_into(server, ktp: KVTransferParams,
     n, outcome = 0, "error"
     try:
         n = server.async_engine.run_locked(
-            lambda: inject_into_engine(server.engine, pulled, token_ids))
+            lambda: inject_into_engine(server.engine, pulled, token_ids, lora_id))
         outcome = "hit" if n else "empty"
     except Exception:  # noqa: BLE001 — degrade to recompute
         pass  # the notify below still frees the peer

@@ -33,10 +33,14 @@ weight-only params (``<key>_q`` int8 and ``<key>_scale`` float32 leaves from
 :func:`linear`, the counterpart of the reference's ``_mm``. int8 expert banks
 run plain products with their scales (the sorted dispatch's block-gathered
 experts, or the scaled capacity einsum), never the grouped-GEMM kernels, as
-the reference gives them to XLA. Vision towers and LoRA raise
-``NotImplementedError`` naming the ROADMAP Queue A item that brings them;
-LoRA on MLA raises as in the reference (the absorbed path has no adapter
-hook), and MLA excludes qk-norm and biases as the reference does.
+the reference gives them to XLA. Multi-adapter LoRA (``models/lora.py``):
+params carrying the adapter bank (``lora_A_<t>``/``lora_B_<t>``) add each
+token's adapter delta to q/k/v after the biases and before qk-norm and RoPE,
+and to o after ``bo``, as the reference; an int8 model's deltas (the bank
+stays in the model dtype) add to the dequantized product. Vision towers
+raise ``NotImplementedError`` naming the ROADMAP Queue A item that brings
+them; LoRA on MLA raises as in the reference (the absorbed path has no
+adapter hook), and MLA excludes qk-norm and biases as the reference does.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from llmd_tpu_torch.models.config import ModelConfig
+from llmd_tpu_torch.models.lora import LORA_TARGETS, apply_lora, bank_from_reference, slot_mask
 from llmd_tpu_torch.models.quant import CONTRACT_AXES, QUANTIZABLE_LAYER_KEYS
 from llmd_tpu_torch.ops.grouped_gemm import grouped_gemm
 from llmd_tpu_torch.ops.moe_dispatch import make_sorted_dispatch
@@ -64,8 +69,6 @@ def check_supported(cfg: ModelConfig, lora: bool = False) -> None:
         raise NotImplementedError(
             f"{cfg.name}: LoRA adapters are unsupported on MLA models (no adapter "
             "hook in the absorbed path)")
-    if lora:
-        raise NotImplementedError("LoRA params are ROADMAP Queue A item 7")
     if cfg.mm_tokens > 0 or cfg.has_vision:
         raise NotImplementedError(f"{cfg.name}: vision is ROADMAP Queue A item 7")
     if cfg.is_mla and (cfg.qk_norm or cfg.attn_bias):
@@ -166,15 +169,26 @@ def params_from_numpy(cfg: ModelConfig, np_params: dict,
     layout, plain or int8 weight-only) as this package's tensors. bf16
     arrays come out of JAX as ``ml_dtypes.bfloat16``, which
     ``torch.from_numpy`` rejects: every float array goes through float32,
-    then to the config's dtype. int8 leaves stay int8 and scales float32."""
-    check_supported(cfg, lora=any(k.startswith("lora_") for k in np_params))
+    then to the config's dtype. int8 leaves stay int8 and scales float32.
+    A LoRA bank (the reference's ``lora_A_<t> [L, S, Din, r]`` and
+    ``lora_B_<t> [L, S, r, Dout]``) comes out in ``models/lora.py``'s layout,
+    in the config's dtype."""
+    lora_keys = sorted(k for k in np_params if k.startswith("lora_"))
+    check_supported(cfg, lora=bool(lora_keys))
     shapes = param_shapes(cfg, quantized=any(k.endswith("_q") for k in np_params))
-    extra = sorted(set(np_params) - set(shapes))
+    extra = sorted(set(np_params) - set(shapes) - set(lora_keys))
     if extra:
-        raise NotImplementedError(
-            f"params {extra} are not served by the port (LoRA adapters are "
-            "ROADMAP Queue A item 7)")
+        raise NotImplementedError(f"params {extra} are not served by the port")
     out: dict[str, torch.Tensor] = {}
+    if lora_keys:
+        want = {f"lora_{ab}_{t}" for t in LORA_TARGETS for ab in "AB"}
+        if set(lora_keys) != want:
+            raise ValueError(f"a LoRA bank has the leaves {sorted(want)}, got {lora_keys}")
+        for name in lora_keys:
+            a = torch.from_numpy(np.array(np_params[name], dtype=np.float32))
+            if a.ndim != 4 or a.shape[0] != cfg.num_layers:
+                raise ValueError(f"param {name}: shape {tuple(a.shape)} is not [L, S, ., .]")
+            out[name] = bank_from_reference(name, a).to(device=device, dtype=cfg.torch_dtype)
     for name, shape in shapes.items():
         q8 = name.endswith("_q")
         a = np.array(np_params[name], dtype=np.int8 if q8 else np.float32)  # a writable copy
@@ -450,8 +464,15 @@ def forward_core(
     moe_dispatch_impl: Optional[Callable] = SORTED_DISPATCH,
     moe_matmul_impl: Callable = grouped_gemm,
     moe_rows: Optional[tuple[torch.Tensor, int]] = None,
+    lora_indices: Optional[torch.Tensor] = None,  # [N] adapter slot per token (0 = none)
+    lora_scale: float = 1.0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run a flat mixed batch through the model, writing K/V into the pool.
+
+    With the LoRA bank in ``params`` (``models/lora.py``), each token adds
+    its slot's delta (``lora_indices``, default slot 0, the null adapter)
+    times ``lora_scale`` to q/k/v and o, through ``apply_lora``'s two dense
+    products; the slot mask is built once per forward.
 
     MoE layers route through ``moe_block``: the sorted dispatch by default,
     the capacity einsum with ``moe_dispatch_impl=None``; ``moe_rows`` places
@@ -499,6 +520,15 @@ def forward_core(
         scale = Dh ** -0.5
     eplb = params.get("eplb_replica_slots"), params.get("eplb_replica_counts")
     counts, dropped = [], []
+    lora = None
+    if "lora_A_wq" in params:
+        check_supported(cfg, lora=True)
+        idx = lora_indices if lora_indices is not None else torch.zeros_like(tokens)
+        mask = slot_mask(idx, params["lora_A_wq"].shape[2], x.dtype)
+
+        def lora(t: str, l: int, h: torch.Tensor) -> torch.Tensor:
+            return apply_lora(h, params[f"lora_A_{t}"][l], params[f"lora_B_{t}"][l], mask,
+                              lora_scale)
 
     for l in range(L):
         h = rms_norm(x, params["attn_norm"][l], cfg.rms_eps)
@@ -519,7 +549,12 @@ def forward_core(
             v = linear(params, "wv", l, h).view(N, Hk, Dh)
             if cfg.attn_bias:
                 q, k, v = q + params["bq"][l], k + params["bk"][l], v + params["bv"][l]
-            if cfg.qk_norm:  # per-head RMSNorm over head_dim, before RoPE (Qwen3)
+            if lora is not None:
+                q = q + lora("wq", l, h).view(N, H, Dh)
+                k = k + lora("wk", l, h).view(N, Hk, Dh)
+                v = v + lora("wv", l, h).view(N, Hk, Dh)
+            if cfg.qk_norm:  # per-head RMSNorm over head_dim, before RoPE (Qwen3), on
+                # the full projection, bias and adapter delta included
                 q = rms_norm(q, params["q_norm"][l], cfg.rms_eps)
                 k = rms_norm(k, params["k_norm"][l], cfg.rms_eps)
             q = apply_rope(q, cos, sin)
@@ -534,6 +569,8 @@ def forward_core(
         o = linear(params, "wo", l, attn.reshape(N, H * Dv))
         if cfg.attn_bias:
             o = o + params["bo"][l]
+        if lora is not None:
+            o = o + lora("wo", l, attn.reshape(N, H * Dv))
         x = x + o
         h = rms_norm(x, params["mlp_norm"][l], cfg.rms_eps)
         if cfg.is_moe:
@@ -583,6 +620,8 @@ def forward(
     page_tables: torch.Tensor,  # [B, max_pages]
     kv_lens: torch.Tensor,  # [B] cache length AFTER this step's tokens
     with_hidden: bool = False,
+    lora_indices: Optional[torch.Tensor] = None,  # [B] adapter slot per row (0 = none)
+    lora_scale: float = 1.0,
 ) -> tuple[torch.Tensor, ...]:
     """[B, T]-shaped convenience wrapper over ``forward_core``.
 
@@ -599,10 +638,13 @@ def forward(
     cu = torch.zeros((B + 1,), dtype=torch.int32, device=dev)
     cu[1:] = valid.view(B, T).sum(1).cumsum(0)
     seq_slots = torch.arange(B, dtype=torch.int32, device=dev).repeat_interleave(T)
+    lora_tok = (lora_indices.repeat_interleave(T)[order] if lora_indices is not None
+                else None)
     packed, cache, _, _ = forward_core(
         cfg, params, cache, tokens.reshape(-1)[order], positions.reshape(-1)[order],
         seq_slots[order], page_tables, kv_lens, cu_q_lens=cu,
-        num_seqs=torch.full((1,), B, dtype=torch.int32, device=dev))
+        num_seqs=torch.full((1,), B, dtype=torch.int32, device=dev),
+        lora_indices=lora_tok, lora_scale=lora_scale)
     hidden = torch.where(valid[:, None], packed.new_zeros(packed.shape).index_copy_(
         0, order, packed), 0)
     logits = unembed(cfg, params, hidden).reshape(B, T, -1)

@@ -7,9 +7,10 @@ The text-exposition contract (``# HELP`` / ``# TYPE`` headers, cumulative
 Prometheus text format) and every engine and engine-server family carry the
 reference's names, types, help strings and label names, so a router or a
 dashboard reads a port engine's ``/metrics`` as it reads a JAX engine's.
-Families of features the port does not serve yet (LoRA, the decision
-plane) are registered all the same and stay at zero, as they do in a
-reference engine with the feature off. The
+``vllm:lora_requests_info`` is rebuilt by the server at every scrape from
+the engine's LoRA registry (its labels are the data). Families of features
+the port does not serve yet (the decision plane) are registered all the same
+and stay at zero, as they do in a reference engine with the feature off. The
 router, pool and device families are not copied: no engine registers them.
 
 * Thread-safe: the engine loop mutates families while HTTP threads scrape;
@@ -104,6 +105,11 @@ class _Family:
                 child = self._new_child()
                 self._children[key] = child
             return child
+
+    def clear(self) -> None:
+        """Drop all children (scrape-time-refreshed info gauges)."""
+        with self._lock:
+            self._children.clear()
 
     def set_function(self, fn: Callable[[], float]) -> None:
         """Attach a scrape-time value callback (unlabeled families only)."""

@@ -1,14 +1,15 @@
 """Where a decode step's time goes, on the card.
 
     python -m llmd_tpu_torch.tools.profile_engine [--batches 8,32] [--model llama-1b]
-        [--moe-dispatch auto|sorted|einsum] [--quantize int8]
+        [--moe-dispatch auto|sorted|einsum] [--quantize int8] [--lora N]
 
 ``--model`` takes any served registry model, dense (``llama-1b``), MoE
 (``moe-wide-sim``; its expert GEMMs are K2 on the sorted dispatch, K4 on the
 einsum one) or MLA (``moe-wide-mla``: K1's latent instance in the unified
 program, the latent decode kernel K3 in the decode program). ``--quantize
 int8`` serves int8 weight-only weights (their plain products; no K2/K4 on
-int8 banks).
+int8 banks). ``--lora N`` serves under LoRA (8 slots of rank 8) with N test
+adapters, drawn from the seed, spread over the rows (row i on adapter i % N).
 
 For each batch size, in turn for the decode program captured into a CUDA
 graph and replayed (``graph``, the engine's default) and for the same program
@@ -277,12 +278,14 @@ def k2_host_us(cfg, params, batch: int, seed: int) -> dict:
 def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
                   calls: int, prof_calls: int, seed: int, moe_dispatch: str = "auto",
                   decode_graph: bool = True, quantize: "str | None" = None,
-                  sampling: "dict | None" = None, tokenizer=None) -> dict:
+                  sampling: "dict | None" = None, tokenizer=None, lora: int = 0) -> dict:
     """One engine's decode at ``batch`` sequences, replayed or eager.
     ``sampling``: extra SamplingParams fields of every request (a grammar
-    runs the masked decode program; ``tokenizer`` lifts it)."""
+    runs the masked decode program; ``tokenizer`` lifts it). ``lora``: that
+    many test adapters (8 slots of rank 8), row i on adapter ``i % lora``."""
     from llmd_tpu_torch.core.request import SamplingParams
     from llmd_tpu_torch.engine import EngineConfig, LLMEngine
+    from llmd_tpu_torch.models.lora import LoRAConfig
     from llmd_tpu_torch.models.transformer import forward_core
 
     ps = 16
@@ -294,13 +297,17 @@ def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
         page_size=ps, num_pages=batch * per_seq + 8, max_model_len=4096,
         max_batch_size=batch, prefill_chunk=min(prompt_len, 2048),
         max_num_batched_tokens=max(2048, prompt_len), decode_steps=decode_steps,
-        moe_dispatch=moe_dispatch, quantize_weights=quantize)
+        moe_dispatch=moe_dispatch, quantize_weights=quantize,
+        lora=LoRAConfig() if lora else None)
     eng = LLMEngine(cfg, ecfg, params=params, seed=seed, decode_graph=decode_graph,
                     tokenizer=tokenizer)
+    for j in range(lora):
+        eng.load_lora_adapter(f"adapter-{j}", seed=seed + j)
     rng = np.random.default_rng(seed)
     for i in range(batch):
         eng.add_request(f"r{i}", rng.integers(0, 256, prompt_len).tolist(),
-                        SamplingParams(max_tokens=budget, temperature=0.0, **(sampling or {})))
+                        SamplingParams(max_tokens=budget, temperature=0.0, **(sampling or {})),
+                        lora_id=f"adapter-{i % lora}" if lora else None)
     st = eng.stats
     while st.n_decode_calls == 0:  # the prefill steps, then warm-up decode calls
         eng.step()
@@ -417,6 +424,7 @@ def main(argv: "list[str] | None" = None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--moe-dispatch", default="auto", choices=("auto", "sorted", "einsum"))
     ap.add_argument("--quantize", default=None, choices=("int8",))
+    ap.add_argument("--lora", type=int, default=0, help="test adapters spread over the rows")
     ap.add_argument("--out", default=None, help="also write the rows here (JSON)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -440,13 +448,14 @@ def main(argv: "list[str] | None" = None) -> None:
     # warm-up pass (cuBLAS handles, lazy module loads), not reported
     for graph in (True, False):
         profile_batch(cfg, params, 2, 32, args.decode_steps, 1, 1, args.seed,
-                      args.moe_dispatch, decode_graph=graph, quantize=args.quantize)
+                      args.moe_dispatch, decode_graph=graph, quantize=args.quantize,
+                      lora=args.lora)
     rows = []
     for b in (int(x) for x in args.batches.split(",")):
         for graph in (True, False):
             r = profile_batch(cfg, params, b, args.prompt_len, args.decode_steps,
                               args.calls, args.prof_calls, args.seed, args.moe_dispatch,
-                              decode_graph=graph, quantize=args.quantize)
+                              decode_graph=graph, quantize=args.quantize, lora=args.lora)
             r["card"] = smi
             rows.append(r)
             print(json.dumps({k: v for k, v in r.items()
@@ -463,7 +472,8 @@ def main(argv: "list[str] | None" = None) -> None:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps({"model": args.model, "moe_dispatch": args.moe_dispatch,
-                                   "quantize": args.quantize, "rows": rows}, indent=1))
+                                   "quantize": args.quantize, "lora": args.lora,
+                                   "rows": rows}, indent=1))
 
 
 if __name__ == "__main__":

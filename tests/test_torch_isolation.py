@@ -69,6 +69,8 @@ assert {"llmd_tpu_torch.disagg.transfer", "llmd_tpu_torch.kv.dtypes",
         "llmd_tpu_torch.kv.connector_api", "llmd_tpu_torch.kv.remote_store",
         "llmd_tpu_torch.kv.writeback", "llmd_tpu_torch.kvplane.pull",
         "llmd_tpu_torch.native.build"} <= set(names)
+# and multi-adapter LoRA's (the embed program lives in the engine)
+assert "llmd_tpu_torch.models.lora" in names
 assert "zmq" not in sys.modules
 print(len(names))
 """
@@ -98,6 +100,15 @@ def test_source_scan_finds_no_jax_or_reference_imports():
     assert _FORBIDDEN.search("import jax.numpy as jnp")
     assert _FORBIDDEN.search("    import ml_dtypes  # noqa")
     assert not _FORBIDDEN.search("from llmd_tpu_torch.models import x")
+
+
+def test_lora_module_stands_alone():
+    """``models/lora.py`` keeps its own copy of the reference's pure-Python
+    registry: its source imports nothing of jax or the reference package,
+    and it is importable with both blocked (the subprocess above)."""
+    src = (REPO / "llmd_tpu_torch" / "models" / "lora.py").read_text()
+    assert not _FORBIDDEN.search(src)
+    assert "class LoRARegistry" in src
 
 
 def test_engine_defaults_to_the_card(monkeypatch):

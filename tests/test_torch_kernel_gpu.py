@@ -1108,3 +1108,87 @@ def test_kvplane_export_survives_engine_steps_on_card(cuda):
     eng.generate([[(97 + 41 * i + j) % 280 + 1 for j in range(40)] for i in range(8)],
                  SamplingParams(max_tokens=4, temperature=0.0, ignore_eos=True))
     assert torch.equal(drain_staged(staged.parts), truth)
+
+
+# -------------------------------------------------------------------- LoRA
+
+
+def _lora_run(cuda, graph: bool, model: str = "tiny", **kw):
+    """Greedy tokens and launches of base and adapter rows where the second
+    adapter is loaded only after the first call, which captures the decode
+    graph: a replayed graph reads the bank in place."""
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.models.lora import LoRAConfig
+
+    eng = _engine(model, cuda, decode_graph=graph, lora=LoRAConfig(max_adapters=4, rank=8), **kw)
+    eng.load_lora_adapter("a", seed=1)
+    sp = SamplingParams(max_tokens=13, temperature=0.0)
+    out = {}
+    for rid, p, lora in (("base", list(range(5, 60)), None), ("a", list(range(5, 60)), "a")):
+        eng.add_request(rid, p, sp, lora_id=lora)
+    ptr = eng._lora_params["lora_B_wq"].data_ptr()
+    while eng.has_work():
+        for o in eng.step():
+            out.setdefault(o.request_id, []).extend(o.new_token_ids)
+    captured = eng.stats.decode_graph_captures
+    eng.load_lora_adapter("b", seed=2)  # after the capture
+    before = _launches()
+    for rid, p, lora in (("b", list(range(5, 60)), "b"), ("base2", list(range(7, 40)), None),
+                         ("a2", list(range(7, 40)), "a")):
+        eng.add_request(rid, p, sp, lora_id=lora)
+    while eng.has_work():
+        for o in eng.step():
+            out.setdefault(o.request_id, []).extend(o.new_token_ids)
+    after = _launches()
+    assert eng._lora_params["lora_B_wq"].data_ptr() == ptr
+    counts = {n: after[n][0] - before[n][0] for n in after}
+    return out, counts, captured, eng.stats
+
+
+def test_lora_decode_graph_matches_eager_with_adapter_loaded_after_capture(cuda):
+    """bf16 tiny under adapters: the replayed decode program = eager, tokens
+    and launch counts, with an adapter loaded after the graph's capture; the
+    adapters visibly change their rows."""
+    g, gc, captured, st = _lora_run(cuda, True)
+    e, ec, _, _ = _lora_run(cuda, False)
+    assert captured == 1 and st.decode_graph_captures == 1
+    assert st.decode_graph_replays == st.n_decode_calls > 0
+    assert g == e and gc == ec
+    assert g["base"] != g["a"] and g["b"] != g["base"]
+
+
+def test_lora_moe_kernels_under_adapters(cuda):
+    """tiny-moe (sorted dispatch) under adapters: K1 and K2 launch on their
+    bf16 instances in every program, replayed = eager."""
+    g, gc, _, _ = _lora_run(cuda, True, model="tiny-moe", moe_dispatch="sorted")
+    e, ec, _, _ = _lora_run(cuda, False, model="tiny-moe", moe_dispatch="sorted")
+    assert g == e and gc == ec
+    assert gc["paged_attention"] > 0 and gc["ragged_grouped_gemm"] > 0
+
+
+def test_lora_embed_on_card_matches_cpu(cuda):
+    """The embed program on the card (K1 per layer per chunk) against the
+    same engine on the CPU, float32, under an adapter: max abs <= 1e-5."""
+    import dataclasses
+
+    from llmd_tpu_torch.engine import EngineConfig, LLMEngine
+    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.models.lora import LoRAConfig, make_adapter_weights
+    from llmd_tpu_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(get_model_config("tiny"), dtype="float32")
+    lcfg = LoRAConfig(max_adapters=2, rank=8)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    w = make_adapter_weights(cfg, lcfg, torch.Generator().manual_seed(3))
+    ids = list(range(3, 100))
+    vecs = []
+    for dev in (cuda, "cpu"):
+        eng = LLMEngine(cfg, EngineConfig(page_size=8, num_pages=64, max_model_len=256,
+                                          prefill_chunk=32, lora=lcfg), params=params,
+                        device=dev)
+        eng.load_lora_adapter("a", w)
+        before = paged_attention.launches
+        vecs.append(np.asarray(eng.embed(ids, "a")))
+        if dev == cuda:
+            assert paged_attention.launches - before == cfg.num_layers * 4  # 97 tokens, 4 chunks
+    assert np.abs(vecs[0] - vecs[1]).max() <= 1e-5

@@ -38,16 +38,19 @@ def test_unserved_architectures_raise(name):
     if name in ("tiny-moe", "tiny-mla"):
         # MoE, MLA and int8 weights (int8 expert banks, the int8 attention
         # output projection) are served since their slices; LoRA adapters
-        # on them are not
+        # on MoE since theirs (a malformed bank is refused), not on MLA
         params = {k: np.zeros(v, np.float32)
                   for k, v in tt.param_shapes(cfg, quantized=True).items()}
         key = "moe_wi" if name == "tiny-moe" else "wo"
         params[key + "_q"] = params[key + "_q"].astype(np.int8)
         assert tt.params_from_numpy(cfg, params)[key + "_q"].dtype == torch.int8
-        refusal = "LoRA adapters are unsupported on MLA" if cfg.is_mla else \
-            "ROADMAP Queue A item 7"
-        with pytest.raises(NotImplementedError, match=refusal):
-            tt.params_from_numpy(cfg, {**params, "lora_A_wq": np.zeros(1, np.float32)})
+        bad = {**params, "lora_A_wq": np.zeros(1, np.float32)}
+        if cfg.is_mla:
+            with pytest.raises(NotImplementedError, match="LoRA adapters are unsupported on MLA"):
+                tt.params_from_numpy(cfg, bad)
+        else:
+            with pytest.raises(ValueError, match="LoRA bank"):
+                tt.params_from_numpy(cfg, bad)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
         tt.init_params(cfg, torch.Generator().manual_seed(0))
@@ -257,7 +260,19 @@ def test_params_from_numpy_takes_bf16_reference_params():
     jcfg, tcfg, jp, tp = _params("tiny", dtype="bfloat16")
     assert all(v.dtype == torch.bfloat16 for v in tp.values())
     np.testing.assert_array_equal(tp["wq"].float().numpy(), _np(jp["wq"]))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # a bf16 LoRA bank of the reference comes in bit for bit, A in the port's
+    # [L, Din, S, r] layout; a bank missing leaves is refused
+    from llmd_tpu.models.lora import LoRAConfig, init_lora_params
+
+    bank = {k: np.asarray(v) for k, v in init_lora_params(jcfg, LoRAConfig(2, 4)).items()}
+    rng = np.random.default_rng(0)
+    bank = {k: rng.standard_normal(v.shape).astype(v.dtype) for k, v in bank.items()}
+    got = tt.params_from_numpy(tcfg, {**{k: np.asarray(v) for k, v in jp.items()}, **bank})
+    assert got["lora_A_wq"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(got["lora_A_wq"].float().numpy(),
+                                  _np(bank["lora_A_wq"]).transpose(0, 2, 1, 3))
+    np.testing.assert_array_equal(got["lora_B_wo"].float().numpy(), _np(bank["lora_B_wo"]))
+    with pytest.raises(ValueError, match="LoRA bank"):
         tt.params_from_numpy(tcfg, {**{k: np.asarray(v) for k, v in jp.items()},
                                     "lora_A_wq": np.zeros(1)})
 

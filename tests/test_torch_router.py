@@ -13,6 +13,8 @@ in float32, and the reference router driving port engines.
   events, a shared prefix stays on one engine, a stream proxies through it,
   greedy text through it equals the engine's own, and after ``/drain`` on one
   engine new requests land on the other.
+- **Adapter rollout.** The reference's rollout tool (``tools/rollout.py``)
+  drives a LoRA adapter rollout through the router over two port engines.
 """
 
 import asyncio
@@ -315,6 +317,80 @@ def test_router_drives_port_engines():
                         "temperature": 0.0})
                     assert status == 200, body
                     assert headers["x-llm-d-endpoint"] == other.address
+        finally:
+            await router.stop()
+            for e in engines:
+                e.stop()
+
+    run_async(main())
+
+
+ROLLOUT_CFG = """
+plugins:
+  - {name: queue, type: queue-depth-scorer}
+schedulingProfiles:
+  - name: default
+    plugins:
+      - {pluginRef: queue, weight: 1}
+"""
+
+
+def _rollout_tool():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "tools" / "rollout.py"
+    spec = importlib.util.spec_from_file_location("rollout", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_adapter_rollout_on_port_engines():
+    """The reference's adapter rollout (``tests/test_rollout.py:145``) over
+    two port engines behind a real ``RouterServer``: load v2 on every pod
+    through the runtime-LoRA API, shift the traffic in stages, unload v1;
+    all traffic for the model then serves through v2, and v1 is gone from
+    every pod (a second unload is a 404)."""
+    from llmd_tpu_torch.models.lora import LoRAConfig
+
+    mod = _rollout_tool()
+
+    async def main():
+        _, tcfg, _, npp = _weights()
+        engines = [EngineServer(tcfg, EngineConfig(**KW, lora=LoRAConfig(max_adapters=2, rank=4)),
+                                model_name="m", host="127.0.0.1", port=0,
+                                params=tt.params_from_numpy(tcfg, npp), device="cpu")
+                   for _ in range(2)]
+        pool = EndpointPool()
+        for e in engines:
+            e.start()
+            pool.upsert(Endpoint(address=e.address))
+        cfg = FrameworkConfig.from_yaml(ROLLOUT_CFG, known_types=known_plugin_types())
+        router = RouterServer(cfg, pool, port=0)
+        await router.start()
+        try:
+            pods = [e.address for e in engines]
+            async with aiohttp.ClientSession() as s:
+                await mod.load_adapter_on_pods(s, pods, "adapter-v1", None)
+            report = await mod.run_rollout(
+                router.address, model="m", new="adapter-v2", stages=[0.5, 1.0], probes=4,
+                min_success=1.0, pods=pods, old_adapter="adapter-v1", unload_old=True)
+            assert report["outcome"] == "completed", report
+            assert report["unloaded"] == "adapter-v1"
+            async with aiohttp.ClientSession() as s:
+                status, body, _ = await _call(s, "POST", f"http://{router.address}/v1/completions",
+                                              {"model": "m", "prompt": "hi", "max_tokens": 2,
+                                               "temperature": 0})
+                assert status == 200, body
+                for pod in pods:
+                    status, _, _ = await _call(s, "POST", f"http://{pod}/v1/unload_lora_adapter",
+                                               {"lora_name": "adapter-v1"})
+                    assert status == 404
+                    status, models, _ = await _call(s, "GET", f"http://{pod}/v1/models")
+                    assert [m["id"] for m in models["data"]] == ["m", "adapter-v2"]
+            # every pod served the new adapter's traffic through its slot
+            assert all(e.engine.lora_registry.has("adapter-v2") for e in engines)
         finally:
             await router.stop()
             for e in engines:

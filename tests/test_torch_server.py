@@ -159,7 +159,8 @@ def test_bad_requests_are_400(served):
     assert _post(base + "/v1/completions", {"prompt": "x", "logit_bias": {"1": 300}})[0] == 400
     assert _post(base + "/v1/completions", {"prompt": ""})[0] == 400
     assert _post(base + "/v1/chat/completions", {"messages": []})[0] == 400  # empty prompt
-    assert _post(base + "/v1/embeddings", {"input": "x"})[0] == 404  # not served yet
+    assert _post(base + "/v1/embeddings", {"input": [[]]})[0] == 400  # an empty item
+    assert _post(base + "/v1/embeddings", {})[0] == 400  # no input
 
 
 def test_stream_disconnect_aborts_the_request(served):

@@ -16,8 +16,8 @@ rows of each batch, and a verify batch has other rows than a decode batch:
 there the port with speculation is held to the JAX engine with speculation,
 drops included, and the three-way identity is held at capacity 8.
 
-The reference's LoRA case (``tests/test_spec_decode.py:143``) waits for LoRA
-in the port (ROADMAP Queue A item 7).
+The reference's LoRA case (``tests/test_spec_decode.py:143``) is in
+``tests/test_torch_lora.py``.
 """
 
 import dataclasses

@@ -347,7 +347,7 @@ def test_structured_off_unchanged_and_captures_nothing():
         if kw:
             assert eng._decode_masked_fn is None and eng._mask_buffers is None
             assert eng.compile_counts() == dict.fromkeys(
-                ["unified", "verify", "verify_masked", "decode", "decode_masked"], 0)
+                ["unified", "verify", "verify_masked", "decode", "decode_masked", "embed"], 0)
             with pytest.raises(ValueError):
                 eng.add_request("s", prompt, _sp(guided_choice=CHOICES))
             assert not eng.has_work() and "s" not in eng.seqs
