@@ -188,6 +188,34 @@ with a non-zero exit:
             ``/v1/embeddings`` latency of one 512-token input (``lora:``
             lines).
 
+17. vision  multimodal serving (``phase_vision``) at VL_FULL: llama-1b with
+            the tower at CLIP ViT-L/14-336's published widths (hidden 1024,
+            24 layers, 16 heads, MLP 4096, patch 14 at 336 px: 576 patches)
+            and 576 media tokens an image (LLaVA-1.5's), built here with
+            ``dataclasses.replace`` (not a registry entry). The f32 tower on
+            the card against the CPU (4 images, TF32 off): max abs relative to
+            the output's <= TOWER_REL, bf16 against f32 reported. Combined PD
+            (the server's in-process tower), bf16 then f32: 8 chats of 1-2
+            images beside 16-64 text bytes, 32 greedy tokens, half streamed:
+            K1 once per layer of every forward (``mma`` / ``simt``), no plain
+            version, the decode graph replayed, ``/render`` = the stream the
+            engine admitted, its blocks keyed as the router keys them, a
+            repeat cached, a new image behind the same text not; f32 tokens
+            = an engine given the same rows through ``add_request``; of the
+            four pairs of chats that differ only in their images, at least
+            one gives other greedy tokens (each pair's are reported: at random
+            init the greedy token may hold) and every pair moves the first
+            token's f32 logits by more than IMAGE_LOGIT_MOVE. E/PD (a port encode worker on
+            loopback, a towerless server, the sidecar's E step driven here):
+            tokens = combined PD in f32. E/P/D in f32 (worker, P with
+            ``do_remote_decode``, D with ``do_remote_prefill``): D injects
+            blocks and reports cached tokens, its tokens = combined PD's, K1 on
+            D over the pulled pages. Informational (``vision:`` lines): encode
+            ms per image at batch 1 and 8 beside the tower's bound, TTFT p50
+            of a one-image chat combined against E/PD, device kernels per
+            unified step with and without media rows. The phase's and the
+            whole run's seconds close it.
+
 It ends with a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. ``--report PATH`` also writes every phase's details (nvcc's register
 report, per-check errors) as JSON. Without a CUDA device it exits 1 and prints
@@ -198,6 +226,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import itertools
 import json
 import re
@@ -3873,6 +3902,538 @@ def phase_lora(device, card: str, seed: int = 0, dense: str = "llama-1b", moe: s
     return out
 
 
+# --------------------------------------------------------------------------
+# Multimodal serving: the vision tower, the encode worker, media rows
+# --------------------------------------------------------------------------
+
+# CLIP ViT-L/14 at 336 px (openai/clip-vit-large-patch14-336, vision_config),
+# LLaVA-1.5's tower: hidden 1024, 24 layers, 16 heads, patch 14 (576
+# patches); the reference tower's MLP is its fixed 4 x hidden (4096); 576
+# media tokens an image, as LLaVA-1.5 feeds its LM
+VL_TOWER = dict(mm_tokens=576, mm_placeholder_id=32767, vision_patch=14,
+                vision_image_size=336, vision_layers=24, vision_hidden=1024, vision_heads=16)
+VL_KW = dict(page_size=PS, num_pages=1024, max_model_len=2048, max_batch_size=8,
+             prefill_chunk=512, max_num_batched_tokens=2048, decode_steps=4)
+# the f32 tower on the card against the CPU, max abs relative to the output's
+# max abs: summation order only (TF32 off)
+TOWER_REL = 1e-4
+# f32 first-token logits of two prompts that differ only in their images must
+# move by more than this (the same inputs agree to ~1e-5: summation order);
+# at random init the greedy token itself may hold (PERF.md §6)
+IMAGE_LOGIT_MOVE = 1e-2
+
+
+def vl_full(dtype: str = "bfloat16", base: str = "llama-1b", tower: "dict | None" = None):
+    """VL_FULL: ``base`` (llama-1b, the reference registry's widths) with the
+    tower at CLIP ViT-L/14-336's published widths; not a registry entry (the
+    port's registry is the reference's, field for field)."""
+    from llmd_tpu_torch.models import get_model_config
+
+    return dataclasses.replace(get_model_config(base), name=f"{base}-vl336", dtype=dtype,
+                               **(tower or VL_TOWER))
+
+
+def _image(tag: str) -> dict:
+    """A seeded byte payload as an inline ``data:`` image part."""
+    import base64
+    import hashlib
+
+    payload = hashlib.sha256(tag.encode()).digest() * 8
+    return {"type": "image_url", "image_url": {
+        "url": "data:image/x-raw;base64," + base64.b64encode(payload).decode()}}
+
+
+def _vl_bodies(n: int, seed: int, text_range, max_tokens: int) -> list:
+    """``n`` chat bodies of 1-2 images beside 16-64 text bytes, greedy,
+    ``max_tokens`` out, every other one streamed; bodies 2i and 2i + 1 share
+    their text and differ in their images."""
+    rng = np.random.default_rng(seed)
+    bodies = []
+    for i in range(n):
+        if i % 2 == 0:
+            text = "".join(rng.choice(list("abcdefghij klmnopqrst uvwxyz"),
+                                      int(rng.integers(text_range[0], text_range[1] + 1))))
+        images = [_image(f"vision-{seed}-{i}-{j}") for j in range(1 + (i // 2) % 2)]
+        bodies.append({"messages": [{"role": "user", "content": [
+            {"type": "text", "text": text}, *images]}], "max_tokens": max_tokens,
+            "temperature": 0.0, "ignore_eos": True, "stream": i % 2 == 1})
+    return bodies
+
+
+def _chat(address: str, body: dict) -> dict:
+    """One chat completion: its tokens (the id tokenizer's spelling), usage
+    and status; a stream's pieces joined, its usage from the last event."""
+    status, _, raw = _http("POST", f"http://{address}/v1/chat/completions", body)
+    if status != 200:
+        raise AssertionError(f"vision: chat {status}: {raw[:300]!r}")
+    if body.get("stream"):
+        events = [json.loads(e) for e in raw if e != b"[DONE]"]
+        text = "".join(e["choices"][0]["delta"]["content"] for e in events)
+        usage = events[-1]["usage"]
+    else:
+        r = json.loads(raw)
+        text, usage = r["choices"][0]["message"]["content"], r["usage"]
+    return {"tokens": [ord(c) - 0x10000 for c in text], "usage": usage}
+
+
+def _vl_server(device, cfg, seed: int, **kw):
+    from llmd_tpu_torch.engine.config import EngineConfig
+    from llmd_tpu_torch.engine.server import EngineServer
+
+    s = EngineServer(cfg, EngineConfig(**VL_KW), host="127.0.0.1", port=0,
+                     tokenizer=IdTokenizer(cfg.vocab_size), seed=seed, device=device, **kw)
+    s.start()
+    return s
+
+
+def _vl_window(server, bodies: list, prepare=None) -> dict:
+    """``bodies`` concurrently through ``server`` (each through ``prepare``
+    first, the sidecar's E step when given), the counters zeroed just before
+    and read just after: answers in order, launches, plain calls, instances,
+    the engine's forwards and replays, and the prompts the engine admitted."""
+    eng = server.engine
+    admitted: list = []
+    add = eng.add_request
+
+    def recording(rid, token_ids, *a, **k):
+        admitted.append((list(token_ids), [h for h, _ in k.get("mm_items") or ()]))
+        return add(rid, token_ids, *a, **k)
+
+    sync = torch.cuda.synchronize if eng.device.type == "cuda" else (lambda: None)
+    st0 = dataclasses.replace(eng.stats)
+    eng.add_request = recording
+    sync()
+    zero_counts()
+    out: list = [None] * len(bodies)
+
+    def one(i: int) -> None:
+        out[i] = _chat(server.address, prepare(bodies[i]) if prepare else bodies[i])
+
+    try:
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        sync()
+    finally:
+        eng.add_request = add
+    launches, plain = read_counts()
+    st = eng.stats
+    if any(o is None for o in out):
+        raise AssertionError("vision: a chat request failed")
+    return {"answers": out, "launches": launches, "plain_calls": plain,
+            "launches_by_instance": instance_counts(), "admitted": admitted,
+            "forwards": (st.n_unified_steps - st0.n_unified_steps)
+            + (st.n_decode_iterations - st0.n_decode_iterations),
+            "unified_steps": st.n_unified_steps - st0.n_unified_steps,
+            "replays": st.decode_graph_replays - st0.decode_graph_replays}
+
+
+def _check_vl_launches(label: str, cfg, run: dict, instance: str) -> None:
+    """K1 once per layer of every forward of the window, all on
+    ``instance``, no plain version, the decode program replayed from its
+    graph. On the card only."""
+    if not torch.cuda.is_available():
+        return
+    n = cfg.num_layers * run["forwards"]
+    by = run["launches_by_instance"]["paged_attention"]
+    problems = []
+    if run["launches"]["paged_attention"] != n or n == 0:
+        problems.append(f"K1 launches {run['launches']['paged_attention']} != {n}")
+    if by.get(instance, 0) != n or sum(by.values()) != n:
+        problems.append(f"K1 launches {by} not all on {instance}")
+    if any(run["plain_calls"].values()):
+        problems.append(f"plain versions ran: {run['plain_calls']}")
+    if run["replays"] == 0:
+        problems.append("the decode program never replayed its graph")
+    if problems:
+        raise AssertionError(f"vision {label}: {problems}")
+
+
+def _encode_items(address: str, body: dict) -> dict:
+    """The sidecar's E step, driven here: each media part to the encode
+    worker alone (``/v1/encode``), the wire items attached as ``mm_items``."""
+    from llmd_tpu_torch.disagg.encode import iter_media_parts
+
+    items = []
+    for part in iter_media_parts(body):
+        status, _, raw = _http("POST", f"http://{address}/v1/encode", {"items": [part]})
+        if status != 200:
+            raise AssertionError(f"vision: encode {status}: {raw[:300]!r}")
+        items += json.loads(raw)["items"]
+    return {**body, "mm_items": items}
+
+
+def vision_tower_check(device, card: str, cfg, seed: int, n: int) -> dict:
+    """The f32 tower on the card against the same tower on the CPU (same
+    params, ``n`` images, TF32 off, highest matmul precision): max abs
+    relative to the output's max abs <= TOWER_REL; bf16 against f32 on the
+    card reported, not bounded."""
+    from llmd_tpu_torch.models.vision import bytes_to_pixels, encode_images, init_vision_params
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cpu_params = init_vision_params(cfg32, torch.Generator().manual_seed(seed), "cpu")
+    px = torch.from_numpy(np.stack([bytes_to_pixels(cfg32, f"tower-{seed}-{i}".encode())
+                                    for i in range(n)]))
+    precision = torch.get_float32_matmul_precision()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            ref = encode_images(cfg32, cpu_params, px)
+            cpu_s = time.perf_counter() - t0
+            dev_params = {k: v.to(device) for k, v in cpu_params.items()}
+            got = encode_images(cfg32, dev_params, px.to(device)).cpu()
+            bf16 = dataclasses.replace(cfg, dtype="bfloat16")
+            half = encode_images(bf16, {k: v.to(torch.bfloat16) for k, v in dev_params.items()},
+                                 px.to(device)).float().cpu()
+    finally:
+        torch.set_float32_matmul_precision(precision)
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    bf16_err = float((half - ref).abs().max())
+    row = {"images": n, "max_abs": err, "rel": err / scale, "limit_rel": TOWER_REL,
+           "output_max_abs": scale, "bf16_vs_f32_max_abs": bf16_err,
+           "bf16_vs_f32_rel": bf16_err / scale, "cpu_s": cpu_s,
+           "shape": list(got.shape)}
+    log(f"vision: tower {cfg.vision_layers} layers x {cfg.vision_hidden} "
+        f"({cfg.vision_image_size} px, patch {cfg.vision_patch}) f32 on {card} vs CPU, "
+        f"{n} images: max_abs={err:.3e} rel={err / scale:.3e} (limit {TOWER_REL:.0e}); "
+        f"bf16 vs f32 max_abs={bf16_err:.3e} rel={bf16_err / scale:.3e} (reported); "
+        f"CPU {cpu_s:.1f} s")
+    if not err / scale <= TOWER_REL:
+        raise AssertionError(f"vision tower: {row}")
+    return row
+
+
+def vision_combined(device, card: str, cfg, seed: int, bodies: list) -> dict:
+    """Combined PD: the server with its in-process tower serves ``bodies``
+    (then the first two again, and those two with another image behind the
+    same text); K1 once per layer of every forward on its instance, the
+    decode graph replayed, ``/render`` = the stream the engine admitted and
+    its blocks keyed as the router keys them, a repeat hits the prefix cache
+    (its tokens reported), a new image does not; the two bodies of at least
+    one pair (same text, other images) give other tokens. In float32
+    the tokens also equal an engine's given the same rows through
+    ``add_request``, and each pair's first-token logits move by more than
+    IMAGE_LOGIT_MOVE."""
+    from llmd_tpu_torch.core.kv_events import block_keys_for_tokens
+    from llmd_tpu_torch.core.request import mm_hashes_from_messages
+
+    f32 = cfg.dtype == "float32"
+    server = _vl_server(device, cfg, seed)
+    try:
+        # warm-up: the tower and the decode graph, media unlike any below
+        _chat(server.address, {**_vl_bodies(1, seed + 1000, (16, 16), 10)[0],
+                               "stream": False})
+        run = _vl_window(server, bodies)
+        _check_vl_launches(f"combined {cfg.dtype}", cfg, run, "simt" if f32 else "mma")
+        renders = [json.loads(_http("POST", f"http://{server.address}"
+                                    "/v1/chat/completions/render", b)[2])["prompt_token_ids"]
+                   for b in bodies]
+        again = _vl_window(server, bodies[:2])
+        swapped = [{**b, "messages": [{"role": "user", "content": [
+            b["messages"][0]["content"][0], _image(f"swap-{seed}-{i}")]}]}
+            for i, b in enumerate(bodies[:2])]
+        other = _vl_window(server, swapped)
+        cached = server.engine.alloc.cached
+        keys_ok = all(set(block_keys_for_tokens(
+            r, PS, None, mm_hashes_from_messages(b["messages"]))) <= set(cached)
+            for r, b in zip(renders, bodies))
+        encoded = dict(server._vision.stats)
+    finally:
+        server.stop()
+    del server
+    _empty()
+    toks = [a["tokens"] for a in run["answers"]]
+    admitted = sorted(map(tuple, (p for p, _ in run["admitted"])))
+    row = {"dtype": cfg.dtype, "requests": len(bodies),
+           "prompt_tokens": [a["usage"]["prompt_tokens"] for a in run["answers"]],
+           "images": [len(b["messages"][0]["content"]) - 1 for b in bodies],
+           "launches": run["launches"], "launches_by_instance": run["launches_by_instance"],
+           "forwards": run["forwards"], "replays": run["replays"],
+           "render_equals_admitted": sorted(map(tuple, renders)) == admitted,
+           "block_keys_equal_router_keys": keys_ok,
+           "pair_tokens_differ": [toks[i] != toks[i + 1] for i in range(0, len(toks) - 1, 2)],
+           "repeat_cached_tokens": [a["usage"]["cached_tokens"] for a in again["answers"]],
+           "repeat_same_tokens": [a["tokens"] for a in again["answers"]] == toks[:2],
+           "new_image_cached_tokens": [a["usage"]["cached_tokens"] for a in other["answers"]],
+           "tower": encoded, "tokens": toks, "renders": renders,
+           "mm_hashes": [h for _, h in run["admitted"]]}
+    if f32:
+        direct, logits = _direct_tokens(device, cfg, seed, bodies, renders)
+        row["same_as_add_request"] = toks == direct
+        # the rows reach the model: the first token's logits of the two
+        # bodies of a pair (same text, other images) move by far more than
+        # f32 noise, though at random init the greedy token may hold
+        row["pair_first_logit_change"] = [float((logits[i] - logits[i + 1]).abs().max())
+                                          for i in range(0, len(logits) - 1, 2)]
+        row["first_top2_margin"] = [float(t[0] - t[1]) for t in
+                                    (torch.topk(x, 2).values for x in logits)]
+    log(f"vision: combined PD {cfg.dtype} on {card}: {len(bodies)} chats, "
+        f"{row['images']} images, prompts {row['prompt_tokens']} tokens; K1 launches="
+        f"{run['launches']['paged_attention']} by_instance="
+        f"{run['launches_by_instance']['paged_attention']} over {run['forwards']} forwards "
+        f"({run['unified_steps']} unified), replays={run['replays']}; render=admitted "
+        f"{row['render_equals_admitted']}, block keys=router keys {keys_ok}, pairs (same text, "
+        f"other images) tokens differ {row['pair_tokens_differ']}, repeat cached "
+        f"{row['repeat_cached_tokens']} "
+        f"(same tokens {row['repeat_same_tokens']}), new image cached "
+        f"{row['new_image_cached_tokens']}; tower {encoded}"
+        + (f"; tokens = add_request engine {row['same_as_add_request']}, pairs' first-token "
+           f"logits moved by {row['pair_first_logit_change']} (limit > {IMAGE_LOGIT_MOVE}), "
+           f"their top-2 margins {row['first_top2_margin']}"
+           if f32 else ""))
+    ok = (row["render_equals_admitted"] and keys_ok and any(row["pair_tokens_differ"])
+          and all(d > IMAGE_LOGIT_MOVE for d in row.get("pair_first_logit_change", [1.0]))
+          and all(c > 0 for c in row["repeat_cached_tokens"]) and row["repeat_same_tokens"]
+          and all(c == 0 for c in row["new_image_cached_tokens"])
+          and row.get("same_as_add_request", True))
+    if not ok:
+        raise AssertionError(f"vision combined {cfg.dtype}: "
+                             f"{ {k: v for k, v in row.items() if k not in ('tokens', 'renders')} }")
+    return row
+
+
+def _direct_tokens(device, cfg, seed: int, bodies: list, renders: list) -> tuple:
+    """The same prompts and media rows through one engine's ``add_request``
+    (a ``VisionRunner`` of the same seeded tower encodes the parts): the
+    greedy tokens, and each prompt's first-token logits from one
+    ``forward_core`` of the whole prompt over a pool of its own."""
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.disagg.encode import (
+        VisionRunner, iter_media_parts, media_bytes_from_part, part_identity)
+    from llmd_tpu_torch.engine import EngineConfig, LLMEngine
+    from llmd_tpu_torch.models.transformer import forward_core, init_cache, unembed
+
+    runner = VisionRunner(cfg, device=device)
+    eng = LLMEngine(cfg, EngineConfig(**VL_KW), seed=seed, device=device)
+    logits = []
+    for i, (b, toks) in enumerate(zip(bodies, renders)):
+        parts = list(iter_media_parts(b))
+        rows = runner.encode([media_bytes_from_part(p) for p in parts])
+        items = [(part_identity(p), e) for p, (_, e) in zip(parts, rows)]
+        eng.add_request(f"direct-{i}", toks, SamplingParams(
+            max_tokens=b["max_tokens"], temperature=0.0, ignore_eos=True), mm_items=items)
+        n, pages = len(toks), -(-len(toks) // PS)
+        t = torch.tensor(toks, dtype=torch.int32, device=device)
+        mask = t == cfg.mm_placeholder_id
+        emb = torch.zeros((n, cfg.hidden_size), device=device)
+        emb[mask] = torch.from_numpy(np.concatenate([e for _, e in items])).to(device)
+        i32 = functools.partial(torch.tensor, dtype=torch.int32, device=device)
+        with torch.no_grad():
+            h = forward_core(cfg, eng.params, init_cache(cfg, pages, PS, device=device), t,
+                             i32(list(range(n))), i32([0] * n), i32([list(range(pages))]),
+                             i32([n]), cu_q_lens=i32([0, n]), num_seqs=i32([1]),
+                             mm_embeds=emb, mm_mask=mask)[0]
+            logits.append(unembed(cfg, eng.params, h[-1:])[0].cpu())
+    out: dict = {f"direct-{i}": [] for i in range(len(bodies))}
+    while eng.has_work():
+        for o in eng.step():
+            out[o.request_id].extend(o.new_token_ids)
+    del eng, runner
+    _empty()
+    return list(out.values()), logits
+
+
+def vision_epd(device, card: str, cfg, seed: int, bodies: list, combined: dict) -> dict:
+    """E/PD: a port encode worker on loopback and a towerless server
+    (``vision_layers=0``); the phase drives the sidecar's E step itself
+    (``/v1/encode`` per item, then the chat body with ``mm_items``). The
+    tokens equal combined PD's (float32: bound; bf16: share reported), K1
+    once per layer of every forward, the towerless server encoding nothing."""
+    from llmd_tpu_torch.disagg.encode import EncodeServer
+
+    enc = EncodeServer(cfg, device=device)
+    enc.start()
+    server = _vl_server(device, dataclasses.replace(cfg, vision_layers=0), seed)
+    try:
+        _chat(server.address, _encode_items(enc.address, {
+            **_vl_bodies(1, seed + 1000, (16, 16), 10)[0], "stream": False}))  # warm-up
+        run = _vl_window(server, bodies, lambda b: _encode_items(enc.address, b))
+        f32 = cfg.dtype == "float32"
+        _check_vl_launches(f"E/PD {cfg.dtype}", cfg, run, "simt" if f32 else "mma")
+        towerless_encoded = server._vision is not None
+        enc_stats = dict(enc.runner_.stats)
+    finally:
+        server.stop()
+        enc.stop()
+    del server, enc
+    _empty()
+    toks = [a["tokens"] for a in run["answers"]]
+    same = toks == combined["tokens"]
+    agree = sum(sum(x == y for x, y in zip(a, b)) for a, b in zip(toks, combined["tokens"]))
+    share = agree / max(1, sum(len(t) for t in combined["tokens"]))
+    row = {"dtype": cfg.dtype, "same_as_combined": same, "identical_token_share": share,
+           "launches": run["launches"], "forwards": run["forwards"],
+           "replays": run["replays"], "encode_worker": enc_stats,
+           "towerless_server_encoded": towerless_encoded,
+           "hashes_equal_combined": [h for _, h in run["admitted"]] and sorted(
+               map(tuple, (h for _, h in run["admitted"]))) == sorted(
+               map(tuple, combined["mm_hashes"]))}
+    log(f"vision: E/PD {cfg.dtype} on {card}: encode worker {enc_stats}, towerless server "
+        f"encoded nothing {not towerless_encoded}; tokens = combined PD {same} (identical "
+        f"share {share:.4f}); media identities = combined {row['hashes_equal_combined']}; "
+        f"K1 launches={run['launches']['paged_attention']} over {run['forwards']} forwards, "
+        f"replays={run['replays']}")
+    if towerless_encoded or not row["hashes_equal_combined"] or (cfg.dtype == "float32"
+                                                                 and not same):
+        raise AssertionError(f"vision E/PD {cfg.dtype}: {row}")
+    return row
+
+
+def vision_epd_pd(device, card: str, cfg, seed: int, bodies: list, combined: dict) -> dict:
+    """E/P/D in float32: the encode worker, then P (``do_remote_decode``,
+    ``max_tokens`` 1), then D (``do_remote_prefill`` with P's handle) over
+    the KVT1 wire, both towerless: D injects the media-keyed blocks (> 0)
+    and reports ``cached_tokens`` > 0, its tokens equal combined PD's (an
+    aggregated engine's), K1 once per layer of D's forwards over the pulled
+    pages."""
+    from llmd_tpu_torch.disagg.encode import EncodeServer
+
+    towerless = dataclasses.replace(cfg, vision_layers=0)
+    enc = EncodeServer(cfg, device=device)
+    enc.start()
+    P = _vl_server(device, towerless, seed, kv_transfer_port=0)
+    D = _vl_server(device, towerless, seed, kv_transfer_port=0)
+    try:
+        encoded = [_encode_items(enc.address, b) for b in bodies]
+        handles = []
+        for b in encoded:
+            status, _, raw = _http("POST", f"http://{P.address}/v1/chat/completions", {
+                **b, "max_tokens": 1, "stream": False,
+                "kv_transfer_params": {"do_remote_decode": True}})
+            if status != 200:
+                raise AssertionError(f"vision E/P/D: P answered {status}: {raw[:300]!r}")
+            handles.append(json.loads(raw)["kv_transfer_params"])
+        _chat(D.address, {**_vl_bodies(1, seed + 1000, (16, 16), 10)[0], "stream": False,
+                          "messages": [{"role": "user", "content": "warm-up"}]})
+        pd = {i: {**b, "kv_transfer_params": {"do_remote_prefill": True, **h}}
+              for i, (b, h) in enumerate(zip(encoded, handles))}
+        run = _vl_window(D, [pd[i] for i in range(len(bodies))])
+        _check_vl_launches("E/P/D D", cfg, run, "simt")
+        injected = D.transfer_stats["injected_blocks"]
+        failures = D.transfer_stats["pull_failures"]
+    finally:
+        D.stop()
+        P.stop()
+        enc.stop()
+    del D, P, enc
+    _empty()
+    toks = [a["tokens"] for a in run["answers"]]
+    cached = [a["usage"]["cached_tokens"] for a in run["answers"]]
+    row = {"injected_blocks": injected, "pull_failures": failures, "cached_tokens": cached,
+           "blocks_exported": [h["num_blocks"] for h in handles],
+           "same_as_aggregated": toks == combined["tokens"],
+           "d_launches": run["launches"], "d_forwards": run["forwards"],
+           "d_replays": run["replays"]}
+    log(f"vision: E/P/D float32 on {card}: P exported {row['blocks_exported']} blocks, D "
+        f"injected {injected} (pull failures {failures}), D cached_tokens {cached}; tokens = "
+        f"aggregated (combined PD) {row['same_as_aggregated']}; D K1 launches="
+        f"{run['launches']['paged_attention']} over {run['forwards']} forwards, replays="
+        f"{run['replays']}")
+    if not (injected > 0 and failures == 0 and all(c > 0 for c in cached)
+            and row["same_as_aggregated"]):
+        raise AssertionError(f"vision E/P/D: {row}")
+    return row
+
+
+def vision_numbers(device, card: str, cfg, seed: int, reps: int = 4) -> dict:
+    """Informational, bf16: encode ms per image at batch 1 and 8 (CUDA
+    events, median of ``reps``) beside the tower's operation bound at the
+    bf16 peak; TTFT p50 of a one-image chat (64 text bytes, ``max_tokens``
+    1, a new image each time) through combined PD against E/PD (the encode
+    call and the chat back to back); device kernels per unified step with
+    and without media rows (``profile_unified``, batch 4, one image)."""
+    from llmd_tpu_torch.disagg.encode import EncodeServer, VisionRunner
+    from llmd_tpu_torch.models.transformer import init_params
+    from llmd_tpu_torch.models.vision import vision_flops
+    from llmd_tpu_torch.tools.profile_engine import profile_unified
+
+    bound_ms = vision_flops(cfg) / PEAK_FLOPS[torch.bfloat16] * 1e3
+    runner = VisionRunner(cfg, device=device)
+    rng = np.random.default_rng(seed)
+    encode = {}
+    for batch in (1, 8):
+        px = rng.random((batch, cfg.vision_image_size, cfg.vision_image_size, 3),
+                        dtype=np.float32)
+        runner.encode_pixels(px)  # warm-up
+        encode[batch] = cuda_ms(lambda: runner.encode_pixels(px), reps=reps, inner=1) / batch
+    del runner
+    _empty()
+    ttft: dict = {"combined": [], "epd": []}
+    server = _vl_server(device, cfg, seed)
+    enc = EncodeServer(cfg, device=device)
+    enc.start()
+    towerless = _vl_server(device, dataclasses.replace(cfg, vision_layers=0), seed)
+    try:
+        for mode, srv in (("combined", server), ("epd", towerless)):
+            for i in range(reps + 1):
+                body = {"messages": [{"role": "user", "content": [
+                    {"type": "text", "text": "x" * 64}, _image(f"ttft-{mode}-{i}")]}],
+                    "max_tokens": 1, "temperature": 0.0, "ignore_eos": True}
+                t0 = time.perf_counter()
+                _chat(srv.address, _encode_items(enc.address, body) if mode == "epd" else body)
+                if i:  # the first is the warm-up
+                    ttft[mode].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        towerless.stop()
+        enc.stop()
+        server.stop()
+    del server, enc, towerless
+    _empty()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(seed), device)
+    prof = {}
+    for images in (1, 0):
+        r = profile_unified(cfg, params, 4, 64 + cfg.mm_tokens, images, seed, device=device)
+        prof[images] = {k: r[k] for k in ("device_kernels_per_step", "device_busy_ms_per_step",
+                                          "wall_ms_per_step", "unified_steps")}
+    del params
+    _empty()
+    row = {"encode_ms_per_image": encode, "encode_bound_ms_per_image": bound_ms,
+           "tower_flops_per_image": vision_flops(cfg), "ttft_ms": ttft,
+           "ttft_p50_ms": {m: statistics.median(v) for m, v in ttft.items()},
+           "profile_unified": prof}
+    log(f"vision: bf16 on {card}: encode ms/image batch 1 {encode[1]:.4f}, batch 8 "
+        f"{encode[8]:.4f} (bound {bound_ms:.4f} ms: {vision_flops(cfg) / 1e12:.4f} TFLOP at "
+        f"989 TFLOP/s); TTFT p50 one-image chat combined {row['ttft_p50_ms']['combined']:.3f} "
+        f"ms, E/PD {row['ttft_p50_ms']['epd']:.3f} ms ({ttft}); unified step batch 4 with "
+        f"one image each {prof[1]} / text only {prof[0]}")
+    return row
+
+
+def phase_vision(device, card: str, seed: int = 0, cfg=None, n_requests: int = 8,
+                 text_range=(16, 64), max_tokens: int = 32, tower_images: int = 4,
+                 numbers: bool = True) -> dict:
+    """Multimodal serving at VL_FULL (``cfg``): the tower alone, combined PD
+    in bf16 and f32, E/PD in bf16 and f32, E/P/D in f32, then the
+    informational numbers."""
+    cfg = cfg or vl_full()
+    t0 = time.perf_counter()
+    bodies = _vl_bodies(n_requests, seed, text_range, max_tokens)
+    out = {"config": {k: getattr(cfg, k) for k in ("name", "hidden_size", "num_layers",
+                                                   *VL_TOWER)},
+           "tower": vision_tower_check(device, card, cfg, seed, tower_images)}
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        out[f"combined_{dtype}"] = vision_combined(device, card, c, seed, bodies)
+        out[f"epd_{dtype}"] = vision_epd(device, card, c, seed, bodies,
+                                         out[f"combined_{dtype}"])
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    out["epd_pd"] = vision_epd_pd(device, card, c32, seed, bodies, out["combined_float32"])
+    if numbers and device.type == "cuda":
+        out["numbers"] = vision_numbers(device, card, dataclasses.replace(cfg, dtype="bfloat16"),
+                                        seed)
+    for key in ("combined_bfloat16", "combined_float32"):
+        for k in ("tokens", "renders", "mm_hashes"):
+            out[key].pop(k)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"vision: phase {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv: "list[str] | None" = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", default=None, help="write every phase's details here (JSON)")
@@ -3883,6 +4444,7 @@ def main(argv: "list[str] | None" = None) -> int:
         return 1
     sys.path.insert(0, str(REPO))
     device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     report: dict = {}
     report["device"] = dev = phase_device()
     card = dev["nvidia_smi"].splitlines()[0] if dev["nvidia_smi"] else dev["kind"]
@@ -3971,6 +4533,9 @@ def main(argv: "list[str] | None" = None) -> int:
     report["fp8"] = fp8 = phase_fp8(device, card)
     report["kvplane"] = kv = phase_kvplane(device, card)
     report["lora"] = lora = phase_lora(device, card)
+    report["vision"] = vision = phase_vision(device, card)
+    report["seconds"] = time.perf_counter() - t_start
+    log(f"smoke: all phases {report['seconds']:.1f} s (vision {vision['seconds']:.1f} s)")
     if args.report:
         out = Path(args.report)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -4021,7 +4586,10 @@ def main(argv: "list[str] | None" = None) -> int:
            "kvplane_launches": kv["pd_f32"]["d_launches"]["paged_attention"],
            "kvplane_offload_launches": kv["offload"]["k1_launches"],
            "lora_launches": lora["f32"]["launches"]["paged_attention"],
-           "lora_embed_launches": lora["server"]["embed_k1_launches"]},
+           "lora_embed_launches": lora["server"]["embed_k1_launches"],
+           "vision_launches": vision["combined_float32"]["launches"]["paged_attention"],
+           "vision_bf16_launches": vision["combined_bfloat16"]["launches"]["paged_attention"],
+           "vision_epd_pd_d_launches": vision["epd_pd"]["d_launches"]["paged_attention"]},
         # the unified program's absorbed MLA attention, XLA in the reference
         entry("paged_attention_latent", attn_src, "llmd_tpu/models/transformer.py:428",
               eng["mla_sorted"]["launches"]["paged_attention"], lat)

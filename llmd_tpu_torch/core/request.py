@@ -1,6 +1,7 @@
 """Sampling parameters (``llmd_tpu/core/request.py::SamplingParams``, every
-field with the reference's name), the deadline header and the chat flattening
-that the router and the engine share.
+field with the reference's name), the deadline header, the chat flattening
+that the router and the engine share, and the media helpers (which content
+parts are media, and their cache identities).
 
 As in the reference, ``min_p``, ``logprobs``, the penalties and ``n`` are
 accepted and not acted on (one choice per request; the reference's
@@ -74,6 +75,42 @@ def media_url_of_part(part: Any) -> "tuple[Optional[str], Optional[str]]":
     else:
         return None, None
     return (kind, str(url)) if url else (kind, None)
+
+
+def _is_inline_payload(url: Optional[str]) -> bool:
+    """The inline-media rule: a ``data:`` URI. Every media predicate and
+    identity below derives from it, so the router's and the engine's cache
+    keys agree."""
+    return url is not None and url.startswith("data:")
+
+
+def part_is_inline_media(part: Any) -> bool:
+    """True for the parts the serving stack treats as media: inline ``data:``
+    URIs (a remote URL is text to the cache)."""
+    return _is_inline_payload(media_url_of_part(part)[1])
+
+
+def _mm_hash(part: dict[str, Any]) -> Optional[bytes]:
+    """Cache identity of one inline media part: sha256 over ``kind:`` and the
+    URI, so the same bytes sent as image and as video are two identities.
+    None for anything that is not inline media."""
+    kind, url = media_url_of_part(part)
+    if not _is_inline_payload(url):
+        return None
+    return hashlib.sha256(f"{kind}:".encode() + url.encode()).digest()
+
+
+def mm_hashes_from_messages(messages: Sequence[dict[str, Any]]) -> list[bytes]:
+    """The media identities of a chat, in order of appearance: the extra keys
+    folded into every block key of its prompt."""
+    hashes: list[bytes] = []
+    for m in messages:
+        content = m.get("content")
+        if isinstance(content, list):
+            for part in content:
+                if isinstance(part, dict) and (h := _mm_hash(part)) is not None:
+                    hashes.append(h)
+    return hashes
 
 
 def flatten_messages(messages: Sequence[dict[str, Any]]) -> str:

@@ -593,19 +593,21 @@ def _stage(engine, pids: list[int], staging_pages: int) -> list[StagedPart]:
 
 
 def export_begin(engine, request_id: str, token_ids: list[int],
-                 lora_id: Optional[str] = None,
-                 staging_pages: int = 16) -> tuple[KVTransferParams, Optional[StagedExport]]:
+                 lora_id: Optional[str] = None, staging_pages: int = 16,
+                 mm_hashes: Sequence[bytes] = (),
+                 ) -> tuple[KVTransferParams, Optional[StagedExport]]:
     """Phase 1 (caller holds the engine lock, cheap): resolve the resident
-    block chain of ``token_ids`` under adapter ``lora_id`` (keyed with the
-    engine's generation-scoped ``_lora_hash_key``, as its own commits are)
-    and stage its pages."""
+    block chain of ``token_ids`` under adapter ``lora_id`` and media
+    ``mm_hashes`` (keyed with the engine's generation-scoped
+    ``_lora_hash_key`` and the media identities, as its own commits are) and
+    stage its pages."""
     from llmd_tpu_torch.core.kv_events import block_keys_for_tokens
 
     ps = engine.cfg.page_size
     pids: list[int] = []
     hashes: list[int] = []
     chunks: list[list[int]] = []
-    keys = block_keys_for_tokens(token_ids, ps, engine._lora_hash_key(lora_id))
+    keys = block_keys_for_tokens(token_ids, ps, engine._lora_hash_key(lora_id), mm_hashes)
     for i, h in enumerate(keys):
         pid = engine.alloc.cached.get(h)
         if pid is None:
@@ -648,21 +650,25 @@ def export_finish(staged: StagedExport, source: KVTransferSource) -> int:
 
 
 def export_from_engine(engine, source: KVTransferSource, request_id: str,
-                       token_ids: list[int], lora_id: Optional[str] = None) -> KVTransferParams:
+                       token_ids: list[int], lora_id: Optional[str] = None,
+                       mm_hashes: Sequence[bytes] = ()) -> KVTransferParams:
     """Both phases back to back (tests and non-threaded callers)."""
-    params, staged = export_begin(engine, request_id, token_ids, lora_id)
+    params, staged = export_begin(engine, request_id, token_ids, lora_id,
+                                  mm_hashes=mm_hashes)
     if staged is not None:
         export_finish(staged, source)
     return params
 
 
 def inject_into_engine(engine, pulled: PulledKV, token_ids: list[int],
-                       lora_id: Optional[str] = None) -> int:
+                       lora_id: Optional[str] = None,
+                       mm_hashes: Sequence[bytes] = ()) -> int:
     """Commit pulled blocks into the local allocator and pool as prefix-cache
     entries (caller holds the engine lock). Returns blocks injected.
 
     Only blocks matching the chain recomputed for THIS prompt (under adapter
-    ``lora_id``'s generation-scoped key) are accepted:
+    ``lora_id``'s generation-scoped key and the media ``mm_hashes``) are
+    accepted:
     a stale or foreign export cannot poison the cache. The pool is written in
     place (its address is baked into the captured decode programs)."""
     from llmd_tpu_torch.core.kv_events import block_keys_for_tokens
@@ -678,14 +684,15 @@ def inject_into_engine(engine, pulled: PulledKV, token_ids: list[int],
             f"local pool block shape {local_shape} — P/D peers must agree on "
             "kv_layout and page geometry (rolling upgrades: pin kv_layout)")
     with engine._on_stream():  # an allocation may evict: its copy-out too
-        return _inject(engine, pulled, token_ids, engine._lora_hash_key(lora_id))
+        return _inject(engine, pulled, token_ids, engine._lora_hash_key(lora_id), mm_hashes)
 
 
-def _inject(engine, pulled: PulledKV, token_ids: list[int], lora_key: Optional[str]) -> int:
+def _inject(engine, pulled: PulledKV, token_ids: list[int], lora_key: Optional[str],
+            mm_hashes: Sequence[bytes]) -> int:
     from llmd_tpu_torch.core.kv_events import block_keys_for_tokens
 
     ps = engine.cfg.page_size
-    keys = block_keys_for_tokens(token_ids, ps, lora_key)
+    keys = block_keys_for_tokens(token_ids, ps, lora_key, mm_hashes)
     take: list[tuple[int, int]] = []  # (pulled index, page id)
     parent_of: dict[int, Optional[int]] = {}
     parent: Optional[int] = None

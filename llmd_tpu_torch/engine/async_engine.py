@@ -78,16 +78,17 @@ class AsyncLLMEngine:
             return fn()
 
     def generate(self, request_id: str, token_ids: list[int], sampling: SamplingParams,
-                 lora_id: Optional[str] = None) -> Iterator[EngineOutput]:
-        """Submit a request (under adapter ``lora_id``) and yield its outputs
-        until it finishes (blocking)."""
+                 lora_id: Optional[str] = None, mm_items=None) -> Iterator[EngineOutput]:
+        """Submit a request (under adapter ``lora_id``, with media rows
+        ``mm_items``) and yield its outputs until it finishes (blocking)."""
         q: queue.Queue = queue.Queue()
         with self._lock:  # stream registration + admission are atomic
             if self.error is not None:
                 raise self.error
             self._streams[request_id] = q
             try:
-                self.engine.add_request(request_id, token_ids, sampling, lora_id)
+                self.engine.add_request(request_id, token_ids, sampling, lora_id,
+                                        mm_items=mm_items)
             except ValueError:
                 self._streams.pop(request_id, None)
                 raise

@@ -53,6 +53,18 @@ running / waiting counts follow admission, preemption, retirement and abort,
 as the reference's; block hashes chain the adapter's generation-scoped key
 (``_lora_hash_key``: name and a digest of the loaded weights).
 
+Multimodal (``mm_tokens`` > 0): ``add_request(mm_items=)`` takes one
+(identity, ``[mm_tokens, hidden]`` rows) pair per media item, whose
+placeholders the prompt must carry (the reference's checks and messages).
+The identities fold into every block key of the sequence (admission's prefix
+lookup, the committed blocks, hence the offload tiers, the connector, the KV
+events and P/D). A unified step that carries media prefill rows builds the
+``mm_embeds`` / ``mm_mask`` buffers the forward writes over the placeholder
+embeddings: row j of a chunk takes item ``occ // k``, row ``occ % k``, where
+``occ`` counts the placeholders before it, so a chunk boundary inside an
+image and a recompute after preemption give the reference's rows. Decode,
+verify and the masked programs carry no media rows.
+
 Structured outputs (``llmd_tpu_torch/structured``): admission compiles the
 request's grammar through the process-wide cache (a tokenizer is needed);
 each constrained ``Sequence`` carries its automaton cursor, re-synced from its
@@ -184,7 +196,7 @@ def resolve_device(device: "torch.device | str | None" = None) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "LLMEngine runs on a CUDA device by default and none is "
+                "the port runs on a CUDA device by default and none is "
                 "available; pass device='cpu' to run on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     dev = torch.device(device)
@@ -677,7 +689,8 @@ class LLMEngine:
     # ------------------------------------------------------------ requests
     def add_request(self, request_id: str, token_ids: list[int],
                     sampling: Optional[SamplingParams] = None,
-                    lora_id: Optional[str] = None) -> None:
+                    lora_id: Optional[str] = None,
+                    mm_items: Optional[list[tuple[bytes, np.ndarray]]] = None) -> None:
         sampling = sampling or SamplingParams()
         if not token_ids:
             raise ValueError("empty prompt")
@@ -695,6 +708,20 @@ class LLMEngine:
             # the server's 404: serving base weights under the name would also
             # poison the prefix cache under it
             raise ValueError(f"unknown LoRA adapter {lora_id!r}")
+        mm_items = mm_items or []
+        if mm_items:
+            k = self.model_cfg.mm_tokens
+            if k <= 0:
+                raise ValueError("model has no vision tower (mm_tokens=0)")
+            n_ph = sum(1 for t in token_ids if t == self.model_cfg.mm_placeholder_id)
+            if n_ph != k * len(mm_items):
+                raise ValueError(
+                    f"{len(mm_items)} media items need {k * len(mm_items)} "
+                    f"placeholder tokens, prompt has {n_ph}")
+            for _, emb in mm_items:
+                if emb.shape != (k, self.model_cfg.hidden_size):
+                    raise ValueError(f"mm embedding shape {emb.shape} != "
+                                     f"({k}, {self.model_cfg.hidden_size})")
         # Structured outputs: compile (or fetch) the token grammar before any
         # engine state changes, so a malformed spec raises ValueError (the
         # server's 400) without leaving a queued sequence behind
@@ -722,7 +749,7 @@ class LLMEngine:
                        prompt_len=len(token_ids), max_tokens=sampling.max_tokens,
                        sampling=sampling, lora_id=lora_id,
                        lora_key=self._lora_hash_key(lora_id), arrival_time=time.monotonic(),
-                       structured=structured, logit_bias=logit_bias)
+                       structured=structured, logit_bias=logit_bias, mm_items=mm_items)
         self.seqs[request_id] = seq
         self.waiting.append(seq)
         if self.lora_registry is not None:
@@ -766,7 +793,8 @@ class LLMEngine:
             seq = self.waiting[0]
             if seq.pages:
                 self._free_seq(seq)  # a waiting seq owns nothing
-            keys = block_keys_for_tokens(seq.token_ids[: seq.prompt_len], ps, seq.lora_key)
+            keys = block_keys_for_tokens(seq.token_ids[: seq.prompt_len], ps, seq.lora_key,
+                                         seq.mm_hashes())
             hit_pages = alloc.match_prefix(keys) if self.cfg.enable_prefix_caching else []
             # never reuse the whole prompt — the last token's logits must be computed
             max_reuse = max(0, (seq.prompt_len - 1) // ps)
@@ -1087,6 +1115,13 @@ class LLMEngine:
         pts = np.full((nb, self.cfg.max_pages_per_seq), -1, np.int32)
         lens = np.ones((nb,), np.int32)
         cu = np.zeros((nb + 1,), np.int32)
+        # the media buffers only when this step carries media prefill rows:
+        # row-aligned with the flat batch, mm_embeds[i] replaces the embedding
+        # of toks[i] where mm_mask[i]
+        media = any(s.mm_items and not is_decode for s, _, is_decode in plan)
+        if media:
+            mm_embeds = np.zeros((N, self.model_cfg.hidden_size), np.float32)
+            mm_mask = np.zeros((N,), np.bool_)
         off = 0
         for i, (s, n, is_decode) in enumerate(plan):
             start = len(s.token_ids) - 1 if is_decode else s.num_computed
@@ -1096,6 +1131,9 @@ class LLMEngine:
             lora[off : off + n] = self._lora_slot(s)
             pts[i, : len(s.pages)] = s.pages
             lens[i] = start + n
+            if media and s.mm_items and not is_decode:
+                self._pack_media(s, start, toks[off : off + n], mm_embeds[off : off + n],
+                                 mm_mask[off : off + n])
             off += n
             cu[i + 1] = off
 
@@ -1110,7 +1148,9 @@ class LLMEngine:
             self._tensor(pts), self._tensor(lens), cu_q_lens=self._tensor(cu),
             num_seqs=self._tensor(np.array([nb], np.int32)),
             moe_rows=(torch.arange(N, device=self.device), self.cfg.batched_tokens),
-            lora_indices=self._tensor(lora) if self.lora_registry is not None else None)
+            lora_indices=self._tensor(lora) if self.lora_registry is not None else None,
+            **({"mm_embeds": self._tensor(mm_embeds), "mm_mask": self._tensor(mm_mask)}
+               if media else {}))
         if self.cfg.instrument and self._stream is not None:
             self._stream.synchronize()  # the program's outputs, before stamping t2
         t2 = time.perf_counter()
@@ -1183,6 +1223,21 @@ class LLMEngine:
             self.util.record("unified", cost, t3 - t0, committed=N - recompute,
                              preempted_recompute=recompute, prefix_saved=saved,
                              compile_counts=self.compile_counts())
+
+    def _pack_media(self, s: Sequence, start: int, toks: np.ndarray, embeds: np.ndarray,
+                    mask: np.ndarray) -> None:
+        """The media rows of ``s``'s prefill chunk starting at ``start``
+        (``toks`` its tokens): placeholder occurrence ``occ`` of the prompt
+        takes row ``occ % k`` of item ``occ // k``, ``occ`` counted from the
+        prompt's start, so a chunk that begins inside an image continues it."""
+        ph, k = self.model_cfg.mm_placeholder_id, self.model_cfg.mm_tokens
+        occ = s.token_ids[:start].count(ph)
+        hit = np.flatnonzero(toks == ph)
+        item, row = np.divmod(occ + np.arange(len(hit)), k)
+        for it in np.unique(item[item < len(s.mm_items)]):
+            sel = item == it
+            embeds[hit[sel]] = s.mm_items[it][1][row[sel]]
+            mask[hit[sel]] = True
 
     def _build_bias(self, seqs: list[Sequence], vocab: int) -> Optional[np.ndarray]:
         """The host-built additive ``[rows, V]`` bias of a sample batch (one

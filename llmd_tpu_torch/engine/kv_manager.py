@@ -10,9 +10,10 @@ page allocator with content-hash prefix reuse, and per-request state.
   recycled, and ``demote_lru`` for the batched drain (``kv/offload.py``),
 - LoRA: a sequence's block hashes chain its adapter's generation-scoped key
   (``Sequence.lora_key``, else ``lora_id``), each BlockStored event carries
-  it, and ``purge_lora`` drops an unloaded adapter's cached blocks.
-
-The reference's multimodal extra keys come with the vision slice.
+  it, and ``purge_lora`` drops an unloaded adapter's cached blocks,
+- multimodal: a sequence's media identities (``Sequence.mm_items``) are the
+  extra keys of every block hash, so two prompts whose tokens agree but whose
+  images differ never share a cached block.
 """
 
 from __future__ import annotations
@@ -231,6 +232,10 @@ class Sequence:
     # preemption keeps), and the static OpenAI logit_bias map.
     structured: Optional[object] = None
     logit_bias: Optional[dict] = None
+    # multimodal: (identity, embeddings [mm_tokens, hidden]) per media item in
+    # prompt order; placeholder occurrence j of token_ids takes row j % k of
+    # item j // k. The identities fold into every block key.
+    mm_items: list = field(default_factory=list)
 
     @property
     def num_generated(self) -> int:
@@ -243,11 +248,15 @@ class Sequence:
         """Hash+commit any newly completed pages (called after compute advances)."""
         ps = alloc.page_size
         committed = len(self.block_hashes)
+        mm = self.mm_hashes()
         while (committed + 1) * ps <= self.num_computed:
             start = committed * ps
             chunk = self.token_ids[start : start + ps]
             key = self.lora_key if self.lora_key is not None else self.lora_id
-            h = hash_block_tokens(self.last_block_hash(), chunk, key)
+            h = hash_block_tokens(self.last_block_hash(), chunk, key, mm)
             alloc.commit_block(self.pages[committed], h, chunk, self.last_block_hash(), key)
             self.block_hashes.append(h)
             committed += 1
+
+    def mm_hashes(self) -> list[bytes]:
+        return [h for h, _ in self.mm_items]

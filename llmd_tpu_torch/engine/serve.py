@@ -19,7 +19,10 @@ one; ``LLMD_TPU_KV_TRANSFER_PORT`` is its default, as in the reference), and
 engine for the pool (the engine does not read it). ``--cpu-offload-pages`` and
 ``--offload-fs-path`` turn on the CPU and FS offload tiers. ``--enable-lora``
 serves LoRA adapters (``--max-loras`` slots of rank ``--max-lora-rank``,
-loaded at run time through ``/v1/load_lora_adapter``).
+loaded at run time through ``/v1/load_lora_adapter``). A model with media
+tokens (``--model tiny-vl``) serves chat media: items an encode worker sent
+along (``mm_items``) are used, the rest are encoded in-process by the tower,
+on the engine's device.
 Flag names follow the reference CLI
 (``llmd_tpu/engine/serve.py``) for the options the port keeps.
 """
@@ -119,7 +122,8 @@ def main(argv: "list[str] | None" = None) -> None:
           f"{'hf:' + args.model if params is not None else 'random'}"
           f"{', int8' if args.quantize else ''}, KV pool "
           f"{server.engine.stats.kv_cache_dtype}{events}"
-          f"{f', LoRA {args.max_loras} x rank {args.max_lora_rank}' if args.enable_lora else ''})",
+          f"{f', LoRA {args.max_loras} x rank {args.max_lora_rank}' if args.enable_lora else ''}"
+          f"{', vision tower in-process' if model_cfg.has_vision else ''})",
           flush=True)
     try:
         threading.Event().wait()

@@ -71,7 +71,19 @@ of this engine's exports, and the completion and chat bodies take
   (``_pull_prefix_kv``, ``_durable_get``); a failure never fails the request.
   With ``LLMD_KV_PLANE=precise`` the source also serves peers' prefix pulls.
 
-Each path keys its blocks under the request's adapter.
+Each path keys its blocks under the request's adapter and media.
+
+Multimodal (a model with ``mm_tokens`` > 0), as the reference's server: a
+chat body with inline ``data:`` media parts, or with E-stage ``mm_items``, is
+tokenized by ``_mm_token_stream`` (each media part becomes ``mm_tokens``
+placeholder ids; ``/render`` answers the same stream, so the router's
+precise scorer hashes what the engine hashes). ``_tokenize_mm`` matches the
+wire items to the parts by part identity and encodes the missing ones with
+an in-process tower (one lazy ``VisionRunner`` on the engine's device, under
+a lock); a server without a tower degrades such a request to the text-only
+flattening. A bad item is a 400 ``multimodal content: ...``. The media
+identities key the request's blocks in the P/D pull, the export, the prefix
+pull and the durable rung.
 
 A pull whose producer was not notified is released when the request ends
 (``_release_pending_pull``). ``/drain`` flushes the engine's durable
@@ -101,6 +113,14 @@ import numpy as np
 
 from llmd_tpu_torch.core.kv_events import kv_topic
 from llmd_tpu_torch.core.request import HDR_REQUEST_TIMEOUT, SamplingParams, flatten_messages
+from llmd_tpu_torch.disagg.encode import (
+    VisionRunner,
+    is_media_part,
+    iter_media_parts,
+    media_bytes_from_part,
+    mm_item_from_wire,
+    part_identity,
+)
 from llmd_tpu_torch.disagg.transfer import (
     KVTransferClient,
     KVTransferParams,
@@ -124,6 +144,10 @@ from llmd_tpu_torch.structured import validate_structured_body
 GENERATE_ROUTES = {"/v1/completions": False, "/v1/chat/completions": True}  # path -> chat
 RENDER_ROUTES = ("/v1/completions/render", "/v1/chat/completions/render")
 LORA_ROUTES = {"/v1/load_lora_adapter": "load_lora", "/v1/unload_lora_adapter": "unload_lora"}
+
+
+def body_has_media(body: dict) -> bool:
+    return bool(body.get("mm_items")) or next(iter_media_parts(body), None) is not None
 
 
 def sampling_from_body(body: dict) -> SamplingParams:
@@ -225,6 +249,9 @@ class EngineServer:
                 engine.alloc.event_sink = sink
         self.engine = engine
         self.async_engine = AsyncLLMEngine(self.engine)
+        # the in-process tower (combined PD), built at the first media request
+        self._vision: Optional[VisionRunner] = None
+        self._vision_lock = threading.Lock()
         # frontend-owned families; the engine's live in engine.registry
         self.registry = Registry()
         self.server_metrics = register_engine_server_metrics(self.registry)
@@ -321,7 +348,8 @@ class EngineServer:
 
     # -- the KV data plane ---------------------------------------------------
     def _pull_remote_kv(self, ktp: KVTransferParams, token_ids: list[int],
-                        rid: Optional[str] = None, lora_id: Optional[str] = None) -> int:
+                        rid: Optional[str] = None, lora_id: Optional[str] = None,
+                        mm_hashes: list = ()) -> int:
         """Pull and inject the producer's KV; any failure recomputes locally
         (kv_load_failure_policy=recompute)."""
         if rid is not None:
@@ -335,7 +363,7 @@ class EngineServer:
                 self._bump("pull_failures")
                 return 0
             n = self.async_engine.run_locked(
-                lambda: inject_into_engine(self.engine, pulled, token_ids, lora_id))
+                lambda: inject_into_engine(self.engine, pulled, token_ids, lora_id, mm_hashes))
             self._bump("injected_blocks", n)
             # free the producer's export (NIXL-notify semantics)
             if self.transfer_client.notify(ktp.remote_host, ktp.remote_port,
@@ -355,7 +383,7 @@ class EngineServer:
             return 0
 
     def _pull_prefix_kv(self, rid: str, ktp: KVTransferParams, token_ids: list[int],
-                        lora_id: Optional[str] = None) -> int:
+                        lora_id: Optional[str] = None, mm_hashes: list = ()) -> int:
         """KV-plane prefix pull ahead of prefill: the peer rung first (when the
         router stamped one), then the cluster-durable store. A failure falls
         through to the offload tiers and re-prefill; it never fails the
@@ -368,7 +396,8 @@ class EngineServer:
             with self._transfer_lock:
                 self._pending_pulls[rid] = (ktp.remote_host, ktp.remote_port,
                                             ktp.remote_request_id)
-            n, outcome, released = pull_prefix_into(self, ktp, token_ids, lora_id)
+            n, outcome, released = pull_prefix_into(self, ktp, token_ids, lora_id,
+                                                    mm_hashes)
             if released:
                 with self._transfer_lock:
                     self._pending_pulls.pop(rid, None)
@@ -376,7 +405,8 @@ class EngineServer:
         if n == 0 and durable is not None and ktp.block_hashes:
             # the durable rung: the peer died or missed, or the router stamped
             # the durable tier directly; the cluster store outlives replicas
-            dn, d_outcome = self._durable_get(ktp.block_hashes, token_ids, lora_id)
+            dn, d_outcome = self._durable_get(ktp.block_hashes, token_ids, lora_id,
+                                              mm_hashes)
             if dn or tier == "durable":
                 n, outcome = dn, d_outcome
         self.server_metrics.prefix_pull_seconds.labels(outcome=outcome).observe(
@@ -388,7 +418,7 @@ class EngineServer:
         return n
 
     def _durable_get(self, block_hashes, token_ids: list[int],
-                     lora_id: Optional[str] = None) -> tuple[int, str]:
+                     lora_id: Optional[str] = None, mm_hashes: list = ()) -> tuple[int, str]:
         """The durable rung: fetch the verified consecutive prefix from the
         cluster store and inject it exactly like a peer pull (hash-chain
         verified against THIS prompt, shape-checked). Returns
@@ -401,7 +431,8 @@ class EngineServer:
                               blocks=blocks)
             try:
                 injected = self.async_engine.run_locked(
-                    lambda: inject_into_engine(self.engine, pulled, token_ids, lora_id))
+                    lambda: inject_into_engine(self.engine, pulled, token_ids, lora_id,
+                                               mm_hashes))
             except ValueError:
                 # block shape or chain mismatch: never commit suspect bytes
                 injected, fetch_outcome = 0, "corrupt"
@@ -445,12 +476,14 @@ class EngineServer:
         if self.transfer_client.notify(host, port, remote_rid):
             self._bump("released")
 
-    def _export(self, rid: str, token_ids: list[int], lora_id: Optional[str] = None) -> dict:
+    def _export(self, rid: str, token_ids: list[int], lora_id: Optional[str] = None,
+                mm_hashes: list = ()) -> dict:
         """``do_remote_decode``: stage the prompt's resident blocks under the
         engine lock, drain and register them off it; the transfer handle."""
         out_params, staged = self.async_engine.run_locked(
             lambda: export_begin(self.engine, rid, token_ids, lora_id,
-                                 staging_pages=self.engine.cfg.offload_staging_blocks))
+                                 staging_pages=self.engine.cfg.offload_staging_blocks,
+                                 mm_hashes=mm_hashes))
         if staged is not None:
             export_finish(staged, self.transfer_source)
         # advertise a routable host, never the bind-any address: the sidecar
@@ -630,8 +663,72 @@ class EngineServer:
             return self.tokenizer.encode(flatten_messages(body["messages"]))
         return self.tokenizer.encode(str(body.get("prompt", "")))
 
+    def _mm_token_stream(self, body: dict) -> tuple[list[int], list[dict]]:
+        """The multimodal token stream: each media part expands to
+        ``mm_tokens`` placeholder ids, the rest is encoded piece by piece as
+        the reference does. ``/render`` and the generation routes share it,
+        so the engine hashes the stream the router's scorer hashed. Returns
+        (tokens, the media parts in order)."""
+        cfg = self.engine.model_cfg
+        pieces: list = []  # text pieces; None marks a media slot
+        parts: list[dict] = []
+        for m in body.get("messages", []) or []:
+            content = m.get("content", "")
+            pieces.append(f"{m.get('role', '')}: ")
+            if isinstance(content, list):
+                for part in content:
+                    if is_media_part(part):
+                        pieces.append(None)
+                        parts.append(part)
+                    elif isinstance(part, dict):
+                        pieces.append(part.get("text", "") + " ")
+                    else:
+                        pieces.append(str(part) + " ")
+            else:
+                pieces.append(str(content))
+            pieces.append("\n")
+        token_ids: list[int] = []
+        for p in pieces:
+            if p is None:
+                token_ids.extend([cfg.mm_placeholder_id] * cfg.mm_tokens)
+            elif p:
+                token_ids.extend(self.tokenizer.encode(p))
+        return token_ids, parts
+
+    def _tokenize_mm(self, body: dict) -> tuple[list[int], Optional[list]]:
+        """(tokens, mm_items) of a media request: the E stage's wire items
+        matched to the parts by part identity, the missing ones encoded by
+        the in-process tower. Without a tower the request degrades to the
+        text-only flattening: (its tokens, None)."""
+        cfg = self.engine.model_cfg
+        token_ids, parts = self._mm_token_stream(body)
+        wire: dict[bytes, tuple[bytes, np.ndarray]] = {}
+        for d in body.get("mm_items") or []:
+            try:
+                h, emb = mm_item_from_wire(d, cfg.hidden_size)
+                wire[h] = (h, emb)
+            except Exception:  # noqa: BLE001 — a malformed wire item counts as missing
+                continue
+        mm_items: list = [wire.get(part_identity(part)) for part in parts]
+        missing = [i for i, item in enumerate(mm_items) if item is None]
+        if missing:
+            if not cfg.has_vision:
+                # an E/PD worker without a tower: the media identity still
+                # lands in the stream through flatten's <kind:hash> rendering
+                return self.tokenize_body(body), None
+            with self._vision_lock:
+                if self._vision is None:
+                    self._vision = VisionRunner(cfg, device=self.engine.device)
+            encoded = self._vision.encode([media_bytes_from_part(parts[i]) or b""
+                                           for i in missing])
+            for i, (_h, emb) in zip(missing, encoded):
+                mm_items[i] = (part_identity(parts[i]), emb)
+        return token_ids, mm_items
+
     def render(self, body: dict) -> tuple[int, dict]:
         try:
+            if self.engine.model_cfg.mm_tokens > 0 and body_has_media(body):
+                return 200, {"prompt_token_ids": self._mm_token_stream(body)[0]}
             return 200, {"prompt_token_ids": self.tokenize_body(body)}
         except (ValueError, TypeError, AttributeError) as e:  # malformed body
             return 400, {"error": {"message": str(e)}}
@@ -646,8 +743,16 @@ class EngineServer:
         except ValueError as e:
             return 400, {"error": {"message": str(e)}}
         self.server_metrics.requests.inc()
+        token_ids = mm_items = None
         try:
-            token_ids = self.tokenize_body(body)
+            if self.engine.model_cfg.mm_tokens > 0 and body_has_media(body):
+                token_ids, mm_items = self._tokenize_mm(body)
+        except Exception as e:  # noqa: BLE001 — any bad media item is the client's 400
+            return 400, {"error": {"message": f"multimodal content: {e}"}}
+        mm_hashes = [h for h, _ in mm_items] if mm_items else []
+        try:
+            if token_ids is None:
+                token_ids = self.tokenize_body(body)
             sampling = sampling_from_body(body)
         except (ValueError, TypeError, AttributeError) as e:  # malformed body
             return 400, {"error": {"message": str(e)}}
@@ -664,15 +769,15 @@ class EngineServer:
         except (ValueError, TypeError, AttributeError) as e:  # malformed body
             return 400, {"error": {"message": str(e)}}
         if ktp.do_remote_prefill and self.transfer_client is not None:
-            self._pull_remote_kv(ktp, token_ids, rid, lora_id)
+            self._pull_remote_kv(ktp, token_ids, rid, lora_id, mm_hashes)
         elif (ktp.do_prefix_pull and ktp.block_hashes
               and (self.transfer_client is not None or self.engine.durable is not None)):
             # the router found this prefix on a peer or in the durable store
-            self._pull_prefix_kv(rid, ktp, token_ids, lora_id)
+            self._pull_prefix_kv(rid, ktp, token_ids, lora_id, mm_hashes)
         stream = bool(body.get("stream"))
         try:
             status, result = self._generate(rid, token_ids, sampling, head, chat, stream,
-                                            ktp.do_remote_decode, lora_id)
+                                            ktp.do_remote_decode, lora_id, mm_items)
         except BaseException:
             self._release_pending_pull(rid)
             raise
@@ -692,9 +797,9 @@ class EngineServer:
 
     def _generate(self, rid: str, token_ids: list[int], sampling: SamplingParams,
                   head: dict, chat: bool, stream: bool, export: bool,
-                  lora_id: Optional[str] = None):
+                  lora_id: Optional[str] = None, mm_items: Optional[list] = None):
         text = TextStream(self.tokenizer, sampling.stop)
-        outputs = self.async_engine.generate(rid, token_ids, sampling, lora_id)
+        outputs = self.async_engine.generate(rid, token_ids, sampling, lora_id, mm_items)
         try:
             first = next(outputs)  # admission errors surface here, as a 400
         except ValueError as e:
@@ -719,7 +824,8 @@ class EngineServer:
                                            out.num_cached_prompt_tokens),
                    "choices": [choice]}
         if export and self.transfer_source is not None:
-            payload["kv_transfer_params"] = self._export(rid, token_ids, lora_id)
+            payload["kv_transfer_params"] = self._export(
+                rid, token_ids, lora_id, [h for h, _ in mm_items or ()])
         return 200, payload
 
     def _sse_events(self, outputs: Iterator, out, head: dict, chat: bool, text: TextStream,

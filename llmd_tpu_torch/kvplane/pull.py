@@ -53,9 +53,11 @@ def serve_prefix(server, block_hashes: Sequence[int],
 
 
 def pull_prefix_into(server, ktp: KVTransferParams, token_ids: list[int],
-                     lora_id: Optional[str] = None) -> tuple[int, str, bool]:
+                     lora_id: Optional[str] = None,
+                     mm_hashes: Sequence[bytes] = ()) -> tuple[int, str, bool]:
     """Pull the stamped prefix chain from the peer and commit it locally,
-    verified against this prompt's chain under adapter ``lora_id``.
+    verified against this prompt's chain under adapter ``lora_id`` and media
+    ``mm_hashes``.
 
     Returns ``(blocks_injected, outcome, peer_released)`` with outcome one of
     ``hit`` / ``empty`` (peer served but nothing committed) / ``miss`` (peer
@@ -74,7 +76,7 @@ def pull_prefix_into(server, ktp: KVTransferParams, token_ids: list[int],
     n, outcome = 0, "error"
     try:
         n = server.async_engine.run_locked(
-            lambda: inject_into_engine(server.engine, pulled, token_ids, lora_id))
+            lambda: inject_into_engine(server.engine, pulled, token_ids, lora_id, mm_hashes))
         outcome = "hit" if n else "empty"
     except Exception:  # noqa: BLE001 — degrade to recompute
         pass  # the notify below still frees the peer

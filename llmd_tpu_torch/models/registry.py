@@ -1,6 +1,5 @@
 """Named model configs (copy of ``llmd_tpu/models/registry.py``, same names and
-shapes). The port serves the dense, MoE and MLA entries; the vision entry
-raises ``NotImplementedError`` at model construction until its slice lands."""
+shapes). The port serves the dense, MoE, MLA and vision entries."""
 
 from __future__ import annotations
 

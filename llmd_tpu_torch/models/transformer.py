@@ -37,10 +37,13 @@ the reference gives them to XLA. Multi-adapter LoRA (``models/lora.py``):
 params carrying the adapter bank (``lora_A_<t>``/``lora_B_<t>``) add each
 token's adapter delta to q/k/v after the biases and before qk-norm and RoPE,
 and to o after ``bo``, as the reference; an int8 model's deltas (the bank
-stays in the model dtype) add to the dequantized product. Vision towers
-raise ``NotImplementedError`` naming the ROADMAP Queue A item that brings
-them; LoRA on MLA raises as in the reference (the absorbed path has no
-adapter hook), and MLA excludes qk-norm and biases as the reference does.
+stays in the model dtype) add to the dequantized product. Multimodal
+(``mm_tokens`` > 0): the encode stage's rows (``models/vision.py``, or an
+encode worker) are written over the placeholder tokens' embeddings before
+the first layer (``mm_embeds`` / ``mm_mask``); a config whose patches do not
+pool evenly into ``mm_tokens`` rows is refused, as the reference's tower
+cannot run it. LoRA on MLA raises as in the reference (the absorbed path has no adapter hook), and
+MLA excludes qk-norm and biases as the reference does.
 """
 
 from __future__ import annotations
@@ -69,8 +72,12 @@ def check_supported(cfg: ModelConfig, lora: bool = False) -> None:
         raise NotImplementedError(
             f"{cfg.name}: LoRA adapters are unsupported on MLA models (no adapter "
             "hook in the absorbed path)")
-    if cfg.mm_tokens > 0 or cfg.has_vision:
-        raise NotImplementedError(f"{cfg.name}: vision is ROADMAP Queue A item 7")
+    if cfg.mm_tokens > 0:
+        patches = (cfg.vision_image_size // cfg.vision_patch) ** 2
+        if patches % cfg.mm_tokens:
+            raise NotImplementedError(
+                f"{cfg.name}: {patches} patches do not pool into mm_tokens={cfg.mm_tokens} "
+                "rows (the reference's tower cannot run it either)")
     if cfg.is_mla and (cfg.qk_norm or cfg.attn_bias):
         raise NotImplementedError(f"{cfg.name}: MLA excludes qk_norm/attn_bias")
 
@@ -466,8 +473,14 @@ def forward_core(
     moe_rows: Optional[tuple[torch.Tensor, int]] = None,
     lora_indices: Optional[torch.Tensor] = None,  # [N] adapter slot per token (0 = none)
     lora_scale: float = 1.0,
+    mm_embeds: Optional[torch.Tensor] = None,  # [N, D] encode-stage rows, row-aligned
+    mm_mask: Optional[torch.Tensor] = None,  # [N] bool, True where tokens[i] is a placeholder
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run a flat mixed batch through the model, writing K/V into the pool.
+
+    ``mm_embeds`` / ``mm_mask``: row i's embedding is replaced by
+    ``mm_embeds[i]`` (cast to the model dtype) where ``mm_mask[i]``, before
+    the first layer; the placeholder's own embedding row is still gathered.
 
     With the LoRA bank in ``params`` (``models/lora.py``), each token adds
     its slot's delta (``lora_indices``, default slot 0, the null adapter)
@@ -495,6 +508,8 @@ def forward_core(
     P = (Ptot - 1) // L  # pages per layer
     B = page_tables.shape[0]
     x = params["embed"][tokens.long()].to(cfg.torch_dtype)  # [N, D]
+    if mm_embeds is not None:  # the encode stage's rows over the media placeholders
+        x = torch.where(mm_mask[:, None], mm_embeds.to(x.dtype), x)
 
     # global slot ids of the new tokens, layer l's at page_table[seq, pos //
     # ps] * ps + pos % ps + l*P*ps; padding rows (position -1) at the dump

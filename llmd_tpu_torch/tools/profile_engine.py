@@ -1,7 +1,7 @@
 """Where a decode step's time goes, on the card.
 
     python -m llmd_tpu_torch.tools.profile_engine [--batches 8,32] [--model llama-1b]
-        [--moe-dispatch auto|sorted|einsum] [--quantize int8] [--lora N]
+        [--moe-dispatch auto|sorted|einsum] [--quantize int8] [--lora N] [--images N]
 
 ``--model`` takes any served registry model, dense (``llama-1b``), MoE
 (``moe-wide-sim``; its expert GEMMs are K2 on the sorted dispatch, K4 on the
@@ -10,6 +10,11 @@ program, the latent decode kernel K3 in the decode program). ``--quantize
 int8`` serves int8 weight-only weights (their plain products; no K2/K4 on
 int8 banks). ``--lora N`` serves under LoRA (8 slots of rank 8) with N test
 adapters, drawn from the seed, spread over the rows (row i on adapter i % N).
+``--images N`` profiles the unified program instead (``profile_unified``):
+one step over a batch whose prompts carry N media items each after
+``--prompt-len`` text tokens, beside a batch of text prompts of the same
+length; a model without media tokens is given LLaVA-1.5's 576
+a media item, the last vocabulary id as the placeholder.
 
 For each batch size, in turn for the decode program captured into a CUDA
 graph and replayed (``graph``, the engine's default) and for the same program
@@ -54,6 +59,7 @@ Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import subprocess
@@ -413,6 +419,64 @@ def profile_batch(cfg, params, batch: int, prompt_len: int, decode_steps: int,
     }
 
 
+def profile_unified(cfg, params, batch: int, prompt_len: int, images: int, seed: int,
+                    windows: int = 2, device=None) -> dict:
+    """The unified program over ``batch`` prompts of ``prompt_len`` tokens,
+    the last ``images * mm_tokens`` of them media placeholders (rows from a
+    seeded generator: the tower is not part of the step), one unified step a
+    window, each window's prompts and media new (no prefix hit); the first
+    window warms up, the rest run under ``torch.profiler``. Returns device
+    kernels and busy ms per unified step and the host's wall a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.engine import EngineConfig, LLMEngine
+
+    ps, k, n_tok = 16, cfg.mm_tokens, prompt_len
+    ecfg = EngineConfig(page_size=ps, num_pages=batch * (n_tok // ps + 2) + 8,
+                        max_model_len=max(4096, n_tok + 2), max_batch_size=batch,
+                        prefill_chunk=n_tok, max_num_batched_tokens=batch * n_tok)
+    eng = LLMEngine(cfg, ecfg, params=params, seed=seed, device=device)
+    rng = np.random.default_rng(seed)
+    sp = SamplingParams(max_tokens=1, temperature=0.0)
+    st = eng.stats
+
+    # every window's prompts and rows made up front, outside the timed region
+    reqs = [[(f"w{w}-r{i}",
+              rng.integers(0, 256, n_tok - images * k).tolist()
+              + [cfg.mm_placeholder_id] * (images * k),
+              [(f"w{w}-r{i}-m{j}".encode(),
+                rng.standard_normal((k, cfg.hidden_size)).astype(np.float32))
+               for j in range(images)]) for i in range(batch)] for w in range(windows)]
+
+    def window(w: int) -> None:
+        for rid, prompt, items in reqs[w]:
+            eng.add_request(rid, prompt, sp, mm_items=items)
+        while eng.has_work():
+            eng.step()
+
+    window(0)
+    sync = torch.cuda.synchronize if eng.device.type == "cuda" else (lambda: None)
+    sync()
+    steps0 = st.n_unified_steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_MARGIN_S)
+        t0 = time.perf_counter()
+        for w in range(1, windows):
+            window(w)
+        sync()
+        wall = time.perf_counter() - t0
+        time.sleep(TRACE_MARGIN_S)
+    steps = max(st.n_unified_steps - steps0, 1)
+    kernels = _kernel_rows(prof)
+    return {"images": images, "batch": batch, "prompt_tokens": n_tok,
+            "media_rows_per_step": batch * images * k * (windows - 1) // steps,
+            "unified_steps": steps, "wall_ms_per_step": wall / steps * 1e3,
+            "device_kernels_per_step": sum(r["count"] for r in kernels) / steps,
+            "device_busy_ms_per_step": sum(r["device_us"] for r in kernels) / 1e3 / steps,
+            "top_kernels": kernels[:12]}
+
+
 def main(argv: "list[str] | None" = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="llama-1b")
@@ -425,6 +489,8 @@ def main(argv: "list[str] | None" = None) -> None:
     ap.add_argument("--moe-dispatch", default="auto", choices=("auto", "sorted", "einsum"))
     ap.add_argument("--quantize", default=None, choices=("int8",))
     ap.add_argument("--lora", type=int, default=0, help="test adapters spread over the rows")
+    ap.add_argument("--images", type=int, default=0,
+                    help="profile the unified program with this many media items a prompt")
     ap.add_argument("--out", default=None, help="also write the rows here (JSON)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -445,6 +511,22 @@ def main(argv: "list[str] | None" = None) -> None:
     cfg = get_model_config(args.model)
     dev = torch.device("cuda", 0)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    if args.images:
+        if cfg.mm_tokens == 0:  # LLaVA-1.5's media tokens an item
+            cfg = dataclasses.replace(cfg, mm_tokens=576, mm_placeholder_id=cfg.vocab_size - 1)
+        rows = []
+        for b in (int(x) for x in args.batches.split(",")):
+            for images in (args.images, 0):
+                r = profile_unified(cfg, params, b, args.prompt_len + args.images * cfg.mm_tokens,
+                                    images, args.seed)
+                r["card"] = smi
+                rows.append(r)
+                print(json.dumps({k: v for k, v in r.items() if k != "top_kernels"}),
+                      flush=True)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps({"model": args.model, "rows": rows}, indent=1))
+        return
     # warm-up pass (cuBLAS handles, lazy module loads), not reported
     for graph in (True, False):
         profile_batch(cfg, params, 2, 32, args.decode_steps, 1, 1, args.seed,

@@ -71,6 +71,8 @@ assert {"llmd_tpu_torch.disagg.transfer", "llmd_tpu_torch.kv.dtypes",
         "llmd_tpu_torch.native.build"} <= set(names)
 # and multi-adapter LoRA's (the embed program lives in the engine)
 assert "llmd_tpu_torch.models.lora" in names
+# and multimodal serving's: the vision tower and the encode worker
+assert {"llmd_tpu_torch.models.vision", "llmd_tpu_torch.disagg.encode"} <= set(names)
 assert "zmq" not in sys.modules
 print(len(names))
 """
@@ -120,3 +122,42 @@ def test_engine_defaults_to_the_card(monkeypatch):
         LLMEngine(get_model_config("tiny"), EngineConfig())
     with pytest.raises(RuntimeError):
         LLMEngine(get_model_config("tiny"), EngineConfig(), device="cuda")
+
+
+@pytest.mark.parametrize("module", ["models/vision.py", "disagg/encode.py"])
+def test_multimodal_modules_stand_alone(module):
+    """The tower and the encode worker keep their own copies of the
+    reference's helpers: their sources import nothing of jax, the reference
+    package, aiohttp or msgpack (the import with all of them blocked is the
+    subprocess above)."""
+    src = (REPO / "llmd_tpu_torch" / module).read_text()
+    assert not _FORBIDDEN.search(src)
+    assert not re.search(r"^\s*(import|from)\s+(aiohttp|msgpack)\b", src, re.M)
+
+
+def test_tower_defaults_to_the_card(monkeypatch):
+    """``VisionRunner`` and the encode worker's entry point put the tower on
+    the card unless the caller asks for the CPU."""
+    from llmd_tpu_torch.disagg import encode
+    from llmd_tpu_torch.models import get_model_config
+
+    cfg = get_model_config("tiny-vl")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        encode.VisionRunner(cfg)
+    assert encode.VisionRunner(cfg, device="cpu").device == torch.device("cpu")
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    class Recorder:
+        def __init__(self, cfg, host, port, device=None):
+            seen.append(device)
+            raise Stop
+
+    monkeypatch.setattr(encode, "EncodeServer", Recorder)
+    for argv in ([], ["--cpu"]):
+        with pytest.raises(Stop):
+            encode.main(["--model", "tiny-vl", "--port", "0", *argv])
+    assert seen == [None, "cpu"]

@@ -1192,3 +1192,69 @@ def test_lora_embed_on_card_matches_cpu(cuda):
         if dev == cuda:
             assert paged_attention.launches - before == cfg.num_layers * 4  # 97 tokens, 4 chunks
     assert np.abs(vecs[0] - vecs[1]).max() <= 1e-5
+
+
+# -------------------------------------------------------------- multimodal
+
+
+def test_vision_tower_f32_on_card_matches_cpu(cuda):
+    """The tower (no kernel of its own: plain products, f32 scores) at a
+    CLIP-like shape (patch 14, 112 px: 64 patches pooled into 16 rows;
+    hidden 256, 4 layers), float32 with TF32 off: the card's output within
+    1e-4 of the CPU's, relative to its max abs."""
+    import dataclasses
+
+    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.models.vision import bytes_to_pixels, encode_images, init_vision_params
+
+    cfg = dataclasses.replace(get_model_config("tiny-vl"), dtype="float32", mm_tokens=16,
+                              vision_patch=14, vision_image_size=112, vision_layers=4,
+                              vision_hidden=256, vision_heads=8)
+    params = init_vision_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    px = torch.from_numpy(np.stack([bytes_to_pixels(cfg, b"img-%d" % i) for i in range(3)]))
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        ref = encode_images(cfg, params, px)
+        got = encode_images(cfg, {k: v.to(cuda) for k, v in params.items()},
+                            px.to(cuda)).cpu()
+    finally:
+        torch.set_float32_matmul_precision(precision)
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+def test_vision_combined_pd_request_runs_k1(cuda):
+    """One media chat through a tiny-vl server on the card with its
+    in-process tower: 200, K1 once per layer of every forward (the media
+    rows' unified step included) on the bf16 instance, no plain version."""
+    import dataclasses
+
+    from llmd_tpu_torch.engine import EngineConfig
+    from llmd_tpu_torch.engine.server import EngineServer
+    from llmd_tpu_torch.models import get_model_config
+
+    cfg = get_model_config("tiny-vl")
+    server = EngineServer(cfg, EngineConfig(page_size=8, num_pages=96, max_model_len=256,
+                                            max_batch_size=4, prefill_chunk=32),
+                          host="127.0.0.1", port=0, device=cuda)
+    image = {"type": "image_url", "image_url": {"url": "data:image/x-raw;base64,aW1hZ2U="}}
+    body = {"messages": [{"role": "user", "content": [{"type": "text", "text": "what is it"},
+                                                       image]}],
+            "max_tokens": 9, "temperature": 0.0, "ignore_eos": True}
+    server.start()
+    try:
+        st0 = dataclasses.replace(server.engine.stats)
+        before, plain = _launches(), paged_attention_ref.calls
+        status, got = server.generate(body, chat=True)
+        after = _launches()
+        st = server.engine.stats
+    finally:
+        server.stop()
+    assert status == 200 and got["usage"]["completion_tokens"] == 9
+    forwards = (st.n_unified_steps - st0.n_unified_steps
+                + st.n_decode_iterations - st0.n_decode_iterations)
+    k1 = after["paged_attention"][0] - before["paged_attention"][0]
+    mma = after["paged_attention"][1]["mma"] - before["paged_attention"][1]["mma"]
+    assert k1 == mma == cfg.num_layers * forwards > 0
+    assert paged_attention_ref.calls == plain
+    assert server._vision is not None and server._vision.device.type == "cuda"

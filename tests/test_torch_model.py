@@ -32,8 +32,41 @@ def test_registry_matches_reference_field_for_field():
     assert get_model_config("llama-1b").torch_dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("name", ["tiny-moe", "tiny-mla", "tiny-vl"])
+@pytest.mark.parametrize("name", ["tiny-moe", "tiny-mla", "tiny-vl", "vl-uneven-pool"])
 def test_unserved_architectures_raise(name):
+    if name == "vl-uneven-pool":
+        # 16 patches do not pool into 3 rows: the reference's tower cannot
+        # run it either, so the port refuses it at construction
+        bad = dataclasses.replace(get_model_config("tiny-vl"), mm_tokens=3)
+        with pytest.raises(NotImplementedError, match="do not pool"):
+            tt.init_params(bad, torch.Generator().manual_seed(0))
+        return
+    if name == "tiny-vl":
+        # served since the vision slice: the params build, and forward_core
+        # writes the media rows over the placeholders as the reference's does
+        # (float32, logits max abs <= 1e-4)
+        tt.init_params(get_model_config(name), torch.Generator().manual_seed(0))
+        jcfg, tcfg, jp, tp = _params(name)
+        k, ph = tcfg.mm_tokens, tcfg.mm_placeholder_id
+        toks = np.array([5, 6] + [ph] * k + [7, 8], np.int32)
+        N = len(toks)
+        rng = np.random.default_rng(6)
+        emb = rng.standard_normal((N, tcfg.hidden_size)).astype(np.float32)
+        mask = toks == ph
+        args = (toks, np.arange(N, dtype=np.int32), np.zeros(N, np.int32),
+                np.array([[0, 1, -1]], np.int32), np.array([N], np.int32))
+        hj = jt.forward_core(jcfg, jp, jt.init_cache(jcfg, 4, 8), *map(jnp.asarray, args),
+                             mm_embeds=jnp.asarray(emb), mm_mask=jnp.asarray(mask))[0]
+        t = torch.from_numpy
+        run = lambda **kw: tt.forward_core(  # noqa: E731
+            tcfg, tp, tt.init_cache(tcfg, 4, 8), *map(t, args),
+            cu_q_lens=t(np.array([0, N], np.int32)), num_seqs=t(np.array([1], np.int32)),
+            **kw)[0]
+        ht = run(mm_embeds=t(emb), mm_mask=t(mask))
+        lj, lt = _np(jt.unembed(jcfg, jp, hj)), tt.unembed(tcfg, tp, ht).numpy()
+        assert np.abs(lj - lt).max() <= 1e-4
+        assert np.abs(lt - tt.unembed(tcfg, tp, run()).numpy()).max() > 1e-2
+        return
     cfg = get_model_config(name)
     if name in ("tiny-moe", "tiny-mla"):
         # MoE, MLA and int8 weights (int8 expert banks, the int8 attention
@@ -52,8 +85,6 @@ def test_unserved_architectures_raise(name):
             with pytest.raises(ValueError, match="LoRA bank"):
                 tt.params_from_numpy(cfg, bad)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
-        tt.init_params(cfg, torch.Generator().manual_seed(0))
 
 
 def test_building_blocks_match_reference():
