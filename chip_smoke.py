@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--report PATH]
 
 Phases, in order; each prints lines of numbers and any failure ends the run
-with a non-zero exit:
+with a non-zero exit (as does a run still going at ``DEADLINE_S``, with every
+thread's stack on stderr):
 
 1. device   the card's name and power limit (nvidia-smi); TF32 off.
 2. build    nvcc builds every kernel source of the main paths from
@@ -213,8 +214,50 @@ with a non-zero exit:
             D over the pulled pages. Informational (``vision:`` lines): encode
             ms per image at batch 1 and 8 beside the tower's bound, TTFT p50
             of a one-image chat combined against E/PD, device kernels per
-            unified step with and without media rows. The phase's and the
-            whole run's seconds close it.
+            unified step with and without media rows.
+
+18. obs     the observability plane (``phase_obs``): llama-1b at full width
+            and depth behind the port's server (page 16, 2048 pages, batch
+            32, ``decode_steps`` 4, replayed and pipelined), the device
+            plane's knobs OBS_ENV (a 1 s watchdog). 8 concurrent greedy
+            completions of 64-512 tokens (32 out), a ``traceparent`` on half:
+            every ``/debug/requests/{rid}`` timeline holds arrival ->
+            admitted -> prefill_start -> prefill_end -> (chain_dispatch,
+            decode)+ -> retired in order, the traced ones under the sent
+            trace id; ``?status=finished`` lists all 8;
+            ``request_phase_seconds`` counts 8 for prefill, decode_overlap and
+            the residual and at most 8 for any phase; then one more
+            completion with a ``traceparent``, served alone: ``step_duration``
+            buckets carry exemplars of the served requests' trace ids, its
+            among them. Then 8 rows of 300 tokens (the probes fire every
+            64 decode dispatches) with ``/debug/profile?seconds=1`` taken
+            while they decode: a non-empty Chrome trace holding K1's
+            ``paged_attention_mma`` kernel events and the ``llmd.*`` phase
+            ranges, and a second concurrent capture answered 409.
+            ``step_duration{phase="attn"}`` has samples and no probe turned
+            itself off; K1 launched once per layer of every forward plus
+            once per probe run, all on ``mma``, no plain version. The HBM
+            gauges equal ``torch.cuda.memory_stats`` / ``total_memory``
+            read in-process (in use >= the pool and the weights);
+            ``device_fabric_alive`` is 1. The engine lock held past the
+            watchdog while a request is pending: ``/health`` 503
+            ``engine_stalled``, then 200 and ``engine_recovered``.
+            ``/v1/responses`` = ``/v1/chat/completions`` on the same
+            message (greedy), and a conversation of two turns lists four
+            items. ``profile_batch`` (batch 8, replayed, the recorder on):
+            3 / ``decode_steps`` host launch calls a decode iteration.
+            moe-wide-sim and moe-wide-mla at full width and depth (sorted
+            dispatch, 8 rows of 300 tokens): every probe phase has samples,
+            the attn probe ran K1 (K3 on MLA) on ``mma`` and the experts
+            probe K2 on ``wgmma``, each once more per probe run than the
+            forwards account for. Informational (``obs:`` lines, with the
+            card): µs per ``flight.record``, per decode call's recording
+            and per request lifecycle, ``record_function`` against the
+            gate, bf16 decode tok/s at batch 64, ISL 256 / OSL 128 with the
+            ledgers on and off (``LLMD_FLIGHT_MAX_EVENTS=0``,
+            ``LLMD_DECISION_LEDGER=0``), the capture's seconds and bytes,
+            the probes' times per layer beside the time phase's K1 rows.
+            The phase's and the whole run's seconds close it.
 
 It ends with a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. ``--report PATH`` also writes every phase's details (nvcc's register
@@ -225,15 +268,20 @@ no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import faulthandler
 import functools
+import gc
 import itertools
 import json
+import os
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -265,6 +313,8 @@ GEMM_F32_ATOL = 1e-4
 # cycles of the spin kernel queued before each timed run (~1 ms on an H100):
 # longer than the host takes to enqueue the run, so the events time the card
 HOLD_CYCLES = 2_000_000
+# the whole run's limit, the kernels' build included
+DEADLINE_S = 1140
 H, HK, D, PS = 32, 8, 64, 16  # llama-1b attention: heads, kv heads, head dim, page
 MOE = "moe-wide-sim"  # D 1024, 32 experts, top-4, expert FFN 512 (2Fe = 1024)
 # moe-wide-mla's absorbed attention: 16 heads over one latent plane of width
@@ -3543,7 +3593,11 @@ def _lora_requests(cfg, names: list, n_per: int, prompt_range, seed: int) -> lis
 
 
 def _empty() -> None:
-    """Return the memory of the engines just dropped to the card."""
+    """Return the memory of the engines just dropped to the card. An engine
+    sits in reference cycles (its registry's callbacks, its programs'
+    hooks), so it is freed by the cycle collector, not at its last
+    reference: collect first."""
+    gc.collect()
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
 
@@ -4434,6 +4488,537 @@ def phase_vision(device, card: str, seed: int = 0, cfg=None, n_requests: int = 8
     return out
 
 
+# --------------------------------------------------------------------------
+# The observability plane: flight recorder, tracing, ledgers, device plane,
+# phase probes, Responses / Conversations
+# --------------------------------------------------------------------------
+
+OBS_KW = dict(page_size=PS, num_pages=2048, max_model_len=2048, max_batch_size=32,
+              prefill_chunk=512, max_num_batched_tokens=2048, decode_steps=4)
+# the device plane's knobs for the phase: a 1 s watchdog, a poll and a
+# liveness probe every 0.2 s / 1 s (read when the server's monitor is built)
+OBS_ENV = {"LLMD_WATCHDOG_STALL_S": "1", "LLMD_DEVICE_POLL_S": "0.2",
+           "LLMD_FABRIC_PROBE_INTERVAL_S": "1", "LLMD_FABRIC_PROBE_TIMEOUT_S": "20"}
+TIMELINE = ("arrival", "admitted", "prefill_start", "prefill_end", "retired")
+
+
+@contextlib.contextmanager
+def _env(values: dict):
+    """``os.environ`` updated with ``values`` inside the block, then restored."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _wait_until(cond, what: str, timeout_s: float, poll_s: float = 0.002) -> None:
+    """Poll ``cond()`` until it holds; raise if ``timeout_s`` passes first."""
+    deadline = time.monotonic() + timeout_s
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: not reached in {timeout_s} s")
+        time.sleep(poll_s)
+
+
+def _metric(text: str, name: str, labels: str = "") -> "float | None":
+    """One sample's value from an exposition, None when absent."""
+    for line in text.splitlines():
+        if line.startswith(name + labels + " "):
+            return float(line.split(" # ")[0].split()[-1])
+    return None
+
+
+def _phase_counts(text: str) -> dict:
+    """``step_duration`` and ``request_phase_seconds`` observation counts."""
+    out: dict = {}
+    for line in text.splitlines():
+        for fam, key in (("llmd_tpu:engine_step_duration_seconds_count", "step"),
+                         ("llmd_tpu:request_phase_seconds_count", "request")):
+            if line.startswith(fam + "{"):
+                phase = line.split('phase="')[1].split('"')[0]
+                out[(key, phase)] = out.get((key, phase), 0) + float(line.split()[-1])
+    return out
+
+
+def _timeline_ok(names: list) -> bool:
+    """arrival -> admitted -> prefill_start -> prefill_end -> (chain_dispatch,
+    decode)+ -> retired, in order."""
+    core = [n for n in names if n in TIMELINE]
+    if core != list(TIMELINE) or names[-1] != "retired":
+        return False
+    after = names[names.index("prefill_end"):]
+    return ("chain_dispatch" in after and "decode" in after
+            and after.index("chain_dispatch") < len(after) - 1)
+
+
+def _probe_counts(text: str) -> dict:
+    c = _phase_counts(text)
+    return {p: int(c.get(("step", p), 0))
+            for p in ("attn", "moe_dispatch", "moe_experts", "moe_combine")}
+
+
+def _probe_ms(text: str, phase: str, layers: int, k: int) -> "float | None":
+    """A probe phase's mean time per layer and decode iteration, in ms
+    (its samples are time x layers x k)."""
+    n = _metric(text, "llmd_tpu:engine_step_duration_seconds_count", f'{{phase="{phase}"}}')
+    s = _metric(text, "llmd_tpu:engine_step_duration_seconds_sum", f'{{phase="{phase}"}}')
+    return s / n / (layers * k) * 1e3 if n else None
+
+
+def obs_main_run(device, card: str, model: str, seed: int, n_requests: int, prompt_range,
+                 max_tokens: int, probe_tokens: int, profile_s: float) -> dict:
+    """llama-1b at full width and depth behind the port's server (OBS_KW,
+    bf16 random weights from ``seed``, the decode program captured and
+    replayed, the pipelined dispatch), the device plane's knobs OBS_ENV."""
+    from llmd_tpu_torch.engine.config import EngineConfig
+    from llmd_tpu_torch.engine.server import EngineServer
+    from llmd_tpu_torch.models import get_model_config
+
+    cfg = get_model_config(model)
+    on_card = device.type == "cuda"
+    rng = np.random.default_rng(seed)
+    prof_dir = tempfile.mkdtemp(prefix="llmd-obs-profiles-")
+    with _env(OBS_ENV | {"LLMD_PROFILE_DIR": prof_dir}):
+        server = EngineServer(cfg, EngineConfig(**OBS_KW), host="127.0.0.1", port=0,
+                              tokenizer=IdTokenizer(cfg.vocab_size), seed=seed, device=device)
+        server.start()
+    base = f"http://{server.address}"
+    eng = server.engine
+    out: dict = {}
+    try:
+        greedy = {"temperature": 0, "ignore_eos": True}
+
+        def prompt(lo: int, hi: int) -> list:
+            return rng.integers(0, 256, int(rng.integers(lo, hi + 1))).tolist()
+
+        # the decode graph is captured here, before the counted window
+        assert _http("POST", base + "/v1/completions",
+                     {"prompt_token_ids": prompt(40, 60), "max_tokens": 12, **greedy})[0] == 200
+        _, _, before = _http("GET", base + "/metrics")
+        st0 = dataclasses.replace(eng.stats)
+        zero_counts()
+        # 1. n_requests concurrent completions, a traceparent on half of them
+        sent = {i: f"{rng.integers(1, 2 ** 63):016x}{rng.integers(1, 2 ** 63):016x}"
+                for i in range(0, n_requests, 2)}
+        headers = {i: {"traceparent": f"00-{t}-{rng.integers(1, 2 ** 63):016x}-01"}
+                   for i, t in sent.items()}
+        prompts = [prompt(*prompt_range) for _ in range(n_requests + 8)]
+        results: list = [None] * n_requests
+
+        def one(i: int) -> None:
+            results[i] = _http("POST", base + "/v1/completions", {
+                "prompt_token_ids": prompts[i], "max_tokens": max_tokens, **greedy},
+                headers.get(i))
+
+        # daemon clients: a failed check ends the run without waiting on them
+        threads = [threading.Thread(target=one, args=(i,), daemon=True)
+                   for i in range(n_requests)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        rids = {}
+        for i, r in enumerate(results):
+            assert r is not None and r[0] == 200, f"obs: request {i} failed: {r}"
+            rids[i] = json.loads(r[2])["id"]
+        _, _, after = _http("GET", base + "/metrics")
+        # every timeline complete and ordered, the traced ones under their id
+        for i, rid in rids.items():
+            status, _, body = _http("GET", f"{base}/debug/requests/{rid}")
+            rec = json.loads(body)
+            names = [e["event"] for e in rec["events"]]
+            if status != 200 or not _timeline_ok(names):
+                raise AssertionError(f"obs: {rid} timeline {status} {names}")
+            if i in sent and rec["trace_id"] != sent[i]:
+                raise AssertionError(f"obs: {rid} trace {rec['trace_id']} != {sent[i]}")
+        status, _, body = _http("GET", base + "/debug/requests?status=finished")
+        listing = json.loads(body)["requests"]
+        finished = {r["request_id"] for r in listing}
+        if status != 200 or not set(rids.values()) <= finished:
+            raise AssertionError(f"obs: /debug/requests?status=finished lacks "
+                                 f"{set(rids.values()) - finished}")
+        c0, c1 = _phase_counts(before.decode()), _phase_counts(after.decode())
+        delta = {p: c1[k] - c0.get(k, 0) for k in c1 if k[0] == "request"
+                 for p in [k[1]] if c1[k] - c0.get(k, 0)}
+        if (any(v > n_requests for v in delta.values())
+                or any(delta.get(p) != n_requests
+                       for p in ("prefill", "decode_overlap", "unattributed"))):
+            raise AssertionError(f"obs: request_phase_seconds counts {delta}")
+        # exemplars: a step's is its batch's first traced row (the
+        # reference's rule), so which of the concurrent requests lands in a
+        # bucket depends on slot order; a request with a traceparent served
+        # alone must own the exemplars of the buckets its steps hit, and
+        # every exemplar is a served request's trace id
+        solo_rng = np.random.default_rng(seed + 1)
+        solo = f"{solo_rng.integers(1, 2 ** 63):016x}{solo_rng.integers(1, 2 ** 63):016x}"
+        assert _http("POST", base + "/v1/completions", {
+            "prompt_token_ids": solo_rng.integers(0, 256, 48).tolist(), "max_tokens": 8,
+            **greedy}, {"traceparent": f"00-{solo}-{solo_rng.integers(1, 2 ** 63):016x}-01"}
+        )[0] == 200
+        _, _, text = _http("GET", base + "/metrics")
+        seen = {r["trace_id"] for r in listing} | {solo}
+        ex = set(re.findall(r'engine_step_duration_seconds_bucket\{[^}]*\} \S+ '
+                            r'# \{trace_id="([0-9a-f]+)"\}', text.decode()))
+        if not ex <= seen or solo not in ex:
+            raise AssertionError(f"obs: exemplar trace ids {ex} (served {seen}, alone {solo})")
+        out["request_phase_counts"] = delta
+        out["exemplar_trace_ids"] = len(ex)
+        # 2. batch-8 decode long enough for the probes, with a profile window
+        # (and a second capture that must be refused) taken while it runs
+        st1 = dataclasses.replace(eng.stats)
+        long_results: list = [None] * 8
+        long_threads = [threading.Thread(target=lambda i=i: long_results.__setitem__(
+            i, _http("POST", base + "/v1/completions", {
+                "prompt_token_ids": prompts[n_requests + i], "max_tokens": probe_tokens,
+                **greedy})), daemon=True) for i in range(8)]
+        for t in long_threads:
+            t.start()
+        _wait_until(lambda: eng.stats.n_decode_dispatches - st1.n_decode_dispatches >= 4,
+                    "obs: 4 decode dispatches of the long requests", 120.0, 0.005)
+        prof: dict = {}
+        first = threading.Thread(target=lambda: prof.setdefault(
+            "first", _http("GET", f"{base}/debug/profile?seconds={profile_s}")), daemon=True)
+        first.start()
+        from llmd_tpu_torch.obs.device import capture_open
+
+        while not capture_open() and first.is_alive():
+            time.sleep(0.002)
+        prof["second"] = _http("GET", f"{base}/debug/profile?seconds=0.2")
+        first.join(timeout=120)
+        for t in long_threads:
+            t.join(timeout=900)
+        assert all(r is not None and r[0] == 200 for r in long_results), long_results
+        if prof["second"][0] != 409:
+            raise AssertionError(f"obs: a concurrent capture answered {prof['second'][0]}")
+        status, _, body = prof["first"]
+        cap = json.loads(body)
+        if status != 200 or not cap["files"] or cap["bytes"] <= 0:
+            raise AssertionError(f"obs: /debug/profile {status} {cap}")
+        events = json.loads(Path(cap["dir"], "trace.json").read_text())["traceEvents"]
+        names = [e.get("name", "") for e in events]
+        k1_events = sum(1 for e in events if e.get("cat") == "kernel"
+                        and "paged_attention_mma" in e.get("name", ""))
+        annotations = sorted({n for n in names if n.startswith("llmd.")})
+        if "llmd.decode_dispatch" not in annotations or (on_card and not k1_events):
+            raise AssertionError(f"obs: profile trace: K1 events {k1_events}, "
+                                 f"annotations {annotations}")
+        out["profile"] = {"seconds": cap["seconds"], "bytes": cap["bytes"],
+                          "k1_kernel_events": k1_events, "annotations": annotations}
+        shutil.rmtree(prof_dir, ignore_errors=True)
+        # the probes, and K1's launches: once per layer of every forward plus
+        # each probe run (the first probe's warm-up run included)
+        _, _, text = _http("GET", base + "/metrics")
+        text = text.decode()
+        probes = _probe_counts(text)
+        if probes["attn"] < 1 or not eng._attn_probe_on:
+            raise AssertionError(f"obs: attn probe samples {probes}, on {eng._attn_probe_on}")
+        st = eng.stats
+        forwards = (st.n_unified_steps - st0.n_unified_steps
+                    + st.n_decode_iterations - st0.n_decode_iterations)
+        launches, plain_calls = read_counts()
+        by_instance = instance_counts()
+        want = cfg.num_layers * forwards + probes["attn"] + 1
+        if on_card and (launches["paged_attention"] != want
+                        or by_instance["paged_attention"]["mma"] != want
+                        or any(plain_calls.values())):
+            raise AssertionError(f"obs: K1 launches {launches['paged_attention']} "
+                                 f"{by_instance['paged_attention']} expected {want} (mma), "
+                                 f"plain {plain_calls}")
+        out["launches"] = launches["paged_attention"]
+        out["probe_launches"] = probes["attn"] + 1
+        out["probes"] = probes
+        out["attn_probe_ms_per_layer"] = _probe_ms(text, "attn", cfg.num_layers,
+                                                   eng.cfg.decode_steps)
+        # the HBM gauges against the allocator, read in-process, the engine
+        # idle (no allocation between the poll and the read)
+        label = f'{{device="cuda:{device.index or 0}"}}' if on_card else None
+        if on_card:
+            deadline = time.monotonic() + 5.0
+            while True:
+                stats = torch.cuda.memory_stats(device)
+                _, _, t = _http("GET", base + "/metrics")
+                t = t.decode()
+                hbm = [_metric(t, f"llmd_tpu:device_hbm_{k}", label)
+                       for k in ("bytes_in_use", "peak_bytes", "limit_bytes")]
+                want_hbm = [float(stats["allocated_bytes.all.current"]),
+                            float(stats["allocated_bytes.all.peak"]),
+                            float(torch.cuda.get_device_properties(device).total_memory)]
+                if hbm == want_hbm or time.monotonic() > deadline:
+                    break
+                time.sleep(0.1)
+            resident = (eng.cache.numel() * eng.cache.element_size()
+                        + sum(p.numel() * p.element_size() for p in eng.params.values()))
+            if hbm != want_hbm or hbm[0] < resident:
+                raise AssertionError(f"obs: HBM gauges {hbm} vs memory_stats {want_hbm}, "
+                                     f"pool + weights {resident}")
+            out["hbm"] = dict(zip(("in_use", "peak", "limit"), hbm))
+        elif "llmd_tpu:device_hbm_bytes_in_use{" in text:
+            raise AssertionError("obs: an HBM series on the CPU")
+        if _metric(text, "llmd_tpu:device_fabric_alive") != 1.0 or not (
+                _metric(text, "llmd_tpu:device_fabric_probe_seconds_count") or 0) >= 1:
+            raise AssertionError("obs: device_fabric_alive is not 1 after a probe")
+        # the watchdog: the engine lock held past LLMD_WATCHDOG_STALL_S while
+        # a request is pending gives 503 engine_stalled, then 200
+        pending = threading.Thread(target=lambda: _http("POST", base + "/v1/completions", {
+            "prompt_token_ids": prompt(32, 64), "max_tokens": 64, **greedy}), daemon=True)
+        pending.start()
+        _wait_until(lambda: bool(eng.seqs), "obs: the pending request admitted", 60.0)
+        lock = server.async_engine._lock
+        lock.acquire()
+        try:
+            t0 = time.monotonic()
+            health = None
+            while time.monotonic() - t0 < 10.0:
+                status, _, body = _http("GET", base + "/health")
+                if status == 503:
+                    health = json.loads(body)
+                    break
+                time.sleep(0.05)
+        finally:
+            lock.release()
+        if health is None or health.get("reason") != "engine_stalled":
+            raise AssertionError(f"obs: /health under a held engine lock: {health}")
+        t0 = time.monotonic()
+        while _http("GET", base + "/health")[0] != 200:
+            if time.monotonic() - t0 > 10.0:
+                raise AssertionError("obs: /health did not recover")
+            time.sleep(0.05)
+        pending.join(timeout=300)
+        system = [e["event"] for e in eng.flight.system_events()]
+        if not {"engine_stalled", "engine_recovered", "profile_capture"} <= set(system):
+            raise AssertionError(f"obs: system events {system}")
+        out["stall"] = health
+        # /v1/responses = chat on the same messages (greedy; a prompt under
+        # one page, so no prefix hit changes the second's shapes), and a
+        # conversation of two turns
+        content = "hi there"
+        status, _, body = _http("POST", base + "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": content}], "max_tokens": 16, **greedy})
+        chat = json.loads(body)["choices"][0]["message"]["content"]
+        status2, _, body = _http("POST", base + "/v1/responses", {
+            "input": content, "max_output_tokens": 16, **greedy})
+        resp = json.loads(body)["output"][0]["content"][0]["text"]
+        if status != 200 or status2 != 200 or resp != chat:
+            raise AssertionError(f"obs: /v1/responses {status2} text differs from chat")
+        _, _, body = _http("POST", base + "/v1/conversations", {})
+        cid = json.loads(body)["id"]
+        for turn in ("first turn", "second turn"):
+            status, _, body = _http("POST", base + "/v1/responses", {
+                "input": turn, "max_output_tokens": 8, "conversation": cid, **greedy})
+            assert status == 200 and json.loads(body)["conversation"] == cid, body
+        _, _, body = _http("GET", f"{base}/v1/conversations/{cid}/items")
+        items = json.loads(body)["data"]
+        if [i["role"] for i in items] != ["user", "assistant"] * 2 or [
+                items[0]["content"], items[2]["content"]] != ["first turn", "second turn"]:
+            raise AssertionError(f"obs: conversation items {items}")
+        out["responses"] = {"text_equal_chat": True, "conversation_items": len(items)}
+    finally:
+        server.stop()
+    log(f"obs: {model} bf16 on {card}: {n_requests} requests, timelines ordered, traced "
+        f"{len(sent)}, request_phase deltas {out['request_phase_counts']}, exemplar trace "
+        f"ids {out['exemplar_trace_ids']}; probes {out['probes']} attn K1 "
+        f"{out['attn_probe_ms_per_layer']} ms a layer (batch {OBS_KW['max_batch_size']}, 8 "
+        f"live rows); K1 launches {out['launches']} (probe runs {out['probe_launches']}); "
+        f"profile {out['profile']}; HBM {out.get('hbm')}; stall {out['stall']}; "
+        f"responses {out['responses']}")
+    return out
+
+
+def obs_probe_run(device, card: str, model: str, seed: int, label: str,
+                  probe_tokens: int) -> dict:
+    """``model`` at full width, bf16, sorted dispatch, the engine's
+    defaults and OBS_KW's batch: 8 requests long enough for the probes. The
+    attn probe runs the decode program's attention (K1, or K3 on MLA), the
+    MoE probe the sorted dispatch's stages (K2 in ``experts_stage``); each
+    probe took samples, none turned itself off, and each probe kernel ran
+    once more per probe than the forwards account for (plus one warm-up)."""
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.engine import EngineConfig, LLMEngine
+    from llmd_tpu_torch.models import get_model_config
+
+    cfg = get_model_config(model)
+    eng = LLMEngine(cfg, EngineConfig(**(OBS_KW | {"moe_dispatch": "sorted"})), seed=seed,
+                    device=device)
+    eng.generate([[1, 2, 3]], SamplingParams(max_tokens=10, temperature=0.0))  # capture
+    rng = np.random.default_rng(seed)
+    st0 = dataclasses.replace(eng.stats)
+    zero_counts()
+    eng.generate([rng.integers(0, cfg.vocab_size, int(rng.integers(64, 257))).tolist()
+                  for _ in range(8)], SamplingParams(max_tokens=probe_tokens, temperature=0.0))
+    text = eng.registry.expose()
+    probes = _probe_counts(text)
+    moe = cfg.is_moe
+    if probes["attn"] < 1 or (moe and min(probes[p] for p in probes) < 1) \
+            or not eng._attn_probe_on or (moe and not eng._moe_probe_on):
+        raise AssertionError(f"obs {label}: probe samples {probes}, on "
+                             f"{eng._attn_probe_on}/{eng._moe_probe_on}")
+    st = eng.stats
+    unified = st.n_unified_steps - st0.n_unified_steps
+    iters = st.n_decode_iterations - st0.n_decode_iterations
+    L, runs = cfg.num_layers, probes["attn"] + 1
+    launches, plain = read_counts()
+    by = instance_counts()
+    if cfg.is_mla:
+        want = {"paged_attention": (L * unified, "mma"), "mla_decode": (L * iters + runs, "mma")}
+    else:
+        want = {"paged_attention": (L * (unified + iters) + runs, "mma")}
+    if moe:
+        want["ragged_grouped_gemm"] = (2 * L * (unified + iters) + 2 * runs, "wgmma")
+    if device.type == "cuda":
+        for name, (n, inst) in want.items():
+            if launches[name] != n or by[name][inst] != n:
+                raise AssertionError(f"obs {label}: {name} launches {launches[name]} "
+                                     f"{by[name]} expected {n} on {inst}")
+        if any(plain.values()):
+            raise AssertionError(f"obs {label}: plain versions ran {plain}")
+    k = eng.cfg.decode_steps
+    ms = {p: _probe_ms(text, p, L, k) for p in probes}
+    log(f"obs: {label} bf16 on {card}: probes {probes}, ms a layer and iteration {ms}; "
+        f"launches {({n: launches[n] for n in want})} (probe runs {runs})")
+    out = {"probes": probes, "probe_ms": ms, "launches": {n: launches[n] for n in want},
+           "probe_launches": runs}
+    del eng
+    _empty()
+    return out
+
+
+def obs_numbers(device, card: str, model: str, seed: int, batch: int, isl: int,
+                osl: int) -> dict:
+    """Informational: the recorder's host cost (µs per ``flight.record``, per
+    decode call's recording of 32 rows, per terminal ``finish`` with both
+    exporters), ``record_function``'s cost outside a capture (what entering
+    it at every step would add) beside the gate's flag read, and bf16 decode
+    tok/s at ``batch`` rows of ISL ``isl`` / OSL ``osl`` (``decode_steps``
+    32) with the recorder and decision ledger at their defaults against the
+    same window with ``LLMD_FLIGHT_MAX_EVENTS=0`` and
+    ``LLMD_DECISION_LEDGER=0``, in turns (on, off, on, off)."""
+    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.obs.attribution import attach_phase_exporter
+    from llmd_tpu_torch.obs.decisions import attach_decision_exporter
+    from llmd_tpu_torch.obs.device import profile_phase
+    from llmd_tpu_torch.obs.events import FlightRecorder
+    from llmd_tpu_torch.obs.metrics import Registry, register_engine_metrics
+
+    def us_per(fn, n: int) -> float:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    fr = FlightRecorder(max_events=1 << 30)
+    fr.start("r")
+    record_us = us_per(lambda: fr.record("r", "decode", n_tokens=4, generated=100), 20000)
+    rows = [f"r{i}" for i in range(32)]
+    for rid in rows:
+        fr.start(rid)
+    call_us = us_per(lambda: [fr.record(rid, "decode", n_tokens=4, generated=100)
+                              for rid in rows], 2000)
+    metrics = register_engine_metrics(Registry())
+    finish_fr = FlightRecorder()
+    attach_phase_exporter(finish_fr, metrics.request_phase)
+    attach_decision_exporter(finish_fr, metrics)
+    ids = iter(range(10 ** 9))
+
+    def one_request() -> None:
+        rid = f"f{next(ids)}"
+        finish_fr.start(rid, model=model)
+        for ev in ("arrival", "admitted", "prefill_start", "prefill_end", "first_token",
+                   "chain_dispatch"):
+            finish_fr.record(rid, ev)
+        finish_fr.finish(rid, event="retired", reason="length", spec_drafted=8,
+                         spec_accepted=5, spec_flips=1)
+    request_us = us_per(one_request, 2000)
+    nothing = lambda: None  # noqa: E731
+    gated = profile_phase("llmd.decode_dispatch")(nothing)
+
+    def entered() -> None:
+        with torch.profiler.record_function("llmd.decode_dispatch"):
+            pass
+    rf_us = us_per(entered, 20000) - us_per(nothing, 20000)
+    gate_us = us_per(gated, 20000) - us_per(nothing, 20000)
+    cfg = get_model_config(model)
+    pages = batch * (-(-(isl + osl) // PS) + 1) + 8
+    kw = dict(max_batch_size=batch, decode_steps=32, num_pages=max(pages, 64))
+    off_env = {"LLMD_FLIGHT_MAX_EVENTS": "0", "LLMD_DECISION_LEDGER": "0"}
+    engines = {}
+    for on in (True, False):
+        with _env({} if on else off_env):
+            engines[on] = _lora_engine(device, cfg, {}, lora=False, seed=seed, **kw)
+    rng = np.random.default_rng(seed + 7)
+    turns = []
+    for _ in range(2):
+        for on in (True, False):
+            reqs = [(rng.integers(0, cfg.vocab_size, isl).tolist(), None) for _ in range(batch)]
+            r = _lora_window(engines[on], reqs, osl)
+            turns.append((on, r["decode_tokens_fused"] / max(r["time_decode_steps"], 1e-9)))
+    del engines
+    _empty()
+    on = [t for o, t in turns if o]
+    off = [t for o, t in turns if not o]
+    row = {"record_us": record_us, "decode_call_recording_us_32_rows": call_us,
+           "request_lifecycle_us": request_us, "record_function_us": rf_us,
+           "record_function_us_per_decode_step": 2 * rf_us, "gate_us": gate_us,
+           "decode_tok_s_turns": turns, "decode_tok_s_ledgers_on": on,
+           "decode_tok_s_ledgers_off": off,
+           "ratio": statistics.median(on) / statistics.median(off)}
+    log(f"obs: host cost on {card}: flight.record {record_us:.3f} us, a decode call's "
+        f"recording (32 rows) {call_us:.3f} us, a request's lifecycle with both exporters "
+        f"{request_us:.3f} us; record_function {rf_us:.3f} us a range "
+        f"({2 * rf_us:.3f} us a decode step of two phases) against the gate's "
+        f"{gate_us:.3f} us")
+    log(f"obs: {model} bf16 on {card}: decode tok/s batch {batch} ISL {isl} OSL {osl} "
+        f"ledgers on {on} off {off} ratio {row['ratio']:.4f}")
+    return row
+
+
+def phase_obs(device, card: str, seed: int = 0, dense: str = "llama-1b", moe: str = MOE,
+              mla: str = MLA, n_requests: int = 8, prompt_range=(64, 512),
+              max_tokens: int = 32, probe_tokens: int = 300, profile_s: float = 1.0,
+              bench=(64, 256, 128), time_report: "dict | None" = None) -> dict:
+    """The observability plane (``llmd_tpu_torch/obs``, the server's debug,
+    Responses and Conversations routes) at full width: the main run on
+    ``dense``, the probe runs on ``moe`` and ``mla``, the informational
+    numbers. ``time_report``: the time phase's K1 rows, printed beside the
+    probe's K1 time."""
+    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.tools.profile_engine import profile_batch
+
+    t0 = time.perf_counter()
+    out = {"main": obs_main_run(device, card, dense, seed, n_requests, prompt_range,
+                                max_tokens, probe_tokens, profile_s)}
+    _empty()
+    if time_report is not None:
+        log(f"obs: K1 on {card}: attn probe {out['main']['attn_probe_ms_per_layer']} ms a "
+            f"layer at batch {OBS_KW['max_batch_size']} (8 live rows) beside the time "
+            f"phase's decode B=64 {time_report['decode']['ms']} ms and decode B=8 "
+            f"(kv 3072-5120) {time_report['decode_b8']['ms']} ms")
+    if device.type == "cuda":
+        # the recorder and the ledgers add no launch call to a replayed decode
+        # iteration: one graph launch and two RNG-state fills a call
+        r = profile_batch(get_model_config(dense), None, 8, 256, OBS_KW["decode_steps"], 5, 3,
+                          seed)
+        calls = r["host_launch_calls_per_iteration"]
+        if calls != 3 / OBS_KW["decode_steps"]:
+            raise AssertionError(f"obs: {calls} host launch calls a replayed decode "
+                                 f"iteration, expected {3 / OBS_KW['decode_steps']}")
+        out["host_launch_calls_per_iteration"] = calls
+        log(f"obs: {dense} replayed with the recorder on: {calls} host launch calls a "
+            f"decode iteration on {card}")
+        _empty()
+    out["moe"] = obs_probe_run(device, card, moe, seed, "moe sorted", probe_tokens)
+    out["mla"] = obs_probe_run(device, card, mla, seed, "mla sorted", probe_tokens)
+    out["numbers"] = obs_numbers(device, card, dense, seed, *bench)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"obs: phase {out['seconds']:.1f} s on {card}")
+    return out
+
+
 def main(argv: "list[str] | None" = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", default=None, help="write every phase's details here (JSON)")
@@ -4443,6 +5028,9 @@ def main(argv: "list[str] | None" = None) -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    # a run that overstays its limit fails here, every thread's stack on
+    # stderr, rather than being stopped from outside with nothing said
+    faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
     report: dict = {}
@@ -4459,6 +5047,7 @@ def main(argv: "list[str] | None" = None) -> int:
 
     moe = dict(model=MOE)
     k1, k2 = {"paged_attention": (1, "all")}, {"ragged_grouped_gemm": (2, "all")}
+    _empty()  # the previous phase's engines
     report["engine"] = eng = {
         "llama-1b": phase_engine(device, card, label="dense"),
         "moe_sorted": phase_engine(device, card, **moe, label="sorted",
@@ -4479,6 +5068,7 @@ def main(argv: "list[str] | None" = None) -> int:
     }
     eplb_kw = {"moe_dispatch": "sorted", "eplb": EPLBConfig(
         window_size=8, step_interval=2, num_redundant_experts=32)}
+    _empty()  # the previous phase's engines
     report["graph"] = {
         "llama-1b": phase_graph(device, card, label="dense"),
         "moe_sorted": phase_graph(device, card, **moe, label="sorted",
@@ -4497,8 +5087,11 @@ def main(argv: "list[str] | None" = None) -> int:
         raise AssertionError(f"graph: llama-1b replayed makes "
                              f"{dense['host_launch_calls_per_iteration']} host launch calls "
                              f"an iteration, expected {3 / dense['decode_steps']}")
+    _empty()  # the previous phase's engines
     report["surface"] = surface = phase_surface(device, card)
+    _empty()  # the previous phase's engines
     report["spec"] = spec = phase_spec(device, card)
+    _empty()  # the previous phase's engines
     report["structured"] = phase_structured(device, card)
     if report["graph"]["moe_eplb"]["graph_eplb_rebalances"] < 2:
         raise AssertionError("graph: EPLB re-placed its experts fewer than twice")
@@ -4508,12 +5101,14 @@ def main(argv: "list[str] | None" = None) -> int:
     if eng["moe_eplb"]["eplb_rebalances"] < 2:
         raise AssertionError(f"engine: EPLB re-placed its experts "
                              f"{eng['moe_eplb']['eplb_rebalances']} times, expected >= 2")
+    _empty()  # the previous phase's engines
     report["forward"] = {
         "llama-1b": phase_forward_check(device),
         "moe_sorted": phase_forward_check(device, MOE, moe_dispatch="sorted"),
         "moe_einsum": phase_forward_check(device, MOE, moe_dispatch="einsum"),
         "mla_sorted": phase_forward_check(device, MLA, moe_dispatch="sorted"),
     }
+    _empty()  # the previous phase's engines
     report["int8"] = {
         "llama-1b": phase_int8(device, card, label="dense"),
         "moe_sorted": phase_int8(device, card, model=MOE, label="sorted",
@@ -4523,19 +5118,28 @@ def main(argv: "list[str] | None" = None) -> int:
         "mla_sorted": phase_int8(device, card, model=MLA, label="mla sorted",
                                  engine_kw={"moe_dispatch": "sorted"}),
     }
+    _empty()  # the previous phase's engines
     report["loader"] = phase_loader(device, card)
+    _empty()  # the previous phase's engines
     report["bench"] = {"int8": phase_bench(device, card, []),
                        "bf16": phase_bench(device, card, ["--quantize", "none"]),
                        "bf16_spec_echo": phase_bench(device, card, [
                            "--quantize", "none", "--spec-mode", "ngram", "--workload", "echo"]),
                        "bf16_json": phase_bench(device, card, [
                            "--quantize", "none", "--workload", "json"])}
+    _empty()  # the previous phase's engines
     report["fp8"] = fp8 = phase_fp8(device, card)
+    _empty()  # the previous phase's engines
     report["kvplane"] = kv = phase_kvplane(device, card)
+    _empty()  # the previous phase's engines
     report["lora"] = lora = phase_lora(device, card)
+    _empty()  # the previous phase's engines
     report["vision"] = vision = phase_vision(device, card)
+    _empty()  # the previous phase's engines
+    report["obs"] = obs = phase_obs(device, card, time_report=tm["paged_attention"])
     report["seconds"] = time.perf_counter() - t_start
-    log(f"smoke: all phases {report['seconds']:.1f} s (vision {vision['seconds']:.1f} s)")
+    log(f"smoke: all phases {report['seconds']:.1f} s (vision {vision['seconds']:.1f} s, "
+        f"obs {obs['seconds']:.1f} s)")
     if args.report:
         out = Path(args.report)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -4589,7 +5193,9 @@ def main(argv: "list[str] | None" = None) -> int:
            "lora_embed_launches": lora["server"]["embed_k1_launches"],
            "vision_launches": vision["combined_float32"]["launches"]["paged_attention"],
            "vision_bf16_launches": vision["combined_bfloat16"]["launches"]["paged_attention"],
-           "vision_epd_pd_d_launches": vision["epd_pd"]["d_launches"]["paged_attention"]},
+           "vision_epd_pd_d_launches": vision["epd_pd"]["d_launches"]["paged_attention"],
+           "obs_launches": obs["main"]["launches"],
+           "obs_probe_launches": obs["main"]["probe_launches"]},
         # the unified program's absorbed MLA attention, XLA in the reference
         entry("paged_attention_latent", attn_src, "llmd_tpu/models/transformer.py:428",
               eng["mla_sorted"]["launches"]["paged_attention"], lat)
@@ -4598,11 +5204,15 @@ def main(argv: "list[str] | None" = None) -> int:
         entry("mla_decode", "llmd_tpu_torch/csrc/mla_decode.cu",
               "llmd_tpu/ops/mla_decode.py:110", eng["mla_sorted"]["launches"]["mla_decode"],
               k3["decode"]) | k3_more
-        | {"kvplane_launches": kv["pd_mla"]["d_launches"]["mla_decode"]},
+        | {"kvplane_launches": kv["pd_mla"]["d_launches"]["mla_decode"],
+           "obs_launches": obs["mla"]["launches"]["mla_decode"],
+           "obs_probe_launches": obs["mla"]["probe_launches"]},
         entry("ragged_grouped_gemm", gemm_src, "llmd_tpu/ops/grouped_gemm.py:98",
               eng["moe_sorted"]["launches"]["ragged_grouped_gemm"],
               tm["ragged_grouped_gemm"]["decode"], tm["ragged_grouped_gemm"]["prefill"])
-        | {"lora_launches": lora["moe"]["launches"]["ragged_grouped_gemm"]},
+        | {"lora_launches": lora["moe"]["launches"]["ragged_grouped_gemm"],
+           "obs_launches": obs["moe"]["launches"]["ragged_grouped_gemm"],
+           "obs_probe_launches": 2 * obs["moe"]["probe_launches"]},
         entry("grouped_gemm", gemm_src, "llmd_tpu/ops/grouped_gemm.py:43",
               eng["moe_einsum"]["launches"]["grouped_gemm"], tm["grouped_gemm"]["decode"],
               tm["grouped_gemm"]["prefill"]),

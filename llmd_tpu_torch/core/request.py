@@ -1,5 +1,5 @@
 """Sampling parameters (``llmd_tpu/core/request.py::SamplingParams``, every
-field with the reference's name), the deadline header, the chat flattening
+field with the reference's name), the deadline and tenant headers, the chat flattening
 that the router and the engine share, and the media helpers (which content
 parts are media, and their cache identities).
 
@@ -22,6 +22,25 @@ from typing import Any, Optional, Sequence
 # across its queue wait and forwards the remainder, so the engine sees how much
 # budget the client has left.
 HDR_REQUEST_TIMEOUT = "x-request-timeout"
+# Tenant identity for per-tenant accounting (the router forwards the clamped
+# value, so engine-side flight records and phase ledgers carry it too).
+HDR_TENANT = "x-llm-d-tenant"
+# identifier hygiene: the tenant becomes a flight-recorder field and a label
+# value, so a hostile header must not mint fresh label sets
+_IDENT_CHARS = frozenset(
+    "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789._-")
+MAX_TENANT_LEN = 64
+
+
+def clamp_tenant(raw: Optional[str]) -> str:
+    """The reference's tenant check: bounded length, [A-Za-z0-9._-] only;
+    anything else (or nothing) is "anon"."""
+    if not raw:
+        return "anon"
+    v = raw.strip()
+    if not v or len(v) > MAX_TENANT_LEN or not set(v) <= _IDENT_CHARS:
+        return "anon"
+    return v
 
 
 @dataclass

@@ -48,6 +48,12 @@ class AsyncLLMEngine:
 
     def _run(self) -> None:
         while not self._stop.is_set():
+            # the heartbeat BEFORE the lock: a step wedged on the card holds
+            # the lock, and stamping inside it would hide the stall the
+            # watchdog (obs/device.py) exists to catch
+            mon = self.engine.monitor
+            if mon is not None:
+                mon.heartbeat()
             try:
                 with self._lock:
                     has_work = self.engine.has_work()
@@ -78,9 +84,11 @@ class AsyncLLMEngine:
             return fn()
 
     def generate(self, request_id: str, token_ids: list[int], sampling: SamplingParams,
-                 lora_id: Optional[str] = None, mm_items=None) -> Iterator[EngineOutput]:
+                 lora_id: Optional[str] = None, mm_items=None,
+                 trace_ctx=None) -> Iterator[EngineOutput]:
         """Submit a request (under adapter ``lora_id``, with media rows
-        ``mm_items``) and yield its outputs until it finishes (blocking)."""
+        ``mm_items``, in the trace of ``trace_ctx``) and yield its outputs
+        until it finishes (blocking)."""
         q: queue.Queue = queue.Queue()
         with self._lock:  # stream registration + admission are atomic
             if self.error is not None:
@@ -88,7 +96,7 @@ class AsyncLLMEngine:
             self._streams[request_id] = q
             try:
                 self.engine.add_request(request_id, token_ids, sampling, lora_id,
-                                        mm_items=mm_items)
+                                        mm_items=mm_items, trace_ctx=trace_ctx)
             except ValueError:
                 self._streams.pop(request_id, None)
                 raise

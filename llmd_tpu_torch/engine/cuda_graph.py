@@ -15,6 +15,10 @@ tensor. The first :meth:`~CapturedProgram.__call__` captures it:
    instance, is taken back and added again on every replay, so the counters
    keep counting device launches (set-up launches are not counted).
 
+A capture holds :data:`CAPTURE_LOCK` from its warm-up to its end: other
+threads that issue device-wide CUDA calls (the device monitor's liveness
+probe) take it too, since such a call during a capture invalidates it.
+
 A capture or replay failure raises; nothing falls back to running eagerly.
 The function must leave the device as it found it apart from its outputs
 (the engine's idles every slot first, so the warm-up writes only the pool's
@@ -24,6 +28,7 @@ dump row). The engine counts captures, replays and capture seconds in its
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Callable
 
@@ -52,6 +57,9 @@ def _write(counts: list[tuple[int, dict]]) -> None:
 
 WARMUP_RUNS = 2  # eager runs on a side stream before the capture
 
+# held by every capture; device-wide calls from other threads take it
+CAPTURE_LOCK = threading.Lock()
+
 
 class CapturedProgram:
     """``fn`` captured at its first call on ``device``, replayed after."""
@@ -67,6 +75,10 @@ class CapturedProgram:
         self.seconds = 0.0
 
     def capture(self) -> None:
+        with CAPTURE_LOCK:
+            self._capture()
+
+    def _capture(self) -> None:
         t0 = time.perf_counter()
         before = _read()
         stream = torch.cuda.current_stream(self.device)

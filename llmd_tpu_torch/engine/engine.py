@@ -126,6 +126,24 @@ processed, never inside the program, so a graph's warm-up and capture count
 nothing and a replay adds no device work. The server renders the registry at
 ``/metrics``.
 
+Observability (reference ``engine.py:220-265``, its record sites and probes):
+``self.flight`` (``obs/events.py``) records each request's timeline at the
+reference's sites (arrival, structured_compile, admitted, prefill_start /
+prefill_end, chain_dispatch, first_token, decode, spec_draft / spec_verify,
+structured_mask, preempted, kv_reload, retired / aborted; chain_retire and
+kv_offload as system events); every retired timeline feeds
+``request_phase_seconds`` (``obs/attribution.py``) and, unless
+``LLMD_DECISION_LEDGER=0``, the engine's decision counters
+(``obs/decisions.py``). A request's ``trace_ctx`` keys its record, puts its
+trace id on the ``step_duration`` exemplars and, when sampled, parents one
+``engine.step`` span a step. All of it is host work: a replayed decode call
+launches what it did before. The step phases enter
+``torch.profiler.record_function`` under the reference's names while a
+``/debug/profile`` capture is open (``obs/device.profile_phase``). The
+sampled phase probes (``_run_phase_probes``) add ``step_duration`` samples
+of phase ``attn`` and, on the sorted MoE dispatch, ``moe_dispatch`` /
+``moe_experts`` / ``moe_combine``.
+
 The KV data plane, at the reference's sites: with ``cpu_offload_pages`` or
 ``offload_fs_path`` the allocator's evict hook and a proactive drain
 (``_offload_drain``, the oldest LRU pages demoted in one gather a step) feed
@@ -145,6 +163,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import os
 import time
 from collections import OrderedDict, deque
 from dataclasses import dataclass
@@ -182,9 +201,16 @@ from llmd_tpu_torch.models.transformer import (
     init_params,
     unembed,
 )
+from llmd_tpu_torch.obs.attribution import attach_phase_exporter
 from llmd_tpu_torch.obs.costmodel import (
     UtilLedger, attach_util_exporter, util_ledger_enabled)
+from llmd_tpu_torch.obs.decisions import attach_decision_exporter, decisions_enabled
+from llmd_tpu_torch.obs.device import profile_phase
+from llmd_tpu_torch.obs.events import FlightRecorder
 from llmd_tpu_torch.obs.metrics import Registry, register_engine_metrics
+from llmd_tpu_torch.obs.tracing import global_tracer
+from llmd_tpu_torch.ops.moe_dispatch import (
+    combine_stage, dispatch_stage, experts_scaled, experts_stage, pick_block_size)
 from llmd_tpu_torch.ops.paged_attention import paged_attention
 from llmd_tpu_torch.parallel.eplb import ExpertLoadTracker, balance_ratio, rebalance
 from llmd_tpu_torch.structured import (
@@ -324,6 +350,7 @@ class LLMEngine:
         # the step loop's metric families; the server renders them at /metrics
         self.registry = Registry()
         self.metrics = register_engine_metrics(self.registry)
+        self._init_observability()
         # the step programs (registration order = routing priority); the
         # masked variants have no run hook: a routable program dispatches them
         self.programs = ProgramRegistry(
@@ -397,6 +424,7 @@ class LLMEngine:
         # so an id-keyed slot is never reused by another grammar
         self._mask_buffers: Optional[MaskTables] = None
         self._mask_tab_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self._init_phase_probes()
         self.util = None
         if util_ledger_enabled():
             self.util = UtilLedger(
@@ -405,6 +433,22 @@ class LLMEngine:
                 kv_cache_dtype=engine_cfg.kv_cache_dtype)
             attach_util_exporter(self.util, self.metrics)
         self._init_kv_plane(event_sink)
+
+    def _init_observability(self) -> None:
+        """The reference constructor's observability (``engine/engine.py:
+        220-265``): the process tracer, the always-on flight recorder (served
+        at ``/debug/requests``), the phase exporter feeding
+        ``request_phase_seconds`` and, unless ``LLMD_DECISION_LEDGER=0`` (read
+        once), the engine's decision exporter chained after it. ``monitor``
+        is the server's ``DeviceMonitor``, whose heartbeat the engine loop
+        stamps."""
+        self.tracer = global_tracer()
+        self.flight = FlightRecorder.from_env(tracer=self.tracer)
+        attach_phase_exporter(self.flight, self.metrics.request_phase)
+        self._decisions_on = decisions_enabled()
+        if self._decisions_on:
+            attach_decision_exporter(self.flight, self.metrics)
+        self.monitor = None
 
     def _init_kv_plane(self, event_sink) -> None:
         """The offload tiers, the external connector and the durable tier
@@ -416,7 +460,7 @@ class LLMEngine:
             self.offload = KVOffloadConnector(
                 cfg.cpu_offload_pages, staging_blocks=cfg.offload_staging_blocks,
                 fs_backend=fs, event_sink=event_sink, pages_per_layer=cfg.num_pages,
-                metrics=self.metrics)
+                metrics=self.metrics, flight=self.flight)
             self.alloc.evict_hook = lambda h, pid: self.offload.on_evict(self.cache, h, pid)
             store = self.offload.store
             self.metrics.offload_saves.set_function(lambda: store.saves)
@@ -455,13 +499,19 @@ class LLMEngine:
 
     def _select_moe_dispatch(self) -> Optional[Callable]:
         """The MoE token dispatch (reference ``_select_moe_dispatch``, one
-        device, no environment override): ``auto`` and ``sorted`` give the
-        drop-free sorted path (expert GEMMs through K2), ``einsum`` the
-        capacity path (K4). Returns the dispatch_impl, None for einsum."""
+        device): ``sorted`` gives the drop-free sorted path (expert GEMMs
+        through K2), ``einsum`` the capacity path (K4); ``auto`` takes
+        ``LLMD_MOE_DISPATCH`` when set, else sorted. Returns the
+        dispatch_impl, None for einsum."""
         if not self.model_cfg.is_moe:
             self.moe_dispatch = self.moe_backend = "n/a (dense model)"
             return None
-        self.moe_dispatch = "einsum" if self.cfg.moe_dispatch == "einsum" else "sorted"
+        mode = self.cfg.moe_dispatch
+        if mode == "auto":
+            mode = os.environ.get("LLMD_MOE_DISPATCH", "") or "sorted"
+        if mode not in ("sorted", "einsum"):
+            raise ValueError(f"moe_dispatch must be auto|sorted|einsum, got {mode!r}")
+        self.moe_dispatch = mode
         if self.device.type != "cuda":
             self.moe_backend = "torch_reference (cpu tensors)"
         elif "moe_wi_q" in self.params:  # the grouped GEMM kernels are bf16/f32
@@ -690,7 +740,11 @@ class LLMEngine:
     def add_request(self, request_id: str, token_ids: list[int],
                     sampling: Optional[SamplingParams] = None,
                     lora_id: Optional[str] = None,
-                    mm_items: Optional[list[tuple[bytes, np.ndarray]]] = None) -> None:
+                    mm_items: Optional[list[tuple[bytes, np.ndarray]]] = None,
+                    trace_ctx: Optional[object] = None) -> None:
+        """Queue a request. ``trace_ctx``: the server's request span context;
+        its trace id keys the flight record and the exemplars, and a sampled
+        one parents the ``engine.step`` spans."""
         sampling = sampling or SamplingParams()
         if not token_ids:
             raise ValueError("empty prompt")
@@ -727,6 +781,7 @@ class LLMEngine:
         # server's 400) without leaving a queued sequence behind
         logit_bias = parse_logit_bias(sampling.logit_bias)
         structured: Optional[StructuredState] = None
+        compile_meta: Optional[tuple[str, bool, float]] = None
         spec = structured_spec(sampling)
         if spec is not None:
             if self.cfg.structured_mode == "off":
@@ -740,6 +795,7 @@ class LLMEngine:
                                                  self.model_cfg.vocab_size)
             compile_s = time.perf_counter() - tc0
             structured = StructuredState(grammar, kind)
+            compile_meta = (kind, cache_hit, compile_s)
             self.stats.structured_requests += 1
             m = self.metrics
             m.structured_requests.labels(kind=kind).inc()
@@ -749,9 +805,18 @@ class LLMEngine:
                        prompt_len=len(token_ids), max_tokens=sampling.max_tokens,
                        sampling=sampling, lora_id=lora_id,
                        lora_key=self._lora_hash_key(lora_id), arrival_time=time.monotonic(),
-                       structured=structured, logit_bias=logit_bias, mm_items=mm_items)
+                       structured=structured, logit_bias=logit_bias, mm_items=mm_items,
+                       trace_ctx=trace_ctx)
         self.seqs[request_id] = seq
         self.waiting.append(seq)
+        self.flight.start(request_id, model=self.model_cfg.name,
+                          trace_id=getattr(trace_ctx, "trace_id", "") or "")
+        self.flight.record(request_id, "arrival", prompt_len=len(token_ids), rank=0,
+                           lora=lora_id)
+        if compile_meta is not None:
+            kind, cache_hit, compile_s = compile_meta
+            self.flight.record(request_id, "structured_compile", kind=kind,
+                               cache_hit=cache_hit, compile_ms=round(compile_s * 1e3, 3))
         if self.lora_registry is not None:
             self.lora_registry.on_waiting(lora_id)
 
@@ -759,6 +824,8 @@ class LLMEngine:
         seq = self.seqs.pop(request_id, None)
         if seq is None:
             return
+        self.flight.finish(request_id, event="aborted", status="aborted",
+                           generated=seq.num_generated)
         if seq.slot >= 0:
             self.running[seq.slot] = None
             if self.lora_registry is not None:
@@ -820,6 +887,8 @@ class LLMEngine:
                 self.waiting.popleft()
                 seq.finished, seq.finish_reason = True, "length"
                 self.seqs.pop(seq.request_id, None)
+                self.flight.finish(seq.request_id, event="retired", reason="length",
+                                   generated=seq.num_generated)
                 self._outputs.append(EngineOutput(
                     request_id=seq.request_id, new_token_ids=[], finished=True,
                     finish_reason="length", prompt_len=seq.prompt_len))
@@ -846,6 +915,8 @@ class LLMEngine:
             seq.slot = slot
             self.running[slot] = seq
             self.waiting.popleft()
+            self.flight.record(seq.request_id, "admitted", slot=slot, rank=0,
+                               cached_tokens=seq.num_cached_prompt, pages=len(seq.pages))
             if self.lora_registry is not None:
                 self.lora_registry.on_running(seq.lora_id)
 
@@ -948,6 +1019,8 @@ class LLMEngine:
         self.waiting.appendleft(victim)
         self.stats.total_preemptions += 1
         self.metrics.preemptions.inc()
+        self.flight.record(victim.request_id, "preempted", rank=0,
+                           generated=victim.num_generated)
         return True
 
     def _prefill_target(self, seq: Sequence) -> int:
@@ -1060,10 +1133,12 @@ class LLMEngine:
             return sample_tokens_biased(logits, bias_t, self._gen, temp, tk, tp)
         return sample_tokens(logits, self._gen, temp, tk, tp)
 
+    @profile_phase("llmd.unified")
     def _step_unified(self) -> None:
         """Pack decode tokens + prefill chunks (across sequences) into the flat
         token budget and run ONE forward."""
         t0 = time.perf_counter()
+        t0_ns = time.time_ns()
         budget = self.cfg.batched_tokens
         B = self.cfg.max_batch_size
         # decode rows first (keeps TPOT low while prompts stream in), then
@@ -1178,9 +1253,17 @@ class LLMEngine:
                 sample_rows.append((i, s))
                 has_decode_rows = True
             else:
+                if s.num_computed == s.num_cached_prompt:
+                    # the first chunk of a (re)prefill: cached == computed
+                    # holds only before any chunk lands
+                    self.flight.record(s.request_id, "prefill_start",
+                                       cached_tokens=s.num_cached_prompt)
                 s.num_computed += n
                 s.maybe_commit_blocks(self.alloc)
                 self.stats.total_prefill_tokens += n
+                if s.num_computed >= self._prefill_target(s):
+                    self.flight.record(s.request_id, "prefill_end",
+                                       prefill_tokens=s.num_computed)
                 if len(s.token_ids) == s.prompt_len and s.num_computed == s.prompt_len:
                     sample_rows.append((i, s))  # prompt complete: first token
         # Pipelined sample read (reference :1894-1910): launch this step's
@@ -1214,7 +1297,8 @@ class LLMEngine:
             self.metrics.decode_tokens.inc(n_dec)
         if n_pre:
             self.metrics.prefill_tokens.inc(n_pre)
-        self.metrics.step_duration.labels(phase="unified").observe(t3 - t0)
+        self.metrics.step_duration.labels(phase="unified").observe(
+            t3 - t0, exemplar=self._trace_exemplar([s for s, _, _ in plan]))
         if self.util is not None:
             # the program computes exactly its N real rows (no padding class);
             # KV reads ~ one pass over each row's resident KV, writes = N
@@ -1223,6 +1307,33 @@ class LLMEngine:
             self.util.record("unified", cost, t3 - t0, committed=N - recompute,
                              preempted_recompute=recompute, prefix_saved=saved,
                              compile_counts=self.compile_counts())
+        self._emit_step_spans("unified", [s for s, _, _ in plan], t0_ns, nb, N)
+
+    def _emit_step_spans(self, phase: str, seqs: list[Sequence], start_ns: int,
+                         batch_size: int, n_tokens: int) -> None:
+        """One ``engine.step`` child span per sampled sequence of the batch,
+        parented on the request span carried in by ``add_request``: the step
+        work nests under the server's ``engine.generate``."""
+        for s in seqs:
+            ctx = s.trace_ctx
+            if ctx is None or not getattr(ctx, "sampled", False):
+                continue
+            span = self.tracer.start_span(
+                "engine.step", parent=ctx,
+                **{"llm_d.phase": phase, "llm_d.batch_size": batch_size,
+                   "llm_d.step_tokens": n_tokens, "llm_d.request_id": s.request_id})
+            span.start_ns = start_ns
+            span.end()
+
+    @staticmethod
+    def _trace_exemplar(seqs) -> Optional[dict]:
+        """OpenMetrics exemplar labels of the first traced sequence of a batch:
+        a slow ``step_duration`` bucket links to a trace."""
+        for s in seqs:
+            ctx = s.trace_ctx
+            if ctx is not None and getattr(ctx, "trace_id", ""):
+                return {"trace_id": ctx.trace_id}
+        return None
 
     def _pack_media(self, s: Sequence, start: int, toks: np.ndarray, embeds: np.ndarray,
                     mask: np.ndarray) -> None:
@@ -1239,6 +1350,7 @@ class LLMEngine:
             embeds[hit[sel]] = s.mm_items[it][1][row[sel]]
             mask[hit[sel]] = True
 
+    @profile_phase("llmd.mask_build")
     def _build_bias(self, seqs: list[Sequence], vocab: int) -> Optional[np.ndarray]:
         """The host-built additive ``[rows, V]`` bias of a sample batch (one
         row per seq in order): each grammar row's allow-mask at its current
@@ -1254,6 +1366,7 @@ class LLMEngine:
                 self._count_violations(st.sync(s.token_ids, s.prompt_len))
                 st.grammar.fill_bias(bias[i], st.state)
                 self.stats.structured_mask_builds += 1
+                self._log_first_mask(s)
             if s.logit_bias:
                 row = bias[i]
                 for tid, b in s.logit_bias.items():
@@ -1263,6 +1376,15 @@ class LLMEngine:
         self.stats.time_mask_build += dt
         self.metrics.structured_mask_seconds.observe(dt)
         return bias
+
+    def _log_first_mask(self, s: Sequence) -> None:
+        """The ``structured_mask`` event of a constrained row's first mask
+        (its timeline, not one event a step)."""
+        st = s.structured
+        if not st.mask_logged:
+            st.mask_logged = True
+            self.flight.record(s.request_id, "structured_mask", kind=st.kind,
+                               n_allowed=int(len(st.grammar.allowed_ids(st.state))))
 
     def _count_violations(self, n: int) -> None:
         if n:
@@ -1301,8 +1423,7 @@ class LLMEngine:
         s.spec_armed = True  # a fresh token landed: re-probe this row's drafter
         if s.structured is not None:
             self._count_violations(s.structured.sync(s.token_ids, s.prompt_len))
-        if s.first_token_time is None:
-            s.first_token_time = now
+        self._first_token(s, now)
         finished, reason = self._check_finish(s, tok)
         if finished:
             self._retire(s, reason)
@@ -1310,6 +1431,13 @@ class LLMEngine:
             request_id=s.request_id, new_token_ids=[tok], finished=finished,
             finish_reason=reason, num_cached_prompt_tokens=s.num_cached_prompt,
             prompt_len=s.prompt_len))
+
+    def _first_token(self, s: Sequence, now: float) -> None:
+        """Stamp a sequence's first token (its ``first_token`` event)."""
+        if s.first_token_time is None:
+            s.first_token_time = now
+            self.flight.record(s.request_id, "first_token",
+                               ttft_ms=round((now - s.arrival_time) * 1e3, 3))
 
     # -------------------------------------------------------- speculation
     def _verify_nt(self) -> int:
@@ -1415,6 +1543,7 @@ class LLMEngine:
         self._step_spec_verify(plan)
         return True
 
+    @profile_phase("llmd.spec_verify")
     def _step_spec_verify(self, plan: list[tuple[Sequence, list[int]]]) -> None:
         """Pack each sequence's last token and draft as one chunk, run the
         verify program (the masked one when a row is constrained), accept
@@ -1423,6 +1552,7 @@ class LLMEngine:
         token state never holds an unverified draft token, so no page of one
         is ever committed."""
         t0 = time.perf_counter()
+        t0_ns = time.time_ns()
         nb = len(plan)
         N = sum(1 + len(d) for _, d in plan)
         toks = np.zeros((N,), np.int32)
@@ -1449,6 +1579,7 @@ class LLMEngine:
                 if _constrained(s):
                     self.stats.spec_drafted_constrained += len(draft)
                 self.metrics.spec_drafted.inc(len(draft))
+                self.flight.record(s.request_id, "spec_draft", drafted=len(draft))
             rows.append((s, draft, off, s.slot))
             off += n
             cu[i + 1] = off
@@ -1508,8 +1639,7 @@ class LLMEngine:
             accepted = sum(1 for j, t in enumerate(kept) if j < len(draft) and draft[j] == t)
             rejected = len(draft) - accepted
             s.num_computed = len(s.token_ids) - 1  # the newest token's KV is not written
-            if s.first_token_time is None:
-                s.first_token_time = now
+            self._first_token(s, now)
             s.maybe_commit_blocks(self.alloc)
             self._spec_release_tail(s)
             constrained = _constrained(s)
@@ -1541,6 +1671,13 @@ class LLMEngine:
                 self.metrics.spec_accepted.inc(accepted)
             if rejected:
                 self.metrics.spec_rejected.inc(rejected)
+            if draft:
+                self.flight.record(s.request_id, "spec_verify", drafted=len(draft),
+                                   accepted=accepted, n_tokens=len(kept),
+                                   constrained=constrained, generated=s.num_generated)
+            else:
+                self.flight.record(s.request_id, "decode", n_tokens=len(kept),
+                                   generated=s.num_generated)
             if finished:
                 self._retire(s, reason)
             self._outputs.append(EngineOutput(
@@ -1555,7 +1692,8 @@ class LLMEngine:
         st.n_spec_verify_steps += 1
         if n_tokens:
             self.metrics.decode_tokens.inc(n_tokens)
-        self.metrics.step_duration.labels(phase="spec_verify").observe(t3 - t0)
+        self.metrics.step_duration.labels(phase="spec_verify").observe(
+            t3 - t0, exemplar=self._trace_exemplar([r[0] for r in rows]))
         if self.util is not None:
             # the program computes exactly its N packed rows: kept tokens
             # commit, rejected draft rows are the speculation's waste
@@ -1564,6 +1702,7 @@ class LLMEngine:
             self.util.record(prog, cost, t3 - t0, committed=n_tokens,
                              spec_rejected=self.stats.spec_rejected - rej0,
                              compile_counts=self.compile_counts())
+        self._emit_step_spans("spec_verify", [r[0] for r in rows], t0_ns, nb, n_tokens)
 
     def _spec_release_tail(self, s: Sequence) -> None:
         """Give back the pages grown for rejected draft tokens: trim the
@@ -1673,6 +1812,7 @@ class LLMEngine:
         tables.staged = (key, pins)
         return tables
 
+    @profile_phase("llmd.chain_stage")
     def _stage_chain_masks(self, active: list[Sequence]) -> Optional[dict]:
         """Stage the tables of one masked chain, and each slot's table row
         and automaton entry state (``table_rows``, ``fsm0`` [B]). The wall
@@ -1690,6 +1830,7 @@ class LLMEngine:
             if s.structured is not None:  # a logit_bias row stays at state 0
                 self._count_violations(s.structured.sync(s.token_ids, s.prompt_len))
                 fsm0[s.slot] = s.structured.state
+                self._log_first_mask(s)
         dt = time.perf_counter() - t0
         self.stats.time_mask_build += dt
         self.stats.structured_chain_stages += 1
@@ -1805,6 +1946,12 @@ class LLMEngine:
         q, self._pending_decode = self._pending_decode, []
         for rec in q:
             self._decode_process(rec)
+        if q:
+            # one system event a chain teardown (the chain is batch-scoped,
+            # and its lead row may have retired in this very drain: retired
+            # stays the last event of every request's timeline)
+            s, _slot = q[-1]["rows"][0]
+            self.flight.record_system("chain_retire", calls=len(q), lead_request=s.request_id)
 
     def _pack_buf(self) -> dict[str, torch.Tensor]:
         """The host buffer set of the next dispatch (pinned on the card), one
@@ -1875,6 +2022,7 @@ class LLMEngine:
             self._decode_fn = fn
         return fn
 
+    @profile_phase("llmd.decode_dispatch")
     def _decode_dispatch(self, active: list[Sequence], k: int, chain: Optional[dict],
                          wall_start: float, off: int = 0) -> dict:
         """Pack host state (plus the ``off`` tokens of the calls in flight) and
@@ -1888,12 +2036,20 @@ class LLMEngine:
         ``steps_left``, and the page tables when a row grew a page. A chain
         with constrained rows runs the masked program: its start stages the
         tables and uploads each slot's table row and entry state; a chained
-        call keeps the device's states."""
+        call keeps the device's states.
+
+        Every ``_attn_probe_every``-th dispatch first runs the sampled phase
+        probes (``_run_phase_probes``) on the engine's stream, ahead of this
+        call's launch; ``_decode_process`` reads their times once this
+        call's results are in."""
         if chain is not None:
             mask = chain["mask"]
         else:
             mask = (self._stage_chain_masks(active)
                     if any(_constrained(s) for s in active) else None)
+            for s in active:
+                self.flight.record(s.request_id, "chain_dispatch", k=k,
+                                   masked=mask is not None)
         prog = "decode" if mask is None else "decode_masked"
         program = self._decode_program(masked=mask is not None)
         buf = self._decode_bufs
@@ -1948,6 +2104,9 @@ class LLMEngine:
         if chain is None and mask is not None:
             buf.table_rows.copy_(self._tensor(mask["table_rows"]), non_blocking=True)
             buf.fsm.copy_(self._tensor(mask["fsm0"]), non_blocking=True)
+        probes = None
+        if (st.n_decode_dispatches + 1) % self._attn_probe_every == 0:
+            probes = self._run_phase_probes(active, k, off)
         readback = program()
         result, event = self._to_host(readback, self._result_slot())
         st.time_decode_steps += time.perf_counter() - wall_start
@@ -1959,7 +2118,7 @@ class LLMEngine:
             st.decode_graph_replays += 1
         self.programs.record_dispatch(prog)
         self.metrics.step_duration.labels(phase="decode_dispatch").observe(
-            time.perf_counter() - wall_start)
+            time.perf_counter() - wall_start, exemplar=self._trace_exemplar(active))
         util_cost = None
         if self.util is not None:
             # the call computes k iterations over all B slots (idle and frozen
@@ -1971,13 +2130,154 @@ class LLMEngine:
                 kv_write_tokens=int(steps.sum()))
         return {"rows": [(s, s.slot) for s in active], "k": k, "host": result,
                 "event": event, "pages_sig": pages_sig, "util_cost": util_cost,
-                "prog": prog, "mask": mask}
+                "prog": prog, "mask": mask, "probes": probes}
 
+    # ---------------------------------------------------- sampled phase probes
+    # The reference's "attn" and MoE step-phase probes (engine.py:770-830,
+    # 2725-2850): every _attn_probe_every decode dispatches, the decode
+    # program's attention alone (K1, or K3 on MLA models) over the live pool,
+    # layer 0's page tables and the live lengths with zero queries, and on
+    # the sorted MoE dispatch its dispatch / experts (K2) / combine stages
+    # against layer 0's live bank under uniform synthetic routing. Each time
+    # x layers x k is observed into step_duration{phase=attn|moe_*}, directly
+    # comparable with the decode_dispatch samples. The first run of a probe
+    # is discarded; a failure turns that probe off and never stops serving.
+    # On the card a probe runs eagerly on the engine's stream (never inside a
+    # graph capture) between CUDA events, and its time is read when the
+    # dispatch it preceded is processed: no device synchronisation is added
+    # to the pipelined path. On the CPU it is timed by the host clock.
+    def _init_phase_probes(self) -> None:
+        cfg = self.model_cfg
+        self._attn_probe_every = 64
+        self._attn_probe_on = True
+        self._attn_probe_warm = False
+        self._attn_probe_scale = ((cfg.mla_qk_nope_dim + cfg.mla_rope_dim) ** -0.5
+                                  if cfg.is_mla else cfg.head_dim ** -0.5)
+        self._moe_probe_on = cfg.is_moe and self.moe_dispatch == "sorted"
+        self._moe_probe_warm = False
+
+    def _timed(self, fns: list) -> list:
+        """Run ``fns`` in order, each after the previous one's output; the
+        marks around them (CUDA events on the engine's stream, or host clock
+        readings) and the last output."""
+        cuda = self.device.type == "cuda"
+
+        def mark():
+            if not cuda:
+                return time.perf_counter()
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(self._stream)
+            return ev
+
+        marks, out = [mark()], None
+        for fn in fns:
+            out = fn(out)
+            marks.append(mark())
+        return marks
+
+    def _run_phase_probes(self, active: list[Sequence], k: int, off: int) -> Optional[list]:
+        """Launch the probes at this dispatch's decode shape; returns
+        [(phase, start mark, end mark, scale)] for ``_observe_probes``."""
+        if self.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            return None
+        scale = self.model_cfg.num_layers * k
+        out: list = []
+        if self._attn_probe_on:
+            try:
+                fn = self._attn_probe_fn(active, off)
+                if not self._attn_probe_warm:
+                    fn(None)
+                    self._attn_probe_warm = True
+                t0, t1 = self._timed([fn])
+                out.append(("attn", t0, t1, scale))
+            except Exception:  # noqa: BLE001 — observability never takes down serving
+                self._attn_probe_on = False
+        if self._moe_probe_on:
+            try:
+                stages = self._moe_probe_fns()
+                if not self._moe_probe_warm:
+                    self._timed(stages)
+                    self._moe_probe_warm = True
+                marks = self._timed(stages)
+                out += [(phase, a, b, scale) for phase, a, b in zip(
+                    ("moe_dispatch", "moe_experts", "moe_combine"), marks, marks[1:])]
+            except Exception:  # noqa: BLE001
+                self._moe_probe_on = False
+        return out
+
+    def _attn_probe_fn(self, active: list[Sequence], off: int) -> Callable:
+        """The decode program's attention at the dispatch's shape: zero
+        queries, the live pool, layer 0's page tables (idle rows unmapped at
+        kv length 1, as the program packs them) and the live lengths."""
+        B, cfg, dev = self.cfg.max_batch_size, self.model_cfg, self.device
+        pts = np.full((B, self.cfg.max_pages_per_seq), -1, np.int32)
+        lens = np.ones((B,), np.int32)
+        for s in active:
+            pts[s.slot, : len(s.pages)] = s.pages
+            lens[s.slot] = len(s.token_ids) + off
+        pts_t, lens_t = self._tensor(pts), self._tensor(lens)
+        q = torch.zeros((B, cfg.num_heads, self.cache.shape[-1]), dtype=cfg.torch_dtype,
+                        device=dev)
+        rows = torch.arange(B + 1, dtype=torch.int32, device=dev)
+        num_seqs = self._tensor(np.array([B], np.int32))
+        return lambda _: self._attn["decode"](
+            q, self.cache, pts_t, lens_t - 1, rows[:B], lens_t,
+            scale=self._attn_probe_scale, cu_q_lens=rows, num_seqs=num_seqs)
+
+    def _moe_probe_fns(self) -> list:
+        """The sorted dispatch's three stages at the decode batch against
+        layer 0's live bank (the EPLB slot bank when EPLB runs; an int8 bank
+        runs the scaled plain experts, as served), uniform routing."""
+        p, cfg, dev = self._run_params(), self.model_cfg, self.device
+        B, kk, dt = self.cfg.max_batch_size, cfg.moe_top_k, cfg.torch_dtype
+        q8 = "moe_wi_q" in p
+        wi, wo = (p["moe_wi_q"][0], p["moe_wo_q"][0]) if q8 else (p["moe_wi"][0], p["moe_wo"][0])
+        S = wi.shape[0]
+        x = torch.zeros((B, cfg.hidden_size), dtype=dt, device=dev)
+        idx = (torch.arange(B * kk, dtype=torch.int32, device=dev) % S).reshape(B, kk)
+        topw = torch.full((B, kk), 1.0 / kk, dtype=dt, device=dev)
+        valid = torch.ones((B, 1), dtype=torch.int32, device=dev)
+        bc = pick_block_size(B * kk, S, pallas=x.is_cuda and not q8)
+        staged: list = []
+
+        def dispatch(_):
+            staged[:] = [dispatch_stage(x, idx, topw, valid, S, bc)]
+            return staged[0]
+
+        def experts(st):
+            if q8:
+                return experts_scaled(st[0], st[4], wi, wo, p["moe_wi_scale"][0],
+                                      p["moe_wo_scale"][0])
+            return experts_stage(st[0], st[4], st[5], wi, wo)
+
+        def combine(ye):
+            st = staged[0]
+            return combine_stage(ye, st[1], st[2], st[3], B)
+
+        return [dispatch, experts, combine]
+
+    def _observe_probes(self, probes: Optional[list]) -> None:
+        """Observe a dispatch's probe times once its results are in (on the
+        card its events have completed by then)."""
+        for phase, a, b, scale in probes or ():
+            try:
+                dt = (b - a) if isinstance(a, float) else a.elapsed_time(b) / 1e3
+            except Exception:  # noqa: BLE001 — a bad reading turns the probe off
+                if phase == "attn":
+                    self._attn_probe_on = False
+                else:
+                    self._moe_probe_on = False
+                continue
+            self.metrics.step_duration.labels(phase=phase).observe(dt * scale)
+
+    @profile_phase("llmd.decode_process")
     def _decode_process(self, rec: dict) -> None:
         """Wait for one in-flight decode call's results and apply them."""
         t1 = time.perf_counter()
+        t1_ns = time.time_ns()
         if rec["event"] is not None:
             rec["event"].synchronize()
+        self._observe_probes(rec["probes"])
         k, B = rec["k"], self.cfg.max_batch_size
         host = rec["host"].numpy().copy()
         t2 = time.perf_counter()
@@ -2004,8 +2304,7 @@ class LLMEngine:
                 # the host automaton follows the landed tokens (the masked
                 # program keeps them inside the grammar: no violation)
                 self._count_violations(s.structured.sync(s.token_ids, s.prompt_len))
-            if s.first_token_time is None:
-                s.first_token_time = now
+            self._first_token(s, now)
             s.maybe_commit_blocks(self.alloc)
             self.stats.total_decode_tokens += len(kept)
             self.stats.decode_tokens_fused += len(kept)
@@ -2014,6 +2313,9 @@ class LLMEngine:
                     s.spec_flips += 1
                 s.spec_armed = True  # fresh tokens landed: re-probe this row
             n_tokens += len(kept)
+            # one progress event a decode call
+            self.flight.record(s.request_id, "decode", n_tokens=len(kept),
+                               generated=s.num_generated)
             if finished:
                 self._retire(s, reason)
             self._outputs.append(EngineOutput(
@@ -2030,12 +2332,15 @@ class LLMEngine:
         self.programs.record_complete(rec["prog"])
         if n_tokens:
             self.metrics.decode_tokens.inc(n_tokens)
-        self.metrics.step_duration.labels(phase="decode_process").observe(t3 - t1)
+        self.metrics.step_duration.labels(phase="decode_process").observe(
+            t3 - t1, exemplar=self._trace_exemplar([s for s, _ in rec["rows"]]))
         if rec["util_cost"] is not None:
             # kept tokens commit; the rest of the B x k slot-steps (idle
             # slots, steps past a stop or a budget, rows gone in flight) pad
             self.util.record(rec["prog"], rec["util_cost"], t3 - t1, committed=n_tokens,
                              compile_counts=self.compile_counts())
+        self._emit_step_spans("decode", [s for s, _ in rec["rows"]], t1_ns,
+                              len(rec["rows"]), n_tokens)
 
     def _retire(self, seq: Sequence, reason: Optional[str]) -> None:
         """Free slot + pages, drop from the live map."""
@@ -2050,6 +2355,21 @@ class LLMEngine:
             self.metrics.spec_acceptance.labels(
                 constrained="yes" if _constrained(seq) else "no").observe(
                 seq.spec_accepted / seq.spec_drafted)
+        # the decision ledger's attributes ride the terminal event (None
+        # values are dropped by the recorder: untouched levers add nothing)
+        decision_attrs = {}
+        if self._decisions_on:
+            decision_attrs = dict(
+                spec_drafted=seq.spec_drafted or None,
+                spec_accepted=seq.spec_accepted if seq.spec_drafted else None,
+                spec_flips=seq.spec_flips or None,
+                cached_tokens=seq.num_cached_prompt or None)
+        self.flight.finish(
+            seq.request_id, event="retired", reason=reason or "",
+            generated=seq.num_generated,
+            ttft_ms=round((seq.first_token_time - seq.arrival_time) * 1e3, 3)
+            if seq.first_token_time is not None else None,
+            **decision_attrs)
         if seq.slot >= 0:
             self.running[seq.slot] = None
             seq.slot = -1

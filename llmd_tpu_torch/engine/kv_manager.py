@@ -236,6 +236,10 @@ class Sequence:
     # prompt order; placeholder occurrence j of token_ids takes row j % k of
     # item j // k. The identities fold into every block key.
     mm_items: list = field(default_factory=list)
+    # the server's request span context (tracing.SpanContext): its trace id
+    # keys the flight record and the step exemplars; a sampled one parents
+    # the engine.step spans
+    trace_ctx: Optional[object] = None
 
     @property
     def num_generated(self) -> int:

@@ -91,14 +91,41 @@ write-back queue within its budget (``_flush_for_drain``). The transfer and
 durable metric families read ``transfer_stats``, the source's counters and
 the queue, as the reference's do.
 
-Not served yet (ROADMAP Queue A): ``/debug/*``, ``/v1/responses`` and
-``/v1/conversations``.
+The observability plane, as the reference's server:
+
+- a generation request opens an ``engine.generate`` span, a child of its
+  ``traceparent`` header when it carries one, and hands the span's context
+  to the engine (the flight record's trace id, the exemplars, the
+  ``engine.step`` spans); the router's ``x-llm-d-tenant`` header (clamped)
+  lands on the flight record. The prefix pull records ``kv_pull``, the
+  durable rung ``kv_durable_get``, the write-back queue ``kv_flush`` and
+  ``/drain`` ``drain_start`` / ``drain_done`` on the engine's recorder;
+- ``GET /debug/requests[?status,model,min_latency_ms,trace,limit]`` and
+  ``GET /debug/requests/{rid}`` (the detail with its phase and decision
+  ledgers; 404 for an unknown id, 400 for a non-numeric filter);
+- ``start()`` builds and starts the engine's ``DeviceMonitor``
+  (``obs/device.py``) unless the engine has one, and ``stop()`` stops the
+  one it built; ``/health`` answers 503 ``{"status": "unhealthy",
+  "reason": ...}`` while the monitor reports a stalled step loop or a dead
+  card; ``GET /debug/profile?seconds=N`` captures one profiler window (400
+  for a non-numeric ``seconds``, 409 while another capture runs, 503 without
+  a monitor, 500 if the capture fails), run on the request's own thread;
+  the tracer starts and stops with the step loop paused between steps.
+
+``POST /v1/responses`` (``input`` a string or a list of role / content
+items, ``max_output_tokens``, an optional ``conversation``) goes through the
+chat path's tokenization, admission gate and generation; ``POST
+/v1/conversations``, ``GET`` / ``DELETE /v1/conversations/{cid}`` and ``GET``
+/ ``POST /v1/conversations/{cid}/items`` keep the reference's pod-local
+store, LRU-capped at 4096 conversations of at most 512 items each (404 for
+an unknown id).
 """
 
 from __future__ import annotations
 
 import itertools
 import json
+from collections import OrderedDict
 import re
 import socket
 import sys
@@ -107,12 +134,13 @@ import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Iterator, Optional
-from urllib.parse import parse_qs
+from urllib.parse import parse_qs, unquote
 
 import numpy as np
 
 from llmd_tpu_torch.core.kv_events import kv_topic
-from llmd_tpu_torch.core.request import HDR_REQUEST_TIMEOUT, SamplingParams, flatten_messages
+from llmd_tpu_torch.core.request import (
+    HDR_REQUEST_TIMEOUT, HDR_TENANT, SamplingParams, clamp_tenant, flatten_messages)
 from llmd_tpu_torch.disagg.encode import (
     VisionRunner,
     is_media_part,
@@ -138,7 +166,10 @@ from llmd_tpu_torch.engine.kv_publisher import KVEventPublisher
 from llmd_tpu_torch.engine.tokenizer import Tokenizer, load_tokenizer
 from llmd_tpu_torch.kvplane import plane_mode, pull_prefix_into, serve_prefix
 from llmd_tpu_torch.models.config import ModelConfig
+from llmd_tpu_torch.obs.device import DeviceMonitor, ProfileBusy
+from llmd_tpu_torch.obs.events import debug_detail_response, debug_list_response
 from llmd_tpu_torch.obs.metrics import Registry, register_engine_server_metrics
+from llmd_tpu_torch.obs.tracing import extract_traceparent, global_tracer
 from llmd_tpu_torch.structured import validate_structured_body
 
 GENERATE_ROUTES = {"/v1/completions": False, "/v1/chat/completions": True}  # path -> chat
@@ -259,6 +290,18 @@ class EngineServer:
         # POST /drain: admissions stop, in-flight requests finish, /health
         # says draining so the router routes around this engine
         self.draining = False
+        self.tracer = global_tracer()  # the engine hop joins the router's trace
+        # the device plane's monitor: built and owned by start() unless the
+        # engine arrived with one
+        self.monitor: Optional[DeviceMonitor] = None
+        self._owns_monitor = False
+        # the Conversations API store: pod-local (the router keeps a
+        # conversation's traffic on this pod), LRU-capped, and each
+        # conversation capped too (the oldest items roll off)
+        self._conversations: "OrderedDict[str, dict]" = OrderedDict()  # guarded-by: _conv_lock
+        self._conv_lock = threading.Lock()
+        self._max_conversations = 4096
+        self._max_conv_items = 512
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
         self._conns: set[socket.socket] = set()  # open client connections
@@ -289,24 +332,40 @@ class EngineServer:
             if self.engine.durable is not None else 0.0)
         wb = self.engine.writeback
         if wb is not None and wb.on_flush is None:
-            wb.on_flush = lambda outcome, n: sm.kv_durable_flush.labels(outcome=outcome).inc(n)
+            def _on_flush(outcome: str, n_blocks: int) -> None:
+                sm.kv_durable_flush.labels(outcome=outcome).inc(n_blocks)
+                self.engine.flight.record_system("kv_flush", outcome=outcome, n_blocks=n_blocks)
+
+            wb.on_flush = _on_flush
 
     def _bump(self, key: str, n: int = 1) -> None:
         with self._transfer_lock:
             self.transfer_stats[key] += n
 
     def start(self) -> None:
-        """Bind (port 0 picks a free one), start the engine loop, the KV-event
-        publisher (raising if it cannot start) and the server."""
+        """Bind (port 0 picks a free one), start the KV-event publisher
+        (raising if it cannot start), the KV transfer source, the device
+        monitor, the engine loop and the server; a failure before the serve
+        loop unbinds."""
         self._httpd = _HTTPServer((self.host, self.port), _make_handler(self))
         self.port = self._httpd.server_address[1]
+        try:
+            self._start_planes()
+        except BaseException:
+            # stop() must not wait on a serve loop that never ran
+            self._httpd.server_close()
+            self._httpd = None
+            raise
+        self.async_engine.start()
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        name="http-server", daemon=True)
+        self._thread.start()
+
+    def _start_planes(self) -> None:
+        """The KV-event publisher, the KV transfer source and the device
+        monitor, for ``start``."""
         if self.publisher is not None:
-            try:
-                self.publisher.start(kv_topic(self.address, self.model_name))
-            except BaseException:
-                self._httpd.server_close()
-                self._httpd = None
-                raise
+            self.publisher.start(kv_topic(self.address, self.model_name))
             self.kv_events_port = self.publisher.port
         if self.kv_transfer_port is not None:
             self.transfer_source = KVTransferSource(port=self.kv_transfer_port)
@@ -318,10 +377,19 @@ class EngineServer:
             self.transfer_source.start()
             self.kv_transfer_port = self.transfer_source.port
             self.transfer_client = KVTransferClient()
-        self.async_engine.start()
-        self._thread = threading.Thread(target=self._httpd.serve_forever,
-                                        name="http-server", daemon=True)
-        self._thread.start()
+        if self.engine.monitor is None:
+            # pending_fn reads the engine's live map without its lock: the
+            # watchdog never waits on the lock a hung step holds
+            eng = self.engine
+            monitor = DeviceMonitor(
+                eng.registry, flight=eng.flight,
+                devices=[eng.device] if eng.device.type == "cuda" else [],
+                pending_fn=lambda: bool(eng.seqs),
+                pause_fn=self.async_engine.run_locked)
+            monitor.start()
+            self.engine.monitor = monitor
+            self._owns_monitor = True
+        self.monitor = self.engine.monitor
 
     def stop(self) -> None:
         if self._httpd is not None:
@@ -339,6 +407,10 @@ class EngineServer:
             self._thread.join(timeout=30)
             self._thread = None
         self.async_engine.stop()
+        if self._owns_monitor and self.monitor is not None:
+            self.monitor.stop()
+            self.engine.monitor = self.monitor = None
+            self._owns_monitor = False
         if self.engine.writeback is not None:
             self.engine.writeback.stop()
         if self.transfer_source is not None:
@@ -391,6 +463,7 @@ class EngineServer:
         self._bump("prefix_pulls")
         t0 = time.monotonic()
         tier = ktp.tier or "peer"
+        peer = f"{ktp.remote_host}:{ktp.remote_port}"
         n, outcome = 0, "miss"
         if tier == "peer" and ktp.remote_host and self.transfer_client is not None:
             with self._transfer_lock:
@@ -408,13 +481,20 @@ class EngineServer:
             dn, d_outcome = self._durable_get(ktp.block_hashes, token_ids, lora_id,
                                               mm_hashes)
             if dn or tier == "durable":
-                n, outcome = dn, d_outcome
-        self.server_metrics.prefix_pull_seconds.labels(outcome=outcome).observe(
-            time.monotonic() - t0)
+                n, outcome, tier = dn, d_outcome, "durable"
+                peer = f"{durable.cfg.host}:{durable.cfg.port}"
+        pull_s = time.monotonic() - t0
+        self.server_metrics.prefix_pull_seconds.labels(outcome=outcome).observe(pull_s)
         if n:
             self._bump("prefix_pull_blocks", n)
         else:
             self._bump("pull_failures")
+        # the pull runs before admission opens the flight record: open it here
+        # (start is idempotent; add_request backfills the model); a durable
+        # fetch keeps the kv_pull name, ``tier`` tells them apart
+        self.engine.flight.start(rid)
+        self.engine.flight.record(rid, "kv_pull", outcome=outcome, blocks=n,
+                                  ms=round(pull_s * 1e3, 3), tier=tier, peer=peer)
         return n
 
     def _durable_get(self, block_hashes, token_ids: list[int],
@@ -423,6 +503,7 @@ class EngineServer:
         cluster store and inject it exactly like a peer pull (hash-chain
         verified against THIS prompt, shape-checked). Returns
         (blocks injected, the pull's outcome)."""
+        t0 = time.monotonic()
         want = [int(h) for h in block_hashes]
         n, blocks, fetch_outcome = self.engine.durable.get(want)
         injected = 0
@@ -440,6 +521,9 @@ class EngineServer:
                 injected, fetch_outcome = 0, "error"
             if injected:
                 self._bump("injected_blocks", injected)
+        self.engine.flight.record_system("kv_durable_get", outcome=fetch_outcome,
+                                         blocks=injected,
+                                         ms=round((time.monotonic() - t0) * 1e3, 3))
         self.server_metrics.kv_durable_get.labels(outcome=fetch_outcome).inc()
         if injected:
             return injected, "hit"
@@ -501,6 +585,11 @@ class EngineServer:
         err = self.async_engine.error
         if err is not None:
             return 503, {"status": "unhealthy", "error": str(err)}
+        reason = self.monitor.unhealthy_reason() if self.monitor is not None else None
+        if reason is not None:
+            # a stalled step loop or a dead card: the same 503, with the
+            # structured reason the pool controller's sweep records
+            return 503, {"status": "unhealthy", **reason}
         return 200, {"status": "ok"}
 
     def models(self) -> tuple[int, dict]:
@@ -641,15 +730,23 @@ class EngineServer:
         except ValueError:
             return 400, {"error": {"message": "timeout_s must be a number"}}
         t0 = time.monotonic()
-        self.draining = True
+        if not self.draining:
+            self.draining = True
+            self.engine.flight.record_system("drain_start", inflight=len(self.engine.seqs))
         while self.engine.seqs and time.monotonic() - t0 < timeout_s:
             time.sleep(0.02)
         drained = not self.engine.seqs
+        flush_info = {}
         if drained and self.engine.writeback is not None:
             # write the resident working set back before retirement, within
             # min(drain budget, the rest of the drain window)
-            self._flush_for_drain(min(self.engine.durable.cfg.drain_budget_s,
-                                      max(0.0, timeout_s - (time.monotonic() - t0))))
+            flushed, abandoned = self._flush_for_drain(
+                min(self.engine.durable.cfg.drain_budget_s,
+                    max(0.0, timeout_s - (time.monotonic() - t0))))
+            flush_info = {"flushed_blocks": flushed, "abandoned_blocks": abandoned}
+        self.engine.flight.record_system(
+            "drain_done", drained=drained, inflight=len(self.engine.seqs),
+            waited_ms=round((time.monotonic() - t0) * 1e3, 1), **flush_info)
         return (200 if drained else 504), {"status": "drained" if drained else "timeout",
                                            "inflight": len(self.engine.seqs)}
 
@@ -733,9 +830,11 @@ class EngineServer:
         except (ValueError, TypeError, AttributeError) as e:  # malformed body
             return 400, {"error": {"message": str(e)}}
 
-    def generate(self, body: dict, chat: bool):
+    def generate(self, body: dict, chat: bool, headers=None):
         """(status, payload) for a JSON answer, or (200, iterator of SSE
-        event dicts) for a stream whose first engine output has arrived."""
+        event dicts) for a stream whose first engine output has arrived.
+        ``headers``: the request's (``traceparent``, the tenant)."""
+        headers = headers if headers is not None else {}
         try:
             # a malformed structured spec (schema, regex, logit_bias) is a
             # 400 before the request counts or reaches the engine
@@ -768,38 +867,60 @@ class EngineServer:
             ktp = KVTransferParams.from_dict(body.get("kv_transfer_params"))
         except (ValueError, TypeError, AttributeError) as e:  # malformed body
             return 400, {"error": {"message": str(e)}}
+        stream = bool(body.get("stream"))
+        span = self.tracer.start_span(
+            "engine.generate", parent=extract_traceparent(dict(headers.items())),
+            **{"llm_d.model": head["model"], "llm_d.prompt_tokens": len(token_ids),
+               "llm_d.stream": stream})
         if ktp.do_remote_prefill and self.transfer_client is not None:
+            span.add_event("kv_transfer.pull")
             self._pull_remote_kv(ktp, token_ids, rid, lora_id, mm_hashes)
         elif (ktp.do_prefix_pull and ktp.block_hashes
               and (self.transfer_client is not None or self.engine.durable is not None)):
             # the router found this prefix on a peer or in the durable store
+            span.add_event("kv_plane.pull")
             self._pull_prefix_kv(rid, ktp, token_ids, lora_id, mm_hashes)
-        stream = bool(body.get("stream"))
+        # the engine's rid is minted here, so the router's tenant header is the
+        # only identity link: open (or backfill) the record with it first
+        self.engine.flight.start(rid, tenant=clamp_tenant(headers.get(HDR_TENANT)))
         try:
             status, result = self._generate(rid, token_ids, sampling, head, chat, stream,
-                                            ktp.do_remote_decode, lora_id, mm_items)
-        except BaseException:
+                                            ktp.do_remote_decode, lora_id, mm_items,
+                                            span.context)
+        except BaseException as e:
+            span.set_error(f"{type(e).__name__}: {e}")
+            span.end()
             self._release_pending_pull(rid)
             raise
         if not isinstance(result, dict):
-            return status, self._released_after(rid, result)
+            return status, self._released_after(rid, result, span)
+        if status != 200:
+            span.set_error(str(result.get("error", {}).get("message", "")))
+        else:
+            usage = result["usage"]
+            span.set_attribute("llm_d.completion_tokens", usage["completion_tokens"])
+            span.set_attribute("llm_d.cached_tokens", usage["cached_tokens"])
+        span.end()
         self._release_pending_pull(rid)
         return status, result
 
-    def _released_after(self, rid: str, events: Iterator[dict]) -> Iterator[dict]:
-        """``events``, then (however the stream ends) the release of the
-        request's pending pull."""
+    def _released_after(self, rid: str, events: Iterator[dict], span) -> Iterator[dict]:
+        """``events``, then (however the stream ends) the end of the request's
+        span and the release of its pending pull."""
         try:
             yield from events
         finally:
             events.close()
+            span.end()
             self._release_pending_pull(rid)
 
     def _generate(self, rid: str, token_ids: list[int], sampling: SamplingParams,
                   head: dict, chat: bool, stream: bool, export: bool,
-                  lora_id: Optional[str] = None, mm_items: Optional[list] = None):
+                  lora_id: Optional[str] = None, mm_items: Optional[list] = None,
+                  trace_ctx=None):
         text = TextStream(self.tokenizer, sampling.stop)
-        outputs = self.async_engine.generate(rid, token_ids, sampling, lora_id, mm_items)
+        outputs = self.async_engine.generate(rid, token_ids, sampling, lora_id, mm_items,
+                                             trace_ctx)
         try:
             first = next(outputs)  # admission errors surface here, as a 400
         except ValueError as e:
@@ -852,6 +973,157 @@ class EngineServer:
                 out = next(outputs)
         finally:
             outputs.close()
+
+
+    # -- the observability routes ----------------------------------------------
+    def debug_requests(self, query: str) -> tuple[int, dict]:
+        """``GET /debug/requests``: the recorder's newest-first summaries."""
+        return debug_list_response(self.engine.flight,
+                                   {k: v[-1] for k, v in parse_qs(query).items()})
+
+    def debug_request(self, rid: str) -> tuple[int, dict]:
+        """``GET /debug/requests/{rid}``: one timeline with its ledgers."""
+        return debug_detail_response(self.engine.flight, rid)
+
+    def debug_profile(self, query: str) -> tuple[int, dict]:
+        """``GET /debug/profile?seconds=N`` (default 2): one profiler window,
+        captured on this request's thread while the engine steps on."""
+        if self.monitor is None:
+            return 503, {"error": {"message": "device monitor not running"}}
+        try:
+            seconds = float(parse_qs(query).get("seconds", ["2"])[-1])
+        except ValueError:
+            return 400, {"error": {"message": "seconds must be numeric"}}
+        try:
+            return 200, self.monitor.capture_profile(seconds)
+        except ProfileBusy as e:
+            return 409, {"error": {"message": str(e)}}
+        except Exception as e:  # noqa: BLE001 — the capture's failure is the answer
+            return 500, {"error": {"message": f"profile capture failed: {e}"}}
+
+    # -- the Responses and Conversations APIs -----------------------------------
+    @staticmethod
+    def _responses_input_to_messages(inp) -> list[dict]:
+        if isinstance(inp, str):
+            return [{"role": "user", "content": inp}]
+        return [{"role": item.get("role", "user"), "content": item.get("content", "")}
+                for item in inp or [] if isinstance(item, dict)]
+
+    def responses(self, body: dict) -> tuple[int, dict]:
+        """``POST /v1/responses`` (the reference's ``_responses``): the
+        conversation's items (if one is named) then ``input`` as chat
+        messages, through ``generate`` as a chat request; the exchange is
+        appended to the conversation."""
+        conv_id = body.get("conversation")
+        with self._conv_lock:
+            conv = self._conversations.get(conv_id) if conv_id else None
+            history = list(conv["items"]) if conv is not None else []
+        if conv_id and conv is None:
+            return 404, {"error": {"message": f"unknown conversation {conv_id!r}"}}
+        new_msgs = self._responses_input_to_messages(body.get("input", ""))
+        try:
+            max_out = int(body.get("max_output_tokens", body.get("max_tokens", 16)))
+        except (TypeError, ValueError) as e:
+            return 400, {"error": {"message": str(e)}}
+        chat_body = {"model": body.get("model", self.model_name),
+                     "messages": history + new_msgs, "max_tokens": max_out,
+                     "temperature": body.get("temperature", 1.0)}
+        if body.get("ignore_eos"):
+            chat_body["ignore_eos"] = True
+        # structured-output fields ride through to the shared sampling parse
+        for key in ("response_format", "guided_choice", "guided_regex", "logit_bias"):
+            if body.get(key) is not None:
+                chat_body[key] = body[key]
+        status, out = self.generate(chat_body, chat=True)
+        if status != 200:
+            return status, out
+        choice = out["choices"][0]
+        text, finish = choice["message"]["content"], choice["finish_reason"]
+        state = "completed" if finish in (None, "stop", "eos") else "incomplete"
+        resp = {
+            "id": f"resp_{uuid.uuid4().hex[:12]}", "object": "response",
+            "created_at": int(time.time()), "model": chat_body["model"], "status": state,
+            "output": [{
+                "id": f"msg_{uuid.uuid4().hex[:12]}", "type": "message",
+                "role": "assistant", "status": "completed",
+                "content": [{"type": "output_text", "text": text, "annotations": []}]}],
+            "max_output_tokens": max_out,
+            "usage": {"input_tokens": out["usage"]["prompt_tokens"],
+                      "output_tokens": out["usage"]["completion_tokens"],
+                      "total_tokens": out["usage"]["total_tokens"]},
+        }
+        if state == "incomplete":
+            resp["incomplete_details"] = {"reason": "max_output_tokens"}
+        if conv is not None:
+            with self._conv_lock:
+                conv["items"].extend(new_msgs)
+                conv["items"].append({"role": "assistant", "content": text})
+                self._conv_trim(conv)
+        if conv_id:
+            resp["conversation"] = conv_id
+        return 200, resp
+
+    def _conv_trim(self, conv: dict) -> None:
+        if len(conv["items"]) > self._max_conv_items:
+            del conv["items"][: len(conv["items"]) - self._max_conv_items]
+
+    def conv_create(self, body: dict) -> tuple[int, dict]:
+        """``POST /v1/conversations``: a router may pass the ``id`` (so its
+        sticky routing by id is deterministic); otherwise a fresh one."""
+        cid = str(body.get("id") or f"conv_{uuid.uuid4().hex[:12]}")
+        conv = {"id": cid, "object": "conversation", "created_at": int(time.time()),
+                "items": list(body.get("items", []) or []),
+                "metadata": body.get("metadata") or {}}
+        self._conv_trim(conv)
+        with self._conv_lock:
+            self._conversations[cid] = conv
+            while len(self._conversations) > self._max_conversations:
+                self._conversations.popitem(last=False)
+        return 200, {k: v for k, v in conv.items() if k != "items"}
+
+    def _conv(self, cid: str) -> Optional[dict]:
+        """The conversation (touched for the LRU), or None. Call under
+        ``_conv_lock``."""
+        conv = self._conversations.get(cid)
+        if conv is not None:
+            self._conversations.move_to_end(cid)
+        return conv
+
+    def conv_get(self, cid: str) -> tuple[int, dict]:
+        with self._conv_lock:
+            conv = self._conv(cid)
+            if conv is None:
+                return 404, {"error": {"message": "not found"}}
+            return 200, {k: v for k, v in conv.items() if k != "items"}
+
+    def conv_delete(self, cid: str) -> tuple[int, dict]:
+        with self._conv_lock:
+            conv = self._conversations.pop(cid, None)
+        if conv is None:
+            return 404, {"error": {"message": "not found"}}
+        return 200, {"id": conv["id"], "object": "conversation.deleted", "deleted": True}
+
+    def conv_add_items(self, cid: str, body: dict) -> tuple[int, dict]:
+        items = body.get("items", [])
+        with self._conv_lock:
+            conv = self._conv(cid)
+            if conv is None:
+                return 404, {"error": {"message": "not found"}}
+            conv["items"].extend(items)
+            self._conv_trim(conv)
+        return 200, {"object": "list", "data": items}
+
+    def conv_list_items(self, cid: str) -> tuple[int, dict]:
+        with self._conv_lock:
+            conv = self._conv(cid)
+            if conv is None:
+                return 404, {"error": {"message": "not found"}}
+            return 200, {"object": "list", "data": list(conv["items"])}
+
+
+_CONV_ITEMS = re.compile(r"^/v1/conversations/([^/]+)/items$")
+_CONV = re.compile(r"^/v1/conversations/([^/]+)$")
+_DEBUG_REQUEST = re.compile(r"^/debug/requests/([^/]+)$")
 
 
 def _usage(n_prompt: int, n_out: int, cached: int) -> dict:
@@ -938,7 +1210,7 @@ def _make_handler(server: EngineServer) -> type:
             return body
 
         def do_GET(self) -> None:  # noqa: N802 — http.server's spelling
-            path = self.path.partition("?")[0]
+            path, _, query = self.path.partition("?")
             if path == "/health":
                 self._send(*server.health())
             elif path == "/v1/models":
@@ -946,6 +1218,26 @@ def _make_handler(server: EngineServer) -> type:
             elif path == "/metrics":
                 self._send_bytes(200, server.metrics_text().encode(),
                                  "text/plain; charset=utf-8")
+            elif path == "/debug/requests":
+                self._send(*server.debug_requests(query))
+            elif m := _DEBUG_REQUEST.match(path):
+                self._send(*server.debug_request(unquote(m.group(1))))
+            elif path == "/debug/profile":
+                self._send(*server.debug_profile(query))
+            elif m := _CONV_ITEMS.match(path):
+                self._send(*server.conv_list_items(unquote(m.group(1))))
+            elif m := _CONV.match(path):
+                self._send(*server.conv_get(unquote(m.group(1))))
+            else:
+                self._send(404, {"error": {"message": f"no route {path}"}})
+
+        def do_DELETE(self) -> None:  # noqa: N802
+            path = self.path.partition("?")[0]
+            n = int(self.headers.get("Content-Length") or 0)
+            if n:
+                self.rfile.read(n)
+            if m := _CONV.match(path):
+                self._send(*server.conv_delete(unquote(m.group(1))))
             else:
                 self._send(404, {"error": {"message": f"no route {path}"}})
 
@@ -957,7 +1249,8 @@ def _make_handler(server: EngineServer) -> type:
                 if blocked is not None:
                     self._send(*blocked)
                 elif body is not None:
-                    status, result = server.generate(body, chat=GENERATE_ROUTES[path])
+                    status, result = server.generate(body, chat=GENERATE_ROUTES[path],
+                                                     headers=self.headers)
                     if isinstance(result, dict):
                         self._send(status, result)
                     else:
@@ -973,6 +1266,24 @@ def _make_handler(server: EngineServer) -> type:
                     self._send(*blocked)
                 elif body is not None:
                     self._send(*server.embeddings(body))
+            elif path == "/v1/responses":
+                blocked = server.admission_block(self.headers)
+                body = self._body()
+                if blocked is not None:
+                    self._send(*blocked)
+                elif body is not None:
+                    self._send(*server.responses(body))
+            elif path == "/v1/conversations":
+                n = int(self.headers.get("Content-Length") or 0)
+                try:  # an unreadable body counts as empty, as the reference's
+                    body = json.loads(self.rfile.read(n)) if n else {}
+                except ValueError:
+                    body = {}
+                self._send(*server.conv_create(body if isinstance(body, dict) else {}))
+            elif m := _CONV_ITEMS.match(path):
+                body = self._body()
+                if body is not None:
+                    self._send(*server.conv_add_items(unquote(m.group(1)), body))
             elif path in LORA_ROUTES:
                 body = self._body()
                 if body is not None:

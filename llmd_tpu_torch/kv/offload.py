@@ -144,8 +144,10 @@ class KVOffloadConnector:
         event_sink: Optional[Callable[[list[KVEvent]], None]] = None,
         pages_per_layer: Optional[int] = None,
         metrics=None,
+        flight=None,
     ) -> None:
         self.store = CPUOffloadStore(num_cpu_chunks, fs_backend, event_sink, metrics=metrics)
+        self.flight = flight  # obs.events.FlightRecorder or None
         self.staging_blocks = max(1, staging_blocks)
         # P, to gather one logical page's rows across layers; None = one layer
         self.pages_per_layer = pages_per_layer
@@ -163,6 +165,8 @@ class KVOffloadConnector:
         self.store.put(block_hash, block[0])
         if self.writeback is not None:
             self.writeback.offer([block_hash], block)
+        if self.flight is not None:
+            self.flight.record_system("kv_offload", n_blocks=1, path="evict")
 
     def demote_batch(self, cache: torch.Tensor, pairs: list[tuple[int, int]]) -> None:
         """Offload a batch of demoted pages in ONE gather to the host.
@@ -178,6 +182,8 @@ class KVOffloadConnector:
             self.store.put(h, block)
         if self.writeback is not None:
             self.writeback.offer([h for h, _ in pairs], arr)
+        if self.flight is not None:
+            self.flight.record_system("kv_offload", n_blocks=len(pairs), path="drain")
 
     # ------------------------------------------------------------------ match
     def match_suffix(self, block_hashes: list[int]) -> int:
@@ -196,8 +202,8 @@ class KVOffloadConnector:
 
         Returns (cache, n_loaded): the same tensor, and a count that may stop
         short if a block vanished (the FS evictor raced us); callers
-        recompute the remainder. ``request_id`` is the reference's (its
-        flight recorder's attribution; the port has none yet)."""
+        recompute the remainder. ``request_id``: the request whose flight
+        record gets the ``kv_reload`` event."""
         S = self.staging_blocks
         P = self.pages_per_layer or cache.shape[0] - 1
         L = (cache.shape[0] - 1) // P
@@ -225,4 +231,7 @@ class KVOffloadConnector:
                 else:
                     stacked[i].copy_(a)
             insert_blocks(cache, pids, stacked, P)
+        if self.flight is not None and request_id and n_loaded:
+            self.flight.record(request_id, "kv_reload", n_blocks=n_loaded,
+                               bytes=sum(a.numel() * a.element_size() for a in arrays))
         return cache, n_loaded

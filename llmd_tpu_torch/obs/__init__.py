@@ -1,1 +1,3 @@
-"""Observability: the analytic cost model and the utilization / goodput ledger."""
+"""Observability: the metric families, the analytic cost model and
+utilization / goodput ledger, tracing, the flight recorder and its phase and
+decision ledgers, and the CUDA device plane."""

@@ -8,22 +8,27 @@ Prometheus text format) and every engine and engine-server family carry the
 reference's names, types, help strings and label names, so a router or a
 dashboard reads a port engine's ``/metrics`` as it reads a JAX engine's.
 ``vllm:lora_requests_info`` is rebuilt by the server at every scrape from
-the engine's LoRA registry (its labels are the data). Families of features
-the port does not serve yet (the decision plane) are registered all the same
-and stay at zero, as they do in a reference engine with the feature off. The
-router, pool and device families are not copied: no engine registers them.
+the engine's LoRA registry (its labels are the data). The device plane's
+families (``DeviceMetrics``) are registered on the engine's registry by the
+server's ``DeviceMonitor`` (``obs/device.py``). The router and pool families
+are not copied: no engine registers them.
 
 * Thread-safe: the engine loop mutates families while HTTP threads scrape;
   every mutation and the exposition walk take the registry lock.
 * Families are idempotent: registering the same (name, type) twice returns
   the existing family; a type mismatch raises.
 * ``set_labels_function`` attaches a scrape-time callback to a labeled
-  family (the utilization gauges).
+  family (the utilization and HBM gauges).
+* OpenMetrics exemplars: ``Histogram.observe(v, exemplar={"trace_id": ...})``
+  keeps the latest exemplar of the bucket ``v`` lands in, and the exposition
+  appends `` # {trace_id="..."} <value> <unix ts>`` to that bucket's line, as
+  the reference's does, so a dashboard jumps from a slow bucket to a trace.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 __all__ = [
@@ -36,8 +41,10 @@ __all__ = [
     "escape_help",
     "EngineMetrics",
     "EngineServerMetrics",
+    "DeviceMetrics",
     "register_engine_metrics",
     "register_engine_server_metrics",
+    "register_device_metrics",
 ]
 
 # Default latency buckets (seconds), the reference's: engine steps land in
@@ -146,22 +153,25 @@ class _Family:
         raise NotImplementedError
 
     # -- exposition -------------------------------------------------------
-    def samples(self) -> Iterable[Tuple[str, str, float]]:
-        """Yield (suffix, rendered-labels, value) triples."""
+    def samples(self) -> Iterable[Tuple[str, str, float, Optional[tuple]]]:
+        """Yield (suffix, rendered-labels, value, exemplar) quads; the
+        exemplar is None except on histogram buckets that captured one (a
+        (labels-dict, value, unix-ts) triple)."""
         if self._fn is not None:
-            yield "", "", float(self._fn())
+            yield "", "", float(self._fn()), None
             return
         if self._labels_fn is not None:
             for labels, value in self._labels_fn():
                 if set(labels) != set(self.labelnames):
                     continue  # malformed pair: skip rather than corrupt scrape
                 key = tuple(str(labels[n]) for n in self.labelnames)
-                yield "", _render_labels(self.labelnames, key), float(value)
+                yield "", _render_labels(self.labelnames, key), float(value), None
             return
         with self._lock:  # snapshot: .labels() can insert mid-scrape
             children = list(self._children.items())
         for key, child in children:
-            yield from self._child_samples(key, child)
+            for s in self._child_samples(key, child):
+                yield s if len(s) == 4 else (*s, None)
 
     def _child_samples(self, key, child):  # pragma: no cover - overridden
         raise NotImplementedError
@@ -244,8 +254,8 @@ class _GaugeChild:
 
 class Histogram(_Family):
     """Cumulative-bucket histogram: `_bucket{le=...}` series are cumulative
-    counts, closed by `le="+Inf"`, plus `_sum` and `_count`. (The
-    reference's OpenMetrics exemplars come with tracing.)"""
+    counts, closed by `le="+Inf"`, plus `_sum` and `_count`, each bucket
+    with its latest exemplar (if one was given)."""
 
     typ = "histogram"
 
@@ -259,17 +269,19 @@ class Histogram(_Family):
     def _new_child(self):
         return _HistogramChild(self.buckets, self._lock)
 
-    def observe(self, value: float) -> None:
-        self._default().observe(value)
+    def observe(self, value: float, exemplar: Optional[Dict[str, str]] = None) -> None:
+        self._default().observe(value, exemplar=exemplar)
 
     def _child_samples(self, key, child):
         cum = 0
-        for b, c in zip(self.buckets, child.counts):
+        for i, (b, c) in enumerate(zip(self.buckets, child.counts)):
             cum += c
             yield ("_bucket",
-                   _render_labels(self.labelnames, key, (("le", _fmt(b)),)), cum)
+                   _render_labels(self.labelnames, key, (("le", _fmt(b)),)), cum,
+                   child.exemplars[i])
         yield ("_bucket",
-               _render_labels(self.labelnames, key, (("le", "+Inf"),)), child.count)
+               _render_labels(self.labelnames, key, (("le", "+Inf"),)), child.count,
+               child.exemplars[len(self.buckets)])
         yield "_sum", _render_labels(self.labelnames, key), child.sum
         yield "_count", _render_labels(self.labelnames, key), child.count
 
@@ -279,18 +291,24 @@ class _HistogramChild:
         self._buckets = buckets
         self._lock = lock
         self.counts = [0] * len(buckets)
+        # latest (labels, value, unix-ts) per bucket, +Inf included
+        self.exemplars: List[Optional[tuple]] = [None] * (len(buckets) + 1)
         self.sum = 0.0
         self.count = 0
 
-    def observe(self, value: float) -> None:
+    def observe(self, value: float, exemplar: Optional[Dict[str, str]] = None) -> None:
         v = float(value)
         with self._lock:
             self.sum += v
             self.count += 1
+            idx = len(self._buckets)  # +Inf unless a finite bucket catches it
             for i, b in enumerate(self._buckets):
                 if v <= b:
                     self.counts[i] += 1
+                    idx = i
                     break
+            if exemplar:
+                self.exemplars[idx] = (dict(exemplar), v, time.time())
 
 
 class Summary(_Family):
@@ -374,18 +392,25 @@ class Registry:
         with self._lock:
             return [(name + suffix, labels, value)
                     for name, fam in self._families.items()
-                    for suffix, labels, value in fam.samples()]
+                    for suffix, labels, value, _ex in fam.samples()]
 
     def expose(self) -> str:
-        """Render the Prometheus text exposition format."""
+        """Render the Prometheus text exposition format (with OpenMetrics
+        exemplar annotations on histogram buckets that captured one)."""
         lines: List[str] = []
         with self._lock:
             for name, fam in self._families.items():
                 if fam.help:
                     lines.append(f"# HELP {name} {escape_help(fam.help)}")
                 lines.append(f"# TYPE {name} {fam.typ}")
-                for suffix, labels, value in fam.samples():
-                    lines.append(f"{name}{suffix}{labels} {_fmt(value)}")
+                for suffix, labels, value, ex in fam.samples():
+                    line = f"{name}{suffix}{labels} {_fmt(value)}"
+                    if ex is not None:
+                        ex_labels, ex_value, ex_ts = ex
+                        rendered = ",".join(f'{k}="{escape_label_value(v)}"'
+                                            for k, v in ex_labels.items())
+                        line += f" # {{{rendered}}} {_fmt(ex_value)} {ex_ts:.3f}"
+                    lines.append(line)
         return "\n".join(lines) + "\n"
 
 
@@ -697,9 +722,60 @@ class EngineServerMetrics:
             "Durable-store circuit breaker (0 closed, 0.5 half-open, 1 open)")
 
 
+class DeviceMetrics:
+    """Families owned by DeviceMonitor (``obs/device.py``): HBM telemetry,
+    liveness, the step watchdog and profiler captures, with the reference's
+    names and help strings (``fabric`` names the card's liveness here)."""
+
+    def __init__(self, reg: Registry):
+        self.registry = reg
+        self.hbm_bytes_in_use = reg.gauge(
+            "llmd_tpu:device_hbm_bytes_in_use",
+            "HBM bytes currently allocated, per device "
+            "(absent on backends without memory_stats, e.g. CPU)",
+            labelnames=("device",))
+        self.hbm_peak_bytes = reg.gauge(
+            "llmd_tpu:device_hbm_peak_bytes",
+            "Peak HBM bytes allocated since process start, per device",
+            labelnames=("device",))
+        self.hbm_limit_bytes = reg.gauge(
+            "llmd_tpu:device_hbm_limit_bytes",
+            "HBM allocation limit, per device",
+            labelnames=("device",))
+        self.fabric_alive = reg.gauge(
+            "llmd_tpu:device_fabric_alive",
+            "1 while the fabric liveness probe completes within its timeout, "
+            "0 once a probe wedges or fails")
+        self.fabric_probe_failures = reg.counter(
+            "llmd_tpu:device_fabric_probe_failures_total",
+            "Fabric liveness probes that timed out or raised")
+        self.fabric_probe_seconds = reg.histogram(
+            "llmd_tpu:device_fabric_probe_seconds",
+            "Wall time of successful fabric liveness probes",
+            buckets=(0.001, 0.005, 0.025, 0.1, 0.5, 2.0, 10.0, 30.0))
+        self.engine_stalled = reg.gauge(
+            "llmd_tpu:engine_stalled",
+            "1 while the step watchdog sees pending work with no dispatch-"
+            "loop heartbeat for LLMD_WATCHDOG_STALL_S, else 0")
+        self.engine_stalls = reg.counter(
+            "llmd_tpu:engine_stalls_total",
+            "Stall episodes detected by the step watchdog")
+        self.heartbeat_age = reg.gauge(
+            "llmd_tpu:engine_heartbeat_age_seconds",
+            "Seconds since the engine dispatch loop last stamped its "
+            "heartbeat (scrape-time)")
+        self.profile_captures = reg.counter(
+            "llmd_tpu:profile_captures_total",
+            "On-demand jax.profiler windows captured via /debug/profile")
+
+
 def register_engine_metrics(reg: Registry) -> EngineMetrics:
     return EngineMetrics(reg)
 
 
 def register_engine_server_metrics(reg: Registry) -> EngineServerMetrics:
     return EngineServerMetrics(reg)
+
+
+def register_device_metrics(reg: Registry) -> DeviceMetrics:
+    return DeviceMetrics(reg)

@@ -73,6 +73,11 @@ assert {"llmd_tpu_torch.disagg.transfer", "llmd_tpu_torch.kv.dtypes",
 assert "llmd_tpu_torch.models.lora" in names
 # and multimodal serving's: the vision tower and the encode worker
 assert {"llmd_tpu_torch.models.vision", "llmd_tpu_torch.disagg.encode"} <= set(names)
+# and the observability plane's: tracing, the flight recorder, the phase and
+# decision ledgers, the device plane
+assert {"llmd_tpu_torch.obs.tracing", "llmd_tpu_torch.obs.events",
+        "llmd_tpu_torch.obs.attribution", "llmd_tpu_torch.obs.decisions",
+        "llmd_tpu_torch.obs.device"} <= set(names)
 assert "zmq" not in sys.modules
 print(len(names))
 """
@@ -129,6 +134,18 @@ def test_multimodal_modules_stand_alone(module):
     """The tower and the encode worker keep their own copies of the
     reference's helpers: their sources import nothing of jax, the reference
     package, aiohttp or msgpack (the import with all of them blocked is the
+    subprocess above)."""
+    src = (REPO / "llmd_tpu_torch" / module).read_text()
+    assert not _FORBIDDEN.search(src)
+    assert not re.search(r"^\s*(import|from)\s+(aiohttp|msgpack)\b", src, re.M)
+
+
+@pytest.mark.parametrize("module", ["obs/tracing.py", "obs/events.py", "obs/attribution.py",
+                                    "obs/decisions.py", "obs/device.py", "engine/server.py"])
+def test_observability_modules_stand_alone(module):
+    """The observability plane keeps its own copies of the reference's
+    tracing, flight recorder and ledgers: no jax, no reference package, no
+    aiohttp or msgpack in their sources (the blocked import is the
     subprocess above)."""
     src = (REPO / "llmd_tpu_torch" / module).read_text()
     assert not _FORBIDDEN.search(src)

@@ -11,6 +11,8 @@ installed, ``--noconftest`` skips it):
     python -m pytest --noconftest -m gpu tests/test_torch_kernel_gpu.py
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1258,3 +1260,159 @@ def test_vision_combined_pd_request_runs_k1(cuda):
     assert k1 == mma == cfg.num_layers * forwards > 0
     assert paged_attention_ref.calls == plain
     assert server._vision is not None and server._vision.device.type == "cuda"
+
+
+# ------------------------------------------------- the observability plane
+
+def _probe_run(cuda, model, probes: bool, graph: bool, kw: dict):
+    """bf16 ``model`` at decode_steps 1 with a probe every 4th dispatch (or
+    none): the greedy tokens, the kernels' launches by instance, the probes
+    taken and the plain versions' calls."""
+    from llmd_tpu_torch.core.request import SamplingParams
+
+    eng = _engine(model, cuda, decode_graph=graph, decode_steps=1, **kw)
+    eng._attn_probe_every = 4
+    if not probes:
+        eng._attn_probe_on = eng._moe_probe_on = False
+    plain = (paged_attention_ref.calls, mla_decode_ref.calls, ragged_grouped_gemm_ref.launches)
+    before = _launches()
+    out = eng.generate([list(range(5, 40)), list(range(50, 70))],
+                       SamplingParams(max_tokens=30, temperature=0.0))
+    after = _launches()
+    counts = {n: {i: after[n][1][i] - before[n][1][i] for i in after[n][1]} for n in after}
+    taken = sum(v for name, labels, v in eng.registry.collect()
+                if name == "llmd_tpu:engine_step_duration_seconds_count" and "attn" in labels)
+    assert (paged_attention_ref.calls, mla_decode_ref.calls,
+            ragged_grouped_gemm_ref.launches) == plain  # no plain version ran
+    assert eng._attn_probe_on == probes
+    return out, counts, taken, eng
+
+
+@pytest.mark.parametrize("model,kw,kernel", [
+    ("tiny", {}, "paged_attention"), ("tiny-mla", {}, "mla_decode"),
+    ("tiny-moe", {"moe_dispatch": "sorted"}, "ragged_grouped_gemm")])
+def test_phase_probes_launch_the_served_instances(cuda, model, kw, kernel):
+    """The attn probe launches the decode program's attention (K1, or K3 on
+    MLA), the MoE probe the sorted dispatch's experts (K2), each on the
+    instance the served path launches (``mma`` / ``wgmma`` for bf16 at these
+    widths, K3 ``simt`` at tiny-mla's), never a plain version; probes
+    between graph replays leave the replayed tokens equal to an eager
+    engine's without probes. The first probe's warm-up run is one more
+    launch set than the probes observed."""
+    got, with_probes, taken, eng = _probe_run(cuda, model, True, True, kw)
+    ref, without, _, _ = _probe_run(cuda, model, False, False, kw)
+    assert got == ref
+    assert taken >= 2 and eng.stats.decode_graph_replays > 8
+    (instance,) = [i for i, n in without[kernel].items() if n]  # the served instance
+    extra = {n: {i: with_probes[n][i] - without[n][i] for i in with_probes[n]}
+             for n in with_probes}
+    per_run = 2 if kernel == "ragged_grouped_gemm" else 1  # experts: wi then wo
+    assert extra[kernel][instance] == per_run * (taken + 1), extra
+    assert sum(extra[kernel].values()) == extra[kernel][instance]
+    if kernel == "mla_decode":
+        assert sum(extra["paged_attention"].values()) == 0  # K3 serves MLA decode
+    if kernel == "ragged_grouped_gemm":
+        assert extra["paged_attention"]["mma"] == taken + 1
+        assert eng._moe_probe_on
+
+
+def test_capture_profile_holds_k1_events_and_phases(cuda, tmp_path):
+    """A ``capture_profile`` window over served decode on the card: its trace
+    holds K1's kernel events and the engine's ``llmd.decode_dispatch``
+    range; the HBM gauges read the caching allocator."""
+    import json
+    import threading
+
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.obs.device import DeviceMonitor
+    from llmd_tpu_torch.obs.metrics import Registry
+
+    eng = _engine("tiny", cuda, decode_steps=2)
+    reg = Registry()
+    mon = DeviceMonitor(reg, devices=[cuda], stall_s=0, probe_interval_s=0, poll_s=0.05,
+                        profile_dir=str(tmp_path))
+    mon.start()
+    stop = threading.Event()
+
+    def serve():
+        i = 0
+        while not stop.is_set():
+            eng.generate([list(range(5 + i, 60 + i))], SamplingParams(max_tokens=40,
+                                                                     temperature=0.0))
+            i += 1
+
+    t = threading.Thread(target=serve)
+    t.start()
+    try:
+        time.sleep(0.5)  # the first capture of the decode graph is done
+        result = mon.capture_profile(1.0)
+    finally:
+        stop.set()
+        t.join()
+    time.sleep(0.2)
+    text = reg.expose()
+    mon.stop()
+    trace = json.loads((tmp_path / result["dir"] / "trace.json").read_text())
+    names = [e.get("name", "") for e in trace["traceEvents"]]
+    assert any("paged_attention" in n for n in names)
+    assert "llmd.decode_dispatch" in names
+    limit = torch.cuda.get_device_properties(cuda).total_memory
+    assert f'llmd_tpu:device_hbm_limit_bytes{{device="cuda:{cuda.index}"}} {limit}' in text
+
+
+def test_profile_windows_over_replayed_decode_behind_the_server(cuda, tmp_path, monkeypatch):
+    """Repeated ``/debug/profile`` windows while the port server's engine
+    replays its decode graph for 8 clients: every window answers 200 and
+    holds K1 kernel events. The tracer starts and stops with the step loop
+    paused (stopping it while the engine thread replays a graph can
+    deadlock the two threads)."""
+    import json
+    import threading
+    import urllib.request
+
+    from llmd_tpu_torch.engine import EngineConfig
+    from llmd_tpu_torch.engine.server import EngineServer
+    from llmd_tpu_torch.models import get_model_config
+
+    monkeypatch.setenv("LLMD_PROFILE_DIR", str(tmp_path))
+    monkeypatch.setenv("LLMD_WATCHDOG_STALL_S", "0")
+    monkeypatch.setenv("LLMD_FABRIC_PROBE_INTERVAL_S", "1")
+    server = EngineServer(get_model_config("tiny"), EngineConfig(
+        page_size=8, num_pages=256, max_model_len=256, max_batch_size=8, prefill_chunk=32,
+        decode_steps=4), model_name="test/tiny", host="127.0.0.1", port=0, device=cuda)
+    server.start()
+    base = f"http://{server.address}"
+    stop = threading.Event()
+
+    def post(body):
+        req = urllib.request.Request(base + "/v1/completions", json.dumps(body).encode(),
+                                     {"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status
+
+    def client(i):
+        while not stop.is_set():
+            post({"prompt_token_ids": list(range(3 + i, 40 + i)), "max_tokens": 120,
+                  "temperature": 0.0, "ignore_eos": True})
+
+    clients = [threading.Thread(target=client, args=(i,), daemon=True) for i in range(8)]
+    for t in clients:
+        t.start()
+    windows = []
+    try:
+        time.sleep(1.0)  # the decode graph is captured and replaying
+        for i in range(12):
+            with urllib.request.urlopen(
+                    f"{base}/debug/profile?seconds={0.2 + 0.1 * (i % 3)}", timeout=120) as r:
+                status, cap = r.status, json.loads(r.read())
+            events = json.loads((tmp_path / cap["dir"] / "trace.json").read_text())
+            windows.append((status, sum(1 for e in events["traceEvents"]
+                                        if e.get("cat") == "kernel"
+                                        and "paged_attention" in e.get("name", ""))))
+        assert server.engine.stats.decode_graph_replays > 12
+    finally:
+        stop.set()
+        for t in clients:
+            t.join(timeout=60)
+        server.stop()
+    assert all(status == 200 and k1 > 0 for status, k1 in windows), windows

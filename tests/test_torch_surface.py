@@ -9,9 +9,10 @@ Durations are not compared.
 
 Not compared, by design: the goodput and compile counters (the port's
 unified program runs exactly its real rows, the reference's pads them, and a
-compile is a jit cache entry there and a graph capture here), and the
-reference's sampled attention probe (``step_duration{phase="attn"}``, every
-64th decode dispatch; not ported, ROADMAP), which these scripts never reach.
+compile is a jit cache entry there and a graph capture here). The sampled
+phase probes (``step_duration{phase="attn"|"moe_*"}``, every 64th decode
+dispatch) are not reached by these scripts; ``tests/test_torch_phase_probes.py``
+holds their counts to the reference's.
 """
 
 import dataclasses
