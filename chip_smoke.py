@@ -259,6 +259,42 @@ thread's stack on stderr):
             the probes' times per layer beside the time phase's K1 rows.
             The phase's and the whole run's seconds close it.
 
+19. launch  the engine's launch surface (``phase_launch``). The tuner first:
+            ``tools/bench.py --quantize none --tune-attn --attn-tune-file T``
+            in this process times K1's candidate plans at the bench's decode
+            shape (64 rows over a 64-page table: ``bkv`` giving 1, 2, 4, 8, 16
+            splits and the policy's plan), merges the winner into T and runs
+            its window from T (``bench:`` line with ``attn_tune_hash`` equal
+            to T's; each candidate's ms, the winner beside the policy's plan).
+            K1 under T's plan at that shape against the plain version in
+            float32: <= 1 bf16 rounding unit, controls above it. llama-1b bf16
+            at the bench's shape built from T against one without it: launch
+            counts equal, tokens identical when the winner is the policy's
+            plan, else the identical share reported. The modes in float32
+            (``generate``, graphs captured): llama-1b ``attn_impl="reference"``
+            = ``"auto"`` with 0 K1 launches; moe-wide-mla at 2 layers likewise
+            with 0 K1 and 0 K3 launches; moe-wide-sim at 4 layers
+            ``moe_matmul="einsum"`` = ``"pallas"`` with 0 K2 / K4 launches on
+            the sorted and the einsum dispatch (pallas all on simt). DP ranks
+            on one card: a ``WideEPEngineGroup`` of 2 rank frontends over one
+            llama-1b engine, f32 and bf16, 8 requests over both ports: f32
+            tokens = a ``dp_ranks=1`` engine's, each rank's pages in its
+            partition, each rank's KV events (ZMQ) its own prompts' blocks
+            only, decode tok/s of both; a ``DPEngineGroup`` of 2 rank
+            processes (rank 0 here with the coordinator, rank 1 ``python
+            tests/torch_dp_rank_worker.py``): both serve, coordinator waves =
+            the two loops' steps. Meanwhile a replica started as a pool
+            launches one (``python -m llmd_tpu_torch.engine.serve --model
+            llama-1b --port P --compile-cache-dir D`` + speculation,
+            structured, chain-depth, ``--attn-tune-file T`` and
+            ``--predictor-train-url`` of a loopback sink) compiles K1 into D;
+            it serves 8 completions, the sink receives 8 rows with every
+            feature column, its ``/metrics`` backend gauge carries T's hash;
+            a relaunch on D compiles nothing (both start times printed).
+            Last, with every engine of the phase closed or dropped and no
+            cycle collection, ``torch.cuda.memory_allocated()`` is back at
+            the phase's baseline. The phase's seconds close it.
+
 It ends with a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. ``--report PATH`` also writes every phase's details (nvcc's register
 report, per-check errors) as JSON. Without a CUDA device it exits 1 and prints
@@ -272,7 +308,6 @@ import contextlib
 import dataclasses
 import faulthandler
 import functools
-import gc
 import itertools
 import json
 import os
@@ -290,6 +325,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from llmd_tpu_torch.tools.timing import cuda_ms  # spin-kernel-held CUDA-event timing
 
 REPO = Path(__file__).resolve().parent
 # H100 SXM data-sheet peaks (dense): HBM3 bytes/s, and FLOP/s by input type —
@@ -310,9 +347,6 @@ FORWARD_ATOL = 1e-3
 # grouped GEMMs in float32: unit-scale outputs summed over D <= 1024 in another
 # order than the plain version's cuBLAS product.
 GEMM_F32_ATOL = 1e-4
-# cycles of the spin kernel queued before each timed run (~1 ms on an H100):
-# longer than the host takes to enqueue the run, so the events time the card
-HOLD_CYCLES = 2_000_000
 # the whole run's limit, the kernels' build included
 DEADLINE_S = 1140
 H, HK, D, PS = 32, 8, 64, 16  # llama-1b attention: heads, kv heads, head dim, page
@@ -445,28 +479,6 @@ def attention_bound(c, dtype, pool_dtype=None):
     t_bytes = (kv_bytes + qo_bytes + idx_bytes) / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def cuda_ms(fn, reps=25, inner=10):
-    """Median per-call device time over ``reps`` runs of ``inner`` calls. A
-    spin kernel queued before each run holds the card while the host enqueues
-    the run, so a call whose host side is slower than its kernel is timed by
-    its kernels, not by the host."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(HOLD_CYCLES)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
 
 
 def sdpa_dense(c):
@@ -3593,13 +3605,14 @@ def _lora_requests(cfg, names: list, n_per: int, prompt_range, seed: int) -> lis
 
 
 def _empty() -> None:
-    """Return the memory of the engines just dropped to the card. An engine
-    sits in reference cycles (its registry's callbacks, its programs'
-    hooks), so it is freed by the cycle collector, not at its last
-    reference: collect first."""
-    gc.collect()
+    """Hand the cached blocks of the engines just dropped back to the card
+    (``empty_cache``), and say how much is still allocated. An engine frees
+    its memory at its last reference (``EngineServer.stop`` closes the engine
+    it built: ``LLMEngine.close``), so no cycle collection is needed."""
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
+        log(f"memory: {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, "
+            f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved between phases")
 
 
 def lora_f32_identities(device, card: str, model: str, seed: int, n_per: int,
@@ -5019,6 +5032,571 @@ def phase_obs(device, card: str, seed: int = 0, dense: str = "llama-1b", moe: st
     return out
 
 
+# --------------------------------------------------------------------------
+# The launch surface: the serve CLI as a pool launches it, the predictor's
+# training feed, K1's launch-config table, the kernel-selection modes and DP
+# rank frontends
+# --------------------------------------------------------------------------
+
+LAUNCH_KW = dict(page_size=PS, num_pages=2048, max_model_len=2048, max_batch_size=32,
+                 prefill_chunk=512, max_num_batched_tokens=2048, decode_steps=4)
+# the port bench's engine at its default shape: the tuner's table entry is
+# keyed at its decode launch (64 rows over a 64-page table)
+TUNE_KW = dict(page_size=PS, num_pages=2048, max_model_len=1024, max_batch_size=64,
+               prefill_chunk=256, max_num_batched_tokens=8192, decode_steps=32)
+# each rank process of check 4b: llama-1b's serving settings at batch 8
+DP_RANK_KW = dict(page_size=PS, num_pages=1024, max_model_len=2048, max_batch_size=8,
+                  prefill_chunk=512, decode_steps=4)
+# the predictor's training row: the arrival features and the latencies
+FEATURES = ("kv_usage", "input_len", "queue_depth", "running_requests", "inflight_tokens",
+            "prefix_match_pct", "tokens_generated", "ttft_ms", "tpot_ms")
+
+
+class _SampleSink:
+    """The latency trainer's ``POST /samples`` in miniature, on loopback:
+    every posted row kept, in order."""
+
+    def __init__(self) -> None:
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        sink = self
+        self.rows: list = []
+        self.posts = 0
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args) -> None:
+                pass
+
+            def do_POST(self) -> None:
+                body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+                ok = self.path == "/samples" and isinstance(body.get("samples"), list)
+                if ok:
+                    sink.rows.extend(body["samples"])
+                    sink.posts += 1
+                data = json.dumps({"accepted": len(body.get("samples", []))}).encode()
+                self.send_response(200 if ok else 404)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+        self._httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self._httpd.server_address[1]}"
+        threading.Thread(target=self._httpd.serve_forever, daemon=True).start()
+
+    def stop(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _replica_argv(port: int, cache_dir: str, tune_file: str, sink_url: str) -> list:
+    """A port replica's argv in the shape of ``llmd_tpu.pool.launcher.
+    engine_argv`` (written out here: this script imports nothing of
+    ``llmd_tpu``): ``-m <serve> --model M --port P``, the warm start's
+    ``--compile-cache-dir``, then the pool's extra flags (speculation,
+    structured outputs, the chain depth, the tune table, the trainer) and the
+    bench's decode batch, so the table's entry applies."""
+    return [sys.executable, "-m", "llmd_tpu_torch.engine.serve",
+            "--model", "llama-1b", "--port", str(port),
+            "--compile-cache-dir", cache_dir,
+            "--host", "127.0.0.1", "--block-size", str(PS), "--num-pages", "2048",
+            "--max-model-len", "1024", "--max-batch-size", "64", "--prefill-chunk", "256",
+            "--decode-steps", "4", "--spec-mode", "ngram", "--spec-tokens", "4",
+            "--structured-mode", "auto", "--structured-fused", "on",
+            "--spec-structured", "on", "--decode-chain-depth", "2",
+            "--attn-tune-file", tune_file, "--predictor-train-url", sink_url]
+
+
+def _launch_replica(argv: list, log_path: Path, timeout_s: float = 400.0) -> dict:
+    """Start a replica, wait for ``/health`` 200 and its serving line: the
+    process, the line, the seconds from spawn to healthy and the kernel
+    libraries it compiled (its ``native builds: N compiled``)."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=open(log_path, "w"), text=True, start_new_session=True)
+    port = argv[argv.index("--port") + 1]
+    url = f"http://127.0.0.1:{port}/health"
+    while True:
+        if proc.poll() is not None:
+            raise AssertionError(f"launch: the replica exited rc {proc.returncode}: "
+                                 f"{log_path.read_text()[-3000:]}")
+        try:
+            if _get(url)[0] == 200:
+                break
+        except (OSError, ValueError):
+            pass
+        if time.perf_counter() - t0 > timeout_s:
+            proc.kill()
+            raise AssertionError(f"launch: no /health 200 in {timeout_s} s: "
+                                 f"{log_path.read_text()[-3000:]}")
+        time.sleep(0.2)
+    start_s = time.perf_counter() - t0
+    line = proc.stdout.readline().strip()
+    m = re.search(r"native builds: (\d+) compiled", line)
+    if m is None:
+        proc.kill()
+        raise AssertionError(f"launch: no build count in the serving line {line!r}")
+    return {"proc": proc, "line": line, "start_s": start_s, "compiled": int(m.group(1)),
+            "base": f"http://127.0.0.1:{port}"}
+
+
+def _stop_replica(rep: dict) -> None:
+    proc = rep["proc"]
+    proc.terminate()
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+
+
+def launch_replica_runs(device, card: str, tune_file: str, cold: dict, cache_dir: str,
+                        sink: _SampleSink, n: int = 8, max_tokens: int = 32) -> dict:
+    """Check 1: the cold replica (already healthy) serves ``n`` completions,
+    the sink receives ``n`` training rows carrying every feature column; the
+    replica stops and one relaunched on the same cache directory loads the
+    kernels from it with no compiler run."""
+    rng = np.random.default_rng(5)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz ", np.uint8)
+    prompts = [bytes(rng.choice(letters, int(k))).decode()
+               for k in rng.integers(64, 400, n)]
+    try:
+        done = [_post(cold["base"] + "/v1/completions", {
+            "prompt": p, "max_tokens": max_tokens, "temperature": 0}) for p in prompts]
+        _wait_until(lambda: len(sink.rows) >= n, "launch: the trainer's rows", 10.0, 0.05)
+        _, metrics = _http("GET", cold["base"] + "/metrics")[::2]
+    finally:
+        _stop_replica(cold)
+    if any(s != 200 or b["usage"]["completion_tokens"] != max_tokens for s, b in done):
+        raise AssertionError(f"launch: replica completions {done[:2]}")
+    rows = sink.rows[:n]
+    missing = [sorted(set(FEATURES) - set(r)) for r in rows if set(FEATURES) - set(r)]
+    if len(sink.rows) != n or missing or not all(
+            r["tpot_ms"] is not None and r["ttft_ms"] > 0 for r in rows):
+        raise AssertionError(f"launch: the sink holds {len(sink.rows)} rows (want {n}), "
+                             f"missing columns {missing[:2]}: {rows[:1]}")
+    files = sorted(p.name for p in Path(cache_dir).glob("*.so"))
+    warm = _launch_replica(cold["argv"], Path(cache_dir).parent / "warm.log")
+    try:
+        status, body = _post(warm["base"] + "/v1/completions", {
+            "prompt": prompts[0], "max_tokens": 4, "temperature": 0})
+    finally:
+        _stop_replica(warm)
+    after = sorted(p.name for p in Path(cache_dir).glob("*.so"))
+    if cold["compiled"] < 1 or warm["compiled"] != 0 or after != files or status != 200:
+        raise AssertionError(f"launch: cold compiled {cold['compiled']}, warm compiled "
+                             f"{warm['compiled']} (want 0), cache {files} -> {after}, "
+                             f"warm completion {status}")
+    tune = re.search(r"tune (\w+)", cold["line"]).group(1)
+    hit = _metric(metrics.decode(), "llmd_tpu:engine_attn_backend",
+                  f'{{backend="cuda_paged_attention",tune="{tune}"}}')
+    log(f"launch: replica cold start {cold['start_s']:.1f} s ({cold['compiled']} libraries "
+        f"compiled into {cache_dir}), warm start {warm['start_s']:.1f} s (0 compiled, "
+        f"{len(files)} loaded); {n} completions, {sink.posts} posts, {len(rows)} training "
+        f"rows with {list(FEATURES)}; /metrics backend info tune={tune} ({hit}) on {card}")
+    return {"cold_start_s": cold["start_s"], "warm_start_s": warm["start_s"],
+            "cold_compiled": cold["compiled"], "warm_compiled": warm["compiled"],
+            "cache_files": files, "rows": rows, "posts": sink.posts, "tune": tune,
+            "metrics_tune_info": hit, "line": cold["line"]}
+
+
+def launch_tuned_k1(device, table) -> dict:
+    """K1 on the mma instance under the table's plan, at the tuner's decode
+    shape (64 rows, kv 128-1024, a 64-page table), against the plain version
+    in float32: bf16 rounding units <= BF16_UNITS, both controls above it."""
+    from llmd_tpu_torch.ops import paged_attention as pa
+
+    c = decode_case(torch.bfloat16, device)
+    N, B, maxp = c["q"].shape[0], c["pts"].shape[0], c["pts"].shape[1]
+    override = pa.plan_override(table, N, PS, maxp, H, D, 2 * HK)
+    plan = pa._plan(N, B, maxp, PS, H // HK, HK, pa._num_sms(0), override)
+    before = dict(pa.paged_attention.launches_by_instance)
+    got = run_attention(functools.partial(pa.paged_attention, tune=table), c)
+    torch.cuda.synchronize()
+    inst = {k: v - before[k] for k, v in pa.paged_attention.launches_by_instance.items()}
+    ref = run_attention(pa.paged_attention_ref, dict(c, q=c["q"].float(), pool=c["pool"].float()))
+    v = c["valid"]
+    units = pa.bf16_rounding_units(got[:v], ref[:v])
+    ctl_p = pa.bf16_rounding_units(run_attention(pa.paged_attention_ref, c)[:v], ref[:v])
+    ctl_acc = pa.bf16_rounding_units(bf16_accumulating_control(c), ref[:v])
+    row = {"override": override, "plan": dataclasses.asdict(plan), "bf16_units": units,
+           "control_p_bf16_units": ctl_p, "control_acc_bf16_units": ctl_acc}
+    log(f"launch: K1 under the tuned plan {row['plan']} (override {override}): "
+        f"bf16_units={units:.3f} (limit {BF16_UNITS}) controls p_bf16={ctl_p:.1f} "
+        f"acc_bf16={ctl_acc:.1f}")
+    if override is None or inst != {**dict.fromkeys(inst, 0), "mma": 1} or not (
+            units <= BF16_UNITS < min(ctl_p, ctl_acc)):
+        raise AssertionError(f"launch: K1 under the tuned plan: {row}, launched {inst}")
+    return row
+
+
+def launch_tuned_engines(device, card: str, tune_file: str, winner_is_policy: bool,
+                         seed: int = 0, n: int = 8, max_tokens: int = 32) -> dict:
+    """Check 2's engines: llama-1b bf16 at the bench's shape built from the
+    table against one built without it (decode graphs captured, pipelined):
+    launch counts equal; tokens identical where the winner is the policy's
+    plan, else the identical share reported (not bounded)."""
+    from llmd_tpu_torch.models import get_model_config
+
+    cfg = get_model_config("llama-1b")
+    rng = np.random.default_rng(seed + 11)
+    prompts = [rng.integers(0, cfg.vocab_size, int(k)).tolist()
+               for k in rng.integers(64, 512, n)]
+    plain = _served_run(device, cfg, dict(TUNE_KW), prompts, max_tokens, seed, True)
+    tuned = _served_run(device, cfg, dict(TUNE_KW, attn_tune_file=tune_file), prompts,
+                        max_tokens, seed, True)
+    same = sum(a == b for r in plain["tokens"] for a, b in zip(plain["tokens"][r],
+                                                             tuned["tokens"][r]))
+    share = same / max(1, sum(len(v) for v in plain["tokens"].values()))
+    row = {"identical_share": share, "launches": tuned["launches"],
+           "launches_plain": plain["launches"], "decode_tok_s": tuned["decode_tok_s"],
+           "decode_tok_s_plain": plain["decode_tok_s"],
+           "launches_by_instance": tuned["launches_by_instance"]}
+    log(f"launch: tuned engine vs untuned (bf16, {n} requests) on {card}: launches "
+        f"{tuned['launches']} vs {plain['launches']}, identical tokens {share:.4f}, "
+        f"decode tok/s {tuned['decode_tok_s']:.1f} vs {plain['decode_tok_s']:.1f}")
+    if (tuned["launches"] != plain["launches"] or any(tuned["plain_calls"].values())
+            or tuned["launches"]["paged_attention"] == 0
+            or (winner_is_policy and tuned["tokens"] != plain["tokens"])):
+        raise AssertionError(f"launch: tuned engine {row} (winner is the policy: "
+                             f"{winner_is_policy})")
+    return row
+
+
+def launch_modes(device, card: str, seed: int = 0, n: int = 8, max_tokens: int = 16,
+                 moe_layers: int = 4, mla_layers: int = 2) -> dict:
+    """Check 3, float32: llama-1b ``attn_impl="reference"`` = ``"auto"`` in
+    tokens with 0 K1 launches; moe-wide-mla (``mla_layers``) reference = auto
+    with 0 K1-latent and 0 K3 launches; moe-wide-sim (``moe_layers``)
+    ``moe_matmul="einsum"`` = ``"pallas"`` with 0 K2 / K4 launches, on the
+    sorted dispatch (pallas: K2, all on its simt instance in float32) and on
+    the einsum dispatch (pallas: K4, likewise)."""
+    from llmd_tpu_torch.models import get_model_config
+
+    out = {}
+    for label, model, layers, a, b, off, on in (
+            ("dense", "llama-1b", None, {"attn_impl": "reference"}, {"attn_impl": "auto"},
+             ("paged_attention",), ("paged_attention",)),
+            ("mla", MLA, mla_layers, {"attn_impl": "reference"}, {"attn_impl": "auto"},
+             ("paged_attention", "mla_decode"), ("paged_attention", "mla_decode")),
+            ("moe", MOE, moe_layers, {"moe_matmul": "einsum"}, {"moe_matmul": "pallas"},
+             ("ragged_grouped_gemm", "grouped_gemm"), ("ragged_grouped_gemm",)),
+            ("moe_einsum", MOE, moe_layers, {"moe_matmul": "einsum", "moe_dispatch": "einsum"},
+             {"moe_matmul": "pallas", "moe_dispatch": "einsum"},
+             ("ragged_grouped_gemm", "grouped_gemm"), ("grouped_gemm",))):
+        if device.type != "cuda":  # a CPU rehearsal: the kernels' mode is auto there
+            b = {k: "auto" if v == "pallas" else v for k, v in b.items()}
+        cfg = get_model_config(model)
+        cfg = dataclasses.replace(cfg, dtype="float32",
+                                  **({"num_layers": layers} if layers else {}))
+        rng = np.random.default_rng(seed + 3)
+        prompts = [rng.integers(0, cfg.vocab_size, int(k)).tolist()
+                   for k in rng.integers(32, 256, n)]
+        ref, ker = (_served_run(device, cfg, dict(LAUNCH_KW, **kw), prompts, max_tokens,
+                                seed, True) for kw in (a, b))
+        row = {"tokens_equal": ref["tokens"] == ker["tokens"],
+               "plain_mode_launches": ref["launches"], "plain_mode_plain_calls":
+               ref["plain_calls"], "kernel_mode_launches": ker["launches"],
+               "kernel_mode_by_instance": ker["launches_by_instance"]}
+        out[label] = row
+        log(f"launch: modes {label} f32 {a} vs {b} on {card}: tokens equal "
+            f"{row['tokens_equal']}, launches {ref['launches']} (plain calls "
+            f"{ref['plain_calls']}) vs {ker['launches']}")
+        by = ker["launches_by_instance"]
+        bad = (not row["tokens_equal"] or any(ref["launches"][k] for k in off)
+               or not any(ref["plain_calls"].values()))
+        if device.type == "cuda":  # launch checks run on the card only
+            bad = bad or (not all(ker["launches"][k] for k in on)
+                          or any(ker["plain_calls"].values())
+                          or (label.startswith("moe") and any(
+                              by[k]["simt"] != ker["launches"][k] for k in on)))
+        if bad:
+            raise AssertionError(f"launch: modes {label}: {row}")
+    return out
+
+
+def _completion_ids(body: dict) -> list:
+    """Token ids of a completion decoded by ``IdTokenizer``."""
+    return [ord(ch) - 0x10000 for ch in body["choices"][0]["text"]]
+
+
+def launch_wide_ep(device, card: str, dtype: str, seed: int = 0, n: int = 8,
+                   max_tokens: int = 32) -> dict:
+    """Check 4a: a ``WideEPEngineGroup`` of 2 rank frontends over one
+    llama-1b engine (the serving settings, KV events on), ``n`` requests
+    split over both ports, concurrent; and a ``dp_ranks=1`` engine of the
+    same seed on the same prompts. float32: tokens equal. Every page a rank
+    allocated lies in its partition, and each rank's KV events hold its own
+    prompts' blocks and none of the other rank's. Decode tok/s of both."""
+    from llmd_tpu_torch.core.kv_events import BlockStored, block_keys_for_tokens
+    from llmd_tpu_torch.engine.config import EngineConfig
+    from llmd_tpu_torch.engine.dp_group import WideEPEngineGroup
+    from llmd_tpu_torch.models import get_model_config
+
+    cfg = dataclasses.replace(get_model_config("llama-1b"), dtype=dtype)
+    rng = np.random.default_rng(seed + 21)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz ", np.uint8)
+    texts = [f"rank{i % 2} req{i} " + bytes(rng.choice(letters, int(k))).decode()
+             for i, k in enumerate(rng.integers(64, 400, n))]
+    group = WideEPEngineGroup(cfg, EngineConfig(**LAUNCH_KW, dp_ranks=2), ranks=2,
+                              model_name="llmd-tpu/llama-1b", host="127.0.0.1",
+                              tokenizer=IdTokenizer(cfg.vocab_size), device=device,
+                              seed=seed, kv_events_port_base=0)
+    eng = group.engine
+    seen: dict = {0: set(), 1: set()}
+    for r, alloc in enumerate(eng.allocs):  # observe each rank's page ids
+        def allocate(orig=alloc.allocate, r=r):
+            pid = orig()
+            if pid is not None:
+                seen[r].add(pid)
+            return pid
+        alloc.allocate = allocate
+    group.start()
+    subs = [_KVSubscriber(s.kv_events_port) for s in group.servers]
+    try:
+        eps = group.endpoints()
+        for ep in eps:
+            _post(f"http://{ep}/v1/completions", {"prompt": "warm up", "max_tokens": 2,
+                                                  "temperature": 0})
+        eng.stats = type(eng.stats)()
+        results: list = [None] * n
+
+        def one(i: int) -> None:
+            results[i] = _post(f"http://{eps[i % 2]}/v1/completions", {
+                "prompt": texts[i], "max_tokens": max_tokens, "temperature": 0})
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        st = eng.stats
+        group_tok_s = st.decode_tokens_fused / max(st.time_decode_steps, 1e-9)
+    finally:
+        for sub in subs:
+            sub.stop()
+        group.stop()
+        del group, eng
+    if any(r is None or r[0] != 200 for r in results):
+        raise AssertionError(f"launch: wide-EP completions {results[:2]}")
+    got = {f"req-{i}": _completion_ids(r[1]) for i, r in enumerate(results)}
+    ppr = LAUNCH_KW["num_pages"] // 2
+    out_of_range = {r: sorted(p for p in pids if not r * ppr <= p < (r + 1) * ppr)[:4]
+                    for r, pids in seen.items()}
+    stored = [{h for _, _, evs in sub.batches for e in evs if isinstance(e, BlockStored)
+               for h in e.block_hashes} for sub in subs]
+    own = [set(), set()]
+    for i, t in enumerate(texts):
+        ids = list(t.encode())[: LAUNCH_KW["max_model_len"] - 1]  # as the engine truncates
+        own[i % 2] |= set(block_keys_for_tokens(ids, PS, None, []))
+    events_ok = all(own[r] <= stored[r] and not (own[1 - r] & stored[r]) for r in (0, 1))
+    one_rank = _served_run(device, cfg, dict(LAUNCH_KW), [list(t.encode()) for t in texts],
+                           max_tokens, seed, True)
+    equal = one_rank["tokens"] == got
+    row = {"dtype": dtype, "tokens_equal": equal, "pages_by_rank": {r: len(p) for r, p in
+                                                                   seen.items()},
+           "out_of_range": out_of_range, "events_ok": events_ok,
+           "stored_blocks": [len(s) for s in stored], "decode_tok_s_ranks": group_tok_s,
+           "decode_tok_s_one_rank": one_rank["decode_tok_s"]}
+    same = sum(a == b for r in got for a, b in zip(got[r], one_rank["tokens"][r]))
+    row["identical_share"] = same / max(1, sum(len(v) for v in got.values()))
+    log(f"launch: wide-EP 2 ranks {dtype} on {card}: tokens equal to one rank {equal} "
+        f"(share {row['identical_share']:.4f}), pages by rank {row['pages_by_rank']}, "
+        f"KV events own blocks only {events_ok} ({row['stored_blocks']} stored), decode "
+        f"tok/s ranks {group_tok_s:.1f} beside one rank {one_rank['decode_tok_s']:.1f}")
+    if (any(out_of_range.values()) or not all(seen.values()) or not events_ok
+            or (dtype == "float32" and not equal)):
+        raise AssertionError(f"launch: wide-EP {dtype}: {row}")
+    return row
+
+
+def dp_rank0(device, rpc_port: int, seed: int = 0):
+    """Rank 0 of a 2-rank ``DPEngineGroup`` in this process: the leader, its
+    coordinator on ``rpc_port``, llama-1b at the rank processes' settings,
+    retrying registration every 0.5 s until rank 1 joins."""
+    from llmd_tpu_torch.engine.config import EngineConfig
+    from llmd_tpu_torch.engine.dp_group import DPEngineGroup, DPGroupConfig
+    from llmd_tpu_torch.models import get_model_config
+
+    group = DPEngineGroup(get_model_config("llama-1b"), EngineConfig(**DP_RANK_KW),
+                          DPGroupConfig(dp_size=2, dp_size_local=1, dp_start_rank=0,
+                                        dp_rpc_port=rpc_port, port_base=0),
+                          model_name="llmd-tpu/llama-1b", host="127.0.0.1", device=device,
+                          seed=seed)
+    group.start()
+    ae = group.servers[0].async_engine
+    ae.register_retry_interval_s = 0.5
+    ae._next_register = 0.0
+    return group
+
+
+def launch_dp_processes(device, card: str, group, rank1: subprocess.Popen, out_path: Path,
+                        n_per: int = 4, max_tokens: int = 16) -> dict:
+    """Check 4b: a ``DPEngineGroup`` of 2 rank processes on the card under one
+    ``DPCoordinator``: rank 0 ``group`` here (:func:`dp_rank0`), rank 1 the
+    process ``rank1``, both started at the phase's start. Once both
+    registered, ``n_per`` completions to each rank; both serve, and the
+    coordinator's waves equal the steps the two rank loops took (no request
+    reached a rank before both registered, so no step was taken solo)."""
+    ae = group.servers[0].async_engine
+    try:
+        _wait_until(lambda: b"ENDPOINT" in out_path.read_bytes(), "launch: rank 1 serving",
+                    300.0, 0.2)
+        ep1 = out_path.read_text().split("ENDPOINT", 1)[1].split()[0]
+        _wait_until(lambda: ae.registered and group.coordinator.registered == {0, 1},
+                    "launch: both ranks registered", 60.0, 0.05)
+        eps = [group.servers[0].address, ep1]
+        res: list = []
+        lock = threading.Lock()
+
+        def one(ep: str, i: int) -> None:
+            r = _post(f"http://{ep}/v1/completions", {
+                "prompt": f"dp rank request {i}", "max_tokens": max_tokens,
+                "temperature": 0})
+            with lock:
+                res.append((ep, r))
+
+        threads = [threading.Thread(target=one, args=(ep, i))
+                   for i in range(n_per) for ep in eps]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        time.sleep(0.2)  # the loops' last reports
+    finally:
+        rank1.terminate()
+        rank1.wait(timeout=60)
+        waves = group.coordinator.waves
+        steps0 = ae.steps
+        group.stop()
+        del group, ae
+    m = re.search(r"STEPS (\d+) (\d+) (\d+)", out_path.read_text())
+    if m is None:
+        raise AssertionError(f"launch: rank 1 printed no steps: {out_path.read_text()[-2000:]}")
+    steps1, empty1, reg1 = (int(x) for x in m.groups())
+    ok = [r[0] == 200 and r[1]["usage"]["completion_tokens"] == max_tokens for _, r in res]
+    row = {"waves": waves, "steps": [steps0, steps1], "rank1_empty_steps": empty1,
+           "served": len(res), "ok": all(ok)}
+    log(f"launch: DP group of 2 rank processes on {card}: {len(res)} completions "
+        f"({sum(ok)} ok), coordinator waves {waves} = steps {steps0} + {steps1} "
+        f"(rank 1 empty steps {empty1})")
+    if not all(ok) or len(res) != 2 * n_per or not reg1 or waves != steps0 + steps1:
+        raise AssertionError(f"launch: DP rank processes {row}")
+    return row
+
+
+def _allocated() -> int:
+    """``torch.cuda.memory_allocated()`` with cuBLAS's per-handle workspaces
+    released first: a thread's first product on a stream allocates one, kept
+    by the library, not by any engine; no engine may be alive when this runs."""
+    torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    return torch.cuda.memory_allocated()
+
+
+def phase_launch(device, card: str, seed: int = 0) -> dict:
+    """The launch surface (``phase_launch``): see the module docstring's
+    phase 19. Check 5 closes it: with every engine of the phase closed or
+    dropped, ``torch.cuda.memory_allocated()`` is back at (or below) the
+    phase's baseline, the cycle collector off for the whole phase."""
+    import gc
+
+    from llmd_tpu_torch.ops import attn_tune
+
+    t0 = time.perf_counter()
+    baseline = _allocated()
+    gc.disable()  # a reference cycle that held an engine would show below
+    work = Path(tempfile.mkdtemp(prefix="llmd-launch-"))
+    out: dict = {}
+    sink = _SampleSink()
+    rank0 = rank1 = None
+    try:
+        # 2. the tuner (the bench, in this process), then its table's K1
+        tune_file = str(work / "attn_tune.json")
+        out["bench"] = row = phase_bench(device, card, [
+            "--quantize", "none", "--tune-attn", "--attn-tune-file", tune_file])
+        table = attn_tune.load_table(tune_file)
+        winner, policy = row["attn_tune_winner"], row["attn_tune_policy"]
+        log("launch: tuner candidates " + ", ".join(
+            f"bkv={c['bkv']} ({c['splits']}x{c['split_keys']}) {c['ms']:.4f} ms"
+            for c in row["attn_tune_candidates"])
+            + f"; winner bkv={winner['bkv']} ({winner['splits']} splits) beside the "
+            f"policy's {policy['splits']} splits; sha {table.sha} on {card}")
+        if not (row["attn_tune_hash"] == table.sha and table.entries):
+            raise AssertionError(f"launch: bench hash {row['attn_tune_hash']} != table "
+                                 f"{table.sha}")
+        # 1 and 4b start now: the cold replica compiles K1 into its own cache
+        # directory and rank 1 loads its engine while the checks below run
+        cache_dir = str(work / "compile_cache")
+        argv = _replica_argv(_free_port(), cache_dir, tune_file, sink.url)
+        cold: dict = {}
+
+        def launch_cold() -> None:
+            try:
+                cold.update(_launch_replica(argv, work / "cold.log"), argv=argv)
+            except BaseException as e:  # noqa: BLE001 — re-raised on the main thread
+                cold["error"] = e
+
+        cold_thread = threading.Thread(target=launch_cold, daemon=True)
+        cold_thread.start()
+        rpc_port = _free_port()
+        rank1_out = work / "rank1.out"
+        rank1 = subprocess.Popen(
+            [sys.executable, str(REPO / "tests" / "torch_dp_rank_worker.py"), "--rank", "1",
+             "--dp-size", "2", "--rpc-port", str(rpc_port), "--model", "llama-1b",
+             "--engine", json.dumps(DP_RANK_KW), "--seed", str(seed)], cwd=REPO,
+            stdout=open(rank1_out, "w"),
+            stderr=subprocess.STDOUT, start_new_session=True)
+        rank0 = dp_rank0(device, rpc_port, seed)
+        out["tuned_k1"] = launch_tuned_k1(device, table)
+        out["tuned_engines"] = launch_tuned_engines(
+            device, card, tune_file, winner["splits"] == policy["splits"]
+            and winner["split_keys"] == policy["split_keys"], seed)
+        # 3. the modes
+        out["modes"] = launch_modes(device, card, seed)
+        # 4. DP ranks on one card
+        out["wide_ep_float32"] = launch_wide_ep(device, card, "float32", seed)
+        out["wide_ep_bfloat16"] = launch_wide_ep(device, card, "bfloat16", seed)
+        out["dp_processes"] = launch_dp_processes(device, card, rank0, rank1, rank1_out)
+        rank0 = rank1 = None
+        # 1. the replica: completions, the training rows, the warm relaunch
+        cold_thread.join(timeout=600)
+        if "error" in cold or "proc" not in cold:
+            raise AssertionError(f"launch: cold replica: {cold.get('error')}")
+        out["replica"] = launch_replica_runs(device, card, tune_file, cold, cache_dir, sink)
+        if out["replica"]["tune"] != table.sha:
+            raise AssertionError(f"launch: the replica's tune {out['replica']['tune']} "
+                                 f"!= the table's {table.sha}")
+    finally:
+        sink.stop()
+        if rank1 is not None:
+            rank1.kill()
+            rank1.wait(timeout=30)
+        if rank0 is not None:
+            rank0.stop()
+        shutil.rmtree(work, ignore_errors=True)
+        # 5. the HBM repair: no cycle collection, no empty_cache before the reading
+        now = _allocated()
+        gc.enable()
+    out["memory"] = {"baseline": baseline, "after": now}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"launch: memory allocated {now} B after the phase's engines closed and dropped "
+        f"(baseline {baseline} B, the cycle collector off); phase {out['seconds']:.1f} s")
+    if now > baseline:
+        raise AssertionError(f"launch: {now - baseline} B still allocated after the "
+                             "phase's servers stopped and engines were dropped")
+    return out
+
+
 def main(argv: "list[str] | None" = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", default=None, help="write every phase's details here (JSON)")
@@ -5137,9 +5715,11 @@ def main(argv: "list[str] | None" = None) -> int:
     report["vision"] = vision = phase_vision(device, card)
     _empty()  # the previous phase's engines
     report["obs"] = obs = phase_obs(device, card, time_report=tm["paged_attention"])
+    _empty()  # the previous phase's engines
+    report["launch"] = launch = phase_launch(device, card)
     report["seconds"] = time.perf_counter() - t_start
     log(f"smoke: all phases {report['seconds']:.1f} s (vision {vision['seconds']:.1f} s, "
-        f"obs {obs['seconds']:.1f} s)")
+        f"obs {obs['seconds']:.1f} s, launch {launch['seconds']:.1f} s)")
     if args.report:
         out = Path(args.report)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -5195,27 +5775,37 @@ def main(argv: "list[str] | None" = None) -> int:
            "vision_bf16_launches": vision["combined_bfloat16"]["launches"]["paged_attention"],
            "vision_epd_pd_d_launches": vision["epd_pd"]["d_launches"]["paged_attention"],
            "obs_launches": obs["main"]["launches"],
-           "obs_probe_launches": obs["main"]["probe_launches"]},
+           "obs_probe_launches": obs["main"]["probe_launches"],
+           "launch_launches": launch["tuned_engines"]["launches_by_instance"]
+           ["paged_attention"]["mma"],
+           "tuned_plan": launch["tuned_k1"]["plan"]},
         # the unified program's absorbed MLA attention, XLA in the reference
         entry("paged_attention_latent", attn_src, "llmd_tpu/models/transformer.py:428",
               eng["mla_sorted"]["launches"]["paged_attention"], lat)
         | {"instance": lat["instance"], "simt_ms": lat["simt_ms"],
-           "kvplane_launches": kv["pd_mla"]["p_launches"]["paged_attention"]},
+           "kvplane_launches": kv["pd_mla"]["p_launches"]["paged_attention"],
+           "launch_launches": launch["modes"]["mla"]["kernel_mode_launches"]
+           ["paged_attention"]},
         entry("mla_decode", "llmd_tpu_torch/csrc/mla_decode.cu",
               "llmd_tpu/ops/mla_decode.py:110", eng["mla_sorted"]["launches"]["mla_decode"],
               k3["decode"]) | k3_more
         | {"kvplane_launches": kv["pd_mla"]["d_launches"]["mla_decode"],
            "obs_launches": obs["mla"]["launches"]["mla_decode"],
-           "obs_probe_launches": obs["mla"]["probe_launches"]},
+           "obs_probe_launches": obs["mla"]["probe_launches"],
+           "launch_launches": launch["modes"]["mla"]["kernel_mode_launches"]["mla_decode"]},
         entry("ragged_grouped_gemm", gemm_src, "llmd_tpu/ops/grouped_gemm.py:98",
               eng["moe_sorted"]["launches"]["ragged_grouped_gemm"],
               tm["ragged_grouped_gemm"]["decode"], tm["ragged_grouped_gemm"]["prefill"])
         | {"lora_launches": lora["moe"]["launches"]["ragged_grouped_gemm"],
            "obs_launches": obs["moe"]["launches"]["ragged_grouped_gemm"],
-           "obs_probe_launches": 2 * obs["moe"]["probe_launches"]},
+           "obs_probe_launches": 2 * obs["moe"]["probe_launches"],
+           "launch_launches": launch["modes"]["moe"]["kernel_mode_launches"]
+           ["ragged_grouped_gemm"]},
         entry("grouped_gemm", gemm_src, "llmd_tpu/ops/grouped_gemm.py:43",
               eng["moe_einsum"]["launches"]["grouped_gemm"], tm["grouped_gemm"]["decode"],
-              tm["grouped_gemm"]["prefill"]),
+              tm["grouped_gemm"]["prefill"])
+        | {"launch_launches": launch["modes"]["moe_einsum"]["kernel_mode_launches"]
+           ["grouped_gemm"]},
         # the fp8 pool variants (mma_fp8): ms etc. at the first shape, the rest beside
         *(fp8_entry(fp8, name, src, replaces, run, first)
           for name, src, replaces, run, first in (

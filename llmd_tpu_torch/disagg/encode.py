@@ -154,6 +154,13 @@ class VisionRunner:
                 self.stats["encoded_items"] += len(fresh)
         return out  # type: ignore[return-value]
 
+    def close(self) -> None:
+        """Drop the tower's weights (its device memory) and the cached rows;
+        the runner encodes nothing after."""
+        with self._lock:
+            self.params = {}
+            self._lru.clear()
+
 
 def mm_item_to_wire(h: bytes, emb: np.ndarray) -> dict:
     return {

@@ -4,7 +4,10 @@
 Request submission and token delivery cross the thread boundary through a lock
 and per-request ``queue.Queue``s. If a step raises (a kernel failure, say), the
 loop records the error, fails every open request with it and stops stepping:
-callers see the exception and ``error`` stays set for health checks.
+callers see the exception and ``error`` stays set for health checks. DP rank
+frontends share one instance (``start`` is idempotent) and pass their rank
+to ``generate``; ``engine/dp_group.DPAsyncEngine`` replaces the loop with one
+that steps on the group's waves.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ class AsyncLLMEngine:
 
     def start(self) -> None:
         if self._thread is not None and self._thread.is_alive():
-            return
+            return  # shared by rank frontends: one step loop
         self._stop.clear()
         self._thread = threading.Thread(target=self._run, name="engine-loop", daemon=True)
         self._thread.start()
@@ -59,23 +62,34 @@ class AsyncLLMEngine:
                     has_work = self.engine.has_work()
                     outputs = self.engine.step() if has_work else []
             except Exception as e:  # noqa: BLE001 — the loop boundary: report, fail requests
-                err = EngineLoopError(f"engine step failed: {type(e).__name__}: {e}")
-                err.__cause__ = e
-                with self._lock:
-                    self.error = err
-                    streams, self._streams = self._streams, {}
-                for q in streams.values():
-                    q.put(err)
+                self._fail(e)
                 return
-            for out in outputs:
-                with self._lock:
-                    q = self._streams.get(out.request_id)
-                    if out.finished:
-                        self._streams.pop(out.request_id, None)
-                if q is not None:
-                    q.put(out)
+            self._deliver(outputs)
             if not has_work:
                 time.sleep(self._idle_sleep)
+
+    def _fail(self, e: Exception) -> None:
+        """Record a step's failure and fail every open request with it."""
+        err = EngineLoopError(f"engine step failed: {type(e).__name__}: {e}")
+        err.__cause__ = e
+        with self._lock:
+            self.error = err
+            streams, self._streams = self._streams, {}
+        for q in streams.values():
+            q.put(err)
+
+    def _deliver(self, outputs: list[EngineOutput]) -> None:
+        """Hand each output to its request's stream."""
+        for out in outputs:
+            with self._lock:
+                q = self._streams.get(out.request_id)
+                if out.finished:
+                    self._streams.pop(out.request_id, None)
+            if q is not None:
+                q.put(out)
+
+    def stats(self):
+        return self.engine.stats
 
     def run_locked(self, fn):
         """Run fn() while the step loop is paused: for callers that must touch
@@ -85,10 +99,10 @@ class AsyncLLMEngine:
 
     def generate(self, request_id: str, token_ids: list[int], sampling: SamplingParams,
                  lora_id: Optional[str] = None, mm_items=None,
-                 trace_ctx=None) -> Iterator[EngineOutput]:
+                 trace_ctx=None, rank: int = 0) -> Iterator[EngineOutput]:
         """Submit a request (under adapter ``lora_id``, with media rows
-        ``mm_items``, in the trace of ``trace_ctx``) and yield its outputs
-        until it finishes (blocking)."""
+        ``mm_items``, in the trace of ``trace_ctx``, on DP rank ``rank``'s
+        queue) and yield its outputs until it finishes (blocking)."""
         q: queue.Queue = queue.Queue()
         with self._lock:  # stream registration + admission are atomic
             if self.error is not None:
@@ -96,7 +110,7 @@ class AsyncLLMEngine:
             self._streams[request_id] = q
             try:
                 self.engine.add_request(request_id, token_ids, sampling, lora_id,
-                                        mm_items=mm_items, trace_ctx=trace_ctx)
+                                        mm_items=mm_items, trace_ctx=trace_ctx, rank=rank)
             except ValueError:
                 self._streams.pop(request_id, None)
                 raise

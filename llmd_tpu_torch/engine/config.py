@@ -22,6 +22,12 @@ offload tiers (``cpu_offload_pages``, ``offload_staging_blocks``,
 ``prefill`` | ``decode``; a tag the engine never reads, as in the
 reference, where only the pool reads it). So is ``lora``: ``None`` or a
 ``models/lora.LoRAConfig``, multi-adapter LoRA serving on GQA models.
+The kernel-selection modes are served with the reference's values:
+``attn_impl`` ``auto`` | ``pallas`` | ``reference`` and ``moe_matmul``
+``auto`` | ``pallas`` | ``einsum`` (``pallas`` names the port's CUDA
+kernels), and so is ``attn_tune_file`` (K1's launch-config table,
+``ops/attn_tune``). ``dp_ranks`` serves DP rank frontends over one engine,
+and ``max_queue`` is taken and read nowhere, as in the reference.
 """
 
 from __future__ import annotations
@@ -60,10 +66,13 @@ class EngineConfig:
     # max(prefill_chunk, max_batch_size).
     max_num_batched_tokens: "int | None" = None
     enable_prefix_caching: bool = True
-    # Parallelism (one device in this slice)
+    # Parallelism: one device (mesh waits for ROADMAP Queue A item 6b). DP
+    # rank frontends over this engine: each rank owns a queue, a slot range,
+    # a page partition and a token budget; max_batch_size and num_pages must
+    # divide by dp_ranks, and the offload tiers are single-rank.
     mesh: MeshConfig = field(default_factory=MeshConfig)
     dp_ranks: int = 1
-    # Scheduling
+    # Scheduling (read nowhere, as in the reference)
     max_queue: int = 1024
     # Multi-step decode: N decode iterations per host round trip.
     decode_steps: int = 1
@@ -87,16 +96,20 @@ class EngineConfig:
     kv_connector_params: "dict | None" = None
     # P/D role: both | prefill | decode (read by the pool, not the engine)
     role: str = "both"
-    # Attention: "auto" = the CUDA kernel on a card, its plain version for CPU
-    # tensors (the only value the port takes).
+    # Attention: "auto" = the CUDA kernels on a card (BuildError if they do
+    # not build), their plain versions for CPU tensors; "pallas" = the CUDA
+    # kernels, refused on the CPU; "reference" = the plain versions everywhere.
     attn_impl: str = "auto"
+    # K1's launch-config table (ops/attn_tune JSON, written by the bench's
+    # tuner); None: LLMD_ATTN_TUNE_FILE, else the launch-plan policy.
     attn_tune_file: "str | None" = None
     sp_ring_attention: bool = True
     # Wait for each unified step's outputs before stamping its device time
     # (EngineStats.time_device); off in serving.
     instrument: bool = False
-    # MoE expert GEMMs: "auto" = the CUDA kernels on a card, their plain
-    # versions for CPU tensors (the only value the port takes).
+    # MoE expert GEMMs: "auto" = the CUDA kernels (K2 / K4) on a card, their
+    # plain versions for CPU tensors; "pallas" = the CUDA kernels, refused on
+    # the CPU and with int8 weights; "einsum" = the plain products everywhere.
     moe_matmul: str = "auto"
     # MoE token dispatch: auto (= sorted) | sorted (drop-free, K2) | einsum
     # (capacity einsum, K4).
@@ -171,15 +184,14 @@ class EngineConfig:
         if self.quantize_weights not in (None, "int8"):
             raise ValueError(f"unknown quantize_weights={self.quantize_weights!r} "
                              "(supported: 'int8')")
-        if self.quantize_weights == "int8" and self.moe_matmul not in ("auto", "einsum"):
-            raise ValueError(f"moe_matmul={self.moe_matmul!r} (the grouped GEMM kernels, "
-                             "bf16/f32 only) is incompatible with quantize_weights='int8'")
-        if self.attn_impl != "auto":
-            raise ValueError(f"attn_impl={self.attn_impl!r}: the port has one "
-                             "attention path, 'auto' (the kernel on a card)")
-        if self.moe_matmul != "auto":
-            raise ValueError(f"moe_matmul={self.moe_matmul!r}: the port has one "
-                             "expert-GEMM path, 'auto' (the kernels on a card)")
+        if self.attn_impl not in ("auto", "pallas", "reference"):
+            raise ValueError(f"attn_impl must be auto|pallas|reference, got "
+                             f"{self.attn_impl!r}")
+        if self.moe_matmul not in ("auto", "pallas", "einsum"):
+            raise ValueError(f"moe_matmul must be auto|pallas|einsum, got "
+                             f"{self.moe_matmul!r}")
+        if self.dp_ranks < 1:
+            raise ValueError(f"dp_ranks must be >= 1, got {self.dp_ranks}")
         if self.moe_dispatch not in ("auto", "sorted", "einsum"):
             raise ValueError(f"moe_dispatch must be auto|sorted|einsum, got "
                              f"{self.moe_dispatch!r}")
@@ -211,4 +223,5 @@ SERVED = frozenset({
     "spec_structured_crosscheck",
     "cpu_offload_pages", "offload_staging_blocks", "offload_watermark_pages",
     "offload_fs_path", "kv_connector", "kv_connector_params", "role", "lora",
+    "attn_tune_file", "dp_ranks", "max_queue",
 })

@@ -38,6 +38,7 @@ import torch
 from llmd_tpu_torch.engine.sampling import sample_tokens, sample_tokens_biased
 from llmd_tpu_torch.models.config import ModelConfig
 from llmd_tpu_torch.models.transformer import forward_core, unembed
+from llmd_tpu_torch.ops.grouped_gemm import grouped_gemm
 
 # per-row inputs the host packs, with their dtypes and idle-slot values
 # (``lora``: the row's adapter slot, 0 the null adapter)
@@ -126,7 +127,8 @@ def decode_program(cfg: ModelConfig, params: dict[str, torch.Tensor], cache: tor
                    buf: DecodeBuffers, k: int, generator: torch.Generator, *,
                    attn_impl: Callable, moe_dispatch_impl: Optional[Callable],
                    tables: Optional[MaskTables] = None,
-                   lora_scale: float = 1.0) -> DecodeOutputs:
+                   lora_scale: float = 1.0,
+                   moe_matmul_impl: Callable = grouped_gemm) -> DecodeOutputs:
     """``k`` decode iterations of the static batch (the reference's
     ``_decode_multi``): each samples every row with its own temperature /
     top-k / top-p (temperature 0 is the exact argmax) and advances the rows
@@ -145,8 +147,8 @@ def decode_program(cfg: ModelConfig, params: dict[str, torch.Tensor], cache: tor
         hidden, cache, cnt, drop = forward_core(
             cfg, params, cache, toks, pos, buf.seq_slots, buf.page_tables, lens,
             cu_q_lens=buf.cu_q_lens, num_seqs=buf.num_seqs, attn_impl=attn_impl,
-            moe_dispatch_impl=moe_dispatch_impl, lora_indices=buf.lora,
-            lora_scale=lora_scale)
+            moe_dispatch_impl=moe_dispatch_impl, moe_matmul_impl=moe_matmul_impl,
+            lora_indices=buf.lora, lora_scale=lora_scale)
         counts = cnt if counts is None else counts + cnt
         drops = drop if drops is None else drops + drop
         logits = unembed(cfg, params, hidden)

@@ -156,6 +156,24 @@ the durable store (``kv/writeback.py``). Admission walks HBM, then CPU/FS
 (``_load_from_connector``). Every reload and inject writes the pool in place
 on the engine's stream, so the captured decode programs read the new pages.
 
+The launch surface (reference ``engine.py:187-213``, ``:451-480``,
+``:858-950``, ``:1239-1380``, ``:2992-3003``):
+
+- DP ranks (``dp_ranks=R``): each rank owns a queue (``waitq[r]``), a slot
+  range, a page partition (``allocs[r]``, ids from ``r * num_pages / R``) and
+  a token budget; ``add_request(rank=)`` and ``_try_admit_rank``,
+  preemption within the rank, one step loop and one pool, every program's
+  shapes unchanged;
+- the predictor's feed: ``Sequence.admit_features`` at arrival
+  (``prefix_match_pct`` at admission), one ``latency_trace`` row at
+  retirement, ``drain_latency_trace()``;
+- the kernel-selection modes (``_select_attn_impl``,
+  ``_select_moe_dispatch``) and K1's launch-config table
+  (``ops/attn_tune``), read before any capture and passed to K1's wrapper;
+- ``close()``: the device memory back at once; the engine's hooks reach it
+  through weak references, so a dropped engine is freed at its last
+  reference without the cycle collector.
+
 Entry point device: a CUDA card unless the caller passes ``device="cpu"``.
 """
 
@@ -163,8 +181,10 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import functools
 import os
 import time
+import weakref
 from collections import OrderedDict, deque
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -209,9 +229,14 @@ from llmd_tpu_torch.obs.device import profile_phase
 from llmd_tpu_torch.obs.events import FlightRecorder
 from llmd_tpu_torch.obs.metrics import Registry, register_engine_metrics
 from llmd_tpu_torch.obs.tracing import global_tracer
+from llmd_tpu_torch.ops import attn_tune
+from llmd_tpu_torch.ops import grouped_gemm as gg
+from llmd_tpu_torch.ops import mla_decode as md
+from llmd_tpu_torch.ops import paged_attention as pa
 from llmd_tpu_torch.ops.moe_dispatch import (
-    combine_stage, dispatch_stage, experts_scaled, experts_stage, pick_block_size)
-from llmd_tpu_torch.ops.paged_attention import paged_attention
+    combine_stage, dispatch_stage, experts_scaled, experts_stage, pick_block_size,
+    sorted_moe_local)
+from llmd_tpu_torch.ops.paged_attention import paged_attention, paged_attention_ref
 from llmd_tpu_torch.parallel.eplb import ExpertLoadTracker, balance_ratio, rebalance
 from llmd_tpu_torch.structured import (
     NEG_BIAS, StructuredState, compile_grammar, parse_logit_bias, structured_spec)
@@ -255,6 +280,9 @@ class EngineStats:
     total_preemptions: int = 0
     total_offload_loads: int = 0  # blocks pulled back from the CPU/FS tiers
     attn_backend: str = ""  # kernel provenance
+    # why the plain versions serve under attn_impl="auto" ("device=cpu"), else None
+    attn_fallback_reason: Optional[str] = None
+    attn_tune_hash: Optional[str] = None  # K1's launch-config table (ops/attn_tune)
     kv_cache_dtype: str = ""  # "fp8" | the model dtype's name: pool dtype provenance
     moe_backend: str = ""  # expert-GEMM provenance
     moe_dispatch: str = ""  # "sorted" | "einsum" | "n/a (dense model)"
@@ -313,6 +341,18 @@ def _pow2(n: int) -> int:
     return 1 << (n - 1).bit_length()
 
 
+def _weak_method(method: Callable) -> Callable:
+    """``method`` called through a weak reference to its object: the hooks
+    the engine hands out (allocator, adapter registry) then keep no cycle
+    through it, so a dropped engine is freed at its last reference."""
+    ref = weakref.WeakMethod(method)
+
+    def call(*args, **kw):
+        m = ref()
+        return None if m is None else m(*args, **kw)
+    return call
+
+
 class LLMEngine:
     """Single-device engine instance."""
 
@@ -339,10 +379,33 @@ class LLMEngine:
         self.model_cfg = model_cfg
         self.cfg = engine_cfg
         self.tokenizer = tokenizer
-        self.alloc = PageAllocator(engine_cfg.num_pages, engine_cfg.page_size,
-                                   enable_prefix_caching=engine_cfg.enable_prefix_caching,
-                                   event_sink=event_sink)
-        self.waiting: deque[Sequence] = deque()
+        # DP ranks (reference engine.py:187-213): each rank its own queue,
+        # slot range, page partition (allocator ids from its base) and token
+        # budget, all over one pool and one step loop
+        R = self.num_ranks = engine_cfg.dp_ranks
+        if R > 1:
+            if engine_cfg.max_batch_size % R or engine_cfg.num_pages % R:
+                raise ValueError(
+                    f"max_batch_size ({engine_cfg.max_batch_size}) and num_pages "
+                    f"({engine_cfg.num_pages}) must divide dp_ranks={R}")
+            if engine_cfg.cpu_offload_pages > 0 or engine_cfg.offload_fs_path:
+                raise ValueError("KV offload tiers are per-rank state; not yet "
+                                 "supported with dp_ranks > 1")
+            if engine_cfg.batched_tokens // R < 1:
+                raise ValueError(
+                    f"batched_tokens ({engine_cfg.batched_tokens}) must be at "
+                    f"least dp_ranks={R} (each rank needs a token budget)")
+        ppr = engine_cfg.num_pages // R
+        self.allocs = [
+            PageAllocator(ppr, engine_cfg.page_size,
+                          enable_prefix_caching=engine_cfg.enable_prefix_caching,
+                          event_sink=event_sink, base_id=r * ppr)
+            for r in range(R)]
+        self.alloc = self.allocs[0]
+        self.slots_per_rank = engine_cfg.max_batch_size // R
+        self.waitq: list[deque[Sequence]] = [deque() for _ in range(R)]
+        # the predictor's training rows, one per retired request
+        self.latency_trace: deque[dict] = deque(maxlen=4096)
         self.running: list[Optional[Sequence]] = [None] * engine_cfg.max_batch_size
         self.seqs: dict[str, Sequence] = {}
         self.stats = EngineStats()
@@ -354,7 +417,8 @@ class LLMEngine:
         # the step programs (registration order = routing priority); the
         # masked variants have no run hook: a routable program dispatches them
         self.programs = ProgramRegistry(
-            on_dispatch=lambda name: self.metrics.program_dispatches.labels(program=name).inc())
+            on_dispatch=lambda name, c=self.metrics.program_dispatches: (
+                c.labels(program=name).inc()))
         reg = self.programs.register
         reg("unified", eligible=LLMEngine._unified_eligible, run=LLMEngine._run_unified_program)
         reg("verify", eligible=lambda eng: eng.cfg.spec_mode == "ngram",
@@ -383,22 +447,13 @@ class LLMEngine:
         self.stats.kv_cache_dtype = ("fp8" if fp8
                                      else str(model_cfg.torch_dtype).removeprefix("torch."))
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
-        # attention of each program is a kernel's wrapper: the CUDA kernel on
-        # the card, its plain version for CPU tensors
-        self._attn = {"unified": paged_attention}
-        self._attn["decode"] = select_decode_attn_impl(self, self._attn["unified"])
         on_card = self.device.type == "cuda"
-        if model_cfg.is_mla:
-            self.attn_backend = ("cuda_paged_attention_latent+cuda_mla_latent_decode"
-                                 if on_card else
-                                 "torch_reference_latent+torch_mla_latent_decode "
-                                 "(cpu tensors)")
-        else:
-            self.attn_backend = ("cuda_paged_attention" if on_card
-                                 else "torch_reference (cpu tensors)")
+        self._select_attn_impl()
         self.stats.attn_backend = self.attn_backend
-        # no launch-config tune table yet: the reference's "none"
-        self.metrics.attn_backend_info.labels(backend=self.attn_backend, tune="none").set(1)
+        self.stats.attn_fallback_reason = self.attn_fallback_reason
+        self.stats.attn_tune_hash = self.attn_tune_hash
+        self.metrics.attn_backend_info.labels(
+            backend=self.attn_backend, tune=self.attn_tune_hash or "none").set(1)
         self._moe_dispatch_impl = self._select_moe_dispatch()
         self.stats.moe_backend = self.moe_backend
         self.stats.moe_dispatch = self.moe_dispatch
@@ -461,7 +516,7 @@ class LLMEngine:
                 cfg.cpu_offload_pages, staging_blocks=cfg.offload_staging_blocks,
                 fs_backend=fs, event_sink=event_sink, pages_per_layer=cfg.num_pages,
                 metrics=self.metrics, flight=self.flight)
-            self.alloc.evict_hook = lambda h, pid: self.offload.on_evict(self.cache, h, pid)
+            self.alloc.evict_hook = _weak_method(self._offload_evict)
             store = self.offload.store
             self.metrics.offload_saves.set_function(lambda: store.saves)
             self.metrics.offload_loads.set_function(lambda: store.loads)
@@ -486,23 +541,120 @@ class LLMEngine:
                 # eviction and demotion tee their host bytes into the queue
                 self.offload.writeback = self.writeback
             else:
-                def _durable_evict(h: int, pid: int) -> None:
-                    block = gather_pages(self.cache, [pid], self.cfg.num_pages)
-                    self.writeback.offer([h], to_host(block))
+                for alloc in self.allocs:
+                    alloc.evict_hook = _weak_method(self._durable_evict)
 
-                self.alloc.evict_hook = _durable_evict
+    def _offload_evict(self, h: int, pid: int) -> None:
+        self.offload.on_evict(self.cache, h, pid)
+
+    def _durable_evict(self, h: int, pid: int) -> None:
+        block = gather_pages(self.cache, [pid], self.cfg.num_pages)
+        self.writeback.offer([h], to_host(block))
+
+    def close(self) -> None:
+        """Give the engine's device memory back now and break the reference
+        cycles it sits in, so a dropped engine is freed at its last
+        reference, not by the cycle collector. Waits for the calls in
+        flight, then drops the params, the pool, the decode programs (their
+        CUDA graphs and graph pools), the static and staging buffers, and
+        the edges back to the engine: the program registry's run hooks and
+        dispatch counter, the allocators' hooks, the adapter registry's
+        evict hook, the monitor. The engine serves nothing after; the
+        server's ``stop()`` calls it for the engine it built."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._pending_decode = []
+        self._pending_sample = None
+        self._decode_fn = self._decode_masked_fn = None
+        self._decode_bufs = self._mask_buffers = None
+        self._pack_bufs, self._result_ring = [], []
+        self._mask_tab_cache.clear()
+        self.params, self.cache = {}, None
+        self._eplb_params, self._lora_params = {}, {}
+        self._gen = None  # a captured graph registered its device-side RNG state
+        self._attn, self._moe_dispatch_impl = {}, None
+        self.programs = ProgramRegistry()
+        for alloc in self.allocs:
+            alloc.evict_hook = alloc.event_sink = None
+        if self.lora_registry is not None:
+            self.lora_registry.on_evict = None
+        self.monitor = None
+        if self._connector_pool is not None:
+            self._connector_pool.shutdown(wait=True)
+        self.running = [None] * len(self.running)
+        self.seqs.clear()
+        for q in self.waitq:
+            q.clear()
 
     def compile_counts(self) -> dict[str, int]:
         """The ledger's compile count per program: CUDA-graph captures (the
         decode programs'; the unified and verify programs run eagerly)."""
         return self.programs.compile_counts()
 
+    def _select_attn_impl(self) -> None:
+        """Each program's attention (reference ``_select_attn_impl`` and
+        ``programs.select_decode_attn_impl``), with its provenance in
+        ``attn_backend`` / ``attn_fallback_reason`` and K1's launch-config
+        table in ``attn_tune_table`` / ``attn_tune_hash``:
+
+        - ``reference``: the plain versions of K1 (and on MLA of K3) in every
+          program, on any device;
+        - ``pallas``: the CUDA kernels, built here; refused on the CPU;
+        - ``auto``: the CUDA kernels on a card, built here (a failed build
+          raises ``BuildError``: there is no fallback on a card), their
+          plain versions for CPU tensors (``attn_fallback_reason``
+          ``"device=cpu"``).
+
+        The table is read here, before any capture, from
+        ``EngineConfig.attn_tune_file``, else ``ops/attn_tune.active_table``
+        (``LLMD_ATTN_TUNE_FILE``); K1's mma plans come from it, and each
+        captured decode graph keeps the plan of its capture."""
+        mode, mla = self.cfg.attn_impl, self.model_cfg.is_mla
+        on_card = self.device.type == "cuda"
+        self.attn_fallback_reason: Optional[str] = None
+        if self.cfg.attn_tune_file:
+            self.attn_tune_table = attn_tune.load_table(self.cfg.attn_tune_file)
+        else:
+            self.attn_tune_table = attn_tune.active_table()
+        self.attn_tune_hash = self.attn_tune_table.sha if self.attn_tune_table else None
+        if mode == "reference":
+            self._attn = {"unified": paged_attention_ref}
+            self._attn["decode"] = select_decode_attn_impl(self, paged_attention_ref)
+            self.attn_backend = ("torch_reference_latent+torch_mla_latent_decode" if mla
+                                 else "torch_reference")
+            return
+        if not on_card:
+            if mode == "pallas":
+                raise ValueError(
+                    f"attn_impl='pallas' runs the CUDA kernels, which take CUDA tensors; "
+                    f"this engine is on {self.device} (use 'auto' or 'reference')")
+            self.attn_fallback_reason = f"device={self.device.type}"
+            self.attn_backend = ("torch_reference_latent+torch_mla_latent_decode "
+                                 "(cpu tensors)" if mla else "torch_reference (cpu tensors)")
+        else:
+            pa.build()  # BuildError if nvcc refuses the source
+            if mla:
+                md.build()
+            self.attn_backend = ("cuda_paged_attention_latent+cuda_mla_latent_decode" if mla
+                                 else "cuda_paged_attention")
+        k1 = (paged_attention if self.attn_tune_table is None
+              else functools.partial(paged_attention, tune=self.attn_tune_table))
+        self._attn = {"unified": k1, "decode": select_decode_attn_impl(self, k1)}
+
     def _select_moe_dispatch(self) -> Optional[Callable]:
         """The MoE token dispatch (reference ``_select_moe_dispatch``, one
         device): ``sorted`` gives the drop-free sorted path (expert GEMMs
         through K2), ``einsum`` the capacity path (K4); ``auto`` takes
         ``LLMD_MOE_DISPATCH`` when set, else sorted. Returns the
-        dispatch_impl, None for einsum."""
+        dispatch_impl, None for einsum. The expert products follow
+        ``moe_matmul`` (reference ``_select_moe_impl``): ``einsum`` runs the
+        plain products (no K2 / K4 launch); ``pallas`` the kernels, refused
+        on the CPU and with int8 weights; ``auto`` the kernels on a card
+        (built here) and the plain products for CPU tensors. int8 banks run
+        plain scaled products under ``auto`` and ``einsum``, as the
+        reference gives them to XLA."""
+        self._moe_matmul_impl = gg.grouped_gemm  # the einsum dispatch's products
+        self._moe_gemm = gg.ragged_grouped_gemm  # the sorted dispatch's
         if not self.model_cfg.is_moe:
             self.moe_dispatch = self.moe_backend = "n/a (dense model)"
             return None
@@ -512,14 +664,31 @@ class LLMEngine:
         if mode not in ("sorted", "einsum"):
             raise ValueError(f"moe_dispatch must be auto|sorted|einsum, got {mode!r}")
         self.moe_dispatch = mode
-        if self.device.type != "cuda":
-            self.moe_backend = "torch_reference (cpu tensors)"
-        elif "moe_wi_q" in self.params:  # the grouped GEMM kernels are bf16/f32
+        matmul = self.cfg.moe_matmul
+        int8 = "moe_wi_q" in self.params
+        if matmul == "pallas" and int8:
+            raise ValueError(
+                "moe_matmul='pallas' (grouped GEMM, bf16-only) is "
+                "incompatible with quantize_weights='int8'")
+        if matmul == "pallas" and self.device.type != "cuda":
+            raise ValueError(
+                f"moe_matmul='pallas' runs the CUDA kernels, which take CUDA tensors; "
+                f"this engine is on {self.device} (use 'auto' or 'einsum')")
+        sorted_impl = SORTED_DISPATCH
+        if int8:  # the grouped GEMM kernels are bf16/f32
             self.moe_backend = "torch_bmm (int8 weights)"
+        elif matmul == "einsum":
+            self.moe_backend = "torch_reference"
+            self._moe_matmul_impl = gg.grouped_gemm_ref
+            self._moe_gemm = gg.ragged_grouped_gemm_ref
+            sorted_impl = functools.partial(sorted_moe_local, gemm=self._moe_gemm)
+        elif self.device.type != "cuda":
+            self.moe_backend = "torch_reference (cpu tensors)"
         else:
+            gg.build()  # BuildError if nvcc refuses the source
             self.moe_backend = ("cuda_ragged_grouped_gemm" if self.moe_dispatch == "sorted"
                                 else "cuda_grouped_gemm")
-        return SORTED_DISPATCH if self.moe_dispatch == "sorted" else None
+        return sorted_impl if self.moe_dispatch == "sorted" else None
 
     # ----------------------------------------------------------------- EPLB
     # Physical slot weights and replica tables live beside the logical params
@@ -603,6 +772,7 @@ class LLMEngine:
         return forward_core(self.model_cfg, self._run_params(), self.cache, *args,
                             attn_impl=self._attn[program],
                             moe_dispatch_impl=self._moe_dispatch_impl,
+                            moe_matmul_impl=self._moe_matmul_impl,
                             moe_rows=moe_rows, lora_scale=self._lora_scale, **kw)
 
     # ----------------------------------------------------------------- LoRA
@@ -625,7 +795,7 @@ class LLMEngine:
                 "path has no adapter hook); remove EngineConfig.lora or use a GQA model")
         self.lora_registry = LoRARegistry(lcfg.max_adapters)
         # a displaced idle adapter's cached KV is invalid once its slot is reused
-        self.lora_registry.on_evict = self._lora_forget
+        self.lora_registry.on_evict = _weak_method(self._lora_forget)
         self._lora_params = init_lora_params(self.model_cfg, lcfg, self.device)
         self._lora_scale = lcfg.scale
 
@@ -643,7 +813,8 @@ class LLMEngine:
         """Retire a name's KV: its cached pages go now; the dropped key keeps
         the offload tiers' copies from ever matching again."""
         self._lora_keys.pop(name, None)
-        self.alloc.purge_lora(name)
+        for alloc in self.allocs:
+            alloc.purge_lora(name)
 
     def _adapter_tensors(self, weights: dict) -> dict[str, torch.Tensor]:
         """``weights`` (numpy arrays or tensors, ``lora_A_<t> [L, Din, r]``,
@@ -741,20 +912,24 @@ class LLMEngine:
                     sampling: Optional[SamplingParams] = None,
                     lora_id: Optional[str] = None,
                     mm_items: Optional[list[tuple[bytes, np.ndarray]]] = None,
-                    trace_ctx: Optional[object] = None) -> None:
-        """Queue a request. ``trace_ctx``: the server's request span context;
-        its trace id keys the flight record and the exemplars, and a sampled
-        one parents the ``engine.step`` spans."""
+                    trace_ctx: Optional[object] = None, rank: int = 0) -> None:
+        """Queue a request on DP rank ``rank``'s queue. ``trace_ctx``: the
+        server's request span context; its trace id keys the flight record
+        and the exemplars, and a sampled one parents the ``engine.step``
+        spans. Stamps ``Sequence.admit_features``, the pod state a router
+        saw at arrival (``prefix_match_pct`` is patched at admission)."""
         sampling = sampling or SamplingParams()
         if not token_ids:
             raise ValueError("empty prompt")
+        if not 0 <= rank < self.num_ranks:
+            raise ValueError(f"rank {rank} out of range (dp_ranks={self.num_ranks})")
         if len(token_ids) >= self.cfg.max_model_len:
             token_ids = token_ids[: self.cfg.max_model_len - 1]
         ps = self.cfg.page_size
-        if (len(token_ids) + 1 + ps - 1) // ps > self.alloc.num_pages:
+        if (len(token_ids) + 1 + ps - 1) // ps > self.allocs[rank].num_pages:
             raise ValueError(
-                f"prompt needs more KV pages than the pool "
-                f"({len(token_ids)} tokens, {self.alloc.num_pages} pages × {ps})")
+                f"prompt needs more KV pages than the rank's pool "
+                f"({len(token_ids)} tokens, {self.allocs[rank].num_pages} pages × {ps})")
         bad = [t for t in token_ids if not 0 <= t < self.model_cfg.vocab_size]
         if bad:
             raise ValueError(f"token ids out of vocab range: {bad[:4]}")
@@ -806,12 +981,22 @@ class LLMEngine:
                        sampling=sampling, lora_id=lora_id,
                        lora_key=self._lora_hash_key(lora_id), arrival_time=time.monotonic(),
                        structured=structured, logit_bias=logit_bias, mm_items=mm_items,
-                       trace_ctx=trace_ctx)
+                       trace_ctx=trace_ctx, rank=rank)
+        inflight = (sum(len(s.token_ids) for s in self.running if s is not None)
+                    + sum(s.prompt_len for q in self.waitq for s in q))
+        seq.admit_features = {
+            "kv_usage": sum(a.num_active for a in self.allocs) / max(1, self.cfg.num_pages),
+            "input_len": float(len(token_ids)),
+            "queue_depth": float(sum(len(q) for q in self.waitq)),
+            "running_requests": float(sum(1 for s in self.running if s is not None)),
+            "inflight_tokens": float(inflight),
+            "prefix_match_pct": 0.0,  # known at admission; patched there
+        }
         self.seqs[request_id] = seq
-        self.waiting.append(seq)
+        self.waitq[rank].append(seq)
         self.flight.start(request_id, model=self.model_cfg.name,
                           trace_id=getattr(trace_ctx, "trace_id", "") or "")
-        self.flight.record(request_id, "arrival", prompt_len=len(token_ids), rank=0,
+        self.flight.record(request_id, "arrival", prompt_len=len(token_ids), rank=rank,
                            lora=lora_id)
         if compile_meta is not None:
             kind, cache_hit, compile_s = compile_meta
@@ -835,29 +1020,54 @@ class LLMEngine:
             if self.lora_registry.waiting.get(seq.lora_id, 0) > 0:
                 self.lora_registry.waiting[seq.lora_id] -= 1
         try:
-            self.waiting.remove(seq)
+            self.waitq[seq.rank].remove(seq)
         except ValueError:
             pass
         self._free_seq(seq)
 
+    @property
+    def waiting(self) -> list[Sequence]:
+        """Every rank's waiting sequences, rank by rank."""
+        return [s for q in self.waitq for s in q]
+
+    def drain_latency_trace(self) -> list[dict]:
+        """Return and clear the predictor's training rows: popped from the
+        left one at a time, so rows the engine thread appends meanwhile are
+        neither lost nor break the loop."""
+        rows: list[dict] = []
+        while True:
+            try:
+                rows.append(self.latency_trace.popleft())
+            except IndexError:
+                return rows
+
     def has_work(self) -> bool:
-        return (bool(self.waiting) or any(s is not None for s in self.running)
+        return (any(self.waitq) or any(s is not None for s in self.running)
                 or bool(self._pending_decode))
 
     # ------------------------------------------------------- scheduling core
     def _free_seq(self, seq: Sequence) -> None:
+        alloc = self.allocs[seq.rank]
         for pid in seq.pages:
-            self.alloc.release(pid)
+            alloc.release(pid)
         seq.pages = []
 
     def _try_admit(self) -> None:
-        """Move waiting → running while slots + pages allow; reuse cached prefixes."""
-        alloc, ps = self.alloc, self.cfg.page_size
-        while self.waiting:
-            slot = next((i for i, s in enumerate(self.running) if s is None), None)
+        """Move waiting → running while slots + pages allow; reuse cached
+        prefixes. Each DP rank admits on its own (its queue, slot range and
+        pages), so a saturated rank never blocks another."""
+        for rank in range(self.num_ranks):
+            self._try_admit_rank(rank)
+
+    def _try_admit_rank(self, rank: int) -> None:
+        waiting, alloc, ps = self.waitq[rank], self.allocs[rank], self.cfg.page_size
+        lo = rank * self.slots_per_rank
+        hi = lo + self.slots_per_rank
+        while waiting:
+            slot = next((i for i in range(lo, hi) if self.running[i] is None), None)
             if slot is None:
                 return
-            seq = self.waiting[0]
+            seq = waiting[0]
             if seq.pages:
                 self._free_seq(seq)  # a waiting seq owns nothing
             keys = block_keys_for_tokens(seq.token_ids[: seq.prompt_len], ps, seq.lora_key,
@@ -884,7 +1094,7 @@ class LLMEngine:
                               and info.refs == 0)
             if need_new > alloc.num_pages:
                 # can never fit (prompt + generated tokens outgrew the pool)
-                self.waiting.popleft()
+                waiting.popleft()
                 seq.finished, seq.finish_reason = True, "length"
                 self.seqs.pop(seq.request_id, None)
                 self.flight.finish(seq.request_id, event="retired", reason="length",
@@ -894,7 +1104,7 @@ class LLMEngine:
                     finish_reason="length", prompt_len=seq.prompt_len))
                 continue
             if alloc.num_free - hits_in_lru < need_new:
-                return  # head-of-line blocks; FCFS admission
+                return  # head-of-line blocks; FCFS admission (within this rank)
             for pid in hit_pages:
                 alloc.acquire_cached(pid)
             n_hbm = len(hit_pages)
@@ -912,10 +1122,13 @@ class LLMEngine:
             m.prefix_prompt_tokens.inc(seq.prompt_len)
             m.prefix_hit_ratio.set(m.prefix_cached_tokens.value
                                    / max(1, m.prefix_prompt_tokens.value))
+            if seq.admit_features is not None:
+                seq.admit_features["prefix_match_pct"] = (
+                    seq.num_cached_prompt / max(1, seq.prompt_len))
             seq.slot = slot
             self.running[slot] = seq
-            self.waiting.popleft()
-            self.flight.record(seq.request_id, "admitted", slot=slot, rank=0,
+            waiting.popleft()
+            self.flight.record(seq.request_id, "admitted", slot=slot, rank=rank,
                                cached_tokens=seq.num_cached_prompt, pages=len(seq.pages))
             if self.lora_registry is not None:
                 self.lora_registry.on_running(seq.lora_id)
@@ -944,10 +1157,10 @@ class LLMEngine:
         and commit the rest under their keys."""
         if n <= 0:
             return []
-        ps = self.cfg.page_size
+        ps, alloc = self.cfg.page_size, self.allocs[seq.rank]
         pids: list[int] = []
         for _ in range(n):
-            pid = self.alloc.allocate()
+            pid = alloc.allocate()
             if pid is None:
                 break
             pids.append(pid)
@@ -955,12 +1168,12 @@ class LLMEngine:
             return []
         self.cache, n_loaded = load(keys[start : start + len(pids)], pids)
         for pid in pids[n_loaded:]:
-            self.alloc.release(pid)
+            alloc.release(pid)
         pids = pids[:n_loaded]
         for i, pid in enumerate(pids):
             bi = start + i
             chunk = seq.token_ids[bi * ps : (bi + 1) * ps]
-            self.alloc.commit_block(pid, keys[bi], chunk, keys[bi - 1] if bi > 0 else None,
+            alloc.commit_block(pid, keys[bi], chunk, keys[bi - 1] if bi > 0 else None,
                                     seq.lora_key)
         return pids
 
@@ -976,8 +1189,9 @@ class LLMEngine:
 
     def _ensure_pages(self, seq: Sequence, upto_tokens: int) -> bool:
         need = (upto_tokens + self.cfg.page_size - 1) // self.cfg.page_size
+        alloc = self.allocs[seq.rank]
         while len(seq.pages) < need:
-            pid = self.alloc.allocate()
+            pid = alloc.allocate()
             if pid is None:
                 self.metrics.kv_exhaustion.inc()
                 return False
@@ -985,10 +1199,10 @@ class LLMEngine:
         return True
 
     def _finish_if_outgrew_pool(self, seq: Sequence) -> None:
-        """A running seq whose next token needs more pages than the whole pool
-        can never be scheduled again: finish it with 'length'."""
+        """A running seq whose next token needs more pages than its rank's
+        whole pool can never be scheduled again: finish it with 'length'."""
         ps = self.cfg.page_size
-        if (len(seq.token_ids) + ps - 1) // ps <= self.alloc.num_pages:
+        if (len(seq.token_ids) + ps - 1) // ps <= self.allocs[seq.rank].num_pages:
             return  # transient pressure: another seq's retirement frees pages
         self._retire(seq, "length")
         self._outputs.append(EngineOutput(
@@ -996,14 +1210,16 @@ class LLMEngine:
             finish_reason="length", num_cached_prompt_tokens=seq.num_cached_prompt,
             prompt_len=seq.prompt_len))
 
-    def _preempt_one(self, exclude: Optional[Sequence] = None) -> bool:
-        """Evict the most recently arrived running seq back to waiting
-        (recompute semantics). ``exclude`` is the seq being scheduled:
-        evicting it would only reset it to token zero. A deferred prefill
-        sample lands first: its sequence is idle and holds pages, and evicting
-        it would drop its token."""
+    def _preempt_one(self, rank: int = 0, exclude: Optional[Sequence] = None) -> bool:
+        """Evict the rank's most recently arrived running seq back to waiting
+        (recompute semantics): pages are rank-partitioned, so only a
+        same-rank victim frees pages the caller can use. ``exclude`` is the
+        seq being scheduled: evicting it would only reset it to token zero.
+        A deferred prefill sample lands first: its sequence is idle and holds
+        pages, and evicting it would drop its token."""
         self._flush_pending_sample()
-        victims = [s for s in self.running if s is not None and s is not exclude]
+        victims = [s for s in self.running
+                   if s is not None and s.rank == rank and s is not exclude]
         if not victims:
             return False
         victim = max(victims, key=lambda s: s.arrival_time)
@@ -1016,10 +1232,10 @@ class LLMEngine:
         victim.num_computed = 0
         victim.block_hashes = []
         victim.num_cached_prompt = 0
-        self.waiting.appendleft(victim)
+        self.waitq[rank].appendleft(victim)
         self.stats.total_preemptions += 1
         self.metrics.preemptions.inc()
-        self.flight.record(victim.request_id, "preempted", rank=0,
+        self.flight.record(victim.request_id, "preempted", rank=rank,
                            generated=victim.num_generated)
         return True
 
@@ -1058,9 +1274,10 @@ class LLMEngine:
             if self._eplb is not None:
                 self._eplb_tick()  # a rebalance is ordered after the calls in flight
         st = self.stats
-        st.num_waiting = len(self.waiting)
+        st.num_waiting = sum(len(q) for q in self.waitq)
         st.num_running = sum(1 for s in self.running if s is not None)
-        st.kv_utilization = self.alloc.num_active / max(1, self.cfg.num_pages)
+        st.kv_utilization = (sum(a.num_active for a in self.allocs)
+                             / max(1, self.cfg.num_pages))
         m = self.metrics
         m.requests_waiting.set(st.num_waiting)
         m.requests_running.set(st.num_running)
@@ -1139,7 +1356,10 @@ class LLMEngine:
         token budget and run ONE forward."""
         t0 = time.perf_counter()
         t0_ns = time.time_ns()
-        budget = self.cfg.batched_tokens
+        R = self.num_ranks
+        # per-rank token budgets (a rank engine's --max-num-batched-tokens);
+        # one rank keeps the whole budget
+        budgets = [self.cfg.batched_tokens // R] * R
         B = self.cfg.max_batch_size
         # decode rows first (keeps TPOT low while prompts stream in), then
         # prefill chunks oldest-first
@@ -1147,33 +1367,33 @@ class LLMEngine:
         for s in self._decode_ready():
             if len(plan) >= B:
                 break
-            if s.slot < 0 or budget <= 0:
+            if s.slot < 0 or budgets[s.rank] <= 0:
                 continue  # preempted while packing an earlier row
             if not self._ensure_pages(s, len(s.token_ids)):
-                if not self._preempt_one(exclude=s) or s.slot < 0:
+                if not self._preempt_one(s.rank, exclude=s) or s.slot < 0:
                     self._finish_if_outgrew_pool(s)
                     continue
                 if not self._ensure_pages(s, len(s.token_ids)):
                     continue
             plan.append((s, 1, True))
-            budget -= 1
+            budgets[s.rank] -= 1
         for s in self._prefilling_seqs():
             if len(plan) >= B:
                 break
             if s.slot < 0:
                 continue  # preempted while packing decode rows
             n = min(self.cfg.prefill_chunk, self._prefill_target(s) - s.num_computed,
-                    budget)
+                    budgets[s.rank])
             if n <= 0:
                 continue
             if not self._ensure_pages(s, s.num_computed + n):
-                if not self._preempt_one(exclude=s) or s.slot < 0:
+                if not self._preempt_one(s.rank, exclude=s) or s.slot < 0:
                     self._finish_if_outgrew_pool(s)
                     continue
                 if not self._ensure_pages(s, s.num_computed + n):
                     continue
             plan.append((s, n, False))
-            budget -= n
+            budgets[s.rank] -= n
         plan = [(s, n, d) for (s, n, d) in plan if s.slot >= 0]
         if not plan:
             # nothing schedulable: a deferred sample may be why (its rows hold
@@ -1248,7 +1468,7 @@ class LLMEngine:
         for i, (s, n, is_decode) in enumerate(plan):
             if is_decode:
                 s.num_computed = len(s.token_ids)
-                s.maybe_commit_blocks(self.alloc)
+                s.maybe_commit_blocks(self.allocs[s.rank])
                 self.stats.total_decode_tokens += 1
                 sample_rows.append((i, s))
                 has_decode_rows = True
@@ -1259,7 +1479,7 @@ class LLMEngine:
                     self.flight.record(s.request_id, "prefill_start",
                                        cached_tokens=s.num_cached_prompt)
                 s.num_computed += n
-                s.maybe_commit_blocks(self.alloc)
+                s.maybe_commit_blocks(self.allocs[s.rank])
                 self.stats.total_prefill_tokens += n
                 if s.num_computed >= self._prefill_target(s):
                     self.flight.record(s.request_id, "prefill_end",
@@ -1508,25 +1728,29 @@ class LLMEngine:
         active = [s for s in self._decode_ready() if s.slot >= 0]
         if not active:
             return True  # the flush retired or changed the batch: step done
-        # every row gets its plain token; drafts share what is left
-        spare = self._verify_nt() - len(active)
+        # every row gets its plain token; drafts share what is left of its
+        # rank's budget
+        R = self.num_ranks
+        spare = [self._verify_nt() // R] * R
+        for s in active:
+            spare[s.rank] -= 1
         plan: list[tuple[Sequence, list[int]]] = []
         for s in active:
             if len(plan) >= self.cfg.max_batch_size:
                 break
             if s.slot < 0:
                 continue  # preempted while packing an earlier row
-            draft = self._spec_propose(s, max(0, spare)) if s.spec_armed else []
+            draft = self._spec_propose(s, max(0, spare[s.rank])) if s.spec_armed else []
             if draft and not self._ensure_pages(s, len(s.token_ids) + len(draft)):
                 draft = []  # shed the draft before shedding a sequence
             if not self._ensure_pages(s, len(s.token_ids)):
-                if not self._preempt_one(exclude=s) or s.slot < 0:
+                if not self._preempt_one(s.rank, exclude=s) or s.slot < 0:
                     self._finish_if_outgrew_pool(s)
                     continue
                 if not self._ensure_pages(s, len(s.token_ids)):
                     continue
             plan.append((s, draft))
-            spare -= len(draft)
+            spare[s.rank] -= len(draft)
         plan = [(s, d) for s, d in plan if s.slot >= 0]
         if any(_constrained(s) for s, _ in plan):
             # a constrained row may have become decode-ready in the flush: a
@@ -1596,7 +1820,7 @@ class LLMEngine:
             batch["lora"] = lora
         batch = {k: self._tensor(v) for k, v in batch.items()}
         kw = dict(attn_impl=self._attn["unified"], moe_dispatch_impl=self._moe_dispatch_impl,
-                  moe_rows=(torch.arange(N, device=self.device), self._verify_nt()),
+                  moe_matmul_impl=self._moe_matmul_impl, moe_rows=(torch.arange(N, device=self.device), self._verify_nt()),
                   lora_scale=self._lora_scale)
         if mask is None:
             greedy, self.cache, cnt, drop = verify(
@@ -1640,7 +1864,7 @@ class LLMEngine:
             rejected = len(draft) - accepted
             s.num_computed = len(s.token_ids) - 1  # the newest token's KV is not written
             self._first_token(s, now)
-            s.maybe_commit_blocks(self.alloc)
+            s.maybe_commit_blocks(self.allocs[s.rank])
             self._spec_release_tail(s)
             constrained = _constrained(s)
             if fsm is not None and s.structured is not None:
@@ -1711,8 +1935,9 @@ class LLMEngine:
         to the free list."""
         ps = self.cfg.page_size
         need = max((len(s.token_ids) + ps - 1) // ps, len(s.block_hashes))
+        alloc = self.allocs[s.rank]
         while len(s.pages) > need:
-            self.alloc.release(s.pages.pop())
+            alloc.release(s.pages.pop())
 
     # ------------------------------------------------ masked programs' tables
     def _plan_chain_masks(self, active: list[Sequence]) -> Optional[dict]:
@@ -2000,13 +2225,16 @@ class LLMEngine:
         k = max(1, self.cfg.decode_steps)
         tables = self._mask_buffers if masked else None
 
+        ref = weakref.ref(self)  # the program is the engine's: no cycle through it
+
         def program():
+            eng = ref()
             return run_chained(lambda: decode_program(
-                cfg, self._run_params(), self.cache, buf, k, self._gen,
-                attn_impl=self._attn["decode"],
-                moe_dispatch_impl=self._moe_dispatch_impl, tables=tables,
-                lora_scale=self._lora_scale), buf,
-                drops=cfg.is_moe, counts=self._eplb is not None)
+                cfg, eng._run_params(), eng.cache, buf, k, eng._gen,
+                attn_impl=eng._attn["decode"],
+                moe_dispatch_impl=eng._moe_dispatch_impl, tables=tables,
+                lora_scale=eng._lora_scale, moe_matmul_impl=eng._moe_matmul_impl), buf,
+                drops=cfg.is_moe, counts=eng._eplb is not None)
 
         fn = program
         if self._decode_graph:
@@ -2248,7 +2476,7 @@ class LLMEngine:
             if q8:
                 return experts_scaled(st[0], st[4], wi, wo, p["moe_wi_scale"][0],
                                       p["moe_wo_scale"][0])
-            return experts_stage(st[0], st[4], st[5], wi, wo)
+            return experts_stage(st[0], st[4], st[5], wi, wo, gemm=self._moe_gemm)
 
         def combine(ye):
             st = staged[0]
@@ -2305,7 +2533,7 @@ class LLMEngine:
                 # program keeps them inside the grammar: no violation)
                 self._count_violations(s.structured.sync(s.token_ids, s.prompt_len))
             self._first_token(s, now)
-            s.maybe_commit_blocks(self.alloc)
+            s.maybe_commit_blocks(self.allocs[s.rank])
             self.stats.total_decode_tokens += len(kept)
             self.stats.decode_tokens_fused += len(kept)
             if kept:
@@ -2370,13 +2598,24 @@ class LLMEngine:
             ttft_ms=round((seq.first_token_time - seq.arrival_time) * 1e3, 3)
             if seq.first_token_time is not None else None,
             **decision_attrs)
+        if self.kv_connector is not None and seq.block_hashes:
+            self._connector_save(seq)
+        if seq.admit_features is not None and seq.first_token_time is not None:
+            # one predictor training row per completed request (reference
+            # engine.py:2992-3003): the arrival features and the latencies
+            now = time.monotonic()
+            n_gen = max(1, seq.num_generated)
+            self.latency_trace.append(dict(
+                seq.admit_features,
+                tokens_generated=float(n_gen),
+                ttft_ms=(seq.first_token_time - seq.arrival_time) * 1e3,
+                tpot_ms=((now - seq.first_token_time) / max(1, n_gen - 1)) * 1e3
+                if n_gen > 1 else None))
         if seq.slot >= 0:
             self.running[seq.slot] = None
             seq.slot = -1
             if self.lora_registry is not None:
                 self.lora_registry.on_finished(seq.lora_id)
-        if self.kv_connector is not None and seq.block_hashes:
-            self._connector_save(seq)
         self._free_seq(seq)
         self.seqs.pop(seq.request_id, None)
 
@@ -2416,7 +2655,8 @@ class LLMEngine:
         return False, None
 
     # ------------------------------------------------------------ embeddings
-    def embed(self, token_ids: list[int], lora_id: Optional[str] = None) -> list[float]:
+    def embed(self, token_ids: list[int], lora_id: Optional[str] = None,
+              rank: int = 0) -> list[float]:
         """The mean-pooled, L2-normalised final hidden state of ``token_ids``
         (``/v1/embeddings``; reference ``embed``), under adapter ``lora_id``.
 
@@ -2425,8 +2665,9 @@ class LLMEngine:
         for the call (released in ``finally``); the chunks' sums accumulate
         on the host in float64. Eager, on the engine's stream, so a decode
         call still in flight is ordered before it. The caller serialises
-        against the step loop (the server's ``run_locked``). The reference's
-        ``rank`` argument picks a DP rank's pool; this engine has one."""
+        against the step loop (the server's ``run_locked``). ``rank`` picks
+        the DP rank whose pages are borrowed (rank 0 when out of range, as
+        the reference)."""
         if not token_ids:
             raise ValueError("empty input")
         bad = [t for t in token_ids if not 0 <= t < self.model_cfg.vocab_size]
@@ -2436,11 +2677,12 @@ class LLMEngine:
         chunk, ps = self.cfg.prefill_chunk, self.cfg.page_size
         slot = self.lora_registry.slot_of(lora_id) if self.lora_registry is not None else 0
         acc = np.zeros((self.model_cfg.hidden_size,), np.float64)
+        alloc = self.allocs[rank if 0 <= rank < self.num_ranks else 0]
         pages: list[int] = []
         with torch.no_grad(), self._on_stream():
             try:
                 for _ in range((len(token_ids) + ps - 1) // ps):
-                    pid = self.alloc.allocate()  # may evict: its copy-out on this stream
+                    pid = alloc.allocate()  # may evict: its copy-out on this stream
                     if pid is None:
                         raise RuntimeError("no free KV pages for embedding request")
                     pages.append(pid)
@@ -2457,7 +2699,7 @@ class LLMEngine:
                     acc += h_sum.cpu().numpy().astype(np.float64)
             finally:
                 for pid in pages:
-                    self.alloc.release(pid)
+                    alloc.release(pid)
         vec = acc / max(1, len(token_ids))
         norm = float(np.linalg.norm(vec))
         return (vec / norm if norm > 0 else vec).astype(float).tolist()

@@ -13,7 +13,9 @@ page allocator with content-hash prefix reuse, and per-request state.
   it, and ``purge_lora`` drops an unloaded adapter's cached blocks,
 - multimodal: a sequence's media identities (``Sequence.mm_items``) are the
   extra keys of every block hash, so two prompts whose tokens agree but whose
-  images differ never share a cached block.
+  images differ never share a cached block,
+- DP ranks: ``base_id`` is the first page id an allocator owns, so the rank
+  allocators of one engine hand out disjoint ranges of one pool.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ class PageAllocator:
         enable_prefix_caching: bool = True,
         event_sink: Optional[Callable[[list[KVEvent]], None]] = None,
         medium: str = "gpu",
+        base_id: int = 0,
     ) -> None:
         self.num_pages = num_pages
         self.page_size = page_size
@@ -56,7 +59,10 @@ class PageAllocator:
         # Called (block_hash, page_id) just before a cached page is recycled:
         # the offload connector's HBM -> CPU hook (kv/offload.py).
         self.evict_hook: Optional[Callable[[int, int], None]] = None
-        self.free: deque[int] = deque(range(num_pages))
+        # the first page id this allocator owns: DP rank allocators sharing one
+        # pool each manage a disjoint contiguous range
+        self.base_id = base_id
+        self.free: deque[int] = deque(range(base_id, base_id + num_pages))
         self.pages: dict[int, PageInfo] = {}
         # block_hash → page_id for complete blocks still resident (any refcount)
         self.cached: dict[int, int] = {}
@@ -219,6 +225,10 @@ class Sequence:
     block_hashes: list[int] = field(default_factory=list)  # chained hashes of committed blocks
     arrival_time: float = 0.0
     first_token_time: Optional[float] = None  # time.monotonic() when its first token landed
+    rank: int = 0  # the DP rank whose queue, slots and pages it uses
+    # the pod state at arrival (the predictor's features), joined at
+    # retirement with the latencies the request got: one training row
+    admit_features: Optional[dict] = None
     # Speculative decoding tallies: drafted / accepted feed the per-request
     # acceptance-rate summary observed at retirement.
     spec_drafted: int = 0

@@ -25,10 +25,11 @@ the decode-shaped programs run.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
-from llmd_tpu_torch.ops.mla_decode import mla_paged_attention_latent
+from llmd_tpu_torch.ops.mla_decode import mla_decode_ref, mla_paged_attention_latent
 
 
 @dataclass
@@ -115,8 +116,12 @@ def select_decode_attn_impl(engine, unified_attn: Callable) -> Callable:
     kernel K3 (``mla_paged_attention_latent``): the decode batch is exactly
     its shape, one query row per sequence over the single-plane latent pool,
     while the unified and verify programs keep ``unified_attn`` (K1 on that
-    pool). The kernel runs for CUDA tensors and its plain version for CPU
-    tensors, so there is no mode to pick and no fallback."""
+    pool). Under ``attn_impl="reference"`` it is K3's plain version on every
+    device; otherwise the kernel's wrapper (the kernel for CUDA tensors, its
+    plain version for CPU tensors: the engine has refused ``pallas`` on the
+    CPU already)."""
     if not engine.model_cfg.is_mla:
         return unified_attn
+    if engine.cfg.attn_impl == "reference":
+        return functools.partial(mla_paged_attention_latent, decode=mla_decode_ref)
     return mla_paged_attention_latent

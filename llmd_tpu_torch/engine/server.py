@@ -119,6 +119,18 @@ chat path's tokenization, admission gate and generation; ``POST
 / ``POST /v1/conversations/{cid}/items`` keep the reference's pod-local
 store, LRU-capped at 4096 conversations of at most 512 items each (404 for
 an unknown id).
+
+The launch surface, as the reference's server: ``engine=`` /
+``async_engine=`` / ``rank=`` make the server a DP rank frontend over a
+shared engine and step loop (``engine/dp_group.WideEPEngineGroup``): its
+requests go to rank ``rank``'s queue, its embeddings borrow that rank's pages
+and it publishes that rank's allocator's KV events; ``predictor_train_url``
+posts the engine's latency rows (``LLMEngine.drain_latency_trace``) to
+``<url>/samples`` once a second from a daemon thread (``urllib``, 2 s
+timeout; a trainer that is down loses that batch). ``stop()`` closes the
+engine the server built (``LLMEngine.close``): its device memory goes back
+at once, though the server object itself is freed by the cycle collector
+(its handler class is a cycle).
 """
 
 from __future__ import annotations
@@ -131,6 +143,7 @@ import socket
 import sys
 import threading
 import time
+import urllib.request
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Iterator, Optional
@@ -251,7 +264,17 @@ class EngineServer:
         engine: Optional[LLMEngine] = None,
         device=None,
         seed: int = 0,
+        async_engine: Optional[AsyncLLMEngine] = None,
+        rank: int = 0,
+        predictor_train_url: Optional[str] = None,
     ) -> None:
+        """``engine``, ``async_engine`` and ``rank``: a DP rank frontend over
+        a shared engine and its one step loop (the caller owns both), feeding
+        rank ``rank``'s queue and publishing that rank's KV events;
+        ``engine`` alone: this server's own loop over a given engine, which
+        ``stop()`` leaves open. ``predictor_train_url``: the latency trainer
+        whose ``POST /samples`` receives the engine's training rows once a
+        second."""
         self.model_name = model_name or f"llmd-tpu/{model_cfg.name}"
         self.host, self.port = host, port
         self.tokenizer = tokenizer or load_tokenizer()
@@ -270,18 +293,28 @@ class EngineServer:
         self.publisher = (KVEventPublisher(kv_events_port)
                           if kv_events_port is not None else None)
         sink = self.publisher.sink if self.publisher is not None else None
+        self.rank = rank
+        self._owns_engine = engine is None
         if engine is None:
+            if async_engine is not None:
+                raise ValueError("async_engine= needs the engine= it steps")
             engine = LLMEngine(model_cfg, engine_cfg, params=params, event_sink=sink,
                                seed=seed, device=device, tokenizer=self.tokenizer)
         else:
             if engine.tokenizer is None:  # structured requests lift onto this vocabulary
                 engine.tokenizer = self.tokenizer
-            if sink is not None:
-                engine.alloc.event_sink = sink
+            if sink is not None and rank < len(engine.allocs):
+                engine.allocs[rank].event_sink = sink  # this rank's KV events
         self.engine = engine
-        self.async_engine = AsyncLLMEngine(self.engine)
+        self._owns_loop = async_engine is None
+        self.async_engine = async_engine if async_engine is not None else AsyncLLMEngine(engine)
+        # the latency trainer's feed (a daemon thread from start() to stop())
+        self.predictor_train_url = predictor_train_url
+        self._feed_stop = threading.Event()
+        self._feed_thread: Optional[threading.Thread] = None
         # the in-process tower (combined PD), built at the first media request
         self._vision: Optional[VisionRunner] = None
+        self._built_vision = False  # stop() closes only a tower it built
         self._vision_lock = threading.Lock()
         # frontend-owned families; the engine's live in engine.registry
         self.registry = Registry()
@@ -360,6 +393,30 @@ class EngineServer:
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         name="http-server", daemon=True)
         self._thread.start()
+        if self.predictor_train_url is not None:
+            self._feed_stop.clear()
+            self._feed_thread = threading.Thread(target=self._trace_feed_loop,
+                                                 name="predictor-feed", daemon=True)
+            self._feed_thread.start()
+
+    def _trace_feed_loop(self) -> None:
+        """Post the engine's latency rows to the trainer once a second
+        (reference ``_trace_flush_loop``): ``{"samples": rows}`` to
+        ``<url>/samples`` with a 2 s timeout; a trainer that is down loses
+        that batch (the rows were drained)."""
+        url = f"{self.predictor_train_url.rstrip('/')}/samples"
+        while not self._feed_stop.wait(1.0):
+            rows = self.engine.drain_latency_trace()
+            if not rows:
+                continue
+            req = urllib.request.Request(
+                url, data=json.dumps({"samples": rows}).encode(),
+                headers={"Content-Type": "application/json"}, method="POST")
+            try:
+                with urllib.request.urlopen(req, timeout=2.0) as resp:
+                    resp.read()
+            except (OSError, ValueError):
+                pass  # trainer down or refusing: the next batch goes fresh
 
     def _start_planes(self) -> None:
         """The KV-event publisher, the KV transfer source and the device
@@ -392,6 +449,16 @@ class EngineServer:
         self.monitor = self.engine.monitor
 
     def stop(self) -> None:
+        """Stop serving: the HTTP server and its connections, the feed, the
+        step loop (unless shared), the planes; then the engine it built is
+        closed (``LLMEngine.close``), so its device memory goes back now and
+        the dropped server holds none. A rank frontend leaves the shared
+        engine and loop to their owner; a server given an engine leaves it
+        open."""
+        self._feed_stop.set()
+        if self._feed_thread is not None:
+            self._feed_thread.join(timeout=5)
+            self._feed_thread = None
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -406,7 +473,8 @@ class EngineServer:
         if self._thread is not None:
             self._thread.join(timeout=30)
             self._thread = None
-        self.async_engine.stop()
+        if self._owns_loop:
+            self.async_engine.stop()
         if self._owns_monitor and self.monitor is not None:
             self.monitor.stop()
             self.engine.monitor = self.monitor = None
@@ -417,6 +485,10 @@ class EngineServer:
             self.transfer_source.stop()
         if self.publisher is not None:
             self.publisher.stop()
+        if self._built_vision:
+            self._vision.close()  # the in-process tower's weights
+        if self._owns_engine:
+            self.engine.close()
 
     # -- the KV data plane ---------------------------------------------------
     def _pull_remote_kv(self, ktp: KVTransferParams, token_ids: list[int],
@@ -693,7 +765,7 @@ class EngineServer:
             total += len(ids)
             try:
                 vec = self.async_engine.run_locked(
-                    lambda ids=ids: self.engine.embed(ids, lora_id))
+                    lambda ids=ids: self.engine.embed(ids, lora_id, rank=self.rank))
             except (ValueError, TypeError) as e:  # token ids outside the vocabulary
                 return 400, {"error": {"message": str(e)}}
             except RuntimeError as e:
@@ -816,6 +888,7 @@ class EngineServer:
             with self._vision_lock:
                 if self._vision is None:
                     self._vision = VisionRunner(cfg, device=self.engine.device)
+                    self._built_vision = True
             encoded = self._vision.encode([media_bytes_from_part(parts[i]) or b""
                                            for i in missing])
             for i, (_h, emb) in zip(missing, encoded):
@@ -920,7 +993,7 @@ class EngineServer:
                   trace_ctx=None):
         text = TextStream(self.tokenizer, sampling.stop)
         outputs = self.async_engine.generate(rid, token_ids, sampling, lora_id, mm_items,
-                                             trace_ctx)
+                                             trace_ctx, rank=self.rank)
         try:
             first = next(outputs)  # admission errors surface here, as a 400
         except ValueError as e:

@@ -13,6 +13,12 @@ builders race benignly (each writes a temp file, then renames atomically).
 
 A failed build raises :class:`BuildError` carrying nvcc's output — there is no
 silent fallback to a plain version.
+
+:func:`set_cache_dir` points the cache elsewhere before any library loads
+(the serve CLI's ``--compile-cache-dir``, which a pool's warm start passes to
+every relaunch): a process given a directory that holds the ``.so`` files of
+the same sources and flags loads them and runs no compiler. ``compiles``
+counts the compiler runs of this process.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from pathlib import Path
 from typing import Callable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = CSRC / ".build"
+BUILD_DIR = CSRC / ".build"  # the library cache; set_cache_dir() moves it
 # sm_90a (not sm_90): keeps wgmma/setmaxnreg available to the kernels.
 # -Xptxas -v reports registers, shared memory and spills per kernel.
 NVCC_FLAGS = (
@@ -56,6 +62,7 @@ class Built:
 
 
 _LOADED: dict[str, Built] = {}
+compiles = 0  # compiler runs in this process
 _LOCK = threading.Lock()  # guards _LOCKS
 _LOCKS: dict[str, threading.Lock] = {}  # one per source: builds run in parallel
 
@@ -70,6 +77,31 @@ def nvcc_path() -> str:
         return str(cand)
     raise BuildError("nvcc not found on PATH or under CUDA_HOME; the CUDA "
                      "toolkit is needed to build the kernels")
+
+
+def set_cache_dir(path: "str | os.PathLike") -> Path:
+    """Build into and load from ``path`` (created if need be). Refused once a
+    library is loaded: that one came from the old cache."""
+    global BUILD_DIR
+    with _LOCK:
+        if _LOADED:
+            raise RuntimeError(f"set_cache_dir: {sorted(_LOADED)} already loaded "
+                               f"from {BUILD_DIR}")
+        BUILD_DIR = Path(path).resolve()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return BUILD_DIR
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` (else ``.cpp``) builds to in the cache."""
+    src = CSRC / f"{name}.cu"
+    if src.exists():
+        return _library_path(BUILD_DIR, name, src, NVCC_FLAGS)
+    return _library_path(BUILD_DIR, name, CSRC / f"{name}.cpp", HOST_FLAGS)
+
+
+def _library_path(build_dir: Path, name: str, src: Path, flags: tuple) -> Path:
+    return build_dir / f"{name}-{digest(src, flags)}.so"
 
 
 def digest(src: Path, flags: tuple = NVCC_FLAGS) -> str:
@@ -96,20 +128,24 @@ def load_host(name: str) -> Built:
 
 
 def _load(name: str, src: Path, compiler: Callable[[], str], flags: tuple) -> Built:
+    global compiles
     with _LOCK:
         lock = _LOCKS.setdefault(name, threading.Lock())
+        build_dir = BUILD_DIR
     with lock:
         if name in _LOADED:
             return _LOADED[name]
-        out = BUILD_DIR / f"{name}-{digest(src, flags)}.so"
+        out = _library_path(build_dir, name, src, flags)
         t0 = time.perf_counter()
         log = ""
         if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            build_dir.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
             os.close(fd)
             try:
                 cmd = [compiler(), *flags, str(src), "-o", tmp]
+                with _LOCK:
+                    compiles += 1
                 proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
             except (OSError, subprocess.TimeoutExpired, BuildError) as e:
                 os.unlink(tmp)

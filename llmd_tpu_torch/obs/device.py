@@ -241,6 +241,9 @@ class DeviceMonitor:
         for t in self._threads:
             t.join(timeout=1.0)
         self._threads = []
+        # the liveness op's tensor and stream go with it: the monitor sits in
+        # its registry's callbacks until the cycle collector runs
+        self._probe_op = None
 
     # ---------------------------------------------------------- heartbeat
     def heartbeat(self) -> None:

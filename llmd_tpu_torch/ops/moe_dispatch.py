@@ -19,7 +19,7 @@
 
 The reference's ``mode="drop"`` scatters have no torch counterpart: sentinel
 copies write to one dump row past the buffer, which is then sliced off. The
-expert-parallel all-to-all body (``ep > 1``) is ROADMAP Queue A item 11.
+expert-parallel all-to-all body (``ep > 1``) is ROADMAP Queue A item 6b.
 """
 
 from __future__ import annotations
@@ -163,5 +163,5 @@ def make_sorted_dispatch(mesh=None) -> Callable:
     happened upstream (shared with the einsum path). One device only."""
     if mesh is not None:
         raise NotImplementedError(
-            "expert-parallel dispatch over a mesh is ROADMAP Queue A item 11")
+            "expert-parallel dispatch over a mesh is ROADMAP Queue A item 6b")
     return sorted_moe_local

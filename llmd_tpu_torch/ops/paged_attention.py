@@ -22,8 +22,10 @@ same row, which is both K and V (absorbed MLA runs as MQA at the latent width
   single-plane latent pool at the widths of :data:`LATENT_MMA_HEADS`: tensor
   cores, K/V tiles staged through shared memory by asynchronous copies, a
   latent tile read as K and as V, query tiles of :data:`MMA_ROWS` rows and
-  KV splits laid out by :func:`_plan`) and ``"simt"`` (float32: CUDA-core
-  FMAs, one block per query token). Each instance also reads a
+  KV splits laid out by :func:`_plan`: the policy, or the entry of a
+  launch-config table, ``ops/attn_tune``, passed as ``tune``) and
+  ``"simt"`` (float32: CUDA-core FMAs, one block per query token). Each
+  instance also reads a
   ``float8_e4m3fn`` pool (``EngineConfig.kv_cache_dtype="fp8"``, unit
   scales) beside a q of either dtype: ``"mma_fp8"`` copies the raw fp8 pages
   and converts each stage to bfloat16 in shared memory, so it computes
@@ -217,17 +219,56 @@ def split_keys(items: int, max_keys: int, page_size: int, min_split_keys: int,
     return -(-max_keys // per), per
 
 
+def tuned_split_keys(bkv: int, max_keys: int, page_size: int) -> tuple[int, int]:
+    """(splits, keys per split) of a table of ``max_keys`` keys under a tuned
+    ``bkv`` (pages per split, ``ops/attn_tune``): ``bkv * page_size`` keys
+    rounded up to a whole number of stages and pages; the split count
+    follows, capped at ``MAX_SPLITS`` (the splits then grow to cover the
+    table); one split covers the whole table, as the policy's does."""
+    step = math.lcm(STAGE_KEYS, page_size)
+
+    def up(keys: int) -> int:  # whole stages and pages
+        return -(-keys // step) * step
+
+    per = up(max(1, bkv) * page_size)
+    if per >= max_keys:
+        return 1, max_keys
+    if -(-max_keys // per) > MAX_SPLITS:
+        per = up(-(-max_keys // MAX_SPLITS))
+    return -(-max_keys // per), per
+
+
 def _plan(num_tokens: int, num_seqs: int, max_pages: int, page_size: int, qpk: int,
-          kv_heads: int, num_sms: int = 132) -> Plan:
+          kv_heads: int, num_sms: int = 132,
+          override: "tuple[int, int] | None" = None) -> Plan:
     """The mma instance's grid and KV splits (:func:`split_keys`, at
     ``MIN_SPLIT_KEYS``), from what the host knows without reading a device
     tensor: the token count, the page-table rows, the table width, the page
-    size and the heads."""
+    size and the heads. ``override``: a launch-config table's ``(bkv, bq)``
+    for this shape; when ``bq`` is the instance's query tile, the splits are
+    :func:`tuned_split_keys` of ``bkv``, otherwise the policy stands."""
     tq = MMA_ROWS // qpk
     slots = -(-num_tokens // tq) + num_seqs
-    splits, per = split_keys(slots * kv_heads, max_pages * page_size, page_size,
-                             MIN_SPLIT_KEYS, num_sms)
+    max_keys = max_pages * page_size
+    if override is not None and override[1] == tq:
+        splits, per = tuned_split_keys(override[0], max_keys, page_size)
+    else:
+        splits, per = split_keys(slots * kv_heads, max_keys, page_size, MIN_SPLIT_KEYS,
+                                 num_sms)
     return Plan(tq, slots, kv_heads, splits, per)
+
+
+def plan_override(table, num_tokens: int, page_size: int, max_pages: int,
+                  num_heads: int, head_dim: int, planes: int) -> "tuple[int, int] | None":
+    """``table``'s ``(bkv, bq)`` for a launch of this shape (``ops/attn_tune``
+    lookup: exact token count, page size and head layout, the nearest table
+    width), or None."""
+    if table is None:
+        return None
+    from llmd_tpu_torch.ops.attn_tune import head_layout_key
+
+    return table.lookup(num_tokens, page_size, max_pages,
+                        head_layout_key(num_heads, head_dim, planes))
 
 
 @functools.cache
@@ -301,10 +342,12 @@ def _int32(t: torch.Tensor) -> torch.Tensor:
 
 def _launch(q: torch.Tensor, layer_cache: torch.Tensor, page_tables: torch.Tensor,
             kv_lens: torch.Tensor, cu_q_lens: torch.Tensor, num_seqs: torch.Tensor,
-            scale: float, group: int, instance: str) -> torch.Tensor:
+            scale: float, group: int, instance: str, tune=None) -> torch.Tensor:
     """One launch of ``instance`` (``"mma"`` or ``"simt"``; an ``"_fp8"``
     suffix is implied by the pool's dtype) on checked inputs (``group``:
-    query heads per kv head, as :func:`_check` returns it); counts nothing."""
+    query heads per kv head, as :func:`_check` returns it); counts nothing.
+    ``tune``: the launch-config table the mma plan is looked up in
+    (:func:`plan_override`; None: the policy)."""
     instance = instance.removesuffix("_fp8")
     N, H, D = q.shape
     _, ps, HkC, _ = layer_cache.shape
@@ -315,7 +358,8 @@ def _launch(q: torch.Tensor, layer_cache: torch.Tensor, page_tables: torch.Tenso
     plan, scratch = Plan(0, 0, 0, 0, 0), None
     per_block = LATENT_HEADS_PER_BLOCK[D] if HkC == 1 and instance == "simt" else group
     if instance == "mma":
-        plan = _plan(N, B, maxp, ps, group, max(HkC // 2, 1), _num_sms(q.device.index or 0))
+        plan = _plan(N, B, maxp, ps, group, max(HkC // 2, 1), _num_sms(q.device.index or 0),
+                     plan_override(tune, N, ps, maxp, H, D, HkC))
         if plan.splits > 1:  # partial (o, m, l) of every split, merged by the kernel
             scratch = torch.empty(plan.splits * N * H * (D + 2), dtype=torch.float32,
                                   device=q.device)
@@ -347,9 +391,13 @@ def paged_attention(
     scale: float,
     cu_q_lens: Optional[torch.Tensor] = None,
     num_seqs: Optional[torch.Tensor] = None,
+    tune=None,
 ) -> torch.Tensor:
     """Ragged paged attention: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. Raises for anything the kernel does not take."""
+    version for CPU tensors. Raises for anything the kernel does not take.
+    ``tune``: the launch-config table the mma plan is looked up in
+    (``ops/attn_tune``; None: the policy); the engine passes the table it
+    was built with."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, layer_cache, page_tables, positions,
                                    seq_slots, kv_lens, scale=scale)
@@ -358,7 +406,7 @@ def paged_attention(
     group = _check(q, layer_cache, page_tables, kv_lens, cu_q_lens, num_seqs)
     instance = _instance(q.dtype, layer_cache.shape[2], q.shape[2], group, layer_cache.dtype)
     out = _launch(q, layer_cache, page_tables, kv_lens, cu_q_lens, num_seqs, scale,
-                  group, instance)
+                  group, instance, tune)
     paged_attention.launches += 1
     paged_attention.launches_by_instance[instance] += 1
     return out

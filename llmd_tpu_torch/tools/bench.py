@@ -7,6 +7,7 @@
         [--chain-depth N] [--pack-overlap on|off] [--spec-mode off|ngram]
         [--spec-tokens N] [--structured-fused on|off]
         [--workload uniform|echo|json|json-echo] [--assert-spec-structured]
+        [--attn-impl auto|pallas|reference] [--tune-attn] [--attn-tune-file F]
 
 The reference's headline run: 64 concurrent requests of ISL 256 / OSL 128,
 greedy with ``ignore_eos``, on ``llama-1b`` with int8 weight-only weights
@@ -61,17 +62,33 @@ key of ``tools/perf_regress.TOLERANCES`` a measured number), computed as
   (``spec_*``, ``structured_*``, ``mask_build_s``, ``spec_steps_s``), and
   the goodput class ``spec_rejected`` (rejected draft rows of verify steps).
 
-Left out, since the port lacks the features: ``attn_tune_hash``,
-``attn_fallback_reason``, ``kv_layout``, ``layer_unroll``. Flags for what the port does not serve exit
-non-zero naming the ROADMAP item. Unlike ``bench.py`` there is no device
-preflight with its harvest of an old campaign number and no fallback to a
-smaller config: a failure is a non-zero exit.
+- K1's launch-config table (``ops/attn_tune``): ``--attn-tune-file F``
+  serves the engine with F's plans; ``--tune-attn`` (on the card) first
+  times K1 at the serving decode shape (``max_batch_size`` rows over the
+  engine's page-table width, kv ``isl + osl // 2``) under candidate plans:
+  ``bkv`` = the table width over 1, 2, 4, 8 and 16 splits, plus the
+  policy's own plan, each by CUDA events with the card held by a spin
+  kernel while the calls are enqueued (``tools/timing.cuda_ms``, which
+  ``chip_smoke.py`` uses too). A candidate other than the policy wins only
+  by beating it by 5%, as ``bench.py``'s tuner. The winner is merged into F (default: a file in the
+  temp directory) with ``tuned_on`` the card's ``nvidia-smi`` name, the
+  engine is built from F and must report F's hash, and the JSON carries
+  ``attn_tune_hash``, the candidates' times (``attn_tune_candidates``), the
+  winner and the policy's plan. ``--attn-impl`` is the engine's
+  ``attn_impl``; ``attn_fallback_reason`` is the engine's.
+
+Left out, since the port lacks the features: ``kv_layout``, ``layer_unroll``.
+Flags for what the port does not serve exit non-zero naming the ROADMAP item.
+Unlike ``bench.py`` there is no device preflight with its harvest of an old
+campaign number and no fallback to a smaller config: a failure is a non-zero
+exit.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -88,13 +105,8 @@ REPO = Path(__file__).resolve().parents[2]
 REFUSED = {
     "layer_unroll": ((None,), "Queue A item 1 (the port's layers are a Python loop "
                               "inside captured programs; there is no scan to unroll)"),
-    "tune_attn": ((False,), "Queue A item 7 (a launch-config table in the role of "
-                            "ops/attn_tune.py)"),
-    "attn_tune_file": ((None,), "Queue A item 7 (a launch-config table in the role of "
-                                "ops/attn_tune.py)"),
-    "kv_layout": ((None,), "Queue A item 7 (ops/packed_kv is not ported: it reclaims TPU "
+    "kv_layout": ((None,), "Queue A, not ported by design (ops/packed_kv reclaims TPU "
                            "lane padding the port never adds)"),
-    "attn_impl": (("auto",), "Queue A item 7 (the reference's pallas/reference modes)"),
 }
 # json workload: a bounded schema (enum / boolean / maxLength: a DAG grammar),
 # so the mask forces completion; its longest serialization (29 characters)
@@ -126,12 +138,16 @@ def parse_args(argv: "list[str] | None" = None) -> argparse.Namespace:
     ap.add_argument("--chain-depth", type=int, default=None,
                     help="decode calls in flight (EngineConfig.pipeline_depth)")
     ap.add_argument("--pack-overlap", default="on", choices=["on", "off"])
+    ap.add_argument("--tune-attn", action="store_true",
+                    help="time K1's candidate plans at the decode shape on the card "
+                         "and merge the winner into --attn-tune-file")
+    ap.add_argument("--attn-tune-file", default=None,
+                    help="K1's launch-config table (ops/attn_tune JSON)")
+    ap.add_argument("--attn-impl", default="auto", choices=["auto", "pallas", "reference"],
+                    help="EngineConfig.attn_impl")
     # the reference's flags for features the port does not serve: refused
     ap.add_argument("--layer-unroll", type=int, default=None)
-    ap.add_argument("--tune-attn", action="store_true")
-    ap.add_argument("--attn-tune-file", default=None)
     ap.add_argument("--kv-layout", default=None)
-    ap.add_argument("--attn-impl", default="auto")
     ap.add_argument("--spec-mode", default="off", choices=["off", "ngram"],
                     help="ngram: prompt-lookup drafts through the verify program")
     ap.add_argument("--spec-tokens", type=int, default=None,
@@ -150,7 +166,67 @@ def parse_args(argv: "list[str] | None" = None) -> argparse.Namespace:
         if value not in taken:
             ap.error(f"--{name.replace('_', '-')} {value!r} is not served by the port: "
                      f"ROADMAP {item}")
+    if args.tune_attn and args.cpu:
+        ap.error("--tune-attn times K1's plans on the card; the CPU runs its plain "
+                 "version, which has no plan")
     return args
+
+
+def tune_attention(cfg, eng_cfg, isl: int, osl: int, path: str, card_name: str,
+                   device) -> dict:
+    """Time K1's candidate plans at the serving decode shape and merge the
+    winner into ``path`` (``ops/attn_tune``); returns the candidates, the
+    winner, the policy's plan and the merged table's hash."""
+    from llmd_tpu_torch.ops import attn_tune
+    from llmd_tpu_torch.ops import paged_attention as pa
+    from llmd_tpu_torch.tools.timing import cuda_ms
+
+    B, ps, maxp = eng_cfg.max_batch_size, eng_cfg.page_size, eng_cfg.max_pages_per_seq
+    H, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    qpk, kvlen = H // Hk, min(isl + osl // 2, maxp * ps)
+    gen = torch.Generator(device=device).manual_seed(0)
+    pool = torch.randn((B * maxp + 1, ps, 2 * Hk, D), generator=gen, device=device,
+                       dtype=torch.bfloat16)
+    pts = torch.arange(B * maxp, dtype=torch.int32, device=device).reshape(B, maxp)
+    q = torch.randn((B, H, D), generator=gen, device=device, dtype=torch.bfloat16)
+    lens = torch.full((B,), kvlen, dtype=torch.int32, device=device)
+    rows = torch.arange(B + 1, dtype=torch.int32, device=device)
+    ns = torch.tensor([B], dtype=torch.int32, device=device)
+    layout = attn_tune.head_layout_key(H, D, 2 * Hk)
+    policy = pa._plan(B, B, maxp, ps, qpk, Hk, pa._num_sms(device.index or 0))
+
+    def entry(bkv: int, us: "float | None" = None) -> dict:
+        e = {"batch": B, "page_size": ps, "pages_per_seq": maxp, "head_layout": layout,
+             "bkv": bkv, "bq": policy.tq, "tuned_on": card_name}
+        if us is not None:
+            e["us_per_call"] = round(us, 1)
+        return e
+
+    policy_bkv = maxp if policy.splits == 1 else policy.split_keys // ps
+    cands: dict = {}  # (splits, split_keys) -> bkv: one timing per distinct plan
+    for bkv in [maxp // s for s in (1, 2, 4, 8, 16) if maxp // s >= 1] + [policy_bkv]:
+        plan = pa._plan(B, B, maxp, ps, qpk, Hk, override=(bkv, policy.tq))
+        cands.setdefault((plan.splits, plan.split_keys), bkv)
+    results = []
+    for (splits, keys), bkv in cands.items():
+        table = attn_tune.AttnTuneTable(entries=(entry(bkv),))
+        ms = cuda_ms(lambda t=table: pa.paged_attention(
+            q, pool, pts, lens - 1, rows[:B], lens, scale=D ** -0.5, cu_q_lens=rows,
+            num_seqs=ns, tune=t))
+        results.append({"bkv": bkv, "splits": splits, "split_keys": keys, "ms": ms,
+                        "policy": (splits, keys) == (policy.splits, policy.split_keys)})
+        print(f"# attn-tune bkv={bkv} ({splits} splits of {keys} keys): {ms:.4f} ms"
+              f"{' (policy)' if results[-1]['policy'] else ''}", file=sys.stderr)
+    base = next(r for r in results if r["policy"])
+    best = min(results, key=lambda r: r["ms"])
+    if not best["policy"] and best["ms"] >= 0.95 * base["ms"]:
+        best = base  # jitter must not flip the policy
+    table = attn_tune.merge_and_save(path, [entry(best["bkv"], best["ms"] * 1e3)])
+    print(f"# attn-tune picked bkv={best['bkv']} ({best['splits']} splits) beside the "
+          f"policy's {base['splits']} splits; table {path} sha={table.sha} "
+          f"({len(table.entries)} entries)", file=sys.stderr)
+    return {"candidates": results, "winner": best, "policy": base, "sha": table.sha,
+            "path": path}
 
 
 def card() -> tuple[Optional[str], Optional[float], str]:
@@ -298,6 +374,8 @@ def main(argv: "list[str] | None" = None) -> int:
     if args.spec_tokens is not None:
         eng_cfg.spec_tokens = args.spec_tokens
     eng_cfg.structured_fused_decode = args.structured_fused == "on"
+    eng_cfg.attn_impl = args.attn_impl
+    eng_cfg.attn_tune_file = args.attn_tune_file
 
     # host <-> device round trip: a one-element kernel and a synchronise
     x = torch.zeros((), device=device)
@@ -319,6 +397,18 @@ def main(argv: "list[str] | None" = None) -> int:
     pages_per_seq = (isl + osl + lookahead) // eng_cfg.page_size + 1
     eng_cfg.num_pages = max(eng_cfg.num_pages, n_req * pages_per_seq + 64)
     eng_cfg.max_model_len = max(eng_cfg.max_model_len, isl + osl + lookahead + 1)
+    tuned = None
+    if args.tune_attn:
+        if cfg.is_mla:
+            print("# attn-tune: K1 serves MLA's unified program only; its decode "
+                  "runs K3, which the table does not key: skipped", file=sys.stderr)
+        else:
+            import tempfile
+
+            path = args.attn_tune_file or str(
+                Path(tempfile.gettempdir()) / f"llmd_attn_tune_{os.getpid()}.json")
+            tuned = tune_attention(cfg, eng_cfg, isl, osl, path, name or dev_name, device)
+            eng_cfg.attn_tune_file = path
     tok = None
     if args.workload.startswith("json"):
         from llmd_tpu_torch.engine.tokenizer import load_tokenizer
@@ -331,8 +421,14 @@ def main(argv: "list[str] | None" = None) -> int:
     del params
     print(f"# engine built in {time.monotonic() - t0:.1f}s on {dev_name} "
           f"(NT={eng_cfg.batched_tokens}, k={eng_cfg.decode_steps}); "
-          f"attn_backend={eng.attn_backend} moe_backend={eng.moe_backend} "
-          f"moe_dispatch={eng.moe_dispatch}", file=sys.stderr)
+          f"attn_backend={eng.attn_backend}"
+          f"{f' (fallback: {eng.attn_fallback_reason})' if eng.attn_fallback_reason else ''}"
+          f"{f' tune={eng.attn_tune_hash}' if eng.attn_tune_hash else ''} "
+          f"moe_backend={eng.moe_backend} moe_dispatch={eng.moe_dispatch}", file=sys.stderr)
+    if tuned is not None:
+        # the round trip: the engine loaded the table the tuner just wrote
+        assert eng.attn_tune_hash == tuned["sha"], (
+            "engine did not load the tuner's table", eng.attn_tune_hash, tuned["sha"])
     schema = workload_schema(args.workload, osl)
     sp = SamplingParams(max_tokens=osl, temperature=0.0, ignore_eos=True,
                         response_format=None if schema is None else {
@@ -346,7 +442,9 @@ def main(argv: "list[str] | None" = None) -> int:
     # against this snapshot
     eng.stats = EngineStats(attn_backend=eng.attn_backend, moe_backend=eng.moe_backend,
                             moe_dispatch=eng.moe_dispatch,
-                            kv_cache_dtype=eng.stats.kv_cache_dtype)
+                            kv_cache_dtype=eng.stats.kv_cache_dtype,
+                            attn_fallback_reason=eng.attn_fallback_reason,
+                            attn_tune_hash=eng.attn_tune_hash)
     base = ((eng.util.totals(), eng.util.compiles(), eng.util.moe_comm_total())
             if eng.util is not None else None)
     wrappers = kernel_wrappers()
@@ -440,6 +538,8 @@ def main(argv: "list[str] | None" = None) -> int:
         "quantize": eng_cfg.quantize_weights,
         "kv_cache_dtype": eng.stats.kv_cache_dtype,
         "attn_backend": eng.attn_backend,
+        "attn_fallback_reason": eng.attn_fallback_reason,
+        "attn_tune_hash": eng.attn_tune_hash,
         "moe_backend": eng.moe_backend,
         "moe_dispatch": eng.moe_dispatch,
         "moe_dropped_tokens": st.moe_dropped_tokens,
@@ -517,6 +617,10 @@ def main(argv: "list[str] | None" = None) -> int:
         "e2e_mean_ms": ms(sum(e2e) / len(e2e)),
         "e2e_p90_ms": ms(_pct(e2e, 0.9)),
     }
+    if tuned is not None:
+        result.update(attn_tune_candidates=tuned["candidates"],
+                      attn_tune_winner=tuned["winner"], attn_tune_policy=tuned["policy"],
+                      attn_tune_file=tuned["path"])
     print(json.dumps(result), flush=True)
     return 0
 

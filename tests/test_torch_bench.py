@@ -17,7 +17,7 @@ fp8`` is served (an fp8 KV pool, the reference's ``kv_cache_dtype="fp8"``).
 The speculative and structured runs (``--spec-mode ngram --workload echo``,
 ``--workload json-echo --assert-spec-structured``, ``--workload json`` with
 the masked program and with its unified degrade) carry exactly the
-reference bench's keys, bar the four the port leaves out; the reference's
+reference bench's keys, bar the two the port leaves out; the reference's
 keys do not depend on its flags, so its uniform run gives them.
 """
 
@@ -34,7 +34,7 @@ from llmd_tpu_torch.tools import bench
 
 REPO = Path(__file__).resolve().parent.parent
 # bench.py keys of features the port does not serve (the port bench's docstring)
-LEFT_OUT = {"attn_tune_hash", "attn_fallback_reason", "kv_layout", "layer_unroll"}
+LEFT_OUT = {"kv_layout", "layer_unroll"}
 EXACT = ("prefill_tokens", "decode_tokens", "preemptions", "unified_steps", "decode_calls",
          "batch", "isl", "osl", "goodput_committed_tokens", "goodput_prefix_saved_tokens",
          "goodput_preempted_recompute_tokens", "goodput_padding_tokens")
@@ -97,15 +97,21 @@ def test_tiny_cpu_bench_int8(capsys, reference):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--layer-unroll", "2"], ["--tune-attn"], ["--attn-tune-file", "t.json"],
-    ["--kv-layout", "padded"], ["--attn-impl", "pallas"],
+    ["--layer-unroll", "2"], ["--tune-attn"], ["--tune-attn", "--attn-tune-file", "t.json"],
+    ["--kv-layout", "padded"], ["--kv-layout", "packed"],
 ])
 def test_unserved_flags_exit_nonzero(capsys, argv):
+    """Flags for what the port does not serve exit non-zero naming their
+    ROADMAP item; ``--tune-attn`` is refused on the CPU, where K1 runs its
+    plain version, which has no launch plan to tune."""
     with pytest.raises(SystemExit) as e:
         bench.main(["--tiny", "--cpu", *argv])
     assert e.value.code != 0
     err = capsys.readouterr().err
-    assert "not served by the port: ROADMAP" in err and argv[0] in err
+    if argv[0] == "--tune-attn":
+        assert "times K1's plans on the card" in err
+    else:
+        assert "not served by the port: ROADMAP" in err and argv[0] in err
 
 
 @pytest.mark.parametrize("kv_dtype", ["fp8", "bf16"])

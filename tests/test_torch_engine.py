@@ -22,6 +22,7 @@ from llmd_tpu.models import get_model_config as jax_model_config
 from llmd_tpu.models.transformer import init_params as jax_init_params
 from llmd_tpu_torch.core.request import SamplingParams
 from llmd_tpu_torch.engine import EngineConfig, LLMEngine
+from llmd_tpu_torch.engine.config import MeshConfig
 from llmd_tpu_torch.engine.sampling import greedy_tokens, sample_tokens
 from llmd_tpu_torch.models import get_model_config
 from llmd_tpu_torch.models.transformer import params_from_numpy
@@ -207,8 +208,8 @@ def test_unserved_options_raise(make, reference):
     with pytest.raises(ValueError, match="unknown kv_cache_dtype"):  # the reference's words
         make(kv_cache_dtype="int4")
     # every field the port does not read raises when set away from its default
-    for field, value in (("kv_layout", "packed"), ("max_queue", 1),
-                         ("dp_ranks", 2)):
+    for field, value in (("kv_layout", "packed"), ("mesh", MeshConfig(dp=2)),
+                         ("sp_ring_attention", False)):
         with pytest.raises(ValueError, match=field):
             make(**{field: value})
     # served away from their defaults, each against the reference: the

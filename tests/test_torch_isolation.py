@@ -78,6 +78,9 @@ assert {"llmd_tpu_torch.models.vision", "llmd_tpu_torch.disagg.encode"} <= set(n
 assert {"llmd_tpu_torch.obs.tracing", "llmd_tpu_torch.obs.events",
         "llmd_tpu_torch.obs.attribution", "llmd_tpu_torch.obs.decisions",
         "llmd_tpu_torch.obs.device"} <= set(names)
+# and the launch surface's: K1's launch-config table, the DP rank groups
+assert {"llmd_tpu_torch.ops.attn_tune", "llmd_tpu_torch.engine.dp_group",
+        "llmd_tpu_torch.tools.timing"} <= set(names)
 assert "zmq" not in sys.modules
 print(len(names))
 """

@@ -1416,3 +1416,123 @@ def test_profile_windows_over_replayed_decode_behind_the_server(cuda, tmp_path, 
             t.join(timeout=60)
         server.stop()
     assert all(status == 200 and k1 > 0 for status, k1 in windows), windows
+
+
+# ----------------------------------------------- the launch surface (slice 16)
+
+
+def _allocated() -> int:
+    """``memory_allocated`` with cuBLAS's per-handle workspaces released
+    first (a thread's first product on a stream makes one; the library keeps
+    it, no engine does)."""
+    torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    return torch.cuda.memory_allocated()
+
+
+def test_launch_dropped_server_and_engine_return_their_hbm_without_gc(cuda):
+    """llama-1b behind the server: built, serving, stopped and dropped, with
+    the cycle collector off; then an engine dropped after ``generate`` (its
+    decode graph captured). ``memory_allocated`` is back at its baseline
+    each time."""
+    import gc
+    import json
+    import urllib.request
+
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.engine import EngineConfig, LLMEngine
+    from llmd_tpu_torch.engine.server import EngineServer
+    from llmd_tpu_torch.models import get_model_config
+
+    kw = dict(page_size=16, num_pages=512, max_model_len=2048, max_batch_size=8,
+              prefill_chunk=512, decode_steps=4)
+    cfg = get_model_config("llama-1b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = _allocated()
+    gc.disable()
+    try:
+        srv = EngineServer(cfg, EngineConfig(**kw), host="127.0.0.1", port=0, device=cuda)
+        srv.start()
+        body = json.dumps({"prompt": "hello " * 40, "max_tokens": 16,
+                           "temperature": 0}).encode()
+        req = urllib.request.Request(f"http://{srv.address}/v1/completions", data=body,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            assert r.status == 200
+        held = torch.cuda.memory_allocated()
+        srv.stop()
+        del srv, req
+        after_server = _allocated()
+        eng = LLMEngine(cfg, EngineConfig(**kw), device=cuda)
+        eng.generate([list(range(5, 300))], SamplingParams(max_tokens=12, temperature=0.0))
+        assert eng.stats.decode_graph_captures == 1
+        del eng
+        after_engine = _allocated()
+    finally:
+        gc.enable()
+    assert held > base + 2**30  # the weights and the pool were there
+    assert after_server == base and after_engine == base, (base, after_server, after_engine)
+
+
+def _tune_table(batch, ps, pps, H, D, planes, bkv, bq):
+    from llmd_tpu_torch.ops import attn_tune
+
+    return attn_tune.AttnTuneTable(entries=({
+        "batch": batch, "page_size": ps, "pages_per_seq": pps,
+        "head_layout": attn_tune.head_layout_key(H, D, planes), "bkv": bkv, "bq": bq,
+        "tuned_on": torch.cuda.get_device_name(0)},))
+
+
+@pytest.mark.parametrize("bkv", [64, 32, 16, 8, 4, 1])
+def test_k1_under_every_tuned_plan_matches_plain(cuda, bkv):
+    """K1 at the tuner's decode shape (llama-1b heads, 64 rows over a 64-page
+    table) under each candidate plan: bf16 on mma within one rounding unit
+    of the plain version in float32, the plan the table gives; f32 (simt,
+    no plan) within F32_ATOL."""
+    kv = list(np.random.default_rng(bkv).integers(128, 1025, 64))
+    for dtype in (torch.bfloat16, torch.float32):
+        args, kw, v = _case(32, 8, 64, 16, [1] * 64, kv, dtype, cuda, bkv, max_pages=64)
+        N = args[0].shape[0]
+        table = _tune_table(N, 16, 64, 32, 64, 16, bkv, pa.MMA_ROWS // 4)
+        plan = pa._plan(N, args[2].shape[0], 64, 16, 4, 8,
+                        override=pa.plan_override(table, N, 16, 64, 32, 64, 16))
+        assert (plan.splits, plan.split_keys) == pa.tuned_split_keys(bkv, 1024, 16)
+        got = paged_attention(*args, **kw, tune=table)
+        ref = paged_attention_ref(args[0].float(), args[1].float(), *args[2:], **kw)
+        torch.cuda.synchronize()
+        if dtype == torch.bfloat16:
+            assert bf16_rounding_units(got[:v], ref[:v]) <= BF16_UNITS
+        else:
+            assert (got[:v] - ref[:v]).abs().max().item() <= F32_ATOL
+        assert not got[v:].any()
+
+
+def test_tuned_decode_graph_matches_eager(cuda, tmp_path):
+    """An engine built from a table whose entry sets its decode launch to 4
+    KV splits: the decode program replayed from its graph (the plan baked in
+    at capture) gives the eager program's tokens and launch counts."""
+    from llmd_tpu_torch.engine.engine import LLMEngine  # noqa: F401
+    from llmd_tpu_torch.ops import attn_tune
+
+    path = str(tmp_path / "tune.json")
+    table = attn_tune.merge_and_save(path, list(_tune_table(4, 8, 32, 4, 64, 4, 8, 32).entries))
+    eng = _engine("tiny64", cuda, decode_graph=True, attn_tune_file=path)
+    assert eng.attn_tune_hash == table.sha
+    override = pa.plan_override(eng.attn_tune_table, 4, 8, 32, 4, 64, 4)
+    assert pa._plan(4, 4, 32, 8, 2, 2, override=override).splits == 4
+    del eng
+    counts = _check_graph_matches_eager(cuda, "tiny64", {"attn_tune_file": path})
+    assert counts["paged_attention"][1]["mma"] == counts["paged_attention"][0] > 0
+
+
+def test_pallas_mode_refused_on_a_cpu_engine(cuda):
+    from llmd_tpu_torch.engine import EngineConfig, LLMEngine
+    from llmd_tpu_torch.models import get_model_config
+
+    with pytest.raises(ValueError, match="attn_impl='pallas'.*CUDA"):
+        LLMEngine(get_model_config("tiny"), EngineConfig(attn_impl="pallas"), device="cpu")
+    eng = LLMEngine(get_model_config("tiny64"), EngineConfig(attn_impl="pallas"), device=cuda)
+    assert eng.attn_backend == "cuda_paged_attention" and eng.attn_fallback_reason is None

@@ -346,8 +346,8 @@ def test_registry_routing_table():
 
 
 def test_engine_registry_wiring_and_quiesce():
-    """Routable entries in priority order, the masked variants not routable
-    (the reference's embed program waits for Queue A item 7), and after a
+    """Routable entries in priority order, the masked variants and the
+    embed program not routable (``embed()`` drives it), and after a
     constrained speculative drain every program's ledger balances; on the
     CPU nothing is captured."""
     eng = _engine(spec=True)
