@@ -294,6 +294,21 @@ thread's stack on stderr):
             Last, with every engine of the phase closed or dropped and no
             cycle collection, ``torch.cuda.memory_allocated()`` is back at
             the phase's baseline. The phase's seconds close it.
+20. mesh    the (dp, sp, ep, tp) mesh (``phase_mesh``). Every kernel against
+            its plain version at one rank's shapes, full width: K1 at
+            llama-1b's tp=2 and tp=4 heads at decode B=64 and mixed, over bf16
+            and fp8 pools; K1's latent mode and K3 at moe-wide-mla's tp=2
+            heads; K2 on an ep=2 receiver's bucketed rows (16 local slots, the
+            pad rows on the sentinel slot); K4 over 16 groups; each timed in
+            bf16 beside its bound and the one-card shape's time. Then a
+            one-rank NCCL group: ``all_reduce``, ``all_gather`` and
+            ``all_to_all_single`` captured in a CUDA graph, replayed = eager.
+            With two cards or more, meshed engines as NCCL worlds of rank
+            processes (``parallel/launch``): llama-1b tp=2, moe-wide-sim ep=2
+            with EPLB, moe-wide-mla tp=2, llama-1b sp=2 with one 2048-token
+            prompt on the ring; float32 tokens = one card's and replayed =
+            eager, bf16's identical share and decode tok/s beside one card's.
+            With one card it prints ``mesh_world: not run, 1 device``.
 
 It ends with a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. ``--report PATH`` also writes every phase's details (nvcc's register
@@ -367,12 +382,14 @@ def log(msg: str) -> None:
 
 
 def make_attention_case(q_lens, kv_lens, dtype, device, seed, pad_rows=0,
-                        pad_seqs=0, heads=(H, HK), latent=False):
+                        pad_seqs=0, heads=None, latent=False):
     """Random q and pool, page tables over a shuffled page pool; sequence b's
     queries are its last q_lens[b] tokens. ``pad_rows`` trailing query rows and
     ``pad_seqs`` trailing unused table rows mimic the engine's padded packing.
-    ``latent``: moe-wide-mla's single-plane latent pool and heads instead."""
-    nh, nk = (MLA_H, 1) if latent else heads
+    ``heads``: (query heads, kv heads), llama-1b's by default. ``latent``:
+    moe-wide-mla's single-plane latent pool instead, its 16 heads by default
+    (``heads=(n, 1)``: n heads, one tensor-parallel rank's)."""
+    nh, nk = heads or ((MLA_H, 1) if latent else (H, HK))
     width, planes = (MLA_W, 1) if latent else (D, 2 * nk)
     rng = np.random.default_rng(seed)
     q_lens, kv_lens = np.asarray(q_lens), np.asarray(kv_lens)
@@ -416,14 +433,14 @@ def run_attention(fn, c):
               scale=c["scale"], cu_q_lens=c["cu"], num_seqs=c["ns"])
 
 
-def decode_case(dtype, device, seed=1, heads=(H, HK), latent=False):
+def decode_case(dtype, device, seed=1, heads=None, latent=False):
     rng = np.random.default_rng(seed)
     kv = rng.integers(128, 1025, 64)
     return make_attention_case(np.ones(64, int), kv, dtype, device, seed, heads=heads,
                                latent=latent)
 
 
-def mixed_case(dtype, device, seed=2, heads=(H, HK), latent=False):
+def mixed_case(dtype, device, seed=2, heads=None, latent=False):
     """Three 128-token chunks (a fresh prompt, continuations at 1000 and
     2048), 32 decode rows, padding rows and unused table rows."""
     rng = np.random.default_rng(seed)
@@ -451,7 +468,7 @@ def verify_case(dtype, device, seed=12):
                                seed)
 
 
-def chunk_case(dtype, device, chunk, chunk_kv, seed, heads=(H, HK), latent=False):
+def chunk_case(dtype, device, chunk, chunk_kv, seed, heads=None, latent=False):
     """One prefill chunk of ``chunk`` tokens at kv ``chunk_kv`` beside 8
     decode rows (kv 1-2048 from the seed), padding rows and unused table
     rows."""
@@ -566,10 +583,11 @@ def sdpa_latent(c):
     return call
 
 
-def latent_decode_case(dtype, device, seed=3, kv=None):
+def latent_decode_case(dtype, device, seed=3, kv=None, heads=MLA_H):
     """K3 at moe-wide-mla's decode shape: 64 sequences of 128-1024 resident
     latent rows from the seed plus two idle rows (kv_len 0), or the given kv
-    lengths; one query row each, pages shuffled, -1 past each sequence."""
+    lengths; one query row each, pages shuffled, -1 past each sequence.
+    ``heads``: one tensor-parallel rank's (all 16 by default)."""
     rng = np.random.default_rng(seed)
     kv = (np.concatenate([rng.integers(128, 1025, 64), [0, 0]]) if kv is None
           else np.asarray(kv)).astype(np.int32)
@@ -584,12 +602,12 @@ def latent_decode_case(dtype, device, seed=3, kv=None):
         pts[b, : need[b]] = perm[o : o + need[b]]
         o += need[b]
     g = torch.Generator(device="cpu").manual_seed(seed)
-    q = torch.randn((B, MLA_H, MLA_W), generator=g).to(device=device, dtype=dtype)
+    q = torch.randn((B, heads, MLA_W), generator=g).to(device=device, dtype=dtype)
     pool = torch.randn((P, PS, 1, MLA_W), generator=g).to(device=device, dtype=dtype)
     t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
     cu = np.arange(B + 1, dtype=np.int32)
     return dict(q=q, pool=pool, pts=t(pts), lens=t(kv), kv_lens=kv, q_lens=np.ones(B, int),
-                pos=t(np.maximum(kv - 1, 0)), cu=t(cu), H=MLA_H, W=MLA_W, scale=MLA_SCALE)
+                pos=t(np.maximum(kv - 1, 0)), cu=t(cu), H=heads, W=MLA_W, scale=MLA_SCALE)
 
 
 def run_latent_decode(decode, c):
@@ -608,9 +626,9 @@ def latent_decode_bound(c, dtype, pool_dtype=None):
     kv_elt = torch.finfo(pool_dtype or dtype).bits // 8
     kv = c["kv_lens"]
     B = len(kv)
-    nbytes = (int(kv.sum()) * MLA_W * kv_elt + 2 * B * MLA_H * MLA_W * elt
+    nbytes = (int(kv.sum()) * MLA_W * kv_elt + 2 * B * c["H"] * MLA_W * elt
               + 4 * (int((-(-kv // PS)).sum()) + B))
-    flops = 4 * MLA_H * MLA_W * int(kv.sum())
+    flops = 4 * c["H"] * MLA_W * int(kv.sum())
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -883,7 +901,7 @@ def latent_decode_controls(c, q_scaled):
     live = kv_lens > 0
     p_bf16 = torch.einsum("bhs,bsd->bhd", p.bfloat16().float(), rows)
     T = S // 16
-    part = torch.einsum("bhtj,btjd->bhtd", p.reshape(B, MLA_H, T, 16),
+    part = torch.einsum("bhtj,btjd->bhtd", p.reshape(B, c["H"], T, 16),
                         rows.reshape(B, T, 16, MLA_W))
     acc = torch.zeros_like(part[:, :, 0], dtype=torch.bfloat16)
     for t in range(T):
@@ -891,7 +909,7 @@ def latent_decode_controls(c, q_scaled):
     return p_bf16[live], acc[live]
 
 
-def check_attention(device, latent: bool = False) -> dict:
+def check_attention(device, latent: bool = False, cases=None, name=None) -> dict:
     """K1. float32: kernel vs plain version, max abs error. bfloat16: kernel vs
     the plain version in float32 on the same (upcast) bf16 inputs, in bf16
     rounding units; beside it two controls on the same inputs that the check
@@ -908,14 +926,18 @@ def check_attention(device, latent: bool = False) -> dict:
     heads, width 160; the mma instance's tiles are 4 tokens x 16 heads) at
     the mixed shape, at decode, with a 512-token chunk at kv 2048, with a
     chunk of one tile plus one token (5 tokens) and at kv lengths that are
-    exact multiples of the split and page lengths."""
+    exact multiples of the split and page lengths. ``cases`` ((label, make)
+    pairs) and ``name``: other shapes (the mesh phase's rank shapes), each
+    call landing on the instance ``ops.paged_attention._instance`` picks for
+    it."""
     from llmd_tpu_torch.ops import paged_attention as pa
     from llmd_tpu_torch.ops.paged_attention import (
         bf16_rounding_units, paged_attention, paged_attention_ref)
 
-    name = "paged_attention_latent" if latent else "paged_attention"
+    default = cases is None
+    name = name or ("paged_attention_latent" if latent else "paged_attention")
     tq = pa.MMA_ROWS // (MLA_H if latent else H // HK)
-    cases = ((
+    cases = cases or ((
         ("mixed", lambda dt: mixed_case(dt, device, latent=True)),
         ("decode", lambda dt: decode_case(dt, device, latent=True)),
         ("chunk512_kv2048", lambda dt: chunk_case(dt, device, 512, 2048, 7, latent=True)),
@@ -938,9 +960,13 @@ def check_attention(device, latent: bool = False) -> dict:
     ))
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
-        want = "mma" if dtype == torch.bfloat16 else "simt"
         for label, make in cases:
             c = make(dtype)
+            want = "mma" if dtype == torch.bfloat16 else "simt"
+            if not default:
+                want = pa._instance(dtype, c["planes"], c["W"], pa._check(
+                    c["q"], c["pool"], c["pts"], c["lens"], c["cu"], c["ns"]),
+                    c["pool"].dtype)
             before = dict(paged_attention.launches_by_instance)
             got = run_attention(paged_attention, c)
             torch.cuda.synchronize()
@@ -954,7 +980,7 @@ def check_attention(device, latent: bool = False) -> dict:
             key = f"{label}_{str(dtype).split('.')[-1]}"
             row = {"max_abs_err": err, "pad_rows_max": pad, "tokens": int(c["q"].shape[0]),
                    "kv_tokens": int(c["kv_lens"].sum()), "instance": want}
-            if want == "mma":
+            if want.startswith("mma"):
                 plan = pa._plan(c["q"].shape[0], c["pts"].shape[0], c["pts"].shape[1], PS,
                                 c["H"] // c["HK"], c["HK"], pa._num_sms(0))
                 row["plan"] = dataclasses.asdict(plan)
@@ -974,7 +1000,7 @@ def check_attention(device, latent: bool = False) -> dict:
                     f"max_abs_err={err:.3e} bf16_units={units:.3f} (limit {BF16_UNITS}) "
                     f"controls: p_bf16={ctl_p:.1f} acc_bf16={ctl_acc:.1f} "
                     f"pad_rows_max={pad:.1e}")
-            if want == "mma":
+            if want.startswith("mma"):
                 log(f"check:   {name} {key} plan: {row['plan']}")
             out[key] = row
             if instance[want] != 1 or sum(instance.values()) != 1:
@@ -982,6 +1008,8 @@ def check_attention(device, latent: bool = False) -> dict:
                                      f"the {want} instance")
             if not (ok and pad == 0.0 and torch.isfinite(got).all()):
                 raise AssertionError(f"{name} {key}: the check failed: {row}")
+    if not default:
+        return out
     # the exact-multiples case: kv at whole pages, stages and splits
     plan = out["exact_multiples_bfloat16"]["plan"]
     if plan["splits"] < 2 or any(k % PS or (k >= plan["split_keys"] and k % plan["split_keys"])
@@ -990,7 +1018,7 @@ def check_attention(device, latent: bool = False) -> dict:
     return out
 
 
-def check_mla_decode(device) -> dict:
+def check_mla_decode(device, heads: int = MLA_H, cases=None) -> dict:
     """K3, each case in float32 (simt instance) and bfloat16 (mma): at
     moe-wide-mla's decode shape (B 64 + 2 idle), at B=4 over kv 3000-8192
     (16 KV splits, the short sequences' later ones empty) plus an idle row,
@@ -1002,19 +1030,25 @@ def check_mla_decode(device) -> dict:
     above it (probabilities in bf16; a bf16 P·V accumulator per 16-key
     tile); at kv 1 the one key's weight is exactly 1, no rounding can show,
     and the output must be the latent row itself (error exactly 0). Idle rows
-    (kv_len 0) must be exact zeros. Each call must land on its instance."""
+    (kv_len 0) must be exact zeros. Each call must land on its instance.
+    ``heads``, ``cases`` ((label, seed, kv lengths)): one tensor-parallel
+    rank's heads and other shapes (the mesh phase), each call on the instance
+    ``ops.mla_decode._instance`` picks."""
     from llmd_tpu_torch.ops import mla_decode as md
     from llmd_tpu_torch.ops.mla_decode import mla_decode, mla_decode_ref
     from llmd_tpu_torch.ops.paged_attention import bf16_rounding_units
 
     multiples = [16, 64, 256, 512, 1024, 2048, 4096, 0]
-    cases = (("decode", 3, None), ("long_context_b4", 6, [3000, 4711, 6150, 8192, 0]),
-             ("exact_multiples", 9, multiples), ("b1_kv1", 10, [1]), ("b1_kv17", 11, [17]))
+    default = cases is None
+    cases = cases or (
+        ("decode", 3, None), ("long_context_b4", 6, [3000, 4711, 6150, 8192, 0]),
+        ("exact_multiples", 9, multiples), ("b1_kv1", 10, [1]), ("b1_kv17", 11, [17]))
     out = {}
     for label, seed, kv in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            want = "mma" if dtype == torch.bfloat16 else "simt"
-            c = latent_decode_case(dtype, device, seed, kv)
+            want = ("mma" if dtype == torch.bfloat16 else "simt") if default else \
+                md._instance(dtype, heads, MLA_W)
+            c = latent_decode_case(dtype, device, seed, kv, heads=heads)
             before = dict(mla_decode.launches_by_instance)
             got = run_latent_decode(mla_decode, c)
             torch.cuda.synchronize()
@@ -1058,6 +1092,8 @@ def check_mla_decode(device) -> dict:
                                      f"the {want} instance")
             if not (ok and idle_exact and torch.isfinite(got).all()):
                 raise AssertionError(f"mla_decode {key}: the check failed: {row}")
+    if not default:
+        return out
     # kv at whole pages, stages and splits, and many splits with empty ones
     plan = out["exact_multiples_bfloat16"]["plan"]
     if plan["splits"] < 2 or any(k % PS or k % 64 or (k >= plan["split_keys"]
@@ -1070,18 +1106,21 @@ def check_mla_decode(device) -> dict:
     return out
 
 
-def check_gemms(device) -> dict:
+def check_gemms(device, plans=None) -> dict:
     """K2 and K4 against their plain versions at moe-wide-sim widths, both
     launches of a layer (wi: D 1024 -> 2Fe 1024; wo: Fe 512 -> D 1024).
     float32: max abs error. bfloat16: in bf16 rounding units against the plain
     version in float32 on the same bf16 inputs, limit 1; a bf16-accumulating
     control must read above it. Zero-row blocks and zero-count groups must be
-    exact zeros."""
+    exact zeros. ``plans``: other (name, cases) pairs, K2's or K4's (the
+    mesh phase's rank shapes)."""
     from llmd_tpu_torch.ops.grouped_gemm import (
         grouped_gemm, grouped_gemm_ref, ragged_grouped_gemm, ragged_grouped_gemm_ref)
     from llmd_tpu_torch.ops.paged_attention import bf16_rounding_units
 
-    plans = (
+    fns = {"ragged_grouped_gemm": (ragged_grouped_gemm, ragged_grouped_gemm_ref),
+           "grouped_gemm": (grouped_gemm, grouped_gemm_ref)}
+    plans = [(name, *fns[name], cases) for name, cases in plans] if plans else (
         ("ragged_grouped_gemm", ragged_grouped_gemm, ragged_grouped_gemm_ref, (
             ("decode", lambda dt: ragged_case(32, 32, dt, device, 11)),
             ("prefill", lambda dt: ragged_case(2048, 32, dt, device, 12)),
@@ -5597,6 +5636,298 @@ def phase_launch(device, card: str, seed: int = 0) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# The mesh (parallel/): one rank's kernel shapes, NCCL captured in a graph,
+# and, with several cards, meshed engines as worlds of rank processes
+# --------------------------------------------------------------------------
+
+MESH_KW = dict(page_size=PS, num_pages=1024, max_model_len=4096, max_batch_size=16,
+               prefill_chunk=2048, max_num_batched_tokens=2048, decode_steps=4)
+TP2, TP4 = (H // 2, HK // 2), (H // 4, HK // 4)  # llama-1b heads on one tp rank
+MLA_TP2 = (MLA_H // 2, 1)  # moe-wide-mla heads on one tp rank, the latent whole
+
+
+def ep_receiver_case(dtype, device, seed: int, T: int = 64, ep: int = 2) -> dict:
+    """K2's inputs on EP rank 0 of moe-wide-sim at ``ep`` (S/ep local slots),
+    as ``ops/moe_dispatch.ep_moe`` builds them: the decode batch's T tokens
+    routed to k distinct of the S slots at random, split over the ep ranks
+    (T/ep tokens each); each sender's bucket for rank 0 holds its copies bound
+    for rank 0's slots in (token, k) order, padded with -1 to cap = T/ep * k
+    rows (the bounded bucket: nothing can drop); the receiver's ep * cap rows
+    (pads on the sentinel slot) placed by the row plan at the kernel's block
+    size; the weights of rank 0's slots for both launches of a layer."""
+    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.ops.moe_dispatch import _row_plan, pick_block_size
+
+    Dm, Fe, k = moe_widths()
+    S = get_model_config(MOE).moe_num_experts
+    Sl, tpc = S // ep, T // ep
+    cap = tpc * k
+    rng = np.random.default_rng(seed)
+    g = torch.Generator().manual_seed(seed)
+    idx = np.argsort(rng.random((T, S)), axis=1)[:, :k]
+    recv = np.full((ep * cap,), -1, np.int64)
+    for src in range(ep):
+        mine = idx[src * tpc:(src + 1) * tpc].reshape(-1)
+        mine = mine[mine < Sl]
+        recv[src * cap:src * cap + len(mine)] = mine
+    lslot = torch.from_numpy(np.where(recv >= 0, recv, Sl))
+    bc = pick_block_size(ep * cap, Sl, pallas=True)
+    row, slot, rows, Tp = _row_plan(lslot, Sl, bc)
+    xs = torch.zeros((Tp + 1, Dm)).index_copy_(0, row.long(), torch.randn((ep * cap, Dm),
+                                                                           generator=g))
+    nb = slot.shape[0]
+    live_rows = (torch.arange(bc)[None, :] < rows[:, None])[..., None]
+    h = torch.randn((nb, bc, Fe), generator=g) * live_rows
+    wi = torch.randn((Sl, Dm, 2 * Fe), generator=g) * Dm ** -0.5
+    wo = torch.randn((Sl, Fe, Dm), generator=g) * Fe ** -0.5
+    xb, h, wi, wo = _on(device, dtype, xs[:Tp].view(nb, bc, Dm), h, wi, wo)
+    return dict(launches=[("wi", xb, wi), ("wo", h, wo)], slot=slot.to(device),
+                live=rows.to(device),
+                shape=f"ep={ep} receiver rows={ep * cap} ({int((recv >= 0).sum())} routed) "
+                      f"S_local={Sl} bc={bc} nb={nb}")
+
+
+def mesh_kernel_checks(device) -> dict:
+    """Every kernel against its plain version at one rank's shapes under the
+    mesh, full width: K1 at llama-1b's tp=2 and tp=4 heads (16/4, 8/2) at
+    decode B=64 and mixed, over bf16 and fp8 pools; K1's latent mode and K3
+    at moe-wide-mla's tp=2 heads (8; both on their simt instances, the mma
+    ones take 16 heads); K2 on ep rank 0's receiver rows at ep=2 (16 local
+    slots, the buckets' pad rows on the sentinel); K4 over 16 groups (the
+    einsum dispatch's local slots at ep=2, the decode batch's capacity 10).
+    Bounds as the one-card checks': float32 within F32_ATOL (GEMM_F32_ATOL
+    for K2 / K4), bfloat16 within one rounding unit with controls above."""
+    def fp8(make):
+        return lambda dt: (lambda c: dict(c, pool=fp8_pool(c["pool"])))(make(dt))
+
+    def k1(heads, case):
+        return lambda dt: case(dt, device, heads=heads)
+
+    out = {"paged_attention": check_attention(device, name="paged_attention (mesh)", cases=(
+        ("tp2_decode", k1(TP2, decode_case)), ("tp2_mixed", k1(TP2, mixed_case)),
+        ("tp4_decode", k1(TP4, decode_case)), ("tp4_mixed", k1(TP4, mixed_case)),
+        ("tp2_decode_fp8", fp8(k1(TP2, decode_case))),
+        ("tp4_mixed_fp8", fp8(k1(TP4, mixed_case)))))}
+    out["paged_attention_latent"] = check_attention(
+        device, latent=True, name="paged_attention_latent (mesh)", cases=(
+            ("tp2_mixed", lambda dt: mixed_case(dt, device, heads=MLA_TP2, latent=True)),
+            ("tp2_decode", lambda dt: decode_case(dt, device, heads=MLA_TP2, latent=True))))
+    out["mla_decode"] = check_mla_decode(device, heads=MLA_TP2[0], cases=(
+        ("tp2_decode", 3, None), ("tp2_long_context_b4", 6, [3000, 4711, 6150, 8192, 0])))
+    out |= check_gemms(device, plans=[
+        ("ragged_grouped_gemm", (("ep2_receiver", lambda dt: ep_receiver_case(dt, device, 31)),)),
+        ("grouped_gemm", (("ep2_local16", lambda dt: capacity_case(10, 16, dt, device, 32)),))])
+    return out
+
+
+def time_mesh_kernels(device, tm: dict) -> dict:
+    """The rank-shaped kernels in bf16, each beside its bound and beside the
+    one-card shape's time from the time phase (``tm``): K1 at tp=2 / tp=4
+    decode B=64 (one card: 32 heads), K1's latent mode at tp=2 mixed and K3 at
+    tp=2 decode B=64+2 idle (one card: 16 heads on the mma instance), K2's wi
+    launch on the ep=2 receiver rows (one card: decode T=32 over 32 slots) and
+    K4's wi launch over 16 groups (one card: 32 groups of capacity 5)."""
+    from llmd_tpu_torch.ops import grouped_gemm as gg
+    from llmd_tpu_torch.ops import mla_decode as md
+    from llmd_tpu_torch.ops import paged_attention as pa
+
+    bf = torch.bfloat16
+    out = {}
+
+    def row(name, label, fn, bound, unsharded_ms, shape):
+        ms = cuda_ms(fn)
+        b_ms, by = bound
+        out.setdefault(name, {})[label] = r = {
+            "shape": shape, "ms": ms, "bound_ms": b_ms, "bound_by": by,
+            "unsharded_ms": unsharded_ms, "roofline_share": b_ms / ms}
+        log(f"time: mesh {name} {label} {shape} ms={ms:.4f} bound_ms={b_ms:.4f} ({by}) "
+            f"one-card shape ms={unsharded_ms:.4f} roofline_share={r['roofline_share']:.3f}")
+
+    for label, heads in (("tp2_decode", TP2), ("tp4_decode", TP4)):
+        c = decode_case(bf, device, heads=heads)
+        row("paged_attention", label, lambda c=c: run_attention(pa.paged_attention, c),
+            attention_bound(c, bf), tm["paged_attention"]["decode"]["ms"],
+            f"decode B=64 H{heads[0]} Hk{heads[1]} D64 bf16")
+    c = mixed_case(bf, device, heads=MLA_TP2, latent=True)
+    row("paged_attention_latent", "tp2_mixed", lambda: run_attention(pa.paged_attention, c),
+        attention_bound(c, bf), tm["paged_attention_latent"]["mixed"]["ms"],
+        f"mixed H{MLA_TP2[0]} latent W160 bf16 instance="
+        f"{pa._instance(bf, 1, MLA_W, MLA_TP2[0])}")
+    c3 = latent_decode_case(bf, device, heads=MLA_TP2[0])
+    row("mla_decode", "tp2_decode", lambda: run_latent_decode(md.mla_decode, c3),
+        latent_decode_bound(c3, bf), tm["mla_decode"]["decode"]["ms"],
+        f"decode B=64+2 idle H{MLA_TP2[0]} W160 bf16 instance="
+        f"{md._instance(bf, MLA_TP2[0], MLA_W)}")
+    for name, label, c, fn, one in (
+            ("ragged_grouped_gemm", "ep2_receiver", ep_receiver_case(bf, device, 31),
+             gg.ragged_grouped_gemm, tm["ragged_grouped_gemm"]["decode"]["ms"]),
+            ("grouped_gemm", "ep2_local16", capacity_case(10, 16, bf, device, 32),
+             gg.grouped_gemm, tm["grouped_gemm"]["decode"]["ms"])):
+        _, x, w = c["launches"][0]
+        index = (c["slot"], c["live"]) if name == "ragged_grouped_gemm" else (c["live"],)
+        bound_ms, by, _ = gemm_bound(x, w, c["slot"], c["live"], bf, len(index))
+        row(name, label, lambda x=x, w=w, index=index, fn=fn: fn(x, w, *index), (bound_ms, by),
+            one, f"{c['shape']} wi bf16")
+    return out
+
+
+def nccl_graph_check() -> dict:
+    """A one-rank NCCL group on this card, then ``all_reduce`` /
+    ``all_gather`` / ``all_to_all_single`` captured in one CUDA graph and
+    replayed on fresh inputs: replayed must equal eager exactly
+    (``parallel/checks.collectives_in_graph``). The collectives the decode
+    program captures under a mesh are these."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from llmd_tpu_torch.parallel import checks
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        res = checks.collectives_in_graph()
+    finally:
+        dist.destroy_process_group()
+    log(f"mesh: NCCL in a CUDA graph (world {res['world']}): all_reduce, all_gather, "
+        f"all_to_all_single replayed vs eager max_abs_diff={res['max_abs_diff']}")
+    if res["max_abs_diff"] != 0.0:
+        raise AssertionError(f"mesh: NCCL replayed in a graph differs from eager: {res}")
+    return res
+
+
+def _mesh_generate(device, cfg, mesh, prompts, max_tokens, seed, decode_graph=True,
+                   world=None, **kw):
+    """Greedy tokens of one engine (rank 0 of ``world`` under ``mesh`` when
+    the mesh spans several devices), its generation's output tok/s and
+    stats, and rank 0's kernel launches in the measured run."""
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.engine.config import EngineConfig
+    from llmd_tpu_torch.engine.engine import LLMEngine
+
+    eng = LLMEngine(cfg, EngineConfig(**(MESH_KW | kw), mesh=mesh), seed=seed, device=device,
+                    decode_graph=decode_graph,
+                    rank_mesh=world.mesh(mesh) if mesh.num_devices > 1 else None)
+    try:
+        # warm-up (cuBLAS handles, the decode capture), no prefix of the prompts
+        eng.generate([[7] * 8], SamplingParams(max_tokens=2, temperature=0.0))
+        torch.cuda.synchronize()
+        ring0 = eng.stats.n_ring_prefill_steps
+        zero_counts()
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, SamplingParams(max_tokens=max_tokens, temperature=0.0))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches, _ = read_counts()
+        st = eng.stats
+        toks = [out[f"req-{i}"] for i in range(len(prompts))]
+        return toks, {"tok_s": sum(map(len, toks)) / dt, "seconds": dt,
+                      "rank0_launches": {k: v for k, v in launches.items() if v},
+                      "ring_steps": st.n_ring_prefill_steps - ring0, "sp_attn_backend":
+                      st.sp_attn_backend, "drops": st.moe_dropped_tokens,
+                      "rebalances": st.eplb_rebalances, "captures": st.decode_graph_captures}
+    finally:
+        eng.close()
+
+
+def mesh_worlds(device, card: str, seed: int = 0) -> dict:
+    """With two cards or more: llama-1b tp=2; moe-wide-sim ep=2 with EPLB;
+    moe-wide-mla tp=2; llama-1b sp=2 with one 2048-token fresh prompt on the
+    ring. Each: float32 tokens of the world (rank 0 here, rank 1 on cuda:1,
+    NCCL; one world of two rank processes, ``parallel/launch.World``, for
+    every mesh) equal to the one-card engine's, the replayed decode's equal
+    to the eager one's, bfloat16's share of tokens equal to one card's,
+    output tok/s beside one card's. With one card: not run (a fact of the
+    machine)."""
+    from llmd_tpu_torch.parallel.launch import World
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"mesh_world: not run, {n} device")
+        return {"run": False, "devices": n}
+    t0 = time.perf_counter()
+    world = World.start(2, "cuda")
+    log(f"mesh_world: a world of 2 rank processes (NCCL) up in "
+        f"{time.perf_counter() - t0:.1f} s")
+    try:
+        from llmd_tpu_torch.engine.config import MeshConfig
+
+        world.mesh(MeshConfig(tp=2))
+        graph = world.call("llmd_tpu_torch.parallel.checks:collectives_in_graph")
+        log(f"mesh_world: NCCL in a CUDA graph across 2 cards, replayed vs eager "
+            f"max_abs_diff rank 0 {graph[0]['max_abs_diff']}, rank 1 "
+            f"{graph[1][0]['max_abs_diff']}")
+        if graph[0]["max_abs_diff"] != 0.0 or graph[1][0]["max_abs_diff"] != 0.0:
+            raise AssertionError(f"mesh_world: NCCL replayed in a graph differs: {graph}")
+        return {"run": True, "devices": n, "nccl_graph": graph,
+                **_mesh_worlds(device, card, seed, world)}
+    finally:
+        world.close()
+
+
+def _mesh_worlds(device, card: str, seed: int, world) -> dict:
+    """``mesh_worlds``' engines on ``world``, mesh after mesh."""
+    from llmd_tpu_torch.engine.config import MeshConfig
+    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.parallel.eplb import EPLBConfig
+
+    rng = np.random.default_rng(seed)
+    eplb = {"moe_dispatch": "sorted", "eplb": EPLBConfig(
+        window_size=8, step_interval=2, num_redundant_experts=32)}
+    worlds = (("llama-1b tp=2", "llama-1b", MeshConfig(tp=2), {}, None),
+              ("moe-wide-sim ep=2 eplb", MOE, MeshConfig(ep=2), eplb, None),
+              ("moe-wide-mla tp=2", MLA, MeshConfig(tp=2), {"moe_dispatch": "sorted"}, None),
+              ("llama-1b sp=2 ring", "llama-1b", MeshConfig(sp=2), {}, 2048))
+    out = {}
+    for label, model, mesh, kw, fresh in worlds:
+        base = get_model_config(model)
+        vocab = base.vocab_size
+        prompts = ([rng.integers(1, vocab, fresh).tolist()] if fresh else
+                   [rng.integers(1, vocab, int(m)).tolist()
+                    for m in rng.integers(64, 512, 8)])
+        row: dict = {}
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(base, dtype=dtype)
+            one, one_st = _mesh_generate(device, cfg, MeshConfig(), prompts, 16, seed, **kw)
+            got, st = _mesh_generate(device, cfg, mesh, prompts, 16, seed, world=world, **kw)
+            same = sum(a == b for x, y in zip(got, one) for a, b in zip(x, y))
+            total = sum(map(len, one))
+            row[dtype] = {"identical_share": same / total, "tok_s": st["tok_s"],
+                          "one_card_tok_s": one_st["tok_s"], **st}
+            if dtype == "float32":
+                eager, eager_st = _mesh_generate(device, cfg, mesh, prompts, 16, seed,
+                                                 decode_graph=False, world=world, **kw)
+                row["replayed_equals_eager"] = (eager == got and eager_st["rank0_launches"]
+                                                == st["rank0_launches"])
+                if got != one or not row["replayed_equals_eager"]:
+                    raise AssertionError(
+                        f"mesh_world {label}: float32 tokens differ from one card's "
+                        f"({same}/{total}), or the replayed run from the eager one (tokens "
+                        f"or rank 0's launches {st['rank0_launches']} against "
+                        f"{eager_st['rank0_launches']})")
+            log(f"mesh_world: {label} {dtype} identical {same}/{total} output tok/s "
+                f"{st['tok_s']:.1f} (one card {one_st['tok_s']:.1f}) ring_steps "
+                f"{st['ring_steps']} {st['sp_attn_backend']} drops {st['drops']} "
+                f"rebalances {st['rebalances']} captures {st['captures']} rank 0 "
+                f"launches {st['rank0_launches']} on {card}")
+        if fresh and row["float32"]["ring_steps"] < 1:
+            raise AssertionError(f"mesh_world {label}: the fresh prompt missed the ring")
+        out[label] = row
+    return out
+
+
+def phase_mesh(device, card: str, tm: dict) -> dict:
+    """The mesh phase: the rank-shaped kernel checks and times, NCCL in a
+    graph, and the NCCL worlds when the machine has the cards."""
+    t0 = time.perf_counter()
+    out = {"check": mesh_kernel_checks(device), "time": time_mesh_kernels(device, tm),
+           "nccl_graph": nccl_graph_check(), "worlds": mesh_worlds(device, card)}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"mesh: phase {out['seconds']:.1f} s on {card}")
+    return out
+
+
 def main(argv: "list[str] | None" = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", default=None, help="write every phase's details here (JSON)")
@@ -5717,9 +6048,12 @@ def main(argv: "list[str] | None" = None) -> int:
     report["obs"] = obs = phase_obs(device, card, time_report=tm["paged_attention"])
     _empty()  # the previous phase's engines
     report["launch"] = launch = phase_launch(device, card)
+    _empty()  # the previous phase's engines
+    report["mesh"] = mesh = phase_mesh(device, card, tm)
     report["seconds"] = time.perf_counter() - t_start
     log(f"smoke: all phases {report['seconds']:.1f} s (vision {vision['seconds']:.1f} s, "
-        f"obs {obs['seconds']:.1f} s, launch {launch['seconds']:.1f} s)")
+        f"obs {obs['seconds']:.1f} s, launch {launch['seconds']:.1f} s, "
+        f"mesh {mesh['seconds']:.1f} s)")
     if args.report:
         out = Path(args.report)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -5759,6 +6093,10 @@ def main(argv: "list[str] | None" = None) -> int:
                "decode_b8_library_ms": k3["decode_b8"]["library_ms"],
                "decode_b8_simt_ms": k3["decode_b8"]["simt_ms"]}
 
+    def mesh_keys(name: str) -> dict:  # one rank's shapes under the mesh
+        return {f"mesh_{label}_{k}": row[k] for label, row in mesh["time"][name].items()
+                for k in ("ms", "bound_ms", "unsharded_ms")}
+
     gemm_src = "llmd_tpu_torch/csrc/grouped_gemm.cu"
     attn_src = "llmd_tpu_torch/csrc/paged_attention.cu"
     kernels = {"kernels": [
@@ -5778,21 +6116,22 @@ def main(argv: "list[str] | None" = None) -> int:
            "obs_probe_launches": obs["main"]["probe_launches"],
            "launch_launches": launch["tuned_engines"]["launches_by_instance"]
            ["paged_attention"]["mma"],
-           "tuned_plan": launch["tuned_k1"]["plan"]},
+           "tuned_plan": launch["tuned_k1"]["plan"]} | mesh_keys("paged_attention"),
         # the unified program's absorbed MLA attention, XLA in the reference
         entry("paged_attention_latent", attn_src, "llmd_tpu/models/transformer.py:428",
               eng["mla_sorted"]["launches"]["paged_attention"], lat)
         | {"instance": lat["instance"], "simt_ms": lat["simt_ms"],
            "kvplane_launches": kv["pd_mla"]["p_launches"]["paged_attention"],
            "launch_launches": launch["modes"]["mla"]["kernel_mode_launches"]
-           ["paged_attention"]},
+           ["paged_attention"]} | mesh_keys("paged_attention_latent"),
         entry("mla_decode", "llmd_tpu_torch/csrc/mla_decode.cu",
               "llmd_tpu/ops/mla_decode.py:110", eng["mla_sorted"]["launches"]["mla_decode"],
               k3["decode"]) | k3_more
         | {"kvplane_launches": kv["pd_mla"]["d_launches"]["mla_decode"],
            "obs_launches": obs["mla"]["launches"]["mla_decode"],
            "obs_probe_launches": obs["mla"]["probe_launches"],
-           "launch_launches": launch["modes"]["mla"]["kernel_mode_launches"]["mla_decode"]},
+           "launch_launches": launch["modes"]["mla"]["kernel_mode_launches"]["mla_decode"]}
+        | mesh_keys("mla_decode"),
         entry("ragged_grouped_gemm", gemm_src, "llmd_tpu/ops/grouped_gemm.py:98",
               eng["moe_sorted"]["launches"]["ragged_grouped_gemm"],
               tm["ragged_grouped_gemm"]["decode"], tm["ragged_grouped_gemm"]["prefill"])
@@ -5800,12 +6139,12 @@ def main(argv: "list[str] | None" = None) -> int:
            "obs_launches": obs["moe"]["launches"]["ragged_grouped_gemm"],
            "obs_probe_launches": 2 * obs["moe"]["probe_launches"],
            "launch_launches": launch["modes"]["moe"]["kernel_mode_launches"]
-           ["ragged_grouped_gemm"]},
+           ["ragged_grouped_gemm"]} | mesh_keys("ragged_grouped_gemm"),
         entry("grouped_gemm", gemm_src, "llmd_tpu/ops/grouped_gemm.py:43",
               eng["moe_einsum"]["launches"]["grouped_gemm"], tm["grouped_gemm"]["decode"],
               tm["grouped_gemm"]["prefill"])
         | {"launch_launches": launch["modes"]["moe_einsum"]["kernel_mode_launches"]
-           ["grouped_gemm"]},
+           ["grouped_gemm"]} | mesh_keys("grouped_gemm"),
         # the fp8 pool variants (mma_fp8): ms etc. at the first shape, the rest beside
         *(fp8_entry(fp8, name, src, replaces, run, first)
           for name, src, replaces, run, first in (

@@ -64,7 +64,8 @@
 //     instance's result on the upcast pool, bit for bit.
 //   The ring, the copies, the conversion, the fragments' helpers and the
 //   merge are mma_attention.cuh's, shared with paged_attention.cu.
-// * simt (float32, which the tensor cores would take in TF32, and (4, 80)): one block per
+// * simt (float32, which the tensor cores would take in TF32, (4, 80), and a
+//   tensor-parallel rank's half of the heads, (8, 160) and (2, 80)): one block per
 //   sequence, 256 threads. Keys go in tiles of KEYS = 256/H (16 at H 16, 64 at
 //   H 4), gathered through the page table row by row (any page size), 16-byte
 //   loads, converted to f32 into shared memory with a padded row stride (D+1:
@@ -306,6 +307,13 @@ cudaError_t dispatch_simt(int num_heads, int latent_dim, const void* q, const vo
                                        max_pages, scale, stream);
   if (num_heads == 4 && latent_dim == 80)  // tiny-mla
     return launch_simt<T, KT, 80, 4>(q, pool, page_tables, kv_lens, out, batch, page_size,
+                                     max_pages, scale, stream);
+  // one tensor-parallel rank's heads at tp=2 (heads shard, the latent does not)
+  if (num_heads == 8 && latent_dim == 160)  // moe-wide-mla
+    return launch_simt<T, KT, 160, 8>(q, pool, page_tables, kv_lens, out, batch, page_size,
+                                      max_pages, scale, stream);
+  if (num_heads == 2 && latent_dim == 80)  // tiny-mla
+    return launch_simt<T, KT, 80, 2>(q, pool, page_tables, kv_lens, out, batch, page_size,
                                      max_pages, scale, stream);
   return cudaErrorInvalidValue;
 }

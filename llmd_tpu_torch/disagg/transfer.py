@@ -587,7 +587,16 @@ class StagedExport:
     parts: list[StagedPart]
 
 
+def refuse_mesh(engine) -> None:
+    """The KV data plane reads and writes one pool: a meshed engine's pool
+    is sharded over its ranks (ROADMAP Queue A item 6c)."""
+    if getattr(engine, "rank_mesh", None) is not None:
+        raise NotImplementedError("KV export, inject and offload under a mesh: "
+                                  "ROADMAP Queue A item 6c")
+
+
 def _stage(engine, pids: list[int], staging_pages: int) -> list[StagedPart]:
+    refuse_mesh(engine)
     with engine._on_stream():
         return stage_pages(engine.cache, pids, engine.cfg.num_pages, staging_pages)
 
@@ -673,6 +682,7 @@ def inject_into_engine(engine, pulled: PulledKV, token_ids: list[int],
     place (its address is baked into the captured decode programs)."""
     from llmd_tpu_torch.core.kv_events import block_keys_for_tokens
 
+    refuse_mesh(engine)
     ps = engine.cfg.page_size
     L, _ = _layers(engine.cache, engine.cfg.num_pages)
     local_shape = (L,) + tuple(engine.cache.shape[1:])

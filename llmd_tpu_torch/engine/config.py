@@ -27,7 +27,10 @@ The kernel-selection modes are served with the reference's values:
 ``auto`` | ``pallas`` | ``einsum`` (``pallas`` names the port's CUDA
 kernels), and so is ``attn_tune_file`` (K1's launch-config table,
 ``ops/attn_tune``). ``dp_ranks`` serves DP rank frontends over one engine,
-and ``max_queue`` is taken and read nowhere, as in the reference.
+and ``max_queue`` is taken and read nowhere, as in the reference. ``mesh``
+(``parallel/mesh.MeshConfig``, re-exported here) and ``sp_ring_attention``
+are served with the reference's defaults: a mesh of N > 1 devices runs N
+rank processes (``parallel/launch.py``).
 """
 
 from __future__ import annotations
@@ -37,20 +40,7 @@ from typing import Optional
 
 from llmd_tpu_torch.models.lora import LoRAConfig
 from llmd_tpu_torch.parallel.eplb import EPLBConfig
-
-
-@dataclass
-class MeshConfig:
-    """Mesh axis sizes (copy of ``llmd_tpu/parallel/mesh.py::MeshConfig``)."""
-
-    dp: int = 1
-    ep: int = 1
-    tp: int = 1
-    sp: int = 1
-
-    @property
-    def num_devices(self) -> int:
-        return self.dp * self.ep * self.tp * self.sp
+from llmd_tpu_torch.parallel.mesh import MeshConfig
 
 
 @dataclass
@@ -66,10 +56,11 @@ class EngineConfig:
     # max(prefill_chunk, max_batch_size).
     max_num_batched_tokens: "int | None" = None
     enable_prefix_caching: bool = True
-    # Parallelism: one device (mesh waits for ROADMAP Queue A item 6b). DP
-    # rank frontends over this engine: each rank owns a queue, a slot range,
-    # a page partition and a token budget; max_batch_size and num_pages must
-    # divide by dp_ranks, and the offload tiers are single-rank.
+    # Parallelism: the (dp, sp, ep, tp) mesh, one rank process a device
+    # (parallel/launch.py). DP rank frontends over this engine: each rank
+    # owns a queue, a slot range, a page partition and a token budget;
+    # max_batch_size and num_pages must divide by dp_ranks, and the offload
+    # tiers are single-rank.
     mesh: MeshConfig = field(default_factory=MeshConfig)
     dp_ranks: int = 1
     # Scheduling (read nowhere, as in the reference)
@@ -206,6 +197,11 @@ class EngineConfig:
         if self.lora is not None and not isinstance(self.lora, LoRAConfig):
             raise ValueError("lora takes llmd_tpu_torch.models.lora.LoRAConfig, "
                              f"got {type(self.lora).__name__}")
+        if not isinstance(self.mesh, MeshConfig):
+            raise ValueError("mesh takes llmd_tpu_torch.parallel.mesh.MeshConfig, "
+                             f"got {type(self.mesh).__name__}")
+        if min(self.mesh.dp, self.mesh.ep, self.mesh.tp, self.mesh.sp) < 1:
+            raise ValueError(f"mesh axis sizes must be >= 1, got {self.mesh}")
         if self.eplb is not None and not isinstance(self.eplb, EPLBConfig):
             raise ValueError("eplb takes llmd_tpu_torch.parallel.eplb.EPLBConfig, "
                              f"got {type(self.eplb).__name__}")
@@ -223,5 +219,5 @@ SERVED = frozenset({
     "spec_structured_crosscheck",
     "cpu_offload_pages", "offload_staging_blocks", "offload_watermark_pages",
     "offload_fs_path", "kv_connector", "kv_connector_params", "role", "lora",
-    "attn_tune_file", "dp_ranks", "max_queue",
+    "attn_tune_file", "dp_ranks", "max_queue", "mesh", "sp_ring_attention",
 })

@@ -128,7 +128,7 @@ def decode_program(cfg: ModelConfig, params: dict[str, torch.Tensor], cache: tor
                    attn_impl: Callable, moe_dispatch_impl: Optional[Callable],
                    tables: Optional[MaskTables] = None,
                    lora_scale: float = 1.0,
-                   moe_matmul_impl: Callable = grouped_gemm) -> DecodeOutputs:
+                   moe_matmul_impl: Callable = grouped_gemm, mesh=None) -> DecodeOutputs:
     """``k`` decode iterations of the static batch (the reference's
     ``_decode_multi``): each samples every row with its own temperature /
     top-k / top-p (temperature 0 is the exact argmax) and advances the rows
@@ -139,7 +139,9 @@ def decode_program(cfg: ModelConfig, params: dict[str, torch.Tensor], cache: tor
     grammar's bias row at its state, and rows with budget left step their
     state through the transition table; frozen rows hold theirs. With the
     LoRA bank in ``params`` each row runs its adapter slot (``buf.lora``)
-    times ``lora_scale``."""
+    times ``lora_scale``. ``mesh``: this rank's ``RankMesh``; its
+    collectives (tp all-reduces, the logits' all-gather, the EP exchange)
+    are captured with the rest of the program."""
     toks, pos, lens, steps = buf.tokens, buf.positions, buf.kv_lens, buf.steps_left
     st = buf.fsm
     out, counts, drops = [], None, None
@@ -148,10 +150,10 @@ def decode_program(cfg: ModelConfig, params: dict[str, torch.Tensor], cache: tor
             cfg, params, cache, toks, pos, buf.seq_slots, buf.page_tables, lens,
             cu_q_lens=buf.cu_q_lens, num_seqs=buf.num_seqs, attn_impl=attn_impl,
             moe_dispatch_impl=moe_dispatch_impl, moe_matmul_impl=moe_matmul_impl,
-            lora_indices=buf.lora, lora_scale=lora_scale)
+            lora_indices=buf.lora, lora_scale=lora_scale, mesh=mesh)
         counts = cnt if counts is None else counts + cnt
         drops = drop if drops is None else drops + drop
-        logits = unembed(cfg, params, hidden)
+        logits = unembed(cfg, params, hidden, mesh)
         act = steps > 0  # rows freeze once their budget is spent
         if tables is None:
             nxt = sample_tokens(logits, generator, buf.temperature, buf.top_k, buf.top_p)

@@ -21,8 +21,12 @@ The reference's DP launcher flags (``--data-parallel-size``,
 - :class:`WideEPEngineGroup`: R rank frontends (``EngineServer(engine=,
   async_engine=, rank=)``) over ONE engine with ``dp_ranks=R``: each rank a
   router-visible port, its own queue, slot range, page partition and token
-  budget; one step loop and one pool. The mesh stays one device (ROADMAP
-  Queue A item 6b), so it runs on one card. Port addition:
+  budget; one step loop and one pool. Over a mesh of several devices
+  (``MeshConfig(dp=2, ep=2, tp=2)``, the reference's wide-EP layout) R is
+  ``mesh.dp``: the engine is world rank 0 (``parallel/launch.py``), so every
+  rank frontend lives on rank 0 and the workers hold the shards; on a
+  one-device mesh ``dp_ranks`` gives R (a port addition: DP frontends on one
+  card). Port addition:
   ``kv_events_port_base`` (``serve --data-parallel-size N --kv-events-port
   P``) has each rank publish its allocator's KV events (rank r on P + r; 0
   picks free ports), for a router's precise-prefix index over the rank
@@ -372,13 +376,14 @@ class DPLocalBalancer:
 
 class WideEPEngineGroup:
     """DP rank frontends over ONE engine (the reference's wide-EP topology,
-    ``decode.yaml:85-121``, on one device): each rank owns a router-visible
+    ``decode.yaml:85-121``; over a mesh, or on one device): each rank owns a router-visible
     HTTP port, its own queue, batch-slot range, KV page partition and token
     budget, and every rank's rows run in the same step programs of the one
     shared step loop (wave lockstep is inherent: an idle rank contributes no
-    rows). ``device``, ``seed``: the engine's. ``kv_events_port_base``: rank
-    r publishes its KV events on ``base + r`` (0: free ports; None: none, as
-    the reference's group)."""
+    rows). ``device``, ``seed``, ``rank_mesh``: the engine's (``rank_mesh``:
+    run on that world's rank 0 instead of starting one).
+    ``kv_events_port_base``: rank r publishes its KV events on ``base + r``
+    (0: free ports; None: none, as the reference's group)."""
 
     def __init__(
         self,
@@ -393,11 +398,14 @@ class WideEPEngineGroup:
         device=None,
         seed: int = 0,
         kv_events_port_base: Optional[int] = None,
+        rank_mesh=None,
     ) -> None:
-        # the reference takes the rank count from mesh.dp; the port's mesh is
-        # one device, so dp_ranks gives it too
+        # the reference takes the rank count from mesh.dp; a one-device mesh
+        # takes it from dp_ranks (frontends over one card)
+        mesh = engine_cfg.mesh
         self.ranks = (ranks if ranks is not None
-                      else max(1, engine_cfg.dp_ranks, engine_cfg.mesh.dp))
+                      else max(1, mesh.dp) if mesh.num_devices > 1
+                      else max(1, engine_cfg.dp_ranks))
         if engine_cfg.dp_ranks == 1 and self.ranks > 1:
             engine_cfg = dataclasses.replace(engine_cfg, dp_ranks=self.ranks)
         if engine_cfg.dp_ranks != self.ranks:
@@ -406,7 +414,7 @@ class WideEPEngineGroup:
             raise ValueError(f"{self.ranks} rank ports exceed InferencePool's "
                              f"{MAX_TARGET_PORTS}-port limit")
         self.engine = LLMEngine(model_cfg, engine_cfg, params=params, device=device,
-                                seed=seed, tokenizer=tokenizer)
+                                seed=seed, tokenizer=tokenizer, rank_mesh=rank_mesh)
         self.async_engine = AsyncLLMEngine(self.engine)
         kve = kv_events_port_base
         self.servers: list[EngineServer] = [

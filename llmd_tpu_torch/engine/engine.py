@@ -119,6 +119,22 @@ int8 weight-only (``quantize_weights="int8"``): the params are quantized at
 construction (``models/quant.py``); EPLB regathers int8 banks and their
 scales by the same slot map.
 
+The mesh (``EngineConfig.mesh`` over N > 1 devices; reference
+``engine.py:186``, ``:367-413``): one process a rank (``parallel/launch.py``),
+this engine rank 0. Params are quantized, then sharded
+(``parallel/mesh.shard_params``), and each rank holds its 2*Hk/tp planes of
+the pool (an MLA pool whole). Every device touch is an ``_op_<name>`` method
+over host arrays (``unified`` and ``sample``, ``decode``, ``verify``,
+``embed``, ``eplb``); ``_op`` sends (name, arrays) to the workers, whose
+engines run the same method on their shards with the same collectives, the
+decode program's capture included, so the workers' decode chains stay on
+their devices as rank 0's. Rank 0 alone schedules, reads results back,
+publishes KV events and serves ``/metrics``; it decides each EPLB
+rebalance and sends the map. Under sp > 1 the ``unified_ring`` program
+(``ops/ring_attention.py``) serves a step of one fresh prompt at offset 0
+(``n_ring_prefill_steps``, ``sp_attn_backend``). LoRA, media rows, the KV
+data plane and the masked programs under a mesh raise (ROADMAP item 6c).
+
 Metrics: ``self.registry`` holds the reference's engine families
 (``obs/metrics.py``), moved at the reference's sites from numbers the host
 already holds: the decode program's are counted when a call's readback is
@@ -214,7 +230,6 @@ from llmd_tpu_torch.models.lora import (
     LoRARegistry, adapter_digest, init_lora_params, lora_dims, make_adapter_weights)
 from llmd_tpu_torch.models.quant import quantize_params
 from llmd_tpu_torch.models.transformer import (
-    SORTED_DISPATCH,
     check_supported,
     forward_core,
     init_cache,
@@ -234,10 +249,13 @@ from llmd_tpu_torch.ops import grouped_gemm as gg
 from llmd_tpu_torch.ops import mla_decode as md
 from llmd_tpu_torch.ops import paged_attention as pa
 from llmd_tpu_torch.ops.moe_dispatch import (
-    combine_stage, dispatch_stage, experts_scaled, experts_stage, pick_block_size,
-    sorted_moe_local)
+    combine_stage, dispatch_stage, experts_scaled, experts_stage, make_sorted_dispatch,
+    pick_block_size)
 from llmd_tpu_torch.ops.paged_attention import paged_attention, paged_attention_ref
+from llmd_tpu_torch.ops.ring_attention import make_ring_attn_impl, ring_layout
 from llmd_tpu_torch.parallel.eplb import ExpertLoadTracker, balance_ratio, rebalance
+from llmd_tpu_torch.parallel.launch import World, WorldError
+from llmd_tpu_torch.parallel.mesh import engine_rules, param_logical_axes, shard_params
 from llmd_tpu_torch.structured import (
     NEG_BIAS, StructuredState, compile_grammar, parse_logit_bias, structured_spec)
 
@@ -288,6 +306,10 @@ class EngineStats:
     moe_dispatch: str = ""  # "sorted" | "einsum" | "n/a (dense model)"
     moe_dropped_tokens: int = 0  # routed copies dropped past capacity (einsum)
     eplb_rebalances: int = 0  # expert-placement recomputes
+    # the ring prefill's layout under sp > 1 ("ring_zigzag(sp=N)" |
+    # "ring_contiguous(sp=N)"), and the unified steps it served
+    sp_attn_backend: Optional[str] = None
+    n_ring_prefill_steps: int = 0
     # wall time of each program as the host sees it: a unified step's (its
     # deferred sample, if any, lands in the next step's); a decode call's
     # dispatch (pack, uploads, launch) plus its processing (waiting for its
@@ -354,7 +376,8 @@ def _weak_method(method: Callable) -> Callable:
 
 
 class LLMEngine:
-    """Single-device engine instance."""
+    """One engine instance: one device, or rank 0 of a mesh (whose workers
+    hold the other shards), or a worker's shard (``rank_mesh`` given)."""
 
     def __init__(
         self,
@@ -366,19 +389,31 @@ class LLMEngine:
         device: "torch.device | str | None" = None,
         decode_graph: bool = True,
         tokenizer: Optional[object] = None,
+        rank_mesh=None,
     ) -> None:
         """``decode_graph``: on a CUDA device, capture the decode programs
         into CUDA graphs and replay them (default); False runs the same
         programs eagerly, for comparison. A CPU engine always runs them
         eagerly. ``tokenizer``: the vocabulary that structured requests'
         grammars are lifted onto (a structured request without one is
-        refused at ``add_request``)."""
+        refused at ``add_request``).
+
+        ``engine_cfg.mesh`` over more than one device: this engine is rank
+        0 of a world (``parallel/launch.World``, one process a rank: NCCL on
+        cards, gloo on the CPU). Without ``rank_mesh`` it starts its own
+        world of ``mesh.num_devices`` ranks (a CUDA world needs that many
+        cards) and stops it at ``close()``; with a rank 0 ``rank_mesh``
+        (``World.mesh``) it runs on that world. Rank 0 keeps the scheduler,
+        the KV manager, the metrics and the KV events, and sends each device
+        op to the workers (``_op``); a worker builds its shard from a
+        worker's ``rank_mesh`` and runs only those ops."""
         self.device = resolve_device(device)
         check_supported(model_cfg)
         engine_cfg.check_served()
         self.model_cfg = model_cfg
         self.cfg = engine_cfg
         self.tokenizer = tokenizer
+        self._init_mesh(rank_mesh, params, seed, decode_graph)
         # DP ranks (reference engine.py:187-213): each rank its own queue,
         # slot range, page partition (allocator ids from its base) and token
         # budget, all over one pool and one step loop
@@ -439,16 +474,23 @@ class LLMEngine:
         if engine_cfg.quantize_weights == "int8" and "unembed_q" not in params:
             params = quantize_params(model_cfg, params)
         self.quantization = engine_cfg.quantize_weights
+        if self.rank_mesh is not None:
+            # after quantization: a row-parallel weight's scale spans its
+            # whole contracted axis, as the reference quantizes before sharding
+            params = shard_params(params, self.rank_mesh, param_logical_axes(model_cfg),
+                                  engine_rules(model_cfg, engine_cfg.mesh.ep,
+                                               engine_cfg.eplb is not None))
         self.params = params
         fp8 = engine_cfg.kv_cache_dtype == "fp8"
         self.cache = init_cache(model_cfg, engine_cfg.num_pages, engine_cfg.page_size,
                                 dtype=torch.float8_e4m3fn if fp8 else None,
-                                device=self.device)
+                                device=self.device, tp=engine_cfg.mesh.tp)
         self.stats.kv_cache_dtype = ("fp8" if fp8
                                      else str(model_cfg.torch_dtype).removeprefix("torch."))
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         on_card = self.device.type == "cuda"
         self._select_attn_impl()
+        self._init_ring()
         self.stats.attn_backend = self.attn_backend
         self.stats.attn_fallback_reason = self.attn_fallback_reason
         self.stats.attn_tune_hash = self.attn_tune_hash
@@ -488,6 +530,90 @@ class LLMEngine:
                 kv_cache_dtype=engine_cfg.kv_cache_dtype)
             attach_util_exporter(self.util, self.metrics)
         self._init_kv_plane(event_sink)
+        if self._world is not None:
+            self._world.answers()  # every worker built its shard
+
+    # ----------------------------------------------------------------- mesh
+    # A mesh of N > 1 devices runs one process a rank (parallel/launch.py).
+    # Rank 0 is this engine: scheduler, KV manager, server, /metrics and KV
+    # events. Each device op (unified forward and sample, decode call,
+    # verify, embed, EPLB regather) is a method _op_<name> over host arrays;
+    # rank 0 sends (name, arrays) to every worker before running it, so every
+    # rank runs the same op on its own shards, collectives included.
+    def _init_mesh(self, rank_mesh, params, seed: int, decode_graph: bool) -> None:
+        self.rank_mesh = None
+        self._world = None  # rank 0 of a mesh: the command stream
+        self._owned_world: Optional[World] = None
+        self._op_log: Optional[list] = None  # rank agreement checks: each op's tokens
+        self._hidden: Optional[torch.Tensor] = None  # the last unified op's rows
+        mesh = self.cfg.mesh
+        if mesh.num_devices == 1:
+            if rank_mesh is not None:
+                raise ValueError("rank_mesh given for a one-device mesh")
+            return
+        self._check_mesh_served()
+        if rank_mesh is None:
+            self._owned_world = World.start(mesh.num_devices, self.device.type)
+            try:
+                rank_mesh = self._owned_world.mesh(mesh)
+            except BaseException:
+                self._owned_world.close()
+                raise
+        if rank_mesh.cfg != mesh:
+            raise ValueError(f"rank_mesh is {rank_mesh.cfg}, the config's mesh is {mesh}")
+        self.rank_mesh = rank_mesh
+        self._world = rank_mesh.world if rank_mesh.rank == 0 else None
+        if self._world is not None:
+            self._world.send(("engine", {
+                "model_cfg": self.model_cfg, "engine_cfg": self.cfg, "seed": seed,
+                "decode_graph": decode_graph,
+                "params": None if params is None else {k: v.cpu() for k, v in params.items()},
+                "record_ops": self._world.record_ops}))
+
+    def _check_mesh_served(self) -> None:
+        """What a mesh does not serve yet (ROADMAP Queue A item 6c): each
+        needs per-rank state in the command stream."""
+        cfg = self.cfg
+        off = []
+        if cfg.lora is not None:
+            off.append("LoRA (EngineConfig.lora)")
+        if cfg.cpu_offload_pages > 0 or cfg.offload_fs_path:
+            off.append("the KV offload tiers")
+        if cfg.kv_connector:
+            off.append("the KV connector")
+        if DurableStoreConfig.from_env().enabled:
+            off.append("the durable KV tier (LLMD_KV_DURABLE_STORE)")
+        if off:
+            raise NotImplementedError(
+                f"{', '.join(off)} under a mesh of {cfg.mesh.num_devices} devices: "
+                "ROADMAP Queue A item 6c")
+
+    def _init_ring(self) -> None:
+        """The ``unified_ring`` program (reference ``engine.py:830-855``):
+        under sp > 1 with ``sp_ring_attention``, a step of one fresh
+        sequence at offset 0 runs its attention on the sp ring."""
+        self.sp_attn_backend: Optional[str] = None
+        mesh, NT = self.cfg.mesh, self.cfg.batched_tokens
+        if (self.rank_mesh is None or mesh.sp == 1 or not self.cfg.sp_ring_attention
+                or NT % mesh.sp):
+            return
+        layout = ring_layout(NT, mesh.sp)
+        self._attn["unified_ring"] = make_ring_attn_impl(self.rank_mesh, "sp",
+                                                         zigzag=layout == "zigzag")
+        self.programs.register("unified_ring")
+        self.sp_attn_backend = self.stats.sp_attn_backend = f"ring_{layout}(sp={mesh.sp})"
+
+    def _op(self, name: str, **kw):
+        """Run device op ``name`` here and, on rank 0 of a mesh, on every
+        worker (sent first: the workers' collectives meet this rank's)."""
+        if self._world is None:
+            return getattr(self, "_op_" + name)(**kw)
+        self._world.send(("op", name, kw))
+        return self._world.local(getattr(self, "_op_" + name), **kw)
+
+    def _log_op(self, t: torch.Tensor) -> None:
+        if self._op_log is not None:
+            self._op_log.append(t.cpu().numpy().copy())
 
     def _init_observability(self) -> None:
         """The reference constructor's observability (``engine/engine.py:
@@ -560,7 +686,15 @@ class LLMEngine:
         the edges back to the engine: the program registry's run hooks and
         dispatch counter, the allocators' hooks, the adapter registry's
         evict hook, the monitor. The engine serves nothing after; the
-        server's ``stop()`` calls it for the engine it built."""
+        server's ``stop()`` calls it for the engine it built. Rank 0 of a
+        mesh closes the workers' shards too, and stops the world it
+        started."""
+        if self._world is not None:
+            world, self._world = self._world, None
+            try:
+                world.send(("close",))
+            except WorldError:
+                pass  # a failed world: its monitor has torn it down
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._pending_decode = []
@@ -585,6 +719,10 @@ class LLMEngine:
         self.seqs.clear()
         for q in self.waitq:
             q.clear()
+        self._hidden = None
+        if self._owned_world is not None:
+            world, self._owned_world = self._owned_world, None
+            world.close()
 
     def compile_counts(self) -> dict[str, int]:
         """The ledger's compile count per program: CUDA-graph captures (the
@@ -655,6 +793,7 @@ class LLMEngine:
         reference gives them to XLA."""
         self._moe_matmul_impl = gg.grouped_gemm  # the einsum dispatch's products
         self._moe_gemm = gg.ragged_grouped_gemm  # the sorted dispatch's
+        self.moe_dispatch_fallback_reason: Optional[str] = None
         if not self.model_cfg.is_moe:
             self.moe_dispatch = self.moe_backend = "n/a (dense model)"
             return None
@@ -674,21 +813,34 @@ class LLMEngine:
             raise ValueError(
                 f"moe_matmul='pallas' runs the CUDA kernels, which take CUDA tensors; "
                 f"this engine is on {self.device} (use 'auto' or 'einsum')")
-        sorted_impl = SORTED_DISPATCH
         if int8:  # the grouped GEMM kernels are bf16/f32
             self.moe_backend = "torch_bmm (int8 weights)"
         elif matmul == "einsum":
             self.moe_backend = "torch_reference"
             self._moe_matmul_impl = gg.grouped_gemm_ref
             self._moe_gemm = gg.ragged_grouped_gemm_ref
-            sorted_impl = functools.partial(sorted_moe_local, gemm=self._moe_gemm)
         elif self.device.type != "cuda":
             self.moe_backend = "torch_reference (cpu tensors)"
         else:
             gg.build()  # BuildError if nvcc refuses the source
             self.moe_backend = ("cuda_ragged_grouped_gemm" if self.moe_dispatch == "sorted"
                                 else "cuda_grouped_gemm")
-        return sorted_impl if self.moe_dispatch == "sorted" else None
+        if self.moe_dispatch != "sorted":
+            return None
+        # the bucketed all-to-all needs the slots to divide ep; EPLB rounds
+        # its slot count up, so only the bare expert count can mismatch
+        # (reference engine.py:985-1007)
+        ep = self.cfg.mesh.ep
+        S = self.model_cfg.moe_num_experts
+        if self.cfg.eplb is not None:
+            S += self.cfg.eplb.num_redundant_experts
+            S += (-S) % ep
+        if S % ep:
+            self.moe_dispatch = "einsum"
+            self.moe_dispatch_fallback_reason = (
+                f"expert slots ({S}) do not divide the ep axis ({ep})")
+            return None
+        return make_sorted_dispatch(self.rank_mesh, gemm=self._moe_gemm)
 
     # ----------------------------------------------------------------- EPLB
     # Physical slot weights and replica tables live beside the logical params
@@ -697,7 +849,9 @@ class LLMEngine:
         e = self.cfg.eplb
         E, L = self.model_cfg.moe_num_experts, self.model_cfg.num_layers
         self._eplb = e
-        S = self._eplb_slots = E + e.num_redundant_experts  # one EP rank
+        ep = self._eplb_ep = self.cfg.mesh.ep
+        S = E + e.num_redundant_experts
+        S = self._eplb_slots = S + (-S) % ep  # the slot dim shards evenly over ep
         self._eplb_tracker = ExpertLoadTracker(L, E, e.window_size)
         self._eplb_steps = 0
         self._eplb_active = False  # set when a forward actually routed tokens
@@ -710,46 +864,63 @@ class LLMEngine:
         # int8 banks move with their per-expert scales by the same slot map
         self._eplb_banks = (("moe_wi_q", "moe_wo_q", "moe_wi_scale", "moe_wo_scale")
                             if "moe_wi_q" in p else ("moe_wi", "moe_wo"))
+        # under ep each rank holds its S/ep physical slots, regathered from
+        # the whole logical banks (replicated over ep, mesh.engine_rules)
         self._eplb_params = {
-            name: torch.empty((L, S, *p[name].shape[2:]), dtype=p[name].dtype, device=dev)
+            name: torch.empty((L, S // ep, *p[name].shape[2:]), dtype=p[name].dtype,
+                              device=dev)
             for name in self._eplb_banks}
         self._eplb_params["eplb_replica_slots"] = torch.zeros(
             (L, E, self._eplb_rmax), dtype=torch.int32, device=dev)
         self._eplb_params["eplb_replica_counts"] = torch.zeros(
             (L, E), dtype=torch.int32, device=dev)
         self._eplb_s2e = self._eplb_counts = None  # the placement serving runs
-        self._eplb_rebalance()
+        self._eplb_rebalance(send=False)  # the same placement on every rank
 
-    def _eplb_rebalance(self) -> None:
+    def _eplb_rebalance(self, send: bool = True) -> None:
         """Recompute the placement from the windowed loads and gather the
         physical slot weights on the device, in place (``index_select`` into
         the slot buffers). Calls already launched read the old placement
-        first: the gather is ordered after them on the engine's stream."""
+        first: the gather is ordered after them on the engine's stream.
+        Rank 0 of a mesh decides and sends the map to every rank."""
         loads = self._eplb_tracker.loads()
+        ep = self._eplb_ep
         # expert-load imbalance (max/mean routed tokens per EP rank, mean over
         # layers) under the outgoing placement and under the new one
         if self._eplb_s2e is not None:
             self.metrics.moe_ep_imbalance.labels(when="before").set(float(np.mean([
-                balance_ratio(loads[l], self._eplb_s2e[l], self._eplb_counts[l], 1)
+                balance_ratio(loads[l], self._eplb_s2e[l], self._eplb_counts[l], ep)
                 for l in range(loads.shape[0])])))
-        s2e, slots, counts = rebalance(loads, self._eplb_slots, 1)
+        s2e, slots, counts = rebalance(loads, self._eplb_slots, ep)
         self.metrics.moe_ep_imbalance.labels(when="after").set(float(np.mean([
-            balance_ratio(loads[l], s2e[l], counts[l], 1) for l in range(loads.shape[0])])))
+            balance_ratio(loads[l], s2e[l], counts[l], ep) for l in range(loads.shape[0])])))
         self._eplb_s2e, self._eplb_counts = s2e, counts
-        L, S = s2e.shape
-        E = self.model_cfg.moe_num_experts
         if slots.shape[2] < self._eplb_rmax:  # pad with the first replica (any is safe)
             pad = np.repeat(slots[:, :, :1], self._eplb_rmax - slots.shape[2], axis=2)
             slots = np.concatenate([slots, pad], axis=2)
-        rows = self._tensor((np.arange(L)[:, None] * E + s2e).reshape(-1).astype(np.int64))
+        kw = dict(s2e=s2e, slots=slots.astype(np.int32), counts=counts.astype(np.int32))
+        if send:
+            self._op("eplb", **kw)
+        else:
+            self._op_eplb(**kw)
+        self.stats.eplb_rebalances += 1
+
+    def _op_eplb(self, s2e: np.ndarray, slots: np.ndarray, counts: np.ndarray) -> None:
+        """Gather this rank's physical slots (all S, or its S/ep under ep)
+        from the logical banks, and write the replica tables."""
+        L, S = s2e.shape
+        E = self.model_cfg.moe_num_experts
+        Sl = S // self._eplb_ep
+        lo = self.rank_mesh.index("ep") * Sl if self.rank_mesh is not None else 0
+        rows = self._tensor(
+            (np.arange(L)[:, None] * E + s2e[:, lo : lo + Sl]).reshape(-1).astype(np.int64))
         ep = self._eplb_params
         for name in self._eplb_banks:
             w = self.params[name]  # [L, E, ...]
             torch.index_select(w.reshape(L * E, *w.shape[2:]), 0, rows,
-                               out=ep[name].view(L * S, *w.shape[2:]))
-        ep["eplb_replica_slots"].copy_(self._tensor(slots.astype(np.int32)))
-        ep["eplb_replica_counts"].copy_(self._tensor(counts.astype(np.int32)))
-        self.stats.eplb_rebalances += 1
+                               out=ep[name].view(L * Sl, *w.shape[2:]))
+        ep["eplb_replica_slots"].copy_(self._tensor(slots))
+        ep["eplb_replica_counts"].copy_(self._tensor(counts))
 
     def _run_params(self) -> dict[str, torch.Tensor]:
         """Params seen by the forward: base weights, plus the physical expert
@@ -773,7 +944,8 @@ class LLMEngine:
                             attn_impl=self._attn[program],
                             moe_dispatch_impl=self._moe_dispatch_impl,
                             moe_matmul_impl=self._moe_matmul_impl,
-                            moe_rows=moe_rows, lora_scale=self._lora_scale, **kw)
+                            moe_rows=moe_rows, lora_scale=self._lora_scale,
+                            mesh=self.rank_mesh, **kw)
 
     # ----------------------------------------------------------------- LoRA
     # Dynamic adapter serving (reference engine.py:419-446, 1103-1192):
@@ -958,6 +1130,11 @@ class LLMEngine:
         structured: Optional[StructuredState] = None
         compile_meta: Optional[tuple[str, bool, float]] = None
         spec = structured_spec(sampling)
+        if self.rank_mesh is not None and (spec is not None or logit_bias or mm_items
+                                           or lora_id):
+            raise NotImplementedError(
+                "structured outputs, logit_bias (the masked programs), media rows and "
+                "LoRA adapters under a mesh: ROADMAP Queue A item 6c")
         if spec is not None:
             if self.cfg.structured_mode == "off":
                 raise ValueError("structured outputs are disabled (structured_mode='off')")
@@ -1336,19 +1513,52 @@ class LLMEngine:
         ev.record(self._stream)
         return host, ev
 
-    def _sample(self, logits: torch.Tensor, seqs: list[Sequence],
-                bias: Optional[np.ndarray] = None) -> torch.Tensor:
-        """Tokens for ``logits`` rows (one per seq in order), int32 on device;
-        ``bias`` [rows, V] is added to the float32 logits first."""
+    def _op_unified(self, program: str, toks, pos, sids, pts, lens, cu, lora=None,
+                    mm=None):
+        """The unified program's forward on the packed host arrays: (expert
+        counts, dropped copies); the final hidden rows stay for ``_op_sample``."""
+        N = toks.shape[0]
+        hidden, self.cache, cnt, drop = self._forward(
+            program, self._tensor(toks), self._tensor(pos), self._tensor(sids),
+            self._tensor(pts), self._tensor(lens), cu_q_lens=self._tensor(cu),
+            num_seqs=self._tensor(np.array([cu.shape[0] - 1], np.int32)),
+            moe_rows=(torch.arange(N, device=self.device), self.cfg.batched_tokens),
+            lora_indices=self._tensor(lora) if lora is not None else None,
+            **({"mm_embeds": self._tensor(mm[0]), "mm_mask": self._tensor(mm[1])}
+               if mm is not None else {}))
+        self._hidden = hidden
+        return cnt, drop
+
+    def _op_sample(self, last: np.ndarray, temp: Optional[np.ndarray] = None,
+                   top_k: Optional[np.ndarray] = None, top_p: Optional[np.ndarray] = None,
+                   bias: Optional[np.ndarray] = None) -> torch.Tensor:
+        """Tokens (int32, on the device) for the last unified op's rows
+        ``last``: greedy when ``temp`` is None, else per-row temperature /
+        top-k / top-p; ``bias`` [rows, V] added to the float32 logits first."""
+        logits = unembed(self.model_cfg, self.params, self._hidden[self._tensor(last).long()],
+                         mesh=self.rank_mesh)
         bias_t = self._tensor(bias) if bias is not None else None
+        if temp is None:
+            out = greedy_tokens(logits if bias_t is None else logits.float() + bias_t)
+        else:
+            args = (self._tensor(temp), self._tensor(top_k), self._tensor(top_p))
+            out = (sample_tokens_biased(logits, bias_t, self._gen, *args) if bias_t is not None
+                   else sample_tokens(logits, self._gen, *args))
+        self._log_op(out)
+        return out
+
+    def _sample(self, last: np.ndarray, seqs: list[Sequence],
+                bias: Optional[np.ndarray] = None) -> torch.Tensor:
+        """Tokens for the last unified op's rows ``last`` (one per seq in
+        order), int32 on device; ``bias`` [rows, V] is added to the float32
+        logits first."""
         if all(s.sampling.temperature <= 0.0 for s in seqs):
-            return greedy_tokens(logits if bias_t is None else logits.float() + bias_t)
-        temp = self._tensor(np.array([s.sampling.temperature for s in seqs], np.float32))
-        tk = self._tensor(np.array([s.sampling.top_k for s in seqs], np.int64))
-        tp = self._tensor(np.array([s.sampling.top_p for s in seqs], np.float32))
-        if bias_t is not None:
-            return sample_tokens_biased(logits, bias_t, self._gen, temp, tk, tp)
-        return sample_tokens(logits, self._gen, temp, tk, tp)
+            return self._op("sample", last=last, bias=bias)
+        return self._op(
+            "sample", last=last, bias=bias,
+            temp=np.array([s.sampling.temperature for s in seqs], np.float32),
+            top_k=np.array([s.sampling.top_k for s in seqs], np.int64),
+            top_p=np.array([s.sampling.top_p for s in seqs], np.float32))
 
     @profile_phase("llmd.unified")
     def _step_unified(self) -> None:
@@ -1433,19 +1643,23 @@ class LLMEngine:
             cu[i + 1] = off
 
         t1 = time.perf_counter()
+        # ring-eligible (reference engine.py:1826-1835): ONE fresh prefill
+        # chunk at offset 0 without media, where causality by row equals
+        # causality by position and the chunk's q/k/v are the whole problem
+        prog = "unified"
+        if ("unified_ring" in self._attn and nb == 1 and not plan[0][2]
+                and plan[0][0].num_computed == 0 and pos[0] == 0 and not media):
+            prog = "unified_ring"
+            self.stats.n_ring_prefill_steps += 1
         # a synchronous program: its outputs are consumed in this step
-        self.programs.record_dispatch("unified")
-        self.programs.record_complete("unified")
+        self.programs.record_dispatch(prog)
+        self.programs.record_complete(prog)
         # the reference runs its unified program on batched_tokens rows, real
         # rows first: row i of this batch is its row i
-        hidden, self.cache, cnt, drop = self._forward(
-            "unified", self._tensor(toks), self._tensor(pos), self._tensor(sids),
-            self._tensor(pts), self._tensor(lens), cu_q_lens=self._tensor(cu),
-            num_seqs=self._tensor(np.array([nb], np.int32)),
-            moe_rows=(torch.arange(N, device=self.device), self.cfg.batched_tokens),
-            lora_indices=self._tensor(lora) if self.lora_registry is not None else None,
-            **({"mm_embeds": self._tensor(mm_embeds), "mm_mask": self._tensor(mm_mask)}
-               if media else {}))
+        cnt, drop = self._op(
+            "unified", program=prog, toks=toks, pos=pos, sids=sids, pts=pts, lens=lens,
+            cu=cu, lora=lora if self.lora_registry is not None else None,
+            mm=(mm_embeds, mm_mask) if media else None)
         if self.cfg.instrument and self._stream is not None:
             self._stream.synchronize()  # the program's outputs, before stamping t2
         t2 = time.perf_counter()
@@ -1492,10 +1706,10 @@ class LLMEngine:
         # decode-ready until applied. Steps with decode rows apply at once.
         rec = None
         if sample_rows:
-            last = self._tensor(cu[[i + 1 for i, _ in sample_rows]] - 1)
-            logits = unembed(self.model_cfg, self.params, hidden[last.long()])
-            rec = self._sample_dispatch(sample_rows, logits, self._build_bias(
-                [s for _, s in sample_rows], logits.shape[-1]))
+            last = cu[[i + 1 for i, _ in sample_rows]] - 1
+            rec = self._sample_dispatch(sample_rows, last, self._build_bias(
+                [s for _, s in sample_rows], self.model_cfg.vocab_size))
+        self._hidden = None
         prev, self._pending_sample = self._pending_sample, None
         if prev is not None:
             self._sample_apply(prev)
@@ -1611,12 +1825,12 @@ class LLMEngine:
             self.stats.structured_violations += n
             self.metrics.structured_violations.inc(n)
 
-    def _sample_dispatch(self, rows: list[tuple[int, Sequence]], logits: torch.Tensor,
+    def _sample_dispatch(self, rows: list[tuple[int, Sequence]], last: np.ndarray,
                          bias: Optional[np.ndarray] = None) -> dict:
-        """Sample ``logits`` (one row per entry of ``rows``; ``bias`` added
-        first) on the device and start the copy of the tokens to the host;
-        no wait here."""
-        host, event = self._to_host(self._sample(logits, [s for _, s in rows], bias))
+        """Sample the last unified op's rows ``last`` (one per entry of
+        ``rows``; ``bias`` added first) on the device and start the copy of
+        the tokens to the host; no wait here."""
+        host, event = self._to_host(self._sample(last, [s for _, s in rows], bias))
         self.programs.record_dispatch("sample")
         return {"host": host, "event": event, "rows": [(s, s.slot) for _, s in rows]}
 
@@ -1818,15 +2032,11 @@ class LLMEngine:
                  "kv_lens": lens, "cu_q_lens": cu, "num_seqs": np.array([nb], np.int32)}
         if self.lora_registry is not None:
             batch["lora"] = lora
-        batch = {k: self._tensor(v) for k, v in batch.items()}
-        kw = dict(attn_impl=self._attn["unified"], moe_dispatch_impl=self._moe_dispatch_impl,
-                  moe_matmul_impl=self._moe_matmul_impl, moe_rows=(torch.arange(N, device=self.device), self._verify_nt()),
-                  lora_scale=self._lora_scale)
         if mask is None:
-            greedy, self.cache, cnt, drop = verify(
-                self.model_cfg, self._run_params(), self.cache, batch, **kw)
-            out = greedy
+            out, cnt, drop = self._op("verify", batch=batch)
         else:
+            batch = {k: self._tensor(v) for k, v in batch.items()}
+            kw = self._verify_kw(N)
             states = verify_states([(d, f, nx) for (_, d), f, nx in
                                     zip(plan, mask["fsm0"], mask["next"])])
             table_rows = np.repeat(mask["table_rows"], [1 + len(d) for _, d in plan])
@@ -1927,6 +2137,22 @@ class LLMEngine:
                              spec_rejected=self.stats.spec_rejected - rej0,
                              compile_counts=self.compile_counts())
         self._emit_step_spans("spec_verify", [r[0] for r in rows], t0_ns, nb, n_tokens)
+
+    def _verify_kw(self, N: int) -> dict:
+        return dict(attn_impl=self._attn["unified"], moe_dispatch_impl=self._moe_dispatch_impl,
+                    moe_matmul_impl=self._moe_matmul_impl,
+                    moe_rows=(torch.arange(N, device=self.device), self._verify_nt()),
+                    lora_scale=self._lora_scale, mesh=self.rank_mesh)
+
+    def _op_verify(self, batch: dict[str, np.ndarray]):
+        """The verify program on the packed host arrays: (greedy tokens,
+        expert counts, dropped copies)."""
+        N = batch["tokens"].shape[0]
+        greedy, self.cache, cnt, drop = verify(
+            self.model_cfg, self._run_params(), self.cache,
+            {k: self._tensor(v) for k, v in batch.items()}, **self._verify_kw(N))
+        self._log_op(greedy)
+        return greedy, cnt, drop
 
     def _spec_release_tail(self, s: Sequence) -> None:
         """Give back the pages grown for rejected draft tokens: trim the
@@ -2233,7 +2459,8 @@ class LLMEngine:
                 cfg, eng._run_params(), eng.cache, buf, k, eng._gen,
                 attn_impl=eng._attn["decode"],
                 moe_dispatch_impl=eng._moe_dispatch_impl, tables=tables,
-                lora_scale=eng._lora_scale, moe_matmul_impl=eng._moe_matmul_impl), buf,
+                lora_scale=eng._lora_scale, moe_matmul_impl=eng._moe_matmul_impl,
+                mesh=eng.rank_mesh), buf,
                 drops=cfg.is_moe, counts=eng._eplb is not None)
 
         fn = program
@@ -2249,6 +2476,18 @@ class LLMEngine:
         else:
             self._decode_fn = fn
         return fn
+
+    def _op_decode(self, uploads: dict[str, np.ndarray]) -> torch.Tensor:
+        """A worker's decode call: rank 0's uploads into its static buffers,
+        then the decode program (captured at its first call, as rank 0's,
+        with the collectives inside), chained on its own device outputs."""
+        program = self._decode_program()
+        buf = self._decode_bufs
+        for name, a in uploads.items():  # through pinned memory: no host wait
+            getattr(buf, name).copy_(self._tensor(a), non_blocking=True)
+        out = program()
+        self._log_op(out)
+        return out
 
     @profile_phase("llmd.decode_dispatch")
     def _decode_dispatch(self, active: list[Sequence], k: int, chain: Optional[dict],
@@ -2279,8 +2518,6 @@ class LLMEngine:
                 self.flight.record(s.request_id, "chain_dispatch", k=k,
                                    masked=mask is not None)
         prog = "decode" if mask is None else "decode_masked"
-        program = self._decode_program(masked=mask is not None)
-        buf = self._decode_bufs
         host_t = self._pack_buf()
         host = {name: t.numpy() for name, t in host_t.items()}  # views of the same memory
         fast = chain is not None and self.cfg.pack_overlap
@@ -2327,6 +2564,11 @@ class LLMEngine:
         else:
             st.time_host_pack += t1 - wall_start
             self.metrics.step_duration.labels(phase="pack").observe(t1 - wall_start)
+        if self._world is not None:  # the workers' copy of this call
+            self._world.send(("op", "decode", {"uploads": {
+                name: host[name].copy() for name in uploads}}))
+        program = self._decode_program(masked=mask is not None)
+        buf = self._decode_bufs
         for name in uploads:
             getattr(buf, name).copy_(host_t[name], non_blocking=True)
         if chain is None and mask is not None:
@@ -2336,6 +2578,7 @@ class LLMEngine:
         if (st.n_decode_dispatches + 1) % self._attn_probe_every == 0:
             probes = self._run_phase_probes(active, k, off)
         readback = program()
+        self._log_op(readback)
         result, event = self._to_host(readback, self._result_slot())
         st.time_decode_steps += time.perf_counter() - wall_start
         st.n_decode_dispatches += 1
@@ -2444,8 +2687,8 @@ class LLMEngine:
             pts[s.slot, : len(s.pages)] = s.pages
             lens[s.slot] = len(s.token_ids) + off
         pts_t, lens_t = self._tensor(pts), self._tensor(lens)
-        q = torch.zeros((B, cfg.num_heads, self.cache.shape[-1]), dtype=cfg.torch_dtype,
-                        device=dev)
+        q = torch.zeros((B, cfg.num_heads // self.cfg.mesh.tp, self.cache.shape[-1]),
+                        dtype=cfg.torch_dtype, device=dev)  # this rank's heads
         rows = torch.arange(B + 1, dtype=torch.int32, device=dev)
         num_seqs = self._tensor(np.array([B], np.int32))
         return lambda _: self._attn["decode"](
@@ -2695,7 +2938,8 @@ class LLMEngine:
                     toks[:n] = token_ids[start : start + n]
                     pos = np.full((chunk,), -1, np.int32)
                     pos[:n] = np.arange(start, start + n)
-                    h_sum = self._embed_program(toks, pos, pt, start + n, n, lora)
+                    h_sum = self._op("embed", toks=toks, pos=pos, pt=pt, kv_len=start + n,
+                                     n=n, lora=lora)
                     acc += h_sum.cpu().numpy().astype(np.float64)
             finally:
                 for pid in pages:
@@ -2704,8 +2948,8 @@ class LLMEngine:
         norm = float(np.linalg.norm(vec))
         return (vec / norm if norm > 0 else vec).astype(float).tolist()
 
-    def _embed_program(self, toks: np.ndarray, pos: np.ndarray, pt: np.ndarray,
-                       kv_len: int, n: int, lora: np.ndarray) -> torch.Tensor:
+    def _op_embed(self, toks: np.ndarray, pos: np.ndarray, pt: np.ndarray,
+                  kv_len: int, n: int, lora: np.ndarray) -> torch.Tensor:
         """The embed program (reference ``_embed``): one chunk of one
         sequence, padding rows at position -1, through ``forward_core``
         (K1 for its attention); the float32 sum [D] of the valid rows' final
@@ -2719,7 +2963,9 @@ class LLMEngine:
             num_seqs=self._tensor(np.array([1], np.int32)), moe_rows=None,
             lora_indices=self._tensor(lora) if self.lora_registry is not None else None)
         valid = (positions >= 0).to(torch.float32)[:, None]
-        return (hidden.float() * valid).sum(dim=0)
+        out = (hidden.float() * valid).sum(dim=0)
+        self._log_op(out)
+        return out
 
     # ------------------------------------------------------------ convenience
     def generate(self, prompts: list[list[int]],

@@ -7,8 +7,7 @@ replica with the argv it builds for a JAX one
 (``llmd_tpu/pool/launcher.engine_argv``, module name swapped). Flags the
 port cannot serve yet are parsed and refused, naming their ROADMAP item:
 ``--kv-layout packed|padded`` (``ops/packed_kv`` is not ported: it reclaims
-TPU lane padding the port never adds; ``auto`` is taken) and
-``--expert/--tensor/--sequence-parallel-size`` above 1 (Queue A item 6b).
+TPU lane padding the port never adds; ``auto`` is taken).
 
 Serves ``--model`` on the port's HTTP server: a registry name with random
 weights from ``--seed`` (port only), or an HF checkpoint directory with its
@@ -16,11 +15,16 @@ weights (``models/hf_loader``) and its own tokenizer (``--tokenizer``
 otherwise); real weights with the byte tokenizer are refused, as the
 reference refuses them. Runs on the CUDA card unless ``--cpu``.
 
-- ``--data-parallel-size N``: N rank frontends over one engine
-  (``engine/dp_group.WideEPEngineGroup``) on ports ``port .. port+N-1``
-  (port 0: free ones); the mesh stays one device. With ``--kv-events-port
-  P`` rank r publishes its own blocks' KV events on ``P + r`` (0: free
-  ports), so a router's prefix index reads each rank port.
+- ``--data-parallel-size`` / ``--expert-parallel-size`` /
+  ``--tensor-parallel-size`` / ``--sequence-parallel-size``: the mesh
+  ``MeshConfig(dp, sp, ep, tp)``, as the reference builds it. More than one
+  device starts a world of that many rank processes (``parallel/launch.py``:
+  rank r on ``cuda:r``, or gloo ranks under ``--cpu``); this process is rank
+  0 and serves. ``--data-parallel-size N``: N rank frontends over the one
+  engine (``engine/dp_group.WideEPEngineGroup``) on ports ``port ..
+  port+N-1`` (port 0: free ones). With ``--kv-events-port P`` rank r
+  publishes its own blocks' KV events on ``P + r`` (0: free ports), so a
+  router's prefix index reads each rank port.
 - ``--compile-cache-dir DIR``: the native library cache
   (``native/build.set_cache_dir``) lives in DIR, set before any library
   loads, so a relaunch with the same DIR loads the kernels' ``.so`` files and
@@ -158,8 +162,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="latency-predictor training server base URL; completed "
                          "requests' TTFT/TPOT rows stream to its POST /samples")
     ap.add_argument("--data-parallel-size", type=int, default=1, dest="dp",
-                    help="DP rank frontends over one engine; rank r serves on "
-                         "port+r (the mesh stays one device)")
+                    help="the mesh's dp axis: DP rank frontends over one engine; "
+                         "rank r serves on port+r")
     ap.add_argument("--expert-parallel-size", type=int, default=1, dest="ep")
     ap.add_argument("--tensor-parallel-size", type=int, default=1, dest="tp")
     ap.add_argument("--sequence-parallel-size", type=int, default=1, dest="sp")
@@ -176,19 +180,17 @@ def parse_args(argv: "list[str] | None" = None) -> argparse.Namespace:
         ap.error(f"--kv-layout {args.kv_layout} is not served by the port: ROADMAP "
                  "Queue A, not ported by design (ops/packed_kv reclaims TPU lane "
                  "padding the port never adds); use auto")
-    for flag, n in (("expert", args.ep), ("tensor", args.tp), ("sequence", args.sp)):
-        if n != 1:
-            ap.error(f"--{flag}-parallel-size {n} is not served by the port yet: "
-                     "ROADMAP Queue A item 6b (multi-GPU collectives)")
-    if args.dp < 1:
-        ap.error(f"--data-parallel-size must be >= 1, got {args.dp}")
+    for flag, n in (("data", args.dp), ("expert", args.ep), ("tensor", args.tp),
+                    ("sequence", args.sp)):
+        if n < 1:
+            ap.error(f"--{flag}-parallel-size must be >= 1, got {n}")
     return args
 
 
 def engine_config(args: argparse.Namespace):
     """The ``EngineConfig`` of ``args``, field for field as the reference's
-    serve builds it (its mesh aside: one device)."""
-    from llmd_tpu_torch.engine.config import EngineConfig
+    serve builds it."""
+    from llmd_tpu_torch.engine.config import EngineConfig, MeshConfig
     from llmd_tpu_torch.models.lora import LoRAConfig
 
     return EngineConfig(
@@ -197,6 +199,7 @@ def engine_config(args: argparse.Namespace):
         prefill_chunk=args.prefill_chunk, decode_steps=args.decode_steps,
         role=args.role, cpu_offload_pages=args.cpu_offload_pages,
         offload_fs_path=args.offload_fs_path,
+        mesh=MeshConfig(dp=args.dp, sp=args.sp, ep=args.ep, tp=args.tp),
         dp_ranks=args.dp,
         quantize_weights=args.quantize,
         kv_cache_dtype=args.kv_cache_dtype,
@@ -256,7 +259,7 @@ def main(argv: "list[str] | None" = None) -> None:
                   f", KV events on ports {[s.kv_events_port for s in group.servers]}")
         print(f"llmd-tpu-torch wide-EP group serving {args.dp} rank engines on "
               f"{group.endpoints()} (mesh dp={args.dp} sp={args.sp} ep={args.ep} "
-              f"tp={args.tp}, one device{events}{builds()})", flush=True)
+              f"tp={args.tp}{events}{builds()})", flush=True)
         stop = group.stop
     else:
         server = EngineServer(
@@ -273,8 +276,10 @@ def main(argv: "list[str] | None" = None) -> None:
             events += (f", role {args.role}, KV transfer on port {server.kv_transfer_port}"
                        f" ({'native' if server.transfer_source.native else 'python'})")
         eng = server.engine
+        mesh = engine_cfg.mesh
         print(f"llmd-tpu-torch engine serving {server.model_name} on "
               f"http://{server.address} (device {eng.device}, "
+              f"{f'mesh sp={mesh.sp} ep={mesh.ep} tp={mesh.tp}, ' if mesh.num_devices > 1 else ''}"
               f"attention {eng.attn_backend}, tune {eng.attn_tune_hash or 'none'}, "
               f"MoE {eng.moe_dispatch} {eng.moe_backend}, weights "
               f"{'hf:' + args.model if params is not None else 'random'}"

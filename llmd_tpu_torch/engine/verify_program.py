@@ -44,24 +44,25 @@ from llmd_tpu_torch.ops.grouped_gemm import grouped_gemm
 def verify(cfg: ModelConfig, params: dict[str, torch.Tensor], cache: torch.Tensor,
            batch: dict[str, torch.Tensor], *, attn_impl: Callable,
            moe_dispatch_impl: Optional[Callable], moe_rows, lora_scale: float = 1.0,
-           moe_matmul_impl: Callable = grouped_gemm
+           moe_matmul_impl: Callable = grouped_gemm, mesh=None
            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(greedy [N] int32, cache, expert counts, dropped copies) for the
     packed batch ``batch`` (``tokens``, ``positions``, ``seq_slots``,
     ``page_tables``, ``kv_lens``, ``cu_q_lens``, ``num_seqs``, and under
     LoRA ``lora``, each row's adapter slot, scaled by ``lora_scale``);
-    ``moe_matmul_impl``: the einsum dispatch's expert products."""
+    ``moe_matmul_impl``: the einsum dispatch's expert products; ``mesh``:
+    this rank's ``RankMesh`` (``forward_core``'s)."""
     hidden, cache, cnt, drop = _forward(cfg, params, cache, batch, attn_impl,
                                         moe_dispatch_impl, moe_rows, lora_scale,
-                                        moe_matmul_impl)
-    return greedy_tokens(unembed(cfg, params, hidden)), cache, cnt, drop
+                                        moe_matmul_impl, mesh)
+    return greedy_tokens(unembed(cfg, params, hidden, mesh)), cache, cnt, drop
 
 
 def verify_masked(cfg: ModelConfig, params: dict[str, torch.Tensor], cache: torch.Tensor,
                   batch: dict[str, torch.Tensor], tables: MaskTables,
                   table_rows: torch.Tensor, states: torch.Tensor, *, attn_impl: Callable,
                   moe_dispatch_impl: Optional[Callable], moe_rows, lora_scale: float = 1.0,
-                  moe_matmul_impl: Callable = grouped_gemm):
+                  moe_matmul_impl: Callable = grouped_gemm, mesh=None):
     """:func:`verify` with the grammar bias: row i takes its argmax over
     ``logits + tables.bias[table_rows[i] + states[i]]`` (float32) and its
     next state is ``tables.next[table_rows[i] + states[i], greedy]``.
@@ -72,9 +73,9 @@ def verify_masked(cfg: ModelConfig, params: dict[str, torch.Tensor], cache: torc
     cache, expert counts, dropped copies)."""
     hidden, cache, cnt, drop = _forward(cfg, params, cache, batch, attn_impl,
                                         moe_dispatch_impl, moe_rows, lora_scale,
-                                        moe_matmul_impl)
+                                        moe_matmul_impl, mesh)
     rows = (table_rows + states).long()
-    greedy = torch.argmax(unembed(cfg, params, hidden).float() + tables.bias[rows], dim=-1)
+    greedy = torch.argmax(unembed(cfg, params, hidden, mesh).float() + tables.bias[rows], dim=-1)
     return (greedy.to(torch.int32), tables.next[rows, greedy], cache, cnt, drop)
 
 
@@ -98,11 +99,11 @@ def verify_states(chunks: Sequence[tuple[Sequence[int], int, Optional[np.ndarray
 
 
 def _forward(cfg, params, cache, batch, attn_impl, moe_dispatch_impl, moe_rows, lora_scale,
-             moe_matmul_impl):
+             moe_matmul_impl, mesh):
     return forward_core(cfg, params, cache, batch["tokens"], batch["positions"],
                         batch["seq_slots"], batch["page_tables"], batch["kv_lens"],
                         cu_q_lens=batch["cu_q_lens"], num_seqs=batch["num_seqs"],
                         attn_impl=attn_impl, moe_dispatch_impl=moe_dispatch_impl,
                         moe_matmul_impl=moe_matmul_impl,
                         moe_rows=moe_rows, lora_indices=batch.get("lora"),
-                        lora_scale=lora_scale)
+                        lora_scale=lora_scale, mesh=mesh)

@@ -282,6 +282,7 @@ def moe_block(
     rows: Optional[tuple[torch.Tensor, int]] = None,
     wi_scale: Optional[torch.Tensor] = None,  # [S, 2Fe] float32: wi/wo are int8 banks
     wo_scale: Optional[torch.Tensor] = None,  # [S, D]
+    ep_mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Top-k routed MoE (port of the reference's ``moe_block``).
 
@@ -310,6 +311,13 @@ def moe_block(
     its drops equal the reference's. Default: ``arange(T)``, size T.
 
     ``cfg.moe_dbo`` runs two half batches (split at half the static size).
+
+    ``ep_mesh`` (a ``parallel/mesh.RankMesh``): ``wi``/``wo`` hold this
+    rank's 1/ep of the S slots (rank r's are ``[r*S/ep, (r+1)*S/ep)``). The
+    sorted path's ``dispatch_impl`` is then the EP exchange
+    (``make_sorted_dispatch(mesh)``); the einsum path computes the capacity
+    positions over all S slots, its local slots' share of the expert
+    products (K4 over S/ep groups) and sums the shares over ep in f32.
     Returns (y [T, D], logical expert counts [E] int32, dropped copies int32
     scalar; 0 on the sorted path)."""
     T, D = x.shape
@@ -324,14 +332,16 @@ def moe_block(
         0, topi.reshape(-1), valid.expand(T, k).reshape(-1))
     row_ids, size = rows if rows is not None else (torch.arange(T, device=dev), T)
 
+    ep = ep_mesh.size("ep") if ep_mesh is not None else 1
     if eplb is not None:
         replica_slots, replica_counts = eplb
-        S = wi.shape[0]
+        S = wi.shape[0] * ep
         rc = replica_counts.long()[topi]  # [T, k]
         choice = (row_ids.long()[:, None] + torch.arange(k, device=dev)[None, :]) % rc
         idx = replica_slots.long()[topi, choice]  # [T, k] physical slot ids
     else:
         S, idx = E, topi
+    Sl, lo = S // ep, (ep_mesh.index("ep") * (S // ep) if ep > 1 else 0)
 
     def halves(fn, *args):
         """``fn`` on the whole batch, or on its two DBO halves."""
@@ -359,23 +369,29 @@ def moe_block(
         keep = (pos < C) & (valid > 0)  # [t, k]
         # kept copy -> row slot*C + pos of the [S*C] expert buffer; the rest
         # -> the dump row S*C (sliced off)
-        dst = torch.where(keep, idx * C + pos, S * C).reshape(-1)
+        # this rank's slots [lo, lo + Sl) (all of them off a mesh); the
+        # other copies go to the dump row Sl*C
+        mine = keep & (idx >= lo) & (idx < lo + Sl)
+        dst = torch.where(mine, (idx - lo) * C + pos, Sl * C).reshape(-1)
         tok = torch.arange(t * k, device=dev) // k
-        xe = x.new_zeros((S * C + 1, D)).index_copy_(0, dst, x[tok])[: S * C]
+        xe = x.new_zeros((Sl * C + 1, D)).index_copy_(0, dst, x[tok])[: Sl * C]
         if wi_scale is None:
             slot_counts = (onehot * keep[..., None]).sum(dim=(0, 1)).to(torch.int32)
-            gate, up = matmul_impl(xe.view(S, C, D), wi, slot_counts).chunk(2, dim=-1)
-            ye = matmul_impl(F.silu(gate) * up, wo, slot_counts).reshape(S * C, D)
+            slot_counts = slot_counts[lo : lo + Sl]
+            gate, up = matmul_impl(xe.view(Sl, C, D), wi, slot_counts).chunk(2, dim=-1)
+            ye = matmul_impl(F.silu(gate) * up, wo, slot_counts).reshape(Sl * C, D)
         else:
             dt = x.dtype
-            gate_up = torch.bmm(xe.view(S, C, D), wi.to(dt)) * wi_scale[:, None, :].to(dt)
+            gate_up = torch.bmm(xe.view(Sl, C, D), wi.to(dt)) * wi_scale[:, None, :].to(dt)
             gate, up = gate_up.chunk(2, dim=-1)
             ye = (torch.bmm(F.silu(gate) * up, wo.to(dt))
-                  * wo_scale[:, None, :].to(dt)).reshape(S * C, D)
+                  * wo_scale[:, None, :].to(dt)).reshape(Sl * C, D)
         g = torch.cat([ye, ye.new_zeros((1, D))])[dst].float()
         wt = (topw.to(x.dtype) * keep).float().reshape(-1, 1)
-        y = (g * wt).view(t, k, D).sum(dim=1).to(x.dtype)
-        return y, keep.sum().to(torch.int32)
+        y = (g * wt).view(t, k, D).sum(dim=1)
+        if ep > 1:
+            y = ep_mesh.reduce(y, "ep")  # the other ranks' slots' shares, in f32
+        return y.to(x.dtype), keep.sum().to(torch.int32)
 
     if size != T:  # scatter into the reference's static batch; the rest masked
         def pad(a):
@@ -395,7 +411,7 @@ def moe_block(
 
 def init_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                dtype: Optional[torch.dtype] = None,
-               device: "torch.device | str | None" = None) -> torch.Tensor:
+               device: "torch.device | str | None" = None, tp: int = 1) -> torch.Tensor:
     """[L*P + 1, page_size, 2*Hk, Dh] flat pool: layer l's page p at row
     l*P + p; K at plane 2h, V at 2h+1; unpadded head dim. MLA: one plane of
     the unpadded latent width, [L*P + 1, page_size, 1, r + dr].
@@ -409,8 +425,12 @@ def init_cache(cfg: ModelConfig, num_pages: int, page_size: int,
     ``dtype`` overrides the model dtype for the pool: ``torch.float8_e4m3fn``
     halves decode's KV read stream (``EngineConfig.kv_cache_dtype="fp8"``);
     the attention kernels read fp8 pages and their plain versions upcast
-    at use."""
-    planes = 1 if cfg.is_mla else 2 * cfg.num_kv_heads
+    at use.
+
+    ``tp``: one tensor-parallel rank's shard, its 2*Hk/tp planes (rank r's
+    KV heads, each K/V pair kept together); an MLA pool's single plane is
+    replicated over tp."""
+    planes = 1 if cfg.is_mla else 2 * cfg.num_kv_heads // tp
     return torch.zeros(
         (cfg.num_layers * num_pages + 1, page_size, planes, cfg.kv_cache_head_dim),
         dtype=dtype if dtype is not None else cfg.torch_dtype, device=device)
@@ -475,6 +495,7 @@ def forward_core(
     lora_scale: float = 1.0,
     mm_embeds: Optional[torch.Tensor] = None,  # [N, D] encode-stage rows, row-aligned
     mm_mask: Optional[torch.Tensor] = None,  # [N] bool, True where tokens[i] is a placeholder
+    mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run a flat mixed batch through the model, writing K/V into the pool.
 
@@ -493,6 +514,17 @@ def forward_core(
     EPLB slot weights arrive in ``params`` under the logical names, with
     ``eplb_replica_slots``/``eplb_replica_counts`` beside them.
 
+    ``mesh`` (a ``parallel/mesh.RankMesh``): ``params`` and ``cache`` are
+    this rank's shards (``parallel/mesh.shard_params``, ``init_cache(tp=)``):
+    heads, KV heads and the MLP columns over tp, with ``reduce("tp")`` after
+    the row-parallel ``wo`` / ``wo_mlp`` / ``shared_wo`` products (``bo``
+    added once, after it), a vocab-parallel embedding lookup (each rank adds
+    its rows, then ``reduce("tp")``), expert banks over ep (see
+    ``moe_block``; banks of fewer slots than experts, or EPLB's physical
+    slots, are ep-sharded). Every rank runs every row. The attention impl
+    also gets the chunk's raw K/V (``chunk_k`` / ``chunk_v``), which the
+    ring program reads, as the reference passes them.
+
     Returns (hidden [N, D] final-normed, cache, expert_counts [L, E] int32
     ([L, 0] for a dense model), dropped copies int32 scalar). Callers unembed
     only the rows they need. Padding rows write their K/V to the pool's dump
@@ -501,13 +533,13 @@ def forward_core(
     check_supported(cfg)
     N = tokens.shape[0]
     Ptot, ps, HkC, Dh = cache.shape
-    L, D, H, Hk = cfg.num_layers, cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads
+    L, D = cfg.num_layers, cfg.hidden_size
     if (Ptot - 1) % L:
         raise ValueError(f"forward_core: a pool of {Ptot} pages is not L*P pages and the "
                          "dump page: allocate it with init_cache")
     P = (Ptot - 1) // L  # pages per layer
     B = page_tables.shape[0]
-    x = params["embed"][tokens.long()].to(cfg.torch_dtype)  # [N, D]
+    x = embed_lookup(params["embed"], tokens, cfg.torch_dtype, mesh)  # [N, D]
     if mm_embeds is not None:  # the encode stage's rows over the media placeholders
         x = torch.where(mm_mask[:, None], mm_embeds.to(x.dtype), x)
 
@@ -535,6 +567,19 @@ def forward_core(
         scale = Dh ** -0.5
     eplb = params.get("eplb_replica_slots"), params.get("eplb_replica_counts")
     counts, dropped = [], []
+    tp = mesh is not None and mesh.size("tp") > 1
+
+    def tp_sum(t: torch.Tensor) -> torch.Tensor:
+        return mesh.reduce(t, "tp") if tp else t
+
+    # expert banks over ep: EPLB's physical slots always, the logical banks
+    # when they hold fewer than every expert
+    ep_mesh = None
+    if cfg.is_moe and mesh is not None and mesh.size("ep") > 1:
+        bank = params["moe_wi_q" if "moe_wi_q" in params else "moe_wi"]
+        if eplb[0] is not None or bank.shape[1] < cfg.moe_num_experts:
+            ep_mesh = mesh
+
     lora = None
     if "lora_A_wq" in params:
         check_supported(cfg, lora=True)
@@ -551,7 +596,7 @@ def forward_core(
             # scores: q_nope·(W_UK c) + q_rope·k_rope == (W_UK^T q_nope)·c +
             # q_rope·k_rope; the values are the latents, re-expanded per head
             # through W_UV after the weighted sum (the reference's :619-643)
-            q = (h @ params["mla_wq"][l].reshape(D, -1)).view(N, H, dn + dr)
+            q = (h @ params["mla_wq"][l].reshape(D, -1)).view(N, -1, dn + dr)
             q_rope = apply_rope(q[..., dn:], cos, sin)
             c = rms_norm(h @ params["mla_wdkv"][l], params["mla_kv_norm"][l], cfg.rms_eps)
             kr = apply_rope((h @ params["mla_wkr"][l])[:, None, :], cos, sin)[:, 0]
@@ -559,15 +604,15 @@ def forward_core(
             q = torch.cat([q_lat, q_rope], dim=-1)  # [N, H, r + dr]
             k = v = torch.cat([c, kr], dim=-1)[:, None, :]  # [N, 1, r + dr]
         else:
-            q = linear(params, "wq", l, h).view(N, H, Dh)
-            k = linear(params, "wk", l, h).view(N, Hk, Dh)
-            v = linear(params, "wv", l, h).view(N, Hk, Dh)
+            q = linear(params, "wq", l, h).view(N, -1, Dh)  # this rank's heads
+            k = linear(params, "wk", l, h).view(N, -1, Dh)
+            v = linear(params, "wv", l, h).view(N, -1, Dh)
             if cfg.attn_bias:
                 q, k, v = q + params["bq"][l], k + params["bk"][l], v + params["bv"][l]
             if lora is not None:
-                q = q + lora("wq", l, h).view(N, H, Dh)
-                k = k + lora("wk", l, h).view(N, Hk, Dh)
-                v = v + lora("wv", l, h).view(N, Hk, Dh)
+                q = q + lora("wq", l, h).view(N, -1, Dh)
+                k = k + lora("wk", l, h).view(N, -1, Dh)
+                v = v + lora("wv", l, h).view(N, -1, Dh)
             if cfg.qk_norm:  # per-head RMSNorm over head_dim, before RoPE (Qwen3), on
                 # the full projection, bias and adapter delta included
                 q = rms_norm(q, params["q_norm"][l], cfg.rms_eps)
@@ -578,14 +623,15 @@ def forward_core(
         _write_rows(flat, k, v, dst[l])
         pt_l = torch.where(page_tables >= 0, page_tables + l * P, -1)
         attn = attn_impl(q, cache, pt_l, positions, seq_slots, kv_lens,
-                         cu_q_lens=cu_q_lens, num_seqs=num_seqs, scale=scale)
+                         cu_q_lens=cu_q_lens, num_seqs=num_seqs, scale=scale,
+                         chunk_k=k, chunk_v=v)
         if cfg.is_mla:  # the latent-weighted sum [..., :r] re-expands through W_UV
             attn = torch.einsum("nhr,hrv->nhv", attn[..., :r], params["mla_wuv"][l])
-        o = linear(params, "wo", l, attn.reshape(N, H * Dv))
+        o = tp_sum(linear(params, "wo", l, attn.reshape(N, -1)))
         if cfg.attn_bias:
             o = o + params["bo"][l]
         if lora is not None:
-            o = o + lora("wo", l, attn.reshape(N, H * Dv))
+            o = o + lora("wo", l, attn.reshape(N, -1))
         x = x + o
         h = rms_norm(x, params["mlp_norm"][l], cfg.rms_eps)
         if cfg.is_moe:
@@ -597,13 +643,14 @@ def forward_core(
                 matmul_impl=moe_matmul_impl, token_mask=valid,
                 dispatch_impl=moe_dispatch_impl, rows=moe_rows,
                 wi_scale=params["moe_wi_scale"][l] if q8 else None,
-                wo_scale=params["moe_wo_scale"][l] if q8 else None)
+                wo_scale=params["moe_wo_scale"][l] if q8 else None,
+                ep_mesh=ep_mesh)
             if cfg.moe_num_shared_experts:
-                y = y + swiglu_layer(params, "shared_wi", "shared_wo", l, h)
+                y = y + tp_sum(swiglu_layer(params, "shared_wi", "shared_wo", l, h))
             counts.append(cnt)
             dropped.append(drop)
         else:
-            y = swiglu_layer(params, "wi", "wo_mlp", l, h)
+            y = tp_sum(swiglu_layer(params, "wi", "wo_mlp", l, h))
         x = x + y
     if counts:
         expert_counts, n_dropped = torch.stack(counts), torch.stack(dropped).sum()
@@ -614,16 +661,36 @@ def forward_core(
             n_dropped.to(torch.int32))
 
 
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype,
+                 mesh=None) -> torch.Tensor:
+    """The embedding rows of ``tokens`` in ``dtype``. Under a tp mesh
+    ``embed`` is this rank's vocab block: each rank gives its own tokens'
+    rows and zeros elsewhere, and the sum over tp is exact."""
+    if mesh is None or mesh.size("tp") == 1:
+        return embed[tokens.long()].to(dtype)
+    Vl = embed.shape[0]
+    t = tokens.long() - mesh.index("tp") * Vl
+    hit = (t >= 0) & (t < Vl)
+    x = torch.where(hit[:, None], embed[t.clamp(0, Vl - 1)], 0).to(dtype)
+    return mesh.reduce(x, "tp")
+
+
 def unembed(cfg: ModelConfig, params: dict[str, torch.Tensor],
-            hidden: torch.Tensor) -> torch.Tensor:
+            hidden: torch.Tensor, mesh=None) -> torch.Tensor:
     """hidden [..., D] → logits [..., vocab] in f32 (a plain product); on
     ``unembed_q`` (int8 weight-only) the product times ``unembed_scale``, in
-    f32, as the reference's."""
+    f32, as the reference's. Under a tp ``mesh`` the unembedding is this
+    rank's vocab block and the logits are gathered over tp, so every rank
+    holds the same full logits."""
     if "unembed_q" in params:
         logits = torch.matmul(hidden.float(), params["unembed_q"].float())
-        return logits * params["unembed_scale"].float()
-    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return torch.matmul(hidden.float(), w.float())
+        logits = logits * params["unembed_scale"].float()
+    else:
+        w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+        logits = torch.matmul(hidden.float(), w.float())
+    if mesh is not None and mesh.size("tp") > 1:
+        logits = mesh.gather(logits, "tp", dim=-1)
+    return logits
 
 
 def forward(

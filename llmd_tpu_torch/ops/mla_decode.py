@@ -48,10 +48,11 @@ from llmd_tpu_torch.ops.paged_attention import _POOL_CODE, FP8, _num_sms, split_
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INSTANCE_CODE = {"simt": 0, "mma": 1}
-# (heads, latent width) with a kernel instance: moe-wide-mla, tiny-mla (simt,
-# both dtypes); the mma instance's (bfloat16): moe-wide-mla's (at tiny-mla's
-# width 80 the template spills, so simt serves it in bfloat16 too)
-SHAPES = ((16, 160), (4, 80))
+# (heads, latent width) with a kernel instance: moe-wide-mla, tiny-mla, and
+# one tensor-parallel rank's heads of each at tp=2 (simt, both dtypes); the
+# mma instance's (bfloat16): moe-wide-mla's (at tiny-mla's width 80 the
+# template spills, so simt serves it in bfloat16 too; the tp=2 shards run simt)
+SHAPES = ((16, 160), (4, 80), (8, 160), (2, 80))
 MMA_SHAPES = ((16, 160),)
 
 
@@ -252,6 +253,8 @@ def mla_paged_attention_latent(
     scale: float,
     cu_q_lens: Optional[torch.Tensor] = None,  # unused (uniform impl signature)
     num_seqs: Optional[torch.Tensor] = None,  # unused (uniform impl signature)
+    chunk_k: Optional[torch.Tensor] = None,  # unused (ring-attention impls only)
+    chunk_v: Optional[torch.Tensor] = None,  # unused (ring-attention impls only)
     decode=None,
 ) -> torch.Tensor:
     """Uniform-signature adapter for the decode program of MLA models: one
@@ -259,7 +262,7 @@ def mla_paged_attention_latent(
     are never read; they are clamped to 0 only so every entry names a page.
     ``decode`` is the latent decode to run (default :func:`mla_decode`; the
     kernel-vs-plain checks pass :func:`mla_decode_ref`)."""
-    del positions, seq_slots, cu_q_lens, num_seqs
+    del positions, seq_slots, cu_q_lens, num_seqs, chunk_k, chunk_v
     if q.shape[0] != page_tables.shape[0]:
         raise ValueError(
             "latent decode attention takes one query row per sequence "

@@ -1,5 +1,5 @@
-"""Token-sorted, drop-free MoE dispatch on one device (the single-device half of
-``llmd_tpu/ops/moe_dispatch.py``).
+"""Token-sorted, drop-free MoE dispatch (port of ``llmd_tpu/ops/moe_dispatch.py``):
+on one device, and the expert-parallel exchange over a mesh.
 
 * Sort the flat ``(token, k)`` copies by physical slot id (EPLB's replica
   choice already happened in ``moe_block``, so the sort key is the placement).
@@ -18,12 +18,24 @@
   without atomics (a deterministic sum on the card).
 
 The reference's ``mode="drop"`` scatters have no torch counterpart: sentinel
-copies write to one dump row past the buffer, which is then sliced off. The
-expert-parallel all-to-all body (``ep > 1``) is ROADMAP Queue A item 6b.
+copies write to one dump row past the buffer, which is then sliced off.
+
+Expert parallel (``make_sorted_dispatch(mesh)`` with ep > 1; reference
+``_ep_moe_body``): every rank holds a step's rows, padded to a multiple of
+dp x sp x ep, and owns one 1/(dp·sp·ep) slice of them. Its routed copies are
+bucketed by the ep rank that owns their slot, each bucket of ``cap = tpc·k``
+rows (all of the slice's copies could go to one rank, so nothing drops), and
+two ``all_to_all_single`` calls over the ep group send the rows and their
+slot ids. The receiver runs the sorted experts (K2) on its ``ep·cap`` rows
+over its S/ep local slots, the ``-1`` pads as the sentinel slot, and one
+``all_to_all_single`` sends the rows back. The origin weights them and adds
+each token's k copies in order of k (as the local combine: no atomics), and
+an all-gather over dp x sp x ep gives every rank every row.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -157,11 +169,82 @@ def sorted_moe_local(x, idx, topw, valid, wi, wo, wi_scale=None, wo_scale=None, 
     return combine_stage(ye, row, tok, wf, T)
 
 
-def make_sorted_dispatch(mesh=None) -> Callable:
+def _sorted_rows(xr, lslot, Sl: int, bc: int, wi, wo, wi_scale, wo_scale, gemm):
+    """The receiver's experts: rows already one per copy, each with a local
+    slot id in [0, Sl] (Sl: a pad). Output row i is input row i's."""
+    D = xr.shape[1]
+    row, block_slot, block_rows, Tp = _row_plan(lslot, Sl, bc)
+    xs = xr.new_zeros((Tp + 1, D))  # + the dump row for the pads
+    xs.index_copy_(0, row.long(), xr)
+    xs = xs[:Tp]
+    if wi_scale is None:
+        ye = experts_stage(xs, block_slot, block_rows, wi, wo, gemm=gemm)
+    else:
+        ye = experts_scaled(xs, block_slot, wi, wo, wi_scale, wo_scale)
+    return ye[row.long().clamp(max=Tp - 1)]
+
+
+def ep_moe(x, idx, topw, valid, wi, wo, wi_scale=None, wo_scale=None, *, mesh,
+           gemm: Callable = ragged_grouped_gemm) -> torch.Tensor:
+    """The expert-parallel sorted MoE (module docstring). ``wi``/``wo`` (and
+    the int8 scales) are this rank's S/ep slots; x/idx/topw/valid are the
+    step's rows, the same on every rank. Returns y [T, D] on every rank."""
+    T, D = x.shape
+    k = idx.shape[1]
+    ep = mesh.size("ep")
+    Sl = wi.shape[0]
+    S = Sl * ep
+    split = ("dp", "sp", "ep")
+    mult = mesh.size(split)
+    Tp = -(-T // mult) * mult
+    if Tp != T:
+        def pad(a):
+            return torch.cat([a, a.new_zeros((Tp - T, *a.shape[1:]))])
+        x, idx, topw, valid = pad(x), pad(idx), pad(topw), pad(valid)  # pad rows invalid
+    tpc = Tp // mult
+    o = mesh.index(split) * tpc
+    x_o, idx_o, w_o, v_o = (a[o : o + tpc] for a in (x, idx, topw, valid))
+    dev = x.device
+    n = cap = tpc * k  # a bucket holds every copy of the slice: no drops
+    slot = torch.where(v_o > 0, idx_o.long(), S).reshape(n)
+    dest = torch.where(slot < S, slot // Sl, ep)  # ep: not sent
+    dsort, order = torch.sort(dest, stable=True)
+    dcnt = torch.zeros((ep + 1,), dtype=torch.long, device=dev).scatter_add_(
+        0, dest, torch.ones_like(dest))[:ep]
+    dstart = torch.cumsum(dcnt, 0) - dcnt
+    pos = torch.arange(n, device=dev) - dstart[dsort.clamp(max=ep - 1)]
+    sendrow = torch.where(dsort < ep, dsort * cap + pos, ep * cap)
+    entry_tok = order // k
+    send_x = x.new_zeros((ep * cap + 1, D)).index_copy_(0, sendrow, x_o[entry_tok])
+    send_slot = torch.full((ep * cap + 1,), -1, dtype=torch.int32, device=dev).index_copy_(
+        0, sendrow, slot[order].to(torch.int32))
+    recv_x = mesh.all_to_all(send_x[: ep * cap], "ep")
+    recv_slot = mesh.all_to_all(send_slot[: ep * cap], "ep")
+    r = mesh.index("ep")
+    lslot = torch.where(recv_slot >= 0, recv_slot - r * Sl, Sl)
+    bc = pick_block_size(ep * cap, Sl, pallas=x.is_cuda and wi_scale is None)
+    ye = _sorted_rows(recv_x, lslot, Sl, bc, wi, wo, wi_scale, wo_scale, gemm)
+    back = mesh.all_to_all(ye, "ep")
+    g = back[sendrow.clamp(max=ep * cap - 1)]
+    wf = torch.where(dsort < ep, w_o.reshape(n)[order], 0).to(x.dtype)
+    # back to (token, k) order, then each token's copies added in order of k
+    by_copy = torch.empty_like(g).index_copy_(0, order, g * wf[:, None]).view(tpc, k, D)
+    y_o = by_copy[:, 0]
+    for j in range(1, k):
+        y_o = y_o + by_copy[:, j]
+    return mesh.gather(y_o, split)[:T]
+
+
+def make_sorted_dispatch(mesh=None, gemm: Callable = ragged_grouped_gemm) -> Callable:
     """The ``moe_block`` dispatch_impl ``impl(x, idx, topw, valid, wi, wo,
     wi_scale, wo_scale) -> y``: routing, top-k and the EPLB replica choice
-    happened upstream (shared with the einsum path). One device only."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "expert-parallel dispatch over a mesh is ROADMAP Queue A item 6b")
-    return sorted_moe_local
+    happened upstream (shared with the einsum path). ``mesh`` (a
+    ``parallel/mesh.RankMesh``) with ep > 1: :func:`ep_moe`, whose banks are
+    this rank's slots; otherwise the one-device path (every rank of a mesh
+    without ep runs all rows on its whole banks). ``gemm``: K2's wrapper or
+    its plain version."""
+    if mesh is not None and mesh.size("ep") > 1:
+        return functools.partial(ep_moe, mesh=mesh, gemm=gemm)
+    if gemm is ragged_grouped_gemm:
+        return sorted_moe_local
+    return functools.partial(sorted_moe_local, gemm=gemm)

@@ -86,6 +86,8 @@ def paged_attention_ref(
     scale: float,
     cu_q_lens: Optional[torch.Tensor] = None,  # unused (uniform signature)
     num_seqs: Optional[torch.Tensor] = None,  # unused (uniform signature)
+    chunk_k: Optional[torch.Tensor] = None,  # unused (ring-attention impls only)
+    chunk_v: Optional[torch.Tensor] = None,  # unused (ring-attention impls only)
 ) -> torch.Tensor:
     """Gather + mask reference: each query gathers its own sequence's pages
     through the page table, 32 tokens at a time (bounded peak memory), with
@@ -391,6 +393,8 @@ def paged_attention(
     scale: float,
     cu_q_lens: Optional[torch.Tensor] = None,
     num_seqs: Optional[torch.Tensor] = None,
+    chunk_k: Optional[torch.Tensor] = None,  # unused (ring-attention impls only)
+    chunk_v: Optional[torch.Tensor] = None,  # unused (ring-attention impls only)
     tune=None,
 ) -> torch.Tensor:
     """Ragged paged attention: the CUDA kernel for CUDA tensors, the plain

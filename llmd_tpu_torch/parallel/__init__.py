@@ -1,3 +1,6 @@
-"""Expert-parallel load balancing (numpy only; one device in this slice)."""
+"""The mesh and expert-parallel load balancing: ``mesh`` (the (dp, sp, ep,
+tp) rank mesh over ``torch.distributed``), ``launch`` / ``worker`` (worlds of
+rank processes), ``checks`` (rank-side checks), ``eplb`` (numpy only)."""
 
 from llmd_tpu_torch.parallel.eplb import EPLBConfig  # noqa: F401
+from llmd_tpu_torch.parallel.mesh import MeshConfig  # noqa: F401

@@ -3,8 +3,8 @@
 
 The MoE weights' expert ("slot") dimension holds ``S >= E`` physical slots;
 heavy experts get more than one. Slot order is placement: slots
-``[r*S/ep : (r+1)*S/ep]`` belong to EP rank ``r`` (one rank on one device in
-this slice of the port). Rebalancing recomputes ``slot_to_expert`` from the
+``[r*S/ep : (r+1)*S/ep]`` belong to EP rank ``r`` (each rank of a mesh
+regathers its own, ``engine/engine.py`` ``_op_eplb``). Rebalancing recomputes ``slot_to_expert`` from the
 windowed loads and re-gathers the physical weights from the logical copy.
 
 Algorithm (greedy):

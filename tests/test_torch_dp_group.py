@@ -12,8 +12,9 @@ the DP cases of ``tests/test_wide_ep.py`` against port engines.
   leader here, rank 1 a process (``tests/torch_dp_rank_worker.py``), waves
   equal to the steps both loops took.
 
-The mesh cases (``MeshConfig(dp=2, ep=2, tp=2)``) wait for ROADMAP Queue A
-item 6b: the port's mesh is one device.
+Here every engine is one device (DP frontends over one card, a port
+addition); the mesh cases (``MeshConfig(dp=2, ep=2, tp=2)``, world rank 0
+holding every rank frontend) are ``tests/test_torch_wide_ep_mesh.py``'s.
 """
 
 import dataclasses

@@ -23,6 +23,7 @@ from llmd_tpu.models.transformer import init_params as jax_init_params
 from llmd_tpu_torch.core.request import SamplingParams
 from llmd_tpu_torch.engine import EngineConfig, LLMEngine
 from llmd_tpu_torch.engine.config import MeshConfig
+from llmd_tpu_torch.models.lora import LoRAConfig
 from llmd_tpu_torch.engine.sampling import greedy_tokens, sample_tokens
 from llmd_tpu_torch.models import get_model_config
 from llmd_tpu_torch.models.transformer import params_from_numpy
@@ -208,10 +209,14 @@ def test_unserved_options_raise(make, reference):
     with pytest.raises(ValueError, match="unknown kv_cache_dtype"):  # the reference's words
         make(kv_cache_dtype="int4")
     # every field the port does not read raises when set away from its default
-    for field, value in (("kv_layout", "packed"), ("mesh", MeshConfig(dp=2)),
-                         ("sp_ring_attention", False)):
+    for field, value in (("kv_layout", "packed"),):
         with pytest.raises(ValueError, match=field):
             make(**{field: value})
+    # the mesh is served; what it does not serve yet (LoRA, media, the KV
+    # data plane, the masked programs) raises naming its item, before any
+    # rank process starts
+    with pytest.raises(NotImplementedError, match="item 6c"):
+        make(mesh=MeshConfig(tp=2), lora=LoRAConfig(max_adapters=2, rank=4))
     # served away from their defaults, each against the reference: the
     # pipelined dispatch off, at depth 1 without pack overlap, and
     # ``instrument`` (the unified program's outputs waited for before its

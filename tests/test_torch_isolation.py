@@ -81,6 +81,11 @@ assert {"llmd_tpu_torch.obs.tracing", "llmd_tpu_torch.obs.events",
 # and the launch surface's: K1's launch-config table, the DP rank groups
 assert {"llmd_tpu_torch.ops.attn_tune", "llmd_tpu_torch.engine.dp_group",
         "llmd_tpu_torch.tools.timing"} <= set(names)
+# and the mesh's: the rank mesh, the world launcher and its worker, the ring,
+# the rank-side checks
+assert {"llmd_tpu_torch.parallel.mesh", "llmd_tpu_torch.parallel.launch",
+        "llmd_tpu_torch.parallel.worker", "llmd_tpu_torch.ops.ring_attention",
+        "llmd_tpu_torch.parallel.checks"} <= set(names)
 assert "zmq" not in sys.modules
 print(len(names))
 """
@@ -181,3 +186,18 @@ def test_tower_defaults_to_the_card(monkeypatch):
         with pytest.raises(Stop):
             encode.main(["--model", "tiny-vl", "--port", "0", *argv])
     assert seen == [None, "cpu"]
+
+
+@pytest.mark.parametrize("module", ["parallel/mesh.py", "parallel/launch.py",
+                                    "parallel/worker.py", "parallel/checks.py",
+                                    "ops/ring_attention.py", "../tests/torch_mesh_worker.py"])
+def test_mesh_modules_stand_alone(module):
+    """The mesh keeps its own copies of the reference's ``MeshConfig``, rules
+    and logical axes, and the world script of the mesh tests runs the port
+    alone: none imports jax or the reference package (the port's modules
+    import with both blocked in the subprocess above)."""
+    src = (REPO / "llmd_tpu_torch" / module).resolve().read_text()
+    assert not _FORBIDDEN.search(src)
+    if module == "parallel/mesh.py":
+        assert all(f in src for f in ("class MeshConfig", "DEFAULT_RULES = ",
+                                      "def param_logical_axes"))

@@ -448,7 +448,7 @@ def _check_k3(cuda, H, W, ps, kv, dtype, seed):
     q, pool, pts, lens = _k3_case(H, W, ps, kv, dtype, cuda, seed)
     scale = 0.125
     want = md._instance(dtype, H, W)
-    assert want == ("mma" if dtype == torch.bfloat16 and W == 160 else "simt")
+    assert want == ("mma" if dtype == torch.bfloat16 and (H, W) in md.MMA_SHAPES else "simt")
     before = dict(mla_decode.launches_by_instance)
     got = mla_paged_attention_latent(q, pool, pts, None, None, lens, scale=scale)
     torch.cuda.synchronize()
@@ -553,8 +553,8 @@ def test_latent_kernel_at_split_multiples(cuda, dtype):
 
 
 def test_mla_kernels_refuse_unsupported_shapes(cuda):
-    q, pool, pts, kv = _latent_decode_case(4, 8, 160, 16, torch.float32, cuda, seed=0)
-    with pytest.raises(ValueError):  # 8 heads at width 160: no K3 instance
+    q, pool, pts, kv = _latent_decode_case(4, 4, 160, 16, torch.float32, cuda, seed=0)
+    with pytest.raises(ValueError):  # 4 heads at width 160: no K3 instance
         mla_decode(q, pool, pts.clamp(min=0), kv, scale=0.1)
     args, kw, _ = _case(16, 1, 96, 16, [1], [10], torch.float32, cuda, seed=0, planes=1)
     with pytest.raises(ValueError):  # latent width 96: no K1 latent instance
@@ -1536,3 +1536,89 @@ def test_pallas_mode_refused_on_a_cpu_engine(cuda):
         LLMEngine(get_model_config("tiny"), EngineConfig(attn_impl="pallas"), device="cpu")
     eng = LLMEngine(get_model_config("tiny64"), EngineConfig(attn_impl="pallas"), device=cuda)
     assert eng.attn_backend == "cuda_paged_attention" and eng.attn_fallback_reason is None
+
+
+# ------------------------------------------------------------------ the mesh
+# One rank's shapes under the (dp, sp, ep, tp) mesh (llmd_tpu_torch/parallel):
+# llama-1b's heads at tp=2 / tp=4, moe-wide-mla's at tp=2 (K1's latent mode and
+# K3 on their simt instances: the mma ones take 16 heads), tiny-mla's at tp=2,
+# an ep=2 receiver's bucketed rows for K2 and the local slots' groups for K4.
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("H,Hk", [(16, 4), (8, 2)], ids=["tp2", "tp4"])
+def test_mesh_k1_at_tp_rank_heads(cuda, H, Hk, dtype):
+    _check_k1(cuda, H, Hk, 64, 16, *MIXED, dtype)
+    _check_k1(cuda, H, Hk, 64, 16, [1] * 64, list(range(128, 1024, 14)), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mesh_latent_kernels_at_tp2_heads(cuda, dtype):
+    """K1's latent mode at moe-wide-mla's tp=2 heads (8 at width 160) and K3
+    at the tp=2 heads of moe-wide-mla and tiny-mla (8 at 160, 2 at 80)."""
+    q_lens, kv_lens = [37, 1, 1, 64, 1, 20], [37, 5, 300, 100, 1, 140]
+    args, kw, valid = _case(8, 1, 160, 16, q_lens, kv_lens, dtype, cuda, seed=8, planes=1)
+    got = paged_attention(*args, **kw)
+    q, pool, *rest = args
+    ref = paged_attention_ref(q.float(), pool.float(), *rest, **kw)[:valid]
+    if dtype == torch.float32:
+        assert (got[:valid] - ref).abs().max().item() <= F32_ATOL
+    else:
+        assert bf16_rounding_units(got[:valid], ref) <= BF16_UNITS
+    for H, W, ps in ((8, 160, 16), (2, 80, 8)):
+        _check_k3(cuda, H, W, ps, [1, 17, 4096, 0, 16, 999, 256, 5], dtype, seed=H + W)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mesh_grouped_gemms_at_ep2_local_shapes(cuda, dtype):
+    """K2 on an ep=2 receiver's rows as the EP exchange builds them (two
+    senders' buckets of cap = 32 tokens x top-4 rows, pads on the sentinel
+    slot, 16 local slots, moe-wide-sim widths) and K4 over the 16 local
+    groups at the decode batch's capacity."""
+    from llmd_tpu_torch.ops.moe_dispatch import _row_plan, pick_block_size
+
+    rng = np.random.default_rng(5)
+    T, S, k, ep, D, F = 64, 32, 4, 2, 1024, 1024
+    Sl, tpc = S // ep, T // ep
+    cap = tpc * k
+    idx = np.argsort(rng.random((T, S)), axis=1)[:, :k]
+    recv = np.full((ep * cap,), -1, np.int64)
+    for src in range(ep):
+        mine = idx[src * tpc:(src + 1) * tpc].reshape(-1)
+        mine = mine[mine < Sl]
+        recv[src * cap:src * cap + len(mine)] = mine
+    bc = pick_block_size(ep * cap, Sl, pallas=True)
+    row, slot, rows, Tp = _row_plan(torch.from_numpy(np.where(recv >= 0, recv, Sl)), Sl, bc)
+    xr = torch.from_numpy(rng.standard_normal((ep * cap, D), np.float32))
+    xs = torch.zeros((Tp + 1, D)).index_copy_(0, row.long(), xr)[:Tp]
+    w = torch.from_numpy(rng.standard_normal((Sl, D, F), np.float32) * D ** -0.5)
+    x, w = xs.view(-1, bc, D).to(cuda, dtype), w.to(cuda, dtype)
+    slot, rows = slot.to(cuda), rows.to(cuda)
+    got = ragged_grouped_gemm(x, w, slot, rows)
+    _hold(got, ragged_grouped_gemm_ref(x.float(), w.float(), slot, rows), dtype)
+    assert torch.count_nonzero(got[rows == 0]) == 0
+    xg, wg, rng = _gemm_operands(Sl, 10, D, F, Sl, dtype, cuda, seed=16)
+    counts = torch.from_numpy(rng.integers(0, 11, Sl).astype(np.int32)).to(cuda)
+    _hold(grouped_gemm(xg, wg, counts), grouped_gemm_ref(xg.float(), wg.float(), counts), dtype)
+
+
+def test_mesh_nccl_collectives_captured_in_a_graph(cuda):
+    """A one-rank NCCL group: all_reduce, all_gather and all_to_all_single
+    captured in one CUDA graph and replayed equal the eager calls."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    from llmd_tpu_torch.parallel.checks import collectives_in_graph
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        res = collectives_in_graph()
+    finally:
+        dist.destroy_process_group()
+    assert res == {"world": 1, "max_abs_diff": 0.0}

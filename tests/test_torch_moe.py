@@ -27,6 +27,7 @@ from llmd_tpu_torch.ops import grouped_gemm as tgg
 from llmd_tpu_torch.ops import moe_dispatch as tmd
 from llmd_tpu_torch.parallel import eplb as teplb
 from llmd_tpu_torch.parallel.eplb import EPLBConfig
+from llmd_tpu_torch.parallel.mesh import MeshConfig, RankMesh
 
 JD = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TD = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -108,8 +109,16 @@ def test_wrappers_on_cpu_tensors_use_plain_versions():
     assert tgg.grouped_gemm_ref.launches == before[3] + 1
     assert torch.equal(a, tgg.ragged_grouped_gemm_ref(x, w, slot, live))
     assert torch.equal(b, tgg.grouped_gemm_ref(x, w, live))
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        tmd.make_sorted_dispatch(mesh=object())
+    # over a mesh: the EP exchange when ep > 1 (held against the JAX meshed
+    # dispatch in tests/test_torch_wide_ep_mesh.py), the one-device path
+    # on a mesh without ep
+    cpu = torch.device("cpu")
+    assert tmd.make_sorted_dispatch(RankMesh(MeshConfig(tp=2), 1, cpu, {})) \
+        is tmd.sorted_moe_local
+    ep = tmd.make_sorted_dispatch(RankMesh(MeshConfig(ep=2, tp=2), 3, cpu, {}),
+                                  gemm=tgg.ragged_grouped_gemm_ref)
+    assert ep.func is tmd.ep_moe and ep.keywords["gemm"] is tgg.ragged_grouped_gemm_ref
+    assert ep.keywords["mesh"].index("ep") == 1
 
 
 # ------------------------------------------------------------- row plan

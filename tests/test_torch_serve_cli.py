@@ -6,7 +6,11 @@ it builds for a JAX one.
   field the reference's CLI maps it to (the reference's main run with its
   config captured, the port's ``engine_config`` beside it), with the same
   ``LLMD_*`` environment defaults; ``--seed`` is the port's own.
-- Flags the port cannot serve yet exit non-zero naming their ROADMAP item.
+- Flags the port cannot serve yet exit non-zero naming their ROADMAP item;
+  ``--data/--expert/--tensor/--sequence-parallel-size`` build the
+  reference's ``MeshConfig``, and one ``--tensor-parallel-size 2 --cpu``
+  world (rank 0 serving, rank 1 its own process over gloo) answers a
+  completion.
 - ``llmd_tpu.pool.launcher.engine_argv`` (a warm start: a snapshot's
   checkpoint and ``--compile-cache-dir``), the module swapped, parses; one
   ``--cpu`` launch of it answers ``/health`` and builds its native library
@@ -20,6 +24,7 @@ import gc
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -33,11 +38,12 @@ import torch
 
 from llmd_tpu_torch.core.request import SamplingParams
 from llmd_tpu_torch.engine import serve
-from llmd_tpu_torch.engine.config import EngineConfig
+from llmd_tpu_torch.engine.config import EngineConfig, MeshConfig
 from llmd_tpu_torch.engine.engine import LLMEngine
 from llmd_tpu_torch.engine.server import EngineServer
 from llmd_tpu_torch.models import get_model_config
 from llmd_tpu_torch.native import build
+from torch_mesh_worker import TAG_VAR, reap_tag
 
 REPO = Path(__file__).resolve().parent.parent
 REF_SERVE = REPO / "llmd_tpu" / "engine" / "serve.py"
@@ -67,11 +73,12 @@ def _reference_config(monkeypatch, argv: list) -> dict:
 
 
 def _same(ref_kw: dict, port: EngineConfig) -> None:
-    """Every field the reference sets equals the port's (its mesh aside: the
-    port's stays one device; LoRA compared by its numbers)."""
+    """Every field the reference sets equals the port's (the mesh and LoRA
+    compared by their numbers)."""
     for name, value in ref_kw.items():
         if name == "mesh":
-            assert port.mesh == type(port.mesh)(), port.mesh
+            assert (port.mesh.dp, port.mesh.sp, port.mesh.ep, port.mesh.tp) == (
+                value.dp, value.sp, value.ep, value.tp), (port.mesh, value)
             continue
         got = getattr(port, name)
         if name == "lora" and value is not None:
@@ -128,9 +135,6 @@ def test_environment_defaults_are_the_reference(monkeypatch):
 @pytest.mark.parametrize("argv,item", [
     (["--kv-layout", "packed"], "not ported by design"),
     (["--kv-layout", "padded"], "not ported by design"),
-    (["--expert-parallel-size", "2"], "item 6b"),
-    (["--tensor-parallel-size", "2"], "item 6b"),
-    (["--sequence-parallel-size", "4"], "item 6b"),
 ])
 def test_unserved_flags_exit_naming_their_item(capsys, argv, item):
     with pytest.raises(SystemExit) as e:
@@ -140,6 +144,58 @@ def test_unserved_flags_exit_naming_their_item(capsys, argv, item):
     assert "not served by the port" in err and item in err and argv[0] in err
     # auto and 1 are taken
     serve.parse_args(["--kv-layout", "auto", "--expert-parallel-size", "1"])
+
+
+@pytest.mark.parametrize("argv,mesh", [
+    (["--expert-parallel-size", "2"], dict(ep=2)),
+    (["--tensor-parallel-size", "2"], dict(tp=2)),
+    (["--sequence-parallel-size", "4", "--data-parallel-size", "2"], dict(sp=4, dp=2)),
+])
+def test_parallel_flags_build_the_reference_mesh(monkeypatch, capsys, argv, mesh):
+    """The parallel sizes are served: the port's ``MeshConfig`` is the one
+    the reference's serve builds from the same flags; 0 exits non-zero."""
+    cfg = serve.engine_config(serve.parse_args(argv))
+    assert cfg.mesh == MeshConfig(**mesh) and cfg.dp_ranks == mesh.get("dp", 1)
+    _same(_reference_config(monkeypatch, ["--cpu", *argv]), cfg)
+    with pytest.raises(SystemExit) as e:
+        serve.parse_args([argv[0], "0"])
+    assert e.value.code != 0 and argv[0] in capsys.readouterr().err
+
+
+def _post(addr: str, body: dict) -> tuple[int, dict]:
+    req = urllib.request.Request(f"http://{addr}/v1/completions",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.status, json.loads(r.read())
+
+
+def test_tensor_parallel_cpu_world_serves(tmp_path):
+    """``serve --tensor-parallel-size 2 --cpu``: this process's serve is rank
+    0 of a gloo world, rank 1 its own process; a completion comes back, and
+    an interrupt stops the world (no rank process outlives it)."""
+    tag = os.urandom(8).hex()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "llmd_tpu_torch.engine.serve", "--model", "tiny", "--cpu",
+         "--host", "127.0.0.1", "--port", "0", "--num-pages", "32", "--max-model-len", "128",
+         "--max-batch-size", "2", "--tensor-parallel-size", "2"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=open(tmp_path / "err", "w"), text=True,
+        env={**os.environ, "OMP_NUM_THREADS": "1", TAG_VAR: tag}, start_new_session=True)
+    try:
+        line = proc.stdout.readline()
+        assert "serving llmd-tpu/tiny" in line and "mesh sp=1 ep=1 tp=2" in line, (
+            line, (tmp_path / "err").read_text()[-3000:])
+        addr = line.split("http://")[1].split()[0]
+        status, body = _post(addr, {"prompt": "hello mesh", "max_tokens": 4,
+                                    "temperature": 0})
+        assert status == 200 and body["usage"]["completion_tokens"] == 4
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        reap_tag(tag)
 
 
 def _two_free_ports() -> int:
