@@ -303,11 +303,23 @@ thread's stack on stderr):
             bf16 beside its bound and the one-card shape's time. Then a
             one-rank NCCL group: ``all_reduce``, ``all_gather`` and
             ``all_to_all_single`` captured in a CUDA graph, replayed = eager.
+            Then the tp=2 splits on this card: one layer through
+            ``forward_core`` as two ranks with the sharded adapter bank =
+            the one-card forward (``lora_shard_check``), and
+            a bf16 and an fp8 pool's two plane halves under the engine's
+            ``pages_out`` / ``pages_in`` ops = the one-card bytes
+            (``pages_split_check``), each with its seconds.
             With two cards or more, meshed engines as NCCL worlds of rank
             processes (``parallel/launch``): llama-1b tp=2, moe-wide-sim ep=2
             with EPLB, moe-wide-mla tp=2, llama-1b sp=2 with one 2048-token
-            prompt on the ring; float32 tokens = one card's and replayed =
-            eager, bf16's identical share and decode tok/s beside one card's.
+            prompt on the ring, and the planes world (llama-1b with media
+            rows at tp=2: an adapter, a ``logit_bias``, a ``guided_choice``
+            and a media request, a second adapter loaded after the decode
+            graphs' capture and a request under it, an offload reload, a
+            tp=2 P exporting to a one-card D, and the times of ``pages_out``
+            / ``pages_in`` of 48 pages and of a full mask plan's staging);
+            float32 tokens = one card's and replayed = eager, bf16's
+            identical share and decode tok/s beside one card's.
             With one card it prints ``mesh_world: not run, 1 device``.
 
 It ends with a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
@@ -3328,7 +3340,8 @@ def _transfer_numbers(device, card: str, reps: int = 5) -> dict:
     and a 64-block (32 MiB) pull over loopback on each transport beside a
     host copy of the same bytes. Informational: no bound is enforced."""
     from llmd_tpu_torch.disagg.transfer import (
-        KVTransferClient, KVTransferSource, drain_staged, insert_blocks, stage_pages)
+        KVTransferClient, KVTransferSource, drain_staged, gather_pages, insert_blocks,
+        stage_pages)
 
     L, P, n = 16, 256, 64
     pool = torch.randn(L * P + 1, PS, 16, 64, device=device, dtype=torch.bfloat16)
@@ -3346,11 +3359,12 @@ def _transfer_numbers(device, card: str, reps: int = 5) -> dict:
             ts.append(time.perf_counter() - t0)
         return min(ts)
 
-    staged = best(lambda: drain_staged(stage_pages(pool, pids, P, staging_pages=16)))
+    gather = functools.partial(gather_pages, pool, pages_per_layer=P)
+    staged = best(lambda: drain_staged(stage_pages(gather, pids, staging_pages=16)))
     flat = torch.randn(n * block // 2, device=device, dtype=torch.bfloat16)
     pinned = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=device.type == "cuda")
     d2h = best(lambda: pinned.copy_(flat))
-    host_blocks = drain_staged(stage_pages(pool, pids, P))
+    host_blocks = drain_staged(stage_pages(gather, pids))
     if device.type == "cuda":
         host_blocks = host_blocks.pin_memory()
     inject = best(lambda: insert_blocks(pool, [p + 1 for p in pids], host_blocks, P))
@@ -5914,15 +5928,440 @@ def _mesh_worlds(device, card: str, seed: int, world) -> dict:
         if fresh and row["float32"]["ring_steps"] < 1:
             raise AssertionError(f"mesh_world {label}: the fresh prompt missed the ring")
         out[label] = row
+    out["llama-1b-vl tp=2 planes"] = _mesh_planes_world(device, card, seed, world)
+    return out
+
+
+def _text_ids(rng, cfg, n: int) -> list[int]:
+    """``n`` random ids of the vocabulary, the media placeholder left out."""
+    ids = rng.integers(1, cfg.vocab_size, n)
+    return np.where(ids == cfg.mm_placeholder_id, 1, ids).tolist()
+
+
+def _planes_script(eng, seed: int, tok) -> tuple[dict, dict]:
+    """One engine's script of the planes world: an adapter request beside a
+    base one, a ``logit_bias`` and a ``guided_choice`` request, a media
+    request (a batch the masked decode graph serves), a plain request (the
+    plain decode graph); then a second adapter loaded, after both graphs'
+    capture, and a plain and a ``logit_bias`` request under it; then four
+    prompts of a third of the pool each (the fourth evicts the
+    first to the CPU tier) and the first again (reloaded). Greedy tokens by
+    request, and the counts (``captured_before_late``: the graphs captured
+    when the second adapter was written)."""
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.models.lora import make_adapter_weights
+
+    cfg = eng.model_cfg
+    rng = np.random.default_rng(seed)
+    eng.load_lora_adapter("a", {k: v.cpu() for k, v in make_adapter_weights(
+        cfg, eng.cfg.lora, torch.Generator().manual_seed(seed)).items()})
+    k, ph = cfg.mm_tokens, cfg.mm_placeholder_id
+    rows = (rng.standard_normal((k, cfg.hidden_size)) * 0.5).astype(np.float32)
+    text = _text_ids(rng, cfg, 64)
+    # each long prompt holds a third of the pool: the fourth evicts the first
+    ps, n_pages = eng.cfg.page_size, eng.cfg.num_pages
+    longs = [_text_ids(rng, cfg, n_pages // 3 * ps - ps // 2) for _ in range(4)]
+    g = dict(max_tokens=16, temperature=0.0)
+    batches = [[("base", text, g, {}), ("adapter", text, g, {"lora_id": "a"}),
+                ("bias", text, dict(g, logit_bias={7: 100.0}), {}),
+                ("choice", tok.encode("pick"), dict(g, guided_choice=["red", "green"],
+                                                   stop_token_ids=(tok.eos_id,)), {}),
+                ("media", text[:8] + [ph] * k + text[8:24], g,
+                 {"mm_items": [(b"planes-image", rows)]})]]
+    batches += [[("plain", text[:40], g, {})], [("late", text, g, {"lora_id": "b"})],
+                [("late_bias", text, dict(g, logit_bias={7: 100.0}), {"lora_id": "b"})]]
+    batches += [[(f"long{i}", p, dict(g, max_tokens=4), {})] for i, p in enumerate(longs)]
+    batches += [[("again", longs[0], dict(g, max_tokens=4), {})]]
+    toks: dict = {}
+    for i, batch in enumerate(batches):
+        if i == 2:
+            captured = eng.stats.decode_graph_captures
+            eng.load_lora_adapter("b", {k: v.cpu() for k, v in make_adapter_weights(
+                cfg, eng.cfg.lora, torch.Generator().manual_seed(seed + 1)).items()})
+        for rid, prompt, sp, kw in batch:
+            eng.add_request(rid, prompt, SamplingParams(**sp), **kw)
+        while eng.has_work():
+            for o in eng.step():
+                toks.setdefault(o.request_id, []).extend(o.new_token_ids)
+    st = eng.stats
+    return toks, {"offload_loads": st.total_offload_loads, "chain_stages":
+                  st.structured_chain_stages, "captures": st.decode_graph_captures,
+                  "captured_before_late": captured, "violations": st.structured_violations}
+
+
+def _plane_ops_ms(eng, n: int = 48) -> dict:
+    """Rank 0's wall ms (best of 3, the card synchronized around each) of
+    ``eng``'s data plane and mask staging ops: ``pages_out`` of ``n`` pages,
+    ``pages_in`` of those blocks from the host back into the same pages, and
+    ``mask_stage`` of a plan that fills the masked programs' buffers
+    (``structured_table_max_elems``); on a world the workers take part."""
+    pool, pids = eng.kv_pool, list(range(n))
+
+    def best(fn) -> float:
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return min(ts) * 1e3
+
+    blocks = pool.gather(pids).cpu()
+    V = eng.model_cfg.vocab_size
+    rows = max(1, eng.cfg.structured_table_max_elems // V)
+    bias, nxt = np.zeros((rows, V), np.float32), np.zeros((rows, V), np.int32)
+    res = {"pages": n, "page_bytes": blocks.numel() * blocks.element_size(),
+           "pages_out_ms": best(lambda: pool.gather(pids)),
+           "pages_in_ms": best(lambda: pool.insert(pids, blocks)),
+           "mask_rows": rows, "mask_bytes": bias.nbytes + nxt.nbytes,
+           "mask_stage_ms": best(lambda: eng._op("mask_stage", n=rows,
+                                                 host={"bias": bias, "nxt": nxt}))}
+    eng._mask_buffers.staged = None  # the buffers hold no plan now
+    return res
+
+
+def _mesh_planes_world(device, card: str, seed: int, world) -> dict:
+    """LoRA, the masked programs, media rows and the KV data plane on a tp=2
+    world, llama-1b with the VL tower's media rows (``vl_full``) in float32:
+    the planes script (``_planes_script``) on one card, on the world with the
+    decode graphs and without; then the world's engine prefills a fresh
+    prompt and exports its blocks over the KVT1 wire to the one-card engine,
+    which decodes it. float32 tokens equal one card's, replayed equal eager
+    (the second adapter's request included, its slot written after the
+    graphs' capture on both ranks), the offload tier reloaded, the D's
+    tokens equal the world's own; the data plane's and the mask staging's
+    op times on the world beside one card's (``_plane_ops_ms``)."""
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.disagg import transfer as ttr
+    from llmd_tpu_torch.engine.config import EngineConfig, MeshConfig
+    from llmd_tpu_torch.engine.engine import LLMEngine
+    from llmd_tpu_torch.engine.tokenizer import ByteTokenizer
+    from llmd_tpu_torch.models.lora import LoRAConfig
+
+    t0 = time.perf_counter()
+    cfg = vl_full("float32")
+    tok = ByteTokenizer()
+    kw = MESH_KW | dict(num_pages=96, lora=LoRAConfig(max_adapters=2, rank=16),
+                        cpu_offload_pages=256)
+    pd_prompt = _text_ids(np.random.default_rng(seed + 1), cfg, 300)
+    runs = {}
+    one = None
+    try:
+        one = LLMEngine(cfg, EngineConfig(**kw), seed=seed, device=device, tokenizer=tok)
+        runs["one"] = _planes_script(one, seed, tok)
+        ops = {"one": _plane_ops_ms(one)}
+        for label, graph in (("eager", False), ("replayed", True)):
+            eng = LLMEngine(cfg, EngineConfig(**kw, mesh=MeshConfig(tp=2)), seed=seed,
+                            device=device, tokenizer=tok, decode_graph=graph,
+                            rank_mesh=world.mesh(MeshConfig(tp=2)))
+            try:
+                zero_counts()
+                runs[label] = _planes_script(eng, seed, tok)
+                runs[label][1]["rank0_launches"] = {
+                    k: v for k, v in read_counts()[0].items() if v}
+                if graph:  # P: prefill, export; then its own decode of the prompt
+                    ops["tp=2"] = _plane_ops_ms(eng)
+                    sp = SamplingParams(max_tokens=1, temperature=0.0)
+                    eng.add_request("pd", pd_prompt, sp)
+                    while eng.has_work():
+                        eng.step()
+                    src = ttr.KVTransferSource(host="127.0.0.1", transport="python")
+                    src.start()
+                    try:
+                        tx = time.perf_counter()
+                        ttr.export_from_engine(eng, src, "pd", pd_prompt)
+                        export_s = time.perf_counter() - tx
+                        pulled = ttr.KVTransferClient(timeout_s=60).pull(
+                            "127.0.0.1", src.port, "pd")
+                    finally:
+                        src.stop()
+                    own = eng.generate([pd_prompt], SamplingParams(max_tokens=16,
+                                                                   temperature=0.0))["req-0"]
+            finally:
+                eng.close()
+        injected = ttr.inject_into_engine(one, pulled, pd_prompt)
+        d_toks = one.generate([pd_prompt], SamplingParams(max_tokens=16,
+                                                          temperature=0.0))["req-0"]
+    finally:
+        if one is not None:
+            one.close()
+    res = {"tokens_equal": runs["replayed"][0] == runs["one"][0],
+           "replayed_equals_eager": runs["replayed"][0] == runs["eager"][0],
+           "counts": {k: v[1] for k, v in runs.items()}, "pd_blocks": injected,
+           "pd_export_s": export_s, "pd_tokens_equal": d_toks == own, "plane_ops": ops,
+           "seconds": time.perf_counter() - t0}
+    log(f"mesh_world: planes tp=2 ({cfg.name} float32): tokens == one card "
+        f"{res['tokens_equal']}, replayed == eager {res['replayed_equals_eager']}, counts "
+        f"{res['counts']}; P/D {injected} blocks exported in {export_s:.3f} s, D tokens == "
+        f"the world's {res['pd_tokens_equal']}; {res['seconds']:.1f} s on {card}")
+    for k, v in ops.items():
+        log(f"mesh_world: planes {k}: pages_out {v['pages']} pages ({v['page_bytes']} B) "
+            f"{v['pages_out_ms']:.3f} ms, pages_in {v['pages_in_ms']:.3f} ms, mask_stage "
+            f"{v['mask_rows']} rows ({v['mask_bytes']} B) {v['mask_stage_ms']:.3f} ms on {card}")
+    c = res["counts"]
+    if not (res["tokens_equal"] and res["replayed_equals_eager"] and res["pd_tokens_equal"]
+            and injected > 0 and c["replayed"]["captured_before_late"] == 2
+            and c["replayed"]["captures"] == 2
+            and all(v["offload_loads"] > 0 and v["chain_stages"] > 0
+                    and v["violations"] == 0 for v in c.values())):
+        raise AssertionError(f"mesh_world planes: {res} tokens {runs}")
+    return res
+
+
+def lora_shard_check(device, seed: int = 0, tokens: int = 64, rank: int = 16,
+                     model: str = "llama-1b") -> dict:
+    """The adapter bank under tp=2 through the engine's own code, on this
+    card: one layer of ``model`` (llama-1b: 32 heads, 16 a rank) with 9 slots of rank
+    16, every token on a random slot, through ``models/transformer.
+    forward_core`` once on one card and once as two tp=2 ranks
+    (``_TwoRanksOnOneCard``: threads, the reduce a barrier sum in the pool
+    dtype), each rank holding its ``shard_params`` block of the weights and
+    of the bank, whose slots the engine's ``_op_lora_write`` writes
+    (``parallel/mesh.lora_adapter_block``). Held: the ranks' hidden states
+    equal; float32, the tp=2 hidden within 1e-5 of the one-card hidden;
+    wo's output under tp as the reduce returns it (wo's partial plus the
+    adapter's partial from this rank's heads' rows of A, summed over the
+    ranks) against the one-card expression (wo's product plus
+    ``apply_lora`` of the whole bank) on the same attention rows (the
+    ranks', concatenated): float32 within 1e-5; bfloat16, in units of one
+    bf16 rounding of the largest output (2^-8·max|ref|) against the float32
+    product of the same bf16 inputs, at most one unit more than the
+    one-card expression reads (the partials are rounded before the sum)."""
+    from types import SimpleNamespace
+
+    from llmd_tpu_torch.engine.config import MeshConfig
+    from llmd_tpu_torch.engine.engine import LLMEngine
+    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.models.lora import LoRAConfig, apply_lora, init_lora_params, slot_mask
+    from llmd_tpu_torch.models.transformer import forward_core, init_cache, init_params, linear
+    from llmd_tpu_torch.ops.paged_attention import paged_attention_ref
+    from llmd_tpu_torch.parallel.mesh import (
+        RankMesh, engine_rules, lora_bank_axes, param_logical_axes, shard_params)
+
+    t0 = time.perf_counter()
+    lcfg = LoRAConfig(max_adapters=8, rank=rank)
+    S, N = lcfg.n_slots, tokens
+    pages = -(-N // PS)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get_model_config(model), num_layers=1, dtype=dtype)
+        g = torch.Generator().manual_seed(seed)
+        params = init_params(cfg, g, device=device)
+        bank = init_lora_params(cfg, lcfg, device)
+        ranks = [RankMesh(MeshConfig(tp=2), q, device, {}) for q in (0, 1)]
+        rparams = [shard_params(params, q, param_logical_axes(cfg), engine_rules(cfg, 1, False))
+                   for q in ranks]
+        rbanks = [shard_params(init_lora_params(cfg, lcfg, device), q, lora_bank_axes())
+                  for q in ranks]
+        for slot in range(1, S):  # the engine's slot write, on one card and on each rank
+            w = {}
+            for key, b in bank.items():
+                shape = b[:, :, slot].shape if key.startswith("lora_A_") else b[:, slot].shape
+                scale = shape[1] ** -0.5 if key.startswith("lora_A_") else 0.05
+                w[key] = torch.randn(shape, generator=g) * scale
+            for pb, mesh in [(bank, None)] + list(zip(rbanks, ranks)):
+                LLMEngine._op_lora_write(SimpleNamespace(_lora_params=pb, rank_mesh=mesh,
+                                                         device=device), slot=slot, weights=w)
+        toks = torch.randint(1, cfg.vocab_size, (N,), generator=g).to(device)
+        idx = torch.randint(0, S, (N,), generator=g).to(device)
+        inputs = dict(positions=torch.arange(N, dtype=torch.int32, device=device),
+                      seq_slots=torch.zeros(N, dtype=torch.int32, device=device),
+                      page_tables=torch.arange(pages, dtype=torch.int32, device=device)[None],
+                      kv_lens=torch.tensor([N], dtype=torch.int32, device=device),
+                      lora_indices=idx, lora_scale=lcfg.scale)
+        attn: dict = {}
+
+        def recorded(key):
+            def impl(q, cache, pt, pos, sids, lens, *, scale, **_):
+                attn[key] = paged_attention_ref(q, cache, pt, pos, sids, lens, scale=scale)
+                return attn[key]
+            return impl
+
+        one = forward_core(cfg, params | bank, init_cache(cfg, pages, PS, device=device),
+                           toks, attn_impl=recorded("one"), **inputs)[0]
+        pair = _TwoRanksOnOneCard()
+        hidden = pair.run(lambda r: forward_core(
+            cfg, rparams[r] | rbanks[r], init_cache(cfg, pages, PS, device=device, tp=2), toks,
+            attn_impl=recorded(r), mesh=pair.meshes[r], **inputs)[0])
+        # the reduces: the embedding's, wo's, the MLP's; wo's output is the second
+        o_tp = pair.meshes[0].reduced[1]
+        x = torch.cat([attn[0], attn[1]], dim=1).reshape(N, -1)
+        m = slot_mask(idx, S, x.dtype)
+        A, B = bank["lora_A_wo"][0], bank["lora_B_wo"][0]
+        o_one = linear(params, "wo", 0, x) + apply_lora(x, A, B, m, lcfg.scale)
+        ref = (linear({"wo": params["wo"].float()}, "wo", 0, x.float())
+               + apply_lora(x.float(), A.float(), B.float(), m.float(), lcfg.scale))
+        unit = 2.0 ** -8 * ref.abs().max().item()
+        row = {"ranks_equal": torch.equal(hidden[0], hidden[1])
+               and torch.equal(o_tp, pair.meshes[1].reduced[1]),
+               "hidden_max_abs_vs_one_card": (hidden[0].float() - one.float()).abs().max().item(),
+               "wo_max_abs_vs_one_card": (o_tp.float() - o_one.float()).abs().max().item(),
+               "wo_rounding_units": (o_tp.float() - ref).abs().max().item() / unit,
+               "wo_one_card_rounding_units": (o_one.float() - ref).abs().max().item() / unit}
+        out[dtype] = row
+        log(f"mesh: lora tp=2 {dtype} forward_core, one {cfg.name} layer, S={S} r={rank} "
+            f"N={N}: ranks equal {row['ranks_equal']}, hidden max_abs_vs_one_card "
+            f"{row['hidden_max_abs_vs_one_card']:.3g}, wo + adapter after the reduce "
+            f"max_abs_vs_one_card {row['wo_max_abs_vs_one_card']:.3g}, rounding_units "
+            f"{row['wo_rounding_units']:.3f} (one card {row['wo_one_card_rounding_units']:.3f})")
+        if dtype == "float32":
+            ok = (row["hidden_max_abs_vs_one_card"] <= 1e-5
+                  and row["wo_max_abs_vs_one_card"] <= 1e-5)
+        else:
+            ok = row["wo_rounding_units"] <= row["wo_one_card_rounding_units"] + 1.0
+        if not (ok and row["ranks_equal"]):
+            raise AssertionError(f"mesh: lora tp=2 {dtype}: the ranks' forward differs from "
+                                 f"the one-card forward: {row}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"mesh: lora shard check {out['seconds']:.2f} s")
+    return out
+
+
+class _TwoRanksOnOneCard:
+    """Two tp=2 ranks on this card, each a thread of ``run``: ``meshes[r]``
+    is what the engine's code reads of rank r's ``parallel/mesh.RankMesh``
+    (its place on the mesh, and the collectives as the ranks' parts met at
+    a barrier: the all-gather in rank order, the sum in the parts' dtype,
+    the scatter of rank 0's parts, the broadcast of rank 0's tensor)."""
+
+    class Mesh:
+        def __init__(self, pair, r: int) -> None:
+            from llmd_tpu_torch.engine.config import MeshConfig
+
+            self.pair, self.rank, self.cfg = pair, r, MeshConfig(tp=2)
+            self.reduced: list = []  # every sum this rank's reduce returned
+
+        def size(self, axes) -> int:
+            return 2 if axes == "tp" else 1
+
+        def index(self, axes) -> int:
+            return self.rank if axes == "tp" else 0
+
+        def _meet(self, x) -> list:
+            p = self.pair
+            p.parts[self.rank] = x
+            p.barrier.wait()
+            parts = list(p.parts)
+            p.barrier.wait()
+            return parts
+
+        def gather(self, x: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
+            return torch.cat(self._meet(x), dim=dim)
+
+        def reduce(self, x: torch.Tensor, axes) -> torch.Tensor:
+            a, b = self._meet(x)
+            self.reduced.append(a + b)
+            return self.reduced[-1]
+
+        def scatter(self, out: torch.Tensor, parts) -> torch.Tensor:
+            return out.copy_(self._meet(parts)[0][self.rank])
+
+        def broadcast(self, x: torch.Tensor) -> torch.Tensor:
+            return x.copy_(self._meet(x)[0])
+
+    def __init__(self) -> None:
+        self.parts = [None, None]
+        self.barrier = threading.Barrier(2, timeout=60)
+        self.meshes = [self.Mesh(self, r) for r in (0, 1)]
+
+    def run(self, fn) -> list:
+        """``fn(r)`` on both ranks at once: their results, rank 0's first."""
+        res, errs = [None, None], []
+
+        def one(r):
+            try:
+                res[r] = fn(r)
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errs.append(e)
+                self.barrier.abort()
+
+        threads = [threading.Thread(target=one, args=(r,)) for r in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        if errs:
+            raise errs[0]
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("mesh: two ranks on one card did not finish in 120 s")
+        return res
+
+    def pool_op(self, halves, cfg, num_pages: int, op: str, host: dict, **kw) -> list:
+        """The engine's ``_op_<op>`` (``engine/engine.py``) on both ranks,
+        rank r over pool plane half ``halves[r]``; ``host`` goes to rank 0
+        alone, as ``LLMEngine._op`` passes it."""
+        from types import SimpleNamespace
+
+        from llmd_tpu_torch.engine.engine import LLMEngine
+
+        def rank(r):
+            eng = SimpleNamespace(rank_mesh=self.meshes[r], cache=halves[r], model_cfg=cfg,
+                                  cfg=SimpleNamespace(num_pages=num_pages))
+            return getattr(LLMEngine, "_op_" + op)(eng, **kw, **(host if r == 0 else {}))
+
+        return self.run(rank)
+
+
+def pages_split_check(device, seed: int = 0, num_pages: int = 256, n: int = 48) -> dict:
+    """The KV data plane's pool ops at tp=2 on this card: a llama-1b pool (16
+    layers, 16 planes of 64, pages of 16) in bfloat16 and in fp8 split into
+    its two tp ranks' plane halves; ``pages_out`` of ``n`` scattered pages
+    (each rank its planes, all-gathered over tp) against the one-card
+    ``extract_blocks`` of the whole pool: the same bytes exactly; then
+    ``pages_in`` of those blocks into halves whose pages were zeroed (rank 0
+    scatters each rank its planes): both halves restored exactly."""
+    from llmd_tpu_torch.disagg.transfer import extract_blocks
+    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.models.transformer import init_cache
+
+    cfg = get_model_config("llama-1b")
+    rng = np.random.default_rng(seed)
+    pids = sorted(rng.choice(num_pages, n, replace=False).tolist())
+    out = {}
+    for label, dtype in (("bfloat16", torch.bfloat16), ("fp8", torch.float8_e4m3fn)):
+        t0 = time.perf_counter()
+        pool = init_cache(cfg, num_pages, PS, dtype=torch.bfloat16, device=device)
+        pool.copy_(torch.randn(pool.shape, device=device, dtype=torch.float32))
+        pool = pool.to(dtype)
+        want = extract_blocks(pool, pids, num_pages)
+        half = pool.shape[2] // 2
+        halves = [pool[:, :, q * half:(q + 1) * half].contiguous() for q in (0, 1)]
+        pair = _TwoRanksOnOneCard()
+        got = pair.pool_op(halves, cfg, num_pages, "pages_out", {},
+                           pids=np.asarray(pids, np.int64))[0]
+        same_out = torch.equal(got.view(torch.uint8).cpu(), want.view(torch.uint8))
+        rows = (torch.arange(cfg.num_layers)[:, None] * num_pages
+                + torch.tensor(pids)[None, :]).reshape(-1).to(device)
+        for h in halves:
+            h.view(torch.uint8).index_fill_(0, rows, 0)
+        pair.pool_op(halves, cfg, num_pages, "pages_in", {"blocks": want},
+                     pids=np.asarray(pids, np.int64))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        same_in = all(torch.equal(h.view(torch.uint8), pool[:, :, q * half:(q + 1) * half]
+                                  .contiguous().view(torch.uint8))
+                      for q, h in enumerate(halves))
+        out[label] = {"pages": n, "bytes": want.numel() * want.element_size(),
+                      "pages_out_equal": same_out, "pages_in_equal": same_in,
+                      "seconds": time.perf_counter() - t0}
+        log(f"mesh: pages tp=2 {label} pool {tuple(pool.shape)} {n} pages "
+            f"({out[label]['bytes']} B): pages_out bytes == one-card extract_blocks "
+            f"{same_out}, pages_in restored both halves {same_in}; "
+            f"{out[label]['seconds']:.2f} s")
+        if not (same_out and same_in):
+            raise AssertionError(f"mesh: pages tp=2 {label}: {out[label]}")
     return out
 
 
 def phase_mesh(device, card: str, tm: dict) -> dict:
     """The mesh phase: the rank-shaped kernel checks and times, NCCL in a
-    graph, and the NCCL worlds when the machine has the cards."""
+    graph, the adapter bank's and the pool's tp=2 splits on this card, and
+    the NCCL worlds when the machine has the cards."""
     t0 = time.perf_counter()
     out = {"check": mesh_kernel_checks(device), "time": time_mesh_kernels(device, tm),
-           "nccl_graph": nccl_graph_check(), "worlds": mesh_worlds(device, card)}
+           "nccl_graph": nccl_graph_check(), "lora_shards": lora_shard_check(device),
+           "pages": pages_split_check(device), "worlds": mesh_worlds(device, card)}
     out["seconds"] = time.perf_counter() - t0
     log(f"mesh: phase {out['seconds']:.1f} s on {card}")
     return out

@@ -38,6 +38,15 @@ pinned host memory runs on a side stream behind an event recorded after the
 gather, and ``drain_staged`` waits on that copy's own event, off the engine
 lock, never on the whole device.
 
+An engine's pool is read and written here only through ``engine.kv_pool``
+(:class:`PoolView`), whose reads and writes are the engine's ``pages_out``
+and ``pages_in`` ops. On one device they gather and insert in place; a
+meshed engine's pool is sharded over its tp ranks, and there ``pages_out``
+all-gathers the tp planes to rank 0 before the staging copy and
+``pages_in`` scatters each rank its planes from rank 0's device, so the
+wire bytes are the one-card pool's and a meshed P feeds a one-card D, and
+the reverse.
+
 ``transport``: ``"native"`` = the C++ data plane (``csrc/kv_transfer.cpp``,
 built with g++ at first use; raises if the build fails), ``"python"`` =
 threaded sockets, ``"auto"`` = native unless a ``prefix_provider`` is set
@@ -53,8 +62,9 @@ import struct
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from llmd_tpu_torch.kv.dtypes import dtype_name, from_bytes, nbytes, to_bytes
@@ -93,7 +103,8 @@ def gather_pages(cache: torch.Tensor, page_ids, pages_per_layer: Optional[int]) 
     return raw.view(cache.dtype)
 
 
-def _as_pool_dtype(blocks: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def as_pool_dtype(blocks: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``blocks`` in a pool's ``dtype``."""
     if blocks.dtype == dtype:
         return blocks
     if dtype == torch.float8_e4m3fn:
@@ -119,7 +130,7 @@ def insert_blocks(cache: torch.Tensor, page_ids: list[int], blocks: torch.Tensor
     ``cache`` itself (the reference returns a new array)."""
     rows = _rows(cache, page_ids, pages_per_layer)
     L, n = rows.shape
-    dev = _as_pool_dtype(blocks.to(cache.device, non_blocking=True), cache.dtype)
+    dev = as_pool_dtype(blocks.to(cache.device, non_blocking=True), cache.dtype)
     dev = dev.transpose(0, 1).reshape(L * n, *cache.shape[1:])
     cache.view(torch.uint8).index_copy_(0, rows.reshape(-1), dev.contiguous().view(torch.uint8))
     return cache
@@ -527,26 +538,26 @@ class StagedPart:
     whole: Optional[torch.Tensor] = None
 
 
-def stage_pages(cache: torch.Tensor, page_ids: list[int], pages_per_layer: int,
+def stage_pages(gather: Callable[[list[int]], torch.Tensor], page_ids: list[int],
                 staging_pages: int = 16) -> list[StagedPart]:
     """Gather the pages in chunks of ``staging_pages`` on the current stream
-    (the engine's) and start each chunk's copy into its slice of one pinned
-    host buffer, on a side stream behind an event; returns the in-flight
-    parts ([n_i, L, ps, 2Hk, D] each). Cheap (no host wait): safe under the
-    engine lock, and a later step that rewrites a released page is ordered
-    after the gather."""
+    (the engine's; ``gather(ids)`` gives a chunk's blocks on a device, as
+    :meth:`PoolView.gather` does) and start each chunk's copy into its slice
+    of one pinned host buffer, on a side stream behind an event; returns the
+    in-flight parts ([n_i, L, ps, 2Hk, D] each). Cheap (no host wait): safe
+    under the engine lock, and a later step that rewrites a released page is
+    ordered after the gather."""
     parts: list[StagedPart] = []
     step = max(1, staging_pages)
     whole = None
-    if cache.device.type == "cuda" and page_ids:
-        L, _ = _layers(cache, pages_per_layer)
-        whole = torch.empty((len(page_ids), L, *cache.shape[1:]), dtype=cache.dtype,
-                            pin_memory=True)
     for i in range(0, len(page_ids), step):
-        part = gather_pages(cache, page_ids[i : i + step], pages_per_layer)
-        if whole is None:
+        part = gather(page_ids[i : i + step])
+        if part.device.type != "cuda":
             parts.append(StagedPart(part))
             continue
+        if whole is None:
+            whole = torch.empty((len(page_ids), *part.shape[1:]), dtype=part.dtype,
+                                pin_memory=True)
         gathered = torch.cuda.Event()
         gathered.record()
         side = _copy_stream(part.device)
@@ -576,6 +587,38 @@ def drain_staged(parts: list[StagedPart]) -> torch.Tensor:
     return torch.cat([p.host for p in parts], dim=0)
 
 
+class PoolView:
+    """An engine's pool as the KV data plane reads and writes it (``LLMEngine.
+    kv_pool``): whole blocks ``[n, L, ps, planes, D]`` out and in through the
+    engine's ``pages_out`` / ``pages_in`` ops, which a meshed engine runs on
+    every rank in command order. ``shape``, ``dtype`` and ``device`` are the
+    one-card pool's (every plane: ``[L*P + 1, ps, 2Hk, D]``, an MLA pool's
+    one plane; rank 0's device). So the KVT1 wire, the offload tiers, the
+    durable store and a connector see the one-card block bytes whatever the
+    engine's mesh: planes K0, V0, K1, V1, ... across the tp ranks, rank r
+    holding ``[r*2Hk/tp, (r+1)*2Hk/tp)``."""
+
+    def __init__(self, engine) -> None:
+        self._engine = engine
+        c, cfg = engine.cache, engine.model_cfg
+        planes = c.shape[2] if cfg.is_mla else 2 * cfg.num_kv_heads
+        self.shape = (c.shape[0], c.shape[1], planes, c.shape[3])
+        self.dtype, self.device = c.dtype, c.device
+
+    def gather(self, page_ids) -> torch.Tensor:
+        """[n, L, ps, planes, D] on the pool's device (under a mesh the tp
+        all-gather of the ranks' planes, on the engine's stream), ready for
+        the caller's copy."""
+        return self._engine._op("pages_out", pids=np.asarray(list(page_ids), np.int64))
+
+    def insert(self, page_ids, blocks: torch.Tensor) -> None:
+        """Write whole blocks (on the host or a device, any dtype the pool
+        converts) into the pages, in place; under a mesh only the page ids
+        travel in the command stream, the blocks go card to card."""
+        self._engine._op("pages_in", pids=np.asarray(list(page_ids), np.int64),
+                         host={"blocks": blocks})
+
+
 @dataclass
 class StagedExport:
     """In-flight staging of one request's KV export: the engine lock can be
@@ -587,18 +630,9 @@ class StagedExport:
     parts: list[StagedPart]
 
 
-def refuse_mesh(engine) -> None:
-    """The KV data plane reads and writes one pool: a meshed engine's pool
-    is sharded over its ranks (ROADMAP Queue A item 6c)."""
-    if getattr(engine, "rank_mesh", None) is not None:
-        raise NotImplementedError("KV export, inject and offload under a mesh: "
-                                  "ROADMAP Queue A item 6c")
-
-
 def _stage(engine, pids: list[int], staging_pages: int) -> list[StagedPart]:
-    refuse_mesh(engine)
     with engine._on_stream():
-        return stage_pages(engine.cache, pids, engine.cfg.num_pages, staging_pages)
+        return stage_pages(engine.kv_pool.gather, pids, staging_pages)
 
 
 def export_begin(engine, request_id: str, token_ids: list[int],
@@ -682,10 +716,10 @@ def inject_into_engine(engine, pulled: PulledKV, token_ids: list[int],
     place (its address is baked into the captured decode programs)."""
     from llmd_tpu_torch.core.kv_events import block_keys_for_tokens
 
-    refuse_mesh(engine)
     ps = engine.cfg.page_size
-    L, _ = _layers(engine.cache, engine.cfg.num_pages)
-    local_shape = (L,) + tuple(engine.cache.shape[1:])
+    pool = engine.kv_pool
+    L, _ = _layers(pool, engine.cfg.num_pages)
+    local_shape = (L,) + tuple(pool.shape[1:])
     if tuple(pulled.blocks.shape[1:]) != local_shape:
         # a peer with another pool layout or page geometry: dtypes convert,
         # shapes cannot; refuse loudly so it reads as a config error
@@ -723,7 +757,7 @@ def _inject(engine, pulled: PulledKV, token_ids: list[int], lora_key: Optional[s
     if len(take) < blocks.shape[0]:  # uint8 view: index_select takes no fp8 on the CPU
         idx = torch.tensor([i for i, _ in take], dtype=torch.int64)
         blocks = blocks.view(torch.uint8).index_select(0, idx).view(blocks.dtype)
-    insert_blocks(engine.cache, [p for _, p in take], blocks, engine.cfg.num_pages)
+    engine.kv_pool.insert([p for _, p in take], blocks)
     for i, pid in take:
         h = pulled.block_hashes[i]
         # prefix pulls ship empty chunks; the verified chain proves the local

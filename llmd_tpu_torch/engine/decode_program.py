@@ -26,6 +26,13 @@ the previous call's state, as the reference keeps its automaton on the
 device. The tables live in two static buffers indexed by a per-row base
 (``DecodeBuffers.table_rows`` = grammar slot x padded state count), so one
 captured graph serves every table shape.
+
+Under a mesh every rank holds the same tables and the same per-row bases:
+the engine's ``mask_stage`` op stages a plan's tables on every rank and its
+``decode`` op carries a masked chain start's bases and entry states, so a
+worker captures the masked program at the same command as rank 0 (the
+collectives inside it pair), and the bias, applied to the logits gathered
+over tp, is the whole vocabulary's on every rank.
 """
 
 from __future__ import annotations

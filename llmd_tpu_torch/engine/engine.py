@@ -125,15 +125,23 @@ this engine rank 0. Params are quantized, then sharded
 (``parallel/mesh.shard_params``), and each rank holds its 2*Hk/tp planes of
 the pool (an MLA pool whole). Every device touch is an ``_op_<name>`` method
 over host arrays (``unified`` and ``sample``, ``decode``, ``verify``,
-``embed``, ``eplb``); ``_op`` sends (name, arrays) to the workers, whose
+``embed``, ``eplb``, ``lora_write``, ``mask_stage``, ``pages_out``,
+``pages_in``); ``_op`` sends (name, arrays) to the workers, whose
 engines run the same method on their shards with the same collectives, the
-decode program's capture included, so the workers' decode chains stay on
-their devices as rank 0's. Rank 0 alone schedules, reads results back,
-publishes KV events and serves ``/metrics``; it decides each EPLB
-rebalance and sends the map. Under sp > 1 the ``unified_ring`` program
-(``ops/ring_attention.py``) serves a step of one fresh prompt at offset 0
-(``n_ring_prefill_steps``, ``sp_attn_backend``). LoRA, media rows, the KV
-data plane and the masked programs under a mesh raise (ROADMAP item 6c).
+decode programs' captures included (the masked one at the same command on
+every rank), so the workers' decode chains stay on their devices as rank
+0's. Rank 0 alone schedules, reads results back, publishes KV events and
+serves ``/metrics``; it decides each EPLB rebalance and sends the map. Under
+sp > 1 the ``unified_ring`` program (``ops/ring_attention.py``) serves a
+step of one fresh prompt at offset 0 (``n_ring_prefill_steps``,
+``sp_attn_backend``). What exists only on rank 0 reaches every rank in the
+same stream: an adapter slot write (each rank keeps its block,
+``parallel/mesh.lora_bank_axes``), the masked programs' tables, the media
+rows of a unified op, and every pool read or write of the KV data plane
+(``kv_pool``: ``pages_out`` gathers the tp planes to rank 0, ``pages_in``
+scatters each rank its planes from rank 0's device), so the offload tiers, the connector, the
+durable tier and P/D move the one-card engine's block bytes. Workers hold no
+KV data plane: their allocators never run, so no evict hook fires there.
 
 Metrics: ``self.registry`` holds the reference's engine families
 (``obs/metrics.py``), moved at the reference's sites from numbers the host
@@ -210,7 +218,8 @@ import torch
 
 from llmd_tpu_torch.core.kv_events import KVEvent, block_keys_for_tokens
 from llmd_tpu_torch.core.request import SamplingParams
-from llmd_tpu_torch.disagg.transfer import drain_staged, gather_pages, stage_pages
+from llmd_tpu_torch.disagg.transfer import (
+    PoolView, as_pool_dtype, drain_staged, gather_pages, insert_blocks, stage_pages)
 from llmd_tpu_torch.engine.config import EngineConfig
 from llmd_tpu_torch.engine.cuda_graph import CapturedProgram
 from llmd_tpu_torch.engine.decode_program import (
@@ -255,7 +264,9 @@ from llmd_tpu_torch.ops.paged_attention import paged_attention, paged_attention_
 from llmd_tpu_torch.ops.ring_attention import make_ring_attn_impl, ring_layout
 from llmd_tpu_torch.parallel.eplb import ExpertLoadTracker, balance_ratio, rebalance
 from llmd_tpu_torch.parallel.launch import World, WorldError
-from llmd_tpu_torch.parallel.mesh import engine_rules, param_logical_axes, shard_params
+from llmd_tpu_torch.parallel.mesh import (
+    engine_rules, lora_adapter_block, lora_bank_axes, param_logical_axes, rank_coords,
+    shard_params)
 from llmd_tpu_torch.structured import (
     NEG_BIAS, StructuredState, compile_grammar, parse_logit_bias, structured_spec)
 
@@ -551,7 +562,6 @@ class LLMEngine:
             if rank_mesh is not None:
                 raise ValueError("rank_mesh given for a one-device mesh")
             return
-        self._check_mesh_served()
         if rank_mesh is None:
             self._owned_world = World.start(mesh.num_devices, self.device.type)
             try:
@@ -570,24 +580,6 @@ class LLMEngine:
                 "params": None if params is None else {k: v.cpu() for k, v in params.items()},
                 "record_ops": self._world.record_ops}))
 
-    def _check_mesh_served(self) -> None:
-        """What a mesh does not serve yet (ROADMAP Queue A item 6c): each
-        needs per-rank state in the command stream."""
-        cfg = self.cfg
-        off = []
-        if cfg.lora is not None:
-            off.append("LoRA (EngineConfig.lora)")
-        if cfg.cpu_offload_pages > 0 or cfg.offload_fs_path:
-            off.append("the KV offload tiers")
-        if cfg.kv_connector:
-            off.append("the KV connector")
-        if DurableStoreConfig.from_env().enabled:
-            off.append("the durable KV tier (LLMD_KV_DURABLE_STORE)")
-        if off:
-            raise NotImplementedError(
-                f"{', '.join(off)} under a mesh of {cfg.mesh.num_devices} devices: "
-                "ROADMAP Queue A item 6c")
-
     def _init_ring(self) -> None:
         """The ``unified_ring`` program (reference ``engine.py:830-855``):
         under sp > 1 with ``sp_ring_attention``, a step of one fresh
@@ -603,13 +595,17 @@ class LLMEngine:
         self.programs.register("unified_ring")
         self.sp_attn_backend = self.stats.sp_attn_backend = f"ring_{layout}(sp={mesh.sp})"
 
-    def _op(self, name: str, **kw):
+    def _op(self, name: str, host: Optional[dict] = None, **kw):
         """Run device op ``name`` here and, on rank 0 of a mesh, on every
-        worker (sent first: the workers' collectives meet this rank's)."""
+        worker (sent first: the workers' collectives meet this rank's).
+        ``host``: arguments for this rank alone, the bulk data that the op
+        itself moves from this rank's device to the others'."""
+        fn = getattr(self, "_op_" + name)
+        here = kw | (host or {})
         if self._world is None:
-            return getattr(self, "_op_" + name)(**kw)
+            return fn(**here)
         self._world.send(("op", name, kw))
-        return self._world.local(getattr(self, "_op_" + name), **kw)
+        return self._world.local(fn, **here)
 
     def _log_op(self, t: torch.Tensor) -> None:
         if self._op_log is not None:
@@ -633,9 +629,17 @@ class LLMEngine:
 
     def _init_kv_plane(self, event_sink) -> None:
         """The offload tiers, the external connector and the durable tier
-        (reference constructor, ``engine/engine.py:266-322``)."""
+        (reference constructor, ``engine/engine.py:266-322``). Rank 0's
+        alone under a mesh: a worker's pool moves only through the
+        ``pages_out`` / ``pages_in`` ops rank 0 sends."""
         cfg = self.cfg
         self.offload = None
+        self.kv_connector = None
+        self._connector_pool = None
+        self.durable = None
+        self.writeback = None
+        if self.rank_mesh is not None and self._world is None:
+            return
         if cfg.cpu_offload_pages > 0 or cfg.offload_fs_path:
             fs = FSKVBackend(cfg.offload_fs_path) if cfg.offload_fs_path else None
             self.offload = KVOffloadConnector(
@@ -650,15 +654,11 @@ class LLMEngine:
             self.metrics.offload_cpu_blocks.set_function(lambda: len(store))
         # the out-of-tree connector: an external engine behind the native tiers;
         # one drain thread streams saves out in retirement order, off the step loop
-        self.kv_connector = None
-        self._connector_pool = None
         if cfg.kv_connector:
             self.kv_connector = build_kv_connector(cfg.kv_connector, cfg.kv_connector_params)
             self._connector_pool = concurrent.futures.ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="kv-connector")
         # the cluster-durable prefix tier: off unless LLMD_KV_DURABLE_STORE is set
-        self.durable = None
-        self.writeback = None
         durable_cfg = DurableStoreConfig.from_env()
         if durable_cfg.enabled:
             self.durable = DurableStoreClient(durable_cfg)
@@ -671,11 +671,58 @@ class LLMEngine:
                     alloc.evict_hook = _weak_method(self._durable_evict)
 
     def _offload_evict(self, h: int, pid: int) -> None:
-        self.offload.on_evict(self.cache, h, pid)
+        self.offload.on_evict(self.kv_pool, h, pid)
 
     def _durable_evict(self, h: int, pid: int) -> None:
-        block = gather_pages(self.cache, [pid], self.cfg.num_pages)
-        self.writeback.offer([h], to_host(block))
+        self.writeback.offer([h], to_host(self.kv_pool.gather([pid])))
+
+    @property
+    def kv_pool(self) -> PoolView:
+        """The pool as the KV data plane reads and writes it, whole blocks
+        ``[n, L, ps, planes, D]`` in and out through the ``pages_out`` /
+        ``pages_in`` ops (``disagg/transfer.PoolView``)."""
+        return PoolView(self)
+
+    def _op_pages_out(self, pids: np.ndarray) -> Optional[torch.Tensor]:
+        """The pages' whole blocks on rank 0's device (None on a worker). On
+        a mesh each rank of rank 0's tp group gathers its planes and the
+        planes are all-gathered over tp in rank order, byte for byte (a
+        uint8 view: fp8 pools move as their bytes). An MLA pool is whole on
+        every rank: rank 0 reads its own."""
+        mesh = self.rank_mesh
+        if mesh is None:
+            return gather_pages(self.cache, pids.tolist(), self.cfg.num_pages)
+        whole = self.model_cfg.is_mla or mesh.size("tp") == 1
+        if mesh.rank != 0 and (whole or mesh.index(("dp", "sp", "ep")) != 0):
+            return None  # not in rank 0's tp group: nothing of this rank is read
+        part = gather_pages(self.cache, pids.tolist(), self.cfg.num_pages)
+        if not whole:
+            raw = mesh.gather(part.view(torch.uint8), "tp", dim=3).contiguous()
+            part = raw.view(part.dtype)
+        return part if mesh.rank == 0 else None
+
+    def _op_pages_in(self, pids: np.ndarray, blocks: Optional[torch.Tensor] = None) -> None:
+        """Write whole blocks ``[n, L, ps, planes, D]`` (rank 0's ``blocks``,
+        on the host or a device) into the pages, in place. On a mesh rank 0
+        moves them to its device in the pool's dtype and scatters each rank
+        its tp planes ``[r*planes, (r+1)*planes)`` (an MLA pool: all of
+        them) as uint8 views, device to device; the workers get only the
+        page ids in the command stream."""
+        mesh, c, P = self.rank_mesh, self.cache, self.cfg.num_pages
+        if mesh is None:
+            insert_blocks(c, pids.tolist(), blocks, P)
+            return
+        mine = torch.empty((len(pids), (c.shape[0] - 1) // P, *c.shape[1:]), dtype=c.dtype,
+                           device=c.device)
+        parts = None
+        if mesh.rank == 0:
+            raw = as_pool_dtype(blocks.to(c.device), c.dtype).view(torch.uint8)
+            k = c.shape[2]
+            whole = self.model_cfg.is_mla or mesh.size("tp") == 1
+            parts = [(raw if whole else raw.narrow(3, rank_coords(mesh.cfg, r)["tp"] * k, k))
+                     .contiguous() for r in range(mesh.cfg.num_devices)]
+        mesh.scatter(mine.view(torch.uint8), parts)
+        insert_blocks(c, pids.tolist(), mine, P)
 
     def close(self) -> None:
         """Give the engine's device memory back now and break the reference
@@ -969,6 +1016,9 @@ class LLMEngine:
         # a displaced idle adapter's cached KV is invalid once its slot is reused
         self.lora_registry.on_evict = _weak_method(self._lora_forget)
         self._lora_params = init_lora_params(self.model_cfg, lcfg, self.device)
+        if self.rank_mesh is not None:  # this rank's block (reference engine.py:441-447)
+            self._lora_params = shard_params(self._lora_params, self.rank_mesh,
+                                             lora_bank_axes())
         self._lora_scale = lcfg.scale
 
     def _lora_slot(self, seq: Sequence) -> int:
@@ -1015,14 +1065,25 @@ class LLMEngine:
         return out
 
     def _lora_write_slot(self, slot: int, weights: dict[str, torch.Tensor]) -> None:
-        """Zero bank slot ``slot`` and copy ``weights`` into it, in place on
-        the engine's stream (after every call already launched)."""
+        """Zero bank slot ``slot`` and copy ``weights`` into it on every
+        rank (the ``lora_write`` op; a mesh's workers get host copies)."""
+        if self._world is not None:
+            weights = {k: v.cpu() for k, v in weights.items()}
         with torch.no_grad(), self._on_stream():
-            for key, bank in self._lora_params.items():
-                view = bank[:, :, slot] if key.startswith("lora_A_") else bank[:, slot]
-                view.zero_()
-                if key in weights:
-                    view.copy_(weights[key])
+            self._op("lora_write", slot=slot, weights=weights)
+
+    def _op_lora_write(self, slot: int, weights: dict[str, torch.Tensor]) -> None:
+        """Zero bank slot ``slot`` and copy this rank's block of each whole
+        ``weights`` leaf into it, in place on the engine's stream (after
+        every call already launched; the captured decode graphs read it)."""
+        for key, bank in self._lora_params.items():
+            view = bank[:, :, slot] if key.startswith("lora_A_") else bank[:, slot]
+            view.zero_()
+            if key in weights:
+                w = weights[key]
+                if self.rank_mesh is not None:
+                    w = lora_adapter_block(key, w, self.rank_mesh)
+                view.copy_(w.to(device=self.device, dtype=view.dtype))
 
     def load_lora_adapter(self, name: str, weights: Optional[dict] = None,
                           seed: Optional[int] = None) -> int:
@@ -1130,11 +1191,6 @@ class LLMEngine:
         structured: Optional[StructuredState] = None
         compile_meta: Optional[tuple[str, bool, float]] = None
         spec = structured_spec(sampling)
-        if self.rank_mesh is not None and (spec is not None or logit_bias or mm_items
-                                           or lora_id):
-            raise NotImplementedError(
-                "structured outputs, logit_bias (the masked programs), media rows and "
-                "LoRA adapters under a mesh: ROADMAP Queue A item 6c")
         if spec is not None:
             if self.cfg.structured_mode == "off":
                 raise ValueError("structured outputs are disabled (structured_mode='off')")
@@ -1315,7 +1371,8 @@ class LLMEngine:
         """Pull CPU/FS-tier blocks back into freshly allocated pages and
         re-index them (they emit BlockStored gpu again: resident now)."""
         pids = self._load_blocks(seq, keys, n_hbm, n_offload, lambda hashes, pids: (
-            self.offload.load_into_cache(self.cache, hashes, pids, request_id=seq.request_id)))
+            self.offload.load_into_cache(self.kv_pool, hashes, pids,
+                                         request_id=seq.request_id)))
         self.stats.total_offload_loads += len(pids)
         return pids
 
@@ -1324,14 +1381,14 @@ class LLMEngine:
         """Pull blocks from the out-of-tree connector's engine into fresh
         pages and commit them as prefix-cache entries."""
         return self._load_blocks(seq, keys, start, n_conn, lambda hashes, pids: (
-            self.kv_connector.load_blocks(self.cache, hashes, pids, self.cfg.num_pages)))
+            self.kv_connector.load_blocks(self.kv_pool, hashes, pids, self.cfg.num_pages)))
 
     def _load_blocks(self, seq: Sequence, keys: list[int], start: int, n: int,
                      load: Callable) -> list[int]:
         """Allocate up to ``n`` pages, have ``load(hashes, pids)`` write the
-        blocks of ``keys[start:]`` into them (in place; it returns the pool and
-        how many it wrote), release the pages of a tail that vanished meanwhile
-        and commit the rest under their keys."""
+        blocks of ``keys[start:]`` into them (in place through ``kv_pool``; it
+        returns the pool and how many it wrote), release the pages of a tail
+        that vanished meanwhile and commit the rest under their keys."""
         if n <= 0:
             return []
         ps, alloc = self.cfg.page_size, self.allocs[seq.rank]
@@ -1343,7 +1400,7 @@ class LLMEngine:
             pids.append(pid)
         if not pids:
             return []
-        self.cache, n_loaded = load(keys[start : start + len(pids)], pids)
+        _, n_loaded = load(keys[start : start + len(pids)], pids)
         for pid in pids[n_loaded:]:
             alloc.release(pid)
         pids = pids[:n_loaded]
@@ -1362,7 +1419,7 @@ class LLMEngine:
         if need <= 0 or not self.alloc.lru:
             return
         n = min(need, self.cfg.offload_staging_blocks, len(self.alloc.lru))
-        self.offload.demote_batch(self.cache, self.alloc.demote_lru(n))
+        self.offload.demote_batch(self.kv_pool, self.alloc.demote_lru(n))
 
     def _ensure_pages(self, seq: Sequence, upto_tokens: int) -> bool:
         need = (upto_tokens + self.cfg.page_size - 1) // self.cfg.page_size
@@ -2035,15 +2092,11 @@ class LLMEngine:
         if mask is None:
             out, cnt, drop = self._op("verify", batch=batch)
         else:
-            batch = {k: self._tensor(v) for k, v in batch.items()}
-            kw = self._verify_kw(N)
             states = verify_states([(d, f, nx) for (_, d), f, nx in
                                     zip(plan, mask["fsm0"], mask["next"])])
             table_rows = np.repeat(mask["table_rows"], [1 + len(d) for _, d in plan])
-            greedy, fsm_next, self.cache, cnt, drop = verify_masked(
-                self.model_cfg, self._run_params(), self.cache, batch, mask["tables"],
-                self._tensor(table_rows), self._tensor(states), **kw)
-            out = torch.cat([greedy, fsm_next])
+            out, cnt, drop = self._op("verify", batch=batch, table_rows=table_rows,
+                                      states=states)
         # the designed sync point: acceptance needs the greedy tokens (and
         # the states after them) on the host
         host = out.cpu().numpy()
@@ -2144,15 +2197,25 @@ class LLMEngine:
                     moe_rows=(torch.arange(N, device=self.device), self._verify_nt()),
                     lora_scale=self._lora_scale, mesh=self.rank_mesh)
 
-    def _op_verify(self, batch: dict[str, np.ndarray]):
+    def _op_verify(self, batch: dict[str, np.ndarray], table_rows: Optional[np.ndarray] = None,
+                   states: Optional[np.ndarray] = None):
         """The verify program on the packed host arrays: (greedy tokens,
-        expert counts, dropped copies)."""
+        expert counts, dropped copies). With ``table_rows`` (each packed
+        row's table base) and ``states`` (its entry automaton state) the
+        masked one over the staged tables: the greedy tokens followed by the
+        states after them."""
         N = batch["tokens"].shape[0]
-        greedy, self.cache, cnt, drop = verify(
-            self.model_cfg, self._run_params(), self.cache,
-            {k: self._tensor(v) for k, v in batch.items()}, **self._verify_kw(N))
-        self._log_op(greedy)
-        return greedy, cnt, drop
+        b = {k: self._tensor(v) for k, v in batch.items()}
+        if table_rows is None:
+            out, self.cache, cnt, drop = verify(
+                self.model_cfg, self._run_params(), self.cache, b, **self._verify_kw(N))
+        else:
+            greedy, fsm_next, self.cache, cnt, drop = verify_masked(
+                self.model_cfg, self._run_params(), self.cache, b, self._mask_buffers,
+                self._tensor(table_rows), self._tensor(states), **self._verify_kw(N))
+            out = torch.cat([greedy, fsm_next])
+        self._log_op(out)
+        return out, cnt, drop
 
     def _spec_release_tail(self, s: Sequence) -> None:
         """Give back the pages grown for rejected draft tokens: trim the
@@ -2222,13 +2285,11 @@ class LLMEngine:
         tables into the masked programs' static buffers (allocated at the
         first masked call); the host arrays are LRU-cached across chains and
         verify steps, and nothing is uploaded when the buffers already hold
-        this plan's tables."""
-        if self._mask_buffers is None:
-            self._mask_buffers = MaskTables.allocate(self.cfg.structured_table_max_elems,
-                                                     self.model_cfg.vocab_size, self.device)
+        this plan's tables. Every rank of a mesh stages the same tables
+        (the ``mask_stage`` op)."""
         tables = self._mask_buffers
         key = (plan["key"], plan["G_pad"], plan["S_pad"])
-        if tables.staged is not None and tables.staged[0] == key:
+        if tables is not None and tables.staged is not None and tables.staged[0] == key:
             return tables
         hit = self._mask_tab_cache.get(key)
         if hit is not None:
@@ -2254,14 +2315,29 @@ class LLMEngine:
             while len(self._mask_tab_cache) > 8:
                 self._mask_tab_cache.popitem(last=False)
         bias, nxt, pins = hit
-        n = bias.shape[0]
-        for dst, src in ((tables.bias, bias), (tables.next, nxt)):
-            src_t = torch.from_numpy(src)
-            if self.device.type == "cuda":
-                src_t = src_t.pin_memory()
-            dst[:n].copy_(src_t, non_blocking=True)
+        self._op("mask_stage", n=bias.shape[0], host={"bias": bias, "nxt": nxt})
+        tables = self._mask_buffers
         tables.staged = (key, pins)
         return tables
+
+    def _op_mask_stage(self, n: int, bias: Optional[np.ndarray] = None,
+                       nxt: Optional[np.ndarray] = None) -> None:
+        """Copy a plan's ``[G_pad * S_pad, V]`` bias and next tables (``n``
+        rows, rank 0's host arrays) into the masked programs' static
+        buffers, allocated at the first stage; on a mesh rank 0 then
+        broadcasts the rows from its device to every rank's buffers."""
+        if self._mask_buffers is None:
+            self._mask_buffers = MaskTables.allocate(self.cfg.structured_table_max_elems,
+                                                     self.model_cfg.vocab_size, self.device)
+        tables = self._mask_buffers
+        for dst, src in ((tables.bias, bias), (tables.next, nxt)):
+            if src is not None:
+                src_t = torch.from_numpy(src)
+                if self.device.type == "cuda":
+                    src_t = src_t.pin_memory()
+                dst[:n].copy_(src_t, non_blocking=True)
+            if self.rank_mesh is not None:
+                self.rank_mesh.broadcast(dst[:n])
 
     @profile_phase("llmd.chain_stage")
     def _stage_chain_masks(self, active: list[Sequence]) -> Optional[dict]:
@@ -2477,14 +2553,25 @@ class LLMEngine:
             self._decode_fn = fn
         return fn
 
-    def _op_decode(self, uploads: dict[str, np.ndarray]) -> torch.Tensor:
-        """A worker's decode call: rank 0's uploads into its static buffers,
-        then the decode program (captured at its first call, as rank 0's,
-        with the collectives inside), chained on its own device outputs."""
-        program = self._decode_program()
+    def _upload_entry(self, table_rows: np.ndarray, fsm0: np.ndarray) -> None:
+        """A masked chain start's per-slot table rows and entry states."""
+        buf = self._decode_bufs
+        buf.table_rows.copy_(self._tensor(table_rows), non_blocking=True)
+        buf.fsm.copy_(self._tensor(fsm0), non_blocking=True)
+
+    def _op_decode(self, uploads: dict[str, np.ndarray], masked: bool = False,
+                   entry: Optional[tuple[np.ndarray, np.ndarray]] = None) -> torch.Tensor:
+        """A worker's decode call: rank 0's uploads into its static buffers
+        (and a masked chain start's table rows and entry states), then the
+        decode program or its masked variant (each captured at its first
+        call, at the same command as rank 0's, with the collectives inside),
+        chained on its own device outputs."""
+        program = self._decode_program(masked=masked)
         buf = self._decode_bufs
         for name, a in uploads.items():  # through pinned memory: no host wait
             getattr(buf, name).copy_(self._tensor(a), non_blocking=True)
+        if entry is not None:
+            self._upload_entry(*entry)
         out = program()
         self._log_op(out)
         return out
@@ -2564,16 +2651,18 @@ class LLMEngine:
         else:
             st.time_host_pack += t1 - wall_start
             self.metrics.step_duration.labels(phase="pack").observe(t1 - wall_start)
+        entry = ((mask["table_rows"], mask["fsm0"]) if chain is None and mask is not None
+                 else None)
         if self._world is not None:  # the workers' copy of this call
-            self._world.send(("op", "decode", {"uploads": {
-                name: host[name].copy() for name in uploads}}))
+            self._world.send(("op", "decode", {
+                "uploads": {name: host[name].copy() for name in uploads},
+                "masked": mask is not None, "entry": entry}))
         program = self._decode_program(masked=mask is not None)
         buf = self._decode_bufs
         for name in uploads:
             getattr(buf, name).copy_(host_t[name], non_blocking=True)
-        if chain is None and mask is not None:
-            buf.table_rows.copy_(self._tensor(mask["table_rows"]), non_blocking=True)
-            buf.fsm.copy_(self._tensor(mask["fsm0"]), non_blocking=True)
+        if entry is not None:
+            self._upload_entry(*entry)
         probes = None
         if (st.n_decode_dispatches + 1) % self._attn_probe_every == 0:
             probes = self._run_phase_probes(active, k, off)
@@ -2869,7 +2958,7 @@ class LLMEngine:
         fails serving."""
         n, ps = len(seq.block_hashes), self.cfg.page_size
         with self._on_stream():
-            parts = stage_pages(self.cache, seq.pages[:n], self.cfg.num_pages,
+            parts = stage_pages(self.kv_pool.gather, seq.pages[:n],
                                 self.cfg.offload_staging_blocks)
         hashes = list(seq.block_hashes)
         chunks = [seq.token_ids[i * ps : (i + 1) * ps] for i in range(n)]

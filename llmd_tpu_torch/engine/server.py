@@ -171,7 +171,6 @@ from llmd_tpu_torch.disagg.transfer import (
     export_begin,
     export_finish,
     inject_into_engine,
-    refuse_mesh,
 )
 from llmd_tpu_torch.engine.async_engine import AsyncLLMEngine, EngineLoopError
 from llmd_tpu_torch.engine.config import EngineConfig
@@ -426,7 +425,6 @@ class EngineServer:
             self.publisher.start(kv_topic(self.address, self.model_name))
             self.kv_events_port = self.publisher.port
         if self.kv_transfer_port is not None:
-            refuse_mesh(self.engine)
             self.transfer_source = KVTransferSource(port=self.kv_transfer_port)
             if plane_mode() == "precise":
                 # serve peers' pull_prefix from the local prefix cache (set

@@ -25,6 +25,10 @@ Both run eagerly (so does the unified program). They pack exactly their real
 rows; the capacity-einsum MoE path is told where they sit in the reference's
 static verify batch (``moe_rows``). Under LoRA every packed row carries its
 sequence's adapter slot (``batch["lora"]``, the reference's ``lora_tok``).
+Under a mesh both run on every rank through the engine's ``verify`` op (the
+masked one with its table bases and entry states, over tables the
+``mask_stage`` op staged on every rank); the logits are gathered over tp
+before the bias and the argmax.
 """
 
 from __future__ import annotations

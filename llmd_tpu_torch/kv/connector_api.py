@@ -16,9 +16,12 @@ Connectors register by name (``register_kv_connector``) and activate through
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import TYPE_CHECKING, Callable, Optional
 
 import torch
+
+if TYPE_CHECKING:
+    from llmd_tpu_torch.disagg.transfer import PoolView
 
 
 class KVConnectorBase:
@@ -35,11 +38,14 @@ class KVConnectorBase:
         raise NotImplementedError
 
     # ------------------------------------------------------------- worker side
-    def load_blocks(self, cache: torch.Tensor, block_hashes: list[int],
+    def load_blocks(self, cache: "PoolView", block_hashes: list[int],
                     page_ids: list[int], pages_per_layer: int):
         """Write the block data for ``block_hashes`` into the given fresh
-        pages. Returns (cache, n_loaded); n_loaded < requested means the tail
-        was unavailable after all (the engine recomputes it)."""
+        pages with ``cache.insert(page_ids, blocks)``: ``cache`` is the
+        engine's ``kv_pool`` (``disagg/transfer.PoolView``, every rank's
+        planes under a mesh).
+        Returns (cache, n_loaded); n_loaded < requested means the tail was
+        unavailable after all (the engine recomputes it)."""
         raise NotImplementedError
 
     def save_blocks(self, block_hashes: list[int], token_chunks: list[list[int]],
@@ -95,8 +101,6 @@ class InMemoryKVConnector(KVConnectorBase):
         return n
 
     def load_blocks(self, cache, block_hashes, page_ids, pages_per_layer):
-        from llmd_tpu_torch.disagg.transfer import insert_blocks
-
         # CONSECUTIVE prefix only: the engine commits returned blocks under
         # block_hashes[:n_loaded] positionally, so skipping a missing middle
         # block would commit wrong bytes under the wrong hash
@@ -108,7 +112,7 @@ class InMemoryKVConnector(KVConnectorBase):
         if not have:
             return cache, 0
         blocks = torch.stack([self.store[h] for h in have])
-        cache = insert_blocks(cache, page_ids[: len(have)], blocks, pages_per_layer)
+        cache.insert(page_ids[: len(have)], blocks)
         self.stats["loaded_blocks"] += len(have)
         return cache, len(have)
 

@@ -10,6 +10,12 @@ padding goes to the scratch row, as ``write_kv`` sends padding slots there
 (the reference drops page id -1). Evicted-but-offloaded blocks keep earning
 prefix hits: the engine checks HBM, then CPU, then FS at admission, and each
 transition emits KV events with the right ``medium``.
+
+``cache`` is the engine's ``kv_pool`` (``disagg/transfer.PoolView``), whose
+gathers and inserts are the engine's ``pages_out`` / ``pages_in`` ops, run
+on every rank of a mesh. The host blocks are the one-card pool's either
+way, so a CPU or FS tier written by a meshed engine reloads into a
+one-card engine, and the reverse.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ from llmd_tpu_torch.core.kv_events import (
     BlockStored,
     KVEvent,
 )
-from llmd_tpu_torch.disagg.transfer import gather_pages, insert_blocks
+from llmd_tpu_torch.disagg.transfer import PoolView
 from llmd_tpu_torch.kv.dtypes import nbytes, to_host
 from llmd_tpu_torch.kv.fs_backend import FSKVBackend
 
@@ -156,19 +162,19 @@ class KVOffloadConnector:
         self.writeback = None
 
     # ------------------------------------------------------------------ evict
-    def on_evict(self, cache: torch.Tensor, block_hash: int, page_id: int) -> None:
+    def on_evict(self, cache: PoolView, block_hash: int, page_id: int) -> None:
         """Backstop for demand outrunning the proactive drain: copy one
         about-to-be-recycled page to the host (one host wait a page; the
         batched ``demote_batch`` is the steady-state route). Runs inside
         ``allocate()``, never while a graph is being captured."""
-        block = to_host(gather_pages(cache, [page_id], self.pages_per_layer))
+        block = to_host(cache.gather([page_id]))
         self.store.put(block_hash, block[0])
         if self.writeback is not None:
             self.writeback.offer([block_hash], block)
         if self.flight is not None:
             self.flight.record_system("kv_offload", n_blocks=1, path="evict")
 
-    def demote_batch(self, cache: torch.Tensor, pairs: list[tuple[int, int]]) -> None:
+    def demote_batch(self, cache: PoolView, pairs: list[tuple[int, int]]) -> None:
         """Offload a batch of demoted pages in ONE gather to the host.
 
         ``pairs`` come from PageAllocator.demote_lru; the pages are already on
@@ -177,7 +183,7 @@ class KVOffloadConnector:
         and the gather is ordered on the engine's stream)."""
         if not pairs:
             return
-        arr = to_host(gather_pages(cache, [pid for _, pid in pairs], self.pages_per_layer))
+        arr = to_host(cache.gather([pid for _, pid in pairs]))
         for (h, _), block in zip(pairs, arr):
             self.store.put(h, block)
         if self.writeback is not None:
@@ -196,11 +202,11 @@ class KVOffloadConnector:
         return n
 
     # ------------------------------------------------------------------ reload
-    def load_into_cache(self, cache: torch.Tensor, block_hashes: list[int],
+    def load_into_cache(self, cache: PoolView, block_hashes: list[int],
                         page_ids: list[int], request_id: Optional[str] = None):
         """Scatter offloaded blocks back into freshly allocated pages, in place.
 
-        Returns (cache, n_loaded): the same tensor, and a count that may stop
+        Returns (cache, n_loaded): the same view, and a count that may stop
         short if a block vanished (the FS evictor raced us); callers
         recompute the remainder. ``request_id``: the request whose flight
         record gets the ``kv_reload`` event."""
@@ -230,7 +236,7 @@ class KVOffloadConnector:
                     stacked[i].view(torch.uint8).copy_(a.view(torch.uint8))
                 else:
                     stacked[i].copy_(a)
-            insert_blocks(cache, pids, stacked, P)
+            cache.insert(pids, stacked)
         if self.flight is not None and request_id and n_loaded:
             self.flight.record(request_id, "kv_reload", n_blocks=n_loaded,
                                bytes=sum(a.numel() * a.element_size() for a in arrays))

@@ -393,8 +393,6 @@ class RemoteKVConnector(KVConnectorBase):
             return 0  # store down/slow = no external hits; serving continues
 
     def load_blocks(self, cache, block_hashes, page_ids, pages_per_layer):
-        from llmd_tpu_torch.disagg.transfer import insert_blocks
-
         want = block_hashes[: len(page_ids)]
         if self._breaker_open("bulk"):
             return cache, 0
@@ -413,7 +411,7 @@ class RemoteKVConnector(KVConnectorBase):
             per = len(body) // int(resp["found"])
             blocks = dtypes.from_bytes(memoryview(body)[: n * per], resp["dtype"],
                                        (n, *resp["shape"]))
-            cache = insert_blocks(cache, page_ids[:n], blocks, pages_per_layer)
+            cache.insert(page_ids[:n], blocks)
             return cache, n
         except (OSError, ConnectionError, KeyError, ValueError, TypeError):
             self._record(ok=False)

@@ -440,7 +440,8 @@ def stage_resident_blocks(engine, max_blocks: int) -> tuple[list[int], list]:
     ``drain_staged(parts)`` OFF the lock to materialize host bytes. Takes the
     tail of the prefix-cache insertion order, i.e. the freshest blocks.
     MLA engines store latent pages in the pool, so the staged bytes are
-    already the compact latent layout.
+    already the compact latent layout. A meshed engine's ``kv_pool``
+    gathers its tp planes first: the bytes are the one-card pool's.
     """
     from llmd_tpu_torch.disagg.transfer import stage_pages
 
@@ -450,6 +451,5 @@ def stage_resident_blocks(engine, max_blocks: int) -> tuple[list[int], list]:
     hashes = [int(h) for h, _pid in pairs]
     pids = [pid for _h, pid in pairs]
     with engine._on_stream():
-        parts = stage_pages(engine.cache, pids, engine.cfg.num_pages,
-                            engine.cfg.offload_staging_blocks)
+        parts = stage_pages(engine.kv_pool.gather, pids, engine.cfg.offload_staging_blocks)
     return hashes, parts

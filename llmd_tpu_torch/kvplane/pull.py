@@ -13,6 +13,10 @@ Both halves ride the existing P/D transfer wire (``disagg/transfer.py``):
   peer frees the registration. Any failure returns 0 — the caller's
   admission ladder then falls through to the host/disk offload tier and
   finally plain re-prefill; a failed pull must never fail the request.
+
+Either side may be a meshed engine: staging and inject read and write its
+pool through ``engine.kv_pool`` (the tp planes gathered to rank 0, each
+rank's planes scattered from rank 0's device), so the wire carries the one-card bytes.
 """
 
 from __future__ import annotations

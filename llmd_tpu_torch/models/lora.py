@@ -18,6 +18,15 @@ and ``lora_B_<t>`` is the reference's ``[L, S, r, Dout]``, one layer's bank
 being the dense expand operand ``[S·r, Dout]``. ``bank_from_reference``
 converts the reference's arrays.
 
+Under a tp mesh each rank holds its block of the bank
+(``parallel/mesh.lora_bank_axes``): A of q/k/v whole and B of q/k/v split on
+its output as the base weight is, so :func:`apply_lora` gives this rank's
+heads' delta; B of wo whole and A of wo this rank's heads' rows, so
+:func:`apply_lora` on this rank's head output gives a partial delta that
+``forward_core`` adds to wo's partial sum before wo's all-reduce (by
+linearity, the sum over ranks is the whole delta). The engine writes a slot
+on every rank through its ``lora_write`` op (``engine/engine.py``).
+
 :func:`make_adapter_weights` draws a test double from an explicit
 ``torch.Generator``: ``jax.random`` cannot be reproduced without jax, so a
 port engine's default double for a name differs from the JAX engine's (the

@@ -519,7 +519,10 @@ def forward_core(
     heads, KV heads and the MLP columns over tp, with ``reduce("tp")`` after
     the row-parallel ``wo`` / ``wo_mlp`` / ``shared_wo`` products (``bo``
     added once, after it), a vocab-parallel embedding lookup (each rank adds
-    its rows, then ``reduce("tp")``), expert banks over ep (see
+    its rows, then ``reduce("tp")``), the adapter bank as
+    ``parallel/mesh.lora_bank_axes`` shards it (wo's delta from this rank's
+    heads' rows of A joins wo's partial sum before the reduce), expert banks
+    over ep (see
     ``moe_block``; banks of fewer slots than experts, or EPLB's physical
     slots, are ep-sharded). Every rank runs every row. The attention impl
     also gets the chunk's raw K/V (``chunk_k`` / ``chunk_v``), which the
@@ -627,10 +630,14 @@ def forward_core(
                          chunk_k=k, chunk_v=v)
         if cfg.is_mla:  # the latent-weighted sum [..., :r] re-expands through W_UV
             attn = torch.einsum("nhr,hrv->nhv", attn[..., :r], params["mla_wuv"][l])
-        o = tp_sum(linear(params, "wo", l, attn.reshape(N, -1)))
+        o = linear(params, "wo", l, attn.reshape(N, -1))
+        if lora is not None and tp:
+            # this rank's heads' rows of A: a partial delta, summed with wo's
+            o = o + lora("wo", l, attn.reshape(N, -1))
+        o = tp_sum(o)
         if cfg.attn_bias:
             o = o + params["bo"][l]
-        if lora is not None:
+        if lora is not None and not tp:
             o = o + lora("wo", l, attn.reshape(N, -1))
         x = x + o
         h = rms_norm(x, params["mlp_norm"][l], cfg.rms_eps)

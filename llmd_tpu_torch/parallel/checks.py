@@ -11,6 +11,14 @@ cards and the tests over gloo on the CPU.
 - :func:`collectives_in_graph`: ``all_reduce``, ``all_gather`` and
   ``all_to_all_single`` on the default group captured in one CUDA graph,
   replayed, against the same calls run eagerly (NCCL inside a graph).
+
+Shard reads (``World.engine_call``, ``fn(engine, **kw)`` on every rank's
+engine shard):
+
+- :func:`lora_slot_sums`: each adapter leaf's absolute sum at one bank slot
+  on this rank (0 everywhere: the slot is the null adapter);
+- :func:`pool_pages`: this rank's planes of some pages, block-major, as
+  their bytes.
 """
 
 from __future__ import annotations
@@ -148,3 +156,19 @@ def collectives_in_graph(mesh=None, n: int = 4096, replays: int = 3) -> dict:
         torch.cuda.synchronize(dev)
         worst = max(worst, *(float((a - b).abs().max()) for a, b in zip(out, want)))
     return {"world": world, "max_abs_diff": worst}
+
+
+def lora_slot_sums(engine, slot: int) -> dict[str, float]:
+    """|leaf| summed over bank slot ``slot`` of this rank's adapter bank."""
+    return {k: float(b[:, :, slot].abs().sum() if k.startswith("lora_A_")
+                     else b[:, slot].abs().sum())
+            for k, b in sorted(engine._lora_params.items())}
+
+
+def pool_pages(engine, pids: list) -> np.ndarray:
+    """This rank's planes of pages ``pids`` (``[n, L, ps, planes, D]``) as
+    uint8 bytes, read from its own pool shard."""
+    from llmd_tpu_torch.disagg.transfer import gather_pages
+
+    part = gather_pages(engine.cache, list(pids), engine.cfg.num_pages)
+    return part.view(torch.uint8).cpu().numpy()

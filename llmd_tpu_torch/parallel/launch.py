@@ -14,14 +14,16 @@ sends them, in order:
   the host arrays rank 0 packed (``engine/engine.py``);
 - ``("call", "module:function", kwargs)``: run a function of the port on
   every rank (``fn(mesh, **kwargs)``; the kernel and collective checks);
+- ``("engine_call", "module:function", kwargs)``: ``fn(engine, **kwargs)``
+  on every rank's engine shard (``parallel/checks``' shard reads);
 - ``("close",)``, ``("exit",)``.
 
 Commands are length-prefixed pickles over the sockets: host arrays, as the
 reference's single controller hands them to its programs. A worker joins
 with a random token rank 0 hands it on its stdin, so no other local process
 can take a rank's socket (answers are unpickled on rank 0). ``mesh``,
-``engine`` and ``call`` wait for every worker's answer (its result, or its
-error text, which raises :class:`WorldError` on rank 0).
+``engine``, ``call`` and ``engine_call`` wait for every worker's answer (its
+result, or its error text, which raises :class:`WorldError` on rank 0).
 
 Failure never hangs: the process group has a timeout; a monitor thread on
 rank 0 notices a worker that exits non-zero, kills the others and closes
@@ -246,6 +248,13 @@ class World:
         on every rank: (rank 0's result, the workers' results)."""
         self.send(("call", fn, kw))
         mine = self.local(resolve(fn), self.rank_mesh, **kw)
+        return mine, self.answers()
+
+    def engine_call(self, fn: str, engine, **kw) -> tuple[Any, list[Any]]:
+        """Run ``fn(engine_shard, **kw)`` on every rank (rank 0's shard is
+        ``engine``): (rank 0's result, the workers' results)."""
+        self.send(("engine_call", fn, kw))
+        mine = self.local(resolve(fn), engine, **kw)
         return mine, self.answers()
 
     def local(self, fn, *args, **kw):

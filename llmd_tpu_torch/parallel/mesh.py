@@ -19,7 +19,9 @@ rank ``((d * sp + s) * ep + e) * tp + t`` sits at (d, s, e, t).
   MoE exchange (tokens split over dp x sp x ep there) and the ring.
 
 :data:`DEFAULT_RULES` and :func:`param_logical_axes` are the reference's
-logical axes; :func:`shard_params` keeps this rank's block of every leaf (the
+logical axes (:func:`lora_param_logical_axes` the adapter bank's, and
+:func:`lora_bank_axes` the same in the port's bank layout);
+:func:`shard_params` keeps this rank's block of every leaf (the
 reference's ``shard_pytree``). Fused gate+up leaves (``wi``, ``shared_wi``,
 ``moe_wi`` and their int8 leaves) shard their gate half and their up half
 apart, so each rank keeps matching gate and up columns.
@@ -181,6 +183,21 @@ class RankMesh:
         _all_gather_single(out, xt, self.group(axes))
         return out.movedim(0, dim)
 
+    def broadcast(self, x: torch.Tensor) -> torch.Tensor:
+        """Rank 0's ``x`` into every rank's ``x``, in place (``x`` must be
+        contiguous)."""
+        if self.cfg.num_devices > 1:
+            dist.broadcast(x, src=0)
+        return x
+
+    def scatter(self, out: torch.Tensor, parts: Optional[list[torch.Tensor]]) -> torch.Tensor:
+        """Rank 0's ``parts[r]`` into rank r's ``out``, in place; ``parts``
+        is None on every other rank."""
+        if self.cfg.num_devices == 1:
+            return out.copy_(parts[0])
+        dist.scatter(out, parts, src=0)
+        return out
+
     def all_to_all(self, x: torch.Tensor, axes: "str | Sequence[str]") -> torch.Tensor:
         """Equal-split all-to-all over ``axes``: block i of ``x`` (along dim
         0) goes to the group's i-th rank; block j of the result came from
@@ -324,6 +341,48 @@ def param_logical_axes(cfg) -> dict[str, tuple[Optional[str], ...]]:
     axes["unembed_q"] = ("embed", "vocab")
     axes["unembed_scale"] = ("vocab",)
     return axes
+
+
+LORA_TARGETS = ("wq", "wk", "wv", "wo")
+
+
+def lora_param_logical_axes(cfg) -> dict[str, tuple[Optional[str], ...]]:
+    """Logical axes of the adapter bank in the reference's layout (copy of
+    ``llmd_tpu/models/lora.py::lora_param_logical_axes``): A ``[L, S, Din,
+    r]``, B ``[L, S, r, Dout]``; slots replicated, B's output following the
+    base weight's tp sharding."""
+    axes: dict[str, tuple[Optional[str], ...]] = {}
+    for t in LORA_TARGETS:
+        axes[f"lora_A_{t}"] = ("layers", "lora_slots", "embed", None)
+        axes[f"lora_B_{t}"] = ("layers", "lora_slots", None, "embed" if t == "wo" else "heads")
+    return axes
+
+
+def lora_bank_axes() -> dict[str, tuple[Optional[str], ...]]:
+    """The bank's axes in the port's layout (``models/lora.py``: A ``[L, Din,
+    S, r]``): the reference's, A's transposed, except A of ``wo``, whose
+    input (the concatenated head output, tp-sharded in the port) is
+    ``heads``: each rank keeps its heads' rows of A and adds ``(x_rank @
+    A_rows) @ B`` to wo's partial sum before wo's all-reduce, the same
+    function by linearity (the reference keeps A whole and GSPMD gathers
+    the heads instead)."""
+    axes = {}
+    for name, (l, s, i, o) in lora_param_logical_axes(None).items():
+        if name.startswith("lora_A_"):
+            axes[name] = (l, "heads" if name == "lora_A_wo" else i, s, o)
+        else:
+            axes[name] = (l, s, i, o)
+    return axes
+
+
+def lora_adapter_block(name: str, w: torch.Tensor, mesh: "RankMesh",
+                       rules: ShardingRules = DEFAULT_RULES) -> torch.Tensor:
+    """This rank's block of one adapter's leaf ``name`` (``lora_A_<t> [L,
+    Din, r]`` or ``lora_B_<t> [L, r, Dout]``, the bank's axes without the
+    slot dim)."""
+    axes = list(lora_bank_axes()[name])
+    del axes[2 if name.startswith("lora_A_") else 1]
+    return shard_block(name, w, rules.spec(axes), mesh)
 
 
 def engine_rules(model_cfg, ep: int, eplb: bool) -> ShardingRules:

@@ -6,7 +6,11 @@
 It reads the world's token (hex) from its stdin, joins rank 0's command
 socket with it and the process group, then runs rank 0's commands in order until
 ``exit``: it builds the mesh and its engine shard, and runs each device op
-rank 0 sends, with rank 0's host arrays, on its own shards. It exits 1 when
+rank 0 sends, with rank 0's host arrays, on its own shards (an adapter slot write,
+the masked programs' tables and the KV pages rank 0 reads or writes among
+them: the ops' order is rank 0's, so a worker's captured graphs and pool see
+what rank 0's see). A worker's allocator never runs: rank 0 alone schedules,
+so no evict hook fires here. It exits 1 when
 a command fails (after answering rank 0 with the error where rank 0 waits
 for an answer), when its command socket closes, or when its parent dies.
 """
@@ -59,6 +63,8 @@ class WorkerState:
             return True, None
         if kind == "call":
             return True, resolve(msg[1])(self.mesh, **msg[2])
+        if kind == "engine_call":
+            return True, resolve(msg[1])(self.engine, **msg[2])
         if kind == "oplog":
             return True, self.engine._op_log
         if kind == "close":
@@ -115,7 +121,7 @@ def main(argv=None) -> int:
                 answer, value = state.run(msg)
             except Exception as e:  # noqa: BLE001 — the rank's boundary: report, exit
                 traceback.print_exc()
-                if msg[0] in ("mesh", "engine", "call", "oplog"):
+                if msg[0] in ("mesh", "engine", "call", "engine_call", "oplog"):
                     send_msg(sock, pickle.dumps((False, f"{type(e).__name__}: {e}")))
                 code = 1
                 break

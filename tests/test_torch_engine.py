@@ -212,11 +212,14 @@ def test_unserved_options_raise(make, reference):
     for field, value in (("kv_layout", "packed"),):
         with pytest.raises(ValueError, match=field):
             make(**{field: value})
-    # the mesh is served; what it does not serve yet (LoRA, media, the KV
-    # data plane, the masked programs) raises naming its item, before any
-    # rank process starts
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        make(mesh=MeshConfig(tp=2), lora=LoRAConfig(max_adapters=2, rank=4))
+    # the mesh serves LoRA (and media, the KV data plane and the masked
+    # programs): a meshed engine with an adapter bank constructs, its world
+    # of CPU rank processes started and stopped
+    meshed = make(mesh=MeshConfig(tp=2), lora=LoRAConfig(max_adapters=2, rank=4))
+    try:
+        assert meshed.rank_mesh.cfg == MeshConfig(tp=2) and meshed.lora_registry is not None
+    finally:
+        meshed.close()
     # served away from their defaults, each against the reference: the
     # pipelined dispatch off, at depth 1 without pack overlap, and
     # ``instrument`` (the unified program's outputs waited for before its

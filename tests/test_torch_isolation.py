@@ -86,6 +86,13 @@ assert {"llmd_tpu_torch.ops.attn_tune", "llmd_tpu_torch.engine.dp_group",
 assert {"llmd_tpu_torch.parallel.mesh", "llmd_tpu_torch.parallel.launch",
         "llmd_tpu_torch.parallel.worker", "llmd_tpu_torch.ops.ring_attention",
         "llmd_tpu_torch.parallel.checks"} <= set(names)
+# and what moves LoRA, the masked tables, media rows and KV pages over the
+# mesh: the bank, the programs, the data plane's modules, the server
+assert {"llmd_tpu_torch.models.lora", "llmd_tpu_torch.engine.decode_program",
+        "llmd_tpu_torch.engine.verify_program", "llmd_tpu_torch.disagg.transfer",
+        "llmd_tpu_torch.kv.offload", "llmd_tpu_torch.kv.writeback",
+        "llmd_tpu_torch.kv.connector_api", "llmd_tpu_torch.kvplane.pull",
+        "llmd_tpu_torch.engine.server", "llmd_tpu_torch.engine.serve"} <= set(names)
 assert "zmq" not in sys.modules
 print(len(names))
 """

@@ -1069,7 +1069,7 @@ def test_kvplane_staging_ordered_against_later_page_writes(cuda, monkeypatch):
     a write to the same pages enqueued right after (behind a long kernel, so
     the host runs far ahead) cannot reach the staged bytes, and the drain
     waits on the copies' own events, never on the whole device."""
-    from llmd_tpu_torch.disagg.transfer import drain_staged, stage_pages
+    from llmd_tpu_torch.disagg.transfer import drain_staged, gather_pages, stage_pages
 
     P = 64
     cache = torch.randn(2 * P + 1, 16, 4, 64, device=cuda, dtype=torch.bfloat16)
@@ -1078,7 +1078,7 @@ def test_kvplane_staging_ordered_against_later_page_writes(cuda, monkeypatch):
     for _ in range(8):
         big = big @ big / 64  # keeps the stream busy while the host enqueues
     pids = [3, 17, 40, 41, 63]
-    parts = stage_pages(cache, pids, P, staging_pages=2)
+    parts = stage_pages(lambda ids: gather_pages(cache, ids, P), pids, staging_pages=2)
     rows = torch.tensor([l * P + p for l in range(2) for p in pids], device=cuda)
     cache.index_fill_(0, rows, 0.0)  # a later step rewrites the released pages
 

@@ -49,10 +49,12 @@ EPLB = (8, 2, 2)  # window, interval, redundant experts
 # a two-chunk prompt (the ring for its first chunk only), two prompts at once
 RING_PHASES = [[list(range(7, 40))], [list(range(5, 105))], [list(range(10, 40)),
                                                              list(range(50, 80))]]
-# requests a meshed engine refuses (ROADMAP item 6c): the masked programs'
-# (logit_bias, a grammar) and an adapter's
-REFUSE = [{"sampling": {"logit_bias": {"5": -100}}}, {"sampling": {"guided_choice": ["a", "b"]}},
-          {"lora_id": "adapter"}]
+# requests a meshed engine once refused: the masked programs' (logit_bias,
+# a grammar) and an adapter's
+SERVED = [("bias", [3, 4, 5], {"logit_bias": {5: -100}}, {}),
+          ("choice", [3, 4, 5], {"guided_choice": ["a", "b"], "max_tokens": 4}, {}),
+          ("adapter", list(range(11, 41)), {}, {"lora_id": "adapter"}),
+          ("plain", list(range(5, 20)), {}, {})]
 # most of the vocabulary in each prompt: prompt lookup finds a draft for
 # nearly every generated token
 ECHO = [list(range(1, 200)), list(range(5, 205))]
@@ -82,6 +84,24 @@ def _engine_case(tcfg, npp, mesh: dict, phases, **kw):
             "params": npp, "phases": phases}
 
 
+def _options_case(tcfg, npp, fs_path: str) -> dict:
+    """The engine options and requests a meshed engine once refused (the
+    offload tiers, LoRA, a connector; logit_bias, a grammar, an adapter),
+    served at tp=2 and by a one-card twin of the same config."""
+    from llmd_tpu_torch.models.lora import LoRAConfig, make_adapter_weights
+
+    lcfg = LoRAConfig(max_adapters=2, rank=4)
+    w = make_adapter_weights(tcfg, lcfg, torch.Generator().manual_seed(7))
+    ecfg = EngineConfig(**BASE, mesh=MeshConfig(tp=2), cpu_offload_pages=4,
+                        offload_fs_path=fs_path, lora=lcfg, kv_connector="in-memory")
+    reqs = [(rid, p, {"max_tokens": 6, "temperature": 0.0, **skw}, akw)
+            for rid, p, skw, akw in SERVED]
+    return {"kind": "script", "mesh": MeshConfig(tp=2), "model_cfg": tcfg, "engine_cfg": ecfg,
+            "params": npp, "twin": True, "tokenizer": True,
+            "actions": [("load", "adapter", {k: v.numpy() for k, v in w.items()}),
+                        ("run", reqs)]}
+
+
 @pytest.fixture(scope="module")
 def weights():
     return {name: _weights(name) for name in ("tiny", "tiny-mla", "tiny-moe")}
@@ -95,7 +115,8 @@ def world(weights, tmp_path_factory):
     _, mla_cfg, _, mla = weights["tiny-mla"]
     _, moe_cfg, _, moe = weights["tiny-moe"]
     cases = {
-        "tp": dict(_engine_case(tt_cfg, tiny, dict(tp=2), [PROMPTS[:2]]), refuse=REFUSE),
+        "tp": _engine_case(tt_cfg, tiny, dict(tp=2), [PROMPTS[:2]]),
+        "options": _options_case(tt_cfg, tiny, str(tmp_path_factory.mktemp("fs"))),
         "tp_int8": _engine_case(tt_cfg, tiny, dict(tp=2), [PROMPTS[:2]],
                                 quantize_weights="int8"),
         "tp_fp8": _engine_case(tt_cfg, tiny, dict(tp=2), [PROMPTS[:2]],
@@ -267,27 +288,23 @@ def test_tp2_sampled_requests_draw_alike_on_every_rank(world):
     assert res["agree"] and [len(t) for t in res["tokens"][0]] == [6, 6]
 
 
-def test_mesh_refusals_name_item_6c(world, tmp_path):
-    """LoRA, the KV data plane and the masked programs under a mesh raise
-    naming ROADMAP item 6c: engine options before any rank process starts,
-    requests on a running meshed engine, export / inject on its server."""
-    import types
+def test_mesh_refusals_name_item_6c(world):
+    """What a meshed engine once refused naming ROADMAP item 6c (the offload
+    and FS tiers, LoRA and a connector at construction; logit_bias, a
+    grammar and an adapter's requests) now constructs and serves on the
+    world: tokens equal the one-card twin's, every rank's ops gave rank 0's
+    tokens, and no message of the port names item 6c."""
+    import pathlib
 
-    from llmd_tpu_torch.disagg.transfer import refuse_mesh
-    from llmd_tpu_torch.engine.engine import LLMEngine
-    from llmd_tpu_torch.models.lora import LoRAConfig
-
-    cfg = get_model_config("tiny")
-    for kw in (dict(cpu_offload_pages=4), dict(offload_fs_path=str(tmp_path)),
-               dict(lora=LoRAConfig(max_adapters=2, rank=4)), dict(kv_connector="x")):
-        with pytest.raises(NotImplementedError, match="item 6c"):
-            LLMEngine(cfg, EngineConfig(mesh=MeshConfig(tp=2), **kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        refuse_mesh(types.SimpleNamespace(rank_mesh=object()))
-    refuse_mesh(types.SimpleNamespace(rank_mesh=None))
-    res = _result(world, "tp")
-    assert len(res["refused"]) == len(REFUSE)
-    assert all(r is not None and "item 6c" in r for r in res["refused"]), res["refused"]
+    res = _result(world, "options")
+    run, twin = res["mesh"][1], res["twin"][1]
+    assert res["agree"] and run == twin, (run, twin)
+    assert {rid for rid, _, _, _ in SERVED} == set(run)
+    assert run["adapter"][0] != run["plain"][0]
+    root = pathlib.Path(__file__).resolve().parent.parent / "llmd_tpu_torch"
+    hits = [str(p) for p in root.rglob("*.py") if "item 6c" in p.read_text()]
+    assert not hits, hits
+    assert "item 6c" not in world[0].log_text()
 
 
 def test_mla_tp2_with_replicated_latent_pool(weights, world):

@@ -13,9 +13,7 @@ this script imports the port and nothing of the JAX package):
   "max_tokens", "temperature", "embed"}``: one meshed ``LLMEngine``
   (``params``: the reference's numpy leaves, or None for the seed's random
   ones); each phase a list of prompts generated in turn (greedy unless
-  ``temperature``), then ``embed``'s token lists through ``LLMEngine.embed``,
-  then each of ``refuse``'s requests (add_request keywords and ``sampling``),
-  whose ``NotImplementedError`` texts are reported.
+  ``temperature``), then ``embed``'s token lists through ``LLMEngine.embed``.
   Result: each phase's tokens and the ring steps after it, the embeddings,
   the engine's stats, and whether every rank's device ops gave rank 0's
   tokens.
@@ -27,6 +25,16 @@ this script imports the port and nothing of the JAX package):
   port. Result: (status, completion tokens) per port.
 - ``{"kind": "kill", "mesh"}``: rank 1's process is killed, then a call runs:
   the error rank 0 raised and the seconds it took. Ends the world.
+- ``{"kind": "script", "mesh", "model_cfg", "engine_cfg", "params", "actions",
+  "twin", "env", "tokenizer"}``: one port engine (meshed on the world, or a
+  one-card engine when ``mesh`` is None) runs ``actions`` in turn (see
+  :func:`run_actions`: adapter loads and unloads, request batches, a bank
+  slot read on every rank, KV export over the KVT1 wire with each rank's
+  pool planes, inject of an earlier case's export, counters); ``twin``: the
+  same actions again on a one-card engine of the same config. ``env``: the
+  environment while the engines are built (the durable tier's store).
+  Result: each engine's action results, its KV events, and whether every
+  rank's device ops gave rank 0's tokens.
 
 Each case's result is a dict, or ``{"error": text}``; the script exits 1
 when a case failed or a rank was killed. Tests start it through
@@ -35,6 +43,7 @@ it (the script, and every rank process carrying its tag) when done.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import pickle
@@ -53,6 +62,7 @@ import torch  # noqa: E402
 
 from llmd_tpu_torch.core.request import SamplingParams  # noqa: E402
 from llmd_tpu_torch.parallel.launch import World  # noqa: E402
+from llmd_tpu_torch.parallel.mesh import MeshConfig  # noqa: E402
 
 
 TAG_VAR = "MESH_WORLD_TAG"
@@ -159,18 +169,9 @@ def run_engine(world: World, case: dict) -> dict:
             out.append([got[f"r{len(out)}-{i}"] for i in range(len(phase))])
             ring.append(eng.stats.n_ring_prefill_steps)
         embeds = [eng.embed(ids) for ids in case.get("embed", ())]
-        refused = []  # what a meshed engine refuses, by its message
-        for kw in case.get("refuse", ()):
-            try:
-                eng.add_request(f"refused-{len(refused)}", [3, 4, 5],
-                                SamplingParams(**kw.get("sampling", {})),
-                                **{k: v for k, v in kw.items() if k != "sampling"})
-                refused.append(None)
-            except NotImplementedError as e:
-                refused.append(str(e))
         logs = world.oplogs()
         st = eng.stats
-        return {"tokens": out, "ring_steps": ring, "embeds": embeds, "refused": refused,
+        return {"tokens": out, "ring_steps": ring, "embeds": embeds,
                 "agree": all(_same(eng._op_log, w) for w in logs) and len(eng._op_log) > 0,
                 "n_ops": len(eng._op_log),
                 "stats": {k: getattr(st, k) for k in (
@@ -180,6 +181,145 @@ def run_engine(world: World, case: dict) -> dict:
                 "fallback": eng.moe_dispatch_fallback_reason}
     finally:
         eng.close()
+
+
+def run_actions(eng, actions: list, world=None, results=()) -> list:
+    """Run ``actions`` on engine ``eng`` (on ``world`` when meshed); one
+    result per action:
+
+    - ``("load", name, weights)`` / ``("unload", name)``: the adapter calls;
+    - ``("run", [(rid, prompt, sampling kwargs, add_request kwargs)])``:
+      every request added, the engine stepped until idle: {rid: (tokens,
+      finish reason, cached prompt tokens)};
+    - ``("slot", slot)``: ``checks.lora_slot_sums`` on every rank;
+    - ``("export", rid, prompt)``: the resident prefix of ``prompt`` through
+      ``export_from_engine`` and a KVT1 pull on loopback: (header, payload,
+      each rank's planes of the exported pages as bytes);
+    - ``("inject", case, engine, action, prompt)``: an earlier case's export
+      pulled into this engine: blocks injected;
+    - ``("stats", keys)``: those ``EngineStats`` fields, the offload store's
+      saves / loads / demotions and the connector's stats;
+    - ``("flush",)``: the durable tier's queue drained and its worker
+      stopped (no more offers), its counts;
+    - ``("programs",)``: the program ledger's counters.
+
+    ``EngineConfig(kv_connector="shared")`` names one in-memory connector
+    shared by every engine of the run (a store that outlives an engine).
+    """
+    from llmd_tpu_torch.disagg import transfer as ttr
+    from llmd_tpu_torch.parallel import checks
+
+    out = []
+    for act in actions:
+        kind = act[0]
+        if kind == "load":
+            out.append(eng.load_lora_adapter(act[1], act[2]))
+        elif kind == "unload":
+            out.append(eng.unload_lora_adapter(act[1]))
+        elif kind == "run":
+            got: dict = {}
+            for rid, prompt, skw, akw in act[1]:
+                eng.add_request(rid, list(prompt), SamplingParams(**skw), **akw)
+                got[rid] = ([], None, 0)
+            steps = 0
+            while eng.has_work():
+                for o in eng.step():
+                    toks, _, _ = got[o.request_id]
+                    got[o.request_id] = (toks + list(o.new_token_ids), o.finish_reason,
+                                         o.num_cached_prompt_tokens)
+                steps += 1
+                assert steps < 3000, "no forward progress"
+            if eng._connector_pool is not None:  # retire-time saves are async
+                eng._connector_pool.submit(lambda: None).result()
+            out.append(got)
+        elif kind == "slot":
+            fn = "llmd_tpu_torch.parallel.checks:lora_slot_sums"
+            out.append(world.engine_call(fn, eng, slot=act[1]) if world is not None
+                       else (checks.lora_slot_sums(eng, act[1]), []))
+        elif kind == "export":
+            src = ttr.KVTransferSource(host="127.0.0.1", transport="python")
+            src.start()
+            try:
+                ttr.export_from_engine(eng, src, act[1], list(act[2]))
+                hdr, payload = ttr.KVTransferClient(timeout_s=10)._request(
+                    "127.0.0.1", src.port, {"op": "pull", "id": act[1]})
+            finally:
+                src.stop()
+            pids = [eng.alloc.cached[h] for h in hdr.get("block_hashes", [])]
+            planes = []
+            if world is not None and pids:
+                mine, theirs = world.engine_call("llmd_tpu_torch.parallel.checks:pool_pages",
+                                                 eng, pids=pids)
+                planes = [mine, *theirs]
+            out.append((hdr, bytes(payload), planes))
+        elif kind == "inject":
+            hdr, payload, _ = results[act[1]][act[2]][act[3]]
+            pulled = ttr.KVTransferClient._decode(hdr, bytearray(payload))
+            out.append(ttr.inject_into_engine(eng, pulled, list(act[4])))
+        elif kind == "stats":
+            st = eng.stats
+            res = {k: getattr(st, k) for k in act[1]}
+            if eng.offload is not None:
+                store = eng.offload.store
+                res["offload"] = (store.saves, store.loads, store.demotions)
+            if eng.kv_connector is not None:
+                res["connector"] = dict(getattr(eng.kv_connector, "stats", {}))
+            out.append(res)
+        elif kind == "flush":  # the durable queue drained: its counts
+            wb = eng.writeback
+            wb.flush_for_drain(10.0)
+            wb.stop()  # the worker's put in flight lands before the counts are read
+            assert not wb._thread.is_alive(), "the write-back worker did not stop"
+            out.append(dict(wb.counts))
+        elif kind == "programs":
+            out.append(eng.programs.counters())
+        else:
+            raise ValueError(f"unknown action {kind!r}")
+    return out
+
+
+def run_script(world: World, case: dict, results: list) -> dict:
+    from llmd_tpu_torch.engine.engine import LLMEngine
+    from llmd_tpu_torch.engine.tokenizer import ByteTokenizer
+    from llmd_tpu_torch.models.transformer import params_from_numpy
+
+    cfg = case["model_cfg"]
+    params = (params_from_numpy(cfg, case["params"]) if case.get("params") is not None
+              else None)
+    tok = ByteTokenizer() if case.get("tokenizer") else None
+    res: dict = {}
+    engines = [("mesh", case["engine_cfg"], case["mesh"])]
+    if case.get("twin"):
+        engines.append(("twin", dataclasses.replace(case["engine_cfg"], mesh=MeshConfig()), None))
+    for name, ecfg, mesh in engines:
+        events: list = []
+        saved = {k: os.environ.get(k) for k in case.get("env", {})}
+        os.environ.update(case.get("env", {}))
+        try:
+            eng = LLMEngine(cfg, ecfg, params=params, device="cpu", tokenizer=tok,
+                            event_sink=events.extend,
+                            rank_mesh=world.mesh(mesh) if mesh is not None else None)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        try:
+            if mesh is not None:
+                eng._op_log = []
+            res[name] = run_actions(eng, case["actions"], world if mesh is not None else None,
+                                    results)
+            res[name + "_events"] = [(type(e).__name__, list(getattr(e, "block_hashes", [])),
+                                      getattr(e, "parent_block_hash", None),
+                                      getattr(e, "medium", None), getattr(e, "lora_id", None))
+                                     for e in events]
+            if mesh is not None:
+                logs = world.oplogs()
+                res["agree"] = all(_same(eng._op_log, w) for w in logs) and len(eng._op_log) > 0
+        finally:
+            eng.close()
+    return res
 
 
 def run_group(world: World, case: dict) -> dict:
@@ -227,6 +367,10 @@ def main() -> int:
     ap.add_argument("--timeout", type=float, default=60.0)
     args = ap.parse_args()
     torch.set_num_threads(1)
+    from llmd_tpu_torch.kv.connector_api import InMemoryKVConnector, register_kv_connector
+
+    shared = InMemoryKVConnector()
+    register_kv_connector("shared", lambda params: shared)
     with open(args.spec, "rb") as f:
         cases = pickle.load(f)
     world = World.start(args.world, "cpu", timeout_s=args.timeout)
@@ -242,6 +386,8 @@ def main() -> int:
                     res = run_group(world, case)
                 elif case["kind"] == "kill":
                     res = run_kill(world, case)
+                elif case["kind"] == "script":
+                    res = run_script(world, case, results)
                 else:
                     world.mesh(case["mesh"])
                     mine, theirs = world.call(case["fn"], **case["kw"])
