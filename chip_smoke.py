@@ -308,11 +308,20 @@ thread's stack on stderr):
             the one-card forward (``lora_shard_check``), and
             a bf16 and an fp8 pool's two plane halves under the engine's
             ``pages_out`` / ``pages_in`` ops = the one-card bytes
-            (``pages_split_check``), each with its seconds.
+            (``pages_split_check``), and a step's rows split over dp=2
+            (``row_split_check``: llama-1b at full depth, one mixed
+            unified step of 1024 rows with a chunk straddling the split, a
+            verify-shaped step of 64 x 5 rows and one decode iteration at
+            B=64, as two dp ranks through ``forward_core`` and the row plan;
+            the ranks' pools byte-equal, each rank's K1 over its own rows,
+            float32 hidden rows within 1e-5 of one card's and greedy tokens
+            equal, bf16's equal share; rank 0's bf16 forward over its 512
+            rows beside one card's over 1024), each with its seconds.
             With two cards or more, meshed engines as NCCL worlds of rank
             processes (``parallel/launch``): llama-1b tp=2, moe-wide-sim ep=2
             with EPLB, moe-wide-mla tp=2, llama-1b sp=2 with one 2048-token
-            prompt on the ring, and the planes world (llama-1b with media
+            prompt on the ring, llama-1b dp=2 and sp=2 with 8 prompts (each
+            step's rows split over the ranks), and the planes world (llama-1b with media
             rows at tp=2: an adapter, a ``logit_bias``, a ``guided_choice``
             and a media request, a second adapter loaded after the decode
             graphs' capture and a request under it, an offload reload, a
@@ -5848,7 +5857,8 @@ def _mesh_generate(device, cfg, mesh, prompts, max_tokens, seed, decode_graph=Tr
 def mesh_worlds(device, card: str, seed: int = 0) -> dict:
     """With two cards or more: llama-1b tp=2; moe-wide-sim ep=2 with EPLB;
     moe-wide-mla tp=2; llama-1b sp=2 with one 2048-token fresh prompt on the
-    ring. Each: float32 tokens of the world (rank 0 here, rank 1 on cuda:1,
+    ring; llama-1b dp=2 and sp=2 with 8 prompts, each step's rows split over
+    the two ranks. Each: float32 tokens of the world (rank 0 here, rank 1 on cuda:1,
     NCCL; one world of two rank processes, ``parallel/launch.World``, for
     every mesh) equal to the one-card engine's, the replayed decode's equal
     to the eager one's, bfloat16's share of tokens equal to one card's,
@@ -5892,7 +5902,9 @@ def _mesh_worlds(device, card: str, seed: int, world) -> dict:
     worlds = (("llama-1b tp=2", "llama-1b", MeshConfig(tp=2), {}, None),
               ("moe-wide-sim ep=2 eplb", MOE, MeshConfig(ep=2), eplb, None),
               ("moe-wide-mla tp=2", MLA, MeshConfig(tp=2), {"moe_dispatch": "sorted"}, None),
-              ("llama-1b sp=2 ring", "llama-1b", MeshConfig(sp=2), {}, 2048))
+              ("llama-1b sp=2 ring", "llama-1b", MeshConfig(sp=2), {}, 2048),
+              ("llama-1b dp=2 rows", "llama-1b", MeshConfig(dp=2), {}, None),
+              ("llama-1b sp=2 rows", "llama-1b", MeshConfig(sp=2), {}, None))
     out = {}
     for label, model, mesh, kw, fresh in worlds:
         base = get_model_config(model)
@@ -6219,24 +6231,30 @@ def lora_shard_check(device, seed: int = 0, tokens: int = 64, rank: int = 16,
 
 
 class _TwoRanksOnOneCard:
-    """Two tp=2 ranks on this card, each a thread of ``run``: ``meshes[r]``
-    is what the engine's code reads of rank r's ``parallel/mesh.RankMesh``
-    (its place on the mesh, and the collectives as the ranks' parts met at
-    a barrier: the all-gather in rank order, the sum in the parts' dtype,
-    the scatter of rank 0's parts, the broadcast of rank 0's tensor)."""
+    """Two ranks of a mesh with 2 on ``axis`` (tp by default) on this card,
+    each a thread of ``run``: ``meshes[r]`` is what the engine's code reads
+    of rank r's ``parallel/mesh.RankMesh`` (its place on the mesh, and the
+    collectives over axes that hold ``axis`` as the ranks' parts met at a
+    barrier: the all-gather in rank order, the sum in the parts' dtype, the
+    scatter of rank 0's parts, the broadcast of rank 0's tensor; identities
+    over the other axes, of one rank)."""
 
     class Mesh:
         def __init__(self, pair, r: int) -> None:
             from llmd_tpu_torch.engine.config import MeshConfig
 
-            self.pair, self.rank, self.cfg = pair, r, MeshConfig(tp=2)
+            self.pair, self.rank = pair, r
+            self.cfg = MeshConfig(**{pair.axis: 2})
             self.reduced: list = []  # every sum this rank's reduce returned
 
+        def _on(self, axes) -> bool:
+            return self.pair.axis in ((axes,) if isinstance(axes, str) else tuple(axes))
+
         def size(self, axes) -> int:
-            return 2 if axes == "tp" else 1
+            return 2 if self._on(axes) else 1
 
         def index(self, axes) -> int:
-            return self.rank if axes == "tp" else 0
+            return self.rank if self._on(axes) else 0
 
         def _meet(self, x) -> list:
             p = self.pair
@@ -6247,9 +6265,11 @@ class _TwoRanksOnOneCard:
             return parts
 
         def gather(self, x: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
-            return torch.cat(self._meet(x), dim=dim)
+            return torch.cat(self._meet(x), dim=dim) if self._on(axes) else x
 
         def reduce(self, x: torch.Tensor, axes) -> torch.Tensor:
+            if not self._on(axes):
+                return x
             a, b = self._meet(x)
             self.reduced.append(a + b)
             return self.reduced[-1]
@@ -6260,7 +6280,8 @@ class _TwoRanksOnOneCard:
         def broadcast(self, x: torch.Tensor) -> torch.Tensor:
             return x.copy_(self._meet(x)[0])
 
-    def __init__(self) -> None:
+    def __init__(self, axis: str = "tp") -> None:
+        self.axis = axis
         self.parts = [None, None]
         self.barrier = threading.Barrier(2, timeout=60)
         self.meshes = [self.Mesh(self, r) for r in (0, 1)]
@@ -6354,6 +6375,241 @@ def pages_split_check(device, seed: int = 0, num_pages: int = 256, n: int = 48) 
     return out
 
 
+def _split_batches(rng, ps: int, vocab: int, chunks, decodes: int, verify, decode_b: int,
+                   kv_range):
+    """The host batches of ``row_split_check``: a mixed unified step
+    (``decodes`` decode rows, then prefill chunks of ``chunks`` rows at
+    offsets 0-256), a verify-shaped step (``verify[0]`` sequences of
+    ``verify[1]`` rows) and the decode slots (``decode_b``); each sequence
+    on pages of its own, kv lengths in ``kv_range``. Returns them and the
+    pages a layer needs."""
+    next_page = [0]
+    width = -(-max(kv_range[1], 256 + max(chunks)) // ps)
+
+    def pages(kv: int) -> np.ndarray:
+        n = -(-kv // ps)
+        row = np.full((width,), -1, np.int32)
+        row[:n] = np.arange(next_page[0], next_page[0] + n)
+        next_page[0] += n
+        return row
+
+    def flat(q_lens, kv_lens):
+        cu = np.concatenate([[0], np.cumsum(q_lens)]).astype(np.int32)
+        pos = np.concatenate([np.arange(k - q, k) for q, k in zip(q_lens, kv_lens)])
+        return {"tokens": rng.integers(1, vocab, int(cu[-1])).astype(np.int32),
+                "positions": pos.astype(np.int32),
+                "seq_slots": np.repeat(np.arange(len(q_lens)), q_lens).astype(np.int32),
+                "page_tables": np.stack([pages(k) for k in kv_lens]),
+                "kv_lens": np.asarray(kv_lens, np.int32), "cu_q_lens": cu,
+                "num_seqs": np.array([len(q_lens)], np.int32)}
+
+    q = [1] * decodes + list(chunks)
+    kv = ([int(k) for k in rng.integers(*kv_range, decodes)]
+          + [int(rng.choice([0, 64, 128, 256])) + c for c in chunks])
+    unified = flat(q, kv)
+    n, t = verify
+    verify_b = flat([t] * n, [int(k) for k in rng.integers(max(t, kv_range[0]), kv_range[1], n)])
+    dkv = rng.integers(*kv_range, decode_b).astype(np.int32)
+    dec = {"tokens": rng.integers(1, vocab, decode_b).astype(np.int32),
+           "positions": dkv - 1, "page_tables": np.stack([pages(int(k)) for k in dkv]),
+           "kv_lens": dkv, "steps_left": np.ones((decode_b,), np.int32),
+           "temperature": np.zeros((decode_b,), np.float32),
+           "top_k": np.zeros((decode_b,), np.int32), "top_p": np.ones((decode_b,), np.float32),
+           "lora": np.zeros((decode_b,), np.int32)}
+    return unified, verify_b, dec, next_page[0]
+
+
+def row_split_check(device, card: str = "", seed: int = 0, model: str = "llama-1b",
+                    chunks=(400, 300, 200, 120), decodes: int = 4, verify=(64, 5),
+                    decode_b: int = 64, kv_range=(64, 384), time_reps: int = 10) -> dict:
+    """A step's rows split over dp=2 through the engine's own code on this
+    card: ``model`` at full width and depth (llama-1b: 16 layers), random
+    weights from a seed, as two dp ranks (``_TwoRanksOnOneCard("dp")``:
+    threads, the all-gather a barrier concatenation in rank order), each
+    running its part of the rows (``parallel/rows``: ``flat_plan`` and
+    ``local_batch``; the decode program's ``block_plan``) through
+    ``models/transformer.forward_core`` with K1 (``paged_attention``), each
+    over its own pool; and on one card over a third pool (the three drawn
+    alike), each step whole, then its two parts in turn. Steps: one mixed
+    unified step (4 decode rows and prefill chunks of 400, 300, 200 and 120
+    rows at offsets 0-256: 1024 rows, the 400-row chunk straddling the
+    split), a verify-shaped step (64 sequences x 5 rows) and one eager decode
+    iteration at B=64 (``engine/decode_program``, its tokens gathered over dp
+    inside it). Held, in both dtypes: each rank's final hidden rows
+    bit-equal to one card's over the same rows (the parts in turn: the same
+    products at the same row counts), and after every step the three pools
+    byte-equal (the dump page aside); every K1 launch of a rank over its own rows; float32: the
+    greedy tokens of every row (the decode call's sampled tokens) equal one
+    card's whole step's. The ranks' hidden rows against the whole step's
+    (its products over twice the rows round otherwise: f32 GEMMs and
+    reductions at another row count) and, in bfloat16, the share of equal
+    greedy tokens are printed. Timed in bfloat16 (CUDA graphs
+    replayed, CUDA events): rank 0's unified forward over its rows, its dense
+    layers and K1 (the K/V all-gather, an NCCL collective across cards, left
+    out), beside the one-card forward of all the rows (``time_reps`` 0: not
+    timed)."""
+    from llmd_tpu_torch.engine.decode_program import PACKED, DecodeBuffers, decode_program
+    from llmd_tpu_torch.engine.sampling import greedy_tokens
+    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.models.transformer import forward_core, init_cache, init_params, unembed
+    from llmd_tpu_torch.ops import paged_attention as pa
+    from llmd_tpu_torch.parallel.rows import (
+        RowSplit, block_plan, flat_plan, local_batch, take_rows)
+
+    t_all = time.perf_counter()
+    unified, verify_b, dec, num_pages = _split_batches(
+        np.random.default_rng(seed), PS, get_model_config(model).vocab_size, chunks, decodes,
+        verify, decode_b, kv_range)
+    out: dict = {}
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_model_config(model), dtype=dtype)
+        L = cfg.num_layers
+        params = init_params(cfg, torch.Generator(device=device).manual_seed(seed), device)
+        pools = [init_cache(cfg, num_pages, PS, device=device) for _ in range(3)]
+        pools[0].normal_(generator=torch.Generator(device=device).manual_seed(seed + 1))
+        for p in pools[1:]:
+            p.copy_(pools[0])
+        pair = _TwoRanksOnOneCard("dp")
+        seen: list = [[], [], []]  # K1's query rows per launch: one card, rank 0, rank 1
+
+        def k1(who):
+            def impl(q, *args, **kw):
+                seen[who].append(q.shape[0])
+                return pa.paged_attention(q, *args, **kw)
+            return impl
+
+        def fwd(b, who, mesh=None, split=None):
+            b = {k: v if isinstance(v, torch.Tensor) else dev(v) for k, v in b.items()}
+            return forward_core(
+                cfg, params, pools[who], b["tokens"], b["positions"], b["seq_slots"],
+                b["page_tables"], b["kv_lens"], cu_q_lens=b["cu_q_lens"],
+                num_seqs=b["num_seqs"], attn_impl=k1(who), moe_dispatch_impl=None, mesh=mesh,
+                rows=split)[0]
+
+        def tokens(h):
+            return greedy_tokens(unembed(cfg, params, h))
+
+        def held(plan) -> dict:
+            return {"rows": [len(p) for p in plan.parts],
+                    # every page but the dump page (pad rows' writes)
+                    "pools_equal": all(torch.equal(pools[0][:-1].view(torch.uint8),
+                                                   p[:-1].view(torch.uint8)) for p in pools[1:]),
+                    "k1_rows": [sorted(set(seen[1 + q])) for q in (0, 1)],
+                    "k1_rows_ok": all(seen[1 + q] == [len(plan.parts[q])] * L for q in (0, 1))}
+
+        row: dict = {}
+        for label, batch in (("unified", unified), ("verify", verify_b)):
+            plan = flat_plan(batch["tokens"].shape[0], 2)
+            locs = [local_batch(batch, plan.parts[r], ()) for r in (0, 1)]
+            for s in seen:
+                s.clear()
+            one = fwd(batch, 0)
+            parts = [fwd(loc, 0) for loc in locs]  # one card, the parts in turn
+            hid = pair.run(lambda r: fwd(locs[r], 1 + r, pair.meshes[r],
+                                         RowSplit(pair.meshes[r], plan, device)))
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            want = tokens(one)
+            got = torch.cat([tokens(h) for h in hid])
+            cut = len(plan.parts[0])
+            row[label] = held(plan) | {
+                "hidden_equal_one_card_parts": all(torch.equal(h, q)
+                                                   for h, q in zip(hid, parts)),
+                "straddling": int(sum(1 for b in range(len(batch["kv_lens"]))
+                                      if batch["cu_q_lens"][b] < cut < batch["cu_q_lens"][b + 1])),
+                "hidden_max_abs_vs_one_card": max(
+                    (h.float() - one[dev(plan.parts[q])].float()).abs().max().item()
+                    for q, h in enumerate(hid)),
+                "tokens_equal_share": (got == want).float().mean().item()}
+        # one iteration of the decode program, each rank its dp block of the slots
+        plan = block_plan(decode_b, 2)
+        for s in seen:
+            s.clear()
+
+        def decode_on(who, rows, mesh=None):
+            buf = DecodeBuffers.allocate(len(rows), dec["page_tables"].shape[1], device)
+            for name, (_, idle) in PACKED.items():
+                getattr(buf, name).copy_(dev(take_rows(dec[name], rows, idle)))
+            split = draw = None
+            if mesh is not None:
+                split = RowSplit(mesh, plan, device)
+                draw = (decode_b, dev(np.clip(rows, 0, decode_b - 1).astype(np.int64)))
+            gen = torch.Generator(device=device).manual_seed(seed)
+            return decode_program(cfg, params, pools[who], buf, 1, gen, attn_impl=k1(who),
+                                  moe_dispatch_impl=None, mesh=mesh, split=split,
+                                  draw=draw).toks_out
+
+        want = decode_on(0, np.arange(decode_b))
+        blocks = torch.cat([decode_on(0, p) for p in plan.parts], dim=1)[:, :decode_b]
+        got = pair.run(lambda r: decode_on(1 + r, plan.parts[r], pair.meshes[r]))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        row["decode"] = held(plan) | {"ranks_equal": torch.equal(got[0], got[1]),
+                                      "hidden_equal_one_card_parts": torch.equal(got[0], blocks),
+                                      "tokens_equal_share": (got[0] == want).float().mean().item()}
+        if dtype == "bfloat16" and time_reps:  # rank 0's unified forward: its rows, all rows
+            plan = flat_plan(unified["tokens"].shape[0], 2)
+            loc = {k: dev(v) for k, v in local_batch(unified, plan.parts[0], ()).items()}
+            whole = {k: dev(v) for k, v in unified.items()}  # on the card before the capture
+            row["time"] = {"rank0_rows": len(plan.parts[0]),
+                           "rows": int(unified["tokens"].shape[0]),
+                           "rank0_ms": _graph_ms(lambda: fwd(loc, 1), time_reps),
+                           "one_card_ms": _graph_ms(lambda: fwd(whole, 0), time_reps)}
+        row["seconds"] = time.perf_counter() - t0
+        out[dtype] = row
+        del params, pools
+        _empty()
+        for label in ("unified", "verify", "decode"):
+            r = row[label]
+            log(f"mesh: rows dp=2 {dtype} {cfg.name} {label}: rows per rank {r['rows']}"
+                + (f" ({r['straddling']} sequence straddling the split)" if "straddling" in r
+                   else "")
+                + (f", hidden max_abs_vs_one_card {r['hidden_max_abs_vs_one_card']:.3g}"
+                   if "hidden_max_abs_vs_one_card" in r else "")
+                + f", greedy tokens equal one card's {r['tokens_equal_share']:.4f}, equal to one "
+                f"card over the parts in turn {r['hidden_equal_one_card_parts']}, pools "
+                f"byte-equal {r['pools_equal']}, K1 rows per launch {r['k1_rows']}")
+        if "time" in row:
+            t = row["time"]
+            log(f"mesh: rows dp=2 bfloat16 {cfg.name} unified forward: rank 0 over "
+                f"{t['rank0_rows']} rows {t['rank0_ms']:.3f} ms, one card over {t['rows']} "
+                f"rows {t['one_card_ms']:.3f} ms (CUDA graphs, CUDA events; the K/V "
+                f"all-gather not included) on {card}")
+        log(f"mesh: rows dp=2 {dtype} {row['seconds']:.2f} s")
+        steps = ("unified", "verify", "decode")
+        ok = (all(row[k]["pools_equal"] and row[k]["k1_rows_ok"]
+                  and row[k]["hidden_equal_one_card_parts"] for k in steps)
+              and row["decode"]["ranks_equal"])
+        if dtype == "float32":
+            ok = ok and all(row[k]["tokens_equal_share"] == 1.0 for k in steps)
+        if not ok:
+            raise AssertionError(f"mesh: rows dp=2 {dtype}: {row}")
+    out["seconds"] = time.perf_counter() - t_all
+    log(f"mesh: row split check {out['seconds']:.2f} s on {card}")
+    return out
+
+
+def _graph_ms(fn, reps: int) -> float:
+    """Device ms of ``fn`` captured once into a CUDA graph and replayed
+    (``cuda_ms``), so the host's launch work stays out of the time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up, outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_ms(graph.replay, reps=reps, inner=3)
+    del graph
+    return ms
+
+
 def phase_mesh(device, card: str, tm: dict) -> dict:
     """The mesh phase: the rank-shaped kernel checks and times, NCCL in a
     graph, the adapter bank's and the pool's tp=2 splits on this card, and
@@ -6361,7 +6617,8 @@ def phase_mesh(device, card: str, tm: dict) -> dict:
     t0 = time.perf_counter()
     out = {"check": mesh_kernel_checks(device), "time": time_mesh_kernels(device, tm),
            "nccl_graph": nccl_graph_check(), "lora_shards": lora_shard_check(device),
-           "pages": pages_split_check(device), "worlds": mesh_worlds(device, card)}
+           "pages": pages_split_check(device), "rows": row_split_check(device, card),
+           "worlds": mesh_worlds(device, card)}
     out["seconds"] = time.perf_counter() - t0
     log(f"mesh: phase {out['seconds']:.1f} s on {card}")
     return out

@@ -27,12 +27,18 @@ device. The tables live in two static buffers indexed by a per-row base
 (``DecodeBuffers.table_rows`` = grammar slot x padded state count), so one
 captured graph serves every table shape.
 
-Under a mesh every rank holds the same tables and the same per-row bases:
-the engine's ``mask_stage`` op stages a plan's tables on every rank and its
-``decode`` op carries a masked chain start's bases and entry states, so a
-worker captures the masked program at the same command as rank 0 (the
-collectives inside it pair), and the bias, applied to the logits gathered
-over tp, is the whole vocabulary's on every rank.
+Under a mesh with dp > 1 each dp rank's buffers hold its block of the
+slots (``parallel/rows.block_plan``: ``ceil(B / dp)`` rows, the last block
+padded with idle slots), the rank's chain point its own slots'; each
+iteration all-gathers the new K/V rows over dp inside ``forward_core``, and
+the call's sampled tokens are all-gathered over dp at its end, so the
+collectives are captured with the rest of the program. Every rank holds the
+same tables; the engine's ``mask_stage`` op stages a plan's tables on every
+rank and its ``decode`` op carries a masked chain start's bases and entry
+states (each rank takes its block), so a worker captures the masked program
+at the same command as rank 0 (the collectives inside it pair), and the
+bias, applied to the logits gathered over tp, is the whole vocabulary's on
+every rank.
 """
 
 from __future__ import annotations
@@ -121,8 +127,8 @@ class MaskTables:
 
 @dataclasses.dataclass
 class DecodeOutputs:
-    toks_out: torch.Tensor  # [k, B] int32 sampled tokens (0 where frozen)
-    last_toks: torch.Tensor  # [B] the chain point: tokens,
+    toks_out: torch.Tensor  # [k, B] int32 sampled tokens (0 where frozen), every slot's
+    last_toks: torch.Tensor  # [B] the chain point (this rank's slots): tokens,
     pos_out: torch.Tensor  # [B] positions
     lens_out: torch.Tensor  # [B] and kv lengths after the call
     counts: torch.Tensor  # [L, E] int32 expert counts summed over k ([L, 0] dense)
@@ -135,7 +141,8 @@ def decode_program(cfg: ModelConfig, params: dict[str, torch.Tensor], cache: tor
                    attn_impl: Callable, moe_dispatch_impl: Optional[Callable],
                    tables: Optional[MaskTables] = None,
                    lora_scale: float = 1.0,
-                   moe_matmul_impl: Callable = grouped_gemm, mesh=None) -> DecodeOutputs:
+                   moe_matmul_impl: Callable = grouped_gemm, mesh=None, split=None,
+                   moe_rows=None, draw: Optional[tuple] = None) -> DecodeOutputs:
     """``k`` decode iterations of the static batch (the reference's
     ``_decode_multi``): each samples every row with its own temperature /
     top-k / top-p (temperature 0 is the exact argmax) and advances the rows
@@ -148,7 +155,11 @@ def decode_program(cfg: ModelConfig, params: dict[str, torch.Tensor], cache: tor
     LoRA bank in ``params`` each row runs its adapter slot (``buf.lora``)
     times ``lora_scale``. ``mesh``: this rank's ``RankMesh``; its
     collectives (tp all-reduces, the logits' all-gather, the EP exchange)
-    are captured with the rest of the program."""
+    are captured with the rest of the program. ``split`` (a
+    ``parallel/rows.RowSplit`` over dp): ``buf`` holds this rank's block of
+    the slots, ``moe_rows`` their slot ids in the static batch, ``draw`` the
+    sampler's ``draw_rows`` (every slot's draws, this block's taken); the
+    call's tokens come back all-gathered, every slot's."""
     toks, pos, lens, steps = buf.tokens, buf.positions, buf.kv_lens, buf.steps_left
     st = buf.fsm
     out, counts, drops = [], None, None
@@ -157,17 +168,19 @@ def decode_program(cfg: ModelConfig, params: dict[str, torch.Tensor], cache: tor
             cfg, params, cache, toks, pos, buf.seq_slots, buf.page_tables, lens,
             cu_q_lens=buf.cu_q_lens, num_seqs=buf.num_seqs, attn_impl=attn_impl,
             moe_dispatch_impl=moe_dispatch_impl, moe_matmul_impl=moe_matmul_impl,
-            lora_indices=buf.lora, lora_scale=lora_scale, mesh=mesh)
+            lora_indices=buf.lora, lora_scale=lora_scale, mesh=mesh, rows=split,
+            moe_rows=moe_rows)
         counts = cnt if counts is None else counts + cnt
         drops = drop if drops is None else drops + drop
         logits = unembed(cfg, params, hidden, mesh)
         act = steps > 0  # rows freeze once their budget is spent
         if tables is None:
-            nxt = sample_tokens(logits, generator, buf.temperature, buf.top_k, buf.top_p)
+            nxt = sample_tokens(logits, generator, buf.temperature, buf.top_k, buf.top_p,
+                                draw_rows=draw)
         else:
             rows = (buf.table_rows + st).long()
             nxt = sample_tokens_biased(logits, tables.bias[rows], generator,
-                                       buf.temperature, buf.top_k, buf.top_p)
+                                       buf.temperature, buf.top_k, buf.top_p, draw_rows=draw)
             st = torch.where(act, tables.next[rows, nxt.long()], st)
         nxt = torch.where(act, nxt, 0)
         pos = torch.where(act, pos + 1, pos)
@@ -175,7 +188,10 @@ def decode_program(cfg: ModelConfig, params: dict[str, torch.Tensor], cache: tor
         steps = steps - act.to(steps.dtype)
         out.append(nxt)
         toks = nxt
-    return DecodeOutputs(torch.stack(out), toks, pos, lens, counts, drops.to(torch.int32),
+    toks_out = torch.stack(out)
+    if split is not None:  # every dp block's tokens, in slot order
+        toks_out = split.gather(toks_out.T.contiguous()).T
+    return DecodeOutputs(toks_out, toks, pos, lens, counts, drops.to(torch.int32),
                          st if tables is not None else None)
 
 

@@ -131,10 +131,27 @@ engines run the same method on their shards with the same collectives, the
 decode programs' captures included (the masked one at the same command on
 every rank), so the workers' decode chains stay on their devices as rank
 0's. Rank 0 alone schedules, reads results back, publishes KV events and
-serves ``/metrics``; it decides each EPLB rebalance and sends the map. Under
-sp > 1 the ``unified_ring`` program (``ops/ring_attention.py``) serves a
-step of one fresh prompt at offset 0 (``n_ring_prefill_steps``,
-``sp_attn_backend``). What exists only on rank 0 reaches every rank in the
+serves ``/metrics``; it decides each EPLB rebalance and sends the map.
+
+A step's rows split as the reference binds them (reference ``engine.py:
+505-509``, ``:534-536``, ``:574-576``, ``:623-626``, ``:677-680``,
+``:721-722``; ``parallel/rows``): every rank derives its part from the op's
+host arrays (``_split``, ``_local``). The ``unified``, ``verify``,
+``verify_masked`` and ``embed`` programs run contiguous near-equal slices of
+their flat rows over the joint (dp, sp) index, the decode programs their dp
+block of the slots (each rank's buffers and chain point its block's), and
+under sp > 1 the ``unified_ring`` program (``ops/ring_attention.py``), which
+serves a step of one fresh prompt at offset 0 (``n_ring_prefill_steps``,
+``sp_attn_backend``), each sp rank's rows of the ring layout, replicated
+over dp. Rows stay replicated over ep and tp. Each rank runs only its rows
+through the dense layers and attention; every layer's new K/V rows are
+all-gathered over the split, so every replica's pool holds the same bytes;
+what rank 0 reads back is gathered (the sampled and greedy tokens, in row
+order; the decode call's tokens inside the program) or summed (expert
+counts, drops, the embed sums). A sampled row draws the whole batch's
+random numbers and takes its own, so every rank's generator stays in step.
+A DP rank frontend's slot range is its dp block when ``dp_ranks`` is
+``mesh.dp``. What exists only on rank 0 reaches every rank in the
 same stream: an adapter slot write (each rank keeps its block,
 ``parallel/mesh.lora_bank_axes``), the masked programs' tables, the media
 rows of a unified op, and every pool read or write of the KV data plane
@@ -267,6 +284,9 @@ from llmd_tpu_torch.parallel.launch import World, WorldError
 from llmd_tpu_torch.parallel.mesh import (
     engine_rules, lora_adapter_block, lora_bank_axes, param_logical_axes, rank_coords,
     shard_params)
+from llmd_tpu_torch.parallel.rows import (
+    DECODE_AXES, FLAT_AXES, RowPlan, RowSplit, block_plan, flat_plan, local_batch,
+    pick_plan, ring_plan, take_rows)
 from llmd_tpu_torch.structured import (
     NEG_BIAS, StructuredState, compile_grammar, parse_logit_bias, structured_spec)
 
@@ -556,7 +576,10 @@ class LLMEngine:
         self._world = None  # rank 0 of a mesh: the command stream
         self._owned_world: Optional[World] = None
         self._op_log: Optional[list] = None  # rank agreement checks: each op's tokens
+        # beside it: each op's (program, the step's rows, this rank's dense rows)
+        self._row_log: list[tuple[str, int, int]] = []
         self._hidden: Optional[torch.Tensor] = None  # the last unified op's rows
+        self._hidden_plan: Optional[RowPlan] = None  # and their split
         mesh = self.cfg.mesh
         if mesh.num_devices == 1:
             if rank_mesh is not None:
@@ -590,8 +613,9 @@ class LLMEngine:
                 or NT % mesh.sp):
             return
         layout = ring_layout(NT, mesh.sp)
+        self._ring_zigzag = layout == "zigzag"
         self._attn["unified_ring"] = make_ring_attn_impl(self.rank_mesh, "sp",
-                                                         zigzag=layout == "zigzag")
+                                                         zigzag=self._ring_zigzag)
         self.programs.register("unified_ring")
         self.sp_attn_backend = self.stats.sp_attn_backend = f"ring_{layout}(sp={mesh.sp})"
 
@@ -610,6 +634,51 @@ class LLMEngine:
     def _log_op(self, t: torch.Tensor) -> None:
         if self._op_log is not None:
             self._op_log.append(t.cpu().numpy().copy())
+
+    def _note_rows(self, program: str, n: int, local: int) -> None:
+        if self._op_log is not None:
+            self._row_log.append((program, n, local))
+
+    def _split(self, program: str, n: int) -> Optional[RowPlan]:
+        """How a ``program`` step of ``n`` rows splits over this mesh
+        (``parallel/rows``, the reference's bindings): the flat programs
+        over the joint (dp, sp) index, the decode programs' slots over dp,
+        the ring program's rows over sp in its layout (replicated over dp).
+        None off a mesh, or when the axes have one rank."""
+        mesh = self.rank_mesh
+        if mesh is None:
+            return None
+        if program == "unified_ring":
+            return ring_plan(n, mesh.size("sp"), self._ring_zigzag)
+        axes = DECODE_AXES if program in ("decode", "decode_masked") else FLAT_AXES
+        parts = mesh.size(axes)
+        if parts == 1:
+            return None
+        return block_plan(n, parts) if axes == DECODE_AXES else flat_plan(n, parts)
+
+    def _local(self, plan: Optional[RowPlan], program: str, batch: dict[str, np.ndarray],
+               per_row: tuple[str, ...]):
+        """This rank's part of a packed step: (its batch, its rows' ids in
+        the step (a pad row: -1), the device split; None off a split)."""
+        n = batch["tokens"].shape[0]
+        if plan is None:
+            self._note_rows(program, n, n)
+            return batch, np.arange(n), None
+        rows = plan.parts[self.rank_mesh.index(plan.axes)]
+        self._note_rows(program, n, len(rows))
+        if program != "unified_ring":
+            return local_batch(batch, rows, per_row), rows, RowSplit(self.rank_mesh, plan,
+                                                                     self.device)
+        # the ring reads only its rows' q/k/v: the sequence's metadata stays
+        fills = {"tokens": 0, "positions": -1, "seq_slots": 0, "lora": 0}
+        local = dict(batch, **{k: take_rows(batch[k], rows, fills[k])
+                               for k in ("tokens", "positions", "seq_slots", *per_row)})
+        return local, rows, RowSplit(self.rank_mesh, plan, self.device)
+
+    def _moe_rows(self, ids: np.ndarray, size: int) -> tuple[torch.Tensor, int]:
+        """``moe_block``'s rows: the static batch's row of each row (a pad
+        row, masked, on the last)."""
+        return self._tensor(np.where(ids >= 0, ids, size - 1).astype(np.int64)), size
 
     def _init_observability(self) -> None:
         """The reference constructor's observability (``engine/engine.py:
@@ -747,7 +816,7 @@ class LLMEngine:
         self._pending_decode = []
         self._pending_sample = None
         self._decode_fn = self._decode_masked_fn = None
-        self._decode_bufs = self._mask_buffers = None
+        self._decode_bufs = self._mask_buffers = self._decode_split = None
         self._pack_bufs, self._result_ring = [], []
         self._mask_tab_cache.clear()
         self.params, self.cache = {}, None
@@ -766,7 +835,7 @@ class LLMEngine:
         self.seqs.clear()
         for q in self.waitq:
             q.clear()
-        self._hidden = None
+        self._hidden = self._hidden_plan = None
         if self._owned_world is not None:
             world, self._owned_world = self._owned_world, None
             world.close()
@@ -987,6 +1056,8 @@ class LLMEngine:
             self._eplb_rebalance()
 
     def _forward(self, program: str, *args, moe_rows, **kw):
+        """``forward_core`` of ``program`` on this rank (``rows``: its part
+        of a split step)."""
         return forward_core(self.model_cfg, self._run_params(), self.cache, *args,
                             attn_impl=self._attn[program],
                             moe_dispatch_impl=self._moe_dispatch_impl,
@@ -1572,18 +1643,29 @@ class LLMEngine:
 
     def _op_unified(self, program: str, toks, pos, sids, pts, lens, cu, lora=None,
                     mm=None):
-        """The unified program's forward on the packed host arrays: (expert
-        counts, dropped copies); the final hidden rows stay for ``_op_sample``."""
-        N = toks.shape[0]
+        """The unified program's forward on the packed host arrays (this
+        rank's part of them on a split mesh): (expert counts, dropped
+        copies), the step's; the final hidden rows stay for ``_op_sample``."""
+        batch = {"tokens": toks, "positions": pos, "seq_slots": sids, "page_tables": pts,
+                 "kv_lens": lens, "cu_q_lens": cu}
+        if lora is not None:
+            batch["lora"] = lora
+        if mm is not None:
+            batch["mm_embeds"], batch["mm_mask"] = mm
+        plan = self._split(program, toks.shape[0])
+        b, ids, split = self._local(plan, program, batch,
+                                    tuple(k for k in ("lora", "mm_embeds", "mm_mask")
+                                          if k in batch))
         hidden, self.cache, cnt, drop = self._forward(
-            program, self._tensor(toks), self._tensor(pos), self._tensor(sids),
-            self._tensor(pts), self._tensor(lens), cu_q_lens=self._tensor(cu),
-            num_seqs=self._tensor(np.array([cu.shape[0] - 1], np.int32)),
-            moe_rows=(torch.arange(N, device=self.device), self.cfg.batched_tokens),
-            lora_indices=self._tensor(lora) if lora is not None else None,
-            **({"mm_embeds": self._tensor(mm[0]), "mm_mask": self._tensor(mm[1])}
-               if mm is not None else {}))
-        self._hidden = hidden
+            program, self._tensor(b["tokens"]), self._tensor(b["positions"]),
+            self._tensor(b["seq_slots"]), self._tensor(b["page_tables"]),
+            self._tensor(b["kv_lens"]), cu_q_lens=self._tensor(b["cu_q_lens"]),
+            num_seqs=self._tensor(np.array([b["cu_q_lens"].shape[0] - 1], np.int32)),
+            moe_rows=self._moe_rows(ids, self.cfg.batched_tokens),
+            lora_indices=self._tensor(b["lora"]) if lora is not None else None,
+            rows=split, **({"mm_embeds": self._tensor(b["mm_embeds"]),
+                            "mm_mask": self._tensor(b["mm_mask"])} if mm is not None else {}))
+        self._hidden, self._hidden_plan = hidden, plan
         return cnt, drop
 
     def _op_sample(self, last: np.ndarray, temp: Optional[np.ndarray] = None,
@@ -1591,16 +1673,32 @@ class LLMEngine:
                    bias: Optional[np.ndarray] = None) -> torch.Tensor:
         """Tokens (int32, on the device) for the last unified op's rows
         ``last``: greedy when ``temp`` is None, else per-row temperature /
-        top-k / top-p; ``bias`` [rows, V] added to the float32 logits first."""
-        logits = unembed(self.model_cfg, self.params, self._hidden[self._tensor(last).long()],
+        top-k / top-p; ``bias`` [rows, V] added to the float32 logits first.
+        On a split step each rank unembeds and samples the rows it holds
+        (drawing the whole batch's random numbers, its rows' taken) and the
+        tokens are all-gathered in row order."""
+        plan, draw, gather = self._hidden_plan, None, None
+        here = np.arange(len(last))  # which of ``last`` this rank samples
+        local = last
+        if plan is not None:
+            parts, picks = pick_plan(plan, last)
+            i = self.rank_mesh.index(plan.axes)
+            local, here = parts[i], picks.parts[i]
+            draw = (len(last), self._tensor(here))
+            gather = RowSplit(self.rank_mesh, picks, self.device)
+        logits = unembed(self.model_cfg, self.params, self._hidden[self._tensor(local).long()],
                          mesh=self.rank_mesh)
-        bias_t = self._tensor(bias) if bias is not None else None
+        bias_t = self._tensor(bias[here]) if bias is not None else None
         if temp is None:
             out = greedy_tokens(logits if bias_t is None else logits.float() + bias_t)
         else:
-            args = (self._tensor(temp), self._tensor(top_k), self._tensor(top_p))
-            out = (sample_tokens_biased(logits, bias_t, self._gen, *args) if bias_t is not None
-                   else sample_tokens(logits, self._gen, *args))
+            args = (self._tensor(temp[here]), self._tensor(top_k[here]),
+                    self._tensor(top_p[here]))
+            out = (sample_tokens_biased(logits, bias_t, self._gen, *args, draw_rows=draw)
+                   if bias_t is not None
+                   else sample_tokens(logits, self._gen, *args, draw_rows=draw))
+        if gather is not None:
+            out = gather.gather(out)
         self._log_op(out)
         return out
 
@@ -2191,11 +2289,11 @@ class LLMEngine:
                              compile_counts=self.compile_counts())
         self._emit_step_spans("spec_verify", [r[0] for r in rows], t0_ns, nb, n_tokens)
 
-    def _verify_kw(self, N: int) -> dict:
+    def _verify_kw(self, ids: np.ndarray, split: Optional[RowSplit]) -> dict:
         return dict(attn_impl=self._attn["unified"], moe_dispatch_impl=self._moe_dispatch_impl,
                     moe_matmul_impl=self._moe_matmul_impl,
-                    moe_rows=(torch.arange(N, device=self.device), self._verify_nt()),
-                    lora_scale=self._lora_scale, mesh=self.rank_mesh)
+                    moe_rows=self._moe_rows(ids, self._verify_nt()),
+                    lora_scale=self._lora_scale, mesh=self.rank_mesh, split=split)
 
     def _op_verify(self, batch: dict[str, np.ndarray], table_rows: Optional[np.ndarray] = None,
                    states: Optional[np.ndarray] = None):
@@ -2203,16 +2301,26 @@ class LLMEngine:
         expert counts, dropped copies). With ``table_rows`` (each packed
         row's table base) and ``states`` (its entry automaton state) the
         masked one over the staged tables: the greedy tokens followed by the
-        states after them."""
-        N = batch["tokens"].shape[0]
-        b = {k: self._tensor(v) for k, v in batch.items()}
+        states after them. On a split mesh this rank runs its part of the
+        rows (with its rows' table bases and entry states); the outputs are
+        every part's."""
+        prog = "verify" if table_rows is None else "verify_masked"
+        full = dict(batch)
+        if table_rows is not None:
+            full["table_rows"], full["states"] = table_rows, states
+        per_row = tuple(k for k in ("lora", "table_rows", "states") if k in full)
+        local, ids, split = self._local(self._split(prog, batch["tokens"].shape[0]), prog,
+                                        full, per_row)
+        b = {k: self._tensor(v) for k, v in local.items()
+             if k not in ("table_rows", "states")}
         if table_rows is None:
             out, self.cache, cnt, drop = verify(
-                self.model_cfg, self._run_params(), self.cache, b, **self._verify_kw(N))
+                self.model_cfg, self._run_params(), self.cache, b, **self._verify_kw(ids, split))
         else:
             greedy, fsm_next, self.cache, cnt, drop = verify_masked(
                 self.model_cfg, self._run_params(), self.cache, b, self._mask_buffers,
-                self._tensor(table_rows), self._tensor(states), **self._verify_kw(N))
+                self._tensor(local["table_rows"]), self._tensor(local["states"]),
+                **self._verify_kw(ids, split))
             out = torch.cat([greedy, fsm_next])
         self._log_op(out)
         return out, cnt, drop
@@ -2521,11 +2629,13 @@ class LLMEngine:
             return fn
         cfg = self.model_cfg
         if self._decode_bufs is None:
+            self._init_decode_split()
             self._decode_bufs = DecodeBuffers.allocate(
-                self.cfg.max_batch_size, self.cfg.max_pages_per_seq, self.device)
+                len(self._decode_rows), self.cfg.max_pages_per_seq, self.device)
         buf = self._decode_bufs
         k = max(1, self.cfg.decode_steps)
         tables = self._mask_buffers if masked else None
+        split, moe_rows, draw = self._decode_split
 
         ref = weakref.ref(self)  # the program is the engine's: no cycle through it
 
@@ -2536,7 +2646,7 @@ class LLMEngine:
                 attn_impl=eng._attn["decode"],
                 moe_dispatch_impl=eng._moe_dispatch_impl, tables=tables,
                 lora_scale=eng._lora_scale, moe_matmul_impl=eng._moe_matmul_impl,
-                mesh=eng.rank_mesh), buf,
+                mesh=eng.rank_mesh, split=split, moe_rows=moe_rows, draw=draw), buf,
                 drops=cfg.is_moe, counts=eng._eplb is not None)
 
         fn = program
@@ -2553,11 +2663,36 @@ class LLMEngine:
             self._decode_fn = fn
         return fn
 
-    def _upload_entry(self, table_rows: np.ndarray, fsm0: np.ndarray) -> None:
-        """A masked chain start's per-slot table rows and entry states."""
+    def _init_decode_split(self) -> None:
+        """The decode programs' slots on this rank (``parallel/rows.
+        block_plan`` over dp: its block of ``ceil(B / dp)`` slots, the last
+        block padded with idle slots), and what the program takes of the
+        split: the gather, the slots' rows in the static batch and the
+        sampler's whole-batch draws. Off a dp split: every slot, nothing."""
+        B = self.cfg.max_batch_size
+        plan = self._split("decode", B)
+        if plan is None:
+            self._decode_rows = np.arange(B)
+            self._decode_split = (None, None, None)
+            return
+        rows = self._decode_rows = plan.parts[self.rank_mesh.index(plan.axes)]
+        self._decode_split = (RowSplit(self.rank_mesh, plan, self.device),
+                              self._moe_rows(rows, B),
+                              (B, self._tensor(np.clip(rows, 0, B - 1).astype(np.int64))))
+
+    def _upload_decode(self, arrays: dict) -> None:
+        """Host arrays of every slot (``PACKED`` names, and ``table_rows`` /
+        ``fsm`` of a masked chain start) into this rank's static buffers, its
+        block of them on a dp split (idle values on its pad slots); through
+        pinned memory, no host wait."""
         buf = self._decode_bufs
-        buf.table_rows.copy_(self._tensor(table_rows), non_blocking=True)
-        buf.fsm.copy_(self._tensor(fsm0), non_blocking=True)
+        split = self._decode_split[0] is not None
+        for name, a in arrays.items():
+            if split:
+                a = take_rows(np.asarray(a), self._decode_rows,
+                              PACKED[name][1] if name in PACKED else 0)
+            src = a if isinstance(a, torch.Tensor) else self._tensor(a)
+            getattr(buf, name).copy_(src, non_blocking=True)
 
     def _op_decode(self, uploads: dict[str, np.ndarray], masked: bool = False,
                    entry: Optional[tuple[np.ndarray, np.ndarray]] = None) -> torch.Tensor:
@@ -2567,11 +2702,11 @@ class LLMEngine:
         call, at the same command as rank 0's, with the collectives inside),
         chained on its own device outputs."""
         program = self._decode_program(masked=masked)
-        buf = self._decode_bufs
-        for name, a in uploads.items():  # through pinned memory: no host wait
-            getattr(buf, name).copy_(self._tensor(a), non_blocking=True)
+        self._upload_decode(uploads)
         if entry is not None:
-            self._upload_entry(*entry)
+            self._upload_decode({"table_rows": entry[0], "fsm": entry[1]})
+        self._note_rows("decode_masked" if masked else "decode", self.cfg.max_batch_size,
+                        len(self._decode_rows))
         out = program()
         self._log_op(out)
         return out
@@ -2658,11 +2793,10 @@ class LLMEngine:
                 "uploads": {name: host[name].copy() for name in uploads},
                 "masked": mask is not None, "entry": entry}))
         program = self._decode_program(masked=mask is not None)
-        buf = self._decode_bufs
-        for name in uploads:
-            getattr(buf, name).copy_(host_t[name], non_blocking=True)
+        self._upload_decode({name: host_t[name] for name in uploads})
         if entry is not None:
-            self._upload_entry(*entry)
+            self._upload_decode({"table_rows": entry[0], "fsm": entry[1]})
+        self._note_rows(prog, self.cfg.max_batch_size, len(self._decode_rows))
         probes = None
         if (st.n_decode_dispatches + 1) % self._attn_probe_every == 0:
             probes = self._run_phase_probes(active, k, off)
@@ -3042,17 +3176,25 @@ class LLMEngine:
         """The embed program (reference ``_embed``): one chunk of one
         sequence, padding rows at position -1, through ``forward_core``
         (K1 for its attention); the float32 sum [D] of the valid rows' final
-        hidden states, on the device."""
-        positions = self._tensor(pos)
+        hidden states, on the device. On a split mesh each rank sums its part
+        of the chunk's rows and the sums are all-reduced over the split."""
+        batch = {"tokens": toks, "positions": pos, "seq_slots": np.zeros_like(toks),
+                 "page_tables": pt, "kv_lens": np.array([kv_len], np.int32),
+                 "cu_q_lens": np.array([0, n], np.int32), "num_seqs": np.array([1], np.int32),
+                 "lora": lora}
+        b, ids, split = self._local(self._split("embed", toks.shape[0]), "embed", batch,
+                                    ("lora",))
+        positions = self._tensor(b["positions"])
         hidden, self.cache, _, _ = self._forward(
-            "unified", self._tensor(toks), positions,
-            torch.zeros((toks.shape[0],), dtype=torch.int32, device=self.device),
-            self._tensor(pt), self._tensor(np.array([kv_len], np.int32)),
-            cu_q_lens=self._tensor(np.array([0, n], np.int32)),
-            num_seqs=self._tensor(np.array([1], np.int32)), moe_rows=None,
-            lora_indices=self._tensor(lora) if self.lora_registry is not None else None)
+            "unified", self._tensor(b["tokens"]), positions, self._tensor(b["seq_slots"]),
+            self._tensor(b["page_tables"]), self._tensor(b["kv_lens"]),
+            cu_q_lens=self._tensor(b["cu_q_lens"]), num_seqs=self._tensor(b["num_seqs"]),
+            moe_rows=self._moe_rows(ids, toks.shape[0]), rows=split,
+            lora_indices=self._tensor(b["lora"]) if self.lora_registry is not None else None)
         valid = (positions >= 0).to(torch.float32)[:, None]
         out = (hidden.float() * valid).sum(dim=0)
+        if split is not None:
+            out = split.reduce(out)
         self._log_op(out)
         return out
 

@@ -25,6 +25,7 @@ def sample_tokens(
     top_k: torch.Tensor,  # [B] int (0 = disabled)
     top_p: torch.Tensor,  # [B] (1.0 = disabled)
     top_k_max: int = 64,
+    draw_rows: "tuple[int, torch.Tensor] | None" = None,
 ) -> torch.Tensor:
     """Sampled token ids [B] (int32), the reference's algorithm: the top
     ``top_k_max`` candidates once, per-row k masking inside them, top-p over
@@ -33,7 +34,12 @@ def sample_tokens(
     of ``p / E`` with E ~ Exp(1) per candidate picks candidate i with
     probability p_i / sum(p), as ``torch.multinomial`` draws one sample, but
     without multinomial's host read of its input check, so a CUDA graph
-    captures it (with ``generator`` registered, each replay draws anew)."""
+    captures it (with ``generator`` registered, each replay draws anew).
+
+    ``draw_rows = (n, index [B])``: these rows are rows ``index`` of a batch
+    of ``n`` split over a mesh; the draws are the whole batch's, these rows'
+    taken, so every rank's generator stays in step with the others' and a
+    row draws what it draws unsplit."""
     logits = logits.float()
     B, V = logits.shape
     greedy = torch.argmax(logits, dim=-1)
@@ -48,7 +54,11 @@ def sample_tokens(
     cum = torch.cumsum(probs, dim=-1)
     keep = ((cum - probs) < top_p.float()[:, None]) | (ranks == 0)
     probs = torch.where(keep & (ranks < k_eff), probs, 0.0)
-    race = torch.empty_like(probs).exponential_(generator=generator)
+    if draw_rows is None:
+        race = torch.empty_like(probs).exponential_(generator=generator)
+    else:
+        n, index = draw_rows
+        race = probs.new_empty((n, K)).exponential_(generator=generator)[index]
     # a zero-probability candidate never wins, even against a draw of 0
     choice = torch.argmax(torch.where(probs > 0, probs / race, -1.0), dim=-1, keepdim=True)
     sampled = torch.gather(topi, 1, choice)[:, 0]
@@ -63,13 +73,14 @@ def sample_tokens_biased(
     top_k: torch.Tensor,  # [B]
     top_p: torch.Tensor,  # [B]
     top_k_max: int = 64,
+    draw_rows: "tuple[int, torch.Tensor] | None" = None,
 ) -> torch.Tensor:
     """:func:`sample_tokens` on ``logits.float() + bias``: the grammar-mask
     and ``logit_bias`` path (reference ``sample_tokens_biased``). The same
     sampler and the same generator, so an all-zero bias gives bitwise the
     unbiased tokens (and draws the same random numbers)."""
     return sample_tokens(logits.float() + bias, generator, temperature, top_k, top_p,
-                         top_k_max)
+                         top_k_max, draw_rows)
 
 
 def apply_penalties(

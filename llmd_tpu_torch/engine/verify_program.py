@@ -28,7 +28,10 @@ sequence's adapter slot (``batch["lora"]``, the reference's ``lora_tok``).
 Under a mesh both run on every rank through the engine's ``verify`` op (the
 masked one with its table bases and entry states, over tables the
 ``mask_stage`` op staged on every rank); the logits are gathered over tp
-before the bias and the argmax.
+before the bias and the argmax. With dp or sp > 1 each rank runs its part of
+the packed rows (``parallel/rows.flat_plan``; its rows' table bases and entry
+states, which the host derived from the input tokens alone) and the greedy
+tokens (and next states) are all-gathered over the split.
 """
 
 from __future__ import annotations
@@ -48,25 +51,27 @@ from llmd_tpu_torch.ops.grouped_gemm import grouped_gemm
 def verify(cfg: ModelConfig, params: dict[str, torch.Tensor], cache: torch.Tensor,
            batch: dict[str, torch.Tensor], *, attn_impl: Callable,
            moe_dispatch_impl: Optional[Callable], moe_rows, lora_scale: float = 1.0,
-           moe_matmul_impl: Callable = grouped_gemm, mesh=None
+           moe_matmul_impl: Callable = grouped_gemm, mesh=None, split=None
            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(greedy [N] int32, cache, expert counts, dropped copies) for the
     packed batch ``batch`` (``tokens``, ``positions``, ``seq_slots``,
     ``page_tables``, ``kv_lens``, ``cu_q_lens``, ``num_seqs``, and under
     LoRA ``lora``, each row's adapter slot, scaled by ``lora_scale``);
     ``moe_matmul_impl``: the einsum dispatch's expert products; ``mesh``:
-    this rank's ``RankMesh`` (``forward_core``'s)."""
+    this rank's ``RankMesh`` (``forward_core``'s); ``split``: the batch is
+    this rank's part of a split step (``forward_core``'s ``rows``), and the
+    greedy tokens come back for every part's rows."""
     hidden, cache, cnt, drop = _forward(cfg, params, cache, batch, attn_impl,
                                         moe_dispatch_impl, moe_rows, lora_scale,
-                                        moe_matmul_impl, mesh)
-    return greedy_tokens(unembed(cfg, params, hidden, mesh)), cache, cnt, drop
+                                        moe_matmul_impl, mesh, split)
+    return _gathered(split, greedy_tokens(unembed(cfg, params, hidden, mesh))), cache, cnt, drop
 
 
 def verify_masked(cfg: ModelConfig, params: dict[str, torch.Tensor], cache: torch.Tensor,
                   batch: dict[str, torch.Tensor], tables: MaskTables,
                   table_rows: torch.Tensor, states: torch.Tensor, *, attn_impl: Callable,
                   moe_dispatch_impl: Optional[Callable], moe_rows, lora_scale: float = 1.0,
-                  moe_matmul_impl: Callable = grouped_gemm, mesh=None):
+                  moe_matmul_impl: Callable = grouped_gemm, mesh=None, split=None):
     """:func:`verify` with the grammar bias: row i takes its argmax over
     ``logits + tables.bias[table_rows[i] + states[i]]`` (float32) and its
     next state is ``tables.next[table_rows[i] + states[i], greedy]``.
@@ -77,10 +82,11 @@ def verify_masked(cfg: ModelConfig, params: dict[str, torch.Tensor], cache: torc
     cache, expert counts, dropped copies)."""
     hidden, cache, cnt, drop = _forward(cfg, params, cache, batch, attn_impl,
                                         moe_dispatch_impl, moe_rows, lora_scale,
-                                        moe_matmul_impl, mesh)
+                                        moe_matmul_impl, mesh, split)
     rows = (table_rows + states).long()
     greedy = torch.argmax(unembed(cfg, params, hidden, mesh).float() + tables.bias[rows], dim=-1)
-    return (greedy.to(torch.int32), tables.next[rows, greedy], cache, cnt, drop)
+    return (_gathered(split, greedy.to(torch.int32)), _gathered(split, tables.next[rows, greedy]),
+            cache, cnt, drop)
 
 
 def verify_states(chunks: Sequence[tuple[Sequence[int], int, Optional[np.ndarray]]]
@@ -102,12 +108,16 @@ def verify_states(chunks: Sequence[tuple[Sequence[int], int, Optional[np.ndarray
     return np.asarray(out, np.int32)
 
 
+def _gathered(split, t: torch.Tensor) -> torch.Tensor:
+    return t if split is None else split.gather(t)
+
+
 def _forward(cfg, params, cache, batch, attn_impl, moe_dispatch_impl, moe_rows, lora_scale,
-             moe_matmul_impl, mesh):
+             moe_matmul_impl, mesh, split):
     return forward_core(cfg, params, cache, batch["tokens"], batch["positions"],
                         batch["seq_slots"], batch["page_tables"], batch["kv_lens"],
                         cu_q_lens=batch["cu_q_lens"], num_seqs=batch["num_seqs"],
                         attn_impl=attn_impl, moe_dispatch_impl=moe_dispatch_impl,
                         moe_matmul_impl=moe_matmul_impl,
                         moe_rows=moe_rows, lora_indices=batch.get("lora"),
-                        lora_scale=lora_scale, mesh=mesh)
+                        lora_scale=lora_scale, mesh=mesh, rows=split)

@@ -283,6 +283,7 @@ def moe_block(
     wi_scale: Optional[torch.Tensor] = None,  # [S, 2Fe] float32: wi/wo are int8 banks
     wo_scale: Optional[torch.Tensor] = None,  # [S, D]
     ep_mesh=None,
+    row_split=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Top-k routed MoE (port of the reference's ``moe_block``).
 
@@ -306,11 +307,22 @@ def moe_block(
     ``rows = (row_ids [T] int64, size)`` places the T rows in the reference's
     static batch of ``size`` rows (the reference pads its unified batch to the
     token budget, real rows first, and its decode batch to every slot, row =
-    slot). The replica choice uses ``row_ids`` for ``t``; the einsum path runs
-    on the padded batch (its C, cumsum order and DBO halves depend on it), so
-    its drops equal the reference's. Default: ``arange(T)``, size T.
+    slot; a pad row of a split decode block is masked and may repeat an id).
+    The replica choice uses ``row_ids`` for ``t``; the einsum path computes
+    its capacity positions on the static batch (its C, cumsum order and DBO
+    halves depend on it), so its drops equal the reference's. Default:
+    ``arange(T)``, size T.
 
-    ``cfg.moe_dbo`` runs two half batches (split at half the static size).
+    ``row_split`` (a ``parallel/rows.RowSplit``): the T rows are this rank's
+    part of a step split over the mesh. The einsum path all-gathers the
+    routing (slot ids and masks, ints) and the row ids over the split, builds
+    the static batch's positions from the whole step and keeps its own rows'
+    positions, so its dropped copies are the unsplit batch's. The counts and
+    drops returned are this rank's rows' (``forward_core`` sums them).
+
+    ``cfg.moe_dbo`` runs two half batches (split at half the static size on
+    the einsum path, at half this rank's rows on the drop-free sorted path,
+    where the split changes no row's result).
 
     ``ep_mesh`` (a ``parallel/mesh.RankMesh``): ``wi``/``wo`` hold this
     rank's 1/ep of the S slots (rank r's are ``[r*S/ep, (r+1)*S/ep)``). The
@@ -319,7 +331,7 @@ def moe_block(
     positions over all S slots, its local slots' share of the expert
     products (K4 over S/ep groups) and sums the shares over ep in f32.
     Returns (y [T, D], logical expert counts [E] int32, dropped copies int32
-    scalar; 0 on the sorted path)."""
+    scalar; 0 on the sorted path), all of these T rows."""
     T, D = x.shape
     E, k = cfg.moe_num_experts, cfg.moe_top_k
     dev = x.device
@@ -343,41 +355,38 @@ def moe_block(
         S, idx = E, topi
     Sl, lo = S // ep, (ep_mesh.index("ep") * (S // ep) if ep > 1 else 0)
 
-    def halves(fn, *args):
-        """``fn`` on the whole batch, or on its two DBO halves."""
-        t = args[0].shape[0]
-        if cfg.moe_dbo and t % 2 == 0 and t >= 2:
-            h = t // 2
-            (ya, ka), (yb, kb) = fn(*(a[:h] for a in args)), fn(*(a[h:] for a in args))
-            return torch.cat([ya, yb]), ka + kb
-        return fn(*args)
-
-    if dispatch_impl is not None:
-        def sorted_half(x, idx, topw, valid):
-            return dispatch_impl(x, idx, topw, valid, wi, wo, wi_scale, wo_scale), 0
-
-        y, _ = halves(sorted_half, x, idx, topw, valid)
+    if dispatch_impl is not None:  # the whole batch, or its two DBO halves
+        dbo = cfg.moe_dbo and T % 2 == 0 and T >= 2
+        halves = (slice(0, T // 2), slice(T // 2, T)) if dbo else (slice(0, T),)
+        ys = [dispatch_impl(x[h], idx[h], topw[h], valid[h], wi, wo, wi_scale, wo_scale)
+              for h in halves]
+        y = ys[0] if len(ys) == 1 else torch.cat(ys)
         return y, counts, torch.zeros((), dtype=torch.int32, device=dev)
 
-    def einsum_half(x, idx, topw, valid):
-        t = x.shape[0]
+    def capacity(idx, valid):
+        """C, each copy's place in its slot's queue and whether it is kept,
+        and the kept copies per local slot, over ``t`` static rows."""
+        t = idx.shape[0]
         C = max(1, int(t * k / S * cfg.moe_capacity_factor))
         onehot = F.one_hot(idx, S).to(torch.int32) * valid[..., None]  # [t, k, S]
         flat = onehot.reshape(t * k, S)
         pos_in_expert = (torch.cumsum(flat, 0) - flat).reshape(t, k, S)
         pos = pos_in_expert.gather(2, idx[..., None])[..., 0]  # [t, k] own slot
         keep = (pos < C) & (valid > 0)  # [t, k]
+        slot_counts = (onehot * keep[..., None]).sum(dim=(0, 1)).to(torch.int32)
+        return C, pos, keep, slot_counts[lo : lo + Sl]
+
+    def experts(pos, keep, C, slot_counts):
+        """This rank's rows' kept copies through its local slots' expert
+        products: y [T, D] in f32 (zero for a copy not kept)."""
         # kept copy -> row slot*C + pos of the [S*C] expert buffer; the rest
-        # -> the dump row S*C (sliced off)
-        # this rank's slots [lo, lo + Sl) (all of them off a mesh); the
-        # other copies go to the dump row Sl*C
+        # -> the dump row S*C (sliced off); this rank's slots [lo, lo + Sl)
+        # (all of them off a mesh), the other copies to the dump row Sl*C
         mine = keep & (idx >= lo) & (idx < lo + Sl)
         dst = torch.where(mine, (idx - lo) * C + pos, Sl * C).reshape(-1)
-        tok = torch.arange(t * k, device=dev) // k
+        tok = torch.arange(T * k, device=dev) // k
         xe = x.new_zeros((Sl * C + 1, D)).index_copy_(0, dst, x[tok])[: Sl * C]
         if wi_scale is None:
-            slot_counts = (onehot * keep[..., None]).sum(dim=(0, 1)).to(torch.int32)
-            slot_counts = slot_counts[lo : lo + Sl]
             gate, up = matmul_impl(xe.view(Sl, C, D), wi, slot_counts).chunk(2, dim=-1)
             ye = matmul_impl(F.silu(gate) * up, wo, slot_counts).reshape(Sl * C, D)
         else:
@@ -388,20 +397,29 @@ def moe_block(
                   * wo_scale[:, None, :].to(dt)).reshape(Sl * C, D)
         g = torch.cat([ye, ye.new_zeros((1, D))])[dst].float()
         wt = (topw.to(x.dtype) * keep).float().reshape(-1, 1)
-        y = (g * wt).view(t, k, D).sum(dim=1)
-        if ep > 1:
-            y = ep_mesh.reduce(y, "ep")  # the other ranks' slots' shares, in f32
-        return y.to(x.dtype), keep.sum().to(torch.int32)
+        return (g * wt).view(T, k, D).sum(dim=1)
 
-    if size != T:  # scatter into the reference's static batch; the rest masked
-        def pad(a):
-            return a.new_zeros((size, *a.shape[1:])).index_copy_(0, row_ids.long(), a)
-
-        y, kept = halves(einsum_half, pad(x), pad(idx), pad(topw), pad(valid))
-        y = y[row_ids.long()]
-    else:
-        y, kept = halves(einsum_half, x, idx, topw, valid)
-    return y, counts, counts.sum().to(torch.int32) - kept
+    # the capacity einsum: C, the queue order and the DBO halves are the
+    # reference's static batch's (``size`` rows, the whole step's routing
+    # gathered over a row split), each rank's expert products its own rows'
+    g_idx, g_valid, g_ids = idx, valid, row_ids.long()
+    if row_split is not None:
+        g_idx, g_valid, g_ids = (row_split.gather(a) for a in (idx, valid, g_ids))
+    st_idx = g_idx.new_zeros((size, k)).index_copy_(0, g_ids, g_idx)
+    st_valid = g_valid.new_zeros((size, 1)).index_copy_(0, g_ids, g_valid)
+    h = size // 2 if cfg.moe_dbo and size % 2 == 0 and size >= 2 else size
+    own = row_ids.long().clamp(max=size - 1)
+    y, kept = None, None
+    for a in range(0, size, h):  # the whole static batch, or its two DBO halves
+        C, pos, keep, slot_counts = capacity(st_idx[a : a + h], st_valid[a : a + h])
+        at = (own - a).clamp(0, h - 1)
+        keep_o = keep[at] & ((own >= a) & (own < a + h) & (valid[:, 0] > 0))[:, None]
+        y_h = experts(pos[at], keep_o, C, slot_counts)
+        y = y_h if y is None else y + y_h  # a row's other half adds zeros
+        kept = keep_o.sum() if kept is None else kept + keep_o.sum()
+    if ep > 1:
+        y = ep_mesh.reduce(y, "ep")  # the other ranks' slots' shares, in f32
+    return y.to(x.dtype), counts, counts.sum().to(torch.int32) - kept.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -442,19 +460,30 @@ def init_cache(cfg: ModelConfig, num_pages: int, page_size: int,
 _FP8_MAX = 448.0
 
 
-def _write_rows(flat_cache: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                slots: torch.Tensor) -> None:
+def _pool_rows(flat_cache: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """New tokens' rows as the pool stores them, ``[n, planes, D]`` in its
+    dtype (an fp8 pool's clamped to +-448, then cast)."""
     n, hk, d = k.shape
     if flat_cache.shape[1] == 1:  # single-plane MLA pool: k IS the latent row; v unused
         kv = k
     else:
         kv = torch.stack([k, v], dim=2).reshape(n, 2 * hk, d)
     if flat_cache.dtype == torch.float8_e4m3fn:
-        # index_copy_ takes no fp8 (on the CPU): the same bytes through uint8 views
-        kv = kv.float().clamp(-_FP8_MAX, _FP8_MAX).to(torch.float8_e4m3fn)
-        flat_cache.view(torch.uint8).index_copy_(0, slots.long(), kv.view(torch.uint8))
+        return kv.float().clamp(-_FP8_MAX, _FP8_MAX).to(torch.float8_e4m3fn)
+    return kv.to(flat_cache.dtype)
+
+
+def _store_rows(flat_cache: torch.Tensor, rows: torch.Tensor, slots: torch.Tensor) -> None:
+    # index_copy_ takes no fp8 (on the CPU): the same bytes through uint8 views
+    if rows.dtype == torch.float8_e4m3fn:
+        flat_cache.view(torch.uint8).index_copy_(0, slots.long(), rows.view(torch.uint8))
     else:
-        flat_cache.index_copy_(0, slots.long(), kv.to(flat_cache.dtype))
+        flat_cache.index_copy_(0, slots.long(), rows)
+
+
+def _write_rows(flat_cache: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                slots: torch.Tensor) -> None:
+    _store_rows(flat_cache, _pool_rows(flat_cache, k, v), slots)
 
 
 def write_kv(flat_cache: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -496,6 +525,7 @@ def forward_core(
     mm_embeds: Optional[torch.Tensor] = None,  # [N, D] encode-stage rows, row-aligned
     mm_mask: Optional[torch.Tensor] = None,  # [N] bool, True where tokens[i] is a placeholder
     mesh=None,
+    rows=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run a flat mixed batch through the model, writing K/V into the pool.
 
@@ -524,9 +554,19 @@ def forward_core(
     heads' rows of A joins wo's partial sum before the reduce), expert banks
     over ep (see
     ``moe_block``; banks of fewer slots than experts, or EPLB's physical
-    slots, are ep-sharded). Every rank runs every row. The attention impl
-    also gets the chunk's raw K/V (``chunk_k`` / ``chunk_v``), which the
-    ring program reads, as the reference passes them.
+    slots, are ep-sharded). The attention impl also gets the chunk's raw K/V
+    (``chunk_k`` / ``chunk_v``), which the ring program reads, as the
+    reference passes them.
+
+    ``rows`` (a ``parallel/rows.RowSplit``): the batch is this rank's part of
+    a step whose rows are split over the mesh (``parallel/rows.local_batch``:
+    its rows, with its sequences' page tables, ``cu_q_lens`` and kv lengths
+    up to its last row). Only these rows go through the embedding, the
+    norms, the projections, the MLP or experts and attention; each layer's
+    new K/V rows, in the pool's dtype, are all-gathered (their bytes) over
+    the split with their slots, and every rank writes the whole step's rows
+    before its attention reads the pool, so every replica's pool holds the
+    same bytes. Expert counts and drops come back summed over the split.
 
     Returns (hidden [N, D] final-normed, cache, expert_counts [L, E] int32
     ([L, 0] for a dense model), dropped copies int32 scalar). Callers unembed
@@ -548,15 +588,18 @@ def forward_core(
 
     # global slot ids of the new tokens, layer l's at page_table[seq, pos //
     # ps] * ps + pos % ps + l*P*ps; padding rows (position -1) at the dump
-    # row, the last of the dump page
+    # row, the last of the dump page. A split step writes every part's rows.
     valid = positions >= 0
     b = seq_slots.long().clamp(0, B - 1)
     pos0 = torch.where(valid, positions, 0).long()
     safe_page = torch.where(page_tables >= 0, page_tables, 0).long()[b, pos0 // ps]
+    slot0 = torch.where(valid, safe_page * ps + pos0 % ps, -1)
+    if rows is not None:
+        slot0 = rows.gather(slot0)
     flat = cache.view(Ptot * ps, HkC, Dh)
     layer_base = torch.arange(L, device=x.device)[:, None] * (P * ps)
-    dst = torch.where(valid[None, :], (safe_page * ps + pos0 % ps)[None, :] + layer_base,
-                      Ptot * ps - 1)  # [L, N]
+    dst = torch.where(slot0[None, :] >= 0, slot0[None, :] + layer_base,
+                      Ptot * ps - 1)  # [L, rows written]
     if cfg.is_mla:
         # absorbed MLA: MQA over the latent row [c ; k_rope]; RoPE turns only
         # the dr rope dims, so its tables are built at dr, not head_dim
@@ -623,7 +666,10 @@ def forward_core(
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
         # this layer's slice of the pool: slots/pages shifted by the layer offset
-        _write_rows(flat, k, v, dst[l])
+        kv = _pool_rows(flat, k, v)
+        if rows is not None:  # the bytes of every part's rows
+            kv = rows.gather(kv.view(torch.uint8)).view(kv.dtype)
+        _store_rows(flat, kv, dst[l])
         pt_l = torch.where(page_tables >= 0, page_tables + l * P, -1)
         attn = attn_impl(q, cache, pt_l, positions, seq_slots, kv_lens,
                          cu_q_lens=cu_q_lens, num_seqs=num_seqs, scale=scale,
@@ -651,7 +697,7 @@ def forward_core(
                 dispatch_impl=moe_dispatch_impl, rows=moe_rows,
                 wi_scale=params["moe_wi_scale"][l] if q8 else None,
                 wo_scale=params["moe_wo_scale"][l] if q8 else None,
-                ep_mesh=ep_mesh)
+                ep_mesh=ep_mesh, row_split=rows)
             if cfg.moe_num_shared_experts:
                 y = y + tp_sum(swiglu_layer(params, "shared_wi", "shared_wo", l, h))
             counts.append(cnt)
@@ -661,6 +707,10 @@ def forward_core(
         x = x + y
     if counts:
         expert_counts, n_dropped = torch.stack(counts), torch.stack(dropped).sum()
+        if rows is not None:  # the step's, summed over its parts
+            both = rows.reduce(torch.cat([expert_counts.reshape(-1),
+                                          n_dropped.reshape(1).to(expert_counts.dtype)]))
+            expert_counts, n_dropped = both[:-1].view(expert_counts.shape), both[-1]
     else:
         expert_counts = torch.zeros((L, 0), dtype=torch.int32, device=x.device)
         n_dropped = torch.zeros((), dtype=torch.int32, device=x.device)

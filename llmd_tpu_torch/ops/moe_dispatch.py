@@ -21,8 +21,9 @@ The reference's ``mode="drop"`` scatters have no torch counterpart: sentinel
 copies write to one dump row past the buffer, which is then sliced off.
 
 Expert parallel (``make_sorted_dispatch(mesh)`` with ep > 1; reference
-``_ep_moe_body``): every rank holds a step's rows, padded to a multiple of
-dp x sp x ep, and owns one 1/(dp·sp·ep) slice of them. Its routed copies are
+``_ep_moe_body``): the ranks of one ep group hold the same rows (their
+(dp, sp) part of a split step, ``parallel/rows``), padded to a multiple of ep,
+and each owns one 1/ep slice of them. Its routed copies are
 bucketed by the ep rank that owns their slot, each bucket of ``cap = tpc·k``
 rows (all of the slice's copies could go to one rank, so nothing drops), and
 two ``all_to_all_single`` calls over the ep group send the rows and their
@@ -30,7 +31,7 @@ slot ids. The receiver runs the sorted experts (K2) on its ``ep·cap`` rows
 over its S/ep local slots, the ``-1`` pads as the sentinel slot, and one
 ``all_to_all_single`` sends the rows back. The origin weights them and adds
 each token's k copies in order of k (as the local combine: no atomics), and
-an all-gather over dp x sp x ep gives every rank every row.
+an all-gather over ep gives every rank of the group its rows back.
 """
 
 from __future__ import annotations
@@ -187,22 +188,20 @@ def _sorted_rows(xr, lslot, Sl: int, bc: int, wi, wo, wi_scale, wo_scale, gemm):
 def ep_moe(x, idx, topw, valid, wi, wo, wi_scale=None, wo_scale=None, *, mesh,
            gemm: Callable = ragged_grouped_gemm) -> torch.Tensor:
     """The expert-parallel sorted MoE (module docstring). ``wi``/``wo`` (and
-    the int8 scales) are this rank's S/ep slots; x/idx/topw/valid are the
-    step's rows, the same on every rank. Returns y [T, D] on every rank."""
+    the int8 scales) are this rank's S/ep slots; x/idx/topw/valid are this
+    rank's rows, the same on every rank of its ep group. Returns y [T, D]."""
     T, D = x.shape
     k = idx.shape[1]
     ep = mesh.size("ep")
     Sl = wi.shape[0]
     S = Sl * ep
-    split = ("dp", "sp", "ep")
-    mult = mesh.size(split)
-    Tp = -(-T // mult) * mult
+    Tp = -(-T // ep) * ep
     if Tp != T:
         def pad(a):
             return torch.cat([a, a.new_zeros((Tp - T, *a.shape[1:]))])
         x, idx, topw, valid = pad(x), pad(idx), pad(topw), pad(valid)  # pad rows invalid
-    tpc = Tp // mult
-    o = mesh.index(split) * tpc
+    tpc = Tp // ep
+    o = mesh.index("ep") * tpc
     x_o, idx_o, w_o, v_o = (a[o : o + tpc] for a in (x, idx, topw, valid))
     dev = x.device
     n = cap = tpc * k  # a bucket holds every copy of the slice: no drops
@@ -232,7 +231,7 @@ def ep_moe(x, idx, topw, valid, wi, wo, wi_scale=None, wo_scale=None, *, mesh,
     y_o = by_copy[:, 0]
     for j in range(1, k):
         y_o = y_o + by_copy[:, j]
-    return mesh.gather(y_o, split)[:T]
+    return mesh.gather(y_o, "ep")[:T]
 
 
 def make_sorted_dispatch(mesh=None, gemm: Callable = ragged_grouped_gemm) -> Callable:
@@ -241,7 +240,7 @@ def make_sorted_dispatch(mesh=None, gemm: Callable = ragged_grouped_gemm) -> Cal
     happened upstream (shared with the einsum path). ``mesh`` (a
     ``parallel/mesh.RankMesh``) with ep > 1: :func:`ep_moe`, whose banks are
     this rank's slots; otherwise the one-device path (every rank of a mesh
-    without ep runs all rows on its whole banks). ``gemm``: K2's wrapper or
+    without ep runs its rows on its whole banks). ``gemm``: K2's wrapper or
     its plain version."""
     if mesh is not None and mesh.size("ep") > 1:
         return functools.partial(ep_moe, mesh=mesh, gemm=gemm)

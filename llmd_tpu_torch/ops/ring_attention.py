@@ -19,12 +19,14 @@ low to low when src <= my, high to high when src >= my); the contiguous
 layout leaves the last rank working at every step.
 
 The block attend is plain torch in f32, as the reference's is XLA einsums:
-no kernel. ``sp_flash_prefill`` takes the whole sequence on every rank (the
-port replicates a step's rows over sp), runs the ring on this rank's rows and
-gathers the result over sp. :func:`make_ring_attn_impl` is the engine's
-``unified_ring`` attention: it reads the chunk's own q/k/v (``forward_core``
-passes ``chunk_k`` / ``chunk_v``), valid only for one fresh sequence at
-offset 0, which the engine checks.
+no kernel. :func:`make_ring_attn_impl` is the engine's ``unified_ring``
+attention: each sp rank runs its own rows of the ring layout
+(``parallel/rows.ring_plan``) through the dense layers, and the impl runs the
+ring on those rows' q and raw k/v (``forward_core`` passes ``chunk_k`` /
+``chunk_v``), valid only for one fresh sequence at offset 0, which the engine
+checks; nothing is gathered over sp. :func:`sp_flash_prefill` is the same
+ring over a whole sequence held by every rank, its result gathered over sp
+(its unit tests' entry).
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ import warnings
 from typing import Optional
 
 import torch
+
+from llmd_tpu_torch.parallel.rows import ring_order
 
 NEG_INF = -1e30
 
@@ -103,14 +107,6 @@ def ring_attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(S, H, q.shape[-1]).to(q.dtype)
 
 
-def _zigzag_perm(S: int, n: int, device) -> torch.Tensor:
-    """Row order of the zig-zag layout: rank d's rows are chunk d, then
-    chunk 2n-1-d (each S/2n rows)."""
-    C = S // (2 * n)
-    ids = torch.stack([torch.arange(n), 2 * n - 1 - torch.arange(n)], dim=1).reshape(-1)
-    return (ids[:, None] * C + torch.arange(C)[None, :]).reshape(-1).to(device)
-
-
 def sp_flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh, *,
                      scale: Optional[float] = None, axis_name: str = "sp",
                      zigzag: bool = True) -> torch.Tensor:
@@ -132,7 +128,7 @@ def sp_flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh, *,
                          f"axis size {n} (pad upstream)")
     my, b = mesh.index(axis_name), S // n
     if use_zigzag:
-        perm = _zigzag_perm(S, n, q.device)
+        perm = torch.from_numpy(ring_order(S, n, zigzag=True)).to(q.device)
         rows = perm[my * b:(my + 1) * b]
         out_l = ring_attention_sharded(q[rows], k[rows], v[rows], mesh=mesh,
                                        axis_name=axis_name, scale=scale, zigzag=True)
@@ -152,16 +148,14 @@ def ring_layout(tokens: int, n: int, zigzag: bool = True) -> str:
 
 def make_ring_attn_impl(mesh, axis_name: str = "sp", zigzag: bool = True):
     """The ``unified_ring`` program's attention impl (the engine's uniform
-    signature): ring attention over the chunk's own q and its raw
-    ``chunk_k`` / ``chunk_v``, not the pool. Valid only for one fresh
-    sequence packed at offset 0 (positions 0..N-1, no earlier K/V), which
-    the engine checks: there causality by row equals causality by position.
-    The K/V were written to the pool before this call, so decode goes on
-    from the pool. The port's unified program packs only its real rows:
-    the impl pads them with zero rows to the layout's multiple (2n for
-    zig-zag, n for contiguous); pad rows sit in every real query's future."""
-    n = mesh.size(axis_name)
-    mult = 2 * n if zigzag else n
+    signature): ring attention over this rank's rows of the chunk, its q and
+    its raw ``chunk_k`` / ``chunk_v``, not the pool. The rows are this sp
+    rank's of the ring layout (``parallel/rows.ring_plan``: zig-zag or
+    contiguous, pad rows at position -1 past the sequence, in every real
+    query's future), one fresh sequence packed at offset 0 (positions
+    0..N-1, no earlier K/V), which the engine checks: there causality by row
+    equals causality by position. The K/V were written to the pool before
+    this call, so decode goes on from the pool."""
 
     def impl(q, layer_cache, page_tables, positions, seq_slots, kv_lens, *,
              scale, cu_q_lens=None, num_seqs=None, chunk_k=None, chunk_v=None):
@@ -169,15 +163,8 @@ def make_ring_attn_impl(mesh, axis_name: str = "sp", zigzag: bool = True):
         if chunk_k is None or chunk_v is None:
             raise ValueError("ring attn impl needs the chunk's raw k/v "
                              "(forward_core passes chunk_k/chunk_v)")
-        S = q.shape[0]
-        pad = (-S) % mult
-        if pad:
-            def padded(t):
-                return torch.cat([t, t.new_zeros((pad, *t.shape[1:]))])
-            q, chunk_k, chunk_v = padded(q), padded(chunk_k), padded(chunk_v)
-        out = sp_flash_prefill(q, chunk_k, chunk_v, mesh, scale=scale,
-                               axis_name=axis_name, zigzag=zigzag)
-        return out[:S]
+        return ring_attention_sharded(q, chunk_k, chunk_v, mesh=mesh, axis_name=axis_name,
+                                      scale=scale, zigzag=zigzag)
 
     return impl
 

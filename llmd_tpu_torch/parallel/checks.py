@@ -4,10 +4,12 @@ the same arguments (``World.call("llmd_tpu_torch.parallel.checks:<name>",
 cards and the tests over gloo on the CPU.
 
 - :func:`ep_dispatch`: the EP exchange (``ops/moe_dispatch.ep_moe``) from
-  the whole banks, each rank on its own slots;
+  the whole banks, each rank on its own slots and its (dp, sp) part of the
+  rows;
 - :func:`ring_prefill`: ``ops/ring_attention.sp_flash_prefill``;
 - :func:`forward_logits`: one prefill through ``forward_core`` on this
-  rank's shards (tp / ep as the engine shards them), the gathered logits;
+  rank's shards (tp / ep as the engine shards them) and its (dp, sp) part of
+  the rows (``parallel/rows``), the gathered logits;
 - :func:`collectives_in_graph`: ``all_reduce``, ``all_gather`` and
   ``all_to_all_single`` on the default group captured in one CUDA graph,
   replayed, against the same calls run eagerly (NCCL inside a graph).
@@ -18,7 +20,9 @@ engine shard):
 - :func:`lora_slot_sums`: each adapter leaf's absolute sum at one bank slot
   on this rank (0 everywhere: the slot is the null adapter);
 - :func:`pool_pages`: this rank's planes of some pages, block-major, as
-  their bytes.
+  their bytes;
+- :func:`row_log`: the rows each op of this rank's engine ran through its
+  dense layers.
 """
 
 from __future__ import annotations
@@ -35,12 +39,25 @@ def _t(mesh, a, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     return t.to(device=mesh.device, dtype=dtype if dtype is not None else t.dtype)
 
 
+def _flat_split(mesh, n: int):
+    """This rank's rows of an ``n``-row step split over (dp, sp) and the
+    split (None when those axes hold one rank)."""
+    from llmd_tpu_torch.parallel.rows import FLAT_AXES, RowSplit, flat_plan
+
+    if mesh.size(FLAT_AXES) == 1:
+        return np.arange(n), None
+    plan = flat_plan(n, mesh.size(FLAT_AXES))
+    return plan.parts[mesh.index(FLAT_AXES)], RowSplit(mesh, plan, mesh.device)
+
+
 def ep_dispatch(mesh, x, idx, topw, valid, wi, wo, wi_scale=None, wo_scale=None,
                 kernel: bool = False, bf16: bool = False) -> np.ndarray:
     """y [T, D] of the sorted dispatch over ``mesh`` (float32 numpy). Each
     rank keeps its 1/ep of the slots of the whole banks ``wi`` / ``wo``
-    (and the int8 scales). ``kernel``: K2 (on cards); else its plain
-    version. ``bf16``: activations and float banks in bfloat16."""
+    (and the int8 scales) and runs its (dp, sp) part of the rows, as the
+    engine splits a step; the parts are gathered. ``kernel``: K2 (on
+    cards); else its plain version. ``bf16``: activations and float banks in
+    bfloat16."""
     from llmd_tpu_torch.ops import grouped_gemm as gg
     from llmd_tpu_torch.ops.moe_dispatch import make_sorted_dispatch
 
@@ -56,8 +73,11 @@ def ep_dispatch(mesh, x, idx, topw, valid, wi, wo, wi_scale=None, wo_scale=None,
         scales = [_t(mesh, s)[sl] for s in (wi_scale, wo_scale)]
     impl = make_sorted_dispatch(mesh, gemm=gg.ragged_grouped_gemm if kernel
                                 else gg.ragged_grouped_gemm_ref)
-    y = impl(_t(mesh, x, dt), _t(mesh, idx), _t(mesh, topw), _t(mesh, valid), *banks,
-             *scales)
+    rows, split = _flat_split(mesh, np.asarray(x).shape[0])
+    y = impl(*(_t(mesh, np.asarray(a)[rows], dt if a is x else None)
+               for a in (x, idx, topw, valid)), *banks, *scales)
+    if split is not None:
+        y = split.gather(y)
     return y.float().cpu().numpy()
 
 
@@ -82,12 +102,15 @@ def forward_logits(mesh, model_cfg, params: dict, tokens, page_size: int = 8,
     """The logits [N, V] (float32 numpy) of one fresh sequence ``tokens``,
     prefilled in one chunk through ``forward_core`` on this rank's shards:
     ``params`` (the whole model, numpy or tensors) quantized first under
-    ``quantize="int8"``, then sharded as the engine shards them."""
+    ``quantize="int8"``, then sharded as the engine shards them; this rank
+    runs its (dp, sp) part of the rows (``parallel/rows.local_batch``) and
+    the logits are gathered over the split."""
     from llmd_tpu_torch.models.quant import quantize_params
     from llmd_tpu_torch.models.transformer import forward_core, init_cache, unembed
     from llmd_tpu_torch.ops.moe_dispatch import make_sorted_dispatch
     from llmd_tpu_torch.ops.paged_attention import paged_attention
     from llmd_tpu_torch.parallel.mesh import engine_rules, param_logical_axes, shard_params
+    from llmd_tpu_torch.parallel.rows import local_batch
 
     dev = mesh.device
     p = {k: _t(mesh, v) for k, v in params.items()}
@@ -98,22 +121,28 @@ def forward_logits(mesh, model_cfg, params: dict, tokens, page_size: int = 8,
     p = shard_params(p, mesh, param_logical_axes(model_cfg),
                      engine_rules(model_cfg, mesh.size("ep"), eplb=False))
     whole = model_cfg.is_moe and model_cfg.moe_num_experts % mesh.size("ep") != 0
-    toks = _t(mesh, np.asarray(tokens, np.int32))
+    toks = np.asarray(tokens, np.int32)
     N = toks.shape[0]
     pages = -(-N // page_size)
     cache = init_cache(model_cfg, pages + 1, page_size, device=dev, tp=mesh.size("tp"),
                        dtype=torch.float8_e4m3fn if kv_cache_dtype == "fp8" else None)
-    pt = torch.full((1, pages + 1), -1, dtype=torch.int32, device=dev)
-    pt[0, :pages] = torch.arange(pages, dtype=torch.int32, device=dev)
+    pt = np.full((1, pages + 1), -1, np.int32)
+    pt[0, :pages] = np.arange(pages)
+    batch = {"tokens": toks, "positions": np.arange(N, dtype=np.int32),
+             "seq_slots": np.zeros((N,), np.int32), "page_tables": pt,
+             "kv_lens": np.array([N], np.int32), "cu_q_lens": np.array([0, N], np.int32)}
+    rows, split = _flat_split(mesh, N)
+    b = {k: _t(mesh, v) for k, v in local_batch(batch, rows, ()).items()}
     hidden, _, _, _ = forward_core(
-        model_cfg, p, cache, toks, torch.arange(N, dtype=torch.int32, device=dev),
-        torch.zeros((N,), dtype=torch.int32, device=dev), pt,
-        torch.tensor([N], dtype=torch.int32, device=dev),
-        cu_q_lens=torch.tensor([0, N], dtype=torch.int32, device=dev),
-        num_seqs=torch.tensor([1], dtype=torch.int32, device=dev),
+        model_cfg, p, cache, b["tokens"], b["positions"], b["seq_slots"], b["page_tables"],
+        b["kv_lens"], cu_q_lens=b["cu_q_lens"], num_seqs=b["num_seqs"],
         attn_impl=attn_impl or paged_attention,
-        moe_dispatch_impl=make_sorted_dispatch(mesh) if not whole else None, mesh=mesh)
-    return unembed(model_cfg, p, hidden, mesh).float().cpu().numpy()
+        moe_dispatch_impl=make_sorted_dispatch(mesh) if not whole else None, mesh=mesh,
+        moe_rows=(_t(mesh, rows.astype(np.int64)), N), rows=split)
+    logits = unembed(model_cfg, p, hidden, mesh)
+    if split is not None:
+        logits = split.gather(logits)
+    return logits.float().cpu().numpy()
 
 
 def collectives_in_graph(mesh=None, n: int = 4096, replays: int = 3) -> dict:
@@ -172,3 +201,9 @@ def pool_pages(engine, pids: list) -> np.ndarray:
 
     part = gather_pages(engine.cache, list(pids), engine.cfg.num_pages)
     return part.view(torch.uint8).cpu().numpy()
+
+
+def row_log(engine) -> list:
+    """(program, the step's rows, the rows this rank ran through its dense
+    layers) of each op of this rank's engine since it was built."""
+    return list(engine._row_log)

@@ -13,10 +13,13 @@ rank ``((d * sp + s) * ep + e) * tp + t`` sits at (d, s, e, t).
   (Megatron column / row parallel, ``reduce("tp")`` after the row-parallel
   products, the logits gathered).
 - ``ep``: MoE expert slots; the token exchange is ``ops/moe_dispatch``'s.
-- ``sp``: the ring prefill of ``ops/ring_attention``.
-- ``dp``: data-parallel rank frontends (``engine/dp_group``). Dense rows are
-  replicated over dp and sp: every rank runs every row of a step outside the
-  MoE exchange (tokens split over dp x sp x ep there) and the ring.
+- ``sp``: a step's flat rows (with dp), and the ring prefill of
+  ``ops/ring_attention``.
+- ``dp``: a step's rows (``parallel/rows``: the flat programs' rows over the
+  joint (dp, sp) index, the decode programs' slots over dp; each rank runs
+  its own rows through every dense layer and attention), and the
+  data-parallel rank frontends (``engine/dp_group``), whose slot ranges are
+  the decode programs' dp blocks. Rows stay replicated over ep and tp.
 
 :data:`DEFAULT_RULES` and :func:`param_logical_axes` are the reference's
 logical axes (:func:`lora_param_logical_axes` the adapter bank's, and
@@ -27,8 +30,9 @@ reference's ``shard_pytree``). Fused gate+up leaves (``wi``, ``shared_wi``,
 apart, so each rank keeps matching gate and up columns.
 
 The collectives (``reduce``, ``gather``, ``all_to_all``, ``ring_shift``) are
-identities on an axis of size 1 and run NCCL on CUDA tensors, gloo on CPU
-tensors: the backend is the default process group's.
+identities on an axis of size 1, and on an empty tensor (every rank of the
+group holds the same rows, so all of it skips alike); they run NCCL on CUDA
+tensors, gloo on CPU tensors: the backend is the default process group's.
 """
 
 from __future__ import annotations
@@ -87,10 +91,9 @@ def axis_ranks(cfg: MeshConfig, rank: int, axes: Sequence[str]) -> list[int]:
     return sorted(out)
 
 
-# the groups a forward uses: one per axis, and dp x sp x ep (the MoE
-# exchange's token split, gathered back over every rank of one tp index)
-GROUPS: tuple[tuple[str, ...], ...] = (("tp",), ("ep",), ("sp",), ("dp",),
-                                       ("dp", "sp", "ep"))
+# the groups a forward uses: one per axis, and dp x sp (the flat programs'
+# row split, gathered back over the ranks of one ep and tp index)
+GROUPS: tuple[tuple[str, ...], ...] = (("tp",), ("ep",), ("sp",), ("dp",), ("dp", "sp"))
 
 
 class RankMesh:
@@ -165,7 +168,7 @@ class RankMesh:
     def reduce(self, x: torch.Tensor, axes: "str | Sequence[str]") -> torch.Tensor:
         """Sum over ``axes`` (an all-reduce, in place on ``x``, which must be
         a tensor of the caller's own)."""
-        if self.size(axes) == 1:
+        if self.size(axes) == 1 or x.numel() == 0:
             return x
         x = x.contiguous()
         dist.all_reduce(x, group=self.group(axes))
@@ -180,7 +183,8 @@ class RankMesh:
         dim = dim % x.dim()
         xt = x.movedim(dim, 0).contiguous()
         out = xt.new_empty((n * xt.shape[0], *xt.shape[1:]))
-        _all_gather_single(out, xt, self.group(axes))
+        if x.numel():
+            _all_gather_single(out, xt, self.group(axes))
         return out.movedim(0, dim)
 
     def broadcast(self, x: torch.Tensor) -> torch.Tensor:
@@ -202,7 +206,7 @@ class RankMesh:
         """Equal-split all-to-all over ``axes``: block i of ``x`` (along dim
         0) goes to the group's i-th rank; block j of the result came from
         its j-th rank."""
-        if self.size(axes) == 1:
+        if self.size(axes) == 1 or x.numel() == 0:
             return x
         x = x.contiguous()
         out = torch.empty_like(x)

@@ -11,6 +11,16 @@ this file's engine cases) from the reference's float32 weights:
   equal the JAX engine's under the same ``MeshConfig``; one prefill's logits
   within 1e-4 of the reference forward's;
 - tiny-moe at ep=2 with EPLB: tokens, dropped copies and rebalances equal;
+- a step's rows split over (dp, sp) (``parallel/rows``): tiny at dp=2 with
+  mixed prompts and the pipelined defaults, with ngram speculation and the
+  embed program, and with a CPU-offload reload; tiny at sp=2 on the plain
+  unified program; tiny-moe at dp=2 on the einsum dispatch with EPLB:
+  tokens, spec counts, offload loads, dropped copies and rebalances equal
+  the JAX engine's under the same ``MeshConfig``, one prefill's logits at
+  dp=2 and at sp=2 within 1e-4;
+- every engine case: each rank ran through its dense layers the rows the
+  reference's binding gives it, op by op, and after serving every rank's
+  pool holds the bytes of its tp peer on rank 0;
 - every rank's device ops gave rank 0's tokens;
 - a world whose rank 1 is killed raises on rank 0 within its timeout, and
   the world script exits non-zero.
@@ -39,7 +49,7 @@ from llmd_tpu_torch.models import quant as tq
 from llmd_tpu_torch.models import transformer as tt
 from llmd_tpu_torch.parallel import mesh as tmesh
 from llmd_tpu_torch.parallel.eplb import EPLBConfig
-from torch_mesh_worker import WorldRun
+from torch_mesh_worker import WorldRun, rows_as_planned
 
 BASE = dict(page_size=8, num_pages=64, max_model_len=256, max_batch_size=4,
             prefill_chunk=32, decode_steps=2)
@@ -58,6 +68,18 @@ SERVED = [("bias", [3, 4, 5], {"logit_bias": {5: -100}}, {}),
 # most of the vocabulary in each prompt: prompt lookup finds a draft for
 # nearly every generated token
 ECHO = [list(range(1, 200)), list(range(5, 205))]
+# tests/test_torch_kv_offload.py's scenario: prompt A cold, prompt B (A's
+# pages leave HBM for the CPU tier), A again (reloaded)
+OFFLOAD = dict(num_pages=12, max_batch_size=2, cpu_offload_pages=64)
+OFFLOAD_PHASES = [[list(range(1, 49))], [list(range(100, 170))], [list(range(1, 49))]]
+# the split's engine cases: (world case, model, mesh, phases, engine kwargs)
+SPLIT = {"dp2": ("tiny", dict(dp=2), [PROMPTS, PROMPTS[1:]], {}),
+         "dp2_offload": ("tiny", dict(dp=2), OFFLOAD_PHASES, OFFLOAD),
+         "sp2": ("tiny", dict(sp=2), [PROMPTS], {}),
+         "dp2_einsum": ("tiny-moe", dict(dp=2), [PROMPTS],
+                        dict(moe_dispatch="einsum", eplb=EPLB))}
+ENGINE_CASES = ("tp", "tp_int8", "tp_fp8", "mla_tp", "tp_spec_embed", "tp_sampled", "ep_eplb",
+                "sp_ring", "dp2_spec_embed", *SPLIT)
 
 
 def _weights(name: str, seed: int = 0):
@@ -74,6 +96,26 @@ def _jax_tokens(jcfg, jp, mesh: dict, prompts, max_tokens=6, **kw):
         eplb=None if eplb is None else JaxEPLBConfig(*eplb)), params=jp)
     out = eng.generate(prompts, JaxSamplingParams(max_tokens=max_tokens, temperature=0.0))
     return [out[f"req-{i}"] for i in range(len(prompts))], eng.stats
+
+
+def _jax_phases(jcfg, jp, mesh: dict, phases, max_tokens=6, **kw):
+    """The JAX engine's greedy tokens phase by phase (each phase's prompts
+    added, then stepped until idle), and its stats."""
+    eplb = kw.pop("eplb", None)
+    eng = JaxEngine(jcfg, JaxEngineConfig(
+        **BASE | kw, mesh=jmesh.MeshConfig(**mesh),
+        eplb=None if eplb is None else JaxEPLBConfig(*eplb)), params=jp)
+    out = []
+    for n, phase in enumerate(phases):
+        for i, p in enumerate(phase):
+            eng.add_request(f"r{n}-{i}", p, JaxSamplingParams(max_tokens=max_tokens,
+                                                              temperature=0.0))
+        got: dict = {}
+        while eng.has_work():
+            for o in eng.step():
+                got.setdefault(o.request_id, []).extend(o.new_token_ids)
+        out.append([got[f"r{n}-{i}"] for i in range(len(phase))])
+    return out, eng
 
 
 def _engine_case(tcfg, npp, mesh: dict, phases, **kw):
@@ -139,7 +181,18 @@ def world(weights, tmp_path_factory):
         "logits_moe": {"kind": "call", "mesh": MeshConfig(ep=2),
                        "fn": "llmd_tpu_torch.parallel.checks:forward_logits",
                        "kw": dict(model_cfg=moe_cfg, params=moe, tokens=PROMPTS[2])},
+        "dp2_spec_embed": dict(_engine_case(tt_cfg, tiny, dict(dp=2), [ECHO],
+                                            spec_mode="ngram"), embed=PROMPTS[:2]),
+        "logits_dp2": {"kind": "call", "mesh": MeshConfig(dp=2),
+                       "fn": "llmd_tpu_torch.parallel.checks:forward_logits",
+                       "kw": dict(model_cfg=tt_cfg, params=tiny, tokens=PROMPTS[2])},
+        "logits_moe_sp2": {"kind": "call", "mesh": MeshConfig(sp=2),
+                           "fn": "llmd_tpu_torch.parallel.checks:forward_logits",
+                           "kw": dict(model_cfg=moe_cfg, params=moe, tokens=PROMPTS[2])},
     }
+    for name, (model, mesh, phases, kw) in SPLIT.items():
+        _, cfg, _, npp = weights[model]
+        cases[name] = _engine_case(cfg, npp, mesh, phases, **kw)
     run = WorldRun(list(cases.values()), 2, str(tmp_path_factory.mktemp("mesh")))
     yield run, list(cases)
     run.reap()
@@ -302,8 +355,9 @@ def test_mesh_refusals_name_item_6c(world):
     assert {rid for rid, _, _, _ in SERVED} == set(run)
     assert run["adapter"][0] != run["plain"][0]
     root = pathlib.Path(__file__).resolve().parent.parent / "llmd_tpu_torch"
-    hits = [str(p) for p in root.rglob("*.py") if "item 6c" in p.read_text()]
-    assert not hits, hits
+    hits = [str(p) for p in root.rglob("*.py")
+            if "item 6c" in p.read_text() or "item 6d" in p.read_text()]
+    assert not hits, hits  # nor the row split's item, done too
     assert "item 6c" not in world[0].log_text()
 
 
@@ -357,12 +411,16 @@ def test_moe_ep2_eplb_equals_the_meshed_reference(weights, world):
 
 @pytest.mark.parametrize("case,name,quant", [("logits", "tiny", None),
                                              ("logits_int8", "tiny", "int8"),
-                                             ("logits_moe", "tiny-moe", None)])
+                                             ("logits_moe", "tiny-moe", None),
+                                             ("logits_dp2", "tiny", None),
+                                             ("logits_moe_sp2", "tiny-moe", None)])
 def test_meshed_prefill_logits_within_1e4(weights, world, case, name, quant):
     """One 30-token prefill on the shards (vocab-parallel embed and logits,
-    column / row parallel products, the EP exchange) against the reference
-    forward on the whole weights: max |diff| <= 1e-4, same argmax, and every
-    rank holds the same logits."""
+    column / row parallel products, the EP exchange; at dp=2 and sp=2 each
+    rank runs its 15 rows, the K/V of all 30 gathered into its pool before
+    attention, the logits gathered) against the reference forward on the
+    whole weights: max |diff| <= 1e-4, same argmax, and every rank holds the
+    same logits."""
     jcfg, _, jp, _ = weights[name]
     if quant:
         jp, _ = jq.quantize_params(jcfg, jp)
@@ -406,3 +464,71 @@ def test_a_dead_rank_fails_the_world_within_its_timeout(tmp_path):
     assert code != 0 and res, run.log_text()
     assert res[0]["error_raised"] and "rank 1" in res[0]["error_raised"]
     assert res[0]["seconds"] < 20
+
+
+@pytest.mark.parametrize("case", list(SPLIT))
+def test_split_rows_equal_the_meshed_reference(weights, world, case):
+    """A step's rows split over (dp, sp), each rank running its own: at dp=2
+    mixed prompts through the pipelined defaults and a second phase of
+    prefix hits, and prompt A reloaded from the CPU tier; at sp=2 three
+    prompts on the plain unified program; tiny-moe at dp=2 on the einsum
+    dispatch (capacity positions from the gathered routing) with EPLB.
+    Tokens phase by phase, offload loads, dropped copies and rebalances
+    equal the JAX engine's under the same mesh."""
+    model, mesh, phases, kw = SPLIT[case]
+    jcfg, _, jp, _ = weights[model]
+    want, je = _jax_phases(jcfg, jp, mesh, phases, **kw)
+    res = _result(world, case)
+    st, jst = res["stats"], je.stats
+    assert res["tokens"] == want and res["agree"], res
+    assert (st["total_offload_loads"], st["moe_dropped_tokens"], st["eplb_rebalances"]) == (
+        jst.total_offload_loads, jst.moe_dropped_tokens, jst.eplb_rebalances)
+    if case == "dp2_offload":
+        assert st["total_offload_loads"] > 0 and want[2] == want[0]
+    if case == "dp2_einsum":
+        assert st["moe_dropped_tokens"] > 0 and st["eplb_rebalances"] >= 1
+    assert res["ring_steps"][-1] == jst.n_ring_prefill_steps
+    if case == "sp2":  # three prompts a step: the plain unified program, split over sp
+        assert res["ring_steps"] == [0] and st["sp_attn_backend"] == "ring_zigzag(sp=2)"
+
+
+def test_dp2_verify_and_embed_programs_equal_the_meshed_reference(weights, world):
+    """ngram speculation and the embed program with their rows split over
+    dp=2: tokens, drafted / accepted / verify-step counts and the
+    embeddings (each rank's partial sum all-reduced) equal the JAX engine's
+    under the same mesh."""
+    jcfg, _, jp, _ = weights["tiny"]
+    je = JaxEngine(jcfg, JaxEngineConfig(**BASE, mesh=jmesh.MeshConfig(dp=2),
+                                         spec_mode="ngram"), params=jp)
+    out = je.generate(ECHO, JaxSamplingParams(max_tokens=6, temperature=0.0))
+    want_embed = [je.embed(p) for p in PROMPTS[:2]]
+    res = _result(world, "dp2_spec_embed")
+    st, jst = res["stats"], je.stats
+    assert res["tokens"] == [[out[f"req-{i}"] for i in range(len(ECHO))]] and res["agree"]
+    assert (st["spec_drafted"], st["spec_accepted"], st["n_spec_verify_steps"]) == (
+        jst.spec_drafted, jst.spec_accepted, jst.n_spec_verify_steps)
+    assert st["n_spec_verify_steps"] > 0
+    np.testing.assert_allclose(np.asarray(res["embeds"]), np.asarray(want_embed),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ENGINE_CASES)
+def test_every_rank_ran_its_rows_and_holds_the_same_pool(world, case):
+    """Each rank's row log: every op ran, on every rank, the rows the
+    reference's binding gives it (the flat programs' near-equal (dp, sp)
+    slices summing to the step, the decode programs' dp block, the ring's
+    sp share); after serving, every rank's pool pages hold the bytes of its
+    tp peer on rank 0."""
+    res = _result(world, case)
+    mesh = _ENGINE_MESH[case]
+    assert rows_as_planned(res, mesh) == []
+    split = mesh.dp * mesh.sp > 1
+    assert any(e[2] < e[1] for e in res["row_logs"][0]) == split
+    assert res["pools_equal"]
+
+
+_ENGINE_MESH = {"tp": MeshConfig(tp=2), "tp_int8": MeshConfig(tp=2), "tp_fp8": MeshConfig(tp=2),
+                "mla_tp": MeshConfig(tp=2), "tp_spec_embed": MeshConfig(tp=2),
+                "tp_sampled": MeshConfig(tp=2), "ep_eplb": MeshConfig(ep=2),
+                "sp_ring": MeshConfig(sp=2), "dp2_spec_embed": MeshConfig(dp=2),
+                **{name: MeshConfig(**mesh) for name, (_, mesh, _, _) in SPLIT.items()}}

@@ -9,7 +9,9 @@ zig-zag and contiguous, GQA, and bf16 inputs as the reference's test holds
 them. The engine's ``unified_ring`` program on that world at
 ``MeshConfig(sp=2, tp=2)``: its layout string, ring steps 1 for one fresh
 prompt, none for a continuation chunk or a two-sequence step, and greedy
-tokens equal to the JAX engine's under the same mesh, on tiny and tiny-mla.
+tokens equal to the JAX engine's under the same mesh, on tiny and tiny-mla;
+each sp rank ran its rows of the ring layout (the other steps' rows split
+over sp), and every rank's pool holds its tp peer's bytes on rank 0.
 """
 
 import dataclasses
@@ -32,7 +34,7 @@ from llmd_tpu_torch.engine.config import EngineConfig, MeshConfig
 from llmd_tpu_torch.models import get_model_config
 from llmd_tpu_torch.ops import ring_attention as tra
 from llmd_tpu_torch.parallel.mesh import RankMesh
-from torch_mesh_worker import WorldRun
+from torch_mesh_worker import WorldRun, rows_as_planned
 
 RING = dict(page_size=8, num_pages=64, max_model_len=256, max_batch_size=4,
             prefill_chunk=64)
@@ -167,3 +169,6 @@ def test_engine_ring_program_equals_the_meshed_reference(weights, world, name):
     assert res["stats"]["sp_attn_backend"] == "ring_zigzag(sp=2)"
     assert res["tokens"] == want and res["agree"], res
     assert res["ring_steps"] == steps == ([1, 2, 2] if name == "tiny" else [1])
+    assert rows_as_planned(res, MeshConfig(**MESH)) == [] and res["pools_equal"]
+    progs = {e[0] for e in res["row_logs"][0]}
+    assert {"unified_ring", "decode"} <= progs and ("unified" in progs) == (name == "tiny")

@@ -9,8 +9,11 @@ runs every case of this file:
   ``make_sorted_dispatch(mesh)`` on its 8 virtual devices
   (``tests/test_moe_dispatch.py``'s ep-axis cases) within 1e-5;
 - tiny-moe under ``MeshConfig(dp=2, ep=2, tp=2)`` with ``dp_ranks=2``, on
-  the sorted and the einsum dispatch: greedy tokens and dropped copies equal
-  to the JAX engine's under the same mesh, every rank's ops equal rank 0's;
+  the sorted and the einsum dispatch, each step's rows split over dp: greedy
+  tokens and dropped copies equal to the JAX engine's under the same mesh,
+  every rank's ops equal rank 0's, every rank ran the rows of its dp part
+  (the EP exchange splitting them further over ep), and every rank's pool
+  holds its tp peer's bytes on rank 0;
 - ``WideEPEngineGroup`` over that mesh (``tests/test_wide_ep_group.py``'s
   mesh case): both rank ports answer completions over HTTP, and a
   ``dp_ranks`` that is not ``mesh.dp`` raises.
@@ -33,7 +36,7 @@ from llmd_tpu.parallel import mesh as jmesh
 from llmd_tpu_torch.engine.config import EngineConfig, MeshConfig
 from llmd_tpu_torch.engine.dp_group import WideEPEngineGroup
 from llmd_tpu_torch.models import get_model_config
-from torch_mesh_worker import WorldRun
+from torch_mesh_worker import WorldRun, rows_as_planned
 
 WIDE = dict(dp=2, ep=2, tp=2)
 SMALL = dict(page_size=8, num_pages=64, max_model_len=96, max_batch_size=4,
@@ -130,9 +133,11 @@ def test_ep_exchange_matches_the_meshed_reference_dispatch(world, name):
 
 @pytest.mark.parametrize("path", ["sorted", "einsum"])
 def test_wide_ep_mesh_engine_equals_the_meshed_reference(weights, world, path):
-    """dp=2 x ep=2 x tp=2, prompts on both DP ranks: the EP exchange spans
-    every rank's tokens (sorted) or the local slots' capacity products sum
-    over ep (einsum); tokens and dropped copies equal the JAX engine's."""
+    """dp=2 x ep=2 x tp=2, prompts on both DP ranks, each dp part of a step
+    on its own ranks: the EP exchange spans the ep group's rows (sorted) or
+    the local slots' capacity products sum over ep, at the positions of the
+    whole step's gathered routing (einsum); tokens and dropped copies equal
+    the JAX engine's; each rank ran its part's rows, the pools agree."""
     jcfg, _, jp, _ = weights
     je = JaxEngine(jcfg, JaxEngineConfig(**SMALL, mesh=jmesh.MeshConfig(**WIDE), dp_ranks=2,
                                          moe_dispatch=path), params=jp)
@@ -147,6 +152,7 @@ def test_wide_ep_mesh_engine_equals_the_meshed_reference(weights, world, path):
     assert res["tokens"] == [[got[f"r{i}"] for i in range(len(PROMPTS))]] and res["agree"]
     assert res["stats"]["moe_dispatch"] == path
     assert res["stats"]["moe_dropped_tokens"] == je.stats.moe_dropped_tokens
+    assert rows_as_planned(res, MeshConfig(**WIDE)) == [] and res["pools_equal"]
 
 
 def test_wide_ep_group_over_the_mesh_answers_on_both_rank_ports(world):

@@ -15,8 +15,11 @@ this script imports the port and nothing of the JAX package):
   ones); each phase a list of prompts generated in turn (greedy unless
   ``temperature``), then ``embed``'s token lists through ``LLMEngine.embed``.
   Result: each phase's tokens and the ring steps after it, the embeddings,
-  the engine's stats, and whether every rank's device ops gave rank 0's
-  tokens.
+  the engine's stats, whether every rank's device ops gave rank 0's
+  tokens, every rank's row log (``checks.row_log``: each op's program, its
+  rows and the rows the rank ran) with the ranks' mesh coordinates, and
+  whether every rank's pool holds the bytes of the rank of rank 0's tp group
+  at its tp index.
 - ``{"kind": "call", "mesh", "fn", "kw"}``: ``fn(mesh, **kw)`` on every rank
   (``llmd_tpu_torch.parallel.checks``); rank 0's result and whether the
   workers' equal it.
@@ -62,7 +65,7 @@ import torch  # noqa: E402
 
 from llmd_tpu_torch.core.request import SamplingParams  # noqa: E402
 from llmd_tpu_torch.parallel.launch import World  # noqa: E402
-from llmd_tpu_torch.parallel.mesh import MeshConfig  # noqa: E402
+from llmd_tpu_torch.parallel.mesh import MeshConfig, rank_coords  # noqa: E402
 
 
 TAG_VAR = "MESH_WORLD_TAG"
@@ -170,17 +173,67 @@ def run_engine(world: World, case: dict) -> dict:
             ring.append(eng.stats.n_ring_prefill_steps)
         embeds = [eng.embed(ids) for ids in case.get("embed", ())]
         logs = world.oplogs()
+        mine, theirs = world.engine_call("llmd_tpu_torch.parallel.checks:row_log", eng)
         st = eng.stats
         return {"tokens": out, "ring_steps": ring, "embeds": embeds,
                 "agree": all(_same(eng._op_log, w) for w in logs) and len(eng._op_log) > 0,
-                "n_ops": len(eng._op_log),
+                "n_ops": len(eng._op_log), "row_logs": [mine, *theirs],
+                "coords": [rank_coords(case["mesh"], r) for r in range(world.size)],
+                "pools_equal": pools_equal(world, eng),
                 "stats": {k: getattr(st, k) for k in (
                     "sp_attn_backend", "moe_dispatch", "moe_dropped_tokens",
                     "eplb_rebalances", "kv_cache_dtype", "n_decode_dispatches",
-                    "spec_drafted", "spec_accepted", "n_spec_verify_steps")},
+                    "spec_drafted", "spec_accepted", "n_spec_verify_steps",
+                    "total_offload_loads")},
                 "fallback": eng.moe_dispatch_fallback_reason}
     finally:
         eng.close()
+
+
+def pools_equal(world: World, eng) -> bool:
+    """Every rank's pool pages (their bytes) equal those of the rank of rank
+    0's tp group at its tp index (ranks 0..tp-1): the pool is whole on every
+    dp / sp / ep replica."""
+    pids = list(range(eng.cfg.num_pages))
+    mine, theirs = world.engine_call("llmd_tpu_torch.parallel.checks:pool_pages", eng, pids=pids)
+    pools = [mine, *theirs]
+    cfg = eng.cfg.mesh
+    return all(np.array_equal(p, pools[rank_coords(cfg, r)["tp"]]) for r, p in enumerate(pools))
+
+
+def rows_as_planned(res: dict, mesh: MeshConfig) -> list:
+    """Every op of a meshed engine case against the reference's row
+    binding, from the ranks' row logs: the rank at (d, s) of a flat program
+    (unified, verify, verify_masked, embed) of n rows ran n // (dp*sp) rows,
+    one more when d*sp + s < n % (dp*sp), the (dp, sp) parts' rows summing to
+    n; a decode program ran ceil(B / dp) slots; a ring step of n rows its
+    zig-zag share, n padded to 2*sp, over sp. Every rank logged the same
+    programs and step sizes. Returns the mismatches (empty: as planned)."""
+    logs, coords = res["row_logs"], res["coords"]
+    bad = []
+    if len({len(log) for log in logs}) != 1:
+        return [("op counts", [len(log) for log in logs])]
+    parts = mesh.dp * mesh.sp
+    for j, entry in enumerate(logs[0]):
+        prog, n = entry[0], entry[1]
+        sums: dict = {}
+        for log, c in zip(logs, coords):
+            if tuple(log[j][:2]) != (prog, n):
+                bad.append((j, "step", log[j], entry))
+                continue
+            p = c["dp"] * mesh.sp + c["sp"]
+            if prog in ("decode", "decode_masked"):
+                want = -(-n // mesh.dp)
+            elif prog == "unified_ring":
+                want = (n + (-n) % (2 * mesh.sp)) // mesh.sp
+            else:
+                want = n // parts + (1 if p < n % parts else 0)
+                sums[p] = log[j][2]
+            if log[j][2] != want:
+                bad.append((j, prog, n, c, log[j][2], want))
+        if sums and sum(sums.values()) != n:
+            bad.append((j, prog, n, "sum", sums))
+    return bad
 
 
 def run_actions(eng, actions: list, world=None, results=()) -> list:
