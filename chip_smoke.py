@@ -330,6 +330,19 @@ thread's stack on stderr):
             float32 tokens = one card's and replayed = eager, bf16's
             identical share and decode tok/s beside one card's.
             With one card it prints ``mesh_world: not run, 1 device``.
+21. router  the router (``phase_router``): the port's ``RouterServer``
+            (``llmd_tpu_torch/router``, the README's precise-prefix config)
+            in front of two llama-1b port engines at full depth (page 16,
+            1,024 pages each, KV events on loopback). float32: 6 prefix
+            groups of 3 greedy requests (512-token group prefix, distinct
+            32-token suffix, 16 tokens out; a group's first alone, the other
+            two together): every reply 200, each group on its first's engine
+            with ``cached_tokens`` >= 512, the routed tokens equal a direct
+            request to the engine the router named, ``/metrics`` counts 18
+            scheduled, the index holds the groups' blocks, K1 launched behind
+            the router (per instance). bf16: the router's hop (p50 of 32
+            serial one-token requests, routed minus direct) and streamed TTFT
+            p50 routed and direct, printed. The phase prints its seconds.
 
 It ends with a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. ``--report PATH`` also writes every phase's details (nvcc's register
@@ -4997,7 +5010,7 @@ def obs_numbers(device, card: str, model: str, seed: int, batch: int, isl: int,
     metrics = register_engine_metrics(Registry())
     finish_fr = FlightRecorder()
     attach_phase_exporter(finish_fr, metrics.request_phase)
-    attach_decision_exporter(finish_fr, metrics)
+    attach_decision_exporter(finish_fr, metrics, plane="engine")
     ids = iter(range(10 ** 9))
 
     def one_request() -> None:
@@ -6624,6 +6637,285 @@ def phase_mesh(device, card: str, tm: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# The router (EPP) in front of two port engines
+# --------------------------------------------------------------------------
+
+# the README's precise-prefix config (precise prefix weight 3, queue depth 2)
+ROUTER_CFG = """
+plugins:
+  - {name: token-producer, type: token-producer}
+  - {name: precise-producer, type: precise-prefix-cache-producer, params: {blockSize: 16}}
+  - {name: prefix, type: precise-prefix-cache-scorer}
+  - {name: queue, type: queue-depth-scorer}
+schedulingProfiles:
+  - {name: default, plugins: [{pluginRef: prefix, weight: 3}, {pluginRef: queue, weight: 2}]}
+"""
+ROUTER_KW = dict(page_size=PS, num_pages=1024, max_model_len=2048, max_batch_size=8,
+                 prefill_chunk=512, max_num_batched_tokens=2048, decode_steps=4)
+
+
+class _RouterThread:
+    """The port's ``RouterServer`` on an event loop of its own thread, in
+    front of ``servers`` (each publishing KV events on loopback)."""
+
+    def __init__(self, servers, poll_interval_s: float = 0.05) -> None:
+        import asyncio
+
+        from llmd_tpu_torch.core.config import FrameworkConfig
+        from llmd_tpu_torch.core.endpoint import Endpoint, EndpointPool
+        from llmd_tpu_torch.kv.subscriber import LABEL_KV_EVENTS_ADDR
+        from llmd_tpu_torch.router.plugins import known_plugin_types
+        from llmd_tpu_torch.router.server import RouterServer
+
+        pool = EndpointPool()
+        for s in servers:
+            pool.upsert(Endpoint(address=s.address, labels={
+                LABEL_KV_EVENTS_ADDR: f"127.0.0.1:{s.kv_events_port}"}))
+        cfg = FrameworkConfig.from_yaml(ROUTER_CFG, known_types=known_plugin_types())
+        self.router = RouterServer(cfg, pool, host="127.0.0.1", port=0,
+                                   poll_interval_s=poll_interval_s, seed=0)
+        self.loop = asyncio.new_event_loop()
+        self._thread = threading.Thread(target=self.loop.run_forever, daemon=True)
+        self._thread.start()
+        self._call(self.router.start())
+        self.url = f"http://{self.router.address}"
+        t_end = time.monotonic() + 30
+        while any(ep.attrs.get("kv_cache_utilization") is None for ep in pool.list()):
+            if time.monotonic() > t_end:
+                raise AssertionError("router: no metrics poll reached the engines in 30 s")
+            time.sleep(0.02)
+
+    def _call(self, coro, timeout: float = 60):
+        import asyncio
+
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout)
+
+    def stop(self) -> None:
+        try:
+            self._call(self.router.stop())
+        finally:
+            self.loop.call_soon_threadsafe(self.loop.stop)
+            self._thread.join(timeout=30)
+            self.loop.close()
+
+
+def _router_engines(device, cfg, n: int = 2, seed: int = 0) -> list:
+    """``n`` port servers of the same weights (``seed``), KV events on free
+    loopback ports, the id tokenizer (a text holds its tokens one for one)."""
+    from llmd_tpu_torch.engine.config import EngineConfig
+    from llmd_tpu_torch.engine.server import EngineServer
+
+    servers = []
+    for _ in range(n):
+        s = EngineServer(cfg, EngineConfig(**ROUTER_KW), host="127.0.0.1", port=0,
+                         kv_events_port=0, tokenizer=IdTokenizer(cfg.vocab_size),
+                         seed=seed, device=device)
+        s.start()
+        servers.append(s)
+    return servers
+
+
+def _router_text(rng, n: int) -> str:
+    """``n`` tokens of text under the id tokenizer (one ASCII byte each)."""
+    return "".join(chr(c) for c in rng.integers(ord("a"), ord("z") + 1, n))
+
+
+def _complete(url: str, prompt: str, max_tokens: int) -> tuple:
+    """(status, headers with lower-case names, parsed body)."""
+    status, headers, body = _http("POST", url + "/v1/completions", {
+        "prompt": prompt, "max_tokens": max_tokens, "temperature": 0, "ignore_eos": True})
+    return status, {k.lower(): v for k, v in headers.items()}, json.loads(body)
+
+
+def _stream_ttft(url: str, prompt: str) -> float:
+    """Seconds from sending a streamed one-request to its first SSE event."""
+    import http.client
+
+    host, port = url[len("http://"):].rsplit(":", 1)
+    conn = http.client.HTTPConnection(host, int(port), timeout=600)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/v1/completions", json.dumps({
+            "prompt": prompt, "max_tokens": 8, "temperature": 0, "ignore_eos": True,
+            "stream": True}), {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise AssertionError(f"router: a streamed request answered {resp.status}")
+        while not resp.readline().startswith(b"data: "):
+            pass
+        ttft = time.perf_counter() - t0
+        resp.read()
+        return ttft
+    finally:
+        conn.close()
+
+
+def router_f32_check(device, card: str, model: str = "llama-1b", seed: int = 0,
+                     groups: int = 6, prefix_len: int = 512, suffix_len: int = 32,
+                     max_tokens: int = 16) -> dict:
+    """Two float32 engines behind the router: ``groups`` prefix groups of 3
+    greedy requests (a ``prefix_len``-token group prefix and a distinct
+    ``suffix_len``-token suffix), the group's first alone and the other two
+    together. Every reply 200; each group stays on its first's engine with
+    ``cached_tokens`` >= ``prefix_len``; the routed tokens equal a direct
+    request of the same prompt to the engine the router named; the router
+    counts every request scheduled and its index holds the groups' blocks; K1
+    launched on the engines (counted per instance)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from llmd_tpu_torch.core.metrics_contract import parse_prometheus
+    from llmd_tpu_torch.models import get_model_config
+
+    cfg = dataclasses.replace(get_model_config(model), dtype="float32")
+    rng = np.random.default_rng(seed)
+    prompts = [[pfx + _router_text(rng, suffix_len) for _ in range(3)]
+               for pfx in (_router_text(rng, prefix_len) for _ in range(groups))]
+    servers = _router_engines(device, cfg, seed=seed)
+    rt = None
+    try:
+        rt = _RouterThread(servers)
+        zero_counts()
+        routed = []
+        with ThreadPoolExecutor(2) as pool:
+            for group in prompts:
+                routed.append(_complete(rt.url, group[0], max_tokens))
+                routed += list(pool.map(lambda p: _complete(rt.url, p, max_tokens), group[1:]))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        by_instance = instance_counts()
+        launches, _ = read_counts()
+        _, _, metrics = _http("GET", rt.url + "/metrics")
+        samples = {name: v for name, labels, v in parse_prometheus(metrics.decode())
+                   if not labels}
+        index_blocks = len(rt.router.kv_index)
+        event_batches = rt.router.kv_subscriber.batches_received
+        flat = [p for group in prompts for p in group]
+        direct = [_complete(f"http://{h['x-llm-d-endpoint']}", p, max_tokens)
+                  for (_, h, _), p in zip(routed, flat)]
+    finally:
+        if rt is not None:
+            rt.stop()
+        for s in servers:
+            s.stop()
+    statuses = [st for st, _, _ in routed]
+    picks = [h.get("x-llm-d-endpoint") for _, h, _ in routed]
+    texts = [b["choices"][0]["text"] for _, _, b in routed]
+    cached = [b["usage"].get("cached_tokens", 0) for _, _, b in routed]
+    sticky = all(picks[3 * g + i] == picks[3 * g] for g in range(groups) for i in (1, 2))
+    warm = all(cached[3 * g + i] >= prefix_len for g in range(groups) for i in (1, 2))
+    same = [t == b["choices"][0]["text"] for t, (_, _, b) in zip(texts, direct)]
+    row = {"card": card, "model": model, "dtype": "float32", "groups": groups,
+           "prefix_tokens": prefix_len, "suffix_tokens": suffix_len,
+           "max_tokens": max_tokens, "statuses": statuses, "picks": picks,
+           "cached_tokens": cached, "sticky": sticky, "warm": warm,
+           "tokens_identical": all(same), "scheduled": samples.get("llm_d_epp_scheduled_total"),
+           "index_blocks": index_blocks, "event_batches": event_batches,
+           "launches": launches,
+           "launches_by_instance": by_instance,
+           "engines_used": len(set(picks))}
+    log(f"router: f32 {model} on {card}: {groups} groups x 3 ({prefix_len}+{suffix_len} "
+        f"tokens, {max_tokens} out): statuses {sorted(set(statuses))} sticky={sticky} "
+        f"warm={warm} (cached {min(cached[1::3] + cached[2::3])}+) "
+        f"tokens_identical={all(same)} scheduled={row['scheduled']} "
+        f"index_blocks={index_blocks} event_batches={event_batches} "
+        f"engines_used={row['engines_used']} "
+        f"K1 by instance={by_instance['paged_attention']}")
+    if set(statuses) != {200}:
+        raise AssertionError(f"router: statuses {statuses}")
+    if not sticky or not warm:
+        raise AssertionError(f"router: a prefix group left its engine or missed its prefix "
+                             f"(picks {picks}, cached {cached})")
+    if not all(same):
+        raise AssertionError(f"router: routed tokens differ from the named engine's ({same})")
+    if row["scheduled"] != 3 * groups:
+        raise AssertionError(f"router: /metrics counts {row['scheduled']} scheduled, "
+                             f"expected {3 * groups}")
+    if index_blocks < groups * (prefix_len // PS) or event_batches == 0:
+        raise AssertionError(f"router: the KV index holds {index_blocks} blocks from "
+                             f"{event_batches} event batches")
+    if device.type == "cuda" and not (launches["paged_attention"] > 0
+                                      and by_instance["paged_attention"].get("simt", 0) > 0):
+        raise AssertionError(f"router: K1 did not launch behind the router ({by_instance})")
+    return row
+
+
+def router_bf16_times(device, card: str, model: str = "llama-1b", seed: int = 1,
+                      hop_n: int = 32, ttft_n: int = 16, isl: int = 512) -> dict:
+    """bf16 engines behind the router, times printed (not bounded): the hop,
+    p50 of ``hop_n`` serial one-token requests routed minus direct (in turns,
+    to the engine the router named), and TTFT p50 of streamed fresh
+    ``isl``-token prompts, routed and direct in turns."""
+    from llmd_tpu_torch.models import get_model_config
+
+    cfg = dataclasses.replace(get_model_config(model), dtype="bfloat16")
+    rng = np.random.default_rng(seed)
+    servers = _router_engines(device, cfg, seed=seed)
+    rt = None
+    try:
+        rt = _RouterThread(servers)
+        prompt = _router_text(rng, 32)
+        _, h, _ = _complete(rt.url, prompt, 1)  # warm: the prompt's pages cached
+        target = f"http://{h['x-llm-d-endpoint']}"
+        routed, direct = [], []
+        for _ in range(hop_n):
+            for url, out in ((rt.url, routed), (target, direct)):
+                t0 = time.perf_counter()
+                status, _, _ = _complete(url, prompt, 1)
+                out.append(time.perf_counter() - t0)
+                if status != 200:
+                    raise AssertionError(f"router: a one-token request answered {status}")
+        # the routed requests' phase ledgers: before the pick (the token
+        # producer's render call to the engine), the pick, the forward
+        from llmd_tpu_torch.obs.attribution import build_ledger
+
+        ledgers = [build_ledger(rt.router.flight.get(r["request_id"]))["phases"]
+                   for r in rt.router.flight.snapshot(limit=hop_n + 1)]
+        phases = {k: statistics.median(lg.get(k, 0.0) for lg in ledgers)
+                  for k in ("flow", "schedule", "upstream")}
+        ttft_routed, ttft_direct = [], []
+        for i in range(ttft_n):
+            ttft_routed.append(_stream_ttft(rt.url, _router_text(rng, isl)))
+            ttft_direct.append(_stream_ttft(target, _router_text(rng, isl)))
+    finally:
+        if rt is not None:
+            rt.stop()
+        for s in servers:
+            s.stop()
+    p50 = statistics.median
+    row = {"card": card, "model": model, "dtype": "bfloat16", "hop_n": hop_n,
+           "routed_p50_ms": p50(routed) * 1e3, "direct_p50_ms": p50(direct) * 1e3,
+           "hop_p50_ms": (p50(routed) - p50(direct)) * 1e3,
+           "routed_ms": [x * 1e3 for x in routed], "direct_ms": [x * 1e3 for x in direct],
+           "ttft_n": ttft_n, "ttft_isl": isl,
+           "ttft_routed_p50_ms": p50(ttft_routed) * 1e3,
+           "ttft_direct_p50_ms": p50(ttft_direct) * 1e3,
+           "routed_phase_p50_ms": phases}
+    log(f"router: bf16 {model} on {card}: one-token request p50 routed "
+        f"{row['routed_p50_ms']:.3f} ms, direct {row['direct_p50_ms']:.3f} ms, hop "
+        f"{row['hop_p50_ms']:.3f} ms ({hop_n} each); streamed TTFT p50 ({isl}-token "
+        f"prompts, {ttft_n} each) routed {row['ttft_routed_p50_ms']:.3f} ms, direct "
+        f"{row['ttft_direct_p50_ms']:.3f} ms")
+    log(f"router:   routed one-token request phases p50 (ms): before the pick (render "
+        f"call) {phases['flow']:.3f}, pick {phases['schedule']:.3f}, forward to response "
+        f"{phases['upstream']:.3f}")
+    return row
+
+
+def phase_router(device, card: str, model: str = "llama-1b", f32_kw=None,
+                 bf16_kw=None) -> dict:
+    """The router phase: the port's ``RouterServer`` (the README's precise
+    config) in front of two port engines; correctness in float32, times in
+    bf16."""
+    t0 = time.perf_counter()
+    out = {"f32": router_f32_check(device, card, model=model, **(f32_kw or {}))}
+    _empty()
+    out["bf16"] = router_bf16_times(device, card, model=model, **(bf16_kw or {}))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"router: phase {out['seconds']:.1f} s on {card}")
+    return out
+
+
 def main(argv: "list[str] | None" = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", default=None, help="write every phase's details here (JSON)")
@@ -6746,10 +7038,12 @@ def main(argv: "list[str] | None" = None) -> int:
     report["launch"] = launch = phase_launch(device, card)
     _empty()  # the previous phase's engines
     report["mesh"] = mesh = phase_mesh(device, card, tm)
+    _empty()  # the previous phase's engines
+    report["router"] = router = phase_router(device, card)
     report["seconds"] = time.perf_counter() - t_start
     log(f"smoke: all phases {report['seconds']:.1f} s (vision {vision['seconds']:.1f} s, "
         f"obs {obs['seconds']:.1f} s, launch {launch['seconds']:.1f} s, "
-        f"mesh {mesh['seconds']:.1f} s)")
+        f"mesh {mesh['seconds']:.1f} s, router {router['seconds']:.1f} s)")
     if args.report:
         out = Path(args.report)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -6812,7 +7106,9 @@ def main(argv: "list[str] | None" = None) -> int:
            "obs_probe_launches": obs["main"]["probe_launches"],
            "launch_launches": launch["tuned_engines"]["launches_by_instance"]
            ["paged_attention"]["mma"],
-           "tuned_plan": launch["tuned_k1"]["plan"]} | mesh_keys("paged_attention"),
+           "tuned_plan": launch["tuned_k1"]["plan"],
+           "router_launches": router["f32"]["launches"]["paged_attention"]}
+        | mesh_keys("paged_attention"),
         # the unified program's absorbed MLA attention, XLA in the reference
         entry("paged_attention_latent", attn_src, "llmd_tpu/models/transformer.py:428",
               eng["mla_sorted"]["launches"]["paged_attention"], lat)

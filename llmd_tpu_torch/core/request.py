@@ -1,7 +1,9 @@
-"""Sampling parameters (``llmd_tpu/core/request.py::SamplingParams``, every
-field with the reference's name), the deadline and tenant headers, the chat flattening
-that the router and the engine share, and the media helpers (which content
-parts are media, and their cache identities).
+"""The request model and the llm-d HTTP header contract (copy of
+``llmd_tpu/core/request.py``): sampling parameters (every field with the
+reference's name), the ``x-llm-d-*`` headers, the router's ``InferenceRequest``
+and the flow-control outcomes with their HTTP codes, the chat flattening that
+the router and the engine share, and the media helpers (which content parts
+are media, and their cache identities).
 
 As in the reference, ``min_p``, ``logprobs``, the penalties and ``n`` are
 accepted and not acted on (one choice per request; the reference's
@@ -15,9 +17,19 @@ the reference engine, draws come from the engine's own generator.
 from __future__ import annotations
 
 import hashlib
-from dataclasses import dataclass
+import time
+import uuid
+from dataclasses import dataclass, field
+from enum import Enum
 from typing import Any, Optional, Sequence
 
+# HTTP header contract (x-llm-d-*), verbatim for drop-in client compatibility.
+HDR_OBJECTIVE = "x-llm-d-inference-objective"
+HDR_FAIRNESS_ID = "x-llm-d-inference-fairness-id"
+HDR_MODEL_REWRITE = "x-llm-d-model-name-rewrite"
+HDR_SLO_TTFT_MS = "x-llm-d-slo-ttft-ms"
+HDR_SLO_TPOT_MS = "x-llm-d-slo-tpot-ms"
+HDR_PREFILLER_HOST_PORT = "x-prefiller-host-port"
 # End-to-end deadline header: seconds of budget left. The router decrements it
 # across its queue wait and forwards the remainder, so the engine sees how much
 # budget the client has left.
@@ -30,6 +42,7 @@ HDR_TENANT = "x-llm-d-tenant"
 _IDENT_CHARS = frozenset(
     "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789._-")
 MAX_TENANT_LEN = 64
+MAX_REQUEST_ID_LEN = 128
 
 
 def clamp_tenant(raw: Optional[str]) -> str:
@@ -41,6 +54,16 @@ def clamp_tenant(raw: Optional[str]) -> str:
     if not v or len(v) > MAX_TENANT_LEN or not set(v) <= _IDENT_CHARS:
         return "anon"
     return v
+
+
+def clamp_request_id(raw: Optional[str]) -> str:
+    """Validate a client x-request-id; invalid or oversized values fall back to
+    a generated id rather than keying recorder entries on hostile bytes."""
+    if raw:
+        v = raw.strip()
+        if v and len(v) <= MAX_REQUEST_ID_LEN and set(v) <= _IDENT_CHARS:
+            return v
+    return uuid.uuid4().hex
 
 
 @dataclass
@@ -158,3 +181,113 @@ def flatten_messages(messages: Sequence[dict[str, Any]]) -> str:
             content = " ".join(pieces)
         out.append(f"{m.get('role', '')}: {content}")
     return "\n".join(out)
+
+
+class RequestOutcome(str, Enum):
+    """Flow-control dispatch outcomes and their HTTP mapping: queue full 429,
+    TTL expiry or disconnect 503, shutdown 500, deadline spent in the queue 504,
+    dispatched forwarded."""
+
+    DISPATCHED = "dispatched"
+    REJECTED_CAPACITY = "rejected_capacity"  # → 429
+    EVICTED_TTL = "evicted_ttl"  # → 503
+    EVICTED_DISCONNECT = "evicted_disconnect"  # → 503
+    EVICTED_SHUTDOWN = "evicted_shutdown"  # → 500
+    EVICTED_DEADLINE = "evicted_deadline"  # → 504 (client budget spent in queue)
+
+    @property
+    def http_status(self) -> int:
+        return {
+            RequestOutcome.DISPATCHED: 200,
+            RequestOutcome.REJECTED_CAPACITY: 429,
+            RequestOutcome.EVICTED_TTL: 503,
+            RequestOutcome.EVICTED_DISCONNECT: 503,
+            RequestOutcome.EVICTED_SHUTDOWN: 500,
+            RequestOutcome.EVICTED_DEADLINE: 504,
+        }[self]
+
+
+@dataclass
+class InferenceRequest:
+    """A parsed inference request flowing through the router: built by a
+    parser (openai or passthrough), enriched by data producers (token ids,
+    prefix-block keys), consumed by the Filter -> Score -> Pick scheduler."""
+
+    request_id: str = field(default_factory=lambda: uuid.uuid4().hex)
+    model: str = ""
+    # One of prompt (text) / messages (chat) / token_ids (pre-tokenized).
+    prompt: Optional[str] = None
+    messages: Optional[list[dict[str, Any]]] = None
+    token_ids: Optional[list[int]] = None
+    sampling: SamplingParams = field(default_factory=SamplingParams)
+    streaming: bool = False
+    arrival_time: float = field(default_factory=time.monotonic)
+
+    # Header-derived routing state.
+    objective: Optional[str] = None  # InferenceObjective name -> priority band
+    fairness_id: str = ""  # FlowKey = (fairness_id, priority)
+    tenant: str = "anon"  # clamped x-llm-d-tenant (accounting + SLO gauges)
+    priority: int = 0
+    slo_ttft_ms: Optional[float] = None
+    slo_tpot_ms: Optional[float] = None
+    # Total end-to-end budget in seconds (x-request-timeout header or router
+    # default). The deadline is absolute: arrival_time + timeout_s, so queueing
+    # and scheduling time decrement the budget without extra bookkeeping.
+    timeout_s: Optional[float] = None
+    lora_adapter: Optional[str] = None
+    # Multimodal content hashes folded into block keys.
+    mm_hashes: list[bytes] = field(default_factory=list)
+
+    # Producer-attached state (typed scratch shared across plugins).
+    state: dict[str, Any] = field(default_factory=dict)
+
+    # Approximate request size for flow-control byte accounting.
+    byte_size: int = 0
+
+    def prompt_text(self) -> str:
+        if self.prompt is not None:
+            return self.prompt
+        if self.messages is not None:
+            return flatten_messages(self.messages)
+        return ""
+
+    def flow_key(self) -> tuple[str, int]:
+        return (self.fairness_id, self.priority)
+
+    def deadline(self) -> Optional[float]:
+        """Absolute monotonic deadline, or None when no budget was set."""
+        if self.timeout_s is None:
+            return None
+        return self.arrival_time + self.timeout_s
+
+    def remaining_s(self, now: Optional[float] = None) -> Optional[float]:
+        """Budget left (may be negative once expired); None = unbounded."""
+        dl = self.deadline()
+        if dl is None:
+            return None
+        return dl - (time.monotonic() if now is None else now)
+
+    @classmethod
+    def from_headers(cls, headers: dict[str, str], **kw: Any) -> "InferenceRequest":
+        req = cls(**kw)
+        get = {k.lower(): v for k, v in headers.items()}.get
+        req.objective = get(HDR_OBJECTIVE)
+        req.fairness_id = get(HDR_FAIRNESS_ID, "") or ""
+        req.tenant = clamp_tenant(get(HDR_TENANT))
+        # Malformed client-supplied SLO headers are ignored, not fatal.
+        for hdr, attr in ((HDR_SLO_TTFT_MS, "slo_ttft_ms"), (HDR_SLO_TPOT_MS, "slo_tpot_ms")):
+            raw = get(hdr)
+            if raw:
+                try:
+                    setattr(req, attr, float(raw))
+                except ValueError:
+                    pass
+        raw = get(HDR_REQUEST_TIMEOUT)
+        if raw:
+            try:
+                t = float(raw)
+                if t > 0:
+                    req.timeout_s = t
+            except ValueError:
+                pass
+        return req

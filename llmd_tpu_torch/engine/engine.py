@@ -693,7 +693,7 @@ class LLMEngine:
         attach_phase_exporter(self.flight, self.metrics.request_phase)
         self._decisions_on = decisions_enabled()
         if self._decisions_on:
-            attach_decision_exporter(self.flight, self.metrics)
+            attach_decision_exporter(self.flight, self.metrics, plane="engine")
         self.monitor = None
 
     def _init_kv_plane(self, event_sink) -> None:

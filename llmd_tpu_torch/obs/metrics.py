@@ -10,8 +10,9 @@ dashboard reads a port engine's ``/metrics`` as it reads a JAX engine's.
 ``vllm:lora_requests_info`` is rebuilt by the server at every scrape from
 the engine's LoRA registry (its labels are the data). The device plane's
 families (``DeviceMetrics``) are registered on the engine's registry by the
-server's ``DeviceMonitor`` (``obs/device.py``). The router and pool families
-are not copied: no engine registers them.
+server's ``DeviceMonitor`` (``obs/device.py``). The router's families
+(``RouterMetrics``) are the reference's, registered by ``router/server.py``;
+the pool controller's are not copied yet.
 
 * Thread-safe: the engine loop mutates families while HTTP threads scrape;
   every mutation and the exposition walk take the registry lock.
@@ -722,6 +723,250 @@ class EngineServerMetrics:
             "Durable-store circuit breaker (0 closed, 0.5 half-open, 1 open)")
 
 
+class RouterMetrics:
+    """Families owned by RouterServer (EPP-side contract)."""
+
+    def __init__(self, reg: Registry):
+        self.registry = reg
+        self.requests = reg.counter(
+            "llm_d_epp_requests_total", "Requests received by the router")
+        self.responses = reg.counter(
+            "llm_d_epp_responses_total", "Successful responses")
+        self.errors = reg.counter(
+            "llm_d_epp_errors_total", "Errored requests")
+        self.scheduled = reg.counter(
+            "llm_d_epp_scheduled_total", "Scheduling decisions made")
+        self.rejected = reg.counter(
+            "llm_d_epp_rejected_total", "Requests the scheduler rejected")
+        self.pd_splits = reg.counter(
+            "llm_d_epp_pd_splits_total", "Prefill/decode disaggregated splits")
+        self.pd_aggregated = reg.counter(
+            "llm_d_epp_pd_aggregated_total",
+            "Disagg decider picks that stayed aggregated (hop skipped)")
+        self.flow_enqueued = reg.counter(
+            "llm_d_epp_flow_enqueued_total", "Requests admitted to flow queues")
+        self.flow_dispatched = reg.counter(
+            "llm_d_epp_flow_dispatched_total",
+            "Requests dispatched from flow queues")
+        self.flow_rejected_capacity = reg.counter(
+            "llm_d_epp_flow_rejected_capacity_total",
+            "Requests rejected for queue capacity")
+        self.flow_evicted_ttl = reg.counter(
+            "llm_d_epp_flow_evicted_ttl_total",
+            "Queued requests evicted on TTL expiry")
+        self.flow_evicted_deadline = reg.counter(
+            "llm_d_epp_flow_evicted_deadline_total",
+            "Queued requests whose client deadline expired before dispatch")
+        self.flow_queue_depth = reg.gauge(
+            "llm_d_epp_flow_queue_depth",
+            "Requests currently waiting in flow-control queues")
+        self.flow_queue_wait = reg.histogram(
+            "llm_d_epp_flow_queue_wait_seconds",
+            "Enqueue-to-dispatch wait in the flow-control queue",
+            buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0,
+                     2.5, 5.0, 10.0, 30.0))
+        self.igw_queue_depth = reg.gauge(
+            "igw_queue_depth",
+            "External autoscaling signal: queued requests")
+        self.igw_running = reg.gauge(
+            "igw_running_requests",
+            "External autoscaling signal: in-flight requests")
+        # histogram (was summary) so the buckets can carry trace exemplars —
+        # _sum/_count series are unchanged, rate()-mean queries still work
+        self.ttft = reg.histogram(
+            "llm_d_epp_ttft_seconds", "Time to first token",
+            buckets=(0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+                     10.0, 30.0))
+        self.e2e = reg.histogram(
+            "llm_d_epp_e2e_seconds", "End-to-end request latency",
+            buckets=(0.1, 0.5, 1.0, 2.0, 5.0, 10.0, 30.0))
+        # Resilience layer (router/resilience.py, observability/resilience.md)
+        self.retries = reg.counter(
+            "llm_d_epp_retries_total",
+            "Forward attempts retried on an alternate endpoint, by reason",
+            labelnames=("reason",))
+        self.retries_exhausted = reg.counter(
+            "llm_d_epp_retries_exhausted_total",
+            "Requests that failed after exhausting every retry attempt")
+        self.breaker_opens = reg.counter(
+            "llm_d_epp_breaker_opens_total",
+            "Per-endpoint circuit breakers tripped open")
+        self.breaker_closes = reg.counter(
+            "llm_d_epp_breaker_closes_total",
+            "Circuit breakers closed after successful half-open probes")
+        self.breaker_open_endpoints = reg.gauge(
+            "llm_d_epp_breaker_open_endpoints",
+            "Endpoints currently ejected by an open circuit breaker")
+        self.deadline_exceeded = reg.counter(
+            "llm_d_epp_deadline_exceeded_total",
+            "Requests rejected 504 because the client budget ran out in the router")
+        self.hedges = reg.counter(
+            "llm_d_epp_hedges_total",
+            "Hedged second attempts fired for short non-streaming requests")
+        self.hedge_wins = reg.counter(
+            "llm_d_epp_hedge_wins_total",
+            "Hedged attempts that answered before the primary")
+        self.scrape_errors = reg.counter(
+            "llm_d_epp_scrape_errors_total",
+            "Endpoint metrics scrapes that failed (passive-health signal)")
+        # Global KV plane (llmd_tpu/kvplane, docs/kv-plane.md)
+        self.kvplane_precise = reg.counter(
+            "llm_d_epp_kv_plane_precise_total",
+            "Requests routed on precise event-fed index lookups")
+        self.kvplane_degraded = reg.counter(
+            "llm_d_epp_kv_plane_degraded_total",
+            "Requests degraded to the approx LRU (index cold or feed stale)")
+        self.kvplane_lookups = reg.counter(
+            "llm_d_epp_kv_plane_lookups_total",
+            "Precise index lookups performed by the KV plane")
+        self.kvplane_lookup_hits = reg.counter(
+            "llm_d_epp_kv_plane_lookup_hits_total",
+            "Precise lookups that found at least one indexed block")
+        self.kvplane_pulls_stamped = reg.counter(
+            "llm_d_epp_kv_plane_pulls_stamped_total",
+            "Cross-engine prefix pulls stamped onto forwarded requests")
+        self.kvplane_durable_pulls_stamped = reg.counter(
+            "llm_d_epp_kv_plane_durable_pulls_stamped_total",
+            "Durable-store prefix pulls stamped when no live peer qualified")
+        self.kvplane_index_blocks = reg.gauge(
+            "llm_d_epp_kv_plane_index_blocks",
+            "Block-hash keys resident in the router's KV index")
+        self.kvplane_feed_age = reg.gauge(
+            "llm_d_epp_kv_plane_feed_age_seconds",
+            "Seconds since the KV plane last applied an event batch "
+            "(scrape-time; index-staleness alert input)")
+        # Latency attribution: router-plane ledger for the same family the
+        # engine declares (registration is idempotent; separate registries).
+        self.request_phase = reg.histogram(
+            "llmd_tpu:request_phase_seconds",
+            "Per-request wall time attributed to a lifecycle phase at "
+            "retirement (phase=unattributed is the ledger residual — the "
+            "unknown-unknown detector)",
+            labelnames=("phase", "tenant", "model"),
+            buckets=(0.001, 0.005, 0.025, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+                     10.0, 30.0))
+        # Decision plane (obs/decisions.py): why routing chose what it chose
+        # and whether the decision paid off, folded at retirement.
+        self.decision_ledgers = reg.counter(
+            "llmd_tpu:decision_ledgers_total",
+            "Retired requests folded into a decision ledger, by plane "
+            "(router | engine; same family declared on both registries)",
+            labelnames=("plane",))
+        self.decision_regret = reg.histogram(
+            "llmd_tpu:decision_regret",
+            "Chosen-endpoint weighted score minus the best alternative's on "
+            "multi-endpoint schedules (<=0; further below zero = the picker "
+            "overrode the score order harder), bucketed by whether the "
+            "request went on to breach an SLO objective",
+            labelnames=("slo_breached",),
+            buckets=(-2.0, -1.0, -0.5, -0.2, -0.1, -0.05, -0.02, -0.005,
+                     0.0, 0.5))
+        self.decision_reschedules = reg.counter(
+            "llmd_tpu:decision_reschedules_total",
+            "Retry/hedge re-schedules observed on retired request ledgers, "
+            "by kind",
+            labelnames=("kind",))
+        self.predictor_calibration_error = reg.histogram(
+            "llmd_tpu:predictor_calibration_error_ms",
+            "Signed latency-predictor calibration error (observed minus "
+            "predicted, ms) joined at retirement, per objective (ttft|e2e) "
+            "and model — a skewed sign means systematic bias, wide spread "
+            "means the predictor is noise",
+            labelnames=("objective", "model"),
+            buckets=(-5000.0, -1000.0, -250.0, -50.0, -10.0, 0.0, 10.0,
+                     50.0, 250.0, 1000.0, 5000.0))
+        self.predictor_calibration_ape = reg.gauge(
+            "llmd_tpu:predictor_calibration_ape",
+            "Rolling mean absolute percentage error of the latency "
+            "predictor over the last LLMD_DECISION_CALIB_WINDOW retired "
+            "requests, per objective and model",
+            labelnames=("objective", "model"))
+        self.decision_kv_pull_blocks = reg.counter(
+            "llmd_tpu:decision_kv_pull_blocks_total",
+            "KV blocks covered by router-stamped cross-engine pulls, summed "
+            "over retired request ledgers")
+        self.decision_kv_tokens_saved = reg.counter(
+            "llmd_tpu:decision_kv_tokens_saved_total",
+            "Estimated re-prefill tokens saved by stamped pulls (plan-time "
+            "estimate: peer prefix beyond the chosen target's), summed over "
+            "retired request ledgers — weigh against "
+            "llmd_tpu:kv_transfer_prefix_pull_seconds actually spent")
+        # Per-tenant accounting (x-llm-d-tenant, default "anon"): the
+        # fairness foundation — token spend and request volume by tenant.
+        self.tenant_requests = reg.counter(
+            "llm_d_epp_tenant_requests_total",
+            "Requests received, by tenant and model",
+            labelnames=("tenant", "model"))
+        self.tenant_prompt_tokens = reg.counter(
+            "llm_d_epp_tenant_prompt_tokens_total",
+            "Prompt tokens consumed, by tenant and model (from upstream "
+            "usage accounting)",
+            labelnames=("tenant", "model"))
+        self.tenant_completion_tokens = reg.counter(
+            "llm_d_epp_tenant_completion_tokens_total",
+            "Completion tokens generated, by tenant and model",
+            labelnames=("tenant", "model"))
+        # SLO objectives + burn rate (obs/slo.py, LLMD_SLO_*): attainment and
+        # burn gauges are scrape-time callbacks over the rolling windows.
+        self.slo_attainment = reg.gauge(
+            "llm_d_epp_slo_attainment",
+            "Rolling fraction of requests meeting the objective, per tenant "
+            "x objective (ttft|e2e) x window (5m|1h)",
+            labelnames=("tenant", "objective", "window"))
+        self.slo_burn_rate = reg.gauge(
+            "llm_d_epp_slo_burn_rate",
+            "Error-budget burn rate: (1 - attainment) / (1 - target); 1.0 "
+            "burns the budget exactly at the objective rate",
+            labelnames=("tenant", "objective", "window"))
+        self.slo_breaches = reg.counter(
+            "llm_d_epp_slo_breaches_total",
+            "Individual requests that missed their objective",
+            labelnames=("tenant", "objective"))
+        # Fleet rollup plane (obs/fleet.py): aggregated over MetricsPoller
+        # scrapes so ONE router scrape answers fleet health — the pool
+        # controller and dashboards consume these instead of re-deriving
+        # fleet state from per-replica series.
+        self.fleet_replicas = reg.gauge(
+            "llmd_tpu:fleet_replicas",
+            "Replicas currently contributing to the fleet rollup")
+        self.fleet_tokens_per_second = reg.gauge(
+            "llmd_tpu:fleet_tokens_per_second",
+            "Fleet-wide generation throughput from scrape-to-scrape decode "
+            "token-counter deltas")
+        self.fleet_running = reg.gauge(
+            "llmd_tpu:fleet_running_requests",
+            "Sum of running sequences across the fleet")
+        self.fleet_waiting = reg.gauge(
+            "llmd_tpu:fleet_waiting_requests",
+            "Sum of queued sequences across the fleet")
+        self.fleet_hbm_headroom_min = reg.gauge(
+            "llmd_tpu:fleet_hbm_headroom_bytes_min",
+            "Smallest per-replica HBM headroom (limit - in-use, summed over "
+            "the replica's devices) — the next-OOM candidate")
+        self.fleet_hbm_headroom_total = reg.gauge(
+            "llmd_tpu:fleet_hbm_headroom_bytes_total",
+            "Total HBM headroom across the fleet")
+        self.fleet_kv_utilization = reg.gauge(
+            "llmd_tpu:fleet_kv_utilization_mean",
+            "Mean KV cache utilization across replicas (0..1)")
+        self.fleet_fabric_alive = reg.gauge(
+            "llmd_tpu:fleet_fabric_alive_replicas",
+            "Replicas whose device fabric liveness probe is passing")
+        self.fleet_stalled = reg.gauge(
+            "llmd_tpu:fleet_stalled_replicas",
+            "Replicas whose step watchdog currently reports a stall")
+        self.fleet_goodput_ratio = reg.gauge(
+            "llmd_tpu:fleet_goodput_committed_ratio",
+            "Fleet-wide committed fraction of classified slot-tokens from "
+            "scrape-to-scrape goodput-counter deltas (weighted by tokens; "
+            "the one-number answer to how much dispatched compute became "
+            "output)")
+        self.fleet_mfu = reg.gauge(
+            "llmd_tpu:fleet_mfu_mean",
+            "Mean of per-program MFU samples across replicas exporting them "
+            "(absent while no replica runs on a peak-table device)")
+
+
 class DeviceMetrics:
     """Families owned by DeviceMonitor (``obs/device.py``): HBM telemetry,
     liveness, the step watchdog and profiler captures, with the reference's
@@ -775,6 +1020,10 @@ def register_engine_metrics(reg: Registry) -> EngineMetrics:
 
 def register_engine_server_metrics(reg: Registry) -> EngineServerMetrics:
     return EngineServerMetrics(reg)
+
+
+def register_router_metrics(reg: Registry) -> RouterMetrics:
+    return RouterMetrics(reg)
 
 
 def register_device_metrics(reg: Registry) -> DeviceMetrics:

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no jax, no llmd_tpu, card by default. Its
 modules and chip_smoke.py import without ``safetensors``, ``transformers``,
-``aiohttp``, ``msgpack`` and ``ml_dtypes`` too: the port reads safetensors itself, imports the
-HF tokenizer only when a caller asks for one, serves HTTP on the standard
-library and writes the KV-event wire by hand."""
+``aiohttp``, ``msgpack``, ``ml_dtypes``, ``yaml`` and ``grpc`` too: the port reads
+safetensors itself, imports the HF tokenizer only when a caller asks for one,
+serves and proxies HTTP on the standard library, writes the KV-event wire by
+hand and reads its router configs with its own YAML reader."""
 
 import re
 import subprocess
@@ -15,13 +16,13 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 
 # Blocks the top-level names jax, jaxlib, llmd_tpu, safetensors, transformers,
-# aiohttp, msgpack and ml_dtypes EXACTLY (a prefix match would also block llmd_tpu_torch), then
+# aiohttp, msgpack, ml_dtypes, yaml and grpc EXACTLY (a prefix match would also block llmd_tpu_torch), then
 # imports every module of the port and chip_smoke.py.
 _BLOCKED_IMPORT = r"""
 import importlib, importlib.abc, pkgutil, sys
 
 BLOCKED = {"jax", "jaxlib", "llmd_tpu", "safetensors", "transformers", "aiohttp",
-           "msgpack", "ml_dtypes"}
+           "msgpack", "ml_dtypes", "yaml", "grpc"}
 
 
 class Blocker(importlib.abc.MetaPathFinder):
@@ -93,6 +94,19 @@ assert {"llmd_tpu_torch.models.lora", "llmd_tpu_torch.engine.decode_program",
         "llmd_tpu_torch.kv.offload", "llmd_tpu_torch.kv.writeback",
         "llmd_tpu_torch.kv.connector_api", "llmd_tpu_torch.kvplane.pull",
         "llmd_tpu_torch.engine.server", "llmd_tpu_torch.engine.serve"} <= set(names)
+# and the router's: config, endpoints, plugins, scheduler, KV index and
+# subscriber, data layer, discovery, flow control, resilience, the HTTP layer,
+# the server and its CLI, and the router plane of obs
+assert {"llmd_tpu_torch.core.config", "llmd_tpu_torch.core.endpoint",
+        "llmd_tpu_torch.router", "llmd_tpu_torch.router.plugins",
+        "llmd_tpu_torch.router.scorers", "llmd_tpu_torch.router.filters_pickers",
+        "llmd_tpu_torch.router.scheduler", "llmd_tpu_torch.kv.indexer",
+        "llmd_tpu_torch.kv.index_backends", "llmd_tpu_torch.kv.plugins",
+        "llmd_tpu_torch.kv.subscriber", "llmd_tpu_torch.router.datalayer",
+        "llmd_tpu_torch.router.discovery", "llmd_tpu_torch.router.flowcontrol",
+        "llmd_tpu_torch.router.resilience", "llmd_tpu_torch.router.http",
+        "llmd_tpu_torch.router.server", "llmd_tpu_torch.router.serve",
+        "llmd_tpu_torch.obs.fleet", "llmd_tpu_torch.obs.decisions"} <= set(names)
 assert "zmq" not in sys.modules
 print(len(names))
 """
@@ -208,3 +222,24 @@ def test_mesh_modules_stand_alone(module):
     if module == "parallel/mesh.py":
         assert all(f in src for f in ("class MeshConfig", "DEFAULT_RULES = ",
                                       "def param_logical_axes"))
+
+
+ROUTER_MODULES = ["core/config.py", "core/endpoint.py", "core/request.py",
+                  "router/__init__.py", "router/plugins.py", "router/scorers.py",
+                  "router/filters_pickers.py", "router/scheduler.py", "kv/indexer.py",
+                  "kv/index_backends.py", "kv/plugins.py", "kv/subscriber.py",
+                  "router/datalayer.py", "router/discovery.py", "router/flowcontrol.py",
+                  "router/resilience.py", "router/http.py", "router/server.py",
+                  "router/serve.py", "obs/fleet.py", "obs/decisions.py", "obs/metrics.py"]
+
+
+@pytest.mark.parametrize("module", ROUTER_MODULES)
+def test_router_modules_stand_alone(module):
+    """The router keeps its own copies of the reference's modules: no jax, no
+    reference package, and none of aiohttp, msgpack, yaml, grpc or torch in
+    their sources (the router is host code; the blocked import is the
+    subprocess above)."""
+    src = (REPO / "llmd_tpu_torch" / module).read_text()
+    assert not _FORBIDDEN.search(src)
+    assert not re.search(r"^\s*(import|from)\s+(aiohttp|msgpack|yaml|grpc|torch)\b", src,
+                         re.M)

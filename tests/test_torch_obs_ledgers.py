@@ -124,8 +124,8 @@ def test_build_ledger_matches_reference():
 
 
 def test_build_decision_matches_reference():
-    """Engine records fold as the reference folds them; a router record (the
-    router plane, not ported) folds to None."""
+    """Engine records and router records (the router plane, ported with the
+    router) fold as the reference folds them."""
     recs = _engine_records() + HANDMADE[:3]
     decided = 0
     for rec in recs:
@@ -135,7 +135,7 @@ def test_build_decision_matches_reference():
     assert decided > 5
     router = {"latency_ms": 9.0, "events": [{"event": "route_decision", "t_ms": 1.0}]}
     assert ref_dec.build_decision(router)["plane"] == "router"
-    assert port_dec.build_decision(router) is None
+    assert port_dec.build_decision(router) == ref_dec.build_decision(router)
 
 
 def _counts(registry, name: str) -> dict:
