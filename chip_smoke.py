@@ -343,6 +343,29 @@ thread's stack on stderr):
             the router (per instance). bf16: the router's hop (p50 of 32
             serial one-token requests, routed minus direct) and streamed TTFT
             p50 routed and direct, printed. The phase prints its seconds.
+22. latency the latency plane, the P/D routing sidecar and the precise KV
+            plane (``phase_latency``), in front of two llama-1b port engines
+            (KV events, a transfer side channel, latency rows posted to the
+            port's ``TrainingServer``). float32: a router with the four
+            latency plugins (the producer in sidecar mode against the port's
+            ``PredictionServer``) and ``LLMD_SLO_*`` set: 72 requests fit both
+            regressors, the trainer refits, the prediction server reloads;
+            the producer's fallbacks stop growing, routed tokens equal direct
+            ones, a sheddable request no endpoint can serve in its SLO is
+            refused as the reference refuses it, the SLO gauges and the
+            calibration families carry samples. Then a router with the P/D
+            profile and the producer, the decode engine behind the port's
+            ``RoutingSidecar``: every decision predicted, the sidecar's legs
+            and its fallback past a dead prefiller give aggregated serving's
+            tokens. Then ``LLMD_KV_PLANE=precise`` over the external index in
+            the port's RESP store: a prompt cached on one engine and routed to
+            the other is stamped with a pull, injected and answered with the
+            same tokens; K1 launched (its plain version never); the
+            producer's predict round trip (p50, p99). bf16: the hop with the
+            latency plugins and without them, the sidecar's P/D TTFT against
+            the same legs driven by hand; one predictor fit over a full
+            10,240-row window.
+            The phase prints its seconds.
 
 It ends with a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. ``--report PATH`` also writes every phase's details (nvcc's register
@@ -4592,9 +4615,14 @@ TIMELINE = ("arrival", "admitted", "prefill_start", "prefill_end", "retired")
 
 @contextlib.contextmanager
 def _env(values: dict):
-    """``os.environ`` updated with ``values`` inside the block, then restored."""
+    """``os.environ`` updated with ``values`` inside the block (a None value
+    unsets its variable), then restored."""
     old = {k: os.environ.get(k) for k in values}
-    os.environ.update(values)
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
     try:
         yield
     finally:
@@ -6655,29 +6683,54 @@ ROUTER_KW = dict(page_size=PS, num_pages=1024, max_model_len=2048, max_batch_siz
                  prefill_chunk=512, max_num_batched_tokens=2048, decode_steps=4)
 
 
-class _RouterThread:
-    """The port's ``RouterServer`` on an event loop of its own thread, in
-    front of ``servers`` (each publishing KV events on loopback)."""
+class _LoopThread:
+    """An asyncio event loop on a thread of its own, for the port's asyncio
+    servers (router, predictor sidecars, routing sidecar)."""
 
-    def __init__(self, servers, poll_interval_s: float = 0.05) -> None:
+    def __init__(self) -> None:
         import asyncio
 
+        self.loop = asyncio.new_event_loop()
+        self._thread = threading.Thread(target=self.loop.run_forever, daemon=True)
+        self._thread.start()
+
+    def _call(self, coro, timeout: float = 60):
+        import asyncio
+
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout)
+
+    def close(self) -> None:
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self._thread.join(timeout=30)
+        self.loop.close()
+
+
+class _RouterThread(_LoopThread):
+    """The port's ``RouterServer`` on an event loop of its own thread, in
+    front of ``servers`` (each publishing KV events on loopback), or of
+    ``endpoints`` (address, role, labels) when given; ``cfg_text`` its
+    plugin graph, ``objectives`` its objective -> priority map."""
+
+    def __init__(self, servers, poll_interval_s: float = 0.05, cfg_text: str = ROUTER_CFG,
+                 endpoints=None, objectives=None) -> None:
         from llmd_tpu_torch.core.config import FrameworkConfig
-        from llmd_tpu_torch.core.endpoint import Endpoint, EndpointPool
+        from llmd_tpu_torch.core.endpoint import Endpoint, EndpointPool, EndpointRole
         from llmd_tpu_torch.kv.subscriber import LABEL_KV_EVENTS_ADDR
         from llmd_tpu_torch.router.plugins import known_plugin_types
         from llmd_tpu_torch.router.server import RouterServer
 
         pool = EndpointPool()
-        for s in servers:
-            pool.upsert(Endpoint(address=s.address, labels={
-                LABEL_KV_EVENTS_ADDR: f"127.0.0.1:{s.kv_events_port}"}))
-        cfg = FrameworkConfig.from_yaml(ROUTER_CFG, known_types=known_plugin_types())
+        if endpoints is None:
+            endpoints = [(s.address, "both",
+                          {LABEL_KV_EVENTS_ADDR: f"127.0.0.1:{s.kv_events_port}"})
+                         for s in servers]
+        for address, role, labels in endpoints:
+            pool.upsert(Endpoint(address=address, labels=labels, role=EndpointRole(role)))
+        cfg = FrameworkConfig.from_yaml(cfg_text, known_types=known_plugin_types())
         self.router = RouterServer(cfg, pool, host="127.0.0.1", port=0,
-                                   poll_interval_s=poll_interval_s, seed=0)
-        self.loop = asyncio.new_event_loop()
-        self._thread = threading.Thread(target=self.loop.run_forever, daemon=True)
-        self._thread.start()
+                                   poll_interval_s=poll_interval_s, seed=0,
+                                   objectives=objectives)
+        super().__init__()
         self._call(self.router.start())
         self.url = f"http://{self.router.address}"
         t_end = time.monotonic() + 30
@@ -6686,23 +6739,17 @@ class _RouterThread:
                 raise AssertionError("router: no metrics poll reached the engines in 30 s")
             time.sleep(0.02)
 
-    def _call(self, coro, timeout: float = 60):
-        import asyncio
-
-        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout)
-
     def stop(self) -> None:
         try:
             self._call(self.router.stop())
         finally:
-            self.loop.call_soon_threadsafe(self.loop.stop)
-            self._thread.join(timeout=30)
-            self.loop.close()
+            self.close()
 
 
-def _router_engines(device, cfg, n: int = 2, seed: int = 0) -> list:
+def _router_engines(device, cfg, n: int = 2, seed: int = 0, **server_kw) -> list:
     """``n`` port servers of the same weights (``seed``), KV events on free
-    loopback ports, the id tokenizer (a text holds its tokens one for one)."""
+    loopback ports, the id tokenizer (a text holds its tokens one for one);
+    ``server_kw`` goes to each ``EngineServer``."""
     from llmd_tpu_torch.engine.config import EngineConfig
     from llmd_tpu_torch.engine.server import EngineServer
 
@@ -6710,7 +6757,7 @@ def _router_engines(device, cfg, n: int = 2, seed: int = 0) -> list:
     for _ in range(n):
         s = EngineServer(cfg, EngineConfig(**ROUTER_KW), host="127.0.0.1", port=0,
                          kv_events_port=0, tokenizer=IdTokenizer(cfg.vocab_size),
-                         seed=seed, device=device)
+                         seed=seed, device=device, **server_kw)
         s.start()
         servers.append(s)
     return servers
@@ -6728,17 +6775,20 @@ def _complete(url: str, prompt: str, max_tokens: int) -> tuple:
     return status, {k.lower(): v for k, v in headers.items()}, json.loads(body)
 
 
-def _stream_ttft(url: str, prompt: str) -> float:
-    """Seconds from sending a streamed one-request to its first SSE event."""
+def _stream_ttft(url: str, prompt: str, headers: "dict | None" = None,
+                 extra: "dict | None" = None, t0: "float | None" = None) -> float:
+    """Seconds from sending a streamed one-request (``headers`` and ``extra``
+    body fields added) to its first SSE event, or from ``t0``."""
     import http.client
 
     host, port = url[len("http://"):].rsplit(":", 1)
     conn = http.client.HTTPConnection(host, int(port), timeout=600)
     try:
-        t0 = time.perf_counter()
+        t0 = time.perf_counter() if t0 is None else t0
         conn.request("POST", "/v1/completions", json.dumps({
             "prompt": prompt, "max_tokens": 8, "temperature": 0, "ignore_eos": True,
-            "stream": True}), {"Content-Type": "application/json"})
+            "stream": True, **(extra or {})}),
+            {"Content-Type": "application/json", **(headers or {})})
         resp = conn.getresponse()
         if resp.status != 200:
             raise AssertionError(f"router: a streamed request answered {resp.status}")
@@ -6916,6 +6966,504 @@ def phase_router(device, card: str, model: str = "llama-1b", f32_kw=None,
     return out
 
 
+# --------------------------------------------------------------------------
+# The latency plane, the P/D routing sidecar and the KV plane's router side
+# --------------------------------------------------------------------------
+
+# every routed request's TTFT and e2e are observed against these objectives
+LATENCY_SLO_ENV = {"LLMD_SLO_TTFT_MS": "2000", "LLMD_SLO_E2E_MS": "20000"}
+HDR_OBJECTIVE, HDR_SLO_TTFT = "x-llm-d-inference-objective", "x-llm-d-slo-ttft-ms"
+HDR_PREFILLER = "x-prefiller-host-port"
+
+
+def _latency_cfg(predict_url: str, train_url: str) -> str:
+    """The README's precise config with the four latency plugins: the
+    producer in sidecar mode against the port's prediction and training
+    servers, the SLO tier filter, the shedding admitter and the latency
+    scorer beside the prefix and queue scorers."""
+    return f"""
+plugins:
+  - {{name: token-producer, type: token-producer}}
+  - {{name: precise-producer, type: precise-prefix-cache-producer, params: {{blockSize: 16}}}}
+  - name: latency
+    type: predicted-latency-producer
+    params: {{mode: sidecar, predictUrls: ["{predict_url}"], trainUrl: "{train_url}"}}
+  - {{name: tier, type: slo-headroom-tier-filter}}
+  - {{name: admit, type: latency-slo-admitter}}
+  - {{name: latency-score, type: latency-scorer}}
+  - {{name: prefix, type: precise-prefix-cache-scorer}}
+  - {{name: queue, type: queue-depth-scorer}}
+schedulingProfiles:
+  - name: default
+    plugins:
+      - {{pluginRef: tier}}
+      - {{pluginRef: prefix, weight: 3}}
+      - {{pluginRef: queue, weight: 2}}
+      - {{pluginRef: latency-score, weight: 2}}
+"""
+
+
+def _pd_router_cfg(predict_url: str) -> str:
+    """P/D: the decode profile, the predictor-gated decider past 16 uncached
+    tokens, then the prefill profile; the latency producer stamps both."""
+    return f"""
+plugins:
+  - {{name: prefix-producer, type: approx-prefix-cache-producer, params: {{blockSize: 16}}}}
+  - name: latency
+    type: predicted-latency-producer
+    params: {{mode: sidecar, predictUrls: ["{predict_url}"]}}
+  - {{name: prefill-filter, type: prefill-endpoints-filter}}
+  - {{name: decode-filter, type: decode-endpoints-filter}}
+  - {{name: prefix, type: prefix-cache-scorer}}
+  - {{name: queue, type: queue-depth-scorer}}
+  - {{name: picker, type: max-score-picker}}
+profileHandler: disagg-profile-handler
+disaggregation: {{uncachedSuffixThreshold: 16}}
+schedulingProfiles:
+  - name: prefill
+    plugins: [{{pluginRef: prefill-filter}}, {{pluginRef: queue, weight: 1}}, {{pluginRef: picker}}]
+  - name: decode
+    plugins:
+      - {{pluginRef: decode-filter}}
+      - {{pluginRef: prefix, weight: 3}}
+      - {{pluginRef: queue, weight: 1}}
+      - {{pluginRef: picker}}
+"""
+
+
+def _plane_cfg(store_port: int) -> str:
+    """The README's precise config behind a zone filter (every request to
+    zone b, as a rollout pins traffic), its index in the external RESP
+    store."""
+    return f"""
+plugins:
+  - {{name: token-producer, type: token-producer}}
+  - {{name: precise-producer, type: precise-prefix-cache-producer, params: {{blockSize: 16}}}}
+  - {{name: prefix, type: precise-prefix-cache-scorer}}
+  - {{name: queue, type: queue-depth-scorer}}
+  - {{name: zone, type: label-selector-filter, params: {{zone: b}}}}
+kvEvents: {{indexBackend: external, indexParams: {{host: 127.0.0.1, port: {store_port}}}}}
+schedulingProfiles:
+  - name: default
+    plugins: [{{pluginRef: zone}}, {{pluginRef: prefix, weight: 3}}, {{pluginRef: queue, weight: 2}}]
+"""
+
+
+def _routed(url: str, prompt: str, max_tokens: int, headers: "dict | None" = None,
+            **extra) -> tuple:
+    """(status, headers with lower-case names, parsed body) of one greedy
+    completion, ``headers`` and ``extra`` body fields added."""
+    status, h, body = _http("POST", url + "/v1/completions", {
+        "prompt": prompt, "max_tokens": max_tokens, "temperature": 0, "ignore_eos": True,
+        **extra}, headers=headers)
+    return status, {k.lower(): v for k, v in h.items()}, json.loads(body)
+
+
+def _text(reply: tuple) -> str:
+    status, _, body = reply
+    if status != 200:
+        raise AssertionError(f"latency: a request answered {status}: {body}")
+    return body["choices"][0]["text"]
+
+
+def _pd_reasons(router) -> list:
+    """The P/D decider's reason of every routed request the flight recorder
+    holds, oldest first."""
+    out = []
+    for summary in reversed(router.flight.snapshot(limit=10_000)):
+        rec = router.flight.get(summary["request_id"]) or {"events": []}
+        out += [e["pd"]["reason"] for e in rec["events"]
+                if e.get("event") == "route_decision" and "pd" in e]
+    return out
+
+
+def _metric_lines(url: str) -> list:
+    _, _, text = _http("GET", url + "/metrics")
+    return text.decode().splitlines()
+
+
+def _predict_round_trips(predict_url: str, n: int) -> list:
+    """Seconds of ``n`` producer predict calls (two candidates each) against
+    the prediction server, as the router's scheduling thread makes them."""
+    from llmd_tpu_torch.predictor import LatencySample, SidecarPredictorClient
+
+    cli = SidecarPredictorClient([predict_url], timeout_s=5.0)
+    samples = [LatencySample(kv_usage=0.1 * i, input_len=256.0, queue_depth=float(i),
+                             running_requests=2.0, prefix_match_pct=0.5,
+                             inflight_tokens=300.0) for i in range(2)]
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        got = cli.predict(samples)
+        out.append(time.perf_counter() - t0)
+        if got is None:
+            raise AssertionError("latency: the prediction server did not answer /predict")
+    return out
+
+
+def _fit_window(seed: int) -> dict:
+    """One ``LatencyModel.fit`` over a full default window: 40 buckets
+    (kv-usage decile x prefix-hit quartile) of 256 rows, 10,240 rows, of
+    which the last 1,024 are held out and 9,216 fit."""
+    from llmd_tpu_torch.predictor import LatencyModel, LatencySample, StratifiedWindow
+
+    rng = np.random.default_rng(seed)
+    window = StratifiedWindow()
+    for kv in range(10):
+        for ph in range(4):
+            for _ in range(256):
+                s = LatencySample(kv_usage=(kv + rng.uniform(0, 0.99)) / 10,
+                                  input_len=float(rng.integers(16, 2048)),
+                                  queue_depth=float(rng.integers(0, 20)),
+                                  running_requests=float(rng.integers(0, 16)),
+                                  prefix_match_pct=(ph + rng.uniform(0, 0.99)) / 4,
+                                  inflight_tokens=float(rng.integers(0, 4096)))
+                s.ttft_ms = (0.4 * s.input_len * (1 - s.prefix_match_pct)
+                             + 80.0 * s.queue_depth + 10.0) * float(rng.normal(1.0, 0.02))
+                s.tpot_ms = (5.0 + 2.5 * s.running_requests) * float(rng.normal(1.0, 0.02))
+                window.add(s)
+    rows = window.snapshot()
+    model = LatencyModel()
+    t0 = time.perf_counter()
+    if not model.fit(rows):
+        raise AssertionError("latency: the full window did not fit")
+    return {"window_rows": len(rows), "fit_rows": len(rows) - len(rows) // 10,
+            "seconds": time.perf_counter() - t0, "mape": model.mape}
+
+
+class _Predictors(_LoopThread):
+    """The port's training and prediction servers on one shared model file,
+    and the RESP store of the external index."""
+
+    def __init__(self, workdir: str) -> None:
+        from llmd_tpu_torch.predictor.server import PredictionServer, TrainingServer
+        from llmd_tpu_torch.testing.resp_server import RespStoreServer
+
+        super().__init__()
+        path = os.path.join(workdir, "latency-model.pkl")
+        self.trainer = TrainingServer(path, port=0, retrain_interval_s=3600)
+        self.predictor = PredictionServer(path, port=0, reload_interval_s=0.0)
+        self._call(self.trainer.start())
+        self._call(self.predictor.start())
+        self.train_url = f"http://{self.trainer.address}"
+        self.predict_url = f"http://{self.predictor.address}"
+        self.store = RespStoreServer()
+        self.store.start()
+
+    def stop(self) -> None:
+        try:
+            self._call(self.trainer.stop())
+            self._call(self.predictor.stop())
+            self.store.stop()
+        finally:
+            self.close()
+
+
+def _sidecar(loops: _LoopThread, decode_addr: str):
+    from llmd_tpu_torch.disagg.sidecar import RoutingSidecar
+
+    sc = RoutingSidecar(decode_addr=decode_addr, host="127.0.0.1", port=0)
+    loops._call(sc.start())
+    return sc
+
+
+def latency_f32_check(device, card: str, preds: _Predictors, model: str = "llama-1b",
+                      seed: int = 0, warm_n: int = 72, after_n: int = 8,
+                      prompt_len: int = 256, max_tokens: int = 8, pd_n: int = 4,
+                      round_trips: int = 200) -> dict:
+    """Two float32 engines (KV events, a transfer side channel, latency rows
+    posted to the port's trainer) behind three port routers in turn:
+
+    1. the latency plane: ``warm_n`` requests fit both regressors, the
+       trainer refits, the prediction server reloads; then the producer's
+       fallbacks stop growing over ``after_n`` more requests, whose routed
+       tokens equal a direct request's to the engine named; a sheddable
+       request whose SLO no endpoint can meet is refused (503, the
+       reference's message) while the same SLO unshed is served; the SLO
+       gauges and the calibration families carry samples;
+    2. P/D through the port's ``RoutingSidecar`` (engine 0 prefill, engine 1
+       decode behind the sidecar) and the router's P/D profile with the
+       producer: every decision is predicted (``predicted_ttft`` or
+       ``hop_not_worth_it``, never ``no_predictor``); the sidecar's P/D legs
+       and its fallback past a dead prefiller give aggregated serving's
+       tokens;
+    3. the precise plane (``LLMD_KV_PLANE=precise``, the index in the
+       external RESP store): a prompt cached on engine 0 and routed to
+       engine 1 is stamped with a pull of engine 0's blocks; engine 1
+       injects them and answers engine 0's tokens.
+
+    K1's launches are counted over the three (its plain version never)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from llmd_tpu_torch.core.kv_events import block_keys_for_tokens
+    from llmd_tpu_torch.kv.subscriber import LABEL_KV_EVENTS_ADDR
+    from llmd_tpu_torch.kvplane import LABEL_KV_TRANSFER_ADDR
+    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.predictor import LatencyModel
+
+    cfg = dataclasses.replace(get_model_config(model), dtype="float32")
+    rng = np.random.default_rng(seed)
+    row: dict = {"card": card, "model": model, "dtype": "float32"}
+    with _env({"LLMD_KV_PLANE": "precise"}):  # engines serve peers' prefix pulls
+        servers = _router_engines(device, cfg, seed=seed, kv_transfer_port=0,
+                                  predictor_train_url=preds.train_url)
+    routers, sidecars = [], []
+    try:
+        zero_counts()
+        # 1. the latency plane
+        with _env({"LLMD_KV_PLANE": None} | LATENCY_SLO_ENV):
+            lat = _RouterThread(servers, cfg_text=_latency_cfg(preds.predict_url,
+                                                               preds.train_url),
+                                objectives={"sheddable": -1})
+        routers.append(lat)
+        producer = lat.router.scheduler.plugins["latency"]
+        prompts = [_router_text(rng, prompt_len) for _ in range(warm_n)]
+        with ThreadPoolExecutor(4) as pool:
+            for reply in pool.map(lambda p: _routed(lat.url, p, max_tokens), prompts):
+                _text(reply)
+        t_end, fitted = time.monotonic() + 30, False
+        while not fitted:  # the engines post their rows once a second
+            time.sleep(0.5)
+            fitted = (preds._call(preds.trainer.retrain_now())
+                      and preds.trainer.model.tpot is not None
+                      and preds.trainer.model.ttft is not None)
+            if not fitted and time.monotonic() > t_end:
+                raise AssertionError(f"latency: the trainer did not fit both regressors "
+                                     f"({len(preds.trainer.window)} rows in its window)")
+        row["trainer"] = {"window": len(preds.trainer.window),
+                          "samples": preds.trainer.samples_total,
+                          "mape": dict(preds.trainer.model.mape),
+                          "min_samples": LatencyModel.MIN_SAMPLES}
+        fallbacks = producer.stats["fallbacks_total"]
+        after = [_router_text(rng, prompt_len) for _ in range(after_n)]
+        routed = [_routed(lat.url, p, max_tokens) for p in after]
+        direct = [_routed(f"http://{h['x-llm-d-endpoint']}", p, max_tokens)
+                  for (_, h, _), p in zip(routed, after)]
+        row["fallbacks_before_fit"] = fallbacks
+        row["fallbacks_after_fit"] = producer.stats["fallbacks_total"] - fallbacks
+        row["tokens_identical"] = [_text(a) for a in routed] == [_text(b) for b in direct]
+        shed = _routed(lat.url, after[0], max_tokens,
+                       headers={HDR_OBJECTIVE: "sheddable", HDR_SLO_TTFT: "0.001"})
+        kept = _routed(lat.url, after[0], max_tokens, headers={HDR_SLO_TTFT: "0.001"})
+        row["shed"] = [shed[0], shed[2].get("error", {}).get("message"), kept[0]]
+        lines = _metric_lines(lat.url)
+        row["slo_series"] = sum(ln.startswith(("llm_d_epp_slo_attainment{",
+                                               "llm_d_epp_slo_burn_rate{")) for ln in lines)
+        row["calibration_series"] = sum(ln.startswith("llmd_tpu:predictor_calibration")
+                                        and not ln.endswith(" 0") for ln in lines)
+        row["producer"] = dict(producer.stats)
+        times = _predict_round_trips(preds.predict_url, round_trips)
+        row["predict_rt_p50_ms"] = statistics.median(times) * 1e3
+        row["predict_rt_p99_ms"] = float(np.percentile(times, 99)) * 1e3
+        # 2. P/D through the port's sidecar
+        P, D = servers
+        sc = _sidecar(preds, D.address)
+        sidecars.append(sc)
+        with _env({"LLMD_KV_PLANE": None}):
+            pd = _RouterThread(None, cfg_text=_pd_router_cfg(preds.predict_url),
+                               endpoints=[(P.address, "prefill", {}),
+                                          (sc.address, "decode", {})])
+        routers.append(pd)
+        pd_prompts = [_router_text(rng, prompt_len) for _ in range(2 * pd_n + 1)]
+        via_router = [_text(_routed(pd.url, p, max_tokens)) for p in pd_prompts[:pd_n]]
+        via_sidecar = [_text(_routed(f"http://{sc.address}", p, max_tokens,
+                                     headers={HDR_PREFILLER: P.address}))
+                       for p in pd_prompts[pd_n:2 * pd_n]]
+        fallback = _text(_routed(f"http://{sc.address}", pd_prompts[-1], max_tokens,
+                                 headers={HDR_PREFILLER: "127.0.0.1:9"}))
+        aggregated = [_text(_routed(f"http://{D.address}", p, max_tokens)) for p in pd_prompts]
+        row["pd_reasons"] = _pd_reasons(pd.router)
+        row["sidecar"] = dict(sc.stats)
+        row["pd_injected_blocks"] = D.transfer_stats["injected_blocks"]
+        row["pd_tokens_identical"] = via_router + via_sidecar + [fallback] == aggregated
+        # 3. the precise plane over the external index
+        with _env({"LLMD_KV_PLANE": "precise"}):
+            plane = _RouterThread(None, cfg_text=_plane_cfg(preds.store.port), endpoints=[
+                (s.address, "both", {LABEL_KV_EVENTS_ADDR: f"127.0.0.1:{s.kv_events_port}",
+                                     LABEL_KV_TRANSFER_ADDR: f"127.0.0.1:{s.kv_transfer_port}",
+                                     "zone": zone})
+                for s, zone in zip(servers, "ab")])
+        routers.append(plane)
+        cached = _router_text(rng, prompt_len)
+        on_a = _text(_routed(f"http://{P.address}", cached, max_tokens))
+        keys = block_keys_for_tokens(IdTokenizer(cfg.vocab_size).encode(cached), PS)
+        t_end = time.monotonic() + 30
+        while plane.router.kv_index.lookup(keys, [P.address])[P.address].blocks < len(keys):
+            if time.monotonic() > t_end:
+                raise AssertionError("latency: engine 0's KV events did not reach the "
+                                     "external index in 30 s")
+            time.sleep(0.05)
+        pulls0 = dict(D.transfer_stats)
+        status, h, body = _routed(plane.url, cached, max_tokens)
+        row["plane"] = {"status": status, "endpoint": h.get("x-llm-d-endpoint"),
+                        "tokens_identical": status == 200 and _text((status, h, body)) == on_a,
+                        "cached_tokens": body.get("usage", {}).get("cached_tokens", 0),
+                        "prefix_pull_blocks": D.transfer_stats["prefix_pull_blocks"]
+                        - pulls0["prefix_pull_blocks"],
+                        "stats": dict(plane.router.kvplane.stats),
+                        "index_keys": len(plane.router.kv_index), "blocks": len(keys)}
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        row["launches"], row["plain_calls"] = read_counts()
+        row["launches_by_instance"] = instance_counts()
+    finally:
+        for rt in routers:
+            rt.stop()
+        for sc in sidecars:
+            preds._call(sc.stop())
+        for s in servers:
+            s.stop()
+    pl = row["plane"]
+    log(f"latency: f32 {model} on {card}: {warm_n} requests to fit ({row['trainer']}); "
+        f"fallbacks {row['fallbacks_before_fit']} before the fit, "
+        f"{row['fallbacks_after_fit']} after over {after_n} requests; "
+        f"tokens_identical={row['tokens_identical']}; shed {row['shed']}; SLO series "
+        f"{row['slo_series']}, calibration series {row['calibration_series']}")
+    log(f"latency: P/D reasons {sorted(set(row['pd_reasons']))} ({len(row['pd_reasons'])}); "
+        f"sidecar {row['sidecar']}; injected {row['pd_injected_blocks']} blocks; "
+        f"tokens = aggregated: {row['pd_tokens_identical']}")
+    log(f"latency: precise plane over the external index: routed to {pl['endpoint']} "
+        f"(status {pl['status']}), pulled {pl['prefix_pull_blocks']} of {pl['blocks']} "
+        f"blocks, cached {pl['cached_tokens']}, tokens_identical={pl['tokens_identical']}, "
+        f"plane {pl['stats']}; K1 by instance {row['launches_by_instance']['paged_attention']}")
+    log(f"latency: producer predict round trip on {card} (2 candidates, {round_trips} "
+        f"calls): p50 {row['predict_rt_p50_ms']:.3f} ms, p99 {row['predict_rt_p99_ms']:.3f} ms")
+    if row["fallbacks_before_fit"] == 0 or row["fallbacks_after_fit"] != 0:
+        raise AssertionError(f"latency: fallbacks {row['fallbacks_before_fit']} before the "
+                             f"fit, {row['fallbacks_after_fit']} after")
+    if not row["tokens_identical"] or not row["pd_tokens_identical"]:
+        raise AssertionError("latency: routed tokens differ from direct / aggregated ones")
+    if row["shed"] != [503, "no endpoint: no endpoint within SLO for sheddable request", 200]:
+        raise AssertionError(f"latency: the sheddable request was not shed as the "
+                             f"reference sheds it: {row['shed']}")
+    if row["slo_series"] == 0 or row["calibration_series"] == 0:
+        raise AssertionError(f"latency: SLO series {row['slo_series']}, calibration series "
+                             f"{row['calibration_series']}")
+    reasons = set(row["pd_reasons"])
+    if len(row["pd_reasons"]) != pd_n or not reasons <= {"predicted_ttft", "hop_not_worth_it"}:
+        raise AssertionError(f"latency: P/D decisions {row['pd_reasons']}")
+    sc = row["sidecar"]
+    if sc["pd_requests"] < pd_n or sc["prefill_fallbacks"] != 1 or row["pd_injected_blocks"] == 0:
+        raise AssertionError(f"latency: sidecar {sc}, injected {row['pd_injected_blocks']}")
+    if not (pl["status"] == 200 and pl["endpoint"] == servers[1].address
+            and pl["tokens_identical"] and pl["stats"]["pulls_planned"] == 1
+            and pl["prefix_pull_blocks"] == len(keys)
+            and pl["cached_tokens"] == min(len(keys), (prompt_len - 1) // PS) * PS):
+        raise AssertionError(f"latency: the precise plane's pull {pl}")
+    if device.type == "cuda" and not (row["launches"]["paged_attention"] > 0
+                                      and not any(row["plain_calls"].values())):
+        raise AssertionError(f"latency: K1 launches {row['launches']}, plain calls "
+                             f"{row['plain_calls']}")
+    return row
+
+
+def _hand_pd_ttft(P, D, prompt: str) -> float:
+    """The sidecar's two legs driven here: P with ``do_remote_decode`` and
+    ``max_tokens`` 1, then D streamed with ``do_remote_prefill`` and P's
+    handle; seconds from the first byte sent to D's first event."""
+    t0 = time.perf_counter()
+    _, _, body = _routed(f"http://{P.address}", prompt, 1,
+                         kv_transfer_params={"do_remote_decode": True})
+    ktp = {"do_remote_prefill": True, **body["kv_transfer_params"]}
+    return _stream_ttft(f"http://{D.address}", prompt, extra={"kv_transfer_params": ktp},
+                        t0=t0)
+
+
+def latency_bf16_times(device, card: str, preds: _Predictors, model: str = "llama-1b",
+                       seed: int = 1, hop_n: int = 32, ttft_n: int = 8,
+                       isl: int = 512) -> dict:
+    """bf16 engines, times printed (not bounded): the hop (p50 of ``hop_n``
+    serial one-token requests routed minus direct to the engine named) of a
+    router with the four latency plugins and of one with the README's config
+    alone, in turns; streamed TTFT p50 of ``ttft_n`` fresh ``isl``-token
+    prompts through the port's sidecar (engine 0 prefill, engine 1 decode)
+    and through the same two legs driven here, in turns."""
+    from llmd_tpu_torch.models import get_model_config
+
+    cfg = dataclasses.replace(get_model_config(model), dtype="bfloat16")
+    rng = np.random.default_rng(seed)
+    servers = _router_engines(device, cfg, seed=seed, kv_transfer_port=0)
+    routers, sc = [], None
+    try:
+        with _env({"LLMD_KV_PLANE": None} | LATENCY_SLO_ENV):
+            routers.append(_RouterThread(servers, cfg_text=_latency_cfg(preds.predict_url,
+                                                                        preds.train_url)))
+        with _env({"LLMD_KV_PLANE": None}):
+            routers.append(_RouterThread(servers))
+        prompt = _router_text(rng, 32)
+        targets = []
+        for rt in routers:  # warm: the prompt's pages cached where each routes
+            _, h, _ = _routed(rt.url, prompt, 1)
+            targets.append(f"http://{h['x-llm-d-endpoint']}")
+        times = {k: [] for k in ("latency", "latency_direct", "plain", "plain_direct")}
+        for _ in range(hop_n):
+            for url, key in ((routers[0].url, "latency"), (targets[0], "latency_direct"),
+                             (routers[1].url, "plain"), (targets[1], "plain_direct")):
+                t0 = time.perf_counter()
+                status, _, _ = _routed(url, prompt, 1)
+                times[key].append(time.perf_counter() - t0)
+                if status != 200:
+                    raise AssertionError(f"latency: a one-token request answered {status}")
+        P, D = servers
+        sc = _sidecar(preds, D.address)
+        sidecar_ttft, hand_ttft = [], []
+        for _ in range(ttft_n):
+            sidecar_ttft.append(_stream_ttft(f"http://{sc.address}", _router_text(rng, isl),
+                                             headers={HDR_PREFILLER: P.address}))
+            hand_ttft.append(_hand_pd_ttft(P, D, _router_text(rng, isl)))
+        stats = dict(sc.stats)
+    finally:
+        for rt in routers:
+            rt.stop()
+        if sc is not None:
+            preds._call(sc.stop())
+        for s in servers:
+            s.stop()
+    p50 = statistics.median
+    row = {"card": card, "model": model, "dtype": "bfloat16", "hop_n": hop_n,
+           **{f"{k}_p50_ms": p50(v) * 1e3 for k, v in times.items()},
+           "hop_latency_plugins_p50_ms": (p50(times["latency"])
+                                          - p50(times["latency_direct"])) * 1e3,
+           "hop_plain_p50_ms": (p50(times["plain"]) - p50(times["plain_direct"])) * 1e3,
+           "ttft_n": ttft_n, "ttft_isl": isl,
+           "ttft_sidecar_p50_ms": p50(sidecar_ttft) * 1e3,
+           "ttft_hand_legs_p50_ms": p50(hand_ttft) * 1e3, "sidecar": stats}
+    log(f"latency: bf16 {model} on {card}: one-token hop p50 with the latency plugins "
+        f"{row['hop_latency_plugins_p50_ms']:.3f} ms, without them "
+        f"{row['hop_plain_p50_ms']:.3f} ms ({hop_n} each, in turns)")
+    log(f"latency: bf16 P/D TTFT p50 on {card} ({isl}-token prompts, {ttft_n} each): "
+        f"through the port's sidecar {row['ttft_sidecar_p50_ms']:.3f} ms, the same legs "
+        f"driven here {row['ttft_hand_legs_p50_ms']:.3f} ms")
+    if stats["pd_requests"] != ttft_n or stats["prefill_fallbacks"] != 0:
+        raise AssertionError(f"latency: sidecar {stats}")
+    return row
+
+
+def phase_latency(device, card: str, model: str = "llama-1b", f32_kw=None,
+                  bf16_kw=None, fit_seed: int = 2) -> dict:
+    """The latency phase: the port's latency plane, P/D through its routing
+    sidecar and the precise KV plane over the external index, in front of
+    port engines; correctness in float32, times in bf16; one fit of a full
+    predictor window timed."""
+    t0 = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="llmd-latency-")
+    preds = _Predictors(workdir)
+    try:
+        out = {"f32": latency_f32_check(device, card, preds, model=model, **(f32_kw or {}))}
+        _empty()
+        out["bf16"] = latency_bf16_times(device, card, preds, model=model, **(bf16_kw or {}))
+    finally:
+        preds.stop()
+        shutil.rmtree(workdir, ignore_errors=True)
+    out["fit"] = fit = _fit_window(fit_seed)
+    log(f"latency: one predictor fit over a full window ({fit['window_rows']} rows, "
+        f"{fit['fit_rows']} fit, both regressors) {fit['seconds']:.3f} s on the host of "
+        f"{card}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"latency: phase {out['seconds']:.1f} s on {card}")
+    return out
+
+
 def main(argv: "list[str] | None" = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", default=None, help="write every phase's details here (JSON)")
@@ -7040,10 +7588,13 @@ def main(argv: "list[str] | None" = None) -> int:
     report["mesh"] = mesh = phase_mesh(device, card, tm)
     _empty()  # the previous phase's engines
     report["router"] = router = phase_router(device, card)
+    _empty()  # the previous phase's engines
+    report["latency"] = latency = phase_latency(device, card)
     report["seconds"] = time.perf_counter() - t_start
     log(f"smoke: all phases {report['seconds']:.1f} s (vision {vision['seconds']:.1f} s, "
         f"obs {obs['seconds']:.1f} s, launch {launch['seconds']:.1f} s, "
-        f"mesh {mesh['seconds']:.1f} s, router {router['seconds']:.1f} s)")
+        f"mesh {mesh['seconds']:.1f} s, router {router['seconds']:.1f} s, "
+        f"latency {latency['seconds']:.1f} s)")
     if args.report:
         out = Path(args.report)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -7107,7 +7658,8 @@ def main(argv: "list[str] | None" = None) -> int:
            "launch_launches": launch["tuned_engines"]["launches_by_instance"]
            ["paged_attention"]["mma"],
            "tuned_plan": launch["tuned_k1"]["plan"],
-           "router_launches": router["f32"]["launches"]["paged_attention"]}
+           "router_launches": router["f32"]["launches"]["paged_attention"],
+           "latency_launches": latency["f32"]["launches"]["paged_attention"]}
         | mesh_keys("paged_attention"),
         # the unified program's absorbed MLA attention, XLA in the reference
         entry("paged_attention_latent", attn_src, "llmd_tpu/models/transformer.py:428",

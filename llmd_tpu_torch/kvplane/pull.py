@@ -1,6 +1,5 @@
 """Engine side of the global KV plane: serving and consuming prefix pulls
-(port of ``llmd_tpu/kvplane/pull.py``, plus ``plane_mode`` of
-``llmd_tpu/kvplane/plane.py``).
+(port of ``llmd_tpu/kvplane/pull.py``).
 
 Both halves ride the existing P/D transfer wire (``disagg/transfer.py``):
 
@@ -21,7 +20,6 @@ rank's planes scattered from rank 0's device), so the wire carries the one-card 
 
 from __future__ import annotations
 
-import os
 from typing import Optional, Sequence
 
 from llmd_tpu_torch.disagg.transfer import (
@@ -30,15 +28,6 @@ from llmd_tpu_torch.disagg.transfer import (
     inject_into_engine,
     prefix_export_begin,
 )
-
-MODES = ("off", "approx", "precise")
-
-
-def plane_mode() -> str:
-    """Resolve the plane mode from ``LLMD_KV_PLANE`` (unset/unknown -> off)."""
-    mode = os.environ.get("LLMD_KV_PLANE", "off").strip().lower()
-    return mode if mode in MODES else "off"
-
 
 def serve_prefix(server, block_hashes: Sequence[int],
                  request_id: str) -> Optional[tuple]:

@@ -21,5 +21,5 @@ from llmd_tpu_torch.router.plugins import (  # noqa: F401
 from llmd_tpu_torch.router.scheduler import Scheduler, SchedulingResult  # noqa: F401
 
 # register the plugin suites (importing them populates PLUGIN_REGISTRY)
-from llmd_tpu_torch.router import filters_pickers, scorers  # noqa: E402,F401
+from llmd_tpu_torch.router import filters_pickers, latency_plugins, scorers  # noqa: E402,F401
 from llmd_tpu_torch.kv import plugins as _kv_plugins  # noqa: E402,F401

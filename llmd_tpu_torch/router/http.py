@@ -11,11 +11,12 @@ transfer encoding, each ``write`` flushed as one chunk, and terminated when the
 handler returns, as aiohttp does.
 
 Client (``HTTPClient``): one pool of idle keep-alive connections per
-``host:port``. ``request`` returns once the status line and headers are in;
+``host:port`` (TLS for an ``https`` URL, with the default trust store). ``request`` returns once the status line and headers are in;
 the body is read whole (``read``) or chunk by chunk as it arrives
 (``iter_chunks``), sized by ``Content-Length``, chunked, or up to the close.
 One ``timeout`` bounds the whole exchange, body included, and raises
-``asyncio.TimeoutError`` as aiohttp's total timeout does. A connection goes
+``asyncio.TimeoutError`` as aiohttp's total timeout does; ``None`` sets no
+bound. A connection goes
 back to the pool only when its response was read to the end and the peer did
 not ask to close it; ``close`` (or ``release`` of an unfinished response) shuts
 it, so a cancelled or abandoned exchange never leaves a half-read connection
@@ -29,7 +30,9 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import math
 import re
+import ssl
 import time
 from typing import Any, AsyncIterator, Awaitable, Callable, Optional
 from urllib.parse import parse_qsl, unquote, urlsplit
@@ -162,6 +165,7 @@ class Request:
     def __init__(self, method: str, target: str, headers: Headers, body: bytes,
                  writer: asyncio.StreamWriter) -> None:
         parts = urlsplit(target)
+        self.target = target  # path and query as sent (aiohttp's ``path_qs``)
         self.method = method
         self.path = unquote(parts.path) or "/"  # decoded, as aiohttp's
         self.query = dict(parse_qsl(parts.query, keep_blank_values=True))
@@ -385,6 +389,8 @@ class ClientResponse:
         return raw.split(";", 1)[0].strip() or "application/octet-stream"
 
     async def _timed(self, coro):
+        if self._deadline == math.inf:
+            return await coro
         left = self._deadline - time.monotonic()
         if left <= 0:
             coro.close()
@@ -470,29 +476,36 @@ class HTTPClient:
             conn.close()
 
     async def _open(self, key: str) -> _Conn:
-        host, _, port = key.rpartition(":")
-        reader, writer = await asyncio.open_connection(host.strip("[]"), int(port),
-                                                       limit=MAX_LINE)
+        tls = key.startswith("https://")
+        host, _, port = key.removeprefix("https://").rpartition(":")
+        reader, writer = await asyncio.open_connection(
+            host.strip("[]"), int(port), limit=MAX_LINE,
+            ssl=ssl.create_default_context() if tls else None)
         self.connections_opened += 1
         return _Conn(reader, writer)
 
     async def request(self, method: str, url: str, body: Optional[bytes] = None,
-                      headers: Optional[dict] = None, timeout: float = 300.0,
+                      headers: Optional[dict] = None, timeout: Optional[float] = 300.0,
                       json_body: Any = None) -> ClientResponse:
-        """``url`` is ``http://host:port/path?query``. ``json_body`` (when not
-        None) is sent as JSON with its content type."""
+        """``url`` is ``http[s]://host[:port]/path?query``. ``json_body`` (when
+        not None) is sent as JSON with its content type."""
         parts = urlsplit(url)
-        key = parts.netloc
+        tls = parts.scheme == "https"
+        key = parts.netloc if parts.port else f"{parts.netloc}:{443 if tls else 80}"
+        if tls:
+            key = "https://" + key
         target = (parts.path or "/") + (f"?{parts.query}" if parts.query else "")
         head = Headers(headers or {})
         if json_body is not None:
             body = json.dumps(json_body).encode()
             head.setdefault("content-type", "application/json")
-        head["host"] = key
+        head["host"] = parts.netloc
         if body is not None or method in ("POST", "PUT", "PATCH"):
             head["content-length"] = str(len(body or b""))
         lines = [f"{method} {target} HTTP/1.1"] + [f"{k}: {v}" for k, v in head.items()]
         wire = ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1") + (body or b"")
+        if timeout is None:
+            return await self._exchange(key, wire, method, math.inf)
         deadline = time.monotonic() + timeout
         return await asyncio.wait_for(self._exchange(key, wire, method, deadline), timeout)
 

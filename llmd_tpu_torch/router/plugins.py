@@ -5,10 +5,6 @@ Extension points Filter, Scorer and Picker, plus DataProducer (per-request
 state with PreRequest / PostResponse hooks) and Admitter. Plugin instances
 are declared in the config graph (``core/config.FrameworkConfig``) by ``type``
 and wired by ``name``.
-
-Types of the reference that belong to a later slice are known by name and
-refused when built, with the ROADMAP item that brings them, so a config that
-names one fails at load instead of routing without it.
 """
 
 from __future__ import annotations
@@ -54,13 +50,6 @@ class Admitter:
 
 PLUGIN_REGISTRY: dict[str, Callable[..., Any]] = {}
 
-# the reference's latency plane (router/latency_plugins.py): ROADMAP Queue A item 10
-DEFERRED_PLUGINS = {
-    t: "ROADMAP Queue A item 10 (the latency predictor, its plugins and obs/slo.py)"
-    for t in ("predicted-latency-producer", "latency-scorer",
-              "slo-headroom-tier-filter", "latency-slo-admitter")
-}
-
 
 def register_plugin(type_name: str):
     def deco(cls):
@@ -77,9 +66,6 @@ def build_plugin(type_name: str, params: dict[str, Any], ctx: Optional[dict[str,
     Plugins that need shared services (prefix index, predictor client) declare
     `needs_ctx = True` and receive the context dict as first arg.
     """
-    if type_name in DEFERRED_PLUGINS:
-        raise NotImplementedError(
-            f"plugin type {type_name!r} is not ported yet: {DEFERRED_PLUGINS[type_name]}")
     cls = PLUGIN_REGISTRY.get(type_name)
     if cls is None:
         raise KeyError(f"unknown plugin type {type_name!r}; known: {sorted(PLUGIN_REGISTRY)}")
@@ -94,6 +80,4 @@ def build_plugin(type_name: str, params: dict[str, Any], ctx: Optional[dict[str,
 
 
 def known_plugin_types() -> set[str]:
-    """Every type a config may name: the registered ones and the deferred
-    ones, which ``build_plugin`` refuses with their item."""
-    return set(PLUGIN_REGISTRY) | set(DEFERRED_PLUGINS)
+    return set(PLUGIN_REGISTRY)

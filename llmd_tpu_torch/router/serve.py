@@ -3,9 +3,11 @@ a:8000,b:8000`` (port of ``llmd_tpu/router/serve.py``).
 
 The no-Kubernetes standalone mode: static endpoints from ``--endpoints`` or an
 ``--endpoints-file`` (re-scanned when it changes); the config is the plugin
-graph (``DEFAULT_CONFIG`` without ``--config``). The reference's gateway,
-manifest and HA flags are accepted by name and refused with the ROADMAP item
-that brings them.
+graph (``DEFAULT_CONFIG`` without ``--config``). Active-passive HA with
+``--ha-lease-file PATH`` (co-located replicas, an flock lease) or
+``--ha-k8s-lease NAME`` (a coordination.k8s.io Lease). The reference's gateway
+and manifest flags are accepted by name and refused with the ROADMAP item that
+brings them.
 """
 
 from __future__ import annotations
@@ -50,10 +52,6 @@ REFUSED_FLAGS = {
                    "vllmgrpc; the card has no grpc)",
     "--k8s-discovery": "ROADMAP Queue A item 14 (k8s discovery, core/crds.py, extproc / "
                        "vllmgrpc; the card has no grpc)",
-    "--ha-lease-file": "ROADMAP Queue A item 12 (kvplane/plane.py, the external index "
-                       "and ha.py)",
-    "--ha-k8s-lease": "ROADMAP Queue A item 12 (kvplane/plane.py, the external index "
-                      "and ha.py)",
 }
 
 
@@ -70,6 +68,12 @@ def build_parser() -> argparse.ArgumentParser:
             ap.add_argument(flag, action="store_true", help=f"not ported: {item}")
         else:
             ap.add_argument(flag, default=None, help=f"not ported: {item}")
+    ap.add_argument("--ha-lease-file", default=None,
+                    help="active-passive leader election via a local flock "
+                         "lease (co-located replicas)")
+    ap.add_argument("--ha-k8s-lease", default=None,
+                    help="active-passive leader election via a "
+                         "coordination.k8s.io Lease of this name")
     return ap
 
 
@@ -79,6 +83,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     for flag, item in REFUSED_FLAGS.items():
         if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
             ap.exit(2, f"{flag} is not ported yet: {item}\n")
+    if args.ha_lease_file and args.ha_k8s_lease:
+        raise SystemExit("--ha-lease-file and --ha-k8s-lease are exclusive")
 
     from llmd_tpu_torch.core.config import FrameworkConfig
     from llmd_tpu_torch.core.endpoint import EndpointPool
@@ -104,12 +110,25 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     server = RouterServer(config, pool, host=args.host, port=args.port,
                           poll_interval_s=args.poll_interval)
 
+    elector = None
+    if args.ha_lease_file or args.ha_k8s_lease:
+        from llmd_tpu_torch.router.ha import FileLease, K8sLease, LeaderElector, attach_ha
+
+        lease = (FileLease(args.ha_lease_file) if args.ha_lease_file
+                 else K8sLease(args.ha_k8s_lease))
+        elector = LeaderElector(lease)
+        attach_ha(server, elector)  # before start(): handlers bind at start
+
     async def run() -> None:
         await server.start()
+        if elector is not None:
+            await elector.start()
         for src in sources:
             await src.start()
-        print(f"llmd-tpu router on http://{server.address} ({len(pool)} endpoints)",
-              flush=True)
+        msg = f"llmd-tpu router on http://{server.address} ({len(pool)} endpoints)"
+        if elector is not None:
+            msg += f"; HA role={'leader' if elector.is_leader else 'standby'}"
+        print(msg, flush=True)
         await asyncio.Event().wait()
 
     asyncio.run(run())

@@ -11,13 +11,13 @@ arrives.
 
 P/D: when the disagg handler returns a prefill endpoint, the request goes to
 the decode endpoint with the ``x-prefiller-host-port`` header; the routing
-sidecar in front of the decode engine runs the P -> D flow.
+sidecar in front of the decode engine (``disagg/sidecar.py``) runs the P -> D
+flow.
 
-Not in this slice, refused at construction with the ROADMAP item that brings
-them: ``LLMD_KV_PLANE`` other than ``off`` (the global KV plane's router side,
-item 12) and any ``LLMD_SLO_*`` objective (``obs/slo.py``, item 10). Their
-metric families are declared all the same, so ``/metrics`` lists the
-reference's families.
+The global KV plane's router side (``kvplane/plane.py``, ``LLMD_KV_PLANE``)
+swaps the prefix producers and scorers and stamps cross-engine prefix pulls;
+the SLO engine (``obs/slo.py``, ``LLMD_SLO_*``) feeds the attainment and burn
+gauges from every request's TTFT and e2e.
 """
 
 from __future__ import annotations
@@ -27,7 +27,6 @@ import concurrent.futures
 import hashlib
 import json
 import math
-import os
 import time
 import uuid
 from dataclasses import dataclass
@@ -47,7 +46,7 @@ from llmd_tpu_torch.core.request import (
 )
 from llmd_tpu_torch.kv.index_backends import build_index
 from llmd_tpu_torch.kv.plugins import CTX_KV_INDEX
-from llmd_tpu_torch.kvplane.pull import plane_mode
+from llmd_tpu_torch.kvplane import STATE_KV_PLANE, KVPlane
 from llmd_tpu_torch.obs.attribution import attach_phase_exporter
 from llmd_tpu_torch.obs.decisions import attach_decision_exporter, regret_topk
 from llmd_tpu_torch.obs.events import (
@@ -57,6 +56,7 @@ from llmd_tpu_torch.obs.events import (
 )
 from llmd_tpu_torch.obs.fleet import FleetRollup
 from llmd_tpu_torch.obs.metrics import Registry, register_router_metrics
+from llmd_tpu_torch.obs.slo import SLOEngine
 from llmd_tpu_torch.obs.tracing import extract_traceparent, global_tracer
 from llmd_tpu_torch.router.datalayer import MetricsPoller
 from llmd_tpu_torch.router.flowcontrol import FlowController
@@ -73,16 +73,10 @@ from llmd_tpu_torch.router.resilience import (
     ResilienceConfig,
     ResilienceManager,
 )
+from llmd_tpu_torch.router.latency_plugins import predicted_e2e_ms
 from llmd_tpu_torch.router.scheduler import Scheduler
+from llmd_tpu_torch.router.scorers import STATE_PREDICTED
 from llmd_tpu_torch.structured import validate_structured_body
-
-# the SLO objectives (obs/slo.py) and the KV plane's router side wait for
-# their items; a deployment asking for them fails at start, by name
-SLO_OBJECTIVE_ENV = ("LLMD_SLO_TTFT_MS", "LLMD_SLO_E2E_MS", "LLMD_SLO_TENANT_OVERRIDES")
-SLO_ITEM = "ROADMAP Queue A item 10 (the latency predictor, its plugins and obs/slo.py)"
-KV_PLANE_ITEM = "ROADMAP Queue A item 12 (kvplane/plane.py, the external index and ha.py)"
-KV_PLANE_STATS = ("precise_requests", "degraded_requests", "lookups", "lookup_hits",
-                  "pulls_planned", "durable_pulls_planned")
 
 GEN_PATHS = ("/v1/completions", "/v1/chat/completions", "/v1/embeddings",
              "/v1/responses")
@@ -174,14 +168,6 @@ class RouterServer:
         model_rewrites: Optional[dict[str, list[tuple[str, float]]]] = None,
         seed: Optional[int] = None,
     ) -> None:
-        if plane_mode() != "off":
-            raise NotImplementedError(
-                f"LLMD_KV_PLANE={os.environ.get('LLMD_KV_PLANE')!r}: the router side of "
-                f"the global KV plane is not ported yet: {KV_PLANE_ITEM}")
-        slo = [k for k in SLO_OBJECTIVE_ENV if os.environ.get(k, "0") not in ("", "0", "0.0")]
-        if slo:
-            raise NotImplementedError(
-                f"{', '.join(slo)}: SLO objectives are not ported yet: {SLO_ITEM}")
         self.config = config
         self.pool = pool
         self.host, self.port = host, port
@@ -199,8 +185,12 @@ class RouterServer:
         # seed: the scheduler's draws (pickers, affinity filter) and the
         # model rewrite's; None draws a fresh one
         self.scheduler = Scheduler(config, pool, self.ctx, seed=seed)
-        # the KV plane at "off" (the only mode served): its counters stay at 0
-        self.kvplane_stats = dict.fromkeys(KV_PLANE_STATS, 0)
+        # Global KV plane (kvplane/plane.py): LLMD_KV_PLANE swaps prefix
+        # producers/scorers on the built scheduler and enables cross-engine
+        # pull stamping. "off" (the default) is a strict no-op — the config
+        # graph behaves bitwise-identically to a plane-less build.
+        self.kvplane = KVPlane.from_env(self.ctx, pool)
+        self.kvplane.install(self.scheduler)
         self.flow: Optional[FlowController] = (
             FlowController(config.flow_control, pool, self.ctx)
             if config.flow_control.enabled else None
@@ -214,7 +204,7 @@ class RouterServer:
         # a precise producer or an explicit kvEvents section (kv-indexer.md:67-87).
         self.kv_subscriber = None
         wants_precise = any(p.type == "precise-prefix-cache-producer" for p in config.plugins)
-        if wants_precise or (config.raw and "kvEvents" in config.raw):
+        if wants_precise or self.kvplane.active or (config.raw and "kvEvents" in config.raw):
             from llmd_tpu_torch.kv.subscriber import KVEventSubscriberManager
 
             index = self.ctx.setdefault(CTX_KV_INDEX, build_index(
@@ -226,6 +216,7 @@ class RouterServer:
                 default_events_port=kv_cfg.get("port"),
                 bind_port=kv_cfg.get("bindPort"),
             )
+        self.kvplane.subscriber = self.kv_subscriber  # feed-staleness signal
         self.objectives = objectives or {}
         self.model_rewrites = model_rewrites or {}
         # Request parser (request-handling.md:73-75): openai-parser default;
@@ -293,7 +284,7 @@ class RouterServer:
             lambda: self.poller.scrape_error_count)
         self.metrics.breaker_open_endpoints.set_function(
             lambda: len(self.resilience.open_endpoints()))
-        stats = self.kvplane_stats
+        stats = self.kvplane.stats
         for fam, key in ((self.metrics.kvplane_precise, "precise_requests"),
                          (self.metrics.kvplane_degraded, "degraded_requests"),
                          (self.metrics.kvplane_lookups, "lookups"),
@@ -304,13 +295,16 @@ class RouterServer:
             fam.set_function(lambda k=key: stats[k])
         self.metrics.kvplane_index_blocks.set_function(
             lambda: len(self.kv_index) if self.kv_index is not None else 0)
-        # the plane is off: no feed is watched for staleness (the reference's
-        # off-mode gauge reads 0 as well)
-        self.metrics.kvplane_feed_age.set_function(lambda: 0.0)
-        # no SLO objective is served (refused above): the attainment and burn
-        # gauges have no series, the breach counter stays at 0
-        self.metrics.slo_attainment.set_labels_function(lambda: [])
-        self.metrics.slo_burn_rate.set_labels_function(lambda: [])
+        self.metrics.kvplane_feed_age.set_function(self.kvplane.feed_age_s)
+        # SLO objectives + burn rate (obs/slo.py, LLMD_SLO_*): per-tenant
+        # attainment/burn gauges are scrape-time callbacks over the rolling
+        # windows; individual breaches land on the flight timeline.
+        self.slo = SLOEngine.from_env()
+        self.slo.breach_counter = self.metrics.slo_breaches
+        self.metrics.slo_attainment.set_labels_function(
+            lambda: self.slo.gauge_samples("attainment"))
+        self.metrics.slo_burn_rate.set_labels_function(
+            lambda: self.slo.gauge_samples("burn"))
         # Latency attribution: fold each retired router timeline into the
         # phase ledger and export llmd_tpu:request_phase_seconds.
         attach_phase_exporter(self.flight, self.metrics.request_phase)
@@ -344,6 +338,9 @@ class RouterServer:
 
         self._pool_listener = _on_pool_event
         pool.subscribe(self._pool_listener)
+        # extra Prometheus providers (the HA coordinator, ...): callables
+        # returning lines, appended to /metrics
+        self.extra_metrics: list[Any] = []
 
     @property
     def address(self) -> str:
@@ -461,9 +458,8 @@ class RouterServer:
         """Flatten a SchedulingResult's decision detail into the
         ``route_decision`` event payload (obs/decisions.py): per-profile
         filter eliminations, top-k ranked candidates, weighted per-scorer
-        breakdown for the chosen endpoint and runner-up, tie width, regret.
-        (The predictor's stamps, which the reference adds for the calibration
-        join, come with the latency plugins: ROADMAP Queue A item 10.)"""
+        breakdown for the chosen endpoint and runner-up, tie width, regret,
+        plus the predictor's stamps for the calibration join at retire."""
         topk = regret_topk()
         profs: dict = {}
         primary_regret = None
@@ -518,6 +514,16 @@ class RouterServer:
                     e.address for e in self.pool.list())
                 if breakers:
                     payload["breakers"] = breakers
+        kv_path = req.state.get(STATE_KV_PLANE)
+        if kv_path:
+            payload["kv_plane"] = kv_path  # "precise" | degraded-path reason
+        if result.endpoint is not None:
+            pred = (req.state.get(STATE_PREDICTED) or {}).get(
+                result.endpoint.address)
+            if pred is not None:
+                payload["predicted_ttft_ms"] = round(float(pred[0]), 3)
+                payload["predicted_e2e_ms"] = round(
+                    predicted_e2e_ms(req, pred), 3)
         pd = getattr(result, "pd", None)
         if pd:
             payload["pd"] = pd  # disagg decider outcome + predicted deltas
@@ -540,6 +546,18 @@ class RouterServer:
         # promql.md alert HighP99Latency reads these buckets; the exemplar
         # (trace_id of the active span) lets Grafana jump bucket → trace
         self.metrics.e2e.observe(seconds, exemplar=exemplar)
+
+    def _observe_slo(self, req: InferenceRequest, objective: str,
+                     seconds: float) -> None:
+        """Feed one latency sample into the SLO engine; a breach lands on
+        the request's flight timeline (and the breach counter via the
+        engine's hook) so slow-tail triage starts from the ledger."""
+        if not self.slo.enabled:
+            return
+        if self.slo.observe(req.tenant, objective, seconds):
+            self.flight.record(req.request_id, "slo_breach",
+                               objective=objective, tenant=req.tenant,
+                               latency_ms=round(seconds * 1e3, 3))
 
     def _account_usage(self, req: InferenceRequest, usage: dict) -> None:
         """Per-tenant token accounting from upstream usage payloads."""
@@ -769,6 +787,32 @@ class RouterServer:
         return await self._forward_sticky(target, request.method, request.path,
                                           body, timeout_s=60)
 
+    def _stamp_kv_pull(self, req, target, body: dict) -> None:
+        """KV plane: when a peer engine holds materially more of this prompt's
+        prefix than the chosen target, stamp transfer params so the target
+        PULLS the prefix over the KV wire instead of re-prefilling it.
+        Re-invoked on every retry re-pick so the stamp tracks the target;
+        client-supplied kv_transfer_params (P/D flows) are never touched."""
+        if not self.kvplane.active:
+            return
+        stamped = bool(req.state.get("kv_plane_stamped"))
+        if body.get("kv_transfer_params") is not None and not stamped:
+            return  # client-owned transfer params — leave untouched
+        if stamped:
+            body.pop("kv_transfer_params", None)
+            req.state["kv_plane_stamped"] = False
+        plan = self.kvplane.plan_pull(req, target.address)
+        if plan is None:
+            return
+        peer = plan.pop("peer", None)
+        saved = plan.pop("saved_tokens_est", None)
+        body["kv_transfer_params"] = plan
+        req.state["kv_plane_stamped"] = True
+        self.flight.record(req.request_id, "kv_pull_stamped",
+                           endpoint=target.address, peer=peer,
+                           blocks=len(plan.get("block_hashes") or ()),
+                           saved_tokens_est=saved)
+
     async def _handle_generate(self, request: Request):
         t_start = time.monotonic()
         self.metrics.requests.inc()
@@ -893,6 +937,7 @@ class RouterServer:
 
         target = result.endpoint
         prefill = result.prefill_endpoint
+        self._stamp_kv_pull(req, target, body)
         # Bounded retry loop: connect errors, attempt timeouts, and retryable
         # statuses (502/503/504) BEFORE any response body re-schedule on a
         # different endpoint (excluded set = llm-d excluded_runner_ids). Once
@@ -978,6 +1023,7 @@ class RouterServer:
                     status=502)
             target = repick.endpoint
             prefill = repick.prefill_endpoint
+            self._stamp_kv_pull(req, target, body)  # re-plan for the new target
             excluded.add(target.address)
             attempt += 1
             span.set_attribute("llm_d.endpoint", target.address)
@@ -1015,6 +1061,7 @@ class RouterServer:
                             t_first = t_last
                             self.metrics.ttft.observe(t_first - t_start,
                                                       exemplar=exemplar)
+                            self._observe_slo(req, "ttft", t_first - t_start)
                         n_chunks += 1
                         await out.write(chunk)
                     await out.write_eof()
@@ -1045,6 +1092,7 @@ class RouterServer:
                 self.metrics.responses.inc()
                 if "e2e_ms" in info:
                     self._observe_e2e(info["e2e_ms"] / 1e3, exemplar=exemplar)
+                    self._observe_slo(req, "e2e", info["e2e_ms"] / 1e3)
                 self.flight.finish(
                     req.request_id, event="response", status="finished",
                     http_status=resp.status,
@@ -1077,6 +1125,7 @@ class RouterServer:
             self.resilience.note_latency(e2e_s)
             exemplar = {"trace_id": span.context.trace_id}
             self.metrics.ttft.observe(e2e_s, exemplar=exemplar)
+            self._observe_slo(req, "ttft", e2e_s)
             info = {"status": resp.status, "e2e_ms": e2e_s * 1e3}
             try:
                 usage = json.loads(payload).get("usage", {})
@@ -1089,6 +1138,7 @@ class RouterServer:
             self.scheduler.post_response(req, target, info)
             self.metrics.responses.inc()
             self._observe_e2e(e2e_s, exemplar=exemplar)
+            self._observe_slo(req, "e2e", e2e_s)
             self.flight.finish(req.request_id, event="response",
                                status="finished", http_status=resp.status)
             span.set_attribute("llm_d.e2e_ms", round(info["e2e_ms"], 3))
@@ -1104,9 +1154,15 @@ class RouterServer:
 
     async def _metrics(self, request: Request):
         # Registry families (llm_d_epp_*, igw_*, llmd_tpu:*) render via the
-        # shared formatter. (The reference appends the latency plugins' and
-        # the ext-proc / HA fronts' own lines; none is in this slice.)
-        return Response(self.registry.expose().encode(),
+        # shared formatter; plugin providers (latency predictor) and extra
+        # providers (HA) append their own pre-rendered lines after it.
+        lines = [self.registry.expose().rstrip("\n")]
+        for plugin in self.scheduler.plugins.values():
+            if hasattr(plugin, "prometheus_lines"):
+                lines += plugin.prometheus_lines()
+        for provider in self.extra_metrics:
+            lines += provider()
+        return Response(("\n".join(lines) + "\n").encode(),
                         content_type="text/plain; charset=utf-8")
 
     async def _health(self, request: Request):

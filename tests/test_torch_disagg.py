@@ -10,10 +10,12 @@ the reference's ``tests/test_disagg.py`` is the template).
 - two-phase export equal to the synchronous one, an export surviving engine
   steps that recycle its pages, a stale transfer rejected;
 - P/D end to end: two port ``EngineServer`` s behind the reference's
-  ``RoutingSidecar`` on tiny and tiny-mla, text equal to an aggregated port
-  engine and to the reference's own P/D pair on the same weights, with
-  ``cached_tokens``, ``injected_blocks``, notifies, streaming, the dead
-  prefiller fallback and the transfer metric families;
+  ``RoutingSidecar`` and behind the port's (``disagg/sidecar.py``) on tiny and
+  tiny-mla, text equal to an aggregated port engine and to the reference's own
+  P/D pair on the same weights, with ``cached_tokens``, ``injected_blocks``,
+  notifies, streaming, the dead prefiller fallback, the sidecar's ``stats``
+  and the transfer metric families; the port's sidecar gives what the
+  reference's gave in front of the same port engines;
 - cross-package P/D at a tiny config with ``head_dim=128`` (where the
   reference's 128-lane padding is no padding): a JAX prefill engine to a
   port decode engine and back, greedy tokens equal to the JAX pair's; at
@@ -44,6 +46,7 @@ from llmd_tpu.models import transformer as jt
 from llmd_tpu_torch.core.kv_events import block_keys_for_tokens
 from llmd_tpu_torch.core.request import SamplingParams
 from llmd_tpu_torch.disagg import transfer as ttr
+from llmd_tpu_torch.disagg.sidecar import RoutingSidecar as PortSidecar
 from llmd_tpu_torch.engine import EngineConfig, LLMEngine
 from llmd_tpu_torch.engine.server import EngineServer
 from llmd_tpu_torch.models import get_model_config
@@ -383,7 +386,7 @@ async def _post(sess, url, body, headers=None):
         return r.status, json.loads(await r.read())
 
 
-async def _pd(make, model, body):
+async def _pd(make, model, body, sidecar_cls=RoutingSidecar):
     """Aggregated control, then P/D through the sidecar (plain, streamed, a
     dead prefiller, no prefiller header); what came out."""
     prefill = make(model, kv_transfer_port=0)
@@ -391,7 +394,7 @@ async def _pd(make, model, body):
     control = make(model)
     for s in (prefill, decode, control):
         await _start(s)
-    sidecar = RoutingSidecar(decode_addr=decode.address, host="127.0.0.1", port=0)
+    sidecar = sidecar_cls(decode_addr=decode.address, host="127.0.0.1", port=0)
     await sidecar.start()
     out: dict = {}
     try:
@@ -432,11 +435,28 @@ def _transfer_families(text: str) -> dict:
             if line.startswith("llmd_tpu:kv_transfer_") and "prefix_pull_seconds" not in line}
 
 
-@pytest.mark.parametrize("model", ["tiny", "tiny-mla"])
-def test_pd_disaggregation_e2e(model):
+@functools.cache
+def _reference_pd(model: str, sidecar: str) -> dict:
+    """A P/D run, cached across the parametrized cases: the JAX pair behind
+    the reference's sidecar, or port engines behind the reference's sidecar."""
     body = {"prompt": PROMPT, "max_tokens": 8, "temperature": 0.0, "ignore_eos": True}
-    port = run_async(_pd(_port_server, model, body))
-    ref = run_async(_pd(_jax_server, model, body))
+    return run_async(_pd(_jax_server if sidecar == "jax" else _port_server, model, body))
+
+
+@pytest.mark.parametrize("model,sidecar", [
+    pytest.param("tiny", "reference", id="tiny"),
+    pytest.param("tiny-mla", "reference", id="tiny-mla"),
+    pytest.param("tiny", "port", id="tiny-port_sidecar"),
+    pytest.param("tiny-mla", "port", id="tiny-mla-port_sidecar")])
+def test_pd_disaggregation_e2e(model, sidecar):
+    body = {"prompt": PROMPT, "max_tokens": 8, "temperature": 0.0, "ignore_eos": True}
+    if sidecar == "reference":
+        port = _reference_pd(model, "port")
+    else:
+        port = run_async(_pd(_port_server, model, body, PortSidecar))
+        # the port's sidecar in front of port engines = the reference's there
+        assert port == _reference_pd(model, "port")
+    ref = _reference_pd(model, "jax")
     assert port["pd"] == port["control"] == ref["pd"] == ref["control"]
     assert port["stream"] == port["fallback"] == port["aggregated"] == port["control"]
     n_blocks = len(block_keys_for_tokens(list(PROMPT.encode()), 8))

@@ -23,9 +23,11 @@
 - **Parsers and sticky picks.** The openai and passthrough parsers give the
   same request from the same body and headers; conversation ids hash onto
   the same decode-capable pod.
-- **Refusals.** The deferred plugin types, the external index backend, a KV
-  plane other than ``off`` and an SLO objective each raise naming their
-  ROADMAP item.
+- **Served since the latency plane and the KV plane's router side.** The
+  four latency plugin types build as the reference's do; the external index
+  backend, a KV plane other than ``off`` and an SLO objective are served; the
+  gateway and manifest flags of the CLI are still refused naming their
+  ROADMAP item, the HA flags are served.
 """
 
 import asyncio
@@ -570,42 +572,57 @@ def test_breaker_states_match_reference(clock, ops, attempt):
     assert port.backoff_s(attempt) == ref.backoff_s(attempt)  # both seed their own Random
 
 
-# -- refusals ------------------------------------------------------------------
+# -- what was refused until the latency and KV planes came ----------------------
 @pytest.mark.parametrize("ptype", ["predicted-latency-producer", "latency-scorer",
                                    "slo-headroom-tier-filter", "latency-slo-admitter"])
 def test_latency_plugins_are_refused_by_item(ptype):
-    cfg = port_config.FrameworkConfig.from_yaml(
-        f"plugins: [{{name: x, type: {ptype}}}]", known_types=port_known())
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 10"):
-        PortScheduler(cfg, port_endpoint.EndpointPool())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build_plugin(ptype, {})
+    """The latency plugin types (once refused by name, ROADMAP Queue A item
+    10) build in a scheduler, as the reference's, with the same plugin graph."""
+    text = f"plugins: [{{name: x, type: {ptype}}}]"
+    cfg = port_config.FrameworkConfig.from_yaml(text, known_types=port_known())
+    port = PortScheduler(cfg, port_endpoint.EndpointPool())
+    ref = RefScheduler(ref_config.FrameworkConfig.from_yaml(text, known_types=ref_known()),
+                       ref_endpoint.EndpointPool())
+    assert _graph(port) == _graph(ref)
+    assert type(build_plugin(ptype, {}, {})).__name__ == type(ref.plugins["x"]).__name__
 
 
 def test_external_index_and_planes_are_refused_by_item(monkeypatch):
+    """The external index, ``LLMD_KV_PLANE`` and ``LLMD_SLO_*`` (once refused,
+    item 12 and item 10) are served: a router builds with each; the gateway
+    and manifest flags (item 14) are still refused by name."""
+    from llmd_tpu_torch.kv.index_backends import ExternalKVBlockIndex
+    from llmd_tpu_torch.kvplane import KVPlaneProducer
     from llmd_tpu_torch.router.server import RouterServer
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 12"):
-        build_index("external", host="127.0.0.1", port=6379)
+    assert isinstance(build_index("external", host="127.0.0.1", port=9), ExternalKVBlockIndex)
     cfg = port_config.FrameworkConfig.from_yaml(
-        "plugins: [{name: q, type: queue-depth-scorer}]\nkvEvents: {indexBackend: external}\n")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        RouterServer(cfg, port_endpoint.EndpointPool(), port=0)
-    plain = port_config.FrameworkConfig.from_yaml(
-        "plugins: [{name: q, type: queue-depth-scorer}]")
+        "plugins: [{name: q, type: queue-depth-scorer}]\nkvEvents: {indexBackend: external, "
+        "indexParams: {port: 9, timeout_s: 0.1}}\n")
+    servers = [RouterServer(cfg, port_endpoint.EndpointPool(), port=0)]
+    assert isinstance(servers[0].kv_index, ExternalKVBlockIndex)
+    prefix = port_config.FrameworkConfig.from_yaml(
+        "plugins: [{name: p, type: approx-prefix-cache-producer}, "
+        "{name: s, type: prefix-cache-scorer}]\n"
+        "schedulingProfiles: [{name: default, plugins: [{pluginRef: s}]}]")
     monkeypatch.setenv("LLMD_KV_PLANE", "precise")
-    with pytest.raises(NotImplementedError, match="LLMD_KV_PLANE.*item 12"):
-        RouterServer(plain, port_endpoint.EndpointPool(), port=0)
+    servers.append(RouterServer(prefix, port_endpoint.EndpointPool(), port=0))
+    assert servers[-1].kvplane.active
+    assert isinstance(servers[-1].scheduler.plugins["p"], KVPlaneProducer)
     monkeypatch.setenv("LLMD_KV_PLANE", "off")
     monkeypatch.setenv("LLMD_SLO_TTFT_MS", "250")
-    with pytest.raises(NotImplementedError, match="LLMD_SLO_TTFT_MS.*item 10"):
-        RouterServer(plain, port_endpoint.EndpointPool(), port=0)
-    monkeypatch.delenv("LLMD_SLO_TTFT_MS")
-    server = RouterServer(plain, port_endpoint.EndpointPool(), port=0)
-    server._sched_executor.shutdown(wait=False)
+    servers.append(RouterServer(prefix, port_endpoint.EndpointPool(), port=0))
+    assert servers[-1].slo.enabled and servers[-1].slo.default.ttft_ms == 250.0
+    assert not servers[-1].kvplane.active and servers[-1].kvplane.swaps == []
+    for server in servers:
+        server._sched_executor.shutdown(wait=False)
     assert set(port_serve.REFUSED_FLAGS) == {
         "--extproc-port", "--extproc-failure-mode", "--vllmgrpc-port", "--manifests",
-        "--k8s-discovery", "--ha-lease-file", "--ha-k8s-lease"}
+        "--k8s-discovery"}
+    args = port_serve.build_parser().parse_args(["--ha-lease-file", "lease-file"])
+    assert args.ha_lease_file == "lease-file" and args.ha_k8s_lease is None
+    with pytest.raises(SystemExit):
+        port_serve.main(["--ha-lease-file", "a", "--ha-k8s-lease", "b"])
 
 
 # -- the request parsers and the sticky conversation pick ---------------------

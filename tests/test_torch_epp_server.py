@@ -14,8 +14,8 @@ the same kind of engines: two tiny port engines (float32) publishing KV events.
   its headers and a stream cut mid-way behave as the reference's, against
   scripted upstreams.
 - **The CLI** ``python -m llmd_tpu_torch.router.serve`` answers with
-  ``--endpoints-file`` (one subprocess), and each refused flag exits 2 naming
-  its ROADMAP item.
+  ``--endpoints-file`` (one subprocess), each refused flag exits 2 naming
+  its ROADMAP item, and the HA flags attach a leader elector.
 """
 
 import asyncio
@@ -272,9 +272,27 @@ def test_stream_passes_through_as_it_arrives():
     run_async(main())
 
 
-@pytest.mark.parametrize("flag", sorted(port_serve.REFUSED_FLAGS))
-def test_refused_flags_name_their_item(flag, capsys):
+# refused by name until the KV plane's router side and HA came; served since
+HA_FLAGS = ["--ha-k8s-lease", "--ha-lease-file"]
+
+
+@pytest.mark.parametrize("flag", sorted(port_serve.REFUSED_FLAGS) + HA_FLAGS)
+def test_refused_flags_name_their_item(flag, capsys, monkeypatch):
+    """Each refused flag exits 2 naming its ROADMAP item; the HA flags are
+    served: the router is built with a leader elector on the named lease
+    attached before it starts."""
     argv = [flag] if flag == "--k8s-discovery" else [flag, "1"]
+    if flag in HA_FLAGS:
+        import llmd_tpu_torch.router.ha as ha
+
+        attached = []
+        monkeypatch.setattr(ha, "attach_ha", lambda router, el: attached.append(el))
+        monkeypatch.setattr(port_serve.asyncio, "run", lambda coro: coro.close())
+        port_serve.main(argv + ["--endpoints", "127.0.0.1:9"])
+        lease = attached[0].lease
+        assert type(lease) is (ha.FileLease if flag == "--ha-lease-file" else ha.K8sLease)
+        assert (lease.path if flag == "--ha-lease-file" else lease.name) == "1"
+        return
     with pytest.raises(SystemExit) as exc:
         port_serve.main(argv)
     assert exc.value.code == 2

@@ -1,9 +1,10 @@
 """The PyTorch port stands alone: no jax, no llmd_tpu, card by default. Its
 modules and chip_smoke.py import without ``safetensors``, ``transformers``,
-``aiohttp``, ``msgpack``, ``ml_dtypes``, ``yaml`` and ``grpc`` too: the port reads
-safetensors itself, imports the HF tokenizer only when a caller asks for one,
-serves and proxies HTTP on the standard library, writes the KV-event wire by
-hand and reads its router configs with its own YAML reader."""
+``aiohttp``, ``msgpack``, ``ml_dtypes``, ``yaml``, ``grpc`` and ``sklearn`` too: the
+port reads safetensors itself, imports the HF tokenizer only when a caller asks
+for one, serves and proxies HTTP on the standard library, writes the KV-event
+wire by hand, reads its router configs with its own YAML reader and fits its
+latency predictor with its own histogram GBDT."""
 
 import re
 import subprocess
@@ -16,13 +17,15 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 
 # Blocks the top-level names jax, jaxlib, llmd_tpu, safetensors, transformers,
-# aiohttp, msgpack, ml_dtypes, yaml and grpc EXACTLY (a prefix match would also block llmd_tpu_torch), then
-# imports every module of the port and chip_smoke.py.
+# aiohttp, msgpack, ml_dtypes, yaml, grpc and sklearn EXACTLY (a prefix match would
+# also block llmd_tpu_torch), then imports every module of the port and
+# chip_smoke.py, and fits and queries the latency model (the reference imports
+# scikit-learn inside ``fit``, which an import-time check alone would miss).
 _BLOCKED_IMPORT = r"""
 import importlib, importlib.abc, pkgutil, sys
 
 BLOCKED = {"jax", "jaxlib", "llmd_tpu", "safetensors", "transformers", "aiohttp",
-           "msgpack", "ml_dtypes", "yaml", "grpc"}
+           "msgpack", "ml_dtypes", "yaml", "grpc", "sklearn"}
 
 
 class Blocker(importlib.abc.MetaPathFinder):
@@ -45,6 +48,14 @@ names = [m.name for m in pkgutil.walk_packages(llmd_tpu_torch.__path__, "llmd_tp
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
+from llmd_tpu_torch.predictor import LatencyModel, LatencySample
+
+samples = [LatencySample(kv_usage=i % 10 / 10, input_len=float(i), queue_depth=i % 7,
+                         ttft_ms=3.0 * i + (i % 7) * 20, tpot_ms=5.0 + i % 4)
+           for i in range(64)]
+model = LatencyModel()
+assert model.fit(samples) and model.is_fit()
+assert all(t > 0 and p > 0 for t, p in model.predict(samples[:4]))
 
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
@@ -107,6 +118,13 @@ assert {"llmd_tpu_torch.core.config", "llmd_tpu_torch.core.endpoint",
         "llmd_tpu_torch.router.resilience", "llmd_tpu_torch.router.http",
         "llmd_tpu_torch.router.server", "llmd_tpu_torch.router.serve",
         "llmd_tpu_torch.obs.fleet", "llmd_tpu_torch.obs.decisions"} <= set(names)
+# and the latency plane's, the sidecar's, the KV plane's router side and HA
+assert {"llmd_tpu_torch.predictor", "llmd_tpu_torch.predictor.gbdt",
+        "llmd_tpu_torch.predictor.model", "llmd_tpu_torch.predictor.client",
+        "llmd_tpu_torch.predictor.server", "llmd_tpu_torch.obs.slo",
+        "llmd_tpu_torch.router.latency_plugins", "llmd_tpu_torch.router.calibrator",
+        "llmd_tpu_torch.disagg.sidecar", "llmd_tpu_torch.testing.resp_server",
+        "llmd_tpu_torch.kvplane.plane", "llmd_tpu_torch.router.ha"} <= set(names)
 assert "zmq" not in sys.modules
 print(len(names))
 """
@@ -230,16 +248,21 @@ ROUTER_MODULES = ["core/config.py", "core/endpoint.py", "core/request.py",
                   "kv/index_backends.py", "kv/plugins.py", "kv/subscriber.py",
                   "router/datalayer.py", "router/discovery.py", "router/flowcontrol.py",
                   "router/resilience.py", "router/http.py", "router/server.py",
-                  "router/serve.py", "obs/fleet.py", "obs/decisions.py", "obs/metrics.py"]
+                  "router/serve.py", "obs/fleet.py", "obs/decisions.py", "obs/metrics.py",
+                  "predictor/__init__.py", "predictor/gbdt.py", "predictor/model.py",
+                  "predictor/client.py", "predictor/server.py", "obs/slo.py",
+                  "router/latency_plugins.py", "router/calibrator.py", "disagg/sidecar.py",
+                  "testing/resp_server.py", "kvplane/plane.py", "router/ha.py"]
 
 
 @pytest.mark.parametrize("module", ROUTER_MODULES)
 def test_router_modules_stand_alone(module):
-    """The router keeps its own copies of the reference's modules: no jax, no
-    reference package, and none of aiohttp, msgpack, yaml, grpc or torch in
-    their sources (the router is host code; the blocked import is the
+    """The router, the latency plane, the sidecar, the KV plane's router side
+    and HA keep their own copies of the reference's modules: no jax, no
+    reference package, and none of aiohttp, msgpack, yaml, grpc, sklearn or
+    torch in their sources (they are host code; the blocked import is the
     subprocess above)."""
     src = (REPO / "llmd_tpu_torch" / module).read_text()
     assert not _FORBIDDEN.search(src)
-    assert not re.search(r"^\s*(import|from)\s+(aiohttp|msgpack|yaml|grpc|torch)\b", src,
-                         re.M)
+    assert not re.search(r"^\s*(import|from)\s+(aiohttp|msgpack|yaml|grpc|sklearn|torch)\b",
+                         src, re.M)

@@ -28,8 +28,9 @@ arrays drawn from a seed. In f32, tiny at tp=2 unless stated:
   tp=2 D that injected a one-card P's blocks exports the same bytes.
 
 The adapters with the masked requests, the masked verify and the media
-rows also run at dp=2, each step's rows split over dp (``parallel/rows``):
-tokens and spec counts equal the JAX engine's under ``MeshConfig(dp=2)``.
+rows also run at dp=2, each step's rows split over dp (``parallel/rows``),
+and at sp=2, prefill on the ring: tokens and spec counts equal the JAX
+engine's under ``MeshConfig(dp=2)`` and ``MeshConfig(sp=2)``.
 
 Every meshed case's rank ops gave rank 0's tokens.
 """
@@ -196,6 +197,12 @@ def world(weights, store, tmp_path_factory):
                                                          ("programs",)],
                             tokenizer=True, spec_mode="ngram", spec_tokens=4),
         "vl_dp2": _script(vl, vl_p, MeshConfig(dp=2), [("run", r) for r in _vl_runs(vl)]),
+        "lora_sp2": _script(tiny, npp, MeshConfig(sp=2), _lora_actions(), tokenizer=True,
+                            **lora),
+        "spec_sp2": _script(tiny, npp, MeshConfig(sp=2), [("run", SPEC), ("stats", SPEC_STATS),
+                                                         ("programs",)],
+                            tokenizer=True, spec_mode="ngram", spec_tokens=4),
+        "vl_sp2": _script(vl, vl_p, MeshConfig(sp=2), [("run", r) for r in _vl_runs(vl)]),
         "offload": _script(tiny, npp, tp2, off, **OFF_KW, **fp8, offload_fs_path=fs["fs_mesh"]),
         "fs_to_one": _script(tiny, npp, None, again, **OFF_KW, **fp8,
                              offload_fs_path=fs["fs_mesh"]),
@@ -500,18 +507,21 @@ def test_meshed_kvt1_bytes_are_the_one_card_layout(world, p, d):
     assert a.size == np.frombuffer(twin_export[1], np.uint8).size > 0
 
 
-@pytest.mark.parametrize("case", ["lora_dp2", "spec_dp2", "vl_dp2"])
+@pytest.mark.parametrize("case", ["lora_dp2", "spec_dp2", "vl_dp2",
+                                  "lora_sp2", "spec_sp2", "vl_sp2"])
 def test_planes_with_rows_split_over_dp2_equal_the_meshed_reference(weights, world, case):
     """Each step's rows split over dp=2 (the unified and verify programs'
     flat rows, the decode programs' slot blocks, with their adapter slots,
-    media rows, table bases and entry states): the adapter script with the
-    masked requests, the masked verify with ngram, the media requests and
-    their prefix hit give the JAX engine's tokens under the same mesh (and
-    its spec counts); every rank's ops gave rank 0's tokens."""
-    dp2 = dict(dp=2)
+    media rows, table bases and entry states), and the same scripts at sp=2
+    (the ring program with LoRA, the masked verify, media rows): the adapter
+    script with the masked requests, the masked verify with ngram, the media
+    requests and their prefix hit give the JAX engine's tokens under the same
+    mesh (and its spec counts); every rank's ops gave rank 0's tokens."""
+    plane, axis = case.split("_")
+    mesh = {axis[:2]: 2}
     res = _result(world, case)
-    if case == "lora_dp2":
-        je = _jax(dp2, weights["tiny"], lora=jl.LoRAConfig(**LCFG))
+    if plane == "lora":
+        je = _jax(mesh, weights["tiny"], lora=jl.LoRAConfig(**LCFG))
         want = []
         for act in _lora_actions():
             if act[0] == "load":
@@ -522,14 +532,14 @@ def test_planes_with_rows_split_over_dp2_equal_the_meshed_reference(weights, wor
                 want.append(_tokens(_jax_run(je, act[1])))
         assert [_tokens(res["mesh"][i]) for i in (2, 7, 8)] == want and res["agree"]
         assert res["mesh"][-1]["decode_masked"][0] > 0
-    elif case == "spec_dp2":
-        je = _jax(dp2, weights["tiny"], spec_mode="ngram", spec_tokens=4)
+    elif plane == "spec":
+        je = _jax(mesh, weights["tiny"], spec_mode="ngram", spec_tokens=4)
         want = _jax_run(je, SPEC)
         run, stats, counts = res["mesh"]
         assert _tokens(run) == _tokens(want) and res["agree"], run
         assert stats == {k: getattr(je.stats, k) for k in SPEC_STATS}, stats
         assert counts["verify_masked"][0] > 0
     else:
-        je = _jax(dp2, weights["tiny-vl"])
+        je = _jax(mesh, weights["tiny-vl"])
         want = [_jax_run(je, r) for r in _vl_runs(weights["tiny-vl"][1])]
         assert res["mesh"] == want and res["agree"], res["mesh"]

@@ -2,7 +2,8 @@
 ``tiny-vl`` in float32: the reference's ``tests/test_multimodal.py``, case for
 case, against port engines, port encode workers and port servers (the E/PD,
 E/P/D, degrade and partial-failure cases through the reference's
-``RoutingSidecar`` in front of them), then the cross-package checks.
+``RoutingSidecar`` in front of them, and again through the port's, which
+must answer and count as the reference's), then the cross-package checks.
 
 Both packages load the same numpy weights: the language model's from the
 reference's ``init_params`` and the tower's from its ``init_vision_params``
@@ -37,6 +38,7 @@ from llmd_tpu.models import transformer as jt
 from llmd_tpu.models import vision as jv
 from llmd_tpu_torch.core.kv_events import BlockStored, block_keys_for_tokens
 from llmd_tpu_torch.core.request import SamplingParams
+from llmd_tpu_torch.disagg.sidecar import RoutingSidecar as PortSidecar
 from llmd_tpu_torch.disagg.encode import (
     EncodeServer,
     VisionRunner,
@@ -281,13 +283,13 @@ def test_encode_server():
     assert ours == ref
 
 
-async def _epd_scenario():
+async def _epd_scenario(sidecar_cls=RoutingSidecar):
     """E/PD: the sidecar fans media across two port encode workers, the port
     PD engine consumes."""
     enc1, enc2 = _encoder(), _encoder()
     pd = _port_server()
     await _start(enc1, enc2, pd)
-    sidecar = RoutingSidecar(decode_addr=pd.address, encode_hosts=[enc1.address, enc2.address])
+    sidecar = sidecar_cls(decode_addr=pd.address, encode_hosts=[enc1.address, enc2.address])
     await sidecar.start()
     try:
         body = {"messages": [{"role": "user", "content": [
@@ -318,12 +320,18 @@ async def _epd_scenario():
             assert local["choices"] == got["choices"]
         finally:
             await _stop(combined)
+        return {"choices": got["choices"], "usage": again["usage"],
+                "stats": dict(sidecar.stats)}
     finally:
         await _stop(sidecar, pd, enc1, enc2)
 
 
+# each E/PD scenario's outcome behind the reference's sidecar, for the port's
+_REFERENCE_SIDECAR: dict = {}
+
+
 def test_encode_disaggregation_epd():
-    run_async(_epd_scenario())
+    _REFERENCE_SIDECAR["epd"] = run_async(_epd_scenario())
 
 
 async def _combined_pd_scenario():
@@ -350,13 +358,13 @@ def test_combined_pd_in_process_encode():
     run_async(_combined_pd_scenario())
 
 
-async def _epd_with_kv_transfer_scenario():
+async def _epd_with_kv_transfer_scenario(sidecar_cls=RoutingSidecar):
     """E + P -> D: the media request prefills on P and its blocks (keyed with
     the media hashes) move to D."""
     enc = _encoder()
     prefill, decode = _port_server(kv_transfer_port=0), _port_server(kv_transfer_port=0)
     await _start(enc, prefill, decode)
-    sidecar = RoutingSidecar(decode_addr=decode.address, encode_hosts=[enc.address])
+    sidecar = sidecar_cls(decode_addr=decode.address, encode_hosts=[enc.address])
     await sidecar.start()
     try:
         async with aiohttp.ClientSession() as sess:
@@ -373,22 +381,25 @@ async def _epd_with_kv_transfer_scenario():
             "the media request's KV must move P->D (media hashes in the block keys)")
         assert got["usage"]["cached_tokens"] > 0
         assert len(prefill.transfer_source) == 0  # D notified P
+        return {"choices": got["choices"], "usage": got["usage"],
+                "stats": dict(sidecar.stats),
+                "injected": decode.transfer_stats["injected_blocks"]}
     finally:
         await _stop(sidecar, prefill, decode, enc)
 
 
 def test_multimodal_pd_kv_transfer():
-    run_async(_epd_with_kv_transfer_scenario())
+    _REFERENCE_SIDECAR["pd_kv"] = run_async(_epd_with_kv_transfer_scenario())
 
 
-async def _degraded_text_only_scenario():
+async def _degraded_text_only_scenario(sidecar_cls=RoutingSidecar):
     """Encode pool down and a PD server without a tower: the media request
     degrades to the text-only flattening (200), never a 400 or 500."""
     towerless = dataclasses.replace(CFG, name="tiny-vl-pd", vision_layers=0)
     assert towerless.mm_tokens > 0 and not towerless.has_vision
     pd = _port_server(cfg=towerless)
     await _start(pd)
-    sidecar = RoutingSidecar(decode_addr=pd.address, encode_hosts=["127.0.0.1:9"],
+    sidecar = sidecar_cls(decode_addr=pd.address, encode_hosts=["127.0.0.1:9"],
                              encode_timeout_s=0.3)
     await sidecar.start()
     try:
@@ -402,41 +413,61 @@ async def _degraded_text_only_scenario():
             assert got["usage"]["prompt_tokens"] == len(
                 pd.tokenizer.encode(jr.flatten_messages(body["messages"])))
         assert sidecar.stats["encode_failures"] == 1
+        return {"choices": got["choices"], "usage": got["usage"],
+                "stats": dict(sidecar.stats)}
     finally:
         await _stop(sidecar, pd)
 
 
 def test_encode_failure_degrades_to_text_only():
-    run_async(_degraded_text_only_scenario())
+    _REFERENCE_SIDECAR["degraded"] = run_async(_degraded_text_only_scenario())
 
 
-async def _partial_encode_scenario():
+async def _partial_encode_scenario(sidecar_cls=RoutingSidecar):
     """One of two items fails at the E stage: the success still attaches and
     the PD server (with a tower) encodes only the missing one."""
     enc = _encoder()
     pd = _port_server()
     await _start(enc, pd)
     # one live worker and one dead: items alternate, the retry covers the dead
-    sidecar = RoutingSidecar(decode_addr=pd.address, encode_hosts=[enc.address, "127.0.0.1:9"],
+    sidecar = sidecar_cls(decode_addr=pd.address, encode_hosts=[enc.address, "127.0.0.1:9"],
                              encode_timeout_s=30.0)
     await sidecar.start()
     try:
         async with aiohttp.ClientSession() as sess:
             await _post(sess, f"http://{enc.address}/v1/encode",
                         {"items": [_data_uri(b"warmup")]})
-            st, _ = await _post(sess, f"http://{sidecar.address}/v1/chat/completions", {
+            st, got = await _post(sess, f"http://{sidecar.address}/v1/chat/completions", {
                 "messages": [{"role": "user", "content": [
                     _data_uri(b"img-A"), _data_uri(b"img-B")]}],
                 "max_tokens": 3, "temperature": 0.0, "ignore_eos": True})
             assert st == 200
         # retry-on-next-worker: both items encode at the pool
         assert sidecar.stats["encoded_items"] == 2
+        return {"choices": got["choices"], "usage": got["usage"],
+                "stats": dict(sidecar.stats)}
     finally:
         await _stop(sidecar, pd, enc)
 
 
 def test_partial_encode_failure_recovers():
-    run_async(_partial_encode_scenario())
+    _REFERENCE_SIDECAR["partial"] = run_async(_partial_encode_scenario())
+
+
+SIDECAR_SCENARIOS = {"epd": _epd_scenario, "pd_kv": _epd_with_kv_transfer_scenario,
+                     "degraded": _degraded_text_only_scenario,
+                     "partial": _partial_encode_scenario}
+
+
+@pytest.mark.parametrize("scenario", list(SIDECAR_SCENARIOS))
+def test_epd_scenarios_through_the_port_sidecar(scenario):
+    """The E/PD, E/P/D, degrade and partial-failure scenarios with the port's
+    ``RoutingSidecar`` in front of the same port engines and encode workers:
+    each scenario's own checks hold, and the answers, usage and sidecar
+    ``stats`` equal the reference sidecar's."""
+    run = SIDECAR_SCENARIOS[scenario]
+    want = _REFERENCE_SIDECAR.get(scenario) or run_async(run())
+    assert run_async(run(PortSidecar)) == want
 
 
 def test_render_matches_generate_tokenization():
