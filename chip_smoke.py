@@ -366,6 +366,40 @@ thread's stack on stderr):
             the same legs driven by hand; one predictor fit over a full
             10,240-row window.
             The phase prints its seconds.
+23. pool    the pool and autoscaling (``phase_pool``): the port's
+            ``RouterServer`` (flow control on) over an empty pool, the port's
+            ``PoolController`` in front of it (HPA, 1 to 2 replicas, a 1 s
+            step) launching llama-1b replicas as processes
+            (``ProcessReplicaLauncher`` over ``engine_argv`` with a snapshot
+            store: bf16, random weights from seed 0, 1,024 pages, batch 64,
+            ``decode_steps`` 4; 400 s to become ready). The floor's cold
+            launch builds the kernel libraries into the fingerprint's
+            ``compile_cache`` and reports ``cuda_paged_attention``. A bursty
+            trace (60 s, 2 rps with 64 rps from 5 s to 45 s, 256-token
+            prompts, 64 tokens out; at 32 rps one replica holds HPA's 16
+            running and the pool flaps) replayed open loop through the router:
+            every reply 200, no client 5xx; HPA's running-requests metric
+            takes the pool to 2 with warm launches that build nothing, and a
+            scaled-up replica serves; after the trace the pool is back at 1,
+            each victim drained (``POST /drain``, then ``/health`` 503), out
+            of discovery before its terminate, exit code -15. The survivor
+            killed: the health sweep retires it (``replica_dead``) and a warm
+            launch replaces it; 8 greedy prompts (text whose bytes are its
+            token ids, every printable id raised by 100 so the byte
+            tokenizer's text holds each token) give the same 32 tokens before
+            and after. A ``DisaggPoolSet``: one ``--role prefill`` and one
+            ``--role decode`` replica (KV-transfer side channels, the decode
+            one behind the port's ``RoutingSidecar``), both warm, behind a
+            router with the P/D profile: 4 prompts of 512 tokens split
+            (``no_predictor``), 200 with 32 tokens each, D's injected blocks
+            rise; the share of tokens equal to the aggregated replica's is
+            printed, not bounded. The pool families on the routers (desired,
+            ready, decisions by floor / hpa / replica_dead, warm starts by
+            kind), then ``python -m llmd_tpu_torch.tools.slo_check`` and
+            ``pd_check`` as subprocesses, both exit 0. Attainment, e2e p50 /
+            p99, every launch's seconds and the phase's seconds are printed.
+            The replicas are processes of their own: their kernel launches
+            are not counted here.
 
 It ends with a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. ``--report PATH`` also writes every phase's details (nvcc's register
@@ -7464,6 +7498,495 @@ def phase_latency(device, card: str, model: str = "llama-1b", f32_kw=None,
     return out
 
 
+POOL_EXTRA = ["--host", "127.0.0.1", "--num-pages", "1024", "--max-batch-size", "64",
+              "--prefill-chunk", "256", "--decode-steps", "4"]
+POOL_READY_S = 400.0  # a cold replica compiles its kernels (nvcc) before /health
+# HPA (no stabilization window, as the reference's) reads running requests and
+# the router's flow-control queue. On an H100 one llama-1b replica held about
+# HPA's 16 running at 32 rps, and the scaled-up replica was retired at its first
+# step, before it served; at 48 rps the pool flapped. At 64 rps one replica
+# saturates and the router's queue keeps two while the second takes the backlog.
+POOL_TRACE = dict(duration_s=60.0, base_rps=2.0, burst_rps=64.0, burst_start_s=5.0,
+                  burst_end_s=45.0, seed=0, prompt_tokens=256, max_tokens=64)
+# the pool's router: flow control on, load-aware scoring (the SLO gate's config)
+POOL_ROUTER_CFG = """
+flowControl:
+  enabled: true
+plugins:
+  - {name: inflight, type: inflight-load-producer}
+  - {name: queue, type: queue-depth-scorer}
+  - {name: kv-util, type: kv-cache-utilization-scorer}
+schedulingProfiles:
+  - name: default
+    plugins:
+      - {pluginRef: queue, weight: 2}
+      - {pluginRef: kv-util, weight: 1}
+"""
+# the latency phase's P/D profile without the latency producer: no predictor
+# runs here, so past 16 uncached tokens the decider splits (``no_predictor``)
+POOL_PD_CFG = """
+plugins:
+  - {name: prefix-producer, type: approx-prefix-cache-producer, params: {blockSize: 16}}
+  - {name: prefill-filter, type: prefill-endpoints-filter}
+  - {name: decode-filter, type: decode-endpoints-filter}
+  - {name: prefix, type: prefix-cache-scorer}
+  - {name: queue, type: queue-depth-scorer}
+  - {name: picker, type: max-score-picker}
+profileHandler: disagg-profile-handler
+disaggregation: {uncachedSuffixThreshold: 16}
+schedulingProfiles:
+  - name: prefill
+    plugins: [{pluginRef: prefill-filter}, {pluginRef: queue, weight: 1}, {pluginRef: picker}]
+  - name: decode
+    plugins:
+      - {pluginRef: decode-filter}
+      - {pluginRef: prefix, weight: 3}
+      - {pluginRef: queue, weight: 1}
+      - {pluginRef: picker}
+"""
+# greedy, with every printable ASCII id raised by 100: the served byte
+# tokenizer's text then holds each generated token, one character each
+POOL_BIAS = {str(i): 100 for i in range(33, 127)}
+
+
+def _pool_launcher(model: str, store, extra: list, log_dir: str, events: list,
+                   role: str = "both", sidecar: bool = False, ready_s: float = POOL_READY_S):
+    """The port's ``ProcessReplicaLauncher`` over ``engine_argv(model, ...,
+    snapshots=store, extra=extra)``, its replicas' output in ``log_dir``. Each
+    handle carries ``role`` (the controller copies it onto the endpoint); with
+    ``sidecar`` a port ``RoutingSidecar`` in this process fronts the replica,
+    as the fake launcher fronts a fake one. Stops are noted in ``events``:
+    ("stop", address) before the terminate, ("exited", address, rc) after."""
+    import asyncio
+
+    from llmd_tpu_torch.disagg.sidecar import RoutingSidecar
+    from llmd_tpu_torch.pool.launcher import ProcessReplicaLauncher, engine_argv
+
+    class Launcher(ProcessReplicaLauncher):
+        async def launch(self):
+            handle = await super().launch()
+            handle.role = role
+            if sidecar:
+                sc = RoutingSidecar(decode_addr=handle.address, host="127.0.0.1", port=0)
+                await sc.start()
+                handle.sidecar, handle.address = sc, sc.address
+            return handle
+
+        async def _unfront(self, handle) -> None:
+            if handle.sidecar is not None:
+                sc, handle.sidecar = handle.sidecar, None
+                await sc.stop()
+
+        async def stop(self, handle) -> None:
+            proc = handle.proc
+            events.append(("stop", handle.address))
+            await self._unfront(handle)
+            await super().stop(handle)
+            if proc is not None:
+                rc = await asyncio.to_thread(proc.wait, 30)
+                events.append(("exited", handle.address, rc))
+
+        async def kill(self, handle) -> None:
+            await self._unfront(handle)
+            await super().kill(handle)
+
+    return Launcher(lambda port: engine_argv(model, port, snapshots=store, extra=extra),
+                    ready_timeout_s=ready_s, log_dir=log_dir)
+
+
+def _pool_logs(log_dir: Path, n: int = 1500) -> str:
+    return "\n".join(f"--- {p.name}: {p.read_text()[-n:]}" for p in sorted(log_dir.glob("*.log")))
+
+
+async def _pool_get(client, url: str) -> tuple:
+    r = await client.request("GET", url, timeout=60)
+    return r.status, (await r.read()).decode()
+
+
+async def _pool_complete(client, base: str, prompt: str, max_tokens: int) -> tuple:
+    """(status, body) of one greedy completion under ``POOL_BIAS``."""
+    r = await client.request("POST", f"http://{base}/v1/completions", json_body={
+        "prompt": prompt, "max_tokens": max_tokens, "temperature": 0, "ignore_eos": True,
+        "logit_bias": POOL_BIAS}, timeout=600)
+    return r.status, json.loads(await r.read())
+
+
+async def _pool_wait(cond, what: str, timeout_s: float, log_dir: Path) -> float:
+    """Seconds until ``cond()`` holds (checked every 0.1 s on the loop)."""
+    import asyncio
+
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > timeout_s:
+            raise AssertionError(f"pool: {what}: not reached in {timeout_s} s\n"
+                                 f"{_pool_logs(log_dir)}")
+        await asyncio.sleep(0.1)
+    return time.monotonic() - t0
+
+
+async def _pool_scraped(pool, log_dir: Path) -> None:
+    """Every endpoint of ``pool`` scraped once by the router's poller."""
+    await _pool_wait(lambda: all(ep.attrs.get("kv_cache_utilization") is not None
+                                 for ep in pool.list()), "the router's first scrape", 60.0,
+                     log_dir)
+
+
+async def _pool_run(device, card: str, work: Path, model: str, extra: list, trace_kw: dict,
+                    n_probe: int, probe_len: int, probe_tokens: int, n_pd: int, pd_len: int,
+                    ready_s: float, settle_s: float, running_target: float) -> dict:
+    import asyncio
+
+    from llmd_tpu_torch.core.config import FrameworkConfig
+    from llmd_tpu_torch.core.endpoint import EndpointPool
+    from llmd_tpu_torch.pool.controller import PoolConfig, PoolController
+    from llmd_tpu_torch.pool.disagg import DisaggPoolSet
+    from llmd_tpu_torch.pool.harness import replay_trace
+    from llmd_tpu_torch.pool.snapshot import PoolSnapshotStore, config_fingerprint
+    from llmd_tpu_torch.pool.traces import bursty_trace
+    from llmd_tpu_torch.router.http import HTTPClient
+    from llmd_tpu_torch.router.plugins import known_plugin_types
+    from llmd_tpu_torch.router.server import RouterServer
+
+    on_card = device.type == "cuda"
+    served = f"llmd-tpu/{model}"
+    logs = work / "logs"
+    store = PoolSnapshotStore(str(work / "snap"))
+    cache = Path(store.path(config_fingerprint({"model": model}), "compile_cache"))
+
+    def libs() -> list:
+        return sorted(p.name for p in cache.glob("*.so"))
+
+    def metric(text: str, name: str, labels: str = "") -> float:
+        return _metric(text, name, labels) or 0.0
+
+    row: dict = {"card": card, "model": model}
+    events: list = []
+    pool = EndpointPool()
+    pool.subscribe(lambda kind, ep: events.append((kind, ep.address)))
+    router = RouterServer(FrameworkConfig.from_yaml(POOL_ROUTER_CFG,
+                                                    known_types=known_plugin_types()),
+                          pool, host="127.0.0.1", port=0, poll_interval_s=0.2, seed=0)
+    launcher = _pool_launcher(model, store, extra, str(logs), events, ready_s=ready_s)
+    ctl = PoolController(PoolConfig(model=model, min_replicas=1, max_replicas=2, policy="hpa",
+                                    interval_s=1.0), launcher, router=router)
+    for m in ctl.hpa.metrics:  # the reference's target unless a rehearsal shrinks it
+        if m.name == "igw_running_requests":
+            m.target = running_target
+    client = HTTPClient()
+    drain_seen: dict = {}
+    ctl_drain = ctl._drain
+
+    async def drain(address: str) -> None:  # the handshake, observed
+        events.append(("drain", address))
+        await ctl_drain(address)
+        try:
+            drain_seen[address] = (await _pool_get(client, f"http://{address}/health"))[0]
+            served_by[address] = metric((await _pool_get(
+                client, f"http://{address}/metrics"))[1], "llmd_tpu:requests_total")
+        except Exception as e:  # noqa: BLE001 — recorded, judged below
+            drain_seen[address] = type(e).__name__
+
+    ctl._drain = drain
+    steps: list = []  # (unix s, running, router queue, replicas, desired after)
+    ctl_step = ctl.step
+
+    async def step() -> None:  # HPA's inputs at each step, observed
+        seen = (time.time(), ctl._running_total(), float(ctl._flow_depth()), len(ctl.replicas))
+        await ctl_step()
+        steps.append(seen + (ctl.variant.desired_replicas,))
+
+    ctl.step = step
+    served_by: dict = {}  # requests_total by replica: polled, and read at its drain
+    pds = pd_router = None
+    await router.start()
+    try:
+        # 1. the floor: one cold replica
+        t0 = time.monotonic()
+        await ctl.start()
+        row["floor_s"] = time.monotonic() - t0
+        recs = ctl.launch_records
+        if len(ctl.replicas) != 1 or [r.kind for r in recs] != ["cold"]:
+            raise AssertionError(f"pool: the floor launched {ctl.status()}\n{_pool_logs(logs)}")
+        (first,) = ctl.replicas
+        row["cold_libs"] = libs()
+        _, text = await _pool_get(client, f"http://{first}/metrics")
+        row["backend"] = [ln for ln in text.splitlines()
+                          if ln.startswith("llmd_tpu:engine_attn_backend{")]
+        if on_card and (not row["cold_libs"] or not any(
+                'backend="cuda_paged_attention"' in ln for ln in row["backend"])):
+            raise AssertionError(f"pool: the cold replica built {row['cold_libs']} into "
+                                 f"{cache}, backend {row['backend']}")
+        log(f"pool: floor: one cold {model} replica in {recs[0].seconds:.1f} s "
+            f"({len(row['cold_libs'])} kernel libraries built into the fingerprint's "
+            f"compile_cache), backend {row['backend']} on {card}")
+        await _pool_scraped(pool, logs)
+
+        # 2. the burst through the router, open loop
+        peaks = {"running": 0.0, "router_queue": 0.0}
+
+        async def watch() -> None:
+            while True:
+                peaks["running"] = max(peaks["running"], router.fleet.running_total())
+                peaks["router_queue"] = max(peaks["router_queue"],
+                                            float(router.flow._total_queued()))
+                for address in list(ctl.replicas):
+                    try:
+                        _, t = await _pool_get(client, f"http://{address}/metrics")
+                        served_by[address] = max(served_by.get(address, 0.0),
+                                                 metric(t, "llmd_tpu:requests_total"))
+                    except Exception:  # noqa: BLE001 — a replica going away
+                        pass
+                await asyncio.sleep(1.0)
+
+        trace = bursty_trace(**trace_kw)
+        t_trace = time.time()
+        watcher = asyncio.get_running_loop().create_task(watch())
+        try:
+            report = await replay_trace(router.address, trace, model=served, slo_e2e_s=3.0,
+                                        request_timeout_s=120.0)
+        finally:
+            watcher.cancel()
+        row["burst"] = summary = report.summary()
+        row["burst_launches"] = [(r.kind, r.seconds, r.address) for r in ctl.launch_records]
+        second = ctl.launch_records[1:]
+        row["served_by"] = {a: served_by.get(a, 0.0) for _, _, a in row["burst_launches"]}
+        row["burst_peaks"] = peaks
+        row["hpa_changes"] = [(round(s[0] - t_trace, 1), *s[1:]) for i, s in enumerate(steps)
+                              if s[0] >= t_trace and s[4] != (steps[i - 1][4] if i else 1)]
+        row["timeline"] = [(e["event"].removeprefix("pool_"), e.get("reason") or e.get("kind"),
+                            round(e["t_unix"] - t_trace, 1))
+                           for e in router.flight.system_events()
+                           if e["event"].startswith("pool_") and e["t_unix"] >= t_trace]
+        log(f"pool: burst: {summary['requests']} requests ({trace_kw}), statuses "
+            f"{summary['statuses']}, client 5xx {summary['client_5xx']}, attainment "
+            f"{summary['slo_attainment']} at e2e <= {summary['slo_e2e_s']} s, e2e p50 "
+            f"{summary['p50_e2e_s']} s p99 {summary['p99_e2e_s']} s, wall {summary['wall_s']} s;"
+            f" launches {[(k, round(s, 1)) for k, s, _ in row['burst_launches']]} s; "
+            f"requests_total by replica {list(row['served_by'].values())}; peaks (1 s polls) "
+            f"{peaks}; HPA steps that changed the count (s, running, router queue, "
+            f"replicas, desired) {row['hpa_changes']}; pool events (s "
+            f"from the trace's start) {row['timeline']} on {card}")
+        if summary["client_5xx"] != 0 or summary["statuses"] != {"200": len(trace)}:
+            raise AssertionError(f"pool: the burst answered {summary}")
+        if not second or any(r.kind != "warm" for r in second) or libs() != row["cold_libs"]:
+            raise AssertionError(f"pool: scale-up launches {row['burst_launches']}, "
+                                 f"libraries {row['cold_libs']} -> {libs()}")
+        # HPA keeps no stabilization window (as the reference's): a dip in the
+        # running count can retire a replica that a later step launches again
+        if not any(row["served_by"][r.address] > 0 for r in second):
+            raise AssertionError(f"pool: no scaled-up replica served: {row['served_by']}")
+
+        # 3. back to the floor: each victim drained, left discovery, then stopped
+        row["settle_s"] = await _pool_wait(lambda: len(ctl.replicas) == 1, "back to 1 replica",
+                                           settle_s, logs)
+        victims = [a for _, _, a in row["burst_launches"] if a not in ctl.replicas]
+        row["retired"] = {}
+        for a in victims:
+            seq = [e for e in events if e[1] == a and e[0] in ("drain", "removed", "stop",
+                                                                "exited")]
+            row["retired"][a] = (seq, drain_seen.get(a))
+            if [e[0] for e in seq] != ["drain", "removed", "stop", "exited"] or \
+                    drain_seen.get(a) != 503 or seq[-1][2] != -15:
+                raise AssertionError(f"pool: the victim {a}: {seq}, /health after the drain "
+                                     f"{drain_seen.get(a)} (want drain, removed, stop, exited "
+                                     f"rc -15; 503 draining)")
+        log(f"pool: back to the floor {row['settle_s']:.1f} s after the trace; retired "
+            f"{len(victims)}: POST /drain (then /health 503), out of discovery, terminate, "
+            f"exit rc -15")
+
+        # 4. chaos: kill the survivor; the sweep retires it, a warm launch replaces it
+        rng = np.random.default_rng(7)
+        probes = [_router_text(rng, probe_len) for _ in range(n_probe)]
+        pd_prompts = [_router_text(rng, pd_len) for _ in range(n_pd)]
+
+        async def ask(prompts: list, tokens: int) -> list:
+            out = []
+            for p in prompts:  # one at a time
+                status, body = await _pool_complete(client, router.address, p, tokens)
+                if status != 200 or body["usage"]["completion_tokens"] != tokens:
+                    raise AssertionError(f"pool: a probe answered {status}: {body}")
+                out.append(body["choices"][0]["text"])
+            return out
+
+        before = await ask(probes, probe_tokens)
+        row["aggregated_pd"] = await ask(pd_prompts, probe_tokens)
+        (victim,) = ctl.replicas.values()
+        n_launched, t_kill = len(ctl.launch_records), time.monotonic()
+        await launcher.kill(victim)
+        row["heal_s"] = await _pool_wait(
+            lambda: victim.address not in ctl.replicas and len(ctl.replicas) == 1,
+            "a replacement for the killed replica", ready_s, logs)
+        dead = [e for e in router.flight.system_events()
+                if e["event"] == "pool_scale_down" and e.get("endpoint") == victim.address]
+        repl = ctl.launch_records[n_launched:]
+        await _pool_scraped(pool, logs)
+        after = await ask(probes, probe_tokens)
+        row["chaos"] = {"dead": dead, "replacement": [(r.kind, r.seconds) for r in repl],
+                        "tokens_equal": before == after, "kill_to_ready_s":
+                        time.monotonic() - t_kill}
+        log(f"pool: chaos: killed {victim.address}; retired {[e.get('reason') for e in dead]}"
+            f" ({[e.get('detail') for e in dead]}), replaced by {row['chaos']['replacement']}"
+            f" in {row['heal_s']:.1f} s; {n_probe} probes x {probe_tokens} tokens equal "
+            f"before and after: {before == after}")
+        if [e.get("reason") for e in dead] != ["replica_dead"] or \
+                [r.kind for r in repl] != ["warm"] or before != after or libs() != \
+                row["cold_libs"]:
+            raise AssertionError(f"pool: chaos {row['chaos']}, libraries {libs()}")
+
+        # 6a. the pool families on the router
+        _, text = await _pool_get(client, f"http://{router.address}/metrics")
+        fam = {"desired": metric(text, "llmd_tpu:pool_desired_replicas"),
+               "ready": metric(text, "llmd_tpu:pool_ready_replicas"),
+               **{f"decisions_{r}": metric(text, "llmd_tpu:pool_scale_decisions_total",
+                                           f'{{reason="{r}"}}')
+                  for r in ("floor", "hpa", "replica_dead")},
+               **{f"warm_start_{k}": metric(text, "llmd_tpu:pool_warm_start_seconds_count",
+                                            f'{{kind="{k}"}}') for k in ("cold", "warm")}}
+        row["families"] = fam
+        await ctl.stop()
+
+        # 5. a P/D pool set behind a P/D router
+        pd_pool = EndpointPool()
+        pd_router = RouterServer(FrameworkConfig.from_yaml(POOL_PD_CFG,
+                                                           known_types=known_plugin_types()),
+                                 pd_pool, host="127.0.0.1", port=0, poll_interval_s=0.2, seed=0)
+        await pd_router.start()
+        kv = ["--kv-transfer-port", "0"]
+        pds = DisaggPoolSet(
+            _pool_launcher(model, store, extra + ["--role", "prefill"] + kv, str(logs), events,
+                           role="prefill", ready_s=ready_s),
+            _pool_launcher(model, store, extra + ["--role", "decode"] + kv, str(logs), events,
+                           role="decode", sidecar=True, ready_s=ready_s),
+            router=pd_router,
+            prefill_cfg=PoolConfig(model=model, min_replicas=1, max_replicas=1, interval_s=1.0,
+                                   policy="hpa"),
+            decode_cfg=PoolConfig(model=model, min_replicas=1, max_replicas=1, interval_s=1.0,
+                                  policy="wva"))
+        libs_before = libs()
+        await pds.start()
+        recs = pds.prefill.launch_records + pds.decode.launch_records
+        new_libs = sorted(set(libs()) - set(libs_before))
+        row["pd_launches"] = [(r.kind, r.seconds) for r in recs]
+        if [r.kind for r in recs] != ["warm", "warm"] or len(pd_pool.list()) != 2 or any(
+                not n.startswith("kv_transfer-") for n in new_libs):
+            raise AssertionError(f"pool: P/D launches {row['pd_launches']}, endpoints "
+                                 f"{[(e.address, e.role) for e in pd_pool.list()]}, new "
+                                 f"libraries {new_libs}\n{_pool_logs(logs)}")
+        await _pool_scraped(pd_pool, logs)
+        (d,) = pds.decode.replicas.values()
+        injected0 = metric((await _pool_get(client, f"http://{d.address}/metrics"))[1],
+                           "llmd_tpu:kv_transfer_injected_blocks_total")
+        replies = [await _pool_complete(client, pd_router.address, p, probe_tokens)
+                   for p in pd_prompts]
+        injected = metric((await _pool_get(client, f"http://{d.address}/metrics"))[1],
+                          "llmd_tpu:kv_transfer_injected_blocks_total") - injected0
+        reasons = _pd_reasons(pd_router)
+        texts = [b["choices"][0]["text"] if s == 200 else "" for s, b in replies]
+        same = sum(a == b for x, y in zip(texts, row["aggregated_pd"]) for a, b in zip(x, y))
+        _, pd_text = await _pool_get(client, f"http://{pd_router.address}/metrics")
+        row["pd"] = {"statuses": [s for s, _ in replies], "reasons": reasons,
+                     "sidecar": dict(d.sidecar.stats), "injected_blocks": injected,
+                     "identical_share": same / (n_pd * probe_tokens), "new_libs": new_libs,
+                     "warm_start_warm": metric(pd_text, "llmd_tpu:pool_warm_start_seconds_count",
+                                               '{kind="warm"}')}
+        log(f"pool: P/D: prefill and decode replicas warm in "
+            f"{[round(s, 1) for _, s in row['pd_launches']]} s (new libraries {new_libs}); "
+            f"{n_pd} prompts of {pd_len} tokens: statuses {row['pd']['statuses']}, decisions "
+            f"{reasons}, sidecar {row['pd']['sidecar']}, D injected {injected:.0f} blocks; "
+            f"tokens identical to the aggregated replica's: {row['pd']['identical_share']:.3f}"
+            f" (bf16, another program order; not bounded) on {card}")
+        if row["pd"]["statuses"] != [200] * n_pd or any(
+                b["usage"]["completion_tokens"] != probe_tokens for _, b in replies) or \
+                reasons != ["no_predictor"] * n_pd or injected <= 0 or \
+                row["pd"]["sidecar"]["pd_requests"] != n_pd or \
+                row["pd"]["sidecar"]["prefill_fallbacks"] != 0:
+            raise AssertionError(f"pool: P/D {row['pd']}")
+    finally:
+        await ctl.stop()
+        if pds is not None:
+            await pds.stop()
+        if pd_router is not None:
+            await pd_router.stop()
+        await router.stop()
+        await client.close()
+
+    # 6b. the families' counts (the P/D controllers report on the P/D router)
+    fam["warm_start_warm_pd"] = row["pd"]["warm_start_warm"]
+    log(f"pool: families on the routers: {fam}")
+    if not (fam["desired"] >= 1 and fam["ready"] >= 1 and fam["decisions_floor"] >= 1
+            and fam["decisions_hpa"] >= 2 and fam["decisions_replica_dead"] == 1
+            and fam["warm_start_cold"] == 1 and fam["warm_start_warm"] >= 2
+            and fam["warm_start_warm"] + fam["warm_start_warm_pd"] >= 3):
+        raise AssertionError(f"pool: families {fam}")
+    return row
+
+
+def _pool_gates(timeout_s: float = 180.0) -> dict:
+    """The port's SLO and P/D gates as two concurrent subprocesses (fake
+    replicas on the host; neither imports jax): exit codes and seconds. A gate
+    past ``timeout_s`` gets SIGABRT first, so its threads' stacks come back."""
+    import signal
+
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, "-X", "faulthandler", "-m",
+                                     f"llmd_tpu_torch.tools.{name}"],
+                                    cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)
+             for name in ("slo_check", "pd_check")}
+    out = {}
+    for name, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=max(1.0, t0 + timeout_s
+                                                          - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.send_signal(signal.SIGABRT)
+            try:
+                stdout, stderr = proc.communicate(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                stdout, stderr = proc.communicate()
+        out[name] = {"rc": proc.returncode, "seconds": time.perf_counter() - t0}
+        if proc.returncode != 0:
+            for other in procs.values():
+                if other.poll() is None:
+                    other.kill()
+                    other.communicate()
+            raise AssertionError(f"pool: {name} exited {proc.returncode}: {stdout[-2000:]}"
+                                 f"\n{stderr[-6000:]}")
+    return out
+
+
+def phase_pool(device, card: str, model: str = "llama-1b", extra=None, trace_kw=None,
+               n_probe: int = 8, probe_len: int = 128, probe_tokens: int = 32, n_pd: int = 4,
+               pd_len: int = 512, ready_s: float = POOL_READY_S, settle_s: float = 120.0,
+               running_target: float = 16.0) -> dict:
+    """The pool phase: the port's ``PoolController`` (HPA) over engine
+    replicas it launches as processes, behind the port's router; a burst
+    replayed open loop, the scale back, a killed replica healed, a P/D pool
+    set, the pool families, and the SLO and P/D gates."""
+    import asyncio
+
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="llmd-pool-"))
+    extra = list(POOL_EXTRA if extra is None else extra)
+    if device.type != "cuda":
+        extra.append("--cpu")
+    try:
+        out = asyncio.run(_pool_run(device, card, work, model, extra,
+                                    dict(POOL_TRACE, **(trace_kw or {})), n_probe, probe_len,
+                                    probe_tokens, n_pd, pd_len, ready_s, settle_s,
+                                    running_target))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["gates"] = gates = _pool_gates()
+    log(f"pool: gates slo_check rc {gates['slo_check']['rc']} "
+        f"({gates['slo_check']['seconds']:.1f} s), pd_check rc {gates['pd_check']['rc']} "
+        f"({gates['pd_check']['seconds']:.1f} s), on the host of {card}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"pool: phase {out['seconds']:.1f} s on {card}")
+    return out
+
+
 def main(argv: "list[str] | None" = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", default=None, help="write every phase's details here (JSON)")
@@ -7590,11 +8113,13 @@ def main(argv: "list[str] | None" = None) -> int:
     report["router"] = router = phase_router(device, card)
     _empty()  # the previous phase's engines
     report["latency"] = latency = phase_latency(device, card)
+    _empty()  # the previous phase's engines
+    report["pool"] = pool = phase_pool(device, card)
     report["seconds"] = time.perf_counter() - t_start
     log(f"smoke: all phases {report['seconds']:.1f} s (vision {vision['seconds']:.1f} s, "
         f"obs {obs['seconds']:.1f} s, launch {launch['seconds']:.1f} s, "
         f"mesh {mesh['seconds']:.1f} s, router {router['seconds']:.1f} s, "
-        f"latency {latency['seconds']:.1f} s)")
+        f"latency {latency['seconds']:.1f} s, pool {pool['seconds']:.1f} s)")
     if args.report:
         out = Path(args.report)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -215,30 +215,45 @@ class _Flow:
         return _resolve_plain(text, self.line)
 
 
+def _outside_quotes(text: str, openers: str):
+    """(index, char) of each character of ``text`` outside quoted scalars. A
+    quote opens at the start or after one of ``openers``; inside a
+    single-quoted scalar ``''`` is an escaped quote, inside a double-quoted
+    one a backslash escapes the next character."""
+    quote, i = None, 0
+    while i < len(text):
+        c = text[i]
+        if quote == "'":
+            if c == "'":
+                if text[i + 1:i + 2] == "'":
+                    i += 1  # '' inside '...': a literal quote
+                else:
+                    quote = None
+        elif quote == '"':
+            if c == "\\":
+                i += 1
+            elif c == '"':
+                quote = None
+        elif c in "'\"" and (i == 0 or text[i - 1] in openers):
+            quote = c
+        else:
+            yield i, c
+        i += 1
+
+
 def _strip_comment(text: str) -> str:
     """Drop a trailing comment: '#' at the start or after a blank, outside quotes."""
-    quote = None
-    for i, c in enumerate(text):
-        if quote:
-            if c == quote:
-                quote = None
-        elif c in "'\"" and (i == 0 or text[i - 1] in " \t[{,:-"):
-            quote = c
-        elif c == "#" and (i == 0 or text[i - 1] in " \t"):
+    for i, c in _outside_quotes(text, " \t[{,:-"):
+        if c == "#" and (i == 0 or text[i - 1] in " \t"):
             return text[:i].rstrip()
     return text.rstrip()
 
 
 def _depth(text: str) -> int:
     """Net bracket depth of a line (quotes skipped), to join multi-line flows."""
-    depth, quote = 0, None
-    for i, c in enumerate(text):
-        if quote:
-            if c == quote:
-                quote = None
-        elif c in "'\"" and (i == 0 or text[i - 1] in " \t[{,:"):
-            quote = c
-        elif c in "[{":
+    depth = 0
+    for _, c in _outside_quotes(text, " \t[{,:"):
+        if c in "[{":
             depth += 1
         elif c in "]}":
             depth -= 1

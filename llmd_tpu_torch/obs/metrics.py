@@ -967,6 +967,30 @@ class RouterMetrics:
             "(absent while no replica runs on a peak-table device)")
 
 
+class PoolMetricsFamilies:
+    """Families owned by the pool controller (``pool/controller.py``)."""
+
+    def __init__(self, reg: Registry):
+        self.registry = reg
+        self.desired_replicas = reg.gauge(
+            "llmd_tpu:pool_desired_replicas",
+            "Replica count the autoscaling policy currently wants")
+        self.ready_replicas = reg.gauge(
+            "llmd_tpu:pool_ready_replicas",
+            "Replicas launched, ready, and registered with router discovery")
+        self.scale_decisions = reg.counter(
+            "llmd_tpu:pool_scale_decisions_total",
+            "Reconcile decisions that changed the replica count, by reason",
+            labelnames=("reason",))
+        self.warm_start = reg.histogram(
+            "llmd_tpu:pool_warm_start_seconds",
+            "Replica launch-to-ready duration by kind (cold = full engine "
+            "build, warm = snapshot restore)",
+            labelnames=("kind",),
+            buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+                     60.0, 120.0))
+
+
 class DeviceMetrics:
     """Families owned by DeviceMonitor (``obs/device.py``): HBM telemetry,
     liveness, the step watchdog and profiler captures, with the reference's
@@ -1024,6 +1048,10 @@ def register_engine_server_metrics(reg: Registry) -> EngineServerMetrics:
 
 def register_router_metrics(reg: Registry) -> RouterMetrics:
     return RouterMetrics(reg)
+
+
+def register_pool_metrics(reg: Registry) -> PoolMetricsFamilies:
+    return PoolMetricsFamilies(reg)
 
 
 def register_device_metrics(reg: Registry) -> DeviceMetrics:

@@ -8,7 +8,10 @@ bytes; routes by method and a path pattern (``{name}`` matches one segment,
 ``{name:.*}`` the rest); a handler returns a ``Response`` or a
 ``StreamResponse`` it has prepared and written. A stream is sent with chunked
 transfer encoding, each ``write`` flushed as one chunk, and terminated when the
-handler returns, as aiohttp does.
+handler returns, as aiohttp does. ``stop`` closes the listener, cancels the
+connections' handlers and waits for their connections to close, at most
+``STOP_GRACE_S`` before it aborts the rest; a connection accepted as the
+server stops is aborted unserved.
 
 Client (``HTTPClient``): one pool of idle keep-alive connections per
 ``host:port`` (TLS for an ``https`` URL, with the default trust store). ``request`` returns once the status line and headers are in;
@@ -34,6 +37,7 @@ import math
 import re
 import ssl
 import time
+import weakref
 from typing import Any, AsyncIterator, Awaitable, Callable, Optional
 from urllib.parse import parse_qsl, unquote, urlsplit
 
@@ -43,6 +47,7 @@ __all__ = ["Headers", "Request", "Response", "StreamResponse", "json_response",
 log = logging.getLogger(__name__)
 
 MAX_LINE = 64 * 1024
+STOP_GRACE_S = 2.0
 _JSON_TYPE = re.compile(r"^application/(?:[\w.+-]+?\+)?json")
 REASONS = {200: "OK", 201: "Created", 204: "No Content", 400: "Bad Request",
            404: "Not Found", 405: "Method Not Allowed", 409: "Conflict",
@@ -237,6 +242,8 @@ class HTTPServer:
         self._routes: list[tuple[str, re.Pattern, Handler]] = []
         self._server: Optional[asyncio.base_events.Server] = None
         self._conns: set[asyncio.Task] = set()
+        self._transports: "weakref.WeakSet[asyncio.BaseTransport]" = weakref.WeakSet()
+        self._closing = False
         self.port = 0
 
     def add_route(self, method: str, pattern: str, handler: Handler) -> None:
@@ -257,6 +264,7 @@ class HTTPServer:
         return self.port
 
     async def stop(self) -> None:
+        self._closing = True
         if self._server is not None:
             self._server.close()
         for t in list(self._conns):
@@ -264,7 +272,15 @@ class HTTPServer:
         if self._conns:
             await asyncio.gather(*self._conns, return_exceptions=True)
         if self._server is not None:
-            await self._server.wait_closed()
+            # a handler that escaped the cancel, or a close still flushing to a
+            # peer that does not read, would hold wait_closed for ever
+            try:
+                await asyncio.wait_for(asyncio.shield(self._server.wait_closed()),
+                                       STOP_GRACE_S)
+            except asyncio.TimeoutError:
+                for tr in list(self._transports):
+                    tr.abort()
+                await self._server.wait_closed()
             self._server = None
 
     def _match(self, method: str, path: str):
@@ -279,6 +295,10 @@ class HTTPServer:
         return None, None, allowed
 
     async def _serve(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter) -> None:
+        if self._closing:  # accepted as the server stopped: its handler would
+            writer.transport.abort()  # outlive the cancel that ``stop`` sends
+            return
+        self._transports.add(writer.transport)
         task = asyncio.current_task()
         self._conns.add(task)
         try:

@@ -3,8 +3,8 @@ server, on the CPU (the reference's ``tests/test_device_obs.py`` cases):
 
 - a wedged step loop turns into ``engine_stalled`` (flight event, gauge,
   counter) and a structured 503 ``/health`` within ``LLMD_WATCHDOG_STALL_S``;
-  the reference's ``PoolController`` health sweep retires the port replica
-  with that reason; the loop resuming gives ``engine_recovered`` and 200;
+  the reference's ``PoolController`` health sweep and the port's
+  (``llmd_tpu_torch/pool``) each retire the port replica with that reason; the loop resuming gives ``engine_recovered`` and 200;
 - ``/debug/profile`` writes a non-empty ``torch.profiler`` trace taken while
   decode runs, whose ranges include the engine's ``llmd.*`` phases (entered
   on the engine thread while the window is open), 400 for a non-numeric
@@ -27,12 +27,16 @@ from llmd_tpu.core.endpoint import Endpoint, EndpointPool
 from llmd_tpu.obs.events import FlightRecorder as JaxFlightRecorder
 from llmd_tpu.pool.controller import PoolConfig, PoolController
 from llmd_tpu.pool.launcher import ReplicaHandle, ReplicaLauncher
+from llmd_tpu_torch.core import endpoint as port_endpoint
 from llmd_tpu_torch.engine import EngineConfig
 from llmd_tpu_torch.engine.server import EngineServer
 from llmd_tpu_torch.models import get_model_config
 from llmd_tpu_torch.obs.device import DeviceMonitor, ProfileBusy, capture_open
 from llmd_tpu_torch.obs.events import FlightRecorder
 from llmd_tpu_torch.obs.metrics import Registry
+from llmd_tpu_torch.pool import controller as port_controller
+from llmd_tpu_torch.pool import launcher as port_launcher
+from llmd_tpu_torch.router.http import HTTPClient
 from tests.conftest import run_async
 
 KW = dict(page_size=8, num_pages=64, max_model_len=256, max_batch_size=4, prefill_chunk=32,
@@ -49,6 +53,16 @@ def one_thread():
 
 class _NullLauncher(ReplicaLauncher):
     """Health-sweep-only stub: the test registers its replica itself."""
+
+    async def launch(self):  # pragma: no cover - the sweep never launches
+        raise NotImplementedError
+
+    async def kill(self, handle):
+        pass
+
+
+class _PortNullLauncher(port_launcher.ReplicaLauncher):
+    """The same stub for the port's controller."""
 
     async def launch(self):  # pragma: no cover - the sweep never launches
         raise NotImplementedError
@@ -123,6 +137,26 @@ def test_stall_watchdog_503_pool_retirement_and_recovery(monkeypatch, tmp_path):
             assert server.address not in ctl.replicas and pool.list() == []
             (retire,) = [e for e in flight.system_events() if e["event"] == "pool_scale_down"]
             assert retire["reason"] == "replica_dead" and retire["detail"] == "engine_stalled"
+
+            # and so does the port's controller, with the same event
+            port_flight = FlightRecorder()
+            port_pool = port_endpoint.EndpointPool()
+            port_pool.upsert(port_endpoint.Endpoint(address=server.address))
+            port_ctl = port_controller.PoolController(
+                port_controller.PoolConfig(min_replicas=0), _PortNullLauncher(),
+                pool=port_pool, flight=port_flight)
+            port_ctl.replicas[server.address] = port_launcher.ReplicaHandle(
+                address=server.address)
+            port_ctl._session = HTTPClient()
+            try:
+                await port_ctl._health_sweep()
+            finally:
+                await port_ctl._session.close()
+            assert server.address not in port_ctl.replicas and port_pool.list() == []
+            (port_retire,) = [e for e in port_flight.system_events()
+                              if e["event"] == "pool_scale_down"]
+            assert {k: v for k, v in port_retire.items() if k != "t_unix"} == \
+                {k: v for k, v in retire.items() if k != "t_unix"}
 
             # the loop resumes: the watchdog clears, health recovers
             engine.step, engine.has_work = orig_step, orig_has_work

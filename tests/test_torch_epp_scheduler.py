@@ -38,7 +38,7 @@ from pathlib import Path
 
 import pytest
 import yaml
-from hypothesis import HealthCheck, given, settings
+from hypothesis import HealthCheck, example, given, settings
 from hypothesis import strategies as st
 
 import llmd_tpu.core.request as ref_request_mod
@@ -258,6 +258,7 @@ _doc = st.recursive(_scalar, lambda inner: st.one_of(
 @settings(max_examples=150, deadline=None)
 @given(doc=st.dictionaries(_key, _doc, max_size=5), flow=st.sampled_from([False, None, True]),
        indent=st.sampled_from([2, 4]))
+@example(doc={"AA": ["' "], "A": None}, flow=None, indent=2)  # '' inside a flow '...'
 def test_yaml_subset_reads_what_pyyaml_writes(doc, flow, indent):
     text = yaml.safe_dump(doc, default_flow_style=flow, width=10**6, indent=indent,
                           sort_keys=False)

@@ -4,7 +4,9 @@ modules and chip_smoke.py import without ``safetensors``, ``transformers``,
 port reads safetensors itself, imports the HF tokenizer only when a caller asks
 for one, serves and proxies HTTP on the standard library, writes the KV-event
 wire by hand, reads its router configs with its own YAML reader and fits its
-latency predictor with its own histogram GBDT."""
+latency predictor with its own histogram GBDT. Under the same blocker the
+pool runs: a controller over fake replicas behind the port's router and
+sidecar, and a trace replayed through it."""
 
 import re
 import subprocess
@@ -20,7 +22,12 @@ REPO = Path(__file__).resolve().parent.parent
 # aiohttp, msgpack, ml_dtypes, yaml, grpc and sklearn EXACTLY (a prefix match would
 # also block llmd_tpu_torch), then imports every module of the port and
 # chip_smoke.py, and fits and queries the latency model (the reference imports
-# scikit-learn inside ``fit``, which an import-time check alone would miss).
+# scikit-learn inside ``fit``, which an import-time check alone would miss). Then
+# it runs the pool path (the reference imports aiohttp, the predictor, the
+# endpoint roles, the fake server and the sidecar inside functions): one
+# ``PoolController`` over a ``FakeReplicaLauncher`` with sidecars behind a
+# ``RouterServer`` through floor, scale-up, drain-retire and a health sweep, and
+# ``replay_trace`` of a 20-request trace through the router.
 _BLOCKED_IMPORT = r"""
 import importlib, importlib.abc, pkgutil, sys
 
@@ -56,6 +63,60 @@ samples = [LatencySample(kv_usage=i % 10 / 10, input_len=float(i), queue_depth=i
 model = LatencyModel()
 assert model.fit(samples) and model.is_fit()
 assert all(t > 0 and p > 0 for t, p in model.predict(samples[:4]))
+
+import asyncio
+from llmd_tpu_torch.core.config import FrameworkConfig
+from llmd_tpu_torch.core.endpoint import EndpointPool
+from llmd_tpu_torch.pool import FakeReplicaLauncher, PoolConfig, PoolController
+from llmd_tpu_torch.pool.harness import replay_trace
+from llmd_tpu_torch.pool.traces import bursty_trace
+from llmd_tpu_torch.router.plugins import known_plugin_types
+from llmd_tpu_torch.router.server import RouterServer
+from llmd_tpu_torch.testing.fake_server import FakeServerConfig
+
+POOL_ROUTER_CFG = '''
+plugins:
+  - {name: inflight, type: inflight-load-producer}
+  - {name: queue, type: queue-depth-scorer}
+schedulingProfiles:
+  - name: default
+    plugins:
+      - {pluginRef: queue, weight: 1}
+'''
+
+
+async def pool_path():
+    pool = EndpointPool()
+    router = RouterServer(FrameworkConfig.from_yaml(POOL_ROUTER_CFG,
+                                                    known_types=known_plugin_types()),
+                          pool, port=0, poll_interval_s=0.05)
+    await router.start()
+    launcher = FakeReplicaLauncher(server_config=FakeServerConfig(
+        prefill_us_per_token=0.0, decode_us_per_token=0.0), with_sidecar=True)
+    ctl = PoolController(PoolConfig(min_replicas=1, max_replicas=3, interval_s=3600,
+                                    sfz_interval_s=3600, policy="hpa"), launcher,
+                         router=router)
+    await ctl.start()
+    try:
+        assert len(ctl.replicas) == 1 and len(pool.list()) == 1
+        await ctl.scale_to(3, reason="up")
+        await ctl.scale_to(2, reason="down")  # drain + retire
+        assert len(ctl.replicas) == 2 and len(pool.list()) == 2
+        await launcher.kill(next(iter(ctl.replicas.values())))
+        await ctl._health_sweep()
+        assert len(ctl.replicas) == 1 and len(pool.list()) == 1
+        trace = bursty_trace(duration_s=4, base_rps=10, burst_rps=10, seed=1)[:20]
+        report = await replay_trace(router.address, trace, time_scale=0.1)
+        assert report.total == len(trace) == 20 and report.statuses == {"200": 20}, \
+            report.summary()
+    finally:
+        await ctl.stop()
+        await router.stop()
+    return ctl.status()
+
+
+status = asyncio.run(pool_path())
+assert len(status["launches"]) == 3 and status["ready_replicas"] == 0, status
 
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
@@ -125,6 +186,15 @@ assert {"llmd_tpu_torch.predictor", "llmd_tpu_torch.predictor.gbdt",
         "llmd_tpu_torch.router.latency_plugins", "llmd_tpu_torch.router.calibrator",
         "llmd_tpu_torch.disagg.sidecar", "llmd_tpu_torch.testing.resp_server",
         "llmd_tpu_torch.kvplane.plane", "llmd_tpu_torch.router.ha"} <= set(names)
+# and the pool's: autoscaling, the controller, launchers, snapshots, traces, the
+# harness, the P/D pool set, the fake server and the two gates
+assert {"llmd_tpu_torch.autoscaling", "llmd_tpu_torch.autoscaling.hpa",
+        "llmd_tpu_torch.autoscaling.wva", "llmd_tpu_torch.pool",
+        "llmd_tpu_torch.pool.controller", "llmd_tpu_torch.pool.launcher",
+        "llmd_tpu_torch.pool.snapshot", "llmd_tpu_torch.pool.traces",
+        "llmd_tpu_torch.pool.harness", "llmd_tpu_torch.pool.disagg",
+        "llmd_tpu_torch.testing.fake_server", "llmd_tpu_torch.tools.slo_check",
+        "llmd_tpu_torch.tools.pd_check"} <= set(names)
 assert "zmq" not in sys.modules
 print(len(names))
 """
@@ -252,13 +322,18 @@ ROUTER_MODULES = ["core/config.py", "core/endpoint.py", "core/request.py",
                   "predictor/__init__.py", "predictor/gbdt.py", "predictor/model.py",
                   "predictor/client.py", "predictor/server.py", "obs/slo.py",
                   "router/latency_plugins.py", "router/calibrator.py", "disagg/sidecar.py",
-                  "testing/resp_server.py", "kvplane/plane.py", "router/ha.py"]
+                  "testing/resp_server.py", "kvplane/plane.py", "router/ha.py",
+                  "autoscaling/__init__.py", "autoscaling/hpa.py", "autoscaling/wva.py",
+                  "pool/__init__.py", "pool/snapshot.py", "pool/traces.py", "pool/launcher.py",
+                  "pool/controller.py", "pool/harness.py", "pool/disagg.py",
+                  "testing/fake_server.py", "tools/slo_check.py", "tools/pd_check.py"]
 
 
 @pytest.mark.parametrize("module", ROUTER_MODULES)
 def test_router_modules_stand_alone(module):
-    """The router, the latency plane, the sidecar, the KV plane's router side
-    and HA keep their own copies of the reference's modules: no jax, no
+    """The router, the latency plane, the sidecar, the KV plane's router side,
+    HA, the autoscaling plane, the pool, the fake server and the pool's gates
+    keep their own copies of the reference's modules: no jax, no
     reference package, and none of aiohttp, msgpack, yaml, grpc, sklearn or
     torch in their sources (they are host code; the blocked import is the
     subprocess above)."""

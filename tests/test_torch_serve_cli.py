@@ -336,6 +336,76 @@ def test_pool_launcher_argv_starts_a_port_replica(tmp_path):
         proc.wait(timeout=30)
 
 
+def test_port_pool_launcher_argv_parses(tmp_path):
+    """The port's ``engine_argv`` (``llmd_tpu_torch/pool/launcher``), cold
+    then warm: the port's module, the registry name passed through (no
+    checkpoint), the fingerprint's ``--compile-cache-dir``, the extra flags;
+    it parses into the serve CLI's arguments."""
+    from llmd_tpu_torch.pool.launcher import engine_argv
+    from llmd_tpu_torch.pool.snapshot import PoolSnapshotStore, config_fingerprint
+
+    store = PoolSnapshotStore(str(tmp_path / "snap"))
+    fp = config_fingerprint({"model": "tiny"})
+    for want_warm in (False, True):
+        argv, warm = engine_argv("tiny", 8123, snapshots=store, extra=["--role", "decode"])
+        assert warm == want_warm and argv[1:3] == ["-m", "llmd_tpu_torch.engine.serve"]
+        args = serve.parse_args(argv[3:])
+        assert args.model == "tiny" and args.port == 8123 and args.role == "decode"
+        assert args.compile_cache_dir == store.path(fp, "compile_cache")
+        assert store.load(fp)["kind"] == "engine"
+    assert not (tmp_path / "snap" / fp / "checkpoint").exists()
+
+
+def test_port_pool_controller_launches_and_drains_a_port_replica(tmp_path):
+    """The port's ``PoolController`` over its ``ProcessReplicaLauncher`` and
+    ``engine_argv`` (one ``--cpu`` replica with a KV-transfer side channel):
+    the floor's cold launch answers ``/health`` behind discovery, builds its
+    native library into the fingerprint's ``compile_cache``, and scaling to
+    zero drains it (``/drain``), drops it from discovery and stops its
+    process."""
+    import asyncio
+
+    from llmd_tpu_torch.core.endpoint import EndpointPool
+    from llmd_tpu_torch.pool.controller import PoolConfig, PoolController
+    from llmd_tpu_torch.pool.launcher import ProcessReplicaLauncher, engine_argv
+    from llmd_tpu_torch.pool.snapshot import PoolSnapshotStore, config_fingerprint
+    from tests.conftest import run_async
+
+    store = PoolSnapshotStore(str(tmp_path / "snap"))
+    extra = ["--cpu", "--host", "127.0.0.1", "--num-pages", "32", "--kv-transfer-port", "0"]
+    launcher = ProcessReplicaLauncher(
+        lambda port: engine_argv("tiny", port, snapshots=store, extra=extra),
+        ready_timeout_s=120.0, env={"OMP_NUM_THREADS": "1"}, log_dir=str(tmp_path / "logs"))
+    pool = EndpointPool()
+    ctl = PoolController(PoolConfig(model="tiny", min_replicas=1, max_replicas=1,
+                                    interval_s=3600, sfz_interval_s=3600, policy="hpa"),
+                         launcher, pool=pool, flow_depth_fn=lambda: 0.0)
+
+    async def scenario():
+        await ctl.start()
+        try:
+            (handle,) = ctl.replicas.values()
+            proc = handle.proc
+            st = ctl.status()
+            assert st["ready_replicas"] == 1 and [r["kind"] for r in st["launches"]] == ["cold"]
+            assert [e.address for e in pool.list()] == [handle.address]
+            with urllib.request.urlopen(f"http://{handle.address}/health", timeout=30) as r:
+                assert r.status == 200
+            await ctl.scale_to(0, reason="manual")
+            assert ctl.replicas == {} and pool.list() == []
+            await asyncio.to_thread(proc.wait, 30)
+            assert proc.returncode is not None
+        finally:
+            await ctl.stop()
+
+    run_async(scenario())
+    cache = Path(store.path(config_fingerprint({"model": "tiny"}), "compile_cache"))
+    built = sorted(p.name for p in cache.glob("*.so"))
+    assert len(built) == 1 and built[0].startswith("kv_transfer-"), built
+    log = (tmp_path / "logs" / "replica-1.log").read_text()
+    assert "serving llmd-tpu/tiny" in log, log[-2000:]
+
+
 def test_dropped_engine_and_stopped_server_free_their_tensors():
     """No cycle collection: an engine dropped after serving, and a server's
     engine after ``stop()`` (the server itself sits in its handler class's
