@@ -366,7 +366,28 @@ thread's stack on stderr):
             the same legs driven by hand; one predictor fit over a full
             10,240-row window.
             The phase prints its seconds.
-23. pool    the pool and autoscaling (``phase_pool``): the port's
+23. gateway the gateway fronts (``phase_gateway``): two llama-1b port engines
+            (page 16, 1,024 pages each) as two pods on loopback (127.0.0.1 and
+            127.0.0.2, one port), found by the port's ``K8sWatchSource``
+            through a fake pods API written here on the port's ``HTTPServer``,
+            the pool's selector and port taken from an InferencePool manifest
+            (``core/crds.py``); the port's ``RouterServer`` behind the port's
+            ``ExtProcEPP`` and ``VllmGrpcFront`` on the port's own gRPC wire
+            (no grpc here). float32: an Envoy stand-in on the port's gRPC
+            client sends 8 requests' headers and body phases (256-token
+            prompts, 16 tokens out), reads ``x-gateway-destination-endpoint``,
+            forwards to that engine and feeds the response phases back: every
+            reply 200, the tokens equal a direct request to the named engine,
+            ``/metrics`` counts 8 picks; pod-b DELETED leaves pod-a alone (two
+            picks both there), re-ADDED brings it back; vLLM gRPC ``Generate``
+            unary and streamed gives the direct tokens; health ``Check``
+            answers SERVING; K1 launched behind the fronts. bf16: the ext_proc
+            pick round trip (the body phase, and headers to pick) p50 / p99
+            over 256 streams beside the HTTP front's hop (p50 of 32 one-token
+            requests, routed minus direct), vLLM gRPC streamed TTFT p50 beside
+            direct (16 fresh 512-token prompts each), printed with the card.
+            The phase prints its seconds.
+24. pool    the pool and autoscaling (``phase_pool``): the port's
             ``RouterServer`` (flow control on) over an empty pool, the port's
             ``PoolController`` in front of it (HPA, 1 to 2 replicas, a 1 s
             step) launching llama-1b replicas as processes
@@ -7498,6 +7519,457 @@ def phase_latency(device, card: str, model: str = "llama-1b", f32_kw=None,
     return out
 
 
+# --------------------------------------------------------------------------
+# The gateway fronts: the pod watch, the ext_proc EPP, the vLLM gRPC front
+# --------------------------------------------------------------------------
+
+GATEWAY_CFG = """
+plugins:
+  - {name: inflight, type: inflight-load-producer}
+  - {name: queue, type: queue-depth-scorer}
+  - {name: kv-util, type: kv-cache-utilization-scorer}
+schedulingProfiles:
+  - {name: default, plugins: [{pluginRef: queue, weight: 2}, {pluginRef: kv-util, weight: 1}]}
+"""
+# the pool as a cluster declares it: the watch takes its selector and port
+GATEWAY_MANIFEST = """
+apiVersion: inference.networking.k8s.io/v1
+kind: InferencePool
+metadata: {{name: llama-1b-pool, namespace: serving}}
+spec:
+  selector: {{matchLabels: {{app: llmd-gateway-smoke}}}}
+  targetPorts: [{{number: {port}}}]
+  endpointPickerRef: {{name: epp, port: 9002, failureMode: FailClose}}
+"""
+# two pods on loopback: both engines listen on one port, each on its own IP
+GATEWAY_PODS = {"pod-a": "127.0.0.1", "pod-b": "127.0.0.2"}
+
+
+def _gateway_pod(name: str, ip: str) -> dict:
+    return {"metadata": {"name": name, "uid": f"uid-{name}",
+                         "labels": {"app": "llmd-gateway-smoke", "llm-d.ai/role": "both"}},
+            "status": {"phase": "Running", "podIP": ip,
+                       "conditions": [{"type": "Ready", "status": "True"}]}}
+
+
+def _shared_free_port(hosts) -> int:
+    """A port free on every one of ``hosts``."""
+    import socket
+
+    for _ in range(50):
+        socks = []
+        try:
+            first = socket.socket()
+            first.bind((hosts[0], 0))
+            socks.append(first)
+            port = first.getsockname()[1]
+            for h in hosts[1:]:
+                s = socket.socket()
+                socks.append(s)
+                s.bind((h, port))
+            return port
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise AssertionError(f"gateway: no port free on all of {hosts}")
+
+
+class _FakePodsAPI:
+    """The pods list + watch of a Kubernetes API server, on the port's
+    ``HTTPServer`` (standard library): a list answers the pods held, a watch
+    streams the events ``event`` sends, one JSON line each."""
+
+    def __init__(self) -> None:
+        self.pods: dict = {}
+        self.watchers: list = []
+        self.lists = 0
+
+    async def start(self) -> None:
+        from llmd_tpu_torch.router.http import HTTPServer
+
+        self.server = HTTPServer()
+        self.server.add_route("GET", "/api/v1/namespaces/{ns}/pods", self._pods)
+        self.port = await self.server.start("127.0.0.1", 0)
+
+    async def _pods(self, request):
+        import asyncio
+
+        from llmd_tpu_torch.router.http import StreamResponse, json_response
+
+        if request.query.get("labelSelector") != "app=llmd-gateway-smoke":
+            return json_response({"items": []}, status=400)
+        if request.query.get("watch"):
+            resp = StreamResponse(headers={"content-type": "application/json"})
+            await resp.prepare(request)
+            q: asyncio.Queue = asyncio.Queue()
+            self.watchers.append(q)
+            try:
+                while (ev := await q.get()) is not None:
+                    await resp.write(json.dumps(ev).encode() + b"\n")
+            finally:
+                self.watchers.remove(q)
+            return resp
+        self.lists += 1
+        return json_response({"items": list(self.pods.values()),
+                              "metadata": {"resourceVersion": str(self.lists)}})
+
+    def event(self, etype: str, pod: dict) -> None:
+        if etype == "DELETED":
+            self.pods.pop(pod["metadata"]["uid"], None)
+        else:
+            self.pods[pod["metadata"]["uid"]] = pod
+        for q in self.watchers:
+            q.put_nowait({"type": etype, "object": pod})
+
+    async def stop(self) -> None:
+        for q in list(self.watchers):
+            q.put_nowait(None)
+        await self.server.stop()
+
+
+class _GatewayStack(_LoopThread):
+    """Two port engines (pods), the fake API server, and the port's router
+    with its pod watch (the pool from ``GATEWAY_MANIFEST``), ext_proc EPP and
+    vLLM gRPC front, on an event loop of their own thread; the Envoy
+    stand-in and the gRPC clients run on a second loop (``client``)."""
+
+    def __init__(self, device, cfg, seed: int) -> None:
+        from llmd_tpu_torch.core.config import FrameworkConfig
+        from llmd_tpu_torch.core.crds import load_manifest_yaml
+        from llmd_tpu_torch.core.endpoint import EndpointPool
+        from llmd_tpu_torch.engine.config import EngineConfig
+        from llmd_tpu_torch.engine.server import EngineServer
+        from llmd_tpu_torch.router.plugins import known_plugin_types
+        from llmd_tpu_torch.router.server import RouterServer
+
+        port = _shared_free_port(list(GATEWAY_PODS.values()))
+        self.engines = {}
+        self.client = None
+        super().__init__()
+        try:
+            for name, ip in GATEWAY_PODS.items():
+                s = EngineServer(cfg, EngineConfig(**ROUTER_KW), model_name="llama-1b",
+                                 host=ip, port=port, tokenizer=IdTokenizer(cfg.vocab_size),
+                                 seed=seed, device=device)
+                s.start()
+                self.engines[name] = s
+            self.addresses = {name: f"{ip}:{port}" for name, ip in GATEWAY_PODS.items()}
+            manifests = load_manifest_yaml(GATEWAY_MANIFEST.format(port=port))
+            self.pool_spec = manifests.pools[0]
+            self.router = RouterServer(
+                FrameworkConfig.from_yaml(GATEWAY_CFG, known_types=known_plugin_types()),
+                EndpointPool(), host="127.0.0.1", port=0, poll_interval_s=0.05, seed=0,
+                objectives=manifests.objectives_map(), model_rewrites=manifests.rewrites_map())
+            self._call(self._start())
+            self.client = _LoopThread()
+            self.wait_pool(set(self.addresses.values()))
+        except BaseException:
+            self.stop()
+            raise
+
+    async def _start(self) -> None:
+        from llmd_tpu_torch.router.discovery import K8sWatchSource
+        from llmd_tpu_torch.router.extproc import ExtProcEPP
+        from llmd_tpu_torch.router.vllmgrpc import VllmGrpcFront
+
+        self.api = _FakePodsAPI()
+        await self.api.start()
+        for name, ip in GATEWAY_PODS.items():
+            self.api.pods[f"uid-{name}"] = _gateway_pod(name, ip)
+        await self.router.start()
+        p = self.pool_spec
+        self.watch = K8sWatchSource(self.router.pool, p.selector, p.target_ports,
+                                    namespace=p.namespace,
+                                    api_base=f"http://127.0.0.1:{self.api.port}",
+                                    token="gateway-smoke", rebackoff_s=0.05)
+        await self.watch.start()
+        self.epp = ExtProcEPP(self.router, host="127.0.0.1", failure_mode=p.failure_mode)
+        await self.epp.start()
+        self.front = VllmGrpcFront(self.router, host="127.0.0.1")
+        await self.front.start()
+
+    def wait_pool(self, want: set, timeout_s: float = 30.0) -> None:
+        """Until the router's pool holds exactly ``want``, each polled."""
+        pool = self.router.pool
+        _wait_until(lambda: {e.address for e in pool.list()} == want and all(
+            e.attrs.get("kv_cache_utilization") is not None for e in pool.list()),
+            f"the pool {sorted(want)}", timeout_s)
+
+    def pod_event(self, etype: str, name: str) -> None:
+        pod = _gateway_pod(name, GATEWAY_PODS[name])
+        self.loop.call_soon_threadsafe(self.api.event, etype, pod)
+
+    def metric(self, name: str) -> "float | None":
+        _, _, text = _http("GET", f"http://{self.router.address}/metrics")
+        return _metric(text.decode(), name)
+
+    def stop(self) -> None:
+        async def down():
+            for part in ("front", "epp", "watch", "router", "api"):
+                if hasattr(self, part):
+                    await getattr(self, part).stop()
+
+        try:
+            if self.client is not None:
+                self.client.close()
+            self._call(down())
+        finally:
+            self.close()
+            for s in self.engines.values():
+                s.stop()
+
+
+async def _envoy_stream(ch, rid: str, body: dict, forward: bool) -> dict:
+    """One request as an Envoy's ext_proc filter runs it: the request's
+    headers and body phases, the pick read off the header mutation, then (when
+    ``forward``) the request sent to the picked engine and its response's
+    headers and body fed back; the stream closed. Times in seconds: the
+    headers-to-pick stream time and the body phase's round trip (the pick)."""
+    import asyncio
+
+    from llmd_tpu_torch.router import ext_proc_pb as pb
+    from llmd_tpu_torch.router.extproc import ENVOY_SERVICE, HDR_DESTINATION
+
+    call = ch.stream_stream(f"/{ENVOY_SERVICE}/Process",
+                            request_serializer=pb.ProcessingRequest.SerializeToString,
+                            response_deserializer=pb.ProcessingResponse.FromString)(timeout=600)
+    raw = json.dumps(body).encode()
+    t0 = time.perf_counter()
+    await call.write(pb.ProcessingRequest(request_headers=pb.HttpHeaders(headers=pb.HeaderMap(
+        headers=[pb.HeaderValue(key=k, raw_value=v.encode()) for k, v in (
+            (":path", "/v1/completions"), (":method", "POST"), ("x-request-id", rid),
+            ("content-type", "application/json"))]))))
+    if (await call.read()).WhichOneof("response") != "request_headers":
+        raise AssertionError("gateway: the EPP did not continue the headers phase")
+    t1 = time.perf_counter()
+    await call.write(pb.ProcessingRequest(request_body=pb.HttpBody(body=raw, end_of_stream=True)))
+    picked = await call.read()
+    t2 = time.perf_counter()
+    if picked.WhichOneof("response") != "request_body":
+        raise AssertionError(f"gateway: the EPP answered the body phase with {picked}")
+    common = picked.request_body.response
+    hdrs = {o.header.key: o.header.raw_value.decode() for o in common.header_mutation.set_headers}
+    out = {"dest": hdrs[HDR_DESTINATION], "stream_s": t2 - t0, "pick_s": t2 - t1}
+    if forward:
+        sent = json.loads(common.body_mutation.body) if common.HasField("body_mutation") else body
+        status, headers, reply = await asyncio.get_running_loop().run_in_executor(
+            None, _http, "POST", f"http://{out['dest']}/v1/completions", sent,
+            {"x-request-id": rid})
+        await call.write(pb.ProcessingRequest(response_headers=pb.HttpHeaders(
+            headers=pb.HeaderMap(headers=[
+                pb.HeaderValue(key=":status", raw_value=str(status).encode()),
+                pb.HeaderValue(key="content-type", raw_value=headers.get(
+                    "Content-Type", "application/json").encode())]))))
+        await call.read()
+        await call.write(pb.ProcessingRequest(response_body=pb.HttpBody(
+            body=reply, end_of_stream=True)))
+        await call.read()
+        out.update(status=status, reply=json.loads(reply))
+    await call.done_writing()
+    if await call.read() is not None or call.code() != 0:
+        raise AssertionError(f"gateway: the ext_proc stream ended {call.code()} "
+                             f"{call.details()}")
+    return out
+
+
+async def _vllm_generate(ch, prompt: str, max_tokens: int, stream: bool, rid: str) -> dict:
+    """Generate through the vLLM gRPC front: the joined text, the endpoint,
+    the seconds to the first message and the messages."""
+    from llmd_tpu_torch.router import vllm_grpc_pb as vpb
+    from llmd_tpu_torch.router.vllmgrpc import SERVICE
+
+    call = ch.unary_stream(f"/{SERVICE}/Generate",
+                           request_serializer=vpb.GenerateRequest.SerializeToString,
+                           response_deserializer=vpb.GenerateResponse.FromString)
+    t0 = time.perf_counter()
+    msgs, first = [], None
+    async for m in call(vpb.GenerateRequest(
+            request_id=rid, model="llama-1b", prompt=prompt, stream=stream,
+            sampling_params=vpb.SamplingParams(max_tokens=max_tokens, ignore_eos=True)),
+            timeout=600):
+        if first is None:
+            first = time.perf_counter() - t0
+        msgs.append(m)
+    return {"text": "".join(m.outputs[0].text for m in msgs), "endpoint": msgs[-1].endpoint,
+            "ttft_s": first, "messages": len(msgs),
+            "completion_tokens": msgs[-1].usage.completion_tokens}
+
+
+def gateway_f32_check(device, card: str, model: str = "llama-1b", seed: int = 0,
+                      n_requests: int = 8, prompt_len: int = 256, max_tokens: int = 16,
+                      n_vllm: int = 2) -> dict:
+    """float32 engines found through the pod watch; an Envoy stand-in on the
+    port's gRPC client: every routed request's tokens equal a direct request
+    to the engine the EPP named, ``/metrics`` counts every pick; a pod
+    DELETED leaves the other alone in the pool (the picks follow) and
+    re-ADDED brings it back; vLLM gRPC Generate, unary and streamed, gives the
+    direct tokens; the health Check answers SERVING; K1 launched behind the
+    fronts."""
+    from llmd_tpu_torch.router.extproc import HEALTH_SERVICE
+    from llmd_tpu_torch.router.grpc_wire import Channel
+    from llmd_tpu_torch.models import get_model_config
+
+    cfg = dataclasses.replace(get_model_config(model), dtype="float32")
+    rng = np.random.default_rng(seed)
+    prompts = [_router_text(rng, prompt_len) for _ in range(n_requests)]
+    stack = _GatewayStack(device, cfg, seed)
+    try:
+        epp_ch, vllm_ch = Channel(stack.epp.address), Channel(stack.front.address)
+        run = stack.client._call
+        lists_before = stack.api.lists
+        zero_counts()
+        routed = [run(_envoy_stream(epp_ch, f"gw-{i}", {
+            "model": "llama-1b", "prompt": p, "max_tokens": max_tokens, "temperature": 0,
+            "ignore_eos": True}, forward=True), timeout=600) for i, p in enumerate(prompts)]
+        generated = [run(_vllm_generate(vllm_ch, p, max_tokens, stream, f"gv-{i}-{stream}"),
+                         timeout=600)
+                     for i, p in enumerate(prompts[:n_vllm]) for stream in (False, True)]
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        by_instance = instance_counts()
+        launches, _ = read_counts()
+        picks = stack.metric("llm_d_epp_extproc_picks_total")
+        direct = [_complete(f"http://{r['dest']}", p, max_tokens)
+                  for r, p in zip(routed, prompts)]
+        direct_vllm = [_complete(f"http://{g['endpoint']}", p, max_tokens)
+                       for g, p in zip(generated[::2], prompts[:n_vllm])]
+        # the pool moves with the pods
+        stack.pod_event("DELETED", "pod-b")
+        stack.wait_pool({stack.addresses["pod-a"]})
+        alone = [run(_envoy_stream(epp_ch, f"gw-alone-{i}", {"model": "llama-1b",
+                                                               "prompt": "a", "max_tokens": 1},
+                                   forward=False))["dest"] for i in range(2)]
+        stack.pod_event("ADDED", "pod-b")
+        stack.wait_pool(set(stack.addresses.values()))
+        health = run(epp_ch.unary_unary(f"/{HEALTH_SERVICE}/Check")(b"", timeout=30))
+        relists = stack.watch.relists
+        run(epp_ch.close())
+        run(vllm_ch.close())
+    finally:
+        stack.stop()
+    statuses = [r["status"] for r in routed]
+    texts = [r["reply"]["choices"][0]["text"] for r in routed]
+    same = [t == b["choices"][0]["text"] for t, (_, _, b) in zip(texts, direct)]
+    vllm_same = [g["text"] == b["choices"][0]["text"]
+                 for g, (_, _, b) in zip(generated, [d for d in direct_vllm for _ in (0, 1)])]
+    dests = [r["dest"] for r in routed]
+    row = {"card": card, "model": model, "dtype": "float32", "requests": n_requests,
+           "prompt_tokens": prompt_len, "max_tokens": max_tokens, "statuses": statuses,
+           "picks": dests, "engines_used": len(set(dests)), "tokens_identical": all(same),
+           "vllmgrpc_tokens_identical": all(vllm_same),
+           "vllmgrpc_messages": [g["messages"] for g in generated],
+           "metrics_picks": picks, "picks_after_delete": alone, "health": health.hex(),
+           "watch_lists": relists, "lists_before": lists_before, "launches": launches,
+           "launches_by_instance": by_instance}
+    log(f"gateway: f32 {model} on {card}: {n_requests} requests through the ext_proc EPP "
+        f"(pods found by the watch, {prompt_len}+{max_tokens} tokens): statuses "
+        f"{sorted(set(statuses))}, engines used {row['engines_used']}, "
+        f"tokens_identical={all(same)}, /metrics picks {picks}; pod-b DELETED: picks "
+        f"{alone}; re-ADDED; vllmgrpc Generate unary+streamed x{n_vllm} "
+        f"tokens_identical={all(vllm_same)}; health {health.hex()}; K1 by instance="
+        f"{by_instance['paged_attention']}")
+    if set(statuses) != {200}:
+        raise AssertionError(f"gateway: statuses {statuses}")
+    if not all(same) or not all(vllm_same):
+        raise AssertionError(f"gateway: tokens differ from direct (ext_proc {same}, "
+                             f"vllmgrpc {vllm_same})")
+    if picks != n_requests:
+        raise AssertionError(f"gateway: /metrics counts {picks} picks, expected {n_requests}")
+    if set(alone) != {stack.addresses["pod-a"]}:
+        raise AssertionError(f"gateway: with pod-b deleted the EPP picked {alone}")
+    if health != b"\x08\x01":
+        raise AssertionError(f"gateway: health Check answered {health!r}")
+    if device.type == "cuda" and not launches["paged_attention"] > 0:
+        raise AssertionError(f"gateway: K1 did not launch behind the fronts ({by_instance})")
+    return row
+
+
+def gateway_bf16_times(device, card: str, model: str = "llama-1b", seed: int = 1,
+                       picks_n: int = 256, hop_n: int = 32, ttft_n: int = 16,
+                       isl: int = 512) -> dict:
+    """bf16 engines behind the fronts, times printed (not bounded): the
+    ext_proc pick round trip (the body phase's round trip, and the stream from
+    its headers to the pick) over ``picks_n`` streams, p50 / p99, beside the
+    HTTP front's hop (p50 of ``hop_n`` one-token requests, routed minus direct);
+    vLLM gRPC streamed TTFT p50 of fresh ``isl``-token prompts beside a direct
+    streamed request's."""
+    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.router.grpc_wire import Channel
+
+    cfg = dataclasses.replace(get_model_config(model), dtype="bfloat16")
+    rng = np.random.default_rng(seed)
+    stack = _GatewayStack(device, cfg, seed)
+    try:
+        epp_ch, vllm_ch = Channel(stack.epp.address), Channel(stack.front.address)
+        run = stack.client._call
+        body = {"model": "llama-1b", "prompt": _router_text(rng, 32), "max_tokens": 1}
+        for i in range(8):  # warm: the connection, the pick path
+            run(_envoy_stream(epp_ch, f"warm-{i}", body, forward=False))
+        picks = [run(_envoy_stream(epp_ch, f"pick-{i}", body, forward=False))
+                 for i in range(picks_n)]
+        url = f"http://{stack.router.address}"
+        prompt = _router_text(rng, 32)
+        _, h, _ = _complete(url, prompt, 1)
+        target = f"http://{h['x-llm-d-endpoint']}"
+        routed, direct = [], []
+        for _ in range(hop_n):
+            for u, out in ((url, routed), (target, direct)):
+                t0 = time.perf_counter()
+                status, _, _ = _complete(u, prompt, 1)
+                out.append(time.perf_counter() - t0)
+                if status != 200:
+                    raise AssertionError(f"gateway: a one-token request answered {status}")
+        ttft_grpc, ttft_direct = [], []
+        for i in range(ttft_n):
+            g = run(_vllm_generate(vllm_ch, _router_text(rng, isl), 8, True, f"ttft-{i}"))
+            ttft_grpc.append(g["ttft_s"])
+            ttft_direct.append(_stream_ttft(f"http://{g['endpoint']}", _router_text(rng, isl)))
+        run(epp_ch.close())
+        run(vllm_ch.close())
+    finally:
+        stack.stop()
+    p50 = statistics.median
+
+    def p99(xs):
+        return float(np.percentile(xs, 99))
+
+    pick_ms = [p["pick_s"] * 1e3 for p in picks]
+    stream_ms = [p["stream_s"] * 1e3 for p in picks]
+    row = {"card": card, "model": model, "dtype": "bfloat16", "picks_n": picks_n,
+           "pick_p50_ms": p50(pick_ms), "pick_p99_ms": p99(pick_ms),
+           "pick_stream_p50_ms": p50(stream_ms), "pick_stream_p99_ms": p99(stream_ms),
+           "hop_n": hop_n, "http_hop_p50_ms": (p50(routed) - p50(direct)) * 1e3,
+           "http_routed_p50_ms": p50(routed) * 1e3, "http_direct_p50_ms": p50(direct) * 1e3,
+           "ttft_n": ttft_n, "ttft_isl": isl,
+           "vllmgrpc_ttft_p50_ms": p50(ttft_grpc) * 1e3,
+           "direct_ttft_p50_ms": p50(ttft_direct) * 1e3}
+    log(f"gateway: bf16 {model} on {card}: ext_proc pick round trip (body phase) p50 "
+        f"{row['pick_p50_ms']:.3f} ms, p99 {row['pick_p99_ms']:.3f} ms; headers-to-pick "
+        f"p50 {row['pick_stream_p50_ms']:.3f} ms, p99 {row['pick_stream_p99_ms']:.3f} ms "
+        f"({picks_n} streams); HTTP front hop p50 {row['http_hop_p50_ms']:.3f} ms "
+        f"(routed {row['http_routed_p50_ms']:.3f}, direct {row['http_direct_p50_ms']:.3f}; "
+        f"{hop_n} each); vllmgrpc streamed TTFT p50 {row['vllmgrpc_ttft_p50_ms']:.3f} ms, "
+        f"direct {row['direct_ttft_p50_ms']:.3f} ms ({isl}-token prompts, {ttft_n} each)")
+    return row
+
+
+def phase_gateway(device, card: str, model: str = "llama-1b", f32_kw=None,
+                  bf16_kw=None) -> dict:
+    """The gateway phase: the port's router found its engines through the
+    Kubernetes pod watch and serves behind the ext_proc EPP and the vLLM gRPC
+    front, on the port's own gRPC wire; correctness in float32, times in
+    bf16."""
+    t0 = time.perf_counter()
+    out = {"f32": gateway_f32_check(device, card, model=model, **(f32_kw or {}))}
+    _empty()
+    out["bf16"] = gateway_bf16_times(device, card, model=model, **(bf16_kw or {}))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"gateway: phase {out['seconds']:.1f} s on {card}")
+    return out
+
+
 POOL_EXTRA = ["--host", "127.0.0.1", "--num-pages", "1024", "--max-batch-size", "64",
               "--prefill-chunk", "256", "--decode-steps", "4"]
 POOL_READY_S = 400.0  # a cold replica compiles its kernels (nvcc) before /health
@@ -8114,12 +8586,15 @@ def main(argv: "list[str] | None" = None) -> int:
     _empty()  # the previous phase's engines
     report["latency"] = latency = phase_latency(device, card)
     _empty()  # the previous phase's engines
+    report["gateway"] = gateway = phase_gateway(device, card)
+    _empty()  # the previous phase's engines
     report["pool"] = pool = phase_pool(device, card)
     report["seconds"] = time.perf_counter() - t_start
     log(f"smoke: all phases {report['seconds']:.1f} s (vision {vision['seconds']:.1f} s, "
         f"obs {obs['seconds']:.1f} s, launch {launch['seconds']:.1f} s, "
         f"mesh {mesh['seconds']:.1f} s, router {router['seconds']:.1f} s, "
-        f"latency {latency['seconds']:.1f} s, pool {pool['seconds']:.1f} s)")
+        f"latency {latency['seconds']:.1f} s, gateway {gateway['seconds']:.1f} s, "
+        f"pool {pool['seconds']:.1f} s)")
     if args.report:
         out = Path(args.report)
         out.parent.mkdir(parents=True, exist_ok=True)

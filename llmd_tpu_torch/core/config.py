@@ -16,7 +16,8 @@ int, float, else str), single- and double-quoted scalars, comments and one
 leading ``---``. Anything outside the subset (anchors, aliases, tags, block
 scalars, multi-line plain scalars, timestamps, sexagesimal numbers, several
 documents) raises ``ConfigError`` with its line number; nothing is mis-read in
-silence.
+silence. :func:`load_yaml_all` reads several documents of the subset, as
+``yaml.safe_load_all`` does (the manifests of ``core/crds.py``).
 """
 
 from __future__ import annotations
@@ -414,6 +415,36 @@ def load_yaml(text: str) -> Any:
     """``yaml.safe_load`` for the subset EPP configs use (see the module
     docstring); raises ``ConfigError`` naming the line of anything else."""
     return _Block(text).parse()
+
+
+_DOC_START = re.compile(r"^---[ \t]*(?:#.*)?$")
+_DOC_END = re.compile(r"^\.\.\.[ \t]*(?:#.*)?$")
+
+
+def load_yaml_all(text: str) -> list:
+    """``list(yaml.safe_load_all(text))`` for the same subset: the documents
+    split at ``---`` lines (an empty one reads as None; content before the
+    first marker is a document only when it is not blank or comments), a
+    ``...`` line ending a document. Each document is read by ``load_yaml``
+    with the lines of the others blanked, so an error names its line in
+    ``text``."""
+    lines = text.splitlines()
+    starts = [i for i, ln in enumerate(lines) if _DOC_START.match(ln)]
+    bounds = list(zip([-1] + starts, starts + [len(lines)]))
+    docs = []
+    for k, (lo, hi) in enumerate(bounds):
+        body = lines[lo + 1:hi]
+        end = next((i for i, ln in enumerate(body) if _DOC_END.match(ln)), None)
+        if end is not None:
+            after = [j for j in range(end + 1, len(body)) if _strip_comment(body[j]).strip()]
+            if after:
+                raise ConfigError(f"line {lo + 2 + after[0]}: content after a document's "
+                                  "'...' is outside the YAML subset")
+            body = body[:end]
+        if k == 0 and lo < 0 and not any(_strip_comment(ln).strip() for ln in body):
+            continue  # only blanks or comments before the first marker
+        docs.append(_Block("\n" * (lo + 1) + "\n".join(body)).parse())
+    return docs
 
 
 @dataclass

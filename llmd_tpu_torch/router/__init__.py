@@ -4,8 +4,10 @@
 Request parsing -> flow control -> Filter -> Score -> Pick scheduling ->
 endpoint choice, with the data layer feeding per-endpoint metrics and the KV
 events feeding prefix affinity. It runs standalone (built-in HTTP proxy, file
-discovery), with the reference's plugin-config surface. It imports no torch:
-the router is host code in front of port engines.
+discovery) or behind a gateway (the Envoy ext_proc EPP and the vLLM gRPC front
+on the port's own gRPC wire, InferencePool manifests, the Kubernetes pod
+watch), with the reference's plugin-config surface. It imports no torch: the
+router is host code in front of port engines.
 """
 
 from llmd_tpu_torch.router.plugins import (  # noqa: F401

@@ -14,8 +14,10 @@ connections' handlers and waits for their connections to close, at most
 server stops is aborted unserved.
 
 Client (``HTTPClient``): one pool of idle keep-alive connections per
-``host:port`` (TLS for an ``https`` URL, with the default trust store). ``request`` returns once the status line and headers are in;
-the body is read whole (``read``) or chunk by chunk as it arrives
+``host:port`` (TLS for an ``https`` URL, with the default trust store or the
+``ssl_context`` given, as the Kubernetes watch trusts its service account's
+CA). ``request`` returns once the status line and headers are in; the body is
+read whole (``read``) or chunk by chunk as it arrives
 (``iter_chunks``), sized by ``Content-Length``, chunked, or up to the close.
 One ``timeout`` bounds the whole exchange, body included, and raises
 ``asyncio.TimeoutError`` as aiohttp's total timeout does; ``None`` sets no
@@ -483,8 +485,10 @@ class ClientResponse:
 
 
 class HTTPClient:
-    def __init__(self, max_idle_per_host: int = 64) -> None:
+    def __init__(self, max_idle_per_host: int = 64,
+                 ssl_context: Optional[ssl.SSLContext] = None) -> None:
         self.max_idle = max_idle_per_host
+        self.ssl_context = ssl_context
         self._idle: dict[str, list[_Conn]] = {}
         self.connections_opened = 0
 
@@ -500,7 +504,7 @@ class HTTPClient:
         host, _, port = key.removeprefix("https://").rpartition(":")
         reader, writer = await asyncio.open_connection(
             host.strip("[]"), int(port), limit=MAX_LINE,
-            ssl=ssl.create_default_context() if tls else None)
+            ssl=(self.ssl_context or ssl.create_default_context()) if tls else None)
         self.connections_opened += 1
         return _Conn(reader, writer)
 

@@ -590,8 +590,9 @@ def test_latency_plugins_are_refused_by_item(ptype):
 
 def test_external_index_and_planes_are_refused_by_item(monkeypatch):
     """The external index, ``LLMD_KV_PLANE`` and ``LLMD_SLO_*`` (once refused,
-    item 12 and item 10) are served: a router builds with each; the gateway
-    and manifest flags (item 14) are still refused by name."""
+    item 12 and item 10) are served: a router builds with each; so are the
+    gateway and manifest flags (once refused, item 14): the CLI parses each
+    with the reference's defaults and refuses nothing by name."""
     from llmd_tpu_torch.kv.index_backends import ExternalKVBlockIndex
     from llmd_tpu_torch.kvplane import KVPlaneProducer
     from llmd_tpu_torch.router.server import RouterServer
@@ -617,9 +618,18 @@ def test_external_index_and_planes_are_refused_by_item(monkeypatch):
     assert not servers[-1].kvplane.active and servers[-1].kvplane.swaps == []
     for server in servers:
         server._sched_executor.shutdown(wait=False)
-    assert set(port_serve.REFUSED_FLAGS) == {
-        "--extproc-port", "--extproc-failure-mode", "--vllmgrpc-port", "--manifests",
-        "--k8s-discovery"}
+    assert not hasattr(port_serve, "REFUSED_FLAGS")
+    gateway = port_serve.build_parser().parse_args([
+        "--extproc-port", "9002", "--extproc-failure-mode", "FailOpen", "--vllmgrpc-port",
+        "9003", "--manifests", "m.yaml", "--k8s-discovery"])
+    assert (gateway.extproc_port, gateway.extproc_failure_mode, gateway.vllmgrpc_port,
+            gateway.manifests, gateway.k8s_discovery) == (9002, "FailOpen", 9003, "m.yaml",
+                                                          True)
+    defaults = port_serve.build_parser().parse_args([])
+    assert (defaults.extproc_port, defaults.extproc_failure_mode, defaults.vllmgrpc_port,
+            defaults.manifests, defaults.k8s_discovery) == (None, None, None, None, False)
+    with pytest.raises(SystemExit):
+        port_serve.build_parser().parse_args(["--extproc-failure-mode", "Explode"])
     args = port_serve.build_parser().parse_args(["--ha-lease-file", "lease-file"])
     assert args.ha_lease_file == "lease-file" and args.ha_k8s_lease is None
     with pytest.raises(SystemExit):

@@ -14,8 +14,9 @@ the same kind of engines: two tiny port engines (float32) publishing KV events.
   its headers and a stream cut mid-way behave as the reference's, against
   scripted upstreams.
 - **The CLI** ``python -m llmd_tpu_torch.router.serve`` answers with
-  ``--endpoints-file`` (one subprocess), each refused flag exits 2 naming
-  its ROADMAP item, and the HA flags attach a leader elector.
+  ``--endpoints-file`` (one subprocess); the gateway and manifest flags attach
+  their fronts, objectives, rewrites and pod watches, and the HA flags a
+  leader elector.
 """
 
 import asyncio
@@ -26,6 +27,7 @@ import random
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import aiohttp
@@ -274,30 +276,100 @@ def test_stream_passes_through_as_it_arrives():
 
 # refused by name until the KV plane's router side and HA came; served since
 HA_FLAGS = ["--ha-k8s-lease", "--ha-lease-file"]
+# refused by name until the gateway fronts came; served since
+GATEWAY_FLAGS = ["--extproc-failure-mode", "--extproc-port", "--k8s-discovery", "--manifests",
+                 "--vllmgrpc-port"]
+GATEWAY_MANIFESTS = """
+kind: InferencePool
+metadata: {name: decode-pool, namespace: serving}
+spec:
+  selector: {matchLabels: {app: ms, llm-d.ai/role: decode}}
+  targetPorts: [{number: 8000}, {number: 8001}]
+  endpointPickerRef: {name: epp, port: 9002, failureMode: FailClose}
+---
+kind: InferencePool
+metadata: {name: prefill-pool, namespace: serving}
+spec:
+  selector: {matchLabels: {app: ms, llm-d.ai/role: prefill}}
+  targetPorts: [{number: 8000}]
+  endpointPickerRef: {name: epp, port: 9002, failureMode: FailOpen}
+---
+kind: InferenceObjective
+metadata: {name: premium}
+spec: {priority: 10, poolRef: {name: decode-pool}}
+---
+kind: InferenceModelRewrite
+metadata: {name: canary}
+spec:
+  modelName: m
+  targetModels: [{modelName: m-v1, weight: 9}, {modelName: m-v2, weight: 1}]
+"""
 
 
-@pytest.mark.parametrize("flag", sorted(port_serve.REFUSED_FLAGS) + HA_FLAGS)
-def test_refused_flags_name_their_item(flag, capsys, monkeypatch):
-    """Each refused flag exits 2 naming its ROADMAP item; the HA flags are
-    served: the router is built with a leader elector on the named lease
-    attached before it starts."""
-    argv = [flag] if flag == "--k8s-discovery" else [flag, "1"]
+@pytest.mark.parametrize("flag", GATEWAY_FLAGS + HA_FLAGS)
+def test_refused_flags_name_their_item(flag, capsys, monkeypatch, tmp_path):
+    """Each flag once refused by name is served as the reference serves it:
+    the router is built with the named part attached before it starts — the
+    ext_proc EPP (FailClose, or the failure mode asked for), the vLLM gRPC
+    front, the manifests' objectives and rewrites (with mixed pool failure
+    modes FailOpen wins, with a warning), one pod watch per InferencePool
+    (refused without a manifest pool), a leader elector on the named lease."""
+    import llmd_tpu_torch.router.discovery as discovery
+    import llmd_tpu_torch.router.extproc as extproc
+    import llmd_tpu_torch.router.ha as ha
+    import llmd_tpu_torch.router.vllmgrpc as vllmgrpc
+
+    built: dict = {}
+
+    def recorder(kind):
+        def make(*args, **kw):
+            built.setdefault(kind, []).append((args, kw))
+            return types.SimpleNamespace(args=args, kw=kw)
+        return make
+
+    monkeypatch.setattr(ha, "attach_ha", lambda router, el: built.setdefault("ha", []).append(
+        (router, el)))
+    monkeypatch.setattr(extproc, "ExtProcEPP", recorder("extproc"))
+    monkeypatch.setattr(vllmgrpc, "VllmGrpcFront", recorder("vllmgrpc"))
+    monkeypatch.setattr(discovery, "K8sWatchSource", recorder("watch"))
+    monkeypatch.setattr(port_serve.asyncio, "run", lambda coro: coro.close())
+    manifests = tmp_path / "manifests.yaml"
+    manifests.write_text(GATEWAY_MANIFESTS)
+    base = ["--endpoints", "127.0.0.1:9", "--host", "127.0.0.1"]
+    argv = {"--extproc-port": ["--extproc-port", "0"],
+            "--extproc-failure-mode": ["--extproc-port", "0", "--extproc-failure-mode",
+                                       "FailOpen"],
+            "--vllmgrpc-port": ["--vllmgrpc-port", "0"],
+            "--manifests": ["--manifests", str(manifests), "--extproc-port", "0"],
+            "--k8s-discovery": ["--k8s-discovery", "--manifests", str(manifests)],
+            }.get(flag, [flag, "1"])
+    if flag == "--k8s-discovery":
+        with pytest.raises(SystemExit, match="--k8s-discovery needs --manifests with an "
+                                             "InferencePool"):
+            port_serve.main(["--k8s-discovery"] + base)
+    port_serve.main(argv + base)
     if flag in HA_FLAGS:
-        import llmd_tpu_torch.router.ha as ha
-
-        attached = []
-        monkeypatch.setattr(ha, "attach_ha", lambda router, el: attached.append(el))
-        monkeypatch.setattr(port_serve.asyncio, "run", lambda coro: coro.close())
-        port_serve.main(argv + ["--endpoints", "127.0.0.1:9"])
-        lease = attached[0].lease
+        lease = built["ha"][0][1].lease
         assert type(lease) is (ha.FileLease if flag == "--ha-lease-file" else ha.K8sLease)
         assert (lease.path if flag == "--ha-lease-file" else lease.name) == "1"
         return
-    with pytest.raises(SystemExit) as exc:
-        port_serve.main(argv)
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert flag in err and port_serve.REFUSED_FLAGS[flag] in err and "ROADMAP" in err
+    if flag == "--k8s-discovery":
+        assert [(a[1:], kw) for a, kw in built["watch"]] == [
+            (({"app": "ms", "llm-d.ai/role": "decode"}, [8000, 8001]),
+             {"namespace": "serving"}),
+            (({"app": "ms", "llm-d.ai/role": "prefill"}, [8000]), {"namespace": "serving"})]
+        return
+    kind = "vllmgrpc" if flag == "--vllmgrpc-port" else "extproc"
+    (router,), kw = built[kind][0]
+    router._sched_executor.shutdown(wait=False)
+    assert type(router) is PortRouter and kw["host"] == "127.0.0.1" and kw["port"] == 0
+    if kind == "extproc":
+        assert kw["failure_mode"] == ("FailClose" if flag == "--extproc-port" else "FailOpen")
+    if flag == "--manifests":
+        assert router.objectives == {"premium": 10}
+        assert router.model_rewrites == {"m": [("m-v1", 9.0), ("m-v2", 1.0)]}
+        assert ("warning: mixed failureModes ['FailClose', 'FailOpen']; FailOpen wins for "
+                "the shared EPP") in capsys.readouterr().out
 
 
 def test_serve_cli_answers_with_an_endpoints_file(tmp_path):

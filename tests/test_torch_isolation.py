@@ -1,12 +1,15 @@
 """The PyTorch port stands alone: no jax, no llmd_tpu, card by default. Its
 modules and chip_smoke.py import without ``safetensors``, ``transformers``,
-``aiohttp``, ``msgpack``, ``ml_dtypes``, ``yaml``, ``grpc`` and ``sklearn`` too: the
-port reads safetensors itself, imports the HF tokenizer only when a caller asks
-for one, serves and proxies HTTP on the standard library, writes the KV-event
-wire by hand, reads its router configs with its own YAML reader and fits its
-latency predictor with its own histogram GBDT. Under the same blocker the
-pool runs: a controller over fake replicas behind the port's router and
-sidecar, and a trace replayed through it."""
+``aiohttp``, ``msgpack``, ``ml_dtypes``, ``yaml``, ``grpc``, ``google`` (the
+protobuf runtime) and ``sklearn`` too: the port reads safetensors itself,
+imports the HF tokenizer only when a caller asks for one, serves and proxies
+HTTP on the standard library, writes the KV-event wire by hand, reads its router
+configs and manifests with its own YAML reader, speaks gRPC and protobuf on its
+own wire and codec, and fits its latency predictor with its own histogram GBDT.
+Under the same blocker the pool runs (a controller over fake replicas behind the
+port's router and sidecar, and a trace replayed through it), and so do the
+gateway fronts: one ext_proc stream picks an endpoint, and a pod watch re-lists
+after its stream ends."""
 
 import re
 import subprocess
@@ -19,7 +22,7 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 
 # Blocks the top-level names jax, jaxlib, llmd_tpu, safetensors, transformers,
-# aiohttp, msgpack, ml_dtypes, yaml, grpc and sklearn EXACTLY (a prefix match would
+# aiohttp, msgpack, ml_dtypes, yaml, grpc, google and sklearn EXACTLY (a prefix match would
 # also block llmd_tpu_torch), then imports every module of the port and
 # chip_smoke.py, and fits and queries the latency model (the reference imports
 # scikit-learn inside ``fit``, which an import-time check alone would miss). Then
@@ -27,12 +30,16 @@ REPO = Path(__file__).resolve().parent.parent
 # endpoint roles, the fake server and the sidecar inside functions): one
 # ``PoolController`` over a ``FakeReplicaLauncher`` with sidecars behind a
 # ``RouterServer`` through floor, scale-up, drain-retire and a health sweep, and
-# ``replay_trace`` of a 20-request trace through the router.
+# ``replay_trace`` of a 20-request trace through the router. Then the gateway:
+# one ext_proc stream (the port's gRPC client playing Envoy) through the port's
+# ``ExtProcEPP`` over a router in front of a fake replica, and a
+# ``K8sWatchSource`` against a fake pods API on the port's ``HTTPServer`` that
+# ends its watch once, so the source lists again.
 _BLOCKED_IMPORT = r"""
 import importlib, importlib.abc, pkgutil, sys
 
 BLOCKED = {"jax", "jaxlib", "llmd_tpu", "safetensors", "transformers", "aiohttp",
-           "msgpack", "ml_dtypes", "yaml", "grpc", "sklearn"}
+           "msgpack", "ml_dtypes", "yaml", "grpc", "google", "sklearn"}
 
 
 class Blocker(importlib.abc.MetaPathFinder):
@@ -42,6 +49,10 @@ class Blocker(importlib.abc.MetaPathFinder):
         return None
 
 
+# an installed namespace package's .pth file may create an empty ``google`` at
+# start-up, before anything is imported: forget it, so only an import counts
+for name in [n for n in sys.modules if n.split(".")[0] in BLOCKED]:
+    del sys.modules[name]
 sys.meta_path.insert(0, Blocker())
 try:
     import llmd_tpu  # noqa: F401
@@ -117,6 +128,78 @@ async def pool_path():
 
 status = asyncio.run(pool_path())
 assert len(status["launches"]) == 3 and status["ready_replicas"] == 0, status
+
+
+async def gateway_path():
+    import json
+    from llmd_tpu_torch.router import ext_proc_pb as pb
+    from llmd_tpu_torch.router.discovery import K8sWatchSource
+    from llmd_tpu_torch.router.extproc import ENVOY_SERVICE, HDR_DESTINATION, ExtProcEPP
+    from llmd_tpu_torch.router.grpc_wire import Channel
+    from llmd_tpu_torch.router.http import HTTPServer, StreamResponse, json_response
+    from llmd_tpu_torch.testing.fake_server import FakeModelServer
+
+    fake = FakeModelServer(FakeServerConfig(), port=0)
+    await fake.start()
+    pool = EndpointPool()
+    from llmd_tpu_torch.router.datalayer import add_static_endpoints
+    add_static_endpoints(pool, [fake.address])
+    router = RouterServer(FrameworkConfig.from_yaml(POOL_ROUTER_CFG,
+                                                    known_types=known_plugin_types()),
+                          pool, host="127.0.0.1", port=0, poll_interval_s=0.05)
+    await router.start()
+    epp = ExtProcEPP(router, host="127.0.0.1")
+    await epp.start()
+    ch = Channel(epp.address)
+    call = ch.stream_stream(f"/{ENVOY_SERVICE}/Process",
+                            request_serializer=pb.ProcessingRequest.SerializeToString,
+                            response_deserializer=pb.ProcessingResponse.FromString)()
+    await call.write(pb.ProcessingRequest(request_headers=pb.HttpHeaders(headers=pb.HeaderMap(
+        headers=[pb.HeaderValue(key=":path", raw_value=b"/v1/completions")]))))
+    assert (await call.read()).WhichOneof("response") == "request_headers"
+    await call.write(pb.ProcessingRequest(request_body=pb.HttpBody(
+        body=json.dumps({"model": "m", "prompt": "p"}).encode(), end_of_stream=True)))
+    picked = (await call.read()).request_body.response.header_mutation.set_headers
+    assert {o.header.key: o.header.raw_value for o in picked}[HDR_DESTINATION] ==         fake.address.encode()
+    await call.done_writing()
+    assert await call.read() is None
+    await ch.close()
+    await epp.stop()
+    await router.stop()
+    await fake.stop()
+
+    pod = {"metadata": {"name": "a", "uid": "u-a", "labels": {"app": "ms"}},
+           "status": {"phase": "Running", "podIP": "10.0.0.1",
+                      "conditions": [{"type": "Ready", "status": "True"}]}}
+    lists = []
+
+    async def pods(request):
+        if request.query.get("watch"):
+            resp = StreamResponse(headers={"content-type": "application/json"})
+            await resp.prepare(request)
+            await resp.write(json.dumps({"type": "BOOKMARK", "object": {}}).encode() + b"\n")
+            return resp  # the watch ends: the source lists again
+        lists.append(1)
+        return json_response({"items": [pod], "metadata": {"resourceVersion": "1"}})
+
+    api = HTTPServer()
+    api.add_route("GET", "/api/v1/namespaces/{ns}/pods", pods)
+    port = await api.start("127.0.0.1", 0)
+    watched = EndpointPool()
+    src = K8sWatchSource(watched, {"app": "ms"}, [8000], api_base=f"http://127.0.0.1:{port}",
+                         token="t", rebackoff_s=0.01)
+    await src.start()
+    for _ in range(500):
+        if src.relists >= 2:
+            break
+        await asyncio.sleep(0.01)
+    await src.stop()
+    await api.stop()
+    assert src.relists >= 2 and src.events_seen >= 1, (src.relists, src.events_seen)
+    assert [e.address for e in watched.list()] == ["10.0.0.1:8000"]
+
+
+asyncio.run(gateway_path())
 
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
@@ -195,6 +278,12 @@ assert {"llmd_tpu_torch.autoscaling", "llmd_tpu_torch.autoscaling.hpa",
         "llmd_tpu_torch.pool.harness", "llmd_tpu_torch.pool.disagg",
         "llmd_tpu_torch.testing.fake_server", "llmd_tpu_torch.tools.slo_check",
         "llmd_tpu_torch.tools.pd_check"} <= set(names)
+# and the gateway's: the manifests, the gRPC wire, the protobuf codec and its two
+# message subsets, the two fronts
+assert {"llmd_tpu_torch.core.crds", "llmd_tpu_torch.router.grpc_wire",
+        "llmd_tpu_torch.router.protobuf", "llmd_tpu_torch.router.ext_proc_pb",
+        "llmd_tpu_torch.router.vllm_grpc_pb", "llmd_tpu_torch.router.extproc",
+        "llmd_tpu_torch.router.vllmgrpc"} <= set(names)
 assert "zmq" not in sys.modules
 print(len(names))
 """
@@ -326,18 +415,21 @@ ROUTER_MODULES = ["core/config.py", "core/endpoint.py", "core/request.py",
                   "autoscaling/__init__.py", "autoscaling/hpa.py", "autoscaling/wva.py",
                   "pool/__init__.py", "pool/snapshot.py", "pool/traces.py", "pool/launcher.py",
                   "pool/controller.py", "pool/harness.py", "pool/disagg.py",
-                  "testing/fake_server.py", "tools/slo_check.py", "tools/pd_check.py"]
+                  "testing/fake_server.py", "tools/slo_check.py", "tools/pd_check.py",
+                  "core/crds.py", "router/grpc_wire.py", "router/protobuf.py",
+                  "router/ext_proc_pb.py", "router/vllm_grpc_pb.py", "router/extproc.py",
+                  "router/vllmgrpc.py"]
 
 
 @pytest.mark.parametrize("module", ROUTER_MODULES)
 def test_router_modules_stand_alone(module):
     """The router, the latency plane, the sidecar, the KV plane's router side,
-    HA, the autoscaling plane, the pool, the fake server and the pool's gates
-    keep their own copies of the reference's modules: no jax, no
-    reference package, and none of aiohttp, msgpack, yaml, grpc, sklearn or
-    torch in their sources (they are host code; the blocked import is the
-    subprocess above)."""
+    HA, the autoscaling plane, the pool, the fake server, the pool's gates and
+    the gateway fronts keep their own copies of the reference's modules: no
+    jax, no reference package, and none of aiohttp, msgpack, yaml, grpc, google,
+    sklearn or torch in their sources (they are host code; the blocked import
+    is the subprocess above)."""
     src = (REPO / "llmd_tpu_torch" / module).read_text()
     assert not _FORBIDDEN.search(src)
-    assert not re.search(r"^\s*(import|from)\s+(aiohttp|msgpack|yaml|grpc|sklearn|torch)\b",
-                         src, re.M)
+    assert not re.search(
+        r"^\s*(import|from)\s+(aiohttp|msgpack|yaml|grpc|google|sklearn|torch)\b", src, re.M)
