@@ -387,7 +387,30 @@ thread's stack on stderr):
             requests, routed minus direct), vLLM gRPC streamed TTFT p50 beside
             direct (16 fresh 512-token prompts each), printed with the card.
             The phase prints its seconds.
-24. pool    the pool and autoscaling (``phase_pool``): the port's
+24. batch   the batch plane and the load harness (``phase_batch``): the port's
+            ``RouterServer`` in front of two llama-1b port engines (page 16,
+            1,024 pages each). float32: the port's ``BatchGateway`` (OpenAI
+            Files + Batches API, SQLite store, files root) in front of the
+            router takes a multipart/form-data upload of a 16-line JSONL (11
+            completions, 4 chats, 128+16 tokens, and one line whose
+            ``response_format`` the server's structured-output check refuses);
+            the batch runs to ``completed`` with 15 lines in the output file,
+            each line's tokens equal to a direct request's, and the refused
+            line with its 400 in the error file; a second batch of 64 cancelled
+            mid-run ends ``cancelled``; a third left ``in_progress`` by a
+            stopped gateway is completed by a new gateway's recovery scan over
+            the same store and files root; K1 launched behind the gateway.
+            bf16: the port's ``AsyncProcessor`` sends 32 items through a
+            ``PrometheusSaturationGate`` on an engine's
+            ``vllm:num_requests_waiting``, all succeed; the load harness's
+            ``compare_targets`` on ``shared-prefix`` (64 requests, 32 out,
+            concurrency 8) between one engine directly and the router, its
+            ``out_tok_per_s``, ``ttft_p50_ms`` and ``e2e_p90_ms`` printed with
+            the card (not bounded); K1 launched. Then ``python -m
+            llmd_tpu_torch.tools.chaos_check``, ``kv_plane_check`` and
+            ``decision_check`` as concurrent subprocesses, each exit 0, their
+            seconds printed. The phase prints its seconds.
+25. pool    the pool and autoscaling (``phase_pool``): the port's
             ``RouterServer`` (flow control on) over an empty pool, the port's
             ``PoolController`` in front of it (HPA, 1 to 2 replicas, a 1 s
             step) launching llama-1b replicas as processes
@@ -7970,6 +7993,334 @@ def phase_gateway(device, card: str, model: str = "llama-1b", f32_kw=None,
     return out
 
 
+# --------------------------------------------------------------------------
+# The batch plane and the load harness
+# --------------------------------------------------------------------------
+
+BATCH_GATES = ("chaos_check", "kv_plane_check", "decision_check")
+
+
+def _batch_lines(rng, n: int, prompt_len: int, max_tokens: int, tag: str,
+                 chats: int = 0, refused: int = 0) -> list:
+    """``n`` OpenAI Batch input lines: completions, then ``chats`` chat
+    completions, the last ``refused`` of them with a ``response_format`` the
+    server's structured-output check refuses (400)."""
+    out = []
+    for i in range(n):
+        body = {"model": "llama-1b", "max_tokens": max_tokens, "temperature": 0,
+                "ignore_eos": True}
+        url = "/v1/completions"
+        if i >= n - chats:
+            url = "/v1/chat/completions"
+            body["messages"] = [{"role": "user", "content": _router_text(rng, prompt_len)}]
+        else:
+            body["prompt"] = _router_text(rng, prompt_len)
+        if i >= n - refused:
+            body["response_format"] = {"type": "xml"}
+        out.append({"custom_id": f"{tag}-{i}", "method": "POST", "url": url, "body": body})
+    return out
+
+
+def _multipart_upload(url: str, lines: list, filename: str) -> dict:
+    """``POST /v1/files`` as multipart/form-data (the JSONL as the file part,
+    a purpose part), as an OpenAI client uploads."""
+    boundary = "llmd-chip-smoke-batch"
+    data = "\n".join(json.dumps(line) for line in lines).encode()
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"purpose\"\r\n\r\n"
+            f"batch\r\n--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+            f"filename=\"{filename}\"\r\nContent-Type: application/jsonl\r\n\r\n").encode() \
+        + data + f"\r\n--{boundary}--\r\n".encode()
+    req = urllib.request.Request(url + "/v1/files", data=body, method="POST", headers={
+        "Content-Type": f"multipart/form-data; boundary={boundary}"})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        meta = json.loads(resp.read())
+    if meta.get("bytes") != len(data) or meta.get("filename") != filename:
+        raise AssertionError(f"batch: the multipart upload stored {meta}")
+    return meta
+
+
+def _batch_wait(url: str, bid: str, want: tuple, timeout_s: float = 300.0) -> dict:
+    """Poll ``GET /v1/batches/{bid}`` until its status is one of ``want``."""
+    t_end = time.monotonic() + timeout_s
+    while True:
+        status, _, body = _http("GET", f"{url}/v1/batches/{bid}")
+        row = json.loads(body)
+        if status == 200 and row["status"] in want:
+            return row
+        if time.monotonic() > t_end:
+            raise AssertionError(f"batch: {bid} still {row.get('status')} after "
+                                 f"{timeout_s} s (want {want})")
+        time.sleep(0.01)
+
+
+def _file_lines(url: str, fid: "str | None") -> list:
+    if fid is None:
+        return []
+    status, _, body = _http("GET", f"{url}/v1/files/{fid}/content")
+    if status != 200:
+        raise AssertionError(f"batch: file {fid} answered {status}")
+    return [json.loads(line) for line in body.decode().splitlines()]
+
+
+def _start_gateway(loops: "_LoopThread", cfg):
+    from llmd_tpu_torch.batch import BatchGateway
+
+    async def start():
+        gw = BatchGateway(cfg)  # its queue and semaphores belong to this loop
+        await gw.start()
+        return gw
+
+    gw = loops._call(start())
+    return gw, f"http://{gw.address}"
+
+
+def batch_f32_check(device, card: str, model: str = "llama-1b", seed: int = 0,
+                    n_requests: int = 16, prompt_len: int = 128, max_tokens: int = 16,
+                    cancel_n: int = 64, crash_n: int = 16) -> dict:
+    """float32 engines behind the router, the port's ``BatchGateway`` in front
+    of it: a multipart JSONL of ``n_requests`` (completions and chats, one
+    line refused by the server's structured-output check) runs to
+    ``completed``; every output line's tokens equal a direct request's and the
+    refused line is in the error file with its 400; a second batch cancelled
+    mid-run ends ``cancelled``; a third batch left ``in_progress`` by a stopped
+    gateway is completed by a new gateway's recovery scan over the same
+    SQLite store and files root. K1 launched behind the gateway."""
+    from llmd_tpu_torch.batch import BatchGatewayConfig, BatchStore
+    from llmd_tpu_torch.models import get_model_config
+
+    cfg = dataclasses.replace(get_model_config(model), dtype="float32")
+    rng = np.random.default_rng(seed)
+    lines = _batch_lines(rng, n_requests, prompt_len, max_tokens, "main", chats=4, refused=1)
+    cancel_lines = _batch_lines(rng, cancel_n, prompt_len, 2 * max_tokens, "cancel")
+    crash_lines = _batch_lines(rng, crash_n, prompt_len, max_tokens, "crash")
+    servers = _router_engines(device, cfg, seed=seed)
+    work = Path(tempfile.mkdtemp(prefix="llmd-batch-"))
+    rt = loops = gw = None
+    try:
+        rt = _RouterThread(servers)
+        loops = _LoopThread()  # the gateway's loop, apart from the router's
+        gcfg = BatchGatewayConfig(target_url=rt.url, files_root=str(work / "files"),
+                                  store_path=str(work / "batches.db"),
+                                  global_concurrency=8, per_model_concurrency=8)
+        gw, url = _start_gateway(loops, gcfg)
+        zero_counts()
+        t0 = time.perf_counter()
+        meta = _multipart_upload(url, lines, "main.jsonl")
+        _, _, created = _http("POST", url + "/v1/batches", {
+            "input_file_id": meta["id"], "endpoint": "/v1/completions"})
+        bid = json.loads(created)["id"]
+        done = _batch_wait(url, bid, ("completed", "failed"))
+        batch_s = time.perf_counter() - t0
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        by_instance = instance_counts()
+        launches, _ = read_counts()
+        outputs = _file_lines(url, done["output_file_id"])
+        errors = _file_lines(url, done["error_file_id"])
+        sent = {line["custom_id"]: line for line in lines}
+        direct = {}
+        for o in outputs:
+            line = sent[o["custom_id"]]
+            _, _, body = _http("POST", f"http://{servers[0].address}{line['url']}",
+                               line["body"])
+            direct[o["custom_id"]] = json.loads(body)
+        # cancel mid-run
+        meta_c = _multipart_upload(url, cancel_lines, "cancel.jsonl")
+        _, _, created = _http("POST", url + "/v1/batches", {"input_file_id": meta_c["id"]})
+        cid = json.loads(created)["id"]
+        _batch_wait(url, cid, ("in_progress",))
+        _, _, answer = _http("POST", f"{url}/v1/batches/{cid}/cancel")
+        cancel_answer = json.loads(answer)["status"]
+        cancelled = _batch_wait(url, cid, ("cancelled", "completed", "failed"))
+        # a stopped gateway mid-run, then a new one over the same store
+        meta_r = _multipart_upload(url, crash_lines, "crash.jsonl")
+        _, _, created = _http("POST", url + "/v1/batches", {"input_file_id": meta_r["id"]})
+        rid = json.loads(created)["id"]
+        _batch_wait(url, rid, ("in_progress",))
+        loops._call(gw.stop())
+        gw = None
+        left = BatchStore(gcfg.store_path).get(rid).status
+        t1 = time.perf_counter()
+        gw, url = _start_gateway(loops, gcfg)
+        recovered_n = gw.stats["recovered"]
+        recovered = _batch_wait(url, rid, ("completed", "failed"))
+        recovery_s = time.perf_counter() - t1
+        recovered_out = _file_lines(url, recovered["output_file_id"])
+    finally:
+        if gw is not None:
+            loops._call(gw.stop())
+        if loops is not None:
+            loops.close()
+        if rt is not None:
+            rt.stop()
+        for s in servers:
+            s.stop()
+        shutil.rmtree(work, ignore_errors=True)
+
+    def text(body: dict) -> str:
+        c = body["choices"][0]
+        return c["message"]["content"] if "message" in c else c["text"]
+
+    same = [text(o["response"]["body"]) == text(direct[o["custom_id"]]) for o in outputs]
+    refused = [(e["custom_id"], (e["response"] or {}).get("status_code")) for e in errors]
+    counts = done["request_counts"]
+    row = {"card": card, "model": model, "dtype": "float32", "requests": n_requests,
+           "prompt_tokens": prompt_len, "max_tokens": max_tokens, "status": done["status"],
+           "request_counts": counts, "tokens_identical": all(same), "refused": refused,
+           "batch_s": batch_s, "launches": launches, "launches_by_instance": by_instance,
+           "cancel_requests": cancel_n, "cancel_answer": cancel_answer,
+           "cancel_status": cancelled["status"], "crash_left": left,
+           "recovered_batches": recovered_n, "recovered_status": recovered["status"],
+           "recovered_counts": recovered["request_counts"],
+           "recovered_outputs": len(recovered_out), "recovery_s": recovery_s}
+    log(f"batch: f32 {model} on {card}: a multipart JSONL of {n_requests} ({n_requests - 5} "
+        f"completions, 4 chats, 1 refused; {prompt_len}+{max_tokens} tokens) through the "
+        f"port's BatchGateway -> router -> 2 engines: {done['status']} {counts} in "
+        f"{batch_s:.3f} s, tokens_identical={all(same)} ({len(same)} lines vs direct), "
+        f"error file {refused}; cancel mid-run: answered {cancel_answer}, ended "
+        f"{cancelled['status']}; gateway stopped with a batch {left}, the new gateway "
+        f"recovered {recovered_n} and ended it {recovered['status']} "
+        f"{recovered['request_counts']} in {recovery_s:.3f} s; K1 by instance="
+        f"{by_instance['paged_attention']}")
+    if done["status"] != "completed" or counts != {"total": n_requests,
+                                                  "completed": n_requests - 1, "failed": 1}:
+        raise AssertionError(f"batch: the main batch ended {done['status']} {counts}")
+    if not all(same) or len(same) != n_requests - 1:
+        raise AssertionError(f"batch: batch tokens differ from direct ones ({same})")
+    if refused != [(f"main-{n_requests - 1}", 400)]:
+        raise AssertionError(f"batch: the error file holds {refused}")
+    if cancel_answer != "cancelling" or cancelled["status"] != "cancelled":
+        raise AssertionError(f"batch: the cancel answered {cancel_answer}, the batch ended "
+                             f"{cancelled['status']}")
+    if (left != "in_progress" or recovered_n != 1 or recovered["status"] != "completed"
+            or recovered["request_counts"]["completed"] != crash_n
+            or len(recovered_out) != crash_n):
+        raise AssertionError(f"batch: crash recovery: left {left}, recovered {recovered_n}, "
+                             f"ended {recovered['status']} {recovered['request_counts']}")
+    if device.type == "cuda" and not launches["paged_attention"] > 0:
+        raise AssertionError(f"batch: K1 did not launch behind the gateway ({by_instance})")
+    return row
+
+
+def batch_bf16_times(device, card: str, model: str = "llama-1b", seed: int = 1,
+                     n_items: int = 32, item_tokens: int = 16, workload=None,
+                     concurrency: int = 8) -> dict:
+    """bf16 engines behind the router: the port's ``AsyncProcessor`` sends
+    ``n_items`` through a ``PrometheusSaturationGate`` on an engine's
+    ``vllm:num_requests_waiting`` (every item must succeed); then the load
+    harness's ``compare_targets`` on ``shared-prefix`` between one engine
+    directly and the router, its report printed with the card (not bounded).
+    K1 launched."""
+    import asyncio
+
+    from llmd_tpu_torch.batch import (AsyncItem, AsyncProcessor, AsyncProcessorConfig,
+                                      MemoryQueuePuller, PrometheusSaturationGate)
+    from llmd_tpu_torch.benchmark import WorkloadSpec, compare_targets
+    from llmd_tpu_torch.models import get_model_config
+
+    cfg = dataclasses.replace(get_model_config(model), dtype="bfloat16")
+    rng = np.random.default_rng(seed)
+    spec = WorkloadSpec(**{**dict(kind="shared-prefix", num_requests=64, max_tokens=32,
+                                  model="llama-1b", seed=seed), **(workload or {})})
+    servers = _router_engines(device, cfg, seed=seed)
+    rt = loops = None
+
+    async def process() -> tuple:
+        q = MemoryQueuePuller()
+        gate = PrometheusSaturationGate(f"http://{servers[0].address}/metrics",
+                                        "vllm:num_requests_waiting", threshold=64.0,
+                                        poll_interval_s=0.05)
+        done = asyncio.Event()
+        results = {}
+
+        def on_result(item, res):
+            results[item.id] = res
+            if len(results) == n_items:
+                done.set()
+
+        proc = AsyncProcessor(AsyncProcessorConfig(target_url=rt.url, num_workers=8, seed=0),
+                              q, gate=gate, on_result=on_result)
+        await proc.start()
+        t0 = time.perf_counter()
+        try:
+            for i in range(n_items):
+                await q.put(AsyncItem(id=f"item-{i}", url="/v1/completions", body={
+                    "model": "llama-1b", "prompt": _router_text(rng, 64),
+                    "max_tokens": item_tokens, "temperature": 0, "ignore_eos": True},
+                    priority=i % 3, deadline=time.time() + 300))
+            await asyncio.wait_for(done.wait(), 300)
+        finally:
+            await proc.stop()
+        return results, dict(proc.stats), gate.last_value, time.perf_counter() - t0
+
+    try:
+        rt = _RouterThread(servers)
+        loops = _LoopThread()  # the clients' loop, apart from the router's
+        zero_counts()
+        results, stats, gate_value, proc_s = loops._call(process(), timeout=360)
+        report = loops._call(compare_targets(
+            {"direct": servers[0].address, "router": rt.router.address}, spec,
+            concurrency=concurrency), timeout=600)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        by_instance = instance_counts()
+        launches, _ = read_counts()
+        # an engine whose step loop died answers every request with an error
+        # and says why on /health
+        health = [_http("GET", f"http://{s.address}/health")[2].decode() for s in servers]
+    finally:
+        if loops is not None:
+            loops.close()
+        if rt is not None:
+            rt.stop()
+        for s in servers:
+            s.stop()
+    ok = [r is not None and len(r["choices"][0]["text"]) == item_tokens
+          for r in results.values()]
+    keys = ("out_tok_per_s", "ttft_p50_ms", "e2e_p90_ms", "errors", "requests")
+    row = {"card": card, "model": model, "dtype": "bfloat16", "items": n_items,
+           "processor_stats": stats, "processor_s": proc_s, "gate_last_value": gate_value,
+           "items_ok": sum(ok), "workload": spec.describe(), "concurrency": concurrency,
+           "report": report, "launches": launches, "launches_by_instance": by_instance,
+           "engines_health": health}
+    log(f"batch: bf16 {model} on {card}: AsyncProcessor {n_items} items through a "
+        f"PrometheusSaturationGate (vllm:num_requests_waiting, last {gate_value}) in "
+        f"{proc_s:.3f} s: {stats}; K1 by instance={by_instance['paged_attention']}")
+    for name, summary in report["targets"].items():
+        log(f"batch:   harness shared-prefix ({spec.num_requests} requests, "
+            f"{spec.max_tokens} out, concurrency {concurrency}) {name}: "
+            + ", ".join(f"{k} {summary[k]}" for k in keys) + f" on {card}")
+    log(f"batch:   harness delta {report.get('delta')}")
+    if stats["succeeded"] != n_items or sum(ok) != n_items:
+        raise AssertionError(f"batch: the processor's items: {stats}, {sum(ok)} whole; "
+                             f"the engines' /health: {health}")
+    if any(report["targets"][t]["errors"] or report["targets"][t]["requests"]
+           != spec.num_requests for t in report["targets"]):
+        raise AssertionError(f"batch: the harness report {report['targets']}; the engines' "
+                             f"/health: {health}")
+    if device.type == "cuda" and not launches["paged_attention"] > 0:
+        raise AssertionError(f"batch: K1 did not launch behind the processor ({by_instance})")
+    return row
+
+
+def phase_batch(device, card: str, model: str = "llama-1b", f32_kw=None,
+                bf16_kw=None, gates: tuple = BATCH_GATES) -> dict:
+    """The batch phase: the OpenAI Batch gateway and the async processor in
+    front of the port's router over two engines, the load harness's
+    direct-vs-router comparison, then the chaos, KV-plane and decision gates
+    as concurrent subprocesses on the card's host."""
+    t0 = time.perf_counter()
+    out = {"f32": batch_f32_check(device, card, model=model, **(f32_kw or {}))}
+    _empty()
+    out["bf16"] = batch_bf16_times(device, card, model=model, **(bf16_kw or {}))
+    out["gates"] = found = _pool_gates(120.0, gates, "batch")
+    log("batch: gates " + ", ".join(f"{name} rc {g['rc']} ({g['seconds']:.1f} s)"
+                                    for name, g in found.items()) + f", on the host of {card}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"batch: phase {out['seconds']:.1f} s on {card}")
+    return out
+
+
 POOL_EXTRA = ["--host", "127.0.0.1", "--num-pages", "1024", "--max-batch-size", "64",
               "--prefill-chunk", "256", "--decode-steps", "4"]
 POOL_READY_S = 400.0  # a cold replica compiles its kernels (nvcc) before /health
@@ -8393,10 +8744,12 @@ async def _pool_run(device, card: str, work: Path, model: str, extra: list, trac
     return row
 
 
-def _pool_gates(timeout_s: float = 180.0) -> dict:
-    """The port's SLO and P/D gates as two concurrent subprocesses (fake
-    replicas on the host; neither imports jax): exit codes and seconds. A gate
-    past ``timeout_s`` gets SIGABRT first, so its threads' stacks come back."""
+def _pool_gates(timeout_s: float = 180.0, gates: tuple = ("slo_check", "pd_check"),
+                label: str = "pool") -> dict:
+    """The port's gates (``llmd_tpu_torch.tools.<name>``; the SLO and P/D gates
+    by default) as concurrent subprocesses (fake replicas on the host; none
+    imports jax): exit codes and seconds. A gate past ``timeout_s`` gets
+    SIGABRT first, so its threads' stacks come back."""
     import signal
 
     t0 = time.perf_counter()
@@ -8404,7 +8757,7 @@ def _pool_gates(timeout_s: float = 180.0) -> dict:
                                      f"llmd_tpu_torch.tools.{name}"],
                                     cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                     text=True)
-             for name in ("slo_check", "pd_check")}
+             for name in gates}
     out = {}
     for name, proc in procs.items():
         try:
@@ -8423,8 +8776,8 @@ def _pool_gates(timeout_s: float = 180.0) -> dict:
                 if other.poll() is None:
                     other.kill()
                     other.communicate()
-            raise AssertionError(f"pool: {name} exited {proc.returncode}: {stdout[-2000:]}"
-                                 f"\n{stderr[-6000:]}")
+            raise AssertionError(f"{label}: {name} exited {proc.returncode}: "
+                                 f"{stdout[-2000:]}\n{stderr[-6000:]}")
     return out
 
 
@@ -8588,13 +8941,15 @@ def main(argv: "list[str] | None" = None) -> int:
     _empty()  # the previous phase's engines
     report["gateway"] = gateway = phase_gateway(device, card)
     _empty()  # the previous phase's engines
+    report["batch"] = batch = phase_batch(device, card)
+    _empty()  # the previous phase's engines
     report["pool"] = pool = phase_pool(device, card)
     report["seconds"] = time.perf_counter() - t_start
     log(f"smoke: all phases {report['seconds']:.1f} s (vision {vision['seconds']:.1f} s, "
         f"obs {obs['seconds']:.1f} s, launch {launch['seconds']:.1f} s, "
         f"mesh {mesh['seconds']:.1f} s, router {router['seconds']:.1f} s, "
         f"latency {latency['seconds']:.1f} s, gateway {gateway['seconds']:.1f} s, "
-        f"pool {pool['seconds']:.1f} s)")
+        f"batch {batch['seconds']:.1f} s, pool {pool['seconds']:.1f} s)")
     if args.report:
         out = Path(args.report)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -17,7 +17,12 @@ tensor. The first :meth:`~CapturedProgram.__call__` captures it:
 
 A capture holds :data:`CAPTURE_LOCK` from its warm-up to its end: other
 threads that issue device-wide CUDA calls (the device monitor's liveness
-probe) take it too, since such a call during a capture invalidates it.
+probe) take it too. The capture is thread-local
+(``capture_error_mode="thread_local"``): only the capturing thread may not
+make the calls a capture forbids. In the default global mode a
+synchronize, a read-back or an allocation by another thread (a second
+engine in the same process, as a router's engines or a pool's are when they
+share one) invalidated the capture and failed both engines' steps.
 
 A capture or replay failure raises; nothing falls back to running eagerly.
 The function must leave the device as it found it apart from its outputs
@@ -91,7 +96,7 @@ class CapturedProgram:
         warm = _read()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             output = self.fn()
         after = _read()
         self.per_replay = [(n - n0, {k: v - by0[k] for k, v in by.items()})

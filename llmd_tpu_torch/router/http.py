@@ -4,7 +4,8 @@ aiohttp, which the card's Python does not promise).
 
 Server (``HTTPServer``): ``asyncio.start_server``; keep-alive connections; a
 request body sized by ``Content-Length`` or chunked, at most ``max_body``
-bytes; routes by method and a path pattern (``{name}`` matches one segment,
+bytes (``parse_multipart`` splits a ``multipart/form-data`` one into its
+parts); routes by method and a path pattern (``{name}`` matches one segment,
 ``{name:.*}`` the rest); a handler returns a ``Response`` or a
 ``StreamResponse`` it has prepared and written. A stream is sent with chunked
 transfer encoding, each ``write`` flushed as one chunk, and terminated when the
@@ -44,7 +45,8 @@ from typing import Any, AsyncIterator, Awaitable, Callable, Optional
 from urllib.parse import parse_qsl, unquote, urlsplit
 
 __all__ = ["Headers", "Request", "Response", "StreamResponse", "json_response",
-           "HTTPServer", "HTTPClient", "ClientResponse", "HTTPProtocolError"]
+           "HTTPServer", "HTTPClient", "ClientResponse", "HTTPProtocolError",
+           "BodyPart", "MultipartError", "parse_multipart"]
 
 log = logging.getLogger(__name__)
 
@@ -167,7 +169,7 @@ def _head(status: int, headers: dict) -> bytes:
 class Request:
     """One request as a handler sees it (the parts of aiohttp's the router
     reads: ``method``, ``path``, ``query``, ``headers``, ``match_info``,
-    ``json()``, ``can_read_body``)."""
+    ``json()``, ``can_read_body``, ``content_type``)."""
 
     def __init__(self, method: str, target: str, headers: Headers, body: bytes,
                  writer: asyncio.StreamWriter) -> None:
@@ -185,8 +187,133 @@ class Request:
     def can_read_body(self) -> bool:
         return bool(self.body)
 
+    @property
+    def content_type(self) -> str:
+        """The media type of ``Content-Type``, lower-cased, without its
+        parameters; ``application/octet-stream`` when absent or malformed
+        (aiohttp's)."""
+        return media_type(self.headers.get("content-type"))
+
     async def json(self) -> Any:
         return json.loads(self.body)
+
+
+def media_type(raw: Optional[str]) -> str:
+    mtype = (raw or "").split(";", 1)[0].strip().lower()
+    kind, sep, sub = mtype.partition("/")
+    if not sep or not kind or not sub or "/" in sub:
+        return "application/octet-stream"
+    return mtype
+
+
+def header_params(raw: str) -> dict[str, str]:
+    """The ``; name=value`` parameters of a header value (values quoted or
+    not, names lower-cased; a quoted value's backslash escapes undone)."""
+    params: dict[str, str] = {}
+    i, n = raw.find(";"), len(raw)
+    if i < 0:
+        return params
+    i += 1
+    while i < n:
+        eq = raw.find("=", i)
+        semi = raw.find(";", i)
+        if eq < 0 or (0 <= semi < eq):
+            if semi < 0:
+                break
+            i = semi + 1  # a parameter without a value
+            continue
+        name = raw[i:eq].strip().lower()
+        i = eq + 1
+        while i < n and raw[i] in " \t":
+            i += 1
+        if i < n and raw[i] == '"':
+            out, i = [], i + 1
+            while i < n and raw[i] != '"':
+                if raw[i] == "\\" and i + 1 < n:
+                    i += 1
+                out.append(raw[i])
+                i += 1
+            if i >= n:
+                raise ValueError(f"unterminated quoted parameter {name!r}")
+            value = "".join(out)
+            semi = raw.find(";", i + 1)
+        else:
+            semi = raw.find(";", i)
+            value = raw[i:semi if semi >= 0 else n].strip()
+        if name:
+            params[name] = value
+        if semi < 0:
+            break
+        i = semi + 1
+    return params
+
+
+class MultipartError(ValueError):
+    """A ``multipart/*`` body that does not follow RFC 2046's framing."""
+
+
+class BodyPart:
+    """One part of a multipart body: its headers, ``name`` and ``filename``
+    from ``Content-Disposition``, and its bytes as sent (aiohttp's
+    ``read(decode=False)``)."""
+
+    def __init__(self, headers: Headers, data: bytes) -> None:
+        self.headers = headers
+        self.data = data
+        disposition = header_params(headers.get("content-disposition", ""))
+        self.name: Optional[str] = disposition.get("name")
+        self.filename: Optional[str] = disposition.get("filename")
+
+
+def parse_multipart(body: bytes, content_type: Optional[str]) -> list[BodyPart]:
+    """The parts of a ``multipart/*`` body (RFC 2046): the boundary from the
+    header's parameter, CRLF-framed delimiters, a preamble before the first
+    and an epilogue after the close delimiter ignored. Anything else raises
+    ``MultipartError``."""
+    try:
+        boundary = header_params(content_type or "").get("boundary")
+    except ValueError as e:
+        raise MultipartError(str(e)) from None
+    if media_type(content_type).split("/")[0] != "multipart" or not boundary:
+        raise MultipartError("a multipart body needs a multipart type with a boundary")
+    if len(boundary) > 70:
+        raise MultipartError("boundary longer than 70 characters")
+    delim = b"--" + boundary.encode("latin-1")
+    if body.startswith(delim):
+        pos = len(delim)
+    else:
+        at = body.find(b"\r\n" + delim)
+        if at < 0:
+            raise MultipartError("no delimiter line in the body")
+        pos = at + 2 + len(delim)
+    parts: list[BodyPart] = []
+    while True:
+        if body.startswith(b"--", pos):
+            return parts  # the close delimiter: what follows is the epilogue
+        eol = body.find(b"\r\n", pos)
+        if eol < 0 or body[pos:eol].strip(b" \t"):
+            raise MultipartError("a delimiter line does not end with CRLF")
+        head_end = body.find(b"\r\n\r\n", eol)
+        if head_end == eol:  # a part with no header lines
+            headers, start = Headers(), eol + 4
+        elif head_end < 0:
+            raise MultipartError("a part's headers do not end")
+        else:
+            headers = Headers()
+            for line in body[eol + 2:head_end].split(b"\r\n"):
+                name, sep, value = line.decode("latin-1").partition(":")
+                if not sep or not name.strip():
+                    raise MultipartError(f"bad part header line {line[:80]!r}")
+                headers[name.strip()] = value.strip()
+            start = head_end + 4
+        end = body.find(b"\r\n" + delim, start)
+        if end < 0:
+            raise MultipartError("a part has no closing delimiter")
+        try:
+            parts.append(BodyPart(headers, body[start:end]))
+        except ValueError as e:
+            raise MultipartError(str(e)) from None
+        pos = end + 2 + len(delim)
 
 
 class Response:

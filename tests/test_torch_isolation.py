@@ -9,7 +9,9 @@ own wire and codec, and fits its latency predictor with its own histogram GBDT.
 Under the same blocker the pool runs (a controller over fake replicas behind the
 port's router and sidecar, and a trace replayed through it), and so do the
 gateway fronts: one ext_proc stream picks an endpoint, and a pod watch re-lists
-after its stream ends."""
+after its stream ends. So does the batch plane: one multipart upload and one
+batch through the port's OpenAI Batch gateway, one item through the async
+processor, and one run of the load harness."""
 
 import re
 import subprocess
@@ -34,7 +36,10 @@ REPO = Path(__file__).resolve().parent.parent
 # one ext_proc stream (the port's gRPC client playing Envoy) through the port's
 # ``ExtProcEPP`` over a router in front of a fake replica, and a
 # ``K8sWatchSource`` against a fake pods API on the port's ``HTTPServer`` that
-# ends its watch once, so the source lists again.
+# ends its watch once, so the source lists again. Then the batch plane: a
+# multipart upload and a batch through the port's ``BatchGateway`` in front of a
+# fake server, one item through the ``AsyncProcessor``, and a ``run_load`` of the
+# load harness against the same fake server.
 _BLOCKED_IMPORT = r"""
 import importlib, importlib.abc, pkgutil, sys
 
@@ -201,6 +206,66 @@ async def gateway_path():
 
 asyncio.run(gateway_path())
 
+
+async def batch_path():
+    import tempfile
+    from llmd_tpu_torch.batch import (AsyncItem, AsyncProcessor, AsyncProcessorConfig,
+                                      BatchGateway, BatchGatewayConfig, MemoryQueuePuller)
+    from llmd_tpu_torch.benchmark import WorkloadSpec, build_requests, run_load
+    from llmd_tpu_torch.router.http import HTTPClient
+    from llmd_tpu_torch.testing.fake_server import FakeModelServer
+
+    fake = FakeModelServer(FakeServerConfig(prefill_us_per_token=0.0,
+                                            decode_us_per_token=0.0))
+    await fake.start()
+    root = tempfile.mkdtemp()
+    gw = BatchGateway(BatchGatewayConfig(target_url=f"http://{fake.address}",
+                                         files_root=root + "/files",
+                                         store_path=root + "/b.db"))
+    await gw.start()
+    client = HTTPClient()
+    try:
+        lines = "\n".join('{"custom_id": "c%d", "url": "/v1/completions", "body": '
+                          '{"prompt": "p%d", "max_tokens": 2}}' % (i, i) for i in range(3))
+        body = (b"--b1\r\nContent-Disposition: form-data; name=file; filename=in.jsonl"
+                b"\r\n\r\n" + lines.encode() + b"\r\n--b1--\r\n")
+        r = await client.request("POST", f"http://{gw.address}/v1/files", body=body,
+                                 headers={"content-type": "multipart/form-data; boundary=b1"})
+        fid = (await r.json())["id"]
+        r = await client.request("POST", f"http://{gw.address}/v1/batches",
+                                 json_body={"input_file_id": fid})
+        bid = (await r.json())["id"]
+        for _ in range(1000):
+            if gw.store.get(bid).status == "completed":
+                break
+            await asyncio.sleep(0.01)
+        row = gw.store.get(bid)
+        assert (row.status, row.completed) == ("completed", 3), row
+        results = []
+        q = MemoryQueuePuller()
+        proc = AsyncProcessor(AsyncProcessorConfig(target_url=f"http://{fake.address}",
+                                                   num_workers=1, seed=0), q,
+                              on_result=lambda item, res: results.append(res))
+        await proc.start()
+        await q.put(AsyncItem(id="a", url="/v1/completions", body={"prompt": "x"}))
+        for _ in range(1000):
+            if results:
+                break
+            await asyncio.sleep(0.01)
+        await proc.stop()
+        assert results and results[0]["choices"], results
+        spec = WorkloadSpec(kind="shared-prefix", num_requests=6, max_tokens=2,
+                            prefix_words=6, prompt_words=10)
+        res = await run_load(fake.address, build_requests(spec), concurrency=2, stream=True)
+        assert res.errors == 0 and len(res.ttfts) == 6, res.summary()
+    finally:
+        await client.close()
+        await gw.stop()
+        await fake.stop()
+
+
+asyncio.run(batch_path())
+
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 # the serving surface's modules are among them; pyzmq is imported only when a
@@ -284,6 +349,14 @@ assert {"llmd_tpu_torch.core.crds", "llmd_tpu_torch.router.grpc_wire",
         "llmd_tpu_torch.router.protobuf", "llmd_tpu_torch.router.ext_proc_pb",
         "llmd_tpu_torch.router.vllm_grpc_pb", "llmd_tpu_torch.router.extproc",
         "llmd_tpu_torch.router.vllmgrpc"} <= set(names)
+# and the batch plane's, the load harness, its consumer and the last gates
+assert {"llmd_tpu_torch.batch", "llmd_tpu_torch.batch.store", "llmd_tpu_torch.batch.files",
+        "llmd_tpu_torch.batch.gateway", "llmd_tpu_torch.batch.async_processor",
+        "llmd_tpu_torch.benchmark", "llmd_tpu_torch.benchmark.harness",
+        "llmd_tpu_torch.benchmark.__main__", "llmd_tpu_torch.tools.run_sched_comparison",
+        "llmd_tpu_torch.tools.chaos_check", "llmd_tpu_torch.tools.kv_plane_check",
+        "llmd_tpu_torch.tools.decision_check", "llmd_tpu_torch.tools.predictor_accuracy",
+        "llmd_tpu_torch.tools.perf_regress"} <= set(names)
 assert "zmq" not in sys.modules
 print(len(names))
 """
@@ -418,14 +491,20 @@ ROUTER_MODULES = ["core/config.py", "core/endpoint.py", "core/request.py",
                   "testing/fake_server.py", "tools/slo_check.py", "tools/pd_check.py",
                   "core/crds.py", "router/grpc_wire.py", "router/protobuf.py",
                   "router/ext_proc_pb.py", "router/vllm_grpc_pb.py", "router/extproc.py",
-                  "router/vllmgrpc.py"]
+                  "router/vllmgrpc.py", "batch/__init__.py", "batch/store.py", "batch/files.py",
+                  "batch/gateway.py", "batch/async_processor.py", "benchmark/__init__.py",
+                  "benchmark/__main__.py", "benchmark/harness.py",
+                  "tools/run_sched_comparison.py", "tools/chaos_check.py",
+                  "tools/kv_plane_check.py", "tools/decision_check.py",
+                  "tools/predictor_accuracy.py", "tools/perf_regress.py"]
 
 
 @pytest.mark.parametrize("module", ROUTER_MODULES)
 def test_router_modules_stand_alone(module):
     """The router, the latency plane, the sidecar, the KV plane's router side,
-    HA, the autoscaling plane, the pool, the fake server, the pool's gates and
-    the gateway fronts keep their own copies of the reference's modules: no
+    HA, the autoscaling plane, the pool, the fake server, the pool's gates, the
+    gateway fronts, the batch plane, the load harness and the last gates keep
+    their own copies of the reference's modules: no
     jax, no reference package, and none of aiohttp, msgpack, yaml, grpc, google,
     sklearn or torch in their sources (they are host code; the blocked import
     is the subprocess above)."""

@@ -677,6 +677,60 @@ def test_decode_graph_sampling_draws_fresh_numbers(cuda):
     assert len({tuple(s) for s in streams}) == len(streams)  # runs differ
 
 
+def test_capture_survives_another_threads_device_calls(cuda):
+    """A capture in one thread is not invalidated by what a second engine of
+    the process does meanwhile on its own stream (allocating, copying to
+    pinned memory, reading back, waiting on an event), and the replay gives
+    the eager result."""
+    import threading
+
+    from llmd_tpu_torch.engine.cuda_graph import CapturedProgram
+
+    torch.manual_seed(0)
+    x = torch.randn(1024, 1024, device=cuda) / 32
+    out = torch.empty_like(x)
+
+    def fn():
+        y = x
+        for _ in range(64):
+            y = torch.tanh(y @ x)
+        out.copy_(y)
+        return out
+
+    prog = CapturedProgram(fn, cuda, torch.Generator(device=cuda))
+    stop, running, errors = threading.Event(), threading.Event(), []
+
+    def other():
+        n = 0
+        with torch.cuda.stream(torch.cuda.Stream(cuda)):
+            while not stop.is_set():
+                n = n % 64 + 1
+                try:
+                    t = torch.ones(4096 * n, device=cuda) * 2
+                    host = torch.empty(16, pin_memory=True)
+                    host.copy_(t[:16], non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record()
+                    done.synchronize()
+                    assert t.sum().item() == 8192.0 * n and host.sum().item() == 32.0
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append(repr(e))
+                    return
+                running.set()
+
+    th = threading.Thread(target=other)
+    th.start()
+    try:
+        assert running.wait(30)
+        got = prog().clone()
+        torch.cuda.synchronize(cuda)
+    finally:
+        stop.set()
+        th.join(30)
+    assert not errors, errors
+    torch.testing.assert_close(got, fn().clone())
+
+
 def test_decode_graph_launch_counters(cuda):
     """After replays, each wrapper's counters hold what the capture counted
     times the replays (the warm-up and the capture itself count nothing),

@@ -80,9 +80,23 @@ def one_openmp_thread():
     """scikit-learn's OpenMP threads spin against the other test workers (a
     1,500-row fit took 48 s with 8 threads on an 8-CPU host busy with other
     workers, 0.5 s on one thread); the fit's result does not depend on the
-    thread count."""
+    thread count. The limit is per thread: it holds the fits and predictions
+    this test's own thread runs, not a fit that a ``TrainingServer`` runs in
+    its loop's executor (``_one_thread_fits`` holds those)."""
     with threadpool_limits(1):
         yield
+
+
+def _one_thread_fits(trainer) -> None:
+    """Wrap ``trainer.model.fit`` so the fit enters the one-thread OpenMP limit
+    itself, in the executor thread that ``retrain_now`` runs it on."""
+    fit = trainer.model.fit
+
+    def fit_on_one_thread(samples):
+        with threadpool_limits(1):
+            return fit(samples)
+
+    trainer.model.fit = fit_on_one_thread
 
 
 # -- the seeded sets -------------------------------------------------------------
@@ -262,6 +276,7 @@ async def _sidecar_script(mod, cli_mod, model_mod, tmp_path, tag):
     sidecar client of ``cli_mod`` over a dead and a live replica."""
     path = str(tmp_path / f"{tag}.pkl")
     trainer = mod.TrainingServer(path, port=0, retrain_interval_s=3600)
+    _one_thread_fits(trainer)
     pred = mod.PredictionServer(path, port=0, reload_interval_s=0.0)
     await trainer.start()
     await pred.start()
