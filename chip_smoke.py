@@ -300,7 +300,9 @@ thread's stack on stderr):
             and fp8 pools; K1's latent mode and K3 at moe-wide-mla's tp=2
             heads; K2 on an ep=2 receiver's bucketed rows (16 local slots, the
             pad rows on the sentinel slot); K4 over 16 groups; each timed in
-            bf16 beside its bound and the one-card shape's time. Then a
+            bf16 beside its bound, one PyTorch library call on the same inputs
+            (SDPA for K1, K1-latent and K3; ``bmm`` for K2 / K4) and the
+            one-card shape's time. Then a
             one-rank NCCL group: ``all_reduce``, ``all_gather`` and
             ``all_to_all_single`` captured in a CUDA graph, replayed = eager.
             Then the tp=2 splits on this card: one layer through
@@ -410,7 +412,33 @@ thread's stack on stderr):
             llmd_tpu_torch.tools.chaos_check``, ``kv_plane_check`` and
             ``decision_check`` as concurrent subprocesses, each exit 0, their
             seconds printed. The phase prints its seconds.
-25. pool    the pool and autoscaling (``phase_pool``): the port's
+25. tools   the port's tooling (``phase_tools``): ``python -m
+            llmd_tpu_torch.tools.llmd_lint`` (every analyzer over the port:
+            lock discipline, hot-path syncs, the env / metrics / events
+            contracts) and ``validate_manifests`` over ``deploy/`` as
+            subprocesses on the card's Python, each exit 0 (the lint's finding,
+            allow and lock counts printed). Two llama-1b bf16 engines (LoRA on,
+            1,024 pages each) behind the port's router: the rollout CLI loads an
+            adapter written from seed 0 on both pods and shifts the base model
+            to it over stages 0.1, 0.5, 1.0 with 8 probes each through
+            ``/admin/model-rewrites``: exit 0, every stage at success 1.0, the
+            successor pinned, K1 all on ``mma``; ``dump_flight`` renders one
+            engine's request list and a rollout probe's
+            timeline with its phase and decision ledgers from the router, and
+            the same views from their ``--save`` files, byte-equal; with both
+            engines drained a second rollout fails its first stage: exit 1,
+            the rewrites read back as before. ``predictor_accuracy``'s
+            offline mode on llama-1b at full width (the reference's four
+            regimes 3 times, the artifact in a temporary directory): MAPE and
+            skill against the mean baseline printed, K1 all on ``mma``. Then
+            one engine's unified step and replayed decode iterations under
+            ``torch.cuda.set_sync_debug_mode("warn")``: every sync site torch
+            reports in ``llmd_tpu_torch/`` is printed, and one inside a
+            function the lint holds hot without an ``allow[hot-host-sync]``
+            fails the phase; then the same for a speculative engine's verify
+            steps on echo prompts (a deliberate ``.item()`` after each run
+            must be reported). The phase prints its seconds.
+26. pool    the pool and autoscaling (``phase_pool``): the port's
             ``RouterServer`` (flow control on) over an empty pool, the port's
             ``PoolController`` in front of it (HPA, 1 to 2 replicas, a 1 s
             step) launching llama-1b replicas as processes
@@ -637,12 +665,13 @@ def sdpa_dense(c):
     """The same decode attention as one ``scaled_dot_product_attention`` call
     over K/V gathered dense (a yardstick only; the port never calls it)."""
     pool, pts, kv_lens = c["pool"], c["pts"].long(), c["kv_lens"]
+    nh, nk, W = c["H"], c["HK"], c["W"]  # llama-1b's, or one tp rank's
     B = len(kv_lens)
     S = pts.shape[1] * PS
-    kv = pool[pts[:B].clamp(min=0)].reshape(B, S, 2 * HK, D)
+    kv = pool[pts[:B].clamp(min=0)].reshape(B, S, 2 * nk, W)
     k = kv[:, :, 0::2].transpose(1, 2).contiguous()  # [B, Hk, S, D]
     v = kv[:, :, 1::2].transpose(1, 2).contiguous()
-    q = c["q"][: B].reshape(B, H, 1, D)
+    q = c["q"][: B].reshape(B, nh, 1, W)
     key_pos = torch.arange(S, device=pool.device)
     lens = torch.from_numpy(np.asarray(kv_lens)).to(pool.device)
     mask = (key_pos[None, :] < lens[:, None])[:, None, None, :]
@@ -651,8 +680,8 @@ def sdpa_dense(c):
         sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
         return lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
     except TypeError:  # torch without enable_gqa: expand heads in set-up
-        k = k.repeat_interleave(H // HK, dim=1)
-        v = v.repeat_interleave(H // HK, dim=1)
+        k = k.repeat_interleave(nh // nk, dim=1)
+        v = v.repeat_interleave(nh // nk, dim=1)
         return lambda: sdpa(q, k, v, attn_mask=mask)
 
 
@@ -5864,12 +5893,14 @@ def mesh_kernel_checks(device) -> dict:
 
 
 def time_mesh_kernels(device, tm: dict) -> dict:
-    """The rank-shaped kernels in bf16, each beside its bound and beside the
-    one-card shape's time from the time phase (``tm``): K1 at tp=2 / tp=4
-    decode B=64 (one card: 32 heads), K1's latent mode at tp=2 mixed and K3 at
-    tp=2 decode B=64+2 idle (one card: 16 heads on the mma instance), K2's wi
-    launch on the ep=2 receiver rows (one card: decode T=32 over 32 slots) and
-    K4's wi launch over 16 groups (one card: 32 groups of capacity 5)."""
+    """The rank-shaped kernels in bf16, each beside its bound, one PyTorch
+    library call on the same inputs (the time phase's: SDPA for K1, K1-latent
+    and K3, ``bmm`` for K2 / K4) and the one-card shape's time from the time
+    phase (``tm``): K1 at tp=2 / tp=4 decode B=64 (one card: 32 heads), K1's
+    latent mode at tp=2 mixed and K3 at tp=2 decode B=64+2 idle (one card: 16
+    heads on the mma instance), K2's wi launch on the ep=2 receiver rows (one
+    card: decode T=32 over 32 slots) and K4's wi launch over 16 groups (one
+    card: 32 groups of capacity 5)."""
     from llmd_tpu_torch.ops import grouped_gemm as gg
     from llmd_tpu_torch.ops import mla_decode as md
     from llmd_tpu_torch.ops import paged_attention as pa
@@ -5877,40 +5908,48 @@ def time_mesh_kernels(device, tm: dict) -> dict:
     bf = torch.bfloat16
     out = {}
 
-    def row(name, label, fn, bound, unsharded_ms, shape):
+    def row(name, label, fn, bound, unsharded_ms, shape, library, lib_name):
         ms = cuda_ms(fn)
+        library_ms = cuda_ms(library)
         b_ms, by = bound
         out.setdefault(name, {})[label] = r = {
             "shape": shape, "ms": ms, "bound_ms": b_ms, "bound_by": by,
-            "unsharded_ms": unsharded_ms, "roofline_share": b_ms / ms}
+            "unsharded_ms": unsharded_ms, "library_ms": library_ms, "library": lib_name,
+            "roofline_share": b_ms / ms}
         log(f"time: mesh {name} {label} {shape} ms={ms:.4f} bound_ms={b_ms:.4f} ({by}) "
-            f"one-card shape ms={unsharded_ms:.4f} roofline_share={r['roofline_share']:.3f}")
+            f"library_ms({lib_name})={library_ms:.4f} one-card shape ms={unsharded_ms:.4f} "
+            f"roofline_share={r['roofline_share']:.3f}")
 
     for label, heads in (("tp2_decode", TP2), ("tp4_decode", TP4)):
         c = decode_case(bf, device, heads=heads)
         row("paged_attention", label, lambda c=c: run_attention(pa.paged_attention, c),
             attention_bound(c, bf), tm["paged_attention"]["decode"]["ms"],
-            f"decode B=64 H{heads[0]} Hk{heads[1]} D64 bf16")
+            f"decode B=64 H{heads[0]} Hk{heads[1]} D64 bf16", sdpa_dense(c), "sdpa")
     c = mixed_case(bf, device, heads=MLA_TP2, latent=True)
     row("paged_attention_latent", "tp2_mixed", lambda: run_attention(pa.paged_attention, c),
         attention_bound(c, bf), tm["paged_attention_latent"]["mixed"]["ms"],
         f"mixed H{MLA_TP2[0]} latent W160 bf16 instance="
-        f"{pa._instance(bf, 1, MLA_W, MLA_TP2[0])}")
+        f"{pa._instance(bf, 1, MLA_W, MLA_TP2[0])}", sdpa_latent(c), "sdpa, gather included")
     c3 = latent_decode_case(bf, device, heads=MLA_TP2[0])
     row("mla_decode", "tp2_decode", lambda: run_latent_decode(md.mla_decode, c3),
         latent_decode_bound(c3, bf), tm["mla_decode"]["decode"]["ms"],
         f"decode B=64+2 idle H{MLA_TP2[0]} W160 bf16 instance="
-        f"{md._instance(bf, MLA_TP2[0], MLA_W)}")
+        f"{md._instance(bf, MLA_TP2[0], MLA_W)}", sdpa_latent(c3), "sdpa dense, gather included")
     for name, label, c, fn, one in (
             ("ragged_grouped_gemm", "ep2_receiver", ep_receiver_case(bf, device, 31),
              gg.ragged_grouped_gemm, tm["ragged_grouped_gemm"]["decode"]["ms"]),
             ("grouped_gemm", "ep2_local16", capacity_case(10, 16, bf, device, 32),
              gg.grouped_gemm, tm["grouped_gemm"]["decode"]["ms"])):
         _, x, w = c["launches"][0]
-        index = (c["slot"], c["live"]) if name == "ragged_grouped_gemm" else (c["live"],)
+        ragged = name == "ragged_grouped_gemm"
+        index = (c["slot"], c["live"]) if ragged else (c["live"],)
         bound_ms, by, _ = gemm_bound(x, w, c["slot"], c["live"], bf, len(index))
+        slot_l = c["slot"].long()
+        library = ((lambda x=x, w=w, s=slot_l: torch.bmm(x, w.index_select(0, s))) if ragged
+                   else (lambda x=x, w=w: torch.bmm(x, w)))
         row(name, label, lambda x=x, w=w, index=index, fn=fn: fn(x, w, *index), (bound_ms, by),
-            one, f"{c['shape']} wi bf16")
+            one, f"{c['shape']} wi bf16", library,
+            "bmm over index_select-gathered weights, gather included" if ragged else "bmm")
     return out
 
 
@@ -6824,16 +6863,19 @@ class _RouterThread(_LoopThread):
             self.close()
 
 
-def _router_engines(device, cfg, n: int = 2, seed: int = 0, **server_kw) -> list:
+def _router_engines(device, cfg, n: int = 2, seed: int = 0, engine_kw: "dict | None" = None,
+                    **server_kw) -> list:
     """``n`` port servers of the same weights (``seed``), KV events on free
     loopback ports, the id tokenizer (a text holds its tokens one for one);
-    ``server_kw`` goes to each ``EngineServer``."""
+    ``engine_kw`` goes over ``ROUTER_KW`` into each ``EngineConfig``,
+    ``server_kw`` to each ``EngineServer``."""
     from llmd_tpu_torch.engine.config import EngineConfig
     from llmd_tpu_torch.engine.server import EngineServer
 
     servers = []
     for _ in range(n):
-        s = EngineServer(cfg, EngineConfig(**ROUTER_KW), host="127.0.0.1", port=0,
+        s = EngineServer(cfg, EngineConfig(**(ROUTER_KW | (engine_kw or {}))),
+                         host="127.0.0.1", port=0,
                          kv_events_port=0, tokenizer=IdTokenizer(cfg.vocab_size),
                          seed=seed, device=device, **server_kw)
         s.start()
@@ -8321,6 +8363,322 @@ def phase_batch(device, card: str, model: str = "llama-1b", f32_kw=None,
     return out
 
 
+# --------------------------------------------------------------------------
+# The port's tooling: its lint, the operator CLIs, torch's syncs held to the lint
+# --------------------------------------------------------------------------
+
+def _tool(module: str, *args: str, timeout_s: float = 300.0) -> dict:
+    """``python -m llmd_tpu_torch.tools.<module> args`` from the checkout:
+    exit code, output and seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"llmd_tpu_torch.tools.{module}", *args],
+                          cwd=REPO, capture_output=True, text=True, timeout=timeout_s)
+    return {"rc": proc.returncode, "stdout": proc.stdout, "stderr": proc.stderr,
+            "seconds": time.perf_counter() - t0}
+
+
+def tools_static(card: str) -> dict:
+    """The port's lint (every analyzer over ``llmd_tpu_torch/``) and the
+    manifest validator over ``deploy/``, each as a subprocess on the card's
+    Python: exit 0, with the lint's finding and allow counts."""
+    lint = _tool("llmd_lint", "--json")
+    if lint["rc"] != 0:
+        raise AssertionError(f"tools: llmd_lint exited {lint['rc']}: "
+                             f"{lint['stdout'][-3000:]}{lint['stderr'][-3000:]}")
+    found = json.loads(lint["stdout"])
+    locks = found["summaries"]["locks"]
+    row = {"lint_rc": lint["rc"], "lint_seconds": lint["seconds"],
+           "lint_failures": found["counts"]["failures"],
+           "lint_allowed": found["counts"]["allowed"],
+           "lint_lock_classes": locks["num_classes"], "lint_locks": locks["num_locks"],
+           "lint_lock_edges": locks["edges"]}
+    log(f"tools: llmd_lint rc {lint['rc']} in {lint['seconds']:.2f} s: "
+        f"{row['lint_failures']} findings, {row['lint_allowed']} allowed, "
+        f"{locks['num_classes']} classes holding {locks['num_locks']} locks, "
+        f"{locks['num_edges']} lock-order edges")
+    val = _tool("validate_manifests", "deploy")
+    if val["rc"] != 0:
+        raise AssertionError(f"tools: validate_manifests exited {val['rc']}: "
+                             f"{val['stderr'][-3000:]}")
+    row |= {"validate_rc": val["rc"], "validate_seconds": val["seconds"],
+            "validate": val["stdout"].strip()}
+    log(f"tools: validate_manifests rc {val['rc']} in {val['seconds']:.2f} s: "
+        f"{row['validate']} (on the host of {card})")
+    return row
+
+
+def tools_rollout(device, card: str, model: str = "llama-1b", seed: int = 0,
+                  probes: int = 8, stages: str = "0.1,0.5,1.0") -> dict:
+    """Two bf16 engines (LoRA on) behind the port's router: an adapter written
+    locally from ``seed`` rolled out by the rollout CLI through the router's
+    ``/admin/model-rewrites`` over ``stages`` with ``probes`` canaries each
+    (exit 0, the successor pinned); ``dump_flight`` against one engine and the
+    router (the list, and ``--id <a rollout probe> --phases --decisions``),
+    each view also rendered from its ``--save`` file, byte-equal; then, with
+    both engines drained, a second rollout whose stage fails: exit 1, the
+    rewrites read back as they were."""
+    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.models.lora import LoRAConfig, make_adapter_weights
+
+    cfg = get_model_config(model)
+    servers = _router_engines(device, cfg, 2, seed, engine_kw={"lora": LoRAConfig()})
+    router = None
+    tmp = Path(tempfile.mkdtemp(prefix="llmd-tools-"))
+    try:
+        router = _RouterThread(servers)
+        weights = make_adapter_weights(cfg, LoRAConfig(), torch.Generator().manual_seed(seed))
+        npz = tmp / "ad-0.npz"
+        np.savez(npz, **{k: v.float().numpy() for k, v in weights.items()})
+        base = servers[0].model_name
+        rewrites = f"{router.url}/admin/model-rewrites"
+        addr = router.url.removeprefix("http://")
+        zero_counts()
+        run = _tool("rollout", "--router", addr, "--model", base, "--new", "ad-0",
+                    "--stages", stages, "--probes", str(probes),
+                    "--pods", ",".join(s.address for s in servers), "--adapter-path", str(npz))
+        launches, plain = read_counts()
+        by_instance = instance_counts()
+        report = json.loads(run["stdout"]) if run["stdout"].strip() else {}
+        pinned = json.loads(_http("GET", rewrites)[2])
+        row = {"rollout_rc": run["rc"], "rollout_seconds": run["seconds"],
+               "rollout": report, "rewrites": pinned, "launches": launches,
+               "launches_by_instance": by_instance}
+        log(f"tools: rollout {stages} x {probes} probes rc {run['rc']} in "
+            f"{run['seconds']:.2f} s: {report.get('outcome')}, stages "
+            f"{[s['success_rate'] for s in report.get('stages', [])]}, rewrites {pinned}; "
+            f"K1 {launches['paged_attention']} launches {by_instance['paged_attention']}")
+        if run["rc"] != 0 or report.get("outcome") != "completed" \
+                or pinned.get(base) != [["ad-0", 1.0]]:
+            raise AssertionError(f"tools: the rollout did not complete and pin ad-0: rc "
+                                 f"{run['rc']} {report} {pinned}\n{run['stderr'][-3000:]}")
+        if device.type == "cuda" and (  # launch checks on the card only
+                any(plain.values()) or launches["paged_attention"] == 0
+                or by_instance["paged_attention"].get("mma") != launches["paged_attention"]):
+            raise AssertionError(f"tools: the rollout's engines did not run K1 on mma "
+                                 f"alone: {launches} {by_instance} plain {plain}")
+
+        # dump_flight, live and from its saved files
+        eng_url = f"http://{servers[0].address}"
+        listed = json.loads(_http("GET", f"{router.url}/debug/requests?limit=100")[2])
+        probe = next(r["request_id"] for r in reversed(listed["requests"])
+                     if r.get("status") == "finished")
+        views = {"engine list": (eng_url,), "router --id --phases --decisions": (
+            router.url, "--id", probe, "--phases", "--decisions")}
+        for label, (src, *flags) in views.items():
+            saved = tmp / (label.split()[0] + ".json")
+            runs = [_tool("dump_flight", src, *flags),
+                    _tool("dump_flight", src, *flags, "--save", str(saved)),
+                    _tool("dump_flight", str(saved), *flags)]
+            rc, rc_save, rc_file = (run["rc"] for run in runs)
+            live, offline = runs[0]["stdout"], runs[2]["stdout"]
+            row[f"dump_flight {label}"] = {"rc": (rc, rc_save, rc_file),
+                                           "lines": len(live.splitlines()),
+                                           "equal": live == offline}
+            log(f"tools: dump_flight {label}: rc {rc} / {rc_save} / {rc_file}, "
+                f"{len(live.splitlines())} lines, saved render equal {live == offline}")
+            if (rc, rc_save, rc_file) != (0, 0, 0) or live != offline or not live:
+                raise AssertionError(f"tools: dump_flight {label}: rc {rc} / {rc_save} / "
+                                     f"{rc_file}; live:\n{live[-2000:]}\nsaved:\n"
+                                     f"{offline[-2000:]}")
+        if "phase ledger" not in live or "decision ledger" not in live:
+            raise AssertionError(f"tools: dump_flight --phases --decisions of a rollout "
+                                 f"probe shows no ledgers:\n{live[-2000:]}")
+
+        # a failed stage rolls back
+        for s in servers:
+            _http("POST", f"http://{s.address}/drain", {})
+        fail = _tool("rollout", "--router", addr, "--model", base, "--new", "ad-1",
+                     "--stages", "0.5,1.0", "--probes", "4")
+        after = json.loads(_http("GET", rewrites)[2])
+        failed = json.loads(fail["stdout"]) if fail["stdout"].strip() else {}
+        row |= {"failed_rc": fail["rc"], "failed_outcome": failed.get("outcome"),
+                "rewrites_after_failure": after}
+        log(f"tools: rollout to a drained pool rc {fail['rc']}: {failed.get('outcome')}; "
+            f"rewrites {after}")
+        if fail["rc"] == 0 or after != pinned \
+                or not str(failed.get("outcome", "")).startswith("rolled-back"):
+            raise AssertionError(f"tools: a failed stage did not roll back: rc {fail['rc']} "
+                                 f"{failed} rewrites {after} (before {pinned})")
+        return row
+    finally:
+        if router is not None:
+            router.stop()
+        for s in servers:
+            s.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def tools_predictor(device, card: str, model: str = "llama-1b", reps: int = 3) -> dict:
+    """``predictor_accuracy``'s offline mode on ``model`` at full width on the
+    card: the reference's four regimes ``reps`` times, the GBDT fitted on the
+    engine's trace; its artifact written into a temporary directory. MAPE,
+    skill against the mean baseline and K1's launches on its instances."""
+    from llmd_tpu_torch.tools.predictor_offline import offline
+
+    tmp = Path(tempfile.mkdtemp(prefix="llmd-tools-"))
+    try:
+        zero_counts()
+        art = offline(model, device.type == "cpu", reps, str(tmp / "predictor_accuracy.json"))
+        launches, plain = read_counts()
+        by_instance = instance_counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"tools: predictor_accuracy {model} reps {reps}: {art['requests_served']} requests "
+        f"in {art['serve_seconds']} s, ttft_mape {art['ttft_mape']} (mean baseline "
+        f"{art['mean_baseline_ttft_mape']}, skill {art['skill_vs_mean']}x), tpot_mape "
+        f"{art['tpot_mape']}; K1 {launches['paged_attention']} launches "
+        f"{by_instance['paged_attention']} on {card}")
+    if device.type == "cuda" and (  # launch checks on the card only
+            any(plain.values()) or launches["paged_attention"] == 0
+            or by_instance["paged_attention"].get("mma") != launches["paged_attention"]):
+        raise AssertionError(f"tools: predictor_accuracy's engine did not run K1 on mma "
+                             f"alone: {launches} {by_instance} plain {plain}")
+    return {"artifact": art, "launches": launches, "launches_by_instance": by_instance}
+
+
+def _enclosing(sf, line: int) -> "str | None":
+    """The top-level function or method of ``sf`` whose body holds ``line``
+    (the unit the hot-path lint selects), or None."""
+    import ast
+
+    for node in sf.tree.body:
+        items = node.body if isinstance(node, ast.ClassDef) else [node]
+        for fn in items:
+            if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)) \
+                    and fn.lineno <= line <= (fn.end_lineno or fn.lineno):
+                return fn.name
+    return None
+
+
+def _sync_run(eng, prompts, max_tokens: int, control: bool) -> tuple[list, int, int]:
+    """Step ``eng`` through ``prompts`` (greedy, ``max_tokens`` each) under
+    ``torch.cuda.set_sync_debug_mode("warn")``: (each sync warning's innermost
+    frame in ``llmd_tpu_torch/`` with its message, steps, the sync warnings
+    of this script's deliberate ``.item()`` control). Other warnings are not
+    syncs and are left out."""
+    import traceback
+    import warnings
+
+    from llmd_tpu_torch.core.request import SamplingParams
+
+    sp = SamplingParams(max_tokens=max_tokens, temperature=0.0, ignore_eos=True)
+    for i, toks in enumerate(prompts):
+        eng.add_request(f"sync-{i}", list(toks), sp)
+    pkg, me = str(REPO / "llmd_tpu_torch"), str(Path(__file__).resolve())
+    seen, controls = [], []
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" not in str(message):
+            return
+        stack = traceback.extract_stack()
+        ours = [f for f in stack if f.filename.startswith(pkg)]
+        if ours:
+            seen.append((ours[-1].filename, ours[-1].lineno, str(message)[:120]))
+        elif any(f.filename == me and f.name == "_sync_run" for f in stack):
+            controls.append(str(message)[:120])
+
+    steps = 0
+    on_card = eng.device.type == "cuda"  # the CPU has no sync debug mode: no sites
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        if on_card:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            while eng.has_work():
+                eng.step()
+                steps += 1
+            if control and on_card:  # the mode must see a deliberate read-back
+                torch.ones(1, device=eng.device).item()
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode(0)
+    return seen, steps, len(controls)
+
+
+def tools_sync_sites(device, card: str, model: str = "llama-1b", seed: int = 0,
+                     n_requests: int = 4, prompt_len: int = 96, max_tokens: int = 16) -> dict:
+    """The static lint held to what torch sees: one engine's unified step and
+    replayed decode iterations, then a speculative engine's verify steps on
+    echo prompts, under ``torch.cuda.set_sync_debug_mode("warn")`` (a
+    deliberate ``.item()`` in this script must be reported). Each warning's
+    innermost frame in ``llmd_tpu_torch/`` is a sync site; a site inside a
+    function the lint holds hot must carry an ``allow[hot-host-sync]`` with
+    its justification."""
+    from llmd_tpu_torch.core.request import SamplingParams
+    from llmd_tpu_torch.engine import EngineConfig, LLMEngine
+    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.tools.llmd_lint import core as lint_core
+    from llmd_tpu_torch.tools.llmd_lint.hotpath import _hot_functions, _selected
+
+    cfg = get_model_config(model)
+    rng = np.random.default_rng(seed)
+    seen, steps, controls = [], {}, {}
+    for label, kw, prompts in (
+            ("plain", {}, [rng.integers(1, cfg.vocab_size - 1, prompt_len).tolist()
+                           for _ in range(n_requests)]),
+            ("spec", SPEC_KW, echo_prompts(n_requests, 7, cfg.vocab_size, prompt_len))):
+        eng = LLMEngine(cfg, EngineConfig(**(ROUTER_KW | kw)), seed=seed, device=device)
+        try:  # captures the decode program (and, with speculation, runs a verify step)
+            eng.generate(echo_prompts(1, 1, cfg.vocab_size, 64),
+                         SamplingParams(max_tokens=2 * eng.cfg.decode_steps + 2,
+                                        temperature=0.0))
+            found, steps[label], n = _sync_run(eng, prompts, max_tokens, control=True)
+            seen += found
+            controls[label] = n
+        finally:
+            eng.close()
+    project = lint_core.Project(REPO)
+    sites: dict = {}
+    unallowed = []
+    for filename, lineno, message in seen:
+        rel = Path(filename).resolve().relative_to(REPO).as_posix()
+        site = sites.setdefault(f"{rel}:{lineno}", {"count": 0, "message": message})
+        site["count"] += 1
+        if site["count"] > 1:
+            continue
+        sf = project.file(rel)
+        fn = _enclosing(sf, lineno) if sf is not None else None
+        funcs = _hot_functions(project.config.hot_paths, sf) if sf is not None else None
+        site["function"] = fn
+        site["hot"] = hot = bool(funcs is not None and fn and _selected(funcs, fn))
+        allow = sf.allow_for("hot-host-sync", lineno) if sf is not None else None
+        site["allow"] = allow[1] if allow else None
+        if hot and not (allow and allow[1]):
+            unallowed.append(f"{rel}:{lineno} in {fn}: {message}")
+    for key, site in sites.items():
+        log(f"tools: sync site {key} x{site['count']} in {site['function']} "
+            f"(hot {site['hot']}; allow: {site['allow'] or '-'}): {site['message']}")
+    log(f"tools: {len(sites)} sync sites in llmd_tpu_torch over {steps} steps on {card} "
+        f"({sum(s['hot'] for s in sites.values())} in hot functions, "
+        f"{sum(bool(s['allow']) for s in sites.values())} allowed; the .item() control's "
+        f"sync warnings by run: {controls})")
+    if device.type == "cuda" and not all(controls.values()):
+        raise AssertionError(f"tools: the sync debug mode missed a deliberate .item() "
+                             f"control: {controls}")
+    if unallowed:
+        raise AssertionError("tools: syncs inside hot functions without an "
+                             "allow[hot-host-sync]: " + "; ".join(unallowed))
+    return {"sites": sites, "steps": steps, "controls": controls}
+
+
+def phase_tools(device, card: str, model: str = "llama-1b", rollout_kw=None,
+                predictor_kw=None, sync_kw=None) -> dict:
+    """The tools phase: the port's lint and manifest validator, a rollout and
+    dump_flight over two engines behind the router, predictor_accuracy
+    offline, and the dynamic check of the static lint's hot-path syncs."""
+    t0 = time.perf_counter()
+    out = {"static": tools_static(card)}
+    out["rollout"] = tools_rollout(device, card, model=model, **(rollout_kw or {}))
+    _empty()
+    out["predictor"] = tools_predictor(device, card, model=model, **(predictor_kw or {}))
+    _empty()
+    out["sync"] = tools_sync_sites(device, card, model=model, **(sync_kw or {}))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"tools: phase {out['seconds']:.1f} s on {card}")
+    return out
+
+
 POOL_EXTRA = ["--host", "127.0.0.1", "--num-pages", "1024", "--max-batch-size", "64",
               "--prefill-chunk", "256", "--decode-steps", "4"]
 POOL_READY_S = 400.0  # a cold replica compiles its kernels (nvcc) before /health
@@ -8943,13 +9301,16 @@ def main(argv: "list[str] | None" = None) -> int:
     _empty()  # the previous phase's engines
     report["batch"] = batch = phase_batch(device, card)
     _empty()  # the previous phase's engines
+    report["tools"] = tools = phase_tools(device, card)
+    _empty()  # the previous phase's engines
     report["pool"] = pool = phase_pool(device, card)
     report["seconds"] = time.perf_counter() - t_start
     log(f"smoke: all phases {report['seconds']:.1f} s (vision {vision['seconds']:.1f} s, "
         f"obs {obs['seconds']:.1f} s, launch {launch['seconds']:.1f} s, "
         f"mesh {mesh['seconds']:.1f} s, router {router['seconds']:.1f} s, "
         f"latency {latency['seconds']:.1f} s, gateway {gateway['seconds']:.1f} s, "
-        f"batch {batch['seconds']:.1f} s, pool {pool['seconds']:.1f} s)")
+        f"batch {batch['seconds']:.1f} s, tools {tools['seconds']:.1f} s, "
+        f"pool {pool['seconds']:.1f} s)")
     if args.report:
         out = Path(args.report)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -8991,7 +9352,7 @@ def main(argv: "list[str] | None" = None) -> int:
 
     def mesh_keys(name: str) -> dict:  # one rank's shapes under the mesh
         return {f"mesh_{label}_{k}": row[k] for label, row in mesh["time"][name].items()
-                for k in ("ms", "bound_ms", "unsharded_ms")}
+                for k in ("ms", "bound_ms", "unsharded_ms", "library_ms")}
 
     gemm_src = "llmd_tpu_torch/csrc/grouped_gemm.cu"
     attn_src = "llmd_tpu_torch/csrc/paged_attention.cu"

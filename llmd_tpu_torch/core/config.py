@@ -13,10 +13,11 @@ The card's Python has no PyYAML, so :func:`load_yaml` reads the subset of YAML
 that EPP configs use, with PyYAML's ``safe_load`` results: block and flow
 mappings and sequences, plain scalars resolved as YAML 1.1 does (null, bool,
 int, float, else str), single- and double-quoted scalars, comments and one
-leading ``---``. Anything outside the subset (anchors, aliases, tags, block
-scalars, multi-line plain scalars, timestamps, sexagesimal numbers, several
-documents) raises ``ConfigError`` with its line number; nothing is mis-read in
-silence. :func:`load_yaml_all` reads several documents of the subset, as
+leading ``---``, and literal block scalars (``|``, ``|-``, ``|+``: a
+ConfigMap's embedded file). Anything outside the subset (anchors, aliases,
+tags, folded block scalars and indentation indicators, multi-line plain
+scalars, timestamps, sexagesimal numbers, several documents) raises
+``ConfigError`` with its line number; nothing is mis-read in silence. :func:`load_yaml_all` reads several documents of the subset, as
 ``yaml.safe_load_all`` does (the manifests of ``core/crds.py``).
 """
 
@@ -281,12 +282,51 @@ def _key_split(text: str) -> Optional[int]:
     return None
 
 
+# a literal block scalar's header ending a line: after "key:" or "-"
+_BLOCK_SCALAR = re.compile(r"(?:^-|:)[ \t]+\|([-+]?)$|^-?[ \t]*\|([-+]?)$")
+_BLOCK_MARK = "\x00"  # stands in the line for the scalar read from the raw lines
+
+
+def _literal_block(raw: list[str], n: int, parent: int, chomp: str) -> tuple[str, int]:
+    """The literal block scalar whose lines start at ``raw[n]``, more indented
+    than ``parent``, and the index of the first line after it. Lines keep
+    their text past the block's indent (comments are content); ``chomp`` is
+    the header's indicator: '' keeps one final newline, '-' none, '+' all."""
+    body: list[str] = []
+    indent = None
+    while n < len(raw):
+        ln = raw[n]
+        if not ln.strip():
+            body.append("")
+            n += 1
+            continue
+        ind = len(ln) - len(ln.lstrip(" "))
+        if indent is None:
+            if ind <= parent:
+                break
+            indent = ind
+        if ind < indent:
+            break
+        body.append(ln[indent:])
+        n += 1
+    last = len(body)
+    while last and not body[last - 1]:
+        last -= 1
+    trailing = len(body) - last  # blank lines after the content
+    if not last:
+        return ("\n" * trailing if chomp == "+" else ""), n
+    text = "\n".join(body[:last])
+    end = "" if chomp == "-" else "\n" * (trailing + 1) if chomp == "+" else "\n"
+    return text + end, n
+
+
 class _Block:
     def __init__(self, text: str) -> None:
         for n, ln in enumerate(text.splitlines(), 1):
             if "\t" in ln[:len(ln) - len(ln.lstrip(" \t"))]:
                 raise ConfigError(f"line {n}: tabs in indentation")
         self.lines: list[tuple[int, int, str]] = []  # (line number, indent, text)
+        self.scalars: dict[int, str] = {}  # line number -> its literal block scalar
         raw = text.splitlines()
         n = 0
         seen_doc = False
@@ -295,6 +335,14 @@ class _Block:
             n += 1
             stripped = body.strip()
             if not stripped:
+                continue
+            block = _BLOCK_SCALAR.search(stripped)
+            if block is not None:
+                indent = len(body) - len(body.lstrip(" "))
+                self.scalars[n], after = _literal_block(
+                    raw, n, indent, block.group(1) or block.group(2) or "")
+                self.lines.append((n, indent, stripped[:stripped.rindex("|")] + _BLOCK_MARK))
+                n = after
                 continue
             if body.startswith("%"):
                 raise ConfigError(f"line {n}: directives are outside the YAML subset")
@@ -341,6 +389,8 @@ class _Block:
         return value
 
     def inline(self, text: str, line: int) -> Any:
+        if text == _BLOCK_MARK:
+            return self.scalars[line]
         f = _Flow(text, line)
         value = f.value("")
         f.ws()

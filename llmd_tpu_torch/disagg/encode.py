@@ -125,6 +125,7 @@ class VisionRunner:
         """[N, S, S, 3] float32 pixels -> [N, mm_tokens, hidden] rows on the
         runner's device (no cache)."""
         with torch.no_grad():
+            # llmd-lint: allow[lock-unguarded-read] one atomic read of the weights dict: an encode in flight keeps the dict it read until it returns; close() swaps in an empty one under the lock, and taking the lock here would serialise overlapping encodes
             return encode_images(self.cfg, self.params,
                                  torch.from_numpy(pixels).to(self.device))
 

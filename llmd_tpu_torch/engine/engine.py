@@ -1816,6 +1816,7 @@ class LLMEngine:
             cu=cu, lora=lora if self.lora_registry is not None else None,
             mm=(mm_embeds, mm_mask) if media else None)
         if self.cfg.instrument and self._stream is not None:
+            # llmd-lint: allow[hot-host-sync] instrument-gated timing barrier; off in production serving
             self._stream.synchronize()  # the program's outputs, before stamping t2
         t2 = time.perf_counter()
         if self.model_cfg.is_moe:
@@ -1997,6 +1998,7 @@ class LLMEngine:
     def _sample_apply(self, rec: dict) -> None:
         """Wait for one dispatched sample's tokens and apply them."""
         if rec["event"] is not None:
+            # llmd-lint: allow[hot-host-sync] designed sync point: deferred sample readback, overlapped with the next dispatch
             rec["event"].synchronize()
         self.programs.record_complete("sample")
         now = time.monotonic()
@@ -2196,7 +2198,8 @@ class LLMEngine:
             out, cnt, drop = self._op("verify", batch=batch, table_rows=table_rows,
                                       states=states)
         # the designed sync point: acceptance needs the greedy tokens (and
-        # the states after them) on the host
+        # the states after them, the same readback) on the host
+        # llmd-lint: allow[hot-host-sync] designed sync point: verify needs the greedy tokens on host to accept/reject the draft
         host = out.cpu().numpy()
         g, fsm = host[:N], (host[N:] if mask is not None else None)
         self.programs.record_complete(prog)
@@ -2970,6 +2973,7 @@ class LLMEngine:
         t1 = time.perf_counter()
         t1_ns = time.time_ns()
         if rec["event"] is not None:
+            # llmd-lint: allow[hot-host-sync] designed sync point: the one deferred readback per decode step (dispatch/process split hides it behind the next dispatch)
             rec["event"].synchronize()
         self._observe_probes(rec["probes"])
         k, B = rec["k"], self.cfg.max_batch_size

@@ -188,6 +188,9 @@ from llmd_tpu_torch.structured import validate_structured_body
 GENERATE_ROUTES = {"/v1/completions": False, "/v1/chat/completions": True}  # path -> chat
 RENDER_ROUTES = ("/v1/completions/render", "/v1/chat/completions/render")
 LORA_ROUTES = {"/v1/load_lora_adapter": "load_lora", "/v1/unload_lora_adapter": "unload_lora"}
+# the KV data plane's counters (``EngineServer.transfer_stats``), in the reference's order
+TRANSFER_STATS = ("injected_blocks", "pull_failures", "prefix_pulls", "prefix_pull_blocks",
+                  "released")
 
 
 def body_has_media(body: dict) -> bool:
@@ -283,9 +286,8 @@ class EngineServer:
         self.advertise_host: Optional[str] = None  # routable host for transfer handles
         self.transfer_source: Optional[KVTransferSource] = None
         self.transfer_client: Optional[KVTransferClient] = None
-        self.transfer_stats = {"injected_blocks": 0, "pull_failures": 0,
-                               "prefix_pulls": 0, "prefix_pull_blocks": 0,
-                               "released": 0}  # guarded-by: _transfer_lock
+        # guarded-by: _transfer_lock
+        self.transfer_stats = {key: 0 for key in TRANSFER_STATS}
         # pulls whose peer-side registration may still be live: local rid ->
         # (host, port, remote rid), released when the request ends
         self._pending_pulls: dict[str, tuple] = {}  # guarded-by: _transfer_lock
@@ -344,14 +346,18 @@ class EngineServer:
     def address(self) -> str:
         return f"{self.host}:{self.port}"
 
+    def _transfer_stat(self, key: str) -> int:
+        with self._transfer_lock:
+            return self.transfer_stats[key]
+
     def _attach_transfer_metrics(self) -> None:
         """The transfer and durable families read live state at scrape time,
         at the reference's sites (``transfer_stats``, the source's counters
         and registrations, the write-back queue and breaker); the flush
         counter is moved by the queue's ``on_flush`` callback."""
         sm = self.server_metrics
-        for key in self.transfer_stats:
-            sm.transfer[key].set_function(lambda k=key: self.transfer_stats[k])
+        for key in TRANSFER_STATS:
+            sm.transfer[key].set_function(lambda k=key: self._transfer_stat(k))
         for key in ("exports", "pulls", "notifies", "expired"):
             sm.transfer[key].set_function(
                 lambda k=key: self.transfer_source.stats.get(k, 0)
@@ -485,10 +491,19 @@ class EngineServer:
             self.transfer_source.stop()
         if self.publisher is not None:
             self.publisher.stop()
-        if self._built_vision:
-            self._vision.close()  # the in-process tower's weights
+        self._close_tower()
         if self._owns_engine:
             self.engine.close()
+
+    def _close_tower(self) -> None:
+        """Free the in-process tower's weights if this server built it; a
+        build in flight (it holds the lock) finishes first, so its tower is
+        freed too."""
+        with self._vision_lock:
+            tower = self._vision if self._built_vision else None
+            self._built_vision = False
+        if tower is not None:
+            tower.close()
 
     # -- the KV data plane ---------------------------------------------------
     def _pull_remote_kv(self, ktp: KVTransferParams, token_ids: list[int],
@@ -889,7 +904,8 @@ class EngineServer:
                 if self._vision is None:
                     self._vision = VisionRunner(cfg, device=self.engine.device)
                     self._built_vision = True
-            encoded = self._vision.encode([media_bytes_from_part(parts[i]) or b""
+                tower = self._vision
+            encoded = tower.encode([media_bytes_from_part(parts[i]) or b""
                                            for i in missing])
             for i, (_h, emb) in zip(missing, encoded):
                 mm_items[i] = (part_identity(parts[i]), emb)

@@ -111,12 +111,14 @@ class _RespClient:
         self._lock = threading.Lock()
 
     def _connect(self) -> None:
+        # llmd-lint: allow[lock-blocking-call] the lock serialises whole RESP round trips over one socket; connect is timeout-bounded and only ever runs under it
         self._sock = socket.create_connection((self.host, self.port),
                                               timeout=self.timeout_s)
         self._buf = b""
 
     def _read_line(self) -> bytes:
         while b"\r\n" not in self._buf:
+            # llmd-lint: allow[lock-blocking-call] reply reads are part of the locked round trip; socket timeout bounds the wait
             chunk = self._sock.recv(65536)
             if not chunk:
                 raise ConnectionError("RESP peer closed")
@@ -126,6 +128,7 @@ class _RespClient:
 
     def _read_exact(self, n: int) -> bytes:
         while len(self._buf) < n + 2:
+            # llmd-lint: allow[lock-blocking-call] reply reads are part of the locked round trip; socket timeout bounds the wait
             chunk = self._sock.recv(65536)
             if not chunk:
                 raise ConnectionError("RESP peer closed")
@@ -159,6 +162,7 @@ class _RespClient:
             if self._sock is None:
                 self._connect()
             try:
+                # llmd-lint: allow[lock-blocking-call] pipelining contract: one writer sends the whole batch and drains every reply before the lock is released
                 self._sock.sendall(b"".join(_resp_encode(*c) for c in commands))
                 return [self._read_reply() for _ in commands]
             except (OSError, ConnectionError):

@@ -142,8 +142,7 @@ class _Family:
         if self.labelnames:
             raise ValueError(f"{self.name}: family has labels; use .labels()")
         key = ()
-        # double-checked fast path: a dict get is atomic under the GIL and
-        # the miss path re-checks via setdefault under the lock
+        # llmd-lint: allow[lock-unguarded-read] double-checked fast path: dict get is atomic under the GIL and the miss path re-checks via setdefault under the lock
         child = self._children.get(key)
         if child is None:
             with self._lock:

@@ -305,11 +305,15 @@ class World:
         if self.failed is not None:
             raise WorldError(self.failed)
 
+    def _is_closing(self) -> bool:
+        with self._lock:
+            return self._closing
+
     def _watch(self) -> None:
-        while not self._closing:
+        while not self._is_closing():
             for r, p in enumerate(self.procs, start=1):
                 code = p.poll()
-                if code is not None and code != 0 and not self._closing:
+                if code is not None and code != 0 and not self._is_closing():
                     self.failed = f"rank {r} exited with code {code}"
                     _kill(self.procs)
                     for s in self.socks:

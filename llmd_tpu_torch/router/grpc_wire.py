@@ -1349,6 +1349,9 @@ class Channel:
         return call
 
     async def close(self) -> None:
-        if self._conn is not None:
-            await self._conn.close()
-            self._conn = None
+        """Close the connection, after any connect in flight (which holds the
+        lock) has finished: that one is closed too, not left open."""
+        async with self._lock:
+            if self._conn is not None:
+                await self._conn.close()
+                self._conn = None

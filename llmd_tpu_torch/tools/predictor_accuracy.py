@@ -1,15 +1,30 @@
-"""Predictor accuracy from a live scrape (port of the live mode of
-``tools/predictor_accuracy.py``: ``accuracy_from_metrics`` and
-``--from-metrics``, the same fold and artifact).
+"""Predictor accuracy artifact (port of ``tools/predictor_accuracy.py``: both
+modes, the same flags, artifact keys and exit codes).
 
-Reads a router ``/metrics`` scrape (or a saved exposition file) and reports
-the decision plane's calibration accounting — the
-``llmd_tpu:predictor_calibration_*`` families the live exporter
-(obs/decisions.py) folds at every retirement: rolling APE, sample count and
-mean signed error per (objective, model). ``tools/decision_check.py`` checks
-that a scrape of its router folds to a non-empty result.
+Offline (the default; ``tools/predictor_offline.py``, which holds the engine
+run, so this module stays host code for the live mode): serves a
+multi-regime workload on the port's engine (on the card; on the CPU with
+``--cpu``), trains the port's GBDT latency
+predictor (``predictor/model.LatencyModel`` over ``predictor/gbdt.py``) from
+the engine-emitted traces (the reference's train-on-live-traffic loop,
+docs/architecture/advanced/latency-predictor.md), evaluates on a held-out
+interleaved slice, and writes the artifact (``--out``) with TTFT/TPOT MAPE
+against the reference's ~5% headline figure (latency-predictor.md:58). Skill
+against the constant-mean baseline is the portable claim: absolute latencies
+on the CPU jitter with the machine's load. The repo's ``PREDICTOR_ACCURACY.json``
+is a TPU-era artifact: a run on the port names its own ``--out``.
 
-Usage: python -m llmd_tpu_torch.tools.predictor_accuracy --from-metrics
+Live mode (``--from-metrics URL-or-path``): reads a router ``/metrics`` scrape
+(or a saved exposition file) and reports the decision plane's calibration
+accounting — the ``llmd_tpu:predictor_calibration_*`` families the live
+exporter (obs/decisions.py) folds at every retirement: rolling APE, sample
+count and mean signed error per (objective, model).
+``tools/decision_check.py`` checks that a scrape of its router folds to a
+non-empty result.
+
+Usage: python -m llmd_tpu_torch.tools.predictor_accuracy [--cpu] [--reps 12]
+           [--model tiny] [--out PREDICTOR_ACCURACY.json]
+       python -m llmd_tpu_torch.tools.predictor_accuracy --from-metrics
            URL-or-path [--out PREDICTOR_ACCURACY.json]
 """
 
@@ -90,12 +105,22 @@ def _from_metrics(source: str, out_path: str) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--from-metrics", metavar="URL_OR_PATH", required=True,
-                    help="read live llmd_tpu:predictor_calibration_* families from a "
-                         "/metrics URL or a saved exposition file")
+    ap.add_argument("--cpu", action="store_true")
+    ap.add_argument("--model", default="tiny")
+    ap.add_argument("--reps", type=int, default=12,
+                    help="workload regime repetitions (more = stabler MAPE)")
+    ap.add_argument("--from-metrics", metavar="URL_OR_PATH",
+                    help="read live llmd_tpu:predictor_calibration_* "
+                         "families from a /metrics URL or a saved exposition "
+                         "file instead of serving an offline workload")
     ap.add_argument("--out", default="PREDICTOR_ACCURACY.json")
     args = ap.parse_args(argv)
-    return _from_metrics(args.from_metrics, args.out)
+    if args.from_metrics:
+        return _from_metrics(args.from_metrics, args.out)
+    from llmd_tpu_torch.tools.predictor_offline import offline
+
+    offline(args.model, args.cpu, args.reps, args.out)
+    return 0
 
 
 if __name__ == "__main__":

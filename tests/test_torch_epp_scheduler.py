@@ -267,7 +267,7 @@ def test_yaml_subset_reads_what_pyyaml_writes(doc, flow, indent):
 
 @pytest.mark.parametrize("text,line", [
     ("a: 1\nb: &anchor 2\n", 2), ("a: *alias\n", 1), ("a: !!str 1\n", 1),
-    ("a: |\n  block\n", 1), ("a: plain\n  continued\n", 2), ("when: 2024-01-02\n", 1),
+    ("a: >\n  folded\n", 1), ("a: |2\n  block\n", 1), ("a: plain\n  continued\n", 2), ("when: 2024-01-02\n", 1),
     ("t: 1:30\n", 1), ("---\na: 1\n---\nb: 2\n", 3), ("? complex\n: key\n", 1),
     ("a: [1, 2\n", 1), ("a:\n\t- 1\n", 2), ("%YAML 1.1\na: 1\n", 1),
     ("plugins:\n  - {name: a, type: b}\n   - {name: c}\n", 3),

@@ -11,7 +11,9 @@ port's router and sidecar, and a trace replayed through it), and so do the
 gateway fronts: one ext_proc stream picks an endpoint, and a pod watch re-lists
 after its stream ends. So does the batch plane: one multipart upload and one
 batch through the port's OpenAI Batch gateway, one item through the async
-processor, and one run of the load harness."""
+processor, and one run of the load harness. So does the tooling, with the
+reference's top-level ``tools`` package blocked too: the port's lint runs
+clean over the port and the manifest validator finds ``deploy/`` valid."""
 
 import re
 import subprocess
@@ -24,7 +26,7 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 
 # Blocks the top-level names jax, jaxlib, llmd_tpu, safetensors, transformers,
-# aiohttp, msgpack, ml_dtypes, yaml, grpc, google and sklearn EXACTLY (a prefix match would
+# aiohttp, msgpack, ml_dtypes, yaml, grpc, google, sklearn and tools EXACTLY (a prefix match would
 # also block llmd_tpu_torch), then imports every module of the port and
 # chip_smoke.py, and fits and queries the latency model (the reference imports
 # scikit-learn inside ``fit``, which an import-time check alone would miss). Then
@@ -44,7 +46,7 @@ _BLOCKED_IMPORT = r"""
 import importlib, importlib.abc, pkgutil, sys
 
 BLOCKED = {"jax", "jaxlib", "llmd_tpu", "safetensors", "transformers", "aiohttp",
-           "msgpack", "ml_dtypes", "yaml", "grpc", "google", "sklearn"}
+           "msgpack", "ml_dtypes", "yaml", "grpc", "google", "sklearn", "tools"}
 
 
 class Blocker(importlib.abc.MetaPathFinder):
@@ -266,6 +268,17 @@ async def batch_path():
 
 asyncio.run(batch_path())
 
+# the port's tooling: its lint over the port and the manifest validator over
+# deploy/ (the reference's tools/ package is blocked above)
+import contextlib, io
+from llmd_tpu_torch.tools.llmd_lint.__main__ import main as lint_main
+from llmd_tpu_torch.tools.validate_manifests import validate
+
+with contextlib.redirect_stdout(io.StringIO()) as lint_out:
+    assert lint_main([]) == 0, lint_out.getvalue()[-3000:]
+assert "llmd-lint: OK" in lint_out.getvalue()
+assert validate("deploy") == []
+
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 # the serving surface's modules are among them; pyzmq is imported only when a
@@ -357,6 +370,17 @@ assert {"llmd_tpu_torch.batch", "llmd_tpu_torch.batch.store", "llmd_tpu_torch.ba
         "llmd_tpu_torch.tools.chaos_check", "llmd_tpu_torch.tools.kv_plane_check",
         "llmd_tpu_torch.tools.decision_check", "llmd_tpu_torch.tools.predictor_accuracy",
         "llmd_tpu_torch.tools.perf_regress"} <= set(names)
+# and the tooling's: the lint framework and its shims, the operator CLIs
+assert {"llmd_tpu_torch.tools.llmd_lint", "llmd_tpu_torch.tools.llmd_lint.core",
+        "llmd_tpu_torch.tools.llmd_lint.config", "llmd_tpu_torch.tools.llmd_lint.locks",
+        "llmd_tpu_torch.tools.llmd_lint.hotpath", "llmd_tpu_torch.tools.llmd_lint.envcontract",
+        "llmd_tpu_torch.tools.llmd_lint.metrics_contract",
+        "llmd_tpu_torch.tools.llmd_lint.events_contract",
+        "llmd_tpu_torch.tools.llmd_lint.__main__", "llmd_tpu_torch.tools.lint_envvars",
+        "llmd_tpu_torch.tools.lint_events", "llmd_tpu_torch.tools.lint_metrics",
+        "llmd_tpu_torch.tools.dump_flight", "llmd_tpu_torch.tools.rollout",
+        "llmd_tpu_torch.tools.validate_manifests",
+        "llmd_tpu_torch.tools.predictor_offline"} <= set(names)
 assert "zmq" not in sys.modules
 print(len(names))
 """
@@ -370,8 +394,8 @@ def test_port_imports_without_jax_or_reference_package():
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|jaxlib|llmd_tpu|ml_dtypes)\b(?!_)"
-    r"|from\s+(jax|jaxlib|llmd_tpu|ml_dtypes)\b(?!_))",
+    r"^\s*(import\s+(jax|jaxlib|llmd_tpu|ml_dtypes|tools|yaml|aiohttp)\b(?!_)"
+    r"|from\s+(jax|jaxlib|llmd_tpu|ml_dtypes|tools|yaml|aiohttp)\b(?!_))",
     re.M)
 
 
@@ -385,7 +409,10 @@ def test_source_scan_finds_no_jax_or_reference_imports():
     assert _FORBIDDEN.search("from llmd_tpu.models import x")
     assert _FORBIDDEN.search("import jax.numpy as jnp")
     assert _FORBIDDEN.search("    import ml_dtypes  # noqa")
+    assert _FORBIDDEN.search("from tools.llmd_lint import core")
+    assert _FORBIDDEN.search("    import yaml")
     assert not _FORBIDDEN.search("from llmd_tpu_torch.models import x")
+    assert not _FORBIDDEN.search("from llmd_tpu_torch.tools.llmd_lint import core")
 
 
 def test_lora_module_stands_alone():
