@@ -438,7 +438,27 @@ thread's stack on stderr):
             fails the phase; then the same for a speculative engine's verify
             steps on echo prompts (a deliberate ``.item()`` after each run
             must be reported). The phase prints its seconds.
-26. pool    the pool and autoscaling (``phase_pool``): the port's
+26. gate    the port's one-command gate's checks (``phase_gate``): in this
+            process on the card, ``util_check`` (tiny, two rounds: goodput
+            fractions sum to 1, padding efficiency in (0, 1], the capture
+            count flat, ledger = ``/metrics``; the H100's peak entry gives
+            MFU and MBU samples in (0, 1]), ``device_obs_check`` (watchdog,
+            fabric probe, HBM series of ``cuda:0`` equal to the allocator's
+            bytes, a profiler window holding device kernels),
+            ``structured_check`` (both engine variants: every constrained
+            chat conforms, the bad bodies answer 400, no 5xx),
+            ``kv_durability_check`` (five rungs token-identical,
+            scale-to-zero restore >= 90%, a store kill without 5xx), and
+            ``moe_check`` with the counts set to 0 before it: K2 launched
+            twice a layer a forward of the sorted engine, K4 of the two
+            einsum engines, the counts equal to those, no plain version.
+            ``warm_start_probe`` over a fresh cache directory (the cold
+            launch builds ``paged_attention.cu``; the warm one builds
+            nothing) runs as a subprocess beside all of these, started
+            first, and so does ``python -m llmd_tpu_torch.tools.dryrun 8`` (5
+            engines over a gloo world of 8 CPU rank processes) after them. Each gate's seconds, the speedup, the dry run's n
+            and wall and the phase's seconds are printed.
+27. pool    the pool and autoscaling (``phase_pool``): the port's
             ``RouterServer`` (flow control on) over an empty pool, the port's
             ``PoolController`` in front of it (HPA, 1 to 2 replicas, a 1 s
             step) launching llama-1b replicas as processes
@@ -467,8 +487,9 @@ thread's stack on stderr):
             rise; the share of tokens equal to the aggregated replica's is
             printed, not bounded. The pool families on the routers (desired,
             ready, decisions by floor / hpa / replica_dead, warm starts by
-            kind), then ``python -m llmd_tpu_torch.tools.slo_check`` and
-            ``pd_check`` as subprocesses, both exit 0. Attainment, e2e p50 /
+            kind). ``python -m llmd_tpu_torch.tools.slo_check`` and
+            ``pd_check`` (host only) run as subprocesses beside the floor's
+            cold launch, both exit 0. Attainment, e2e p50 /
             p99, every launch's seconds and the phase's seconds are printed.
             The replicas are processes of their own: their kernel launches
             are not counted here.
@@ -482,10 +503,12 @@ no result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import faulthandler
 import functools
+import io
 import itertools
 import json
 import os
@@ -8679,6 +8702,158 @@ def phase_tools(device, card: str, model: str = "llama-1b", rollout_kw=None,
     return out
 
 
+# --------------------------------------------------------------------------
+# The port's one-command gate: the gates it composes, on the card
+# --------------------------------------------------------------------------
+
+GATE_DRYRUN_N = 8
+
+
+def _gate_fail(name: str, run: dict) -> AssertionError:
+    return AssertionError(f"gate: {name} exited {run['rc']}: {run['stdout'][-3000:]}"
+                          f"\n{run['stderr'][-3000:]}")
+
+
+def _gate_call(name: str, fn, card: str):
+    """``fn()`` with its printed lines logged as "gate:" lines, and its
+    seconds: (result, seconds)."""
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            got = fn()
+    finally:
+        for ln in buf.getvalue().splitlines():
+            if ln.startswith(("util-check:", "device-obs:", "moe-check:")):
+                log(f"gate: {ln}")
+    seconds = time.perf_counter() - t0
+    log(f"gate: {name} in {seconds:.1f} s on {card}")
+    return got, seconds
+
+
+def gate_checks(device, card: str) -> dict:
+    """``util_check``, ``device_obs_check``, ``structured_check`` and
+    ``kv_durability_check`` on ``device``, in this process (the CLIs' own
+    functions; ``python -m llmd_tpu_torch.tools.ci_gate`` runs the CLIs): on
+    the card the card-only assertions hold (MFU / MBU samples in (0, 1], the
+    HBM series at the allocator's bytes, the profiler's device kernels), and
+    each verdict is printed with its seconds."""
+    from llmd_tpu_torch.tools import (device_obs_check, kv_durability_check,
+                                      structured_check, util_check)
+
+    out = {}
+    for name, fn in (("util_check", util_check.check),
+                     ("device_obs_check", device_obs_check.check),
+                     ("structured_check", structured_check.run),
+                     ("kv_durability_check", kv_durability_check.run)):
+        got, seconds = _gate_call(name, functools.partial(fn, device), card)
+        if name in ("structured_check", "kv_durability_check"):
+            key = next(iter(got))
+            if got[key] != "ok":
+                raise AssertionError(f"gate: {name} {got[key]}: {json.dumps(got)[:3000]}")
+            log(f"gate: {name} {got[key]}: "
+                + (f"statuses {got['statuses']}" if name == "structured_check" else
+                   f"{got['requests']} requests, {got['client_5xx']} 5xx, "
+                   f"scale-to-zero hit ratio {got['scale_to_zero']['hit_ratio']}"))
+        out[name] = {"seconds": seconds}
+        _empty()
+    return out
+
+
+def gate_moe(device, card: str) -> dict:
+    """``moe_check`` in this process on the card, the counts set to 0 just
+    before it: every expert GEMM of the sorted engine's forwards on K2 and of
+    the two einsum engines' on K4 (two a MoE layer a forward), the wrappers'
+    counts equal to those, no plain version run."""
+    from llmd_tpu_torch.models import get_model_config
+    from llmd_tpu_torch.tools import moe_check
+
+    zero_counts()
+    got, seconds = _gate_call("moe_check", functools.partial(moe_check.check, device), card)
+    launches, plain = read_counts()
+    if device.type != "cuda":  # a rehearsal: the plain versions ran
+        return {"launches": launches, "einsum_dropped": got["einsum_dropped"],
+                "seconds": seconds}
+    layers = get_model_config("tiny-moe").num_layers
+    for run in ("sorted", "einsum_parity", "einsum"):
+        want = 2 * layers * got[run]["forwards"]
+        if got[run]["launches"] != want or want == 0:
+            raise AssertionError(f"gate: moe_check {run} launched {got[run]['launches']}, "
+                                 f"{want} forwards' worth expected")
+    k2 = got["sorted"]["launches"]
+    k4 = got["einsum_parity"]["launches"] + got["einsum"]["launches"]
+    if (launches["ragged_grouped_gemm"], launches["grouped_gemm"]) != (k2, k4) or any(
+            plain.values()):
+        raise AssertionError(f"gate: moe_check counts {launches}, plain {plain}; the "
+                             f"engines' forwards give K2 {k2}, K4 {k4}")
+    log(f"gate: moe_check K2 {k2} launches over the sorted engine's "
+        f"{got['sorted']['forwards']} forwards, K4 {k4} over the einsum engines' "
+        f"{got['einsum_parity']['forwards']} + {got['einsum']['forwards']} (x {layers} "
+        f"layers x 2); einsum dropped {got['einsum_dropped']}; {seconds:.1f} s on {card}")
+    return {"launches": {"ragged_grouped_gemm": k2, "grouped_gemm": k4},
+            "einsum_dropped": got["einsum_dropped"], "seconds": seconds}
+
+
+def gate_warm_start(card: str, run: dict) -> dict:
+    """``warm_start_probe``'s ``run`` (``_tool``'s) on the card over a fresh
+    cache directory: the cold launch builds the tiny engine's kernel
+    libraries (nvcc), the warm one loads them; exit 0 (the warm launch ran no
+    compiler), the speedup and both ready times printed."""
+    if run["rc"] != 0:
+        raise _gate_fail("warm_start_probe", run)
+    row = json.loads(run["stdout"].strip().splitlines()[-1])
+    cold, warm = row["cold"], row["warm"]
+    log(f"gate: warm_start_probe speedup {row['value']}x: cold ready {cold['ready_s']} s "
+        f"({cold['native_compiles']} native builds of {cold['native_libraries']}), warm "
+        f"ready {warm['ready_s']} s ({warm['native_compiles']} builds); "
+        f"{run['seconds']:.1f} s on {card}")
+    return {"speedup": row["value"], "cold": cold, "warm": warm, "seconds": run["seconds"]}
+
+
+def gate_dryrun(card: str, n: int = GATE_DRYRUN_N, timeout_s: float = 300.0) -> dict:
+    """``python -m llmd_tpu_torch.tools.dryrun N``: every factorisation of n
+    ranks and the three variants served over a gloo world of n CPU
+    processes (5 engines at n = 8); its n and wall printed."""
+    from llmd_tpu_torch.tools.dryrun import ORDERS, factor_mesh
+
+    run = _tool("dryrun", str(n), timeout_s=timeout_s)
+    if run["rc"] != 0:
+        raise _gate_fail("dryrun", run)
+    meshes = [ln for ln in run["stdout"].splitlines() if ln.startswith("dryrun OK:")]
+    want = len({factor_mesh(n, order) for order in ORDERS}) + 3  # + the three variants
+    if len(meshes) != want:
+        raise AssertionError(f"gate: dryrun {n} served {len(meshes)} engines, not {want}: "
+                             f"{meshes}")
+    log(f"gate: dryrun n={n}: {len(meshes)} engines over gloo CPU ranks in "
+        f"{run['seconds']:.1f} s (on the host of {card})")
+    return {"n": n, "engines": len(meshes), "seconds": run["seconds"]}
+
+
+def phase_gate(device, card: str, dryrun_n: int = GATE_DRYRUN_N) -> dict:
+    """The gate phase: the gates the port's ``ci_gate`` composes, on the
+    card in this process (util, device-obs, structured, KV durability; MoE
+    with its K2 / K4 counts held), the warm-start probe and the dry run over
+    a CPU gloo world as subprocesses. The probe's cold launch (nvcc) is most
+    of the phase, so it starts first and the rest runs beside it. On the CPU
+    (a rehearsal) the probe takes ``--cpu`` and the launch counts are not
+    held."""
+    t0 = time.perf_counter()
+    dev_args = () if device.type == "cuda" else ("--cpu",)  # a CPU rehearsal
+    # the pool exits first: the probe has ended before its cache goes
+    with tempfile.TemporaryDirectory(prefix="llmd-warm-") as cache, \
+            concurrent.futures.ThreadPoolExecutor(1) as pool:
+        probe = pool.submit(_tool, "warm_start_probe", *dev_args, "--cache-dir", cache,
+                            timeout_s=600.0)
+        out = {"checks": gate_checks(device, card)}
+        out["moe"] = gate_moe(device, card)
+        _empty()
+        out["dryrun"] = gate_dryrun(card, dryrun_n)
+        out["warm_start"] = gate_warm_start(card, probe.result())
+    out["seconds"] = time.perf_counter() - t0
+    log(f"gate: phase {out['seconds']:.1f} s on {card}")
+    return out
+
+
 POOL_EXTRA = ["--host", "127.0.0.1", "--num-pages", "1024", "--max-batch-size", "64",
               "--prefill-chunk", "256", "--decode-steps", "4"]
 POOL_READY_S = 400.0  # a cold replica compiles its kernels (nvcc) before /health
@@ -9146,7 +9321,9 @@ def phase_pool(device, card: str, model: str = "llama-1b", extra=None, trace_kw=
     """The pool phase: the port's ``PoolController`` (HPA) over engine
     replicas it launches as processes, behind the port's router; a burst
     replayed open loop, the scale back, a killed replica healed, a P/D pool
-    set, the pool families, and the SLO and P/D gates."""
+    set, the pool families, and the SLO and P/D gates. The gates run on the
+    host only, so they start first, beside the floor's cold launch (nvcc),
+    and are done before the burst on the card."""
     import asyncio
 
     t0 = time.perf_counter()
@@ -9154,14 +9331,16 @@ def phase_pool(device, card: str, model: str = "llama-1b", extra=None, trace_kw=
     extra = list(POOL_EXTRA if extra is None else extra)
     if device.type != "cuda":
         extra.append("--cpu")
-    try:
-        out = asyncio.run(_pool_run(device, card, work, model, extra,
-                                    dict(POOL_TRACE, **(trace_kw or {})), n_probe, probe_len,
-                                    probe_tokens, n_pd, pd_len, ready_s, settle_s,
-                                    running_target))
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    out["gates"] = gates = _pool_gates()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host_gates = pool.submit(_pool_gates)
+        try:
+            out = asyncio.run(_pool_run(device, card, work, model, extra,
+                                        dict(POOL_TRACE, **(trace_kw or {})), n_probe,
+                                        probe_len, probe_tokens, n_pd, pd_len, ready_s,
+                                        settle_s, running_target))
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        out["gates"] = gates = host_gates.result()
     log(f"pool: gates slo_check rc {gates['slo_check']['rc']} "
         f"({gates['slo_check']['seconds']:.1f} s), pd_check rc {gates['pd_check']['rc']} "
         f"({gates['pd_check']['seconds']:.1f} s), on the host of {card}")
@@ -9303,6 +9482,8 @@ def main(argv: "list[str] | None" = None) -> int:
     _empty()  # the previous phase's engines
     report["tools"] = tools = phase_tools(device, card)
     _empty()  # the previous phase's engines
+    report["gate"] = gate = phase_gate(device, card)
+    _empty()  # the previous phase's engines
     report["pool"] = pool = phase_pool(device, card)
     report["seconds"] = time.perf_counter() - t_start
     log(f"smoke: all phases {report['seconds']:.1f} s (vision {vision['seconds']:.1f} s, "
@@ -9310,7 +9491,7 @@ def main(argv: "list[str] | None" = None) -> int:
         f"mesh {mesh['seconds']:.1f} s, router {router['seconds']:.1f} s, "
         f"latency {latency['seconds']:.1f} s, gateway {gateway['seconds']:.1f} s, "
         f"batch {batch['seconds']:.1f} s, tools {tools['seconds']:.1f} s, "
-        f"pool {pool['seconds']:.1f} s)")
+        f"gate {gate['seconds']:.1f} s, pool {pool['seconds']:.1f} s)")
     if args.report:
         out = Path(args.report)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -9399,12 +9580,15 @@ def main(argv: "list[str] | None" = None) -> int:
            "obs_launches": obs["moe"]["launches"]["ragged_grouped_gemm"],
            "obs_probe_launches": 2 * obs["moe"]["probe_launches"],
            "launch_launches": launch["modes"]["moe"]["kernel_mode_launches"]
-           ["ragged_grouped_gemm"]} | mesh_keys("ragged_grouped_gemm"),
+           ["ragged_grouped_gemm"],
+           "gate_launches": gate["moe"]["launches"]["ragged_grouped_gemm"]}
+        | mesh_keys("ragged_grouped_gemm"),
         entry("grouped_gemm", gemm_src, "llmd_tpu/ops/grouped_gemm.py:43",
               eng["moe_einsum"]["launches"]["grouped_gemm"], tm["grouped_gemm"]["decode"],
               tm["grouped_gemm"]["prefill"])
         | {"launch_launches": launch["modes"]["moe_einsum"]["kernel_mode_launches"]
-           ["grouped_gemm"]} | mesh_keys("grouped_gemm"),
+           ["grouped_gemm"], "gate_launches": gate["moe"]["launches"]["grouped_gemm"]}
+        | mesh_keys("grouped_gemm"),
         # the fp8 pool variants (mma_fp8): ms etc. at the first shape, the rest beside
         *(fp8_entry(fp8, name, src, replaces, run, first)
           for name, src, replaces, run, first in (

@@ -206,6 +206,9 @@ ALLOWLIST: tuple = (
     AllowEntry("env-undocumented", "CUDA_PATH:",
                "the CUDA toolkit's own variable (external), read by native/build.py "
                "to find nvcc when CUDA_HOME is unset"),
+    AllowEntry("env-undocumented", "OMP_NUM_THREADS:",
+               "the OpenMP runtime's own variable (external): tools/dryrun.py sets it "
+               "to 1 for its rank processes and restores the caller's value after"),
     AllowEntry("metrics-dangling-ref", "llmd_tpu:decision_:",
                "promql.md's prose names the family prefix llmd_tpu:decision_*; "
                "every family under it is in the port's registry "

@@ -42,8 +42,13 @@ REPO = Path(__file__).resolve().parent.parent
 # multipart upload and a batch through the port's ``BatchGateway`` in front of a
 # fake server, one item through the ``AsyncProcessor``, and a ``run_load`` of the
 # load harness against the same fake server.
+GATE_MODULES = ["ci_gate", "structured_check", "moe_check", "device_obs_check", "util_check",
+                "kv_durability_check", "warm_start_probe", "dryrun", "make_checkpoint",
+                "perf_regress"]
+
 _BLOCKED_IMPORT = r"""
 import importlib, importlib.abc, pkgutil, sys
+GATE_MODULES = @GATE_MODULES@
 
 BLOCKED = {"jax", "jaxlib", "llmd_tpu", "safetensors", "transformers", "aiohttp",
            "msgpack", "ml_dtypes", "yaml", "grpc", "google", "sklearn", "tools"}
@@ -279,6 +284,17 @@ with contextlib.redirect_stdout(io.StringIO()) as lint_out:
 assert "llmd-lint: OK" in lint_out.getvalue()
 assert validate("deploy") == []
 
+# the gate: its roster, and the comparator over the pinned files
+import argparse
+from llmd_tpu_torch.tools import ci_gate, perf_regress
+
+roster = ci_gate.stages(argparse.Namespace(quick=True, cpu=True, skip_tests=True,
+                                           skip_bench=False, skip_dryrun=False))
+assert roster[0][0] == "lint-envvars" and roster[-1][0] == "dryrun-multichip-2"
+with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+    assert perf_regress.main(["--candidate", "BENCH_CAMPAIGN_r05.json",
+                              "--baseline", "BENCH_r05.json"]) == 0
+
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 # the serving surface's modules are among them; pyzmq is imported only when a
@@ -381,13 +397,16 @@ assert {"llmd_tpu_torch.tools.llmd_lint", "llmd_tpu_torch.tools.llmd_lint.core",
         "llmd_tpu_torch.tools.dump_flight", "llmd_tpu_torch.tools.rollout",
         "llmd_tpu_torch.tools.validate_manifests",
         "llmd_tpu_torch.tools.predictor_offline"} <= set(names)
+# and the one-command gate's: the gates it composes, the dry run, the checkpoint CLI
+assert {"llmd_tpu_torch.tools." + m for m in GATE_MODULES} <= set(names)
 assert "zmq" not in sys.modules
 print(len(names))
 """
 
 
 def test_port_imports_without_jax_or_reference_package():
-    proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
+    script = _BLOCKED_IMPORT.replace("@GATE_MODULES@", repr(GATE_MODULES))
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert int(proc.stdout.split()[-1]) >= 45  # every module of the port was imported
@@ -539,3 +558,16 @@ def test_router_modules_stand_alone(module):
     assert not _FORBIDDEN.search(src)
     assert not re.search(
         r"^\s*(import|from)\s+(aiohttp|msgpack|yaml|grpc|google|sklearn|torch)\b", src, re.M)
+
+
+@pytest.mark.parametrize("module", GATE_MODULES)
+def test_gate_modules_stand_alone(module):
+    """The one-command gate and the gates, dry run and CLIs it composes keep
+    their own copies of the reference's ``tools/`` scripts and
+    ``__graft_entry__.py``: no jax, no reference package, no ``tools`` and no
+    ``__graft_entry__`` in their sources (the blocked import is the subprocess
+    above; ``perf_regress`` is host code, with no torch either)."""
+    src = (REPO / "llmd_tpu_torch" / "tools" / f"{module}.py").read_text()
+    assert not _FORBIDDEN.search(src)
+    assert not re.search(r"^\s*(import|from)\s+(__graft_entry__|aiohttp|msgpack)\b", src, re.M)
+    assert "__graft_entry__ import" not in src
